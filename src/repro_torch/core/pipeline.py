@@ -1,0 +1,544 @@
+"""Batched multi-layer coded inference engine: the ``CodedPipeline``.
+
+The paper's deployment model (Sec. IV, Fig. 1) pre-stores coded filters on
+the workers and streams a whole CNN's ConvL stack through the coded
+cluster:
+
+  * ``plan_layers``   — compile a ConvL stack (LeNet-5 / AlexNet / VGG-16
+    descriptors from ``repro_torch.models.cnn``) into ``CodedLayerSpec``s,
+    choosing per-layer ``(k_a, k_b)`` via the Sec. IV-E cost model unless
+    pinned by the caller.
+  * ``CodedPipeline`` — encodes every layer's filters exactly once at
+    construction (the resident coded-filter store), keeps one worker
+    program per worker-program signature, and runs decode -> relu -> pool
+    -> re-encode between layers for batched ``(B, C, H, W)`` inputs.
+
+Programs are eager callables held in dicts keyed like the reference's jit
+caches; each ``Program`` records the argument shapes it has seen, so the
+bounded-program contract (at most geometries x buckets shape signatures)
+is checked the same way the reference counts jit traces.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Sequence
+
+import numpy as np
+import torch
+
+from ..devices import resolve_device
+from ..kernels.conv2d.ops import coded_transition
+from .cost import CostWeights, optimal_partition
+from .crme import recovery_matrix
+from .fcdcc import CodedConv2d, FcdccPlan, check_backend
+from .nsctc import encode_tensor_list, group_by_worker
+from .partition import ConvGeometry, merge_output, partition_transition
+
+__all__ = [
+    "CodedLayerSpec",
+    "CodedPipeline",
+    "Program",
+    "plan_layers",
+    "build_cnn_pipeline",
+    "relu_pool",
+]
+
+
+class Program:
+    """An eager program of the pipeline: calls ``fn`` and records the
+    shapes and dtypes of the tensor arguments it was called with — the
+    port's count of specialised programs (what a jit trace or a CUDA graph
+    capture would be keyed on)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.signatures: set[tuple] = set()
+
+    def __call__(self, *args):
+        # set.add of a hashable is atomic under the GIL; worker threads call
+        # the one shared cluster program concurrently
+        self.signatures.add(tuple(
+            (tuple(a.shape), str(a.dtype)) for a in args
+            if isinstance(a, torch.Tensor)))
+        return self.fn(*args)
+
+
+@dataclasses.dataclass(frozen=True)
+class CodedLayerSpec:
+    """One compiled ConvL of a coded pipeline (static plan + geometry)."""
+
+    name: str
+    plan: FcdccPlan
+    geo: ConvGeometry
+    pool: int = 1  # max-pool factor applied after relu
+
+    @property
+    def out_hw(self) -> int:
+        """Spatial size seen by the next layer (after pooling)."""
+        return self.geo.out_h // self.pool if self.pool > 1 else self.geo.out_h
+
+    @property
+    def program_key(self) -> tuple:
+        """Worker-program signature: layers sharing it share one program."""
+        return (self.plan.ell_a, self.plan.ell_b, self.geo.stride)
+
+
+def relu_pool(y: torch.Tensor, pool: int) -> torch.Tensor:
+    """ReLU then ``pool x pool`` max-pool on the trailing (H, W) dims."""
+    y = torch.relu(y)
+    if pool == 1:
+        return y
+    h, w = y.shape[-2:]
+    h2, w2 = h - h % pool, w - w % pool
+    y = y[..., :h2, :w2]
+    return y.reshape(tuple(y.shape[:-2]) + (h2 // pool, pool, w2 // pool, pool)
+                     ).amax(dim=(-3, -1))
+
+
+def _choose_kab(geo0: ConvGeometry, q: int, n: int, weights: CostWeights):
+    """Cost-optimal feasible (k_a, k_b) with k_a*k_b = q and delta <= n."""
+    _, _, landscape = optimal_partition(geo0, q, weights)
+    for kab, _cost in sorted(landscape.items(), key=lambda kv: kv[1]):
+        try:
+            FcdccPlan(n=n, k_a=kab[0], k_b=kab[1])
+        except ValueError:
+            continue
+        return kab
+    raise ValueError(f"no feasible (k_a, k_b) for q={q} on n={n} workers")
+
+
+def plan_layers(
+    layers: Iterable,
+    input_hw: int,
+    n: int,
+    *,
+    q: int | None = None,
+    default_kab: tuple[int, int] | None = None,
+    per_layer_kab: dict | None = None,
+    weights: CostWeights = CostWeights(),
+) -> list[CodedLayerSpec]:
+    """Compile a ConvL stack into per-layer coded specs.
+
+    ``layers``: descriptors with ``name/in_ch/out_ch/kernel/stride/padding/
+    pool`` attributes.  Each layer's (k_a, k_b) comes from
+    ``per_layer_kab[name]``, then ``default_kab``, then the cost-optimal
+    feasible split of the ``q``-subtask budget (Sec. IV-E).
+    """
+    if q is None and default_kab is None:
+        raise ValueError("need q (subtask budget) or default_kab")
+    specs = []
+    hw = input_hw
+    for layer in layers:
+        geo0 = ConvGeometry(
+            in_channels=layer.in_ch, out_channels=layer.out_ch, height=hw,
+            width=hw, kernel_h=layer.kernel, kernel_w=layer.kernel,
+            stride=layer.stride, padding=layer.padding,
+        )
+        kab = (per_layer_kab or {}).get(layer.name, default_kab)
+        if kab is None:
+            kab = _choose_kab(geo0, q, n, weights)
+        k_a, k_b = kab
+        plan = FcdccPlan(n=n, k_a=k_a, k_b=k_b)
+        geo = dataclasses.replace(geo0, k_a=k_a, k_b=k_b)
+        spec = CodedLayerSpec(layer.name, plan, geo, getattr(layer, "pool", 1))
+        specs.append(spec)
+        hw = spec.out_hw
+    return specs
+
+
+class CodedPipeline:
+    """A whole CNN ConvL stack compiled against one coded cluster.
+
+    Construction encodes every layer's filters exactly once (asserted by
+    ``filter_encode_calls``) onto ``device``; running feeds a
+    ``(B, C, H, W)`` batch through encode -> coded worker convs -> decode
+    -> relu -> pool per layer.  ``repro_torch.runtime.FcdccCluster`` runs
+    the same specs and filters against straggling workers.
+    """
+
+    def __init__(self, specs: Sequence[CodedLayerSpec], params: dict, *,
+                 backend: str = "kernel", fused_worker: bool = True,
+                 bucket_sizes: Sequence[int] | None = None,
+                 fuse_transitions: bool = False,
+                 pool: str | None = None,
+                 device: str | torch.device = "cuda"):
+        specs = list(specs)
+        if not specs:
+            raise ValueError("empty pipeline")
+        ns = {s.plan.n for s in specs}
+        if len(ns) != 1:
+            raise ValueError(f"all layers must target the same cluster, got n={ns}")
+        self.specs = specs
+        self.n = ns.pop()
+        self.backend = check_backend(backend)
+        self.device = resolve_device(device)
+        # worker-pool preference carried to the cluster / server that adopts
+        # this pipeline (None = auto-select there)
+        self.pool = pool
+        # partition-resident transitions: between ConvLs the activation is
+        # decoded only to the (k_a, k_b) grid, relu+pool run per spatial
+        # partition with halo exchange, and the partitions re-encode
+        # directly; the final layer always merges
+        self.fuse_transitions = fuse_transitions
+        # batch-size buckets: callers pad request batches up to one of these
+        # (``pad_to_bucket``) so the program set stays bounded
+        self.bucket_sizes: tuple[int, ...] | None = (
+            self.normalize_buckets(bucket_sizes) if bucket_sizes else None
+        )
+        self.layers = [
+            CodedConv2d(s.plan, s.geo, backend=backend, fused_worker=fused_worker)
+            for s in specs
+        ]
+        # resident coded filters: encoded exactly once, reused every run
+        self.coded_filters = [
+            layer.encode_filters(torch.as_tensor(params[s.name], device=self.device))
+            for s, layer in zip(specs, self.layers)
+        ]
+        self.input_encode_calls = 0
+        # program caches, keyed like the reference's ----------------------
+        self._encoders: dict[int, Program] = {}
+        self._cluster_programs: dict[tuple, Program] = {}  # per-worker call
+        self._batch_programs: dict[tuple, Program] = {}  # looped over workers
+        self._decoders: dict[int, Program] = {}  # one per layer, any subset
+        self._transitions: dict[tuple, Program] = {}  # by transition key
+        self._all_encode_columns: dict[int, torch.Tensor] = {}  # full-n
+
+    @staticmethod
+    def normalize_buckets(bucket_sizes: Sequence[int]) -> tuple[int, ...]:
+        """Sorted, deduplicated, validated bucket tuple."""
+        buckets = tuple(sorted(set(int(b) for b in bucket_sizes)))
+        if not buckets or buckets[0] < 1:
+            raise ValueError(f"bucket sizes must be >= 1, got {bucket_sizes}")
+        return buckets
+
+    # -- introspection -----------------------------------------------------
+    @property
+    def input_shape(self) -> tuple[int, int, int]:
+        """Per-image ``(C, H, W)`` the first layer expects."""
+        geo = self.specs[0].geo
+        return (geo.in_channels, geo.height, geo.width)
+
+    @property
+    def input_dtype(self) -> torch.dtype:
+        """Request dtype: everything is cast to the coded-filter dtype."""
+        return self.coded_filters[0].dtype
+
+    @property
+    def num_geometries(self) -> int:
+        """Distinct (program key, geometry) pairs."""
+        return len({(s.program_key, s.geo) for s in self.specs})
+
+    @staticmethod
+    def _transition_key(spec: CodedLayerSpec, nxt: CodedLayerSpec) -> tuple:
+        """Transition-program signature: everything the program closes over."""
+        return (spec.geo, spec.pool, nxt.geo, nxt.plan.ell_a)
+
+    @property
+    def num_transitions(self) -> int:
+        """Distinct fused transition signatures (zero when unfused)."""
+        if not self.fuse_transitions:
+            return 0
+        return len({self._transition_key(s, n)
+                    for s, n in zip(self.specs, self.specs[1:])})
+
+    @property
+    def transition_program_traces(self) -> int:
+        """Shape signatures seen across the transition programs."""
+        return sum(len(fn.signatures) for fn in self._transitions.values())
+
+    @property
+    def program_trace_bound(self) -> int:
+        """The bounded-program contract under bucketing: worker plus
+        transition shape signatures never exceed (worker geometries + fused
+        transition geometries) x buckets."""
+        buckets = len(self.bucket_sizes) if self.bucket_sizes else 1
+        return (self.num_geometries + self.num_transitions) * buckets
+
+    @property
+    def filter_encode_calls(self) -> int:
+        """Total ``encode_filters`` calls (== layers under encode-once)."""
+        return sum(layer.filter_encode_calls for layer in self.layers)
+
+    @property
+    def worker_program_traces(self) -> int:
+        """Shape signatures seen across the worker programs of both caches."""
+        return sum(len(fn.signatures)
+                   for cache in (self._batch_programs, self._cluster_programs)
+                   for fn in cache.values())
+
+    def layer_delta(self, idx: int) -> int:
+        return self.specs[idx].plan.delta
+
+    # -- batch-size bucketing ----------------------------------------------
+    @property
+    def max_batch(self) -> int | None:
+        return self.bucket_sizes[-1] if self.bucket_sizes else None
+
+    def bucketize(self, batch: int) -> int:
+        """Smallest bucket >= ``batch`` (identity when unbucketed)."""
+        if self.bucket_sizes is None:
+            return batch
+        for b in self.bucket_sizes:
+            if b >= batch:
+                return b
+        raise ValueError(
+            f"batch {batch} exceeds the largest bucket {self.bucket_sizes[-1]}")
+
+    def pad_to_bucket(self, x: torch.Tensor, axis: int = 0) -> tuple[torch.Tensor, int]:
+        """Zero-pad a batch up to its bucket size along ``axis`` (0 for the
+        plain batch, 2 for mid-stack coded shares ``(n, ell_a, B, ...)``).
+        Zero rows encode to zero shares, convolve to zero and stay zero
+        through relu/pool/halo, so they ride the stack as dead weight.
+        Returns ``(padded, real_batch)``."""
+        b = x.shape[axis]
+        bucket = self.bucketize(b)
+        if bucket == b:
+            return x, b
+        pad_shape = tuple(x.shape[:axis]) + (bucket - b,) + tuple(x.shape[axis + 1:])
+        return torch.cat([x, x.new_zeros(pad_shape)], dim=axis), b
+
+    # -- program caches ----------------------------------------------------
+    def _on_device(self, m) -> torch.Tensor:
+        """A host float64 code matrix as a device tensor in the input dtype."""
+        return torch.as_tensor(m, dtype=self.input_dtype, device=self.device)
+
+    def encoder(self, idx: int) -> Program:
+        """APCP+encode program for layer ``idx`` (``encode_inputs``)."""
+        fn = self._encoders.get(idx)
+        if fn is None:
+            fn = self._encoders[idx] = Program(self.layers[idx].encode_inputs)
+        return fn
+
+    def worker_program(self, idx: int, *, over_workers: bool = True) -> Program:
+        """The coded worker program for layer ``idx``: over all selected
+        workers (``(m, ell_a, ...)`` shares, the single-process path) or
+        for one worker (the threaded cluster).  Layers with the same
+        ``program_key`` share one program."""
+        cache = self._batch_programs if over_workers else self._cluster_programs
+        key = self.specs[idx].program_key
+        fn = cache.get(key)
+        if fn is None:
+            compute = self.layers[idx].worker_compute
+            if over_workers:
+                def compute_all(xe, ke, _compute=compute):
+                    return torch.stack([_compute(xe[j], ke[j])
+                                        for j in range(xe.shape[0])])
+                fn = cache[key] = Program(compute_all)
+            else:
+                fn = cache[key] = Program(compute)
+        return fn
+
+    def encode_columns(self, idx: int, worker_ids: tuple[int, ...]) -> np.ndarray:
+        """The A-code encoding columns of the selected workers (host numpy):
+        encoding with them produces only those workers' shares."""
+        code = self.layers[idx].a_code
+        return np.concatenate([code.worker_columns(i) for i in worker_ids], axis=1)
+
+    def encode_columns_all(self, idx: int) -> torch.Tensor:
+        """The full-n A-code encode columns of layer ``idx`` as a resident
+        device tensor (one per layer; the cluster's fused rounds re-encode
+        for all n workers every round)."""
+        m = self._all_encode_columns.get(idx)
+        if m is None:
+            m = self._all_encode_columns[idx] = self._on_device(
+                self.layers[idx].a_code.matrix)
+        return m
+
+    def decode_matrix(self, idx: int, worker_ids: tuple[int, ...]) -> np.ndarray:
+        """The QxQ decode inverse of layer ``idx`` for the surviving subset,
+        in float64 on the host (callers cast it to the device dtype)."""
+        layer = self.layers[idx]
+        e = recovery_matrix(layer.a_code, layer.b_code, list(worker_ids))
+        return np.linalg.inv(e.T)
+
+    def decoder_fn(self, idx: int) -> Program:
+        """The decode+merge+relu+pool program of layer ``idx``, taking
+        ``(outs, decode_matrix)``; the matrix is an argument, so any subset
+        reuses the one program."""
+        spec = self.specs[idx]
+        fn = self._decoders.get(idx)
+        if fn is None:
+            q = spec.plan.k_a * spec.plan.k_b
+
+            def dec(outs, d, _q=q, _geo=spec.geo, _pool=spec.pool):
+                rows = outs.reshape(outs.shape[0] * outs.shape[1], -1)
+                true_rows = d.to(rows.dtype) @ rows
+                blocks = true_rows.reshape((_q,) + tuple(outs.shape[2:]))
+                return relu_pool(merge_output(blocks, _geo), _pool)
+
+            fn = self._decoders[idx] = Program(dec)
+        return fn
+
+    def decoder(self, idx: int, worker_ids: tuple[int, ...]):
+        """``decoder_fn`` with the subset's decode inverse bound."""
+        fn = self.decoder_fn(idx)
+        d = self._on_device(self.decode_matrix(idx, worker_ids))
+        return lambda outs: fn(outs, d)
+
+    def transition_fn(self, idx: int) -> Program:
+        """The partition-resident transition program between ConvL ``idx``
+        and ``idx + 1``, taking ``(outs, decode_matrix,
+        next_encode_columns)``: decode only to the partition grid with the
+        ReLU in the decode epilogue, per-partition max-pool with halo
+        exchange, re-slice into the next layer's APCP parts, re-encode.  On
+        the kernel backend both GEMMs run on K2.  Adjacent pairs with the
+        same transition signature share one program."""
+        if not 0 <= idx < len(self.specs) - 1:
+            raise ValueError(f"no transition after layer {idx} "
+                             f"({len(self.specs)} layers)")
+        key = self._transition_key(self.specs[idx], self.specs[idx + 1])
+        fn = self._transitions.get(key)
+        if fn is None:
+            spec, nxt = self.specs[idx], self.specs[idx + 1]
+            q = spec.plan.k_a * spec.plan.k_b
+            ell_next = nxt.plan.ell_a
+            geo, pool, geo_next = spec.geo, spec.pool, nxt.geo
+
+            def assemble(blocks):
+                # relu already applied by the decode epilogue
+                return partition_transition(blocks, geo, pool, geo_next,
+                                            relu=False)
+
+            if self.backend == "kernel":
+                def trans(outs, d, m_next):
+                    coded = coded_transition(outs, d, m_next, assemble)
+                    return group_by_worker(coded, ell_next)
+            else:
+                def trans(outs, d, m_next):
+                    rows = outs.reshape(outs.shape[0] * outs.shape[1], -1)
+                    blocks = torch.relu(d.to(rows.dtype) @ rows).reshape(
+                        (q,) + tuple(outs.shape[2:]))
+                    coded = encode_tensor_list(assemble(blocks), m_next)
+                    return group_by_worker(coded, ell_next)
+
+            fn = self._transitions[key] = Program(trans)
+        return fn
+
+    # -- execution ---------------------------------------------------------
+    def layer_worker_ids(self, idx: int, worker_ids=None) -> tuple[int, ...]:
+        """The survivors layer ``idx`` decodes from: the first delta of the
+        available workers (all n when ``worker_ids`` is None)."""
+        delta = self.layer_delta(idx)
+        avail = list(range(self.n)) if worker_ids is None else list(worker_ids)
+        if len(avail) < delta:
+            raise ValueError(
+                f"layer {self.specs[idx].name} needs delta={delta} workers, "
+                f"got {len(avail)}")
+        return tuple(avail[:delta])
+
+    def _as_input(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=self.input_dtype, device=self.device)
+
+    def run(self, x, worker_ids=None) -> torch.Tensor:
+        """Coded inference of the whole ConvL stack.
+
+        ``x``: ``(B, C, H, W)`` batch or one ``(C, H, W)`` image.
+        ``worker_ids``: the available workers (any >= delta subset of n per
+        layer decodes to the same output); default all n.
+        """
+        if self.fuse_transitions:
+            return self.run_prepared(x, self.prepare(worker_ids))
+        x = self._as_input(x)
+        squeeze = x.ndim == 3
+        if squeeze:
+            x = x[None]
+        for idx in range(len(self.layers)):
+            ids = self.layer_worker_ids(idx, worker_ids)
+            self.input_encode_calls += 1
+            m_sel = self._on_device(self.encode_columns(idx, ids))
+            xe = self.encoder(idx)(x, m_sel)
+            sel = torch.as_tensor(ids, device=self.device)
+            outs = self.worker_program(idx)(xe, self.coded_filters[idx][sel])
+            x = self.decoder(idx, ids)(outs)
+        return x[0] if squeeze else x
+
+    def prepare(self, worker_ids=None) -> list[tuple]:
+        """Pre-pick every layer's survivor subset and build the code
+        artifacts up front: per-layer ``(encode_columns, selector,
+        decode_matrix)`` as device tensors.
+
+        ``worker_ids`` is one available-worker list shared by all layers
+        (each decodes from its first delta) or a per-layer sequence of
+        subsets."""
+        per_layer = (
+            worker_ids is not None
+            and len(worker_ids) == len(self.specs)
+            and all(isinstance(w, (list, tuple)) for w in worker_ids)
+        )
+        prepped = []
+        for idx in range(len(self.specs)):
+            avail = worker_ids[idx] if per_layer else worker_ids
+            ids = self.layer_worker_ids(idx, avail)
+            prepped.append((
+                self._on_device(self.encode_columns(idx, ids)),
+                torch.as_tensor(ids, device=self.device),
+                self._on_device(self.decode_matrix(idx, ids)),
+            ))
+        return prepped
+
+    def run_prepared(self, x, prepared=None, *, worker_ids=None) -> torch.Tensor:
+        """Coded inference over pre-picked survivor subsets (the serving
+        fast path): no host work between layers, so the whole stack is
+        enqueued without a sync."""
+        if prepared is None:
+            prepared = self.prepare(worker_ids)
+        if len(prepared) != len(self.specs):
+            raise ValueError(
+                f"prepared plan covers {len(prepared)} layers, "
+                f"pipeline has {len(self.specs)}")
+        x = self._as_input(x)
+        squeeze = x.ndim == 3
+        if squeeze:
+            x = x[None]
+        if self.fuse_transitions:
+            # partition-resident: encode once into layer 0's shares, then
+            # each transition re-encodes directly for the next layer's
+            # selected workers; only the final layer merges
+            last = len(self.specs) - 1
+            self.input_encode_calls += 1
+            xe = self.encoder(0)(x, prepared[0][0])
+            for idx, (_m_sel, sel, d) in enumerate(prepared):
+                outs = self.worker_program(idx)(xe, self.coded_filters[idx][sel])
+                if idx < last:
+                    xe = self.transition_fn(idx)(outs, d, prepared[idx + 1][0])
+                else:
+                    x = self.decoder_fn(idx)(outs, d)
+            return x[0] if squeeze else x
+        for idx, (m_sel, sel, d) in enumerate(prepared):
+            self.input_encode_calls += 1
+            xe = self.encoder(idx)(x, m_sel)
+            outs = self.worker_program(idx)(xe, self.coded_filters[idx][sel])
+            x = self.decoder_fn(idx)(outs, d)
+        return x[0] if squeeze else x
+
+
+def build_cnn_pipeline(
+    name: str,
+    params: dict,
+    n: int,
+    *,
+    q: int | None = None,
+    default_kab: tuple[int, int] | None = None,
+    per_layer_kab: dict | None = None,
+    input_hw: int | None = None,
+    weights: CostWeights = CostWeights(),
+    backend: str = "kernel",
+    bucket_sizes: Sequence[int] | None = None,
+    fuse_transitions: bool = False,
+    pool: str | None = None,
+    device: str | torch.device = "cuda",
+) -> CodedPipeline:
+    """Compile one of the named CNNs (``lenet5``/``alexnet``/``vgg16``) into
+    a ``CodedPipeline`` on ``device`` (CUDA unless the caller asks for the
+    CPU)."""
+    from ..models.cnn import CNN_SPECS
+
+    hw0, layers = CNN_SPECS[name]
+    specs = plan_layers(
+        layers, input_hw if input_hw is not None else hw0, n, q=q,
+        default_kab=default_kab, per_layer_kab=per_layer_kab, weights=weights,
+    )
+    return CodedPipeline(specs, params, backend=backend,
+                         bucket_sizes=bucket_sizes,
+                         fuse_transitions=fuse_transitions, pool=pool,
+                         device=device)

@@ -1,0 +1,86 @@
+"""K1: one worker's coded subtask as one implicit-GEMM convolution
+(``csrc/coded_worker.cu``) and its plain PyTorch version.
+
+Counterpart of the TPU kernel ``coded_worker_pallas``
+(``src/repro/kernels/conv2d/kernel.py:291``).  The ``ell_a`` coded input
+shares (times the request batch) ride the GEMM's M dimension and the
+``ell_b`` coded filter groups its N dimension, so one launch computes the
+paper's ``ell_a * ell_b`` pairwise convolutions of one worker.
+``coded_worker`` launches the CUDA kernel for CUDA tensors and runs
+``coded_worker_plain`` only for tensors that lie on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..native import LaunchCounter, check_launch, launch_stream, load_library
+
+__all__ = ["coded_worker", "coded_worker_plain", "launches"]
+
+launches = LaunchCounter("coded_worker")
+
+_MAX_COL_BLOCKS = 65535  # grid.y limit; the kernel takes 64 columns a block
+
+
+def _geometry(xe: torch.Tensor, ke: torch.Tensor, stride: int):
+    if xe.ndim not in (4, 5) or ke.ndim != 5:
+        raise ValueError(f"coded shares {tuple(xe.shape)} / filters "
+                         f"{tuple(ke.shape)}: want (ell_a, [B,] C, H, W) and "
+                         f"(ell_b, N/k_b, C, KH, KW)")
+    batched = xe.ndim == 5
+    ea = xe.shape[0]
+    b = xe.shape[1] if batched else 1
+    c, hh, wp = xe.shape[-3:]
+    eb, nb, c2, kh, kw = ke.shape
+    if c != c2:
+        raise ValueError(f"channel mismatch: shares {c}, filters {c2}")
+    if stride < 1 or hh < kh or wp < kw:
+        raise ValueError(f"VALID conv of {hh}x{wp} by {kh}x{kw}, stride {stride}")
+    ho = (hh - kh) // stride + 1
+    wo = (wp - kw) // stride + 1
+    return batched, ea, b, c, hh, wp, eb, nb, kh, kw, ho, wo
+
+
+def coded_worker_plain(xe: torch.Tensor, ke: torch.Tensor,
+                       stride: int = 1) -> torch.Tensor:
+    """``unfold`` + matmul: the same function as K1, for the CPU and for
+    holding the kernel against on the card."""
+    batched, ea, b, c, hh, wp, eb, nb, kh, kw, ho, wo = _geometry(xe, ke, stride)
+    cols = F.unfold(xe.reshape(ea * b, c, hh, wp), (kh, kw), stride=stride)
+    y = torch.matmul(ke.reshape(eb * nb, c * kh * kw), cols)  # (G, N, H'W')
+    y = y.reshape(ea, b, eb, nb, ho, wo).permute(0, 2, 1, 3, 4, 5)
+    y = y.reshape(ea * eb, b, nb, ho, wo)
+    return y if batched else y[:, 0]
+
+
+def coded_worker(xe: torch.Tensor, ke: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """One worker's fused coded subtask.
+
+    ``xe``: coded input shares ``(ell_a, [B,] C, h_hat, Wp)``, already
+    conv-padded by APCP (the convolution is VALID).  ``ke``: coded filter
+    groups ``(ell_b, N/k_b, C, KH, KW)``.  Returns
+    ``(ell_a*ell_b, [B,] N/k_b, H'/k_a, W')``, slot ``ell_b * b1 + b2``.
+    """
+    batched, ea, b, c, hh, wp, eb, nb, kh, kw, ho, wo = _geometry(xe, ke, stride)
+    if xe.device != ke.device:
+        raise ValueError(f"shares on {xe.device}, filters on {ke.device}")
+    if xe.device.type == "cpu":
+        return coded_worker_plain(xe, ke, stride)
+    if xe.device.type != "cuda":
+        raise ValueError(f"coded_worker runs on cuda or cpu, got {xe.device}")
+    if xe.dtype != torch.float32 or ke.dtype != torch.float32:
+        raise TypeError(f"K1 takes float32 only, got {xe.dtype} / {ke.dtype}")
+    if not (xe.is_contiguous() and ke.is_contiguous()):
+        raise ValueError("K1 takes contiguous shares and filters")
+    if -(-(eb * nb) // 64) > _MAX_COL_BLOCKS:
+        raise ValueError(f"N={eb * nb} exceeds the kernel's column-block grid")
+    out = torch.empty((ea * eb, b, nb, ho, wo), dtype=torch.float32,
+                      device=xe.device)
+    with torch.cuda.device(xe.device):
+        rc = load_library().coded_worker_f32(
+            xe.data_ptr(), ke.data_ptr(), out.data_ptr(), c, hh, wp, kh, kw,
+            stride, ea * b, b, eb, nb, launch_stream(xe))
+    check_launch("coded_worker_f32", rc)
+    launches.add()
+    return out if batched else out[:, 0]

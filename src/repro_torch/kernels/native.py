@@ -1,0 +1,160 @@
+"""Build, load and bind the port's CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface.  At first use each
+``.cu`` file is compiled by its own ``nvcc`` process (all started together)
+for ``sm_90a``, the objects are linked into one shared library, and the
+library is loaded with ``ctypes``: pointers and the stream travel as
+``c_void_p``, sizes as ``c_longlong``, and every entry point returns the
+``cudaGetLastError()`` of its launch.  The build is cached under ``_build/``
+next to this file, keyed by a hash of the sources and flags, so a later
+process reuses it.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+__all__ = ["LaunchCounter", "build_library", "load_library", "launch_stream",
+           "check_launch"]
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_ROOT = Path(__file__).parent / "_build"
+LIB_NAME = "librepro_torch_kernels.so"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas=-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_longlong
+# entry point -> argument types (every entry point returns the cudaError_t)
+SIGNATURES = {
+    # x, w, out, C, H, W, KH, KW, stride, G, B, EB, NB, stream
+    "coded_worker_f32": [_P, _P, _P] + [_I] * 10 + [_P],
+    # a, b, out, M, N, K, relu, stream
+    "matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+
+class LaunchCounter:
+    """Thread-safe count of one kernel's launches (worker threads launch
+    concurrently).  A wrapper adds one where it launches its kernel, and
+    nowhere else — a run reads it to prove the path went through the
+    kernel."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._count = 0  # guarded-by: self._lock
+
+    def add(self) -> None:
+        with self._lock:
+            self._count += 1
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    def reset(self) -> None:
+        with self._lock:
+            self._count = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the kernels under " + str(CSRC))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> tuple[Path, str]:
+    """Compile and link the kernels (or find the cached build).  Returns
+    ``(library path, compiler log)``; raises with the log on failure."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    log_path = out_dir / "build.log"
+    if lib.exists():
+        return lib, log_path.read_text() if log_path.exists() else ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        sources = sorted(CSRC.glob("*.cu"))
+        objs = [Path(tmp) / (s.stem + ".o") for s in sources]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for s, o in zip(sources, objs)
+        ]
+        logs, failed = [], []
+        for s, p in zip(sources, procs):
+            text, _ = p.communicate()
+            logs.append(f"== {s.name}\n{text}")
+            if p.returncode != 0:
+                failed.append(s.name)
+        log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
+             *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"link failed:\n{link.stdout}")
+        log_path.write_text(log)
+        os.replace(tmp_lib, lib)  # atomic: a concurrent builder sees all or none
+    return lib, log
+
+
+_load_lock = threading.Lock()
+_library: ctypes.CDLL | None = None  # guarded-by: _load_lock
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call, then reused by every
+    thread of the process)."""
+    global _library
+    with _load_lock:
+        if _library is None:
+            path, _ = build_library()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _library = lib
+        return _library
+
+
+def launch_stream(t: torch.Tensor) -> int:
+    """Handle of the calling thread's current stream on ``t``'s device —
+    per thread, so a worker thread inside ``torch.cuda.stream(s)``
+    launches on ``s``."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError_t {rc}")

@@ -1,0 +1,135 @@
+"""Serving driver for the coded CNNs (``lenet5``/``alexnet``/``vgg16``).
+
+A ``repro_torch.serving.CodedServer`` with one or several resident
+``CodedPipeline``s sharing a straggler-injecting ``FcdccCluster`` worker
+pool, continuous batching across the models' concurrent requests.  It runs
+on the card by default, through the hand-written kernels.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch vgg16 \\
+      --fuse-transitions --requests 16 --workers 8 --stragglers 2
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from ..core.pipeline import build_cnn_pipeline
+from ..models.cnn import CNN_SPECS, init_cnn, input_hw
+from ..runtime import StragglerModel
+from ..serving import CodedServer
+
+__all__ = ["build_cnn_server", "serve_cnn", "main"]
+
+
+def _check_cnn_archs(archs) -> None:
+    unknown = [a for a in archs if a not in CNN_SPECS]
+    if unknown:
+        raise SystemExit(
+            f"unknown CNN arch(s) {unknown}; valid: {sorted(CNN_SPECS)}")
+    dupes = sorted({a for a in archs if archs.count(a) > 1})
+    if dupes:
+        raise SystemExit(f"duplicate --arch value(s) {dupes}; each model "
+                         f"registers once on the shared pool")
+
+
+def build_cnn_server(archs, *, workers: int, stragglers: int,
+                     straggler_delay: float, smoke: bool = False, kab=(2, 4),
+                     mode: str = "threads", seed: int = 0,
+                     fuse_transitions: bool = False, pipeline_depth: int = 2,
+                     device: str | torch.device = "cuda") -> CodedServer:
+    """One multi-model ``CodedServer``: every arch's pipeline resident on
+    the same n-worker pool, weights drawn from a ``torch.Generator`` seeded
+    with ``seed``.  ``fuse_transitions`` serves on the partition-resident
+    path; ``pipeline_depth`` is how many worker rounds may be in flight."""
+    _check_cnn_archs(archs)
+    straggler = StragglerModel.fixed(workers, stragglers, straggler_delay,
+                                     seed=seed)
+    server = CodedServer(straggler=straggler, mode=mode,
+                         bucket_sizes=(1, 2, 4, 8),
+                         pipeline_depth=pipeline_depth)
+    for arch in archs:
+        params = init_cnn(arch, torch.Generator().manual_seed(seed), device)
+        server.register_model(arch, build_cnn_pipeline(
+            arch, params, workers, default_kab=kab,
+            input_hw=input_hw(arch, smoke=smoke),
+            fuse_transitions=fuse_transitions, device=device,
+        ))
+    return server
+
+
+def serve_cnn(archs, *, requests: int, workers: int, stragglers: int,
+              straggler_delay: float, smoke: bool = False, kab=(2, 4),
+              mode: str = "threads", seed: int = 0,
+              fuse_transitions: bool = False, pipeline_depth: int = 2,
+              device: str | torch.device = "cuda"):
+    """Serve one or several CNN archs from one shared coded worker pool:
+    fire ``requests`` concurrent single-image requests per model and print
+    latency/throughput stats.  Returns ``(outputs per model, stats)``.
+
+    Default ``mode="threads"``: the printed percentiles are wall-clock, so
+    injected straggler delays really elapse."""
+    archs = [archs] if isinstance(archs, str) else list(archs)
+    server = build_cnn_server(
+        archs, workers=workers, stragglers=stragglers,
+        straggler_delay=straggler_delay, smoke=smoke, kab=kab, mode=mode,
+        seed=seed, fuse_transitions=fuse_transitions,
+        pipeline_depth=pipeline_depth, device=device,
+    )
+    server.warmup()
+    rng = np.random.default_rng(seed)
+    handles = []
+    with server:
+        for arch in archs:
+            hw0 = input_hw(arch, smoke=smoke)
+            c0 = CNN_SPECS[arch][1][0].in_ch
+            xs = rng.standard_normal((requests, c0, hw0, hw0)).astype(np.float32)
+            handles.append(server.submit_many(xs, arch))
+        outs = [[h.result(timeout=300.0) for h in hs] for hs in handles]
+    where = (torch.cuda.get_device_name(server.cluster.device)
+             if server.cluster.device.type == "cuda" else "cpu")
+    for arch in archs:
+        stats = server.stats(arch) if len(archs) > 1 else server.stats()
+        print(f"{arch}: coded serving on n={workers} shared workers "
+              f"({stragglers} stragglers +{straggler_delay}s) on {where}: "
+              f"{stats.summary_line()}")
+    agg = server.stats()
+    if len(archs) > 1:
+        print(f"aggregate: {agg.summary_line()} "
+              f"(coalesced merges: {agg.coalesced})")
+    return outs, agg
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", action="append", default=None,
+                    help=f"CNN ({sorted(CNN_SPECS)}); repeat to co-serve "
+                         f"several CNNs on one pool")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced input resolution (SMOKE_HW)")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="concurrent single-image requests per model")
+    ap.add_argument("--workers", type=int, default=8)
+    ap.add_argument("--stragglers", type=int, default=2)
+    ap.add_argument("--straggler-delay", type=float, default=0.1)
+    ap.add_argument("--mode", default="threads",
+                    choices=("threads", "simulated"),
+                    help="threads = wall-clock straggler sleeps")
+    ap.add_argument("--fuse-transitions", action="store_true",
+                    help="partition-resident layer transitions: batches "
+                         "advance between ConvLs as coded partition shares")
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="worker rounds in flight at once (1 = serial)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises when absent) or cpu")
+    args = ap.parse_args(argv)
+    serve_cnn(args.arch or ["vgg16"], requests=args.requests,
+              workers=args.workers, stragglers=args.stragglers,
+              straggler_delay=args.straggler_delay, smoke=args.smoke,
+              mode=args.mode, fuse_transitions=args.fuse_transitions,
+              pipeline_depth=args.pipeline_depth, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,167 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every case needs a CUDA device and skips without one (the check happens in
+the ``cuda`` fixture, per test).  The file imports torch and the port only,
+so it runs on a machine without JAX:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Tolerance: 1e-5 relative to max|plain|; the kernels and their plain
+versions may sum fp32 products in different orders.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.conv2d import kernel as k1
+from repro_torch.kernels.conv2d.ops import coded_worker
+from repro_torch.kernels.matmul import kernel as k2
+
+RNG = np.random.default_rng(11)
+REL = 1e-5
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, rel=REL):
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape
+    scale = max(float(want.abs().max()), 1.0)
+    torch.testing.assert_close(got, want, rtol=rel, atol=rel * scale)
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip: decided per test, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the GPU machine)")
+    return torch.device("cuda")
+
+
+# (ell_a, B or None, C, h_hat, Wp, ell_b, N/k_b, KH, KW, stride): the
+# reference's worker-kernel geometries plus ragged and multi-tile edges
+WORKER_CASES = [
+    (2, 2, 3, 18, 32, 2, 4, 5, 5, 1),
+    (2, 1, 1, 9, 9, 2, 2, 3, 3, 2),
+    (1, 2, 4, 16, 16, 2, 3, 3, 3, 1),
+    (3, 1, 2, 11, 13, 1, 4, 3, 5, 1),
+    (2, 2, 8, 10, 16, 2, 4, 1, 1, 1),
+    (2, None, 3, 14, 14, 2, 4, 3, 3, 1),
+    (2, 2, 8, 12, 16, 2, 8, 3, 3, 1),
+    (1, None, 4, 17, 17, 1, 6, 5, 5, 2),
+    (3, 1, 16, 10, 10, 2, 16, 1, 1, 1),
+    (1, None, 2, 9, 9, 3, 5, 2, 2, 1),
+    (2, 3, 5, 37, 70, 2, 33, 3, 3, 1),   # ragged M, N and K edges
+    (2, 2, 64, 20, 30, 2, 70, 3, 3, 2),  # K > one chunk, N > one tile
+]
+MATMUL_SHAPES = [(7, 5, 9), (128, 128, 128), (130, 257, 64), (1, 300, 1),
+                 (200, 64, 384), (8, 8, 8), (129, 1, 129), (16, 16, 3600),
+                 (8, 8, 5000), (16, 2, 4099), (16, 40, 70000), (33, 2, 9)]
+
+
+@pytest.mark.parametrize("case", WORKER_CASES)
+def test_cuda_worker_kernel_matches_plain(cuda, case):
+    ea, b, c, hh, wp, eb, nb, kh, kw, stride = case
+    xshape = (ea, b, c, hh, wp) if b else (ea, c, hh, wp)
+    xe = torch.as_tensor(RNG.standard_normal(xshape).astype(np.float32), device=cuda)
+    ke = torch.as_tensor(RNG.standard_normal((eb, nb, c, kh, kw)).astype(np.float32),
+                         device=cuda)
+    before = k1.launches.count
+    got = coded_worker(xe, ke, stride)
+    torch.cuda.synchronize()
+    assert k1.launches.count == before + 1
+    _close(got, k1.coded_worker_plain(xe, ke, stride))
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+@pytest.mark.parametrize("relu", [False, True])
+def test_cuda_matmul_kernel_matches_plain(cuda, m, k, n, relu):
+    a = torch.as_tensor(RNG.standard_normal((m, k)).astype(np.float32), device=cuda)
+    b = torch.as_tensor(RNG.standard_normal((k, n)).astype(np.float32), device=cuda)
+    before = k2.launches.count
+    got = k2.matmul(a, b, relu=relu)
+    torch.cuda.synchronize()
+    assert k2.launches.count == before + 1
+    _close(got, k2.matmul_plain(a, b, relu=relu))
+
+
+def test_cuda_kernels_reject_what_they_do_not_take(cuda):
+    xe = torch.zeros(2, 3, 8, 8, device=cuda)
+    ke = torch.zeros(2, 4, 3, 3, 3, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        coded_worker(xe.half(), ke.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        coded_worker(xe.transpose(-1, -2), ke)
+    with pytest.raises(ValueError, match="on"):
+        coded_worker(xe, ke.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        k2.matmul(torch.zeros(3, 4, device=cuda).double(),
+                  torch.zeros(4, 2, device=cuda).double())
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.matmul(torch.zeros(4, 3, device=cuda).t(), torch.zeros(4, 2, device=cuda))
+
+
+# -- the served path on the card ---------------------------------------------
+def _uncoded(params, xs, device):
+    from repro_torch.models.cnn import run_convls
+
+    return run_convls("vgg16", params, torch.as_tensor(np.stack(xs), device=device)).cpu()
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_cuda_server_under_stragglers_matches_uncoded(cuda, depth):
+    """Threads pool with one stream per worker, fused transitions, VGG-16 at
+    32x32: many requests from two client threads under stragglers and a
+    dead worker.  Cross-stream buffer reuse would corrupt results here."""
+    import threading
+
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.runtime import StragglerModel
+    from repro_torch.serving import CodedServer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = init_cnn("vgg16", torch.Generator().manual_seed(1), cuda)
+    delays = np.array([0.0, 0.005, 0.0, np.inf, 0.0, 0.005, 0.0, 0.0])
+    server = CodedServer.from_cnn(
+        "vgg16", params, 8, default_kab=(2, 4), input_hw=32,
+        straggler=StragglerModel(delays), mode="threads",
+        bucket_sizes=(1, 2, 4, 8), pipeline_depth=depth,
+        fuse_transitions=True, device=cuda)
+    xs = [RNG.standard_normal((3, 32, 32)).astype(np.float32) for _ in range(40)]
+    results = {}
+
+    def client(lo):
+        handles = [(i, server.submit(xs[i])) for i in range(lo, len(xs), 2)]
+        for i, h in handles:
+            results[i] = h.result(timeout=120.0)
+
+    before = (k1.launches.count, k2.launches.count)
+    with server:
+        threads = [threading.Thread(target=client, args=(lo,)) for lo in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300.0)
+            assert not t.is_alive()
+    assert sorted(results) == list(range(len(xs)))
+    assert k1.launches.count > before[0] and k2.launches.count > before[1]
+    ref = _uncoded(params, xs, cuda)
+    for i, y in results.items():
+        _close(torch.as_tensor(y), ref[i], rel=1e-4)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_cuda_pipeline_kernel_matches_torch_backend(cuda, fused):
+    from repro_torch.core.pipeline import build_cnn_pipeline
+    from repro_torch.models.cnn import init_cnn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = init_cnn("alexnet", torch.Generator().manual_seed(2), cuda)
+    pipes = [build_cnn_pipeline("alexnet", params, 6, default_kab=(2, 4),
+                                input_hw=67, backend=b, fuse_transitions=fused,
+                                device=cuda) for b in ("kernel", "torch")]
+    x = torch.as_tensor(RNG.standard_normal((3, 3, 67, 67)).astype(np.float32),
+                        device=cuda)
+    for ids in (None, [5, 1, 3], [2, 4]):
+        got, want = (p.run(x, ids) for p in pipes)
+        _close(got, want, rel=1e-4)
