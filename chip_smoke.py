@@ -19,7 +19,25 @@ Phases, in order; any failure raises:
     n=8 coded workers (2 stragglers at +50 ms, 1 dead worker, fused
     transitions, pipeline depth 2), every result held against the uncoded
     stack; the kernels' launch counts are read around this phase only;
- 5. one JSON line with the kernels' numbers, then the result line.
+ 5. LM kernel phase: SmolLM-135M at full width and depth (random weights
+    from the seed) compiled into a ``CodedDecoderPipeline`` on n=4 workers
+    (k_a=1, k_b=4: delta=2, gamma=2); K2 at the worker GEMM shapes, K3 at
+    every decode shape of bucket 4 and every build-time encode shape, K4
+    at the bucket-4 prefill, each held against its plain version and
+    timed beside a library call and its bound;
+ 6. LM serving phase: ``CodedLMServer`` serving 8 requests (prompts of
+    2-16 tokens, 8-16 new tokens, drawn from the seed) under one straggler
+    (+50 ms) and one dead worker; the K2, K3 and K4 launch counts are read
+    around this phase only;
+ 7. LM correctness: the logits rows the server chose each token from
+    (recorded through ``on_logits`` while it served) held against the
+    undistributed ``transformer.prefill`` + ``decode_step``, teacher-forced
+    on each served stream: within 1e-4 relative to max|logit|, and each
+    served token an argmax of the undistributed logits up to that
+    tolerance;
+ 8. one JSON line with the kernels' numbers (K1-K4; K2's top-level numbers
+    are its CNN pass, its LM numbers sit under ``paths.lm``), then the
+    result line.
 
 TF32 is off for every product here (the CRME decode multiplies rounding
 error by the recovery matrix's condition number).
@@ -57,6 +75,21 @@ TOL_K1, TOL_K2 = 1e-4, 1e-5
 # error by the recovery matrix's condition number, were measured at about
 # 1e-5 on an H100, so the reference's 1e-4 holds here too.
 TOL_SERVE = 1e-4
+
+# The LM path: exp13's plan (n=4, k_a=1, k_b=4) on SmolLM-135M.
+LM_N, LM_KB, LM_BUCKETS, LM_MAX_LEN, LM_MAX_PROMPT = 4, 4, (1, 2, 4), 64, 16
+LM_REQUESTS, LM_PROMPT_LEN, LM_GEN = 8, (2, 16), (8, 16)
+# worker 2 straggles at +50 ms, worker 3 is dead: both within gamma = 2
+LM_DELAYS = (0.0, 0.0, STRAGGLER_DELAY_S, float("inf"))
+# K3 sums R_in <= 4 products in order; K4 sums 64-term dot products and an
+# online softmax over <= 16 keys (expf against the library's exp).  Both
+# relative to max|plain|.
+TOL_K3, TOL_K4 = 1e-5, 2e-5
+# served (coded, cluster) logits against the undistributed transformer's, relative
+# to max|logit|: the reference's own coded-decoder tolerance is 3e-4 abs
+# at smoke size; 30 layers of fp32 sums through a decode whose recovery
+# matrix has a condition number of a few stay far inside 1e-4
+TOL_LM = 1e-4
 
 
 def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
@@ -292,12 +325,250 @@ def check_served(outs, xs: np.ndarray, params, device) -> float:
     return worst
 
 
+# -- the coded LM decode path ---------------------------------------------
+def build_lm(device, cfg=None):
+    """SmolLM-135M (full width and depth unless ``cfg`` says otherwise)
+    with random weights from the seed, compiled into the coded decoder
+    pipeline the LM server runs."""
+    from repro_torch.configs import smollm_135m
+    from repro_torch.core.decoder_pipeline import build_lm_decoder_pipeline
+    from repro_torch.models.transformer import init_lm
+
+    cfg = cfg if cfg is not None else smollm_135m.full()
+    params = init_lm(cfg, torch.Generator().manual_seed(SEED), device)
+    pipe = build_lm_decoder_pipeline(
+        cfg, params, LM_N, k_b=LM_KB, bucket_sizes=LM_BUCKETS,
+        max_len=LM_MAX_LEN, backend="kernel", device=device)
+    return pipe, params
+
+
+def lm_round_shapes(pipe, bucket: int) -> list[dict]:
+    """Per distinct GEMM round geometry: K2's worker GEMM and K3's decode
+    at ``bucket`` and K3's build-time weight encode, with how many rounds
+    of one decode step (or of the build) launch each."""
+    plan = pipe.plan
+    eb, q = plan.ell_b, plan.delta * plan.ell_b
+    out: dict = {}
+    for spec in pipe.specs:
+        d_in, d_out = spec.geo.in_channels, spec.geo.out_channels
+        ob = d_out // plan.k_b
+        key = (d_in, d_out)
+        if key in out:
+            out[key]["count"] += 1
+            continue
+        out[key] = {"kind": spec.kind, "count": 1,
+                    "worker": ((bucket, d_in), (d_in, eb * ob)),
+                    "decode": ((q, q), (q, bucket * ob)),
+                    "encode": ((plan.ell_b * plan.n, plan.k_b),
+                               (plan.k_b, d_in * ob))}
+    return list(out.values())
+
+
+def _gemm_entry(a_s, b_s, count, fn, plain, gen, device, tol, name,
+                timed: bool) -> dict:
+    a = torch.randn(a_s, generator=gen, device=device)
+    b = torch.randn(b_s, generator=gen, device=device)
+    got, ref = fn(a, b), plain(a, b)
+    abs_err, rel_err = _err(got, ref)
+    if not rel_err <= tol:
+        raise AssertionError(f"{name} {a_s} x {b_s}: rel err {rel_err} > {tol}")
+    (m, kk), n = a_s, b_s[1]
+    bnd, by = bound_ms(2.0 * m * n * kk, 4.0 * (m * kk + kk * n + m * n))
+    e = {"a": list(a_s), "b": list(b_s), "count": count,
+         "max_abs_err": abs_err, "max_rel_err": rel_err, "bound_ms": bnd,
+         "bound_by": by, "ms": None, "plain_ms": None, "library_ms": None}
+    if timed:
+        e["ms"] = cuda_ms(lambda: fn(a, b))
+        e["plain_ms"] = cuda_ms(lambda: plain(a, b))
+        e["library_ms"] = cuda_ms(lambda: torch.matmul(a, b))
+        e["library_rel_err"] = _err(got, torch.matmul(a, b))[1]
+    return e
+
+
+def flash_bound(bh: int, bhkv: int, sq: int, sk: int, d: int) -> tuple[float, str]:
+    """Causal attention's least work: each query row i scores and weighs
+    min(i + 1, sk) keys (2*d FLOPs each way); each input read once, the
+    output written once."""
+    keys = sum(min(i + 1, sk) for i in range(sq))
+    return bound_ms(4.0 * d * keys * bh,
+                    4.0 * (2 * bh * sq * d + 2 * bhkv * sk * d))
+
+
+def lm_kernel_phase(pipe, bucket: int, device, timed: bool = True) -> dict:
+    """K2, K3 and K4 at the LM path's shapes against their plain versions
+    (and, timed, beside a library call).  Raises on disagreement."""
+    from repro_torch.kernels.coded_gemm.kernel import coded_gemm, coded_gemm_plain
+    from repro_torch.kernels.flash_attn.kernel import (flash_attention,
+                                                       flash_attention_plain)
+    from repro_torch.kernels.matmul.kernel import matmul, matmul_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    k2, k3_dec, k3_enc = [], [], []
+    for r in lm_round_shapes(pipe, bucket):
+        k2.append({"round": r["kind"], **_gemm_entry(
+            *r["worker"], r["count"], matmul, matmul_plain, gen, device,
+            TOL_K2, "K2", timed)})
+        k3_dec.append({"round": r["kind"], "phase": "decode", **_gemm_entry(
+            *r["decode"], r["count"], coded_gemm, coded_gemm_plain, gen,
+            device, TOL_K3, "K3", timed)})
+        k3_enc.append({"round": r["kind"], "phase": "encode", **_gemm_entry(
+            *r["encode"], r["count"], coded_gemm, coded_gemm_plain, gen,
+            device, TOL_K3, "K3", timed)})
+    cfg = pipe.cfg
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bh, s, rep = bucket * h, LM_MAX_PROMPT, h // hkv
+    q = torch.randn((bh, s, d), generator=gen, device=device)
+    k = torch.randn((bh // rep, s, d), generator=gen, device=device)
+    v = torch.randn((bh // rep, s, d), generator=gen, device=device)
+    got = flash_attention(q, k, v, causal=True, rep=rep)
+    abs_err, rel_err = _err(got, flash_attention_plain(q, k, v, causal=True, rep=rep))
+    if not rel_err <= TOL_K4:
+        raise AssertionError(f"K4 {tuple(q.shape)}: rel err {rel_err} > {TOL_K4}")
+    bnd, by = flash_bound(bh, bh // rep, s, s, d)
+    k4 = {"q": [bh, s, d], "kv": [bh // rep, s, d], "rep": rep,
+          "count": cfg.layers, "max_abs_err": abs_err, "max_rel_err": rel_err,
+          "bound_ms": bnd, "bound_by": by, "ms": None, "plain_ms": None,
+          "library_ms": None}
+    if timed:
+        k4["ms"] = cuda_ms(lambda: flash_attention(q, k, v, causal=True, rep=rep))
+        k4["plain_ms"] = cuda_ms(
+            lambda: flash_attention_plain(q, k, v, causal=True, rep=rep))
+        # the library yardstick: SDPA in (B, H, S, D) with K/V repeated
+        # outside the timed call
+        q4 = q.view(bucket, h, s, d)
+        k4r = k.view(bucket, hkv, s, d).repeat_interleave(rep, dim=1)
+        v4r = v.view(bucket, hkv, s, d).repeat_interleave(rep, dim=1)
+        k4["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4r, v4r, is_causal=True))
+        lib = F.scaled_dot_product_attention(q4, k4r, v4r, is_causal=True)
+        k4["library_rel_err"] = _err(got, lib.reshape(got.shape))[1]
+    return {"matmul": k2, "coded_gemm": k3_dec, "coded_gemm_encode": k3_enc,
+            "flash_attention": [k4]}
+
+
+def check_lm_launched_shapes(pipe, bucket: int) -> None:
+    """The shapes the LM kernel phase timed are the ones the serving phase
+    ran: every K2 worker GEMM among the cluster worker program's argument
+    signatures, every K3 decode among the decode program's."""
+    seen_k2 = {sig for prog in pipe._cluster_programs.values()
+               for sig in prog.signatures}
+    seen_dec = pipe.decoder_fn(0).signatures
+    plan = pipe.plan
+    for r in lm_round_shapes(pipe, bucket):
+        (b, d_in), (_, width) = r["worker"]
+        if (((1, b, d_in), "torch.float32"),
+                ((d_in, width), "torch.float32")) not in seen_k2:
+            raise AssertionError(f"K2 worker shape {r['worker']} never served")
+        ob = width // plan.ell_b
+        if (((plan.delta, plan.ell_b, b, ob), "torch.float32"),
+                ((plan.delta * plan.ell_b,) * 2, "torch.float32")) not in seen_dec:
+            raise AssertionError(f"K3 decode shape {r['decode']} never served")
+
+
+def lm_requests(vocab: int) -> list[tuple[list[int], int]]:
+    """``LM_REQUESTS`` (prompt, new tokens) pairs drawn from the seed."""
+    rng = np.random.default_rng(SEED)
+    out = []
+    for _ in range(LM_REQUESTS):
+        plen = int(rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1))
+        gen = int(rng.integers(LM_GEN[0], LM_GEN[1] + 1))
+        out.append((rng.integers(0, vocab, plen).tolist(), gen))
+    return out
+
+
+def lm_serving_phase(pipe, requests, counters, mode: str = "threads"):
+    """Serve ``requests`` on ``CodedLMServer`` under ``LM_DELAYS``; the
+    launch counts are zeroed just before and read just after.  All
+    requests arrive together: they are submitted while the scheduler's
+    condition is held, so the engine admits a full first group.  The
+    logits row behind every served token is kept (a device copy).
+    Returns (token streams, served logits rows per request, latencies,
+    server, wall seconds, launches)."""
+    from repro_torch.runtime import StragglerModel
+    from repro_torch.serving import CodedLMServer
+
+    rows: dict[int, list] = {}
+    server = CodedLMServer(
+        pipe, StragglerModel(np.array(LM_DELAYS)), mode=mode,
+        max_prompt=LM_MAX_PROMPT, poll_interval_s=0.001,
+        on_logits=lambda rid, row: rows.setdefault(rid, []).append(row.clone()))
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    with server:
+        with server.scheduler.not_empty:
+            handles = [server.submit(p, g) for p, g in requests]
+        outs = [h.result(timeout=900.0) for h in handles]
+    wall = time.perf_counter() - t0
+    launches = {c.name: c.count for c in counters}
+    if pipe.device.type == "cuda":  # the copies ran on the engine's stream
+        torch.cuda.synchronize(pipe.device)
+    for (p, g), toks in zip(requests, outs):
+        if len(toks) != g:
+            raise AssertionError(f"request of {g} tokens served {len(toks)}")
+    served = [rows.get(h.request_id, []) for h in handles]
+    return outs, served, [h.latency_s for h in handles], server, wall, launches
+
+
+def check_lm_served(pipe, params, requests, outs, served, device) -> dict:
+    """Hold the served logits rows against the undistributed
+    ``transformer.prefill`` + ``decode_step``, teacher-forced on each served
+    stream one request at a time: within ``TOL_LM`` relative to
+    max|logit|, and every served token the argmax of its own row and an
+    argmax of the undistributed row up to that tolerance.  Returns the
+    worst error and the count of served tokens equal to the undistributed
+    argmax outright."""
+    from repro_torch.models import transformer as lm
+
+    cfg = pipe.cfg
+    worst, exact, total = 0.0, 0, 0
+    for r, ((prompt, gen), toks, got) in enumerate(zip(requests, outs, served)):
+        cache = lm.init_cache(cfg, 1, LM_MAX_LEN, device=device)
+        logits, cache = lm.prefill(params, cfg, cache,
+                                   torch.as_tensor([prompt], device=device))
+        rows = [logits[0, -1]]
+        for j in range(gen - 1):
+            step, cache = lm.decode_step(
+                params, cfg, cache,
+                torch.as_tensor([[int(toks[j])]], device=device), len(prompt) + j)
+            rows.append(step[0, 0])
+        ref = torch.stack(rows)
+        got = torch.stack(got) if got else ref.new_empty((0, cfg.vocab))
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"request {r}: served logits {tuple(got.shape)} "
+                                 f"vs {tuple(ref.shape)} or non-finite")
+        want = torch.as_tensor(np.asarray(toks, np.int64), device=device)
+        if not torch.equal(got.argmax(dim=-1), want):
+            raise AssertionError(f"request {r}: a served token is not the "
+                                 f"argmax of its own served logits")
+        scale = float(ref.abs().max(dim=-1).values.max())
+        picked = ref[torch.arange(gen, device=device), want]
+        gap = float((ref.max(dim=-1).values - picked).max())
+        if not gap <= TOL_LM * scale:
+            raise AssertionError(f"request {r}: a served token is {gap} below "
+                                 f"the argmax logit (> {TOL_LM} * {scale})")
+        exact += int((ref.argmax(dim=-1) == want).sum())
+        total += gen
+        worst = max(worst, _err(got, ref)[1])
+    if not worst <= TOL_LM:
+        raise AssertionError(f"served LM logits off the undistributed "
+                             f"transformer: rel err {worst} > {TOL_LM}")
+    return {"max_rel_err": worst, "tokens_equal": exact, "tokens": total}
+
+
+def lm_kernel_summary(entries: list[dict]) -> dict:
+    return _summarise([{**e, "library_rel_err": e.get("library_rel_err", 0.0)}
+                       for e in entries])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this proof "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    from repro_torch.kernels.coded_gemm.kernel import launches as k3_launches
     from repro_torch.kernels.conv2d.kernel import launches as k1_launches
+    from repro_torch.kernels.flash_attn.kernel import launches as k4_launches
     from repro_torch.kernels.matmul.kernel import launches as k2_launches
     from repro_torch.kernels.native import build_library, load_library
 
@@ -321,6 +592,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
+    # -- the coded CNN path -------------------------------------------------
     server, params = build_server(device, HW)
     pipe = server.pipeline
     t0 = time.perf_counter()
@@ -356,10 +628,97 @@ def main() -> int:
           f"worker {ov.worker_s:.4f}, collect {ov.collect_s:.4f}, transition "
           f"{ov.transition_s:.4f}; busy wall {ov.busy_wall_s:.4f}, overlap "
           f"efficiency {ov.overlap_efficiency:.3f}, max depth {ov.max_depth}")
+    del server, pipe, params, outs
+    torch.cuda.empty_cache()
 
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    print(json.dumps({"kernels": kernels}))
+    # -- the coded LM decode path -------------------------------------------
+    t0 = time.perf_counter()
+    lm_pipe, lm_params = build_lm(device)
+    cfg = lm_pipe.cfg
+    print(f"LM build: {cfg.name} ({cfg.layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}) on n={LM_N} "
+          f"workers, k_b={LM_KB}: {time.perf_counter() - t0:.1f} s, "
+          f"{lm_pipe.weight_encode_calls} weight encodes")
+    bucket = lm_pipe.max_batch
+    t0 = time.perf_counter()
+    lm_k = lm_kernel_phase(lm_pipe, bucket, device)
+    print(f"LM kernel phase: {time.perf_counter() - t0:.1f} s")
+    for name, entries in lm_k.items():
+        sm = lm_kernel_summary(entries)
+        print(f"  {name}: {sm['ms']:.4f} ms per decode step's shapes "
+              f"(plain {sm['plain_ms']:.4f}, library {sm['library_ms']:.4f}, "
+              f"bound {sm['bound_ms']:.5f} by {sm['bound_by']}), max rel err "
+              f"{sm['max_rel_err']:.2e}")
+        for e in entries:
+            print(f"    {json.dumps(e)}")
+
+    requests = lm_requests(cfg.vocab)
+    counters = (k2_launches, k3_launches, k4_launches)
+    lm_outs, lm_rows, lat, lm_server, wall, lm_launches = lm_serving_phase(
+        lm_pipe, requests, counters)
+    for name, count in lm_launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} never launched while serving the LM")
+    check_lm_launched_shapes(lm_pipe, bucket)
+    toks = sum(len(o) for o in lm_outs)
+    print(f"served {len(lm_outs)} {cfg.name} requests ({toks} tokens) on "
+          f"n={LM_N} workers (worker 2 +{STRAGGLER_DELAY_S * 1e3:.0f} ms, "
+          f"worker 3 dead) on {card}: {toks / wall:.2f} tok/s over {wall:.2f} s "
+          f"wall, {lm_server.tokens_per_second():.2f} tok/s over engine busy "
+          f"time; e2e p50 {np.percentile(lat, 50) * 1e3:.1f} ms, p99 "
+          f"{np.percentile(lat, 99) * 1e3:.1f} ms; {lm_server.decode_steps} "
+          f"decode steps ({lm_server.decode_time_s:.3f} s), prefill "
+          f"{lm_server.prefill_time_s:.3f} s; launches {lm_launches}")
+    print(f"LM round phases over {lm_server.rounds} rounds (s): encode "
+          f"{lm_server.round_encode_s:.4f}, to delta-th result "
+          f"{lm_server.round_compute_s:.4f}, decode "
+          f"{lm_server.round_decode_s:.4f}; glue and host between rounds "
+          f"{lm_server.decode_time_s - lm_server.round_encode_s - lm_server.round_compute_s - lm_server.round_decode_s:.4f}")
+    t0 = time.perf_counter()
+    check = check_lm_served(lm_pipe, lm_params, requests, lm_outs, lm_rows,
+                            device)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    print(f"LM check: served logits vs undistributed transformer max rel err "
+          f"{check['max_rel_err']:.2e} <= {TOL_LM}; {check['tokens_equal']} of "
+          f"{check['tokens']} served tokens equal its argmax outright "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- the kernels line: K1-K4, launches from each path's serving run.
+    # K2 runs on both paths, in two regimes: its top-level numbers stay
+    # one pass of the CNN transition shapes; one LM decode step's worker
+    # GEMMs are reported apart under paths.lm, never summed with them.
+    k1e, k2e = kernels
+    k1e["launches"] = launches["coded_worker"]
+    k2e["launches"] = launches["matmul"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "max_rel_err")
+    k2_lm = lm_kernel_summary(lm_k["matmul"])
+    k2e["paths"] = {"cnn": {**{key: k2e[key] for key in keys},
+                            "launches": launches["matmul"]},
+                    "lm": {**{key: k2_lm[key] for key in keys},
+                           "launches": lm_launches["matmul"]}}
+    k2e["lm_shapes"] = lm_k["matmul"]
+    k3 = lm_kernel_summary(lm_k["coded_gemm"])
+    k3e = {"name": "coded_gemm", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/coded_gemm.cu",
+           "replaces": "src/repro/kernels/coded_gemm/kernel.py:57",
+           "tpu_kernel": "coded_gemm_pallas_legacy / coded_gemm_pallas "
+                         "(src/repro/kernels/coded_gemm/kernel.py:57, :27)",
+           "tol": TOL_K3, "library": "torch.matmul",
+           "launches": lm_launches["coded_gemm"], **k3,
+           "build": lm_kernel_summary(lm_k["coded_gemm_encode"]),
+           "shapes": lm_k["coded_gemm"] + lm_k["coded_gemm_encode"]}
+    k4 = lm_kernel_summary(lm_k["flash_attention"])
+    k4e = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+           "replaces": "src/repro/kernels/flash_attn/kernel.py:69",
+           "tpu_kernel": "flash_attention_pallas / _flash_kernel "
+                         "(src/repro/kernels/flash_attn/kernel.py:69, :24)",
+           "tol": TOL_K4,
+           "library": "F.scaled_dot_product_attention (K/V repeated)",
+           "launches": lm_launches["flash_attention"], **k4,
+           "shapes": lm_k["flash_attention"]}
+    print(json.dumps({"kernels": [k1e, k2e, k3e, k4e]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

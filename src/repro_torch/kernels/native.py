@@ -32,13 +32,17 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas=-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_longlong
+_P, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 # entry point -> argument types (every entry point returns the cudaError_t)
 SIGNATURES = {
     # x, w, out, C, H, W, KH, KW, stride, G, B, EB, NB, stream
     "coded_worker_f32": [_P, _P, _P] + [_I] * 10 + [_P],
     # a, b, out, M, N, K, relu, stream
     "matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # code, feats, out, R_out, R_in, F, stream
+    "coded_gemm_f32": [_P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, out, BH, Sq, Sk, D, rep, scale, causal, stream
+    "flash_attn_f32": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
 }
 
 

@@ -1,26 +1,86 @@
-"""Serving driver for the coded CNNs (``lenet5``/``alexnet``/``vgg16``).
+"""Serving CLI for both model families.
 
-A ``repro_torch.serving.CodedServer`` with one or several resident
-``CodedPipeline``s sharing a straggler-injecting ``FcdccCluster`` worker
-pool, continuous batching across the models' concurrent requests.  It runs
-on the card by default, through the hand-written kernels.
+  * the coded CNNs (``lenet5``/``alexnet``/``vgg16``): a
+    ``repro_torch.serving.CodedServer`` with one or several resident
+    ``CodedPipeline``s sharing a straggler-injecting ``FcdccCluster``
+    worker pool, continuous batching across the models' concurrent
+    requests;
+  * the LM (``smollm-135m``): a batched prefill (attention on K4) plus a
+    greedy decode loop with a KV cache through ``models.transformer``.
+
+It runs on the card by default, through the hand-written kernels.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vgg16 \\
       --fuse-transitions --requests 16 --workers 8 --stragglers 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+      --batch 4 --prompt-len 32 --gen 32
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
 
+from ..configs import smollm_135m
 from ..core.pipeline import build_cnn_pipeline
+from ..devices import resolve_device
+from ..models import transformer as lm
 from ..models.cnn import CNN_SPECS, init_cnn, input_hw
 from ..runtime import StragglerModel
 from ..serving import CodedServer
 
-__all__ = ["build_cnn_server", "serve_cnn", "main"]
+__all__ = ["build_cnn_server", "serve_cnn", "serve_lm", "main", "LM_ARCHS"]
+
+LM_ARCHS = {smollm_135m.ARCH: smollm_135m}
+
+
+def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
+             smoke: bool = False, seed: int = 0,
+             device: str | torch.device = "cuda") -> torch.Tensor:
+    """Greedy generation for ``batch`` random prompts: one batched prefill
+    fills the cache, then ``gen`` decode steps.  Weights from a
+    ``torch.Generator`` seeded with ``seed``, prompts with ``seed + 1``.
+    Prints prefill/decode times and tok/s; returns the generated tokens
+    ``(batch, gen)``."""
+    if arch not in LM_ARCHS:
+        raise SystemExit(f"unknown LM arch {arch!r}; valid: {sorted(LM_ARCHS)}")
+    dev = resolve_device(device)
+    cfg = LM_ARCHS[arch].smoke() if smoke else LM_ARCHS[arch].full()
+    max_len = prompt_len + gen
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(seed), dev)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
+                            generator=torch.Generator().manual_seed(seed + 1)
+                            ).to(dev)
+    cache = lm.init_cache(cfg, batch, max_len, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    if prompt_len > 0:
+        logits, cache = lm.prefill(params, cfg, cache, prompts)
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    else:  # empty prompt: no logits yet, start from token 0
+        tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+    sync()
+    prefill_s = time.perf_counter() - t0
+
+    out_tokens = []
+    t0 = time.perf_counter()
+    for t in range(prompt_len, max_len):
+        out_tokens.append(tok)
+        logits, cache = lm.decode_step(params, cfg, cache, tok, t)
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    sync()
+    decode_s = time.perf_counter() - t0
+    seq = torch.cat(out_tokens, dim=1)
+    print(f"{arch}: prefill {prompt_len} toks in {prefill_s:.2f}s; "
+          f"generated {gen} x {batch} in {decode_s:.2f}s "
+          f"({batch * gen / decode_s:.1f} tok/s)")
+    return seq
 
 
 def _check_cnn_archs(archs) -> None:
@@ -104,10 +164,14 @@ def serve_cnn(archs, *, requests: int, workers: int, stragglers: int,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", action="append", default=None,
-                    help=f"CNN ({sorted(CNN_SPECS)}); repeat to co-serve "
-                         f"several CNNs on one pool")
+                    help=f"CNN ({sorted(CNN_SPECS)}; repeat to co-serve "
+                         f"several CNNs on one pool) or LM ({sorted(LM_ARCHS)})")
     ap.add_argument("--smoke", action="store_true",
-                    help="reduced input resolution (SMOKE_HW)")
+                    help="reduced input resolution (SMOKE_HW) / the LM's "
+                         "smoke config")
+    ap.add_argument("--batch", type=int, default=4, help="LM: prompts")
+    ap.add_argument("--prompt-len", type=int, default=32, help="LM")
+    ap.add_argument("--gen", type=int, default=32, help="LM: new tokens")
     ap.add_argument("--requests", type=int, default=16,
                     help="concurrent single-image requests per model")
     ap.add_argument("--workers", type=int, default=8)
@@ -124,7 +188,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when absent) or cpu")
     args = ap.parse_args(argv)
-    serve_cnn(args.arch or ["vgg16"], requests=args.requests,
+    archs = args.arch or ["vgg16"]
+    lm_archs = [a for a in archs if a in LM_ARCHS]
+    if lm_archs:
+        if len(archs) != 1:
+            raise SystemExit("an LM arch is served alone: pass one --arch")
+        serve_lm(lm_archs[0], batch=args.batch, prompt_len=args.prompt_len,
+                 gen=args.gen, smoke=args.smoke, device=args.device)
+        return
+    serve_cnn(archs, requests=args.requests,
               workers=args.workers, stragglers=args.stragglers,
               straggler_delay=args.straggler_delay, smoke=args.smoke,
               mode=args.mode, fuse_transitions=args.fuse_transitions,

@@ -12,7 +12,12 @@ their coded filters resident, and the worker pool lives across calls, so a
 straggler still busy with a discarded subtask backpressures only its own
 node.  Pipelines are registered by model name, and every round runs
 against its own pipeline's filters, so several models share one pool
-without ever serving each other's filters.
+without ever serving each other's filters.  A pipeline is a
+``CodedPipeline`` (ConvL rounds) or a ``CodedDecoderPipeline`` (the coded
+GEMM rounds of LM decode): the seam reads only the surface both expose
+(``n``, ``device``, ``specs``, ``coded_filters``, ``fuse_transitions``,
+``encoder``, ``worker_program``, ``decode_matrix``, ``decoder_fn``,
+``_on_device``), so one pool serves both families.
 
   * ``submit`` / ``collect`` — the asynchronous master: dispatch n coded
     subtasks without blocking, reap the fastest delta later.
@@ -77,8 +82,8 @@ class PendingRound:
     if the model is unloaded between dispatch and collect."""
 
     idx: int
-    pipe: CodedPipeline
-    spec: object  # the layer's CodedLayerSpec
+    pipe: CodedPipeline  # or a CodedDecoderPipeline
+    spec: object  # the layer's CodedLayerSpec / GemmRoundSpec
     pending: PendingBatch
     t_encode: float
     fused_mid: bool  # fused pipeline, non-final layer: transition, no decode
@@ -149,9 +154,10 @@ class FcdccCluster:
 
     # -- pipeline registry --------------------------------------------------
     def load_pipeline(self, pipeline: CodedPipeline, name: str = "default") -> None:
-        """Adopt a compiled ``CodedPipeline`` under the model namespace
-        ``name``; its coded filters (encoded exactly once, on this
-        cluster's device) are what every round of the model runs against.
+        """Adopt a compiled ``CodedPipeline`` (or ``CodedDecoderPipeline``)
+        under the model namespace ``name``; its coded filters (encoded
+        exactly once, on this cluster's device) are what every round of the
+        model runs against.
         Re-registering a name replaces its pipeline."""
         if pipeline.n != self.n:
             raise ValueError(f"pipeline targets n={pipeline.n}, cluster has n={self.n}")
@@ -270,9 +276,10 @@ class FcdccCluster:
         return self._pool_impl().ready(rnd.pending, rnd.spec.plan.delta)
 
     def collect_pipeline_layer(self, rnd: PendingRound) -> tuple:
-        """The reap half: keep the fastest delta of the round, then decode +
-        relu + pool (or the fused partition-resident transition, which
-        re-encodes for all n workers).  Returns ``(y, LayerTiming)``."""
+        """The reap half: keep the fastest delta of the round, then decode
+        (+ relu + pool for a ConvL; the fused partition-resident transition,
+        which re-encodes for all n workers; or the plain column-block decode
+        of an LM GEMM round).  Returns ``(y, LayerTiming)``."""
         pipe, spec = rnd.pipe, rnd.spec
         delta = spec.plan.delta
         results, worker_times, t_compute = self.collect(rnd.pending, delta)

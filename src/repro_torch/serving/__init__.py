@@ -1,7 +1,8 @@
-"""Coded serving engine: continuous-batching inference over resident
-``CodedPipeline``s — multi-model scheduler + engine loop + per-request
-metrics."""
+"""Coded serving engines: continuous-batching inference over resident
+``CodedPipeline``s (multi-model scheduler + engine loop + per-request
+metrics) and continuous token batching over a ``CodedDecoderPipeline``."""
 from .engine import CodedServer
+from .lm_engine import CodedLMServer, pack_request, unpack_request
 from .metrics import (
     MetricsCollector,
     OverlapStats,
@@ -20,6 +21,9 @@ from .scheduler import (
 
 __all__ = [
     "CodedServer",
+    "CodedLMServer",
+    "pack_request",
+    "unpack_request",
     "MetricsCollector",
     "OverlapStats",
     "RequestRecord",

@@ -15,6 +15,8 @@ import torch
 
 from repro_torch.kernels.conv2d import kernel as k1
 from repro_torch.kernels.conv2d.ops import coded_worker
+from repro_torch.kernels.coded_gemm import kernel as k3
+from repro_torch.kernels.flash_attn import kernel as k4
 from repro_torch.kernels.matmul import kernel as k2
 
 RNG = np.random.default_rng(11)
@@ -165,3 +167,131 @@ def test_cuda_pipeline_kernel_matches_torch_backend(cuda, fused):
     for ids in (None, [5, 1, 3], [2, 4]):
         got, want = (p.run(x, ids) for p in pipes)
         _close(got, want, rel=1e-4)
+
+
+# -- the LM path: K3 coded GEMM, K4 flash attention ---------------------------
+# (R_out, R_in, F, offset): the LM decode (4x4) and encode (8x4) shapes,
+# the float4 path (F % 4 == 0) and the scalar path (ragged F, or a feature
+# matrix that starts one float into its storage)
+CODED_GEMM_CASES = [(4, 4, 960, 0), (4, 4, 144, 0), (8, 4, 138240, 0),
+                    (4, 4, 7, 0), (16, 16, 4099, 0), (3, 5, 64, 1),
+                    (1, 1, 1, 0), (8, 8, 1 << 20, 0), (12, 2, 33, 0)]
+
+
+@pytest.mark.parametrize("r_out,r_in,f,offset", CODED_GEMM_CASES)
+def test_cuda_coded_gemm_matches_plain(cuda, r_out, r_in, f, offset):
+    code = torch.as_tensor(RNG.standard_normal((r_out, r_in)).astype(np.float32),
+                           device=cuda)
+    flat = torch.as_tensor(RNG.standard_normal(r_in * f + offset).astype(np.float32),
+                           device=cuda)
+    feats = flat[offset:].view(r_in, f)
+    before = k3.launches.count
+    got = k3.coded_gemm(code, feats)
+    torch.cuda.synchronize()
+    assert k3.launches.count == before + 1
+    _close(got, k3.coded_gemm_plain(code, feats))
+
+
+# (BH, Sq, Sk, D, rep, causal): the prefill shape (4 prompts x 9 heads over
+# 3 KV heads, head_dim 64), the smoke head_dim 16, several query and key
+# tiles, cross lengths and D = 128
+FLASH_CASES = [(36, 16, 16, 64, 3, True), (12, 8, 8, 16, 3, True),
+               (4, 200, 200, 64, 1, True), (4, 130, 130, 32, 2, True),
+               (2, 384, 384, 128, 1, True), (4, 64, 200, 32, 1, False),
+               (8, 70, 70, 64, 4, False), (3, 1, 1, 16, 1, True)]
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,rep,causal", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(cuda, bh, sq, sk, d, rep, causal):
+    q = torch.as_tensor(RNG.standard_normal((bh, sq, d)).astype(np.float32), device=cuda)
+    k = torch.as_tensor(RNG.standard_normal((bh // rep, sk, d)).astype(np.float32),
+                        device=cuda)
+    v = torch.as_tensor(RNG.standard_normal((bh // rep, sk, d)).astype(np.float32),
+                        device=cuda)
+    before = k4.launches.count
+    got = k4.flash_attention(q, k, v, causal=causal, rep=rep)
+    torch.cuda.synchronize()
+    assert k4.launches.count == before + 1
+    _close(got, k4.flash_attention_plain(q, k, v, causal=causal, rep=rep), rel=2e-5)
+
+
+def test_cuda_lm_kernels_reject_what_they_do_not_take(cuda):
+    with pytest.raises(TypeError, match="float32"):
+        k3.coded_gemm(torch.zeros(4, 4, device=cuda).double(),
+                      torch.zeros(4, 8, device=cuda).double())
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.coded_gemm(torch.zeros(4, 4, device=cuda),
+                      torch.zeros(8, 4, device=cuda).t())
+    q = torch.zeros(6, 4, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        k4.flash_attention(q, q[:2], q[:2], rep=3)
+    with pytest.raises(TypeError, match="float32"):
+        k4.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        x = torch.zeros(6, 16, 4, device=cuda).transpose(1, 2)
+        k4.flash_attention(x, x, x)
+
+
+def _smoke_lm(device):
+    from repro_torch.configs import smollm_135m
+    from repro_torch.models import transformer as lm
+
+    cfg = smollm_135m.smoke()
+    return cfg, lm.init_lm(cfg, torch.Generator().manual_seed(3), device)
+
+
+def test_cuda_lm_prefill_decode_match_cpu(cuda):
+    """The port's transformer on the card (prefill attention on K4) against
+    the same weights on the CPU (K4's plain version)."""
+    from repro_torch.models import transformer as lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _smoke_lm("cpu")
+    gpu = {k: ({kk: vv.to(cuda) for kk, vv in v.items()} if isinstance(v, dict)
+               else v.to(cuda)) for k, v in params.items()}
+    toks = torch.as_tensor(RNG.integers(0, cfg.vocab, (3, 9)))
+    outs = []
+    for dev, p in (("cpu", params), (cuda, gpu)):
+        cache = lm.init_cache(cfg, 3, 16, device=dev)
+        logits, cache = lm.prefill(p, cfg, cache, toks.to(dev))
+        step, cache = lm.decode_step(p, cfg, cache, toks[:, :1].to(dev), 9)
+        outs.append((logits.cpu(), step.cpu(), cache["dense"]["k"].cpu()))
+    before = k4.launches.count
+    lm.forward(gpu, cfg, toks.to(cuda))
+    assert k4.launches.count > before
+    for got, want in zip(outs[1], outs[0]):
+        _close(got, want)
+
+
+def test_cuda_lm_server_under_stragglers_matches_greedy(cuda):
+    """Coded LM serving on the card (threads pool, one stream per worker,
+    K2/K3/K4 all launched) with a straggler and a dead worker: every
+    token stream equals the port's undistributed greedy decode on the
+    card."""
+    from repro_torch.core.decoder_pipeline import build_lm_decoder_pipeline
+    from repro_torch.models import transformer as lm
+    from repro_torch.runtime import StragglerModel
+    from repro_torch.serving import CodedLMServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _smoke_lm(cuda)
+    pipe = build_lm_decoder_pipeline(cfg, params, 4, k_b=4, bucket_sizes=(1, 2, 4),
+                                     max_len=32, backend="kernel", device=cuda)
+    prompts = [RNG.integers(0, cfg.vocab, int(n)).tolist()
+               for n in RNG.integers(1, 9, 6)]
+    gens = [int(g) for g in RNG.integers(1, 8, 6)]
+    counts = [c.launches.count for c in (k2, k3, k4)]
+    st = StragglerModel(np.array([0.0, 0.0, 0.005, np.inf]))
+    with CodedLMServer(pipe, st, mode="threads", max_prompt=8) as srv:
+        handles = [srv.submit(p, g) for p, g in zip(prompts, gens)]
+        results = [h.result(timeout=300) for h in handles]
+    assert all(c.launches.count > n for c, n in zip((k2, k3, k4), counts))
+    for p, g, got in zip(prompts, gens, results):
+        cache = lm.init_cache(cfg, 1, 32, device=cuda)
+        logits, cache = lm.prefill(params, cfg, cache, torch.as_tensor([p], device=cuda))
+        want = [int(logits[0, -1].argmax())]
+        for t in range(len(p), len(p) + g - 1):
+            logits, cache = lm.decode_step(
+                params, cfg, cache, torch.as_tensor([[want[-1]]], device=cuda), t)
+            want.append(int(logits[0, -1].argmax()))
+        assert list(got) == want

@@ -46,6 +46,10 @@ def test_package_imports_without_jax():
         "import repro_torch.runtime, repro_torch.serving\n"
         "import repro_torch.launch.serve, repro_torch.kernels.native\n"
         "import repro_torch.kernels.conv2d, repro_torch.kernels.matmul\n"
+        "import repro_torch.kernels.coded_gemm, repro_torch.kernels.flash_attn\n"
+        "import repro_torch.models.common, repro_torch.models.transformer\n"
+        "import repro_torch.configs.smollm_135m\n"
+        "import repro_torch.core.decoder_pipeline, repro_torch.serving.lm_engine\n"
         "assert 'jax' not in {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
         "print('ok')\n"
     )

@@ -1,0 +1,181 @@
+"""K3 (coded GEMM) and K4 (flash attention) of the LM path: their plain
+PyTorch versions — what the wrappers run on CPU tensors, and what the
+kernels are held against on the card — against the reference's Pallas
+kernels in interpret mode and its pure-jnp oracles, on the same inputs.
+
+Tolerances: 1e-6 relative to max|reference| for the coded GEMM (at most
+16 fp32 products a sum, in another order); 1e-5 for attention (fp32
+softmax over up to 384 keys, exponentials from another library).
+"""
+import itertools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.crme import make_axis_codes, recovery_matrix
+from repro.kernels.coded_gemm import crme_decode as ref_decode
+from repro.kernels.coded_gemm import crme_encode as ref_encode
+from repro.kernels.coded_gemm.kernel import coded_gemm_pallas_legacy
+from repro.kernels.coded_gemm.ref import coded_gemm_ref
+from repro.kernels.flash_attn.kernel import flash_attention_pallas
+from repro.kernels.flash_attn.ref import flash_attention_ref
+from repro.models import common as ref_common
+from repro_torch.kernels.coded_gemm import (coded_gemm, coded_gemm_plain,
+                                            crme_decode, crme_encode)
+from repro_torch.kernels.coded_gemm import kernel as k3
+from repro_torch.kernels.flash_attn import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attn import kernel as k4
+from repro_torch.models import transformer as lm
+
+RNG = np.random.default_rng(12)
+REL_K3, REL_K4 = 1e-6, 1e-5
+
+
+def _close(got, want, rel):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= rel * scale, f"max abs err {err} > {rel} * {scale}"
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+# (R_out, R_in, F): the LM path's decode (4x4) and encode (8x4) code
+# shapes at its feature widths, the uncoded identity, ragged and R = 16
+GEMM_SHAPES = [(4, 4, 960), (4, 4, 144), (4, 4, 3072), (8, 4, 576 * 240),
+               (8, 4, 1536 * 144), (4, 4, 7), (16, 16, 700), (3, 5, 129),
+               (1, 1, 1), (16, 2, 33)]
+
+
+@pytest.mark.parametrize("r_out,r_in,f", GEMM_SHAPES)
+def test_coded_gemm_plain_matches_pallas_legacy(r_out, r_in, f):
+    code = RNG.standard_normal((r_out, r_in)).astype(np.float32)
+    feats = RNG.standard_normal((r_in, f)).astype(np.float32)
+    got = coded_gemm_plain(_t(code), _t(feats))
+    if f <= 5000:  # interpret mode walks the grid in Python
+        _close(got, coded_gemm_pallas_legacy(jnp.asarray(code), jnp.asarray(feats)),
+               REL_K3)
+    _close(got, coded_gemm_ref(jnp.asarray(code), jnp.asarray(feats)), REL_K3)
+    before = k3.launches.count
+    assert torch.equal(coded_gemm(_t(code), _t(feats)), got)  # CPU: the plain
+    assert k3.launches.count == before  # no kernel launch on the CPU
+
+
+def test_coded_gemm_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="1..16"):
+        coded_gemm(torch.zeros(17, 4), torch.zeros(4, 8))
+    with pytest.raises(ValueError, match="1..16"):
+        coded_gemm(torch.zeros(4, 17), torch.zeros(17, 8))
+    with pytest.raises(ValueError, match="shapes"):
+        coded_gemm(torch.zeros(4, 4), torch.zeros(3, 8))
+
+
+def test_crme_encode_decode_match_reference_ops():
+    """The reference's roundtrip case (``tests/test_kernels.py``): encode
+    with the A code, decode any k_a coded streams, recover the parts."""
+    k_a, n = 4, 5
+    a, _ = make_axis_codes(k_a, 2, n)
+    parts = RNG.standard_normal((k_a, 3, 6, 4)).astype(np.float32)
+    coded = crme_encode(_t(parts), a.matrix)
+    want = ref_encode(jnp.asarray(parts), a.matrix)
+    assert coded.shape == (2 * n, 3, 6, 4)
+    _close(coded, want, REL_K3)
+    for sub in ([0, 1, 2, 3], [2, 5, 7, 9]):
+        d = np.linalg.inv(a.matrix[:, sub].T)
+        back = crme_decode(d, coded[sub])
+        _close(back, ref_decode(d, want[jnp.asarray(sub)]), REL_K3)
+        np.testing.assert_allclose(back.numpy(), parts, atol=1e-4)
+
+
+@pytest.mark.parametrize("ids", list(itertools.combinations(range(4), 2)))
+def test_crme_lm_plan_roundtrip(ids):
+    """The LM plan (n=4, k_a=1, k_b=4): B-code weight encode, then the
+    survivor decode of two workers' (ell_b=2) outputs recovers every
+    column block, against the reference ops on the same inputs."""
+    a_code, b_code = make_axis_codes(1, 4, 4)
+    parts = RNG.standard_normal((4, 12, 5)).astype(np.float32)
+    coded = crme_encode(_t(parts), b_code.matrix)  # (ell_b*n, 12, 5)
+    _close(coded, ref_encode(jnp.asarray(parts), b_code.matrix), REL_K3)
+    rows = coded.reshape(4, 2, 12, 5)[list(ids)].reshape(4, 12, 5)
+    d = np.linalg.inv(recovery_matrix(a_code, b_code, list(ids)).T)
+    back = crme_decode(d, rows)
+    _close(back, ref_decode(d, jnp.asarray(rows.numpy())), REL_K3)
+    np.testing.assert_allclose(back.numpy(), parts, atol=1e-4)
+
+
+def _bshd(b, s, h, d, sk=None):
+    sk = s if sk is None else sk
+    q = RNG.standard_normal((b, s, h, d)).astype(np.float32)
+    k = RNG.standard_normal((b, sk, h, d)).astype(np.float32)
+    v = RNG.standard_normal((b, sk, h, d)).astype(np.float32)
+    return q, k, v
+
+
+def _flat(x):
+    b, s, h, d = x.shape
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3).reshape(b * h, s, d))
+
+
+# the shapes of tests/test_flash_kernel.py
+FLASH_CASES = [(2, 256, 2, 64, 128, 128), (1, 128, 4, 32, 64, 64),
+               (2, 200, 1, 64, 128, 128), (1, 384, 2, 128, 128, 64)]
+
+
+@pytest.mark.parametrize("b,s,h,d,bq,bk", FLASH_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_pallas_and_ref(b, s, h, d, bq, bk, causal):
+    q, k, v = (_flat(x) for x in _bshd(b, s, h, d))
+    got = flash_attention_plain(_t(q), _t(k), _t(v), causal=causal)
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    _close(got, flash_attention_ref(*args, causal=causal), REL_K4)
+    _close(got, flash_attention_pallas(*args, causal=causal, bq=bq, bk=bk), REL_K4)
+    before = k4.launches.count
+    assert torch.equal(flash_attention(_t(q), _t(k), _t(v), causal=causal), got)
+    assert k4.launches.count == before
+
+
+def test_flash_plain_cross_lengths():
+    """sq != sk with key padding in the Pallas kernel."""
+    q, k, v = (_flat(x) for x in _bshd(2, 64, 2, 32, sk=200))
+    got = flash_attention_plain(_t(q), _t(k), _t(v), causal=False)
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    _close(got, flash_attention_pallas(*args, causal=False, bq=64, bk=128), REL_K4)
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d", [(4, 16, 9, 3, 64), (2, 7, 3, 1, 16),
+                                         (1, 70, 4, 2, 32)])
+def test_flash_gqa_rep_matches_reference_attention(b, s, h, hkv, d):
+    """``rep > 1``: query row ``bh`` reads K/V row ``bh // rep``, which is
+    the reference's head order ``h = g * rep + r`` — held against the
+    reference's causal GQA ``attention`` in its own (B, S, H, D) layout,
+    both directly and through the port's ``_attend`` prefill route."""
+    q = RNG.standard_normal((b, s, h, d)).astype(np.float32)
+    k = RNG.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = RNG.standard_normal((b, s, hkv, d)).astype(np.float32)
+    pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    mask = ref_common.make_attn_mask(jnp.asarray(pos), jnp.asarray(pos))
+    want = ref_common.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask)
+    got = flash_attention_plain(_t(_flat(q)), _t(_flat(k)), _t(_flat(v)),
+                                rep=h // hkv)
+    _close(got.reshape(b, h, s, d).permute(0, 2, 1, 3), want, REL_K4)
+    cfg = lm.LMConfig(name="t", layers=1, d_model=h * d, n_heads=h,
+                      n_kv_heads=hkv, head_dim=d, d_ff=8, vocab=8)
+    tp = torch.as_tensor(pos)
+    routed = lm._attend(_t(q), _t(k), _t(v), tp, tp, cfg, None, start=0)
+    _close(routed, want, REL_K4)
+
+
+def test_flash_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(6, 4, 16)
+    with pytest.raises(ValueError, match="rep"):
+        flash_attention(q, torch.zeros(4, 4, 16), torch.zeros(4, 4, 16), rep=3)
+    with pytest.raises(ValueError, match="shapes"):
+        flash_attention(q, torch.zeros(2, 4, 16), torch.zeros(2, 5, 16), rep=3)
+    with pytest.raises(ValueError, match="zero keys"):
+        flash_attention(q, torch.zeros(2, 0, 16), torch.zeros(2, 0, 16), rep=3)
