@@ -13,8 +13,9 @@ Phases, in order; any failure raises:
  2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``;
  3. kernel phase: each kernel at every shape the serving phase launches
     (VGG-16 at 224x224, bucket 8), held against its plain PyTorch version
-    on the same inputs, timed beside its plain version, a library call
-    and its bound;
+    on the same inputs and against a second launch of itself (same bits),
+    timed beside its plain version, a library call and its bound, with
+    the launch plan (tile, split) K1 and K2 took at each shape;
  4. serving phase: ``CodedServer`` serving 16 VGG-16 224x224 requests on
     n=8 coded workers (2 stragglers at +50 ms, 1 dead worker, fused
     transitions, pipeline depth 2), every result held against the uncoded
@@ -23,8 +24,9 @@ Phases, in order; any failure raises:
     from the seed) compiled into a ``CodedDecoderPipeline`` on n=4 workers
     (k_a=1, k_b=4: delta=2, gamma=2); K2 at the worker GEMM shapes, K3 at
     every decode shape of bucket 4 and every build-time encode shape, K4
-    at the bucket-4 prefill, each held against its plain version and
-    timed beside a library call and its bound;
+    at the bucket-4 prefill, each held against its plain version and a
+    second launch of itself, and timed beside a library call and its
+    bound;
  6. LM serving phase: ``CodedLMServer`` serving 8 requests (prompts of
     2-16 tokens, 8-16 new tokens, drawn from the seed) under one straggler
     (+50 ms) and one dead worker; the K2, K3 and K4 launch counts are read
@@ -41,6 +43,16 @@ Phases, in order; any failure raises:
 
 TF32 is off for every product here (the CRME decode multiplies rounding
 error by the recovery matrix's condition number).
+
+Two times per call.  ``ms`` is CUDA events around 10 back-to-back calls:
+where the host issues a call (``ctypes``, the allocator, the launch) more
+slowly than the card runs it, that is the host's rate.  ``device_ms``
+holds the stream with ``torch.cuda._sleep`` while the host issues the
+same calls, so its events bracket device execution only;
+``library_device_ms`` times the library yardstick the same way, and
+``profiler_device_ms`` sums ``torch.profiler``'s kernel records as a
+cross-check.  Inputs stay in the 50 MB L2 across the 10 calls where they
+fit.
 """
 from __future__ import annotations
 
@@ -93,8 +105,10 @@ TOL_LM = 1e-4
 
 
 def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
-    events around the run, after ``warm`` untimed calls)."""
+    """Mean time of ``fn`` over ``reps`` back-to-back calls, host issue
+    included: CUDA events around the run, after ``warm`` untimed calls.
+    Where the host issues a call more slowly than the card runs it, this
+    is the host's rate (``ms`` in the kernels line)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -106,6 +120,97 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+_SLEEP_CYCLES_PER_MS: list[float] = []
+
+
+def _sleep_cycles_per_ms() -> float:
+    """``torch.cuda._sleep`` cycles per ms of device time, measured once."""
+    if not _SLEEP_CYCLES_PER_MS:
+        cycles = 20_000_000
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def device_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls, host
+    issue excluded: a ``torch.cuda._sleep`` holds the stream while the host
+    issues the start event, the calls and the end event, so the events
+    bracket device execution only.  The hold is sized from a timed run of
+    the same calls and checked: the start event must still be pending when
+    the host has issued everything.  Raises if no hold covers the issue."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    hold_ms = 2.0 * (time.perf_counter() - t0) * 1e3 + 1.0
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_ms * _sleep_cycles_per_ms()))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        hold_ms *= 4.0
+    raise RuntimeError("device_ms: the stream hold never outlasted the host's "
+                       "issue of the timed calls")
+
+
+def profiler_device_ms(fn, reps: int = 10) -> float | None:
+    """Mean device time of ``fn`` by ``torch.profiler``'s kernel records
+    (the sum of their self device time over ``reps`` calls): a cross-check
+    of ``device_ms`` by another clock.  None when the profiler recorded no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        total_us += float(t if t is not None else ev.self_cuda_time_total)
+    return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def timings(fn, plain, library) -> dict:
+    """``ms`` / ``device_ms`` (and the profiler's ``profiler_device_ms``)
+    of the kernel call ``fn``, ``plain_ms`` of its plain version and
+    ``library_ms`` / ``library_device_ms`` of the library yardstick (None
+    where there is none)."""
+    out = {"ms": cuda_ms(fn), "device_ms": device_ms(fn),
+           "profiler_device_ms": profiler_device_ms(fn),
+           "plain_ms": cuda_ms(plain), "library_ms": None,
+           "library_device_ms": None}
+    if library is not None:
+        out["library_ms"] = cuda_ms(library)
+        out["library_device_ms"] = device_ms(library)
+    return out
+
+
+def check_repeatable(name: str, fn, got: torch.Tensor) -> None:
+    """A second launch on the same inputs gives the same bits."""
+    if not torch.equal(fn(), got):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -150,15 +255,21 @@ def _summarise(entries: list[dict]) -> dict:
     """Totals over one pass of the path (each shape times the layers that
     launch it), worst errors over all shapes."""
     tot = {k: sum(e[k] * e["count"] for e in entries)
-           for k in ("ms", "plain_ms", "bound_ms")}
-    lib = [e["library_ms"] for e in entries]
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
     ops = sum(e["bound_ms"] * e["count"] for e in entries
               if e["bound_by"] == "operations")
+
+    def opt_sum(key):
+        vals = [e.get(key) for e in entries]
+        return (None if any(v is None for v in vals)
+                else sum(v * e["count"] for v, e in zip(vals, entries)))
+
     return {
         **tot,
         "kernel_ms": tot["ms"],
-        "library_ms": (None if any(v is None for v in lib)
-                       else sum(v * e["count"] for v, e in zip(lib, entries))),
+        "profiler_device_ms": opt_sum("profiler_device_ms"),
+        "library_ms": opt_sum("library_ms"),
+        "library_device_ms": opt_sum("library_device_ms"),
         "bound_by": "operations" if ops >= tot["bound_ms"] / 2 else "bytes",
         "max_abs_err": max(e["max_abs_err"] for e in entries),
         "max_rel_err": max(e["max_rel_err"] for e in entries),
@@ -170,8 +281,10 @@ def kernel_phase(pipe, bucket: int, device, timed: bool = True) -> list[dict]:
     """Each kernel at each of its serving shapes against its plain version
     (and, timed, beside one library call that computes the same
     function).  Raises when a kernel disagrees beyond its tolerance."""
-    from repro_torch.kernels.conv2d.kernel import coded_worker, coded_worker_plain
-    from repro_torch.kernels.matmul.kernel import matmul, matmul_plain
+    from repro_torch.kernels.conv2d.kernel import (coded_worker,
+                                                   coded_worker_plain,
+                                                   worker_plan)
+    from repro_torch.kernels.matmul.kernel import matmul, matmul_plain, matmul_plan
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     k1, k2 = [], []
@@ -182,26 +295,30 @@ def kernel_phase(pipe, bucket: int, device, timed: bool = True) -> list[dict]:
             continue
         xe = torch.randn(xs, generator=gen, device=device)
         ke = torch.randn(ks, generator=gen, device=device) / np.sqrt(np.prod(ks[2:]))
-        got, ref = coded_worker(xe, ke, stride), coded_worker_plain(xe, ke, stride)
+        def run():
+            return coded_worker(xe, ke, stride)
+
+        got, ref = run(), coded_worker_plain(xe, ke, stride)
         abs_err, rel_err = _err(got, ref)
         if not rel_err <= TOL_K1:
             raise AssertionError(f"K1 {xs} x {ks}: rel err {rel_err} > {TOL_K1}")
+        check_repeatable(f"K1 {xs} x {ks}", run, got)
         ea, b, c, hh, wp = xs
         eb, nb, _, kh, kw = ks
         m = ea * b * got.shape[-2] * got.shape[-1]
         kk, n = c * kh * kw, eb * nb
         bnd, by = bound_ms(2.0 * m * n * kk, 4.0 * (xe.numel() + ke.numel() + got.numel()))
         e = {"xe": list(xs), "ke": list(ks), "stride": stride, "count": 1,
-             "gemm_mnk": [m, n, kk], "max_abs_err": abs_err,
-             "max_rel_err": rel_err, "bound_ms": bnd, "bound_by": by,
-             "ms": None, "plain_ms": None, "library_ms": None}
+             "gemm_mnk": [m, n, kk], "plan": worker_plan(m, n, kk)._asdict(),
+             "max_abs_err": abs_err, "max_rel_err": rel_err, "bound_ms": bnd,
+             "bound_by": by, "ms": None, "device_ms": None, "plain_ms": None,
+             "library_ms": None, "library_device_ms": None}
         if timed:
             xin = xe.reshape(ea * b, c, hh, wp)
             wcat = ke.reshape(eb * nb, c, kh, kw)
-            e["ms"] = cuda_ms(lambda: coded_worker(xe, ke, stride))
-            e["plain_ms"] = cuda_ms(lambda: coded_worker_plain(xe, ke, stride))
             with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-                e["library_ms"] = cuda_ms(lambda: F.conv2d(xin, wcat, stride=stride))
+                e.update(timings(run, lambda: coded_worker_plain(xe, ke, stride),
+                                 lambda: F.conv2d(xin, wcat, stride=stride)))
                 lib = F.conv2d(xin, wcat, stride=stride)
             # the library call sums in its own order: a second, independent
             # check of the kernel (same layout after the reference permute)
@@ -217,20 +334,24 @@ def kernel_phase(pipe, bucket: int, device, timed: bool = True) -> list[dict]:
             continue
         a = torch.randn(a_s, generator=gen, device=device)
         b = torch.randn(b_s, generator=gen, device=device)
-        got, ref = matmul(a, b, relu=relu), matmul_plain(a, b, relu=relu)
+        def run():
+            return matmul(a, b, relu=relu)
+
+        got, ref = run(), matmul_plain(a, b, relu=relu)
         abs_err, rel_err = _err(got, ref)
         if not rel_err <= TOL_K2:
             raise AssertionError(f"K2 {a_s} x {b_s}: rel err {rel_err} > {TOL_K2}")
+        check_repeatable(f"K2 {a_s} x {b_s}", run, got)
         (m, kk), n = a_s, b_s[1]
         bnd, by = bound_ms(2.0 * m * n * kk, 4.0 * (m * kk + kk * n + m * n))
         e = {"a": list(a_s), "b": list(b_s), "relu": relu, "count": 1,
+             "plan": matmul_plan(m, n, kk)._asdict(),
              "max_abs_err": abs_err, "max_rel_err": rel_err,
-             "bound_ms": bnd, "bound_by": by, "ms": None, "plain_ms": None,
-             "library_ms": None}
+             "bound_ms": bnd, "bound_by": by, "ms": None, "device_ms": None,
+             "plain_ms": None, "library_ms": None, "library_device_ms": None}
         if timed:
-            e["ms"] = cuda_ms(lambda: matmul(a, b, relu=relu))
-            e["plain_ms"] = cuda_ms(lambda: matmul_plain(a, b, relu=relu))
-            e["library_ms"] = cuda_ms(lambda: torch.matmul(a, b))
+            e.update(timings(run, lambda: matmul_plain(a, b, relu=relu),
+                             lambda: torch.matmul(a, b)))
             lib = torch.matmul(a, b)
             e["library_rel_err"] = _err(got, lib.clamp_min(0) if relu else lib)[1]
         seen[(a_s, b_s, relu)] = e
@@ -365,22 +486,24 @@ def lm_round_shapes(pipe, bucket: int) -> list[dict]:
 
 
 def _gemm_entry(a_s, b_s, count, fn, plain, gen, device, tol, name,
-                timed: bool) -> dict:
+                timed: bool, plan=None) -> dict:
     a = torch.randn(a_s, generator=gen, device=device)
     b = torch.randn(b_s, generator=gen, device=device)
     got, ref = fn(a, b), plain(a, b)
     abs_err, rel_err = _err(got, ref)
     if not rel_err <= tol:
         raise AssertionError(f"{name} {a_s} x {b_s}: rel err {rel_err} > {tol}")
+    check_repeatable(f"{name} {a_s} x {b_s}", lambda: fn(a, b), got)
     (m, kk), n = a_s, b_s[1]
     bnd, by = bound_ms(2.0 * m * n * kk, 4.0 * (m * kk + kk * n + m * n))
     e = {"a": list(a_s), "b": list(b_s), "count": count,
+         **({"plan": plan(m, n, kk)._asdict()} if plan else {}),
          "max_abs_err": abs_err, "max_rel_err": rel_err, "bound_ms": bnd,
-         "bound_by": by, "ms": None, "plain_ms": None, "library_ms": None}
+         "bound_by": by, "ms": None, "device_ms": None, "plain_ms": None,
+         "library_ms": None, "library_device_ms": None}
     if timed:
-        e["ms"] = cuda_ms(lambda: fn(a, b))
-        e["plain_ms"] = cuda_ms(lambda: plain(a, b))
-        e["library_ms"] = cuda_ms(lambda: torch.matmul(a, b))
+        e.update(timings(lambda: fn(a, b), lambda: plain(a, b),
+                         lambda: torch.matmul(a, b)))
         e["library_rel_err"] = _err(got, torch.matmul(a, b))[1]
     return e
 
@@ -400,14 +523,14 @@ def lm_kernel_phase(pipe, bucket: int, device, timed: bool = True) -> dict:
     from repro_torch.kernels.coded_gemm.kernel import coded_gemm, coded_gemm_plain
     from repro_torch.kernels.flash_attn.kernel import (flash_attention,
                                                        flash_attention_plain)
-    from repro_torch.kernels.matmul.kernel import matmul, matmul_plain
+    from repro_torch.kernels.matmul.kernel import matmul, matmul_plain, matmul_plan
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     k2, k3_dec, k3_enc = [], [], []
     for r in lm_round_shapes(pipe, bucket):
         k2.append({"round": r["kind"], **_gemm_entry(
             *r["worker"], r["count"], matmul, matmul_plain, gen, device,
-            TOL_K2, "K2", timed)})
+            TOL_K2, "K2", timed, plan=matmul_plan)})
         k3_dec.append({"round": r["kind"], "phase": "decode", **_gemm_entry(
             *r["decode"], r["count"], coded_gemm, coded_gemm_plain, gen,
             device, TOL_K3, "K3", timed)})
@@ -420,26 +543,28 @@ def lm_kernel_phase(pipe, bucket: int, device, timed: bool = True) -> dict:
     q = torch.randn((bh, s, d), generator=gen, device=device)
     k = torch.randn((bh // rep, s, d), generator=gen, device=device)
     v = torch.randn((bh // rep, s, d), generator=gen, device=device)
-    got = flash_attention(q, k, v, causal=True, rep=rep)
+    def run():
+        return flash_attention(q, k, v, causal=True, rep=rep)
+
+    got = run()
     abs_err, rel_err = _err(got, flash_attention_plain(q, k, v, causal=True, rep=rep))
     if not rel_err <= TOL_K4:
         raise AssertionError(f"K4 {tuple(q.shape)}: rel err {rel_err} > {TOL_K4}")
+    check_repeatable(f"K4 {tuple(q.shape)}", run, got)
     bnd, by = flash_bound(bh, bh // rep, s, s, d)
     k4 = {"q": [bh, s, d], "kv": [bh // rep, s, d], "rep": rep,
           "count": cfg.layers, "max_abs_err": abs_err, "max_rel_err": rel_err,
-          "bound_ms": bnd, "bound_by": by, "ms": None, "plain_ms": None,
-          "library_ms": None}
+          "bound_ms": bnd, "bound_by": by, "ms": None, "device_ms": None,
+          "plain_ms": None, "library_ms": None, "library_device_ms": None}
     if timed:
-        k4["ms"] = cuda_ms(lambda: flash_attention(q, k, v, causal=True, rep=rep))
-        k4["plain_ms"] = cuda_ms(
-            lambda: flash_attention_plain(q, k, v, causal=True, rep=rep))
         # the library yardstick: SDPA in (B, H, S, D) with K/V repeated
         # outside the timed call
         q4 = q.view(bucket, h, s, d)
         k4r = k.view(bucket, hkv, s, d).repeat_interleave(rep, dim=1)
         v4r = v.view(bucket, hkv, s, d).repeat_interleave(rep, dim=1)
-        k4["library_ms"] = cuda_ms(
-            lambda: F.scaled_dot_product_attention(q4, k4r, v4r, is_causal=True))
+        k4.update(timings(
+            run, lambda: flash_attention_plain(q, k, v, causal=True, rep=rep),
+            lambda: F.scaled_dot_product_attention(q4, k4r, v4r, is_causal=True)))
         lib = F.scaled_dot_product_attention(q4, k4r, v4r, is_causal=True)
         k4["library_rel_err"] = _err(got, lib.reshape(got.shape))[1]
     return {"matmul": k2, "coded_gemm": k3_dec, "coded_gemm_encode": k3_enc,
@@ -599,11 +724,14 @@ def main() -> int:
     kernels = kernel_phase(pipe, BUCKET, device)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
-        print(f"  {k['name']}: {k['ms']:.3f} ms per pass of its serving shapes "
-              f"(plain {k['plain_ms']:.3f}, library {k['library_ms']}, bound "
-              f"{k['bound_ms']:.3f} by {k['bound_by']}), max rel err "
-              f"{k['max_rel_err']:.2e} <= {k['tol']} vs plain, "
-              f"{k['library_rel_err']:.2e} vs library")
+        print(f"  {k['name']}: {k['ms']:.4f} ms per pass of its serving shapes "
+              f"with host issue, {k['device_ms']:.4f} ms device (plain "
+              f"{k['plain_ms']:.4f}, library {k['library_ms']:.4f} / device "
+              f"{k['library_device_ms']:.4f}, bound {k['bound_ms']:.4f} by "
+              f"{k['bound_by']}), max rel err {k['max_rel_err']:.2e} <= "
+              f"{k['tol']} vs plain, {k['library_rel_err']:.2e} vs library")
+        for e in k["shapes"]:
+            print(f"    {json.dumps(e)}")
 
     xs = np.random.default_rng(SEED).standard_normal(
         (N_REQUESTS,) + pipe.input_shape).astype(np.float32)
@@ -645,10 +773,11 @@ def main() -> int:
     print(f"LM kernel phase: {time.perf_counter() - t0:.1f} s")
     for name, entries in lm_k.items():
         sm = lm_kernel_summary(entries)
-        print(f"  {name}: {sm['ms']:.4f} ms per decode step's shapes "
-              f"(plain {sm['plain_ms']:.4f}, library {sm['library_ms']:.4f}, "
-              f"bound {sm['bound_ms']:.5f} by {sm['bound_by']}), max rel err "
-              f"{sm['max_rel_err']:.2e}")
+        print(f"  {name}: {sm['ms']:.4f} ms per decode step's shapes with "
+              f"host issue, {sm['device_ms']:.4f} ms device (plain "
+              f"{sm['plain_ms']:.4f}, library {sm['library_ms']:.4f} / device "
+              f"{sm['library_device_ms']:.4f}, bound {sm['bound_ms']:.5f} by "
+              f"{sm['bound_by']}), max rel err {sm['max_rel_err']:.2e}")
         for e in entries:
             print(f"    {json.dumps(e)}")
 
@@ -690,8 +819,8 @@ def main() -> int:
     k1e, k2e = kernels
     k1e["launches"] = launches["coded_worker"]
     k2e["launches"] = launches["matmul"]
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err", "max_rel_err")
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "max_abs_err", "max_rel_err")
     k2_lm = lm_kernel_summary(lm_k["matmul"])
     k2e["paths"] = {"cnn": {**{key: k2e[key] for key in keys},
                             "launches": launches["matmul"]},

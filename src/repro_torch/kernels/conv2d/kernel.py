@@ -8,19 +8,68 @@ shares (times the request batch) ride the GEMM's M dimension and the
 paper's ``ell_a * ell_b`` pairwise convolutions of one worker.
 ``coded_worker`` launches the CUDA kernel for CUDA tensors and runs
 ``coded_worker_plain`` only for tensors that lie on the CPU.
+``worker_plan`` chooses the kernel's N-tile and K split per layer.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..native import LaunchCounter, check_launch, launch_stream, load_library
+from typing import NamedTuple
 
-__all__ = ["coded_worker", "coded_worker_plain", "launches"]
+from ..native import (NUM_SMS, LaunchCounter, check_launch, launch_stream,
+                      load_library)
+
+__all__ = ["coded_worker", "coded_worker_plain", "worker_plan", "WorkerPlan",
+           "launches"]
 
 launches = LaunchCounter("coded_worker")
 
-_MAX_COL_BLOCKS = 65535  # grid.y limit; the kernel takes 64 columns a block
+TILE_M = 128  # output rows (pixels) a block owns
+TILE_K = 16  # depth of one copy stage
+MAX_K = 16384  # the kernel's k -> offset table
+MIN_SPLIT_CHUNKS = 8  # stages a K slice keeps at least
+SPLIT_CHOICES = (1, 2, 4, 8)  # K slices per tile: one thread-block cluster
+_MAX_COL_BLOCKS = 65535  # grid.y limit
+
+
+class WorkerPlan(NamedTuple):
+    """How K1 launches one worker GEMM of ``M`` pixels x ``N`` filters x
+    ``K`` taps: ``128 x bn`` output tiles, K cut into ``splits`` slices of
+    ``k_slice`` taps (a whole number of 16-deep stages; one thread-block
+    cluster per tile; the kernel computes the same slices), ``blocks``
+    blocks in all."""
+    bn: int
+    splits: int
+    k_slice: int
+    tiles: int
+    blocks: int
+
+
+def worker_plan(m: int, n: int, k: int) -> WorkerPlan:
+    """The launch K1 uses for a worker GEMM of shape ``(m, n, k)``.
+
+    The N-tile follows the layer's N: 32 up to N = 32 (VGG-16's first
+    layers would leave half of a wider tile idle), 64 up to N = 128 (two
+    64-column tiles double the blocks of a 128-column layer, with the
+    same 8x8 micro-tile a thread), else 128 (enough blocks, and a wider
+    tile reads each patch element for twice the columns).  Where the
+    ``ceil(m/128) * ceil(n/bn)`` tiles are fewer than the SMs, K is cut
+    into the fewest slices (2, 4 or 8) that give at least one block a SM,
+    keeping every slice at least ``MIN_SPLIT_CHUNKS`` stages deep."""
+    bn = 32 if n <= 32 else 64 if n <= 128 else 128
+    tiles = -(-m // TILE_M) * -(-n // bn)
+    chunks = -(-k // TILE_K)
+    splits = 1
+    if tiles < NUM_SMS:
+        for s in SPLIT_CHOICES[1:]:
+            if chunks < s * MIN_SPLIT_CHUNKS:
+                break
+            splits = s
+            if tiles * s >= NUM_SMS:
+                break
+    return WorkerPlan(bn, splits, -(-chunks // splits) * TILE_K, tiles,
+                      tiles * splits)
 
 
 def _geometry(xe: torch.Tensor, ke: torch.Tensor, stride: int):
@@ -73,14 +122,18 @@ def coded_worker(xe: torch.Tensor, ke: torch.Tensor, stride: int = 1) -> torch.T
         raise TypeError(f"K1 takes float32 only, got {xe.dtype} / {ke.dtype}")
     if not (xe.is_contiguous() and ke.is_contiguous()):
         raise ValueError("K1 takes contiguous shares and filters")
-    if -(-(eb * nb) // 64) > _MAX_COL_BLOCKS:
+    plan = worker_plan(ea * b * ho * wo, eb * nb, c * kh * kw)
+    if -(-(eb * nb) // plan.bn) > _MAX_COL_BLOCKS:
         raise ValueError(f"N={eb * nb} exceeds the kernel's column-block grid")
+    if c * kh * kw > MAX_K or c * hh * wp >= 2 ** 31:
+        raise ValueError(f"K={c * kh * kw} or C*H*W={c * hh * wp} exceeds "
+                         f"the kernel's offset table")
     out = torch.empty((ea * eb, b, nb, ho, wo), dtype=torch.float32,
                       device=xe.device)
     with torch.cuda.device(xe.device):
         rc = load_library().coded_worker_f32(
             xe.data_ptr(), ke.data_ptr(), out.data_ptr(), c, hh, wp, kh, kw,
-            stride, ea * b, b, eb, nb, launch_stream(xe))
+            stride, ea * b, b, eb, nb, plan.bn, plan.splits, launch_stream(xe))
     check_launch("coded_worker_f32", rc)
     launches.add()
     return out if batched else out[:, 0]

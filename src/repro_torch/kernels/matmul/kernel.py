@@ -5,18 +5,62 @@ Counterpart of the TPU kernel ``matmul_pallas``
 (``src/repro/kernels/matmul/kernel.py:111``).  ``matmul`` launches the
 CUDA kernel for CUDA tensors and runs ``matmul_plain`` only for tensors
 that lie on the CPU; there is no fallback from one to the other.
+``matmul_plan`` chooses between the kernel's two launch shapes.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from ..native import LaunchCounter, check_launch, launch_stream, load_library
+from ..native import (NUM_SMS, LaunchCounter, check_launch, launch_stream,
+                      load_library)
 
-__all__ = ["matmul", "matmul_plain", "launches"]
+__all__ = ["matmul", "matmul_plain", "matmul_plan", "MatmulPlan", "launches"]
 
 launches = LaunchCounter("matmul")
 
-_MAX_ROW_BLOCKS = 65535  # grid.y limit; the kernel takes 16 rows a block
+_MAX_ROW_BLOCKS = 65535  # column kernel: grid.y limit, 16 rows a block
+COLUMN_THREADS = 256  # column kernel: one thread per output column
+SPLIT_STRIP = 16  # split kernel: columns a block owns
+SPLIT_MAX_M = 16
+SPLIT_MIN_K = 64  # below this a K slice is too thin to be worth a cluster
+SPLIT_MAX_SLICE = 1024  # rows of K one block stages (shared memory)
+SPLIT_CHOICES = (1, 2, 4, 8)  # K slices per strip: one thread-block cluster
+
+
+class MatmulPlan(NamedTuple):
+    """How K2 launches one ``(M, K) @ (K, N)``: the ``column`` kernel, or
+    the ``split`` kernel with ``splits`` K slices of ``k_slice`` rows per
+    16-column strip (one thread-block cluster each; the kernel computes
+    the same slices).  ``blocks`` is the launch's block count."""
+    kernel: str
+    splits: int
+    k_slice: int
+    blocks: int
+
+
+def matmul_plan(m: int, n: int, k: int) -> MatmulPlan:
+    """The launch K2 uses for an ``(m, k) @ (k, n)`` product.
+
+    The column kernel (one thread per output column, K walked in the
+    thread) suits the wide transition GEMMs: it fills the card once
+    ``ceil(n/256) * ceil(m/bm)`` reaches the SM count, and K is 2-16
+    there.  When it would not fill the card, M is small and K is deep
+    enough to split, the split kernel takes 16-column strips and cuts K
+    into the fewest slices (1, 2, 4 or 8) that give two blocks a SM, as
+    many as 8 allow, each slice at most ``SPLIT_MAX_SLICE`` rows."""
+    bm = 8 if m <= 8 else 16
+    column_blocks = -(-n // COLUMN_THREADS) * -(-m // bm)
+    column = MatmulPlan("column", 0, k, column_blocks)
+    if column_blocks >= NUM_SMS or m > SPLIT_MAX_M or k < SPLIT_MIN_K:
+        return column
+    strips = -(-n // SPLIT_STRIP)
+    fits = [s for s in SPLIT_CHOICES if -(-k // s) <= SPLIT_MAX_SLICE]
+    if not fits:
+        return column
+    splits = next((s for s in fits if strips * s >= 2 * NUM_SMS), fits[-1])
+    return MatmulPlan("split", splits, -(-k // splits), strips * splits)
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -28,7 +72,8 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, relu: bool = False) -> torch.Tensor:
     """``a (M, K) @ b (K, N)`` in IEEE fp32, ReLU fused into the store when
-    ``relu``.  CUDA tensors launch K2; CPU tensors take ``matmul_plain``."""
+    ``relu``.  CUDA tensors launch K2 as ``matmul_plan`` says; CPU tensors
+    take ``matmul_plain``."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.device != b.device:
@@ -43,7 +88,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, relu: bool = False) -> torch.Ten
         raise ValueError("K2 takes contiguous row-major operands")
     m, k = a.shape
     n = b.shape[1]
-    if -(-m // 16) > _MAX_ROW_BLOCKS:
+    plan = matmul_plan(m, n, k)
+    if plan.kernel == "column" and -(-m // 16) > _MAX_ROW_BLOCKS:
         raise ValueError(f"M={m} exceeds the kernel's row-block grid")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
@@ -51,7 +97,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, relu: bool = False) -> torch.Ten
     with torch.cuda.device(a.device):
         rc = load_library().matmul_f32(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(relu),
-            launch_stream(a))
+            plan.splits, launch_stream(a))
     check_launch("matmul_f32", rc)
     launches.add()
     return out

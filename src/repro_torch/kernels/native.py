@@ -23,7 +23,9 @@ from pathlib import Path
 import torch
 
 __all__ = ["LaunchCounter", "build_library", "load_library", "launch_stream",
-           "check_launch"]
+           "check_launch", "NUM_SMS"]
+
+NUM_SMS = 132  # streaming multiprocessors of an H100 SXM: the launch plans fill them
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = Path(__file__).parent / "_build"
@@ -35,10 +37,10 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 # entry point -> argument types (every entry point returns the cudaError_t)
 SIGNATURES = {
-    # x, w, out, C, H, W, KH, KW, stride, G, B, EB, NB, stream
-    "coded_worker_f32": [_P, _P, _P] + [_I] * 10 + [_P],
-    # a, b, out, M, N, K, relu, stream
-    "matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, out, C, H, W, KH, KW, stride, G, B, EB, NB, bn, splits, stream
+    "coded_worker_f32": [_P, _P, _P] + [_I] * 12 + [_P],
+    # a, b, out, M, N, K, relu, splits, stream
+    "matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # code, feats, out, R_out, R_in, F, stream
     "coded_gemm_f32": [_P, _P, _P, _I, _I, _I, _P],
     # q, k, v, out, BH, Sq, Sk, D, rep, scale, causal, stream

@@ -7,7 +7,8 @@ so it runs on a machine without JAX:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerance: 1e-5 relative to max|plain|; the kernels and their plain
-versions may sum fp32 products in different orders.
+versions may sum fp32 products in different orders.  K1 at VGG-16's
+depths (K up to 4,608) is held to 1e-4, as ``chip_smoke.py`` holds it.
 """
 import numpy as np
 import pytest
@@ -83,6 +84,80 @@ def test_cuda_matmul_kernel_matches_plain(cuda, m, k, n, relu):
     torch.cuda.synchronize()
     assert k2.launches.count == before + 1
     _close(got, k2.matmul_plain(a, b, relu=relu))
+
+
+# K2's split kernel: the LM worker GEMMs (d_in, width) = (576, 480) qkv,
+# (576, 288) wo, (576, 1536) gate-up and (1536, 288) down at M = 1, 2, 4, 16,
+# and ragged K and N (N % 4 != 0, K not a multiple of the split), plus b one
+# float into its storage (no 16-byte loads): (K, N, offset)
+LM_GEMMS = [(576, 480, 0), (576, 288, 0), (576, 1536, 0), (1536, 288, 0),
+            (577, 479, 0), (1000, 290, 0), (100, 17, 0), (576, 288, 1)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 16])
+@pytest.mark.parametrize("k,n,offset", LM_GEMMS)
+@pytest.mark.parametrize("relu", [False, True])
+def test_cuda_matmul_split_kernel_matches_plain(cuda, m, k, n, offset, relu):
+    assert k2.matmul_plan(m, n, k).kernel == "split"
+    a = torch.as_tensor(RNG.standard_normal((m, k)).astype(np.float32), device=cuda)
+    flat = torch.as_tensor(RNG.standard_normal(k * n + offset).astype(np.float32),
+                           device=cuda)
+    b = flat[offset:].view(k, n)
+    before = k2.launches.count
+    got = k2.matmul(a, b, relu=relu)
+    torch.cuda.synchronize()
+    assert k2.launches.count == before + 1
+    _close(got, k2.matmul_plain(a, b, relu=relu))
+
+
+# K1 at each VGG-16 layer's (C, N/k_b, KH, KW, stride) on ell_a = ell_b = 2
+# with a small M: (C, NB, h_hat, Wp) — the first at K = 27, those with
+# C >= 256 on the split-K path, the last with several row tiles and a split
+VGG_WORKER_CASES = [(3, 16, 8, 8), (64, 16, 8, 8), (64, 32, 6, 10),
+                    (128, 32, 6, 10), (128, 64, 5, 9), (256, 64, 5, 9),
+                    (256, 128, 6, 6), (512, 128, 6, 6), (512, 128, 20, 21)]
+
+
+@pytest.mark.parametrize("c,nb,hh,wp", VGG_WORKER_CASES)
+def test_cuda_worker_kernel_vgg_layers_match_plain(cuda, c, nb, hh, wp):
+    xe = torch.as_tensor(RNG.standard_normal((2, 2, c, hh, wp)).astype(np.float32),
+                         device=cuda)
+    ke = torch.as_tensor(RNG.standard_normal((2, nb, c, 3, 3)).astype(np.float32),
+                         device=cuda)
+    before = k1.launches.count
+    got = coded_worker(xe, ke, 1)
+    torch.cuda.synchronize()
+    assert k1.launches.count == before + 1
+    _close(got, k1.coded_worker_plain(xe, ke, 1), rel=1e-4)
+
+
+# (kernel, case): K1 without and with split-K; K2's column and split kernels
+REPEAT_CASES = [("k1", (2, 2, 64, 20, 30, 2, 70, 3, 3, 1)),
+                ("k1", (2, 2, 512, 6, 6, 2, 128, 3, 3, 1)),
+                ("k2", (8, 8, 100000)), ("k2", (4, 1536, 288))]
+
+
+@pytest.mark.parametrize("kernel,case", REPEAT_CASES)
+def test_cuda_kernels_repeat_bit_for_bit(cuda, kernel, case):
+    """Two launches on the same inputs give the same bits: every sum,
+    split-K and cluster reductions included, runs in a fixed order."""
+    if kernel == "k1":
+        ea, b, c, hh, wp, eb, nb, kh, kw, stride = case
+        xe = torch.as_tensor(RNG.standard_normal((ea, b, c, hh, wp)).astype(np.float32),
+                             device=cuda)
+        ke = torch.as_tensor(RNG.standard_normal((eb, nb, c, kh, kw)).astype(np.float32),
+                             device=cuda)
+        def run():
+            return coded_worker(xe, ke, stride)
+    else:
+        m, k, n = case
+        a = torch.as_tensor(RNG.standard_normal((m, k)).astype(np.float32), device=cuda)
+        bm = torch.as_tensor(RNG.standard_normal((k, n)).astype(np.float32), device=cuda)
+        def run():
+            return k2.matmul(a, bm, relu=True)
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run(), first)
 
 
 def test_cuda_kernels_reject_what_they_do_not_take(cuda):

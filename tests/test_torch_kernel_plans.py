@@ -1,0 +1,165 @@
+"""The launch plans of K1 (``worker_plan``) and K2 (``matmul_plan``): plain
+Python, so they are held here on the CPU at the exact shapes the serving
+paths give the kernels (computed by ``chip_smoke.py``'s own shape
+functions from the built pipelines).
+
+  * the CNN transition GEMMs keep K2's column kernel;
+  * the LM worker GEMMs at buckets 1, 2 and 4 take K2's split kernel with
+    at least one block a SM;
+  * each VGG-16 layer at bucket 8 gets the N-tile and K split of K1's
+    design (the table in ``PERF.md``);
+  * every plan covers M, N and K exactly, ragged edges included.
+"""
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.kernels.conv2d.kernel import TILE_K, TILE_M, worker_plan
+from repro_torch.kernels.matmul.kernel import (COLUMN_THREADS, SPLIT_MAX_M,
+                                               SPLIT_MAX_SLICE, SPLIT_STRIP,
+                                               matmul_plan)
+from repro_torch.kernels.native import NUM_SMS
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    return _chip_smoke()
+
+
+@pytest.fixture(scope="module")
+def vgg(smoke):
+    server, _ = smoke.build_server(torch.device("cpu"), smoke.HW)
+    return server.pipeline
+
+
+@pytest.fixture(scope="module")
+def lm(smoke):
+    pipe, _ = smoke.build_lm(torch.device("cpu"))
+    return pipe
+
+
+def _gemm_mnk(xs, ks, stride):
+    ea, b, c, hh, wp = xs
+    eb, nb, _, kh, kw = ks
+    ho, wo = (hh - kh) // stride + 1, (wp - kw) // stride + 1
+    return ea * b * ho * wo, eb * nb, c * kh * kw
+
+
+def _covers_matmul(m, n, k):
+    plan = matmul_plan(m, n, k)
+    if plan.kernel == "column":
+        bm = 8 if m <= 8 else 16
+        assert plan.splits == 0 and plan.k_slice == k
+        assert plan.blocks == -(-n // COLUMN_THREADS) * -(-m // bm)
+        return plan
+    strips = plan.blocks // plan.splits
+    assert plan.kernel == "split" and m <= SPLIT_MAX_M
+    assert strips * SPLIT_STRIP >= n > (strips - 1) * SPLIT_STRIP
+    assert plan.splits * plan.k_slice >= k > (plan.splits - 1) * plan.k_slice
+    assert plan.k_slice <= SPLIT_MAX_SLICE
+    return plan
+
+
+def _covers_worker(m, n, k):
+    plan = worker_plan(m, n, k)
+    assert plan.bn in (32, 64, 128)
+    m_tiles, n_tiles = -(-m // TILE_M), -(-n // plan.bn)
+    assert plan.tiles == m_tiles * n_tiles
+    assert m_tiles * TILE_M >= m > (m_tiles - 1) * TILE_M
+    assert n_tiles * plan.bn >= n > (n_tiles - 1) * plan.bn
+    assert plan.k_slice % TILE_K == 0
+    assert plan.splits * plan.k_slice >= k > (plan.splits - 1) * plan.k_slice
+    assert plan.blocks == plan.tiles * plan.splits
+    return plan
+
+
+@pytest.mark.parametrize("layer", range(12))
+def test_cnn_transition_gemms_keep_the_column_kernel(smoke, vgg, layer):
+    shapes = smoke.transition_shapes(vgg, smoke.BUCKET)
+    assert len(shapes) == 24
+    for (m, k), (_, n), _ in shapes[2 * layer:2 * layer + 2]:
+        plan = _covers_matmul(m, n, k)
+        assert plan.kernel == "column" and plan.blocks >= NUM_SMS
+
+
+@pytest.mark.parametrize("bucket", [1, 2, 4])
+@pytest.mark.parametrize("gemm", range(4))
+def test_lm_worker_gemms_take_the_split_kernel(smoke, lm, bucket, gemm):
+    rounds = smoke.lm_round_shapes(lm, bucket)
+    assert [r["kind"] for r in rounds] == ["qkv", "wo", "gateup", "down"]
+    (m, k), (_, n) = rounds[gemm]["worker"]
+    assert m == bucket
+    plan = _covers_matmul(m, n, k)
+    assert plan.kernel == "split" and plan.blocks >= NUM_SMS
+
+
+# VGG-16 224x224 at bucket 8 on n = 8, (k_a, k_b) = (2, 4): per layer the
+# worker GEMM (M, N, K) and the design's N-tile and K split.
+VGG_PLANS = [
+    ((401408, 32, 27), 32, 1), ((401408, 32, 576), 32, 1),
+    ((100352, 64, 576), 64, 1), ((100352, 64, 1152), 64, 1),
+    ((25088, 128, 1152), 64, 1), ((25088, 128, 2304), 64, 1),
+    ((25088, 128, 2304), 64, 1),
+    ((6272, 256, 2304), 128, 2), ((6272, 256, 4608), 128, 2),
+    ((6272, 256, 4608), 128, 2),
+    ((1568, 256, 4608), 128, 8), ((1568, 256, 4608), 128, 8),
+    ((1568, 256, 4608), 128, 8),
+]
+
+
+@pytest.mark.parametrize("layer", range(13))
+def test_vgg_worker_gemm_plans(smoke, vgg, layer):
+    shapes = smoke.worker_shapes(vgg, smoke.BUCKET)
+    assert len(shapes) == len(VGG_PLANS)
+    mnk, bn, splits = VGG_PLANS[layer]
+    assert _gemm_mnk(*shapes[layer]) == mnk
+    plan = _covers_worker(*mnk)
+    assert (plan.bn, plan.splits) == (bn, splits)
+    if splits > 1:  # split only where the tiles alone leave SMs idle
+        assert plan.tiles < NUM_SMS <= plan.blocks
+
+
+MATMUL_EDGES = [(1, 1, 64), (3, 7, 65), (4, 479, 577), (16, 290, 1000),
+                (17, 288, 576), (4, 300, 8), (2, 5, 8193), (16, 33793, 576),
+                (1, 1, 1), (8, 64, 1025), (5, 16, 4096), (16, 17, 63)]
+
+
+@pytest.mark.parametrize("m,n,k", MATMUL_EDGES)
+def test_matmul_plan_covers_every_shape(m, n, k):
+    _covers_matmul(m, n, k)
+
+
+WORKER_EDGES = [(1, 1, 1), (127, 33, 17), (129, 65, 27), (2000, 130, 4608),
+                (72, 256, 576), (401408, 32, 27), (300, 129, 16384),
+                (128, 64, 257), (1568, 512, 9), (5, 200, 1153)]
+
+
+@pytest.mark.parametrize("m,n,k", WORKER_EDGES)
+def test_worker_plan_covers_every_shape(m, n, k):
+    _covers_worker(m, n, k)
+
+
+def test_worker_plan_keeps_every_slice_deep():
+    """A split never leaves a K slice shallower than the design's minimum,
+    and never splits where the tiles already fill the card."""
+    from repro_torch.kernels.conv2d.kernel import MIN_SPLIT_CHUNKS
+
+    for m in (72, 1568, 6272, 25088):
+        for k in (27, 144, 576, 1152, 4608):
+            plan = worker_plan(m, 256, k)
+            if plan.splits > 1:
+                assert plan.k_slice >= MIN_SPLIT_CHUNKS * TILE_K
+                assert plan.tiles < NUM_SMS
+            elif plan.tiles < NUM_SMS:
+                assert -(-k // TILE_K) < 2 * MIN_SPLIT_CHUNKS
