@@ -247,7 +247,7 @@ class CodedDecoderPipeline:
         self._cluster_programs: dict[tuple, Program] = {}  # per-worker call
         self._batch_programs: dict[tuple, Program] = {}  # looped over workers
         # decode inverses by survivor tuple (one plan for every round), as
-        # fp32 device tensors; written by the engine thread only
+        # fp32 host tensors; written by the engine thread only
         self._decode_memo: dict[tuple, torch.Tensor] = {}  # guarded-by: engine-thread
 
     # -- weight encoding (once, at construction) ---------------------------
@@ -329,10 +329,6 @@ class CodedDecoderPipeline:
         return tuple(avail[:delta])
 
     # -- coded program caches (the CodedPipeline duck-type surface) --------
-    def _on_device(self, m) -> torch.Tensor:
-        """A host float64 code matrix as an fp32 device tensor."""
-        return torch.as_tensor(m, dtype=torch.float32, device=self.device)
-
     def encoder(self, idx: int) -> Program:
         """k_a=1 'encoding' is a broadcast: every worker receives the whole
         (B, d_in) activation as its single coded share — an ``expand``, no
@@ -364,10 +360,11 @@ class CodedDecoderPipeline:
 
     def decode_matrix(self, idx: int, worker_ids: tuple[int, ...]) -> torch.Tensor:
         """The (Q, Q) decode inverse for the given survivor subset: inverted
-        in float64 on the host, then memoised per subset as the fp32 device
-        tensor the decode program takes, so a round copies nothing to the
-        device.  Uncoded rounds accept only the full worker set and decode
-        with the identity — sorted-id gather order IS column-block order."""
+        in float64 on the host, then memoised per subset as the fp32 host
+        tensor the decode program takes — K3 takes it by value, so a round
+        neither copies it to the device nor synchronises a stream.  Uncoded
+        rounds accept only the full worker set and decode with the
+        identity — sorted-id gather order IS column-block order."""
         plan = self.specs[idx].plan
         if isinstance(plan, UncodedPlan):
             ids = tuple(sorted(worker_ids))
@@ -385,11 +382,12 @@ class CodedDecoderPipeline:
                 a_code, b_code = plan.codes
                 m = np.linalg.inv(
                     recovery_matrix(a_code, b_code, list(worker_ids)).T)
-            d = self._on_device(m)
-            if d.is_cuda:  # the pageable copy lands before any stream reads it
-                torch.cuda.current_stream(d.device).synchronize()
-            self._decode_memo[key] = d
+            d = self._decode_memo[key] = torch.as_tensor(m, dtype=torch.float32)
         return d
+
+    def decode_operand(self, idx: int, worker_ids: tuple[int, ...]) -> torch.Tensor:
+        """The decode program's matrix argument: ``decode_matrix`` as is."""
+        return self.decode_matrix(idx, worker_ids)
 
     def decoder_fn(self, idx: int) -> Program:
         """One decode program for EVERY round: ``(outs, d)`` with the (Q, Q)
@@ -408,7 +406,7 @@ class CodedDecoderPipeline:
 
     def decoder(self, idx: int, worker_ids: tuple[int, ...]):
         fn = self.decoder_fn(idx)
-        d = self._on_device(self.decode_matrix(idx, worker_ids))
+        d = self.decode_matrix(idx, worker_ids)
         return lambda outs: fn(outs, d)
 
     # -- master-side glue ------------------------------------------------------

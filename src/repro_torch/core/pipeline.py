@@ -369,10 +369,15 @@ class CodedPipeline:
             fn = self._decoders[idx] = Program(dec)
         return fn
 
+    def decode_operand(self, idx: int, worker_ids: tuple[int, ...]) -> torch.Tensor:
+        """The decode and transition programs' matrix argument: the
+        subset's decode inverse as a device tensor."""
+        return self._on_device(self.decode_matrix(idx, worker_ids))
+
     def decoder(self, idx: int, worker_ids: tuple[int, ...]):
         """``decoder_fn`` with the subset's decode inverse bound."""
         fn = self.decoder_fn(idx)
-        d = self._on_device(self.decode_matrix(idx, worker_ids))
+        d = self.decode_operand(idx, worker_ids)
         return lambda outs: fn(outs, d)
 
     def transition_fn(self, idx: int) -> Program:
@@ -472,7 +477,7 @@ class CodedPipeline:
             prepped.append((
                 self._on_device(self.encode_columns(idx, ids)),
                 torch.as_tensor(ids, device=self.device),
-                self._on_device(self.decode_matrix(idx, ids)),
+                self.decode_operand(idx, ids),
             ))
         return prepped
 

@@ -17,8 +17,7 @@ import torch.nn.functional as F
 
 from typing import NamedTuple
 
-from ..native import (NUM_SMS, LaunchCounter, check_launch, launch_stream,
-                      load_library)
+from ..native import NUM_SMS, LaunchCounter, launch_on, load_library
 
 __all__ = ["coded_worker", "coded_worker_plain", "worker_plan", "WorkerPlan",
            "launches"]
@@ -130,10 +129,8 @@ def coded_worker(xe: torch.Tensor, ke: torch.Tensor, stride: int = 1) -> torch.T
                          f"the kernel's offset table")
     out = torch.empty((ea * eb, b, nb, ho, wo), dtype=torch.float32,
                       device=xe.device)
-    with torch.cuda.device(xe.device):
-        rc = load_library().coded_worker_f32(
-            xe.data_ptr(), ke.data_ptr(), out.data_ptr(), c, hh, wp, kh, kw,
-            stride, ea * b, b, eb, nb, plan.bn, plan.splits, launch_stream(xe))
-    check_launch("coded_worker_f32", rc)
+    launch_on("coded_worker_f32", xe, load_library().coded_worker_f32,
+              xe.data_ptr(), ke.data_ptr(), out.data_ptr(), c, hh, wp, kh, kw,
+              stride, ea * b, b, eb, nb, plan.bn, plan.splits)
     launches.add()
     return out if batched else out[:, 0]

@@ -9,112 +9,139 @@
 // inv(E^T) (Q, Q) @ coded rows (Q, F).
 //
 // code is tiny (R_out, R_in <= 16) and feats is wide (F up to millions
-// at build time, 144-3072 a decode round on the SmolLM-135M path), so the
+// at build time, 576-3072 a decode round on the SmolLM-135M path), so the
 // work is 2*R_out*R_in*F FLOPs against 4*(R_in + R_out)*F bytes: about
 // one FLOP a byte, far below the card's ridge point.  The kernel is bound
 // by device memory (3.35 TB/s on an H100) at build-time widths and by
-// launch latency at decode widths.  The design follows: the whole code
-// matrix sits in shared memory and is read as broadcasts, each thread owns
-// VEC consecutive feature columns (a float4 when F and the pointers
-// allow), keeps all R_out accumulators in registers and sums over R_in in
-// order with fmaf, so every element of feats is read from device memory
-// exactly once and every output element written once, coalesced along F.
-// No TF32: the decode multiplies rounding error by cond(E).
+// latency at decode widths, where a launch moves a few tens of KB.  The
+// design follows:
+//
+//   * the code matrix is born on the host and travels to the kernel by
+//     value, as a __grid_constant__ parameter of RO x RI floats (R_out and
+//     R_in rounded up to 4, 8 or 16: 64 bytes at the 4 x 4 decode, 1 KB at
+//     most, so the launch copies little): every thread reads it from the
+//     constant bank, so there is no load of it from device memory, no
+//     shared-memory staging and no barrier;
+//   * each thread owns VEC consecutive feature columns (VEC = 4, one
+//     float4 a row, at build-time widths; VEC = 1 at decode widths, so
+//     a launch spreads over tens of blocks) and issues all R_in loads of
+//     its columns before its first FMA: one memory latency a thread;
+//   * each output row sums over R_in in order with fmaf, so every element
+//     of feats is read from device memory once and every output element
+//     written once, coalesced along F, the same bits every launch.
+//
+// `coded_gemm_plan` (kernels/coded_gemm/kernel.py) picks VEC and the
+// threads a block.  No TF32: the decode multiplies rounding error by
+// cond(E).
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int R_MAX = 16;
 
-template <int RO, int VEC>
-__global__ void __launch_bounds__(THREADS)
-coded_gemm_kernel(const float* __restrict__ code,
-                  const float* __restrict__ feats, float* __restrict__ out,
-                  int R_out, int R_in, int64_t F) {
-  __shared__ float cs[R_MAX][R_MAX];
-  for (int e = threadIdx.x; e < R_out * R_in; e += THREADS) {
-    cs[e / R_in][e % R_in] = code[e];
-  }
-  __syncthreads();
-  const int64_t col = ((int64_t)blockIdx.x * THREADS + threadIdx.x) * VEC;
+template <int RO, int RI>
+struct CodeMatrix {
+  float c[RO][RI];  // row o, column c; zero outside (R_out, R_in)
+};
+
+template <int RO, int RI, int VEC>
+__global__ void coded_gemm_kernel(const __grid_constant__ CodeMatrix<RO, RI> code,
+                                  const float* __restrict__ feats,
+                                  float* __restrict__ out, int R_out,
+                                  int R_in, int64_t F) {
+  const int64_t col = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
   if (col >= F) return;
-
-  float acc[RO][VEC];
+  float x[RI][VEC];
 #pragma unroll
-  for (int o = 0; o < RO; ++o)
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[o][v] = 0.f;
-
-  for (int c = 0; c < R_in; ++c) {
-    float x[VEC];
-    const float* row = feats + (int64_t)c * F + col;
-    if constexpr (VEC == 4) {
-      const float4 t = *reinterpret_cast<const float4*>(row);
-      x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
-    } else {
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) x[v] = row[v];
-    }
-#pragma unroll
-    for (int o = 0; o < RO; ++o) {
-      if (o < R_out) {
-        const float w = cs[o][c];
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[o][v] = fmaf(w, x[v], acc[o][v]);
+  for (int c = 0; c < RI; ++c) {  // every load in flight before any FMA
+    if (c < R_in) {
+      const float* row = feats + (int64_t)c * F + col;
+      if constexpr (VEC == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(row);
+        x[c][0] = t.x; x[c][1] = t.y; x[c][2] = t.z; x[c][3] = t.w;
+      } else {
+        x[c][0] = row[0];
       }
     }
   }
 #pragma unroll
-  for (int o = 0; o < RO; ++o) {
-    if (o < R_out) {
-      float* dst = out + (int64_t)o * F + col;
-      if constexpr (VEC == 4) {
-        *reinterpret_cast<float4*>(dst) =
-            make_float4(acc[o][0], acc[o][1], acc[o][2], acc[o][3]);
-      } else {
+  for (int o = 0; o < RO; ++o) {  // unrolled: code.c is read at fixed offsets
+    if (o >= R_out) break;
+    float acc[VEC];
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) dst[v] = acc[o][v];
+    for (int t = 0; t < VEC; ++t) acc[t] = 0.f;
+#pragma unroll
+    for (int c = 0; c < RI; ++c) {
+      if (c < R_in) {
+        const float w = code.c[o][c];
+#pragma unroll
+        for (int t = 0; t < VEC; ++t) acc[t] = fmaf(w, x[c][t], acc[t]);
       }
+    }
+    float* dst = out + (int64_t)o * F + col;
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+      dst[0] = acc[0];
     }
   }
 }
 
-template <int RO>
-int launch(const float* code, const float* feats, float* out, int R_out,
-           int R_in, int64_t F, bool vec4, cudaStream_t stream) {
-  if (vec4) {
-    const int64_t blocks = (F / 4 + THREADS - 1) / THREADS;
-    coded_gemm_kernel<RO, 4><<<(unsigned)blocks, THREADS, 0, stream>>>(
-        code, feats, out, R_out, R_in, F);
-  } else {
-    const int64_t blocks = (F + THREADS - 1) / THREADS;
-    coded_gemm_kernel<RO, 1><<<(unsigned)blocks, THREADS, 0, stream>>>(
-        code, feats, out, R_out, R_in, F);
-  }
+template <int RO, int RI>
+int launch(const float* host, const float* feats, float* out, int R_out,
+           int R_in, int64_t F, int vec, int threads, cudaStream_t stream) {
+  CodeMatrix<RO, RI> code;
+  memset(&code, 0, sizeof(code));
+  for (int o = 0; o < R_out; ++o)
+    for (int c = 0; c < R_in; ++c) code.c[o][c] = host[o * R_in + c];
+  const int64_t cols = (F + vec - 1) / vec;
+  const dim3 grid((unsigned)((cols + threads - 1) / threads));
+  if (vec == 4)
+    coded_gemm_kernel<RO, RI, 4><<<grid, threads, 0, stream>>>(code, feats, out, R_out, R_in, F);
+  else
+    coded_gemm_kernel<RO, RI, 1><<<grid, threads, 0, stream>>>(code, feats, out, R_out, R_in, F);
   return (int)cudaGetLastError();
+}
+
+template <int RO>
+int launch_ri(const float* host, const float* feats, float* out, int R_out,
+              int R_in, int64_t F, int vec, int threads, cudaStream_t s) {
+  if (R_in <= 4) return launch<RO, 4>(host, feats, out, R_out, R_in, F, vec, threads, s);
+  if (R_in <= 8) return launch<RO, 8>(host, feats, out, R_out, R_in, F, vec, threads, s);
+  return launch<RO, 16>(host, feats, out, R_out, R_in, F, vec, threads, s);
 }
 
 }  // namespace
 
-// code: (R_out, R_in), feats: (R_in, F), out: (R_out, F); fp32, row-major,
-// contiguous; 1 <= R_out, R_in <= 16.  Returns the launch's cudaError_t
-// (cudaErrorInvalidValue for sizes the kernel does not take).
+// code: (R_out, R_in) fp32 row-major in HOST memory, copied into the
+// launch's parameters before this returns; feats: (R_in, F) and out:
+// (R_out, F) fp32 row-major contiguous on the device; 1 <= R_out, R_in
+// <= 16.  vec (1, or 4 with F % 4 == 0 and both device pointers 16-byte
+// aligned) and threads (32, 64, 128 or 256) are coded_gemm_plan's.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for what the
+// kernel does not take).
 extern "C" int coded_gemm_f32(const void* code, const void* feats, void* out,
                               long long R_out, long long R_in, long long F,
-                              void* stream) {
-  if (R_out < 1 || R_in < 1 || R_out > R_MAX || R_in > R_MAX || F < 0)
+                              long long vec, long long threads, void* stream) {
+  if (R_out < 1 || R_in < 1 || R_out > R_MAX || R_in > R_MAX || F < 0 ||
+      code == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (threads != 32 && threads != 64 && threads != 128 && threads != 256)
+    return (int)cudaErrorInvalidValue;
+  if (vec != 1 && !(vec == 4 && F % 4 == 0 &&
+                    (((uintptr_t)feats | (uintptr_t)out) % 16) == 0))
+    return (int)cudaErrorInvalidValue;
+  if ((F + vec - 1) / vec / threads >= (1LL << 31))  // grid.x
     return (int)cudaErrorInvalidValue;
   if (F == 0) return (int)cudaSuccess;
-  const float* pc = (const float*)code;
+  const float* host = (const float*)code;
   const float* pf = (const float*)feats;
   float* po = (float*)out;
-  const bool vec4 = F % 4 == 0 && ((uintptr_t)pf % 16) == 0 &&
-                    ((uintptr_t)po % 16) == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const int ro = (int)R_out, ri = (int)R_in;
-  if (R_out <= 4) return launch<4>(pc, pf, po, ro, ri, F, vec4, s);
-  if (R_out <= 8) return launch<8>(pc, pf, po, ro, ri, F, vec4, s);
-  return launch<16>(pc, pf, po, ro, ri, F, vec4, s);
+  const int ro = (int)R_out, ri = (int)R_in, v = (int)vec, t = (int)threads;
+  if (R_out <= 4) return launch_ri<4>(host, pf, po, ro, ri, F, v, t, s);
+  if (R_out <= 8) return launch_ri<8>(host, pf, po, ro, ri, F, v, t, s);
+  return launch_ri<16>(host, pf, po, ro, ri, F, v, t, s);
 }

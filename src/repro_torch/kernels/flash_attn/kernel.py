@@ -1,26 +1,80 @@
 """K4: attention with an online softmax (``csrc/flash_attn.cu``) and its
-plain PyTorch version.
+plain PyTorch version, for fp32 and bf16 operands.
 
 Counterpart of the TPU kernel ``flash_attention_pallas``
 (``src/repro/kernels/flash_attn/kernel.py:69``), with the TPU signature
 ``q (BH, Sq, D), k/v (BH, Sk, D)`` plus ``rep``: with ``rep > 1`` the K/V
 rows are per KV head, ``k/v (BH / rep, Sk, D)``, and query row ``bh``
-reads K/V row ``bh // rep`` (heads ordered ``h = g * rep + r``).
-``flash_attention`` launches the CUDA kernel for CUDA tensors and runs
-``flash_attention_plain`` only for tensors that lie on the CPU.
+reads K/V row ``bh // rep`` (heads ordered ``h = g * rep + r``).  bf16
+operands follow the TPU kernel: scores, softmax state and sums in fp32,
+``p`` rounded to bf16 before P.V, a bf16 output.  ``flash_attention``
+launches the CUDA kernel for CUDA tensors and runs
+``flash_attention_plain`` only for tensors that lie on the CPU;
+``flash_plan`` chooses the launch shape.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
-from ..native import LaunchCounter, check_launch, launch_stream, load_library
+from ..native import NUM_SMS, LaunchCounter, launch_on, load_library
 
-__all__ = ["flash_attention", "flash_attention_plain", "launches", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_plan", "FlashPlan",
+           "launches", "HEAD_DIMS"]
 
 launches = LaunchCounter("flash_attention")
 
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
-_MAX_ROWS = 65535  # grid.y limit: one row of blocks per bh
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_WARPS = 16  # warps a block
+PAIRS_A_WARP = 4  # (query head, query row) pairs one warp takes in turn
+ROW_CHOICES = (64, 32, 16, 8, 4, 2, 1)  # query rows a block, most first
+MAX_GRID_Y = 65535  # one row of blocks per (KV head, head group)
+
+
+def max_pairs(d: int) -> int:
+    """(query head, query row) pairs one block serves at head_dim ``d``:
+    their q rows are staged beside a 32-key K and V chunk within 48 KB of
+    shared memory."""
+    return min(64, 2048 // d)
+
+
+class FlashPlan(NamedTuple):
+    """How K4 launches: each block serves ``heads`` query heads of one KV
+    head and ``rows`` query rows of each, with ``warps`` warps; the grid
+    is ``(ceil(Sq / rows), BH / rep * groups)``, ``blocks`` in all."""
+    heads: int
+    rows: int
+    warps: int
+    groups: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def flash_plan(bh: int, sq: int, sk: int, d: int, rep: int) -> FlashPlan:
+    """The launch K4 uses for ``q (bh, sq, d)`` over ``k/v (bh / rep, sk,
+    d)``.
+
+    A block stages its KV head's keys once for every query head it serves,
+    so it takes all ``rep`` heads when ``max_pairs(d)`` allows (else groups
+    of as many as fit).  Its query rows are the largest power of two (no
+    larger than the sequence needs) that still gives every SM a block, else
+    1, the most blocks there can be: at the SmolLM-135M prefill (36 query
+    heads over 12 KV heads, S = 16) that is 192 blocks of 3 warps.  One
+    warp a (head, row) pair, up to 16 warps; each warp takes at most 4
+    pairs in turn.  ``sk`` changes nothing: every block walks its keys in
+    32-key chunks."""
+    del sk
+    cap = max_pairs(d)
+    heads = min(rep, cap)
+    groups = -(-rep // heads)
+    column = (bh // rep) * groups
+    fits = [r for r in ROW_CHOICES if r * heads <= cap and (r == 1 or r < 2 * sq)]
+    rows = next((r for r in fits if column * -(-sq // r) >= NUM_SMS), fits[-1])
+    warps = min(MAX_WARPS, heads * rows)
+    return FlashPlan(heads, rows, warps, groups, column * -(-sq // rows))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rep: int) -> None:
@@ -40,19 +94,31 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           rep: int = 1) -> torch.Tensor:
     """Scores, index-causal mask, fp32 softmax, weighted sum — the function
     of K4 (mirrors ``flash_attn/ref.py``).  Every key index is below Sk
-    here, so the kernel's padded-key mask has nothing to hide."""
+    here, so the kernel's padded-key mask has nothing to hide.  bf16
+    operands take the TPU kernel's arithmetic: fp32 scores (the products of
+    bf16 values are exact in fp32), ``e = exp(s - max)`` and its fp32 sum
+    ``l``, ``e`` rounded to bf16 for P.V with an fp32 sum, then
+    ``acc / max(l, 1e-30)`` rounded to bf16."""
     _check(q, k, v, rep)
     d = q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
     if rep > 1:
         k = k.repeat_interleave(rep, dim=0)
         v = v.repeat_interleave(rep, dim=0)
-    s = torch.einsum("bqd,bkd->bqk", q, k).float() * scale
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    else:
+        s = torch.einsum("bqd,bkd->bqk", q, k).float() * scale
     if causal:
         sq, sk = q.shape[1], k.shape[1]
         ok = (torch.arange(sk, device=q.device)[None, :]
               <= torch.arange(sq, device=q.device)[:, None])
         s = s.masked_fill(~ok[None], -1e30)
+    if bf16:
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        acc = torch.einsum("bqk,bkd->bqd", e.to(v.dtype).float(), v.float())
+        return (acc / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p.to(v.dtype), v)
 
@@ -62,8 +128,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     rep: int = 1) -> torch.Tensor:
     """``q (BH, Sq, D)``, ``k/v (BH / rep, Sk, D)`` -> ``(BH, Sq, D)``;
     key ``j`` is masked for query ``i`` when ``causal`` and ``j > i``.
-    fp32, ``D`` in ``HEAD_DIMS``.  CUDA tensors launch K4; CPU tensors
-    take ``flash_attention_plain``."""
+    fp32 or bf16 (all three alike), ``D`` in ``HEAD_DIMS``.  CUDA tensors
+    launch K4 as ``flash_plan`` says; CPU tensors take
+    ``flash_attention_plain``."""
     _check(q, k, v, rep)
     if not (q.device == k.device == v.device):
         raise ValueError(f"operands on {q.device}, {k.device}, {v.device}")
@@ -71,24 +138,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, scale=scale, causal=causal, rep=rep)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
-    if not all(t.dtype == torch.float32 for t in (q, k, v)):
-        raise TypeError(f"K4 takes float32 only, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+    if q.dtype not in DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"K4 takes float32 or bfloat16 operands of one type, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("K4 takes contiguous (BH, S, D) operands")
     bh, sq, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d}: K4 is built for {HEAD_DIMS}")
-    if bh > _MAX_ROWS:
+    sk = k.shape[1]
+    plan = flash_plan(bh, sq, sk, d, rep)
+    if bh // rep * plan.groups > MAX_GRID_Y:
         raise ValueError(f"BH={bh} exceeds the kernel's grid")
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
     if bh == 0 or sq == 0:
         return out
-    with torch.cuda.device(q.device):
-        rc = load_library().flash_attn_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-            k.shape[1], d, rep, float(scale), int(causal), launch_stream(q))
-    check_launch("flash_attn_f32", rc)
+    # the kernel loads 16 bytes at a time; a view that starts off a 16-byte
+    # boundary is copied to fresh (aligned) storage
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    launch_on("flash_attn", q, load_library().flash_attn,
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
+              sk, d, rep, float(scale), int(causal),
+              int(q.dtype == torch.bfloat16), plan.heads, plan.rows, plan.warps)
     launches.add()
     return out

@@ -13,8 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..native import (NUM_SMS, LaunchCounter, check_launch, launch_stream,
-                      load_library)
+from ..native import NUM_SMS, LaunchCounter, launch_on, load_library
 
 __all__ = ["matmul", "matmul_plain", "matmul_plan", "MatmulPlan", "launches"]
 
@@ -94,10 +93,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, relu: bool = False) -> torch.Ten
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
-    with torch.cuda.device(a.device):
-        rc = load_library().matmul_f32(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(relu),
-            plan.splits, launch_stream(a))
-    check_launch("matmul_f32", rc)
+    launch_on("matmul_f32", a, load_library().matmul_f32,
+              a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(relu),
+              plan.splits)
     launches.add()
     return out

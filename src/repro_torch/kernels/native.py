@@ -22,8 +22,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LaunchCounter", "build_library", "load_library", "launch_stream",
-           "check_launch", "NUM_SMS"]
+__all__ = ["LaunchCounter", "build_library", "load_library", "check_launch",
+           "launch_on", "NUM_SMS"]
 
 NUM_SMS = 132  # streaming multiprocessors of an H100 SXM: the launch plans fill them
 
@@ -41,10 +41,11 @@ SIGNATURES = {
     "coded_worker_f32": [_P, _P, _P] + [_I] * 12 + [_P],
     # a, b, out, M, N, K, relu, splits, stream
     "matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # code, feats, out, R_out, R_in, F, stream
-    "coded_gemm_f32": [_P, _P, _P, _I, _I, _I, _P],
-    # q, k, v, out, BH, Sq, Sk, D, rep, scale, causal, stream
-    "flash_attn_f32": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    # code (host), feats, out, R_out, R_in, F, vec, threads, stream
+    "coded_gemm_f32": [_P, _P, _P] + [_I] * 5 + [_P],
+    # q, k, v, out, BH, Sq, Sk, D, rep, scale, causal, bf16, heads, rows,
+    # warps, stream
+    "flash_attn": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
 }
 
 
@@ -141,6 +142,9 @@ def load_library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call, then reused by every
     thread of the process)."""
     global _library
+    lib = _library  # set once, never reset: a plain read is enough after that
+    if lib is not None:
+        return lib
     with _load_lock:
         if _library is None:
             path, _ = build_library()
@@ -153,14 +157,23 @@ def load_library() -> ctypes.CDLL:
         return _library
 
 
-def launch_stream(t: torch.Tensor) -> int:
-    """Handle of the calling thread's current stream on ``t``'s device —
-    per thread, so a worker thread inside ``torch.cuda.stream(s)``
-    launches on ``s``."""
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def check_launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {rc}")
+
+
+def launch_on(name: str, t: torch.Tensor, fn, *args) -> None:
+    """Call the entry point ``fn(*args, stream)`` on ``t``'s device and the
+    calling thread's current stream there — per thread, so a worker thread
+    inside ``torch.cuda.stream(s)`` launches on ``s`` — and raise if the
+    launch failed.  The stream is read as its raw handle (building a
+    ``torch.cuda.Stream`` object costs microseconds a call), and the device
+    is switched only when it is not already current."""
+    index = t.get_device()
+    if index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check_launch(name, rc)

@@ -16,8 +16,8 @@ without ever serving each other's filters.  A pipeline is a
 ``CodedPipeline`` (ConvL rounds) or a ``CodedDecoderPipeline`` (the coded
 GEMM rounds of LM decode): the seam reads only the surface both expose
 (``n``, ``device``, ``specs``, ``coded_filters``, ``fuse_transitions``,
-``encoder``, ``worker_program``, ``decode_matrix``, ``decoder_fn``,
-``_on_device``), so one pool serves both families.
+``encoder``, ``worker_program``, ``decode_operand``, ``decoder_fn``),
+so one pool serves both families.
 
   * ``submit`` / ``collect`` — the asynchronous master: dispatch n coded
     subtasks without blocking, reap the fastest delta later.
@@ -286,7 +286,7 @@ class FcdccCluster:
 
         ids, outs = self._gather_outs(results, delta)
         t2 = time.perf_counter()
-        d = pipe._on_device(pipe.decode_matrix(rnd.idx, tuple(ids)))
+        d = pipe.decode_operand(rnd.idx, tuple(ids))
         if rnd.fused_mid:
             y = pipe.transition_fn(rnd.idx)(
                 outs, d, pipe.encode_columns_all(rnd.idx + 1))

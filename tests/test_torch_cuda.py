@@ -8,7 +8,8 @@ so it runs on a machine without JAX:
 
 Tolerance: 1e-5 relative to max|plain|; the kernels and their plain
 versions may sum fp32 products in different orders.  K1 at VGG-16's
-depths (K up to 4,608) is held to 1e-4, as ``chip_smoke.py`` holds it.
+depths (K up to 4,608) is held to 1e-4, as ``chip_smoke.py`` holds it;
+K4 in bf16 to one bf16 rounding of its output.
 """
 import numpy as np
 import pytest
@@ -131,10 +132,16 @@ def test_cuda_worker_kernel_vgg_layers_match_plain(cuda, c, nb, hh, wp):
     _close(got, k1.coded_worker_plain(xe, ke, 1), rel=1e-4)
 
 
-# (kernel, case): K1 without and with split-K; K2's column and split kernels
+# (kernel, case): K1 without and with split-K; K2's column and split kernels;
+# K3 at a decode and a build-time width; K4 at the prefill shape in fp32 and
+# bf16 and over several key chunks
 REPEAT_CASES = [("k1", (2, 2, 64, 20, 30, 2, 70, 3, 3, 1)),
                 ("k1", (2, 2, 512, 6, 6, 2, 128, 3, 3, 1)),
-                ("k2", (8, 8, 100000)), ("k2", (4, 1536, 288))]
+                ("k2", (8, 8, 100000)), ("k2", (4, 1536, 288)),
+                ("k3", (4, 4, 960)), ("k3", (8, 4, 138240)),
+                ("k4", (36, 16, 64, 3, torch.float32)),
+                ("k4", (36, 16, 64, 3, torch.bfloat16)),
+                ("k4", (8, 256, 128, 2, torch.float32))]
 
 
 @pytest.mark.parametrize("kernel,case", REPEAT_CASES)
@@ -149,12 +156,26 @@ def test_cuda_kernels_repeat_bit_for_bit(cuda, kernel, case):
                              device=cuda)
         def run():
             return coded_worker(xe, ke, stride)
-    else:
+    elif kernel == "k2":
         m, k, n = case
         a = torch.as_tensor(RNG.standard_normal((m, k)).astype(np.float32), device=cuda)
         bm = torch.as_tensor(RNG.standard_normal((k, n)).astype(np.float32), device=cuda)
         def run():
             return k2.matmul(a, bm, relu=True)
+    elif kernel == "k3":
+        r_out, r_in, f = case
+        code = RNG.standard_normal((r_out, r_in)).astype(np.float32)
+        feats = torch.as_tensor(RNG.standard_normal((r_in, f)).astype(np.float32),
+                                device=cuda)
+        def run():
+            return k3.coded_gemm(code, feats)
+    else:
+        bh, s, d, rep, dtype = case
+        q, k, v = (torch.as_tensor(RNG.standard_normal((n, s, d)).astype(np.float32),
+                                   device=cuda).to(dtype)
+                   for n in (bh, bh // rep, bh // rep))
+        def run():
+            return k4.flash_attention(q, k, v, causal=True, rep=rep)
     first = run()
     for _ in range(3):
         assert torch.equal(run(), first)
@@ -246,8 +267,9 @@ def test_cuda_pipeline_kernel_matches_torch_backend(cuda, fused):
 
 # -- the LM path: K3 coded GEMM, K4 flash attention ---------------------------
 # (R_out, R_in, F, offset): the LM decode (4x4) and encode (8x4) shapes,
-# the float4 path (F % 4 == 0) and the scalar path (ragged F, or a feature
-# matrix that starts one float into its storage)
+# the float4 path (F % 4 == 0 at build-time widths) and the one-column path
+# (decode widths, ragged F, or a feature matrix that starts one float into
+# its storage).  The code matrix stays on the host (a CPU tensor here).
 CODED_GEMM_CASES = [(4, 4, 960, 0), (4, 4, 144, 0), (8, 4, 138240, 0),
                     (4, 4, 7, 0), (16, 16, 4099, 0), (3, 5, 64, 1),
                     (1, 1, 1, 0), (8, 8, 1 << 20, 0), (12, 2, 33, 0)]
@@ -255,8 +277,7 @@ CODED_GEMM_CASES = [(4, 4, 960, 0), (4, 4, 144, 0), (8, 4, 138240, 0),
 
 @pytest.mark.parametrize("r_out,r_in,f,offset", CODED_GEMM_CASES)
 def test_cuda_coded_gemm_matches_plain(cuda, r_out, r_in, f, offset):
-    code = torch.as_tensor(RNG.standard_normal((r_out, r_in)).astype(np.float32),
-                           device=cuda)
+    code = torch.as_tensor(RNG.standard_normal((r_out, r_in)).astype(np.float32))
     flat = torch.as_tensor(RNG.standard_normal(r_in * f + offset).astype(np.float32),
                            device=cuda)
     feats = flat[offset:].view(r_in, f)
@@ -265,6 +286,27 @@ def test_cuda_coded_gemm_matches_plain(cuda, r_out, r_in, f, offset):
     torch.cuda.synchronize()
     assert k3.launches.count == before + 1
     _close(got, k3.coded_gemm_plain(code, feats))
+
+
+# the SmolLM-135M decode widths at bucket 4 (wo/down, qkv, gate-up) and
+# bucket 1, and the build-time encode widths, with the code as a numpy array
+# or a CPU tensor
+K3_HOST_CASES = [(4, 4, 576), (4, 4, 960), (4, 4, 3072), (4, 4, 144),
+                 (8, 4, 576 * 240), (8, 4, 1536 * 144)]
+
+
+@pytest.mark.parametrize("r_out,r_in,f", K3_HOST_CASES)
+@pytest.mark.parametrize("as_numpy", [True, False])
+def test_cuda_coded_gemm_takes_host_code(cuda, r_out, r_in, f, as_numpy):
+    code = RNG.standard_normal((r_out, r_in)).astype(np.float32)
+    feats = torch.as_tensor(RNG.standard_normal((r_in, f)).astype(np.float32),
+                            device=cuda)
+    host = code if as_numpy else torch.from_numpy(code)
+    before = k3.launches.count
+    got = k3.coded_gemm(host, feats)
+    torch.cuda.synchronize()
+    assert k3.launches.count == before + 1
+    _close(got, torch.as_tensor(code, device=cuda) @ feats)
 
 
 # (BH, Sq, Sk, D, rep, causal): the prefill shape (4 prompts x 9 heads over
@@ -276,13 +318,15 @@ FLASH_CASES = [(36, 16, 16, 64, 3, True), (12, 8, 8, 16, 3, True),
                (8, 70, 70, 64, 4, False), (3, 1, 1, 16, 1, True)]
 
 
+def _qkv(cuda, bh, sq, sk, d, rep, dtype=torch.float32):
+    return tuple(torch.as_tensor(RNG.standard_normal(shape).astype(np.float32),
+                                 device=cuda).to(dtype)
+                 for shape in ((bh, sq, d), (bh // rep, sk, d), (bh // rep, sk, d)))
+
+
 @pytest.mark.parametrize("bh,sq,sk,d,rep,causal", FLASH_CASES)
 def test_cuda_flash_attention_matches_plain(cuda, bh, sq, sk, d, rep, causal):
-    q = torch.as_tensor(RNG.standard_normal((bh, sq, d)).astype(np.float32), device=cuda)
-    k = torch.as_tensor(RNG.standard_normal((bh // rep, sk, d)).astype(np.float32),
-                        device=cuda)
-    v = torch.as_tensor(RNG.standard_normal((bh // rep, sk, d)).astype(np.float32),
-                        device=cuda)
+    q, k, v = _qkv(cuda, bh, sq, sk, d, rep)
     before = k4.launches.count
     got = k4.flash_attention(q, k, v, causal=causal, rep=rep)
     torch.cuda.synchronize()
@@ -290,18 +334,38 @@ def test_cuda_flash_attention_matches_plain(cuda, bh, sq, sk, d, rep, causal):
     _close(got, k4.flash_attention_plain(q, k, v, causal=causal, rep=rep), rel=2e-5)
 
 
+@pytest.mark.parametrize("bh,sq,sk,d,rep,causal", FLASH_CASES)
+def test_cuda_flash_attention_bf16_matches_plain(cuda, bh, sq, sk, d, rep, causal):
+    """bf16 operands against the bf16 plain version: within one bf16
+    rounding of the output (2^-7 of max|out|) — both round p and the output
+    to bf16, and an fp32 sum in another order may flip either rounding."""
+    q, k, v = _qkv(cuda, bh, sq, sk, d, rep, torch.bfloat16)
+    got = k4.flash_attention(q, k, v, causal=causal, rep=rep)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    want = k4.flash_attention_plain(q, k, v, causal=causal, rep=rep)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0 ** -7 * float(want.float().abs().max())
+
+
 def test_cuda_lm_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="float32"):
-        k3.coded_gemm(torch.zeros(4, 4, device=cuda).double(),
+        k3.coded_gemm(torch.zeros(4, 4).double(),
                       torch.zeros(4, 8, device=cuda).double())
     with pytest.raises(ValueError, match="contiguous"):
-        k3.coded_gemm(torch.zeros(4, 4, device=cuda),
-                      torch.zeros(8, 4, device=cuda).t())
+        k3.coded_gemm(torch.zeros(4, 4), torch.zeros(8, 4, device=cuda).t())
+    with pytest.raises(ValueError, match="on the host"):  # no hidden sync
+        k3.coded_gemm(torch.zeros(4, 4, device=cuda), torch.zeros(4, 8, device=cuda))
     q = torch.zeros(6, 4, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         k4.flash_attention(q, q[:2], q[:2], rep=3)
     with pytest.raises(TypeError, match="float32"):
         k4.flash_attention(q.half(), q.half(), q.half())
+    q16 = torch.zeros(6, 4, 16, device=cuda)
+    with pytest.raises(TypeError, match="float32"):  # fp16 stays refused
+        k4.flash_attention(q16.half(), q16.half(), q16.half())
+    with pytest.raises(TypeError, match="one type"):
+        k4.flash_attention(q16, q16.bfloat16(), q16.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         x = torch.zeros(6, 16, 4, device=cuda).transpose(1, 2)
         k4.flash_attention(x, x, x)

@@ -1,14 +1,21 @@
-"""The launch plans of K1 (``worker_plan``) and K2 (``matmul_plan``): plain
-Python, so they are held here on the CPU at the exact shapes the serving
-paths give the kernels (computed by ``chip_smoke.py``'s own shape
-functions from the built pipelines).
+"""The launch plans of K1 (``worker_plan``), K2 (``matmul_plan``), K3
+(``coded_gemm_plan``) and K4 (``flash_plan``): plain Python, so they are
+held here on the CPU at the exact shapes the serving paths give the
+kernels (computed by ``chip_smoke.py``'s own shape functions from the
+built pipelines).
 
   * the CNN transition GEMMs keep K2's column kernel;
   * the LM worker GEMMs at buckets 1, 2 and 4 take K2's split kernel with
     at least one block a SM;
   * each VGG-16 layer at bucket 8 gets the N-tile and K split of K1's
     design (the table in ``PERF.md``);
-  * every plan covers M, N and K exactly, ragged edges included.
+  * K3's decode widths spread over tens of one-warp blocks, its
+    build-time widths stream float4 columns over every SM;
+  * K4 at the SmolLM-135M prefill runs as hundreds of warps on at least
+    one block a SM, and stages each KV head's keys once for all its
+    query heads;
+  * every plan covers M, N and K (F; Sq and the heads) exactly, ragged
+    edges included, within the limits the C entry points check.
 """
 import importlib.util
 from pathlib import Path
@@ -16,7 +23,13 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.kernels.coded_gemm.kernel import (THREAD_CHOICES,
+                                                  VEC4_MIN_COLUMNS,
+                                                  coded_gemm_plan)
 from repro_torch.kernels.conv2d.kernel import TILE_K, TILE_M, worker_plan
+from repro_torch.kernels.flash_attn.kernel import (MAX_GRID_Y, MAX_WARPS,
+                                                   PAIRS_A_WARP, flash_plan,
+                                                   max_pairs)
 from repro_torch.kernels.matmul.kernel import (COLUMN_THREADS, SPLIT_MAX_M,
                                                SPLIT_MAX_SLICE, SPLIT_STRIP,
                                                matmul_plan)
@@ -163,3 +176,103 @@ def test_worker_plan_keeps_every_slice_deep():
                 assert plan.tiles < NUM_SMS
             elif plan.tiles < NUM_SMS:
                 assert -(-k // TILE_K) < 2 * MIN_SPLIT_CHUNKS
+
+
+def _covers_coded_gemm(r_out, r_in, f, aligned=True):
+    plan = coded_gemm_plan(r_out, r_in, f, aligned)
+    assert plan.vec in (1, 4) and plan.threads in THREAD_CHOICES
+    if plan.vec == 4:
+        assert aligned and f % 4 == 0
+    span = plan.threads * plan.vec
+    assert plan.blocks * span >= f > (plan.blocks - 1) * span
+    return plan
+
+
+@pytest.mark.parametrize("bucket", [1, 2, 4])
+@pytest.mark.parametrize("gemm", range(4))
+def test_lm_decode_spreads_over_one_warp_blocks(smoke, lm, bucket, gemm):
+    """K3's survivor decode (4 x 4 code, F = bucket * d_out / 4) takes one
+    column a thread in one-warp blocks: at bucket 4 that is 18-96 blocks."""
+    (r_out, r_in), (_, f) = smoke.lm_round_shapes(lm, bucket)[gemm]["decode"]
+    assert (r_out, r_in) == (4, 4) and f == bucket * (240, 144, 768, 144)[gemm]
+    plan = _covers_coded_gemm(r_out, r_in, f)
+    assert (plan.vec, plan.threads) == (1, 32)
+    if bucket == 4:
+        assert 18 <= plan.blocks <= 96
+
+
+@pytest.mark.parametrize("gemm", range(4))
+def test_lm_weight_encode_streams_float4_over_every_sm(smoke, lm, gemm):
+    (r_out, r_in), (_, f) = smoke.lm_round_shapes(lm, 4)[gemm]["encode"]
+    assert (r_out, r_in) == (8, 4)
+    plan = _covers_coded_gemm(r_out, r_in, f)
+    assert plan.vec == 4 and plan.blocks >= NUM_SMS
+
+
+CODED_GEMM_EDGES = [(1, 1, 1, True), (4, 4, 7, True), (16, 16, 4099, True),
+                    (4, 4, 4 * VEC4_MIN_COLUMNS, False),
+                    (4, 4, 4 * VEC4_MIN_COLUMNS + 2, True),
+                    (4, 4, 4 * VEC4_MIN_COLUMNS, True), (8, 8, 1 << 24, True),
+                    (3, 5, 33, True), (2, 16, 4 * VEC4_MIN_COLUMNS - 4, True)]
+
+
+@pytest.mark.parametrize("r_out,r_in,f,aligned", CODED_GEMM_EDGES)
+def test_coded_gemm_plan_covers_every_width(r_out, r_in, f, aligned):
+    """F = 1, ragged F, unaligned operands (one column a thread), the
+    float4 threshold on both sides, and a width far past the card."""
+    plan = _covers_coded_gemm(r_out, r_in, f, aligned)
+    wide = aligned and f % 4 == 0 and f >= 4 * VEC4_MIN_COLUMNS
+    assert plan.vec == (4 if wide else 1)
+    assert plan.blocks < 2 ** 31
+
+
+def _covers_flash(bh, sq, d, rep):
+    plan = flash_plan(bh, sq, sq, d, rep)
+    pairs = plan.heads * plan.rows
+    assert 1 <= plan.heads <= rep and pairs <= max_pairs(d)
+    assert plan.rows & (plan.rows - 1) == 0 and plan.rows <= 64
+    assert plan.warps == min(MAX_WARPS, pairs)
+    assert -(-pairs // plan.warps) <= PAIRS_A_WARP
+    assert plan.groups * plan.heads >= rep > (plan.groups - 1) * plan.heads
+    assert plan.blocks == (bh // rep) * plan.groups * -(-sq // plan.rows)
+    return plan
+
+
+@pytest.mark.parametrize("bucket", [1, 2, 4])
+@pytest.mark.parametrize("sq", [2, 7, 16])
+def test_lm_prefill_attention_plan(smoke, lm, bucket, sq):
+    """The SmolLM-135M prefill (9 query heads over 3 KV heads, head_dim
+    64): one block stages a KV head's keys for all 3 of its query heads;
+    at bucket 4 and the longest prompt, 192 blocks and 576 warps."""
+    cfg = lm.cfg
+    rep = cfg.n_heads // cfg.n_kv_heads
+    plan = _covers_flash(bucket * cfg.n_heads, sq, cfg.head_dim, rep)
+    assert (plan.heads, plan.groups) == (rep, 1)
+    if (bucket, sq) == (4, smoke.LM_MAX_PROMPT):
+        assert plan.blocks == 192 >= NUM_SMS
+        assert plan.blocks * plan.warps == 576
+
+
+FLASH_EDGES = [(1, 1, 16, 1), (3, 1, 128, 3), (36, 256, 64, 1), (36, 256, 64, 3),
+               (2, 384, 128, 1), (64, 200, 32, 64), (100, 5, 16, 100),
+               (40, 33, 128, 40), (8, 70, 64, 4), (4, 1000, 16, 1)]
+
+
+@pytest.mark.parametrize("bh,sq,d,rep", FLASH_EDGES)
+def test_flash_plan_covers_every_shape(bh, sq, d, rep):
+    """S = 1, D = 128 (16 pairs a block), long sequences, and rep past what
+    one block serves (head groups)."""
+    plan = _covers_flash(bh, sq, d, rep)
+    if rep > max_pairs(d):
+        assert plan.groups > 1
+
+
+def test_flash_plan_grid_limit():
+    """One row of blocks per (KV head, head group): past 65,535 of them
+    the wrapper refuses the launch (grid.y)."""
+    plan = flash_plan(65535, 4, 4, 64, 1)
+    assert plan.blocks == 65535 * -(-4 // plan.rows)
+    plan = flash_plan(2 * 65535, 4, 4, 16, 2)
+    assert (2 * 65535 // 2) * plan.groups <= MAX_GRID_Y
+    plan = flash_plan(65536, 4, 4, 64, 1)
+    assert 65536 * plan.groups > MAX_GRID_Y

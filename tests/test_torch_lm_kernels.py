@@ -5,9 +5,14 @@ kernels in interpret mode and its pure-jnp oracles, on the same inputs.
 
 Tolerances: 1e-6 relative to max|reference| for the coded GEMM (at most
 16 fp32 products a sum, in another order); 1e-5 for attention (fp32
-softmax over up to 384 keys, exponentials from another library).
+softmax over up to 384 keys, exponentials from another library); for
+bf16 attention, one bf16 rounding of the output, 2^-7 of max|reference|
+(both round p and the output to bf16, and a sum in another order may flip
+either rounding).
 """
+import importlib.util
 import itertools
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -67,6 +72,19 @@ def test_coded_gemm_plain_matches_pallas_legacy(r_out, r_in, f):
     assert k3.launches.count == before  # no kernel launch on the CPU
 
 
+@pytest.mark.parametrize("r_out,r_in,f", [(4, 4, 960), (4, 4, 3072), (8, 4, 576),
+                                         (16, 16, 700)])
+@pytest.mark.parametrize("as_numpy", [True, False])
+def test_coded_gemm_host_code_matches_reference(r_out, r_in, f, as_numpy):
+    """The code matrix as the path passes it, on the host (a numpy array or
+    a CPU tensor), against the reference's oracle."""
+    code = RNG.standard_normal((r_out, r_in)).astype(np.float32)
+    feats = RNG.standard_normal((r_in, f)).astype(np.float32)
+    got = coded_gemm(code if as_numpy else _t(code), _t(feats))
+    _close(got, coded_gemm_ref(jnp.asarray(code), jnp.asarray(feats)), REL_K3)
+    _close(coded_gemm_plain(code, _t(feats)), got, REL_K3)
+
+
 def test_coded_gemm_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="1..16"):
         coded_gemm(torch.zeros(17, 4), torch.zeros(4, 8))
@@ -74,6 +92,8 @@ def test_coded_gemm_rejects_what_the_kernel_does_not_take():
         coded_gemm(torch.zeros(4, 17), torch.zeros(17, 8))
     with pytest.raises(ValueError, match="shapes"):
         coded_gemm(torch.zeros(4, 4), torch.zeros(3, 8))
+    with pytest.raises(ValueError, match="on the host"):  # code off the host
+        coded_gemm(torch.zeros(4, 4, device="meta"), torch.zeros(4, 8))
 
 
 def test_crme_encode_decode_match_reference_ops():
@@ -138,6 +158,81 @@ def test_flash_plain_matches_pallas_and_ref(b, s, h, d, bq, bk, causal):
     before = k4.launches.count
     assert torch.equal(flash_attention(_t(q), _t(k), _t(v), causal=causal), got)
     assert k4.launches.count == before
+
+
+def _bf16_pair(x):
+    """``x`` rounded to bf16 in both frameworks (round to nearest even)."""
+    return jnp.asarray(x).astype(jnp.bfloat16), torch.from_numpy(x).bfloat16()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_bf16_matches_pallas(causal):
+    """bf16 operands at the shape of the reference's bf16 test: the plain
+    version against ``flash_attention_pallas`` in interpret mode on the
+    same bf16 inputs (fp32 scores and softmax state, p rounded to bf16,
+    a bf16 output)."""
+    pairs = [_bf16_pair(_flat(x)) for x in _bshd(1, 128, 2, 64)]
+    (qj, qt), (kj, kt), (vj, vt) = pairs
+    got = flash_attention_plain(qt, kt, vt, causal=causal)
+    assert got.dtype == torch.bfloat16
+    want = flash_attention_pallas(qj, kj, vj, causal=causal)
+    assert want.dtype == jnp.bfloat16
+    _close(got.float(), want.astype(jnp.float32), 2.0 ** -7)
+    before = k4.launches.count
+    assert torch.equal(flash_attention(qt, kt, vt, causal=causal), got)
+    assert k4.launches.count == before
+
+
+def test_flash_plain_bf16_near_fp32():
+    """The reference's own bf16 check (``tests/test_flash_kernel.py``):
+    bf16 attention within 3e-2 of fp32 attention on the fp32 inputs."""
+    q, k, v = (_flat(x) for x in _bshd(1, 128, 2, 64))
+    got = flash_attention_plain(*(_t(x).bfloat16() for x in (q, k, v)))
+    want = flash_attention_plain(_t(q), _t(k), _t(v))
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=3e-2)
+
+
+def _bf16_attention_variant(q, k, v, rep, *, scores_f64, round_p):
+    """Causal bf16 attention as the plain version computes it, but with
+    the scores summed in float64 (another order, then fp32) or with p
+    left unrounded before P.V."""
+    k, v = (t.repeat_interleave(rep, dim=0).float() for t in (k, v))
+    if scores_f64:
+        s = torch.einsum("bqd,bkd->bqk", q.double(), k.double()).float()
+    else:
+        s = torch.einsum("bqd,bkd->bqk", q.float(), k)
+    s = s * q.shape[-1] ** -0.5
+    n = q.shape[1]
+    s = s.masked_fill(torch.arange(n)[None, :] > torch.arange(n)[:, None], -1e30)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e.bfloat16().float() if round_p else e
+    acc = torch.einsum("bqk,bkd->bqd", p, v)
+    return (acc / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)).bfloat16()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_bf16_one_chunk_mismatch_bound_separates_p_rounding(seed):
+    """``chip_smoke.py`` holds K4 in bf16 at the SmolLM-135M prefill (one
+    32-key chunk) to the plain version's bits in all but
+    ``K4_BF16_MISMATCH`` of the elements.  Fp32 scores summed in another
+    order stay inside that share; a kernel that skipped rounding p to
+    bf16 changes about a quarter of them, though it stays within 2^-7."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).bfloat16()
+               for shape in ((36, 16, 64), (12, 16, 64), (12, 16, 64)))
+    plain = flash_attention_plain(q, k, v, causal=True, rep=3)
+    same = _bf16_attention_variant(q, k, v, 3, scores_f64=False, round_p=True)
+    assert torch.equal(same, plain)
+    reordered = _bf16_attention_variant(q, k, v, 3, scores_f64=True, round_p=True)
+    unrounded = _bf16_attention_variant(q, k, v, 3, scores_f64=False, round_p=False)
+    share = lambda x: float((x != plain).float().mean())
+    assert share(reordered) <= smoke.K4_BF16_MISMATCH
+    assert share(unrounded) > 0.2
+    _close(unrounded.float(), plain.float(), smoke.TOL_K4_BF16)
 
 
 def test_flash_plain_cross_lengths():
