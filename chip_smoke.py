@@ -39,8 +39,27 @@ Phases, in order; any failure raises:
     on each served stream: within 1e-4 relative to max|logit|, and each
     served token an argmax of the undistributed logits up to that
     tolerance;
- 8. one JSON line with the kernels' numbers (K1-K4; K2's top-level numbers
-    are its CNN pass, its LM numbers sit under ``paths.lm``), then the
+ 8. the device worker pool, the cluster's layer entry points, the HTTP
+    front-end and ``CodedLinear``: the CNN server of phase 4 rebuilt on
+    ``pool="device"`` (stragglers as delayed dispatch) serving the same 16
+    requests, held against the uncoded stack and printed beside the thread
+    pool's rates and round phases; one forced-survivor batch through
+    ``FcdccCluster.run_pipeline`` on each pool, bit-identical; the HTTP
+    front-end over the device-pool server (models, one single and one
+    batched infer, stats, drain), held against the uncoded stack;
+    ``run_layer_elastic`` on one VGG-16 layer with more than gamma workers
+    dead, and ``run_layer`` on preloaded filters, against the uncoded conv;
+    the LM requests of phase 6 on the device pool, every token equal to
+    the thread pool's and the logits held as in phase 7, round phases of
+    both pools side by side (``scripts/torch_pool_rounds.py`` takes them
+    apart further, in turns);
+    ``CodedLinear`` at SmolLM's up-projection widths for every survivor
+    subset against ``torch.matmul``.  Each phase reads the launch counts
+    around itself only;
+ 9. one JSON line with the kernels' numbers (K1-K4; K2's top-level numbers
+    are its CNN pass, its LM numbers sit under ``paths.lm``; each kernel's
+    ``launches`` is its count on the phase-4 or phase-6 main path, and
+    ``launches_by_path`` its count in every phase that ran it), then the
     result line.
 
 TF32 is off for every product here (the CRME decode multiplies rounding
@@ -114,6 +133,15 @@ K4_ONE_CHUNK, K4_BF16_MISMATCH = 32, 1e-3
 # at smoke size; 30 layers of fp32 sums through a decode whose recovery
 # matrix has a condition number of a few stay far inside 1e-4
 TOL_LM = 1e-4
+# This slice's phases.  The forced-survivor batch delays every worker but
+# the first delta by FORCED_DELAY_S, far beyond a VGG-16 round, so both
+# pools decode from the same subset.  The HTTP phase posts one image, then
+# HTTP_BATCH in one batched request.  The elastic phase runs ELASTIC_LAYER
+# at its input size in the 224 stack.  CodedLinear sums 576 fp32 products
+# through one decode, held like the served outputs, relative to max|Y|.
+FORCED_DELAY_S, HTTP_BATCH = 0.2, 4
+ELASTIC_LAYER, ELASTIC_HW = "conv2_1", 112
+TOL_LINEAR = 1e-4
 
 
 def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
@@ -423,7 +451,7 @@ def straggler_delays(n: int) -> np.ndarray:
     return delays
 
 
-def build_server(device, hw: int):
+def build_server(device, hw: int, pool: str = "threads"):
     from repro_torch.models.cnn import init_cnn
     from repro_torch.runtime import StragglerModel
     from repro_torch.serving import CodedServer
@@ -433,7 +461,7 @@ def build_server(device, hw: int):
         ARCH, params, N_WORKERS, default_kab=KAB, input_hw=hw,
         straggler=StragglerModel(straggler_delays(N_WORKERS)), mode="threads",
         execution="cluster", backend="kernel", bucket_sizes=(1, 2, 4, BUCKET),
-        pipeline_depth=2, fuse_transitions=True, device=device)
+        pipeline_depth=2, fuse_transitions=True, pool=pool, device=device)
     return server, params
 
 
@@ -653,21 +681,22 @@ def lm_requests(vocab: int) -> list[tuple[list[int], int]]:
     return out
 
 
-def lm_serving_phase(pipe, requests, counters, mode: str = "threads"):
-    """Serve ``requests`` on ``CodedLMServer`` under ``LM_DELAYS``; the
-    launch counts are zeroed just before and read just after.  All
-    requests arrive together: they are submitted while the scheduler's
-    condition is held, so the engine admits a full first group.  The
-    logits row behind every served token is kept (a device copy).
-    Returns (token streams, served logits rows per request, latencies,
-    server, wall seconds, launches)."""
+def lm_serving_phase(pipe, requests, counters, mode: str = "threads",
+                     pool: str = "threads"):
+    """Serve ``requests`` on ``CodedLMServer`` under ``LM_DELAYS`` on the
+    ``pool`` worker pool; the launch counts are zeroed just before and read
+    just after.  All requests arrive together: they are
+    submitted while the scheduler's condition is held, so the engine admits
+    a full first group.  The logits row behind every served token is kept
+    (a device copy).  Returns (token streams, served logits rows per
+    request, latencies, server, wall seconds, launches)."""
     from repro_torch.runtime import StragglerModel
     from repro_torch.serving import CodedLMServer
 
     rows: dict[int, list] = {}
     server = CodedLMServer(
         pipe, StragglerModel(np.array(LM_DELAYS)), mode=mode,
-        max_prompt=LM_MAX_PROMPT, poll_interval_s=0.001,
+        max_prompt=LM_MAX_PROMPT, poll_interval_s=0.001, pool=pool,
         on_logits=lambda rid, row: rows.setdefault(rid, []).append(row.clone()))
     for c in counters:
         c.reset()
@@ -687,19 +716,14 @@ def lm_serving_phase(pipe, requests, counters, mode: str = "threads"):
     return outs, served, [h.latency_s for h in handles], server, wall, launches
 
 
-def check_lm_served(pipe, params, requests, outs, served, device) -> dict:
-    """Hold the served logits rows against the undistributed
-    ``transformer.prefill`` + ``decode_step``, teacher-forced on each served
-    stream one request at a time: within ``TOL_LM`` relative to
-    max|logit|, and every served token the argmax of its own row and an
-    argmax of the undistributed row up to that tolerance.  Returns the
-    worst error and the count of served tokens equal to the undistributed
-    argmax outright."""
+def lm_reference_rows(pipe, params, requests, outs, device) -> list:
+    """The undistributed ``transformer.prefill`` + ``decode_step`` logits
+    rows, teacher-forced on each served stream, one request at a time."""
     from repro_torch.models import transformer as lm
 
     cfg = pipe.cfg
-    worst, exact, total = 0.0, 0, 0
-    for r, ((prompt, gen), toks, got) in enumerate(zip(requests, outs, served)):
+    refs = []
+    for (prompt, gen), toks in zip(requests, outs):
         cache = lm.init_cache(cfg, 1, LM_MAX_LEN, device=device)
         logits, cache = lm.prefill(params, cfg, cache,
                                    torch.as_tensor([prompt], device=device))
@@ -709,7 +733,25 @@ def check_lm_served(pipe, params, requests, outs, served, device) -> dict:
                 params, cfg, cache,
                 torch.as_tensor([[int(toks[j])]], device=device), len(prompt) + j)
             rows.append(step[0, 0])
-        ref = torch.stack(rows)
+        refs.append(torch.stack(rows))
+    return refs
+
+
+def check_lm_served(pipe, params, requests, outs, served, device,
+                    refs=None) -> dict:
+    """Hold the served logits rows against the undistributed transformer's
+    (``lm_reference_rows``, or ``refs`` computed already for these very
+    token streams): within ``TOL_LM`` relative to max|logit|, and every
+    served token the argmax of its own row and an argmax of the
+    undistributed row up to that tolerance.  Returns the worst error, the
+    count of served tokens equal to the undistributed argmax outright, and
+    the reference rows."""
+    cfg = pipe.cfg
+    if refs is None:
+        refs = lm_reference_rows(pipe, params, requests, outs, device)
+    worst, exact, total = 0.0, 0, 0
+    for r, ((prompt, gen), toks, got, ref) in enumerate(
+            zip(requests, outs, served, refs)):
         got = torch.stack(got) if got else ref.new_empty((0, cfg.vocab))
         if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"request {r}: served logits {tuple(got.shape)} "
@@ -730,12 +772,223 @@ def check_lm_served(pipe, params, requests, outs, served, device) -> dict:
     if not worst <= TOL_LM:
         raise AssertionError(f"served LM logits off the undistributed "
                              f"transformer: rel err {worst} > {TOL_LM}")
-    return {"max_rel_err": worst, "tokens_equal": exact, "tokens": total}
+    return {"max_rel_err": worst, "tokens_equal": exact, "tokens": total,
+            "refs": refs}
 
 
 def lm_kernel_summary(entries: list[dict]) -> dict:
     return _summarise([{**e, "library_rel_err": e.get("library_rel_err", 0.0)}
                        for e in entries])
+
+
+# -- the device worker pool, the layer entry points, HTTP, CodedLinear ------
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def forced_survivor_delays(pipe) -> np.ndarray:
+    """Every worker but the first delta delayed: both pools then decode
+    from exactly workers 0..delta-1, so their outputs must agree bit for
+    bit (fixed-order kernels, the same arithmetic on another stream)."""
+    delta = max(spec.plan.delta for spec in pipe.specs)
+    delays = np.zeros(pipe.n)
+    delays[delta:] = FORCED_DELAY_S
+    return delays
+
+
+def pools_bit_identical(pipe, device) -> dict:
+    """One forced-survivor batch of ``BUCKET`` images through
+    ``FcdccCluster.run_pipeline`` on each pool; raises unless the outputs
+    are equal bit for bit and both kept workers 0..delta-1."""
+    from repro_torch.runtime import FcdccCluster, StragglerModel
+
+    x = torch.as_tensor(np.random.default_rng(SEED + 2).standard_normal(
+        (BUCKET,) + pipe.input_shape).astype(np.float32), device=device)
+    delays = forced_survivor_delays(pipe)
+    keep = [i for i in range(pipe.n) if delays[i] == 0]
+    outs = {}
+    for pool in ("threads", "device"):
+        with FcdccCluster(pipe.specs[0].plan, StragglerModel(delays),
+                          mode="threads", backend="kernel", pool=pool,
+                          device=device) as cluster:
+            cluster.load_pipeline(pipe, ARCH)
+            y, timings = cluster.run_pipeline(x, model=ARCH)
+            _sync(device)
+        if any(t.used_workers != keep for t in timings):
+            raise AssertionError(f"{pool} pool decoded from "
+                                 f"{[t.used_workers for t in timings]}, not {keep}")
+        outs[pool] = y
+    if not torch.equal(outs["threads"], outs["device"]):
+        diff = float((outs["threads"] - outs["device"]).abs().max())
+        raise AssertionError(f"pools differ on a forced survivor subset: "
+                             f"max |threads - device| {diff}")
+    return {"batch": BUCKET, "survivors": keep, "bit_identical": True}
+
+
+def http_phase(server, params, device, counters) -> dict:
+    """``ServingFrontend(port=0)`` over the device-pool server: GET
+    /v1/models, one single and one batched POST /v1/infer, GET /v1/stats,
+    then a graceful drain; every output against the uncoded stack."""
+    import urllib.request
+
+    from repro_torch.serving import ServingFrontend
+
+    def call(method, url, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(url, data=data, method=method,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300.0) as resp:
+            return resp.status, json.loads(resp.read())
+
+    pipe = server.pipeline
+    xs = np.random.default_rng(SEED + 3).standard_normal(
+        (1 + HTTP_BATCH,) + pipe.input_shape).astype(np.float32)
+    for c in counters:
+        c.reset()
+    frontend = ServingFrontend(server, port=0)
+    frontend.start()
+    t0 = time.perf_counter()
+    try:
+        status, models = call("GET", f"{frontend.url}/v1/models")
+        if status != 200 or [m["name"] for m in models["models"]] != [ARCH]:
+            raise AssertionError(f"/v1/models answered {status}: {models}")
+        status, single = call("POST", f"{frontend.url}/v1/infer",
+                              {"model": ARCH, "input": xs[0].tolist()})
+        if status != 200:
+            raise AssertionError(f"single /v1/infer answered {status}")
+        status, batched = call("POST", f"{frontend.url}/v1/infer",
+                               {"model": ARCH,
+                                "inputs": [x.tolist() for x in xs[1:]]})
+        if status != 200 or batched["count"] != HTTP_BATCH:
+            raise AssertionError(f"batched /v1/infer answered {status}")
+        status, stats = call("GET", f"{frontend.url}/v1/stats")
+        if status != 200 or stats["aggregate"]["completed"] < 1 + HTTP_BATCH:
+            raise AssertionError(f"/v1/stats answered {status}: {stats}")
+    finally:
+        frontend.shutdown()  # graceful drain: engine stopped, pool released
+    wall = time.perf_counter() - t0
+    launches = {c.name: c.count for c in counters}
+    if server._thread is not None:
+        raise AssertionError("the engine survived the front-end's drain")
+    items = [single] + batched["results"]
+    errs = [it["error"] for it in items if "error" in it]
+    if errs:
+        raise AssertionError(f"HTTP items failed: {errs}")
+    worst = check_served([np.asarray(it["output"], np.float32) for it in items],
+                         xs, params, device)
+    return {"requests": 1 + HTTP_BATCH, "wall_s": wall, "max_rel_err": worst,
+            "completed": stats["aggregate"]["completed"], "launches": launches}
+
+
+def elastic_phase(params, device, counters) -> dict:
+    """``run_layer_elastic`` on VGG-16's ``ELASTIC_LAYER`` at 224 (its 112 x
+    112 input) with more than gamma workers dead on the device pool: it
+    re-plans to a smaller grid and matches the uncoded conv; then one plain
+    ``run_layer`` against filters placed by ``preload_filters`` under 2
+    stragglers and 1 dead worker."""
+    from repro_torch.core.fcdcc import FcdccPlan
+    from repro_torch.models.cnn import CNN_SPECS, layer_geometry
+    from repro_torch.runtime import (FcdccCluster, StragglerModel,
+                                     run_layer_elastic)
+
+    layer = next(l for l in CNN_SPECS[ARCH][1] if l.name == ELASTIC_LAYER)
+    geo = layer_geometry(layer, ELASTIC_HW)
+    k = params[layer.name]
+    x = torch.as_tensor(np.random.default_rng(SEED + 4).standard_normal(
+        (1, layer.in_ch, ELASTIC_HW, ELASTIC_HW)).astype(np.float32), device=device)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ref = F.conv2d(x, k, stride=layer.stride, padding=layer.padding)
+    plan = FcdccPlan(n=N_WORKERS, k_a=KAB[0], k_b=KAB[1])
+    dead = np.full(N_WORKERS, np.inf)
+    dead[N_WORKERS - 1] = 0.0  # one survivor: gamma = n - delta exceeded
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    y, timing, plan2 = run_layer_elastic(
+        plan, geo, x, k, StragglerModel(dead), mode="threads", pool="device",
+        backend="kernel", device=device)
+    _sync(device)
+    elastic_s = time.perf_counter() - t0
+    if not plan2.delta < plan.delta or timing.used_workers != [N_WORKERS - 1]:
+        raise AssertionError(f"elastic re-plan kept {plan2} on "
+                             f"{timing.used_workers}")
+    err_elastic = _err(y, ref)[1]
+    with FcdccCluster(plan, StragglerModel(straggler_delays(N_WORKERS)),
+                      mode="threads", backend="kernel", pool="device",
+                      device=device) as cluster:
+        cluster.preload_filters(layer.name, geo, k)
+        y2, timing2 = cluster.run_layer(geo, x, layer_name=layer.name)
+        encodes = cluster.coded_layer(geo).filter_encode_calls
+    _sync(device)
+    err_plain = _err(y2, ref)[1]
+    launches = {c.name: c.count for c in counters}
+    if encodes != 1:
+        raise AssertionError(f"run_layer re-encoded preloaded filters ({encodes})")
+    worst = max(err_elastic, err_plain)
+    if not worst <= TOL_SERVE:
+        raise AssertionError(f"run_layer off the uncoded conv: rel err "
+                             f"{err_elastic} (elastic), {err_plain} (preloaded)"
+                             f" > {TOL_SERVE}")
+    return {"layer": layer.name, "input": list(x.shape),
+            "plan": [plan.k_a, plan.k_b], "replanned": [plan2.k_a, plan2.k_b],
+            "elastic_s": elastic_s, "elastic_rel_err": err_elastic,
+            "preloaded_rel_err": err_plain, "preloaded_used": timing2.used_workers,
+            "launches": launches}
+
+
+def coded_linear_phase(device, counters) -> dict:
+    """``CodedLinear`` at SmolLM-135M's up-projection widths (T = 4, d_in
+    576, d_out 1536) on n=6, (k_a, k_b) = (2, 4), for every delta-subset:
+    worker GEMMs on K2, the decode on K3; against ``torch.matmul`` in IEEE
+    fp32 within ``TOL_LINEAR`` of max|Y|."""
+    import itertools
+
+    from repro_torch.core.coded_linear import CodedLinear
+    from repro_torch.core.fcdcc import FcdccPlan
+
+    plan = FcdccPlan(n=6, k_a=2, k_b=4)
+    rng = np.random.default_rng(SEED + 5)
+    x = torch.as_tensor(rng.standard_normal((4, 576)).astype(np.float32), device=device)
+    w = torch.as_tensor((rng.standard_normal((576, 1536)) / 24.0).astype(np.float32),
+                        device=device)
+    want = torch.matmul(x, w)
+    layer = CodedLinear(plan, 4, 576, 1536)
+    for c in counters:
+        c.reset()
+    worst, subsets = 0.0, 0
+    for ids in itertools.combinations(range(plan.n), plan.delta):
+        got = layer.run_simulated(x, w, list(ids))
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"CodedLinear {ids}: {tuple(got.shape)} or non-finite")
+        worst = max(worst, _err(got, want)[1])
+        subsets += 1
+    launches = {c.name: c.count for c in counters}
+    if not worst <= TOL_LINEAR:
+        raise AssertionError(f"CodedLinear off torch.matmul: rel err {worst} "
+                             f"> {TOL_LINEAR}")
+    if layer.weight_encode_calls != 1:
+        raise AssertionError("CodedLinear re-encoded its weights")
+    return {"plan": [plan.n, plan.k_a, plan.k_b], "subsets": subsets,
+            "max_rel_err": worst, "launches": launches}
+
+
+def _pool_line(name: str, stats, ov) -> str:
+    return (f"  {name:7s} {stats.images_per_s:8.2f} img/s, e2e p50 "
+            f"{stats.e2e_p50_s * 1e3:7.1f} ms, p99 {stats.e2e_p99_s * 1e3:7.1f} "
+            f"ms; over {ov.rounds} rounds (s): dispatch {ov.dispatch_s:.4f}, "
+            f"worker {ov.worker_s:.4f}, collect {ov.collect_s:.4f}, "
+            f"transition {ov.transition_s:.4f}, busy wall {ov.busy_wall_s:.4f}")
+
+
+def _lm_line(name: str, server, toks: int, wall: float) -> str:
+    return (f"  {name:14s} {toks / wall:7.2f} tok/s over {wall:.2f} s wall; "
+            f"{server.decode_steps} decode steps {server.decode_time_s:.3f} s; "
+            f"over {server.rounds} rounds (s): encode "
+            f"{server.round_encode_s:.4f}, to delta-th result "
+            f"{server.round_compute_s:.4f}, decode {server.round_decode_s:.4f}; "
+            f"glue and host between rounds "
+            f"{server.decode_time_s - server.round_encode_s - server.round_compute_s - server.round_decode_s:.4f}")
 
 
 def main() -> int:
@@ -808,7 +1061,56 @@ def main() -> int:
           f"worker {ov.worker_s:.4f}, collect {ov.collect_s:.4f}, transition "
           f"{ov.transition_s:.4f}; busy wall {ov.busy_wall_s:.4f}, overlap "
           f"efficiency {ov.overlap_efficiency:.3f}, max depth {ov.max_depth}")
-    del server, pipe, params, outs
+    del server, pipe, outs
+    torch.cuda.empty_cache()
+    by_path = {"cnn_threads": launches}
+
+    # -- the same CNN server on the device pool ------------------------------
+    server_d, _ = build_server(device, HW, pool="device")
+    t0 = time.perf_counter()
+    outs_d, stats_d, launches_d = serving_phase(server_d, xs, (k1_launches, k2_launches))
+    print(f"device-pool serving phase: {time.perf_counter() - t0:.1f} s "
+          f"(warmup included)")
+    for name, count in launches_d.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} never launched on the device pool")
+    by_path["cnn_device"] = launches_d
+    worst_d = check_served(outs_d, xs, params, device)
+    ov_d = server_d.overlap_stats()
+    print(f"served {stats_d.completed} {ARCH} {HW}x{HW} requests on the device "
+          f"pool (stragglers as delayed dispatch, 1 dead) on {card}: max rel err "
+          f"vs uncoded {worst_d:.2e} <= {TOL_SERVE}; launches {launches_d}; "
+          f"both pools:")
+    print(_pool_line("threads", stats, ov))
+    print(_pool_line("device", stats_d, ov_d))
+    t0 = time.perf_counter()
+    same = pools_bit_identical(server_d.pipeline, device)
+    print(f"forced survivors {same['survivors']}, batch {same['batch']}: "
+          f"threads and device pools bit-identical "
+          f"({time.perf_counter() - t0:.1f} s)")
+    http = http_phase(server_d, params, device, (k1_launches, k2_launches))
+    for name, count in http["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} never launched behind HTTP")
+    by_path["http"] = http["launches"]
+    print(f"HTTP front-end on the device pool: GET /v1/models, 1 single + "
+          f"{HTTP_BATCH} batched POST /v1/infer, GET /v1/stats "
+          f"({http['completed']} completed), drained in {http['wall_s']:.2f} s; "
+          f"max rel err vs uncoded {http['max_rel_err']:.2e}; launches "
+          f"{http['launches']}")
+    del server_d, outs_d
+    torch.cuda.empty_cache()
+    el = elastic_phase(params, device, (k1_launches,))
+    if el["launches"]["coded_worker"] <= 0:
+        raise AssertionError("K1 never launched by run_layer")
+    by_path["layer"] = el["launches"]
+    print(f"run_layer_elastic on {el['layer']} {el['input']} with "
+          f"{N_WORKERS - 1} of {N_WORKERS} workers dead: re-planned (k_a, k_b) "
+          f"{el['plan']} -> {el['replanned']} in {el['elastic_s']:.2f} s, rel err "
+          f"{el['elastic_rel_err']:.2e}; preloaded run_layer on "
+          f"{el['preloaded_used']}: rel err {el['preloaded_rel_err']:.2e} "
+          f"<= {TOL_SERVE}; launches {el['launches']}")
+    del params
     torch.cuda.empty_cache()
 
     # -- the coded LM decode path -------------------------------------------
@@ -863,6 +1165,38 @@ def main() -> int:
           f"{check['max_rel_err']:.2e} <= {TOL_LM}; {check['tokens_equal']} of "
           f"{check['tokens']} served tokens equal its argmax outright "
           f"({time.perf_counter() - t0:.1f} s)")
+    by_path["lm_threads"] = lm_launches
+
+    # -- the LM on the device pool ------------------------------------------
+    d_outs, d_rows, _, d_server, d_wall, d_launches = lm_serving_phase(
+        lm_pipe, requests, counters, pool="device")
+    for name, count in d_launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} never launched serving the "
+                                 f"LM on the device pool")
+    if [list(o) for o in d_outs] != [list(o) for o in lm_outs]:
+        raise AssertionError("device pool: served tokens differ from the "
+                             "thread pool's")
+    d_check = check_lm_served(lm_pipe, lm_params, requests, d_outs, d_rows,
+                              device, refs=check["refs"])
+    by_path["lm_device"] = d_launches
+    print(f"LM on the device pool: {toks} tokens, each equal to the thread "
+          f"pool's; logits max rel err {d_check['max_rel_err']:.2e} <= {TOL_LM}; "
+          f"launches {d_launches}")
+    print(f"LM round phases, both pools ({card}):")
+    print(_lm_line("threads", lm_server, toks, wall))
+    print(_lm_line("device", d_server, toks, d_wall))
+    del lm_server, d_server, d_rows
+
+    lin = coded_linear_phase(device, (k2_launches, k3_launches))
+    for name, count in lin["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} never launched by CodedLinear")
+    by_path["coded_linear"] = lin["launches"]
+    print(f"CodedLinear (T 4, d_in 576, d_out 1536) on n, k_a, k_b = "
+          f"{lin['plan']}: {lin['subsets']} survivor subsets, max rel err vs "
+          f"torch.matmul {lin['max_rel_err']:.2e} <= {TOL_LINEAR}; launches "
+          f"{lin['launches']}")
 
     # -- the kernels line: K1-K4, launches from each path's serving run.
     # K2 runs on both paths, in two regimes: its top-level numbers stay
@@ -900,6 +1234,10 @@ def main() -> int:
            "launches": lm_launches["flash_attention"], **k4,
            "bf16": lm_kernel_summary(lm_k["flash_attention_bf16"]),
            "shapes": lm_k["flash_attention"] + lm_k["flash_attention_bf16"]}
+    for e in (k1e, k2e, k3e, k4e):
+        e["launches_by_path"] = {path: counts[e["name"]]
+                                 for path, counts in by_path.items()
+                                 if e["name"] in counts}
     print(json.dumps({"kernels": [k1e, k2e, k3e, k4e]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -99,11 +99,15 @@ class UncodedPlan:
 
 @dataclasses.dataclass(frozen=True)
 class GemmGeometry:
-    """Geometry of one decoder GEMM round: ``in_channels -> out_channels``
-    (named like ``ConvGeometry``'s channel fields)."""
+    """Geometry of one decoder GEMM round, shaped like the ``ConvGeometry``
+    attributes ``FcdccCluster._filter_code_key`` consults (a 1x1 "conv" of
+    ``in_channels -> out_channels``), so coded GEMM weights live in the same
+    resident-filter registry as ConvL filters."""
 
     in_channels: int
     out_channels: int
+    kernel_h: int = 1
+    kernel_w: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +191,10 @@ class CodedDecoderPipeline:
         self.n = plan.n
         self.backend = check_backend(backend)
         self.device = resolve_device(device)
+        # worker-pool preference read by the server that adopts this
+        # pipeline, as ``CodedPipeline.pool`` / ``.devices`` (None = auto)
+        self.pool = None
+        self.devices = None
         self.fuse_transitions = False  # GEMM rounds have no fused transitions
         self.max_len = int(max_len if max_len is not None else cfg.max_seq)
         self.bucket_sizes: tuple[int, ...] | None = (
@@ -244,7 +252,7 @@ class CodedDecoderPipeline:
         # program caches ----------------------------------------------------
         self._encoder_fn: Program | None = None
         self._decoder: Program | None = None
-        self._cluster_programs: dict[tuple, Program] = {}  # per-worker call
+        self._cluster_programs: dict[tuple, Program] = {}  # filled by the cluster
         self._batch_programs: dict[tuple, Program] = {}  # looped over workers
         # decode inverses by survivor tuple (one plan for every round), as
         # fp32 host tensors; written by the engine thread only
@@ -339,23 +347,22 @@ class CodedDecoderPipeline:
                 lambda x: x.expand((n, 1) + tuple(x.shape)))
         return self._encoder_fn
 
-    def worker_program(self, idx: int, *, over_workers: bool = True) -> Program:
-        """The worker program of round ``idx``: over all selected workers
-        (``(m, 1, B, d_in)`` shares, the single-process path) or for one
-        worker (the cluster).  Rounds with the same ``program_key`` share
-        one program."""
-        cache = self._batch_programs if over_workers else self._cluster_programs
+    def worker_program(self, idx: int) -> Program:
+        """The worker program of round ``idx`` over all selected workers
+        (``(m, 1, B, d_in)`` shares, the single-process path).  Rounds with
+        the same ``program_key`` share one program; the cluster's
+        one-worker programs live in ``_cluster_programs``, filled by its
+        worker pool."""
         key = self.specs[idx].program_key
-        fn = cache.get(key)
+        fn = self._batch_programs.get(key)
         if fn is None:
             compute = self.layers[idx].worker_compute
-            if over_workers:
-                def compute_all(xe, ke, _compute=compute):
-                    return torch.stack([_compute(xe[j], ke[j])
-                                        for j in range(xe.shape[0])])
-                fn = cache[key] = Program(compute_all)
-            else:
-                fn = cache[key] = Program(compute)
+
+            def compute_all(xe, ke, _compute=compute):
+                return torch.stack([_compute(xe[j], ke[j])
+                                    for j in range(xe.shape[0])])
+
+            fn = self._batch_programs[key] = Program(compute_all)
         return fn
 
     def decode_matrix(self, idx: int, worker_ids: tuple[int, ...]) -> torch.Tensor:

@@ -160,7 +160,7 @@ class CodedPipeline:
                  backend: str = "kernel", fused_worker: bool = True,
                  bucket_sizes: Sequence[int] | None = None,
                  fuse_transitions: bool = False,
-                 pool: str | None = None,
+                 pool: str | None = None, devices=None,
                  device: str | torch.device = "cuda"):
         specs = list(specs)
         if not specs:
@@ -172,9 +172,11 @@ class CodedPipeline:
         self.n = ns.pop()
         self.backend = check_backend(backend)
         self.device = resolve_device(device)
-        # worker-pool preference carried to the cluster / server that adopts
-        # this pipeline (None = auto-select there)
+        # worker-pool preference (and the device pool's worker devices)
+        # carried to the cluster / server that adopts this pipeline (None =
+        # auto-select there)
         self.pool = pool
+        self.devices = devices
         # partition-resident transitions: between ConvLs the activation is
         # decoded only to the (k_a, k_b) grid, relu+pool run per spatial
         # partition with halo exchange, and the partitions re-encode
@@ -197,7 +199,7 @@ class CodedPipeline:
         self.input_encode_calls = 0
         # program caches, keyed like the reference's ----------------------
         self._encoders: dict[int, Program] = {}
-        self._cluster_programs: dict[tuple, Program] = {}  # per-worker call
+        self._cluster_programs: dict[tuple, Program] = {}  # filled by the cluster
         self._batch_programs: dict[tuple, Program] = {}  # looped over workers
         self._decoders: dict[int, Program] = {}  # one per layer, any subset
         self._transitions: dict[tuple, Program] = {}  # by transition key
@@ -309,23 +311,22 @@ class CodedPipeline:
             fn = self._encoders[idx] = Program(self.layers[idx].encode_inputs)
         return fn
 
-    def worker_program(self, idx: int, *, over_workers: bool = True) -> Program:
-        """The coded worker program for layer ``idx``: over all selected
-        workers (``(m, ell_a, ...)`` shares, the single-process path) or
-        for one worker (the threaded cluster).  Layers with the same
-        ``program_key`` share one program."""
-        cache = self._batch_programs if over_workers else self._cluster_programs
+    def worker_program(self, idx: int) -> Program:
+        """The coded worker program for layer ``idx`` over all selected
+        workers (``(m, ell_a, ...)`` shares, the single-process path).
+        Layers with the same ``program_key`` share one program; the
+        cluster's one-worker programs live in ``_cluster_programs``, filled
+        by its worker pool."""
         key = self.specs[idx].program_key
-        fn = cache.get(key)
+        fn = self._batch_programs.get(key)
         if fn is None:
             compute = self.layers[idx].worker_compute
-            if over_workers:
-                def compute_all(xe, ke, _compute=compute):
-                    return torch.stack([_compute(xe[j], ke[j])
-                                        for j in range(xe.shape[0])])
-                fn = cache[key] = Program(compute_all)
-            else:
-                fn = cache[key] = Program(compute)
+
+            def compute_all(xe, ke, _compute=compute):
+                return torch.stack([_compute(xe[j], ke[j])
+                                    for j in range(xe.shape[0])])
+
+            fn = self._batch_programs[key] = Program(compute_all)
         return fn
 
     def encode_columns(self, idx: int, worker_ids: tuple[int, ...]) -> np.ndarray:
@@ -531,6 +532,7 @@ def build_cnn_pipeline(
     bucket_sizes: Sequence[int] | None = None,
     fuse_transitions: bool = False,
     pool: str | None = None,
+    devices=None,
     device: str | torch.device = "cuda",
 ) -> CodedPipeline:
     """Compile one of the named CNNs (``lenet5``/``alexnet``/``vgg16``) into
@@ -546,4 +548,4 @@ def build_cnn_pipeline(
     return CodedPipeline(specs, params, backend=backend,
                          bucket_sizes=bucket_sizes,
                          fuse_transitions=fuse_transitions, pool=pool,
-                         device=device)
+                         devices=devices, device=device)

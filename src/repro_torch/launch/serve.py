@@ -3,8 +3,9 @@
   * the coded CNNs (``lenet5``/``alexnet``/``vgg16``): a
     ``repro_torch.serving.CodedServer`` with one or several resident
     ``CodedPipeline``s sharing a straggler-injecting ``FcdccCluster``
-    worker pool, continuous batching across the models' concurrent
-    requests;
+    worker pool (``--pool threads`` or ``device``), continuous batching
+    across the models' concurrent requests, optionally behind the JSON/HTTP
+    front-end (``--http-port``);
   * the LM (``smollm-135m``): a batched prefill (attention on K4) plus a
     greedy decode loop with a KV cache through ``models.transformer``.
 
@@ -12,6 +13,8 @@ It runs on the card by default, through the hand-written kernels.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vgg16 \\
       --fuse-transitions --requests 16 --workers 8 --stragglers 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch lenet5 \\
+      --device cpu --pool device --http-port 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --batch 4 --prompt-len 32 --gen 32
 """
@@ -29,7 +32,7 @@ from ..devices import resolve_device
 from ..models import transformer as lm
 from ..models.cnn import CNN_SPECS, init_cnn, input_hw
 from ..runtime import StragglerModel
-from ..serving import CodedServer
+from ..serving import CodedServer, ServingFrontend
 
 __all__ = ["build_cnn_server", "serve_cnn", "serve_lm", "main", "LM_ARCHS"]
 
@@ -98,16 +101,20 @@ def build_cnn_server(archs, *, workers: int, stragglers: int,
                      straggler_delay: float, smoke: bool = False, kab=(2, 4),
                      mode: str = "threads", seed: int = 0,
                      fuse_transitions: bool = False, pipeline_depth: int = 2,
+                     pool: str | None = None,
                      device: str | torch.device = "cuda") -> CodedServer:
     """One multi-model ``CodedServer``: every arch's pipeline resident on
     the same n-worker pool, weights drawn from a ``torch.Generator`` seeded
     with ``seed``.  ``fuse_transitions`` serves on the partition-resident
-    path; ``pipeline_depth`` is how many worker rounds may be in flight."""
+    path; ``pipeline_depth`` is how many worker rounds may be in flight;
+    ``pool`` picks the worker executor (``"threads"``, ``"device"``: each
+    coded worker on a device with a stream of its own, reaped by CUDA
+    events; None: the device pool where several cards are visible)."""
     _check_cnn_archs(archs)
     straggler = StragglerModel.fixed(workers, stragglers, straggler_delay,
                                      seed=seed)
     server = CodedServer(straggler=straggler, mode=mode,
-                         bucket_sizes=(1, 2, 4, 8),
+                         bucket_sizes=(1, 2, 4, 8), pool=pool,
                          pipeline_depth=pipeline_depth)
     for arch in archs:
         params = init_cnn(arch, torch.Generator().manual_seed(seed), device)
@@ -123,10 +130,15 @@ def serve_cnn(archs, *, requests: int, workers: int, stragglers: int,
               straggler_delay: float, smoke: bool = False, kab=(2, 4),
               mode: str = "threads", seed: int = 0,
               fuse_transitions: bool = False, pipeline_depth: int = 2,
+              pool: str | None = None, http_port: int | None = None,
               device: str | torch.device = "cuda"):
-    """Serve one or several CNN archs from one shared coded worker pool:
-    fire ``requests`` concurrent single-image requests per model and print
-    latency/throughput stats.  Returns ``(outputs per model, stats)``.
+    """Serve one or several CNN archs from one shared coded worker pool.
+
+    Without ``http_port``: fire ``requests`` concurrent single-image
+    requests per model and print latency/throughput stats; returns
+    ``(outputs per model, stats)``.  With it: raise the JSON front-end on
+    that port (0 = an ephemeral one), serve until interrupted, drain, and
+    return ``(None, stats)``.
 
     Default ``mode="threads"``: the printed percentiles are wall-clock, so
     injected straggler delays really elapse."""
@@ -135,9 +147,22 @@ def serve_cnn(archs, *, requests: int, workers: int, stragglers: int,
         archs, workers=workers, stragglers=stragglers,
         straggler_delay=straggler_delay, smoke=smoke, kab=kab, mode=mode,
         seed=seed, fuse_transitions=fuse_transitions,
-        pipeline_depth=pipeline_depth, device=device,
+        pipeline_depth=pipeline_depth, pool=pool, device=device,
     )
     server.warmup()
+    if http_port is not None:
+        frontend = ServingFrontend(server, port=http_port)
+        with frontend:
+            print(f"serving {archs} on {frontend.url} (POST /v1/infer, "
+                  f"GET /v1/models, GET /v1/stats); Ctrl-C drains and exits",
+                  flush=True)
+            try:
+                frontend._thread.join()
+            except KeyboardInterrupt:
+                print("\ndraining ...")
+        for m, st in server.per_model_stats().items():
+            print(f"{m}: {st.summary_line()}")
+        return None, server.stats()
     rng = np.random.default_rng(seed)
     handles = []
     with server:
@@ -185,6 +210,15 @@ def main(argv=None):
                          "advance between ConvLs as coded partition shares")
     ap.add_argument("--pipeline-depth", type=int, default=2,
                     help="worker rounds in flight at once (1 = serial)")
+    ap.add_argument("--pool", default="auto",
+                    choices=("auto", "threads", "device"),
+                    help="CNN worker executor: device = each coded worker on "
+                         "a device with a stream of its own, reaped by CUDA "
+                         "events; auto picks it where several cards are "
+                         "visible")
+    ap.add_argument("--http-port", type=int, default=None,
+                    help="CNN: serve the JSON front-end on this port until "
+                         "interrupted (0 = ephemeral)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when absent) or cpu")
     args = ap.parse_args(argv)
@@ -193,6 +227,8 @@ def main(argv=None):
     if lm_archs:
         if len(archs) != 1:
             raise SystemExit("an LM arch is served alone: pass one --arch")
+        if args.http_port is not None:
+            raise SystemExit("--http-port serves the CNN archs only")
         serve_lm(lm_archs[0], batch=args.batch, prompt_len=args.prompt_len,
                  gen=args.gen, smoke=args.smoke, device=args.device)
         return
@@ -200,7 +236,9 @@ def main(argv=None):
               workers=args.workers, stragglers=args.stragglers,
               straggler_delay=args.straggler_delay, smoke=args.smoke,
               mode=args.mode, fuse_transitions=args.fuse_transitions,
-              pipeline_depth=args.pipeline_depth, device=args.device)
+              pipeline_depth=args.pipeline_depth,
+              pool=None if args.pool == "auto" else args.pool,
+              http_port=args.http_port, device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""Master/worker runtime: the coded cluster and its worker pool."""
-from .cluster import FcdccCluster, LayerTiming, PendingRound
+"""Master/worker runtime: the coded cluster and its worker pools."""
+from .cluster import FcdccCluster, LayerTiming, PendingRound, run_layer_elastic
 from .devicepool import (
     ClusterDegraded,
+    DeviceWorkerPool,
     PendingBatch,
     StragglerModel,
     ThreadWorkerPool,

@@ -1,25 +1,48 @@
 """Worker pools behind ``FcdccCluster``'s submit/collect seam.
 
-``ThreadWorkerPool`` (``pool="threads"``): one persistent single-thread
-executor per worker, stragglers injected as ``sleep()``s after the compute,
-and the simulated clock for ``mode="simulated"``.  On a CUDA device each
-worker thread owns one ``torch.cuda.Stream`` created with the pool: the
-master records an event on its own stream at submit, the worker's stream
-waits on it, the subtask launches under ``torch.cuda.stream(s)``, and the
-worker synchronises its stream before it stamps ``worker_times`` — so the
-n subtasks overlap on the card as far as its resources allow, and a
-finished future always holds a finished output.
+Two interchangeable executors for the n coded subtasks of one master/worker
+round:
 
-The device pool of the reference (one device per worker) is a later slice
-of the port; ``pool="device"`` raises ``NotImplementedError``.
+  * ``ThreadWorkerPool`` (``pool="threads"``): one persistent single-thread
+    executor per worker, stragglers injected as ``sleep()``s after the
+    compute, and the simulated clock for ``mode="simulated"``.  On a CUDA
+    device each worker thread owns one ``torch.cuda.Stream`` created with
+    the pool: the master records an event on its own stream at submit, the
+    worker's stream waits on it, the subtask launches under
+    ``torch.cuda.stream(s)``, and the worker synchronises its stream before
+    it stamps ``worker_times`` — so a finished future always holds a
+    finished output.
+  * ``DeviceWorkerPool`` (``pool="device"``): each worker pinned to a device
+    (``devices.worker_devices``: every visible card, round-robin when there
+    are fewer cards than workers) with one stream of its own there.
+    ``submit`` dispatches from the master thread with no thread hop: each
+    live worker's stream waits on the master's ready event, runs the
+    subtask and records a completion event.  ``collect`` reaps the fastest
+    delta by ``torch.cuda.Event.query()``, spinning briefly before it backs
+    off into sleeps (``_POLL_MIN`` up to ``_POLL_MAX``; a fixed
+    ``poll_interval_s`` when given).  Injected straggler delays are delayed
+    dispatch (a simulated network or queueing delay ahead of the subtask)
+    by one timer thread a pool, which holds the due dispatches in time
+    order: starting a ``threading.Timer`` a round cost the master more
+    than the round's own dispatch.  A dead worker (``inf``) is never
+    dispatched.  A dispatch that raises on the timer thread is stored for
+    its worker: the round reports ready and ``collect`` re-raises it (or,
+    when the round was already reaped, the next ``submit`` does) — a
+    failing kernel is never mistaken for a dead worker.  Worker programs are kept
+    per (program key, device), so the bounded-program contract holds device
+    by device, and coded filter shards are placed on their workers once.
+    On the CPU every worker's device is ``cpu`` and dispatch is synchronous.
 
-Both sides of the seam share the ``PendingBatch`` in-flight handle and the
-inf = dead / nan = discarded / finite = measured ``worker_times``
+Both pools expose a non-blocking ``ready(pending, delta)`` beside the
+blocking ``collect``, and share the ``PendingBatch`` in-flight handle and
+the inf = dead / nan = discarded / finite = measured ``worker_times``
 convention.
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
+import itertools
 import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor, wait
@@ -27,11 +50,12 @@ from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor, wait
 import numpy as np
 import torch
 
-from ..devices import resolve_device
+from ..core.pipeline import Program
+from ..devices import canonical_device, resolve_device, worker_devices
 
 __all__ = [
-    "ClusterDegraded", "PendingBatch", "StragglerModel", "ThreadWorkerPool",
-    "make_pool", "resolve_pool",
+    "ClusterDegraded", "DeviceWorkerPool", "PendingBatch", "StragglerModel",
+    "ThreadWorkerPool", "make_pool", "resolve_pool",
 ]
 
 
@@ -68,36 +92,67 @@ class PendingBatch:
     """In-flight coded dispatch: n submitted subtasks awaiting ``collect``.
 
     ``futures`` holds the per-worker futures (threads mode); ``results``
-    the precomputed outputs (simulated mode).  ``worker_times`` is live —
-    workers write into it as they finish — so ``collect`` snapshots it."""
+    the precomputed outputs (simulated mode) or, under the device pool, the
+    dispatched ``(output, completion event)`` pairs, filled in under
+    ``lock`` as timer-deferred stragglers dispatch.  ``worker_times`` is
+    live — workers write into it as they finish — so ``collect`` snapshots
+    it.  Device pool only: ``expected`` is the set of live workers whose
+    result will appear, ``errors`` the dispatches that raised, and
+    ``reaped`` marks a round ``collect`` has returned."""
 
     futures: dict
-    results: dict  # guarded-by: submit-thread
+    results: dict  # guarded-by: self.lock
     worker_times: list  # guarded-by: single-writer-slots
     t_start: float
+    expected: set | None = None
+    lock: threading.Lock | None = None
+    errors: dict = dataclasses.field(default_factory=dict)  # guarded-by: self.lock
+    reaped: bool = False  # guarded-by: self.lock
 
 
-def resolve_pool(pool: str | None, mode: str) -> str:
-    """The pool-selection rule shared by every entry point: ``None`` and
-    ``"threads"`` give the thread pool."""
-    if pool is None or pool == "threads":
+def resolve_pool(pool: str | None, mode: str, devices=None) -> str:
+    """The pool-selection rule shared by every entry point.
+
+    An explicit ``"threads"`` or ``"device"`` is honoured (``"device"``
+    requires ``mode="threads"``: the simulated clock has no device queues to
+    race).  ``None`` picks the device pool when ``mode="threads"`` and
+    either a device list was given or more than one CUDA device is visible,
+    else the thread pool."""
+    if pool is None:
+        if mode == "threads" and (devices is not None
+                                  or torch.cuda.device_count() > 1):
+            return "device"
         return "threads"
-    if pool == "device":
-        raise NotImplementedError(
-            "pool='device' (one device per worker, reaped by CUDA events) is "
-            "a later slice of the port (ROADMAP Queue A 5); use 'threads'")
-    raise ValueError(f"unknown pool {pool!r}; use 'threads'")
+    if pool not in ("threads", "device"):
+        raise ValueError(f"unknown pool {pool!r}; use 'threads' or 'device'")
+    if pool == "device" and mode != "threads":
+        raise ValueError(
+            f"pool='device' requires mode='threads', got mode={mode!r}")
+    return pool
 
 
 def make_pool(pool: str, n: int, straggler: StragglerModel, *,
-              mode: str = "threads", device: str | torch.device = "cuda"):
-    resolve_pool(pool, mode)
+              mode: str = "threads", device: str | torch.device = "cuda",
+              devices=None):
+    if resolve_pool(pool, mode, devices) == "device":
+        return DeviceWorkerPool(n, straggler, devices=devices, device=device)
     return ThreadWorkerPool(n, straggler, mode=mode, device=device)
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
+
+
+def _master_gather(arr: torch.Tensor, master: torch.device) -> torch.Tensor:
+    """One surviving worker output on the master device, read on the
+    master's current stream.  The output was allocated on its worker's
+    stream; ``record_stream`` keeps the allocator from handing its memory
+    to that stream's next subtask before the master's reads have run."""
+    out = arr.to(master)
+    if master.type == "cuda":
+        out.record_stream(torch.cuda.current_stream(master))
+    return out
 
 
 class ThreadWorkerPool:
@@ -142,6 +197,24 @@ class ThreadWorkerPool:
         if pools:
             for ex in pools:
                 ex.shutdown(wait=False, cancel_futures=True)
+
+    # -- program/filter placement ------------------------------------------
+    def program(self, key: tuple, raw, i: int, cache: dict) -> Program:
+        """Every worker shares ONE program on the one device (the caller's
+        cache)."""
+        fn = cache.get(key)
+        if fn is None:
+            fn = cache[key] = Program(raw)
+        return fn
+
+    def resident_filters(self, name: str, ke):
+        return ke  # one device: the master copy IS the resident copy
+
+    def drop_filters(self, prefix: str) -> None:
+        pass
+
+    def gather(self, arr: torch.Tensor) -> torch.Tensor:
+        return _master_gather(arr, self.device)
 
     def warm(self, fn, xe, ke) -> None:
         """One worker-0 call outside the timed collect (builds and loads the
@@ -231,3 +304,279 @@ class ThreadWorkerPool:
             t_compute = (max(pending.worker_times[i] for i in results)
                          if results else float("inf"))
         return results, list(pending.worker_times), t_compute
+
+
+class DeviceWorkerPool:
+    """n coded workers pinned to devices (round-robin when there are fewer
+    devices than workers), one stream each, with per-device programs and
+    resident filter shards.  See the module docstring for the dispatch and
+    reap model.
+
+    Memory across streams: a share is produced on the master's stream and
+    read on the worker's, possibly a delay later, so dispatch records the
+    share on the worker stream; a worker output is produced on the worker's
+    stream and read on the master's, so ``gather`` records it on the
+    master stream.  A late straggler's output is never gathered; it was
+    allocated on its own worker stream, and any reuse of its memory is
+    ordered after it on that stream."""
+
+    kind = "device"
+
+    # collect: spin on query() this long before the first sleep (an LM
+    # round holds ~15 us of device work, and a sleep lasts tens of us),
+    # then back off exponentially from _POLL_MIN toward _POLL_MAX while
+    # nothing lands, resetting on every reaped result
+    _SPIN_S = 2e-4
+    _POLL_MIN = 5e-6
+    _POLL_MAX = 1e-3
+
+    def __init__(self, n: int, straggler: StragglerModel, *, devices=None,
+                 device: str | torch.device = "cuda",
+                 poll_interval_s: float | None = None):
+        self.n = n
+        self.straggler = straggler
+        # the master: where shares are encoded and survivors decoded
+        self.master = canonical_device(resolve_device(device))
+        self.devices = ([self.master] * n
+                        if devices is None and self.master.type == "cpu"
+                        else worker_devices(n, devices))
+        if any(d.type != self.master.type for d in self.devices):
+            raise ValueError(f"worker devices {self.devices} and the master "
+                             f"{self.master} must be of one type")
+        self.streams = ([torch.cuda.Stream(device=d) for d in self.devices]
+                        if self.master.type == "cuda" else None)
+        # None = spin, then adaptive backoff; a number = fixed period
+        self._poll_interval_s = poll_interval_s
+        self.spin_s = self._SPIN_S
+        # the engine thread (get-or-create on the hot path) and caller
+        # threads (load/unload placement) share these registries
+        self._state_lock = threading.RLock()
+        self._programs: dict[tuple, Program] = {}  # guarded-by: self._state_lock
+        # name -> (master ke, [per-worker shard]); invalidated by identity
+        self._filters: dict[str, tuple] = {}  # guarded-by: self._state_lock
+        # delayed dispatches: (due time, sequence, dispatch) in time order,
+        # run by one timer thread (started on first use, dropped by
+        # shutdown, which the thread notices and exits)
+        self._timer_cv = threading.Condition()
+        self._due: list[tuple] = []  # guarded-by: self._timer_cv
+        self._seq = itertools.count()
+        self._timer_thread: threading.Thread | None = None  # guarded-by: self._timer_cv
+        # a deferred dispatch that failed after its round was reaped
+        self._late_error: BaseException | None = None  # guarded-by: self._timer_cv
+
+    # -- lifecycle ---------------------------------------------------------
+    def shutdown(self) -> None:
+        """Cancel undelivered delayed dispatches, release the timer thread,
+        and drop programs and filter shards (all re-materialise lazily on
+        reuse)."""
+        with self._timer_cv:
+            self._due.clear()
+            self._timer_thread = None
+            self._timer_cv.notify_all()
+        with self._state_lock:
+            self._programs.clear()
+            self._filters.clear()
+
+    # -- program/filter placement ------------------------------------------
+    def program(self, key: tuple, raw, i: int, cache: dict | None = None) -> Program:
+        """Worker ``i``'s program: one per (program key, device)."""
+        dev = self.devices[i]
+        with self._state_lock:
+            fn = self._programs.get((key, dev))
+            if fn is None:
+                fn = self._programs[(key, dev)] = Program(raw)
+            return fn
+
+    def program_traces(self) -> dict:
+        """Shape signatures per device, ``{device: count}``: the device
+        pool's half of the bounded-program contract."""
+        out: dict = {}
+        with self._state_lock:
+            programs = dict(self._programs)
+        for (_, dev), fn in programs.items():
+            out[dev] = out.get(dev, 0) + len(fn.signatures)
+        return out
+
+    def resident_filters(self, name: str, ke) -> list:
+        """The per-worker shards of coded filters ``ke`` under the
+        namespaced layer ``name``: placed once, reused until ``ke`` is a
+        different tensor.  A worker on the master's device gets ``ke[i]``
+        itself, with no copy."""
+        with self._state_lock:
+            ent = self._filters.get(name)
+            if ent is None or ent[0] is not ke:
+                shards = [ke[i].to(self.devices[i]) for i in range(self.n)]
+                for dev in {d for d in self.devices if d != ke.device}:
+                    torch.cuda.synchronize(dev)  # copies land before use
+                ent = self._filters[name] = (ke, shards)
+            return ent[1]
+
+    def drop_filters(self, prefix: str) -> None:
+        with self._state_lock:
+            for name in [k for k in self._filters if k.startswith(prefix)]:
+                del self._filters[name]
+
+    def gather(self, arr: torch.Tensor) -> torch.Tensor:
+        """One survivor to the master device (discarded outputs never
+        move)."""
+        return _master_gather(arr, self.master)
+
+    def warm(self, fn, xe, ke) -> None:
+        """Run every live worker once outside the timed collect."""
+        ready = self._ready_event()
+        for i in range(self.n):
+            if np.isfinite(self.straggler.delays[i]):
+                self._launch(fn, xe, ke, i, ready)
+        if self.streams is not None:
+            for dev in set(self.devices):
+                torch.cuda.synchronize(dev)
+
+    # -- dispatch / reap ---------------------------------------------------
+    def _ready_event(self):
+        """An event at the current point of the master's stream, where the
+        shares were produced (None on the CPU)."""
+        if self.streams is None:
+            return None
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.master))
+        return ready
+
+    def _launch(self, fn, xe, ke, i: int, ready):
+        """Dispatch worker ``i``'s subtask: ``(output, completion event)``,
+        the event None on the CPU.  Runs on the master thread or on a
+        timer thread, so it enters the worker's device and stream itself:
+        the kernels launch on the calling thread's current stream."""
+        dev = self.devices[i]
+        if self.streams is None:
+            return fn(i)(xe[i].to(dev), ke[i]), None
+        s = self.streams[i]
+        with torch.cuda.device(dev), torch.cuda.stream(s):
+            s.wait_event(ready)
+            out = fn(i)(xe[i].to(dev, non_blocking=True), ke[i])
+            done = torch.cuda.Event()
+            done.record(s)
+        if xe.device == dev:
+            xe.record_stream(s)
+        return out, done
+
+    def submit(self, fn, xe, ke) -> PendingBatch:
+        with self._timer_cv:
+            late, self._late_error = self._late_error, None
+        if late is not None:
+            raise late
+        delays = self.straggler.delays
+        worker_times = [
+            float("inf") if not np.isfinite(delays[i]) else float("nan")
+            for i in range(self.n)
+        ]
+        pending = PendingBatch({}, {}, worker_times, time.perf_counter(),
+                               expected=set(), lock=threading.Lock())
+        ready = self._ready_event()
+        for i in range(self.n):
+            if not np.isfinite(delays[i]):
+                continue  # dead worker: never dispatched
+            pending.expected.add(i)
+            if delays[i] > 0:
+                self._defer(float(delays[i]), pending, i, fn, xe, ke, ready)
+            else:
+                res = self._launch(fn, xe, ke, i, ready)
+                with pending.lock:
+                    pending.results[i] = res
+        return pending
+
+    def _defer(self, delay: float, pending: PendingBatch, i: int, fn, xe, ke,
+               ready) -> None:
+        """Dispatch worker ``i`` ``delay`` seconds from now, on the timer
+        thread.  A dispatch that raises is kept for ``collect`` to re-raise
+        (or, when the round was already reaped, for the next ``submit``)."""
+        def run():
+            try:
+                res = self._launch(fn, xe, ke, i, ready)
+            except Exception as err:  # surfaces in collect or the next submit
+                with pending.lock:
+                    late = pending.reaped
+                    if not late:
+                        pending.errors[i] = err
+                if late:
+                    with self._timer_cv:
+                        self._late_error = err
+            else:
+                with pending.lock:
+                    pending.results[i] = res
+
+        with self._timer_cv:
+            heapq.heappush(self._due, (time.perf_counter() + delay,
+                                       next(self._seq), run))
+            if self._timer_thread is None:
+                self._timer_thread = threading.Thread(
+                    target=self._timer_loop, name="fcdcc-device-timer",
+                    daemon=True)
+                self._timer_thread.start()
+            self._timer_cv.notify()
+
+    def _timer_loop(self) -> None:
+        """Run each delayed dispatch at its due time, in time order, until
+        ``shutdown`` replaces this thread."""
+        me = threading.current_thread()
+        while True:
+            with self._timer_cv:
+                while True:
+                    if self._timer_thread is not me:
+                        return
+                    wait_s = (self._due[0][0] - time.perf_counter()
+                              if self._due else None)
+                    if wait_s is not None and wait_s <= 0:
+                        break
+                    self._timer_cv.wait(wait_s)
+                run = heapq.heappop(self._due)[2]
+            run()
+
+    def ready(self, pending: PendingBatch, delta: int) -> bool:
+        """Non-blocking: are ``delta`` results (all expected ones, for a
+        degraded round) complete right now, or has a dispatch failed?"""
+        need = min(delta, len(pending.expected))
+        with pending.lock:
+            if pending.errors:
+                return True
+            avail = list(pending.results.values())
+        return sum(1 for _, ev in avail if ev is None or ev.query()) >= need
+
+    def collect(self, pending: PendingBatch, delta: int):
+        """Poll completion events until the fastest ``delta`` workers have
+        delivered; later arrivals are discarded (their subtask finishes on
+        its own stream, but the output is never gathered).  Spins on
+        ``query()`` for ``spin_s``, then sleeps with exponential backoff
+        reset on progress, or for a fixed ``poll_interval_s`` when given.
+        Re-raises a failed dispatch."""
+        need = min(delta, len(pending.expected))
+        reaped: dict[int, torch.Tensor] = {}
+        sleep_s = self._POLL_MIN
+        spin_until = time.perf_counter() + self.spin_s
+        while True:
+            with pending.lock:
+                if pending.errors:
+                    raise pending.errors[min(pending.errors)]
+                avail = {i: r for i, r in pending.results.items()
+                         if i not in reaped}
+            progressed = False
+            for i, (out, ev) in avail.items():
+                if ev is None or ev.query():
+                    reaped[i] = out
+                    pending.worker_times[i] = \
+                        time.perf_counter() - pending.t_start
+                    progressed = True
+                    if len(reaped) >= need:
+                        break
+            if len(reaped) >= need:
+                break
+            if progressed:
+                sleep_s = self._POLL_MIN
+            elif self._poll_interval_s is not None:
+                time.sleep(self._poll_interval_s)
+            elif time.perf_counter() >= spin_until:
+                time.sleep(sleep_s)
+                sleep_s = min(sleep_s * 2, self._POLL_MAX)
+        with pending.lock:
+            pending.reaped = True
+        t_compute = time.perf_counter() - pending.t_start
+        return reaped, list(pending.worker_times), t_compute

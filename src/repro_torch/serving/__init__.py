@@ -2,6 +2,7 @@
 ``CodedPipeline``s (multi-model scheduler + engine loop + per-request
 metrics) and continuous token batching over a ``CodedDecoderPipeline``."""
 from .engine import CodedServer
+from .frontend import ServingFrontend
 from .lm_engine import CodedLMServer, pack_request, unpack_request
 from .metrics import (
     MetricsCollector,
@@ -21,6 +22,7 @@ from .scheduler import (
 
 __all__ = [
     "CodedServer",
+    "ServingFrontend",
     "CodedLMServer",
     "pack_request",
     "unpack_request",

@@ -125,7 +125,7 @@ class CodedServer:
                  bucket_sizes=None, max_inflight: int = 2,
                  pipeline_depth: int = 2,
                  poll_interval_s: float = 0.005, model: str = "default",
-                 pool: str | None = None):
+                 pool: str | None = None, devices=None):
         if execution not in ("cluster", "direct"):
             raise ValueError(f"unknown execution mode {execution!r}")
         if not isinstance(pipeline_depth, int) or pipeline_depth < 1:
@@ -144,6 +144,7 @@ class CodedServer:
         # explicit argument wins, else the first registered pipeline's own
         # preference rides along
         self._pool = pool
+        self._devices = devices
         self._straggler = straggler
         self._default_buckets = bucket_sizes
         self._default_max_inflight = max_inflight
@@ -170,7 +171,7 @@ class CodedServer:
                  max_inflight: int = 2, pipeline_depth: int = 2,
                  model: str | None = None,
                  fuse_transitions: bool = False,
-                 pool: str | None = None,
+                 pool: str | None = None, devices=None,
                  device: str | torch.device = "cuda") -> "CodedServer":
         """Compile a named CNN (``lenet5``/``alexnet``/``vgg16``) into a
         bucketed resident pipeline and wrap a server around it; the model
@@ -188,7 +189,8 @@ class CodedServer:
             backend=backend,
             bucket_sizes=(bucket_sizes if bucket_sizes is not None
                           else DEFAULT_BUCKETS),
-            fuse_transitions=fuse_transitions, pool=pool, device=device,
+            fuse_transitions=fuse_transitions, pool=pool, devices=devices,
+            device=device,
         )
         return cls(pipeline, straggler, mode=mode, execution=execution,
                    max_inflight=max_inflight, pipeline_depth=pipeline_depth,
@@ -254,6 +256,8 @@ class CodedServer:
                 pipeline.specs[0].plan, self._straggler, mode=self.mode,
                 backend=pipeline.backend,
                 pool=self._pool if self._pool is not None else pipeline.pool,
+                devices=(self._devices if self._devices is not None
+                         else pipeline.devices),
                 device=pipeline.device,
             )
         self.cluster.load_pipeline(pipeline, name)
@@ -317,6 +321,9 @@ class CodedServer:
         with self._registry_lock:
             del self.models[name]
         self.cluster.unload_pipeline(name)
+
+    def model_names(self) -> list[str]:
+        return list(self.models)
 
     @property
     def pipeline(self) -> CodedPipeline:
@@ -454,6 +461,31 @@ class CodedServer:
         """Per-phase round timings + pipelining efficiency (see
         ``OverlapStats``) — all models, or one model's rounds."""
         return self.metrics.overlap_stats(model)
+
+    def wait_many(self, handles, timeout: float | None = 60.0, *,
+                  slice_s: float = 0.05) -> bool:
+        """Block until every handle is done (True) or ``timeout`` elapses
+        (False: no request is cancelled, some may have finished).
+
+        One shared condition (``MultiScheduler.completion``) serves every
+        waiter with timeout-sliced waits, so a bounded pool of threads can
+        park on many pending requests at once: the HTTP front-end's handler
+        pool gathers batched requests through here instead of dedicating
+        one blocked thread per ``result()`` call."""
+        deadline = (None if timeout is None
+                    else time.perf_counter() + float(timeout))
+        completion = self.scheduler.completion
+        with completion:
+            while True:
+                if all(h.done() for h in handles):
+                    return True
+                wait_s = slice_s
+                if deadline is not None:
+                    left = deadline - time.perf_counter()
+                    if left <= 0:
+                        return False
+                    wait_s = min(wait_s, left)
+                completion.wait(wait_s)
 
     # -- engine loop ---------------------------------------------------------
     # reaper poll floor: first wait after a dispatch (backs off toward

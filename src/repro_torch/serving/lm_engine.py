@@ -107,6 +107,10 @@ class CodedLMServer:
     thread with the ``(vocab,)`` logits row each served token was chosen
     from, in token order (the prefill row, then one row per decode step),
     so a caller can hold the served logits themselves against a reference.
+
+    ``pool`` / ``devices`` choose the worker pool of the cluster the server
+    builds (``"threads"`` or ``"device"``; None takes the pipeline's own
+    preference, else the auto rule of ``runtime.resolve_pool``).
     """
 
     def __init__(self, pipeline: CodedDecoderPipeline,
@@ -115,6 +119,7 @@ class CodedLMServer:
                  mode: str = "simulated", execution: str = "cluster",
                  model: str = "lm", max_prompt: int = 16,
                  worker_ids=None, on_logits=None,
+                 pool: str | None = None, devices=None,
                  poll_interval_s: float = 0.005):
         if execution not in ("cluster", "direct"):
             raise ValueError(f"unknown execution mode {execution!r}")
@@ -137,7 +142,11 @@ class CodedLMServer:
             if self.cluster is None:
                 self.cluster = FcdccCluster(
                     pipeline.specs[0].plan, straggler, mode=mode,
-                    backend=pipeline.backend, device=pipeline.device)
+                    backend=pipeline.backend,
+                    pool=pool if pool is not None else pipeline.pool,
+                    devices=devices if devices is not None
+                    else pipeline.devices,
+                    device=pipeline.device)
             self.cluster.load_pipeline(pipeline, model)
         self.scheduler = MultiScheduler()
         self.scheduler.add_model(

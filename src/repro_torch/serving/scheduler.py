@@ -234,6 +234,10 @@ class Scheduler:
         # reads (a plain unfenced bool write has no ordering guarantee).
         self.closed = False  # guarded-by: self._lock
         self.fenced = False  # guarded-by: self._lock
+        # admissions between popping the queue and joining ``inflight``:
+        # ``has_work`` counts them, so a drain never sees a request in
+        # neither place
+        self._admitting = 0  # guarded-by: self._lock
 
     def close(self) -> None:
         """Phase 1 of removal: reject new submits, keep serving what's in."""
@@ -255,9 +259,13 @@ class Scheduler:
         return self.queue.submit(x)
 
     def has_work(self) -> bool:
+        # the queue first: an admission counts itself in ``_admitting``
+        # before it pops, so a request that left the queue after this read
+        # is seen below as admitting or in flight
+        if len(self.queue) > 0:
+            return True
         with self._lock:
-            inflight = bool(self.inflight)
-        return inflight or len(self.queue) > 0
+            return bool(self.inflight) or self._admitting > 0
 
     def admit(self, limit: int | None = None) -> ScheduledBatch | None:
         """Assemble waiting requests into one new bucketed batch (layer 0)
@@ -269,21 +277,27 @@ class Scheduler:
         with self._lock:
             if len(self.inflight) >= self.max_inflight:
                 return None
-        take = self.max_batch if limit is None else min(limit, self.max_batch)
-        reqs = self.queue.pop_up_to(take)
-        if not reqs:
-            return None
-        x = torch.stack([r.x for r in reqs], dim=0)
-        x, real = self.pad_to_bucket(x)
-        assert real == len(reqs)
-        batch = ScheduledBatch(reqs, x, bucket=int(x.shape[0]),
-                               model=self.name)
-        # start_t is NOT stamped here: queue-wait ends at the batch's first
-        # *dispatch* (the engine stamps it), so admitted-but-waiting time —
-        # e.g. behind a full pipeline window — still counts as queueing
-        with self._lock:
-            self.inflight.append(batch)
-        return batch
+            self._admitting += 1
+        try:
+            take = self.max_batch if limit is None else min(limit, self.max_batch)
+            reqs = self.queue.pop_up_to(take)
+            if not reqs:
+                return None
+            x = torch.stack([r.x for r in reqs], dim=0)
+            x, real = self.pad_to_bucket(x)
+            assert real == len(reqs)
+            batch = ScheduledBatch(reqs, x, bucket=int(x.shape[0]),
+                                   model=self.name)
+            # start_t is NOT stamped here: queue-wait ends at the batch's
+            # first *dispatch* (the engine stamps it), so admitted-but-waiting
+            # time — e.g. behind a full pipeline window — still counts as
+            # queueing
+            with self._lock:
+                self.inflight.append(batch)
+            return batch
+        finally:
+            with self._lock:
+                self._admitting -= 1
 
     def can_admit(self) -> bool:
         """Non-mutating: would ``admit()`` assemble a batch right now?"""

@@ -434,3 +434,177 @@ def test_cuda_lm_server_under_stragglers_matches_greedy(cuda):
                 params, cfg, cache, torch.as_tensor([[want[-1]]], device=cuda), t)
             want.append(int(logits[0, -1].argmax()))
         assert list(got) == want
+
+
+# -- the device worker pool on the card ---------------------------------------
+def test_cuda_device_pool_bit_identical_to_thread_pool(cuda):
+    """VGG-16 at 32x32, fused transitions, the fastest-delta subset pinned by
+    delaying every other worker: the device pool (dispatch from the master,
+    event reaping) gives the thread pool's bits exactly (fixed-order
+    kernels on another stream), and both launch K1 and K2."""
+    from repro_torch.core.pipeline import build_cnn_pipeline
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.runtime import FcdccCluster, StragglerModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = init_cnn("vgg16", torch.Generator().manual_seed(4), cuda)
+    delays = np.array([0.0, 0.0] + [0.05] * 6)
+    x = torch.as_tensor(RNG.standard_normal((2, 3, 32, 32)).astype(np.float32),
+                        device=cuda)
+    outs = {}
+    for pool in ("threads", "device"):
+        pipe = build_cnn_pipeline("vgg16", params, 8, default_kab=(2, 4),
+                                  input_hw=32, fuse_transitions=True, device=cuda)
+        before = (k1.launches.count, k2.launches.count)
+        with FcdccCluster(pipe.specs[0].plan, StragglerModel(delays),
+                          mode="threads", pool=pool, device=cuda) as cl:
+            y, timings = cl.run_pipeline(x, pipe)
+            assert all(t.used_workers == [0, 1] for t in timings)
+            outs[pool] = y.cpu()
+        assert k1.launches.count > before[0] and k2.launches.count > before[1]
+    assert torch.equal(outs["threads"], outs["device"])
+
+
+def _pool(cuda, delays, **kw):
+    from repro_torch.runtime import DeviceWorkerPool, StragglerModel
+
+    return DeviceWorkerPool(len(delays), StragglerModel(np.asarray(delays)),
+                            device=cuda, **kw)
+
+
+def test_cuda_device_pool_reaps_by_event(cuda):
+    """A worker held on the card by ``torch.cuda._sleep`` is not ready and
+    not reaped until its completion event fires; the reaped outputs are
+    complete and right."""
+    impl = _pool(cuda, [0.0, 0.0, 0.0])
+    xe = torch.arange(3 * 4, dtype=torch.float32, device=cuda).reshape(3, 1, 4)
+    ke = torch.ones(3, 4, 2, device=cuda)
+
+    def program(i):
+        def run(x, k):
+            if i == 1:
+                torch.cuda._sleep(200_000_000)  # ~0.1 s on the worker's stream
+            return x[0] @ k
+        return run
+
+    try:
+        pending = impl.submit(program, xe, ke)
+        ev = {i: r[1] for i, r in pending.results.items()}
+        assert all(isinstance(e, torch.cuda.Event) for e in ev.values())
+        assert not impl.ready(pending, 3)  # worker 1 still asleep on the card
+        results, times, _ = impl.collect(pending, 2)
+        assert set(results) == {0, 2} and np.isnan(times[1])
+        for i, out in results.items():
+            _close(out, (xe[i, 0] @ ke[i]))
+        results, _, _ = impl.collect(pending, 3)
+        assert ev[1].query() and set(results) == {0, 1, 2}
+    finally:
+        impl.shutdown()
+        torch.cuda.synchronize()
+
+
+def test_cuda_device_pool_delayed_dispatch_on_worker_stream(cuda):
+    """A straggler's delayed dispatch runs on a timer thread, and still
+    launches on its own worker's stream and device (the kernels launch on
+    the calling thread's current stream), waiting for the master's ready
+    event; an undelayed one on the master thread likewise."""
+    import threading
+
+    impl = _pool(cuda, [0.0, 0.02])
+    seen = {}
+
+    def program(i):
+        def run(x, k):
+            seen[i] = (threading.current_thread().name,
+                       torch.cuda.current_stream().cuda_stream,
+                       torch.cuda.current_device())
+            return k2.matmul(x[0].contiguous(), k.contiguous())
+        return run
+
+    try:
+        master = torch.cuda.Stream(device=cuda)
+        with torch.cuda.stream(master):
+            # shares produced late on the master's stream: the workers must
+            # wait for them, not read stale memory
+            torch.cuda._sleep(50_000_000)
+            xe = torch.full((2, 1, 2, 8), 3.0, device=cuda)
+            ke = torch.ones(2, 8, 5, device=cuda)
+            before = k2.launches.count
+            pending = impl.submit(program, xe, ke)
+            results, _, _ = impl.collect(pending, 2)
+            assert k2.launches.count == before + 2
+            outs = {i: impl.gather(o) for i, o in results.items()}
+        torch.cuda.synchronize()
+        for i in (0, 1):
+            assert seen[i][1] == impl.streams[i].cuda_stream
+            assert seen[i][2] == impl.devices[i].index
+            _close(outs[i], torch.full((2, 5), 24.0))
+        assert seen[0][0] == threading.current_thread().name
+        assert seen[1][0] != threading.current_thread().name
+    finally:
+        impl.shutdown()
+
+
+def test_cuda_device_pool_reraises_a_failed_dispatch(cuda):
+    """A launch that fails on a delayed worker's timer thread surfaces from
+    ``collect`` (the round reports ready), and is never taken for a dead
+    worker."""
+    import threading
+
+    impl = _pool(cuda, [0.0, 0.02, 0.02])
+    xe = torch.ones(3, 1, 2, 4, device=cuda)
+    ke = torch.ones(3, 4, 3, device=cuda)
+
+    def program(i):
+        def run(x, k):
+            if i == 2:  # K2 refuses a non-contiguous operand
+                return k2.matmul(x[0], k.t().contiguous().t())
+            return k2.matmul(x[0].contiguous(), k.contiguous())
+        return run
+
+    try:
+        pending = impl.submit(program, xe, ke)
+        box = {}
+
+        def reap():
+            try:
+                impl.collect(pending, 3)
+            except ValueError as err:
+                box["err"] = err
+
+        t = threading.Thread(target=reap, daemon=True)
+        t.start()
+        t.join(30.0)
+        assert not t.is_alive(), "collect hung on a failed dispatch"
+        assert "contiguous" in str(box["err"])
+        assert impl.ready(pending, 3)
+    finally:
+        impl.shutdown()
+        torch.cuda.synchronize()
+
+
+def test_cuda_coded_linear_matches_plain(cuda):
+    """``CodedLinear`` at SmolLM's up-projection widths on the card (worker
+    GEMM on K2, decode on K3 with the inverse on the host) against the same
+    layer on the CPU (their plain versions) and a plain fp32 matmul, for
+    every survivor subset."""
+    import itertools
+
+    from repro_torch.core.coded_linear import CodedLinear
+    from repro_torch.core.fcdcc import FcdccPlan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = FcdccPlan(n=6, k_a=2, k_b=4)
+    x = RNG.standard_normal((4, 576)).astype(np.float32)
+    w = (RNG.standard_normal((576, 1536)) / 24.0).astype(np.float32)
+    gpu, cpu = CodedLinear(plan, 4, 576, 1536), CodedLinear(plan, 4, 576, 1536)
+    xg, wg = torch.as_tensor(x, device=cuda), torch.as_tensor(w, device=cuda)
+    want = torch.as_tensor(x) @ torch.as_tensor(w)
+    for ids in itertools.combinations(range(6), plan.delta):
+        before = (k2.launches.count, k3.launches.count)
+        got = gpu.run_simulated(xg, wg, list(ids))
+        assert k2.launches.count == before[0] + len(ids)
+        assert k3.launches.count == before[1] + 1
+        _close(got, cpu.run_simulated(torch.as_tensor(x), torch.as_tensor(w), list(ids)))
+        _close(got, want, rel=1e-4)
+    assert gpu.weight_encode_calls == 1

@@ -209,8 +209,9 @@ def test_server_entry_points_default_to_the_card():
         CodedServer.from_cnn("lenet5", _params(STACK), N, default_kab=KAB)
     with pytest.raises(RuntimeError, match="cuda"):
         FcdccCluster(_pipe().specs[0].plan)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        resolve_pool("device", "threads")
+    assert resolve_pool("device", "threads") == "device"
+    with pytest.raises(RuntimeError, match="cuda"):
+        FcdccCluster(_pipe().specs[0].plan, pool="device")
 
 
 def test_partition_state_batches_coalesce_on_their_batch_axis():
@@ -302,3 +303,33 @@ def test_weighted_fair_share_round_ratio():
     assert all(j - i <= 3 for i, j in zip(b_rounds, b_rounds[1:]))
     with pytest.raises(ValueError, match="weight"):
         server.register_model("c", _pipe(), weight=0)
+
+
+def test_has_work_sees_a_batch_mid_admission():
+    """Between popping its requests off the queue and joining the in-flight
+    set, an admission still counts as work: ``unregister_model``'s drain
+    polls ``has_work`` from another thread and must never see a request
+    in neither place (it then tore the model down under a live batch)."""
+    pipe = _pipe()
+    sched = Scheduler(pipe.pad_to_bucket, max_batch=pipe.max_batch,
+                      max_inflight=2, name="m")
+    sched.submit(torch.as_tensor(_images(1)[0]))
+    popped, release = threading.Event(), threading.Event()
+
+    def slow_pad(x):
+        popped.set()  # the queue is empty now, the batch not in flight yet
+        assert release.wait(30.0)
+        return pipe.pad_to_bucket(x)
+
+    sched.pad_to_bucket = slow_pad
+    t = threading.Thread(target=sched.admit, daemon=True)
+    t.start()
+    try:
+        assert popped.wait(30.0)
+        assert len(sched.queue) == 0 and not sched.inflight
+        assert sched.has_work()
+    finally:
+        release.set()
+        t.join(30.0)
+    assert not t.is_alive()
+    assert sched.has_work() and len(sched.inflight) == 1
