@@ -56,7 +56,19 @@ Phases, in order; any failure raises:
     ``CodedLinear`` at SmolLM's up-projection widths for every survivor
     subset against ``torch.matmul``.  Each phase reads the launch counts
     around itself only;
- 9. one JSON line with the kernels' numbers (K1-K4; K2's top-level numbers
+ 9. the analysis gate's card half (``repro_torch.analysis.contracts``)
+    over every program cell of the two served configurations at full
+    width (VGG-16 224, n=8, (2, 4), fused, buckets 1-8; SmolLM-135M on
+    exp13's plan, buckets 1-4): each cell run once under the dispatch
+    recorder (no float64 on the card, no host sync, no constant in place of
+    a coding-matrix argument, float32 outputs), captured into a CUDA graph
+    after a warm-up call, its static inputs refilled with a second
+    argument set (for decode and transition cells the operand of another
+    survivor subset), replayed and held ``torch.equal`` to an eager call on
+    that set; the eager-only cells (the LM decoder: K3 takes the survivor
+    inverse by value) listed with their reason; any contract error fails
+    the script;
+10. one JSON line with the kernels' numbers (K1-K4; K2's top-level numbers
     are its CNN pass, its LM numbers sit under ``paths.lm``; each kernel's
     ``launches`` is its count on the phase-4 or phase-6 main path, and
     ``launches_by_path`` its count in every phase that ran it), then the
@@ -973,6 +985,57 @@ def coded_linear_phase(device, counters) -> dict:
             "max_rel_err": worst, "launches": launches}
 
 
+def contracts_phase(lm_pipe, device, counters) -> dict:
+    """The analysis gate's card half over the served configurations'
+    program spaces (phase 9): the VGG-16 pipeline the CNN server runs,
+    rebuilt from the seed, and the LM pipeline the LM server ran.  Raises
+    with every finding when a contract fails; returns the counts."""
+    from repro_torch.analysis import contracts, dispatch_tools
+    from repro_torch.core.pipeline import build_cnn_pipeline
+    from repro_torch.models.cnn import init_cnn
+
+    t0 = time.perf_counter()
+    params = init_cnn(ARCH, torch.Generator().manual_seed(SEED), device)
+    vgg = build_cnn_pipeline(
+        ARCH, params, N_WORKERS, default_kab=KAB, input_hw=HW,
+        backend="kernel", bucket_sizes=(1, 2, 4, BUCKET),
+        fuse_transitions=True, device=device)
+    # a replay on the second subset proves the inverse is an argument only
+    # where that subset decodes differently: it does on every layer here
+    for idx in range(len(vgg.specs)):
+        a, b = (vgg.decode_operand(idx, dispatch_tools.survivors(vgg, idx, v))
+                for v in (0, 1))
+        if torch.equal(a, b):
+            raise AssertionError(f"layer {idx}: both survivor subsets decode "
+                                 f"alike; the replay check would be vacuous")
+    for c in counters:
+        c.reset()
+    labels = (f"{ARCH}-{HW}/kernel/fused", f"{lm_pipe.cfg.name}/kernel/coded")
+    report = contracts.analyze(vgg, labels[0], device, seed=SEED)
+    report.extend(contracts.analyze(lm_pipe, labels[1], device, seed=SEED))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {c.name: c.count for c in counters}
+    del vgg, params
+    torch.cuda.empty_cache()
+    if report.findings:
+        raise AssertionError("contracts failed on the card:\n"
+                             + report.render_text(show_info=True))
+    st = report.stats
+    out = {"seconds": seconds, "launches": launches, "configs": {}}
+    for label in labels:
+        out["configs"][label] = {
+            key: st[f"{label}/{key}"]
+            for key in ("programs_checked", "captured", "eager_only", "bound")}
+        out["configs"][label]["traces"] = {
+            mode: st[f"{label}/{mode}/traces"] for mode in ("direct", "cluster")}
+        out["configs"][label]["eager_only_cells"] = st.get(
+            f"{label}/eager_only_cells", [])
+        out["configs"][label]["eager_only_reasons"] = st.get(
+            f"{label}/eager_only_reasons", [])
+    return out
+
+
 def _pool_line(name: str, stats, ov) -> str:
     return (f"  {name:7s} {stats.images_per_s:8.2f} img/s, e2e p50 "
             f"{stats.e2e_p50_s * 1e3:7.1f} ms, p99 {stats.e2e_p99_s * 1e3:7.1f} "
@@ -1197,6 +1260,25 @@ def main() -> int:
           f"{lin['plan']}: {lin['subsets']} survivor subsets, max rel err vs "
           f"torch.matmul {lin['max_rel_err']:.2e} <= {TOL_LINEAR}; launches "
           f"{lin['launches']}")
+
+    # -- the analysis gate's card half ---------------------------------------
+    con = contracts_phase(lm_pipe, device, (k1_launches, k2_launches,
+                                            k3_launches, k4_launches))
+    by_path["contracts"] = con["launches"]
+    cells = sum(c["programs_checked"] for c in con["configs"].values())
+    captured = sum(c["captured"] for c in con["configs"].values())
+    eager = sum(c["eager_only"] for c in con["configs"].values())
+    print(f"contracts phase on {card}: {cells} cells, {captured} captured and "
+          f"replayed torch.equal to eager on a second argument set, {eager} "
+          f"eager-only, 0 errors, {con['seconds']:.1f} s; launches "
+          f"{con['launches']}")
+    for label, c in con["configs"].items():
+        print(f"  {label}: {c['programs_checked']} cells, {c['captured']} "
+              f"captured, {c['eager_only']} eager-only; worker+transition "
+              f"signatures {c['traces']} <= bound {c['bound']}")
+        if c["eager_only_cells"]:
+            print(f"    eager-only ({'; '.join(c['eager_only_reasons'])}): "
+                  f"{', '.join(c['eager_only_cells'])}")
 
     # -- the kernels line: K1-K4, launches from each path's serving run.
     # K2 runs on both paths, in two regimes: its top-level numbers stay

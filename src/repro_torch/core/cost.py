@@ -6,10 +6,12 @@ All volumes are tensor-entry / MAC counts (eqs. 50-55); costs weight them by
 from __future__ import annotations
 
 import dataclasses
+import math
 
 from .partition import ConvGeometry
 
-__all__ = ["CostWeights", "CostBreakdown", "cost_breakdown", "optimal_partition"]
+__all__ = ["CostWeights", "CostBreakdown", "cost_breakdown", "optimal_partition",
+           "continuous_optimum"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +85,10 @@ def optimal_partition(
     }
     best = min(landscape, key=landscape.get)
     return best, landscape[best], landscape
+
+
+def continuous_optimum(geo: ConvGeometry, q: int, w: CostWeights = CostWeights()) -> float:
+    """Theorem 1's closed form k_A* = sqrt(a2/a1)."""
+    a1 = w.store * 2 * geo.out_channels * geo.in_channels * geo.kernel_h * geo.kernel_w / q
+    a2 = w.comm * 4 * geo.in_channels * geo.padded_h * geo.padded_w
+    return math.sqrt(a2 / a1) if a1 > 0 else float("inf")

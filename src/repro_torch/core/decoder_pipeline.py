@@ -25,7 +25,9 @@ rounds and LM decode rounds alike:
     subset reuses the one decode program;
   * everything between the GEMM rounds — embedding, RMS norms, RoPE and
     attention over the master-resident KV slot cache, SiLU gating,
-    residual adds, unembed/argmax — runs master-side as torch glue.
+    residual adds, unembed/argmax — runs master-side as torch glue
+    (``glue_fn`` / ``attn_fn``), each glue program taking its weights as
+    arguments, so no glue program holds a constant of its own.
 
 ``UncodedPlan`` is the straggler-bound baseline: the same worker pool and
 worker program, weights split ``n`` ways with no redundancy, identity
@@ -52,7 +54,7 @@ from ..models import transformer as lm
 from ..models.common import apply_rope, rms_norm, rope_inv_freq, softcap
 from .crme import recovery_matrix
 from .fcdcc import FcdccPlan, check_backend
-from .pipeline import Program
+from .pipeline import ArgSpec, Program, ProgramCell
 
 __all__ = [
     "GemmGeometry",
@@ -61,6 +63,13 @@ __all__ = [
     "CodedDecoderPipeline",
     "build_lm_decoder_pipeline",
 ]
+
+
+# why a decoder cell cannot be replayed from a CUDA-graph capture
+DECODE_EAGER_ONLY = (
+    "K3 takes the survivor inverse by value from the host "
+    "(src/repro_torch/kernels/csrc/coded_gemm.cu, kernels/coded_gemm/"
+    "kernel.py): a capture would bake the captured subset's inverse")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,7 +230,6 @@ class CodedDecoderPipeline:
         self.ln_f = params["ln_f"]
         self.head = (params["embed"].t() if cfg.tie_embeddings
                      else params["lm_head"])
-        self._rope = rope_inv_freq(hd, cfg.rope_base, self.device)
 
         # compile the round specs and encode weights exactly once ---------
         self.weight_encode_calls = 0
@@ -254,6 +262,8 @@ class CodedDecoderPipeline:
         self._decoder: Program | None = None
         self._cluster_programs: dict[tuple, Program] = {}  # filled by the cluster
         self._batch_programs: dict[tuple, Program] = {}  # looped over workers
+        self._glue: dict[str, object] = {}  # master-side glue by name
+        self._attn_fns: dict = {}  # decode attention by sliding window
         # decode inverses by survivor tuple (one plan for every round), as
         # fp32 host tensors; written by the engine thread only
         self._decode_memo: dict[tuple, torch.Tensor] = {}  # guarded-by: engine-thread
@@ -313,9 +323,22 @@ class CodedDecoderPipeline:
         return len({(s.program_key, s.geo) for s in self.specs})
 
     @property
+    def num_transitions(self) -> int:
+        return 0
+
+    @property
     def program_trace_bound(self) -> int:
         buckets = len(self.bucket_sizes) if self.bucket_sizes else 1
         return self.num_geometries * buckets
+
+    @property
+    def num_rounds_per_step(self) -> int:
+        return len(self.specs)
+
+    @property
+    def num_worker_programs(self) -> int:
+        """Distinct worker programs in use, both caches counted."""
+        return len(self._batch_programs) + len(self._cluster_programs)
 
     @property
     def worker_program_traces(self) -> int:
@@ -347,17 +370,22 @@ class CodedDecoderPipeline:
                 lambda x: x.expand((n, 1) + tuple(x.shape)))
         return self._encoder_fn
 
-    def worker_program(self, idx: int) -> Program:
-        """The worker program of round ``idx`` over all selected workers
-        (``(m, 1, B, d_in)`` shares, the single-process path).  Rounds with
-        the same ``program_key`` share one program; the cluster's
-        one-worker programs live in ``_cluster_programs``, filled by its
-        worker pool."""
+    def worker_program(self, idx: int, *, over_workers: bool = True) -> Program:
+        """The worker program of round ``idx``: over all selected workers
+        (``(m, 1, B, d_in)`` shares, the single-process path), or with
+        ``over_workers=False`` the one-worker program the cluster dispatches
+        (``_cluster_programs``, which the thread pool fills with the same
+        programs).  Rounds with the same ``program_key`` share one
+        program."""
         key = self.specs[idx].program_key
+        compute = self.layers[idx].worker_compute
+        if not over_workers:
+            fn = self._cluster_programs.get(key)
+            if fn is None:
+                fn = self._cluster_programs[key] = Program(compute)
+            return fn
         fn = self._batch_programs.get(key)
         if fn is None:
-            compute = self.layers[idx].worker_compute
-
             def compute_all(xe, ke, _compute=compute):
                 return torch.stack([_compute(xe[j], ke[j])
                                     for j in range(xe.shape[0])])
@@ -417,32 +445,66 @@ class CodedDecoderPipeline:
         return lambda outs: fn(outs, d)
 
     # -- master-side glue ------------------------------------------------------
+    def glue_fn(self, name: str):
+        """The master-side glue program ``name``, taking its weights as
+        arguments (the reference's ``_glue_fn``): ``embed(table, tokens)``,
+        ``norm(x, gamma)``, ``add(x, y)``, ``act(gu)`` and ``finish(x,
+        gamma, head) -> (logits, argmax)``."""
+        fn = self._glue.get(name)
+        if fn is not None:
+            return fn
+        cfg = self.cfg
+        if name == "embed":
+            scale = math.sqrt(cfg.d_model)
+
+            def fn(table, tokens):
+                x = table[tokens.long()]
+                return x * scale if cfg.embed_scale else x
+        elif name == "norm":
+            fn = rms_norm
+        elif name == "add":
+            def fn(x, y):
+                return x + y
+        elif name == "act":
+            def fn(gu):
+                g, u = gu.chunk(2, dim=-1)
+                g = g.float()
+                g = (F.silu(g) if cfg.act == "silu"
+                     else F.gelu(g, approximate="tanh"))
+                return g.to(u.dtype) * u
+        elif name == "finish":
+            def fn(x, gamma, head):
+                logits = (rms_norm(x, gamma) @ head).float()
+                if cfg.logit_softcap is not None:
+                    logits = softcap(logits, cfg.logit_softcap)
+                return logits, logits.argmax(dim=-1).to(torch.int32)
+        else:
+            raise KeyError(name)
+        self._glue[name] = fn
+        return fn
+
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed_table[tokens.long()]
-        if self.cfg.embed_scale:
-            x = x * math.sqrt(self.cfg.d_model)
-        return x
+        return self.glue_fn("embed")(self.embed_table, tokens)
 
     def act(self, gu: torch.Tensor) -> torch.Tensor:
-        g, u = gu.chunk(2, dim=-1)
-        g = g.float()
-        g = F.silu(g) if self.cfg.act == "silu" else F.gelu(g, approximate="tanh")
-        return g.to(u.dtype) * u
+        return self.glue_fn("act")(gu)
 
     def finish(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        logits = (rms_norm(x, self.ln_f) @ self.head).float()
-        if self.cfg.logit_softcap is not None:
-            logits = softcap(logits, self.cfg.logit_softcap)
-        return logits, logits.argmax(dim=-1).to(torch.int32)
+        return self.glue_fn("finish")(x, self.ln_f, self.head)
 
     def attn_fn(self, layer: int):
-        """The decode-attention glue of ``layer``: split the coded qkv
-        round's output, RoPE at each row's own position, write K/V into row
-        ``i``'s cache slot at position ``pos[i]`` (in place), attend
-        causally over the slot cache (plain ``attention``: one query per
-        row at its own position is not K4's index-causal function).
-        Returns the merged head context and the (updated) caches."""
+        """The decode-attention glue of ``layer`` (one program per sliding
+        window): split the coded qkv round's output, RoPE at each row's own
+        position (the frequencies computed in the program, not held by
+        it), write K/V into row ``i``'s cache slot at position ``pos[i]``
+        (in place), attend causally over the slot cache (plain
+        ``attention``: one query per row at its own position is not K4's
+        index-causal function).  Returns the merged head context and the
+        (updated) caches."""
         window = self._windows[layer]
+        fn = self._attn_fns.get(window)
+        if fn is not None:
+            return fn
         cfg = self.cfg
         h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -455,8 +517,9 @@ class CodedDecoderPipeline:
             if cfg.qk_norm:
                 q = rms_norm(q, ln[0])
                 k = rms_norm(k, ln[1])
-            q = apply_rope(q, self._rope, pos[:, None])
-            k = apply_rope(k, self._rope, pos[:, None])
+            rope = rope_inv_freq(hd, cfg.rope_base, qkv.device)
+            q = apply_rope(q, rope, pos[:, None])
+            k = apply_rope(k, rope, pos[:, None])
             rows = torch.arange(b, device=qkv.device)
             ck[rows, pos.long()] = k[:, 0]
             cv[rows, pos.long()] = v[:, 0]
@@ -467,6 +530,7 @@ class CodedDecoderPipeline:
             ctx = lm._attend(q, ck[:b], cv[:b], pos[:, None], k_pos, cfg, window)
             return ctx.reshape(b, h * hd), ck, cv
 
+        self._attn_fns[window] = raw
         return raw
 
     # -- KV slot cache ------------------------------------------------------
@@ -517,23 +581,24 @@ class CodedDecoderPipeline:
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
+        norm, add = self.glue_fn("norm"), self.glue_fn("add")
         x = self.embed(tokens)
         for l in range(cfg.layers):
             g = self.glue_w[l]
             base = 4 * l
-            qkv = run_round(base + 0, rms_norm(x, g["ln_attn"]))
+            qkv = run_round(base + 0, norm(x, g["ln_attn"]))
             ln = (g["q_ln"], g["k_ln"]) if cfg.qk_norm else ()
             ctx, cache[l]["k"], cache[l]["v"] = self.attn_fn(l)(
                 qkv, cache[l]["k"], cache[l]["v"], pos, *ln)
             attn_out = run_round(base + 1, ctx)
             if cfg.sandwich_norms:
-                attn_out = rms_norm(attn_out, g["ln_attn_post"])
-            x = x + attn_out
-            gu = run_round(base + 2, rms_norm(x, g["ln_ffn"]))
+                attn_out = norm(attn_out, g["ln_attn_post"])
+            x = add(x, attn_out)
+            gu = run_round(base + 2, norm(x, g["ln_ffn"]))
             ffn_out = run_round(base + 3, self.act(gu))
             if cfg.sandwich_norms:
-                ffn_out = rms_norm(ffn_out, g["ln_ffn_post"])
-            x = x + ffn_out
+                ffn_out = norm(ffn_out, g["ln_ffn_post"])
+            x = add(x, ffn_out)
         logits, next_tokens = self.finish(x)
         return logits, next_tokens, cache
 
@@ -566,6 +631,95 @@ class CodedDecoderPipeline:
             return y
 
         return self._decode_step(tokens, cache, pos, run_round)
+
+    # -- shape-space enumeration -------------------------------------------
+    def program_space(self, bucket_sizes: Sequence[int] | None = None, *,
+                      modes: Sequence[str] = ("direct", "cluster")):
+        """Enumerate every program cell a decode step can launch, in shape
+        space (the reference's ``program_space``, cell for cell).  Round
+        cells mirror ``CodedPipeline.program_space`` (worker cells are what
+        the bounded-trace proof counts); the master-side glue programs are
+        ``glue`` cells under the ``master`` pseudo-mode.  Two layouts are
+        the port's own: a worker's coded weights are ``(d_in, ell_b*ob)``
+        (the reference's ``(ell_b, d_in, ob)``), and the decode inverse
+        stays on the host, where K3 takes it by value — so a decoder cell
+        is ``eager_only``."""
+        buckets = (self.normalize_buckets(bucket_sizes) if bucket_sizes
+                   else (self.bucket_sizes or (1,)))
+        cfg = self.cfg
+        f32, i32 = torch.float32, torch.int32
+        geoms = set()
+        for mode in modes:
+            if mode not in ("direct", "cluster"):
+                raise ValueError(f"unknown mode {mode!r}")
+            for bucket in buckets:
+                for idx, spec in enumerate(self.specs):
+                    key = (mode, bucket, spec.program_key, spec.geo)
+                    if key in geoms:
+                        continue  # repeated layer geometry: same programs
+                    geoms.add(key)
+                    plan = spec.plan
+                    d_in = spec.geo.in_channels
+                    ob = spec.geo.out_channels // plan.k_b
+                    delta, ea, eb = plan.delta, plan.ell_a, plan.ell_b
+                    q = plan.k_a * plan.k_b
+
+                    def cid(kind):
+                        return f"{spec.name}[b={bucket}]/{kind}:{mode}"
+
+                    yield ProgramCell(
+                        cid("encoder"), "encoder", mode, idx, bucket,
+                        ("bcast",), self.encoder(idx),
+                        (ArgSpec((bucket, d_in), f32),))
+                    if mode == "direct":
+                        yield ProgramCell(
+                            cid("worker"), "worker", mode, idx, bucket,
+                            spec.program_key, self.worker_program(idx),
+                            (ArgSpec((delta, ea, bucket, d_in), f32),
+                             ArgSpec((delta, d_in, eb * ob), f32)))
+                    else:
+                        yield ProgramCell(
+                            cid("worker"), "worker", mode, idx, bucket,
+                            spec.program_key,
+                            self.worker_program(idx, over_workers=False),
+                            (ArgSpec((ea, bucket, d_in), f32),
+                             ArgSpec((d_in, eb * ob), f32)))
+                    yield ProgramCell(
+                        cid("decoder"), "decoder", mode, idx, bucket,
+                        ("dec",), self.decoder_fn(idx),
+                        (ArgSpec((delta, ea * eb, bucket, ob), f32),
+                         ArgSpec((q, q), f32, "decode", idx, host=True)),
+                        eager_only=DECODE_EAGER_ONLY)
+        # master-side glue (mode-independent; checked, never trace-counted)
+        d, v = cfg.d_model, cfg.vocab
+        hkv, hd = cfg.n_kv_heads, cfg.head_dim
+        for bucket in buckets:
+            def gid(kind):
+                return f"glue.{kind}[b={bucket}]:master"
+
+            x = ArgSpec((bucket, d), f32)
+            cells = [
+                ("embed", (ArgSpec((v, d), f32),
+                           ArgSpec((bucket,), i32, "index", high=v))),
+                ("norm", (x, ArgSpec((d,), f32))),
+                ("add", (x, x)),
+                ("act", (ArgSpec((bucket, 2 * cfg.d_ff), f32),)),
+                ("finish", (x, ArgSpec((d,), f32), ArgSpec((d, v), f32))),
+            ]
+            for kind, args in cells:
+                yield ProgramCell(gid(kind), "glue", "master", 0, bucket,
+                                  (kind,), self.glue_fn(kind), args)
+            cache = ArgSpec((bucket, self.max_len, hkv, hd), f32)
+            ln = ((ArgSpec((hd,), f32),) * 2 if cfg.qk_norm else ())
+            for window in sorted(set(self._windows), key=repr):
+                layer = self._windows.index(window)
+                yield ProgramCell(
+                    f"glue.attn[w={window},b={bucket}]:master", "glue",
+                    "master", layer, bucket, ("attn", window),
+                    self.attn_fn(layer),
+                    (ArgSpec((bucket, self.qkv_dim), f32), cache, cache,
+                     ArgSpec((bucket,), i32, "index", high=self.max_len))
+                    + ln)
 
 
 def build_lm_decoder_pipeline(

@@ -73,6 +73,13 @@ class FcdccPlan:
         return self.n - self.delta
 
 
+def _fp32_conv():
+    """cuDNN convolutions in IEEE fp32 whatever the process's TF32 flag:
+    the CRME decode multiplies rounding error by the recovery matrix's
+    condition number, and PyTorch turns cuDNN's TF32 on by default."""
+    return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+
+
 def _conv_valid(x, k, stride, backend):
     """VALID conv of one coded block pair: x ([B,]C,H,W) * k (N,C,KH,KW)."""
     batched = x.ndim == 4
@@ -80,7 +87,8 @@ def _conv_valid(x, k, stride, backend):
         if batched:
             return torch.stack([conv2d_im2col(xi, k, stride) for xi in x])
         return conv2d_im2col(x, k, stride)
-    y = F.conv2d(x if batched else x[None], k, stride=stride)
+    with _fp32_conv():
+        y = F.conv2d(x if batched else x[None], k, stride=stride)
     return y if batched else y[0]
 
 
@@ -113,6 +121,18 @@ class CodedConv2d:
         (``(k_a, ell_a*m)``) to encode only m selected workers' shares."""
         self.input_encode_calls += 1
         parts = apcp_partition(x, self.geo)
+        coded = encode_tensor_list(
+            parts, self.a_code.matrix if matrix is None else matrix)
+        return group_by_worker(coded, self.a_code.ell)
+
+    def encode_from_partitions(self, parts: torch.Tensor, matrix=None) -> torch.Tensor:
+        """Encode pre-sliced APCP parts ``(k_a, [B,] C, h_hat, W+2p)``: the
+        partition-resident transition assembles layer *i+1*'s parts from
+        layer *i*'s decoded partitions (``partition.partition_transition``),
+        so ``encode_inputs``' ``apcp_partition`` is skipped.  ``matrix`` as
+        in ``encode_inputs``."""
+        self.input_encode_calls += 1
+        assert parts.shape[0] == self.plan.k_a, (tuple(parts.shape), self.plan)
         coded = encode_tensor_list(
             parts, self.a_code.matrix if matrix is None else matrix)
         return group_by_worker(coded, self.a_code.ell)
@@ -151,7 +171,8 @@ class CodedConv2d:
         batched = xe_i.ndim == 5
         b = xe_i.shape[1] if batched else 1
         xin = xe_i.reshape((ea * b,) + tuple(xe_i.shape[-3:]))
-        y = F.conv2d(xin, k_cat, stride=self.geo.stride)  # (ea*B, eb*nb, H', W')
+        with _fp32_conv():
+            y = F.conv2d(xin, k_cat, stride=self.geo.stride)  # (ea*B, eb*nb, H', W')
         if not batched:
             return y.reshape((ea * eb, nb) + tuple(y.shape[2:]))
         y = y.reshape((ea, b, eb, nb) + tuple(y.shape[2:]))

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -34,6 +35,7 @@ __all__ = [
     "partition_relu_pool",
     "partition_apcp_slices",
     "partition_transition",
+    "np_reference_conv",
 ]
 
 
@@ -308,3 +310,20 @@ def partition_transition(blocks: torch.Tensor, geo: ConvGeometry, pool: int,
     parts = [spatial[a] for a in range(geo.k_a)]
     pooled, _ = partition_relu_pool(parts, geo, pool, relu=False)
     return partition_apcp_slices(pooled, geo_next)
+
+
+def np_reference_conv(x: np.ndarray, k: np.ndarray, stride: int, padding: int):
+    """Tiny O(N*C*H*W*KH*KW) NumPy oracle of eq. (1) for tests."""
+    c, h, w = x.shape
+    n, c2, kh, kw = k.shape
+    assert c == c2
+    xp = np.pad(x, ((0, 0), (padding, padding), (padding, padding)))
+    ho = (h + 2 * padding - kh) // stride + 1
+    wo = (w + 2 * padding - kw) // stride + 1
+    y = np.zeros((n, ho, wo), dtype=np.result_type(x, k))
+    for o in range(n):
+        for i in range(ho):
+            for j in range(wo):
+                patch = xp[:, i * stride:i * stride + kh, j * stride:j * stride + kw]
+                y[o, i, j] = np.sum(patch * k[o])
+    return y

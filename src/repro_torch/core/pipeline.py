@@ -17,6 +17,9 @@ Programs are eager callables held in dicts keyed like the reference's jit
 caches; each ``Program`` records the argument shapes it has seen, so the
 bounded-program contract (at most geometries x buckets shape signatures)
 is checked the same way the reference counts jit traces.
+``CodedPipeline.program_space`` enumerates every program cell the pipeline
+can launch, as ``ProgramCell``s whose arguments are ``ArgSpec``s, for the
+analysis gate (``repro_torch.analysis``).
 """
 from __future__ import annotations
 
@@ -35,9 +38,12 @@ from .nsctc import encode_tensor_list, group_by_worker
 from .partition import ConvGeometry, merge_output, partition_transition
 
 __all__ = [
+    "ArgSpec",
     "CodedLayerSpec",
     "CodedPipeline",
     "Program",
+    "ProgramCell",
+    "dtype_name",
     "plan_layers",
     "build_cnn_pipeline",
     "relu_pool",
@@ -61,6 +67,78 @@ class Program:
             (tuple(a.shape), str(a.dtype)) for a in args
             if isinstance(a, torch.Tensor)))
         return self.fn(*args)
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.float32`` -> ``"float32"``: the reference's dtype names."""
+    return str(dtype).removeprefix("torch.")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArgSpec:
+    """One argument of a program cell in shape space: what a checker
+    materialises on a device, from an explicit ``torch.Generator``, to run
+    the cell (the counterpart of the reference's ``ShapeDtypeStruct``).
+
+    ``role`` says what values the argument takes: ``data`` (any),
+    ``index`` (integers in ``[0, high)``), ``decode`` (the decode operand of
+    a survivor subset of round ``layer``), ``encode`` (the encode columns of
+    a survivor subset of layer ``layer``), ``encode_all`` (layer ``layer``'s
+    full-n encode columns).  ``host``: the argument stays on the host (the
+    LM decode inverse, which K3 takes by value)."""
+
+    shape: tuple
+    dtype: torch.dtype
+    role: str = "data"
+    layer: int = 0
+    high: int | None = None
+    host: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgramCell:
+    """One (program, argument-shape) cell of a pipeline's shape space.
+
+    ``program_space`` enumerates every cell the pipeline can ever launch —
+    per execution mode, layer, and batch bucket — as ``ArgSpec`` arguments
+    plus the program, so the analysis gate (``repro_torch.analysis``) can
+    run, record and capture each one.
+
+    ``kind``: ``encoder`` / ``worker`` / ``transition`` / ``decoder`` (and
+    ``glue`` on the LM decoder).  ``mode``: ``direct`` (single-process path)
+    or ``cluster`` (per-worker runtime path); ``master`` for glue.
+    ``cache_key``: the pipeline-side program-cache key; cells sharing
+    (kind, mode, cache_key) and an argument signature share one program
+    specialisation, which is what the bounded-trace proof counts.
+    ``allowed_const_shapes``: shapes a constant the program reads may
+    legitimately take (the cluster encoder reads the full-n A-code matrix:
+    subset-independent, so it cannot mint a specialisation).
+    ``donate_argnums``: always ``()``; torch has no buffer donation.
+    ``eager_only``: why the cell cannot be replayed from a CUDA-graph
+    capture (empty when it can).
+    """
+
+    cell_id: str
+    kind: str
+    mode: str
+    layer: int
+    bucket: int
+    cache_key: tuple
+    fn: object
+    args: tuple
+    allowed_const_shapes: tuple = ()
+    donate_argnums: tuple = ()
+    eager_only: str = ""
+
+    @property
+    def trace_signature(self) -> tuple:
+        """What a program specialises on: its identity + argument shapes."""
+        return (
+            self.kind,
+            self.mode,
+            self.cache_key,
+            tuple((tuple(a.shape), dtype_name(a.dtype)) for a in self.args),
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,7 +281,10 @@ class CodedPipeline:
         self._batch_programs: dict[tuple, Program] = {}  # looped over workers
         self._decoders: dict[int, Program] = {}  # one per layer, any subset
         self._transitions: dict[tuple, Program] = {}  # by transition key
-        self._all_encode_columns: dict[int, torch.Tensor] = {}  # full-n
+        # full-n A-code encode columns, resident like the filters: built
+        # here, so no program ever converts a host float64 matrix
+        self._all_encode_columns = [self._on_device(layer.a_code.matrix)
+                                    for layer in self.layers]
 
     @staticmethod
     def normalize_buckets(bucket_sizes: Sequence[int]) -> tuple[int, ...]:
@@ -262,6 +343,13 @@ class CodedPipeline:
         return sum(layer.filter_encode_calls for layer in self.layers)
 
     @property
+    def num_worker_programs(self) -> int:
+        """Distinct worker programs in use: the looped single-process cache
+        and the per-worker cluster cache hold distinct programs even for
+        the same program key, so both count."""
+        return len(self._batch_programs) + len(self._cluster_programs)
+
+    @property
     def worker_program_traces(self) -> int:
         """Shape signatures seen across the worker programs of both caches."""
         return sum(len(fn.signatures)
@@ -305,23 +393,40 @@ class CodedPipeline:
         return torch.as_tensor(m, dtype=self.input_dtype, device=self.device)
 
     def encoder(self, idx: int) -> Program:
-        """APCP+encode program for layer ``idx`` (``encode_inputs``)."""
+        """APCP+encode program for layer ``idx``, taking ``(x, matrix)``
+        (``encode_inputs``).  The one-argument form, the cluster's, encodes
+        all n workers' shares with the layer's resident full-n columns
+        (``encode_columns_all``): no host matrix is copied to the device
+        per call."""
         fn = self._encoders.get(idx)
         if fn is None:
-            fn = self._encoders[idx] = Program(self.layers[idx].encode_inputs)
+            layer = self.layers[idx]
+
+            def enc(x, matrix=None, _idx=idx):
+                if matrix is None:
+                    matrix = self.encode_columns_all(_idx)
+                return layer.encode_inputs(x, matrix)
+
+            fn = self._encoders[idx] = Program(enc)
         return fn
 
-    def worker_program(self, idx: int) -> Program:
-        """The coded worker program for layer ``idx`` over all selected
-        workers (``(m, ell_a, ...)`` shares, the single-process path).
-        Layers with the same ``program_key`` share one program; the
-        cluster's one-worker programs live in ``_cluster_programs``, filled
-        by its worker pool."""
+    def worker_program(self, idx: int, *, over_workers: bool = True) -> Program:
+        """The coded worker program for layer ``idx``.
+
+        ``over_workers=True``: over all selected workers (``(m, ell_a,
+        ...)`` shares, the single-process path); ``False``: the one-worker
+        program the cluster dispatches per worker (``_cluster_programs``,
+        which the thread pool fills with the same programs).  Layers with
+        the same ``program_key`` share one program."""
         key = self.specs[idx].program_key
+        compute = self.layers[idx].worker_compute
+        if not over_workers:
+            fn = self._cluster_programs.get(key)
+            if fn is None:
+                fn = self._cluster_programs[key] = Program(compute)
+            return fn
         fn = self._batch_programs.get(key)
         if fn is None:
-            compute = self.layers[idx].worker_compute
-
             def compute_all(xe, ke, _compute=compute):
                 return torch.stack([_compute(xe[j], ke[j])
                                     for j in range(xe.shape[0])])
@@ -337,13 +442,10 @@ class CodedPipeline:
 
     def encode_columns_all(self, idx: int) -> torch.Tensor:
         """The full-n A-code encode columns of layer ``idx`` as a resident
-        device tensor (one per layer; the cluster's fused rounds re-encode
-        for all n workers every round)."""
-        m = self._all_encode_columns.get(idx)
-        if m is None:
-            m = self._all_encode_columns[idx] = self._on_device(
-                self.layers[idx].a_code.matrix)
-        return m
+        device tensor (one per layer, built with the pipeline; the
+        cluster's encoder and fused rounds encode for all n workers every
+        round)."""
+        return self._all_encode_columns[idx]
 
     def decode_matrix(self, idx: int, worker_ids: tuple[int, ...]) -> np.ndarray:
         """The QxQ decode inverse of layer ``idx`` for the surviving subset,
@@ -374,6 +476,11 @@ class CodedPipeline:
         """The decode and transition programs' matrix argument: the
         subset's decode inverse as a device tensor."""
         return self._on_device(self.decode_matrix(idx, worker_ids))
+
+    def encode_operand(self, idx: int, worker_ids: tuple[int, ...]) -> torch.Tensor:
+        """The encoder's and transitions' column argument: the selected
+        workers' encode columns as a device tensor."""
+        return self._on_device(self.encode_columns(idx, worker_ids))
 
     def decoder(self, idx: int, worker_ids: tuple[int, ...]):
         """``decoder_fn`` with the subset's decode inverse bound."""
@@ -420,6 +527,99 @@ class CodedPipeline:
             fn = self._transitions[key] = Program(trans)
         return fn
 
+    # -- shape-space enumeration -------------------------------------------
+    def program_space(self, bucket_sizes: Sequence[int] | None = None, *,
+                      modes: Sequence[str] = ("direct", "cluster")):
+        """Enumerate every program cell this pipeline can launch, in shape
+        space — nothing runs.
+
+        Yields one ``ProgramCell`` per (mode, layer, bucket, program kind),
+        walking the encode -> worker -> transition/decode chain as
+        execution would (the reference's ``program_space``, cell for cell),
+        with the shapes from the layer geometry.  ``direct`` is the
+        single-process path (worker looped over the fastest-delta axis,
+        subset-width re-encodes); ``cluster`` the runtime path (per-worker
+        programs, full-n re-encodes, full-matrix encoder).  Survivor
+        subsets never appear in the signatures, only their size delta: the
+        shape-space half of the no-respecialisation contract, whose other
+        half (matrices as arguments, not constants) ``repro_torch.analysis``
+        checks by running each cell."""
+        buckets = (self.normalize_buckets(bucket_sizes) if bucket_sizes
+                   else (self.bucket_sizes or (1,)))
+        last = len(self.specs) - 1
+        dtype = self.input_dtype
+        for mode in modes:
+            if mode not in ("direct", "cluster"):
+                raise ValueError(f"unknown mode {mode!r}")
+            for bucket in buckets:
+                x = ArgSpec((bucket,) + self.input_shape, dtype)
+                for idx, (spec, layer) in enumerate(zip(self.specs, self.layers)):
+                    def cid(kind):
+                        return f"{spec.name}[b={bucket}]/{kind}:{mode}"
+
+                    geo, plan = spec.geo, spec.plan
+                    ids = self.layer_worker_ids(idx)
+                    delta = len(ids)
+                    m_sel = ArgSpec(self.encode_columns(idx, ids).shape, dtype,
+                                    "encode", idx)
+                    ke_shape = tuple(self.coded_filters[idx].shape[1:])
+                    # the encoder runs on every layer when unfused, and only
+                    # on layer 0 when transitions re-encode in coded space
+                    if not self.fuse_transitions or idx == 0:
+                        if mode == "direct":
+                            yield ProgramCell(
+                                cid("encoder"), "encoder", mode, idx, bucket,
+                                (idx,), self.encoder(idx), (x, m_sel))
+                        else:
+                            # the cluster encodes all n workers' shares with
+                            # the resident full matrix (subset-independent)
+                            yield ProgramCell(
+                                cid("encoder"), "encoder", mode, idx, bucket,
+                                (idx,), self.encoder(idx), (x,),
+                                allowed_const_shapes=(
+                                    tuple(layer.a_code.matrix.shape),))
+                    share = (plan.ell_a, bucket, geo.in_channels, geo.h_hat,
+                             geo.padded_w)
+                    if mode == "direct":
+                        yield ProgramCell(
+                            cid("worker"), "worker", mode, idx, bucket,
+                            spec.program_key, self.worker_program(idx),
+                            (ArgSpec((delta,) + share, dtype),
+                             ArgSpec((delta,) + ke_shape, dtype)))
+                    else:
+                        yield ProgramCell(
+                            cid("worker"), "worker", mode, idx, bucket,
+                            spec.program_key,
+                            self.worker_program(idx, over_workers=False),
+                            (ArgSpec(share, dtype), ArgSpec(ke_shape, dtype)))
+                    outs = ArgSpec(
+                        (delta, plan.ell_a * plan.ell_b, bucket,
+                         geo.out_c_block, geo.out_h_block, geo.out_w), dtype)
+                    q = plan.k_a * plan.k_b
+                    d = ArgSpec((q, q), dtype, "decode", idx)
+                    if self.fuse_transitions and idx < last:
+                        if mode == "direct":
+                            m_next = ArgSpec(
+                                self.encode_columns(
+                                    idx + 1,
+                                    self.layer_worker_ids(idx + 1)).shape,
+                                dtype, "encode", idx + 1)
+                        else:
+                            m_next = ArgSpec(
+                                tuple(self.encode_columns_all(idx + 1).shape),
+                                dtype, "encode_all", idx + 1)
+                        yield ProgramCell(
+                            cid("transition"), "transition", mode, idx,
+                            bucket,
+                            self._transition_key(spec, self.specs[idx + 1]),
+                            self.transition_fn(idx), (outs, d, m_next))
+                    if not self.fuse_transitions or idx == last:
+                        yield ProgramCell(
+                            cid("decoder"), "decoder", mode, idx, bucket,
+                            (idx,), self.decoder_fn(idx), (outs, d))
+                    x = ArgSpec((bucket, geo.out_channels, spec.out_hw,
+                                 spec.out_hw), dtype)
+
     # -- execution ---------------------------------------------------------
     def layer_worker_ids(self, idx: int, worker_ids=None) -> tuple[int, ...]:
         """The survivors layer ``idx`` decodes from: the first delta of the
@@ -451,8 +651,7 @@ class CodedPipeline:
         for idx in range(len(self.layers)):
             ids = self.layer_worker_ids(idx, worker_ids)
             self.input_encode_calls += 1
-            m_sel = self._on_device(self.encode_columns(idx, ids))
-            xe = self.encoder(idx)(x, m_sel)
+            xe = self.encoder(idx)(x, self.encode_operand(idx, ids))
             sel = torch.as_tensor(ids, device=self.device)
             outs = self.worker_program(idx)(xe, self.coded_filters[idx][sel])
             x = self.decoder(idx, ids)(outs)
@@ -476,7 +675,7 @@ class CodedPipeline:
             avail = worker_ids[idx] if per_layer else worker_ids
             ids = self.layer_worker_ids(idx, avail)
             prepped.append((
-                self._on_device(self.encode_columns(idx, ids)),
+                self.encode_operand(idx, ids),
                 torch.as_tensor(ids, device=self.device),
                 self.decode_operand(idx, ids),
             ))

@@ -31,9 +31,12 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 def rope_inv_freq(head_dim: int, base: float = 10000.0,
                   device: str | torch.device = "cpu") -> torch.Tensor:
+    """``base ** (-j / half)``, computed on ``device`` with ``base`` a
+    scalar operand: no host tensor is copied there, so the decode glue can
+    compute it per call inside a CUDA-graph capture."""
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(base, dtype=torch.float32, device=device), exps)
+    return 1.0 / torch.pow(float(base), exps)
 
 
 def apply_rope(x: torch.Tensor, inv_freq: torch.Tensor,

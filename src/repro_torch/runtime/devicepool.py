@@ -366,13 +366,17 @@ class DeviceWorkerPool:
 
     # -- lifecycle ---------------------------------------------------------
     def shutdown(self) -> None:
-        """Cancel undelivered delayed dispatches, release the timer thread,
-        and drop programs and filter shards (all re-materialise lazily on
-        reuse)."""
+        """Cancel undelivered delayed dispatches, release the timer thread
+        and wait for it to exit (a dispatch it is running finishes first,
+        so none runs after this returns), and drop programs and filter
+        shards (all re-materialise lazily on reuse).  Called from the timer
+        thread itself, it cannot wait for itself and returns at once."""
         with self._timer_cv:
             self._due.clear()
-            self._timer_thread = None
+            timer, self._timer_thread = self._timer_thread, None
             self._timer_cv.notify_all()
+        if timer is not None and timer is not threading.current_thread():
+            timer.join()
         with self._state_lock:
             self._programs.clear()
             self._filters.clear()

@@ -608,3 +608,131 @@ def test_cuda_coded_linear_matches_plain(cuda):
         _close(got, cpu.run_simulated(torch.as_tensor(x), torch.as_tensor(w), list(ids)))
         _close(got, want, rel=1e-4)
     assert gpu.weight_encode_calls == 1
+
+
+# -- the torch backend under PyTorch's default TF32 flags --------------------
+@pytest.mark.parametrize("fused", [True, False])
+def test_cuda_torch_backend_pipeline_fp32_under_default_tf32(cuda, fused,
+                                                             monkeypatch):
+    """``backend="torch"`` convolves through cuDNN, whose TF32 flag PyTorch
+    turns on by default: the coded layer's guard keeps its convolutions in
+    IEEE fp32, so VGG-16 (56x56, n=8, (2, 4)) stays within 1e-4 of
+    max|uncoded|.  Prints the error, and the error without the guard."""
+    import contextlib
+
+    from repro_torch.core import fcdcc
+    from repro_torch.core.pipeline import build_cnn_pipeline
+    from repro_torch.models.cnn import init_cnn, run_convls
+
+    params = init_cnn("vgg16", torch.Generator().manual_seed(4), cuda)
+    x = torch.as_tensor(RNG.standard_normal((2, 3, 56, 56)).astype(np.float32),
+                        device=cuda)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = run_convls("vgg16", params, x).cpu()
+    scale = float(want.abs().max())
+
+    def err():
+        pipe = build_cnn_pipeline("vgg16", params, 8, default_kab=(2, 4),
+                                  input_hw=56, backend="torch",
+                                  fuse_transitions=fused, device=cuda)
+        return float((pipe.run(x, [6, 1, 3]).cpu() - want).abs().max()) / scale
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        assert torch.backends.cudnn.allow_tf32
+        guarded = err()
+        monkeypatch.setattr(fcdcc, "_fp32_conv", contextlib.nullcontext)
+        unguarded = err()
+    print(f"torch backend, fused={fused}, cuDNN TF32 on: rel err vs uncoded "
+          f"{guarded:.3e} with the guard, {unguarded:.3e} without")
+    assert guarded <= 1e-4
+
+
+# -- the analysis gate's card half: capture and replay -----------------------
+def _vgg_pipe(cuda):
+    from repro_torch.analysis import contracts
+
+    return contracts.build_pipeline(contracts.ContractConfig(
+        "vgg16", "kernel", True, n=8, kab=(2, 4), buckets=(1, 2)), cuda)
+
+
+def _capture(pipe, cell, cuda, seed=0):
+    from repro_torch.analysis import contracts, dispatch_tools
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    a1 = dispatch_tools.materialize(pipe, cell, cuda, gen)
+    a2 = dispatch_tools.materialize(pipe, cell, cuda, gen, variant=1)
+    return a1, a2, contracts.capture_replay(cell, a1, a2, cuda)
+
+
+def test_cuda_capture_replays_k1_worker_and_k2_transition_cells(cuda):
+    """A K1 worker cell and a K2 transition cell, captured after a warm-up,
+    replayed on a second argument set (the transition's on another survivor
+    subset's decode inverse) bit-equal to eager; the replay launches
+    through the graph, not the wrappers."""
+    pipe = _vgg_pipe(cuda)
+    cells = list(pipe.program_space())
+    worker = next(c for c in cells if c.kind == "worker" and c.mode == "cluster"
+                  and c.layer == 3 and c.bucket == 2)
+    trans = next(c for c in cells if c.kind == "transition"
+                 and c.mode == "direct" and c.layer == 1 and c.bucket == 2)
+    for cell, counter, per_call in ((worker, k1.launches, 1),
+                                    (trans, k2.launches, 2)):
+        before = counter.count
+        a1, a2, err = _capture(pipe, cell, cuda)
+        assert err is None, (cell.cell_id, err)
+        # warm-up, capture and eager: the replay adds no wrapper launch
+        assert counter.count - before == 3 * per_call
+    assert not torch.equal(a1[1], a2[1])  # another subset's decode inverse
+
+
+def test_cuda_capture_replays_a_k3_encoder_cell(cuda):
+    """K3 encoding with a fixed (subset-independent) code, as the weight
+    encode runs it, captures and replays bit-equal to eager: the code is a
+    launch parameter that never changes."""
+    from repro_torch.core.fcdcc import FcdccPlan
+    from repro_torch.core.pipeline import ArgSpec, ProgramCell
+    from repro_torch.kernels.coded_gemm import crme_encode
+
+    matrix = FcdccPlan(n=4, k_a=1, k_b=4).codes[1].matrix
+    cell = ProgramCell("k3.encode", "encoder", "master", 0, 1, ("k3",),
+                       lambda parts: crme_encode(parts, matrix),
+                       (ArgSpec((4, 576, 144), torch.float32),))
+    before = k3.launches.count
+    _, _, err = _capture(None, cell, cuda)
+    assert err is None, err
+    assert k3.launches.count - before == 3
+
+
+def test_cuda_k3_decode_capture_bakes_the_inverse(cuda):
+    """Why the LM decoder cells are eager-only: K3 takes the survivor
+    inverse by value, so a captured decode replays the captured subset's
+    inverse whatever the static host tensor holds afterwards."""
+    from repro_torch.analysis import contracts
+
+    pipe = contracts.build_decoder_pipeline(
+        contracts.DecoderContractConfig("coded", "kernel"), cuda)
+    cell = next(c for c in pipe.program_space() if c.kind == "decoder")
+    assert cell.eager_only and cell.args[1].host
+    a1, a2, err = _capture(pipe, cell, cuda)
+    assert not torch.equal(a1[1], a2[1])
+    assert err is not None and "differs" in err
+
+
+def test_cuda_contracts_clean_and_captured(cuda):
+    """The gate's card half on one CNN and the LM decoder at smoke size:
+    no finding; every CNN cell captured; the LM decoder cells eager-only."""
+    from repro_torch.analysis import contracts
+
+    cfg = contracts.ContractConfig("lenet5", "kernel", True)
+    rep = contracts.analyze_config(cfg, cuda)
+    assert not rep.findings, rep.render_text()
+    assert rep.stats[f"{cfg.label}/captured"] == \
+        rep.stats[f"{cfg.label}/programs_checked"]
+    dcfg = contracts.DecoderContractConfig("coded", "kernel")
+    rep = contracts.analyze_decoder_config(dcfg, cuda)
+    assert not rep.findings, rep.render_text()
+    eager = rep.stats[f"{dcfg.label}/eager_only_cells"]
+    assert eager and all("decoder" in cid for cid in eager)
+    assert all("K3" in why for why in rep.stats[f"{dcfg.label}/eager_only_reasons"])
+    assert rep.stats[f"{dcfg.label}/captured"] + len(eager) == \
+        rep.stats[f"{dcfg.label}/programs_checked"]

@@ -425,6 +425,80 @@ def test_deferred_dispatch_failure_surfaces_from_collect():
         impl.shutdown()
 
 
+
+def test_shutdown_joins_the_timer_thread_and_no_dispatch_follows():
+    """``shutdown`` called from another thread while a delayed dispatch
+    runs on the timer thread returns only after that dispatch finished and
+    the timer thread exited; a delayed dispatch still queued never runs.
+    Every wait has its own timeout, so a hang fails within seconds."""
+    n = 3
+    delays = np.array([0.0, 0.01, 0.3])
+    impl = DeviceWorkerPool(n, StragglerModel(delays), device="cpu")
+    xe, ke = torch.ones(n, 1, 3), torch.ones(n, 3, 2)
+    running, release, returned = (threading.Event(), threading.Event(),
+                                  threading.Event())
+    calls = []  # (worker, whether shutdown had returned when it started)
+
+    def program(i):
+        def run(x, k):
+            calls.append((i, returned.is_set()))
+            if i == 1:
+                running.set()
+                assert release.wait(20.0)
+            return x[0] @ k
+        return run
+
+    try:
+        impl.submit(program, xe, ke)
+        assert running.wait(20.0), "the delayed dispatch never started"
+        timer = impl._timer_thread
+        assert timer is not None and timer.is_alive()
+
+        def stop():
+            impl.shutdown()
+            returned.set()
+
+        stopper = threading.Thread(target=stop, daemon=True)
+        stopper.start()
+        # shutdown waits for the dispatch the timer thread is running
+        assert not returned.wait(0.2)
+        release.set()
+        assert returned.wait(20.0), "shutdown never returned"
+        stopper.join(20.0)
+        assert not timer.is_alive()
+        time.sleep(0.4)  # past worker 2's due time
+        assert calls == [(0, False), (1, False)]
+    finally:
+        release.set()
+        impl.shutdown()
+
+
+def test_shutdown_from_a_delayed_dispatch_does_not_wait_for_itself():
+    """A dispatch on the timer thread that shuts its own pool down returns
+    (the timer thread cannot join itself), and the thread then exits."""
+    delays = np.array([0.0, 0.01])
+    impl = DeviceWorkerPool(2, StragglerModel(delays), device="cpu")
+    xe, ke = torch.ones(2, 1, 3), torch.ones(2, 3, 2)
+    done = threading.Event()
+    timer = []
+
+    def program(i):
+        def run(x, k):
+            if i == 1:
+                timer.append(threading.current_thread())
+                impl.shutdown()
+                done.set()
+            return x[0] @ k
+        return run
+
+    impl.submit(program, xe, ke)
+    assert done.wait(20.0), "shutdown on the timer thread hung"
+    deadline = time.perf_counter() + 20.0
+    while timer[0].is_alive():
+        assert time.perf_counter() < deadline, "the timer thread never exited"
+        time.sleep(0.005)
+
+
 # -- the LM on the device pool --------------------------------------------
 LM_MAX_LEN, LM_PROMPTS, LM_GENS = 32, [[5, 9, 2], [7, 1], [3, 3, 4, 8, 2]], [5, 3, 4]
 

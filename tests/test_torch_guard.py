@@ -51,6 +51,8 @@ def test_package_imports_without_jax():
         "import repro_torch.configs.smollm_135m\n"
         "import repro_torch.core.decoder_pipeline, repro_torch.serving.lm_engine\n"
         "import repro_torch.serving.frontend, repro_torch.core.coded_linear\n"
+        "import repro_torch.core.baselines, repro_torch.analysis.contracts\n"
+        "import repro_torch.analysis.concurrency, repro_torch.analysis.__main__\n"
         "assert 'jax' not in {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
         "print('ok')\n"
     )
