@@ -56,7 +56,21 @@ Phases, in order; any failure raises:
     ``CodedLinear`` at SmolLM's up-projection widths for every survivor
     subset against ``torch.matmul``.  Each phase reads the launch counts
     around itself only;
- 9. the analysis gate's card half (``repro_torch.analysis.contracts``)
+ 9. compiled programs: every served phase above runs the master's
+    programs as CUDA graphs (``repro_torch.core.graphs``; captured in the
+    servers' warmups, replayed while serving: the encoder, transitions,
+    decoder and LM glue, on both pools); the workers' rounds run eagerly,
+    the pipelines' default.  Each phase prints its captures against their
+    bounds (``master_graph_bound`` / ``glue_graph_bound``), its replays by
+    program kind (each > 0), capture seconds and the graph pools' bytes.
+    Then eager against replayed: the forced-survivor VGG-16 batch on each
+    pool with ``graphs=False`` and with graphs, and on the device pool with
+    worker graphs too (``set_graphs(True, workers=True)``: each worker's
+    round replayed, graphs a worker within ``worker_graph_bound``), all
+    five ``torch.equal``; the LM requests on the device pool with
+    ``graphs=False`` and with worker graphs, every token equal to the
+    default run's and the logits held as in phase 7;
+10. the analysis gate's card half (``repro_torch.analysis.contracts``)
     over every program cell of the two served configurations at full
     width (VGG-16 224, n=8, (2, 4), fused, buckets 1-8; SmolLM-135M on
     exp13's plan, buckets 1-4): each cell run once under the dispatch
@@ -68,11 +82,13 @@ Phases, in order; any failure raises:
     that set; the eager-only cells (the LM decoder: K3 takes the survivor
     inverse by value) listed with their reason; any contract error fails
     the script;
-10. one JSON line with the kernels' numbers (K1-K4; K2's top-level numbers
+11. one JSON line with the compiled programs' counts by phase, one JSON
+    line with the kernels' numbers (K1-K4; K2's top-level numbers
     are its CNN pass, its LM numbers sit under ``paths.lm``; each kernel's
     ``launches`` is its count on the phase-4 or phase-6 main path, and
-    ``launches_by_path`` its count in every phase that ran it), then the
-    result line.
+    ``launches_by_path`` its count in every phase that ran it; a replayed
+    graph launches no wrapper, so its launches count as the kernels the
+    graph holds, once per replay), then the result line.
 
 TF32 is off for every product here (the CRME decode multiplies rounding
 error by the recovery matrix's condition number).
@@ -89,6 +105,7 @@ fit.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -442,16 +459,73 @@ def check_launched_shapes(pipe, bucket: int) -> None:
             raise AssertionError(f"decode GEMM {q}x{f} never served")
 
 
+def graph_report(pipe, cluster, master_bound: int, kinds) -> dict:
+    """The compiled programs of one served phase, read before its server
+    shuts down (the device pool drops its workers' graphs then): the
+    master's and the workers' graphs against their bounds, replays by
+    program kind, capture seconds and pool bytes.  Raises when a bound is
+    broken or a kind of program in ``kinds`` (with ``worker`` where the
+    pipeline replays its worker rounds on the device pool) was never
+    replayed."""
+    from repro_torch.core.graphs import merge_stats
+
+    impl = cluster._pool_impl()
+    workers = impl.graph_sets() if impl.kind == "device" else []
+    per_worker = impl.graph_counts() if impl.kind == "device" else []
+    master = merge_stats([pipe.master_graphs])
+    wstats = merge_stats(workers)
+    rep = {"pool": impl.kind, "master_graphs": master["graphs"],
+           "master_bound": master_bound, "worker_graphs": per_worker,
+           "worker_bound": pipe.worker_graph_bound,
+           "master_replays": master["replays"],
+           "worker_replays": wstats["replays"],
+           "capture_s": master["capture_s"] + wstats["capture_s"],
+           "static_bytes": master["static_bytes"] + wstats["static_bytes"],
+           "pool_bytes": (None if None in (master["pool_bytes"], wstats["pool_bytes"])
+                          else master["pool_bytes"] + wstats["pool_bytes"])}
+    if not 0 < master["graphs"] <= master_bound:
+        raise AssertionError(f"master graphs {master['graphs']} outside "
+                             f"(0, {master_bound}]")
+    if per_worker and not max(per_worker) <= pipe.worker_graph_bound:
+        raise AssertionError(f"worker graphs {per_worker} over the bound "
+                             f"{pipe.worker_graph_bound}")
+    replays = {**master["replays"], **wstats["replays"]}
+    if impl.kind == "device" and pipe.worker_graphs:
+        kinds = tuple(kinds) + ("worker",)
+    for kind in kinds:
+        if replays.get(kind, 0) <= 0:
+            raise AssertionError(f"no {kind} program was replayed: {replays}")
+    return rep
+
+
+def _graph_line(rep: dict) -> str:
+    pool_mb = ("not named by the allocator" if rep["pool_bytes"] is None
+               else f"{rep['pool_bytes'] / 2**20:.1f} MiB")
+    return (f"  graphs ({rep['pool']} pool): master {rep['master_graphs']} <= "
+            f"{rep['master_bound']}, per worker {rep['worker_graphs']} <= "
+            f"{rep['worker_bound']}; replays master {rep['master_replays']}, "
+            f"workers {rep['worker_replays']}; capture {rep['capture_s']:.2f} s; "
+            f"graph pools {pool_mb}, static inputs "
+            f"{rep['static_bytes'] / 2**20:.1f} MiB")
+
+
+CNN_KINDS = ("encoder", "transition", "decoder")
+
+
 def serving_phase(server, xs: np.ndarray, counters) -> tuple[list, object, dict]:
-    """Warm up, zero the launch counts, serve ``xs`` as single-image
-    requests, read the counts.  Returns (results, stats, launches)."""
+    """Warm up (capturing the rounds' graphs), zero the launch counts,
+    serve ``xs`` as single-image requests, read the counts and the
+    compiled programs' report.  Returns (results, stats, launches,
+    graphs)."""
     server.warmup()
     for c in counters:
         c.reset()
     with server:
         handles = server.submit_many(xs)
         outs = [h.result(timeout=600.0) for h in handles]
-    return outs, server.stats(), {c.name: c.count for c in counters}
+        graphs = graph_report(server.pipeline, server.cluster,
+                              server.pipeline.master_graph_bound, CNN_KINDS)
+    return outs, server.stats(), {c.name: c.count for c in counters}, graphs
 
 
 def straggler_delays(n: int) -> np.ndarray:
@@ -693,31 +767,49 @@ def lm_requests(vocab: int) -> list[tuple[list[int], int]]:
     return out
 
 
+LM_KINDS = ("glue.embed", "glue.norm", "glue.add", "glue.act", "glue.finish",
+            "glue.attn")
+
+
 def lm_serving_phase(pipe, requests, counters, mode: str = "threads",
-                     pool: str = "threads"):
+                     pool: str = "threads", graphs=True, workers=False):
     """Serve ``requests`` on ``CodedLMServer`` under ``LM_DELAYS`` on the
-    ``pool`` worker pool; the launch counts are zeroed just before and read
-    just after.  All requests arrive together: they are
-    submitted while the scheduler's condition is held, so the engine admits
-    a full first group.  The logits row behind every served token is kept
-    (a device copy).  Returns (token streams, served logits rows per
-    request, latencies, server, wall seconds, launches)."""
+    ``pool`` worker pool, its decode steps' glue replayed from CUDA graphs
+    unless ``graphs`` is False, and its worker rounds too where
+    ``workers`` (captured by ``warmup`` first; the pipeline's switch is
+    back at its default after); the launch counts are zeroed just before
+    and read just after.  All requests
+    arrive together: they are submitted while the scheduler's condition is
+    held, so the engine admits a full first group.  The logits row behind
+    every served token is kept (a device copy).  Returns (token streams,
+    served logits rows per request, latencies, server, wall seconds,
+    launches, compiled programs' report or None)."""
     from repro_torch.runtime import StragglerModel
     from repro_torch.serving import CodedLMServer
 
     rows: dict[int, list] = {}
-    server = CodedLMServer(
-        pipe, StragglerModel(np.array(LM_DELAYS)), mode=mode,
-        max_prompt=LM_MAX_PROMPT, poll_interval_s=0.001, pool=pool,
-        on_logits=lambda rid, row: rows.setdefault(rid, []).append(row.clone()))
-    for c in counters:
-        c.reset()
-    t0 = time.perf_counter()
-    with server:
-        with server.scheduler.not_empty:
-            handles = [server.submit(p, g) for p, g in requests]
-        outs = [h.result(timeout=900.0) for h in handles]
-    wall = time.perf_counter() - t0
+    pipe.set_graphs(graphs, workers=workers)
+    try:
+        server = CodedLMServer(
+            pipe, StragglerModel(np.array(LM_DELAYS)), mode=mode,
+            max_prompt=LM_MAX_PROMPT, poll_interval_s=0.001, pool=pool,
+            on_logits=lambda rid, row: rows.setdefault(rid, []).append(
+                row.clone()))
+        server.warmup()
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        report = None
+        with server:
+            with server.scheduler.not_empty:
+                handles = [server.submit(p, g) for p, g in requests]
+            outs = [h.result(timeout=900.0) for h in handles]
+            wall = time.perf_counter() - t0
+            if graphs:
+                report = graph_report(pipe, server.cluster,
+                                      pipe.glue_graph_bound, LM_KINDS)
+    finally:
+        pipe.set_graphs(True, workers=False)
     launches = {c.name: c.count for c in counters}
     if pipe.device.type == "cuda":  # the copies ran on the engine's stream
         torch.cuda.synchronize(pipe.device)
@@ -725,7 +817,8 @@ def lm_serving_phase(pipe, requests, counters, mode: str = "threads",
         if len(toks) != g:
             raise AssertionError(f"request of {g} tokens served {len(toks)}")
     served = [rows.get(h.request_id, []) for h in handles]
-    return outs, served, [h.latency_s for h in handles], server, wall, launches
+    return (outs, served, [h.latency_s for h in handles], server, wall,
+            launches, report)
 
 
 def lm_reference_rows(pipe, params, requests, outs, device) -> list:
@@ -809,33 +902,68 @@ def forced_survivor_delays(pipe) -> np.ndarray:
     return delays
 
 
-def pools_bit_identical(pipe, device) -> dict:
+def pools_bit_identical(pipe, device, variants=((True, False, "threads"),
+                                                (True, False, "device"))) -> dict:
     """One forced-survivor batch of ``BUCKET`` images through
-    ``FcdccCluster.run_pipeline`` on each pool; raises unless the outputs
-    are equal bit for bit and both kept workers 0..delta-1."""
+    ``FcdccCluster.run_pipeline`` for each (graphs, workers, pool) of
+    ``variants`` (with graphs, the master's programs replay CUDA graphs,
+    and with workers the device pool's worker rounds too; without, they
+    run op by op); raises unless the outputs are equal bit for bit and
+    every run kept workers 0..delta-1, and, for a run with worker graphs,
+    unless every kept worker replayed within ``worker_graph_bound``
+    graphs.  The pipeline's switch is back at its default after."""
+    from repro_torch.core.graphs import merge_stats
     from repro_torch.runtime import FcdccCluster, StragglerModel
 
     x = torch.as_tensor(np.random.default_rng(SEED + 2).standard_normal(
         (BUCKET,) + pipe.input_shape).astype(np.float32), device=device)
     delays = forced_survivor_delays(pipe)
     keep = [i for i in range(pipe.n) if delays[i] == 0]
-    outs = {}
-    for pool in ("threads", "device"):
-        with FcdccCluster(pipe.specs[0].plan, StragglerModel(delays),
-                          mode="threads", backend="kernel", pool=pool,
-                          device=device) as cluster:
-            cluster.load_pipeline(pipe, ARCH)
-            y, timings = cluster.run_pipeline(x, model=ARCH)
-            _sync(device)
-        if any(t.used_workers != keep for t in timings):
-            raise AssertionError(f"{pool} pool decoded from "
-                                 f"{[t.used_workers for t in timings]}, not {keep}")
-        outs[pool] = y
-    if not torch.equal(outs["threads"], outs["device"]):
-        diff = float((outs["threads"] - outs["device"]).abs().max())
-        raise AssertionError(f"pools differ on a forced survivor subset: "
-                             f"max |threads - device| {diff}")
-    return {"batch": BUCKET, "survivors": keep, "bit_identical": True}
+    outs, worker_report = {}, None
+    try:
+        for graphs, workers, pool in variants:
+            pipe.set_graphs(graphs, workers=workers)
+            with FcdccCluster(pipe.specs[0].plan, StragglerModel(delays),
+                              mode="threads", backend="kernel", pool=pool,
+                              device=device) as cluster:
+                cluster.load_pipeline(pipe, ARCH)
+                y, timings = cluster.run_pipeline(x, model=ARCH)
+                _sync(device)
+                if workers:
+                    impl = cluster._pool_impl()
+                    counts = impl.graph_counts()
+                    st = merge_stats(impl.graph_sets())
+                    if not (all(counts[i] > 0 for i in keep)
+                            and max(counts) <= pipe.worker_graph_bound
+                            and st["replays"].get("worker", 0) > 0):
+                        raise AssertionError(
+                            f"worker graphs {counts} (bound "
+                            f"{pipe.worker_graph_bound}), replays "
+                            f"{st['replays']}")
+                    worker_report = {
+                        "pool": pool, "worker_graphs": counts,
+                        "worker_bound": pipe.worker_graph_bound,
+                        "worker_replays": st["replays"],
+                        "capture_s": st["capture_s"],
+                        "static_bytes": st["static_bytes"],
+                        "pool_bytes": st["pool_bytes"]}
+            if any(t.used_workers != keep for t in timings):
+                raise AssertionError(
+                    f"{pool} pool decoded from "
+                    f"{[t.used_workers for t in timings]}, not {keep}")
+            outs[(graphs, workers, pool)] = y
+    finally:
+        pipe.set_graphs(True, workers=False)
+    (k0, y0), *rest = outs.items()
+    for k, y in rest:
+        if not torch.equal(y0, y):
+            diff = float((y0 - y).abs().max())
+            raise AssertionError(f"{k} differs from {k0} on a forced survivor "
+                                 f"subset: max abs diff {diff}")
+    return {"batch": BUCKET, "survivors": keep, "bit_identical": True,
+            "runs": [f"{pool}/{('worker graphs' if w else 'graphs') if g else 'eager'}"
+                     for g, w, pool in outs],
+            "workers": worker_report}
 
 
 def http_phase(server, params, device, counters) -> dict:
@@ -1104,7 +1232,8 @@ def main() -> int:
     xs = np.random.default_rng(SEED).standard_normal(
         (N_REQUESTS,) + pipe.input_shape).astype(np.float32)
     t0 = time.perf_counter()
-    outs, stats, launches = serving_phase(server, xs, (k1_launches, k2_launches))
+    outs, stats, launches, graphs_t = serving_phase(server, xs,
+                                                    (k1_launches, k2_launches))
     print(f"serving phase: {time.perf_counter() - t0:.1f} s (warmup included)")
     check_launched_shapes(pipe, BUCKET)
     for name, count in launches.items():
@@ -1124,14 +1253,18 @@ def main() -> int:
           f"worker {ov.worker_s:.4f}, collect {ov.collect_s:.4f}, transition "
           f"{ov.transition_s:.4f}; busy wall {ov.busy_wall_s:.4f}, overlap "
           f"efficiency {ov.overlap_efficiency:.3f}, max depth {ov.max_depth}")
+    print(_graph_line(graphs_t))
     del server, pipe, outs
+    gc.collect()
     torch.cuda.empty_cache()
     by_path = {"cnn_threads": launches}
+    graph_phases = {"cnn_threads": graphs_t}
 
     # -- the same CNN server on the device pool ------------------------------
     server_d, _ = build_server(device, HW, pool="device")
     t0 = time.perf_counter()
-    outs_d, stats_d, launches_d = serving_phase(server_d, xs, (k1_launches, k2_launches))
+    outs_d, stats_d, launches_d, graphs_d = serving_phase(
+        server_d, xs, (k1_launches, k2_launches))
     print(f"device-pool serving phase: {time.perf_counter() - t0:.1f} s "
           f"(warmup included)")
     for name, count in launches_d.items():
@@ -1146,11 +1279,23 @@ def main() -> int:
           f"both pools:")
     print(_pool_line("threads", stats, ov))
     print(_pool_line("device", stats_d, ov_d))
+    print(_graph_line(graphs_d))
+    graph_phases["cnn_device"] = graphs_d
     t0 = time.perf_counter()
-    same = pools_bit_identical(server_d.pipeline, device)
+    same = pools_bit_identical(
+        server_d.pipeline, device,
+        variants=[(g, False, pool) for pool in ("threads", "device")
+                  for g in (False, True)] + [(True, True, "device")])
     print(f"forced survivors {same['survivors']}, batch {same['batch']}: "
-          f"threads and device pools bit-identical "
-          f"({time.perf_counter() - t0:.1f} s)")
+          f"{', '.join(same['runs'])} bit-identical: eager and replayed "
+          f"graphs on both pools ({time.perf_counter() - t0:.1f} s)")
+    wr = same["workers"]
+    print(f"  worker graphs ({wr['pool']} pool, forced batch): per worker "
+          f"{wr['worker_graphs']} <= {wr['worker_bound']}; replays "
+          f"{wr['worker_replays']}; capture {wr['capture_s']:.2f} s; graph "
+          f"pools {wr['pool_bytes']} bytes, static inputs "
+          f"{wr['static_bytes']} bytes")
+    graph_phases["cnn_device_workers"] = wr
     http = http_phase(server_d, params, device, (k1_launches, k2_launches))
     for name, count in http["launches"].items():
         if count <= 0:
@@ -1162,6 +1307,7 @@ def main() -> int:
           f"max rel err vs uncoded {http['max_rel_err']:.2e}; launches "
           f"{http['launches']}")
     del server_d, outs_d
+    gc.collect()
     torch.cuda.empty_cache()
     el = elastic_phase(params, device, (k1_launches,))
     if el["launches"]["coded_worker"] <= 0:
@@ -1200,8 +1346,8 @@ def main() -> int:
 
     requests = lm_requests(cfg.vocab)
     counters = (k2_launches, k3_launches, k4_launches)
-    lm_outs, lm_rows, lat, lm_server, wall, lm_launches = lm_serving_phase(
-        lm_pipe, requests, counters)
+    lm_outs, lm_rows, lat, lm_server, wall, lm_launches, lm_graphs = \
+        lm_serving_phase(lm_pipe, requests, counters)
     for name, count in lm_launches.items():
         if count <= 0:
             raise AssertionError(f"kernel {name} never launched while serving the LM")
@@ -1229,10 +1375,12 @@ def main() -> int:
           f"{check['tokens']} served tokens equal its argmax outright "
           f"({time.perf_counter() - t0:.1f} s)")
     by_path["lm_threads"] = lm_launches
+    print(_graph_line(lm_graphs))
+    graph_phases["lm_threads"] = lm_graphs
 
     # -- the LM on the device pool ------------------------------------------
-    d_outs, d_rows, _, d_server, d_wall, d_launches = lm_serving_phase(
-        lm_pipe, requests, counters, pool="device")
+    d_outs, d_rows, _, d_server, d_wall, d_launches, d_graphs = \
+        lm_serving_phase(lm_pipe, requests, counters, pool="device")
     for name, count in d_launches.items():
         if count <= 0:
             raise AssertionError(f"kernel {name} never launched serving the "
@@ -1246,10 +1394,46 @@ def main() -> int:
     print(f"LM on the device pool: {toks} tokens, each equal to the thread "
           f"pool's; logits max rel err {d_check['max_rel_err']:.2e} <= {TOL_LM}; "
           f"launches {d_launches}")
+    print(_graph_line(d_graphs))
+    graph_phases["lm_device"] = d_graphs
+
+    # -- eager against replayed: the LM on the device pool, graphs=False ----
+    e_outs, e_rows, _, e_server, e_wall, e_launches, _ = lm_serving_phase(
+        lm_pipe, requests, counters, pool="device", graphs=False)
+    same_toks = sum(int(a == b) for o, e in zip(d_outs, e_outs)
+                    for a, b in zip(list(o), list(e)))
+    if [list(o) for o in e_outs] != [list(o) for o in d_outs]:
+        raise AssertionError(f"eager device pool: {same_toks} of {toks} tokens "
+                             f"equal the replayed run's")
+    e_check = check_lm_served(lm_pipe, lm_params, requests, e_outs, e_rows,
+                              device, refs=check["refs"])
+    by_path["lm_device_eager"] = e_launches
+    print(f"LM eager against replayed on the device pool: {same_toks} of "
+          f"{toks} tokens equal; eager logits max rel err "
+          f"{e_check['max_rel_err']:.2e} <= {TOL_LM}; launches {e_launches}")
+    # -- and with the workers' rounds replayed too --------------------------
+    w_outs, w_rows, _, w_server, w_wall, w_launches, w_graphs = \
+        lm_serving_phase(lm_pipe, requests, counters, pool="device",
+                         workers=True)
+    w_toks = sum(int(a == b) for o, w in zip(d_outs, w_outs)
+                 for a, b in zip(list(o), list(w)))
+    if [list(o) for o in w_outs] != [list(o) for o in d_outs]:
+        raise AssertionError(f"device pool with worker graphs: {w_toks} of "
+                             f"{toks} tokens equal the default run's")
+    w_check = check_lm_served(lm_pipe, lm_params, requests, w_outs, w_rows,
+                              device, refs=check["refs"])
+    by_path["lm_device_workers"] = w_launches
+    print(f"LM with worker graphs on the device pool: {w_toks} of {toks} "
+          f"tokens equal; logits max rel err {w_check['max_rel_err']:.2e} <= "
+          f"{TOL_LM}; launches {w_launches}")
+    print(_graph_line(w_graphs))
+    graph_phases["lm_device_workers"] = w_graphs
     print(f"LM round phases, both pools ({card}):")
     print(_lm_line("threads", lm_server, toks, wall))
     print(_lm_line("device", d_server, toks, d_wall))
-    del lm_server, d_server, d_rows
+    print(_lm_line("device eager", e_server, toks, e_wall))
+    print(_lm_line("device workers", w_server, toks, w_wall))
+    del lm_server, d_server, d_rows, e_server, e_rows, w_server, w_rows
 
     lin = coded_linear_phase(device, (k2_launches, k3_launches))
     for name, count in lin["launches"].items():
@@ -1320,6 +1504,7 @@ def main() -> int:
         e["launches_by_path"] = {path: counts[e["name"]]
                                  for path, counts in by_path.items()
                                  if e["name"] in counts}
+    print(json.dumps({"graphs": graph_phases}))
     print(json.dumps({"kernels": [k1e, k2e, k3e, k4e]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,13 +32,16 @@ device under ``dispatch_tools.Recorder``, and checks:
   signatures the full shape space induces must not exceed
   ``program_trace_bound`` ((geometries + transitions) x buckets).
 - ``CAPTURE`` (error, CUDA only): each cell not declared ``eager_only`` is
-  captured into a ``torch.cuda.CUDAGraph`` after one warm-up call (the
-  kernels' build and load, ``ctypes`` lookups and allocator warm-up happen
-  outside the capture), a second set of arguments — for decode and
-  transition cells the operand of a *different* survivor subset — is
-  copied into the static inputs, and the replay must be ``torch.equal`` to
-  an eager call on that second set.  A failed capture or a replay that
-  differs is an error; ``eager_only`` cells are counted and listed.
+  run through the serving path's own capture helper
+  (``core.graphs.GraphSet``, ``torch.cuda.CUDAGraph``): captured after one
+  warm-up call (the kernels' build and load, ``ctypes`` lookups and
+  allocator warm-up happen outside the capture) and replayed, then called
+  again on a second set of arguments — for decode and transition cells
+  the operand of a *different* survivor subset; a resident argument keeps
+  its storage and takes the second set's values in place — which must
+  replay, not capture again, and be ``torch.equal`` to an eager call on
+  that second set.  A failed capture or a replay that differs is an
+  error; ``eager_only`` cells are counted and listed.
 
 ``JIT-DONATION`` has no counterpart: torch has no buffer donation (a
 program reuses an argument's memory only by writing it in place, which
@@ -47,13 +50,13 @@ the caller sees), so every cell's ``donate_argnums`` is ``()``.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Iterable, Sequence
 
 import torch
 from torch.utils._pytree import tree_leaves
 
-from ..core.pipeline import dtype_name
+from ..core.graphs import GraphSet
+from ..core.pipeline import Program, dtype_name
 from ..devices import resolve_device
 from . import dispatch_tools
 from .findings import Report, Severity
@@ -207,41 +210,34 @@ def _clones(args) -> tuple:
     return tuple(a.clone() for a in args)
 
 
-def capture_replay(cell, args1, args2, device) -> str | None:
-    """CAPTURE on one cell: warm up on ``args1``, capture a call on static
-    copies of them, copy ``args2`` in, replay, and hold every output
-    ``torch.equal`` to an eager call on ``args2`` (run on the capture
-    stream, so library calls see the same stream and workspace).  Returns
-    what failed, or None."""
-    device = torch.device(device)
-    stream = torch.cuda.Stream(device)
-    stream.wait_stream(torch.cuda.current_stream(device))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.device(device), torch.cuda.stream(stream):
-        cell.fn(*_clones(args1))  # warm-up: build, load, allocate
-        stream.synchronize()
-        static = _clones(args1)
-        captured = None
-        try:
-            graph.capture_begin()
-            try:
-                static_out = cell.fn(*static)
-            finally:
-                with warnings.catch_warnings():
-                    # a program of views (the LM encoder's broadcast)
-                    # captures no kernel, and torch warns of an empty graph
-                    warnings.filterwarnings(
-                        "ignore", message="The CUDA Graph is empty")
-                    graph.capture_end()
-            captured = static_out
-        except Exception as err:  # the capture itself failed
+def capture_replay(cell, args1, args2, device,
+                   graph_cls=torch.cuda.CUDAGraph) -> str | None:
+    """CAPTURE on one cell, through the serving path's capture helper: a
+    call on ``args1`` captures the cell's program (warm-up, capture,
+    replay); a call on ``args2`` — its resident arguments refilled in
+    place with ``args2``'s values — must replay that graph, and every
+    output must be ``torch.equal`` to an eager call on ``args2``.
+    Returns what failed, or None."""
+    prog = cell.fn if isinstance(cell.fn, Program) else Program(
+        cell.fn, name=cell.kind)
+    graphs = GraphSet(f"contracts:{cell.cell_id}", device, graph_cls)
+    first = _clones(args1)
+    try:
+        graphs.run(prog, first)
+        second = list(_clones(args2))
+        for j in prog.resident:
+            first[j].copy_(args2[j])
+            second[j] = first[j]
+        captured = graphs.run(prog, tuple(second))
+    except Exception as err:  # the capture (or its replay) failed
+        if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
-            return f"capture failed: {type(err).__name__}: {err}"
-        for s, a in zip(static, args2):
-            s.copy_(a)
-        graph.replay()
-        eager = cell.fn(*_clones(args2))
-        stream.synchronize()
+        return f"capture failed: {type(err).__name__}: {err}"
+    if graphs.num_graphs != 1:
+        return f"the second argument set captured again ({graphs.num_graphs} graphs)"
+    eager = prog.eager(*_clones(args2))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
     got = [t for t in tree_leaves(captured) if isinstance(t, torch.Tensor)]
     want = [t for t in tree_leaves(eager) if isinstance(t, torch.Tensor)]
     if len(got) != len(want):
@@ -284,10 +280,11 @@ def check_trace_bound(pipe, cells: Iterable, label: str) -> Report:
 # -- running the analyzer ---------------------------------------------------
 
 def analyze(pipe, label: str, device, *, capture: bool | None = None,
-            seed: int = 0, cells=None) -> Report:
+            seed: int = 0, cells=None,
+            graph_cls=torch.cuda.CUDAGraph) -> Report:
     """Run and check every program cell of one pipeline's shape space (or
-    of ``cells``), capturing each one on CUDA unless ``capture`` says
-    otherwise.  Stats: cells checked, captured and eager-only, and the
+    of ``cells``), capturing each one (with ``graph_cls``) on CUDA unless
+    ``capture`` says otherwise.  Stats: cells checked, captured and eager-only, and the
     eager-only cells and their reasons."""
     device = resolve_device(device)
     if capture is None:
@@ -317,7 +314,7 @@ def analyze(pipe, label: str, device, *, capture: bool | None = None,
             eager_only[cell.cell_id] = cell.eager_only
             continue
         args2 = dispatch_tools.materialize(pipe, cell, device, gen, variant=1)
-        err = capture_replay(cell, args, args2, device)
+        err = capture_replay(cell, args, args2, device, graph_cls)
         if err is None:
             captured += 1
         else:

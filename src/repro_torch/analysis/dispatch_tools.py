@@ -139,7 +139,8 @@ def record(fn, args, device) -> Recording:
     """Run ``fn(*args)`` once under a ``Recorder``; the recording's
     ``outputs`` are the result's tensors."""
     with Recorder(args, device) as mode:
-        result = fn(*args)
+        # a pipeline ``Program`` is recorded op by op, never replayed
+        result = getattr(fn, "eager", fn)(*args)
     mode.rec.outputs = [t for t in tree_leaves(result)
                         if isinstance(t, torch.Tensor)]
     return mode.rec

@@ -27,7 +27,14 @@ rounds and LM decode rounds alike:
     attention over the master-resident KV slot cache, SiLU gating,
     residual adds, unembed/argmax — runs master-side as torch glue
     (``glue_fn`` / ``attn_fn``), each glue program taking its weights as
-    arguments, so no glue program holds a constant of its own.
+    arguments, so no glue program holds a constant of its own.  On a CUDA
+    device the glue programs run as CUDA graphs of the pipeline's
+    ``master_graphs`` (``core/graphs.py``; ``graphs=False``: op by op):
+    the embedding table and the head are resident, as are the KV slot
+    cache leaves the attention glue writes in place (one graph per layer
+    and bucket); activations and the 576-float norm gammas are copied per
+    replay.  The broadcast encoder launches no kernel and the decoder
+    takes its inverse by value (K3), so both stay eager.
 
 ``UncodedPlan`` is the straggler-bound baseline: the same worker pool and
 worker program, weights split ``n`` ways with no redundancy, identity
@@ -35,12 +42,16 @@ decode — every round waits for ALL ``n`` workers.
 
 Slot caches are updated in place (the reference returns new arrays): a
 decode step writes each row's K/V at its own position, ``slot_write``
-copies rows into the cache it is given.
+copies rows into the cache it is given.  ``slot_cache`` is the pipeline's
+own cache, allocated once and zeroed in place on reuse, so the captured
+attention glue always finds its resident leaves where it captured them.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
+import weakref
 from typing import Sequence
 
 import numpy as np
@@ -54,6 +65,7 @@ from ..models import transformer as lm
 from ..models.common import apply_rope, rms_norm, rope_inv_freq, softcap
 from .crme import recovery_matrix
 from .fcdcc import FcdccPlan, check_backend
+from .graphs import GraphSet, owner_graphs
 from .pipeline import ArgSpec, Program, ProgramCell
 
 __all__ = [
@@ -186,7 +198,7 @@ class CodedDecoderPipeline:
                  backend: str = "kernel",
                  bucket_sizes: Sequence[int] | None = None,
                  max_len: int | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", graphs=True):
         if cfg.attn != "gqa":
             raise ValueError(f"coded decode supports attn='gqa', got {cfg.attn!r}")
         if cfg.moe is not None:
@@ -262,11 +274,48 @@ class CodedDecoderPipeline:
         self._decoder: Program | None = None
         self._cluster_programs: dict[tuple, Program] = {}  # filled by the cluster
         self._batch_programs: dict[tuple, Program] = {}  # looped over workers
-        self._glue: dict[str, object] = {}  # master-side glue by name
+        self._glue: dict[str, Program] = {}  # master-side glue by name
         self._attn_fns: dict = {}  # decode attention by sliding window
         # decode inverses by survivor tuple (one plan for every round), as
         # fp32 host tensors; written by the engine thread only
         self._decode_memo: dict[tuple, torch.Tensor] = {}  # guarded-by: engine-thread
+        # the pipeline's KV slot caches by slot count (``slot_cache``), and
+        # the server that serves from them (a weak reference: a server
+        # dropped without a shutdown lets them go)
+        self._slot_caches: dict[int, list] = {}  # guarded-by: engine-thread
+        self._cache_lock = threading.Lock()
+        self._cache_owner = None  # guarded-by: self._cache_lock
+        self._graph_sets: dict[type, GraphSet] = {}  # by graph class
+        self.master_graphs: GraphSet | None = None
+        self.worker_graphs = False
+        self.set_graphs(graphs)
+
+    def set_graphs(self, graphs, workers: bool | None = None) -> None:
+        """Switch the glue programs between CUDA-graph replays (``True``,
+        or a graph class) and eager calls (``False``); the graphs already
+        captured are kept for a later switch back.  ``workers`` as in
+        ``CodedPipeline.set_graphs`` (a worker round is one K2 launch)."""
+        if workers is not None:
+            self.worker_graphs = bool(workers)
+        self.graphs = graphs
+        self.master_graphs = owner_graphs(self._graph_sets, graphs, self.device)
+        for prog in list(self._glue.values()) + list(self._attn_fns.values()):
+            prog.graphs = self.master_graphs
+
+    @property
+    def glue_graph_bound(self) -> int:
+        """Glue graphs a decode step can capture: per bucket, one each of
+        embed, norm, add, act and finish, and one attention graph per
+        layer (its cache leaves are resident)."""
+        buckets = len(self.bucket_sizes) if self.bucket_sizes else 1
+        return (5 + self.cfg.layers) * buckets
+
+    @property
+    def worker_graph_bound(self) -> int:
+        """Graphs one device-pool worker can capture: one per (round,
+        bucket), each round's coded weight columns resident."""
+        buckets = len(self.bucket_sizes) if self.bucket_sizes else 1
+        return len(self.specs) * buckets
 
     # -- weight encoding (once, at construction) ---------------------------
     def _encode_weights(self, w: torch.Tensor) -> torch.Tensor:
@@ -367,7 +416,7 @@ class CodedDecoderPipeline:
         if self._encoder_fn is None:
             n = self.n
             self._encoder_fn = Program(
-                lambda x: x.expand((n, 1) + tuple(x.shape)))
+                lambda x: x.expand((n, 1) + tuple(x.shape)), name="encoder")
         return self._encoder_fn
 
     def worker_program(self, idx: int, *, over_workers: bool = True) -> Program:
@@ -382,7 +431,8 @@ class CodedDecoderPipeline:
         if not over_workers:
             fn = self._cluster_programs.get(key)
             if fn is None:
-                fn = self._cluster_programs[key] = Program(compute)
+                fn = self._cluster_programs[key] = Program(compute,
+                                                           name="worker")
             return fn
         fn = self._batch_programs.get(key)
         if fn is None:
@@ -390,7 +440,7 @@ class CodedDecoderPipeline:
                 return torch.stack([_compute(xe[j], ke[j])
                                     for j in range(xe.shape[0])])
 
-            fn = self._batch_programs[key] = Program(compute_all)
+            fn = self._batch_programs[key] = Program(compute_all, name="worker")
         return fn
 
     def decode_matrix(self, idx: int, worker_ids: tuple[int, ...]) -> torch.Tensor:
@@ -436,7 +486,7 @@ class CodedDecoderPipeline:
                 true_rows = crme_decode(d, outs.reshape(q, b * ob))
                 return true_rows.reshape(q, b, ob).transpose(0, 1).reshape(b, q * ob)
 
-            self._decoder = Program(dec)
+            self._decoder = Program(dec, name="decoder")
         return self._decoder
 
     def decoder(self, idx: int, worker_ids: tuple[int, ...]):
@@ -445,16 +495,19 @@ class CodedDecoderPipeline:
         return lambda outs: fn(outs, d)
 
     # -- master-side glue ------------------------------------------------------
-    def glue_fn(self, name: str):
+    def glue_fn(self, name: str) -> Program:
         """The master-side glue program ``name``, taking its weights as
         arguments (the reference's ``_glue_fn``): ``embed(table, tokens)``,
         ``norm(x, gamma)``, ``add(x, y)``, ``act(gu)`` and ``finish(x,
-        gamma, head) -> (logits, argmax)``."""
+        gamma, head) -> (logits, argmax)``.  The table and the head are
+        resident in its graphs."""
         fn = self._glue.get(name)
         if fn is not None:
             return fn
         cfg = self.cfg
+        resident = ()
         if name == "embed":
+            resident = (0,)
             scale = math.sqrt(cfg.d_model)
 
             def fn(table, tokens):
@@ -473,6 +526,8 @@ class CodedDecoderPipeline:
                      else F.gelu(g, approximate="tanh"))
                 return g.to(u.dtype) * u
         elif name == "finish":
+            resident = (2,)
+
             def fn(x, gamma, head):
                 logits = (rms_norm(x, gamma) @ head).float()
                 if cfg.logit_softcap is not None:
@@ -480,8 +535,10 @@ class CodedDecoderPipeline:
                 return logits, logits.argmax(dim=-1).to(torch.int32)
         else:
             raise KeyError(name)
-        self._glue[name] = fn
-        return fn
+        prog = self._glue[name] = Program(fn, name=f"glue.{name}",
+                                          resident=resident,
+                                          graphs=self.master_graphs)
+        return prog
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.glue_fn("embed")(self.embed_table, tokens)
@@ -500,7 +557,8 @@ class CodedDecoderPipeline:
         (in place), attend causally over the slot cache (plain
         ``attention``: one query per row at its own position is not K4's
         index-causal function).  Returns the merged head context and the
-        (updated) caches."""
+        (updated) caches.  The caches are resident in its graphs, one
+        graph per layer (``slot``) and bucket."""
         window = self._windows[layer]
         fn = self._attn_fns.get(window)
         if fn is not None:
@@ -530,8 +588,9 @@ class CodedDecoderPipeline:
             ctx = lm._attend(q, ck[:b], cv[:b], pos[:, None], k_pos, cfg, window)
             return ctx.reshape(b, h * hd), ck, cv
 
-        self._attn_fns[window] = raw
-        return raw
+        prog = self._attn_fns[window] = Program(
+            raw, name="glue.attn", resident=(1, 2), graphs=self.master_graphs)
+        return prog
 
     # -- KV slot cache ------------------------------------------------------
     def init_slot_cache(self, slots: int) -> list[dict]:
@@ -543,6 +602,41 @@ class CodedDecoderPipeline:
         return [{"k": torch.zeros(shape, device=self.device),
                  "v": torch.zeros(shape, device=self.device)}
                 for _ in range(cfg.layers)]
+
+    def slot_cache(self, slots: int) -> list[dict]:
+        """The pipeline's own slot caches for ``slots`` rows: allocated on
+        first use, zeroed in place on every later call (a server starting,
+        or recovering from a failed step), so the captured attention glue
+        keeps finding its resident leaves.  The server that claimed them
+        (``claim_slot_cache``) serves from them."""
+        cache = self._slot_caches.get(slots)
+        if cache is None:
+            cache = self._slot_caches[slots] = self.init_slot_cache(slots)
+        else:
+            for c in cache:
+                c["k"].zero_()
+                c["v"].zero_()
+        return cache
+
+    def claim_slot_cache(self, owner) -> None:
+        """Make ``owner`` (a server) the one that serves from the slot
+        caches.  Two servers on one pipeline would write into one cache and
+        zero each other's, so a claim while another live server holds them
+        raises; ``release_slot_cache`` gives them up."""
+        with self._cache_lock:
+            held = None if self._cache_owner is None else self._cache_owner()
+            if held is not None and held is not owner:
+                raise RuntimeError(
+                    "another server serves from this pipeline's KV slot "
+                    "caches; shut it down first")
+            self._cache_owner = weakref.ref(owner)
+
+    def release_slot_cache(self, owner) -> None:
+        """Give up ``owner``'s claim on the slot caches (no-op for another
+        owner)."""
+        with self._cache_lock:
+            if self._cache_owner is not None and self._cache_owner() is owner:
+                self._cache_owner = None
 
     @staticmethod
     def slot_write(cache_leaf: torch.Tensor, new: torch.Tensor, row: int) -> torch.Tensor:
@@ -589,7 +683,7 @@ class CodedDecoderPipeline:
             qkv = run_round(base + 0, norm(x, g["ln_attn"]))
             ln = (g["q_ln"], g["k_ln"]) if cfg.qk_norm else ()
             ctx, cache[l]["k"], cache[l]["v"] = self.attn_fn(l)(
-                qkv, cache[l]["k"], cache[l]["v"], pos, *ln)
+                qkv, cache[l]["k"], cache[l]["v"], pos, *ln, slot=l)
             attn_out = run_round(base + 1, ctx)
             if cfg.sandwich_norms:
                 attn_out = norm(attn_out, g["ln_attn_post"])
@@ -733,6 +827,7 @@ def build_lm_decoder_pipeline(
     bucket_sizes: Sequence[int] | None = None,
     max_len: int | None = None,
     device: str | torch.device = "cuda",
+    graphs=True,
 ) -> CodedDecoderPipeline:
     """Compile a GQA ``LMConfig`` + fp32 params into a coded decoder
     pipeline on ``device``.  Pass ``k_b`` (even) for a CRME-coded plan with
@@ -746,4 +841,4 @@ def build_lm_decoder_pipeline(
         raise ValueError(f"plan targets n={plan.n}, requested n={n}")
     return CodedDecoderPipeline(
         cfg, params, plan, backend=backend, bucket_sizes=bucket_sizes,
-        max_len=max_len, device=device)
+        max_len=max_len, device=device, graphs=graphs)

@@ -13,10 +13,18 @@ cluster:
     program per worker-program signature, and runs decode -> relu -> pool
     -> re-encode between layers for batched ``(B, C, H, W)`` inputs.
 
-Programs are eager callables held in dicts keyed like the reference's jit
-caches; each ``Program`` records the argument shapes it has seen, so the
-bounded-program contract (at most geometries x buckets shape signatures)
-is checked the same way the reference counts jit traces.
+Programs are held in dicts keyed like the reference's jit caches; each
+``Program`` records the argument shapes it has seen, so the bounded-program
+contract (at most geometries x buckets shape signatures) is checked the
+same way the reference counts jit traces.  On a CUDA device the master's
+programs (encoder, transition, decoder) run as CUDA graphs of the
+pipeline's ``master_graphs`` (``core/graphs.py``), captured once per
+(program, signature, slot) and replayed — the counterpart of the
+reference's ``jax.jit``; ``graphs=False`` runs them op by op.  The
+device pool's worker rounds run eagerly unless ``set_graphs(...,
+workers=True)`` asks for worker graphs too: a worker program is one K1
+launch, and its graph's copy-in and clone-out cost the master more than
+the launch it replaces.
 ``CodedPipeline.program_space`` enumerates every program cell the pipeline
 can launch, as ``ProgramCell``s whose arguments are ``ArgSpec``s, for the
 analysis gate (``repro_torch.analysis``).
@@ -34,6 +42,7 @@ from ..kernels.conv2d.ops import coded_transition
 from .cost import CostWeights, optimal_partition
 from .crme import recovery_matrix
 from .fcdcc import CodedConv2d, FcdccPlan, check_backend
+from .graphs import GraphSet, owner_graphs, signature
 from .nsctc import encode_tensor_list, group_by_worker
 from .partition import ConvGeometry, merge_output, partition_transition
 
@@ -51,22 +60,42 @@ __all__ = [
 
 
 class Program:
-    """An eager program of the pipeline: calls ``fn`` and records the
-    shapes and dtypes of the tensor arguments it was called with — the
-    port's count of specialised programs (what a jit trace or a CUDA graph
-    capture would be keyed on)."""
+    """One program of the pipeline: ``fn`` plus the record of the tensor
+    argument shapes and dtypes it was called with (the port's count of
+    specialised programs, what the reference counts as jit traces).
 
-    def __init__(self, fn):
+    With ``graphs`` (its owner's ``GraphSet``) a call replays the
+    program's CUDA graph for this signature and ``slot``, captured on
+    first sight (``core/graphs.py``): the counterpart of the reference's
+    ``jax.jit`` executable.  ``resident`` are the argument indices used in
+    place by the graph (never copied per replay).  Without ``graphs``, and
+    always through ``eager``, it calls ``fn`` op by op."""
+
+    def __init__(self, fn, *, name: str = "program", resident: tuple = (),
+                 graphs: GraphSet | None = None):
         self.fn = fn
+        self.name = name
+        self.resident = tuple(resident)
+        self.graphs = graphs
         self.signatures: set[tuple] = set()
 
-    def __call__(self, *args):
+    @property
+    def captures(self) -> int:
+        """Graphs of this program its owner holds."""
+        return 0 if self.graphs is None else self.graphs.captures_of(self)
+
+    def eager(self, *args):
         # set.add of a hashable is atomic under the GIL; worker threads call
         # the one shared cluster program concurrently
-        self.signatures.add(tuple(
-            (tuple(a.shape), str(a.dtype)) for a in args
-            if isinstance(a, torch.Tensor)))
+        self.signatures.add(signature(args))
         return self.fn(*args)
+
+    def __call__(self, *args, slot=None):
+        if self.graphs is None:
+            return self.eager(*args)
+        sig = signature(args)
+        self.signatures.add(sig)
+        return self.graphs.run(self, args, slot, sig)
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -239,7 +268,7 @@ class CodedPipeline:
                  bucket_sizes: Sequence[int] | None = None,
                  fuse_transitions: bool = False,
                  pool: str | None = None, devices=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", graphs=True):
         specs = list(specs)
         if not specs:
             raise ValueError("empty pipeline")
@@ -285,6 +314,51 @@ class CodedPipeline:
         # here, so no program ever converts a host float64 matrix
         self._all_encode_columns = [self._on_device(layer.a_code.matrix)
                                     for layer in self.layers]
+        # decode operands by (layer, survivors), fp32 on the device
+        self._decode_memo: dict[tuple, torch.Tensor] = {}  # guarded-by: engine-thread
+        # the master's compiled programs (None: eager), kept by class
+        self._graph_sets: dict[type, GraphSet] = {}  # by graph class
+        self.master_graphs: GraphSet | None = None
+        self.worker_graphs = False
+        self.set_graphs(graphs)
+
+    def set_graphs(self, graphs, workers: bool | None = None) -> None:
+        """Switch the master's programs between CUDA-graph replays
+        (``True``, or a graph class) and eager calls (``False``); the
+        graphs already captured are kept for a later switch back.
+        ``workers`` (None: unchanged; off at construction) says whether
+        the device pool's worker rounds replay graphs of the same class
+        too.  The cluster and the servers read this switch; it is the
+        only one."""
+        if workers is not None:
+            self.worker_graphs = bool(workers)
+        self.graphs = graphs
+        self.master_graphs = owner_graphs(self._graph_sets, graphs, self.device)
+        for prog in self._master_programs():
+            prog.graphs = self.master_graphs
+
+    def _master_programs(self) -> list:
+        return (list(self._encoders.values()) + list(self._decoders.values())
+                + list(self._transitions.values()))
+
+    @property
+    def master_graph_bound(self) -> int:
+        """Master graphs the cluster path can capture: per bucket, the
+        encoders (layer 0 when fused, every layer when not), one transition
+        per fused boundary (one graph per layer: its resident next-layer
+        encode columns differ) and the decoders."""
+        layers = len(self.specs)
+        buckets = len(self.bucket_sizes) if self.bucket_sizes else 1
+        per_bucket = (1 + (layers - 1) + 1 if self.fuse_transitions
+                      else 2 * layers)
+        return per_bucket * buckets
+
+    @property
+    def worker_graph_bound(self) -> int:
+        """Graphs one device-pool worker can capture: one per (layer,
+        bucket), each layer's coded filter shard resident."""
+        buckets = len(self.bucket_sizes) if self.bucket_sizes else 1
+        return len(self.specs) * buckets
 
     @staticmethod
     def normalize_buckets(bucket_sizes: Sequence[int]) -> tuple[int, ...]:
@@ -407,7 +481,8 @@ class CodedPipeline:
                     matrix = self.encode_columns_all(_idx)
                 return layer.encode_inputs(x, matrix)
 
-            fn = self._encoders[idx] = Program(enc)
+            fn = self._encoders[idx] = Program(enc, name="encoder",
+                                               graphs=self.master_graphs)
         return fn
 
     def worker_program(self, idx: int, *, over_workers: bool = True) -> Program:
@@ -423,7 +498,8 @@ class CodedPipeline:
         if not over_workers:
             fn = self._cluster_programs.get(key)
             if fn is None:
-                fn = self._cluster_programs[key] = Program(compute)
+                fn = self._cluster_programs[key] = Program(compute,
+                                                           name="worker")
             return fn
         fn = self._batch_programs.get(key)
         if fn is None:
@@ -431,7 +507,7 @@ class CodedPipeline:
                 return torch.stack([_compute(xe[j], ke[j])
                                     for j in range(xe.shape[0])])
 
-            fn = self._batch_programs[key] = Program(compute_all)
+            fn = self._batch_programs[key] = Program(compute_all, name="worker")
         return fn
 
     def encode_columns(self, idx: int, worker_ids: tuple[int, ...]) -> np.ndarray:
@@ -469,13 +545,21 @@ class CodedPipeline:
                 blocks = true_rows.reshape((_q,) + tuple(outs.shape[2:]))
                 return relu_pool(merge_output(blocks, _geo), _pool)
 
-            fn = self._decoders[idx] = Program(dec)
+            fn = self._decoders[idx] = Program(dec, name="decoder",
+                                               graphs=self.master_graphs)
         return fn
 
     def decode_operand(self, idx: int, worker_ids: tuple[int, ...]) -> torch.Tensor:
         """The decode and transition programs' matrix argument: the
-        subset's decode inverse as a device tensor."""
-        return self._on_device(self.decode_matrix(idx, worker_ids))
+        subset's float64 host inverse (``decode_matrix``) as a device
+        tensor in the input dtype, memoised per (layer, survivors), so a
+        round copies nothing from the host."""
+        key = (idx, tuple(worker_ids))
+        d = self._decode_memo.get(key)
+        if d is None:
+            d = self._decode_memo[key] = self._on_device(
+                self.decode_matrix(idx, worker_ids))
+        return d
 
     def encode_operand(self, idx: int, worker_ids: tuple[int, ...]) -> torch.Tensor:
         """The encoder's and transitions' column argument: the selected
@@ -486,7 +570,7 @@ class CodedPipeline:
         """``decoder_fn`` with the subset's decode inverse bound."""
         fn = self.decoder_fn(idx)
         d = self.decode_operand(idx, worker_ids)
-        return lambda outs: fn(outs, d)
+        return lambda outs: fn.eager(outs, d)
 
     def transition_fn(self, idx: int) -> Program:
         """The partition-resident transition program between ConvL ``idx``
@@ -495,7 +579,8 @@ class CodedPipeline:
         ReLU in the decode epilogue, per-partition max-pool with halo
         exchange, re-slice into the next layer's APCP parts, re-encode.  On
         the kernel backend both GEMMs run on K2.  Adjacent pairs with the
-        same transition signature share one program."""
+        same transition signature share one program; its graphs are per
+        layer (``slot``), the next layer's encode columns resident."""
         if not 0 <= idx < len(self.specs) - 1:
             raise ValueError(f"no transition after layer {idx} "
                              f"({len(self.specs)} layers)")
@@ -524,7 +609,9 @@ class CodedPipeline:
                     coded = encode_tensor_list(assemble(blocks), m_next)
                     return group_by_worker(coded, ell_next)
 
-            fn = self._transitions[key] = Program(trans)
+            fn = self._transitions[key] = Program(
+                trans, name="transition", resident=(2,),
+                graphs=self.master_graphs)
         return fn
 
     # -- shape-space enumeration -------------------------------------------
@@ -651,7 +738,7 @@ class CodedPipeline:
         for idx in range(len(self.layers)):
             ids = self.layer_worker_ids(idx, worker_ids)
             self.input_encode_calls += 1
-            xe = self.encoder(idx)(x, self.encode_operand(idx, ids))
+            xe = self.encoder(idx).eager(x, self.encode_operand(idx, ids))
             sel = torch.as_tensor(ids, device=self.device)
             outs = self.worker_program(idx)(xe, self.coded_filters[idx][sel])
             x = self.decoder(idx, ids)(outs)
@@ -684,7 +771,8 @@ class CodedPipeline:
     def run_prepared(self, x, prepared=None, *, worker_ids=None) -> torch.Tensor:
         """Coded inference over pre-picked survivor subsets (the serving
         fast path): no host work between layers, so the whole stack is
-        enqueued without a sync."""
+        enqueued without a sync.  The single-process path runs its
+        programs eagerly."""
         if prepared is None:
             prepared = self.prepare(worker_ids)
         if len(prepared) != len(self.specs):
@@ -701,19 +789,20 @@ class CodedPipeline:
             # selected workers; only the final layer merges
             last = len(self.specs) - 1
             self.input_encode_calls += 1
-            xe = self.encoder(0)(x, prepared[0][0])
+            xe = self.encoder(0).eager(x, prepared[0][0])
             for idx, (_m_sel, sel, d) in enumerate(prepared):
                 outs = self.worker_program(idx)(xe, self.coded_filters[idx][sel])
                 if idx < last:
-                    xe = self.transition_fn(idx)(outs, d, prepared[idx + 1][0])
+                    xe = self.transition_fn(idx).eager(outs, d,
+                                                      prepared[idx + 1][0])
                 else:
-                    x = self.decoder_fn(idx)(outs, d)
+                    x = self.decoder_fn(idx).eager(outs, d)
             return x[0] if squeeze else x
         for idx, (m_sel, sel, d) in enumerate(prepared):
             self.input_encode_calls += 1
-            xe = self.encoder(idx)(x, m_sel)
+            xe = self.encoder(idx).eager(x, m_sel)
             outs = self.worker_program(idx)(xe, self.coded_filters[idx][sel])
-            x = self.decoder_fn(idx)(outs, d)
+            x = self.decoder_fn(idx).eager(outs, d)
         return x[0] if squeeze else x
 
 
@@ -733,10 +822,11 @@ def build_cnn_pipeline(
     pool: str | None = None,
     devices=None,
     device: str | torch.device = "cuda",
+    graphs=True,
 ) -> CodedPipeline:
     """Compile one of the named CNNs (``lenet5``/``alexnet``/``vgg16``) into
     a ``CodedPipeline`` on ``device`` (CUDA unless the caller asks for the
-    CPU)."""
+    CPU); ``graphs`` as in ``CodedPipeline.set_graphs``."""
     from ..models.cnn import CNN_SPECS
 
     hw0, layers = CNN_SPECS[name]
@@ -747,4 +837,4 @@ def build_cnn_pipeline(
     return CodedPipeline(specs, params, backend=backend,
                          bucket_sizes=bucket_sizes,
                          fuse_transitions=fuse_transitions, pool=pool,
-                         devices=devices, device=device)
+                         devices=devices, device=device, graphs=graphs)

@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["LaunchCounter", "build_library", "load_library", "check_launch",
-           "launch_on", "NUM_SMS"]
+           "launch_on", "held_launches", "NUM_SMS"]
 
 NUM_SMS = 132  # streaming multiprocessors of an H100 SXM: the launch plans fill them
 
@@ -49,20 +49,47 @@ SIGNATURES = {
 }
 
 
+# per thread: the launches a CUDA-graph capture in progress records into
+# its graph (None outside a capture)
+_capture = threading.local()
+
+
+class held_launches:
+    """Context manager around a CUDA-graph capture on this thread: a
+    wrapper called inside it records its launch into the graph, not onto
+    the card, so ``LaunchCounter.add`` tallies it in the dict this returns
+    (counter -> launches the graph holds) instead of the count.  The
+    graph's owner adds the tally to the counts at every replay."""
+
+    def __enter__(self) -> dict:
+        self._prev = getattr(_capture, "held", None)
+        _capture.held = {}
+        return _capture.held
+
+    def __exit__(self, *exc) -> None:
+        _capture.held = self._prev
+
+
 class LaunchCounter:
     """Thread-safe count of one kernel's launches (worker threads launch
     concurrently).  A wrapper adds one where it launches its kernel, and
     nowhere else — a run reads it to prove the path went through the
-    kernel."""
+    kernel.  A launch recorded into a CUDA graph (``held_launches``)
+    counts once per replay of that graph, when the graph's owner replays
+    it."""
 
     def __init__(self, name: str):
         self.name = name
         self._lock = threading.Lock()
         self._count = 0  # guarded-by: self._lock
 
-    def add(self) -> None:
+    def add(self, k: int = 1) -> None:
+        held = getattr(_capture, "held", None)
+        if held is not None:
+            held[self] = held.get(self, 0) + k
+            return
         with self._lock:
-            self._count += 1
+            self._count += k
 
     @property
     def count(self) -> int:

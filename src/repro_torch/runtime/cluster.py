@@ -32,6 +32,19 @@ GEMM rounds of LM decode): the seam reads only the surface both expose
     ``collect_pipeline_layer`` — one pipeline layer split into its send
     and reap halves, so the serving engine keeps several rounds in flight;
     ``run_pipeline_layer`` / ``run_pipeline`` run them back to back.
+
+Compiled programs: on a CUDA device the pipeline rounds run as CUDA graphs
+(``core/graphs.py``), the counterpart of the reference's ``jax.jit``, as
+each pipeline's ``graphs`` switch says.  The master's encoder, transition
+and CNN decoder replay from the pipeline's ``master_graphs`` (on both
+pools; the LM decoder stays eager, since K3 takes its survivor inverse by
+value).  Worker rounds run eagerly unless the pipeline asks for worker
+graphs too (``set_graphs(..., workers=True)``): then, under
+``pool="device"``, each worker's round replays from its own graph set,
+with the layer's filter shards resident under the slot
+``"{model}/{layer}"``.  Captures happen in ``_warm``, outside the timed
+collects; loading or unloading a model drops its worker graphs.
+``run_layer`` runs eagerly: its filters may be encoded per call.
 """
 from __future__ import annotations
 
@@ -43,6 +56,7 @@ import numpy as np
 import torch
 
 from ..core.fcdcc import CodedConv2d, FcdccPlan, check_backend
+from ..core.graphs import graph_class
 from ..core.partition import ConvGeometry
 from ..core.pipeline import CodedPipeline, Program
 from ..devices import resolve_device
@@ -174,9 +188,12 @@ class FcdccCluster:
         return impl._ensure_pools()
 
     def shutdown(self) -> None:
-        """Release the worker pool (idempotent; re-created lazily)."""
+        """Release the worker pool (idempotent; re-created lazily).  The
+        pool drops its programs (and their graphs), so every worker is
+        warmed again on its next first sight."""
         with self._registry_lock:
             pool = self._pool_obj
+            self._warmed.clear()
         if pool is not None:
             pool.shutdown()
 
@@ -256,6 +273,7 @@ class FcdccCluster:
                 del self._resident[stale]
             impl = self._pool_impl()
             impl.drop_filters(prefix)
+            self._drop_warmed(prefix)
             self.pipelines[name] = pipeline
             for spec, ke in zip(pipeline.specs, pipeline.coded_filters):
                 key = self._filter_code_key(spec.plan, spec.geo)
@@ -274,6 +292,16 @@ class FcdccCluster:
             for stale in [k for k in self._resident if k.startswith(prefix)]:
                 del self._resident[stale]
             self._pool_impl().drop_filters(prefix)
+            self._drop_warmed(prefix)
+
+    def _drop_warmed(self, prefix: str) -> None:
+        """Forget the warm-ups of the worker slots under ``prefix`` (their
+        graphs went with ``drop_filters``), so a model loaded again under
+        the name is warmed, and captured, again."""
+        with self._registry_lock:
+            self._warmed = {k for k in self._warmed
+                            if not (isinstance(k[1], str)
+                                    and k[1].startswith(prefix))}
 
     @property
     def pipeline(self) -> CodedPipeline | None:
@@ -337,12 +365,13 @@ class FcdccCluster:
         ids = sorted(results)[:delta]
         return ids, torch.stack([impl.gather(results[i]) for i in ids], dim=0)
 
-    def _warm(self, impl, fn, xe, ke, wkey: tuple) -> None:
-        """Run the worker program once on first sight of these shapes, so
+    def _warm(self, impl, fn, xe, ke, wkey: tuple, slot=None) -> None:
+        """Run the worker program once on first sight of these shapes (and
+        ``slot``: the device pool captures each worker's graph here), so
         the timed collects measure steady state (never again after: it
         would run a whole discarded subtask)."""
         if wkey not in self._warmed:
-            impl.warm(fn, xe, ke)
+            impl.warm(fn, xe, ke, slot)
             with self._registry_lock:
                 self._warmed.add(wkey)
 
@@ -427,14 +456,20 @@ class FcdccCluster:
 
         impl = self._pool_impl()
         compute = pipe.layers[idx].worker_compute
-        fn = lambda i: impl.program(spec.program_key, compute, i,  # noqa: E731
-                                    pipe._cluster_programs)
+        slot, kw = None, {}
         if impl.kind == "device":
-            ke = impl.resident_filters(
-                f"{self._model_name(model, pipe)}/{spec.name}", ke)
-        self._warm(impl, fn, xe, ke, (self.pool, spec.program_key,
-                                      tuple(xe.shape), tuple(ke[0].shape)))
-        pending = impl.submit(fn, xe, ke)
+            # the layer's resident filter shards: the worker graphs' slot
+            slot = f"{self._model_name(model, pipe)}/{spec.name}"
+            ke = impl.resident_filters(slot, ke)
+            if pipe.worker_graphs:
+                kw["graph_cls"] = graph_class(pipe.graphs, self.device)
+        fn = lambda i: impl.program(spec.program_key, compute, i,  # noqa: E731
+                                    pipe._cluster_programs, **kw)
+        self._warm(impl, fn, xe, ke, (self.pool, slot, spec.program_key,
+                                      kw.get("graph_cls"), tuple(xe.shape),
+                                      tuple(ke[0].shape)),
+                   slot)
+        pending = impl.submit(fn, xe, ke, slot)
         return PendingRound(idx, pipe, spec, pending, t_encode,
                             fused_mid=fused and not last)
 
@@ -457,7 +492,7 @@ class FcdccCluster:
         d = pipe.decode_operand(rnd.idx, tuple(ids))
         if rnd.fused_mid:
             y = pipe.transition_fn(rnd.idx)(
-                outs, d, pipe.encode_columns_all(rnd.idx + 1))
+                outs, d, pipe.encode_columns_all(rnd.idx + 1), slot=rnd.idx)
         else:
             y = pipe.decoder_fn(rnd.idx)(outs, d)
         _sync(self.device)

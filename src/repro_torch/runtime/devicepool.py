@@ -29,9 +29,20 @@ round:
     its worker: the round reports ready and ``collect`` re-raises it (or,
     when the round was already reaped, the next ``submit`` does) — a
     failing kernel is never mistaken for a dead worker.  Worker programs are kept
-    per (program key, device), so the bounded-program contract holds device
-    by device, and coded filter shards are placed on their workers once.
-    On the CPU every worker's device is ``cpu`` and dispatch is synchronous.
+    per (program key, worker): the n workers share a card but not their
+    problems (one graph launched on two streams would be serialised, and
+    its static buffers would race).  Worker programs run eagerly unless
+    the caller passes a graph class (``program(..., graph_cls=)``, which
+    the cluster does for a pipeline that asks for worker graphs): then
+    each worker's programs run as CUDA graphs of its own ``GraphSet``
+    (``core/graphs.py``), one per (program, signature, slot), the slot
+    naming the layer or round whose coded filter shard is resident;
+    ``warm`` captures every live worker's graph, and a dispatch (from the
+    master or the timer thread) copies the share in, replays on the
+    worker's stream and clones the output out.  ``drop_filters`` drops a
+    model's graphs with its shards.  Coded filter shards are placed on
+    their workers once.  On the CPU every worker's device is ``cpu`` and
+    dispatch is synchronous.
 
 Both pools expose a non-blocking ``ready(pending, delta)`` beside the
 blocking ``collect``, and share the ``PendingBatch`` in-flight handle and
@@ -50,6 +61,7 @@ from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor, wait
 import numpy as np
 import torch
 
+from ..core.graphs import GraphSet
 from ..core.pipeline import Program
 from ..devices import canonical_device, resolve_device, worker_devices
 
@@ -200,11 +212,11 @@ class ThreadWorkerPool:
 
     # -- program/filter placement ------------------------------------------
     def program(self, key: tuple, raw, i: int, cache: dict) -> Program:
-        """Every worker shares ONE program on the one device (the caller's
-        cache)."""
+        """Every worker shares ONE eager program on the one device (the
+        caller's cache)."""
         fn = cache.get(key)
         if fn is None:
-            fn = cache[key] = Program(raw)
+            fn = cache[key] = Program(raw, name="worker")
         return fn
 
     def resident_filters(self, name: str, ke):
@@ -216,14 +228,14 @@ class ThreadWorkerPool:
     def gather(self, arr: torch.Tensor) -> torch.Tensor:
         return _master_gather(arr, self.device)
 
-    def warm(self, fn, xe, ke) -> None:
+    def warm(self, fn, xe, ke, slot=None) -> None:
         """One worker-0 call outside the timed collect (builds and loads the
         kernel library on first use; every worker runs the same program)."""
         fn(0)(xe[0], ke[0])
         _sync(self.device)
 
     # -- dispatch / reap ---------------------------------------------------
-    def submit(self, fn, xe, ke) -> PendingBatch:
+    def submit(self, fn, xe, ke, slot=None) -> PendingBatch:
         delays = self.straggler.delays
         worker_times = [
             float("inf") if not np.isfinite(delays[i]) else float("nan")
@@ -352,6 +364,8 @@ class DeviceWorkerPool:
         # threads (load/unload placement) share these registries
         self._state_lock = threading.RLock()
         self._programs: dict[tuple, Program] = {}  # guarded-by: self._state_lock
+        # graph sets by (worker, graph class), made on first use
+        self._graph_sets: dict[tuple, GraphSet] = {}  # guarded-by: self._state_lock
         # name -> (master ke, [per-worker shard]); invalidated by identity
         self._filters: dict[str, tuple] = {}  # guarded-by: self._state_lock
         # delayed dispatches: (due time, sequence, dispatch) in time order,
@@ -380,26 +394,56 @@ class DeviceWorkerPool:
         with self._state_lock:
             self._programs.clear()
             self._filters.clear()
+            self._graph_sets = {}
 
     # -- program/filter placement ------------------------------------------
-    def program(self, key: tuple, raw, i: int, cache: dict | None = None) -> Program:
-        """Worker ``i``'s program: one per (program key, device)."""
-        dev = self.devices[i]
+    def graph_set(self, i: int, graph_cls) -> GraphSet:
+        """Worker ``i``'s graph set for ``graph_cls``."""
         with self._state_lock:
-            fn = self._programs.get((key, dev))
+            gs = self._graph_sets.get((i, graph_cls))
+            if gs is None:
+                gs = self._graph_sets[(i, graph_cls)] = GraphSet(
+                    f"worker{i}", self.devices[i], graph_cls)
+            return gs
+
+    def graph_sets(self) -> list:
+        """The workers' graph sets made so far."""
+        with self._state_lock:
+            return list(self._graph_sets.values())
+
+    def program(self, key: tuple, raw, i: int, cache: dict | None = None,
+                graph_cls=None) -> Program:
+        """Worker ``i``'s program: one per (program key, worker, graph
+        class), replayed from the worker's graph set of ``graph_cls``, or
+        eager where it is None."""
+        with self._state_lock:
+            fn = self._programs.get((key, i, graph_cls))
             if fn is None:
-                fn = self._programs[(key, dev)] = Program(raw)
+                fn = self._programs[(key, i, graph_cls)] = Program(
+                    raw, name="worker", resident=(1,),
+                    graphs=(None if graph_cls is None
+                            else self.graph_set(i, graph_cls)))
             return fn
 
     def program_traces(self) -> dict:
-        """Shape signatures per device, ``{device: count}``: the device
-        pool's half of the bounded-program contract."""
+        """Distinct shape signatures per device, ``{device: count}`` (over
+        the device's workers and program keys): the device pool's half of
+        the bounded-program contract."""
         out: dict = {}
         with self._state_lock:
             programs = dict(self._programs)
-        for (_, dev), fn in programs.items():
-            out[dev] = out.get(dev, 0) + len(fn.signatures)
-        return out
+        for (key, i, _), fn in programs.items():
+            sigs = out.setdefault(self.devices[i], set())
+            sigs.update((key, sig) for sig in fn.signatures)
+        return {dev: len(sigs) for dev, sigs in out.items()}
+
+    def graph_counts(self) -> list[int]:
+        """Graphs held per worker (0 where it runs eagerly)."""
+        counts = [0] * self.n
+        with self._state_lock:
+            for (i, _), gs in self._graph_sets.items():
+                counts[i] += gs.num_graphs
+        return counts
 
     def resident_filters(self, name: str, ke) -> list:
         """The per-worker shards of coded filters ``ke`` under the
@@ -416,21 +460,28 @@ class DeviceWorkerPool:
             return ent[1]
 
     def drop_filters(self, prefix: str) -> None:
+        """Drop the filter shards under names starting with ``prefix``, and
+        the worker graphs whose slot they were (those graphs hold the
+        shards, and a replacement under the same names captures anew)."""
         with self._state_lock:
             for name in [k for k in self._filters if k.startswith(prefix)]:
                 del self._filters[name]
+            for gs in self._graph_sets.values():
+                gs.drop(prefix)
 
     def gather(self, arr: torch.Tensor) -> torch.Tensor:
         """One survivor to the master device (discarded outputs never
         move)."""
         return _master_gather(arr, self.master)
 
-    def warm(self, fn, xe, ke) -> None:
-        """Run every live worker once outside the timed collect."""
+    def warm(self, fn, xe, ke, slot=None) -> None:
+        """Run every live worker once outside the timed collect: with
+        graphs, this captures each one's graph for ``slot`` (on its own
+        stream's order)."""
         ready = self._ready_event()
         for i in range(self.n):
             if np.isfinite(self.straggler.delays[i]):
-                self._launch(fn, xe, ke, i, ready)
+                self._launch(fn, xe, ke, i, ready, slot)
         if self.streams is not None:
             for dev in set(self.devices):
                 torch.cuda.synchronize(dev)
@@ -445,25 +496,27 @@ class DeviceWorkerPool:
         ready.record(torch.cuda.current_stream(self.master))
         return ready
 
-    def _launch(self, fn, xe, ke, i: int, ready):
+    def _launch(self, fn, xe, ke, i: int, ready, slot=None):
         """Dispatch worker ``i``'s subtask: ``(output, completion event)``,
         the event None on the CPU.  Runs on the master thread or on a
         timer thread, so it enters the worker's device and stream itself:
-        the kernels launch on the calling thread's current stream."""
+        the kernels (or the graph) launch on the calling thread's current
+        stream.  ``slot`` names the resident filters (graphs only)."""
         dev = self.devices[i]
+        kw = {} if slot is None else {"slot": slot}
         if self.streams is None:
-            return fn(i)(xe[i].to(dev), ke[i]), None
+            return fn(i)(xe[i].to(dev), ke[i], **kw), None
         s = self.streams[i]
         with torch.cuda.device(dev), torch.cuda.stream(s):
             s.wait_event(ready)
-            out = fn(i)(xe[i].to(dev, non_blocking=True), ke[i])
+            out = fn(i)(xe[i].to(dev, non_blocking=True), ke[i], **kw)
             done = torch.cuda.Event()
             done.record(s)
         if xe.device == dev:
             xe.record_stream(s)
         return out, done
 
-    def submit(self, fn, xe, ke) -> PendingBatch:
+    def submit(self, fn, xe, ke, slot=None) -> PendingBatch:
         with self._timer_cv:
             late, self._late_error = self._late_error, None
         if late is not None:
@@ -481,21 +534,22 @@ class DeviceWorkerPool:
                 continue  # dead worker: never dispatched
             pending.expected.add(i)
             if delays[i] > 0:
-                self._defer(float(delays[i]), pending, i, fn, xe, ke, ready)
+                self._defer(float(delays[i]), pending, i, fn, xe, ke, ready,
+                            slot)
             else:
-                res = self._launch(fn, xe, ke, i, ready)
+                res = self._launch(fn, xe, ke, i, ready, slot)
                 with pending.lock:
                     pending.results[i] = res
         return pending
 
     def _defer(self, delay: float, pending: PendingBatch, i: int, fn, xe, ke,
-               ready) -> None:
+               ready, slot=None) -> None:
         """Dispatch worker ``i`` ``delay`` seconds from now, on the timer
         thread.  A dispatch that raises is kept for ``collect`` to re-raise
         (or, when the round was already reaped, for the next ``submit``)."""
         def run():
             try:
-                res = self._launch(fn, xe, ke, i, ready)
+                res = self._launch(fn, xe, ke, i, ready, slot)
             except Exception as err:  # surfaces in collect or the next submit
                 with pending.lock:
                     late = pending.reaped

@@ -49,9 +49,18 @@ partition-space batches on their coded-share batch axis.
 ``register_model(..., weight=w)`` sets the integer fair share: the rotating
 sweep grants a model up to ``w`` consecutive rounds per sweep position, so
 a backlogged model waits at most the sum of the other models' weights.
+
+On a CUDA device the rounds replay CUDA graphs (``core/graphs.py``) as
+each pipeline's ``graphs`` switch says: the master's programs from the
+pipeline, and the workers' from the device pool where the pipeline asks
+for worker graphs.  ``warmup()`` captures them on the stream the engine
+thread serves on, so capture time stays out of the served timings.
+The pipeline's ``set_graphs(False)`` serves eagerly, op by op; it is only
+ever an explicit call.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -116,7 +125,8 @@ class CodedServer:
     registered model) and one engine thread.  ``submit()`` is thread-safe
     and returns a ``RequestHandle``; ``stats()`` aggregates per-request
     metrics (``stats(model=...)`` for one model).  Use as a context manager
-    or call ``start()``/``shutdown()``.
+    or call ``start()``/``shutdown()``.  Compiled programs follow each
+    registered pipeline's own switch (``pipeline.set_graphs``).
     """
 
     def __init__(self, pipeline: CodedPipeline | None = None,
@@ -145,6 +155,9 @@ class CodedServer:
         # preference rides along
         self._pool = pool
         self._devices = devices
+        # the master's stream on the card: warmup captures there, and the
+        # engine thread serves there
+        self._master_stream = None  # guarded-by: control-thread
         self._straggler = straggler
         self._default_buckets = bucket_sizes
         self._default_max_inflight = max_inflight
@@ -437,9 +450,24 @@ class CodedServer:
         every registered model (default) — with one zero batch per bucket
         end-to-end.  This builds and loads the kernels, warms the worker
         programs outside timed collects, and makes first-request latency
-        flat."""
+        flat.  With CUDA graphs, this is where every round's graphs are
+        captured, on the stream the engine serves on."""
         states = ([self._resolve(model)] if model is not None
                   else list(self.models.values()))
+        with self._master_ctx():
+            self._warmup(states)
+
+    def _master_ctx(self):
+        """The master's stream on the card (made once), nothing on the
+        CPU."""
+        device = self.cluster.device
+        if device.type != "cuda":
+            return contextlib.nullcontext()
+        if self._master_stream is None:
+            self._master_stream = torch.cuda.Stream(device=device)
+        return torch.cuda.stream(self._master_stream)
+
+    def _warmup(self, states) -> None:
         for state in states:
             pipe = state.pipeline
             for bucket in pipe.bucket_sizes:
@@ -497,11 +525,7 @@ class CodedServer:
         its own: the legacy default stream would synchronise implicitly
         with every worker stream and serialise master work (decode,
         transition, encode) with the workers' subtasks."""
-        device = self.cluster.device
-        if device.type != "cuda":
-            self._engine_loop()
-            return
-        with torch.cuda.stream(torch.cuda.Stream(device=device)):
+        with self._master_ctx():
             self._engine_loop()
 
     def _engine_loop(self) -> None:

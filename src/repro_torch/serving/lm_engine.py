@@ -35,8 +35,21 @@ CNN engine does: the legacy default stream would synchronise with every
 worker stream.  The server can own its ``FcdccCluster`` or *share* one
 (pass ``cluster=``): registered under its own model name, the LM's GEMM
 rounds and a CNN pipeline's ConvL rounds run on the same worker pool.
+
+On a CUDA device a decode step replays CUDA graphs (``core/graphs.py``):
+the glue between rounds from the pipeline, each worker's GEMM round from
+the device pool.  ``warmup()`` captures them all on the stream the engine
+serves on, one zero step a bucket, before ``start()``.  The slot caches
+are the pipeline's own (``slot_cache``), claimed by one server at a time
+(``warmup`` and ``start`` claim, ``shutdown`` releases) and zeroed in
+place when the engine starts and after a failed step, so the captured
+attention glue keeps its resident leaves.  The server reads the
+pipeline's ``graphs`` switch; ``set_graphs(False)`` decodes eagerly, op
+by op.
 """
 from __future__ import annotations
+
+import contextlib
 
 import threading
 import time
@@ -111,6 +124,8 @@ class CodedLMServer:
     ``pool`` / ``devices`` choose the worker pool of the cluster the server
     builds (``"threads"`` or ``"device"``; None takes the pipeline's own
     preference, else the auto rule of ``runtime.resolve_pool``).
+    Compiled programs follow the pipeline's own switch
+    (``pipeline.set_graphs``).
     """
 
     def __init__(self, pipeline: CodedDecoderPipeline,
@@ -138,6 +153,9 @@ class CodedLMServer:
         self._on_logits = on_logits
         self.cluster = cluster
         self._owns_cluster = cluster is None and execution == "cluster"
+        # the master's stream on the card: warmup captures there, and the
+        # engine thread serves there
+        self._master_stream = None  # guarded-by: control-thread
         if execution == "cluster":
             if self.cluster is None:
                 self.cluster = FcdccCluster(
@@ -175,6 +193,7 @@ class CodedLMServer:
     def start(self) -> "CodedLMServer":
         if self._thread is not None:
             raise RuntimeError("server already started")
+        self.pipeline.claim_slot_cache(self)
         self._stop.clear()
         self._thread = threading.Thread(
             target=self._engine_main, name="coded-lm-engine", daemon=True)
@@ -197,6 +216,7 @@ class CodedLMServer:
                 raise err
             self._thread = None
             self.scheduler.cancel_all(RuntimeError("server shut down"))
+        self.pipeline.release_slot_cache(self)
         if self._owns_cluster and self.cluster is not None:
             self.cluster.shutdown()
 
@@ -223,19 +243,55 @@ class CodedLMServer:
         busy = self.decode_time_s + self.prefill_time_s
         return self.tokens_generated / busy if busy > 0 else 0.0
 
+    def warmup(self) -> None:
+        """One decode step of zero tokens per bucket through the serving
+        path, before ``start()``: builds and loads the kernels and, with
+        CUDA graphs, captures every glue program's graph (and every worker
+        round's, where the pipeline asks for worker graphs) on the
+        engine's stream, outside the served timings.  Claims the slot
+        caches, and zeroes them again afterwards."""
+        if self._thread is not None:
+            raise RuntimeError("warmup() runs before start()")
+        pipe = self.pipeline
+        pipe.claim_slot_cache(self)
+        with self._master_ctx():
+            for b in pipe.bucket_sizes:
+                tokens = torch.zeros(b, dtype=torch.int32, device=pipe.device)
+                pos = torch.zeros(b, dtype=torch.int32, device=pipe.device)
+                cache = pipe.slot_cache(self.slots)
+                self._step(tokens, cache, pos, None)
+            pipe.slot_cache(self.slots)
+            if pipe.device.type == "cuda":
+                torch.cuda.current_stream(pipe.device).synchronize()
+
+    def _step(self, tokens, cache, pos, timings):
+        """One decode step on the serving path (cluster or direct)."""
+        pipe = self.pipeline
+        if self.execution == "cluster":
+            return pipe.run_decode_step_cluster(
+                self.cluster, tokens, cache, pos, model=self.model,
+                timings=timings)
+        return pipe.run_decode_step_direct(tokens, cache, pos, self.worker_ids)
+
     # -- engine loop ---------------------------------------------------------
-    def _engine_main(self) -> None:
+    def _master_ctx(self):
+        """The master's stream on the card (made once), nothing on the
+        CPU."""
         device = self.pipeline.device
         if device.type != "cuda":
-            self._engine_loop()
-            return
-        with torch.cuda.stream(torch.cuda.Stream(device=device)):
+            return contextlib.nullcontext()
+        if self._master_stream is None:
+            self._master_stream = torch.cuda.Stream(device=device)
+        return torch.cuda.stream(self._master_stream)
+
+    def _engine_main(self) -> None:
+        with self._master_ctx():
             self._engine_loop()
 
     def _engine_loop(self) -> None:
         pipe = self.pipeline
         sched = self.scheduler[self.model]
-        cache = pipe.init_slot_cache(self.slots)
+        cache = pipe.slot_cache(self.slots)
         # host-side per-slot decode state; active slots are ALWAYS the
         # prefix [0, len(slots_live)) — compaction maintains the invariant
         slots_live: list[_Slot] = []  # guarded-by: engine-thread
@@ -303,19 +359,14 @@ class CodedLMServer:
             try:
                 tokens = torch.tensor(last_tok[:b], device=pipe.device)
                 step_pos = torch.tensor(pos[:b], device=pipe.device)
-                if self.execution == "cluster":
-                    logits, nxt, cache = pipe.run_decode_step_cluster(
-                        self.cluster, tokens, cache, step_pos,
-                        model=self.model, timings=timings)
-                else:
-                    logits, nxt, cache = pipe.run_decode_step_direct(
-                        tokens, cache, step_pos, self.worker_ids)
+                logits, nxt, cache = self._step(tokens, cache, step_pos,
+                                                timings)
                 nxt = nxt.cpu().numpy()
             except Exception as err:  # ClusterDegraded, kernel failure, ...
                 # a mid-step failure leaves the caches inconsistent for every
                 # rider: fail them all rather than serve wrong tokens
                 fail_all(err)
-                cache = pipe.init_slot_cache(self.slots)
+                cache = pipe.slot_cache(self.slots)  # zeroed in place
                 continue
             self.decode_steps += 1
             self.decode_time_s += time.perf_counter() - t0

@@ -680,8 +680,9 @@ def test_cuda_capture_replays_k1_worker_and_k2_transition_cells(cuda):
         before = counter.count
         a1, a2, err = _capture(pipe, cell, cuda)
         assert err is None, (cell.cell_id, err)
-        # warm-up, capture and eager: the replay adds no wrapper launch
-        assert counter.count - before == 3 * per_call
+        # warm-up, two replays (each adds the launches its graph holds; the
+        # capture itself launches nothing) and the eager call
+        assert counter.count - before == 4 * per_call
     assert not torch.equal(a1[1], a2[1])  # another subset's decode inverse
 
 
@@ -700,7 +701,7 @@ def test_cuda_capture_replays_a_k3_encoder_cell(cuda):
     before = k3.launches.count
     _, _, err = _capture(None, cell, cuda)
     assert err is None, err
-    assert k3.launches.count - before == 3
+    assert k3.launches.count - before == 4  # warm-up, two replays, eager
 
 
 def test_cuda_k3_decode_capture_bakes_the_inverse(cuda):
@@ -736,3 +737,270 @@ def test_cuda_contracts_clean_and_captured(cuda):
     assert all("K3" in why for why in rep.stats[f"{dcfg.label}/eager_only_reasons"])
     assert rep.stats[f"{dcfg.label}/captured"] + len(eager) == \
         rep.stats[f"{dcfg.label}/programs_checked"]
+
+
+# -- compiled programs: CUDA-graph round programs -----------------------------
+def _served(cuda, graphs, pool, delays, groups=(1, 3, 2, 4, 1), hw=56, seed=5,
+            workers=False):
+    """VGG-16 at ``hw`` served at pipeline depth 2 (fused transitions, n=8,
+    (2, 4)) in request groups, each submitted at once and finished before
+    the next (the same batches in every run), the worker rounds replayed
+    too where ``workers``.  Returns the outputs, the server and the worker
+    graph counts read before shutdown."""
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.runtime import StragglerModel
+    from repro_torch.serving import CodedServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = init_cnn("vgg16", torch.Generator().manual_seed(seed), cuda)
+    srv = CodedServer.from_cnn(
+        "vgg16", params, 8, default_kab=(2, 4), input_hw=hw,
+        straggler=StragglerModel(np.asarray(delays)), mode="threads",
+        bucket_sizes=(1, 2, 4), pipeline_depth=2, fuse_transitions=True,
+        pool=pool, device=cuda)
+    srv.pipeline.set_graphs(graphs, workers=workers)
+    xs = np.random.default_rng(seed).standard_normal(
+        (sum(groups), 3, hw, hw)).astype(np.float32)
+    srv.warmup()
+    outs, i = [], 0
+    with srv:
+        for g in groups:
+            with srv.scheduler.not_empty:
+                handles = srv.submit_many(xs[i:i + g])
+            outs += [torch.as_tensor(h.result(timeout=300)) for h in handles]
+            i += g
+        counts = (srv.cluster._pool_impl().graph_counts()
+                  if srv.cluster.pool == "device" else [])
+    return outs, srv, counts, params, xs
+
+
+# survivors 0 and 1, worker 1 delayed (its dispatch, and so its replay, on
+# the timer thread); every other worker slowed far beyond a round
+FORCED_DELAYED = [0.0, 0.01] + [0.25] * 6
+
+
+@pytest.mark.parametrize("pool", ["device", "threads"])
+def test_cuda_vgg16_56_served_replayed_equals_eager(cuda, pool):
+    """VGG-16 56x56 served with the rounds replayed from CUDA graphs (the
+    master's on both pools, the workers' on the device pool) against the
+    same server with ``graphs=False`` and (device pool) with the default,
+    worker rounds eager: every result ``torch.equal``, all within 1e-4 of
+    max|uncoded|, captures within their bounds, and every kind of program
+    replayed."""
+    from repro_torch.models.cnn import run_convls
+
+    got, srv, counts, params, xs = _served(cuda, True, pool, FORCED_DELAYED,
+                                           workers=pool == "device")
+    eager, _, _, _, _ = _served(cuda, False, pool, FORCED_DELAYED)
+    for g, e in zip(got, eager):
+        assert torch.equal(g, e)
+    if pool == "device":
+        default, _, eager_counts, _, _ = _served(cuda, True, pool,
+                                                 FORCED_DELAYED)
+        assert eager_counts == [0] * 8
+        for g, d in zip(got, default):
+            assert torch.equal(g, d)
+    ref = run_convls("vgg16", params, torch.as_tensor(xs, device=cuda)).cpu()
+    scale = float(ref.abs().max())
+    assert float((torch.stack(got) - ref).abs().max()) <= 1e-4 * scale
+    pipe = srv.pipeline
+    master = pipe.master_graphs
+    assert 0 < master.num_graphs <= pipe.master_graph_bound
+    assert all(master.replays[k] > 0 for k in ("encoder", "transition", "decoder"))
+    if pool == "device":
+        assert counts[0] > 0 and counts[1] > 0
+        assert max(counts) <= pipe.worker_graph_bound
+
+
+def test_cuda_capture_on_master_while_timer_dispatches(cuda):
+    """The master captures new programs while the device pool's timer
+    thread dispatches (and replays) a straggler's rounds on its own
+    stream: thread-local capture mode lets both proceed, and every result
+    is right."""
+    from repro_torch.core.graphs import GraphSet
+    from repro_torch.core.pipeline import Program
+
+    impl = _pool(cuda, [0.0, 0.002])
+    xe = torch.ones(2, 1, 4, 64, device=cuda)
+    ke = torch.ones(2, 64, 32, device=cuda)
+
+    def raw(x, k):
+        return k2.matmul(x[0].contiguous(), k)
+
+    fn = lambda i: impl.program(("t",), raw, i, None,  # noqa: E731
+                                torch.cuda.CUDAGraph)
+    master = GraphSet("master", cuda)
+    try:
+        impl.warm(fn, xe, ke, "s")
+        pendings = [impl.submit(fn, xe, ke, "s") for _ in range(40)]
+        worker1 = impl.graph_set(1, torch.cuda.CUDAGraph)
+        replays0 = worker1.replays.get("worker", 0)
+        for m in range(1, 25):  # new signatures: a capture each
+            prog = Program(lambda a: k2.matmul(a, a.t().contiguous()),
+                           name=f"m{m}", graphs=master)
+            a = torch.full((m, 16), 0.5, device=cuda)
+            _close(prog(a), torch.full((m, m), 4.0))
+        for pending in pendings:
+            results, _, _ = impl.collect(pending, 2)
+            for out in results.values():
+                _close(impl.gather(out), torch.full((4, 32), 64.0))
+        assert worker1.replays["worker"] > replays0  # the timer kept going
+        assert master.num_graphs == 24
+    finally:
+        impl.shutdown()
+        torch.cuda.synchronize()
+
+
+def test_cuda_resident_filter_shard_is_not_copied(cuda):
+    """A worker graph keeps its coded filter shard where it lies: the
+    graph's resident is the shard itself, its static buffers hold the
+    share only, and rewriting the shard in place changes the replay."""
+    from repro_torch.core.pipeline import build_cnn_pipeline
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.runtime import FcdccCluster, StragglerModel
+
+    params = init_cnn("vgg16", torch.Generator().manual_seed(6), cuda)
+    pipe = build_cnn_pipeline("vgg16", params, 8, default_kab=(2, 4),
+                              input_hw=32, fuse_transitions=True, device=cuda)
+    pipe.set_graphs(True, workers=True)
+    x = torch.as_tensor(RNG.standard_normal((1, 3, 32, 32)).astype(np.float32),
+                        device=cuda)
+    with FcdccCluster(pipe.specs[0].plan, StragglerModel.none(8),
+                      mode="threads", pool="device", device=cuda) as cl:
+        cl.load_pipeline(pipe, "v")
+        cl.run_pipeline(x, model="v")
+        impl = cl._pool_impl()
+        shards = impl.resident_filters("v/conv1_1", pipe.coded_filters[0])
+        gs = impl.graph_set(3, torch.cuda.CUDAGraph)
+        ent = next(g for (prog, sig, slot), g in gs._graphs.items()
+                   if slot == "v/conv1_1")
+        assert [j for j, _ in ent.copied] == [0]
+        assert ent.resident[1][1] == shards[3].data_ptr()
+        share_bytes = sum(s.numel() * 4 for g in gs._graphs.values()
+                          for _, s in g.copied)
+        assert gs.static_bytes == share_bytes
+        fn = lambda i: impl.program(pipe.specs[0].program_key,  # noqa: E731
+                                    pipe.layers[0].worker_compute, i,
+                                    pipe._cluster_programs,
+                                    torch.cuda.CUDAGraph)
+        xe = pipe.encoder(0)(x)
+
+        def launch():
+            out, done = impl._launch(fn, xe, shards, 3, impl._ready_event(),
+                                     "v/conv1_1")
+            done.synchronize()
+            return out.clone()
+
+        before = launch()
+        shards[3].mul_(2.0)
+        after = launch()
+        shards[3].mul_(0.5)
+        _close(after, 2.0 * before)
+        assert len(gs._graphs) == len(pipe.specs)  # replayed, not recaptured
+
+
+def test_cuda_capture_counts_bounded_under_batches_and_subsets(cuda):
+    """Many batch sizes and survivor subsets on the device pool: graphs per
+    worker at or below one per (layer, bucket), the master's at its
+    bound; a repeat adds no capture."""
+    from repro_torch.core.pipeline import build_cnn_pipeline
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.runtime import FcdccCluster, StragglerModel
+
+    params = init_cnn("vgg16", torch.Generator().manual_seed(7), cuda)
+    pipe = build_cnn_pipeline("vgg16", params, 8, default_kab=(2, 4),
+                              input_hw=32, fuse_transitions=True,
+                              bucket_sizes=(1, 2, 4), device=cuda)
+    pipe.set_graphs(True, workers=True)
+    for delays in ([0.0] * 8, [0.0, np.inf, 0.0, 0.0, np.inf, 0.0, 0.0, 0.0],
+                   [np.inf, np.inf, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]):
+        with FcdccCluster(pipe.specs[0].plan, StragglerModel(np.array(delays)),
+                          mode="threads", pool="device", device=cuda) as cl:
+            cl.load_pipeline(pipe, "v")
+            for b in (1, 2, 3, 4, 1, 3):
+                x = torch.as_tensor(RNG.standard_normal((b, 3, 32, 32))
+                                    .astype(np.float32), device=cuda)
+                xp, _ = pipe.pad_to_bucket(x)
+                y, timings = cl.run_pipeline(xp, model="v")
+                want = pipe.run(xp, timings[0].used_workers)
+                _close(y, want, rel=1e-4)
+            counts = cl._pool_impl().graph_counts()
+            assert 0 < max(counts) <= pipe.worker_graph_bound
+            n = pipe.master_graphs.num_graphs
+            cl.run_pipeline(xp, model="v")
+            assert pipe.master_graphs.num_graphs == n
+    assert pipe.master_graphs.num_graphs <= pipe.master_graph_bound
+
+
+def test_cuda_lm_smoke_replayed_equals_eager(cuda):
+    """SmolLM smoke on the device pool (worker 2 straggling, worker 3
+    dead), glue and worker rounds replayed, against the same requests
+    served with ``graphs=False``: tokens and logits rows ``torch.equal``;
+    warmup captured every graph, serving none; captures within bounds."""
+    from repro_torch.core.decoder_pipeline import build_lm_decoder_pipeline
+    from repro_torch.runtime import StragglerModel
+    from repro_torch.serving import CodedLMServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _smoke_lm(cuda)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(1, 9, 6)]
+    gens = [int(g) for g in rng.integers(2, 9, 6)]
+    runs = {}
+    for graphs in (True, False):
+        pipe = build_lm_decoder_pipeline(cfg, params, 4, k_b=4,
+                                         bucket_sizes=(1, 2, 4), max_len=32,
+                                         backend="kernel", device=cuda,
+                                         graphs=graphs)
+        pipe.set_graphs(graphs, workers=graphs)
+        rows = {}
+        srv = CodedLMServer(
+            pipe, StragglerModel(np.array([0.0, 0.0, 0.01, np.inf])),
+            mode="threads", pool="device", max_prompt=8, poll_interval_s=0.001,
+            on_logits=lambda rid, row, rows=rows: rows.setdefault(rid, []).append(
+                row.clone()))
+        srv.warmup()
+        warm = 0 if pipe.master_graphs is None else pipe.master_graphs.num_graphs
+        with srv:
+            with srv.scheduler.not_empty:
+                handles = [srv.submit(p, g) for p, g in zip(prompts, gens)]
+            toks = [list(h.result(timeout=300)) for h in handles]
+            counts = srv.cluster._pool_impl().graph_counts()
+        torch.cuda.synchronize()
+        runs[graphs] = (toks, [torch.stack(rows[h.request_id]) for h in handles])
+        if graphs:
+            assert pipe.master_graphs.num_graphs == warm <= pipe.glue_graph_bound
+            assert 0 < max(counts) <= pipe.worker_graph_bound
+            assert pipe.master_graphs.replays["glue.attn"] > 0
+    assert runs[True][0] == runs[False][0]
+    for r, e in zip(runs[True][1], runs[False][1]):
+        assert torch.equal(r, e)
+
+
+def test_cuda_capture_stream_released_with_its_thread(cuda):
+    """A thread that captured leaves no CUDA stream behind: its capture
+    stream is destroyed when it exits (a pool's timer thread, a server's
+    engine thread)."""
+    import gc
+    import threading
+
+    from repro_torch.core import graphs
+    from repro_torch.core.pipeline import Program
+
+    before = graphs.live_capture_streams()
+    seen = []
+
+    def capture():
+        gs = graphs.GraphSet("t", cuda)
+        prog = Program(lambda a: a * 2.0, name="twice", graphs=gs)
+        seen.append(prog(torch.ones(8, device=cuda)).sum().item())
+        seen.append(graphs.live_capture_streams())
+
+    for _ in range(3):
+        t = threading.Thread(target=capture)
+        t.start()
+        t.join()
+    gc.collect()
+    assert seen == [16.0, before + 1] * 3
+    assert graphs.live_capture_streams() == before
