@@ -11,16 +11,35 @@ Phases, in order; any failure raises:
 
  1. print the card's name and power limit (``nvidia-smi``);
  2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``;
- 3. kernel phase: each kernel at every shape the serving phase launches
+ 3. training: SmolLM-135M at full width and depth (30 layers, d_model
+    576, vocab 49,152, fp32, TF32 off) trained through ``train`` (the
+    entry point of ``python -m repro_torch.launch.train``) for 30 steps of
+    8 x 256 synthetic tokens, checkpointing every 15 steps.  Step 1's loss
+    and gradients (the train step's own ``value_and_grad``) held against a
+    plain float64 recompute on the card (``lm_loss_fp64``, written apart
+    from the port's model code): the loss within 1e-5 relative, every
+    leaf's gradient within 1e-4 of its max|g|, finite and non-zero in
+    every layer; ``train``'s first loss equal to the checked one; the mean
+    of the last 5 losses below the first 5's.  Restart: the checkpoints
+    after step 15 are removed and a fresh ``train`` call restores step 15
+    and runs the last 15 steps, each loss within 1e-5 of the
+    uninterrupted run's.  One step with ``microbatches=2`` from the step-15
+    checkpoint against the full batch, within the reference's tolerances;
+    K4 called under autograd on the card raises.  The path launches none
+    of K1-K4 (the reference trains through plain ``jnp`` attention; K4 has
+    no backward); its launch counts are read around the run and K4's must
+    be 0.  Three more steps under ``torch.profiler`` give the device busy
+    time a step and the kernels that take it;
+ 4. kernel phase: each kernel at every shape the serving phase launches
     (VGG-16 at 224x224, bucket 8), held against its plain PyTorch version
     on the same inputs and against a second launch of itself (same bits),
     timed beside its plain version, a library call and its bound, with
     the launch plan (tile, split) K1 and K2 took at each shape;
- 4. serving phase: ``CodedServer`` serving 16 VGG-16 224x224 requests on
+ 5. serving phase: ``CodedServer`` serving 16 VGG-16 224x224 requests on
     n=8 coded workers (2 stragglers at +50 ms, 1 dead worker, fused
     transitions, pipeline depth 2), every result held against the uncoded
     stack; the kernels' launch counts are read around this phase only;
- 5. LM kernel phase: SmolLM-135M at full width and depth (random weights
+ 6. LM kernel phase: SmolLM-135M at full width and depth (random weights
     from the seed) compiled into a ``CodedDecoderPipeline`` on n=4 workers
     (k_a=1, k_b=4: delta=2, gamma=2); K2 at the worker GEMM shapes, K3 at
     every decode shape of bucket 4 and every build-time encode shape (the
@@ -29,18 +48,18 @@ Phases, in order; any failure raises:
     operand type; the served path is fp32), each held against its plain
     version and a second launch of itself, and timed beside a library call
     and its bound, with the launch plan it took;
- 6. LM serving phase: ``CodedLMServer`` serving 8 requests (prompts of
+ 7. LM serving phase: ``CodedLMServer`` serving 8 requests (prompts of
     2-16 tokens, 8-16 new tokens, drawn from the seed) under one straggler
     (+50 ms) and one dead worker; the K2, K3 and K4 launch counts are read
     around this phase only;
- 7. LM correctness: the logits rows the server chose each token from
+ 8. LM correctness: the logits rows the server chose each token from
     (recorded through ``on_logits`` while it served) held against the
     undistributed ``transformer.prefill`` + ``decode_step``, teacher-forced
     on each served stream: within 1e-4 relative to max|logit|, and each
     served token an argmax of the undistributed logits up to that
     tolerance;
- 8. the device worker pool, the cluster's layer entry points, the HTTP
-    front-end and ``CodedLinear``: the CNN server of phase 4 rebuilt on
+ 9. the device worker pool, the cluster's layer entry points, the HTTP
+    front-end and ``CodedLinear``: the CNN server of phase 5 rebuilt on
     ``pool="device"`` (stragglers as delayed dispatch) serving the same 16
     requests, held against the uncoded stack and printed beside the thread
     pool's rates and round phases; one forced-survivor batch through
@@ -49,14 +68,14 @@ Phases, in order; any failure raises:
     batched infer, stats, drain), held against the uncoded stack;
     ``run_layer_elastic`` on one VGG-16 layer with more than gamma workers
     dead, and ``run_layer`` on preloaded filters, against the uncoded conv;
-    the LM requests of phase 6 on the device pool, every token equal to
-    the thread pool's and the logits held as in phase 7, round phases of
+    the LM requests of phase 7 on the device pool, every token equal to
+    the thread pool's and the logits held as in phase 8, round phases of
     both pools side by side (``scripts/torch_pool_rounds.py`` takes them
     apart further, in turns);
     ``CodedLinear`` at SmolLM's up-projection widths for every survivor
     subset against ``torch.matmul``.  Each phase reads the launch counts
     around itself only;
- 9. compiled programs: every served phase above runs the master's
+10. compiled programs: every served phase above runs the master's
     programs as CUDA graphs (``repro_torch.core.graphs``; captured in the
     servers' warmups, replayed while serving: the encoder, transitions,
     decoder and LM glue, on both pools); the workers' rounds run eagerly,
@@ -69,8 +88,8 @@ Phases, in order; any failure raises:
     round replayed, graphs a worker within ``worker_graph_bound``), all
     five ``torch.equal``; the LM requests on the device pool with
     ``graphs=False`` and with worker graphs, every token equal to the
-    default run's and the logits held as in phase 7;
-10. the analysis gate's card half (``repro_torch.analysis.contracts``)
+    default run's and the logits held as in phase 8;
+11. the analysis gate's card half (``repro_torch.analysis.contracts``)
     over every program cell of the two served configurations at full
     width (VGG-16 224, n=8, (2, 4), fused, buckets 1-8; SmolLM-135M on
     exp13's plan, buckets 1-4): each cell run once under the dispatch
@@ -82,11 +101,15 @@ Phases, in order; any failure raises:
     that set; the eager-only cells (the LM decoder: K3 takes the survivor
     inverse by value) listed with their reason; any contract error fails
     the script;
-11. one JSON line with the compiled programs' counts by phase, one JSON
+12. one JSON line with the training numbers (ms a step and tokens/s, the
+    median over steps 5-30, peak device memory, the model FLOPs a step
+    and their share of the fp32 peak, the card's name and power limit),
+    one JSON line with the compiled programs' counts by phase, one JSON
     line with the kernels' numbers (K1-K4; K2's top-level numbers
     are its CNN pass, its LM numbers sit under ``paths.lm``; each kernel's
-    ``launches`` is its count on the phase-4 or phase-6 main path, and
-    ``launches_by_path`` its count in every phase that ran it; a replayed
+    ``launches`` is its count on the phase-5 or phase-7 main path, and
+    ``launches_by_path`` its count in every phase that ran it, training's
+    0 among them; a replayed
     graph launches no wrapper, so its launches count as the kernels the
     graph holds, once per replay), then the result line.
 
@@ -107,6 +130,8 @@ from __future__ import annotations
 
 import gc
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -171,6 +196,21 @@ TOL_LM = 1e-4
 FORCED_DELAY_S, HTTP_BATCH = 0.2, 4
 ELASTIC_LAYER, ELASTIC_HW = "conv2_1", 112
 TOL_LINEAR = 1e-4
+# The training phase: SmolLM-135M at full width and depth, fp32, through
+# python -m repro_torch.launch.train's train().  Step 1 against a plain
+# float64 recompute: fp32 sums over 576-1536 products and 2,048 tokens
+# stay near 1e-6 of a leaf's max|g|, far inside 1e-4; a gradient cut
+# through attention reads 0, far outside it.  The restart against the
+# uninterrupted run: the embedding's CUDA backward adds atomically, so
+# the two differ in the last bits of a gradient; 15 Adam steps keep that
+# near 1e-7 of the loss.  Microbatches against the full batch: two fp32
+# sums of the same products, so the accumulated gradient, the moments and
+# the params stay near 1e-6 of each leaf's max, inside 1e-4; a step that
+# dropped a slice reads near 1 (the check reads that planted fault too).
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT = \
+    "smollm-135m", 30, 8, 256, 15
+TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, TOL_TRAIN_RESTART = 1e-5, 1e-4, 1e-5
+TOL_MICRO = 1e-4
 
 
 def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
@@ -1115,7 +1155,7 @@ def coded_linear_phase(device, counters) -> dict:
 
 def contracts_phase(lm_pipe, device, counters) -> dict:
     """The analysis gate's card half over the served configurations'
-    program spaces (phase 9): the VGG-16 pipeline the CNN server runs,
+    program spaces (phase 11): the VGG-16 pipeline the CNN server runs,
     rebuilt from the seed, and the LM pipeline the LM server ran.  Raises
     with every finding when a contract fails; returns the counts."""
     from repro_torch.analysis import contracts, dispatch_tools
@@ -1182,6 +1222,389 @@ def _lm_line(name: str, server, toks: int, wall: float) -> str:
             f"{server.decode_time_s - server.round_encode_s - server.round_compute_s - server.round_decode_s:.4f}")
 
 
+def lm_loss_fp64(params, cfg, tokens, targets):
+    """SmolLM's training loss written out plainly in float64, apart from the
+    port's model code: embedding, per layer RMS norm (``x / rms * (1 + g)``),
+    rotary q/k (half split), causal GQA softmax attention, SwiGLU FFN, the
+    final norm, the tied head, then the mean next-token NLL.  The dense
+    llama case only (the configuration this phase trains)."""
+    if (cfg.qk_norm or cfg.sandwich_norms or cfg.embed_scale or cfg.window
+            or cfg.attn_softcap or cfg.logit_softcap or cfg.act != "silu"
+            or not cfg.tie_embeddings):
+        raise ValueError(f"lm_loss_fp64 covers the plain llama case, not {cfg}")
+    f64 = torch.float64
+    b, s = tokens.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    embed = params["embed"].to(f64)
+
+    def norm(x, g):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * (1 + g.to(f64))
+
+    half = hd // 2
+    inv = cfg.rope_base ** (-torch.arange(half, dtype=f64, device=embed.device) / half)
+    ang = torch.arange(s, dtype=f64, device=embed.device)[:, None] * inv  # (S, hd/2)
+    cos, sin = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+
+    def rope(t):  # (B, S, heads, hd)
+        t1, t2 = t[..., :half], t[..., half:]
+        return torch.cat([t1 * cos - t2 * sin, t2 * cos + t1 * sin], dim=-1)
+
+    causal = torch.ones(s, s, dtype=torch.bool, device=embed.device).tril()
+    x = embed[tokens.long()]
+    for l in range(cfg.layers):
+        w = {k: v[l].to(f64) for k, v in params["dense_layers"].items()}
+        a = norm(x, w["ln_attn"])
+        q = rope((a @ w["wq"]).reshape(b, s, h, hd))
+        k = rope((a @ w["wk"]).reshape(b, s, hkv, hd))
+        v = (a @ w["wv"]).reshape(b, s, hkv, hd)
+        k = k.repeat_interleave(h // hkv, dim=2)  # query head g*rep+r reads g
+        v = v.repeat_interleave(h // hkv, dim=2)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+        p = torch.softmax(sc.masked_fill(~causal, -math.inf), dim=-1)
+        x = x + torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, s, h * hd) @ w["wo"]
+        f = norm(x, w["ln_ffn"])
+        x = x + (F.silu(f @ w["w_gate"]) * (f @ w["w_up"])) @ w["w_down"]
+    logits = norm(x, params["ln_f"]) @ embed.t()
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets.long()[..., None]).mean()
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    scale = float(want.abs().max())
+    return float((got.double() - want).abs().max()) / max(scale, 1e-300)
+
+
+def check_step1_fp64(bundle, params, batch) -> dict:
+    """The port's step-1 loss and gradients (``steps.value_and_grad`` of
+    the bundle's loss, the train step's own) held against
+    ``lm_loss_fp64`` on the same params, cast to float64, on the same
+    device: the loss within TOL_TRAIN_LOSS relative, every leaf's gradient
+    within TOL_TRAIN_GRAD of its max|g|, finite, and non-zero in every
+    layer of every stacked leaf."""
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_items, tree_map
+
+    loss, grads = steps.value_and_grad(bundle.loss_fn, params, batch)
+    p64 = tree_map(lambda t: t.detach().double(), params)
+    loss64, g64 = steps.value_and_grad(
+        lambda p, b: lm_loss_fp64(p, bundle.cfg, b["tokens"], b["labels"]),
+        p64, batch)
+    loss_err = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    if not loss_err <= TOL_TRAIN_LOSS:
+        raise AssertionError(f"step-1 loss {float(loss)} vs fp64 "
+                             f"{float(loss64)}: rel err {loss_err:.2e}")
+    worst, leaves = 0.0, {}
+    want = dict(tree_items(g64))
+    for path, g in tree_items(grads):
+        name = "/".join(path)
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"step-1 gradient {name} is not finite")
+        per_layer = g.flatten(1).abs().amax(1) if path[0] == "dense_layers" \
+            else g.abs().max()[None]
+        if not (per_layer > 0).all():
+            zero = torch.nonzero(per_layer == 0).flatten().tolist()
+            raise AssertionError(f"step-1 gradient {name} is zero (layers "
+                                 f"{zero}): the gradient was cut")
+        err = _rel(g, want[path])
+        if not err <= TOL_TRAIN_GRAD:
+            raise AssertionError(f"step-1 gradient {name} vs fp64: {err:.2e} "
+                                 f"of max|g| > {TOL_TRAIN_GRAD}")
+        worst = max(worst, err)
+        leaves[name] = err
+    del p64, g64
+    return {"loss": float(loss), "loss_fp64": float(loss64),
+            "loss_rel_err": loss_err, "grad_rel_err": worst,
+            "grad_rel_err_by_leaf": leaves}
+
+
+def _train_config(**kw):
+    """The ``TrainConfig`` that ``train`` gives a TRAIN_STEPS-step run."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import AdamWConfig
+
+    return steps.TrainConfig(opt=AdamWConfig(), warmup=min(20, TRAIN_STEPS // 10 + 1),
+                             total_steps=TRAIN_STEPS, **kw)
+
+
+def _restored(bundle, ckpt_dir: str, step: int, device) -> dict:
+    """``{"params", "opt"}`` as the checkpoint of ``step`` holds them."""
+    from repro_torch.checkpoint import restore
+    from repro_torch.optim import init_state
+
+    params = bundle.init(torch.Generator().manual_seed(SEED), torch.float32, device)
+    return restore(ckpt_dir, step, {"params": params, "opt": init_state(params)})
+
+
+def _worst(got: dict, want: dict) -> float:
+    """The largest of ``_rel`` over the leaves of two trees of one shape."""
+    from repro_torch.tree import tree_leaves
+
+    return max(_rel(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def check_microbatches(bundle, ckpt_dir: str, step: int, batch, device) -> dict:
+    """``microbatches=2`` against the full batch, from the run's own
+    checkpoint at ``step`` (its moments filled, its learning rate not 0):
+    the loss within TOL_TRAIN_LOSS relative; the accumulated gradient
+    within TOL_MICRO of each leaf's max|g|; then one train step's params
+    and moments within TOL_MICRO of each leaf's max, the params moved.
+    The gradient is held as well as the update because the update sees it
+    after clipping, where a gradient off by a factor gives the same step.
+    The gradient check is also read on a planted fault, the first slice's
+    gradient alone (an accumulation that dropped a slice), which must fail
+    it: the limit lies between the two readings."""
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_leaves
+
+    state = _restored(bundle, ckpt_dir, step, device)
+    params = state["params"]
+    (l1, g1), (l2, g2) = (steps.accumulated_value_and_grad(
+        bundle.loss_fn, params, batch, m) for m in (1, 2))
+    loss_err = abs(float(l2) - float(l1)) / abs(float(l1))
+    grad_err = _worst(g2, g1)
+    del g2
+    half = {k: v[:v.shape[0] // 2] for k, v in batch.items()}
+    _, g_fault = steps.value_and_grad(bundle.loss_fn, params, half)
+    fault_err = _worst(g_fault, g1)
+    del g1, g_fault, state, params
+    if not fault_err > TOL_MICRO:
+        raise AssertionError(f"microbatch check: a dropped slice reads "
+                             f"{fault_err:.2e}, inside {TOL_MICRO}")
+    if not (loss_err <= TOL_TRAIN_LOSS and grad_err <= TOL_MICRO):
+        raise AssertionError(f"microbatches=2 vs the full batch: loss rel err "
+                             f"{loss_err:.2e}, gradient {grad_err:.2e} of max|g|")
+    outs = []
+    for m in (1, 2):
+        state = _restored(bundle, ckpt_dir, step, device)
+        before = [p.clone() for p in tree_leaves(state["params"])]
+        fn = steps.build_train_step(bundle, _train_config(microbatches=m))
+        p, o, _ = fn(state["params"], state["opt"], batch)
+        moved = max(float((a - b).abs().max())
+                    for a, b in zip(tree_leaves(p), before))
+        outs.append((p, o, moved))
+        del before, state
+    (p1, o1, mv1), (p2, o2, mv2) = outs
+    if not (mv1 > 0 and mv2 > 0):
+        raise AssertionError("microbatch check: a step did not move the params")
+    update_err = {"params": _worst(p2, p1), "m": _worst(o2["m"], o1["m"]),
+                  "v": _worst(o2["v"], o1["v"])}
+    if not max(update_err.values()) <= TOL_MICRO:
+        raise AssertionError(f"microbatches=2 vs the full batch: the update "
+                             f"differs by {update_err} of each leaf's max")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err,
+            "dropped_slice_grad_rel_err": fault_err,
+            "update_rel_err": update_err, "update": mv1}
+
+
+def k4_refuses_autograd(device) -> str:
+    """K4 under grad mode with an operand that requires grad raises on the
+    card (it has no backward), and launches nothing."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention, launches
+
+    q = torch.randn(36, 16, 64, device=device, requires_grad=True)
+    kv = torch.randn(12, 16, 64, device=device)
+    before = launches.count
+    try:
+        flash_attention(q, kv, kv, rep=3)
+    except RuntimeError as e:
+        if launches.count != before:
+            raise AssertionError("K4 launched before refusing autograd") from e
+        return str(e).split(":")[0]
+    raise AssertionError("K4 took an operand that requires grad under autograd")
+
+
+def _synced_s(fn):
+    """``(fn(), seconds)`` with the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def train_profile(bundle, ckpt_dir: str, step: int, data, device, n: int = 3) -> dict:
+    """Where a train step's time goes, from the checkpoint at ``step``:
+    ``n`` steps under ``torch.profiler`` (the sum of the kernel records a
+    step is the device's busy time, one stream, no two kernels
+    overlapping; the six kernels that took the most of it), the same
+    steps' wall time on the host's clock, each step ending with its loss on
+    the host, and the device's idle share of that time; then ``n``
+    steps with the card synchronised around the loss and gradients and
+    around the AdamW update; then one checkpoint ``submit`` of the state
+    (the host snapshot it takes before returning) and its write."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import AsyncCheckpointer
+    from repro_torch.launch import steps
+    from repro_torch.optim import apply_updates
+    from repro_torch.optim.schedule import cosine_with_warmup
+    from repro_torch.tree import tree_leaves
+
+    state = _restored(bundle, ckpt_dir, step, device)
+    tcfg = _train_config()
+    fn = steps.build_train_step(bundle, tcfg)
+    p, o = state["params"], state["opt"]
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in data.batch(step + i).items()} for i in range(n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            p, o, met = fn(p, o, b)
+            float(met["loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        t = float(t if t is not None else ev.self_cuda_time_total)
+        if t > 0:
+            rows.append((t / 1e3 / n, ev.key, ev.count // n))
+    rows.sort(reverse=True)
+
+    grad_s, update_s = [], []
+    for b in batches:
+        (_, grads), dt = _synced_s(lambda: steps.value_and_grad(bundle.loss_fn, p, b))
+        grad_s.append(dt)
+        scale = cosine_with_warmup(o["step"], warmup=tcfg.warmup, total=tcfg.total_steps)
+        (p, o, _), dt = _synced_s(lambda: apply_updates(p, grads, o, tcfg.opt, scale))
+        update_s.append(dt)
+        del grads
+    writer = AsyncCheckpointer(ckpt_dir)
+    tree = {"params": p, "opt": o}
+    _, snap_s = _synced_s(lambda: writer.submit(step + 2 * n, tree))
+    t0 = time.perf_counter()
+    writer.wait()
+    write_s = time.perf_counter() - t0
+    busy = sum(r[0] for r in rows) if rows else None
+    return {"steps": n, "step_ms": step_ms, "device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1.0 - busy / step_ms,
+            "kernels_a_step": sum(r[2] for r in rows),
+            "top_kernels": [{"name": k[:90], "ms": t, "calls": c}
+                            for t, k, c in rows[:6]],
+            "loss_and_grads_ms": float(np.median(grad_s)) * 1e3,
+            "adamw_ms": float(np.median(update_s)) * 1e3,
+            "checkpoint_snapshot_ms": snap_s * 1e3,
+            "checkpoint_write_after_submit_s": write_s,
+            "checkpoint_bytes": sum(t.numel() * t.element_size()
+                                    for t in tree_leaves(tree))}
+
+
+def train_phase(device, counters, card: str, smoke: bool = False) -> dict:
+    """SmolLM-135M trained through ``train`` (the entry point of ``python
+    -m repro_torch.launch.train``), checked as the module docstring's
+    phase 3 says.  ``smoke`` runs the smoke config (a rehearsal on the
+    CPU); the script's run is the full config on the card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_leaves
+
+    bundle = get_bundle(TRAIN_ARCH, smoke=smoke)
+    cfg = bundle.cfg
+    params = bundle.init(torch.Generator().manual_seed(SEED), torch.float32, device)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    batch0 = {k: torch.from_numpy(v).to(device) for k, v in data.batch(0).items()}
+    step1 = check_step1_fp64(bundle, params, batch0)
+    del params
+    _empty_cache(device)
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        stamps = []
+
+        def on_step(step, metrics):
+            stamps.append(time.perf_counter())
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+
+        for c in counters:
+            c.reset()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        losses = train(TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                       seq=TRAIN_SEQ, smoke=smoke, ckpt_dir=ckpt_dir,
+                       ckpt_every=TRAIN_CKPT, device=device, seed=SEED,
+                       on_step=on_step)
+        wall = time.perf_counter() - t0
+        launches = {c.name: c.count for c in counters}
+        peak = (torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else None)
+        if launches.get("flash_attention", 0):
+            raise AssertionError(f"training launched K4: {launches}")
+        if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"training losses {losses}")
+        if abs(losses[0] - step1["loss"]) > 1e-6 * abs(step1["loss"]):
+            raise AssertionError(f"train's step-1 loss {losses[0]} is not the "
+                                 f"checked step's {step1['loss']}")
+        first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        if not last5 < first5:
+            raise AssertionError(f"loss did not fall: first 5 {first5}, last 5 "
+                                 f"{last5}")
+
+        # restart: drop the later checkpoints, resume from TRAIN_CKPT in a
+        # fresh train() call, and hold its losses to the run's own
+        for d in os.listdir(ckpt_dir):
+            if d.startswith("step-") and int(d.split("-")[1]) > TRAIN_CKPT:
+                shutil.rmtree(os.path.join(ckpt_dir, d))
+        rest = train(TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                     seq=TRAIN_SEQ, smoke=smoke, ckpt_dir=ckpt_dir,
+                     ckpt_every=TRAIN_CKPT, device=device, seed=SEED)
+        ref = np.asarray(losses[TRAIN_CKPT:])
+        if len(rest) != len(ref):
+            raise AssertionError(f"restart ran {len(rest)} steps, not {len(ref)}")
+        restart_err = float(np.max(np.abs(np.asarray(rest) - ref) / np.abs(ref)))
+        if not restart_err <= TOL_TRAIN_RESTART:
+            raise AssertionError(f"restart losses {rest} vs {ref.tolist()}: "
+                                 f"rel err {restart_err:.2e}")
+        b15 = {k: torch.from_numpy(v).to(device)
+               for k, v in data.batch(TRAIN_CKPT).items()}
+        micro = check_microbatches(bundle, ckpt_dir, TRAIN_CKPT, b15, device)
+        prof = (train_profile(bundle, ckpt_dir, TRAIN_CKPT, data, device)
+                if device.type == "cuda" else None)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    refused = k4_refuses_autograd(device) if device.type == "cuda" else None
+
+    # steps 5..30 (1-based): each step's time is the gap between the
+    # callbacks of consecutive steps (the loss is on the host by then)
+    gaps = np.diff(np.asarray(stamps))[3:]
+    step_s = float(np.median(gaps))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # 6 N T for the matmuls of forward and backward (the tied head once),
+    # plus attention's QK^T and PV over the full S x S square the plain
+    # masked route computes: 2 matmuls x 2 flops x 3 passes
+    attn = 12 * cfg.layers * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ ** 2 * cfg.head_dim
+    flops = 6 * n_params * tokens + attn
+    return {
+        "arch": cfg.name, "layers": cfg.layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab, "params": n_params, "steps": TRAIN_STEPS,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dtype": "float32",
+        "tf32": False, "ms_per_step": step_s * 1e3,
+        "ms_per_step_min_max": [float(gaps.min()) * 1e3, float(gaps.max()) * 1e3],
+        "tokens_per_s": tokens / step_s, "run_s": wall,
+        "peak_device_bytes": peak, "model_flops_per_step": flops,
+        "fp32_peak_share": flops / step_s / PEAK_FP32_FLOPS,
+        "loss_first5": first5, "loss_last5": last5, "losses": losses,
+        "step1": {k: v for k, v in step1.items() if k != "grad_rel_err_by_leaf"},
+        "step1_grad_rel_err_by_leaf": step1["grad_rel_err_by_leaf"],
+        "restart_rel_err": restart_err, "microbatches": micro,
+        "k4_under_autograd": refused, "launches": launches, "profile": prof,
+        "card": card,
+    }
+
+
+def _empty_cache(device) -> None:
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this proof "
@@ -1212,6 +1635,47 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
+
+    # -- the training path, first: a training job is a process of its own,
+    # so it runs before the serving phases start their threads ----------
+    tr = train_phase(device, (k1_launches, k2_launches, k3_launches,
+                              k4_launches), card)
+    _empty_cache(device)
+    s1, mb, pr = tr["step1"], tr["microbatches"], tr["profile"]
+    print(f"trained {tr['arch']} ({tr['params']} params, {tr['layers']} "
+          f"layers, fp32, TF32 off) for {tr['steps']} steps of "
+          f"{tr['batch']} x {tr['seq']} tokens on {card}: "
+          f"{tr['ms_per_step']:.2f} ms/step (median of steps 5-30; min/max "
+          f"{tr['ms_per_step_min_max'][0]:.2f}/{tr['ms_per_step_min_max'][1]:.2f}), "
+          f"{tr['tokens_per_s']:.0f} tokens/s, {tr['fp32_peak_share']:.3f} of the "
+          f"fp32 peak by model FLOPs, peak {tr['peak_device_bytes'] / 2**30:.2f} "
+          f"GiB; loss {tr['loss_first5']:.4f} -> {tr['loss_last5']:.4f} (mean "
+          f"of first/last 5); launches {tr['launches']}")
+    print(f"  step 1 vs fp64 on the card: loss {s1['loss']:.6f} vs "
+          f"{s1['loss_fp64']:.6f} (rel {s1['loss_rel_err']:.2e} <= "
+          f"{TOL_TRAIN_LOSS}), gradients max {s1['grad_rel_err']:.2e} of "
+          f"max|g| <= {TOL_TRAIN_GRAD}, every leaf finite and non-zero in "
+          f"every layer; restart from step {TRAIN_CKPT}: rel err "
+          f"{tr['restart_rel_err']:.2e} <= {TOL_TRAIN_RESTART}; microbatches=2 "
+          f"vs full batch: loss {mb['loss_rel_err']:.2e}, gradients "
+          f"{mb['grad_rel_err']:.2e} of max|g| <= {TOL_MICRO} (a dropped "
+          f"slice reads {mb['dropped_slice_grad_rel_err']:.2e}), update "
+          f"params/m/v {mb['update_rel_err']['params']:.2e}/"
+          f"{mb['update_rel_err']['m']:.2e}/{mb['update_rel_err']['v']:.2e} "
+          f"(largest move {mb['update']:.2e}); K4 under autograd: "
+          f"{tr['k4_under_autograd']}")
+    if pr is not None and pr["device_busy_ms"] is not None:
+        print(f"  profiler, {pr['steps']} steps: device busy "
+              f"{pr['device_busy_ms']:.2f} ms a step in {pr['kernels_a_step']} "
+              f"kernels, idle {pr['device_idle_share']:.3f} of the same "
+              f"steps' {pr['step_ms']:.2f} ms; most time: " + "; ".join(
+                  f"{k['name'][:60]} {k['ms']:.2f} ms x{k['calls']}"
+                  for k in pr["top_kernels"][:4]))
+        print(f"  synchronised: loss and gradients {pr['loss_and_grads_ms']:.2f} "
+              f"ms, AdamW {pr['adamw_ms']:.2f} ms a step; checkpoint of "
+              f"{pr['checkpoint_bytes'] / 2**30:.2f} GiB: snapshot "
+              f"{pr['checkpoint_snapshot_ms']:.1f} ms inside submit, write "
+              f"{pr['checkpoint_write_after_submit_s']:.2f} s after it")
 
     # -- the coded CNN path -------------------------------------------------
     server, params = build_server(device, HW)
@@ -1257,7 +1721,7 @@ def main() -> int:
     del server, pipe, outs
     gc.collect()
     torch.cuda.empty_cache()
-    by_path = {"cnn_threads": launches}
+    by_path = {"train": tr["launches"], "cnn_threads": launches}
     graph_phases = {"cnn_threads": graphs_t}
 
     # -- the same CNN server on the device pool ------------------------------
@@ -1504,6 +1968,7 @@ def main() -> int:
         e["launches_by_path"] = {path: counts[e["name"]]
                                  for path, counts in by_path.items()
                                  if e["name"] in counts}
+    print(json.dumps({"train": tr}))
     print(json.dumps({"graphs": graph_phases}))
     print(json.dumps({"kernels": [k1e, k2e, k3e, k4e]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """SmolLM-135M, llama-arch small [hf:HuggingFaceTB/SmolLM-135M]: the
 reference's ``configs/smollm_135m.py`` numbers, as the port's
-``LMConfig``."""
+``LMConfig`` (``full`` / ``smoke``) and as the bundles the reference's
+constructors return (``full_bundle`` / ``smoke_bundle``)."""
+from ..models.registry import ModelBundle, make_lm_bundle
 from ..models.transformer import LMConfig
 
 ARCH = "smollm-135m"
@@ -33,3 +35,11 @@ def smoke() -> LMConfig:
         vocab=256,
         max_seq=128,
     )
+
+
+def full_bundle() -> ModelBundle:
+    return make_lm_bundle(full())
+
+
+def smoke_bundle() -> ModelBundle:
+    return make_lm_bundle(smoke())

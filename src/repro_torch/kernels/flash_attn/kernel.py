@@ -10,7 +10,9 @@ operands follow the TPU kernel: scores, softmax state and sums in fp32,
 ``p`` rounded to bf16 before P.V, a bf16 output.  ``flash_attention``
 launches the CUDA kernel for CUDA tensors and runs
 ``flash_attention_plain`` only for tensors that lie on the CPU;
-``flash_plan`` chooses the launch shape.
+``flash_plan`` chooses the launch shape.  The kernel has no backward (nor
+has the TPU kernel): on the card it refuses an operand that requires grad
+while grad mode is on, where the output would silently cut the gradient.
 """
 from __future__ import annotations
 
@@ -130,7 +132,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     key ``j`` is masked for query ``i`` when ``causal`` and ``j > i``.
     fp32 or bf16 (all three alike), ``D`` in ``HEAD_DIMS``.  CUDA tensors
     launch K4 as ``flash_plan`` says; CPU tensors take
-    ``flash_attention_plain``."""
+    ``flash_attention_plain``.  On CUDA, an operand that requires grad
+    under grad mode raises: K4 has no backward."""
     _check(q, k, v, rep)
     if not (q.device == k.device == v.device):
         raise ValueError(f"operands on {q.device}, {k.device}, {v.device}")
@@ -138,6 +141,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, scale=scale, causal=causal, rep=rep)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "K4 has no backward: its output would cut the gradient of q, k "
+            "and v.  Train through the transformer's autograd route "
+            "(lm_loss, forward(autograd=True)), or call under torch.no_grad()")
     if q.dtype not in DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"K4 takes float32 or bfloat16 operands of one type, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")

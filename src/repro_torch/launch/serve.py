@@ -26,37 +26,35 @@ import time
 import numpy as np
 import torch
 
-from ..configs import smollm_135m
+from ..configs import ARCH_IDS, get_bundle
 from ..core.pipeline import build_cnn_pipeline
 from ..devices import resolve_device
-from ..models import transformer as lm
 from ..models.cnn import CNN_SPECS, init_cnn, input_hw
 from ..runtime import StragglerModel
 from ..serving import CodedServer, ServingFrontend
 
-__all__ = ["build_cnn_server", "serve_cnn", "serve_lm", "main", "LM_ARCHS"]
-
-LM_ARCHS = {smollm_135m.ARCH: smollm_135m}
+__all__ = ["build_cnn_server", "serve_cnn", "serve_lm", "serve", "main"]
 
 
 def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
              smoke: bool = False, seed: int = 0,
+             param_dtype: torch.dtype = torch.float32,
              device: str | torch.device = "cuda") -> torch.Tensor:
     """Greedy generation for ``batch`` random prompts: one batched prefill
-    fills the cache, then ``gen`` decode steps.  Weights from a
-    ``torch.Generator`` seeded with ``seed``, prompts with ``seed + 1``.
-    Prints prefill/decode times and tok/s; returns the generated tokens
-    ``(batch, gen)``."""
-    if arch not in LM_ARCHS:
-        raise SystemExit(f"unknown LM arch {arch!r}; valid: {sorted(LM_ARCHS)}")
+    fills the cache, then ``gen`` decode steps.  Weights (in
+    ``param_dtype``, as the cache) from a ``torch.Generator`` seeded with
+    ``seed``, prompts with ``seed + 1``.  Prints prefill/decode times and
+    tok/s; returns the generated tokens ``(batch, gen)``."""
+    if arch not in ARCH_IDS:
+        raise SystemExit(f"unknown LM arch {arch!r}; valid: {ARCH_IDS}")
     dev = resolve_device(device)
-    cfg = LM_ARCHS[arch].smoke() if smoke else LM_ARCHS[arch].full()
+    bundle = get_bundle(arch, smoke=smoke)
     max_len = prompt_len + gen
-    params = lm.init_lm(cfg, torch.Generator().manual_seed(seed), dev)
-    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
+    params = bundle.init(torch.Generator().manual_seed(seed), param_dtype, dev)
+    prompts = torch.randint(0, bundle.cfg.vocab, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(seed + 1)
                             ).to(dev)
-    cache = lm.init_cache(cfg, batch, max_len, device=dev)
+    cache = bundle.make_cache(batch, max_len, param_dtype, dev)
 
     def sync():
         if dev.type == "cuda":
@@ -64,7 +62,8 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
 
     t0 = time.perf_counter()
     if prompt_len > 0:
-        logits, cache = lm.prefill(params, cfg, cache, prompts)
+        logits, cache = bundle.prefill_cache_fn(params, cache,
+                                                {"tokens": prompts})
         tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     else:  # empty prompt: no logits yet, start from token 0
         tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
@@ -75,7 +74,8 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
     t0 = time.perf_counter()
     for t in range(prompt_len, max_len):
         out_tokens.append(tok)
-        logits, cache = lm.decode_step(params, cfg, cache, tok, t)
+        logits, cache = bundle.decode_fn(params, cache,
+                                         {"tokens": tok, "pos": t})
         tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     sync()
     decode_s = time.perf_counter() - t0
@@ -186,11 +186,29 @@ def serve_cnn(archs, *, requests: int, workers: int, stragglers: int,
     return outs, agg
 
 
+def serve(arch: str, *, batch: int, prompt_len: int, gen: int,
+          smoke: bool = False, param_dtype: torch.dtype = torch.float32,
+          workers: int = 8, stragglers: int = 1, straggler_delay: float = 0.1,
+          device: str | torch.device = "cuda"):
+    """Route by family, as the reference's ``serve``: a CNN arch goes to
+    the coded serving engine (``batch`` concurrent requests on ``workers``
+    workers, ``stragglers`` of them ``straggler_delay`` s late) and returns
+    its outputs; an LM arch to the decode loop, returning its tokens."""
+    if arch in CNN_SPECS:
+        outs, _ = serve_cnn(arch, requests=batch, workers=workers,
+                            stragglers=stragglers,
+                            straggler_delay=straggler_delay, smoke=smoke,
+                            device=device)
+        return outs[0]
+    return serve_lm(arch, batch=batch, prompt_len=prompt_len, gen=gen,
+                    smoke=smoke, param_dtype=param_dtype, device=device)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", action="append", default=None,
                     help=f"CNN ({sorted(CNN_SPECS)}; repeat to co-serve "
-                         f"several CNNs on one pool) or LM ({sorted(LM_ARCHS)})")
+                         f"several CNNs on one pool) or LM ({ARCH_IDS})")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced input resolution (SMOKE_HW) / the LM's "
                          "smoke config")
@@ -223,7 +241,7 @@ def main(argv=None):
                     help="cuda (default; raises when absent) or cpu")
     args = ap.parse_args(argv)
     archs = args.arch or ["vgg16"]
-    lm_archs = [a for a in archs if a in LM_ARCHS]
+    lm_archs = [a for a in archs if a in ARCH_IDS]
     if lm_archs:
         if len(archs) != 1:
             raise SystemExit("an LM arch is served alone: pass one --arch")

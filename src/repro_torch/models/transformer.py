@@ -5,10 +5,19 @@ embedding scale, sliding windows) and a SwiGLU/GeGLU FFN.
 
 Layers are a Python loop over per-layer weights (the reference scans a
 stacked tree; the stacked ``dense_layers`` layout is kept, so the
-reference's params carry across unchanged).  Causal attention from
-position 0 with several queries — ``forward`` and the batched ``prefill``
-— runs on K4 (``kernels.flash_attn``); every other case (single-query
-decode against the cache, windows, softcaps) is the plain ``attention``.
+reference's params carry across unchanged).  Attention takes one of two
+routes, chosen by the caller:
+
+* serving (``forward``, ``prefill``, ``decode_step``): causal attention
+  from position 0 with several queries runs on K4 (``kernels.flash_attn``);
+  every other case (single-query decode against the cache, windows,
+  softcaps) is the plain ``attention``.  K4 has no backward and refuses
+  autograd on the card;
+* training (``lm_loss``, ``forward(autograd=True)``): the reference's own
+  differentiable selection (``_attend``, reference ``:304-318``): plain
+  masked attention up to ``flash_chunk`` positions, the two-level
+  online-softmax scan above it, over the lower triangle of blocks under
+  ``flash_block_skip``.
 
 MLA latent attention, MoE FFNs and the sequence-sharded ring cache are
 not ported (ROADMAP Queue A 11) and raise ``NotImplementedError``.
@@ -27,13 +36,16 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
 from ..kernels.flash_attn import flash_attention
-from .common import apply_rope, attention, make_attn_mask, rms_norm, rope_inv_freq, softcap
+from ..tree import tree_map as map_params
+from .common import (NEG_INF, apply_rope, attention, make_attn_mask, rms_norm,
+                     rope_inv_freq, softcap)
 
 __all__ = ["LMConfig", "init_lm", "lm_params_from_numpy", "map_params", "forward",
-           "init_cache", "decode_step", "prefill"]
+           "lm_loss", "init_cache", "decode_step", "prefill"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +75,11 @@ class LMConfig:
     embed_scale: bool = False  # gemma: x *= sqrt(d_model)
     sandwich_norms: bool = False  # gemma2 post-attn/post-ffn norms
     max_seq: int = 4096
+    # the training route's attention: plain masked attention up to
+    # flash_chunk positions, the chunked online-softmax scan above; with
+    # flash_block_skip the scan skips the blocks above the diagonal
+    flash_chunk: int = 1024
+    flash_block_skip: bool = True
 
     def __post_init__(self):
         if self.act not in ("silu", "gelu"):
@@ -140,19 +157,20 @@ def init_lm(cfg: LMConfig, generator: torch.Generator,
     return map_params(lambda t: t.to(dev), tree)
 
 
-def map_params(fn, tree: dict) -> dict:
-    """``fn`` applied to every leaf of a nested params dict."""
-    if isinstance(tree, dict):
-        return {k: map_params(fn, v) for k, v in tree.items()}
-    return fn(tree)
+def _leaf_from_numpy(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16, as jax hands it over
+        return torch.tensor(a.view(np.int16), device=dev).view(torch.bfloat16)
+    return torch.tensor(a, device=dev)
 
 
 def lm_params_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dict:
-    """Carry params made elsewhere (the JAX package's ``bundle.init``, as a
-    nested dict of numpy arrays) across unchanged: same tree, same
-    layouts, same values."""
+    """Carry a tree made elsewhere across unchanged: same tree, same
+    layouts, same values and dtypes (bf16 included).  The JAX package's
+    ``bundle.init`` params, or its AdamW state ``{"m", "v", "step"}``, as
+    nested dicts of numpy arrays."""
     dev = resolve_device(device)
-    return map_params(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
+    return map_params(lambda a: _leaf_from_numpy(a, dev), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -195,11 +213,85 @@ def _attend(q, k, v, q_pos, k_pos, cfg: LMConfig, window, *, scale=None,
     return attention(q, k, v, mask, scale=scale, attn_softcap=cfg.attn_softcap)
 
 
+def _flash_attention(q, k, v, q_pos, k_pos, *, scale, window, attn_softcap,
+                     chunk, block_skip):
+    """Two-level flash attention with an online softmax over KV chunks,
+    differentiable: the reference's ``_flash_attention`` (``:167``) and,
+    with ``block_skip``, its ``_flash_attention_triangle`` (``:230``), which
+    visits only the (q block, kv block) pairs with kv <= q, in the order of
+    its flat scan.  q: (B, Sq, H, D), k/v: (B, Sk, Hkv, D).  Each q block
+    runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``), so backward recomputes it and the saved state
+    stays O(Sq * chunk) per block."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    rep = h // hkv
+    qc, kc = min(chunk, sq), min(chunk, sk)
+    if sq % qc or sk % kc or (block_skip and sq != sk):
+        raise ValueError(f"flash attention over Sq={sq}, Sk={sk} in chunks of "
+                         f"{chunk} (block skip {block_skip})")
+    nq, nk = sq // qc, sk // kc
+    qg = q.reshape(b, nq, qc, hkv, rep, d)
+    kg = k.reshape(b, nk, kc, hkv, d)
+    vg = v.reshape(b, nk, kc, hkv, dv)
+    qp = q_pos.reshape(b, nq, qc)
+    kp = k_pos.reshape(b, nk, kc)
+
+    def q_block(qb, qpb, kbs, vbs, kpbs):
+        m = torch.full((b, hkv, rep, qc), -math.inf, device=q.device)
+        l = torch.zeros((b, hkv, rep, qc), device=q.device)
+        acc = torch.zeros((b, hkv, rep, qc, dv), device=q.device)
+        for j in range(kbs.shape[1]):
+            kb, vb, kpb = kbs[:, j], vbs[:, j], kpbs[:, j]
+            logits = torch.einsum("bqhrd,bkhd->bhrqk", qb, kb).float() * scale
+            if attn_softcap is not None:
+                logits = softcap(logits, attn_softcap)
+            ok = kpb[:, None, :] <= qpb[:, :, None]
+            if window is not None:
+                ok &= kpb[:, None, :] > qpb[:, :, None] - window
+            logits = logits + torch.where(ok, 0.0, NEG_INF)[:, None, None]
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhrqk,bkhd->bhrqd", p.to(vb.dtype), vb).float()
+            m = m_new
+        return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+    blocks = []
+    for i in range(nq):
+        n = i + 1 if block_skip else nk
+        blocks.append(checkpoint(q_block, qg[:, i], qp[:, i], kg[:, :n],
+                                 vg[:, :n], kp[:, :n], use_reentrant=False))
+    out = torch.stack(blocks, dim=1)  # (B, nq, hkv, rep, qc, dv)
+    return out.permute(0, 1, 4, 2, 3, 5).reshape(b, sq, h, dv)
+
+
+def _attend_autograd(q, k, v, q_pos, k_pos, cfg: LMConfig, window, *,
+                     scale=None):
+    """The training route: the reference's ``_attend`` (``:304-318``), every
+    branch differentiable.  Above ``flash_chunk`` positions (both lengths
+    multiples of it) the chunked scan, over the lower triangle of blocks
+    under ``flash_block_skip`` when Sq == Sk; otherwise the plain masked
+    ``attention``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    sq, sk, c = q.shape[1], k.shape[1], cfg.flash_chunk
+    if sq > c and sq % c == 0 and sk % c == 0:
+        return _flash_attention(
+            q, k, v, q_pos, k_pos, scale=scale, window=window,
+            attn_softcap=cfg.attn_softcap, chunk=c,
+            block_skip=cfg.flash_block_skip and sq == sk)
+    mask = make_attn_mask(q_pos, k_pos, window)
+    return attention(q, k, v, mask, scale=scale, attn_softcap=cfg.attn_softcap)
+
+
 def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
-              start: int | None = None):
+              start: int | None = None, autograd: bool = False):
     """The attention block's output.  ``cache`` = dict(k=(B, S, hkv, hd),
     v=...) is written in place at positions ``start..start+S-1``, or
-    None."""
+    None.  ``autograd`` takes the training route (``_attend_autograd``)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ w["wq"]).reshape(b, s, h, hd)
@@ -215,6 +307,8 @@ def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
         cache["v"][:, start:start + s] = v.to(cache["v"].dtype)
         out = _attend(q, cache["k"], cache["v"], q_pos, k_pos, cfg, window,
                       start=start)
+    elif autograd:
+        out = _attend_autograd(q, k, v, q_pos, k_pos, cfg, window)
     else:
         out = _attend(q, k, v, q_pos, k_pos, cfg, window, start=start)
     return out.reshape(b, s, h * hd) @ w["wo"]
@@ -231,9 +325,11 @@ def _ffn(w, x, cfg: LMConfig):
     return (_act(cfg)(g.float()).to(u.dtype) * u) @ w["w_down"]
 
 
-def _layer(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache, start):
+def _layer(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache, start,
+           autograd):
     h_in = rms_norm(x, w["ln_attn"])
-    attn_out = _gqa_attn(w, h_in, cfg, rope, q_pos, k_pos, window, cache, start)
+    attn_out = _gqa_attn(w, h_in, cfg, rope, q_pos, k_pos, window, cache, start,
+                         autograd)
     if cfg.sandwich_norms:
         attn_out = rms_norm(attn_out, w["ln_attn_post"])
     x = x + attn_out
@@ -243,15 +339,20 @@ def _layer(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache, start):
     return x + ffn_out
 
 
-def _run_stack(stack_w, x, cfg, rope, q_pos, k_pos, caches, start):
+def _run_stack(stack_w, x, cfg, rope, q_pos, k_pos, caches, start,
+               autograd=False):
     """The layer loop over the stacked weights; ``caches`` the stacked
-    (L, B, S, hkv, hd) K/V pair (written in place) or None."""
+    (L, B, S, hkv, hd) K/V pair (written in place) or None.  Each stacked
+    leaf is unbound once, so its gradient is one stack of the layers'
+    (not a sum of L zero-padded selects)."""
     windows = _layer_windows(cfg, cfg.layers)
+    layers = {name: leaf.unbind(0) for name, leaf in stack_w.items()}
     for l in range(cfg.layers):
-        w = {name: leaf[l] for name, leaf in stack_w.items()}
+        w = {name: leaf[l] for name, leaf in layers.items()}
         cache = None if caches is None else {"k": caches["k"][l],
                                              "v": caches["v"][l]}
-        x = _layer(w, x, cfg, rope, q_pos, k_pos, windows[l], cache, start)
+        x = _layer(w, x, cfg, rope, q_pos, k_pos, windows[l], cache, start,
+                   autograd)
     return x
 
 
@@ -276,15 +377,38 @@ def _positions(b: int, start: int, s: int, device) -> torch.Tensor:
                         device=device).expand(b, s)
 
 
-def forward(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward: ``tokens`` (B, S) -> logits (B, S, V)."""
+def forward(params, cfg: LMConfig, tokens: torch.Tensor,
+            prefix_embeds: torch.Tensor | None = None, *,
+            autograd: bool = False) -> torch.Tensor:
+    """Full-sequence forward: ``tokens`` (B, S) -> logits (B, P + S, V),
+    with ``prefix_embeds`` (B, P, d_model) (stub frontend embeddings, such
+    as PaliGemma's image patches) ahead of the token embeddings.
+    ``autograd=False`` is the serving route (causal attention on K4);
+    ``autograd=True`` the training route (``_attend_autograd``), which
+    backward differentiates."""
     _check_supported(cfg)
     x = _embed(params, cfg, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     pos = _positions(b, 0, s, x.device)
     rope = rope_inv_freq(cfg.head_dim, cfg.rope_base, x.device)
-    x = _run_stack(params["dense_layers"], x, cfg, rope, pos, pos, None, 0)
+    x = _run_stack(params["dense_layers"], x, cfg, rope, pos, pos, None, 0,
+                   autograd)
     return _unembed(params, cfg, x)
+
+
+def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor, targets: torch.Tensor,
+            prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token negative log-likelihood of ``targets`` (B, S) over
+    the token positions (the prefix's are dropped), through the training
+    route's attention."""
+    logits = forward(params, cfg, tokens, prefix_embeds, autograd=True)
+    if prefix_embeds is not None:
+        logits = logits[:, prefix_embeds.shape[1]:]
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return nll.mean()
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,

@@ -1,0 +1,79 @@
+"""AdamW with decoupled weight decay, global-norm clipping and fp32 moments
+over fp32 or bf16 params: the reference's ``optim/adamw.py`` over the
+port's nested-dict trees.
+
+The state is the reference's tree, ``{"m": <params-shaped fp32>, "v":
+<params-shaped fp32>, "step": int32 scalar}``, so a checkpoint holds the
+same keys in either package.  The arithmetic is the reference's, op for
+op, in float32.  ``apply_updates`` writes the new params and moments into
+the tensors it is given (the reference returns new trees): a training step
+then allocates no second copy of either.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..tree import tree_leaves, tree_map
+
+__all__ = ["AdamWConfig", "init_state", "global_norm", "apply_updates"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float | None = 1.0
+
+
+def init_state(params: dict) -> dict:
+    """Zero fp32 moments shaped like ``params`` (on their devices) and an
+    int32 step of 0."""
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    dev = tree_leaves(params)[0].device
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
+    return torch.sqrt(sum(x.float().square().sum() for x in tree_leaves(tree)))
+
+
+@torch.no_grad()
+def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
+                  lr_scale=1.0):
+    """One AdamW step: returns ``(params, state, {"grad_norm"})``, with
+    ``params`` and the moments updated in place and ``state["step"]`` a
+    new tensor one higher.  ``lr_scale`` multiplies ``cfg.lr`` (a float or
+    a float32 scalar tensor, such as ``cosine_with_warmup``'s)."""
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    flat_g = tree_leaves(grads)
+    if cfg.clip_norm is not None:
+        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+        flat_g = [g * scale.to(g.dtype) for g in flat_g]
+
+    b1, b2 = cfg.b1, cfg.b2
+    stepf = step.to(torch.float32)
+    bc1 = 1.0 - torch.pow(b1, stepf)
+    bc2 = 1.0 - torch.pow(b2, stepf)
+    lr = cfg.lr * lr_scale
+
+    for p, g, m, v in zip(tree_leaves(params), flat_g, tree_leaves(state["m"]),
+                          tree_leaves(state["v"])):
+        g32 = g.float()
+        m_new = b1 * m + (1 - b1) * g32
+        v_new = b2 * v + (1 - b2) * g32 * g32
+        mhat = m_new / bc1
+        vhat = v_new / bc2
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+        m.copy_(m_new)
+        v.copy_(v_new)
+    return params, {"m": state["m"], "v": state["v"], "step": step}, \
+        {"grad_norm": gnorm}

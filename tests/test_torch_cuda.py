@@ -1004,3 +1004,44 @@ def test_cuda_capture_stream_released_with_its_thread(cuda):
     gc.collect()
     assert seen == [16.0, before + 1] * 3
     assert graphs.live_capture_streams() == before
+
+
+def test_cuda_k4_refuses_autograd(cuda):
+    """K4 has no backward: under grad mode an operand that requires grad
+    raises before any launch; under no_grad the same call runs."""
+    q = torch.randn(6, 8, 16, device=cuda, requires_grad=True)
+    kv = torch.randn(2, 8, 16, device=cuda)
+    before = k4.launches.count
+    with pytest.raises(RuntimeError, match="no backward"):
+        k4.flash_attention(q, kv, kv, rep=3)
+    assert k4.launches.count == before
+    with torch.no_grad():
+        k4.flash_attention(q, kv, kv, rep=3)
+    assert k4.launches.count == before + 1
+
+
+def test_cuda_full_width_train_step_matches_fp64(cuda):
+    """One SmolLM-135M train step's loss and gradients at full width on the
+    card (the training route: no K4 launch) against chip_smoke.py's plain
+    float64 recompute: every leaf finite, non-zero in every layer, within
+    1e-4 of its max|g|."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.data import DataConfig, SyntheticTokens
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bundle = get_bundle("smollm-135m")
+    params = bundle.init(torch.Generator().manual_seed(0), torch.float32, cuda)
+    data = SyntheticTokens(DataConfig(vocab=bundle.cfg.vocab, seq_len=256,
+                                      global_batch=8))
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in data.batch(0).items()}
+    before = k4.launches.count
+    out = cs.check_step1_fp64(bundle, params, batch)  # raises on a mismatch
+    assert k4.launches.count == before
+    assert out["loss_rel_err"] <= 1e-5 and out["grad_rel_err"] <= 1e-4

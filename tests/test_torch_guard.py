@@ -53,6 +53,9 @@ def test_package_imports_without_jax():
         "import repro_torch.serving.frontend, repro_torch.core.coded_linear\n"
         "import repro_torch.core.baselines, repro_torch.analysis.contracts\n"
         "import repro_torch.analysis.concurrency, repro_torch.analysis.__main__\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
+        "import repro_torch.launch.train, repro_torch.launch.steps\n"
+        "import repro_torch.models.registry, repro_torch.configs, repro_torch.tree\n"
         "assert 'jax' not in {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
         "print('ok')\n"
     )
