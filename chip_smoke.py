@@ -101,15 +101,36 @@ Phases, in order; any failure raises:
     that set; the eager-only cells (the LM decoder: K3 takes the survivor
     inverse by value) listed with their reason; any contract error fails
     the script;
-12. one JSON line with the training numbers (ms a step and tokens/s, the
+12. the arch zoo, after the earlier phases' servers, graphs and weights
+    are released, one arch at a time: each drawn on the card from a seeded
+    CUDA generator (fp32, TF32 off) at full width, through ``serve_lm``
+    (the serve CLI's LM entry point; 4 prompts of 16 tokens, 16 new
+    tokens) with the launch counts read around it and K4's launches
+    equal to the layers whose prefill route is K4 (printed, with init
+    seconds, prefill seconds, decode tok/s and peak memory beside the
+    reckoned parameter count), then ``prefill_cache_fn`` against
+    ``prefill_fn`` and ``decode_fn`` teacher-forced over the prompt against
+    it.  DeepSeek-V2-236B (1 dense-first + 2 MoE layers, 37 GB): the
+    first MoE layer's gather dispatch on its real activations against
+    ``moe_ffn_plain`` and against a float64 loop over 16 sampled tokens
+    (the expert choices equal), no entry dropped.  Qwen3-4B at full width
+    and depth: then served coded on the device pool on phase 7's plan and
+    requests, held as phase 8 holds SmolLM's, with K2-K4 at its shapes
+    against their plain versions, timed.  CodeQwen1.5-7B, Gemma2-9B (one
+    local, one global layer) and PaliGemma-3B (its ``prefill_fn`` also
+    over a 256 x 2048 stub prefix) at 2 layers.  K4 at Qwen3's and
+    CodeQwen's prefill shapes against its plain version, timed;
+13. one JSON line with the training numbers (ms a step and tokens/s, the
     median over steps 5-30, peak device memory, the model FLOPs a step
     and their share of the fp32 peak, the card's name and power limit),
-    one JSON line with the compiled programs' counts by phase, one JSON
+    one JSON line with the arch zoo's readings, one JSON line with the
+    compiled programs' counts by phase, one JSON
     line with the kernels' numbers (K1-K4; K2's top-level numbers
     are its CNN pass, its LM numbers sit under ``paths.lm``; each kernel's
     ``launches`` is its count on the phase-5 or phase-7 main path, and
     ``launches_by_path`` its count in every phase that ran it, training's
-    0 among them; a replayed
+    0 and the zoo's among them; K2-K4 carry their zoo shapes under
+    ``zoo``; a replayed
     graph launches no wrapper, so its launches count as the kernels the
     graph holds, once per replay), then the result line.
 
@@ -128,6 +149,7 @@ fit.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -211,6 +233,27 @@ TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT = \
     "smollm-135m", 30, 8, 256, 15
 TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, TOL_TRAIN_RESTART = 1e-5, 1e-4, 1e-5
 TOL_MICRO = 1e-4
+# The arch zoo: (arch, layers on the card, None = full depth), each at full
+# width through serve_lm: ZOO_BATCH prompts of ZOO_PROMPT tokens and
+# ZOO_GEN new ones; PaliGemma's prefill_fn also over ZOO_PREFIX stub patch
+# embeddings.  DeepSeek-V2 keeps its dense-first layer and two MoE layers
+# (37 GB of fp32 weights); DeepSeek-V3's least depth with an MoE layer is
+# 3 dense + 1 MoE, about 60 GB in fp32, and is held on the CPU only.
+ZOO = (("deepseek-v2-236b", 3), ("qwen3-4b", None), ("codeqwen1.5-7b", 2),
+       ("gemma2-9b", 2), ("paligemma-3b", 2))
+ZOO_BATCH, ZOO_PROMPT, ZOO_GEN, ZOO_PREFIX = 4, 16, 16, 256
+# prefill_cache_fn against prefill_fn: the same products but for masked
+# keys that add exact zeros (K4's routes are the same launch on the same
+# keys), relative to max|logit|; decode_fn teacher-forced against
+# prefill_fn sums attention another way (plain against K4, one query at a
+# time) through up to 36 layers, held as the served LM is (TOL_LM).  The
+# MoE's gather dispatch against its float-scatter plain version: the same
+# fp32 products summed in another order (within 1e-5 of max|y|); against a
+# float64 loop token by token, fp32 sums over 5120 and 1536 products stay
+# near 1e-6 of max|y|, inside 1e-4, where a wrong expert or gate weight
+# reads near 1.
+TOL_ZOO_CACHE, TOL_ZOO_DECODE = 1e-5, 1e-4
+TOL_MOE_PLAIN, TOL_MOE_FP64, MOE_SAMPLED = 1e-5, 1e-4, 16
 
 
 def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
@@ -613,16 +656,17 @@ def check_served(outs, xs: np.ndarray, params, device) -> float:
 
 
 # -- the coded LM decode path ---------------------------------------------
-def build_lm(device, cfg=None):
+def build_lm(device, cfg=None, params=None):
     """SmolLM-135M (full width and depth unless ``cfg`` says otherwise)
-    with random weights from the seed, compiled into the coded decoder
-    pipeline the LM server runs."""
+    with ``params``, or random weights from the seed, compiled into the
+    coded decoder pipeline the LM server runs."""
     from repro_torch.configs import smollm_135m
     from repro_torch.core.decoder_pipeline import build_lm_decoder_pipeline
     from repro_torch.models.transformer import init_lm
 
     cfg = cfg if cfg is not None else smollm_135m.full()
-    params = init_lm(cfg, torch.Generator().manual_seed(SEED), device)
+    if params is None:
+        params = init_lm(cfg, torch.Generator().manual_seed(SEED), device)
     pipe = build_lm_decoder_pipeline(
         cfg, params, LM_N, k_b=LM_KB, bucket_sizes=LM_BUCKETS,
         max_len=LM_MAX_LEN, backend="kernel", device=device)
@@ -1605,6 +1649,382 @@ def _empty_cache(device) -> None:
         torch.cuda.empty_cache()
 
 
+# -- the arch zoo: the reference's other transformer archs ------------------
+def moe_checks(bundle, params, prompts, device, expect_no_drops: bool) -> dict:
+    """Checks (a) and (b) on the first MoE layer's real activations (its
+    input recorded while ``prefill_fn`` runs): the gather dispatch against
+    ``moe_ffn_plain`` within ``TOL_MOE_PLAIN`` of max|y|; a float64 loop,
+    token by token, over ``MOE_SAMPLED`` sampled tokens within
+    ``TOL_MOE_FP64``, its top-k equal to the served routing's in order and
+    only the kept entries summed.  A group of ``tg`` tokens sends at most
+    ``tg`` entries to one expert, so where ``tg <= cap`` no entry can drop;
+    ``expect_no_drops`` holds the run to that case and to 0 drops."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as lm
+
+    cfg = bundle.cfg.moe
+    seen = []
+    real = lm.moe_ffn
+
+    def record(w, x, c):
+        if not seen:
+            seen.append((w, x.clone()))
+        return real(w, x, c)
+
+    lm.moe_ffn = record
+    try:
+        bundle.prefill_fn(params, {"tokens": prompts})
+    finally:
+        lm.moe_ffn = real
+    w, x = seen[0]
+    y = moe.moe_ffn(w, x, cfg)
+    plain = moe.moe_ffn_plain(w, x, cfg)
+    xg = moe._grouped(x, cfg)
+    r = moe.route(w, xg, cfg)
+    err_plain = _err(y, plain)[1]
+    if not err_plain <= TOL_MOE_PLAIN:
+        raise AssertionError(f"MoE gather vs plain: rel err {err_plain} > "
+                             f"{TOL_MOE_PLAIN}")
+    t, d = x.shape
+    tg, k = t // xg.shape[0], cfg.top_k
+    dropped = int((~r.keep).sum())
+    if tg <= r.cap and dropped:
+        raise AssertionError(f"MoE dropped {dropped} entries where none can drop")
+    if expect_no_drops and not (tg <= r.cap and dropped == 0):
+        raise AssertionError(f"MoE: groups of {tg} tokens, cap {r.cap}, "
+                             f"{dropped} entries dropped")
+    # each token-major entry's keep (keep is in expert-sorted order)
+    entry_keep = torch.gather(r.keep, 1, torch.argsort(r.order, dim=-1))
+    picks = np.random.default_rng(SEED).choice(t, MOE_SAMPLED, replace=False)
+    worst_fp64, scale = 0.0, float(y[picks].abs().max())
+    for i in picks.tolist():
+        gi, ti = divmod(i, tg)
+        xi = x[i].double()
+        probs = torch.softmax(xi @ w["router"].double(), dim=-1)
+        vals, idx = torch.sort(probs, descending=True, stable=True)
+        top, wts = idx[:k], vals[:k] / vals[:k].sum()
+        if not torch.equal(top, r.gate_e[gi, ti]):
+            raise AssertionError(f"token {i}: float64 top-{k} {top.tolist()} vs "
+                                 f"served {r.gate_e[gi, ti].tolist()}")
+        yi = torch.zeros(d, dtype=torch.float64, device=device)
+        for j, (e, wt) in enumerate(zip(top.tolist(), wts)):
+            if not bool(entry_keep[gi, ti * k + j]):
+                continue
+            g = xi @ w["w_gate"][e].double()
+            u = xi @ w["w_up"][e].double()
+            yi += wt * ((F.silu(g) * u) @ w["w_down"][e].double())
+        if cfg.n_shared:
+            s = w["shared"]
+            yi += (F.silu(xi @ s["w_gate"].double()) * (xi @ s["w_up"].double())) \
+                @ s["w_down"].double()
+        worst_fp64 = max(worst_fp64, float((y[i].double() - yi).abs().max()))
+    rel_fp64 = worst_fp64 / scale
+    if not rel_fp64 <= TOL_MOE_FP64:
+        raise AssertionError(f"MoE vs float64 loop: rel err {rel_fp64} > "
+                             f"{TOL_MOE_FP64}")
+    return {"tokens": t, "groups": int(xg.shape[0]), "cap": r.cap,
+            "dropped": dropped, "rel_err_vs_plain": err_plain,
+            "rel_err_vs_fp64": rel_fp64, "sampled": MOE_SAMPLED}
+
+
+def cache_checks(bundle, params, prompts, device) -> dict:
+    """Check (c): ``prefill_cache_fn``'s logits against ``prefill_fn``'s
+    within ``TOL_ZOO_CACHE`` of max|logit|, and ``decode_fn`` teacher-forced
+    over the prompt within ``TOL_ZOO_DECODE``; every logit finite."""
+    b, p = prompts.shape
+    full = bundle.prefill_fn(params, {"tokens": prompts})
+    cached, _ = bundle.prefill_cache_fn(
+        params, bundle.make_cache(b, p + ZOO_GEN, torch.float32, device),
+        {"tokens": prompts})
+    cache = bundle.make_cache(b, p, torch.float32, device)
+    rows = []
+    for t in range(p):
+        lg, cache = bundle.decode_fn(params, cache, {"tokens": prompts[:, t:t + 1],
+                                                     "pos": t})
+        rows.append(lg[:, 0])
+    stepped = torch.stack(rows, dim=1)
+    for name, got in (("prefill_fn", full), ("prefill_cache_fn", cached),
+                      ("decode_fn", stepped)):
+        if got.shape != (b, p, bundle.cfg.vocab) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{bundle.name} {name}: logits "
+                                 f"{tuple(got.shape)} or non-finite")
+    err_cache, err_decode = _err(cached, full)[1], _err(stepped, full)[1]
+    if not err_cache <= TOL_ZOO_CACHE:
+        raise AssertionError(f"{bundle.name}: prefill_cache_fn vs prefill_fn "
+                             f"rel err {err_cache} > {TOL_ZOO_CACHE}")
+    if not err_decode <= TOL_ZOO_DECODE:
+        raise AssertionError(f"{bundle.name}: decode_fn vs prefill_fn rel err "
+                             f"{err_decode} > {TOL_ZOO_DECODE}")
+    return {"prefill_cache_rel_err": err_cache, "decode_rel_err": err_decode}
+
+
+def decode_profile(bundle, params, prompts, device, steps: int = 4) -> dict:
+    """``steps`` decode steps after a prefill, under ``torch.profiler``: the
+    wall ms a step (synchronised), the device busy ms a step (the sum of
+    the kernels' device time), the kernels a step and the three kernels
+    that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, p = prompts.shape
+    cache = bundle.make_cache(b, p + steps, torch.float32, device)
+    _, cache = bundle.prefill_cache_fn(params, cache, {"tokens": prompts})
+    tok = prompts[:, -1:]
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(p, p + steps):
+            logits, cache = bundle.decode_fn(params, cache, {"tokens": tok, "pos": t})
+            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        t = float(t if t is not None else ev.self_cuda_time_total)
+        if t > 0:
+            rows.append((t / 1e3 / steps, ev.key, ev.count / steps))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    return {"steps": steps, "wall_ms": wall * 1e3 / steps,
+            "device_busy_ms": busy or None,
+            "kernels_a_step": sum(r[2] for r in rows),
+            "top": [{"name": k[:80], "ms": t, "calls": c} for t, k, c in rows[:3]]}
+
+
+def zoo_routes(cfg, sq: int, sk: int) -> dict:
+    """The serving route's attention at a prefill of ``sq`` queries over
+    ``sk`` cached keys, layer by layer: how many layers take each route."""
+    from repro_torch.models import transformer as lm
+
+    dv = cfg.mla.v_dim if cfg.attn == "mla" else cfg.head_dim
+    routes: dict = {}
+    for key, _, n, _, offset in lm._stacks(cfg):
+        for window in lm._layer_windows(cfg, n, offset):
+            r = lm.attend_route(cfg, sq, sk, cfg.q_dim, dv, window, 0)
+            routes[r] = routes.get(r, 0) + 1
+    return routes
+
+
+def zoo_arch(arch: str, layers, device, counters, card: str,
+             smoke: bool = False) -> dict:
+    """One arch of the zoo: weights drawn on the card from a seeded CUDA
+    generator, ``serve_lm`` (the serve CLI's LM entry point) over
+    ``ZOO_BATCH`` prompts of ``ZOO_PROMPT`` tokens and ``ZOO_GEN`` new
+    tokens, with the launch counts zeroed just before and read just after,
+    then the checks.  Returns its readings, params and config.  ``smoke``
+    runs the smoke config (a rehearsal on the CPU, where no kernel launch
+    is counted and no memory peak read; its checks run an MoE config with
+    the full config's dispatch groups)."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models.registry import with_layers
+    from repro_torch.tree import tree_leaves
+
+    from repro_torch.models.registry import make_lm_bundle
+
+    card_run = device.type == "cuda"
+    layers = None if smoke else layers
+    bundle = get_bundle(arch, smoke=smoke)
+    if layers is not None:
+        bundle = with_layers(bundle, layers)
+    if smoke and bundle.cfg.moe is not None:
+        # the full config's dispatch groups, so that no entry can drop in
+        # the checks, as at full width (the served smoke run keeps 1)
+        moe = dataclasses.replace(bundle.cfg.moe, dispatch_groups=get_bundle(
+            arch).cfg.moe.dispatch_groups)
+        bundle = make_lm_bundle(dataclasses.replace(bundle.cfg, moe=moe))
+    cfg = bundle.cfg
+    _empty_cache(device)
+    if card_run:
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=device).manual_seed(SEED),
+                         torch.float32, device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    for c in counters:
+        c.reset()
+    timings: dict = {}
+    toks = serve_lm(arch, batch=ZOO_BATCH, prompt_len=ZOO_PROMPT, gen=ZOO_GEN,
+                    smoke=smoke, layers=layers, seed=SEED, device=device,
+                    params=params, timings=timings)
+    launches = {c.name: c.count for c in counters}
+    if toks.shape != (ZOO_BATCH, ZOO_GEN):
+        raise AssertionError(f"{arch}: served tokens {tuple(toks.shape)}")
+    routes = zoo_routes(cfg, ZOO_PROMPT, ZOO_PROMPT + ZOO_GEN)
+    prompts = torch.randint(0, cfg.vocab, (ZOO_BATCH, ZOO_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED + 1)
+                            ).to(device)
+    if launches["flash_attention"] != (routes.get("k4", 0) if card_run else 0):
+        raise AssertionError(f"{arch}: K4 launched {launches['flash_attention']} "
+                             f"times, the routes say {routes}")
+    out = {"arch": arch, "layers": cfg.layers, "d_model": cfg.d_model,
+           "params": n_params, "param_bytes": 4 * n_params, "init_s": init_s,
+           **timings, "routes": routes, "launches": launches,
+           "decode_profile": decode_profile(bundle, params, prompts, device)
+           if card_run else None,
+           "checks": cache_checks(bundle, params, prompts, device)}
+    if cfg.moe is not None:
+        out["moe"] = moe_checks(bundle, params, prompts, device,
+                                expect_no_drops=not smoke)
+    if bundle.family == "vlm":
+        prefix = torch.randn((ZOO_BATCH, ZOO_PREFIX, cfg.d_model),
+                             generator=torch.Generator(device=device).manual_seed(SEED),
+                             device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        logits = bundle.prefill_fn(params, {"tokens": prompts, "prefix": prefix})
+        _sync(device)
+        if (logits.shape != (ZOO_BATCH, ZOO_PREFIX + ZOO_PROMPT, cfg.vocab)
+                or not bool(torch.isfinite(logits).all())):
+            raise AssertionError(f"{arch} with its prefix: logits "
+                                 f"{tuple(logits.shape)} or non-finite")
+        out["prefix"] = {"shape": [ZOO_BATCH, ZOO_PREFIX, cfg.d_model],
+                         "prefill_s": time.perf_counter() - t0}
+        del logits
+    out["peak_device_bytes"] = (torch.cuda.max_memory_allocated(device)
+                                if card_run else None)
+    out["card"] = card
+    return out, params, cfg
+
+
+def _zoo_line(z: dict) -> str:
+    return (f"{z['arch']} ({z['layers']} layers, d_model {z['d_model']}, "
+            f"{z['params'] / 1e9:.3f} B params, {z['param_bytes'] / 1e9:.2f} GB "
+            f"fp32): init {z['init_s']:.2f} s, prefill "
+            f"{ZOO_BATCH} x {ZOO_PROMPT} in {z['prefill_s']:.3f} s, decode "
+            f"{z['tok_s']:.1f} tok/s, peak {_gib(z['peak_device_bytes'])}; "
+            f"attention routes {z['routes']}; launches {z['launches']}; "
+            f"prefill_cache_fn vs prefill_fn {z['checks']['prefill_cache_rel_err']:.2e} "
+            f"<= {TOL_ZOO_CACHE}, decode_fn {z['checks']['decode_rel_err']:.2e} "
+            f"<= {TOL_ZOO_DECODE}")
+
+
+def _gib(nbytes) -> str:
+    return "not measured" if nbytes is None else f"{nbytes / 2**30:.2f} GiB"
+
+
+def _ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f}"
+
+
+def zoo_phase(device, counters, card: str, smoke: bool = False) -> dict:
+    """The arch zoo, one arch at a time, each freed before the next:
+    DeepSeek-V2-236B at full width (1 dense-first + 2 MoE layers) with the
+    MoE checks; Qwen3-4B at full width and depth through ``serve_lm``, then
+    served coded on the device pool's LM plan (the SmolLM plan, phase 7's
+    requests) with phase 8's check and K2-K4 at its shapes; CodeQwen1.5-7B,
+    Gemma2-9B (one local, one global layer) and PaliGemma-3B (with its
+    256 x 2048 stub prefix) at 2 layers; K4 at Qwen3's and CodeQwen's
+    prefill shapes.
+    ``smoke`` runs the smoke configs (a rehearsal on the CPU, untimed)."""
+    out: dict = {"archs": [], "kernels": {
+        name: [] for name in ("matmul", "coded_gemm", "coded_gemm_encode",
+                              "flash_attention", "flash_attention_bf16")}}
+    by_path: dict = {}
+    timed = device.type == "cuda"
+    for arch, layers in ZOO:
+        z, params, cfg = zoo_arch(arch, layers, device, counters, card, smoke)
+        print(_zoo_line(z))
+        if "moe" in z:
+            m = z["moe"]
+            print(f"  MoE layer 1 on its real activations ({m['tokens']} tokens "
+                  f"in {m['groups']} dispatch groups, cap {m['cap']}): gather vs "
+                  f"plain rel err {m['rel_err_vs_plain']:.2e} <= {TOL_MOE_PLAIN}, "
+                  f"vs a float64 loop over {m['sampled']} sampled tokens "
+                  f"{m['rel_err_vs_fp64']:.2e} <= {TOL_MOE_FP64}, the expert "
+                  f"choices equal; dropped entries {m['dropped']}")
+        dp = z["decode_profile"]
+        if dp is not None and dp["device_busy_ms"] is not None:
+            print(f"  profiled decode ({dp['steps']} steps): {dp['wall_ms']:.2f} "
+                  f"ms a step, device busy {dp['device_busy_ms']:.2f} ms in "
+                  f"{dp['kernels_a_step']:.0f} kernels; most time: " + "; ".join(
+                      f"{k['name'][:50]} {k['ms']:.3f} ms x{k['calls']:.0f}"
+                      for k in dp["top"]))
+        if "prefix" in z:
+            print(f"  prefill_fn with a {z['prefix']['shape']} stub prefix: "
+                  f"{z['prefix']['prefill_s']:.3f} s, logits finite")
+        by_path[f"zoo_{arch}"] = z["launches"]
+        if arch == "qwen3-4b":
+            out["qwen3_coded"] = zoo_qwen3_coded(params, cfg, device, counters,
+                                                 card, out["kernels"], by_path)
+        if arch in ("qwen3-4b", "codeqwen1.5-7b"):
+            gen = torch.Generator(device=device).manual_seed(SEED + 7)
+            h, d = cfg.n_heads, cfg.head_dim
+            e = flash_entry(ZOO_BATCH * h, ZOO_PROMPT, d, h // cfg.n_kv_heads,
+                            z["routes"]["k4"], torch.float32, gen, device,
+                            TOL_K4, timed)
+            out["kernels"]["flash_attention"].append(
+                {"arch": arch, "path": "serve_lm prefill", **e})
+            print(f"  K4 at {arch}'s prefill {e['q']} rep {e['rep']}: "
+                  f"{_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, plain "
+                  f"{_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])} / device "
+                  f"{_ms(e['library_device_ms'])}, bound {e['bound_ms']:.5f} by "
+                  f"{e['bound_by']}; rel err {e['max_rel_err']:.2e} <= {TOL_K4}")
+        out["archs"].append(z)
+        del params
+        _empty_cache(device)
+    out["by_path"] = by_path
+    return out
+
+
+def zoo_qwen3_coded(params, cfg, device, counters, card, kernels, by_path) -> dict:
+    """Qwen3-4B at full width and depth served coded: the device pool's LM
+    plan (n=4, k_b=4), phase 7's requests under phase 7's stragglers, the
+    served logits rows held as phase 8 holds SmolLM's (check (d)); K2, K3
+    and K4 at its shapes against their plain versions, timed on the card.
+    On the CPU (a rehearsal) the glue runs eagerly and nothing is timed."""
+    card_run = device.type == "cuda"
+    t0 = time.perf_counter()
+    pipe, _ = build_lm(device, cfg, params=params)
+    build_s = time.perf_counter() - t0
+    bucket = pipe.max_batch
+    lm_k = lm_kernel_phase(pipe, bucket, device, timed=card_run)
+    for name, entries in lm_k.items():
+        sm = lm_kernel_summary(entries) if card_run else {}
+        kernels[name].append({"arch": cfg.name, "path": "coded LM", **sm,
+                              "shapes": entries})
+        if card_run:
+            print(f"  {name} at {cfg.name}'s coded shapes: {sm['ms']:.4f} ms a "
+                  f"decode step's shapes with host issue, {sm['device_ms']:.4f} "
+                  f"ms device (plain {sm['plain_ms']:.4f}, library "
+                  f"{sm['library_ms']:.4f} / device {sm['library_device_ms']:.4f}, "
+                  f"bound {sm['bound_ms']:.5f} by {sm['bound_by']}), max rel err "
+                  f"{sm['max_rel_err']:.2e}")
+    requests = lm_requests(cfg.vocab)
+    outs, rows, lat, server, wall, launches, graphs = lm_serving_phase(
+        pipe, requests, counters, pool="device", graphs=card_run)
+    if card_run:
+        for name in ("matmul", "coded_gemm", "flash_attention"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched serving "
+                                     f"{cfg.name}")
+    check = check_lm_served(pipe, params, requests, outs, rows, device)
+    toks = sum(len(o) for o in outs)
+    peak = torch.cuda.max_memory_allocated(device) if card_run else None
+    by_path["zoo_qwen3-4b_coded"] = launches
+    print(f"  {cfg.name} served coded on the device pool (n={LM_N}, k_b={LM_KB}, "
+          f"worker 2 +{STRAGGLER_DELAY_S * 1e3:.0f} ms, worker 3 dead) on {card}: "
+          f"{len(outs)} requests, {toks} tokens, {toks / wall:.2f} tok/s over "
+          f"{wall:.2f} s, e2e p50 {np.percentile(lat, 50) * 1e3:.1f} ms, p99 "
+          f"{np.percentile(lat, 99) * 1e3:.1f} ms; build {build_s:.1f} s, "
+          f"{pipe.weight_encode_calls} weight encodes; served logits vs the "
+          f"undistributed model {check['max_rel_err']:.2e} <= {TOL_LM}, "
+          f"{check['tokens_equal']} of {check['tokens']} tokens its argmax "
+          f"outright; peak {_gib(peak)}; launches {launches}")
+    if graphs is not None:
+        print(_graph_line(graphs))
+    out = {"requests": len(outs), "tokens": toks, "tok_s": toks / wall,
+           "wall_s": wall, "e2e_p50_s": float(np.percentile(lat, 50)),
+           "e2e_p99_s": float(np.percentile(lat, 99)), "build_s": build_s,
+           "max_rel_err": check["max_rel_err"], "tokens_equal": check["tokens_equal"],
+           "launches": launches, "graphs": graphs, "peak_device_bytes": peak}
+    del pipe, server, rows, check
+    _empty_cache(device)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this proof "
@@ -1928,6 +2348,19 @@ def main() -> int:
             print(f"    eager-only ({'; '.join(c['eager_only_reasons'])}): "
                   f"{', '.join(c['eager_only_cells'])}")
 
+    # -- the arch zoo, after the earlier phases' servers, graphs and weights
+    # are released --------------------------------------------------------
+    del lm_pipe, lm_params, lm_outs, lm_rows, d_outs, e_outs, w_outs
+    del check, d_check, e_check, w_check
+    _empty_cache(device)
+    print(f"arch zoo: {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB "
+          f"still allocated after the earlier phases")
+    t0 = time.perf_counter()
+    zoo = zoo_phase(device, (k1_launches, k2_launches, k3_launches,
+                             k4_launches), card)
+    print(f"arch zoo: {time.perf_counter() - t0:.1f} s")
+    by_path.update(zoo["by_path"])
+
     # -- the kernels line: K1-K4, launches from each path's serving run.
     # K2 runs on both paths, in two regimes: its top-level numbers stay
     # one pass of the CNN transition shapes; one LM decode step's worker
@@ -1964,11 +2397,17 @@ def main() -> int:
            "launches": lm_launches["flash_attention"], **k4,
            "bf16": lm_kernel_summary(lm_k["flash_attention_bf16"]),
            "shapes": lm_k["flash_attention"] + lm_k["flash_attention_bf16"]}
+    zk = zoo["kernels"]
+    k2e["zoo"] = zk["matmul"]
+    k3e["zoo"] = zk["coded_gemm"] + zk["coded_gemm_encode"]
+    k4e["zoo"] = zk["flash_attention"] + zk["flash_attention_bf16"]
     for e in (k1e, k2e, k3e, k4e):
         e["launches_by_path"] = {path: counts[e["name"]]
                                  for path, counts in by_path.items()
                                  if e["name"] in counts}
     print(json.dumps({"train": tr}))
+    print(json.dumps({"zoo": {"archs": zoo["archs"],
+                              "qwen3_coded": zoo["qwen3_coded"]}}))
     print(json.dumps({"graphs": graph_phases}))
     print(json.dumps({"kernels": [k1e, k2e, k3e, k4e]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,26 +1,33 @@
 """Architecture registry: ``--arch <id>`` resolution for the launchers.
 
-``ARCH_IDS`` holds the archs the port has.  The reference's other ids
-(its ``configs/__init__.py``) need model families or attention variants
-the port does not have yet and raise ``NotImplementedError``."""
+``ARCH_IDS`` holds the archs the port has, in the reference's order (its
+``configs/__init__.py``).  The reference's other ids need model families
+the port does not have yet (RWKV6, Hymba, Whisper) and raise
+``NotImplementedError``."""
 from importlib import import_module
 
 __all__ = ["ARCH_IDS", "get_bundle"]
 
 _MODULES = {
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "codeqwen1.5-7b": "codeqwen15_7b",
     "smollm-135m": "smollm_135m",
+    "gemma2-9b": "gemma2_9b",
+    "qwen3-4b": "qwen3_4b",
+    "paligemma-3b": "paligemma_3b",
 }
 
 ARCH_IDS = list(_MODULES)
 
 # the reference's arch ids without a port
-_NOT_PORTED = ("deepseek-v3-671b", "deepseek-v2-236b", "codeqwen1.5-7b",
-               "gemma2-9b", "qwen3-4b", "hymba-1.5b", "whisper-medium",
-               "rwkv6-1.6b", "paligemma-3b")
+_NOT_PORTED = ("hymba-1.5b", "whisper-medium", "rwkv6-1.6b")
 
 
-def get_bundle(arch: str, *, smoke: bool = False):
-    """The ``ModelBundle`` of ``arch``: its smoke config or its full one."""
+def get_bundle(arch: str, *, smoke: bool = False, **kw):
+    """The ``ModelBundle`` of ``arch``: its smoke config, or its full one
+    built with ``kw`` (DeepSeek's ``dispatch_groups``), as the reference's
+    ``get_bundle``."""
     if arch in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (ROADMAP Queue A 11); the "
@@ -28,4 +35,4 @@ def get_bundle(arch: str, *, smoke: bool = False):
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; the port has {ARCH_IDS}")
     mod = import_module(f"{__name__}.{_MODULES[arch]}")
-    return mod.smoke_bundle() if smoke else mod.full_bundle()
+    return mod.smoke_bundle() if smoke else mod.full_bundle(**kw)

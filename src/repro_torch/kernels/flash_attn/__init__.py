@@ -1,3 +1,3 @@
-from .kernel import flash_attention, flash_attention_plain
+from .kernel import HEAD_DIMS, flash_attention, flash_attention_plain
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_plain"]

@@ -6,8 +6,10 @@
     worker pool (``--pool threads`` or ``device``), continuous batching
     across the models' concurrent requests, optionally behind the JSON/HTTP
     front-end (``--http-port``);
-  * the LM (``smollm-135m``): a batched prefill (attention on K4) plus a
-    greedy decode loop with a KV cache through ``models.transformer``.
+  * the LMs (``configs.ARCH_IDS``: SmolLM, Qwen3, CodeQwen, Gemma2,
+    PaliGemma, DeepSeek-V2/V3): a batched prefill (attention on K4 where
+    K4 has an instance for the shape) plus a greedy decode loop with a KV
+    cache through ``models.transformer``.
 
 It runs on the card by default, through the hand-written kernels.
 
@@ -17,6 +19,8 @@ It runs on the card by default, through the hand-written kernels.
       --device cpu --pool device --http-port 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --batch 4 --prompt-len 32 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+      --smoke --device cpu --batch 2 --prompt-len 8 --gen 8
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from ..configs import ARCH_IDS, get_bundle
 from ..core.pipeline import build_cnn_pipeline
 from ..devices import resolve_device
 from ..models.cnn import CNN_SPECS, init_cnn, input_hw
+from ..models.registry import with_layers
 from ..runtime import StragglerModel
 from ..serving import CodedServer, ServingFrontend
 
@@ -39,26 +44,43 @@ __all__ = ["build_cnn_server", "serve_cnn", "serve_lm", "serve", "main"]
 def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
              smoke: bool = False, seed: int = 0,
              param_dtype: torch.dtype = torch.float32,
-             device: str | torch.device = "cuda") -> torch.Tensor:
+             device: str | torch.device = "cuda", layers: int | None = None,
+             params: dict | None = None,
+             timings: dict | None = None) -> torch.Tensor:
     """Greedy generation for ``batch`` random prompts: one batched prefill
-    fills the cache, then ``gen`` decode steps.  Weights (in
-    ``param_dtype``, as the cache) from a ``torch.Generator`` seeded with
-    ``seed``, prompts with ``seed + 1``.  Prints prefill/decode times and
-    tok/s; returns the generated tokens ``(batch, gen)``."""
+    fills the cache, then ``gen`` decode steps, through the model's first
+    ``layers`` layers where given (full width, less depth; all of them
+    otherwise).  Weights are ``params`` where given, else drawn in
+    ``param_dtype`` (the cache's dtype too) from a ``torch.Generator`` on
+    ``device`` seeded with ``seed`` (on the card for CUDA, leaf by leaf);
+    prompts from a CPU generator seeded with ``seed + 1``.  Prints
+    prefill/decode times and tok/s, and writes them (``prefill_s``,
+    ``decode_s``, ``tok_s``, and ``init_s`` where it drew the weights) into
+    ``timings`` where given; returns the generated tokens ``(batch,
+    gen)``."""
     if arch not in ARCH_IDS:
         raise SystemExit(f"unknown LM arch {arch!r}; valid: {ARCH_IDS}")
     dev = resolve_device(device)
     bundle = get_bundle(arch, smoke=smoke)
+    if layers is not None:
+        bundle = with_layers(bundle, layers)
     max_len = prompt_len + gen
-    params = bundle.init(torch.Generator().manual_seed(seed), param_dtype, dev)
-    prompts = torch.randint(0, bundle.cfg.vocab, (batch, prompt_len),
-                            generator=torch.Generator().manual_seed(seed + 1)
-                            ).to(dev)
-    cache = bundle.make_cache(batch, max_len, param_dtype, dev)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    drawn = {}
+    if params is None:
+        t0 = time.perf_counter()
+        params = bundle.init(torch.Generator(device=dev).manual_seed(seed),
+                             param_dtype, dev)
+        sync()
+        drawn["init_s"] = time.perf_counter() - t0
+    prompts = torch.randint(0, bundle.cfg.vocab, (batch, prompt_len),
+                            generator=torch.Generator().manual_seed(seed + 1)
+                            ).to(dev)
+    cache = bundle.make_cache(batch, max_len, param_dtype, dev)
 
     t0 = time.perf_counter()
     if prompt_len > 0:
@@ -80,9 +102,12 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
     sync()
     decode_s = time.perf_counter() - t0
     seq = torch.cat(out_tokens, dim=1)
+    tok_s = batch * gen / decode_s
     print(f"{arch}: prefill {prompt_len} toks in {prefill_s:.2f}s; "
-          f"generated {gen} x {batch} in {decode_s:.2f}s "
-          f"({batch * gen / decode_s:.1f} tok/s)")
+          f"generated {gen} x {batch} in {decode_s:.2f}s ({tok_s:.1f} tok/s)")
+    if timings is not None:
+        timings.update(drawn, prefill_s=prefill_s, decode_s=decode_s,
+                       tok_s=tok_s)
     return seq
 
 
@@ -215,6 +240,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4, help="LM: prompts")
     ap.add_argument("--prompt-len", type=int, default=32, help="LM")
     ap.add_argument("--gen", type=int, default=32, help="LM: new tokens")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="LM: run only the first LAYERS layers (full width)")
     ap.add_argument("--requests", type=int, default=16,
                     help="concurrent single-image requests per model")
     ap.add_argument("--workers", type=int, default=8)
@@ -248,7 +275,8 @@ def main(argv=None):
         if args.http_port is not None:
             raise SystemExit("--http-port serves the CNN archs only")
         serve_lm(lm_archs[0], batch=args.batch, prompt_len=args.prompt_len,
-                 gen=args.gen, smoke=args.smoke, device=args.device)
+                 gen=args.gen, smoke=args.smoke, device=args.device,
+                 layers=args.layers)
         return
     serve_cnn(archs, requests=args.requests,
               workers=args.workers, stragglers=args.stragglers,

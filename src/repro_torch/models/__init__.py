@@ -1,2 +1,3 @@
 """The port's workloads: the paper's CNN ConvL stacks (``cnn``) and the
-dense GQA decoder LM (``transformer``) served by the coded LM path."""
+decoder LM (``transformer``, with ``moe``): dense GQA, MLA and MoE stacks,
+the dense GQA one also served by the coded LM path."""

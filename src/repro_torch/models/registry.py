@@ -17,7 +17,7 @@ import torch
 
 from . import transformer as lm
 
-__all__ = ["ModelBundle", "make_lm_bundle"]
+__all__ = ["ModelBundle", "make_lm_bundle", "with_layers"]
 
 
 @dataclasses.dataclass
@@ -38,13 +38,13 @@ class ModelBundle:
     def init(self, generator: torch.Generator,
              dtype: torch.dtype = torch.float32,
              device: str | torch.device = "cuda") -> dict:
-        """Random params drawn from ``generator`` (on the CPU), in
-        ``dtype`` on ``device``."""
+        """Random params drawn from ``generator`` leaf by leaf on the
+        generator's device, in ``dtype`` on ``device``."""
         return lm.init_lm(self.cfg, generator, device, dtype)
 
 
 def make_lm_bundle(cfg: lm.LMConfig, family: str = "lm") -> ModelBundle:
-    """The dense GQA transformer as a bundle.  A ``"vlm"`` batch may carry
+    """The transformer (dense GQA, MLA, MoE) as a bundle.  A ``"vlm"`` batch may carry
     ``"prefix"`` (B, P, d_model) embeddings ahead of its tokens (the
     reference's PaliGemma stubs its image frontend so)."""
     if family not in ("lm", "vlm"):
@@ -68,8 +68,18 @@ def make_lm_bundle(cfg: lm.LMConfig, family: str = "lm") -> ModelBundle:
         return lm.init_cache(cfg, b, s, dtype, device)
 
     return ModelBundle(
-        name=cfg.name, family=family, cfg=cfg, sub_quadratic=False,
+        name=cfg.name, family=family, cfg=cfg, sub_quadratic=cfg.sub_quadratic,
         has_decoder=True, loss_fn=loss_fn, prefill_fn=prefill_fn,
         decode_fn=decode_fn, make_cache=make_cache,
         prefill_cache_fn=prefill_cache_fn,
     )
+
+
+def with_layers(bundle: ModelBundle, layers: int) -> ModelBundle:
+    """``bundle`` cut to its first ``layers`` layers (a config's
+    dense-first layers come first): the same widths at less depth."""
+    if not 1 <= layers <= bundle.cfg.layers:
+        raise ValueError(f"{bundle.name} has {bundle.cfg.layers} layers, "
+                         f"asked for {layers}")
+    return make_lm_bundle(dataclasses.replace(bundle.cfg, layers=layers),
+                          bundle.family)

@@ -1,31 +1,35 @@
-"""Decoder-only LM, the dense GQA subset of the JAX package's
-``models/transformer.py``: RMS-norm pre-norm layers with GQA attention
-(optional per-head qk-norm, attention/logit softcaps, sandwich norms,
-embedding scale, sliding windows) and a SwiGLU/GeGLU FFN.
+"""Decoder-only LM, the JAX package's ``models/transformer.py``: RMS-norm
+pre-norm layers with GQA attention (optional per-head qk-norm,
+attention/logit softcaps, sandwich norms, embedding scale, sliding
+windows) or MLA latent attention with a compressed KV cache
+(DeepSeek-V2/V3), and a SwiGLU/GeGLU FFN or a routed MoE FFN
+(``models.moe``) after ``n_dense_layers`` dense-first layers.
 
 Layers are a Python loop over per-layer weights (the reference scans a
-stacked tree; the stacked ``dense_layers`` layout is kept, so the
-reference's params carry across unchanged).  Attention takes one of two
-routes, chosen by the caller:
+stacked tree; the stacked ``dense_layers`` / ``moe_layers`` layout is
+kept, so the reference's params carry across unchanged).  Attention takes
+one of two routes, chosen by the caller:
 
 * serving (``forward``, ``prefill``, ``decode_step``): causal attention
-  from position 0 with several queries runs on K4 (``kernels.flash_attn``);
-  every other case (single-query decode against the cache, windows,
-  softcaps) is the plain ``attention``.  K4 has no backward and refuses
-  autograd on the card;
+  from position 0 with several queries runs on K4 (``kernels.flash_attn``)
+  where K4 has an instance for the shape (``attend_route``); every other
+  case (single-query decode against the cache, windows, softcaps, head
+  dims K4 lacks, MLA's v narrower than its q/k) takes the training
+  route's plain or chunked attention, decided from the shapes before any
+  launch.  K4 has no backward and refuses autograd on the card;
 * training (``lm_loss``, ``forward(autograd=True)``): the reference's own
   differentiable selection (``_attend``, reference ``:304-318``): plain
   masked attention up to ``flash_chunk`` positions, the two-level
   online-softmax scan above it, over the lower triangle of blocks under
   ``flash_block_skip``.
 
-MLA latent attention, MoE FFNs and the sequence-sharded ring cache are
-not ported (ROADMAP Queue A 11) and raise ``NotImplementedError``.
-
 KV caches are updated in place: ``prefill`` and ``decode_step`` write the
 new positions into the cache they are given and return it, where the
 reference returns a new tree (an in-place write saves one cache copy a
-step).
+step).  On one device an indexed write has the values of both of the
+reference's cache writes (``_ring_write``'s select and its
+dynamic-update-slice); which one it picks matters only for a cache
+sharded over a mesh, which waits for the port's sharding slice.
 """
 from __future__ import annotations
 
@@ -39,20 +43,30 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
-from ..kernels.flash_attn import flash_attention
+from ..kernels.flash_attn import HEAD_DIMS, flash_attention
+from ..tree import tree_leaves
 from ..tree import tree_map as map_params
 from .common import (NEG_INF, apply_rope, attention, make_attn_mask, rms_norm,
                      rope_inv_freq, softcap)
+from .moe import MoEConfig, moe_ffn, moe_shapes
 
-__all__ = ["LMConfig", "init_lm", "lm_params_from_numpy", "map_params", "forward",
-           "lm_loss", "init_cache", "decode_step", "prefill"]
+__all__ = ["LMConfig", "MLAConfig", "MoEConfig", "init_lm", "lm_params_from_numpy",
+           "map_params", "forward", "lm_loss", "init_cache", "decode_step",
+           "prefill", "attend_route"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora: int  # 0 => direct q projection
+    kv_lora: int
+    qk_nope_dim: int
+    qk_rope_dim: int
+    v_dim: int
 
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The reference's ``LMConfig`` fields that a dense GQA stack reads.
-    ``attn="mla"`` and ``moe`` exist so a config can say what it is; the
-    port raises on them."""
+    """The reference's ``LMConfig``."""
 
     name: str
     layers: int
@@ -64,7 +78,9 @@ class LMConfig:
     vocab: int
     act: str = "silu"  # "silu" | "gelu"
     attn: str = "gqa"  # "gqa" | "mla"
-    moe: Optional[object] = None
+    mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
+    n_dense_layers: int = 0  # leading dense layers before the MoE stack
     qk_norm: bool = False
     attn_softcap: Optional[float] = None
     logit_softcap: Optional[float] = None
@@ -80,23 +96,45 @@ class LMConfig:
     # flash_block_skip the scan skips the blocks above the diagonal
     flash_chunk: int = 1024
     flash_block_skip: bool = True
+    sub_quadratic: bool = False  # True only for SSM/hybrid families
 
     def __post_init__(self):
         if self.act not in ("silu", "gelu"):
             raise ValueError(f"act must be 'silu' or 'gelu', got {self.act!r}")
+        if self.attn not in ("gqa", "mla"):
+            raise ValueError(f"attn must be 'gqa' or 'mla', got {self.attn!r}")
+        if self.attn == "mla" and not isinstance(self.mla, MLAConfig):
+            raise ValueError("attn='mla' needs mla=MLAConfig(...)")
+        if self.moe is not None and not isinstance(self.moe, MoEConfig):
+            raise ValueError(f"moe must be a MoEConfig, got {type(self.moe)}")
         if self.window_pattern not in ("none", "all", "alternate"):
             raise ValueError(f"unknown window_pattern {self.window_pattern!r}")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads={self.n_heads} is not a multiple of "
                              f"n_kv_heads={self.n_kv_heads}")
 
+    @property
+    def q_dim(self):
+        if self.attn == "mla":
+            return self.mla.qk_nope_dim + self.mla.qk_rope_dim
+        return self.head_dim
 
-def _check_supported(cfg: LMConfig) -> None:
-    if cfg.attn != "gqa":
-        raise NotImplementedError(
-            f"attn={cfg.attn!r}: MLA is not ported (ROADMAP Queue A 11)")
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE layers are not ported (ROADMAP Queue A 11)")
+    @property
+    def rope_dim(self):
+        return self.mla.qk_rope_dim if self.attn == "mla" else self.head_dim
+
+
+def _stacks(cfg: LMConfig) -> list[tuple[str, str, int, bool, int]]:
+    """``(params key, cache key, layers, MoE FFN, first layer)`` of each
+    non-empty stack: the dense-first layers, then the MoE layers."""
+    n_moe = (cfg.layers - cfg.n_dense_layers) if cfg.moe else 0
+    n_dense = cfg.layers - n_moe
+    out = []
+    if n_dense:
+        out.append(("dense_layers", "dense", n_dense, False, 0))
+    if n_moe:
+        out.append(("moe_layers", "moe", n_moe, True, n_dense))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -104,57 +142,90 @@ def _check_supported(cfg: LMConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _layer_shapes(cfg: LMConfig) -> dict[str, tuple[tuple[int, ...], float | None]]:
-    """``name -> (per-layer shape, init scale)``; scale None = fan-in,
-    0.0 = zeros (the reference's ``_layer_schema``)."""
+def _layer_shapes(cfg: LMConfig, moe_layer: bool = False) -> dict:
+    """``name -> (per-layer shape, init scale)``, nested for the MoE FFN;
+    scale None = fan-in, 0.0 = zeros (the reference's ``_layer_schema``)."""
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    s = {"ln_attn": ((d,), 0.0),
-         "wq": ((d, h * hd), None),
-         "wk": ((d, hkv * hd), None),
-         "wv": ((d, hkv * hd), None),
-         "wo": ((h * hd, d), None)}
-    if cfg.qk_norm:
-        s["q_ln"] = ((hd,), 0.0)
-        s["k_ln"] = ((hd,), 0.0)
+    s: dict = {"ln_attn": ((d,), 0.0)}
+    if cfg.attn == "mla":
+        m = cfg.mla
+        qh = m.qk_nope_dim + m.qk_rope_dim
+        if m.q_lora:
+            s["wq_a"] = ((d, m.q_lora), None)
+            s["q_ln"] = ((m.q_lora,), 0.0)
+            s["wq_b"] = ((m.q_lora, h * qh), None)
+        else:
+            s["wq"] = ((d, h * qh), None)
+        s["wkv_a"] = ((d, m.kv_lora + m.qk_rope_dim), None)
+        s["kv_ln"] = ((m.kv_lora,), 0.0)
+        s["wkv_b"] = ((m.kv_lora, h * (m.qk_nope_dim + m.v_dim)), None)
+        s["wo"] = ((h * m.v_dim, d), None)
+    else:
+        s["wq"] = ((d, h * hd), None)
+        s["wk"] = ((d, hkv * hd), None)
+        s["wv"] = ((d, hkv * hd), None)
+        s["wo"] = ((h * hd, d), None)
+        if cfg.qk_norm:
+            s["q_ln"] = ((hd,), 0.0)
+            s["k_ln"] = ((hd,), 0.0)
     s["ln_ffn"] = ((d,), 0.0)
     if cfg.sandwich_norms:
         s["ln_attn_post"] = ((d,), 0.0)
         s["ln_ffn_post"] = ((d,), 0.0)
-    s["w_gate"] = ((d, cfg.d_ff), None)
-    s["w_up"] = ((d, cfg.d_ff), None)
-    s["w_down"] = ((cfg.d_ff, d), None)
+    if moe_layer:
+        s["moe"] = moe_shapes(cfg.moe)
+    else:
+        s["w_gate"] = ((d, cfg.d_ff), None)
+        s["w_up"] = ((d, cfg.d_ff), None)
+        s["w_down"] = ((cfg.d_ff, d), None)
     return s
+
+
+def lm_shapes(cfg: LMConfig) -> dict:
+    """The params tree as ``(shape, init scale)`` leaves (the reference's
+    ``lm_schema`` without its sharding axes)."""
+
+    def stacked(shapes, n):
+        return {k: stacked(v, n) if isinstance(v, dict) else ((n,) + v[0], v[1])
+                for k, v in shapes.items()}
+
+    tree = {key: stacked(_layer_shapes(cfg, moe_layer), n)
+            for key, _, n, moe_layer, _ in _stacks(cfg)}
+    tree["embed"] = ((cfg.vocab, cfg.d_model), 0.02)
+    tree["ln_f"] = ((cfg.d_model,), 0.0)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ((cfg.d_model, cfg.vocab), 0.02)
+    return tree
 
 
 def init_lm(cfg: LMConfig, generator: torch.Generator,
             device: str | torch.device = "cuda",
             dtype: torch.dtype = torch.float32) -> dict:
-    """Random params in the reference's schema (stacked ``dense_layers``):
-    fan-in-scaled normals, 0.02 for the embedding (and untied head), zeros
-    for the norm gains.  Drawn from ``generator`` on the CPU, leaf by leaf
-    in sorted-key order, then moved to ``device``.  The reference draws
-    with a jax PRNG, which is not re-implemented: the same seed gives
-    other weights there."""
-    _check_supported(cfg)
+    """Random params in the reference's schema (stacked ``dense_layers``
+    and ``moe_layers``): fan-in-scaled normals, 0.02 for the embedding (and
+    untied head), zeros for the norm gains.  Leaf by leaf in sorted-key
+    order, each leaf is drawn from ``generator`` on the generator's own
+    device and moved to ``device`` before the next is drawn, so a CUDA
+    generator draws on the card and the host never holds the tree.  The
+    reference draws with a jax PRNG, which is not re-implemented: the same
+    seed gives other weights there."""
     dev = resolve_device(device)
 
     def leaf(shape, scale):
         if scale == 0.0:
-            return torch.zeros(shape, dtype=dtype)
+            return torch.zeros(shape, dtype=dtype, device=dev)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-        return torch.randn(shape, generator=generator, dtype=dtype) * std
+        t = torch.randn(shape, generator=generator, dtype=dtype,
+                        device=generator.device)
+        return t.mul_(std).to(dev)
 
-    layer = _layer_shapes(cfg)
-    tree = {
-        "dense_layers": {name: leaf((cfg.layers,) + shape, scale)
-                         for name, (shape, scale) in sorted(layer.items())},
-        "embed": leaf((cfg.vocab, cfg.d_model), 0.02),
-        "ln_f": leaf((cfg.d_model,), 0.0),
-    }
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = leaf((cfg.d_model, cfg.vocab), 0.02)
-    return map_params(lambda t: t.to(dev), tree)
+    def draw(node):
+        if isinstance(node, dict):
+            return {k: draw(node[k]) for k in sorted(node)}
+        return leaf(*node)
+
+    return draw(lm_shapes(cfg))
 
 
 def _leaf_from_numpy(a, dev: torch.device) -> torch.Tensor:
@@ -167,8 +238,9 @@ def _leaf_from_numpy(a, dev: torch.device) -> torch.Tensor:
 def lm_params_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dict:
     """Carry a tree made elsewhere across unchanged: same tree, same
     layouts, same values and dtypes (bf16 included).  The JAX package's
-    ``bundle.init`` params, or its AdamW state ``{"m", "v", "step"}``, as
-    nested dicts of numpy arrays."""
+    ``bundle.init`` params (every arch of the transformer, the nested
+    ``moe_layers/moe/shared`` leaves and the MLA names included), or its
+    AdamW state ``{"m", "v", "step"}``, as nested dicts of numpy arrays."""
     dev = resolve_device(device)
     return map_params(lambda a: _leaf_from_numpy(a, dev), tree)
 
@@ -178,39 +250,58 @@ def lm_params_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dic
 # ---------------------------------------------------------------------------
 
 
-def _layer_windows(cfg: LMConfig, n_layers: int) -> list:
-    """Per-layer sliding-window size (None = global)."""
+def _layer_windows(cfg: LMConfig, n_layers: int, offset: int = 0) -> list:
+    """Per-layer sliding-window size (None = global) of a stack whose first
+    layer is layer ``offset`` of the model."""
     if cfg.window is None or cfg.window_pattern == "none":
         return [None] * n_layers
     if cfg.window_pattern == "all":
         return [cfg.window] * n_layers
     # alternate: even layers local, odd global (gemma2)
-    return [cfg.window if i % 2 == 0 else None for i in range(n_layers)]
+    return [cfg.window if (i + offset) % 2 == 0 else None for i in range(n_layers)]
+
+
+def attend_route(cfg: LMConfig, sq: int, sk: int, d: int, dv: int, window,
+                 start: int | None) -> str:
+    """Which attention the serving route runs for queries ``(.., sq, .., d)``
+    over keys ``(.., sk, .., d)`` and values of width ``dv``: ``"k4"``
+    where K4 has an instance for the shape (``start == 0``, several
+    queries, no window or softcap, ``d`` in K4's ``HEAD_DIMS`` and ``dv ==
+    d``); else the training route's selection, ``"chunked"`` (the
+    online-softmax scan, both lengths multiples of ``flash_chunk`` and the
+    queries more than one chunk) or ``"plain"`` (masked attention)."""
+    if (start == 0 and sq > 1 and window is None and cfg.attn_softcap is None
+            and d in HEAD_DIMS and dv == d):
+        return "k4"
+    c = cfg.flash_chunk
+    if sq > c and sq % c == 0 and sk % c == 0:
+        return "chunked"
+    return "plain"
 
 
 def _attend(q, k, v, q_pos, k_pos, cfg: LMConfig, window, *, scale=None,
-            start: int | None = None):
-    """Attention of ``q`` (B, Sq, H, D) over ``k``/``v`` (B, Sk, Hkv, D).
+            start: int | None = None, autograd: bool = False):
+    """Attention of ``q`` (B, Sq, H, D) over ``k`` (B, Sk, Hkv, D) and
+    ``v`` (B, Sk, Hkv, Dv), routed by ``attend_route``; ``autograd`` takes
+    the training route (``_attend_autograd``), never K4.
 
     ``start=0`` promises that every row's query positions are
     ``0..Sq-1`` and its key positions ``0..Sk-1`` — position equals index,
-    so the causal mask is K4's index mask.  That case, with several queries
-    and no window or softcap, runs on K4 over the first ``min(Sq, Sk)``
-    keys (later keys are masked for every query).  Everything else is the
-    plain masked ``attention``."""
+    so the causal mask is K4's index mask; K4 then runs over the first
+    ``min(Sq, Sk)`` keys (later keys are masked for every query)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if start == 0 and sq > 1 and window is None and cfg.attn_softcap is None:
+    if not autograd and attend_route(cfg, sq, sk, d, v.shape[-1], window,
+                                     start) == "k4":
         kk = min(sq, sk)
         qf = q.permute(0, 2, 1, 3).reshape(b * h, sq, d)
         kf = k[:, :kk].permute(0, 2, 1, 3).reshape(b * hkv, kk, d)
-        vf = v[:, :kk].permute(0, 2, 1, 3).reshape(b * hkv, kk, v.shape[-1])
+        vf = v[:, :kk].permute(0, 2, 1, 3).reshape(b * hkv, kk, d)
         out = flash_attention(qf.contiguous(), kf.contiguous(), vf.contiguous(),
                               scale=scale, causal=True, rep=h // hkv)
         return out.reshape(b, h, sq, -1).permute(0, 2, 1, 3)
-    mask = make_attn_mask(q_pos, k_pos, window)
-    return attention(q, k, v, mask, scale=scale, attn_softcap=cfg.attn_softcap)
+    return _attend_autograd(q, k, v, q_pos, k_pos, cfg, window, scale=scale)
 
 
 def _flash_attention(q, k, v, q_pos, k_pos, *, scale, window, attn_softcap,
@@ -287,6 +378,14 @@ def _attend_autograd(q, k, v, q_pos, k_pos, cfg: LMConfig, window, *,
     return attention(q, k, v, mask, scale=scale, attn_softcap=cfg.attn_softcap)
 
 
+def _write(cache: dict, name: str, new: torch.Tensor, start: int) -> torch.Tensor:
+    """Write ``new`` (B, S, ...) into ``cache[name]`` at positions
+    ``start..start+S-1`` in place; returns the whole cache leaf."""
+    leaf = cache[name]
+    leaf[:, start:start + new.shape[1]] = new.to(leaf.dtype)
+    return leaf
+
+
 def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
               start: int | None = None, autograd: bool = False):
     """The attention block's output.  ``cache`` = dict(k=(B, S, hkv, hd),
@@ -303,15 +402,44 @@ def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
     q = apply_rope(q, rope, q_pos)
     k = apply_rope(k, rope, q_pos)
     if cache is not None:
-        cache["k"][:, start:start + s] = k.to(cache["k"].dtype)
-        cache["v"][:, start:start + s] = v.to(cache["v"].dtype)
-        out = _attend(q, cache["k"], cache["v"], q_pos, k_pos, cfg, window,
-                      start=start)
-    elif autograd:
-        out = _attend_autograd(q, k, v, q_pos, k_pos, cfg, window)
-    else:
-        out = _attend(q, k, v, q_pos, k_pos, cfg, window, start=start)
+        k, v = _write(cache, "k", k, start), _write(cache, "v", v, start)
+    out = _attend(q, k, v, q_pos, k_pos, cfg, window, start=start,
+                  autograd=autograd)
     return out.reshape(b, s, h * hd) @ w["wo"]
+
+
+def _mla_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
+              start: int | None = None, autograd: bool = False):
+    """MLA (the reference's ``_mla_attn``, ``:386-421``) with the
+    compressed-latent cache ``dict(ckv=(B, S, kv_lora), krope=(B, S,
+    rope_dim))``, written in place; keys and values are expanded from the
+    latent over every cached position."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    qh = m.qk_nope_dim + m.qk_rope_dim
+    if m.q_lora:
+        q = rms_norm(x @ w["wq_a"], w["q_ln"]) @ w["wq_b"]
+    else:
+        q = x @ w["wq"]
+    q_nope, q_rope = q.reshape(b, s, h, qh).split([m.qk_nope_dim, m.qk_rope_dim],
+                                                  dim=-1)
+    q_rope = apply_rope(q_rope, rope, q_pos)
+    ckv, krope = (x @ w["wkv_a"]).split([m.kv_lora, m.qk_rope_dim], dim=-1)
+    ckv = rms_norm(ckv, w["kv_ln"])
+    krope = apply_rope(krope[:, :, None, :], rope, q_pos)[:, :, 0, :]
+    if cache is not None:
+        ckv = _write(cache, "ckv", ckv, start)
+        krope = _write(cache, "krope", krope, start)
+    sk = ckv.shape[1]
+    kvx = (ckv @ w["wkv_b"]).reshape(b, sk, h, m.qk_nope_dim + m.v_dim)
+    k_nope, v = kvx.split([m.qk_nope_dim, m.v_dim], dim=-1)
+    k_rope = krope[:, :, None, :].expand(b, sk, h, m.qk_rope_dim)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope], dim=-1)
+    out = _attend(q_full, k_full, v, q_pos, k_pos, cfg, window,
+                  scale=1.0 / math.sqrt(qh), start=start, autograd=autograd)
+    return out.reshape(b, s, h * m.v_dim) @ w["wo"]
 
 
 def _act(cfg: LMConfig):
@@ -325,34 +453,52 @@ def _ffn(w, x, cfg: LMConfig):
     return (_act(cfg)(g.float()).to(u.dtype) * u) @ w["w_down"]
 
 
-def _layer(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache, start,
-           autograd):
+def _layer(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, moe_layer, cache,
+           start, autograd):
     h_in = rms_norm(x, w["ln_attn"])
-    attn_out = _gqa_attn(w, h_in, cfg, rope, q_pos, k_pos, window, cache, start,
-                         autograd)
+    attn_fn = _mla_attn if cfg.attn == "mla" else _gqa_attn
+    attn_out = attn_fn(w, h_in, cfg, rope, q_pos, k_pos, window, cache, start,
+                       autograd)
     if cfg.sandwich_norms:
         attn_out = rms_norm(attn_out, w["ln_attn_post"])
     x = x + attn_out
-    ffn_out = _ffn(w, rms_norm(x, w["ln_ffn"]), cfg)
+    h2 = rms_norm(x, w["ln_ffn"])
+    if moe_layer:
+        b, s, d = h2.shape
+        ffn_out = moe_ffn(w["moe"], h2.reshape(b * s, d), cfg.moe).reshape(b, s, d)
+    else:
+        ffn_out = _ffn(w, h2, cfg)
     if cfg.sandwich_norms:
         ffn_out = rms_norm(ffn_out, w["ln_ffn_post"])
     return x + ffn_out
 
 
-def _run_stack(stack_w, x, cfg, rope, q_pos, k_pos, caches, start,
-               autograd=False):
-    """The layer loop over the stacked weights; ``caches`` the stacked
-    (L, B, S, hkv, hd) K/V pair (written in place) or None.  Each stacked
-    leaf is unbound once, so its gradient is one stack of the layers'
-    (not a sum of L zero-padded selects)."""
-    windows = _layer_windows(cfg, cfg.layers)
-    layers = {name: leaf.unbind(0) for name, leaf in stack_w.items()}
-    for l in range(cfg.layers):
-        w = {name: leaf[l] for name, leaf in layers.items()}
-        cache = None if caches is None else {"k": caches["k"][l],
-                                             "v": caches["v"][l]}
-        x = _layer(w, x, cfg, rope, q_pos, k_pos, windows[l], cache, start,
-                   autograd)
+def _run_stack(stack_w, x, cfg, rope, q_pos, k_pos, caches, start, autograd,
+               n, moe_layer, offset):
+    """The loop over one stack's ``n`` layers, the first of them layer
+    ``offset`` of the model; ``caches`` the stack's (L, B, S, ...) cache
+    leaves (written in place) or None.  Each stacked leaf is unbound once,
+    so its gradient is one stack of the layers' (not a sum of L
+    zero-padded selects)."""
+    windows = _layer_windows(cfg, n, offset)
+    layers = map_params(lambda leaf: leaf.unbind(0), stack_w)
+    for l in range(n):
+        w = map_params(lambda leaves: leaves[l], layers)
+        cache = None if caches is None else {k: c[l] for k, c in caches.items()}
+        x = _layer(w, x, cfg, rope, q_pos, k_pos, windows[l], moe_layer, cache,
+                   start, autograd)
+    return x
+
+
+def _run_stacks(params, cfg: LMConfig, x, q_pos, k_pos, cache, start,
+                autograd=False):
+    """Every stack in order (dense-first, then MoE), with the stacks'
+    caches ``cache["dense"]`` / ``cache["moe"]`` or None."""
+    rope = rope_inv_freq(cfg.rope_dim, cfg.rope_base, x.device)
+    for key, cache_key, n, moe_layer, offset in _stacks(cfg):
+        x = _run_stack(params[key], x, cfg, rope, q_pos, k_pos,
+                       None if cache is None else cache[cache_key], start,
+                       autograd, n, moe_layer, offset)
     return x
 
 
@@ -383,18 +529,15 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor,
     """Full-sequence forward: ``tokens`` (B, S) -> logits (B, P + S, V),
     with ``prefix_embeds`` (B, P, d_model) (stub frontend embeddings, such
     as PaliGemma's image patches) ahead of the token embeddings.
-    ``autograd=False`` is the serving route (causal attention on K4);
-    ``autograd=True`` the training route (``_attend_autograd``), which
-    backward differentiates."""
-    _check_supported(cfg)
+    ``autograd=False`` is the serving route (causal attention on K4 where
+    ``attend_route`` says so); ``autograd=True`` the training route
+    (``_attend_autograd``), which backward differentiates."""
     x = _embed(params, cfg, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     pos = _positions(b, 0, s, x.device)
-    rope = rope_inv_freq(cfg.head_dim, cfg.rope_base, x.device)
-    x = _run_stack(params["dense_layers"], x, cfg, rope, pos, pos, None, 0,
-                   autograd)
+    x = _run_stacks(params, cfg, x, pos, pos, None, 0, autograd)
     return _unembed(params, cfg, x)
 
 
@@ -414,28 +557,37 @@ def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor, targets: torch.Tensor,
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.float32,
                device: str | torch.device = "cuda") -> dict:
-    """Stacked (L-leading) zero KV caches for decode."""
-    _check_supported(cfg)
-    shape = (cfg.layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """Stacked (L-leading) zero caches for decode, one a stack (``"dense"``,
+    ``"moe"``): K/V ``(L, B, S, hkv, hd)``, or MLA's latent ``ckv (L, B, S,
+    kv_lora)`` and ``krope (L, B, S, rope_dim)``."""
     dev = resolve_device(device)
-    return {"dense": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                      "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    out = {}
+    for _, cache_key, n, _, _ in _stacks(cfg):
+        if cfg.attn == "mla":
+            m = cfg.mla
+            out[cache_key] = {"ckv": zeros(n, batch, max_len, m.kv_lora),
+                              "krope": zeros(n, batch, max_len, m.qk_rope_dim)}
+        else:
+            shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            out[cache_key] = {"k": zeros(*shape), "v": zeros(*shape)}
+    return out
 
 
 def _cached_pass(params, cfg: LMConfig, cache, tokens, start: int):
-    _check_supported(cfg)
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape
-    max_len = cache["dense"]["k"].shape[2]
+    max_len = tree_leaves(cache)[0].shape[2]
     if start + s > max_len:
         raise ValueError(f"positions {start}..{start + s - 1} exceed the "
                          f"cache length {max_len}")
     q_pos = _positions(b, start, s, x.device)
     # k_pos <= q_pos hides the not-yet-written cache slots
     k_pos = _positions(b, 0, max_len, x.device)
-    rope = rope_inv_freq(cfg.head_dim, cfg.rope_base, x.device)
-    x = _run_stack(params["dense_layers"], x, cfg, rope, q_pos, k_pos,
-                   cache["dense"], start)
+    x = _run_stacks(params, cfg, x, q_pos, k_pos, cache, start)
     return _unembed(params, cfg, x), cache
 
 
@@ -449,5 +601,6 @@ def decode_step(params, cfg: LMConfig, cache, tokens: torch.Tensor, pos: int):
 def prefill(params, cfg: LMConfig, cache, tokens: torch.Tensor):
     """Batched cache-filling prefill: ``tokens`` (B, P) -> ``(logits (B, P,
     V), cache)`` with positions ``0..P-1`` written in place — the same as
-    P ``decode_step`` calls, in one pass whose attention runs on K4."""
+    P ``decode_step`` calls, in one pass whose attention runs on K4 where
+    ``attend_route`` says so."""
     return _cached_pass(params, cfg, cache, tokens, 0)

@@ -874,8 +874,17 @@ def test_cuda_resident_filter_shard_is_not_copied(cuda):
         gs = impl.graph_set(3, torch.cuda.CUDAGraph)
         ent = next(g for (prog, sig, slot), g in gs._graphs.items()
                    if slot == "v/conv1_1")
-        assert [j for j, _ in ent.copied] == [0]
-        assert ent.resident[1][1] == shards[3].data_ptr()
+        copied = [(j, hex(t.data_ptr()), str(t.device), tuple(t.shape))
+                  for j, t in ent.copied]
+        shard = (hex(shards[3].data_ptr()), str(shards[3].device),
+                 tuple(shards[3].shape))
+        held = {j: (hex(ptr), str(t.device)) for j, (t, ptr, _) in
+                ent.resident.items()}
+        assert [j for j, _ in ent.copied] == [0], (
+            f"copied arguments (index, pointer, device, shape) {copied}; the "
+            f"shard {shard}; residents {held}")
+        assert ent.resident[1][1] == shards[3].data_ptr(), (
+            f"resident {held} is not the shard {shard}; copied {copied}")
         share_bytes = sum(s.numel() * 4 for g in gs._graphs.values()
                           for _, s in g.copied)
         assert gs.static_bytes == share_bytes
@@ -1045,3 +1054,111 @@ def test_cuda_full_width_train_step_matches_fp64(cuda):
     out = cs.check_step1_fp64(bundle, params, batch)  # raises on a mismatch
     assert k4.launches.count == before
     assert out["loss_rel_err"] <= 1e-5 and out["grad_rel_err"] <= 1e-4
+
+
+# -- the arch zoo: MoE at DeepSeek-V2's widths, K4 at Qwen3's head dim, the
+# plain route for shapes K4 has no instance for, init_lm on the card -----
+
+
+def test_cuda_moe_gather_matches_plain_at_deepseek_v2_widths(cuda):
+    """One MoE layer at DeepSeek-V2's expert widths (d 5120, 160 experts of
+    1536, top-6, 2 shared, 16 dispatch groups) on 64 tokens: the gather
+    dispatch against the float-scatter plain version within 1e-5 of
+    max|y|, no entry dropped."""
+    from repro_torch.configs import deepseek_v2_236b
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = deepseek_v2_236b.full().moe
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def draw(shapes):
+        return {k: draw(v) if isinstance(v, dict) else
+                torch.randn(v[0], generator=gen, device=cuda).mul_(v[0][-2] ** -0.5)
+                for k, v in shapes.items()}
+
+    w = draw(moe.moe_shapes(cfg))
+    x = torch.randn(64, cfg.d_model, generator=gen, device=cuda)
+    with torch.no_grad():
+        got = moe.moe_ffn(w, x, cfg)
+        want = moe.moe_ffn_plain(w, x, cfg)
+        r = moe.route(w, moe._grouped(x, cfg), cfg)
+    assert r.gate_e.shape == (16, 4, 6) and bool(r.keep.all())
+    _close(got, want)
+
+
+@pytest.mark.parametrize("bh,s,rep", [(128, 16, 4), (128, 16, 1), (64, 37, 4),
+                                      (32, 64, 4)])
+def test_cuda_flash_attention_head_dim_128(cuda, bh, s, rep):
+    """K4 at head dim 128 (Qwen3's rep 4 and CodeQwen's rep 1 prefill
+    shapes, and ragged and longer S) against its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(bh + s + rep)
+    q = torch.randn(bh, s, 128, generator=gen, device=cuda)
+    k, v = (torch.randn(bh // rep, s, 128, generator=gen, device=cuda)
+            for _ in range(2))
+    before = k4.launches.count
+    got = k4.flash_attention(q, k, v, causal=True, rep=rep)
+    torch.cuda.synchronize()
+    assert k4.launches.count == before + 1
+    _close(got, k4.flash_attention_plain(q, k, v, causal=True, rep=rep), 2e-5)
+
+
+@pytest.mark.parametrize("d,dv,k4_launches", [(256, 256, 0), (192, 128, 0),
+                                              (128, 128, 1)])
+def test_cuda_attend_takes_the_plain_route_where_k4_has_no_instance(
+        cuda, d, dv, k4_launches):
+    """The serving route's prefill attention on the card: head dim 256 and
+    MLA's 192 / 128 launch no K4 (read from ``launches``) and equal the
+    plain masked attention; head dim 128 launches it once."""
+    from repro_torch.models import common
+    from repro_torch.models import transformer as lm
+
+    cfg = lm.LMConfig(name="r", layers=1, d_model=32, n_heads=8, n_kv_heads=2,
+                      head_dim=d, d_ff=32, vocab=16)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn(2, 16, 8, d, generator=gen, device=cuda)
+    k = torch.randn(2, 16, 2, d, generator=gen, device=cuda)
+    v = torch.randn(2, 16, 2, dv, generator=gen, device=cuda)
+    pos = lm._positions(2, 0, 16, cuda)
+    before = k4.launches.count
+    got = lm._attend(q, k, v, pos, pos, cfg, None, start=0)
+    torch.cuda.synchronize()
+    assert k4.launches.count - before == k4_launches
+    want = common.attention(q, k, v, common.make_attn_mask(pos, pos),
+                            scale=d ** -0.5)
+    _close(got, want, 2e-5)
+
+
+def test_cuda_init_lm_draws_on_the_card(cuda):
+    """``init_lm`` with a CUDA generator draws every leaf on the card: the
+    same seed gives the same tree, each leaf is the generator's next draw
+    in sorted-key order, and the peak holds the tree plus one leaf's
+    scratch at most (no host copy, no second tree)."""
+    from repro_torch.configs import deepseek_v2_236b
+    from repro_torch.models import transformer as lm
+    from repro_torch.tree import tree_items
+
+    cfg = deepseek_v2_236b.smoke()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    a = lm.init_lm(cfg, torch.Generator(device=cuda).manual_seed(4), cuda)
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    b = lm.init_lm(cfg, torch.Generator(device=cuda).manual_seed(4), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    total = biggest = 0
+    for (path, leaf), (_, other) in zip(tree_items(a), tree_items(b)):
+        assert leaf.device.type == "cuda" and torch.equal(leaf, other), path
+        total += leaf.numel() * 4
+        biggest = max(biggest, leaf.numel() * 4)
+    for path, (shape, scale) in tree_items(lm.lm_shapes(cfg)):
+        if scale == 0.0:
+            continue
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        std = scale if scale is not None else fan_in ** -0.5
+        want = torch.randn(shape, generator=gen, device=cuda).mul_(std)
+        node = a
+        for key in path:
+            node = node[key]
+        assert torch.equal(node, want), path
+    assert peak <= total + biggest + (1 << 20)

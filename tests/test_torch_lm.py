@@ -22,7 +22,7 @@ from repro.configs import smollm_135m as ref_smollm
 from repro.models import common as ref_common
 from repro.models import transformer as ref_lm
 from repro.models.common import schema_init
-from repro_torch.configs import smollm_135m
+from repro_torch.configs import get_bundle, smollm_135m
 from repro_torch.models import common
 from repro_torch.models import transformer as lm
 
@@ -153,14 +153,20 @@ def test_config_variants_match_reference(variant):
 
 
 def test_unported_families_raise():
+    """The reference's families without a port (RWKV6, Hymba, Whisper)
+    raise, pointing at the ROADMAP; a config the transformer cannot build
+    is refused when it is made."""
+    for arch in ("rwkv6-1.6b", "hymba-1.5b", "whisper-medium"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_bundle(arch, smoke=True)
     base = dict(name="x", layers=1, d_model=8, n_heads=2, n_kv_heads=1,
                 head_dim=4, d_ff=8, vocab=16)
-    for kw in (dict(attn="mla"), dict(moe=object())):
-        cfg = lm.LMConfig(**base, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.init_cache(cfg, 1, 4, device="cpu")
+    with pytest.raises(ValueError, match="MLAConfig"):
+        lm.LMConfig(**base, attn="mla")
+    with pytest.raises(ValueError, match="attn"):
+        lm.LMConfig(**base, attn="linear")
+    with pytest.raises(ValueError, match="MoEConfig"):
+        lm.LMConfig(**base, moe=object())
     with pytest.raises(ValueError, match="window_pattern"):
         lm.LMConfig(**base, window_pattern="ring")
 

@@ -27,6 +27,7 @@ import torch
 
 from repro import checkpoint as ref_ckpt
 from repro.configs import ARCH_IDS as REF_ARCH_IDS
+from repro.configs import get_bundle as ref_get_bundle
 from repro.configs import smollm_135m as ref_smollm
 from repro.launch import steps as ref_steps
 from repro.launch.mesh import make_host_mesh
@@ -471,16 +472,27 @@ def test_get_bundle_raises_for_unported_archs(arch):
         get_bundle(arch)
 
 
-def test_get_bundle_has_the_reference_numbers():
-    assert ARCH_IDS == ["smollm-135m"]
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_get_bundle_has_the_reference_numbers(arch):
+    """Every ported arch: the bundle's name, family and every field of its
+    ``LMConfig`` (and nested ``MoEConfig`` / ``MLAConfig``) equal the
+    reference's, for ``full()`` and ``smoke()``."""
+    assert ARCH_IDS == [a for a in REF_ARCH_IDS
+                        if a not in ("hymba-1.5b", "whisper-medium", "rwkv6-1.6b")]
     for smoke in (False, True):
-        got = get_bundle("smollm-135m", smoke=smoke)
-        want = ref_smollm.smoke() if smoke else ref_smollm.full()
-        assert (got.name, got.family, got.has_decoder) == (
-            want.name, want.family, want.has_decoder)
-        for f in ("layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
-                  "vocab", "flash_chunk", "flash_block_skip", "max_seq"):
-            assert getattr(got.cfg, f) == getattr(want.cfg, f), f
+        got = get_bundle(arch, smoke=smoke)
+        want = ref_get_bundle(arch, smoke=smoke)
+        assert (got.name, got.family, got.has_decoder, got.sub_quadratic) == (
+            want.name, want.family, want.has_decoder, want.sub_quadratic)
+        names = [f.name for f in dataclasses.fields(want.cfg)]
+        assert [f.name for f in dataclasses.fields(got.cfg)] == names
+        for f in names:
+            a, b = getattr(got.cfg, f), getattr(want.cfg, f)
+            if dataclasses.is_dataclass(b):
+                assert type(a).__name__ == type(b).__name__, f
+                assert dataclasses.asdict(a) == dataclasses.asdict(b), f
+            else:
+                assert a == b, f
     with pytest.raises(KeyError):
         get_bundle("gpt-5")
 
