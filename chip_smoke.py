@@ -118,8 +118,23 @@ Phases, in order; any failure raises:
     requests, held as phase 8 holds SmolLM's, with K2-K4 at its shapes
     against their plain versions, timed.  CodeQwen1.5-7B, Gemma2-9B (one
     local, one global layer) and PaliGemma-3B (its ``prefill_fn`` also
-    over a 256 x 2048 stub prefix) at 2 layers.  K4 at Qwen3's and
-    CodeQwen's prefill shapes against its plain version, timed;
+    over a 256 x 2048 stub prefix) at 2 layers.  RWKV6-1.6B, Hymba-1.5B
+    and Whisper-medium at full width and depth: ``serve_lm`` steps
+    ``decode_fn`` over their prompts (no cache-filling prefill, as in the
+    reference), so K4's launches are also read around one ``prefill_fn``
+    over the same prompts (Whisper's with 4 x 1500 random frames) and
+    equal the layers whose route is K4 (RWKV6 0, Hymba 32, Whisper's
+    decoder 24); RWKV6's and Hymba's ``decode_fn`` stepped over 141 tokens
+    against ``prefill_fn`` (two chunk carries and a padded tail): RWKV6 at
+    full depth in float64, and in fp32 on a cut of 2 layers and layer by
+    layer at full depth, Hymba at full
+    depth with its window cut to 4, from position 96 on (its decode, as
+    the reference's, attends over the ring's unwritten slots as zero
+    keys before); Whisper's ``decode_fn`` teacher-forced from the cross
+    K/V that ``precompute_cross_kv(encode(frames))`` filled against
+    ``prefill_fn``; each within 1e-4 of max|logit|.  K4 at Qwen3's, CodeQwen's, Hymba's
+    (rep 5) and Whisper's decoder's prefill shapes against its plain
+    version, timed;
 13. one JSON line with the training numbers (ms a step and tokens/s, the
     median over steps 5-30, peak device memory, the model FLOPs a step
     and their share of the fp32 peak, the card's name and power limit),
@@ -238,21 +253,56 @@ TOL_MICRO = 1e-4
 # ZOO_GEN new ones; PaliGemma's prefill_fn also over ZOO_PREFIX stub patch
 # embeddings.  DeepSeek-V2 keeps its dense-first layer and two MoE layers
 # (37 GB of fp32 weights); DeepSeek-V3's least depth with an MoE layer is
-# 3 dense + 1 MoE, about 60 GB in fp32, and is held on the CPU only.
+# 3 dense + 1 MoE, about 60 GB in fp32, and is held on the CPU only.  The
+# recurrent and encoder-decoder families run at full width and depth:
+# RWKV6-1.6B (5.8 GB of fp32 weights), Hymba-1.5B (6.4 GB) and
+# Whisper-medium (3.2 GB).
 ZOO = (("deepseek-v2-236b", 3), ("qwen3-4b", None), ("codeqwen1.5-7b", 2),
-       ("gemma2-9b", 2), ("paligemma-3b", 2))
+       ("gemma2-9b", 2), ("paligemma-3b", 2), ("rwkv6-1.6b", None),
+       ("hymba-1.5b", None), ("whisper-medium", None))
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN, ZOO_PREFIX = 4, 16, 16, 256
+# RWKV6's and Hymba's decode_fn stepped over ZOO_SCAN tokens against their
+# prefill_fn: 2 x 64 + 13 crosses two chunk carries of the scan and a
+# padded tail (16 tokens would stay inside one chunk)
+ZOO_SCAN = 141
 # prefill_cache_fn against prefill_fn: the same products but for masked
 # keys that add exact zeros (K4's routes are the same launch on the same
 # keys), relative to max|logit|; decode_fn teacher-forced against
 # prefill_fn sums attention another way (plain against K4, one query at a
 # time) through up to 36 layers, held as the served LM is (TOL_LM).  The
+# recurrent families' decode_fn sums the scan one step at a time against
+# the chunked pairs and carries (the same fp32 products in another order,
+# through 24 or 32 layers), and Whisper's decode_fn runs attention plain
+# against K4: both held to the same TOL_ZOO_DECODE.  The
 # MoE's gather dispatch against its float-scatter plain version: the same
 # fp32 products summed in another order (within 1e-5 of max|y|); against a
 # float64 loop token by token, fp32 sums over 5120 and 1536 products stay
 # near 1e-6 of max|y|, inside 1e-4, where a wrong expert or gate weight
 # reads near 1.
 TOL_ZOO_CACHE, TOL_ZOO_DECODE = 1e-5, 1e-4
+# RWKV6's random-weight stack amplifies rounding layer after layer: how
+# far a relative perturbation of ZOO_PERTURB in the embedding moves
+# prefill_fn's logits (chip_smoke.py prints it) grows from near 1e-5 of
+# max|logit| at 1 layer to near 1e-1 at 24, so no two fp32 evaluations of
+# the full stack can be held within TOL_ZOO_DECODE.  Its decode_fn is held
+# end to end at full width and depth in float64 (rwkv_float64_witness,
+# where rounding sits near 1e-16), and in fp32 on a cut of ZOO_RWKV_CUT =
+# 2 layers, the least depth at which one layer's state write can be told
+# from another's, where that reading stays under TOL_ZOO_DECODE / 2 on the
+# H100 (printed beside the check); at full depth each fp32 layer is held
+# teacher-forced, stepped against chunked, its update (output less input)
+# and final scan state within TOL_ZOO_DECODE of their max (the same fp32
+# products in another order within one layer).
+ZOO_PERTURB, ZOO_RWKV_CUT = 1e-6, 2
+# Hymba's decode_fn attends over its ring's unwritten slots as zero keys,
+# as the reference's does, and those steps' outputs feed the next layer's
+# keys: it agrees with prefill_fn only from step layers x (window - 1) on,
+# 32,736 at the window of 1024.  Its check runs Hymba at full width and
+# depth with the window cut to ZOO_HYMBA_WINDOW and holds the positions
+# from ZOO_HYMBA_FROM = 32 x 3 on (crossing the scan's carry at 128 and
+# its padded tail), where the SSM states' memory of the earlier steps has
+# had 96 steps to decay; the earlier positions' gap is printed, not held.
+ZOO_HYMBA_WINDOW, ZOO_HYMBA_FROM = 4, 96
 TOL_MOE_PLAIN, TOL_MOE_FP64, MOE_SAMPLED = 1e-5, 1e-4, 16
 
 
@@ -1758,16 +1808,207 @@ def cache_checks(bundle, params, prompts, device) -> dict:
     return {"prefill_cache_rel_err": err_cache, "decode_rel_err": err_decode}
 
 
+def _stepped(bundle, params, cache, tokens) -> tuple[torch.Tensor, dict]:
+    """``decode_fn`` over ``tokens`` (B, P) from position 0, one token at
+    a time: the logits rows (B, P, V) and the cache."""
+    rows = []
+    for t in range(tokens.shape[1]):
+        lg, cache = bundle.decode_fn(params, cache, {"tokens": tokens[:, t:t + 1],
+                                                     "pos": t})
+        rows.append(lg[:, 0])
+    return torch.stack(rows, dim=1), cache
+
+
+def _check_logits(name: str, got: torch.Tensor, shape: tuple) -> None:
+    if tuple(got.shape) != shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: logits {tuple(got.shape)} or non-finite")
+
+
+def rwkv_layer_checks(bundle, params, toks) -> dict:
+    """RWKV6's decode, layer by layer: each layer's chunked pass over the
+    layer inputs of ``prefill_fn`` (teacher-forced) against the same
+    layer stepped one token at a time from a zero state, its update and
+    final scan state within ``TOL_ZOO_DECODE`` of their max."""
+    from repro_torch.models import rwkv6
+    from repro_torch.tree import tree_map
+
+    cfg = bundle.cfg
+    b, t = toks.shape
+    x = params["embed"][toks]
+    zero = torch.zeros((b, cfg.d_model), device=x.device)
+    s0 = torch.zeros((b, cfg.n_heads, cfg.head_dim, cfg.head_dim), device=x.device)
+    worst = {"update_rel_err": 0.0, "state_rel_err": 0.0}
+    per_layer = []
+    for l in range(cfg.layers):
+        w = tree_map(lambda a: a[l], params["layers"])
+        out, _, _, s = rwkv6._layer(w, x, cfg, zero, zero, s0, False, False)
+        xa, xf, st, rows = zero, zero, s0, []
+        for i in range(t):
+            o, xa, xf, st = rwkv6._layer(w, x[:, i:i + 1], cfg, xa, xf, st, True,
+                                         False)
+            rows.append(o)
+        errs = (_err(torch.cat(rows, dim=1) - x, out - x)[1], _err(st, s)[1])
+        per_layer.append(errs[0])
+        for key, err in zip(worst, errs):
+            if not err <= TOL_ZOO_DECODE:
+                raise AssertionError(f"{bundle.name} layer {l}: stepped vs chunked "
+                                     f"{key} {err} > {TOL_ZOO_DECODE}")
+            worst[key] = max(worst[key], err)
+        x = out
+    return {"layers": cfg.layers, **worst, "update_rel_err_by_layer": per_layer}
+
+
+def _prefill_and_stepped(bundle, params, toks, device, dtype=torch.float32):
+    """``prefill_fn`` and ``decode_fn`` stepped from ``make_cache`` (in
+    ``dtype``) over ``toks`` (B, T): both logits, each checked for shape
+    and finiteness."""
+    full = bundle.prefill_fn(params, {"tokens": toks})
+    stepped, _ = _stepped(bundle, params, bundle.make_cache(
+        toks.shape[0], toks.shape[1], dtype, device), toks)
+    shape = (*toks.shape, bundle.cfg.vocab)
+    _check_logits(f"{bundle.name} prefill_fn", full, shape)
+    _check_logits(f"{bundle.name} decode_fn", stepped, shape)
+    return full, stepped
+
+
+def _perturbed(bundle, params, toks, full, device) -> float:
+    """How far a ``ZOO_PERTURB`` relative perturbation of the embedding
+    moves ``prefill_fn``'s logits ``full``, relative to max|logit|."""
+    noise = torch.randn(params["embed"].shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(SEED + 4))
+    moved = bundle.prefill_fn({**params, "embed": params["embed"] * (
+        1 + ZOO_PERTURB * noise)}, {"tokens": toks})
+    return _err(moved, full)[1]
+
+
+def recurrent_checks(bundle, params, device) -> dict:
+    """RWKV6 and Hymba: ``decode_fn`` stepped over ``ZOO_SCAN`` tokens from
+    ``make_cache`` against ``prefill_fn`` over the same tokens, within
+    ``TOL_ZOO_DECODE`` of max|logit|: RWKV6 on its first ``ZOO_RWKV_CUT``
+    layers (each layer at full depth by ``rwkv_layer_checks``, the full
+    depth end to end by ``rwkv_float64_witness``), Hymba at full depth with its window
+    cut to ``ZOO_HYMBA_WINDOW``, from position ``ZOO_HYMBA_FROM`` on."""
+    from repro_torch.models.registry import make_hymba_bundle, with_layers
+    from repro_torch.tree import tree_map
+
+    cfg = bundle.cfg
+    toks = _recurrent_tokens(cfg, device)
+    out = {"tokens": ZOO_SCAN}
+    if bundle.family == "ssm":
+        cut = with_layers(bundle, ZOO_RWKV_CUT)
+        cut_params = {**params, "layers": tree_map(lambda a: a[:ZOO_RWKV_CUT],
+                                                   params["layers"])}
+        full, stepped = _prefill_and_stepped(cut, cut_params, toks, device)
+        err = _err(stepped, full)[1]
+        moved = _perturbed(cut, cut_params, toks, full, device)
+        del full, stepped
+        out.update(layers_cut=ZOO_RWKV_CUT, perturbed_rel_err=moved,
+                   layers=rwkv_layer_checks(bundle, params, toks))
+    else:
+        start = ZOO_HYMBA_FROM
+        if not cfg.layers * (ZOO_HYMBA_WINDOW - 1) <= start < ZOO_SCAN:
+            raise AssertionError(f"{bundle.name}: decode agrees with prefill_fn "
+                                 f"from {cfg.layers * (ZOO_HYMBA_WINDOW - 1)}, "
+                                 f"not from {start} of {ZOO_SCAN} tokens")
+        cut = make_hymba_bundle(dataclasses.replace(cfg, window=ZOO_HYMBA_WINDOW))
+        full, stepped = _prefill_and_stepped(cut, params, toks, device)
+        err = _err(stepped[:, start:], full[:, start:])[1]
+        out.update(window=ZOO_HYMBA_WINDOW, start=start,
+                   zero_key_rel_err=_err(stepped[:, :start], full[:, :start])[1])
+        del full, stepped
+    if not err <= TOL_ZOO_DECODE:
+        raise AssertionError(f"{bundle.name}: decode_fn over {ZOO_SCAN} tokens vs "
+                             f"prefill_fn rel err {err} > {TOL_ZOO_DECODE}")
+    out["decode_rel_err"] = err
+    return out
+
+
+def _recurrent_tokens(cfg, device) -> torch.Tensor:
+    return torch.randint(0, cfg.vocab, (ZOO_BATCH, ZOO_SCAN),
+                         generator=torch.Generator().manual_seed(SEED + 2)
+                         ).to(device)
+
+
+def rwkv_float64_witness(cfg, params, device) -> dict:
+    """RWKV6 at full depth, end to end: ``prefill_fn`` and ``decode_fn``
+    over ``ZOO_SCAN`` tokens in fp32, then ``params`` turned to float64
+    in place, leaf by leaf (each fp32 leaf freed as its copy is made), and
+    both again in float64.  The float64 decode is held to the float64
+    prefill within ``TOL_ZOO_DECODE`` of max|logit|; beside it how far
+    the fp32 runs lie from each other, from the float64 prefill, and how
+    far a ``ZOO_PERTURB`` perturbation of the embedding moves the fp32
+    prefill (readings, not held), and the witness's peak memory."""
+    from repro_torch.models.registry import make_rwkv_bundle
+
+    bundle = make_rwkv_bundle(cfg)
+    toks = _recurrent_tokens(cfg, device)
+    full32, stepped32 = _prefill_and_stepped(bundle, params, toks, device)
+    out = {"layers": cfg.layers, "tokens": ZOO_SCAN,
+           "fp32_decode_rel_err": _err(stepped32, full32)[1],
+           "fp32_perturbed_rel_err": _perturbed(bundle, params, toks, full32, device)}
+
+    def to_float64(tree):
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                to_float64(leaf)
+            else:
+                tree[key] = leaf.double()
+                del leaf
+
+    to_float64(params)
+    _empty_cache(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    full, stepped = _prefill_and_stepped(bundle, params, toks, device, torch.float64)
+    if full.dtype != torch.float64:
+        raise AssertionError(f"{cfg.name} in float64: logits in {full.dtype}")
+    err = _err(stepped, full)[1]
+    out.update(decode_rel_err=err, fp32_prefill_vs_fp64=_err(full32, full)[1],
+               fp32_decode_vs_fp64=_err(stepped32, full)[1],
+               peak_device_bytes=torch.cuda.max_memory_allocated(device)
+               if device.type == "cuda" else None)
+    if not err <= TOL_ZOO_DECODE:
+        raise AssertionError(f"{cfg.name} in float64: decode_fn over {ZOO_SCAN} "
+                             f"tokens vs prefill_fn rel err {err} > {TOL_ZOO_DECODE}")
+    return out
+
+
+def whisper_checks(bundle, params, prompts, frames, device) -> tuple[torch.Tensor, dict]:
+    """Whisper: ``prefill_fn`` over ``frames`` and ``prompts``, then
+    ``decode_fn`` teacher-forced over the prompts from a cache whose cross
+    K/V ``precompute_cross_kv(encode(frames))`` filled, within
+    ``TOL_ZOO_DECODE`` of max|logit|.  Returns the prefill's logits too."""
+    from repro_torch.models import whisper
+
+    full = bundle.prefill_fn(params, {"frames": frames, "tokens": prompts})
+    cache = whisper.precompute_cross_kv(
+        params, bundle.cfg, whisper.encode(params, bundle.cfg, frames),
+        bundle.make_cache(prompts.shape[0], prompts.shape[1], torch.float32, device))
+    stepped, _ = _stepped(bundle, params, cache, prompts)
+    shape = (*prompts.shape, bundle.cfg.vocab)
+    _check_logits(f"{bundle.name} prefill_fn", full, shape)
+    _check_logits(f"{bundle.name} decode_fn", stepped, shape)
+    err = _err(stepped, full)[1]
+    if not err <= TOL_ZOO_DECODE:
+        raise AssertionError(f"{bundle.name}: decode_fn over the encoder's cross "
+                             f"K/V vs prefill_fn rel err {err} > {TOL_ZOO_DECODE}")
+    return full, {"frames": list(frames.shape), "decode_rel_err": err}
+
+
 def decode_profile(bundle, params, prompts, device, steps: int = 4) -> dict:
-    """``steps`` decode steps after a prefill, under ``torch.profiler``: the
-    wall ms a step (synchronised), the device busy ms a step (the sum of
-    the kernels' device time), the kernels a step and the three kernels
-    that take the most time."""
+    """``steps`` decode steps after the prompt (a cache-filling prefill,
+    or ``decode_fn`` stepped over it), under ``torch.profiler``: the wall
+    ms a step (synchronised), the device busy ms a step (the sum of the
+    kernels' device time), the kernels a step and the three kernels that
+    take the most time."""
     from torch.profiler import ProfilerActivity, profile
 
     b, p = prompts.shape
     cache = bundle.make_cache(b, p + steps, torch.float32, device)
-    _, cache = bundle.prefill_cache_fn(params, cache, {"tokens": prompts})
+    if bundle.prefill_cache_fn is not None:
+        _, cache = bundle.prefill_cache_fn(params, cache, {"tokens": prompts})
+    else:
+        _, cache = _stepped(bundle, params, cache, prompts)
     tok = prompts[:, -1:]
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1791,18 +2032,44 @@ def decode_profile(bundle, params, prompts, device, steps: int = 4) -> dict:
             "top": [{"name": k[:80], "ms": t, "calls": c} for t, k, c in rows[:3]]}
 
 
-def zoo_routes(cfg, sq: int, sk: int) -> dict:
+def zoo_routes(bundle, sq: int, sk: int) -> dict:
     """The serving route's attention at a prefill of ``sq`` queries over
-    ``sk`` cached keys, layer by layer: how many layers take each route."""
+    ``sk`` keys (a transformer's cache, or the prompt itself), layer by
+    layer: how many attention calls take each route.  RWKV6 has none."""
     from repro_torch.models import transformer as lm
 
-    dv = cfg.mla.v_dim if cfg.attn == "mla" else cfg.head_dim
+    cfg = bundle.cfg
     routes: dict = {}
-    for key, _, n, _, offset in lm._stacks(cfg):
-        for window in lm._layer_windows(cfg, n, offset):
-            r = lm.attend_route(cfg, sq, sk, cfg.q_dim, dv, window, 0)
-            routes[r] = routes.get(r, 0) + 1
+
+    def add(route, n=1):
+        routes[route] = routes.get(route, 0) + n
+
+    if bundle.family in ("lm", "vlm"):
+        dv = cfg.mla.v_dim if cfg.attn == "mla" else cfg.head_dim
+        for key, _, n, _, offset in lm._stacks(cfg):
+            for window in lm._layer_windows(cfg, n, offset):
+                add(lm.attend_route(sq, sk, cfg.q_dim, dv, window=window,
+                                    attn_softcap=cfg.attn_softcap, start=0,
+                                    flash_chunk=cfg.flash_chunk))
+    elif bundle.family == "hybrid":
+        d = cfg.head_dim
+        add(lm.attend_route(sq, sk, d, d, window=cfg.window, start=0,
+                            flash_chunk=cfg.flash_chunk), cfg.layers)
+    elif bundle.family == "encdec":
+        d, e, fc = cfg.head_dim, cfg.enc_len, cfg.flash_chunk
+        add(lm.attend_route(e, e, d, d, flash_chunk=fc, causal=False), cfg.enc_layers)
+        add(lm.attend_route(sq, sk, d, d, start=0, flash_chunk=fc), cfg.dec_layers)
+        add(lm.attend_route(sq, e, d, d, flash_chunk=fc, causal=False), cfg.dec_layers)
     return routes
+
+
+def _launches(counters) -> dict:
+    return {c.name: c.count for c in counters}
+
+
+def _reset(counters) -> None:
+    for c in counters:
+        c.reset()
 
 
 def zoo_arch(arch: str, layers, device, counters, card: str,
@@ -1811,10 +2078,14 @@ def zoo_arch(arch: str, layers, device, counters, card: str,
     generator, ``serve_lm`` (the serve CLI's LM entry point) over
     ``ZOO_BATCH`` prompts of ``ZOO_PROMPT`` tokens and ``ZOO_GEN`` new
     tokens, with the launch counts zeroed just before and read just after,
-    then the checks.  Returns its readings, params and config.  ``smoke``
-    runs the smoke config (a rehearsal on the CPU, where no kernel launch
-    is counted and no memory peak read; its checks run an MoE config with
-    the full config's dispatch groups)."""
+    then the checks.  A family without a cache-filling prefill (RWKV6,
+    Hymba, Whisper) steps ``decode_fn`` over the prompt in ``serve_lm``,
+    which launches no K4; its K4 launches are read around one
+    ``prefill_fn`` over the same prompts (Whisper's with random frames)
+    as well.  Returns its readings, params and config.  ``smoke`` runs
+    the smoke config (a rehearsal on the CPU, where no kernel launch is
+    counted and no memory peak read; its checks run an MoE config with the
+    full config's dispatch groups)."""
     from repro_torch.configs import get_bundle
     from repro_torch.launch.serve import serve_lm
     from repro_torch.models.registry import with_layers
@@ -1823,17 +2094,19 @@ def zoo_arch(arch: str, layers, device, counters, card: str,
     from repro_torch.models.registry import make_lm_bundle
 
     card_run = device.type == "cuda"
+    t_arch = time.perf_counter()
     layers = None if smoke else layers
     bundle = get_bundle(arch, smoke=smoke)
     if layers is not None:
         bundle = with_layers(bundle, layers)
-    if smoke and bundle.cfg.moe is not None:
+    if smoke and getattr(bundle.cfg, "moe", None) is not None:
         # the full config's dispatch groups, so that no entry can drop in
         # the checks, as at full width (the served smoke run keeps 1)
         moe = dataclasses.replace(bundle.cfg.moe, dispatch_groups=get_bundle(
             arch).cfg.moe.dispatch_groups)
         bundle = make_lm_bundle(dataclasses.replace(bundle.cfg, moe=moe))
     cfg = bundle.cfg
+    cached = bundle.prefill_cache_fn is not None
     _empty_cache(device)
     if card_run:
         torch.cuda.reset_peak_memory_stats(device)
@@ -1843,29 +2116,58 @@ def zoo_arch(arch: str, layers, device, counters, card: str,
     _sync(device)
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in tree_leaves(params))
-    for c in counters:
-        c.reset()
+    _reset(counters)
     timings: dict = {}
     toks = serve_lm(arch, batch=ZOO_BATCH, prompt_len=ZOO_PROMPT, gen=ZOO_GEN,
                     smoke=smoke, layers=layers, seed=SEED, device=device,
                     params=params, timings=timings)
-    launches = {c.name: c.count for c in counters}
+    launches = _launches(counters)
     if toks.shape != (ZOO_BATCH, ZOO_GEN):
         raise AssertionError(f"{arch}: served tokens {tuple(toks.shape)}")
-    routes = zoo_routes(cfg, ZOO_PROMPT, ZOO_PROMPT + ZOO_GEN)
+    routes = zoo_routes(bundle, ZOO_PROMPT,
+                        ZOO_PROMPT + ZOO_GEN if cached else ZOO_PROMPT)
     prompts = torch.randint(0, cfg.vocab, (ZOO_BATCH, ZOO_PROMPT),
                             generator=torch.Generator().manual_seed(SEED + 1)
                             ).to(device)
-    if launches["flash_attention"] != (routes.get("k4", 0) if card_run else 0):
+    k4_routes = routes.get("k4", 0) if card_run else 0
+    if launches["flash_attention"] != (k4_routes if cached else 0):
         raise AssertionError(f"{arch}: K4 launched {launches['flash_attention']} "
-                             f"times, the routes say {routes}")
-    out = {"arch": arch, "layers": cfg.layers, "d_model": cfg.d_model,
+                             f"times serving, the routes say {routes}")
+    out = {"arch": arch, "family": bundle.family,
+           "layers": cfg.layers if bundle.family != "encdec"
+           else cfg.enc_layers + cfg.dec_layers, "d_model": cfg.d_model,
            "params": n_params, "param_bytes": 4 * n_params, "init_s": init_s,
            **timings, "routes": routes, "launches": launches,
            "decode_profile": decode_profile(bundle, params, prompts, device)
-           if card_run else None,
-           "checks": cache_checks(bundle, params, prompts, device)}
-    if cfg.moe is not None:
+           if card_run else None}
+    if cached:
+        out["checks"] = cache_checks(bundle, params, prompts, device)
+    else:
+        batch = {"tokens": prompts}
+        if bundle.family == "encdec":
+            batch["frames"] = torch.randn(
+                (ZOO_BATCH, cfg.enc_len, cfg.d_model), device=device,
+                generator=torch.Generator(device=device).manual_seed(SEED + 3))
+        _sync(device)
+        _reset(counters)
+        t0 = time.perf_counter()
+        if bundle.family == "encdec":
+            logits, out["checks"] = whisper_checks(bundle, params, prompts,
+                                                   batch["frames"], device)
+        else:
+            logits = bundle.prefill_fn(params, batch)
+        _sync(device)
+        out["prefill_fn_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = _launches(counters)
+        _check_logits(f"{arch} prefill_fn", logits, (ZOO_BATCH, ZOO_PROMPT, cfg.vocab))
+        if out["prefill_launches"]["flash_attention"] != k4_routes:
+            raise AssertionError(
+                f"{arch}: K4 launched {out['prefill_launches']['flash_attention']} "
+                f"times in prefill_fn, the routes say {routes}")
+        del logits, batch
+        if bundle.family != "encdec":
+            out["checks"] = recurrent_checks(bundle, params, device)
+    if getattr(cfg, "moe", None) is not None:
         out["moe"] = moe_checks(bundle, params, prompts, device,
                                 expect_no_drops=not smoke)
     if bundle.family == "vlm":
@@ -1885,20 +2187,47 @@ def zoo_arch(arch: str, layers, device, counters, card: str,
         del logits
     out["peak_device_bytes"] = (torch.cuda.max_memory_allocated(device)
                                 if card_run else None)
+    out["seconds"] = time.perf_counter() - t_arch
     out["card"] = card
     return out, params, cfg
 
 
 def _zoo_line(z: dict) -> str:
+    c = z["checks"]
+    if "prefill_cache_rel_err" in c:
+        checks = (f"prefill_cache_fn vs prefill_fn {c['prefill_cache_rel_err']:.2e} "
+                  f"<= {TOL_ZOO_CACHE}, decode_fn {c['decode_rel_err']:.2e} "
+                  f"<= {TOL_ZOO_DECODE}")
+    elif "frames" in c:
+        checks = (f"prefill_fn over {c['frames']} frames in {z['prefill_fn_s']:.3f} "
+                  f"s (launches {z['prefill_launches']}); decode_fn over "
+                  f"precompute_cross_kv(encode(frames)) vs prefill_fn "
+                  f"{c['decode_rel_err']:.2e} <= {TOL_ZOO_DECODE}")
+    else:
+        checks = (f"prefill_fn in {z['prefill_fn_s']:.3f} s (launches "
+                  f"{z['prefill_launches']}); decode_fn over {c['tokens']} tokens "
+                  f"vs prefill_fn ")
+        if "layers" in c:
+            lc = c["layers"]
+            checks += (f"at {c['layers_cut']} layers {c['decode_rel_err']:.2e} <= "
+                       f"{TOL_ZOO_DECODE} (a {ZOO_PERTURB} perturbation of the "
+                       f"embedding moves prefill_fn {c['perturbed_rel_err']:.2e})"
+                       f"; each of {lc['layers']} layers teacher-forced, stepped vs "
+                       f"chunked: update {lc['update_rel_err']:.2e}, scan state "
+                       f"{lc['state_rel_err']:.2e} <= {TOL_ZOO_DECODE}")
+        else:
+            checks += (f"with the window cut to {c['window']}, from position "
+                       f"{c['start']} {c['decode_rel_err']:.2e} <= {TOL_ZOO_DECODE} "
+                       f"(before it, over zero keys, {c['zero_key_rel_err']:.2e}, "
+                       f"not held)")
+    prompt = "prefill" if "prefill_cache_rel_err" in c else "prompt stepped"
     return (f"{z['arch']} ({z['layers']} layers, d_model {z['d_model']}, "
             f"{z['params'] / 1e9:.3f} B params, {z['param_bytes'] / 1e9:.2f} GB "
-            f"fp32): init {z['init_s']:.2f} s, prefill "
+            f"fp32): init {z['init_s']:.2f} s, {prompt} "
             f"{ZOO_BATCH} x {ZOO_PROMPT} in {z['prefill_s']:.3f} s, decode "
-            f"{z['tok_s']:.1f} tok/s, peak {_gib(z['peak_device_bytes'])}; "
-            f"attention routes {z['routes']}; launches {z['launches']}; "
-            f"prefill_cache_fn vs prefill_fn {z['checks']['prefill_cache_rel_err']:.2e} "
-            f"<= {TOL_ZOO_CACHE}, decode_fn {z['checks']['decode_rel_err']:.2e} "
-            f"<= {TOL_ZOO_DECODE}")
+            f"{z['tok_s']:.1f} tok/s, peak {_gib(z['peak_device_bytes'])}, "
+            f"{z['seconds']:.1f} s in all; attention routes {z['routes']}; "
+            f"launches {z['launches']}; {checks}")
 
 
 def _gib(nbytes) -> str:
@@ -1916,8 +2245,11 @@ def zoo_phase(device, counters, card: str, smoke: bool = False) -> dict:
     served coded on the device pool's LM plan (the SmolLM plan, phase 7's
     requests) with phase 8's check and K2-K4 at its shapes; CodeQwen1.5-7B,
     Gemma2-9B (one local, one global layer) and PaliGemma-3B (with its
-    256 x 2048 stub prefix) at 2 layers; K4 at Qwen3's and CodeQwen's
-    prefill shapes.
+    256 x 2048 stub prefix) at 2 layers; RWKV6-1.6B, Hymba-1.5B and
+    Whisper-medium at full width and depth, their prompts stepped by
+    ``decode_fn`` in ``serve_lm``, held by ``recurrent_checks`` /
+    ``whisper_checks``; K4 at Qwen3's, CodeQwen's, Hymba's (rep 5) and
+    Whisper's decoder's prefill shapes.
     ``smoke`` runs the smoke configs (a rehearsal on the CPU, untimed)."""
     out: dict = {"archs": [], "kernels": {
         name: [] for name in ("matmul", "coded_gemm", "coded_gemm_encode",
@@ -1927,6 +2259,18 @@ def zoo_phase(device, counters, card: str, smoke: bool = False) -> dict:
     for arch, layers in ZOO:
         z, params, cfg = zoo_arch(arch, layers, device, counters, card, smoke)
         print(_zoo_line(z))
+        if z["family"] == "ssm":
+            w = z["checks"]["float64"] = rwkv_float64_witness(cfg, params, device)
+            print(f"  {arch} at {w['layers']} layers in float64 (weights "
+                  f"{8 * z['params'] / 1e9:.2f} GB, peak "
+                  f"{_gib(w['peak_device_bytes'])}): decode_fn over {w['tokens']} "
+                  f"tokens vs prefill_fn {w['decode_rel_err']:.2e} <= "
+                  f"{TOL_ZOO_DECODE}; in fp32 decode_fn vs prefill_fn "
+                  f"{w['fp32_decode_rel_err']:.2e}, prefill_fn vs float64's "
+                  f"{w['fp32_prefill_vs_fp64']:.2e}, decode_fn vs float64's "
+                  f"prefill_fn {w['fp32_decode_vs_fp64']:.2e}, a {ZOO_PERTURB} "
+                  f"perturbation of the embedding moves prefill_fn "
+                  f"{w['fp32_perturbed_rel_err']:.2e} (readings, not held)")
         if "moe" in z:
             m = z["moe"]
             print(f"  MoE layer 1 on its real activations ({m['tokens']} tokens "
@@ -1946,17 +2290,21 @@ def zoo_phase(device, counters, card: str, smoke: bool = False) -> dict:
             print(f"  prefill_fn with a {z['prefix']['shape']} stub prefix: "
                   f"{z['prefix']['prefill_s']:.3f} s, logits finite")
         by_path[f"zoo_{arch}"] = z["launches"]
+        if "prefill_launches" in z:
+            by_path[f"zoo_{arch}_prefill_fn"] = z["prefill_launches"]
         if arch == "qwen3-4b":
             out["qwen3_coded"] = zoo_qwen3_coded(params, cfg, device, counters,
                                                  card, out["kernels"], by_path)
-        if arch in ("qwen3-4b", "codeqwen1.5-7b"):
+        if arch in ("qwen3-4b", "codeqwen1.5-7b", "hymba-1.5b", "whisper-medium"):
             gen = torch.Generator(device=device).manual_seed(SEED + 7)
             h, d = cfg.n_heads, cfg.head_dim
-            e = flash_entry(ZOO_BATCH * h, ZOO_PROMPT, d, h // cfg.n_kv_heads,
-                            z["routes"]["k4"], torch.float32, gen, device,
-                            TOL_K4, timed)
+            rep = h // getattr(cfg, "n_kv_heads", h)
+            e = flash_entry(ZOO_BATCH * h, ZOO_PROMPT, d, rep, z["routes"]["k4"],
+                            torch.float32, gen, device, TOL_K4, timed)
+            path = ("serve_lm prefill" if "prefill_launches" not in z
+                    else "prefill_fn")
             out["kernels"]["flash_attention"].append(
-                {"arch": arch, "path": "serve_lm prefill", **e})
+                {"arch": arch, "path": path, **e})
             print(f"  K4 at {arch}'s prefill {e['q']} rep {e['rep']}: "
                   f"{_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, plain "
                   f"{_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])} / device "

@@ -1,9 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the launchers.
 
-``ARCH_IDS`` holds the archs the port has, in the reference's order (its
-``configs/__init__.py``).  The reference's other ids need model families
-the port does not have yet (RWKV6, Hymba, Whisper) and raise
-``NotImplementedError``."""
+``ARCH_IDS`` holds every arch id of the reference, in its order (its
+``configs/__init__.py``): the transformer archs, RWKV6, Hymba and
+Whisper."""
 from importlib import import_module
 
 __all__ = ["ARCH_IDS", "get_bundle"]
@@ -15,23 +14,19 @@ _MODULES = {
     "smollm-135m": "smollm_135m",
     "gemma2-9b": "gemma2_9b",
     "qwen3-4b": "qwen3_4b",
+    "hymba-1.5b": "hymba_1p5b",
+    "whisper-medium": "whisper_medium",
+    "rwkv6-1.6b": "rwkv6_1p6b",
     "paligemma-3b": "paligemma_3b",
 }
 
 ARCH_IDS = list(_MODULES)
-
-# the reference's arch ids without a port
-_NOT_PORTED = ("hymba-1.5b", "whisper-medium", "rwkv6-1.6b")
 
 
 def get_bundle(arch: str, *, smoke: bool = False, **kw):
     """The ``ModelBundle`` of ``arch``: its smoke config, or its full one
     built with ``kw`` (DeepSeek's ``dispatch_groups``), as the reference's
     ``get_bundle``."""
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP Queue A 11); the "
-            f"port has {ARCH_IDS}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; the port has {ARCH_IDS}")
     mod = import_module(f"{__name__}.{_MODULES[arch]}")

@@ -199,8 +199,10 @@ class CodedDecoderPipeline:
                  bucket_sizes: Sequence[int] | None = None,
                  max_len: int | None = None,
                  device: str | torch.device = "cuda", graphs=True):
-        if cfg.attn != "gqa":
-            raise ValueError(f"coded decode supports attn='gqa', got {cfg.attn!r}")
+        # the other families' configs (RWKV6, Hymba, Whisper) have no attn
+        if getattr(cfg, "attn", None) != "gqa":
+            raise ValueError(f"coded decode supports attn='gqa', got "
+                             f"{getattr(cfg, 'attn', None)!r}")
         if cfg.moe is not None:
             raise ValueError("coded decode does not support MoE layers")
         if plan.k_a != 1:

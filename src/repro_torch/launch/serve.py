@@ -7,9 +7,12 @@
     across the models' concurrent requests, optionally behind the JSON/HTTP
     front-end (``--http-port``);
   * the LMs (``configs.ARCH_IDS``: SmolLM, Qwen3, CodeQwen, Gemma2,
-    PaliGemma, DeepSeek-V2/V3): a batched prefill (attention on K4 where
-    K4 has an instance for the shape) plus a greedy decode loop with a KV
-    cache through ``models.transformer``.
+    PaliGemma, DeepSeek-V2/V3, RWKV6, Hymba, Whisper): a batched prefill
+    (attention on K4 where K4 has an instance for the shape) plus a
+    greedy decode loop with a KV cache through ``models.transformer``;
+    the families without a cache-filling prefill (RWKV6, Hymba, Whisper's
+    decoder over zero cross K/V, as the reference's loop) step their
+    decoder over the prompt.
 
 It runs on the card by default, through the hand-written kernels.
 
@@ -48,9 +51,10 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
              params: dict | None = None,
              timings: dict | None = None) -> torch.Tensor:
     """Greedy generation for ``batch`` random prompts: one batched prefill
-    fills the cache, then ``gen`` decode steps, through the model's first
-    ``layers`` layers where given (full width, less depth; all of them
-    otherwise).  Weights are ``params`` where given, else drawn in
+    fills the cache (or, for a family without one, ``decode_fn`` steps
+    over the prompt one token at a time), then ``gen`` decode steps,
+    through the model's first ``layers`` layers where given (full width,
+    less depth; all of them otherwise).  Weights are ``params`` where given, else drawn in
     ``param_dtype`` (the cache's dtype too) from a ``torch.Generator`` on
     ``device`` seeded with ``seed`` (on the card for CUDA, leaf by leaf);
     prompts from a CPU generator seeded with ``seed + 1``.  Prints
@@ -84,8 +88,13 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
 
     t0 = time.perf_counter()
     if prompt_len > 0:
-        logits, cache = bundle.prefill_cache_fn(params, cache,
-                                                {"tokens": prompts})
+        if bundle.prefill_cache_fn is not None:
+            logits, cache = bundle.prefill_cache_fn(params, cache,
+                                                    {"tokens": prompts})
+        else:
+            for t in range(prompt_len):
+                logits, cache = bundle.decode_fn(
+                    params, cache, {"tokens": prompts[:, t:t + 1], "pos": t})
         tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     else:  # empty prompt: no logits yet, start from token 0
         tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)

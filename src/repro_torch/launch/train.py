@@ -55,11 +55,13 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
     losses of the steps it ran.
 
     Params are drawn from a ``torch.Generator`` seeded with ``seed``; stub
-    frontend inputs (a ``"vlm"`` bundle's prefix embeddings) from one
-    seeded with ``seed + 1 + step``.  A checkpoint ``{"params", "opt"}`` is
-    submitted every ``ckpt_every`` steps and at the end.  ``on_step(step,
-    metrics)`` is called after each step, the loss already on the host
-    (``metrics["loss"]`` a float).  TF32 is off for the run."""
+    frontend inputs (an ``"encdec"`` bundle's frames (batch, enc_len,
+    d_model), a ``"vlm"`` bundle's prefix embeddings) from a CPU one
+    seeded with ``seed + 1 + step``, in the param dtype.  A checkpoint
+    ``{"params", "opt"}`` is submitted every ``ckpt_every`` steps and at
+    the end.  ``on_step(step, metrics)`` is called after each step, the
+    loss already on the host (``metrics["loss"]`` a float).  TF32 is off
+    for the run."""
     dev = resolve_device(device)
     with _fp32_products():
         bundle = get_bundle(arch, smoke=smoke)
@@ -91,10 +93,12 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
             for step in range(start, steps):
                 b = {k: torch.from_numpy(v).to(dev)
                      for k, v in data.batch(step).items()}
-                if bundle.family == "vlm":
+                if bundle.family in ("encdec", "vlm"):
+                    key, n = (("frames", bundle.cfg.enc_len)
+                              if bundle.family == "encdec" else ("prefix", 8))
                     gen = torch.Generator().manual_seed(seed + 1 + step)
-                    b["prefix"] = torch.randn(
-                        (batch, 8, bundle.cfg.d_model), generator=gen,
+                    b[key] = torch.randn(
+                        (batch, n, bundle.cfg.d_model), generator=gen,
                     ).to(dev, param_dtype)
                 params, opt_state, metrics = step_fn(params, opt_state, b)
                 losses.append(float(metrics["loss"]))

@@ -1,28 +1,106 @@
-"""Shared transformer building blocks: RMS norm, softcap, RoPE, the
-causal/sliding-window mask and GQA attention.
+"""Shared model building blocks: the params drawn from a shapes tree or
+carried across from numpy, RMS norm, softcap, RoPE, the
+causal/sliding-window mask, GQA attention and the next-token loss.
 
 Counterparts of the numerics in the JAX package's ``models/common.py``,
 with the same layouts: activations ``(B, S, H, D)``, GQA by head
 repetition with query head ``h = g * rep + r`` reading KV head ``g``.
+A family's shapes tree is the reference's schema without its sharding
+axes: the same nested dict, with ``(shape, init scale)`` leaves (scale
+None = fan-in, 0.0 = zeros).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["rms_norm", "softcap", "rope_inv_freq", "apply_rope",
-           "make_attn_mask", "attention", "NEG_INF"]
+from ..devices import resolve_device
+from ..tree import tree_map
+
+__all__ = ["draw_params", "params_from_numpy", "stacked_shapes", "at_least_fp32",
+           "rms_norm",
+           "softcap", "rope_inv_freq", "apply_rope", "make_attn_mask",
+           "attention", "next_token_nll", "NEG_INF"]
 
 NEG_INF = -1e30  # additive mask value (finite, as in the reference)
 
 
+def stacked_shapes(shapes: dict, n: int) -> dict:
+    """A layer's shapes tree with a leading axis of ``n`` layers on every
+    leaf (the reference's stacked schema)."""
+    return {k: stacked_shapes(v, n) if isinstance(v, dict) else ((n,) + v[0], v[1])
+            for k, v in shapes.items()}
+
+
+def draw_params(shapes: dict, generator: torch.Generator,
+                device: str | torch.device = "cuda",
+                dtype: torch.dtype = torch.float32) -> dict:
+    """Random params of a shapes tree: fan-in-scaled normals (the fan-in is
+    the second-last axis, else the last), the leaf's own scale where it
+    has one, zeros where it is 0.0.  Leaf by leaf in sorted-key order, each
+    leaf is drawn from ``generator`` on the generator's own device and
+    moved to ``device`` before the next is drawn, so a CUDA generator draws
+    on the card and the host never holds the tree.  The reference draws
+    with a jax PRNG, which is not re-implemented: the same seed gives other
+    weights there."""
+    dev = resolve_device(device)
+
+    def leaf(shape, scale):
+        if scale == 0.0:
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+        t = torch.randn(shape, generator=generator, dtype=dtype,
+                        device=generator.device)
+        return t.mul_(std).to(dev)
+
+    def draw(node):
+        if isinstance(node, dict):
+            return {k: draw(node[k]) for k in sorted(node)}
+        return leaf(*node)
+
+    return draw(shapes)
+
+
+def _leaf_from_numpy(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16, as jax hands it over
+        return torch.tensor(a.view(np.int16), device=dev).view(torch.bfloat16)
+    return torch.tensor(a, device=dev)
+
+
+def params_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dict:
+    """Carry a tree made elsewhere across unchanged: same tree, same
+    layouts, same values and dtypes (bf16 included).  Any family's params
+    from the JAX package's ``bundle.init`` / ``schema_init``, or its AdamW
+    state ``{"m", "v", "step"}``, as nested dicts of numpy arrays."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _leaf_from_numpy(a, dev), tree)
+
+
+def next_token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``targets`` (B, S) under ``logits``
+    (B, S, V): the reference's ``lm_loss`` tail."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0].mean()
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or as it is in float64: the dtype the norms, the
+    gates and the scan compute in, so that a float64 model stays float64
+    throughout."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """``x * rsqrt(mean(x^2) + eps) * (1 + gamma)`` in fp32, cast back."""
+    """``x * rsqrt(mean(x^2) + eps) * (1 + gamma)`` in fp32 (float64 for
+    float64), cast back."""
     dt = x.dtype
-    xf = x.float()
+    xf = at_least_fp32(x)
     xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return (xf * (1.0 + gamma.float())).to(dt)
+    return (xf * (1.0 + at_least_fp32(gamma))).to(dt)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

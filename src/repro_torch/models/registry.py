@@ -1,12 +1,15 @@
-"""A uniform ``ModelBundle`` over the port's model families: the LM half
-of the reference's ``models/registry.py`` (``make_lm_bundle``, family
-``"lm"``, and ``"vlm"`` with stub prefix embeddings in the batch).
+"""A uniform ``ModelBundle`` over every model family of the reference's
+``models/registry.py``: the transformer (``make_lm_bundle``, family
+``"lm"``, and ``"vlm"`` with stub prefix embeddings in the batch), RWKV6
+(``"ssm"``), Hymba (``"hybrid"``) and Whisper (``"encdec"``, with stub
+frame embeddings in the batch).
 
-A bundle gives the launchers what they need: init, the training loss,
-the prefill, the decode step, the cache and its cache-filling prefill.
-The reference's ``schema`` and its batch and cache sharding axes are
-sharding data; they wait for the port's sharding slice (ROADMAP Queue A
-11), as do the other families' bundles (rwkv6, hymba, whisper).
+A bundle gives the launchers what they need: the params' shapes and
+their init, the training loss, the prefill, the decode step, the cache
+and, for the transformer, its cache-filling prefill (the other families
+have none: the serve loop steps the decoder over the prompt).  The
+reference's batch and cache sharding axes are sharding data; they wait
+for the port's sharding slice (ROADMAP Queue A 11).
 """
 from __future__ import annotations
 
@@ -15,16 +18,22 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from . import hymba as hymba_mod
+from . import rwkv6 as rwkv_mod
 from . import transformer as lm
+from . import whisper as whisper_mod
+from .common import draw_params
 
-__all__ = ["ModelBundle", "make_lm_bundle", "with_layers"]
+__all__ = ["ModelBundle", "make_lm_bundle", "make_rwkv_bundle",
+           "make_hymba_bundle", "make_whisper_bundle", "with_layers"]
 
 
 @dataclasses.dataclass
 class ModelBundle:
     name: str
-    family: str  # "lm" | "vlm"
+    family: str  # "lm" | "vlm" | "ssm" | "hybrid" | "encdec"
     cfg: Any
+    shapes: dict  # the params tree with (shape, init scale) leaves
     sub_quadratic: bool
     has_decoder: bool
     loss_fn: Callable  # (params, batch) -> scalar
@@ -32,15 +41,16 @@ class ModelBundle:
     decode_fn: Callable  # (params, cache, batch) -> (logits, cache)
     make_cache: Callable  # (batch, max_len, dtype, device) -> cache tree
     # (params, cache, batch) -> (logits (B, P, V), filled cache): one
-    # cache-filling prompt pass
+    # cache-filling prompt pass; None for a family without one (the serve
+    # loop steps decode_fn over the prompt)
     prefill_cache_fn: Optional[Callable] = None
 
     def init(self, generator: torch.Generator,
              dtype: torch.dtype = torch.float32,
              device: str | torch.device = "cuda") -> dict:
-        """Random params drawn from ``generator`` leaf by leaf on the
-        generator's device, in ``dtype`` on ``device``."""
-        return lm.init_lm(self.cfg, generator, device, dtype)
+        """Random params of ``shapes`` drawn from ``generator`` leaf by leaf
+        on the generator's device, in ``dtype`` on ``device``."""
+        return draw_params(self.shapes, generator, device, dtype)
 
 
 def make_lm_bundle(cfg: lm.LMConfig, family: str = "lm") -> ModelBundle:
@@ -68,18 +78,93 @@ def make_lm_bundle(cfg: lm.LMConfig, family: str = "lm") -> ModelBundle:
         return lm.init_cache(cfg, b, s, dtype, device)
 
     return ModelBundle(
-        name=cfg.name, family=family, cfg=cfg, sub_quadratic=cfg.sub_quadratic,
+        name=cfg.name, family=family, cfg=cfg, shapes=lm.lm_shapes(cfg),
+        sub_quadratic=cfg.sub_quadratic,
         has_decoder=True, loss_fn=loss_fn, prefill_fn=prefill_fn,
         decode_fn=decode_fn, make_cache=make_cache,
         prefill_cache_fn=prefill_cache_fn,
     )
 
 
+def make_rwkv_bundle(cfg: rwkv_mod.RwkvConfig) -> ModelBundle:
+    """RWKV6: an O(1) recurrent state for its cache."""
+    def make_cache(b, s, dtype=torch.float32, device="cuda"):
+        del s  # the state does not grow with the sequence
+        return rwkv_mod.init_state(cfg, b, dtype, device)
+
+    return ModelBundle(
+        name=cfg.name, family="ssm", cfg=cfg, shapes=rwkv_mod.rwkv_shapes(cfg),
+        sub_quadratic=True, has_decoder=True,
+        loss_fn=lambda p, b: rwkv_mod.lm_loss(p, cfg, b["tokens"], b["labels"]),
+        prefill_fn=lambda p, b: rwkv_mod.forward(p, cfg, b["tokens"]),
+        decode_fn=lambda p, c, b: rwkv_mod.decode_step(p, cfg, c, b["tokens"],
+                                                       b["pos"]),
+        make_cache=make_cache,
+    )
+
+
+def make_hymba_bundle(cfg: hymba_mod.HymbaConfig) -> ModelBundle:
+    """Hymba: a windowed KV ring plus the SSM state for its cache."""
+    def make_cache(b, s, dtype=torch.float32, device="cuda"):
+        return hymba_mod.init_state(cfg, b, s, dtype, device)
+
+    return ModelBundle(
+        name=cfg.name, family="hybrid", cfg=cfg,
+        shapes=hymba_mod.hymba_shapes(cfg), sub_quadratic=True, has_decoder=True,
+        loss_fn=lambda p, b: hymba_mod.lm_loss(p, cfg, b["tokens"], b["labels"]),
+        prefill_fn=lambda p, b: hymba_mod.forward(p, cfg, b["tokens"]),
+        decode_fn=lambda p, c, b: hymba_mod.decode_step(p, cfg, c, b["tokens"],
+                                                        b["pos"]),
+        make_cache=make_cache,
+    )
+
+
+def make_whisper_bundle(cfg: whisper_mod.WhisperConfig) -> ModelBundle:
+    """Whisper: a batch carries ``"frames"`` (B, enc_len, d_model) stub
+    embeddings for the encoder; the decode cache's cross K/V are zeros
+    until ``whisper.precompute_cross_kv`` fills them."""
+    def loss_fn(params, batch):
+        return whisper_mod.lm_loss(params, cfg, batch["frames"], batch["tokens"],
+                                   batch["labels"])
+
+    def prefill_fn(params, batch):
+        return whisper_mod.forward(params, cfg, batch["frames"], batch["tokens"])
+
+    def decode_fn(params, cache, batch):
+        return whisper_mod.decode_step(params, cfg, cache, batch["tokens"],
+                                       batch["pos"])
+
+    def make_cache(b, s, dtype=torch.float32, device="cuda"):
+        return whisper_mod.init_cache(cfg, b, s, dtype, device)
+
+    return ModelBundle(
+        name=cfg.name, family="encdec", cfg=cfg,
+        shapes=whisper_mod.whisper_shapes(cfg), sub_quadratic=False,
+        has_decoder=True, loss_fn=loss_fn, prefill_fn=prefill_fn,
+        decode_fn=decode_fn, make_cache=make_cache,
+    )
+
+
+_MAKERS = {"ssm": make_rwkv_bundle, "hybrid": make_hymba_bundle,
+           "encdec": make_whisper_bundle}
+
+
 def with_layers(bundle: ModelBundle, layers: int) -> ModelBundle:
     """``bundle`` cut to its first ``layers`` layers (a config's
-    dense-first layers come first): the same widths at less depth."""
-    if not 1 <= layers <= bundle.cfg.layers:
-        raise ValueError(f"{bundle.name} has {bundle.cfg.layers} layers, "
+    dense-first layers come first): the same widths at less depth.  For
+    Whisper ``layers`` cuts the encoder and the decoder alike."""
+    cfg = bundle.cfg
+    if bundle.family == "encdec":
+        for name, have in (("encoder", cfg.enc_layers), ("decoder", cfg.dec_layers)):
+            if not 1 <= layers <= have:
+                raise ValueError(f"{bundle.name}'s {name} has {have} layers, "
+                                 f"asked for {layers}")
+        return make_whisper_bundle(dataclasses.replace(
+            cfg, enc_layers=layers, dec_layers=layers))
+    if not 1 <= layers <= cfg.layers:
+        raise ValueError(f"{bundle.name} has {cfg.layers} layers, "
                          f"asked for {layers}")
-    return make_lm_bundle(dataclasses.replace(bundle.cfg, layers=layers),
-                          bundle.family)
+    cut = dataclasses.replace(cfg, layers=layers)
+    if bundle.family in _MAKERS:
+        return _MAKERS[bundle.family](cut)
+    return make_lm_bundle(cut, bundle.family)

@@ -13,7 +13,8 @@ one of two routes, chosen by the caller:
 * serving (``forward``, ``prefill``, ``decode_step``): causal attention
   from position 0 with several queries runs on K4 (``kernels.flash_attn``)
   where K4 has an instance for the shape (``attend_route``); every other
-  case (single-query decode against the cache, windows, softcaps, head
+  case (single-query decode against the cache, windows shorter than the
+  queries, softcaps, head
   dims K4 lacks, MLA's v narrower than its q/k) takes the training
   route's plain or chunked attention, decided from the shapes before any
   launch.  K4 has no backward and refuses autograd on the card;
@@ -37,7 +38,6 @@ import dataclasses
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -46,13 +46,14 @@ from ..devices import resolve_device
 from ..kernels.flash_attn import HEAD_DIMS, flash_attention
 from ..tree import tree_leaves
 from ..tree import tree_map as map_params
-from .common import (NEG_INF, apply_rope, attention, make_attn_mask, rms_norm,
-                     rope_inv_freq, softcap)
+from .common import (NEG_INF, apply_rope, attention, draw_params, make_attn_mask,
+                     next_token_nll, params_from_numpy, rms_norm, rope_inv_freq,
+                     softcap, stacked_shapes)
 from .moe import MoEConfig, moe_ffn, moe_shapes
 
 __all__ = ["LMConfig", "MLAConfig", "MoEConfig", "init_lm", "lm_params_from_numpy",
            "map_params", "forward", "lm_loss", "init_cache", "decode_step",
-           "prefill", "attend_route"]
+           "prefill", "attend_route", "attend"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,12 +185,7 @@ def _layer_shapes(cfg: LMConfig, moe_layer: bool = False) -> dict:
 def lm_shapes(cfg: LMConfig) -> dict:
     """The params tree as ``(shape, init scale)`` leaves (the reference's
     ``lm_schema`` without its sharding axes)."""
-
-    def stacked(shapes, n):
-        return {k: stacked(v, n) if isinstance(v, dict) else ((n,) + v[0], v[1])
-                for k, v in shapes.items()}
-
-    tree = {key: stacked(_layer_shapes(cfg, moe_layer), n)
+    tree = {key: stacked_shapes(_layer_shapes(cfg, moe_layer), n)
             for key, _, n, moe_layer, _ in _stacks(cfg)}
     tree["embed"] = ((cfg.vocab, cfg.d_model), 0.02)
     tree["ln_f"] = ((cfg.d_model,), 0.0)
@@ -202,47 +198,14 @@ def init_lm(cfg: LMConfig, generator: torch.Generator,
             device: str | torch.device = "cuda",
             dtype: torch.dtype = torch.float32) -> dict:
     """Random params in the reference's schema (stacked ``dense_layers``
-    and ``moe_layers``): fan-in-scaled normals, 0.02 for the embedding (and
-    untied head), zeros for the norm gains.  Leaf by leaf in sorted-key
-    order, each leaf is drawn from ``generator`` on the generator's own
-    device and moved to ``device`` before the next is drawn, so a CUDA
-    generator draws on the card and the host never holds the tree.  The
-    reference draws with a jax PRNG, which is not re-implemented: the same
-    seed gives other weights there."""
-    dev = resolve_device(device)
-
-    def leaf(shape, scale):
-        if scale == 0.0:
-            return torch.zeros(shape, dtype=dtype, device=dev)
-        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-        std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-        t = torch.randn(shape, generator=generator, dtype=dtype,
-                        device=generator.device)
-        return t.mul_(std).to(dev)
-
-    def draw(node):
-        if isinstance(node, dict):
-            return {k: draw(node[k]) for k in sorted(node)}
-        return leaf(*node)
-
-    return draw(lm_shapes(cfg))
+    and ``moe_layers``): ``draw_params`` of ``lm_shapes`` — fan-in-scaled
+    normals, 0.02 for the embedding (and untied head), zeros for the norm
+    gains, drawn leaf by leaf on the generator's device."""
+    return draw_params(lm_shapes(cfg), generator, device, dtype)
 
 
-def _leaf_from_numpy(a, dev: torch.device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16, as jax hands it over
-        return torch.tensor(a.view(np.int16), device=dev).view(torch.bfloat16)
-    return torch.tensor(a, device=dev)
-
-
-def lm_params_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dict:
-    """Carry a tree made elsewhere across unchanged: same tree, same
-    layouts, same values and dtypes (bf16 included).  The JAX package's
-    ``bundle.init`` params (every arch of the transformer, the nested
-    ``moe_layers/moe/shared`` leaves and the MLA names included), or its
-    AdamW state ``{"m", "v", "step"}``, as nested dicts of numpy arrays."""
-    dev = resolve_device(device)
-    return map_params(lambda a: _leaf_from_numpy(a, dev), tree)
+# the reference's params (any family) carried across as numpy
+lm_params_from_numpy = params_from_numpy
 
 
 # ---------------------------------------------------------------------------
@@ -261,39 +224,54 @@ def _layer_windows(cfg: LMConfig, n_layers: int, offset: int = 0) -> list:
     return [cfg.window if (i + offset) % 2 == 0 else None for i in range(n_layers)]
 
 
-def attend_route(cfg: LMConfig, sq: int, sk: int, d: int, dv: int, window,
-                 start: int | None) -> str:
+def attend_route(sq: int, sk: int, d: int, dv: int, *, window=None,
+                 attn_softcap=None, start: int | None = None,
+                 flash_chunk: int = 1024, causal: bool = True) -> str:
     """Which attention the serving route runs for queries ``(.., sq, .., d)``
-    over keys ``(.., sk, .., d)`` and values of width ``dv``: ``"k4"``
-    where K4 has an instance for the shape (``start == 0``, several
-    queries, no window or softcap, ``d`` in K4's ``HEAD_DIMS`` and ``dv ==
-    d``); else the training route's selection, ``"chunked"`` (the
-    online-softmax scan, both lengths multiples of ``flash_chunk`` and the
-    queries more than one chunk) or ``"plain"`` (masked attention)."""
-    if (start == 0 and sq > 1 and window is None and cfg.attn_softcap is None
-            and d in HEAD_DIMS and dv == d):
+    over keys ``(.., sk, .., d)`` and values of width ``dv``, decided from
+    the shapes before any launch; every family's attention asks it.
+
+    ``"k4"`` where K4 has an instance for the shape: causal from ``start ==
+    0`` with several queries, no softcap, ``d`` in K4's ``HEAD_DIMS`` and
+    ``dv == d``, and no window or one of at least ``sq`` positions (with
+    positions equal to indices such a window masks no key the causal mask
+    keeps, so the function is the same).  No transformer arch of the
+    reference moves by the window clause: Gemma2's windows come with a
+    softcap.  Otherwise the training route's selection: ``"chunked"`` (the
+    online-softmax scan: causal, both lengths multiples of ``flash_chunk``
+    and the queries more than one chunk) or ``"plain"`` (masked
+    attention; an all-zero mask where not ``causal``)."""
+    if (causal and start == 0 and sq > 1 and attn_softcap is None
+            and d in HEAD_DIMS and dv == d and (window is None or sq <= window)):
         return "k4"
-    c = cfg.flash_chunk
-    if sq > c and sq % c == 0 and sk % c == 0:
+    c = flash_chunk
+    if causal and sq > c and sq % c == 0 and sk % c == 0:
         return "chunked"
     return "plain"
 
 
-def _attend(q, k, v, q_pos, k_pos, cfg: LMConfig, window, *, scale=None,
-            start: int | None = None, autograd: bool = False):
-    """Attention of ``q`` (B, Sq, H, D) over ``k`` (B, Sk, Hkv, D) and
-    ``v`` (B, Sk, Hkv, Dv), routed by ``attend_route``; ``autograd`` takes
-    the training route (``_attend_autograd``), never K4.
+def attend(q, k, v, q_pos, k_pos, *, scale: float, window=None,
+           attn_softcap=None, start: int | None = None, flash_chunk: int = 1024,
+           block_skip: bool = False, causal: bool = True,
+           autograd: bool = False) -> torch.Tensor:
+    """Attention of ``q`` (B, Sq, H, D) over ``k`` (B, Sk, Hkv, D) and ``v``
+    (B, Sk, Hkv, Dv) at positions ``q_pos`` (B, Sq) / ``k_pos`` (B, Sk),
+    routed by ``attend_route``; ``autograd`` takes the training route,
+    never K4: the chunked scan (over the lower triangle of blocks under
+    ``block_skip`` when Sq == Sk) or the plain masked ``attention``.
 
-    ``start=0`` promises that every row's query positions are
-    ``0..Sq-1`` and its key positions ``0..Sk-1`` — position equals index,
-    so the causal mask is K4's index mask; K4 then runs over the first
-    ``min(Sq, Sk)`` keys (later keys are masked for every query)."""
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    ``start=0`` promises that every row's query positions are ``0..Sq-1``
+    and its key positions ``0..Sk-1`` — position equals index, so the
+    causal mask is K4's index mask; K4 then runs over the first ``min(Sq,
+    Sk)`` keys (later keys are masked for every query)."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if not autograd and attend_route(cfg, sq, sk, d, v.shape[-1], window,
-                                     start) == "k4":
+    # without start, attend_route gives the training route's selection
+    route = attend_route(sq, sk, d, v.shape[-1], window=window,
+                         attn_softcap=attn_softcap,
+                         start=None if autograd else start,
+                         flash_chunk=flash_chunk, causal=causal)
+    if route == "k4":
         kk = min(sq, sk)
         qf = q.permute(0, 2, 1, 3).reshape(b * h, sq, d)
         kf = k[:, :kk].permute(0, 2, 1, 3).reshape(b * hkv, kk, d)
@@ -301,7 +279,26 @@ def _attend(q, k, v, q_pos, k_pos, cfg: LMConfig, window, *, scale=None,
         out = flash_attention(qf.contiguous(), kf.contiguous(), vf.contiguous(),
                               scale=scale, causal=True, rep=h // hkv)
         return out.reshape(b, h, sq, -1).permute(0, 2, 1, 3)
-    return _attend_autograd(q, k, v, q_pos, k_pos, cfg, window, scale=scale)
+    if route == "chunked":
+        return _flash_attention(
+            q, k, v, q_pos, k_pos, scale=scale, window=window,
+            attn_softcap=attn_softcap, chunk=flash_chunk,
+            block_skip=block_skip and sq == sk)
+    if causal:
+        mask = make_attn_mask(q_pos, k_pos, window)
+    else:
+        mask = torch.zeros((b, 1, sq, sk), dtype=torch.float32, device=q.device)
+    return attention(q, k, v, mask, scale=scale, attn_softcap=attn_softcap)
+
+
+def _attend(q, k, v, q_pos, k_pos, cfg: LMConfig, window, *, scale=None,
+            start: int | None = None, autograd: bool = False):
+    """``attend`` with the transformer's softcap, chunk and block skip."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return attend(q, k, v, q_pos, k_pos, scale=scale, window=window,
+                  attn_softcap=cfg.attn_softcap, start=start,
+                  flash_chunk=cfg.flash_chunk, block_skip=cfg.flash_block_skip,
+                  autograd=autograd)
 
 
 def _flash_attention(q, k, v, q_pos, k_pos, *, scale, window, attn_softcap,
@@ -360,24 +357,6 @@ def _flash_attention(q, k, v, q_pos, k_pos, *, scale, window, attn_softcap,
     return out.permute(0, 1, 4, 2, 3, 5).reshape(b, sq, h, dv)
 
 
-def _attend_autograd(q, k, v, q_pos, k_pos, cfg: LMConfig, window, *,
-                     scale=None):
-    """The training route: the reference's ``_attend`` (``:304-318``), every
-    branch differentiable.  Above ``flash_chunk`` positions (both lengths
-    multiples of it) the chunked scan, over the lower triangle of blocks
-    under ``flash_block_skip`` when Sq == Sk; otherwise the plain masked
-    ``attention``."""
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    sq, sk, c = q.shape[1], k.shape[1], cfg.flash_chunk
-    if sq > c and sq % c == 0 and sk % c == 0:
-        return _flash_attention(
-            q, k, v, q_pos, k_pos, scale=scale, window=window,
-            attn_softcap=cfg.attn_softcap, chunk=c,
-            block_skip=cfg.flash_block_skip and sq == sk)
-    mask = make_attn_mask(q_pos, k_pos, window)
-    return attention(q, k, v, mask, scale=scale, attn_softcap=cfg.attn_softcap)
-
-
 def _write(cache: dict, name: str, new: torch.Tensor, start: int) -> torch.Tensor:
     """Write ``new`` (B, S, ...) into ``cache[name]`` at positions
     ``start..start+S-1`` in place; returns the whole cache leaf."""
@@ -390,7 +369,7 @@ def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
               start: int | None = None, autograd: bool = False):
     """The attention block's output.  ``cache`` = dict(k=(B, S, hkv, hd),
     v=...) is written in place at positions ``start..start+S-1``, or
-    None.  ``autograd`` takes the training route (``_attend_autograd``)."""
+    None.  ``autograd`` takes the training route (``attend``'s, never K4)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ w["wq"]).reshape(b, s, h, hd)
@@ -531,7 +510,7 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor,
     as PaliGemma's image patches) ahead of the token embeddings.
     ``autograd=False`` is the serving route (causal attention on K4 where
     ``attend_route`` says so); ``autograd=True`` the training route
-    (``_attend_autograd``), which backward differentiates."""
+    (``attend``'s, never K4), which backward differentiates."""
     x = _embed(params, cfg, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -549,9 +528,7 @@ def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor, targets: torch.Tensor,
     logits = forward(params, cfg, tokens, prefix_embeds, autograd=True)
     if prefix_embeds is not None:
         logits = logits[:, prefix_embeds.shape[1]:]
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    return nll.mean()
+    return next_token_nll(logits, targets)
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,

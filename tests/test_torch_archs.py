@@ -34,12 +34,15 @@ from repro_torch.configs import ARCH_IDS, get_bundle
 from repro_torch.core.decoder_pipeline import build_lm_decoder_pipeline
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch import train as train_mod
-from repro_torch.models import moe
+from repro_torch.models import moe, whisper
 from repro_torch.models import transformer as lm
 from repro_torch.tree import tree_items
 
 REL, LOSS_REL, CACHE_REL = 1e-4, 1e-5, 1e-5
-NEW_ARCHS = [a for a in ARCH_IDS if a != "smollm-135m"]
+# the transformer archs beside SmolLM (RWKV6, Hymba and Whisper have files
+# of their own)
+NEW_ARCHS = [a for a in ARCH_IDS if a != "smollm-135m"
+             and get_bundle(a, smoke=True).family in ("lm", "vlm")]
 B, S, STEPS, MAX_LEN, PREFIX = 2, 12, 12, 16, 8
 
 
@@ -251,16 +254,23 @@ def test_attend_routes_by_shape(k4_spy, label, d, dv, h, hkv, k4):
     k = _t(rng.standard_normal((2, 6, hkv, d)).astype(np.float32))
     v = _t(rng.standard_normal((2, 6, hkv, dv)).astype(np.float32))
     pos = lm._positions(2, 0, 6, "cpu")
-    assert lm.attend_route(cfg, 6, 6, d, dv, None, 0) == ("k4" if k4 else "plain")
+    assert lm.attend_route(6, 6, d, dv, start=0) == ("k4" if k4 else "plain")
     got = lm._attend(q, k, v, pos, pos, cfg, None, start=0)
     assert len(k4_spy.calls) == int(k4)
     want = lm.attention(q, k, v, lm.make_attn_mask(pos, pos), scale=1 / math.sqrt(d))
     _close(got.numpy(), want.numpy(), 1e-5)
-    # a window, a softcap or a single query never reaches K4 either
-    assert lm.attend_route(cfg, 6, 6, d, dv, 3, 0) != "k4"
-    assert lm.attend_route(dataclasses.replace(cfg, attn_softcap=50.0), 6, 6, d, dv,
-                           None, 0) != "k4"
-    assert lm.attend_route(cfg, 1, 6, d, dv, None, 5) != "k4"
+    # a window shorter than the queries, a softcap, a single query or
+    # attention without the causal mask never reaches K4 either; a window
+    # of at least the queries masks nothing the causal mask keeps
+    assert lm.attend_route(6, 6, d, dv, window=3, start=0) != "k4"
+    assert lm.attend_route(6, 6, d, dv, window=6, start=0) == ("k4" if k4 else "plain")
+    assert lm.attend_route(6, 6, d, dv, attn_softcap=50.0, start=0) != "k4"
+    assert lm.attend_route(1, 6, d, dv, start=5) != "k4"
+    assert lm.attend_route(6, 6, d, dv, start=0, causal=False) == "plain"
+    if k4:
+        got = lm._attend(q, k, v, pos, pos, cfg, 6, start=0)
+        assert len(k4_spy.calls) == 2
+        _close(got.numpy(), want.numpy(), 1e-5)
 
 
 def test_model_prefill_routes_mla_and_d256_off_k4(k4_spy):
@@ -379,9 +389,12 @@ def test_train_cli_runs_deepseek_v2_smoke_on_cpu(capsys):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_serve_lm_on_every_arch(arch, capsys):
-    """``serve_lm`` on the CPU.  Without MoE layers the greedy tokens are
-    the argmax of the port's full forward over the prompt and the tokens
-    before them.  An MoE layer's capacity depends on the tokens of one
+    """``serve_lm`` on the CPU (the families without a cache-filling
+    prefill step ``decode_fn`` over the prompt).  Without MoE layers the
+    greedy tokens are the argmax of the port's full forward over the
+    prompt and the tokens before them (Whisper's over a zero encoder
+    output; Hymba's of the reference's decode, whose ring of unwritten
+    slots no forward has).  An MoE layer's capacity depends on the tokens of one
     call (the reference's semantics), so a forward over more tokens than
     a decode step may drop entries the step keeps: there the tokens are
     only checked to be tokens."""
@@ -392,11 +405,30 @@ def test_serve_lm_on_every_arch(arch, capsys):
     assert set(timings) == {"init_s", "prefill_s", "decode_s", "tok_s"}
     bundle = get_bundle(arch, smoke=True)
     assert int(toks.min()) >= 0 and int(toks.max()) < bundle.cfg.vocab
-    if bundle.cfg.moe is None:
+    if getattr(bundle.cfg, "moe", None) is None:
         params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
         prompts = torch.randint(0, bundle.cfg.vocab, (2, 6),
                                 generator=torch.Generator().manual_seed(1))
-        logits = lm.forward(params, bundle.cfg, torch.cat([prompts, toks[:, :-1]], 1))
+        seq = torch.cat([prompts, toks[:, :-1]], 1)
+        if bundle.family == "encdec":
+            # serve_lm decodes over the zero cross K/V of make_cache, which
+            # is cross-attention over a zero encoder output
+            logits = whisper.decode(params, bundle.cfg, seq, torch.zeros(
+                2, bundle.cfg.enc_len, bundle.cfg.d_model))
+        elif bundle.family == "hybrid":
+            # a ring of 10 slots, never full: the decode attends over the
+            # unwritten slots as zero keys, so the reference's decode_fn
+            # (not a forward) over the same tokens gives the tokens
+            rb = ref_get_bundle(arch, smoke=True)
+            pj = jax.tree.map(lambda a: jnp.asarray(a.numpy()), params)
+            cache, rows = rb.make_cache(2, 10, jnp.float32), []
+            for i in range(9):
+                lg, cache = rb.decode_fn(pj, cache, {
+                    "tokens": jnp.asarray(seq[:, i:i + 1].numpy()), "pos": jnp.int32(i)})
+                rows.append(torch.tensor(np.asarray(lg[:, 0])))
+            logits = torch.stack(rows, 1)
+        else:
+            logits = bundle.prefill_fn(params, {"tokens": seq})
         assert torch.equal(logits[:, 5:].argmax(-1), toks)
     assert f"{arch}: prefill 6 toks" in capsys.readouterr().out
 
@@ -438,10 +470,47 @@ def test_coded_decoder_refuses_mla_and_moe(label):
     assert str(got.value) == str(want.value)
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b", "whisper-medium"])
+def test_coded_decoder_refuses_the_other_families(arch):
+    """Coded decode is the transformer's alone: the reference's
+    ``build_lm_decoder_pipeline`` has no path for RWKV6, Hymba or Whisper
+    (their configs have no ``attn``, and it fails reading it); the port
+    refuses them with the reference's ``ValueError`` for a non-GQA
+    attention."""
+    with pytest.raises(AttributeError):
+        ref_build_decoder(ref_get_bundle(arch, smoke=True).cfg, {}, 4, k_b=4)
+    with pytest.raises(ValueError, match="coded decode supports attn='gqa', got None"):
+        build_lm_decoder_pipeline(get_bundle(arch, smoke=True).cfg, {}, 4, k_b=4,
+                                  device="cpu")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_bundle_init_draws_its_own_shapes(arch):
+    """``ModelBundle.init`` draws the bundle's own shapes tree: every leaf
+    of the tree at its shape, the zero-scale leaves zeros; a transformer
+    bundle's draws are ``init_lm``'s value for value."""
+    bundle = get_bundle(arch, smoke=True)
+    params = bundle.init(torch.Generator().manual_seed(3), device="cpu")
+    shapes = dict(tree_items(bundle.shapes))
+    got = dict(tree_items(params))
+    assert sorted(got) == sorted(shapes)
+    for path, leaf in got.items():
+        shape, scale = shapes[path]
+        assert tuple(leaf.shape) == shape and leaf.dtype == torch.float32, path
+        assert bool(leaf.any()) == (scale != 0.0), path
+    if bundle.family in ("lm", "vlm"):
+        want = dict(tree_items(lm.init_lm(bundle.cfg, torch.Generator().manual_seed(3),
+                                          "cpu")))
+        assert all(torch.equal(got[p], want[p]) for p in want)
+
+
 def test_chip_smoke_zoo_phase_rehearses_on_the_cpu(capsys):
     """``chip_smoke.py``'s arch-zoo phase at the smoke configs on the CPU:
     every arch served and checked (cache and decode agreement, the MoE
-    against its plain version and a float64 loop, the VLM prefix), Qwen3
+    against its plain version and a float64 loop, the VLM prefix, RWKV6's
+    decode over 141 tokens on 2 layers and, in float64, at full depth,
+    Hymba's with its window cut to 4,
+    Whisper's over the encoder's cross K/V), Qwen3
     served coded on the device pool with its logits held to the
     undistributed model, K2-K4 at its shapes against their plain
     versions; no launch is counted on the CPU."""
@@ -460,9 +529,20 @@ def test_chip_smoke_zoo_phase_rehearses_on_the_cpu(capsys):
     assert routes["deepseek-v2-236b"] == {"plain": 3}
     assert routes["gemma2-9b"] == {"plain": 4}
     assert routes["qwen3-4b"] == {"k4": 2}
+    assert routes["rwkv6-1.6b"] == {}
+    assert routes["hymba-1.5b"] == {"k4": 2}
+    assert routes["whisper-medium"] == {"k4": 2, "plain": 4}
+    checks = {z["arch"]: z["checks"] for z in zoo["archs"]}
+    assert checks["rwkv6-1.6b"]["tokens"] == checks["hymba-1.5b"]["tokens"] == 141
+    assert checks["rwkv6-1.6b"]["layers_cut"] == 2
+    assert checks["rwkv6-1.6b"]["float64"]["decode_rel_err"] <= 1e-12
+    assert (checks["hymba-1.5b"]["window"], checks["hymba-1.5b"]["start"]) == (4, 96)
+    assert checks["whisper-medium"]["frames"] == [4, 12, 64]
     moe_z = zoo["archs"][0]["moe"]
     assert moe_z["dropped"] == 0 and moe_z["groups"] == 16
     assert zoo["qwen3_coded"]["tokens"] == sum(g for _, g in cs.lm_requests(256))
     assert all(c == 0 for counts in zoo["by_path"].values() for c in counts.values())
-    assert len(zoo["kernels"]["flash_attention"]) == 3
+    assert [(e["arch"], e.get("rep")) for e in zoo["kernels"]["flash_attention"]] == [
+        ("qwen3-4b-smoke", None), ("qwen3-4b", 2), ("codeqwen1.5-7b", 1),
+        ("hymba-1.5b", 2), ("whisper-medium", 1)]
     assert "stub prefix" in capsys.readouterr().out

@@ -1162,3 +1162,100 @@ def test_cuda_init_lm_draws_on_the_card(cuda):
             node = node[key]
         assert torch.equal(node, want), path
     assert peak <= total + biggest + (1 << 20)
+
+
+# -- the recurrent and encoder-decoder families: K4 at Hymba's rep 5, each
+# family's smoke forward on the card against the CPU, and one
+# value_and_grad of each family's loss at full width -------------------
+
+FAMILIES = ["rwkv6-1.6b", "hymba-1.5b", "whisper-medium"]
+
+
+@pytest.mark.parametrize("bh,s,rep", [(100, 16, 5), (100, 141, 5), (64, 16, 1)])
+def test_cuda_flash_attention_head_dim_64_rep5(cuda, bh, s, rep):
+    """K4 at Hymba's prefill shape (4 x 25 query heads over 5 KV heads, D
+    64: rep 5, never launched before), a longer ragged S at rep 5, and
+    Whisper's decoder (4 x 16 heads, rep 1) against its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(bh + s + rep)
+    q = torch.randn(bh, s, 64, generator=gen, device=cuda)
+    k, v = (torch.randn(bh // rep, s, 64, generator=gen, device=cuda)
+            for _ in range(2))
+    before = k4.launches.count
+    got = k4.flash_attention(q, k, v, causal=True, rep=rep)
+    torch.cuda.synchronize()
+    assert k4.launches.count == before + 1
+    _close(got, k4.flash_attention_plain(q, k, v, causal=True, rep=rep), 2e-5)
+
+
+def _family_batch(bundle, b, s, gen, device):
+    toks = torch.randint(0, bundle.cfg.vocab, (b, s + 1), generator=gen,
+                         device=gen.device).to(device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if bundle.family == "encdec":
+        batch["frames"] = torch.randn((b, bundle.cfg.enc_len, bundle.cfg.d_model),
+                                      generator=gen, device=gen.device).to(device)
+    return batch
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_cuda_family_smoke_forward_matches_cpu(cuda, arch):
+    """Each family's smoke ``prefill_fn`` (Hymba's and Whisper's decoder
+    attention on K4) and 6 ``decode_fn`` steps on the card against the
+    same weights on the CPU, TF32 off."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bundle = get_bundle(arch, smoke=True)
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree_map(lambda a: a.to(cuda), params)
+    batch = _family_batch(bundle, 2, 13, torch.Generator().manual_seed(1), "cpu")
+    batch.pop("labels")
+    before = k4.launches.count
+    got = bundle.prefill_fn(on_card, {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    layers = {"rwkv6-1.6b": 0, "hymba-1.5b": 2, "whisper-medium": 2}[arch]
+    assert k4.launches.count - before == layers
+    _close(got, bundle.prefill_fn(params, batch), 1e-4)
+    caches = [bundle.make_cache(2, 8, torch.float32, dev) for dev in ("cpu", cuda)]
+    for t in range(6):
+        tok = batch["tokens"][:, t:t + 1]
+        want, caches[0] = bundle.decode_fn(params, caches[0], {"tokens": tok, "pos": t})
+        got, caches[1] = bundle.decode_fn(on_card, caches[1],
+                                          {"tokens": tok.to(cuda), "pos": t})
+        _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_cuda_family_full_width_value_and_grad(cuda, arch, capsys):
+    """One ``value_and_grad`` of each family's loss at full width and 2
+    layers (Whisper 2 + 2), batch 2, seq 128, on the card: the training
+    route (no K4 launch), the loss and every gradient leaf finite, and
+    every leaf's gradient non-zero; the peak memory printed."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import with_layers
+    from repro_torch.tree import tree_items
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bundle = with_layers(get_bundle(arch), 2)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = bundle.init(gen, torch.float32, cuda)
+    batch = _family_batch(bundle, 2, 128, gen, cuda)
+    before = k4.launches.count
+    loss, grads = steps.value_and_grad(bundle.loss_fn, params, batch)
+    torch.cuda.synchronize()
+    assert k4.launches.count == before
+    assert bool(torch.isfinite(loss))
+    for path, g in tree_items(grads):
+        assert bool(torch.isfinite(g).all()), path
+        assert bool(g.abs().sum() > 0), path
+    peak = torch.cuda.max_memory_allocated(cuda)
+    with capsys.disabled():
+        print(f"\n{arch} at full width, 2 layers, batch 2 x 128: loss "
+              f"{float(loss):.4f}, {len(tree_items(grads))} gradient leaves "
+              f"finite, peak {peak / 2**30:.2f} GiB on "
+              f"{torch.cuda.get_device_name(cuda)}")

@@ -56,6 +56,10 @@ def test_package_imports_without_jax():
         "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
         "import repro_torch.launch.train, repro_torch.launch.steps\n"
         "import repro_torch.models.registry, repro_torch.configs, repro_torch.tree\n"
+        "import repro_torch.models.linear_scan, repro_torch.models.rwkv6\n"
+        "import repro_torch.models.hymba, repro_torch.models.whisper\n"
+        "import repro_torch.configs.rwkv6_1p6b, repro_torch.configs.hymba_1p5b\n"
+        "import repro_torch.configs.whisper_medium\n"
         "assert 'jax' not in {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
         "print('ok')\n"
     )

@@ -466,19 +466,13 @@ def test_train_refuses_the_card_when_absent():
         train_mod.main(["--smoke", "--steps", "1"])
 
 
-@pytest.mark.parametrize("arch", [a for a in REF_ARCH_IDS if a not in ARCH_IDS])
-def test_get_bundle_raises_for_unported_archs(arch):
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        get_bundle(arch)
-
-
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_get_bundle_has_the_reference_numbers(arch):
-    """Every ported arch: the bundle's name, family and every field of its
-    ``LMConfig`` (and nested ``MoEConfig`` / ``MLAConfig``) equal the
-    reference's, for ``full()`` and ``smoke()``."""
-    assert ARCH_IDS == [a for a in REF_ARCH_IDS
-                        if a not in ("hymba-1.5b", "whisper-medium", "rwkv6-1.6b")]
+    """Every arch of the reference: the bundle's name, family and every
+    field of its config (``LMConfig`` with its nested ``MoEConfig`` /
+    ``MLAConfig``, ``RwkvConfig``, ``HymbaConfig``, ``WhisperConfig``) equal
+    the reference's, for ``full()`` and ``smoke()``."""
+    assert ARCH_IDS == REF_ARCH_IDS
     for smoke in (False, True):
         got = get_bundle(arch, smoke=smoke)
         want = ref_get_bundle(arch, smoke=smoke)
