@@ -28,8 +28,14 @@ Phases, in order; any failure raises:
     K4 called under autograd on the card raises.  The path launches none
     of K1-K4 (the reference trains through plain ``jnp`` attention; K4 has
     no backward); its launch counts are read around the run and K4's must
-    be 0.  Three more steps under ``torch.profiler`` give the device busy
-    time a step and the kernels that take it;
+    be 0.  ``train`` replays each step from one captured CUDA graph (the
+    loss, its gradient, the schedule and AdamW in place: the reference's
+    ``jax.jit`` of the step), and the restart runs captured too; then the
+    same 30 steps eagerly (``graphs=False``) from the same seed, the
+    losses of steps 1-30 within 1e-5 relative of the captured run's and
+    the final params within 1e-5 of each leaf's max|p|.  Three more steps
+    under ``torch.profiler``, captured and eager, give the device busy
+    time a step, the idle share and the kernels that take it;
  4. kernel phase: each kernel at every shape the serving phase launches
     (VGG-16 at 224x224, bucket 8), held against its plain PyTorch version
     on the same inputs and against a second launch of itself (same bits),
@@ -105,10 +111,18 @@ Phases, in order; any failure raises:
     are released, one arch at a time: each drawn on the card from a seeded
     CUDA generator (fp32, TF32 off) at full width, through ``serve_lm``
     (the serve CLI's LM entry point; 4 prompts of 16 tokens, 16 new
-    tokens) with the launch counts read around it and K4's launches
-    equal to the layers whose prefill route is K4 (printed, with init
-    seconds, prefill seconds, decode tok/s and peak memory beside the
-    reckoned parameter count), then ``prefill_cache_fn`` against
+    tokens) twice from the same weights: captured (its decode step and,
+    for the transformer family, its prefill each one CUDA graph, the
+    reference's ``jax.jit`` of both; at most 2 captures) and eagerly,
+    the tokens equal and every prefill and decode call's logits
+    ``torch.equal``, or the largest difference printed and the phase
+    failed; the launch counts read around each run, K4's launches eagerly
+    equal to the layers whose prefill route is K4 and, captured, twice
+    that (the warm-up's and the graph's, held and counted once a replay);
+    printed with init seconds, prefill seconds, decode tok/s both ways,
+    capture seconds and peak memory beside the reckoned parameter count;
+    the decode's ms a step eager and replayed, each beside its device busy
+    ms under ``torch.profiler``; then ``prefill_cache_fn`` against
     ``prefill_fn`` and ``decode_fn`` teacher-forced over the prompt against
     it.  DeepSeek-V2-236B (1 dense-first + 2 MoE layers, 37 GB): the
     first MoE layer's gather dispatch on its real activations against
@@ -132,14 +146,17 @@ Phases, in order; any failure raises:
     the reference's, attends over the ring's unwritten slots as zero
     keys before); Whisper's ``decode_fn`` teacher-forced from the cross
     K/V that ``precompute_cross_kv(encode(frames))`` filled against
-    ``prefill_fn``; each within 1e-4 of max|logit|.  K4 at Qwen3's, CodeQwen's, Hymba's
-    (rep 5) and Whisper's decoder's prefill shapes against its plain
-    version, timed;
+    ``prefill_fn``; each within 1e-4 of max|logit|.  Last, SmolLM-135M
+    at full width and depth, K4 in its captured prefill (at the LM kernel
+    phase's shape).  K4 at Qwen3's, CodeQwen's, Hymba's (rep 5) and
+    Whisper's decoder's prefill shapes against its plain version, timed;
 13. one JSON line with the training numbers (ms a step and tokens/s, the
-    median over steps 5-30, peak device memory, the model FLOPs a step
-    and their share of the fp32 peak, the card's name and power limit),
+    median over steps 5-30, captured and eager, peak device memory, the
+    model FLOPs a step and their share of the fp32 peak, the card's name
+    and power limit),
     one JSON line with the arch zoo's readings, one JSON line with the
-    compiled programs' counts by phase, one JSON
+    compiled programs' counts by phase (the zoo's ``serve_lm`` graphs
+    among them), one JSON
     line with the kernels' numbers (K1-K4; K2's top-level numbers
     are its CNN pass, its LM numbers sit under ``paths.lm``; each kernel's
     ``launches`` is its count on the phase-5 or phase-7 main path, and
@@ -248,6 +265,12 @@ TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT = \
     "smollm-135m", 30, 8, 256, 15
 TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, TOL_TRAIN_RESTART = 1e-5, 1e-4, 1e-5
 TOL_MICRO = 1e-4
+# The captured train step against the eager one, 30 steps from one seed:
+# the graph replays the eager step's kernels, so only the embedding's
+# atomic backward sums in another order, as between the restart and the
+# uninterrupted run; the losses within 1e-5 relative, the final params
+# within 1e-5 of each leaf's max|p|.
+TOL_TRAIN_GRAPH = 1e-5
 # The arch zoo: (arch, layers on the card, None = full depth), each at full
 # width through serve_lm: ZOO_BATCH prompts of ZOO_PROMPT tokens and
 # ZOO_GEN new ones; PaliGemma's prefill_fn also over ZOO_PREFIX stub patch
@@ -259,7 +282,7 @@ TOL_MICRO = 1e-4
 # Whisper-medium (3.2 GB).
 ZOO = (("deepseek-v2-236b", 3), ("qwen3-4b", None), ("codeqwen1.5-7b", 2),
        ("gemma2-9b", 2), ("paligemma-3b", 2), ("rwkv6-1.6b", None),
-       ("hymba-1.5b", None), ("whisper-medium", None))
+       ("hymba-1.5b", None), ("whisper-medium", None), ("smollm-135m", None))
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN, ZOO_PREFIX = 4, 16, 16, 256
 # RWKV6's and Hymba's decode_fn stepped over ZOO_SCAN tokens against their
 # prefill_fn: 2 x 64 + 13 crosses two chunk carries of the scan and a
@@ -1516,19 +1539,23 @@ def _synced_s(fn):
     return out, time.perf_counter() - t0
 
 
-def train_profile(bundle, ckpt_dir: str, step: int, data, device, n: int = 3) -> dict:
-    """Where a train step's time goes, from the checkpoint at ``step``:
-    ``n`` steps under ``torch.profiler`` (the sum of the kernel records a
-    step is the device's busy time, one stream, no two kernels
-    overlapping; the six kernels that took the most of it), the same
-    steps' wall time on the host's clock, each step ending with its loss on
-    the host, and the device's idle share of that time; then ``n``
-    steps with the card synchronised around the loss and gradients and
-    around the AdamW update; then one checkpoint ``submit`` of the state
-    (the host snapshot it takes before returning) and its write."""
+def train_profile(bundle, ckpt_dir: str, step: int, data, device,
+                  captured: bool, n: int = 3) -> dict:
+    """Where a train step's time goes, from the checkpoint at ``step``,
+    eager or replayed from the captured step (``compiled_train_step``, as
+    ``train`` runs it; its capture is one step before the window): ``n``
+    steps under ``torch.profiler`` (the sum of the kernel records a step
+    is the device's busy time, one stream, no two kernels overlapping;
+    the six kernels that took the most of it), the same steps' wall time
+    on the host's clock, each step ending with its loss on the host, and
+    the device's idle share of that time.  Eager, then also ``n`` steps
+    with the card synchronised around the loss and gradients and around
+    the AdamW update, and one checkpoint ``submit`` of the state (the
+    host snapshot it takes before returning) and its write."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.checkpoint import AsyncCheckpointer
+    from repro_torch.core.graphs import GraphSet
     from repro_torch.launch import steps
     from repro_torch.optim import apply_updates
     from repro_torch.optim.schedule import cosine_with_warmup
@@ -1539,11 +1566,18 @@ def train_profile(bundle, ckpt_dir: str, step: int, data, device, n: int = 3) ->
     fn = steps.build_train_step(bundle, tcfg)
     p, o = state["params"], state["opt"]
     batches = [{k: torch.from_numpy(v).to(device)
-                for k, v in data.batch(step + i).items()} for i in range(n)]
+                for k, v in data.batch(step + i).items()} for i in range(n + 1)]
+    out = {"steps": n, "captured": captured}
+    if captured:
+        gs = GraphSet("train_profile", device)
+        fn = steps.compiled_train_step(fn, gs)
+        p, o, met = fn(p, o, batches[0])
+        float(met["loss"])
+        out["capture_s"] = gs.capture_s
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in batches:
+        for b in batches[1:]:
             p, o, met = fn(p, o, b)
             float(met["loss"])
         step_ms = (time.perf_counter() - t0) * 1e3 / n
@@ -1554,9 +1588,17 @@ def train_profile(bundle, ckpt_dir: str, step: int, data, device, n: int = 3) ->
         if t > 0:
             rows.append((t / 1e3 / n, ev.key, ev.count // n))
     rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) if rows else None
+    out.update({"step_ms": step_ms, "device_busy_ms": busy,
+                "device_idle_share": None if busy is None else 1.0 - busy / step_ms,
+                "kernels_a_step": sum(r[2] for r in rows),
+                "top_kernels": [{"name": k[:90], "ms": t, "calls": c}
+                                for t, k, c in rows[:6]]})
+    if captured:
+        return out
 
     grad_s, update_s = [], []
-    for b in batches:
+    for b in batches[1:]:
         (_, grads), dt = _synced_s(lambda: steps.value_and_grad(bundle.loss_fn, p, b))
         grad_s.append(dt)
         scale = cosine_with_warmup(o["step"], warmup=tcfg.warmup, total=tcfg.total_steps)
@@ -1565,35 +1607,60 @@ def train_profile(bundle, ckpt_dir: str, step: int, data, device, n: int = 3) ->
         del grads
     writer = AsyncCheckpointer(ckpt_dir)
     tree = {"params": p, "opt": o}
-    _, snap_s = _synced_s(lambda: writer.submit(step + 2 * n, tree))
+    _, snap_s = _synced_s(lambda: writer.submit(step + 2 * n + 1, tree))
     t0 = time.perf_counter()
     writer.wait()
     write_s = time.perf_counter() - t0
-    busy = sum(r[0] for r in rows) if rows else None
-    return {"steps": n, "step_ms": step_ms, "device_busy_ms": busy,
-            "device_idle_share": None if busy is None else 1.0 - busy / step_ms,
-            "kernels_a_step": sum(r[2] for r in rows),
-            "top_kernels": [{"name": k[:90], "ms": t, "calls": c}
-                            for t, k, c in rows[:6]],
-            "loss_and_grads_ms": float(np.median(grad_s)) * 1e3,
-            "adamw_ms": float(np.median(update_s)) * 1e3,
-            "checkpoint_snapshot_ms": snap_s * 1e3,
-            "checkpoint_write_after_submit_s": write_s,
-            "checkpoint_bytes": sum(t.numel() * t.element_size()
-                                    for t in tree_leaves(tree))}
+    out.update({"loss_and_grads_ms": float(np.median(grad_s)) * 1e3,
+                "adamw_ms": float(np.median(update_s)) * 1e3,
+                "checkpoint_snapshot_ms": snap_s * 1e3,
+                "checkpoint_write_after_submit_s": write_s,
+                "checkpoint_bytes": sum(t.numel() * t.element_size()
+                                        for t in tree_leaves(tree))})
+    return out
 
 
-def train_phase(device, counters, card: str, smoke: bool = False) -> dict:
+def _train_run(bundle, ckpt_dir: str, device, counters, graphs, smoke: bool,
+               stamps: list | None = None) -> dict:
+    """One ``train`` call of TRAIN_STEPS steps into ``ckpt_dir``: its losses,
+    wall seconds, the kernels' launches, the device memory peak, and the
+    host time of each step's callback in ``stamps`` where given."""
+    from repro_torch.launch.train import train
+
+    def on_step(step, metrics):
+        if stamps is not None:
+            stamps.append(time.perf_counter())
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+
+    for c in counters:
+        c.reset()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    losses = train(TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                   seq=TRAIN_SEQ, smoke=smoke, ckpt_dir=ckpt_dir,
+                   ckpt_every=TRAIN_CKPT, device=device, seed=SEED,
+                   on_step=on_step, graphs=graphs)
+    return {"losses": losses, "wall_s": time.perf_counter() - t0,
+            "launches": {c.name: c.count for c in counters},
+            "peak": (torch.cuda.max_memory_allocated(device)
+                     if device.type == "cuda" else None)}
+
+
+def train_phase(device, counters, card: str, smoke: bool = False,
+                graphs=True) -> dict:
     """SmolLM-135M trained through ``train`` (the entry point of ``python
     -m repro_torch.launch.train``), checked as the module docstring's
-    phase 3 says.  ``smoke`` runs the smoke config (a rehearsal on the
-    CPU); the script's run is the full config on the card."""
+    phase 3 says: with ``graphs`` (its captured step; the default), then
+    eagerly.  ``smoke`` runs the smoke config (a rehearsal on the CPU,
+    with ``graphs`` a graph class that captures there, such as the tests'
+    emulator); the script's run is the full config on the card."""
     import shutil
     import tempfile
 
     from repro_torch.configs import get_bundle
     from repro_torch.data import DataConfig, SyntheticTokens
-    from repro_torch.launch.train import train
     from repro_torch.tree import tree_leaves
 
     bundle = get_bundle(TRAIN_ARCH, smoke=smoke)
@@ -1608,31 +1675,21 @@ def train_phase(device, counters, card: str, smoke: bool = False) -> dict:
     _empty_cache(device)
 
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    eager_dir = tempfile.mkdtemp(prefix="chip_smoke_train_eager_")
     try:
-        stamps = []
-
-        def on_step(step, metrics):
-            stamps.append(time.perf_counter())
-            assert not torch.backends.cuda.matmul.allow_tf32
-            assert not torch.backends.cudnn.allow_tf32
-
-        for c in counters:
-            c.reset()
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(device)
-        t0 = time.perf_counter()
-        losses = train(TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
-                       seq=TRAIN_SEQ, smoke=smoke, ckpt_dir=ckpt_dir,
-                       ckpt_every=TRAIN_CKPT, device=device, seed=SEED,
-                       on_step=on_step)
-        wall = time.perf_counter() - t0
-        launches = {c.name: c.count for c in counters}
-        peak = (torch.cuda.max_memory_allocated(device)
-                if device.type == "cuda" else None)
-        if launches.get("flash_attention", 0):
-            raise AssertionError(f"training launched K4: {launches}")
-        if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
-            raise AssertionError(f"training losses {losses}")
+        stamps, stamps_e = [], []
+        run = _train_run(bundle, ckpt_dir, device, counters, graphs, smoke, stamps)
+        final = _restored(bundle, ckpt_dir, TRAIN_STEPS, device)["params"]
+        eager = _train_run(bundle, eager_dir, device, counters, False, smoke,
+                           stamps_e)
+        final_e = _restored(bundle, eager_dir, TRAIN_STEPS, device)["params"]
+        losses, launches, peak = run["losses"], run["launches"], run["peak"]
+        for label, r in (("captured", run), ("eager", eager)):
+            if r["launches"].get("flash_attention", 0):
+                raise AssertionError(f"{label} training launched K4: "
+                                     f"{r['launches']}")
+            if len(r["losses"]) != TRAIN_STEPS or not np.all(np.isfinite(r["losses"])):
+                raise AssertionError(f"{label} training losses {r['losses']}")
         if abs(losses[0] - step1["loss"]) > 1e-6 * abs(step1["loss"]):
             raise AssertionError(f"train's step-1 loss {losses[0]} is not the "
                                  f"checked step's {step1['loss']}")
@@ -1640,15 +1697,24 @@ def train_phase(device, counters, card: str, smoke: bool = False) -> dict:
         if not last5 < first5:
             raise AssertionError(f"loss did not fall: first 5 {first5}, last 5 "
                                  f"{last5}")
+        graph_loss_err = float(np.max(np.abs(np.asarray(losses) -
+                                             np.asarray(eager["losses"])) /
+                                      np.abs(np.asarray(eager["losses"]))))
+        graph_param_err = _worst(final, final_e)
+        del final, final_e
+        if not (graph_loss_err <= TOL_TRAIN_GRAPH
+                and graph_param_err <= TOL_TRAIN_GRAPH):
+            raise AssertionError(
+                f"captured training against eager: losses rel err "
+                f"{graph_loss_err:.2e}, final params {graph_param_err:.2e} of "
+                f"max|p| (limit {TOL_TRAIN_GRAPH})")
 
         # restart: drop the later checkpoints, resume from TRAIN_CKPT in a
-        # fresh train() call, and hold its losses to the run's own
+        # fresh (captured) train() call, and hold its losses to the run's own
         for d in os.listdir(ckpt_dir):
             if d.startswith("step-") and int(d.split("-")[1]) > TRAIN_CKPT:
                 shutil.rmtree(os.path.join(ckpt_dir, d))
-        rest = train(TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
-                     seq=TRAIN_SEQ, smoke=smoke, ckpt_dir=ckpt_dir,
-                     ckpt_every=TRAIN_CKPT, device=device, seed=SEED)
+        rest = _train_run(bundle, ckpt_dir, device, (), graphs, smoke)["losses"]
         ref = np.asarray(losses[TRAIN_CKPT:])
         if len(rest) != len(ref):
             raise AssertionError(f"restart ran {len(rest)} steps, not {len(ref)}")
@@ -1659,16 +1725,24 @@ def train_phase(device, counters, card: str, smoke: bool = False) -> dict:
         b15 = {k: torch.from_numpy(v).to(device)
                for k, v in data.batch(TRAIN_CKPT).items()}
         micro = check_microbatches(bundle, ckpt_dir, TRAIN_CKPT, b15, device)
-        prof = (train_profile(bundle, ckpt_dir, TRAIN_CKPT, data, device)
+        prof = ({"captured": train_profile(bundle, ckpt_dir, TRAIN_CKPT, data,
+                                           device, True),
+                 "eager": train_profile(bundle, ckpt_dir, TRAIN_CKPT, data,
+                                        device, False)}
                 if device.type == "cuda" else None)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(eager_dir, ignore_errors=True)
     refused = k4_refuses_autograd(device) if device.type == "cuda" else None
 
-    # steps 5..30 (1-based): each step's time is the gap between the
-    # callbacks of consecutive steps (the loss is on the host by then)
-    gaps = np.diff(np.asarray(stamps))[3:]
-    step_s = float(np.median(gaps))
+    def rate(st):
+        # steps 5..30 (1-based): each step's time is the gap between the
+        # callbacks of consecutive steps (the loss is on the host by then)
+        gaps = np.diff(np.asarray(st))[3:]
+        return float(np.median(gaps)), gaps
+
+    step_s, gaps = rate(stamps)
+    step_s_e, gaps_e = rate(stamps_e)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     # 6 N T for the matmuls of forward and backward (the tied head once),
     # plus attention's QK^T and PV over the full S x S square the plain
@@ -1681,16 +1755,79 @@ def train_phase(device, counters, card: str, smoke: bool = False) -> dict:
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dtype": "float32",
         "tf32": False, "ms_per_step": step_s * 1e3,
         "ms_per_step_min_max": [float(gaps.min()) * 1e3, float(gaps.max()) * 1e3],
-        "tokens_per_s": tokens / step_s, "run_s": wall,
+        "tokens_per_s": tokens / step_s, "run_s": run["wall_s"],
         "peak_device_bytes": peak, "model_flops_per_step": flops,
         "fp32_peak_share": flops / step_s / PEAK_FP32_FLOPS,
         "loss_first5": first5, "loss_last5": last5, "losses": losses,
+        "eager": {"ms_per_step": step_s_e * 1e3,
+                  "ms_per_step_min_max": [float(gaps_e.min()) * 1e3,
+                                          float(gaps_e.max()) * 1e3],
+                  "tokens_per_s": tokens / step_s_e, "run_s": eager["wall_s"],
+                  "peak_device_bytes": eager["peak"],
+                  "losses": eager["losses"], "launches": eager["launches"]},
+        "captured_vs_eager": {"loss_rel_err": graph_loss_err,
+                              "final_param_rel_err": graph_param_err},
         "step1": {k: v for k, v in step1.items() if k != "grad_rel_err_by_leaf"},
         "step1_grad_rel_err_by_leaf": step1["grad_rel_err_by_leaf"],
         "restart_rel_err": restart_err, "microbatches": micro,
         "k4_under_autograd": refused, "launches": launches, "profile": prof,
         "card": card,
     }
+
+
+def print_train(tr: dict, card: str) -> None:
+    """The training phase's lines (``train_phase``'s readings)."""
+    s1, mb, prof, e = tr["step1"], tr["microbatches"], tr["profile"], tr["eager"]
+    print(f"trained {tr['arch']} ({tr['params']} params, {tr['layers']} "
+          f"layers, fp32, TF32 off) for {tr['steps']} steps of "
+          f"{tr['batch']} x {tr['seq']} tokens, each step one captured "
+          f"graph, on {card}: "
+          f"{tr['ms_per_step']:.2f} ms/step (median of steps 5-30; min/max "
+          f"{tr['ms_per_step_min_max'][0]:.2f}/{tr['ms_per_step_min_max'][1]:.2f}), "
+          f"{tr['tokens_per_s']:.0f} tokens/s, {tr['fp32_peak_share']:.3f} of the "
+          f"fp32 peak by model FLOPs, peak {_gib(tr['peak_device_bytes'])}; "
+          f"loss {tr['loss_first5']:.4f} -> {tr['loss_last5']:.4f} (mean "
+          f"of first/last 5); launches {tr['launches']}")
+    cv = tr["captured_vs_eager"]
+    print(f"  eagerly: {e['ms_per_step']:.2f} ms/step (min/max "
+          f"{e['ms_per_step_min_max'][0]:.2f}/{e['ms_per_step_min_max'][1]:.2f}), "
+          f"{e['tokens_per_s']:.0f} tokens/s, peak {_gib(e['peak_device_bytes'])}; "
+          f"captured against eager: losses of steps 1-{tr['steps']} rel err "
+          f"{cv['loss_rel_err']:.2e}, final params {cv['final_param_rel_err']:.2e} "
+          f"of max|p| (<= {TOL_TRAIN_GRAPH})")
+    print(f"  step 1 vs fp64 on the card: loss {s1['loss']:.6f} vs "
+          f"{s1['loss_fp64']:.6f} (rel {s1['loss_rel_err']:.2e} <= "
+          f"{TOL_TRAIN_LOSS}), gradients max {s1['grad_rel_err']:.2e} of "
+          f"max|g| <= {TOL_TRAIN_GRAD}, every leaf finite and non-zero in "
+          f"every layer; captured restart from step {TRAIN_CKPT}: rel err "
+          f"{tr['restart_rel_err']:.2e} <= {TOL_TRAIN_RESTART}; microbatches=2 "
+          f"vs full batch: loss {mb['loss_rel_err']:.2e}, gradients "
+          f"{mb['grad_rel_err']:.2e} of max|g| <= {TOL_MICRO} (a dropped "
+          f"slice reads {mb['dropped_slice_grad_rel_err']:.2e}), update "
+          f"params/m/v {mb['update_rel_err']['params']:.2e}/"
+          f"{mb['update_rel_err']['m']:.2e}/{mb['update_rel_err']['v']:.2e} "
+          f"(largest move {mb['update']:.2e}); K4 under autograd: "
+          f"{tr['k4_under_autograd']}")
+    if prof is None:
+        return
+    for label in ("captured", "eager"):
+        pr = prof[label]
+        idle = pr["device_idle_share"]
+        print(f"  profiler, {label}, {pr['steps']} steps: device busy "
+              f"{_ms(pr['device_busy_ms'])} ms a step in "
+              f"{pr['kernels_a_step']} kernels, idle "
+              f"{'not measured' if idle is None else f'{idle:.3f}'} of the "
+              f"same steps' {pr['step_ms']:.2f} ms"
+              + (f", capture {pr['capture_s']:.2f} s" if "capture_s" in pr else "")
+              + "; most time: " + "; ".join(
+                  f"{k['name'][:60]} {k['ms']:.2f} ms x{k['calls']}"
+                  for k in pr["top_kernels"][:4]))
+    pr = prof["eager"]
+    print(f"  synchronised, eager: loss and gradients "
+          f"{pr['loss_and_grads_ms']:.2f} ms, AdamW {pr['adamw_ms']:.2f} ms a "
+          f"step; checkpoint of {pr['checkpoint_bytes'] / 2**30:.2f} GiB: "
+          f"snapshot {pr['checkpoint_snapshot_ms']:.1f} ms inside submit, "
+          f"write {pr['checkpoint_write_after_submit_s']:.2f} s after it")
 
 
 def _empty_cache(device) -> None:
@@ -1995,29 +2132,48 @@ def whisper_checks(bundle, params, prompts, frames, device) -> tuple[torch.Tenso
     return full, {"frames": list(frames.shape), "decode_rel_err": err}
 
 
-def decode_profile(bundle, params, prompts, device, steps: int = 4) -> dict:
-    """``steps`` decode steps after the prompt (a cache-filling prefill,
-    or ``decode_fn`` stepped over it), under ``torch.profiler``: the wall
-    ms a step (synchronised), the device busy ms a step (the sum of the
-    kernels' device time), the kernels a step and the three kernels that
-    take the most time."""
+def decode_profile(bundle, params, prompts, device, captured: bool,
+                   steps: int = 4) -> dict:
+    """Decode steps after the prompt (a cache-filling prefill, or
+    ``decode_fn`` stepped over it), eager or replayed from the captured
+    decode step (``launch.steps.compiled_decode``, as ``serve_lm`` runs
+    it): one step first (the capture, or an eager warm-up), then ``steps``
+    steps timed on the host's clock, synchronised (``wall_ms`` a step),
+    then ``steps`` more under ``torch.profiler``: their wall ms a step, the
+    device busy ms a step (the sum of the kernels' device time), the
+    kernels a step and the three kernels that take the most time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core.graphs import GraphSet
+    from repro_torch.launch import steps as steps_mod
+
     b, p = prompts.shape
-    cache = bundle.make_cache(b, p + steps, torch.float32, device)
+    max_len = p + 1 + 2 * steps
+    gs = GraphSet("decode_profile", device) if captured else None
+    decode = steps_mod.compiled_decode(bundle, gs, max_len, device)
+    cache = bundle.make_cache(b, max_len, torch.float32, device)
     if bundle.prefill_cache_fn is not None:
         _, cache = bundle.prefill_cache_fn(params, cache, {"tokens": prompts})
     else:
         _, cache = _stepped(bundle, params, cache, prompts)
     tok = prompts[:, -1:]
+
+    def run(positions):
+        nonlocal tok
+        for t in positions:
+            tok = decode(params, cache, tok, t)[:, -1].argmax(dim=-1, keepdim=True)
+
+    run([p])
     torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    run(range(p + 1, p + 1 + steps))
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(p, p + steps):
-            logits, cache = bundle.decode_fn(params, cache, {"tokens": tok, "pos": t})
-            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+        run(range(p + 1 + steps, max_len))
         torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
+        profiled = time.perf_counter() - t0
     rows = []
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
@@ -2026,9 +2182,11 @@ def decode_profile(bundle, params, prompts, device, steps: int = 4) -> dict:
             rows.append((t / 1e3 / steps, ev.key, ev.count / steps))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    return {"steps": steps, "wall_ms": wall * 1e3 / steps,
+    return {"steps": steps, "captured": captured, "wall_ms": wall * 1e3 / steps,
+            "profiled_wall_ms": profiled * 1e3 / steps,
             "device_busy_ms": busy or None,
             "kernels_a_step": sum(r[2] for r in rows),
+            "capture_s": gs.capture_s if captured else None,
             "top": [{"name": k[:80], "ms": t, "calls": c} for t, k, c in rows[:3]]}
 
 
@@ -2073,19 +2231,24 @@ def _reset(counters) -> None:
 
 
 def zoo_arch(arch: str, layers, device, counters, card: str,
-             smoke: bool = False) -> dict:
+             smoke: bool = False, graphs=True) -> dict:
     """One arch of the zoo: weights drawn on the card from a seeded CUDA
     generator, ``serve_lm`` (the serve CLI's LM entry point) over
     ``ZOO_BATCH`` prompts of ``ZOO_PROMPT`` tokens and ``ZOO_GEN`` new
     tokens, with the launch counts zeroed just before and read just after,
-    then the checks.  A family without a cache-filling prefill (RWKV6,
+    then the checks.  ``serve_lm`` runs twice from the same weights: with
+    ``graphs`` (its captured decode and prefill; the default) and eagerly,
+    their tokens equal and every prefill and decode call's logits
+    ``torch.equal``, at most two captures; the decode's ms a step eager
+    and replayed beside its device busy ms (``decode_profile``).  A family without a cache-filling prefill (RWKV6,
     Hymba, Whisper) steps ``decode_fn`` over the prompt in ``serve_lm``,
     which launches no K4; its K4 launches are read around one
     ``prefill_fn`` over the same prompts (Whisper's with random frames)
     as well.  Returns its readings, params and config.  ``smoke`` runs
     the smoke config (a rehearsal on the CPU, where no kernel launch is
     counted and no memory peak read; its checks run an MoE config with the
-    full config's dispatch groups)."""
+    full config's dispatch groups; ``graphs`` a graph class that captures
+    there, such as the tests' emulator)."""
     from repro_torch.configs import get_bundle
     from repro_torch.launch.serve import serve_lm
     from repro_torch.models.registry import with_layers
@@ -2116,29 +2279,64 @@ def zoo_arch(arch: str, layers, device, counters, card: str,
     _sync(device)
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in tree_leaves(params))
-    _reset(counters)
-    timings: dict = {}
-    toks = serve_lm(arch, batch=ZOO_BATCH, prompt_len=ZOO_PROMPT, gen=ZOO_GEN,
-                    smoke=smoke, layers=layers, seed=SEED, device=device,
-                    params=params, timings=timings)
-    launches = _launches(counters)
+    # serve_lm captured (as it runs by default on the card), then eagerly
+    # from the same weights and prompts; the launch counts around each
+    served = []
+    for run_graphs in (graphs, False):
+        _reset(counters)
+        timings, rows = {}, []
+        toks = serve_lm(arch, batch=ZOO_BATCH, prompt_len=ZOO_PROMPT,
+                        gen=ZOO_GEN, smoke=smoke, layers=layers, seed=SEED,
+                        device=device, params=params, timings=timings,
+                        graphs=run_graphs, on_logits=rows.append)
+        served.append((toks, rows, timings, _launches(counters)))
+    (toks, rows, timings, launches), (toks_e, rows_e, timings_e, launches_e) = served
     if toks.shape != (ZOO_BATCH, ZOO_GEN):
         raise AssertionError(f"{arch}: served tokens {tuple(toks.shape)}")
+    if not torch.equal(toks, toks_e):
+        raise AssertionError(f"{arch}: captured tokens differ from eager's in "
+                             f"{int((toks != toks_e).sum())} of {toks.numel()}")
+    diffs = [float((a - b).abs().max()) for a, b in zip(rows, rows_e)
+             if not torch.equal(a, b)]
+    if len(rows) != len(rows_e) or diffs:
+        raise AssertionError(
+            f"{arch}: {len(diffs)} of {len(rows)} captured logits calls differ "
+            f"from eager's ({len(rows_e)} calls), largest difference "
+            f"{max(diffs, default=0.0):.3e}")
+    # None: nothing captured, as on the CPU unless ``graphs`` is a class
+    graph_stats = timings.pop("graphs", None)
+    if graph_stats is None and card_run:
+        raise AssertionError(f"{arch}: serve_lm captured nothing on the card")
+    if graph_stats is not None and sum(graph_stats["captures"].values()) > 2:
+        raise AssertionError(f"{arch}: captures {graph_stats['captures']} > 2")
     routes = zoo_routes(bundle, ZOO_PROMPT,
                         ZOO_PROMPT + ZOO_GEN if cached else ZOO_PROMPT)
     prompts = torch.randint(0, cfg.vocab, (ZOO_BATCH, ZOO_PROMPT),
                             generator=torch.Generator().manual_seed(SEED + 1)
                             ).to(device)
     k4_routes = routes.get("k4", 0) if card_run else 0
-    if launches["flash_attention"] != (k4_routes if cached else 0):
-        raise AssertionError(f"{arch}: K4 launched {launches['flash_attention']} "
-                             f"times serving, the routes say {routes}")
+    # K4 runs inside the captured prefill: the warm-up launches it, the
+    # graph holds it and counts it once per replay (one replay here)
+    k4_prefill = k4_routes if cached else 0
+    k4_held = (k4_prefill if graph_stats is None else
+               graph_stats["held"].get("prefill", {}).get("flash_attention", 0))
+    if (launches_e["flash_attention"] != k4_prefill or k4_held != k4_prefill
+            or launches["flash_attention"] != 2 * k4_prefill):
+        raise AssertionError(
+            f"{arch}: K4 launched {launches['flash_attention']} times serving "
+            f"captured ({k4_held} held by the prefill graph), "
+            f"{launches_e['flash_attention']} eagerly; the routes say {routes}")
     out = {"arch": arch, "family": bundle.family,
            "layers": cfg.layers if bundle.family != "encdec"
            else cfg.enc_layers + cfg.dec_layers, "d_model": cfg.d_model,
            "params": n_params, "param_bytes": 4 * n_params, "init_s": init_s,
-           **timings, "routes": routes, "launches": launches,
-           "decode_profile": decode_profile(bundle, params, prompts, device)
+           **timings, "graphs": graph_stats, "eager": timings_e,
+           "logits_calls_equal": len(rows), "routes": routes,
+           "launches": launches, "launches_eager": launches_e,
+           "decode_profile": decode_profile(bundle, params, prompts, device, False)
+           if card_run else None,
+           "decode_profile_captured": decode_profile(bundle, params, prompts,
+                                                     device, True)
            if card_run else None}
     if cached:
         out["checks"] = cache_checks(bundle, params, prompts, device)
@@ -2238,8 +2436,10 @@ def _ms(t) -> str:
     return "not measured" if t is None else f"{t:.4f}"
 
 
-def zoo_phase(device, counters, card: str, smoke: bool = False) -> dict:
-    """The arch zoo, one arch at a time, each freed before the next:
+def zoo_phase(device, counters, card: str, smoke: bool = False,
+              graphs=True) -> dict:
+    """The arch zoo, one arch at a time, each freed before the next, each
+    through ``serve_lm`` captured and eagerly (``zoo_arch``):
     DeepSeek-V2-236B at full width (1 dense-first + 2 MoE layers) with the
     MoE checks; Qwen3-4B at full width and depth through ``serve_lm``, then
     served coded on the device pool's LM plan (the SmolLM plan, phase 7's
@@ -2248,16 +2448,18 @@ def zoo_phase(device, counters, card: str, smoke: bool = False) -> dict:
     256 x 2048 stub prefix) at 2 layers; RWKV6-1.6B, Hymba-1.5B and
     Whisper-medium at full width and depth, their prompts stepped by
     ``decode_fn`` in ``serve_lm``, held by ``recurrent_checks`` /
-    ``whisper_checks``; K4 at Qwen3's, CodeQwen's, Hymba's (rep 5) and
-    Whisper's decoder's prefill shapes.
-    ``smoke`` runs the smoke configs (a rehearsal on the CPU, untimed)."""
-    out: dict = {"archs": [], "kernels": {
+    ``whisper_checks``; SmolLM-135M at full width and depth; K4 at
+    Qwen3's, CodeQwen's, Hymba's (rep 5) and Whisper's decoder's prefill
+    shapes.  ``smoke`` runs the smoke configs (a rehearsal on the CPU,
+    untimed, with ``graphs`` a graph class that captures there)."""
+    out: dict = {"archs": [], "graphs": {}, "kernels": {
         name: [] for name in ("matmul", "coded_gemm", "coded_gemm_encode",
                               "flash_attention", "flash_attention_bf16")}}
     by_path: dict = {}
     timed = device.type == "cuda"
     for arch, layers in ZOO:
-        z, params, cfg = zoo_arch(arch, layers, device, counters, card, smoke)
+        z, params, cfg = zoo_arch(arch, layers, device, counters, card, smoke,
+                                  graphs)
         print(_zoo_line(z))
         if z["family"] == "ssm":
             w = z["checks"]["float64"] = rwkv_float64_witness(cfg, params, device)
@@ -2279,29 +2481,49 @@ def zoo_phase(device, counters, card: str, smoke: bool = False) -> dict:
                   f"vs a float64 loop over {m['sampled']} sampled tokens "
                   f"{m['rel_err_vs_fp64']:.2e} <= {TOL_MOE_FP64}, the expert "
                   f"choices equal; dropped entries {m['dropped']}")
-        dp = z["decode_profile"]
-        if dp is not None and dp["device_busy_ms"] is not None:
-            print(f"  profiled decode ({dp['steps']} steps): {dp['wall_ms']:.2f} "
-                  f"ms a step, device busy {dp['device_busy_ms']:.2f} ms in "
-                  f"{dp['kernels_a_step']:.0f} kernels; most time: " + "; ".join(
+        g, e = z["graphs"], z["eager"]
+        graphs_read = ("nothing captured" if g is None else
+                       f"captures {g['captures']} (<= 2) in "
+                       f"{g['capture_s']:.3f} s, replays {g['replays']}")
+        print(f"  serve_lm captured against eager: tokens equal, "
+              f"{z['logits_calls_equal']} prefill and decode calls' logits "
+              f"torch.equal; {graphs_read}; decode "
+              f"{z['tok_s']:.1f} tok/s captured (capture included) against "
+              f"{e['tok_s']:.1f} eager, prompt {z['prefill_s']:.3f} s against "
+              f"{e['prefill_s']:.3f} s; launches eager {z['launches_eager']}")
+        for dp in (z["decode_profile"], z["decode_profile_captured"]):
+            if dp is None:
+                continue
+            busy = dp["device_busy_ms"]
+            print(f"  {'captured' if dp['captured'] else 'eager'} decode "
+                  f"({dp['steps']} steps): {dp['wall_ms']:.2f} ms a step "
+                  f"({dp['profiled_wall_ms']:.2f} profiled), device busy "
+                  f"{_ms(busy)} ms in {dp['kernels_a_step']:.0f} kernels"
+                  + ("" if dp["capture_s"] is None else
+                     f", capture {dp['capture_s']:.3f} s")
+                  + "; most time: " + "; ".join(
                       f"{k['name'][:50]} {k['ms']:.3f} ms x{k['calls']:.0f}"
                       for k in dp["top"]))
         if "prefix" in z:
             print(f"  prefill_fn with a {z['prefix']['shape']} stub prefix: "
                   f"{z['prefix']['prefill_s']:.3f} s, logits finite")
         by_path[f"zoo_{arch}"] = z["launches"]
+        by_path[f"zoo_{arch}_eager"] = z["launches_eager"]
+        out["graphs"][arch] = z["graphs"]
         if "prefill_launches" in z:
             by_path[f"zoo_{arch}_prefill_fn"] = z["prefill_launches"]
         if arch == "qwen3-4b":
             out["qwen3_coded"] = zoo_qwen3_coded(params, cfg, device, counters,
                                                  card, out["kernels"], by_path)
+        # SmolLM's prefill shape is the LM kernel phase's (BH 36, S 16,
+        # D 64, rep 3), held there
         if arch in ("qwen3-4b", "codeqwen1.5-7b", "hymba-1.5b", "whisper-medium"):
             gen = torch.Generator(device=device).manual_seed(SEED + 7)
             h, d = cfg.n_heads, cfg.head_dim
             rep = h // getattr(cfg, "n_kv_heads", h)
             e = flash_entry(ZOO_BATCH * h, ZOO_PROMPT, d, rep, z["routes"]["k4"],
                             torch.float32, gen, device, TOL_K4, timed)
-            path = ("serve_lm prefill" if "prefill_launches" not in z
+            path = ("serve_lm captured prefill" if "prefill_launches" not in z
                     else "prefill_fn")
             out["kernels"]["flash_attention"].append(
                 {"arch": arch, "path": path, **e})
@@ -2409,41 +2631,7 @@ def main() -> int:
     tr = train_phase(device, (k1_launches, k2_launches, k3_launches,
                               k4_launches), card)
     _empty_cache(device)
-    s1, mb, pr = tr["step1"], tr["microbatches"], tr["profile"]
-    print(f"trained {tr['arch']} ({tr['params']} params, {tr['layers']} "
-          f"layers, fp32, TF32 off) for {tr['steps']} steps of "
-          f"{tr['batch']} x {tr['seq']} tokens on {card}: "
-          f"{tr['ms_per_step']:.2f} ms/step (median of steps 5-30; min/max "
-          f"{tr['ms_per_step_min_max'][0]:.2f}/{tr['ms_per_step_min_max'][1]:.2f}), "
-          f"{tr['tokens_per_s']:.0f} tokens/s, {tr['fp32_peak_share']:.3f} of the "
-          f"fp32 peak by model FLOPs, peak {tr['peak_device_bytes'] / 2**30:.2f} "
-          f"GiB; loss {tr['loss_first5']:.4f} -> {tr['loss_last5']:.4f} (mean "
-          f"of first/last 5); launches {tr['launches']}")
-    print(f"  step 1 vs fp64 on the card: loss {s1['loss']:.6f} vs "
-          f"{s1['loss_fp64']:.6f} (rel {s1['loss_rel_err']:.2e} <= "
-          f"{TOL_TRAIN_LOSS}), gradients max {s1['grad_rel_err']:.2e} of "
-          f"max|g| <= {TOL_TRAIN_GRAD}, every leaf finite and non-zero in "
-          f"every layer; restart from step {TRAIN_CKPT}: rel err "
-          f"{tr['restart_rel_err']:.2e} <= {TOL_TRAIN_RESTART}; microbatches=2 "
-          f"vs full batch: loss {mb['loss_rel_err']:.2e}, gradients "
-          f"{mb['grad_rel_err']:.2e} of max|g| <= {TOL_MICRO} (a dropped "
-          f"slice reads {mb['dropped_slice_grad_rel_err']:.2e}), update "
-          f"params/m/v {mb['update_rel_err']['params']:.2e}/"
-          f"{mb['update_rel_err']['m']:.2e}/{mb['update_rel_err']['v']:.2e} "
-          f"(largest move {mb['update']:.2e}); K4 under autograd: "
-          f"{tr['k4_under_autograd']}")
-    if pr is not None and pr["device_busy_ms"] is not None:
-        print(f"  profiler, {pr['steps']} steps: device busy "
-              f"{pr['device_busy_ms']:.2f} ms a step in {pr['kernels_a_step']} "
-              f"kernels, idle {pr['device_idle_share']:.3f} of the same "
-              f"steps' {pr['step_ms']:.2f} ms; most time: " + "; ".join(
-                  f"{k['name'][:60]} {k['ms']:.2f} ms x{k['calls']}"
-                  for k in pr["top_kernels"][:4]))
-        print(f"  synchronised: loss and gradients {pr['loss_and_grads_ms']:.2f} "
-              f"ms, AdamW {pr['adamw_ms']:.2f} ms a step; checkpoint of "
-              f"{pr['checkpoint_bytes'] / 2**30:.2f} GiB: snapshot "
-              f"{pr['checkpoint_snapshot_ms']:.1f} ms inside submit, write "
-              f"{pr['checkpoint_write_after_submit_s']:.2f} s after it")
+    print_train(tr, card)
 
     # -- the coded CNN path -------------------------------------------------
     server, params = build_server(device, HW)
@@ -2489,7 +2677,8 @@ def main() -> int:
     del server, pipe, outs
     gc.collect()
     torch.cuda.empty_cache()
-    by_path = {"train": tr["launches"], "cnn_threads": launches}
+    by_path = {"train": tr["launches"], "train_eager": tr["eager"]["launches"],
+               "cnn_threads": launches}
     graph_phases = {"cnn_threads": graphs_t}
 
     # -- the same CNN server on the device pool ------------------------------
@@ -2708,6 +2897,7 @@ def main() -> int:
                              k4_launches), card)
     print(f"arch zoo: {time.perf_counter() - t0:.1f} s")
     by_path.update(zoo["by_path"])
+    graph_phases["zoo"] = zoo["graphs"]
 
     # -- the kernels line: K1-K4, launches from each path's serving run.
     # K2 runs on both paths, in two regimes: its top-level numbers stay

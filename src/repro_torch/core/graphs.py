@@ -17,6 +17,15 @@ once per (program, argument signature, slot) and replayed after that:
   stream there, and a capture on a shared stream would take in another
   thread's launches.  It is destroyed when its thread exits.  A capture that fails raises ``GraphCaptureError``;
   nothing gives way to eager execution.
+* **State a program advances.** The warm-up runs the program for real,
+  and so does a capture under a graph class that executes what it
+  records (the CPU tests' emulator).  A program that writes a resident
+  argument in place and reads it again (a recurrent state, AdamW's
+  params, moments and step count) names it in ``writes``: the capture
+  clones those arguments first and copies the clones back after the
+  warm-up and after the capture, so the first call, the replay that
+  follows the capture, advances them exactly once.  A write that is the
+  same every time (a KV write at a fixed position) needs no entry.
 * **Arguments.** Each tensor argument is either *copied* into a static
   buffer before every replay, or *resident* (the program's ``resident``
   indices): used in place, never copied, and held by the graph.  A
@@ -194,7 +203,7 @@ class GraphSet:
     """The captured programs of one owner on one device (see the module
     docstring).  ``run(program, args, slot)`` captures on first sight of
     (program, signature, slot) and replays after that; ``program`` needs
-    ``fn``, ``name`` and ``resident``."""
+    ``fn``, ``name``, ``resident`` and ``writes``."""
 
     def __init__(self, owner: str, device, graph_cls=torch.cuda.CUDAGraph):
         self.owner = owner
@@ -347,34 +356,46 @@ class GraphSet:
         else:
             ctx = contextlib.nullcontext()
         where = f"{program.name} on {self.owner} (slot {slot!r})"
+        written = [static[j] for j in program.writes]
         with ctx:
+            saved = [t.clone() for t in written]
+
+            def restore():
+                for t, s in zip(written, saved):
+                    t.copy_(s)
+
             program.fn(*static)  # warm-up: build, load, allocate
+            restore()
             graph = gcls()
-            with held_launches() as held:
-                try:
-                    graph.capture_begin(pool=self._pool,
-                                        capture_error_mode="thread_local")
-                except Exception as err:
-                    raise GraphCaptureError(f"capture of {where} could not "
-                                            f"begin: {err}") from err
-                try:
-                    out = program.fn(*static)
-                except BaseException as err:
-                    with contextlib.suppress(Exception):
-                        graph.capture_end()
-                    raise GraphCaptureError(
-                        f"capture of {where} failed: {type(err).__name__}: "
-                        f"{err}") from err
-                with warnings.catch_warnings():
-                    # a program of views captures no kernel
-                    warnings.filterwarnings(
-                        "ignore", message="The CUDA Graph is empty")
+            try:
+                with held_launches() as held:
                     try:
-                        graph.capture_end()
+                        graph.capture_begin(pool=self._pool,
+                                            capture_error_mode="thread_local")
                     except Exception as err:
+                        raise GraphCaptureError(f"capture of {where} could not "
+                                                f"begin: {err}") from err
+                    try:
+                        out = program.fn(*static)
+                    except BaseException as err:
+                        with contextlib.suppress(Exception):
+                            graph.capture_end()
                         raise GraphCaptureError(
-                            f"capture of {where} failed at its end: "
+                            f"capture of {where} failed: {type(err).__name__}: "
                             f"{err}") from err
+                    with warnings.catch_warnings():
+                        # a program of views captures no kernel
+                        warnings.filterwarnings(
+                            "ignore", message="The CUDA Graph is empty")
+                        try:
+                            graph.capture_end()
+                        except Exception as err:
+                            raise GraphCaptureError(
+                                f"capture of {where} failed at its end: "
+                                f"{err}") from err
+            finally:  # also where the capture failed: the call did not run
+                restore()
+                del saved
         if side is not None:
             cur.wait_stream(side)
         leaves, spec = tree_flatten(out)

@@ -68,14 +68,21 @@ class Program:
     program's CUDA graph for this signature and ``slot``, captured on
     first sight (``core/graphs.py``): the counterpart of the reference's
     ``jax.jit`` executable.  ``resident`` are the argument indices used in
-    place by the graph (never copied per replay).  Without ``graphs``, and
-    always through ``eager``, it calls ``fn`` op by op."""
+    place by the graph (never copied per replay); ``writes`` those of them
+    that ``fn`` writes in place (a recurrent state, an optimizer's), which
+    the capture restores after running ``fn``, so that a call advances
+    them once.  Without ``graphs``, and always through ``eager``, it calls
+    ``fn`` op by op."""
 
     def __init__(self, fn, *, name: str = "program", resident: tuple = (),
-                 graphs: GraphSet | None = None):
+                 writes: tuple = (), graphs: GraphSet | None = None):
+        if not set(writes) <= set(resident):
+            raise ValueError(f"{name}: writes {sorted(writes)} are not all "
+                             f"resident {sorted(resident)}")
         self.fn = fn
         self.name = name
         self.resident = tuple(resident)
+        self.writes = tuple(writes)
         self.graphs = graphs
         self.signatures: set[tuple] = set()
 

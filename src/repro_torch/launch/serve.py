@@ -12,7 +12,10 @@
     greedy decode loop with a KV cache through ``models.transformer``;
     the families without a cache-filling prefill (RWKV6, Hymba, Whisper's
     decoder over zero cross K/V, as the reference's loop) step their
-    decoder over the prompt.
+    decoder over the prompt.  On the card the decode step and the
+    prefill each replay one CUDA graph (``launch.steps.compiled_decode``,
+    ``compiled_prefill``: the reference's ``jax.jit`` of both);
+    ``serve_lm(graphs=False)`` runs them eagerly.
 
 It runs on the card by default, through the hand-written kernels.
 
@@ -29,17 +32,20 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Callable
 
 import numpy as np
 import torch
 
 from ..configs import ARCH_IDS, get_bundle
+from ..core.graphs import GraphSet, graph_class
 from ..core.pipeline import build_cnn_pipeline
 from ..devices import resolve_device
 from ..models.cnn import CNN_SPECS, init_cnn, input_hw
 from ..models.registry import with_layers
 from ..runtime import StragglerModel
 from ..serving import CodedServer, ServingFrontend
+from . import steps as steps_mod
 
 __all__ = ["build_cnn_server", "serve_cnn", "serve_lm", "serve", "main"]
 
@@ -49,7 +55,9 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
              param_dtype: torch.dtype = torch.float32,
              device: str | torch.device = "cuda", layers: int | None = None,
              params: dict | None = None,
-             timings: dict | None = None) -> torch.Tensor:
+             timings: dict | None = None, graphs=True,
+             on_logits: Callable[[torch.Tensor], None] | None = None
+             ) -> torch.Tensor:
     """Greedy generation for ``batch`` random prompts: one batched prefill
     fills the cache (or, for a family without one, ``decode_fn`` steps
     over the prompt one token at a time), then ``gen`` decode steps,
@@ -57,9 +65,17 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
     less depth; all of them otherwise).  Weights are ``params`` where given, else drawn in
     ``param_dtype`` (the cache's dtype too) from a ``torch.Generator`` on
     ``device`` seeded with ``seed`` (on the card for CUDA, leaf by leaf);
-    prompts from a CPU generator seeded with ``seed + 1``.  Prints
-    prefill/decode times and tok/s, and writes them (``prefill_s``,
-    ``decode_s``, ``tok_s``, and ``init_s`` where it drew the weights) into
+    prompts from a CPU generator seeded with ``seed + 1``.
+
+    ``graphs`` (``core.graphs.graph_class``): ``True`` replays the decode
+    step and the prefill from CUDA graphs on the card (one each for this
+    call's batch, prompt length and cache length; the reference's
+    ``jax.jit``) and runs eagerly on the CPU; ``False`` runs eagerly; a
+    graph class captures with that class on any device.  ``on_logits`` is
+    called with the logits of every prefill or decode call, in order.
+    Prints prefill/decode times and tok/s, and writes them (``prefill_s``,
+    ``decode_s``, ``tok_s``, ``init_s`` where it drew the weights, and
+    ``graphs``, the graph set's ``stats()``, where it captured) into
     ``timings`` where given; returns the generated tokens ``(batch,
     gen)``."""
     if arch not in ARCH_IDS:
@@ -85,16 +101,23 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
                             generator=torch.Generator().manual_seed(seed + 1)
                             ).to(dev)
     cache = bundle.make_cache(batch, max_len, param_dtype, dev)
+    cls = graph_class(graphs, dev)
+    gs = None if cls is None else GraphSet("serve", dev, cls)
+    decode = steps_mod.compiled_decode(bundle, gs, max_len, dev)
+
+    def seen(logits):
+        if on_logits is not None:
+            on_logits(logits)
+        return logits
 
     t0 = time.perf_counter()
     if prompt_len > 0:
         if bundle.prefill_cache_fn is not None:
-            logits, cache = bundle.prefill_cache_fn(params, cache,
-                                                    {"tokens": prompts})
+            prefill = steps_mod.compiled_prefill(bundle, gs)
+            logits = seen(prefill(params, cache, prompts))
         else:
             for t in range(prompt_len):
-                logits, cache = bundle.decode_fn(
-                    params, cache, {"tokens": prompts[:, t:t + 1], "pos": t})
+                logits = seen(decode(params, cache, prompts[:, t:t + 1], t))
         tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     else:  # empty prompt: no logits yet, start from token 0
         tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
@@ -105,8 +128,7 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
     t0 = time.perf_counter()
     for t in range(prompt_len, max_len):
         out_tokens.append(tok)
-        logits, cache = bundle.decode_fn(params, cache,
-                                         {"tokens": tok, "pos": t})
+        logits = seen(decode(params, cache, tok, t))
         tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     sync()
     decode_s = time.perf_counter() - t0
@@ -117,6 +139,8 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
     if timings is not None:
         timings.update(drawn, prefill_s=prefill_s, decode_s=decode_s,
                        tok_s=tok_s)
+        if gs is not None:
+            timings["graphs"] = gs.stats()
     return seq
 
 

@@ -3,7 +3,10 @@ one device: the deterministic resumable data pipeline, AdamW under a
 cosine schedule, checkpoint / restart with an asynchronous writer.
 
 It runs on the card unless asked for the CPU, with TF32 off for every
-product (the reference trains in true fp32):
+product (the reference trains in true fp32).  On the card each step
+replays one CUDA graph (``launch.steps.compiled_train_step``: the
+reference's ``jax.jit`` of the step); ``train(graphs=False)`` runs it
+eagerly:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 200 --batch 8 --seq 256
@@ -21,6 +24,7 @@ import torch
 
 from ..checkpoint import AsyncCheckpointer, latest_step, restore
 from ..configs import ARCH_IDS, get_bundle
+from ..core.graphs import GraphSet, graph_class
 from ..devices import resolve_device
 from ..data import DataConfig, SyntheticTokens
 from ..optim import AdamWConfig, init_state
@@ -49,7 +53,8 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
           grad_compression: str | None = None, lr: float = 3e-4,
           log_every: int = 10, param_dtype: torch.dtype = torch.float32,
           device: str | torch.device = "cuda", seed: int = 0,
-          on_step: Callable[[int, dict], None] | None = None) -> list[float]:
+          on_step: Callable[[int, dict], None] | None = None,
+          graphs=True) -> list[float]:
     """Train ``arch`` for steps ``start..steps-1`` (``start`` the latest
     checkpoint in ``ckpt_dir``, else 0) on synthetic tokens; returns the
     losses of the steps it ran.
@@ -61,7 +66,10 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
     ``{"params", "opt"}`` is submitted every ``ckpt_every`` steps and at
     the end.  ``on_step(step, metrics)`` is called after each step, the
     loss already on the host (``metrics["loss"]`` a float).  TF32 is off
-    for the run."""
+    for the run.  ``graphs`` (``core.graphs.graph_class``): ``True``
+    replays each step from one CUDA graph on the card (captured at this
+    call's first step) and runs eagerly on the CPU; ``False`` runs
+    eagerly; a graph class captures with that class on any device."""
     dev = resolve_device(device)
     with _fp32_products():
         bundle = get_bundle(arch, smoke=smoke)
@@ -69,7 +77,10 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
             opt=AdamWConfig(lr=lr), warmup=min(20, steps // 10 + 1),
             total_steps=steps, grad_compression=grad_compression,
         )
-        step_fn = steps_mod.build_train_step(bundle, tcfg)
+        cls = graph_class(graphs, dev)
+        step_fn = steps_mod.compiled_train_step(
+            steps_mod.build_train_step(bundle, tcfg),
+            None if cls is None else GraphSet("train", dev, cls))
 
         params = bundle.init(torch.Generator().manual_seed(seed), param_dtype, dev)
         opt_state = init_state(params)

@@ -15,6 +15,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
 from ..tree import tree_map
@@ -22,7 +23,7 @@ from ..tree import tree_map
 __all__ = ["draw_params", "params_from_numpy", "stacked_shapes", "at_least_fp32",
            "rms_norm",
            "softcap", "rope_inv_freq", "apply_rope", "make_attn_mask",
-           "attention", "next_token_nll", "NEG_INF"]
+           "attention", "next_token_nll", "position_index", "checkpointed", "NEG_INF"]
 
 NEG_INF = -1e30  # additive mask value (finite, as in the reference)
 
@@ -80,6 +81,15 @@ def params_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dict:
     return tree_map(lambda a: _leaf_from_numpy(a, dev), tree)
 
 
+def checkpointed(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    backward recomputes it, saving only its inputs (the reference's
+    ``jax.checkpoint``).  No model draws random numbers, so no RNG state
+    is saved; reading the card's would fail inside a CUDA-graph capture
+    of a train step."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def next_token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean negative log-likelihood of ``targets`` (B, S) under ``logits``
     (B, S, V): the reference's ``lm_loss`` tail."""
@@ -115,6 +125,17 @@ def rope_inv_freq(head_dim: int, base: float = 10000.0,
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32, device=device) / half
     return 1.0 / torch.pow(float(base), exps)
+
+
+def position_index(pos, device) -> torch.Tensor:
+    """A decode step's position as a (1,) int64 tensor on ``device``: the
+    index its cache write (``index_copy_``) and reads (``index_select``)
+    take.  ``pos`` is a Python int (a fill, no host copy) or a 0-d integer
+    tensor on ``device``, which a captured step reads as the graph's
+    copied-in position; it never goes into a slice or to the host."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).long()
+    return torch.full((1,), int(pos), dtype=torch.long, device=device)
 
 
 def apply_rope(x: torch.Tensor, inv_freq: torch.Tensor,

@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from ..devices import resolve_device
 from ..tree import tree_map
 from .common import (apply_rope, attention, make_attn_mask,
-                     next_token_nll, rms_norm, rope_inv_freq, stacked_shapes)
+                     next_token_nll, position_index, rms_norm, rope_inv_freq,
+                     stacked_shapes)
 from .linear_scan import chunked_linear_attention, linear_step
 from .transformer import attend
 
@@ -233,11 +234,12 @@ def init_state(cfg: HymbaConfig, batch: int, max_len: int,
     }
 
 
-def ring_key_positions(pos: int, kv_len: int, device) -> torch.Tensor:
+def ring_key_positions(pos, kv_len: int, device) -> torch.Tensor:
     """The position each of ``kv_len`` ring slots holds when the token at
-    ``pos`` sits in slot ``pos % kv_len`` (the reference's rebuild); a
-    slot not written yet reads a position below zero, which the window
-    keeps (a zero key, as in the reference)."""
+    ``pos`` (an int, or an integer tensor of one element on ``device``)
+    sits in slot ``pos % kv_len`` (the reference's rebuild); a slot not
+    written yet reads a position below zero, which the window keeps (a
+    zero key, as in the reference)."""
     slot = pos % kv_len
     idx = torch.arange(kv_len, dtype=torch.int32, device=device)
     return torch.where(idx <= slot, pos - (slot - idx), pos - (slot + kv_len - idx))
@@ -245,26 +247,27 @@ def ring_key_positions(pos: int, kv_len: int, device) -> torch.Tensor:
 
 def decode_step(params, cfg: HymbaConfig, state: dict, tokens: torch.Tensor,
                 pos):
-    """One token ``tokens`` (B, 1) at absolute position ``pos``: its K/V go
-    to ring slot ``pos % kv_len``.  Returns ``(logits (B, 1, V), state)``,
+    """One token ``tokens`` (B, 1) at absolute position ``pos`` (a Python
+    int, or a 0-d integer tensor on the state's device): its K/V go to
+    ring slot ``pos % kv_len``.  Returns ``(logits (B, 1, V), state)``,
     the state written in place in its own dtypes."""
-    pos = int(pos)
     b = tokens.shape[0]
     x = params["embed"][tokens]
     dev = x.device
     h, hd = cfg.n_heads, cfg.head_dim
     kv_len = state["kv"]["k"].shape[2]
-    slot = pos % kv_len
-    q_pos = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
-    k_pos = ring_key_positions(pos, kv_len, dev).expand(b, kv_len)
+    at = position_index(pos, dev)
+    slot = at % kv_len
+    q_pos = at.expand(b, 1)
+    k_pos = ring_key_positions(at, kv_len, dev).expand(b, kv_len)
     mask = make_attn_mask(q_pos, k_pos, cfg.window)
     rope = rope_inv_freq(hd, cfg.rope_base, dev)
     for l, w in enumerate(_layers(params, cfg)):
         h_in = rms_norm(x, w["ln"])
         q, k, v = _qkv(w, h_in, cfg, rope, q_pos)
         ck, cv = state["kv"]["k"][l], state["kv"]["v"][l]
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
+        ck.index_copy_(1, slot, k.to(ck.dtype))
+        cv.index_copy_(1, slot, v.to(cv.dtype))
         attn = attention(q, ck, cv, mask, scale=1.0 / math.sqrt(hd))
         attn_out = attn.reshape(b, 1, h * hd) @ w["wo_attn"]
         ssm_out, tail, s = _ssm_branch(w, h_in, cfg, state["conv"][l],

@@ -22,9 +22,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from .common import at_least_fp32
+from .common import at_least_fp32, checkpointed
 
 __all__ = ["chunked_linear_attention", "linear_step"]
 
@@ -96,7 +95,7 @@ def chunked_linear_attention(r, k, v, log_decay, *, bonus_u=None,
         args = (state, r[:, sl], k[:, sl], v[:, sl], log_decay[:, sl], mask,
                 bonus_u, r.dtype)
         if remat:
-            state, y = checkpoint(_chunk_step, *args, use_reentrant=False)
+            state, y = checkpointed(_chunk_step, *args)
         else:
             state, y = _chunk_step(*args)
         ys.append(y)

@@ -19,11 +19,11 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
 from ..tree import tree_map
-from .common import at_least_fp32, next_token_nll, rms_norm, stacked_shapes
+from .common import (at_least_fp32, checkpointed, next_token_nll, rms_norm,
+                     stacked_shapes)
 from .linear_scan import chunked_linear_attention, linear_step
 
 __all__ = ["RwkvConfig", "rwkv_shapes", "init_state", "forward", "decode_step",
@@ -174,7 +174,7 @@ def _run(params, cfg: RwkvConfig, tokens, state, decode: bool,
         args = (w, x, cfg, state["xa"][l], state["xf"][l], state["s"][l],
                 decode, autograd)
         if autograd:
-            x, *st = checkpoint(_layer, *args, use_reentrant=False)
+            x, *st = checkpointed(_layer, *args)
         else:
             x, *st = _layer(*args)
         new.append(st)

@@ -30,7 +30,11 @@ reference returns a new tree (an in-place write saves one cache copy a
 step).  On one device an indexed write has the values of both of the
 reference's cache writes (``_ring_write``'s select and its
 dynamic-update-slice); which one it picks matters only for a cache
-sharded over a mesh, which waits for the port's sharding slice.
+sharded over a mesh, which waits for the port's sharding slice.  The
+write is an ``index_copy_`` at the pass's positions, so ``decode_step``
+takes its position as a Python int or as a 0-d integer tensor on the
+cache's device (a captured step's copied-in position), with the same
+values either way.
 """
 from __future__ import annotations
 
@@ -40,15 +44,14 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
 from ..kernels.flash_attn import HEAD_DIMS, flash_attention
 from ..tree import tree_leaves
 from ..tree import tree_map as map_params
-from .common import (NEG_INF, apply_rope, attention, draw_params, make_attn_mask,
-                     next_token_nll, params_from_numpy, rms_norm, rope_inv_freq,
-                     softcap, stacked_shapes)
+from .common import (NEG_INF, apply_rope, attention, checkpointed, draw_params,
+                     make_attn_mask, next_token_nll, params_from_numpy, rms_norm,
+                     rope_inv_freq, softcap, stacked_shapes)
 from .moe import MoEConfig, moe_ffn, moe_shapes
 
 __all__ = ["LMConfig", "MLAConfig", "MoEConfig", "init_lm", "lm_params_from_numpy",
@@ -351,25 +354,27 @@ def _flash_attention(q, k, v, q_pos, k_pos, *, scale, window, attn_softcap,
     blocks = []
     for i in range(nq):
         n = i + 1 if block_skip else nk
-        blocks.append(checkpoint(q_block, qg[:, i], qp[:, i], kg[:, :n],
-                                 vg[:, :n], kp[:, :n], use_reentrant=False))
+        blocks.append(checkpointed(q_block, qg[:, i], qp[:, i], kg[:, :n],
+                                   vg[:, :n], kp[:, :n]))
     out = torch.stack(blocks, dim=1)  # (B, nq, hkv, rep, qc, dv)
     return out.permute(0, 1, 4, 2, 3, 5).reshape(b, sq, h, dv)
 
 
-def _write(cache: dict, name: str, new: torch.Tensor, start: int) -> torch.Tensor:
-    """Write ``new`` (B, S, ...) into ``cache[name]`` at positions
-    ``start..start+S-1`` in place; returns the whole cache leaf."""
+def _write(cache: dict, name: str, new: torch.Tensor,
+           q_pos: torch.Tensor) -> torch.Tensor:
+    """Write ``new`` (B, S, ...) into ``cache[name]`` in place at the
+    positions ``q_pos`` (B, S) int64 (the same in every row); returns the
+    whole cache leaf."""
     leaf = cache[name]
-    leaf[:, start:start + new.shape[1]] = new.to(leaf.dtype)
-    return leaf
+    return leaf.index_copy_(1, q_pos[0], new.to(leaf.dtype))
 
 
 def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
               start: int | None = None, autograd: bool = False):
     """The attention block's output.  ``cache`` = dict(k=(B, S, hkv, hd),
-    v=...) is written in place at positions ``start..start+S-1``, or
-    None.  ``autograd`` takes the training route (``attend``'s, never K4)."""
+    v=...) is written in place at the positions ``q_pos``, or None.
+    ``start`` (0 or None) is ``attend``'s.  ``autograd`` takes the
+    training route (``attend``'s, never K4)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ w["wq"]).reshape(b, s, h, hd)
@@ -381,7 +386,7 @@ def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
     q = apply_rope(q, rope, q_pos)
     k = apply_rope(k, rope, q_pos)
     if cache is not None:
-        k, v = _write(cache, "k", k, start), _write(cache, "v", v, start)
+        k, v = _write(cache, "k", k, q_pos), _write(cache, "v", v, q_pos)
     out = _attend(q, k, v, q_pos, k_pos, cfg, window, start=start,
                   autograd=autograd)
     return out.reshape(b, s, h * hd) @ w["wo"]
@@ -408,8 +413,8 @@ def _mla_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
     ckv = rms_norm(ckv, w["kv_ln"])
     krope = apply_rope(krope[:, :, None, :], rope, q_pos)[:, :, 0, :]
     if cache is not None:
-        ckv = _write(cache, "ckv", ckv, start)
-        krope = _write(cache, "krope", krope, start)
+        ckv = _write(cache, "ckv", ckv, q_pos)
+        krope = _write(cache, "krope", krope, q_pos)
     sk = ckv.shape[1]
     kvx = (ckv @ w["wkv_b"]).reshape(b, sk, h, m.qk_nope_dim + m.v_dim)
     k_nope, v = kvx.split([m.qk_nope_dim, m.v_dim], dim=-1)
@@ -497,9 +502,15 @@ def _unembed(params, cfg: LMConfig, x):
     return logits
 
 
-def _positions(b: int, start: int, s: int, device) -> torch.Tensor:
-    return torch.arange(start, start + s, dtype=torch.int32,
-                        device=device).expand(b, s)
+def _positions(b: int, start, s: int, device,
+               dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Positions ``start..start+S-1`` in every row, (B, S) of ``dtype``;
+    ``start`` an int or a 0-d integer tensor on ``device``."""
+    if isinstance(start, torch.Tensor):
+        pos = torch.arange(s, dtype=dtype, device=device) + start.to(dtype)
+    else:
+        pos = torch.arange(start, start + s, dtype=dtype, device=device)
+    return pos.expand(b, s)
 
 
 def forward(params, cfg: LMConfig, tokens: torch.Tensor,
@@ -554,25 +565,33 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
     return out
 
 
-def _cached_pass(params, cfg: LMConfig, cache, tokens, start: int):
+def _cached_pass(params, cfg: LMConfig, cache, tokens, start):
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape
     max_len = tree_leaves(cache)[0].shape[2]
-    if start + s > max_len:
+    tensor_start = isinstance(start, torch.Tensor)
+    if not tensor_start and start + s > max_len:
         raise ValueError(f"positions {start}..{start + s - 1} exceed the "
                          f"cache length {max_len}")
-    q_pos = _positions(b, start, s, x.device)
+    # int64: the first row is also the cache writes' index
+    q_pos = _positions(b, start, s, x.device, torch.long)
     # k_pos <= q_pos hides the not-yet-written cache slots
     k_pos = _positions(b, 0, max_len, x.device)
-    x = _run_stacks(params, cfg, x, q_pos, k_pos, cache, start)
+    # attend_route's start == 0 is a host-side fact: a tensor start says
+    # nothing there (and a decode step, Sq = 1, never takes K4)
+    x = _run_stacks(params, cfg, x, q_pos, k_pos, cache,
+                    None if tensor_start else start)
     return _unembed(params, cfg, x), cache
 
 
-def decode_step(params, cfg: LMConfig, cache, tokens: torch.Tensor, pos: int):
+def decode_step(params, cfg: LMConfig, cache, tokens: torch.Tensor, pos):
     """One decode step: ``tokens`` (B, 1) at position ``pos`` (the same for
-    every row).  Returns ``(logits (B, 1, V), cache)``, the cache written
-    in place at ``pos``."""
-    return _cached_pass(params, cfg, cache, tokens, int(pos))
+    every row): a Python int, range-checked against the cache, or a 0-d
+    integer tensor on the cache's device, which its caller checks (a
+    captured step's copied-in position).  Returns ``(logits (B, 1, V),
+    cache)``, the cache written in place at ``pos``."""
+    return _cached_pass(params, cfg, cache, tokens,
+                        pos if isinstance(pos, torch.Tensor) else int(pos))
 
 
 def prefill(params, cfg: LMConfig, cache, tokens: torch.Tensor):

@@ -22,12 +22,11 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
 from ..tree import tree_map
-from .common import (attention, make_attn_mask, next_token_nll, rms_norm,
-                     stacked_shapes)
+from .common import (attention, checkpointed, make_attn_mask, next_token_nll,
+                     position_index, rms_norm, stacked_shapes)
 from .transformer import attend
 
 __all__ = ["WhisperConfig", "whisper_shapes", "encode", "decode", "forward",
@@ -137,7 +136,7 @@ def _each_layer(fn, ws, x, *args, autograd: bool):
     reference's per-layer ``jax.checkpoint``)."""
     for w in ws:
         if autograd:
-            x = checkpoint(fn, w, x, *args, use_reentrant=False)
+            x = checkpointed(fn, w, x, *args)
         else:
             x = fn(w, x, *args)
     return x
@@ -152,10 +151,14 @@ def encode(params, cfg: WhisperConfig, frames: torch.Tensor, *,
     return rms_norm(x, params["ln_enc"])
 
 
-def _pos_dec(params, start: int, s: int) -> torch.Tensor:
+def _pos_dec(params, start, s: int) -> torch.Tensor:
     """Rows ``start..start+s-1`` of the decoder's positional embedding,
-    rounded to bf16 as the reference rounds them."""
-    return params["pos_dec"][start:start + s][None].to(torch.bfloat16)
+    rounded to bf16 as the reference rounds them; ``start`` an int, or a
+    decode step's (1,) int64 position (``s`` = 1), read by index."""
+    table = params["pos_dec"]
+    rows = (table.index_select(0, start) if isinstance(start, torch.Tensor)
+            else table[start:start + s])
+    return rows[None].to(torch.bfloat16)
 
 
 def _logits(params, x):
@@ -218,15 +221,21 @@ def precompute_cross_kv(params, cfg: WhisperConfig, enc_out: torch.Tensor,
 def decode_step(params, cfg: WhisperConfig, cache: dict, tokens: torch.Tensor,
                 pos):
     """One decoder token ``tokens`` (B, 1) at position ``pos``, over the
-    self-KV cache (written in place at ``pos``) and the cache's cross K/V.
-    Returns ``(logits (B, 1, V), cache)``."""
-    pos = int(pos)
+    self-KV cache (written in place at ``pos``) and the cache's cross K/V:
+    ``pos`` a Python int, range-checked against the cache, or a 0-d
+    integer tensor on the cache's device, which its caller checks (a
+    captured step's copied-in position).  Returns ``(logits (B, 1, V),
+    cache)``."""
     b = tokens.shape[0]
     h, hd = cfg.n_heads, cfg.head_dim
     max_len = cache["k"].shape[2]
-    x = params["embed"][tokens] + _pos_dec(params, pos, 1)
-    dev = x.device
-    q_pos = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+    if not isinstance(pos, torch.Tensor) and not 0 <= int(pos) < max_len:
+        raise ValueError(f"position {int(pos)} is outside the cache length "
+                         f"{max_len}")
+    dev = tokens.device
+    at = position_index(pos, dev)
+    x = params["embed"][tokens] + _pos_dec(params, at, 1)
+    q_pos = at.expand(b, 1)
     k_pos = torch.arange(max_len, dtype=torch.int32, device=dev).expand(b, max_len)
     self_mask = make_attn_mask(q_pos, k_pos)
     cross_mask = torch.zeros((b, 1, 1, cfg.enc_len), dtype=torch.float32,
@@ -236,8 +245,8 @@ def decode_step(params, cfg: WhisperConfig, cache: dict, tokens: torch.Tensor,
         hn = rms_norm(x, w["ln1"])
         q = (hn @ w["self"]["wq"]).reshape(b, 1, h, hd)
         kc, vc = cache["k"][l], cache["v"][l]
-        kc[:, pos] = (hn @ w["self"]["wk"]).reshape(b, h, hd).to(kc.dtype)
-        vc[:, pos] = (hn @ w["self"]["wv"]).reshape(b, h, hd).to(vc.dtype)
+        for c, wkv in ((kc, w["self"]["wk"]), (vc, w["self"]["wv"])):
+            c.index_copy_(1, at, (hn @ wkv).reshape(b, 1, h, hd).to(c.dtype))
         out = attention(q, kc, vc, self_mask, scale=scale)
         x = x + out.reshape(b, 1, -1) @ w["self"]["wo"]
         hn = rms_norm(x, w["ln_cross"])

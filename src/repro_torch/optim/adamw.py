@@ -5,9 +5,10 @@ port's nested-dict trees.
 The state is the reference's tree, ``{"m": <params-shaped fp32>, "v":
 <params-shaped fp32>, "step": int32 scalar}``, so a checkpoint holds the
 same keys in either package.  The arithmetic is the reference's, op for
-op, in float32.  ``apply_updates`` writes the new params and moments into
-the tensors it is given (the reference returns new trees): a training step
-then allocates no second copy of either.
+op, in float32.  ``apply_updates`` writes the new params, moments and step
+count into the tensors it is given (the reference returns new trees): a
+training step then allocates no second copy of either, and a captured
+train step (``launch.steps``) replays on the same state.
 """
 from __future__ import annotations
 
@@ -48,10 +49,10 @@ def global_norm(tree) -> torch.Tensor:
 def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
                   lr_scale=1.0):
     """One AdamW step: returns ``(params, state, {"grad_norm"})``, with
-    ``params`` and the moments updated in place and ``state["step"]`` a
-    new tensor one higher.  ``lr_scale`` multiplies ``cfg.lr`` (a float or
-    a float32 scalar tensor, such as ``cosine_with_warmup``'s)."""
-    step = state["step"] + 1
+    ``params``, the moments and ``state["step"]`` (one higher) updated in
+    place.  ``lr_scale`` multiplies ``cfg.lr`` (a float or a float32
+    scalar tensor, such as ``cosine_with_warmup``'s)."""
+    step = state["step"].add_(1)
     gnorm = global_norm(grads)
     flat_g = tree_leaves(grads)
     if cfg.clip_norm is not None:
@@ -75,5 +76,4 @@ def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
         p.copy_(p.float() - lr * delta)
         m.copy_(m_new)
         v.copy_(v_new)
-    return params, {"m": state["m"], "v": state["v"], "step": step}, \
-        {"grad_norm": gnorm}
+    return params, state, {"grad_norm": gnorm}

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCH_IDS
 from repro_torch.kernels.conv2d import kernel as k1
 from repro_torch.kernels.conv2d.ops import coded_worker
 from repro_torch.kernels.coded_gemm import kernel as k3
@@ -1259,3 +1260,56 @@ def test_cuda_family_full_width_value_and_grad(cuda, arch, capsys):
               f"{float(loss):.4f}, {len(tree_items(grads))} gradient leaves "
               f"finite, peak {peak / 2**30:.2f} GiB on "
               f"{torch.cuda.get_device_name(cuda)}")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cuda_serve_lm_captured_equals_eager(cuda, arch):
+    """``serve_lm`` at the smoke config on the card, its decode step and
+    prefill replayed from CUDA graphs (the default) against
+    ``graphs=False`` from the same weights: tokens equal, every prefill
+    and decode call's logits ``torch.equal``, at most two captures, and
+    K4 inside the captured prefill counted at the warm-up and once a
+    replay (twice the eager count)."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.serve import serve_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = get_bundle(arch, smoke=True).init(
+        torch.Generator(device=cuda).manual_seed(0), torch.float32, cuda)
+    runs = []
+    for graphs in (True, False):
+        rows, timings = [], {}
+        before = k4.launches.count
+        toks = serve_lm(arch, batch=4, prompt_len=16, gen=8, smoke=True,
+                        device=cuda, params=params, graphs=graphs,
+                        timings=timings, on_logits=rows.append)
+        torch.cuda.synchronize()
+        runs.append((toks, rows, timings, k4.launches.count - before))
+    (toks, rows, timings, k4_c), (toks_e, rows_e, timings_e, k4_e) = runs
+    assert torch.equal(toks, toks_e)
+    assert len(rows) == len(rows_e)
+    assert all(torch.equal(a, b) for a, b in zip(rows, rows_e))
+    assert sum(timings["graphs"]["captures"].values()) <= 2
+    assert "graphs" not in timings_e
+    assert k4_c == 2 * k4_e
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v2-236b", "rwkv6-1.6b"])
+def test_cuda_train_captured_matches_eager(cuda, tmp_path, arch):
+    """``train`` at the smoke config on the card, each step replayed from
+    one CUDA graph (RWKV6's scan routes under ``torch.utils.checkpoint``
+    inside it), against ``graphs=False`` from the same seed: the losses
+    within 1e-5 relative (the embedding's atomic backward), the captured
+    restart from step 3 within 1e-5 of the uninterrupted run."""
+    from repro_torch.launch.train import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(steps=6, batch=2, seq=64, smoke=True, device=cuda, log_every=100)
+    eager = train(arch, graphs=False, **kw)
+    captured = train(arch, ckpt_dir=str(tmp_path), ckpt_every=3, **kw)
+    np.testing.assert_allclose(captured, eager, rtol=1e-5, atol=0)
+    for d in tmp_path.iterdir():
+        if d.name.startswith("step-") and int(d.name.split("-")[1]) > 3:
+            d.rename(tmp_path / ("dropped-" + d.name))
+    rest = train(arch, ckpt_dir=str(tmp_path), ckpt_every=3, **kw)
+    np.testing.assert_allclose(rest, captured[3:], rtol=1e-5, atol=0)

@@ -1,15 +1,10 @@
 """The port's compiled programs (``repro_torch.core.graphs``) on the CPU.
 
-The CPU has no CUDA graphs, so these tests pass ``EmulatedGraph``: between
-``capture_begin`` and ``capture_end`` it records every op the captured
-function runs (a dispatch mode, thread-local like a ``thread_local``
-capture), with the very tensors it ran on; ``replay`` runs those ops again
-on the same static inputs and copies each result into the same output
-tensor the capture made.  So it has a graph's aliasing semantics: a
-replay reads whatever the static and resident tensors hold now and
-overwrites the outputs of the last replay; and, like a capture, it raises
-on a host sync.  The runtime never picks it: ``graphs=True`` runs eagerly
-on the CPU.
+The CPU has no CUDA graphs, so these tests pass ``EmulatedGraph``
+(``tests/_torch_graph_emulator.py``): it records the ops a capture runs
+and replays them on the same tensors, with a graph's aliasing semantics,
+and raises on a host sync.  The runtime never picks it: ``graphs=True``
+runs eagerly on the CPU.
 
 Served outputs are held ``torch.equal`` to the eager port (the same ops on
 the same values, in the same batches), and to the JAX reference within the
@@ -17,7 +12,6 @@ port's fp32 tolerance (1e-5 relative and absolute, as
 ``tests/test_torch_device_pool.py``); greedy LM decode token for token.
 """
 import gc
-import itertools
 import threading
 import weakref
 
@@ -26,9 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 
+from _torch_graph_emulator import EmulatedGraph
 from repro.configs import smollm_135m as ref_smollm
 from repro.core.pipeline import build_cnn_pipeline as ref_build_cnn_pipeline
 from repro.models import transformer as ref_lm
@@ -47,52 +40,6 @@ from repro_torch.serving import CodedLMServer, CodedServer
 N = 6
 TOL = dict(rtol=1e-5, atol=1e-5)
 CPU = torch.device("cpu")
-
-
-class _Record(TorchDispatchMode):
-    def __init__(self, ops):
-        super().__init__()
-        self.ops = ops
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func is torch.ops.aten._local_scalar_dense.default:
-            raise RuntimeError("host sync inside a graph capture")
-        out = func(*args, **kwargs)
-        self.ops.append((func, args, kwargs, tree_leaves(out)))
-        return out
-
-
-class EmulatedGraph:
-    """A CUDA graph's semantics on the CPU (see the module docstring)."""
-
-    _pools = itertools.count()
-
-    @staticmethod
-    def pool_handle():
-        return ("emulated", next(EmulatedGraph._pools))
-
-    def __init__(self):
-        self.ops = []
-        self._mode = None
-
-    def capture_begin(self, pool=None, capture_error_mode="global"):
-        assert capture_error_mode == "thread_local"
-        self._mode = _Record(self.ops)
-        self._mode.__enter__()
-
-    def capture_end(self):
-        self._mode.__exit__(None, None, None)
-        self._mode = None
-
-    def replay(self):
-        for func, args, kwargs, outs in self.ops:
-            res = tree_leaves(func(*args, **kwargs))
-            for o, r in zip(outs, res):
-                if isinstance(o, torch.Tensor) and \
-                        o.untyped_storage().data_ptr() != \
-                        r.untyped_storage().data_ptr():
-                    o.copy_(r)
 
 
 def _rng(seed=0):

@@ -112,10 +112,12 @@ def test_apply_updates_writes_in_place_and_global_norm():
     before = [p.data_ptr() for p in tree_leaves(params)]
     state = adamw.init_state(params)
     m_ptrs = [m.data_ptr() for m in tree_leaves(state["m"])]
+    step = state["step"]
     out, state, _ = adamw.apply_updates(params, tree_map(torch.tensor, g0), state,
                                         adamw.AdamWConfig())
     assert out is params and [p.data_ptr() for p in tree_leaves(out)] == before
     assert [m.data_ptr() for m in tree_leaves(state["m"])] == m_ptrs
+    assert state["step"] is step and int(step) == 1
     want = ref_adamw.global_norm(jax.tree.map(jnp.asarray, g0))
     _close(_np(adamw.global_norm(tree_map(torch.tensor, g0))), np.asarray(want), 1e-6)
 
