@@ -57,7 +57,10 @@ Phases, in order; any failure raises:
  7. LM serving phase: ``CodedLMServer`` serving 8 requests (prompts of
     2-16 tokens, 8-16 new tokens, drawn from the seed) under one straggler
     (+50 ms) and one dead worker; the K2, K3 and K4 launch counts are read
-    around this phase only;
+    around this phase only.  Each admission's prefill replays the
+    pipeline's prefill graph of its bucket (K4 inside, counted once a
+    replay), captured in ``warmup`` with every other master graph: at most
+    one a bucket, none while serving;
  8. LM correctness: the logits rows the server chose each token from
     (recorded through ``on_logits`` while it served) held against the
     undistributed ``transformer.prefill`` + ``decode_step``, teacher-forced
@@ -94,7 +97,11 @@ Phases, in order; any failure raises:
     round replayed, graphs a worker within ``worker_graph_bound``), all
     five ``torch.equal``; the LM requests on the device pool with
     ``graphs=False`` and with worker graphs, every token equal to the
-    default run's and the logits held as in phase 8;
+    default run's and the logits held as in phase 8; the captured prefill
+    against the eager one on the device pool: each request's first
+    logits row ``torch.equal``, its first token equal, K4 launched as
+    often, ``prefill_time_s`` printed both ways with warmup's capture
+    seconds apart;
 11. the analysis gate's card half (``repro_torch.analysis.contracts``)
     over every program cell of the two served configurations at full
     width (VGG-16 224, n=8, (2, 4), fused, buckets 1-8; SmolLM-135M on
@@ -107,7 +114,18 @@ Phases, in order; any failure raises:
     that set; the eager-only cells (the LM decoder: K3 takes the survivor
     inverse by value) listed with their reason; any contract error fails
     the script;
-12. the arch zoo, after the earlier phases' servers, graphs and weights
+12. the six examples (``python -m repro_torch.examples.<name>``) run
+    in-process on the card at their defaults, each with its own check
+    (``quickstart`` and ``coded_lm_layer`` against the plain conv and the
+    uncoded FFN, ``coded_cnn_inference`` and ``coded_serving`` within
+    1e-4 of max|uncoded| of the uncoded stack, ``serve_decode``'s token
+    ids, ``train_smollm``'s losses finite and falling), one line each
+    with its seconds, its check's number and its launches (joining
+    ``launches_by_path``); then the sharding specs, shapes only:
+    ``count_params`` of all ten arch ids at full config (DeepSeek-V3
+    included) and the leaves that shard over ``model`` on (16, 16) and
+    over the data axes with FSDP on (2, 16, 16);
+13. the arch zoo, after the earlier phases' servers, graphs and weights
     are released, one arch at a time: each drawn on the card from a seeded
     CUDA generator (fp32, TF32 off) at full width, through ``serve_lm``
     (the serve CLI's LM entry point; 4 prompts of 16 tokens, 16 new
@@ -149,14 +167,18 @@ Phases, in order; any failure raises:
     ``prefill_fn``; each within 1e-4 of max|logit|.  Last, SmolLM-135M
     at full width and depth, K4 in its captured prefill (at the LM kernel
     phase's shape).  K4 at Qwen3's, CodeQwen's, Hymba's (rep 5) and
-    Whisper's decoder's prefill shapes against its plain version, timed;
-13. one JSON line with the training numbers (ms a step and tokens/s, the
+    Whisper's decoder's prefill shapes against its plain version, timed.
+    Each arch's drawn params held against its schema with no new
+    allocation: ``count_params`` equal to their numel, ``param_shapes``
+    equal to their shapes and dtypes leaf for leaf;
+14. one JSON line with the training numbers (ms a step and tokens/s, the
     median over steps 5-30, captured and eager, peak device memory, the
     model FLOPs a step and their share of the fp32 peak, the card's name
     and power limit),
     one JSON line with the arch zoo's readings, one JSON line with the
     compiled programs' counts by phase (the zoo's ``serve_lm`` graphs
-    among them), one JSON
+    and the coded LM prefill's among them), one JSON line with the
+    examples' and the specs' readings, one JSON
     line with the kernels' numbers (K1-K4; K2's top-level numbers
     are its CNN pass, its LM numbers sit under ``paths.lm``; each kernel's
     ``launches`` is its count on the phase-5 or phase-7 main path, and
@@ -925,7 +947,7 @@ def lm_requests(vocab: int) -> list[tuple[list[int], int]]:
 
 
 LM_KINDS = ("glue.embed", "glue.norm", "glue.add", "glue.act", "glue.finish",
-            "glue.attn")
+            "glue.attn", "prefill")
 
 
 def lm_serving_phase(pipe, requests, counters, mode: str = "threads",
@@ -938,9 +960,12 @@ def lm_serving_phase(pipe, requests, counters, mode: str = "threads",
     and read just after.  All requests
     arrive together: they are submitted while the scheduler's condition is
     held, so the engine admits a full first group.  The logits row behind
-    every served token is kept (a device copy).  Returns (token streams,
+    every served token is kept (a device copy).  With graphs, every
+    capture happens in ``warmup`` (the prefill's at most one a bucket):
+    serving captures nothing, or the phase fails.  Returns (token streams,
     served logits rows per request, latencies, server, wall seconds,
-    launches, compiled programs' report or None)."""
+    launches, compiled programs' report or None, with the prefill's
+    captures and seconds under ``prefill``)."""
     from repro_torch.runtime import StragglerModel
     from repro_torch.serving import CodedLMServer
 
@@ -953,6 +978,8 @@ def lm_serving_phase(pipe, requests, counters, mode: str = "threads",
             on_logits=lambda rid, row: rows.setdefault(rid, []).append(
                 row.clone()))
         server.warmup()
+        warm = (None if pipe.master_graphs is None
+                else dict(pipe.master_graphs.captures))
         for c in counters:
             c.reset()
         t0 = time.perf_counter()
@@ -965,6 +992,19 @@ def lm_serving_phase(pipe, requests, counters, mode: str = "threads",
             if graphs:
                 report = graph_report(pipe, server.cluster,
                                       pipe.glue_graph_bound, LM_KINDS)
+                captures = dict(pipe.master_graphs.captures)
+                if captures != warm:
+                    raise AssertionError(f"captured while serving: {warm} "
+                                         f"after warmup, {captures} after")
+                if not 0 < captures["prefill"] <= len(pipe.bucket_sizes):
+                    raise AssertionError(f"prefill captures {captures['prefill']}"
+                                         f" outside (0, {len(pipe.bucket_sizes)}]")
+                report["prefill"] = {
+                    "captures": captures["prefill"],
+                    "replays": report["master_replays"]["prefill"],
+                    "held": pipe.master_graphs.stats()["held"].get("prefill", {}),
+                    "warmup_s": server.prefill_warmup_s,
+                    "prefill_time_s": server.prefill_time_s}
     finally:
         pipe.set_graphs(True, workers=False)
     launches = {c.name: c.count for c in counters}
@@ -1036,6 +1076,31 @@ def check_lm_served(pipe, params, requests, outs, served, device,
                              f"transformer: rel err {worst} > {TOL_LM}")
     return {"max_rel_err": worst, "tokens_equal": exact, "tokens": total,
             "refs": refs}
+
+
+def check_lm_prefill(requests, outs, rows, e_outs, e_rows, launches,
+                     e_launches) -> dict:
+    """The captured prefill against the eager one, on one pool's two
+    runs of the same requests: each request's first logits row (the
+    prefill's, recorded through ``on_logits``) ``torch.equal``, its first
+    token equal, and K4 launched as often, replayed from the prefill
+    graphs (the decode glue never launches K4) as eagerly.  Returns the
+    counts."""
+    for r, (got, want, o, e) in enumerate(zip(rows, e_rows, outs, e_outs)):
+        if not torch.equal(got[0], want[0]):
+            diff = float((got[0] - want[0]).abs().max())
+            raise AssertionError(f"request {r}: captured prefill logits differ "
+                                 f"from eager's by up to {diff:.3e}")
+        if int(o[0]) != int(e[0]):
+            raise AssertionError(f"request {r}: first token {int(o[0])} "
+                                 f"captured, {int(e[0])} eager")
+    k4, k4_e = launches["flash_attention"], e_launches["flash_attention"]
+    if not 0 < k4 == k4_e:
+        raise AssertionError(f"K4 launched {k4} times from the prefill graphs, "
+                             f"{k4_e} eagerly")
+    return {"rows": len(rows), "first_logits_equal": True, "k4_captured": k4,
+            "k4_eager": k4_e, "prompt_width": LM_MAX_PROMPT,
+            "requests": len(requests)}
 
 
 def lm_kernel_summary(entries: list[dict]) -> dict:
@@ -2279,6 +2344,7 @@ def zoo_arch(arch: str, layers, device, counters, card: str,
     _sync(device)
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in tree_leaves(params))
+    specs = spec_checks(bundle, params)
     # serve_lm captured (as it runs by default on the card), then eagerly
     # from the same weights and prompts; the launch counts around each
     served = []
@@ -2330,6 +2396,7 @@ def zoo_arch(arch: str, layers, device, counters, card: str,
            "layers": cfg.layers if bundle.family != "encdec"
            else cfg.enc_layers + cfg.dec_layers, "d_model": cfg.d_model,
            "params": n_params, "param_bytes": 4 * n_params, "init_s": init_s,
+           "specs": specs,
            **timings, "graphs": graph_stats, "eager": timings_e,
            "logits_calls_equal": len(rows), "routes": routes,
            "launches": launches, "launches_eager": launches_e,
@@ -2595,6 +2662,90 @@ def zoo_qwen3_coded(params, cfg, device, counters, card, kernels, by_path) -> di
     return out
 
 
+# -- the examples and the sharding specs ------------------------------------
+EXAMPLES = ("quickstart", "coded_cnn_inference", "coded_serving",
+            "coded_lm_layer", "serve_decode", "train_smollm")
+
+
+def examples_phase(device, counters) -> dict:
+    """The port's six examples (``python -m repro_torch.examples.<name>``),
+    each run in-process through its ``main`` on ``device`` at its
+    defaults, its own check raising where it fails, its printed lines kept
+    apart; the launch counts zeroed just before each and read just after.
+    Returns per example its seconds, its check's number and launches."""
+    import contextlib
+    import importlib
+    import io
+
+    out = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        _reset(counters)
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            res = mod.main(["--device", str(device)])
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        if name in ("quickstart", "coded_lm_layer"):
+            check = {"max_abs_err": res["max_abs_err"], "tol": mod.TOL}
+        elif name in ("coded_cnn_inference", "coded_serving"):
+            check = {"rel_err_vs_uncoded": res["rel_err"], "tol": mod.TOL}
+        elif name == "serve_decode":
+            check = {"arch": res["arch"], "tokens": list(res["tokens"].shape),
+                     "request0": res["request0"][:8]}
+        else:
+            check = {"first_loss": res["first_loss"],
+                     "last_loss": res["last_loss"], "steps": res["steps"]}
+        out[name] = {"seconds": seconds, "check": check,
+                     "launches": _launches(counters),
+                     "last_line": printed.getvalue().strip().splitlines()[-1]}
+    return out
+
+
+def spec_checks(bundle, params) -> dict:
+    """The schema against the params drawn from it on the card, with no
+    new allocation: ``count_params`` equal to their numel, and
+    ``param_shapes`` (meta tensors) equal to their shapes and dtypes leaf
+    for leaf."""
+    from repro_torch.models.common import count_params
+    from repro_torch.tree import tree_items
+
+    n = count_params(bundle.schema)
+    drawn = tree_items(params)
+    numel = sum(t.numel() for _, t in drawn)
+    meta = tree_items(bundle.param_shapes(torch.float32))
+    same = ([(p, tuple(t.shape), t.dtype) for p, t in meta]
+            == [(p, tuple(t.shape), t.dtype) for p, t in drawn])
+    if n != numel or not same:
+        raise AssertionError(f"{bundle.name}: count_params {n}, numel {numel}; "
+                             f"param_shapes equal to the drawn tree: {same}")
+    return {"count_params": n, "leaves": len(drawn)}
+
+
+def specs_phase() -> dict:
+    """``count_params`` of every arch id at its full config (DeepSeek-V3's
+    671 B included: no run on the card holds it), and how many leaves
+    shard over ``model`` on the (16, 16) production mesh and over the data
+    axes with FSDP on (2, 16, 16).  Shapes only: nothing is allocated."""
+    from repro_torch.configs import ARCH_IDS, get_bundle
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.common import count_params, schema_pspecs
+    from repro_torch.tree import tree_items
+
+    pod, multi = make_production_mesh(), make_production_mesh(multi_pod=True)
+    out = {}
+    for arch in ARCH_IDS:
+        schema = get_bundle(arch).schema
+        model = [p for _, p in tree_items(schema_pspecs(schema, pod))]
+        fsdp = [p for _, p in tree_items(schema_pspecs(schema, multi, True))]
+        out[arch] = {"count_params": count_params(schema), "leaves": len(model),
+                     "model_sharded_16x16": sum("model" in p for p in model),
+                     "fsdp_data_sharded_2x16x16": sum(
+                         ("pod", "data") in p for p in fsdp)}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this proof "
@@ -2832,6 +2983,22 @@ def main() -> int:
     print(f"LM eager against replayed on the device pool: {same_toks} of "
           f"{toks} tokens equal; eager logits max rel err "
           f"{e_check['max_rel_err']:.2e} <= {TOL_LM}; launches {e_launches}")
+    pf = check_lm_prefill(requests, d_outs, d_rows, e_outs, e_rows,
+                          d_launches, e_launches)
+    lm_prefill = {"threads": lm_graphs["prefill"], "device": d_graphs["prefill"],
+                  "eager_prefill_time_s": e_server.prefill_time_s,
+                  "eager_warmup_s": e_server.prefill_warmup_s, **pf}
+    graph_phases["lm_prefill"] = lm_prefill
+    print(f"LM prefill captured (one graph a bucket, {lm_graphs['prefill']['captures']}"
+          f" <= {len(LM_BUCKETS)} captures, all in warmup) on {card}: "
+          f"prefill_time_s captured {lm_graphs['prefill']['prefill_time_s']:.4f} "
+          f"(threads) / {d_graphs['prefill']['prefill_time_s']:.4f} (device), "
+          f"eager {e_server.prefill_time_s:.4f}; the capture apart: warmup's "
+          f"prefill {lm_graphs['prefill']['warmup_s']:.3f} s (eager warmup "
+          f"{e_server.prefill_warmup_s:.3f} s); {pf['rows']} first logits rows "
+          f"torch.equal to eager's, first tokens equal; K4 launches "
+          f"{pf['k4_captured']} replayed (held {lm_graphs['prefill']['held']}) "
+          f"= {pf['k4_eager']} eager")
     # -- and with the workers' rounds replayed too --------------------------
     w_outs, w_rows, _, w_server, w_wall, w_launches, w_graphs = \
         lm_serving_phase(lm_pipe, requests, counters, pool="device",
@@ -2885,11 +3052,32 @@ def main() -> int:
             print(f"    eager-only ({'; '.join(c['eager_only_reasons'])}): "
                   f"{', '.join(c['eager_only_cells'])}")
 
-    # -- the arch zoo, after the earlier phases' servers, graphs and weights
-    # are released --------------------------------------------------------
+    # -- the six examples, on the card at their defaults ---------------------
     del lm_pipe, lm_params, lm_outs, lm_rows, d_outs, e_outs, w_outs
     del check, d_check, e_check, w_check
     _empty_cache(device)
+    all_counters = (k1_launches, k2_launches, k3_launches, k4_launches)
+    t0 = time.perf_counter()
+    ex = examples_phase(device, all_counters)
+    print(f"examples phase on {card}: {time.perf_counter() - t0:.1f} s")
+    for name, e in ex.items():
+        by_path[f"example_{name}"] = e["launches"]
+        print(f"  {name}: {e['seconds']:.2f} s, check {json.dumps(e['check'])}; "
+              f"launches {e['launches']}; last line: {e['last_line']}")
+    _empty_cache(device)
+
+    # -- the sharding specs: every arch id at full config, shapes only -------
+    specs = specs_phase()
+    print("specs phase (no allocation): count_params at full config; leaves "
+          "sharded over model on (16, 16); over (pod, data) with FSDP on "
+          "(2, 16, 16):")
+    for arch, sp in specs.items():
+        print(f"  {arch}: {sp['count_params']:,} params, {sp['leaves']} leaves, "
+              f"{sp['model_sharded_16x16']} over model, "
+              f"{sp['fsdp_data_sharded_2x16x16']} over data with FSDP")
+
+    # -- the arch zoo, after the earlier phases' servers, graphs and weights
+    # are released --------------------------------------------------------
     print(f"arch zoo: {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB "
           f"still allocated after the earlier phases")
     t0 = time.perf_counter()
@@ -2898,6 +3086,13 @@ def main() -> int:
     print(f"arch zoo: {time.perf_counter() - t0:.1f} s")
     by_path.update(zoo["by_path"])
     graph_phases["zoo"] = zoo["graphs"]
+    for z in zoo["archs"]:
+        specs[z["arch"]]["drawn_on_card"] = {"layers": z["layers"], **z["specs"]}
+    print(f"specs against the card: count_params equal to the numel of the "
+          f"params drawn on {card} and param_shapes equal to their shapes and "
+          f"dtypes leaf for leaf for {len(zoo['archs'])} archs at the zoo's "
+          f"depths: " + ", ".join(f"{z['arch']} {z['specs']['count_params']:,}"
+                                  for z in zoo["archs"]))
 
     # -- the kernels line: K1-K4, launches from each path's serving run.
     # K2 runs on both paths, in two regimes: its top-level numbers stay
@@ -2947,6 +3142,7 @@ def main() -> int:
     print(json.dumps({"zoo": {"archs": zoo["archs"],
                               "qwen3_coded": zoo["qwen3_coded"]}}))
     print(json.dumps({"graphs": graph_phases}))
+    print(json.dumps({"examples": ex, "specs": specs}))
     print(json.dumps({"kernels": [k1e, k2e, k3e, k4e]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

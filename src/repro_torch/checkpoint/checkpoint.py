@@ -10,7 +10,7 @@ other: bf16 leaves are stored as the reference stores them (their two
 bytes as numpy's ``V2``) and read back as bf16.
 
 ``restore(shardings=)``, the reference's elastic re-shard on load, waits
-for the sharding slice of the port (ROADMAP Queue A 11).
+for the sharding slice of the port (ROADMAP Queue A item 3(b)).
 """
 from __future__ import annotations
 
@@ -100,7 +100,7 @@ def restore(directory: str, step: int, like_tree, shardings=None):
     leaf on the device and in the dtype of its counterpart there."""
     if shardings is not None:
         raise NotImplementedError("restore(shardings=) waits for the port's "
-                                  "sharding slice (ROADMAP Queue A 11)")
+                                  "sharding slice (ROADMAP Queue A item 3(b))")
     path = os.path.join(directory, f"step-{step:08d}", "arrays.npz")
     with np.load(path) as data:
         items = [(p, _from_host(data[_key(p)], like))

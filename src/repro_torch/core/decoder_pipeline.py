@@ -34,7 +34,12 @@ rounds and LM decode rounds alike:
     cache leaves the attention glue writes in place (one graph per layer
     and bucket); activations and the 576-float norm gammas are copied per
     replay.  The broadcast encoder launches no kernel and the decoder
-    takes its inverse by value (K3), so both stay eager.
+    takes its inverse by value (K3), so both stay eager;
+  * an admitted group's prompts are prefilled in ONE full-stack pass on
+    the master (``prefill_prompt``, attention on K4), the reference's
+    jitted prefill: on the card one graph per bucket, the params and a
+    scratch K/V cache per bucket resident, the scratch cleared inside the
+    graph.
 
 ``UncodedPlan`` is the straggler-bound baseline: the same worker pool and
 worker program, weights split ``n`` ways with no redundancy, identity
@@ -63,6 +68,7 @@ from ..kernels.coded_gemm import crme_decode, crme_encode
 from ..kernels.matmul import matmul
 from ..models import transformer as lm
 from ..models.common import apply_rope, rms_norm, rope_inv_freq, softcap
+from ..tree import tree_from_items, tree_items
 from .crme import recovery_matrix
 from .fcdcc import FcdccPlan, check_backend
 from .graphs import GraphSet, owner_graphs
@@ -278,6 +284,11 @@ class CodedDecoderPipeline:
         self._batch_programs: dict[tuple, Program] = {}  # looped over workers
         self._glue: dict[str, Program] = {}  # master-side glue by name
         self._attn_fns: dict = {}  # decode attention by sliding window
+        self._prefill: Program | None = None  # the full-stack prefill
+        self._param_items = tree_items(params)  # its params, as arguments
+        # the prefill's scratch K/V cache by group size: resident in its
+        # graphs, returned as its ks/vs
+        self._prefill_caches: dict[int, tuple] = {}  # guarded-by: engine-thread
         # decode inverses by survivor tuple (one plan for every round), as
         # fp32 host tensors; written by the engine thread only
         self._decode_memo: dict[tuple, torch.Tensor] = {}  # guarded-by: engine-thread
@@ -301,16 +312,20 @@ class CodedDecoderPipeline:
             self.worker_graphs = bool(workers)
         self.graphs = graphs
         self.master_graphs = owner_graphs(self._graph_sets, graphs, self.device)
-        for prog in list(self._glue.values()) + list(self._attn_fns.values()):
+        progs = list(self._glue.values()) + list(self._attn_fns.values())
+        if self._prefill is not None:
+            progs.append(self._prefill)
+        for prog in progs:
             prog.graphs = self.master_graphs
 
     @property
     def glue_graph_bound(self) -> int:
-        """Glue graphs a decode step can capture: per bucket, one each of
-        embed, norm, add, act and finish, and one attention graph per
-        layer (its cache leaves are resident)."""
+        """Master graphs a server can capture: per bucket, one each of
+        embed, norm, add, act and finish, one attention graph per layer
+        (its cache leaves are resident), and the prefill of a group of
+        prompts at the server's prompt width."""
         buckets = len(self.bucket_sizes) if self.bucket_sizes else 1
-        return (5 + self.cfg.layers) * buckets
+        return (6 + self.cfg.layers) * buckets
 
     @property
     def worker_graph_bound(self) -> int:
@@ -652,18 +667,58 @@ class CodedDecoderPipeline:
         """A copy of one slot row (1, max_len, hkv, hd) at ``row``."""
         return cache_leaf[row:row + 1].clone()
 
-    def prefill_prompt(self, prompts: torch.Tensor):
+    def prefill_program(self) -> Program:
+        """The cache-filling prefill of a group of prompts, one full-stack
+        pass (``models.transformer.prefill``, attention on K4): ``(tokens
+        (G, P), k, v, *param leaves) -> (logits (G, P, V), k, v)``, with
+        ``k`` / ``v`` the ``(L, G, max_len, hkv, hd)`` scratch cache,
+        cleared and then filled in place.  The scratch and the params are
+        resident in its graphs (one a group size and prompt width), the
+        tokens copied in; the scratch is declared written, so a capture
+        restores it after the warm-up's real run."""
+        if self._prefill is None:
+            cfg = self.cfg
+            paths = [path for path, _ in self._param_items]
+
+            def raw(tokens, k, v, *leaves):
+                k.zero_()
+                v.zero_()
+                params = tree_from_items(zip(paths, leaves))
+                logits, _ = lm.prefill(params, cfg, {"dense": {"k": k, "v": v}},
+                                       tokens.long())
+                return logits, k, v
+
+            self._prefill = Program(
+                raw, name="prefill", resident=tuple(range(1, 3 + len(paths))),
+                writes=(1, 2), graphs=self.master_graphs)
+        return self._prefill
+
+    def prefill_cache(self, group: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The prefill's scratch K/V of ``group`` rows, allocated on first
+        use and kept: its graphs hold it."""
+        kv = self._prefill_caches.get(group)
+        if kv is None:
+            cfg = self.cfg
+            shape = (cfg.layers, group, self.max_len, cfg.n_kv_heads,
+                     cfg.head_dim)
+            kv = self._prefill_caches[group] = (
+                torch.zeros(shape, device=self.device),
+                torch.zeros(shape, device=self.device))
+        return kv
+
+    def prefill_prompt(self, prompts):
         """Batched cache-filling prefill for a group of admitted prompts:
-        ONE full-stack pass (``models.transformer.prefill``, attention on
-        K4) on the master — prompt positions never go through worker
-        rounds.  Returns ``(logits (G, P, V), ks, vs)`` with ks/vs
+        ONE full-stack pass on the master (``prefill_program``; replayed
+        from its graph on the card) — prompt positions never go through
+        worker rounds.  Returns ``(logits (G, P, V), ks, vs)`` with ks/vs
         ``(L, G, max_len, hkv, hd)`` ready to scatter into the slot
-        caches."""
-        tokens = torch.as_tensor(prompts, device=self.device).long()
-        cache = lm.init_cache(self.cfg, tokens.shape[0], self.max_len,
-                              device=self.device)
-        logits, filled = lm.prefill(self.params, self.cfg, cache, tokens)
-        return logits, filled["dense"]["k"], filled["dense"]["v"]
+        caches.  ks/vs ARE the scratch cache of group size G, which the
+        next prefill of G rows overwrites: consume them (``slot_write``)
+        before that; the logits are the caller's own."""
+        tokens = torch.as_tensor(prompts, device=self.device)
+        k, v = self.prefill_cache(tokens.shape[0])
+        return self.prefill_program()(
+            tokens, k, v, *(leaf for _, leaf in self._param_items))
 
     # -- decode-step entry points ---------------------------------------------
     def _decode_step(self, tokens, cache, pos, run_round):
@@ -739,11 +794,16 @@ class CodedDecoderPipeline:
         the port's own: a worker's coded weights are ``(d_in, ell_b*ob)``
         (the reference's ``(ell_b, d_in, ob)``), and the decode inverse
         stays on the host, where K3 takes it by value — so a decoder cell
-        is ``eager_only``."""
+        is ``eager_only``.  The ``prefill`` cells, one a bucket, are the
+        port's own (the reference jits its prefill outside its program
+        space): the prompt-group prefill at a width of ``max_len // 2``
+        tokens (a server pads to one width below ``max_len``; the program
+        is the same at every width)."""
         buckets = (self.normalize_buckets(bucket_sizes) if bucket_sizes
                    else (self.bucket_sizes or (1,)))
         cfg = self.cfg
         f32, i32 = torch.float32, torch.int32
+        prompt_len = self.max_len // 2
         geoms = set()
         for mode in modes:
             if mode not in ("direct", "cluster"):
@@ -789,6 +849,8 @@ class CodedDecoderPipeline:
         # master-side glue (mode-independent; checked, never trace-counted)
         d, v = cfg.d_model, cfg.vocab
         hkv, hd = cfg.n_kv_heads, cfg.head_dim
+        params = tuple(ArgSpec(tuple(leaf.shape), f32)
+                       for _, leaf in self._param_items)
         for bucket in buckets:
             def gid(kind):
                 return f"glue.{kind}[b={bucket}]:master"
@@ -816,6 +878,12 @@ class CodedDecoderPipeline:
                     (ArgSpec((bucket, self.qkv_dim), f32), cache, cache,
                      ArgSpec((bucket,), i32, "index", high=self.max_len))
                     + ln)
+            scratch = ArgSpec((cfg.layers, bucket, self.max_len, hkv, hd), f32)
+            yield ProgramCell(
+                f"prefill[b={bucket}]:master", "prefill", "master", 0, bucket,
+                ("prefill",), self.prefill_program(),
+                (ArgSpec((bucket, prompt_len), i32, "index", high=v),
+                 scratch, scratch) + params)
 
 
 def build_lm_decoder_pipeline(

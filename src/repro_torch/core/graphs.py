@@ -15,7 +15,11 @@ once per (program, argument signature, slot) and replayed after that:
   is made by libcuda's ``cuStreamCreate``, never drawn from PyTorch's
   stream pool: two ``torch.cuda.Stream()`` objects may share one CUDA
   stream there, and a capture on a shared stream would take in another
-  thread's launches.  It is destroyed when its thread exits.  A capture that fails raises ``GraphCaptureError``;
+  thread's launches.  It is destroyed when its thread exits.  Python's
+  cyclic garbage collector is held off while any capture is underway
+  (``no_collection``): a collection inside a capture would destroy
+  unreachable graphs on the capturing thread, which invalidates the
+  capture.  A capture that fails raises ``GraphCaptureError``;
   nothing gives way to eager execution.
 * **State a program advances.** The warm-up runs the program for real,
   and so does a capture under a graph class that executes what it
@@ -58,6 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import sys
 import threading
 import time
@@ -70,7 +75,7 @@ from ..kernels.native import held_launches
 
 __all__ = ["GraphCaptureError", "GraphSet", "ResidentMoved", "capture_stream",
            "graph_class", "live_capture_streams", "merge_stats",
-           "owner_graphs", "signature"]
+           "no_collection", "owner_graphs", "signature"]
 
 
 class GraphCaptureError(RuntimeError):
@@ -123,6 +128,33 @@ class _ThreadStreams:
 
 
 _capture_streams = threading.local()  # per thread: its _ThreadStreams
+
+_gc_lock = threading.Lock()
+_gc_holds = 0  # captures underway  # guarded-by: _gc_lock
+_gc_was_enabled = False  # the collector's state at the first hold  # guarded-by: _gc_lock
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Python's cyclic garbage collector off while any thread is inside:
+    a collection can run at any allocation, and one that reaches an
+    unreachable ``CUDAGraph`` resets it (destroys the graph) on the thread
+    it runs on; inside a capture that call invalidates the capture
+    (``cudaErrorStreamCaptureInvalidated``).  Holds nest across threads;
+    the collector's own state is restored when the last one ends."""
+    global _gc_holds, _gc_was_enabled
+    with _gc_lock:
+        if _gc_holds == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_enabled:
+                gc.enable()
 
 
 def live_capture_streams() -> int:
@@ -368,7 +400,7 @@ class GraphSet:
             restore()
             graph = gcls()
             try:
-                with held_launches() as held:
+                with held_launches() as held, no_collection():
                     try:
                         graph.capture_begin(pool=self._pool,
                                             capture_error_mode="thread_local")

@@ -1,9 +1,12 @@
 """Device selection shared by every entry point of the port."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["canonical_device", "resolve_device", "worker_devices"]
+__all__ = ["canonical_device", "fp32_products", "resolve_device",
+           "worker_devices"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -30,18 +33,25 @@ def worker_devices(n: int, devices=None) -> list[torch.device]:
     """The device of each of ``n`` coded workers: the given ``devices``, or
     else every visible CUDA device, capped at ``n``; worker ``i`` runs on
     ``devs[i % len(devs)]`` (round-robin when there are fewer devices than
-    workers).  The counterpart of the reference's 1-D worker mesh, which
-    the port needs only as this list."""
-    if n < 1:
-        raise ValueError(f"need n >= 1 workers, got {n}")
-    if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device visible; pass devices= or "
-                               "device='cpu'")
-        devices = range(min(torch.cuda.device_count(), n))
-    devs = [canonical_device(resolve_device(d if not isinstance(d, int)
-                                    else torch.device("cuda", d)))
-            for d in devices]
-    if not devs:
-        raise ValueError("empty device list")
-    return [devs[i % len(devs)] for i in range(n)]
+    workers).  The worker mesh's round-robin
+    (``sharding.worker_devices(launch.mesh.make_worker_mesh(n, devices),
+    n)``), which is its one definition."""
+    from .launch.mesh import make_worker_mesh
+    from .sharding import worker_devices as mesh_workers
+
+    return mesh_workers(make_worker_mesh(n, devices), n)
+
+
+@contextlib.contextmanager
+def fp32_products():
+    """TF32 off for every product inside (matmuls and cuDNN convolutions),
+    the process's flags restored after."""
+    was = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = was

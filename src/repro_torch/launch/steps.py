@@ -2,8 +2,12 @@
 ``launch/steps.py`` on one device, and their compiled forms.
 
 The reference returns each step with its shardings for ``jax.jit``; the
-port returns the step alone.  FSDP and the param / optimizer / batch
-shardings wait for the port's sharding slice (ROADMAP Queue A 11).
+port returns the step alone, and the specs those shardings are made of
+apart: ``batch_pspecs``, ``cache_pspecs`` and ``opt_state_pspecs`` (with
+``models.common.schema_pspecs`` for the params) on a mesh's axis sizes,
+and ``make_opt_shapes``, the optimizer state as meta tensors.  Executing
+a step sharded over processes (FSDP, expert parallelism) is ROADMAP
+Queue A item 3(b).
 
 The reference's launchers ``jax.jit`` three steps: the decode step and the
 cache-filling prefill (with the cache donated) and the train step (with
@@ -25,11 +29,14 @@ import torch
 from ..core.graphs import GraphSet
 from ..core.pipeline import Program
 from ..models.common import checkpointed
-from ..optim import AdamWConfig, apply_updates
+from ..optim import AdamWConfig, apply_updates, init_state
 from ..optim.schedule import cosine_with_warmup
+from ..sharding import PartitionSpec, resolve_pspec
 from ..tree import tree_from_items, tree_items, tree_map
 
 __all__ = ["TrainConfig", "value_and_grad", "accumulated_value_and_grad",
+           "batch_pspecs", "cache_pspecs", "opt_state_pspecs",
+           "make_opt_shapes",
            "build_train_step", "build_prefill_step", "build_serve_step",
            "CompiledStep", "compiled_decode", "compiled_prefill",
            "compiled_train_step"]
@@ -58,6 +65,34 @@ class TrainConfig:
                              f"one of {COMPRESSION}")
         if self.microbatches < 1:
             raise ValueError(f"microbatches={self.microbatches}")
+
+
+def batch_pspecs(bundle, batch_shapes: dict, mesh) -> dict:
+    """The ``PartitionSpec`` of each batch leaf (tensors or meta tensors)
+    on ``mesh``: the bundle's ``batch_axes`` resolved against the leaf's
+    shape."""
+    axes = bundle.batch_axes(batch_shapes)
+    return tree_map(lambda leaf, ax: resolve_pspec(leaf.shape, ax, mesh.shape),
+                    batch_shapes, axes)
+
+
+def cache_pspecs(bundle, cache_shapes: dict, mesh) -> dict:
+    """The ``PartitionSpec`` of each cache leaf on ``mesh``, from the
+    bundle's ``cache_axes``."""
+    axes = bundle.cache_axes(cache_shapes)
+    return tree_map(lambda leaf, ax: resolve_pspec(leaf.shape, ax, mesh.shape),
+                    cache_shapes, axes)
+
+
+def opt_state_pspecs(param_pspecs: dict) -> dict:
+    """AdamW's moments sharded as the params, its step replicated."""
+    return {"m": param_pspecs, "v": param_pspecs, "step": PartitionSpec()}
+
+
+def make_opt_shapes(bundle, dtype: torch.dtype = torch.float32) -> dict:
+    """The AdamW state of the bundle's params in ``dtype``, as meta
+    tensors: ``init_state`` over ``param_shapes``, no storage."""
+    return init_state(bundle.param_shapes(dtype))
 
 
 def value_and_grad(loss_fn, params: dict, batch: dict, remat: bool = False):
@@ -121,15 +156,15 @@ def build_train_step(bundle, tcfg: TrainConfig = TrainConfig()):
     contribution that crosses a ``"pod"`` data-parallel axis.  One card has
     no such axis, so ``grad_compression`` is accepted and does not apply,
     exactly as on the reference's host mesh, and a warning says so; the
-    multi-process path comes with the port's sharding slice (ROADMAP
-    Queue A 11).
+    multi-process path comes with the port's sharding execution (ROADMAP
+    Queue A item 3(b)).
     """
     if tcfg.grad_compression is not None:
         warnings.warn(
             f"grad_compression={tcfg.grad_compression!r} does not apply: it "
             "compresses only across a 'pod' data-parallel axis, which one "
             "device does not have (the multi-process path is ROADMAP Queue "
-            "A 11)", stacklevel=2)
+            "A item 3(b))", stacklevel=2)
 
     def train_step(params, opt_state, batch):
         loss, grads = accumulated_value_and_grad(

@@ -16,7 +16,6 @@ eagerly:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import time
 from typing import Callable
 
@@ -25,27 +24,12 @@ import torch
 from ..checkpoint import AsyncCheckpointer, latest_step, restore
 from ..configs import ARCH_IDS, get_bundle
 from ..core.graphs import GraphSet, graph_class
-from ..devices import resolve_device
+from ..devices import fp32_products, resolve_device
 from ..data import DataConfig, SyntheticTokens
 from ..optim import AdamWConfig, init_state
 from . import steps as steps_mod
 
 __all__ = ["train", "main"]
-
-
-@contextlib.contextmanager
-def _fp32_products():
-    """TF32 off for every product inside, the process's flags restored
-    after."""
-    was = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        assert not torch.backends.cuda.matmul.allow_tf32
-        assert not torch.backends.cudnn.allow_tf32
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = was
 
 
 def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
@@ -71,7 +55,7 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
     call's first step) and runs eagerly on the CPU; ``False`` runs
     eagerly; a graph class captures with that class on any device."""
     dev = resolve_device(device)
-    with _fp32_products():
+    with fp32_products():
         bundle = get_bundle(arch, smoke=smoke)
         tcfg = steps_mod.TrainConfig(
             opt=AdamWConfig(lr=lr), warmup=min(20, steps // 10 + 1),

@@ -1,16 +1,21 @@
-"""Shared model building blocks: the params drawn from a shapes tree or
-carried across from numpy, RMS norm, softcap, RoPE, the
-causal/sliding-window mask, GQA attention and the next-token loss.
+"""Shared model building blocks: the param schema with logical sharding
+axes, the params drawn from it or carried across from numpy, RMS norm,
+softcap, RoPE, the causal/sliding-window mask, GQA attention and the
+next-token loss.
 
-Counterparts of the numerics in the JAX package's ``models/common.py``,
-with the same layouts: activations ``(B, S, H, D)``, GQA by head
-repetition with query head ``h = g * rep + r`` reading KV head ``g``.
-A family's shapes tree is the reference's schema without its sharding
-axes: the same nested dict, with ``(shape, init scale)`` leaves (scale
-None = fan-in, 0.0 = zeros).
+Counterparts of the JAX package's ``models/common.py``, with the same
+layouts: activations ``(B, S, H, D)``, GQA by head repetition with query
+head ``h = g * rep + r`` reading KV head ``g``.  Each family defines a
+*schema*, the reference's nested dict of ``ParamSpec`` leaves, from which
+come its random init (``schema_init``), its shapes (``schema_shapes``,
+meta tensors), its PartitionSpecs on a mesh (``schema_pspecs``) and its
+parameter count (``count_params``).  The reference's ``schema_shardings``
+(``NamedSharding`` of each leaf) waits for the multi-process execution,
+ROADMAP Queue A item 3(b).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -18,29 +23,82 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
-from ..tree import tree_map
+from ..sharding import PartitionSpec
+from ..tree import tree_leaves, tree_map
 
-__all__ = ["draw_params", "params_from_numpy", "stacked_shapes", "at_least_fp32",
+__all__ = ["ParamSpec", "MODEL_AXIS", "stack_schema", "spec_to_pspec",
+           "schema_init", "schema_shapes", "schema_pspecs", "count_params",
+           "params_from_numpy", "at_least_fp32",
            "rms_norm",
            "softcap", "rope_inv_freq", "apply_rope", "make_attn_mask",
            "attention", "next_token_nll", "position_index", "checkpointed", "NEG_INF"]
 
 NEG_INF = -1e30  # additive mask value (finite, as in the reference)
 
-
-def stacked_shapes(shapes: dict, n: int) -> dict:
-    """A layer's shapes tree with a leading axis of ``n`` layers on every
-    leaf (the reference's stacked schema)."""
-    return {k: stacked_shapes(v, n) if isinstance(v, dict) else ((n,) + v[0], v[1])
-            for k, v in shapes.items()}
+# params only ever shard over the model axis (FSDP adds the data axes)
+MODEL_AXIS = "model"
 
 
-def draw_params(shapes: dict, generator: torch.Generator,
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """One parameter: its shape, the logical axis of each dimension, and
+    its init scale (None = fan-in, 0.0 = zeros)."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]  # logical axis names, len == len(shape)
+    scale: float | None = None
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+# logical axes that shard over the model (tensor) axis of the mesh
+_MODEL_SHARDED = {"vocab", "heads", "kv_heads", "ff", "experts", "out_ch"}
+
+
+def stack_schema(schema: dict, n: int) -> dict:
+    """A layer's schema with a leading, unsharded axis of ``n`` layers on
+    every leaf (the reference's stacked schema)."""
+    return tree_map(lambda p: ParamSpec((n,) + p.shape, (None,) + p.axes,
+                                        p.scale), schema)
+
+
+def spec_to_pspec(spec: ParamSpec, mesh, fsdp: bool = False) -> PartitionSpec:
+    """The leaf's ``PartitionSpec`` on ``mesh`` (anything with a ``shape``
+    dict of axis sizes): the first model-sharded logical axis that divides
+    the model axis takes it, every other dimension is replicated (SmolLM's
+    9 heads on model = 16).  ``fsdp=True`` (training) also shards the
+    largest remaining dimension that divides the data (and pod) degree
+    over those axes, for stacked (>= 3-D) layer weights only: the
+    reference found a 2-D embedding sharded over data made GSPMD
+    replicate the whole table."""
+    model_size = mesh.shape[MODEL_AXIS]
+    out: list = []
+    used_model = False
+    for dim, ax in zip(spec.shape, spec.axes):
+        if ax in _MODEL_SHARDED and not used_model and dim % model_size == 0:
+            out.append(MODEL_AXIS)
+            used_model = True
+        else:
+            out.append(None)
+    if fsdp and len(spec.shape) >= 3:
+        data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+        dsize = math.prod(mesh.shape[a] for a in data_axes)
+        cands = [(dim, i) for i, (dim, sp) in enumerate(zip(spec.shape, out))
+                 if sp is None and dim % dsize == 0 and dim >= dsize]
+        if cands:
+            _, i = max(cands)
+            out[i] = data_axes if len(data_axes) > 1 else data_axes[0]
+    return PartitionSpec(*out)
+
+
+def schema_init(schema: dict, generator: torch.Generator,
                 device: str | torch.device = "cuda",
                 dtype: torch.dtype = torch.float32) -> dict:
-    """Random params of a shapes tree: fan-in-scaled normals (the fan-in is
-    the second-last axis, else the last), the leaf's own scale where it
-    has one, zeros where it is 0.0.  Leaf by leaf in sorted-key order, each
+    """Random params of a schema: fan-in-scaled normals (the fan-in is the
+    second-last axis, else the last), the leaf's own scale where it has
+    one, zeros where it is 0.0.  Leaf by leaf in sorted-key order, each
     leaf is drawn from ``generator`` on the generator's own device and
     moved to ``device`` before the next is drawn, so a CUDA generator draws
     on the card and the host never holds the tree.  The reference draws
@@ -48,7 +106,8 @@ def draw_params(shapes: dict, generator: torch.Generator,
     weights there."""
     dev = resolve_device(device)
 
-    def leaf(shape, scale):
+    def leaf(spec: ParamSpec):
+        shape, scale = spec.shape, spec.scale
         if scale == 0.0:
             return torch.zeros(shape, dtype=dtype, device=dev)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
@@ -60,9 +119,25 @@ def draw_params(shapes: dict, generator: torch.Generator,
     def draw(node):
         if isinstance(node, dict):
             return {k: draw(node[k]) for k in sorted(node)}
-        return leaf(*node)
+        return leaf(node)
 
-    return draw(shapes)
+    return draw(schema)
+
+
+def schema_shapes(schema: dict, dtype: torch.dtype = torch.float32) -> dict:
+    """The params as meta tensors (shape and dtype, no storage): the
+    reference's ``ShapeDtypeStruct`` tree."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"),
+                    schema)
+
+
+def schema_pspecs(schema: dict, mesh, fsdp: bool = False) -> dict:
+    """Each leaf's ``spec_to_pspec`` on ``mesh``."""
+    return tree_map(lambda s: spec_to_pspec(s, mesh, fsdp), schema)
+
+
+def count_params(schema: dict) -> int:
+    return sum(math.prod(s.shape) for s in tree_leaves(schema))
 
 
 def _leaf_from_numpy(a, dev: torch.device) -> torch.Tensor:

@@ -33,13 +33,13 @@ import torch.nn.functional as F
 
 from ..devices import resolve_device
 from ..tree import tree_map
-from .common import (apply_rope, attention, make_attn_mask,
+from .common import (ParamSpec, apply_rope, attention, make_attn_mask,
                      next_token_nll, position_index, rms_norm, rope_inv_freq,
-                     stacked_shapes)
+                     stack_schema)
 from .linear_scan import chunked_linear_attention, linear_step
 from .transformer import attend
 
-__all__ = ["HymbaConfig", "hymba_shapes", "init_state", "forward",
+__all__ = ["HymbaConfig", "hymba_schema", "init_state", "forward",
            "decode_step", "lm_loss", "ring_key_positions"]
 
 
@@ -72,43 +72,42 @@ class HymbaConfig:
         return self.d_inner // self.head_dim
 
 
-def _layer_shapes(cfg: HymbaConfig) -> dict:
-    """``name -> (per-layer shape, init scale)`` (the reference's
-    ``_layer_schema``)."""
+def _layer_schema(cfg: HymbaConfig) -> dict:
+    """One layer's schema (the reference's ``_layer_schema``)."""
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     di, ns, hm = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     return {
-        "ln": ((d,), 0.0),
+        "ln": ParamSpec((d,), ("embed",), scale=0.0),
         # attention branch
-        "wq": ((d, h * hd), None),
-        "wk": ((d, hkv * hd), None),
-        "wv": ((d, hkv * hd), None),
-        "wo_attn": ((h * hd, d), None),
-        "ln_attn_out": ((d,), 0.0),
+        "wq": ParamSpec((d, h * hd), ("embed", "heads")),
+        "wk": ParamSpec((d, hkv * hd), ("embed", "kv_heads")),
+        "wv": ParamSpec((d, hkv * hd), ("embed", "kv_heads")),
+        "wo_attn": ParamSpec((h * hd, d), ("heads", "embed")),
+        "ln_attn_out": ParamSpec((d,), ("embed",), scale=0.0),
         # SSM branch
-        "w_in": ((d, 2 * di), None),  # u and the gate z
-        "conv": ((cfg.conv_width, di), 0.02),
-        "w_bc": ((di, 2 * ns), None),
-        "w_dt": ((di, hm), None),
-        "a_log": ((hm,), 0.02),
-        "d_skip": ((hm,), 0.02),
-        "wo_ssm": ((di, d), None),
-        "ln_ssm_out": ((d,), 0.0),
+        "w_in": ParamSpec((d, 2 * di), ("embed", "ff")),  # u and the gate z
+        "conv": ParamSpec((cfg.conv_width, di), (None, "ff"), scale=0.02),
+        "w_bc": ParamSpec((di, 2 * ns), ("ff", None)),
+        "w_dt": ParamSpec((di, hm), ("ff", "heads")),
+        "a_log": ParamSpec((hm,), ("heads",), scale=0.02),
+        "d_skip": ParamSpec((hm,), ("heads",), scale=0.02),
+        "wo_ssm": ParamSpec((di, d), ("ff", "embed")),
+        "ln_ssm_out": ParamSpec((d,), ("embed",), scale=0.0),
         # FFN
-        "ln_ffn": ((d,), 0.0),
-        "w_gate": ((d, cfg.d_ff), None),
-        "w_up": ((d, cfg.d_ff), None),
-        "w_down": ((cfg.d_ff, d), None),
+        "ln_ffn": ParamSpec((d,), ("embed",), scale=0.0),
+        "w_gate": ParamSpec((d, cfg.d_ff), ("embed", "ff")),
+        "w_up": ParamSpec((d, cfg.d_ff), ("embed", "ff")),
+        "w_down": ParamSpec((cfg.d_ff, d), ("ff", "embed")),
     }
 
 
-def hymba_shapes(cfg: HymbaConfig) -> dict:
-    """The params tree as ``(shape, init scale)`` leaves (the reference's
-    ``hymba_schema`` without its sharding axes)."""
+def hymba_schema(cfg: HymbaConfig) -> dict:
+    """The params' schema (the reference's ``hymba_schema``)."""
     return {
-        "embed": ((cfg.vocab, cfg.d_model), 0.02),
-        "ln_f": ((cfg.d_model,), 0.0),
-        "layers": stacked_shapes(_layer_shapes(cfg), cfg.layers),
+        "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                           scale=0.02),
+        "ln_f": ParamSpec((cfg.d_model,), ("embed",), scale=0.0),
+        "layers": stack_schema(_layer_schema(cfg), cfg.layers),
     }
 
 

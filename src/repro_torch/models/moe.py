@@ -28,7 +28,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["MoEConfig", "moe_shapes", "moe_ffn", "moe_ffn_plain", "route",
+from .common import ParamSpec
+
+__all__ = ["MoEConfig", "moe_schema", "moe_ffn", "moe_ffn_plain", "route",
            "Routing", "capacity", "dispatch_groups"]
 
 
@@ -45,20 +47,20 @@ class MoEConfig:
     dispatch_groups: int = 1
 
 
-def moe_shapes(cfg: MoEConfig) -> dict:
-    """``name -> (shape, init scale)`` of one MoE layer (the reference's
-    ``moe_schema``), scale None = fan-in; the shared experts nested under
-    ``"shared"``."""
+def moe_schema(cfg: MoEConfig) -> dict:
+    """One MoE layer's schema (the reference's ``moe_schema``): the router,
+    the routed experts' stacked FFN and, nested under ``"shared"``, the
+    shared experts'."""
     e, d, f = cfg.n_routed, cfg.d_model, cfg.d_ff_expert
-    s = {"router": ((d, e), None),
-         "w_gate": ((e, d, f), None),
-         "w_up": ((e, d, f), None),
-         "w_down": ((e, f, d), None)}
+    s = {"router": ParamSpec((d, e), ("embed", "experts")),
+         "w_gate": ParamSpec((e, d, f), ("experts", "embed", "ff")),
+         "w_up": ParamSpec((e, d, f), ("experts", "embed", "ff")),
+         "w_down": ParamSpec((e, f, d), ("experts", "ff", "embed"))}
     if cfg.n_shared:
         fs = f * cfg.n_shared
-        s["shared"] = {"w_gate": ((d, fs), None),
-                       "w_up": ((d, fs), None),
-                       "w_down": ((fs, d), None)}
+        s["shared"] = {"w_gate": ParamSpec((d, fs), ("embed", "ff")),
+                       "w_up": ParamSpec((d, fs), ("embed", "ff")),
+                       "w_down": ParamSpec((fs, d), ("ff", "embed"))}
     return s
 
 

@@ -22,11 +22,11 @@ import torch.nn.functional as F
 
 from ..devices import resolve_device
 from ..tree import tree_map
-from .common import (at_least_fp32, checkpointed, next_token_nll, rms_norm,
-                     stacked_shapes)
+from .common import (ParamSpec, at_least_fp32, checkpointed, next_token_nll,
+                     rms_norm, stack_schema)
 from .linear_scan import chunked_linear_attention, linear_step
 
-__all__ = ["RwkvConfig", "rwkv_shapes", "init_state", "forward", "decode_step",
+__all__ = ["RwkvConfig", "rwkv_schema", "init_state", "forward", "decode_step",
            "lm_loss"]
 
 
@@ -48,40 +48,43 @@ class RwkvConfig:
         return self.d_model // self.head_dim
 
 
-def _layer_shapes(cfg: RwkvConfig) -> dict:
-    """``name -> (per-layer shape, init scale)`` (the reference's
-    ``_layer_schema``)."""
+def _layer_schema(cfg: RwkvConfig) -> dict:
+    """One layer's schema (the reference's ``_layer_schema``)."""
     d, f, lora = cfg.d_model, cfg.d_ff, cfg.decay_lora
     h, hd = cfg.n_heads, cfg.head_dim
-    mix = ((d,), 0.02)
+
+    def mix():
+        return ParamSpec((d,), ("embed",), scale=0.02)
+
     return {
-        "ln_att": ((d,), 0.0),
-        "mix_r": mix, "mix_k": mix, "mix_v": mix, "mix_w": mix, "mix_g": mix,
-        "w0": ((d,), 0.02),
-        "w_lora_a": ((d, lora), None),
-        "w_lora_b": ((lora, d), 0.02),
-        "wr": ((d, d), None),
-        "wk": ((d, d), None),
-        "wv": ((d, d), None),
-        "wg": ((d, d), None),
-        "wo": ((d, d), None),
-        "u": ((h, hd), 0.02),
-        "ln_head": ((h, hd), 0.0),
-        "ln_ffn": ((d,), 0.0),
-        "mix_fk": mix, "mix_fr": mix,
-        "wk_ffn": ((d, f), None),
-        "wv_ffn": ((f, d), None),
-        "wr_ffn": ((d, d), None),
+        "ln_att": ParamSpec((d,), ("embed",), scale=0.0),
+        "mix_r": mix(), "mix_k": mix(), "mix_v": mix(),
+        "mix_w": mix(), "mix_g": mix(),
+        "w0": ParamSpec((d,), ("embed",), scale=0.02),
+        "w_lora_a": ParamSpec((d, lora), ("embed", None)),
+        "w_lora_b": ParamSpec((lora, d), (None, "embed"), scale=0.02),
+        "wr": ParamSpec((d, d), ("embed", "heads")),
+        "wk": ParamSpec((d, d), ("embed", "heads")),
+        "wv": ParamSpec((d, d), ("embed", "heads")),
+        "wg": ParamSpec((d, d), ("embed", "heads")),
+        "wo": ParamSpec((d, d), ("heads", "embed")),
+        "u": ParamSpec((h, hd), ("heads", None), scale=0.02),
+        "ln_head": ParamSpec((h, hd), ("heads", None), scale=0.0),
+        "ln_ffn": ParamSpec((d,), ("embed",), scale=0.0),
+        "mix_fk": mix(), "mix_fr": mix(),
+        "wk_ffn": ParamSpec((d, f), ("embed", "ff")),
+        "wv_ffn": ParamSpec((f, d), ("ff", "embed")),
+        "wr_ffn": ParamSpec((d, d), ("embed", "heads")),
     }
 
 
-def rwkv_shapes(cfg: RwkvConfig) -> dict:
-    """The params tree as ``(shape, init scale)`` leaves (the reference's
-    ``rwkv_schema`` without its sharding axes)."""
+def rwkv_schema(cfg: RwkvConfig) -> dict:
+    """The params' schema (the reference's ``rwkv_schema``)."""
     return {
-        "embed": ((cfg.vocab, cfg.d_model), 0.02),
-        "ln_f": ((cfg.d_model,), 0.0),
-        "layers": stacked_shapes(_layer_shapes(cfg), cfg.layers),
+        "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                           scale=0.02),
+        "ln_f": ParamSpec((cfg.d_model,), ("embed",), scale=0.0),
+        "layers": stack_schema(_layer_schema(cfg), cfg.layers),
     }
 
 

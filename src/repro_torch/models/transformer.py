@@ -49,12 +49,13 @@ from ..devices import resolve_device
 from ..kernels.flash_attn import HEAD_DIMS, flash_attention
 from ..tree import tree_leaves
 from ..tree import tree_map as map_params
-from .common import (NEG_INF, apply_rope, attention, checkpointed, draw_params,
+from .common import (NEG_INF, ParamSpec, apply_rope, attention, checkpointed,
                      make_attn_mask, next_token_nll, params_from_numpy, rms_norm,
-                     rope_inv_freq, softcap, stacked_shapes)
-from .moe import MoEConfig, moe_ffn, moe_shapes
+                     rope_inv_freq, schema_init, softcap, stack_schema)
+from .moe import MoEConfig, moe_ffn, moe_schema
 
-__all__ = ["LMConfig", "MLAConfig", "MoEConfig", "init_lm", "lm_params_from_numpy",
+__all__ = ["LMConfig", "MLAConfig", "MoEConfig", "lm_schema", "init_lm",
+           "lm_params_from_numpy",
            "map_params", "forward", "lm_loss", "init_cache", "decode_step",
            "prefill", "attend_route", "attend"]
 
@@ -146,54 +147,58 @@ def _stacks(cfg: LMConfig) -> list[tuple[str, str, int, bool, int]]:
 # ---------------------------------------------------------------------------
 
 
-def _layer_shapes(cfg: LMConfig, moe_layer: bool = False) -> dict:
-    """``name -> (per-layer shape, init scale)``, nested for the MoE FFN;
-    scale None = fan-in, 0.0 = zeros (the reference's ``_layer_schema``)."""
+def _layer_schema(cfg: LMConfig, moe_layer: bool = False) -> dict:
+    """One layer's schema (the reference's ``_layer_schema``), the MoE
+    FFN nested under ``"moe"``."""
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    s: dict = {"ln_attn": ((d,), 0.0)}
+    s: dict = {"ln_attn": ParamSpec((d,), ("embed",), scale=0.0)}
     if cfg.attn == "mla":
         m = cfg.mla
         qh = m.qk_nope_dim + m.qk_rope_dim
         if m.q_lora:
-            s["wq_a"] = ((d, m.q_lora), None)
-            s["q_ln"] = ((m.q_lora,), 0.0)
-            s["wq_b"] = ((m.q_lora, h * qh), None)
+            s["wq_a"] = ParamSpec((d, m.q_lora), ("embed", None))
+            s["q_ln"] = ParamSpec((m.q_lora,), (None,), scale=0.0)
+            s["wq_b"] = ParamSpec((m.q_lora, h * qh), (None, "heads"))
         else:
-            s["wq"] = ((d, h * qh), None)
-        s["wkv_a"] = ((d, m.kv_lora + m.qk_rope_dim), None)
-        s["kv_ln"] = ((m.kv_lora,), 0.0)
-        s["wkv_b"] = ((m.kv_lora, h * (m.qk_nope_dim + m.v_dim)), None)
-        s["wo"] = ((h * m.v_dim, d), None)
+            s["wq"] = ParamSpec((d, h * qh), ("embed", "heads"))
+        s["wkv_a"] = ParamSpec((d, m.kv_lora + m.qk_rope_dim), ("embed", None))
+        s["kv_ln"] = ParamSpec((m.kv_lora,), (None,), scale=0.0)
+        s["wkv_b"] = ParamSpec((m.kv_lora, h * (m.qk_nope_dim + m.v_dim)),
+                               (None, "heads"))
+        s["wo"] = ParamSpec((h * m.v_dim, d), ("heads", "embed"))
     else:
-        s["wq"] = ((d, h * hd), None)
-        s["wk"] = ((d, hkv * hd), None)
-        s["wv"] = ((d, hkv * hd), None)
-        s["wo"] = ((h * hd, d), None)
+        s["wq"] = ParamSpec((d, h * hd), ("embed", "heads"))
+        s["wk"] = ParamSpec((d, hkv * hd), ("embed", "kv_heads"))
+        s["wv"] = ParamSpec((d, hkv * hd), ("embed", "kv_heads"))
+        s["wo"] = ParamSpec((h * hd, d), ("heads", "embed"))
         if cfg.qk_norm:
-            s["q_ln"] = ((hd,), 0.0)
-            s["k_ln"] = ((hd,), 0.0)
-    s["ln_ffn"] = ((d,), 0.0)
+            s["q_ln"] = ParamSpec((hd,), (None,), scale=0.0)
+            s["k_ln"] = ParamSpec((hd,), (None,), scale=0.0)
+    s["ln_ffn"] = ParamSpec((d,), ("embed",), scale=0.0)
     if cfg.sandwich_norms:
-        s["ln_attn_post"] = ((d,), 0.0)
-        s["ln_ffn_post"] = ((d,), 0.0)
+        s["ln_attn_post"] = ParamSpec((d,), ("embed",), scale=0.0)
+        s["ln_ffn_post"] = ParamSpec((d,), ("embed",), scale=0.0)
     if moe_layer:
-        s["moe"] = moe_shapes(cfg.moe)
+        s["moe"] = moe_schema(cfg.moe)
     else:
-        s["w_gate"] = ((d, cfg.d_ff), None)
-        s["w_up"] = ((d, cfg.d_ff), None)
-        s["w_down"] = ((cfg.d_ff, d), None)
+        s["w_gate"] = ParamSpec((d, cfg.d_ff), ("embed", "ff"))
+        s["w_up"] = ParamSpec((d, cfg.d_ff), ("embed", "ff"))
+        s["w_down"] = ParamSpec((cfg.d_ff, d), ("ff", "embed"))
     return s
 
 
-def lm_shapes(cfg: LMConfig) -> dict:
-    """The params tree as ``(shape, init scale)`` leaves (the reference's
-    ``lm_schema`` without its sharding axes)."""
-    tree = {key: stacked_shapes(_layer_shapes(cfg, moe_layer), n)
+def lm_schema(cfg: LMConfig) -> dict:
+    """The params' schema (the reference's ``lm_schema``): the stacked
+    ``dense_layers`` and ``moe_layers``, the embedding, the final norm
+    and, untied, the head."""
+    tree = {key: stack_schema(_layer_schema(cfg, moe_layer), n)
             for key, _, n, moe_layer, _ in _stacks(cfg)}
-    tree["embed"] = ((cfg.vocab, cfg.d_model), 0.02)
-    tree["ln_f"] = ((cfg.d_model,), 0.0)
+    tree["embed"] = ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                              scale=0.02)
+    tree["ln_f"] = ParamSpec((cfg.d_model,), ("embed",), scale=0.0)
     if not cfg.tie_embeddings:
-        tree["lm_head"] = ((cfg.d_model, cfg.vocab), 0.02)
+        tree["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab),
+                                    ("embed", "vocab"), scale=0.02)
     return tree
 
 
@@ -201,10 +206,10 @@ def init_lm(cfg: LMConfig, generator: torch.Generator,
             device: str | torch.device = "cuda",
             dtype: torch.dtype = torch.float32) -> dict:
     """Random params in the reference's schema (stacked ``dense_layers``
-    and ``moe_layers``): ``draw_params`` of ``lm_shapes`` — fan-in-scaled
+    and ``moe_layers``): ``schema_init`` of ``lm_schema`` — fan-in-scaled
     normals, 0.02 for the embedding (and untied head), zeros for the norm
     gains, drawn leaf by leaf on the generator's device."""
-    return draw_params(lm_shapes(cfg), generator, device, dtype)
+    return schema_init(lm_schema(cfg), generator, device, dtype)
 
 
 # the reference's params (any family) carried across as numpy

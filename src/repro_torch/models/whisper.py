@@ -25,11 +25,11 @@ import torch.nn.functional as F
 
 from ..devices import resolve_device
 from ..tree import tree_map
-from .common import (attention, checkpointed, make_attn_mask, next_token_nll,
-                     position_index, rms_norm, stacked_shapes)
+from .common import (ParamSpec, attention, checkpointed, make_attn_mask,
+                     next_token_nll, position_index, rms_norm, stack_schema)
 from .transformer import attend
 
-__all__ = ["WhisperConfig", "whisper_shapes", "encode", "decode", "forward",
+__all__ = ["WhisperConfig", "whisper_schema", "encode", "decode", "forward",
            "init_cache", "precompute_cross_kv", "decode_step", "lm_loss"]
 
 
@@ -53,36 +53,39 @@ class WhisperConfig:
         return self.d_model // self.n_heads
 
 
-def _attn_shapes(d: int) -> dict:
-    return {"wq": ((d, d), None), "wk": ((d, d), None), "wv": ((d, d), None),
-            "wo": ((d, d), None)}
+def _attn_schema(d: int, axes=("embed", "heads")) -> dict:
+    return {"wq": ParamSpec((d, d), axes), "wk": ParamSpec((d, d), axes),
+            "wv": ParamSpec((d, d), axes),
+            "wo": ParamSpec((d, d), (axes[1], axes[0]))}
 
 
-def _enc_layer_shapes(cfg: WhisperConfig) -> dict:
+def _enc_layer_schema(cfg: WhisperConfig) -> dict:
     d = cfg.d_model
-    return {"ln1": ((d,), 0.0), "self": _attn_shapes(d), "ln2": ((d,), 0.0),
-            "w_up": ((d, cfg.d_ff), None), "w_down": ((cfg.d_ff, d), None)}
+    return {"ln1": ParamSpec((d,), ("embed",), scale=0.0),
+            "self": _attn_schema(d),
+            "ln2": ParamSpec((d,), ("embed",), scale=0.0),
+            "w_up": ParamSpec((d, cfg.d_ff), ("embed", "ff")),
+            "w_down": ParamSpec((cfg.d_ff, d), ("ff", "embed"))}
 
 
-def _dec_layer_shapes(cfg: WhisperConfig) -> dict:
-    s = _enc_layer_shapes(cfg)
-    s["ln_cross"] = ((cfg.d_model,), 0.0)
-    s["cross"] = _attn_shapes(cfg.d_model)
+def _dec_layer_schema(cfg: WhisperConfig) -> dict:
+    s = _enc_layer_schema(cfg)
+    s["ln_cross"] = ParamSpec((cfg.d_model,), ("embed",), scale=0.0)
+    s["cross"] = _attn_schema(cfg.d_model)
     return s
 
 
-def whisper_shapes(cfg: WhisperConfig) -> dict:
-    """The params tree as ``(shape, init scale)`` leaves (the reference's
-    ``whisper_schema`` without its sharding axes)."""
+def whisper_schema(cfg: WhisperConfig) -> dict:
+    """The params' schema (the reference's ``whisper_schema``)."""
     d = cfg.d_model
     return {
-        "embed": ((cfg.vocab, d), 0.02),
-        "pos_dec": ((cfg.max_dec_len, d), 0.01),
-        "pos_enc": ((cfg.enc_len, d), 0.01),
-        "enc_layers": stacked_shapes(_enc_layer_shapes(cfg), cfg.enc_layers),
-        "dec_layers": stacked_shapes(_dec_layer_shapes(cfg), cfg.dec_layers),
-        "ln_enc": ((d,), 0.0),
-        "ln_dec": ((d,), 0.0),
+        "embed": ParamSpec((cfg.vocab, d), ("vocab", "embed"), scale=0.02),
+        "pos_dec": ParamSpec((cfg.max_dec_len, d), (None, "embed"), scale=0.01),
+        "pos_enc": ParamSpec((cfg.enc_len, d), (None, "embed"), scale=0.01),
+        "enc_layers": stack_schema(_enc_layer_schema(cfg), cfg.enc_layers),
+        "dec_layers": stack_schema(_dec_layer_schema(cfg), cfg.dec_layers),
+        "ln_enc": ParamSpec((d,), ("embed",), scale=0.0),
+        "ln_dec": ParamSpec((d,), ("embed",), scale=0.0),
     }
 
 

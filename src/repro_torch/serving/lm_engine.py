@@ -38,8 +38,10 @@ rounds and a CNN pipeline's ConvL rounds run on the same worker pool.
 
 On a CUDA device a decode step replays CUDA graphs (``core/graphs.py``):
 the glue between rounds from the pipeline, each worker's GEMM round from
-the device pool.  ``warmup()`` captures them all on the stream the engine
-serves on, one zero step a bucket, before ``start()``.  The slot caches
+the device pool; and an admission's prefill replays the pipeline's
+prefill graph of its bucket (the reference's jitted prefill).
+``warmup()`` captures them all on the stream the engine serves on, one
+zero prefill and one zero step a bucket, before ``start()``.  The slot caches
 are the pipeline's own (``slot_cache``), claimed by one server at a time
 (``warmup`` and ``start`` claim, ``shutdown`` releases) and zeroed in
 place when the engine starts and after a failed step, so the captured
@@ -181,6 +183,9 @@ class CodedLMServer:
         self.decode_steps = 0
         self.decode_time_s = 0.0
         self.prefill_time_s = 0.0
+        # seconds warmup() spent prefilling: per bucket a warm-up run, the
+        # capture and its first replay (eager: one run)
+        self.prefill_warmup_s = 0.0  # guarded-by: control-thread
         self.requests_served = 0
         # sums over the cluster's GEMM rounds: master encode, time to the
         # delta-th worker result, decode (seconds)  # guarded-by: engine-thread
@@ -244,10 +249,11 @@ class CodedLMServer:
         return self.tokens_generated / busy if busy > 0 else 0.0
 
     def warmup(self) -> None:
-        """One decode step of zero tokens per bucket through the serving
-        path, before ``start()``: builds and loads the kernels and, with
-        CUDA graphs, captures every glue program's graph (and every worker
-        round's, where the pipeline asks for worker graphs) on the
+        """One prefill of zero prompts of the server's width and one decode
+        step of zero tokens per bucket through the serving path, before
+        ``start()``: builds and loads the kernels and, with CUDA graphs,
+        captures the prefill's and every glue program's graph (and every
+        worker round's, where the pipeline asks for worker graphs) on the
         engine's stream, outside the served timings.  Claims the slot
         caches, and zeroes them again afterwards."""
         if self._thread is not None:
@@ -255,6 +261,12 @@ class CodedLMServer:
         pipe = self.pipeline
         pipe.claim_slot_cache(self)
         with self._master_ctx():
+            t0 = time.perf_counter()
+            for b in pipe.bucket_sizes:
+                pipe.prefill_prompt(np.zeros((b, self.max_prompt), np.int32))
+            if pipe.device.type == "cuda":
+                torch.cuda.current_stream(pipe.device).synchronize()
+            self.prefill_warmup_s += time.perf_counter() - t0
             for b in pipe.bucket_sizes:
                 tokens = torch.zeros(b, dtype=torch.int32, device=pipe.device)
                 pos = torch.zeros(b, dtype=torch.int32, device=pipe.device)
@@ -399,7 +411,10 @@ class CodedLMServer:
         ONE batched prefill serves the whole (bucket-padded) group; per-row
         first tokens come from each row's own last prompt position.  Rows
         are seated at ``[row0, row0 + real)`` — contiguous by the prefix
-        invariant — so the K/V copy is one slice write per cache leaf."""
+        invariant — so the K/V copy is one slice write per cache leaf.
+        The prefill's ks/vs are its scratch cache, which the next
+        admission's prefill overwrites: they are copied into the slots
+        here, and only gathered logits rows (copies) leave the call."""
         pipe = self.pipeline
         rows = batch.x.numpy()
         real = batch.real

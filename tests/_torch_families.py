@@ -59,12 +59,13 @@ def schema_shapes(schema) -> dict:
                 schema, is_leaf=lambda x: isinstance(x, ParamSpec))[0]}
 
 
-def port_shapes(shapes) -> dict:
-    return {path: shape for path, (shape, _) in tree_items(shapes)}
+def port_shapes(schema) -> dict:
+    """``{key path: shape}`` of a port schema."""
+    return {path: spec.shape for path, spec in tree_items(schema)}
 
 
-def port_scales(shapes) -> dict:
-    return {path: scale for path, (_, scale) in tree_items(shapes)}
+def port_scales(schema) -> dict:
+    return {path: spec.scale for path, spec in tree_items(schema)}
 
 
 def schema_scales(schema) -> dict:

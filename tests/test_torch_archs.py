@@ -304,9 +304,9 @@ def _old_init_lm(cfg, generator):
         std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
         return torch.randn(shape, generator=generator) * std
 
-    layer = lm._layer_shapes(cfg)
-    tree = {"dense_layers": {name: leaf((cfg.layers,) + shape, scale)
-                             for name, (shape, scale) in sorted(layer.items())},
+    layer = lm._layer_schema(cfg)
+    tree = {"dense_layers": {name: leaf((cfg.layers,) + spec.shape, spec.scale)
+                             for name, spec in sorted(layer.items())},
             "embed": leaf((cfg.vocab, cfg.d_model), 0.02),
             "ln_f": leaf((cfg.d_model,), 0.0)}
     if not cfg.tie_embeddings:
@@ -347,14 +347,14 @@ def test_init_lm_draws_per_leaf_on_the_generator_device(monkeypatch):
     monkeypatch.setattr(torch, "randn", randn)
     gen = torch.Generator().manual_seed(0)
     params = lm.init_lm(cfg, gen, "cpu")
-    random_leaves = [(path, shape) for path, (shape, scale)
-                     in tree_items(lm.lm_shapes(cfg)) if scale != 0.0]
+    random_leaves = [(path, spec.shape) for path, spec
+                     in tree_items(lm.lm_schema(cfg)) if spec.scale != 0.0]
     assert [d[0] for d in draws] == [s for _, s in random_leaves]
     assert all(d[1] == gen.device for d in draws)
     assert draws[-1][2] == "moved"
     assert tuple(params["moe_layers"]["moe"]["shared"]["w_up"].shape) == (2, 64, 64)
     assert [p for p, _ in tree_items(params)] == [p for p, _ in
-                                                  tree_items(lm.lm_shapes(cfg))]
+                                                  tree_items(lm.lm_schema(cfg))]
 
 
 def test_lm_shapes_follow_reference_schema():
@@ -366,8 +366,8 @@ def test_lm_shapes_follow_reference_schema():
                     jax.tree_util.tree_flatten_with_path(
                         ref_get_bundle(arch, smoke=smoke).schema,
                         is_leaf=lambda x: isinstance(x, ParamSpec))[0]}
-            got = {path: shape for path, (shape, _) in
-                   tree_items(lm.lm_shapes(get_bundle(arch, smoke=smoke).cfg))}
+            got = {path: spec.shape for path, spec in
+                   tree_items(lm.lm_schema(get_bundle(arch, smoke=smoke).cfg))}
             assert got == want, (arch, smoke)
 
 
@@ -486,18 +486,18 @@ def test_coded_decoder_refuses_the_other_families(arch):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_bundle_init_draws_its_own_shapes(arch):
-    """``ModelBundle.init`` draws the bundle's own shapes tree: every leaf
-    of the tree at its shape, the zero-scale leaves zeros; a transformer
+    """``ModelBundle.init`` draws the bundle's own schema: every leaf of
+    the tree at its shape, the zero-scale leaves zeros; a transformer
     bundle's draws are ``init_lm``'s value for value."""
     bundle = get_bundle(arch, smoke=True)
     params = bundle.init(torch.Generator().manual_seed(3), device="cpu")
-    shapes = dict(tree_items(bundle.shapes))
+    specs = dict(tree_items(bundle.schema))
     got = dict(tree_items(params))
-    assert sorted(got) == sorted(shapes)
+    assert sorted(got) == sorted(specs)
     for path, leaf in got.items():
-        shape, scale = shapes[path]
-        assert tuple(leaf.shape) == shape and leaf.dtype == torch.float32, path
-        assert bool(leaf.any()) == (scale != 0.0), path
+        spec = specs[path]
+        assert tuple(leaf.shape) == spec.shape and leaf.dtype == torch.float32, path
+        assert bool(leaf.any()) == (spec.scale != 0.0), path
     if bundle.family in ("lm", "vlm"):
         want = dict(tree_items(lm.init_lm(bundle.cfg, torch.Generator().manual_seed(3),
                                           "cpu")))

@@ -945,8 +945,9 @@ def test_cuda_capture_counts_bounded_under_batches_and_subsets(cuda):
 def test_cuda_lm_smoke_replayed_equals_eager(cuda):
     """SmolLM smoke on the device pool (worker 2 straggling, worker 3
     dead), glue and worker rounds replayed, against the same requests
-    served with ``graphs=False``: tokens and logits rows ``torch.equal``;
-    warmup captured every graph, serving none; captures within bounds."""
+    served with ``graphs=False``: tokens and logits rows ``torch.equal``
+    (the prefill's rows among them); warmup captured every graph, the
+    prefill's one a bucket, serving none; captures within bounds."""
     from repro_torch.core.decoder_pipeline import build_lm_decoder_pipeline
     from repro_torch.runtime import StragglerModel
     from repro_torch.serving import CodedLMServer
@@ -983,6 +984,9 @@ def test_cuda_lm_smoke_replayed_equals_eager(cuda):
             assert pipe.master_graphs.num_graphs == warm <= pipe.glue_graph_bound
             assert 0 < max(counts) <= pipe.worker_graph_bound
             assert pipe.master_graphs.replays["glue.attn"] > 0
+            # the prompt prefill: one graph a bucket, all of them warmup's
+            assert pipe.master_graphs.captures["prefill"] == 3
+            assert pipe.master_graphs.replays["prefill"] > 3
     assert runs[True][0] == runs[False][0]
     for r, e in zip(runs[True][1], runs[False][1]):
         assert torch.equal(r, e)
@@ -1073,12 +1077,12 @@ def test_cuda_moe_gather_matches_plain_at_deepseek_v2_widths(cuda):
     cfg = deepseek_v2_236b.full().moe
     gen = torch.Generator(device=cuda).manual_seed(0)
 
-    def draw(shapes):
+    def draw(schema):
         return {k: draw(v) if isinstance(v, dict) else
-                torch.randn(v[0], generator=gen, device=cuda).mul_(v[0][-2] ** -0.5)
-                for k, v in shapes.items()}
+                torch.randn(v.shape, generator=gen, device=cuda).mul_(v.shape[-2] ** -0.5)
+                for k, v in schema.items()}
 
-    w = draw(moe.moe_shapes(cfg))
+    w = draw(moe.moe_schema(cfg))
     x = torch.randn(64, cfg.d_model, generator=gen, device=cuda)
     with torch.no_grad():
         got = moe.moe_ffn(w, x, cfg)
@@ -1152,7 +1156,8 @@ def test_cuda_init_lm_draws_on_the_card(cuda):
         assert leaf.device.type == "cuda" and torch.equal(leaf, other), path
         total += leaf.numel() * 4
         biggest = max(biggest, leaf.numel() * 4)
-    for path, (shape, scale) in tree_items(lm.lm_shapes(cfg)):
+    for path, spec in tree_items(lm.lm_schema(cfg)):
+        shape, scale = spec.shape, spec.scale
         if scale == 0.0:
             continue
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]

@@ -29,7 +29,8 @@ from repro_torch.analysis import contracts
 from repro_torch.configs import smollm_135m
 from repro_torch.core.decoder_pipeline import build_lm_decoder_pipeline
 from repro_torch.core.graphs import (GraphCaptureError, GraphSet,
-                                     ResidentMoved, graph_class, merge_stats)
+                                     ResidentMoved, graph_class, merge_stats,
+                                     no_collection)
 from repro_torch.core.pipeline import Program, build_cnn_pipeline
 from repro_torch.kernels.native import LaunchCounter
 from repro_torch.models import transformer as lm
@@ -151,6 +152,59 @@ def test_capture_failure_raises_and_never_falls_back():
             prog(torch.ones(3))
     assert gs.num_graphs == 0 and gs.replays == {}
     assert torch.equal(prog.eager(torch.ones(3)), torch.full((3,), 3.0))
+
+
+class _CollectorSpy(EmulatedGraph):
+    """The emulator, noting whether the cyclic collector is on at the
+    capture's begin and end."""
+
+    seen: list = []
+
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        type(self).seen.append(gc.isenabled())
+        super().capture_begin(pool, capture_error_mode)
+
+    def capture_end(self):
+        type(self).seen.append(gc.isenabled())
+        super().capture_end()
+
+
+def test_no_garbage_collection_inside_a_capture():
+    """A collection inside a capture would reset unreachable CUDA graphs
+    on the capturing thread and invalidate the capture: the collector is
+    off from the capture's begin to its end, and back on after; holds
+    from two threads nest, and a collector already off stays off."""
+    assert gc.isenabled()
+    _CollectorSpy.seen = []
+    gs = GraphSet("t", CPU, _CollectorSpy)
+    Program(lambda x: x + 1, name="p", graphs=gs)(torch.zeros(2))
+    assert _CollectorSpy.seen == [False, False] and gc.isenabled()
+
+    inside, release = threading.Event(), threading.Event()
+
+    def hold():
+        with no_collection():
+            inside.set()
+            release.wait(10)
+
+    t = threading.Thread(target=hold)
+    t.start()
+    try:
+        assert inside.wait(10)
+        with no_collection():
+            assert not gc.isenabled()
+        assert not gc.isenabled()  # the other thread still holds it off
+    finally:
+        release.set()
+        t.join(10)
+    assert not t.is_alive() and gc.isenabled()
+    gc.disable()
+    try:
+        with no_collection():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
 
 
 def test_held_launches_count_once_per_replay():

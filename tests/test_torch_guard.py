@@ -60,6 +60,13 @@ def test_package_imports_without_jax():
         "import repro_torch.models.hymba, repro_torch.models.whisper\n"
         "import repro_torch.configs.rwkv6_1p6b, repro_torch.configs.hymba_1p5b\n"
         "import repro_torch.configs.whisper_medium\n"
+        "import repro_torch.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.configs.shapes, repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.coded_cnn_inference\n"
+        "import repro_torch.examples.coded_serving\n"
+        "import repro_torch.examples.coded_lm_layer\n"
+        "import repro_torch.examples.serve_decode\n"
+        "import repro_torch.examples.train_smollm\n"
         "assert 'jax' not in {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
         "print('ok')\n"
     )

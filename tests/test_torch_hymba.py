@@ -71,15 +71,15 @@ def test_config_and_shapes_are_the_references():
             rb.name, rb.family, rb.sub_quadratic, rb.has_decoder) == (
             pb.name, "hybrid", True, True)
         assert pb.prefill_cache_fn is None and rb.prefill_cache_fn is None
-        assert port_shapes(pb.shapes) == schema_shapes(rb.schema)
-        assert port_scales(pb.shapes) == schema_scales(rb.schema)
+        assert port_shapes(pb.schema) == schema_shapes(rb.schema)
+        assert port_scales(pb.schema) == schema_scales(rb.schema)
         assert pb.cfg.ssm_heads == rb.cfg.ssm_heads
     # several SSM heads at the smoke size, where jnp.repeat and a tiling differ
     assert get_bundle(ARCH, smoke=True).cfg.ssm_heads == 128 // 16 == 8
     full = get_bundle(ARCH).cfg
     assert (full.layers, full.d_model, full.n_heads, full.n_kv_heads, full.head_dim,
             full.ssm_heads, full.window) == (32, 1600, 25, 5, 64, 50, 1024)
-    n = sum(int(np.prod(s)) for s in port_shapes(get_bundle(ARCH).shapes).values())
+    n = sum(int(np.prod(s)) for s in port_shapes(get_bundle(ARCH).schema).values())
     assert n == count_params(ref_get_bundle(ARCH).schema)
 
 
@@ -231,7 +231,7 @@ def test_bundle_functions_match_reference(setup):
           LOSS_REL)
     one = with_layers(pb, 1)
     assert one.family == "hybrid" and one.cfg.layers == 1
-    assert port_shapes(one.shapes)[("layers", "wq")] == (1, 64, 64)
+    assert port_shapes(one.schema)[("layers", "wq")] == (1, 64, 64)
     with pytest.raises(ValueError, match="has 2 layers"):
         with_layers(pb, 3)
 

@@ -43,12 +43,12 @@ def _weights(cfg: moe.MoEConfig, seed: int, tie: bool = False) -> dict:
     half of columns into its second half (tied experts, distinct FFNs)."""
     rng = np.random.default_rng(seed)
 
-    def draw(shapes):
+    def draw(schema):
         return {k: draw(v) if isinstance(v, dict) else
-                (rng.standard_normal(v[0]) / np.sqrt(v[0][-2])).astype(np.float32)
-                for k, v in shapes.items()}
+                (rng.standard_normal(v.shape) / np.sqrt(v.shape[-2])).astype(np.float32)
+                for k, v in schema.items()}
 
-    w = draw(moe.moe_shapes(cfg))
+    w = draw(moe.moe_schema(cfg))
     if tie:
         half = cfg.n_routed // 2
         w["router"][:, half:2 * half] = w["router"][:, :half]

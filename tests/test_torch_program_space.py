@@ -19,7 +19,11 @@ What the port changes on purpose, listed here and nowhere else:
 - the LM worker's coded weights: the reference's ``(..., ell_b, d_in,
   ob)`` blocks are the port's ``(..., d_in, ell_b * ob)`` (the blocks side
   by side, one K2 launch for all of them);
-- dtypes: none — token ids and positions are int32 on both sides.
+- dtypes: none — token ids and positions are int32 on both sides;
+- the LM decoder's ``prefill`` cells, one a bucket, are the port's own:
+  the reference jits its prompt-group prefill outside its program space,
+  the port captures it as a program of the master's graphs, so the gate
+  checks it with the rest.
 
 The glue programs take their weights as arguments on both sides; each is
 held within 1e-6 relative of the reference's on the same numpy inputs
@@ -148,7 +152,15 @@ def test_cnn_cells_equal_reference(cnn_pairs, arch, backend, fused):
 
 @pytest.mark.parametrize("kind,backend", LM_CASES)
 def test_decoder_cells_equal_reference(lm_pairs, kind, backend):
-    _, cells, _, ref_cells = lm_pairs[(kind, backend)]
+    port, cells, _, ref_cells = lm_pairs[(kind, backend)]
+    prefill = [c for c in cells if c.kind == "prefill"]
+    cells = [c for c in cells if c.kind != "prefill"]
+    assert [c.bucket for c in prefill] == list(port.bucket_sizes)
+    for c in prefill:
+        assert c.fn is port.prefill_program() and not c.eager_only
+        assert _port_args(c)[:3] == [((c.bucket, port.max_len // 2), "int32")] + [
+            ((port.cfg.layers, c.bucket, port.max_len, port.cfg.n_kv_heads,
+              port.cfg.head_dim), "float32")] * 2
     assert len(cells) == len(ref_cells)
     for c, r in zip(cells, ref_cells):
         assert _fields(c) == _fields(r)

@@ -55,12 +55,12 @@ def test_config_and_shapes_are_the_references():
             rb.name, rb.family, rb.sub_quadratic, rb.has_decoder) == (
             pb.name, "ssm", True, True)
         assert pb.prefill_cache_fn is None and rb.prefill_cache_fn is None
-        assert port_shapes(pb.shapes) == schema_shapes(rb.schema)
-        assert port_scales(pb.shapes) == schema_scales(rb.schema)
+        assert port_shapes(pb.schema) == schema_shapes(rb.schema)
+        assert port_scales(pb.schema) == schema_scales(rb.schema)
     full = get_bundle(ARCH).cfg
     assert (full.layers, full.d_model, full.n_heads, full.d_ff, full.vocab) == (
         24, 2048, 32, 7168, 65536)
-    n = sum(int(np.prod(s)) for s in port_shapes(get_bundle(ARCH).shapes).values())
+    n = sum(int(np.prod(s)) for s in port_shapes(get_bundle(ARCH).schema).values())
     assert n == count_params(ref_get_bundle(ARCH).schema) == 1_449_723_904
 
 

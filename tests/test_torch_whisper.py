@@ -58,12 +58,12 @@ def test_config_and_shapes_are_the_references():
             rb.name, rb.family, rb.sub_quadratic, rb.has_decoder) == (
             pb.name, "encdec", False, True)
         assert pb.prefill_cache_fn is None and rb.prefill_cache_fn is None
-        assert port_shapes(pb.shapes) == schema_shapes(rb.schema)
-        assert port_scales(pb.shapes) == schema_scales(rb.schema)
+        assert port_shapes(pb.schema) == schema_shapes(rb.schema)
+        assert port_scales(pb.schema) == schema_scales(rb.schema)
     full = get_bundle(ARCH).cfg
     assert (full.enc_layers, full.dec_layers, full.d_model, full.head_dim,
             full.enc_len, full.vocab) == (24, 24, 1024, 64, 1500, 51865)
-    n = sum(int(np.prod(s)) for s in port_shapes(get_bundle(ARCH).shapes).values())
+    n = sum(int(np.prod(s)) for s in port_shapes(get_bundle(ARCH).schema).values())
     assert n == count_params(ref_get_bundle(ARCH).schema)
 
 
@@ -178,7 +178,7 @@ def test_bundle_functions_match_reference(setup):
         close(lg.numpy(), lr, REL)
     cut = with_layers(pb, 1)
     assert (cut.family, cut.cfg.enc_layers, cut.cfg.dec_layers) == ("encdec", 1, 1)
-    assert port_shapes(cut.shapes)[("enc_layers", "w_up")] == (1, 64, 128)
+    assert port_shapes(cut.schema)[("enc_layers", "w_up")] == (1, 64, 128)
     with pytest.raises(ValueError, match="encoder has 2 layers"):
         with_layers(pb, 3)
 
