@@ -125,7 +125,30 @@ Phases, in order; any failure raises:
     ``count_params`` of all ten arch ids at full config (DeepSeek-V3
     included) and the leaves that shard over ``model`` on (16, 16) and
     over the data axes with FSDP on (2, 16, 16);
-13. the arch zoo, after the earlier phases' servers, graphs and weights
+13. the process mesh (``repro_torch.launch.mesh``): ranks spawned on
+    this one card by ``run_ranks`` (``torch.multiprocessing``'s spawn, a
+    ``FileStore`` rendezvous, gloo: NCCL refuses two ranks a device),
+    the kernels built here first so each rank only loads them, each rank
+    joined with a timeout and any failing or hung rank failing the
+    script.  (a) VGG-16 at 224, batch 8, its 13 ConvLs each through
+    ``CodedConv2d.run_sharded`` on 4 ranks (n=4, (k_a, k_b) = (2, 4),
+    delta 2; ReLU and pool between as ``models/cnn.py``), for survivors
+    [3, 1] and [0, 2]: the final features within 1e-4 of max|uncoded| of
+    the uncoded stack, every rank's ``torch.equal`` to rank 0's, K1
+    launched 13 times a pass on every rank; ms a layer of the worker
+    (encode + K1), the all-gather and the decode.  (b) SmolLM-135M at
+    full width and depth trained through ``train(mesh=...)`` on 2 ranks,
+    5 steps of 8 x 256 tokens, eagerly: FSDP over (data 2, model 1), each
+    loss within 1e-5 of the one-process ``train``'s, the params after
+    step 5 within 1e-4 of each leaf's max of the one-process step with
+    ``microbatches=2`` (the gap to the full batch printed), the last
+    checkpoint restored in this process ``torch.equal`` to the ranks'
+    gathered params; then int8 compression over (pod 2, data 1, model 1),
+    losses finite and falling; ms a step, collective ms a step, peak
+    memory a rank.  (c) ``serve_lm(mesh=...)`` on 2 ranks, batch 4: the
+    tokens equal to the one-process ``serve_lm``'s, K4 launched on every
+    rank;
+14. the arch zoo, after the earlier phases' servers, graphs and weights
     are released, one arch at a time: each drawn on the card from a seeded
     CUDA generator (fp32, TF32 off) at full width, through ``serve_lm``
     (the serve CLI's LM entry point; 4 prompts of 16 tokens, 16 new
@@ -171,15 +194,15 @@ Phases, in order; any failure raises:
     Each arch's drawn params held against its schema with no new
     allocation: ``count_params`` equal to their numel, ``param_shapes``
     equal to their shapes and dtypes leaf for leaf;
-14. one JSON line with the training numbers (ms a step and tokens/s, the
+15. one JSON line with the training numbers (ms a step and tokens/s, the
     median over steps 5-30, captured and eager, peak device memory, the
     model FLOPs a step and their share of the fp32 peak, the card's name
     and power limit),
     one JSON line with the arch zoo's readings, one JSON line with the
     compiled programs' counts by phase (the zoo's ``serve_lm`` graphs
     and the coded LM prefill's among them), one JSON line with the
-    examples' and the specs' readings, one JSON
-    line with the kernels' numbers (K1-K4; K2's top-level numbers
+    examples' and the specs' readings, one JSON line with the process
+    mesh's readings, one JSON line with the kernels' numbers (K1-K4; K2's top-level numbers
     are its CNN pass, its LM numbers sit under ``paths.lm``; each kernel's
     ``launches`` is its count on the phase-5 or phase-7 main path, and
     ``launches_by_path`` its count in every phase that ran it, training's
@@ -2746,6 +2769,466 @@ def specs_phase() -> dict:
     return out
 
 
+# -- the process mesh: SPMD over torch.distributed ----------------------------
+
+# (a) VGG-16 at 224, batch DIST_BATCH, every ConvL through run_sharded on
+# DIST_RANKS ranks of one card (plan n = 4, (k_a, k_b) = (2, 4), delta 2),
+# once a survivor subset.  Against the uncoded stack, relative to
+# max|uncoded|: the same 13 layers of fp32 sums and CRME decodes as the
+# served VGG-16, held to the served tolerance (TOL_SERVE).
+DIST_RANKS, DIST_PLAN, DIST_SURVIVORS, DIST_BATCH = 4, (4, 2, 4), ([3, 1], [0, 2]), 8
+# (b) SmolLM-135M data-parallel on 2 ranks, DIST_TRAIN_STEPS of
+# TRAIN_BATCH x TRAIN_SEQ tokens at lr DIST_LR, eagerly: two half-batch
+# gradients averaged against one full-batch gradient (fp32 sums in
+# another order): the losses within 1e-5 relative of the one-process
+# train, and each step's gradient norm too (a wrong averaging factor
+# shows there; Adam's step does not see a uniform scale).  The params are
+# held against the one-process step with microbatches=2, which sums the
+# two halves' gradients as the ranks do (halving is exact in fp32),
+# within 1e-4 of each leaf's max|p|: what is left is the collectives' own
+# error.  Against the full-batch run the reduction order differs, and
+# Adam's normalised update lets an element whose gradients nearly cancel
+# move by up to about lr a step either way on a rounding difference; so
+# besides 1e-4 of max|p| an element may differ by twice the summed
+# learning rates (the bound of tests/test_torch_distributed.py's int8
+# runs), at most DIST_FLIP_FRACTION of a leaf's elements.
+# The int8 run over (pod 2, data 1) is held finite and falling: its
+# quantised gradient may round one step (1/127 of a leaf's absmax)
+# otherwise at a reduction-order difference, so no one-process run is
+# its bitwise twin.
+DIST_TRAIN_STEPS, DIST_LR, TOL_DIST_LOSS, TOL_DIST_PARAM = 5, 3e-4, 1e-5, 1e-4
+TOL_DIST_NORM, DIST_FLIP_FRACTION = 1e-5, 0.01
+# (c) serve_lm data-parallel on 2 ranks (data 2): the tokens equal
+DIST_SERVE = {"batch": 4, "prompt_len": 16, "gen": 16}
+DIST_TIMEOUT_S = 600
+
+
+def _no_tf32() -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def dist_vgg16_rank(rank: int, device: str, smoke: bool) -> dict:
+    """Rank ``rank`` of ``DIST_RANKS``: VGG-16's 13 ConvLs through
+    ``CodedConv2d.run_sharded`` on the ``workers`` axis, ReLU and pool
+    between as ``models/cnn.py`` runs them, once for each survivor subset;
+    the final features, K1's launches in each pass and the seconds of each
+    layer's worker, all-gather and decode.  ``smoke``: VGG-16 at its
+    smoke size, batch 2 (a CPU rehearsal)."""
+    from repro_torch.core.fcdcc import CodedConv2d, FcdccPlan
+    from repro_torch.core.pipeline import relu_pool
+    from repro_torch.kernels.conv2d.kernel import launches as k1_launches
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models.cnn import CNN_SPECS, init_cnn, layer_geometry
+
+    _no_tf32()
+    mesh = make_process_mesh((DIST_RANKS,), ("workers",), device=device)
+    n, k_a, k_b = DIST_PLAN
+    plan = FcdccPlan(n=n, k_a=k_a, k_b=k_b)
+    params = init_cnn(ARCH, torch.Generator().manual_seed(SEED), mesh.device)
+    x = torch.from_numpy(_dist_input(smoke)).to(mesh.device)
+    out = {"backend": mesh.backend, "device": str(mesh.device), "passes": []}
+    for ids in DIST_SURVIVORS:
+        k1_launches.reset()
+        t0 = time.perf_counter()
+        h, layers = x, []
+        for layer in CNN_SPECS[ARCH][1]:
+            coded = CodedConv2d(plan, layer_geometry(layer, h.shape[-1], k_a, k_b))
+            t = {"layer": layer.name}
+            y = coded.run_sharded(mesh, "workers", h, params[layer.name],
+                                  worker_ids=ids, timings=t)
+            h = relu_pool(y, layer.pool)
+            layers.append(t)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        out["passes"].append({"survivors": ids, "features": h,
+                              "k1": k1_launches.count, "layers": layers,
+                              "wall_s": time.perf_counter() - t0})
+    out["collectives"] = dict(mesh.stats)
+    return out
+
+
+def _dist_input(smoke: bool) -> np.ndarray:
+    from repro_torch.models.cnn import input_hw
+
+    hw, b = (input_hw(ARCH, smoke=True), 2) if smoke else (HW, DIST_BATCH)
+    return np.random.default_rng(SEED).standard_normal(
+        (b, 3, hw, hw)).astype(np.float32)
+
+
+def dist_lm_rank(rank: int, ckpt_dir: str, device: str, smoke: bool) -> dict:
+    """Rank ``rank`` of 2: SmolLM-135M trained data-parallel with FSDP
+    (data 2, model 1) through ``train(mesh=...)``, its last checkpoint
+    restored into this rank's shards and gathered; then trained over
+    (pod 2, data 1) with int8 gradient compression; then served
+    data-parallel through ``serve_lm(mesh=...)``.  ``smoke``: the smoke
+    config (a CPU rehearsal)."""
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels.flash_attn.kernel import launches as k4_launches
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.train import train
+    from repro_torch.sharding import gather_tree, shard_tree
+    from repro_torch.optim import init_state
+    from repro_torch.tree import tree_leaves
+
+    _no_tf32()
+    data = make_process_mesh((2, 1), ("data", "model"), device=device)
+    pod = make_process_mesh((2, 1, 1), ("pod", "data", "model"), device=device)
+    dev = data.device
+    cuda = dev.type == "cuda"
+    out = {"backend": data.backend}
+    for label, mesh, kw in (("fsdp", data, {"ckpt_dir": ckpt_dir,
+                                             "ckpt_every": DIST_TRAIN_STEPS}),
+                            ("int8_pod", pod, {"grad_compression": "int8"})):
+        stamps, coll, norms = [], [], []
+
+        def on_step(step, metrics, mesh=mesh, stamps=stamps, coll=coll,
+                    norms=norms):
+            stamps.append(time.perf_counter())
+            coll.append(mesh.stats["collective_s"])
+            norms.append(float(metrics["grad_norm"]))
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        c0, t0 = mesh.stats["collective_s"], time.perf_counter()
+        losses = train(TRAIN_ARCH, steps=DIST_TRAIN_STEPS, batch=TRAIN_BATCH,
+                       seq=TRAIN_SEQ, smoke=smoke, device=device, seed=SEED,
+                       lr=DIST_LR, graphs=False, mesh=mesh, on_step=on_step,
+                       log_every=DIST_TRAIN_STEPS, **kw)
+        steps_ms = np.diff([t0] + stamps) * 1e3
+        coll_ms = np.diff([c0] + coll) * 1e3
+        out[label] = {"losses": losses, "grad_norms": norms,
+                      "ms_per_step": steps_ms.tolist(),
+                      "collective_ms_per_step": coll_ms.tolist(),
+                      "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                                     if cuda else None)}
+    # the FSDP run's last checkpoint into this rank's shards, then gathered
+    bundle = get_bundle(TRAIN_ARCH, smoke=smoke)
+    step = steps.build_train_step(bundle, steps.TrainConfig(), data)
+    like = shard_tree(bundle.init(torch.Generator().manual_seed(SEED),
+                                  device=dev), step.param_shardings)
+    state = restore(ckpt_dir, DIST_TRAIN_STEPS,
+                    {"params": like, "opt": init_state(like)},
+                    shardings={"params": step.param_shardings,
+                               "opt": step.opt_shardings})
+    gathered = gather_tree(state["params"], step.param_shardings)
+    out["fsdp"]["gathered"] = gathered if rank == 0 else None
+    out["fsdp"]["shard_numel"] = sum(t.numel() for t in
+                                     tree_leaves(state["params"]))
+    del like, state, gathered
+    k4_launches.reset()
+    t0 = time.perf_counter()
+    timings = {}
+    out["serve"] = {"tokens": serve_lm(TRAIN_ARCH, device=device, seed=SEED,
+                                       smoke=smoke, mesh=data, timings=timings,
+                                       **DIST_SERVE),
+                    "k4": k4_launches.count, "wall_s": time.perf_counter() - t0,
+                    "decode_s": timings["decode_s"],
+                    "prefill_s": timings["prefill_s"]}
+    return out
+
+
+def _max_rel(got, want) -> float:
+    got = torch.as_tensor(np.asarray(got)).double()
+    want = torch.as_tensor(np.asarray(want)).double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def distributed_phase(device, card: str, smoke: bool = False) -> dict:
+    """The process mesh on one card, as the module docstring's phase 13
+    says: (a) VGG-16 through ``run_sharded`` on ``DIST_RANKS`` ranks, (b)
+    SmolLM-135M trained data-parallel, (c) served data-parallel, each
+    held against this process's one-process run.  Ranks are spawned by
+    ``run_ranks`` (the kernels are already built here, so each rank loads
+    them), joined with a timeout; any failing or hung rank raises.
+    ``smoke`` rehearses it on the CPU at the smoke sizes."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.mesh import backend_for, run_ranks
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.train import train
+    from repro_torch.models.cnn import CNN_SPECS, init_cnn, run_convls
+    from repro_torch.optim import init_state
+    from repro_torch.tree import tree_items
+
+    out = {"cards": torch.cuda.device_count(),
+           "backend_rule": {f"{r} ranks": backend_for("cuda", r)
+                            for r in (1, 2, DIST_RANKS)}}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the paper's SPMD path
+        t0 = time.perf_counter()
+        dev = str(device)
+        vgg = run_ranks(dist_vgg16_rank, DIST_RANKS, dev, smoke, device=dev,
+                        timeout_s=DIST_TIMEOUT_S,
+                        store_path=os.path.join(tmp, "store-vgg"))
+        spawn_s = time.perf_counter() - t0
+        params = init_cnn(ARCH, torch.Generator().manual_seed(SEED), device)
+        x = torch.from_numpy(_dist_input(smoke)).to(device)
+        ref = run_convls(ARCH, params, x).cpu().numpy()
+        del params
+        layers = [l.name for l in CNN_SPECS[ARCH][1]]
+        passes = []
+        for i, ids in enumerate(DIST_SURVIVORS):
+            feats = vgg[0]["passes"][i]["features"]
+            for r, res in enumerate(vgg):
+                p = res["passes"][i]
+                if not np.array_equal(p["features"], feats):
+                    raise AssertionError(f"run_sharded {ids}: rank {r}'s output "
+                                         f"differs from rank 0's")
+                if p["k1"] != len(layers) and dev != "cpu":  # CPU: plain
+                    raise AssertionError(f"run_sharded {ids}: rank {r} launched "
+                                         f"K1 {p['k1']} times for {len(layers)} "
+                                         f"layers")
+            err = _max_rel(feats, ref)
+            if not err <= TOL_SERVE:
+                raise AssertionError(f"run_sharded {ids}: max rel err {err:.2e} "
+                                     f"vs the uncoded stack > {TOL_SERVE}")
+            # each phase's time is the slowest rank's (the all-gather waits
+            # for it)
+            per_layer = [{key: max(res["passes"][i]["layers"][j][key]
+                                   for res in vgg) * 1e3
+                          for key in ("worker_s", "gather_s", "decode_s")}
+                         for j in range(len(layers))]
+            passes.append({"survivors": ids, "max_rel_err": err,
+                           "k1_per_rank": [res["passes"][i]["k1"] for res in vgg],
+                           "wall_s": max(res["passes"][i]["wall_s"] for res in vgg),
+                           "ms": {name: {k.replace("_s", "_ms"): v
+                                         for k, v in pl.items()}
+                                  for name, pl in zip(layers, per_layer)}})
+        out["vgg16"] = {"ranks": DIST_RANKS, "backend": vgg[0]["backend"],
+                        "plan": DIST_PLAN, "batch": int(x.shape[0]),
+                        "hw": int(x.shape[-1]),
+                        "run_ranks_s": spawn_s, "passes": passes,
+                        "collectives_per_rank": vgg[0]["collectives"]}
+        out["by_path"] = {"sharded_vgg16": {"coded_worker": sum(
+            p["k1"] for res in vgg for p in res["passes"])}}
+        del vgg, x
+
+        # (b) and (c): training and serving over two ranks
+        t0 = time.perf_counter()
+        lm = run_ranks(dist_lm_rank, 2, os.path.join(tmp, "fsdp"), dev, smoke,
+                       device=dev, timeout_s=DIST_TIMEOUT_S,
+                       store_path=os.path.join(tmp, "store-lm"))
+        spawn_s = time.perf_counter() - t0
+        one_norms = []
+        one_losses = train(TRAIN_ARCH, steps=DIST_TRAIN_STEPS, batch=TRAIN_BATCH,
+                           seq=TRAIN_SEQ, smoke=smoke, device=device, seed=SEED,
+                           lr=DIST_LR, graphs=False,
+                           on_step=lambda s, m: one_norms.append(
+                               float(m["grad_norm"])),
+                           ckpt_dir=os.path.join(tmp, "one"),
+                           ckpt_every=DIST_TRAIN_STEPS,
+                           log_every=DIST_TRAIN_STEPS)
+        bundle = get_bundle(TRAIN_ARCH, smoke=smoke)
+        like = bundle.init(torch.Generator().manual_seed(SEED), device=device)
+        like = {"params": like, "opt": init_state(like)}
+        full = restore(os.path.join(tmp, "one"), DIST_TRAIN_STEPS, like)["params"]
+        dp = restore(os.path.join(tmp, "fsdp"), DIST_TRAIN_STEPS, like)["params"]
+        init = like["params"]
+        del like
+        micro_losses, one = one_process_microbatched(bundle, device)
+        loss_err = max(abs(a - b) / abs(b) for res in lm
+                       for a, b in zip(res["fsdp"]["losses"], one_losses))
+        if not loss_err <= TOL_DIST_LOSS:
+            raise AssertionError(f"data-parallel losses vs one process: max "
+                                 f"rel err {loss_err:.2e} > {TOL_DIST_LOSS}")
+        norm_err = max(abs(a - b) / abs(b) for res in lm
+                       for a, b in zip(res["fsdp"]["grad_norms"], one_norms))
+        if not norm_err <= TOL_DIST_NORM:
+            raise AssertionError(f"data-parallel gradient norms vs one process: "
+                                 f"max rel err {norm_err:.2e} > {TOL_DIST_NORM}")
+        gathered = dict(tree_items(lm[0]["fsdp"]["gathered"]))
+        param_err = 0.0
+        for path, leaf in tree_items(dp):
+            if not torch.equal(leaf.cpu(), torch.from_numpy(gathered[path])):
+                raise AssertionError(f"checkpoint leaf {'/'.join(path)} restored "
+                                     f"in one process differs from the ranks' "
+                                     f"gathered params")
+        for (path, got), (_, want) in zip(tree_items(dp), tree_items(one)):
+            param_err = max(param_err, _max_rel(got.cpu(), want.cpu()))
+        if not param_err <= TOL_DIST_PARAM:
+            raise AssertionError(f"data-parallel params after step "
+                                 f"{DIST_TRAIN_STEPS}: max rel err "
+                                 f"{param_err:.2e} > {TOL_DIST_PARAM} vs one "
+                                 f"process with microbatches=2")
+        full_gap = hold_full_batch(dp, full, init)
+        micro_loss_err = max(abs(a - b) / abs(b) for res in lm
+                             for a, b in zip(res["fsdp"]["losses"], micro_losses))
+        del one, dp, gathered, full, init
+        for res in lm:
+            l8 = res["int8_pod"]["losses"]
+            if not (all(math.isfinite(v) for v in l8) and l8[-1] < l8[0]):
+                raise AssertionError(f"int8 over (pod 2, data 1): losses {l8}")
+        want = serve_lm(TRAIN_ARCH, device=device, seed=SEED, smoke=smoke,
+                        **DIST_SERVE)
+        for r, res in enumerate(lm):
+            if not torch.equal(torch.from_numpy(res["serve"]["tokens"]),
+                               want.cpu()):
+                raise AssertionError(f"serve_lm over the mesh: rank {r}'s tokens "
+                                     f"differ from one process's")
+            if res["serve"]["k4"] <= 0 and dev != "cpu":
+                raise AssertionError(f"rank {r} served without launching K4")
+        out["by_path"]["serve_lm_mesh"] = {"flash_attention": sum(
+            res["serve"]["k4"] for res in lm)}
+        out["lm"] = {"backend": lm[0]["backend"], "run_ranks_s": spawn_s,
+                     "one_process_losses": one_losses,
+                     "loss_max_rel_err": loss_err,
+                     "grad_norm_max_rel_err": norm_err,
+                     "one_process_grad_norms": one_norms,
+                     "microbatched_loss_max_rel_err": micro_loss_err,
+                     "param_max_rel_err": param_err,
+                     "param_full_batch": full_gap,
+                     "serve": {"tokens_equal": True, **{
+                         k: [res["serve"][k] for res in lm]
+                         for k in ("k4", "wall_s", "prefill_s", "decode_s")}}}
+        for label in ("fsdp", "int8_pod"):
+            out["lm"][label] = {k: [res[label][k] for res in lm]
+                                for k in ("losses", "ms_per_step",
+                                          "collective_ms_per_step",
+                                          "peak_bytes")}
+        out["lm"]["fsdp"]["shard_numel"] = [res["fsdp"]["shard_numel"]
+                                            for res in lm]
+    return out
+
+
+def dist_lr_sum() -> float:
+    """The learning rates that ``train``'s schedule applies over
+    ``DIST_TRAIN_STEPS`` steps at ``DIST_LR``, summed (step 1's is 0)."""
+    from repro_torch.optim.schedule import cosine_with_warmup
+
+    warmup = min(20, DIST_TRAIN_STEPS // 10 + 1)  # train's
+    return sum(DIST_LR * float(cosine_with_warmup(
+        torch.tensor(s), warmup=warmup, total=DIST_TRAIN_STEPS))
+        for s in range(DIST_TRAIN_STEPS))
+
+
+def hold_full_batch(dp: dict, full: dict, init: dict) -> dict:
+    """The data-parallel params against the one-process full-batch run's:
+    each leaf within ``TOL_DIST_PARAM`` of its max|p| but for at most
+    ``DIST_FLIP_FRACTION`` of its elements, which may differ by twice the
+    summed learning rates besides.  Returns the readings of the leaf
+    furthest off: its largest difference, the element there (its value in
+    both runs and at init), and how many elements lie beyond 1e-4."""
+    from repro_torch.tree import tree_items
+
+    two_lr = 2 * dist_lr_sum()
+    worst = None
+    for (path, got), (_, want), (_, p0) in zip(tree_items(dp), tree_items(full),
+                                               tree_items(init)):
+        got, want = got.double().cpu(), want.double().cpu()
+        scale = float(want.abs().max())
+        err = (got - want).abs()
+        beyond = int((err > TOL_DIST_PARAM * scale).sum())
+        e, i = float(err.max()), int(err.argmax())
+        name = "/".join(path)
+        if beyond > DIST_FLIP_FRACTION * err.numel():
+            raise AssertionError(f"data-parallel params vs the full batch: "
+                                 f"{name} has {beyond} of {err.numel()} "
+                                 f"elements beyond {TOL_DIST_PARAM} of max|p|")
+        if e > TOL_DIST_PARAM * scale + two_lr:
+            raise AssertionError(f"data-parallel params vs the full batch: "
+                                 f"{name} differs by {e:.3e} > {TOL_DIST_PARAM}"
+                                 f" * {scale:.3e} + 2 * sum(lr) {two_lr:.3e}")
+        if worst is None or e / scale > worst["rel"]:
+            worst = {"leaf": name, "rel": e / scale, "abs": e, "max": scale,
+                     "beyond": beyond, "numel": err.numel(),
+                     "element": i, "dp": float(got.flatten()[i]),
+                     "one": float(want.flatten()[i]),
+                     "init": float(p0.flatten()[i]), "two_lr": two_lr}
+    return worst
+
+
+def one_process_microbatched(bundle, device) -> tuple[list, dict]:
+    """``DIST_TRAIN_STEPS`` one-process steps of ``train``'s schedule on
+    its batches and params, each step's gradient summed over two
+    microbatches of half the batch: the losses and the params after."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.devices import fp32_products
+    from repro_torch.launch import steps
+    from repro_torch.optim import AdamWConfig, init_state
+
+    tcfg = steps.TrainConfig(opt=AdamWConfig(lr=DIST_LR),
+                             warmup=min(20, DIST_TRAIN_STEPS // 10 + 1),
+                             total_steps=DIST_TRAIN_STEPS, microbatches=2)
+    fn = steps.build_train_step(bundle, tcfg)
+    params = bundle.init(torch.Generator().manual_seed(SEED), torch.float32,
+                         device)
+    opt = init_state(params)
+    data = SyntheticTokens(DataConfig(vocab=bundle.cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    losses = []
+    with fp32_products():
+        for step in range(DIST_TRAIN_STEPS):
+            b = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch(step).items()}
+            params, opt, met = fn(params, opt, b)
+            losses.append(float(met["loss"]))
+    return losses, params
+
+
+def print_distributed(d: dict, card: str) -> None:
+    """The process-mesh phase's lines."""
+    v = d["vgg16"]
+    print(f"process mesh on {d['cards']} card(s), {card}: backend rule "
+          f"{d['backend_rule']} (nccl needs a card a rank; gloo stages every "
+          f"collective through host memory)")
+    for p in v["passes"]:
+        tot = {k: sum(ms[k] for ms in p["ms"].values())
+               for k in ("worker_ms", "gather_ms", "decode_ms")}
+        print(f"  run_sharded VGG-16 {v['hw']} x {v['batch']}, 13 ConvLs on "
+              f"{v['ranks']} ranks ({v['backend']}), plan (n, k_a, k_b) "
+              f"{v['plan']}, survivors {p['survivors']}: max rel err vs uncoded "
+              f"{p['max_rel_err']:.2e} <= {TOL_SERVE}, ranks torch.equal, K1 "
+              f"launches per rank {p['k1_per_rank']}; {p['wall_s']:.2f} s; "
+              f"sum over layers: worker (encode + K1) {tot['worker_ms']:.1f} ms, "
+              f"all-gather {tot['gather_ms']:.1f} ms, decode + merge "
+              f"{tot['decode_ms']:.1f} ms")
+    last = v["passes"][-1]["ms"]
+    print("    ms a layer (slowest rank), last pass: " + "; ".join(
+        f"{name} {ms['worker_ms']:.1f}/{ms['gather_ms']:.1f}/{ms['decode_ms']:.1f}"
+        for name, ms in last.items()))
+    lm = d["lm"]
+    for label, what in (("fsdp", "FSDP (data 2, model 1)"),
+                        ("int8_pod", "int8 compression (pod 2, data 1, model 1)")):
+        r = lm[label]
+        med = [float(np.median(ms[1:])) for ms in r["ms_per_step"]]
+        coll = [float(np.median(ms[1:])) for ms in r["collective_ms_per_step"]]
+        print(f"  train {TRAIN_ARCH} {what}, {DIST_TRAIN_STEPS} steps of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, eager, on {card}: losses "
+              f"{[round(x, 5) for x in r['losses'][0]]}; ms a step (median of "
+              f"steps 2-{DIST_TRAIN_STEPS}) per rank {[round(m, 1) for m in med]}, "
+              f"collective ms a step {[round(c, 1) for c in coll]}, peak "
+              f"{[_gib(b) for b in r['peak_bytes']]}")
+    f = lm["param_full_batch"]
+    print(f"  FSDP against one process: losses max rel err "
+          f"{lm['loss_max_rel_err']:.2e} <= {TOL_DIST_LOSS} (train, full batch) "
+          f"and {lm['microbatched_loss_max_rel_err']:.2e} (microbatches=2); "
+          f"gradient norms max rel err {lm['grad_norm_max_rel_err']:.2e} <= "
+          f"{TOL_DIST_NORM} (full batch); params after step {DIST_TRAIN_STEPS} "
+          f"max rel err {lm['param_max_rel_err']:.2e} <= {TOL_DIST_PARAM} "
+          f"(microbatches=2); the last checkpoint restored in one process "
+          f"torch.equal to the ranks' gathered params; shard numel per rank "
+          f"{lm['fsdp']['shard_numel']}")
+    print(f"  FSDP params against the full batch: furthest leaf {f['leaf']}, "
+          f"max abs err {f['abs']:.3e} = {f['rel']:.2e} of max|p| "
+          f"{f['max']:.3e} <= {TOL_DIST_PARAM} * max|p| + 2 * sum(lr) "
+          f"{f['two_lr']:.3e}; {f['beyond']} of {f['numel']} elements beyond "
+          f"{TOL_DIST_PARAM} of max|p| (at most {DIST_FLIP_FRACTION:.0%}); "
+          f"element {f['element']}: data-parallel {f['dp']:.6e}, one process "
+          f"{f['one']:.6e}, init {f['init']:.6e}")
+    s = lm["serve"]
+    print(f"  serve_lm {TRAIN_ARCH} data-parallel on 2 ranks, batch "
+          f"{DIST_SERVE['batch']}, {DIST_SERVE['prompt_len']} + "
+          f"{DIST_SERVE['gen']} tokens: tokens equal to one process's; K4 "
+          f"launches per rank {s['k4']}; decode s per rank "
+          f"{[round(x, 3) for x in s['decode_s']]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this proof "
@@ -3076,6 +3559,16 @@ def main() -> int:
               f"{sp['model_sharded_16x16']} over model, "
               f"{sp['fsdp_data_sharded_2x16x16']} over data with FSDP")
 
+    # -- the process mesh: run_sharded, data-parallel training and serving
+    # on ranks sharing this card --------------------------------------------
+    t0 = time.perf_counter()
+    dist = distributed_phase(device, card)
+    dist["seconds"] = time.perf_counter() - t0
+    print(f"process-mesh phase: {dist['seconds']:.1f} s")
+    print_distributed(dist, card)
+    by_path.update(dist.pop("by_path"))
+    _empty_cache(device)
+
     # -- the arch zoo, after the earlier phases' servers, graphs and weights
     # are released --------------------------------------------------------
     print(f"arch zoo: {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB "
@@ -3143,6 +3636,7 @@ def main() -> int:
                               "qwen3_coded": zoo["qwen3_coded"]}}))
     print(json.dumps({"graphs": graph_phases}))
     print(json.dumps({"examples": ex, "specs": specs}))
+    print(json.dumps({"distributed": dist}))
     print(json.dumps({"kernels": [k1e, k2e, k3e, k4e]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

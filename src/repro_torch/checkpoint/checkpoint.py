@@ -9,8 +9,12 @@ half-written step.  A checkpoint written by either package restores in the
 other: bf16 leaves are stored as the reference stores them (their two
 bytes as numpy's ``V2``) and read back as bf16.
 
-``restore(shardings=)``, the reference's elastic re-shard on load, waits
-for the sharding slice of the port (ROADMAP Queue A item 3(b)).
+Checkpoints hold full leaves whatever mesh wrote them (a data-parallel
+``train`` gathers its shards and writes from rank 0).
+``restore(shardings=)`` is the reference's elastic re-shard on load: each
+full leaf is cut to this rank's shard of the current mesh, so a
+checkpoint written under one mesh restores under another, or in one
+process.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import threading
 import numpy as np
 import torch
 
+from ..sharding import shard_tree
 from ..tree import tree_from_items, tree_items
 
 __all__ = ["save", "latest_step", "restore", "AsyncCheckpointer"]
@@ -45,11 +50,13 @@ def _to_host(leaf) -> np.ndarray:
     return t.numpy()
 
 
-def _from_host(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+def _from_host(a: np.ndarray, like: torch.Tensor, sharding=None) -> torch.Tensor:
     if a.dtype == np.dtype("V2") or a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))
+    if sharding is not None:
+        t = shard_tree(t, sharding)
     if tuple(t.shape) != tuple(like.shape):
         raise ValueError(f"checkpoint leaf of shape {tuple(t.shape)} for a "
                          f"leaf of shape {tuple(like.shape)}")
@@ -97,13 +104,15 @@ def latest_step(directory: str) -> int | None:
 
 def restore(directory: str, step: int, like_tree, shardings=None):
     """The checkpoint of ``step`` in the structure of ``like_tree``, each
-    leaf on the device and in the dtype of its counterpart there."""
-    if shardings is not None:
-        raise NotImplementedError("restore(shardings=) waits for the port's "
-                                  "sharding slice (ROADMAP Queue A item 3(b))")
+    leaf on the device and in the dtype of its counterpart there.  With
+    ``shardings`` (a tree like ``like_tree`` of ``sharding.
+    NamedSharding``, as ``schema_shardings`` gives) each full leaf is cut
+    to this rank's shard first, and ``like_tree`` holds the shards."""
     path = os.path.join(directory, f"step-{step:08d}", "arrays.npz")
+    cuts = None if shardings is None else dict(tree_items(shardings))
     with np.load(path) as data:
-        items = [(p, _from_host(data[_key(p)], like))
+        items = [(p, _from_host(data[_key(p)], like,
+                                None if cuts is None else cuts[p]))
                  for p, like in tree_items(like_tree)]
     return tree_from_items(items)
 

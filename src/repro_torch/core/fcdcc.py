@@ -9,10 +9,16 @@ Pipeline (Fig. 1):
 (``repro_torch.kernels.conv2d``; its plain version on CPU tensors);
 ``backend="torch"`` runs ``F.conv2d``.  ``x`` may be ``(C, H, W)`` or
 ``(B, C, H, W)``: the batch rides inside each worker's subtask.
+
+Two execution paths share the same math: ``run_simulated`` runs every
+worker in this process; ``run_sharded`` runs worker ``i`` on rank ``i`` of
+a process mesh's axis (``launch.mesh.ProcessMesh``), all-gathers the
+coded outputs over that axis and decodes them on every rank.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 import torch.nn.functional as F
@@ -137,11 +143,13 @@ class CodedConv2d:
             parts, self.a_code.matrix if matrix is None else matrix)
         return group_by_worker(coded, self.a_code.ell)
 
-    def encode_filters(self, k: torch.Tensor) -> torch.Tensor:
-        """(N,C,KH,KW) -> coded filters (n, ell_b, N/k_b, C, KH, KW)."""
+    def encode_filters(self, k: torch.Tensor, matrix=None) -> torch.Tensor:
+        """(N,C,KH,KW) -> coded filters (n, ell_b, N/k_b, C, KH, KW);
+        ``matrix`` a column subset of the B code, as in ``encode_inputs``."""
         self.filter_encode_calls += 1
         parts = kccp_partition(k, self.geo)
-        coded = encode_tensor_list(parts, self.b_code.matrix)
+        coded = encode_tensor_list(
+            parts, self.b_code.matrix if matrix is None else matrix)
         return group_by_worker(coded, self.b_code.ell).contiguous()
 
     # -- worker side -------------------------------------------------------
@@ -201,3 +209,52 @@ class CodedConv2d:
         ke = self.encode_filters(k)
         outs = torch.stack([self.worker_compute(xe[i], ke[i]) for i in ids])
         return self.decode(ids, outs)
+
+    def run_sharded(self, mesh, axis: str, x, k, worker_ids=None,
+                    timings: dict | None = None):
+        """SPMD run on a process mesh whose axis ``axis`` holds the n
+        workers (its size must equal ``plan.n``).  Rank ``i`` of the axis
+        encodes worker ``i``'s ``ell_a`` input shares and ``ell_b`` filter
+        groups from the full ``x`` and ``k`` it holds, runs its subtask
+        (K1 on the card), and all-gathers the ``(1, ell_a*ell_b, *block)``
+        coded outputs over the axis; every rank then decodes the
+        statically chosen survivors ``worker_ids`` (default the first
+        delta) with ``D = inv(E^T)`` taken in float64 on the host, and
+        merges.  The output is replicated: each rank returns the same
+        tensor.  ``timings``, where given, gets the seconds of the three
+        phases, each ended by a device synchronisation: ``worker_s`` (this
+        rank's encode and subtask), ``gather_s`` and ``decode_s`` (decode
+        and merge)."""
+        n = self.plan.n
+        if mesh.shape[axis] != n:
+            raise AssertionError((mesh.shape, axis, n))
+        ids = list(range(self.plan.delta)) if worker_ids is None else list(worker_ids)
+        i = mesh.coordinate[axis]
+        clock = _PhaseClock(timings, x.device)
+        xe = self.encode_inputs(x, self.a_code.worker_columns(i))
+        ke = self.encode_filters(k, self.b_code.worker_columns(i))
+        out = self.worker_compute(xe[0], ke[0])[None]  # (1, ell2, *block)
+        clock.lap("worker_s")
+        allout = mesh.all_gather(out, axis, dim=0)  # (n, ell2, *block)
+        clock.lap("gather_s")
+        y = self.decode(ids, allout[ids])
+        clock.lap("decode_s")
+        return y
+
+
+class _PhaseClock:
+    """Seconds between laps into ``timings`` (nothing where it is None),
+    each lap after the device has finished its work."""
+
+    def __init__(self, timings: dict | None, device: torch.device):
+        self.timings, self.device = timings, device
+        self.t = time.perf_counter()
+
+    def lap(self, key: str) -> None:
+        if self.timings is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.timings[key] = now - self.t
+        self.t = now

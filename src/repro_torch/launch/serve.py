@@ -15,7 +15,9 @@
     decoder over the prompt.  On the card the decode step and the
     prefill each replay one CUDA graph (``launch.steps.compiled_decode``,
     ``compiled_prefill``: the reference's ``jax.jit`` of both);
-    ``serve_lm(graphs=False)`` runs them eagerly.
+    ``serve_lm(graphs=False)`` runs them eagerly.  ``serve_lm(mesh=...)``
+    serves data-parallel over a process mesh: each rank its rows of the
+    batch, with the params whole on every rank.
 
 It runs on the card by default, through the hand-written kernels.
 
@@ -45,6 +47,8 @@ from ..models.cnn import CNN_SPECS, init_cnn, input_hw
 from ..models.registry import with_layers
 from ..runtime import StragglerModel
 from ..serving import CodedServer, ServingFrontend
+from ..sharding import (BATCH, NamedSharding, check_data_parallel,
+                        resolve_pspec, shard_tree, use_mesh)
 from . import steps as steps_mod
 
 __all__ = ["build_cnn_server", "serve_cnn", "serve_lm", "serve", "main"]
@@ -56,8 +60,8 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
              device: str | torch.device = "cuda", layers: int | None = None,
              params: dict | None = None,
              timings: dict | None = None, graphs=True,
-             on_logits: Callable[[torch.Tensor], None] | None = None
-             ) -> torch.Tensor:
+             on_logits: Callable[[torch.Tensor], None] | None = None,
+             mesh=None) -> torch.Tensor:
     """Greedy generation for ``batch`` random prompts: one batched prefill
     fills the cache (or, for a family without one, ``decode_fn`` steps
     over the prompt one token at a time), then ``gen`` decode steps,
@@ -77,10 +81,40 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
     ``decode_s``, ``tok_s``, ``init_s`` where it drew the weights, and
     ``graphs``, the graph set's ``stats()``, where it captured) into
     ``timings`` where given; returns the generated tokens ``(batch,
-    gen)``."""
+    gen)``.
+
+    ``mesh`` (a ``launch.mesh.ProcessMesh``; every rank calls
+    ``serve_lm``) serves data-parallel on the mesh's device: each rank
+    draws the same params and prompts, serves its rows of the batch (cut
+    over the pod and data axes, which must divide ``batch``), captured as
+    above (a decode step holds no collective), and the tokens are
+    all-gathered to every rank at the end.  ``decode_s`` is this rank's,
+    ``tok_s`` every rank's tokens over the slowest rank's decode time.
+    Rank 0 prints."""
     if arch not in ARCH_IDS:
         raise SystemExit(f"unknown LM arch {arch!r}; valid: {ARCH_IDS}")
     dev = resolve_device(device)
+    rows = None
+    if steps_mod.spans_ranks(mesh):
+        if mesh.device.type != dev.type:
+            raise ValueError(f"device {dev} for a mesh on {mesh.device}")
+        dev = mesh.device
+        spec = resolve_pspec((batch, prompt_len), (BATCH, None), mesh.shape)
+        check_data_parallel(spec, 0, mesh.shape, True,
+                            f"serving a batch of {batch}")
+        rows = NamedSharding(mesh, spec)
+    with use_mesh(mesh):
+        return _serve_lm(arch, dev, rows, batch=batch, prompt_len=prompt_len,
+                         gen=gen, smoke=smoke, seed=seed,
+                         param_dtype=param_dtype, layers=layers,
+                         params=params, timings=timings, graphs=graphs,
+                         on_logits=on_logits)
+
+
+def _serve_lm(arch, dev, rows, *, batch, prompt_len, gen, smoke, seed,
+              param_dtype, layers, params, timings, graphs, on_logits):
+    """``serve_lm`` on ``dev``; ``rows`` cuts this rank's rows of the
+    batch where serving over a process mesh."""
     bundle = get_bundle(arch, smoke=smoke)
     if layers is not None:
         bundle = with_layers(bundle, layers)
@@ -100,6 +134,9 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
     prompts = torch.randint(0, bundle.cfg.vocab, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(seed + 1)
                             ).to(dev)
+    if rows is not None:
+        prompts = shard_tree(prompts, rows)
+        batch = prompts.shape[0]
     cache = bundle.make_cache(batch, max_len, param_dtype, dev)
     cls = graph_class(graphs, dev)
     gs = None if cls is None else GraphSet("serve", dev, cls)
@@ -133,9 +170,17 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
     sync()
     decode_s = time.perf_counter() - t0
     seq = torch.cat(out_tokens, dim=1)
-    tok_s = batch * gen / decode_s
-    print(f"{arch}: prefill {prompt_len} toks in {prefill_s:.2f}s; "
-          f"generated {gen} x {batch} in {decode_s:.2f}s ({tok_s:.1f} tok/s)")
+    span_s = decode_s
+    if rows is not None:
+        seq = rows.mesh.all_gather(seq, BATCH, dim=0)
+        # every rank's tokens over the slowest rank's decode time
+        span_s = float(rows.mesh.all_gather(torch.tensor(
+            [decode_s], dtype=torch.float64, device=dev), BATCH).max())
+    tok_s = seq.shape[0] * gen / span_s
+    if rows is None or rows.mesh.device_mesh.get_rank() == 0:
+        print(f"{arch}: prefill {prompt_len} toks in {prefill_s:.2f}s; "
+              f"generated {gen} x {seq.shape[0]} in {span_s:.2f}s "
+              f"({tok_s:.1f} tok/s)")
     if timings is not None:
         timings.update(drawn, prefill_s=prefill_s, decode_s=decode_s,
                        tok_s=tok_s)
@@ -245,21 +290,28 @@ def serve_cnn(archs, *, requests: int, workers: int, stragglers: int,
 
 
 def serve(arch: str, *, batch: int, prompt_len: int, gen: int,
-          smoke: bool = False, param_dtype: torch.dtype = torch.float32,
+          smoke: bool = False, mesh=None,
+          param_dtype: torch.dtype = torch.float32,
           workers: int = 8, stragglers: int = 1, straggler_delay: float = 0.1,
           device: str | torch.device = "cuda"):
     """Route by family, as the reference's ``serve``: a CNN arch goes to
     the coded serving engine (``batch`` concurrent requests on ``workers``
     workers, ``stragglers`` of them ``straggler_delay`` s late) and returns
-    its outputs; an LM arch to the decode loop, returning its tokens."""
+    its outputs; an LM arch to the decode loop (over ``mesh`` where given),
+    returning its tokens.  A CNN's workers are the coded cluster's, so a
+    mesh is refused there."""
     if arch in CNN_SPECS:
+        if mesh is not None:
+            raise ValueError(f"{arch}: the CNN archs serve on the coded "
+                             f"cluster's workers; mesh= is for the LMs")
         outs, _ = serve_cnn(arch, requests=batch, workers=workers,
                             stragglers=stragglers,
                             straggler_delay=straggler_delay, smoke=smoke,
                             device=device)
         return outs[0]
     return serve_lm(arch, batch=batch, prompt_len=prompt_len, gen=gen,
-                    smoke=smoke, param_dtype=param_dtype, device=device)
+                    smoke=smoke, param_dtype=param_dtype, device=device,
+                    mesh=mesh)
 
 
 def main(argv=None):

@@ -5,9 +5,15 @@ The reference returns each step with its shardings for ``jax.jit``; the
 port returns the step alone, and the specs those shardings are made of
 apart: ``batch_pspecs``, ``cache_pspecs`` and ``opt_state_pspecs`` (with
 ``models.common.schema_pspecs`` for the params) on a mesh's axis sizes,
-and ``make_opt_shapes``, the optimizer state as meta tensors.  Executing
-a step sharded over processes (FSDP, expert parallelism) is ROADMAP
-Queue A item 3(b).
+and ``make_opt_shapes``, the optimizer state as meta tensors.
+
+Under a process mesh of several ranks (``launch.mesh.ProcessMesh``)
+``build_train_step`` returns a ``DataParallelStep``: each rank takes its
+rows of the global batch, the gradients are averaged over the pod and
+data axes, and with ``fsdp`` the params and AdamW moments live as this
+rank's shards (gathered before the forward, the gradients cut back to
+them).  Tensor, expert and sequence parallelism are ROADMAP Queue A item
+3(c).
 
 The reference's launchers ``jax.jit`` three steps: the decode step and the
 cache-filling prefill (with the cache donated) and the train step (with
@@ -28,15 +34,18 @@ import torch
 
 from ..core.graphs import GraphSet
 from ..core.pipeline import Program
-from ..models.common import checkpointed
-from ..optim import AdamWConfig, apply_updates, init_state
+from ..models.common import checkpointed, schema_shardings
+from ..optim import AdamWConfig, apply_updates, compress_tree, init_state
 from ..optim.schedule import cosine_with_warmup
-from ..sharding import PartitionSpec, resolve_pspec
-from ..tree import tree_from_items, tree_items, tree_map
+from ..sharding import (BATCH, QUEUE_3C, NamedSharding, PartitionSpec,
+                        check_data_parallel, gather_tree, resolve_pspec,
+                        shard_tree, sharded_dim_over, use_mesh)
+from ..tree import tree_from_items, tree_items, tree_leaves, tree_map
+from .mesh import ProcessMesh
 
 __all__ = ["TrainConfig", "value_and_grad", "accumulated_value_and_grad",
            "batch_pspecs", "cache_pspecs", "opt_state_pspecs",
-           "make_opt_shapes",
+           "make_opt_shapes", "spans_ranks", "DataParallelStep",
            "build_train_step", "build_prefill_step", "build_serve_step",
            "CompiledStep", "compiled_decode", "compiled_prefill",
            "compiled_train_step"]
@@ -49,8 +58,8 @@ class TrainConfig:
     opt: AdamWConfig = AdamWConfig()
     warmup: int = 100
     total_steps: int = 10000
-    # None | "int8" | "topk": applies across a "pod" data-parallel axis
-    # only, which one card does not have (see build_train_step)
+    # None | "int8" | "topk": applies where the mesh has a "pod" axis
+    # (see build_train_step)
     grad_compression: str | None = None
     # the whole loss under torch.utils.checkpoint: backward recomputes
     # the forward, saving only the inputs
@@ -58,6 +67,9 @@ class TrainConfig:
     # gradient accumulation over this many equal slices of the batch:
     # saved activations scale with B / microbatches
     microbatches: int = 1
+    # FSDP/ZeRO: under a process mesh, params, gradients and optimizer
+    # state live as this rank's shards over the data axes
+    fsdp: bool = True
 
     def __post_init__(self):
         if self.grad_compression not in COMPRESSION:
@@ -145,30 +157,41 @@ def accumulated_value_and_grad(loss_fn, params: dict, batch: dict,
     return torch.stack(losses).mean(), acc
 
 
-def build_train_step(bundle, tcfg: TrainConfig = TrainConfig()):
+def spans_ranks(mesh) -> bool:
+    """Whether ``mesh`` is a process mesh of more than one rank."""
+    return isinstance(mesh, ProcessMesh) and mesh.size > 1
+
+
+def build_train_step(bundle, tcfg: TrainConfig = TrainConfig(), mesh=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, the params and moments updated in place, the gradient that
     of ``accumulated_value_and_grad`` over ``tcfg.microbatches`` slices.
     The learning rate is ``opt.lr`` times ``cosine_with_warmup`` of the
     state's step count.
 
-    Gradient compression, as in the reference, compresses only the
-    contribution that crosses a ``"pod"`` data-parallel axis.  One card has
-    no such axis, so ``grad_compression`` is accepted and does not apply,
-    exactly as on the reference's host mesh, and a warning says so; the
-    multi-process path comes with the port's sharding execution (ROADMAP
-    Queue A item 3(b)).
+    With no mesh, or a mesh of one process, the step runs here on the
+    whole batch.  Under a process mesh of several ranks it is a
+    ``DataParallelStep``.  Gradient compression, as in the reference,
+    applies where the mesh has a ``"pod"`` axis: the averaged gradient
+    goes through ``compress_tree(grads, None, mode)``.  Without one
+    ``grad_compression`` is accepted, does not apply, and a warning says
+    so.
     """
-    if tcfg.grad_compression is not None:
+    compress = (tcfg.grad_compression is not None and mesh is not None
+                and "pod" in mesh.shape)
+    if tcfg.grad_compression is not None and not compress:
         warnings.warn(
             f"grad_compression={tcfg.grad_compression!r} does not apply: it "
-            "compresses only across a 'pod' data-parallel axis, which one "
-            "device does not have (the multi-process path is ROADMAP Queue "
-            "A item 3(b))", stacklevel=2)
+            "compresses only across a 'pod' data-parallel axis, which this "
+            "run's mesh does not have", stacklevel=2)
+    if spans_ranks(mesh):
+        return DataParallelStep(bundle, tcfg, mesh, compress)
 
     def train_step(params, opt_state, batch):
         loss, grads = accumulated_value_and_grad(
             bundle.loss_fn, params, batch, tcfg.microbatches, tcfg.remat)
+        if compress:
+            grads, _ = compress_tree(grads, None, tcfg.grad_compression)
         lr_scale = cosine_with_warmup(opt_state["step"], warmup=tcfg.warmup,
                                       total=tcfg.total_steps)
         params, opt_state, metrics = apply_updates(
@@ -176,6 +199,101 @@ def build_train_step(bundle, tcfg: TrainConfig = TrainConfig()):
         return params, opt_state, {"loss": loss, **metrics}
 
     return train_step
+
+
+class DataParallelStep:
+    """The train step on a process mesh whose ranks split the batch over
+    its pod and data axes (every other axis of one rank).
+
+    ``param_shardings`` / ``opt_shardings`` place the params and the AdamW
+    state: with ``fsdp``, ``schema_shardings(..., fsdp=True)`` cuts the
+    stacked layer weights over the data axes and each rank holds its
+    shards (``sharding.shard_tree`` cuts full trees, ``gather_tree``
+    rebuilds them);
+    without, every rank holds them whole.  A call takes the global batch
+    and, on each rank: cuts its rows (``batch_pspecs``), all-gathers the
+    params, takes the loss and gradient of its rows, averages the loss and
+    the gradient over the data axes (a reduce-scatter onto the shards, an
+    all-reduce for a whole leaf), and runs AdamW on its shards with the
+    global gradient norm.  With ``compress`` the gradient is all-reduced
+    whole, compressed as the reference compresses it, then cut.  Every
+    rank returns the same loss and norm."""
+
+    def __init__(self, bundle, tcfg: TrainConfig, mesh: ProcessMesh,
+                 compress: bool):
+        other = {a: n for a, n in mesh.shape.items()
+                 if a not in BATCH and n > 1}
+        if other:
+            raise NotImplementedError(
+                f"training over {other}: only data parallelism over "
+                f"{BATCH} executes here; {QUEUE_3C}")
+        self.bundle, self.tcfg, self.mesh = bundle, tcfg, mesh
+        self.compress = compress
+        self.data_axes = tuple(a for a in BATCH if a in mesh.shape)
+        self.ranks = mesh.group_size(self.data_axes)
+        self.param_shardings = schema_shardings(bundle.schema, mesh,
+                                                fsdp=tcfg.fsdp)
+        for path, sh in tree_items(self.param_shardings):
+            check_data_parallel(sh.spec, sharded_dim_over(sh, self.data_axes),
+                                mesh.shape, True, f"param {'/'.join(path)}")
+        self.opt_shardings = {"m": self.param_shardings,
+                              "v": self.param_shardings,
+                              "step": NamedSharding(mesh, PartitionSpec())}
+
+    def local_batch(self, batch: dict) -> dict:
+        """This rank's rows of every leaf of the global ``batch``."""
+        specs = batch_pspecs(self.bundle, batch, self.mesh)
+        for key, spec in specs.items():
+            check_data_parallel(spec, 0, self.mesh.shape, True,
+                                f"batch leaf {key!r} {tuple(batch[key].shape)}")
+        return shard_tree(batch, tree_map(lambda sp: NamedSharding(
+            self.mesh, sp), specs))
+
+    def _mean(self, g, sh: NamedSharding):
+        d = sharded_dim_over(sh, self.data_axes)
+        if d is None:
+            g = self.mesh.all_reduce(g, self.data_axes)
+        else:
+            g = self.mesh.reduce_scatter(g, self.data_axes, d)
+        return g / self.ranks
+
+    def _grad_norm(self, grads: dict) -> torch.Tensor:
+        """The global norm of a gradient held as shards and whole leaves:
+        the shards' sums of squares added over the data axes."""
+        cut, whole = [], []
+        for g, sh in zip(tree_leaves(grads), tree_leaves(self.param_shardings)):
+            (whole if sharded_dim_over(sh, self.data_axes) is None
+             else cut).append(g.float().square().sum())
+        total = sum(whole)
+        if cut:
+            total = total + self.mesh.all_reduce(sum(cut), self.data_axes)
+        return torch.sqrt(total)
+
+    def __call__(self, params, opt_state, batch):
+        with use_mesh(self.mesh):
+            return self._step(params, opt_state, batch)
+
+    def _step(self, params, opt_state, batch):
+        tcfg, mesh = self.tcfg, self.mesh
+        full = gather_tree(params, self.param_shardings)
+        loss, grads = accumulated_value_and_grad(
+            self.bundle.loss_fn, full, self.local_batch(batch),
+            tcfg.microbatches, tcfg.remat)
+        del full
+        loss = mesh.all_reduce(loss, self.data_axes) / self.ranks
+        if self.compress:
+            grads = tree_map(lambda g: mesh.all_reduce(g, self.data_axes)
+                             / self.ranks, grads)
+            grads, _ = compress_tree(grads, None, tcfg.grad_compression)
+            grads = shard_tree(grads, self.param_shardings)
+        else:
+            grads = tree_map(self._mean, grads, self.param_shardings)
+        lr_scale = cosine_with_warmup(opt_state["step"], warmup=tcfg.warmup,
+                                      total=tcfg.total_steps)
+        params, opt_state, metrics = apply_updates(
+            params, grads, opt_state, tcfg.opt, lr_scale,
+            grad_norm=self._grad_norm(grads))
+        return params, opt_state, {"loss": loss, **metrics}
 
 
 def build_prefill_step(bundle):
@@ -307,9 +425,15 @@ def compiled_train_step(train_step, graphs: GraphSet | None):
     loss, its gradient, the schedule and the AdamW update: params and
     optimizer state resident and written in place (the reference's
     donation), the batch copied in, the loss and gradient norm cloned
-    out."""
+    out.  A ``DataParallelStep`` runs collectives between its local parts,
+    which no graph holds: with ``graphs`` it raises ``NotImplementedError``
+    (the captured split is ROADMAP Queue A item 3(c))."""
     if graphs is None:
         return train_step
+    if isinstance(train_step, DataParallelStep):
+        raise NotImplementedError(
+            "a train step over a process mesh runs eagerly (graphs=False): "
+            "its collectives sit between the captured parts; " + QUEUE_3C)
 
     def metrics(params, opt_state, batch):
         _, _, m = train_step(params, opt_state, batch)

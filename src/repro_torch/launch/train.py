@@ -6,7 +6,9 @@ It runs on the card unless asked for the CPU, with TF32 off for every
 product (the reference trains in true fp32).  On the card each step
 replays one CUDA graph (``launch.steps.compiled_train_step``: the
 reference's ``jax.jit`` of the step); ``train(graphs=False)`` runs it
-eagerly:
+eagerly.  ``train(mesh=...)`` trains data-parallel (FSDP by default) over
+a process mesh (``launch.mesh.make_process_mesh``), eagerly: every rank
+calls it, e.g. under ``torchrun --nproc-per-node N``:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 200 --batch 8 --seq 256
@@ -27,6 +29,7 @@ from ..core.graphs import GraphSet, graph_class
 from ..devices import fp32_products, resolve_device
 from ..data import DataConfig, SyntheticTokens
 from ..optim import AdamWConfig, init_state
+from ..sharding import gather_tree, shard_tree, use_mesh
 from . import steps as steps_mod
 
 __all__ = ["train", "main"]
@@ -38,7 +41,7 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
           log_every: int = 10, param_dtype: torch.dtype = torch.float32,
           device: str | torch.device = "cuda", seed: int = 0,
           on_step: Callable[[int, dict], None] | None = None,
-          graphs=True) -> list[float]:
+          graphs=True, mesh=None) -> list[float]:
     """Train ``arch`` for steps ``start..steps-1`` (``start`` the latest
     checkpoint in ``ckpt_dir``, else 0) on synthetic tokens; returns the
     losses of the steps it ran.
@@ -53,32 +56,61 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
     for the run.  ``graphs`` (``core.graphs.graph_class``): ``True``
     replays each step from one CUDA graph on the card (captured at this
     call's first step) and runs eagerly on the CPU; ``False`` runs
-    eagerly; a graph class captures with that class on any device."""
+    eagerly; a graph class captures with that class on any device.
+
+    ``mesh`` (a ``launch.mesh.ProcessMesh``; every rank calls ``train``)
+    trains data-parallel on the mesh's device: each rank draws the same
+    params from ``seed``, keeps its shards (FSDP, ``TrainConfig``'s
+    default, as the reference's), and takes its rows of each global batch
+    (``steps.DataParallelStep``); ``grad_compression`` applies where the
+    mesh has a ``"pod"`` axis.  Its steps run eagerly (with ``graphs`` a
+    graph class, or ``True`` on the card, it raises).  Checkpoints are
+    gathered to full leaves and written by rank 0 alone, so they restore
+    under any mesh or none; every rank restores its shards.  Rank 0 logs;
+    every rank returns the same losses."""
     dev = resolve_device(device)
-    with fp32_products():
+    if steps_mod.spans_ranks(mesh):
+        if mesh.device.type != dev.type:
+            raise ValueError(f"device {dev} for a mesh on {mesh.device}")
+        dev = mesh.device
+    with fp32_products(), use_mesh(mesh):
         bundle = get_bundle(arch, smoke=smoke)
         tcfg = steps_mod.TrainConfig(
             opt=AdamWConfig(lr=lr), warmup=min(20, steps // 10 + 1),
             total_steps=steps, grad_compression=grad_compression,
         )
         cls = graph_class(graphs, dev)
+        train_step = steps_mod.build_train_step(bundle, tcfg, mesh)
         step_fn = steps_mod.compiled_train_step(
-            steps_mod.build_train_step(bundle, tcfg),
-            None if cls is None else GraphSet("train", dev, cls))
+            train_step, None if cls is None else GraphSet("train", dev, cls))
+        dp = (train_step if isinstance(train_step, steps_mod.DataParallelStep)
+              else None)
+        lead = dp is None or mesh.device_mesh.get_rank() == 0
 
         params = bundle.init(torch.Generator().manual_seed(seed), param_dtype, dev)
+        shardings = None
+        if dp is not None:
+            shardings = {"params": dp.param_shardings, "opt": dp.opt_shardings}
+            params = shard_tree(params, dp.param_shardings)
         opt_state = init_state(params)
+
+        def full_state():
+            state = {"params": params, "opt": opt_state}
+            return state if dp is None else gather_tree(state, shardings)
+
         start = 0
         ckpt = None
         if ckpt_dir:
-            ckpt = AsyncCheckpointer(ckpt_dir)
+            ckpt = AsyncCheckpointer(ckpt_dir) if lead else None
             last = latest_step(ckpt_dir)
             if last is not None:
                 state = restore(ckpt_dir, last,
-                                {"params": params, "opt": opt_state})
+                                {"params": params, "opt": opt_state},
+                                shardings=shardings)
                 params, opt_state = state["params"], state["opt"]
                 start = last
-                print(f"restored step {start} from {ckpt_dir}")
+                if lead:
+                    print(f"restored step {start} from {ckpt_dir}")
 
         data = SyntheticTokens(
             DataConfig(vocab=bundle.cfg.vocab, seq_len=seq, global_batch=batch))
@@ -99,19 +131,26 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
                 losses.append(float(metrics["loss"]))
                 if on_step is not None:
                     on_step(step, {**metrics, "loss": losses[-1]})
-                if (step + 1) % log_every == 0:
+                if lead and (step + 1) % log_every == 0:
                     dt = (time.time() - t0) / log_every
                     print(f"step {step + 1:5d} loss {losses[-1]:.4f} "
                           f"gnorm {float(metrics['grad_norm']):.3f} "
                           f"{dt * 1e3:.0f} ms/step", flush=True)
                     t0 = time.time()
-                if ckpt and (step + 1) % ckpt_every == 0:
-                    ckpt.submit(step + 1, {"params": params, "opt": opt_state})
-            if ckpt:
-                ckpt.submit(steps, {"params": params, "opt": opt_state})
+                if ckpt_dir and (step + 1) % ckpt_every == 0:
+                    state = full_state()  # every rank gathers
+                    if ckpt:
+                        ckpt.submit(step + 1, state)
+            if ckpt_dir:
+                state = full_state()
+                if ckpt:
+                    ckpt.submit(steps, state)
         finally:
             if ckpt:
                 ckpt.wait()
+        if dp is not None and ckpt_dir:
+            # no rank returns before rank 0's write is in place
+            torch.distributed.barrier()
         return losses
 
 

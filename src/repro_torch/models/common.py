@@ -9,9 +9,11 @@ head ``h = g * rep + r`` reading KV head ``g``.  Each family defines a
 *schema*, the reference's nested dict of ``ParamSpec`` leaves, from which
 come its random init (``schema_init``), its shapes (``schema_shapes``,
 meta tensors), its PartitionSpecs on a mesh (``schema_pspecs``) and its
-parameter count (``count_params``).  The reference's ``schema_shardings``
-(``NamedSharding`` of each leaf) waits for the multi-process execution,
-ROADMAP Queue A item 3(b).
+parameter count (``count_params``), and its shardings
+(``schema_shardings``: a ``sharding.NamedSharding`` a leaf, its DTensor
+placements on the mesh's dimensions), which ``sharding.shard_tree`` and
+``gather_tree`` apply to a tree of full leaves under a process mesh and
+undo.
 """
 from __future__ import annotations
 
@@ -23,11 +25,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
-from ..sharding import PartitionSpec
+from ..sharding import NamedSharding, PartitionSpec
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["ParamSpec", "MODEL_AXIS", "stack_schema", "spec_to_pspec",
            "schema_init", "schema_shapes", "schema_pspecs", "count_params",
+           "schema_shardings",
            "params_from_numpy", "at_least_fp32",
            "rms_norm",
            "softcap", "rope_inv_freq", "apply_rope", "make_attn_mask",
@@ -138,6 +141,13 @@ def schema_pspecs(schema: dict, mesh, fsdp: bool = False) -> dict:
 
 def count_params(schema: dict) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(schema))
+
+
+def schema_shardings(schema: dict, mesh, fsdp: bool = False) -> dict:
+    """Each leaf's ``NamedSharding`` on ``mesh`` (its ``spec_to_pspec``,
+    FSDP's data-axis cut where ``fsdp``)."""
+    return tree_map(lambda s: NamedSharding(mesh, spec_to_pspec(s, mesh, fsdp)),
+                    schema)
 
 
 def _leaf_from_numpy(a, dev: torch.device) -> torch.Tensor:

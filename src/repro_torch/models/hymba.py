@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..devices import resolve_device
+from ..sharding import BATCH, shard_hint
 from ..tree import tree_map
 from .common import (ParamSpec, apply_rope, attention, make_attn_mask,
                      next_token_nll, position_index, rms_norm, rope_inv_freq,
@@ -195,6 +196,7 @@ def forward(params, cfg: HymbaConfig, tokens: torch.Tensor, *,
     (each scan chunk recomputed in backward, as the reference's)."""
     b, s = tokens.shape
     x = params["embed"][tokens]
+    x = shard_hint(x, BATCH, "data" if b == 1 else None, None)
     pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     rope = rope_inv_freq(cfg.head_dim, cfg.rope_base, x.device)
     hd = cfg.head_dim

@@ -17,8 +17,14 @@ dispatches of those entries compute the same function:
   their weighted outputs scatter-added back to their tokens.  Tests and
   the card check hold the first against it; no served path runs it.
 
-Expert parallelism (the reference's ``experts`` axis over the mesh) waits
-for the port's sharding slice.
+Under a process mesh whose ranks split the batch, the dispatch groups
+are the reference's groups of the global tokens: a rank dispatches the
+groups that its rows make up, with the reference's capacity, and a
+group that would span ranks (``dispatch_groups`` not a multiple of the
+ranks) raises ``NotImplementedError``.  Expert parallelism (the
+reference's ``experts`` axis over the mesh) and such cross-rank groups
+are ROADMAP Queue A item 3(c): the hints on the expert buffers raise
+where ``model`` has more than one rank.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding import BATCH, MODEL, QUEUE_3C, batch_ranks, shard_hint
 from .common import ParamSpec
 
 __all__ = ["MoEConfig", "moe_schema", "moe_ffn", "moe_ffn_plain", "route",
@@ -143,9 +150,21 @@ def _shared_ffn(w: dict, xg: torch.Tensor) -> torch.Tensor:
 
 
 def _grouped(x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """``x`` (T, d) as its dispatch groups (G, T/G, d).  Where ``k`` ranks
+    each hold T of the batch's tokens, the groups are those of the k*T
+    global tokens, k dividing their count so that each rank holds whole
+    ones."""
     t, d = x.shape
-    g = dispatch_groups(cfg, t)
-    return x.reshape(g, t // g, d)
+    k = batch_ranks()
+    g = dispatch_groups(cfg, t * k)
+    if g % k:
+        raise NotImplementedError(
+            f"MoE dispatch in {g} group(s) of {t * k} tokens over {k} ranks' "
+            f"rows: a group spanning ranks needs a dispatch across them; "
+            f"{QUEUE_3C}")
+    xg = x.reshape(g // k, t * k // g, d)
+    # the dispatch groups align with the batch's shards
+    return shard_hint(xg, BATCH, None, None) if g > 1 else xg
 
 
 def _gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -172,7 +191,9 @@ def _moe_ffn_grouped(w: dict, xg: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     flat_idx = (slot_src - 1).clamp_min(0).reshape(g, e * cap).long()
     buf = _gather_rows(xg, flat_idx).reshape(g, e, cap, d)
     buf = buf * valid[..., None].to(xg.dtype)
+    buf = shard_hint(buf, BATCH, MODEL, None, None)
     out_buf = _expert_ffn_grouped(w, buf)
+    out_buf = shard_hint(out_buf, BATCH, MODEL, None, None)
 
     # combine: each (token, k) entry gathers its expert-output row
     inv = torch.argsort(r.order, dim=-1)  # entry -> sorted position

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..devices import resolve_device
+from ..sharding import BATCH, shard_hint
 from ..tree import tree_map
 from .common import (ParamSpec, at_least_fp32, checkpointed, next_token_nll,
                      rms_norm, stack_schema)
@@ -170,6 +171,7 @@ def _run(params, cfg: RwkvConfig, tokens, state, decode: bool,
     ``torch.utils.checkpoint`` (the reference's per-layer and per-chunk
     remat)."""
     x = params["embed"][tokens]
+    x = shard_hint(x, BATCH, "data" if x.shape[0] == 1 else None, None)
     layers = tree_map(lambda leaf: leaf.unbind(0), params["layers"])
     new = []
     for l in range(cfg.layers):

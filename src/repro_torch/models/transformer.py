@@ -30,7 +30,7 @@ reference returns a new tree (an in-place write saves one cache copy a
 step).  On one device an indexed write has the values of both of the
 reference's cache writes (``_ring_write``'s select and its
 dynamic-update-slice); which one it picks matters only for a cache
-sharded over a mesh, which waits for the port's sharding slice.  The
+sharded over a mesh, ROADMAP Queue A item 3(c).  The
 write is an ``index_copy_`` at the pass's positions, so ``decode_step``
 takes its position as a Python int or as a 0-d integer tensor on the
 cache's device (a captured step's copied-in position), with the same
@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional
 
 import torch
@@ -47,6 +48,7 @@ import torch.nn.functional as F
 
 from ..devices import resolve_device
 from ..kernels.flash_attn import HEAD_DIMS, flash_attention
+from ..sharding import BATCH, shard_hint
 from ..tree import tree_leaves
 from ..tree import tree_map as map_params
 from .common import (NEG_INF, ParamSpec, apply_rope, attention, checkpointed,
@@ -444,6 +446,11 @@ def _ffn(w, x, cfg: LMConfig):
 
 def _layer(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, moe_layer, cache,
            start, autograd):
+    if (cache is None and x.shape[1] > 1
+            and os.environ.get("REPRO_SEQ_PARALLEL") == "1"):
+        # the reference's sequence-parallel residual stream, kept behind
+        # its flag: under a mesh with a model axis it raises (3(c))
+        x = shard_hint(x, BATCH, "model", None)
     h_in = rms_norm(x, w["ln_attn"])
     attn_fn = _mla_attn if cfg.attn == "mla" else _gqa_attn
     attn_out = attn_fn(w, h_in, cfg, rope, q_pos, k_pos, window, cache, start,
@@ -495,7 +502,8 @@ def _embed(params, cfg: LMConfig, tokens):
     x = params["embed"][tokens]
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
-    return x
+    # the batch over (pod, data); at batch 1 the sequence over data
+    return shard_hint(x, BATCH, "data" if x.shape[0] == 1 else None, None)
 
 
 def _unembed(params, cfg: LMConfig, x):

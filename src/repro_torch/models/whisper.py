@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..devices import resolve_device
+from ..sharding import BATCH, shard_hint
 from ..tree import tree_map
 from .common import (ParamSpec, attention, checkpointed, make_attn_mask,
                      next_token_nll, position_index, rms_norm, stack_schema)
@@ -149,6 +150,7 @@ def encode(params, cfg: WhisperConfig, frames: torch.Tensor, *,
            autograd: bool = False) -> torch.Tensor:
     """``frames`` (B, enc_len, d) stub embeddings -> the encoder's states."""
     x = frames + params["pos_enc"][None].to(frames.dtype)
+    x = shard_hint(x, BATCH, None, None)
     x = _each_layer(_enc_layer, _layers(params["enc_layers"], cfg.enc_layers), x,
                     cfg, autograd=autograd)
     return rms_norm(x, params["ln_enc"])
@@ -175,6 +177,7 @@ def decode(params, cfg: WhisperConfig, tokens: torch.Tensor,
     -> logits (B, S, V)."""
     b, s = tokens.shape
     x = params["embed"][tokens] + _pos_dec(params, 0, s)
+    x = shard_hint(x, BATCH, None, None)
     pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     x = _each_layer(_dec_layer, _layers(params["dec_layers"], cfg.dec_layers), x,
                     enc_out, cfg, pos, autograd, autograd=autograd)

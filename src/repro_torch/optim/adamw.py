@@ -47,13 +47,15 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
-                  lr_scale=1.0):
+                  lr_scale=1.0, grad_norm: torch.Tensor | None = None):
     """One AdamW step: returns ``(params, state, {"grad_norm"})``, with
     ``params``, the moments and ``state["step"]`` (one higher) updated in
     place.  ``lr_scale`` multiplies ``cfg.lr`` (a float or a float32
-    scalar tensor, such as ``cosine_with_warmup``'s)."""
+    scalar tensor, such as ``cosine_with_warmup``'s).  ``grad_norm`` is
+    the global norm of the gradient where ``grads`` holds only this
+    rank's shards of it (FSDP); by default ``global_norm(grads)``."""
     step = state["step"].add_(1)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     flat_g = tree_leaves(grads)
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)

@@ -8,22 +8,45 @@ candidates that exist in the mesh and divide the dimension, so one model
 resolves on one device, a 16 x 16 pod or a 2 x 16 x 16 multi-pod mesh
 alike (SmolLM's 9 heads fall back to replication on ``model = 16``).
 
-The reference's ``shard_hint`` (``with_sharding_constraint`` under an
-active mesh) has no counterpart yet: in one process it can only be the
-identity, and the multi-process execution that would give it meaning is
-ROADMAP Queue A item 3(b).
+``use_mesh`` makes a mesh the active one for a block (``active_mesh``), as
+the reference's ``compat.set_mesh`` does.  ``shard_hint`` is the
+reference's ``with_sharding_constraint`` under the active mesh.  The port
+executes data parallelism only: under a process mesh each rank holds its
+rows of the batch, so a hint that places the batch dimension over the pod
+and data axes, and nothing else over an axis of more than one rank,
+states what already holds and returns ``x`` itself.  Any other placement
+(over ``model``, or a sequence over ``data``) would need the model code
+to run on sharded activations, and raises ``NotImplementedError``:
+ROADMAP Queue A item 3(c).
+
+A ``NamedSharding`` is one leaf's placement on a mesh; ``shard_tree`` cuts
+a tree of full leaves to this rank's shards and ``gather_tree`` undoes
+it, by slicing and all-gather alone.  A mesh whose ranks are processes
+(``launch.mesh.ProcessMesh``) is known here by its ``coordinate``, this
+rank's index on each axis, so this module imports nothing above it.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
 import math
 
-__all__ = ["BATCH", "MODEL", "WORKERS", "PartitionSpec", "resolve_pspec",
-           "worker_devices"]
+from .tree import tree_map
+
+__all__ = ["BATCH", "MODEL", "WORKERS", "QUEUE_3C", "PartitionSpec",
+           "resolve_pspec", "worker_devices", "use_mesh", "active_mesh",
+           "batch_ranks", "hint_pspec", "shard_hint", "check_data_parallel",
+           "spec_axes", "NamedSharding", "sharded_dim_over", "shard_tree",
+           "gather_tree"]
 
 # canonical logical axes
 BATCH = ("pod", "data")  # batch (or sequence for long context) shards here
 MODEL = "model"
 WORKERS = "workers"  # the coded cluster's n-worker axis (1-D worker mesh)
+
+# where the placements this slice does not execute are queued
+QUEUE_3C = "ROADMAP Queue A item 3(c)"
 
 
 class PartitionSpec(tuple):
@@ -84,3 +107,200 @@ def resolve_pspec(shape, axes, mesh_shape) -> PartitionSpec:
             used.update(r)
             out.append(r if len(r) > 1 else r[0])
     return PartitionSpec(*out)
+
+
+# -- the active mesh ---------------------------------------------------------
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """``mesh`` active inside the block (the reference's
+    ``compat.set_mesh``); the one before it restored after."""
+    token = _ACTIVE.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE.reset(token)
+
+
+def active_mesh():
+    """The mesh ``use_mesh`` made active in this context, else None (the
+    reference's empty ``get_abstract_mesh``)."""
+    return _ACTIVE.get()
+
+
+def _holds_ranks(mesh) -> bool:
+    """Whether ``mesh``'s points are the processes of a job (a
+    ``launch.mesh.ProcessMesh``: it knows this rank's coordinate)."""
+    return getattr(mesh, "coordinate", None) is not None
+
+
+def batch_ranks() -> int:
+    """The ranks the batch is split over under the active mesh: the
+    product of a process mesh's pod and data sizes, else 1."""
+    mesh = active_mesh()
+    if mesh is None or not _holds_ranks(mesh):
+        return 1
+    return math.prod(mesh.shape.get(a, 1) for a in BATCH)
+
+
+def _batch_dim(axes) -> int | None:
+    """The first dimension whose candidates name a data-parallel axis."""
+    for i, cand in enumerate(axes):
+        names = (cand,) if isinstance(cand, str) else tuple(cand or ())
+        if any(a in BATCH for a in names):
+            return i
+    return None
+
+
+def hint_pspec(shape, axes, mesh_shape, split: bool = True):
+    """``(global shape, PartitionSpec)`` of a ``shard_hint`` of a local
+    tensor of ``shape`` on a mesh of ``mesh_shape``: with ``split`` (a
+    process mesh, whose ranks each hold their rows of the batch) the first
+    dimension whose candidates name ``pod`` or ``data`` is that many times
+    larger globally, the product of those axes' sizes; then the spec as
+    ``resolve_pspec`` gives it on the global shape."""
+    shape = tuple(int(d) for d in shape)
+    i = _batch_dim(axes)
+    if split and i is not None:
+        k = math.prod(mesh_shape.get(a, 1) for a in BATCH)
+        shape = shape[:i] + (shape[i] * k,) + shape[i + 1:]
+    return shape, resolve_pspec(shape, axes, mesh_shape)
+
+
+def spec_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one ``PartitionSpec`` entry, as a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard_hint(x, *axes):
+    """``x`` under the active mesh's placement of ``axes`` (one entry a
+    dimension: None, an axis name, or a tuple of candidates used jointly,
+    as ``BATCH``): the identity with no active mesh, and where the
+    resolved spec shards nothing but the batch dimension that a process
+    mesh has already split over its pod and data axes.  Any other
+    placement over an axis of more than one rank raises
+    ``NotImplementedError`` (ROADMAP Queue A item 3(c))."""
+    mesh = active_mesh()
+    if mesh is None:
+        return x
+    if len(axes) != x.ndim:
+        raise ValueError(f"{len(axes)} axes for a tensor of rank {x.ndim}")
+    split = _holds_ranks(mesh)
+    _, spec = hint_pspec(x.shape, axes, mesh.shape, split)
+    check_data_parallel(spec, _batch_dim(axes), mesh.shape, split,
+                        f"shard_hint{tuple(axes)} on {tuple(x.shape)}")
+    return x
+
+
+def check_data_parallel(spec, batch_dim: int | None, mesh_shape: dict,
+                        split: bool, what: str) -> None:
+    """Raise ``NotImplementedError`` unless ``spec`` places nothing over a
+    mesh axis of more than one rank but dimension ``batch_dim`` over all
+    of the pod and data axes that have more than one (``split``: the ranks
+    of a process mesh hold their rows of the batch), the one placement
+    that data parallelism executes (ROADMAP Queue A item 3(c))."""
+    held = tuple(a for a in BATCH if mesh_shape.get(a, 1) > 1) if split else ()
+    for d, entry in enumerate(spec):
+        live = tuple(a for a in spec_axes(entry) if mesh_shape[a] > 1)
+        if live != (held if d == batch_dim else ()):
+            raise NotImplementedError(
+                f"{what} places dimension {d} over {live or 'no axis'} on "
+                f"mesh {mesh_shape}: only the batch split over "
+                f"{held or 'no axis'} executes here; {QUEUE_3C}")
+
+
+# -- a leaf's placement, and cutting trees by it -----------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """One leaf's placement on a mesh, the reference's ``NamedSharding``:
+    the mesh and the leaf's ``PartitionSpec``.  A dimension sharded over
+    several axes is cut over them in mesh order, the first axis the
+    outermost (the only order ``PartitionSpec`` tuples take here)."""
+
+    mesh: object
+    spec: PartitionSpec
+
+    def __post_init__(self):
+        names = list(self.mesh.axis_names)
+        for entry in self.spec:
+            axes = spec_axes(entry)
+            if [names.index(a) for a in axes] != sorted(names.index(a)
+                                                       for a in axes):
+                raise ValueError(f"{self.spec}: axes {axes} out of the mesh's "
+                                 f"order {tuple(names)}")
+
+    def sharded_dim(self, axis: str) -> int | None:
+        """The leaf dimension cut over mesh axis ``axis``, else None."""
+        for d, entry in enumerate(self.spec):
+            if axis in spec_axes(entry):
+                return d
+        return None
+
+    @property
+    def placements(self) -> tuple:
+        """DTensor placements, one a mesh dimension: ``Shard(d)`` where the
+        leaf's dimension ``d`` is cut over it, else ``Replicate()``."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        dims = [self.sharded_dim(a) for a in self.mesh.axis_names]
+        return tuple(Replicate() if d is None else Shard(d) for d in dims)
+
+
+def sharded_dim_over(sh: NamedSharding, axes) -> int | None:
+    """The leaf dimension cut over one of the mesh axes ``axes`` that has
+    more than one rank, else None."""
+    for axis in axes:
+        if sh.mesh.shape.get(axis, 1) > 1 and sh.sharded_dim(axis) is not None:
+            return sh.sharded_dim(axis)
+    return None
+
+
+def _cuts(sh: NamedSharding):
+    """``(axis, dim, size, index)`` of each mesh axis of more than one rank
+    that cuts the leaf, in mesh order, with this rank's index on it."""
+    mesh = sh.mesh
+    out = []
+    for axis, size in zip(mesh.axis_names, mesh.axis_sizes):
+        d = sh.sharded_dim(axis)
+        if d is None or size == 1:
+            continue
+        if not _holds_ranks(mesh):
+            raise ValueError(f"mesh {mesh.shape} holds no rank to cut a "
+                             f"leaf for: use a process mesh")
+        out.append((axis, d, size, mesh.coordinate[axis]))
+    return out
+
+
+def shard_tree(tree, shardings):
+    """This rank's shard of every full leaf of ``tree``: each dimension
+    cut over its mesh axes in mesh order (the even split a
+    ``PartitionSpec`` resolves to), copied into a tensor of its own."""
+    def cut(t, sh):
+        for axis, d, size, i in _cuts(sh):
+            if t.shape[d] % size:
+                raise ValueError(f"dimension {d} of {tuple(t.shape)} does not "
+                                 f"split over {axis} = {size}")
+            n = t.shape[d] // size
+            t = t.narrow(d, i * n, n)
+        return t.clone()
+
+    return tree_map(cut, tree, shardings)
+
+
+def gather_tree(tree, shardings):
+    """The full leaves of a tree of shards (``shard_tree``'s inverse):
+    all-gathered over each cutting axis, innermost first."""
+    def gather(t, sh):
+        for axis, d, _, _ in reversed(_cuts(sh)):
+            t = sh.mesh.all_gather(t, axis, dim=d)
+        return t
+
+    return tree_map(gather, tree, shardings)

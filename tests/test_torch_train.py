@@ -37,6 +37,9 @@ from repro_torch import checkpoint as ckpt
 from repro_torch.configs import ARCH_IDS, get_bundle, smollm_135m
 from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.launch import steps, train as train_mod
+from repro_torch.launch.mesh import Mesh
+from repro_torch.sharding import NamedSharding
+from repro_torch.sharding import PartitionSpec
 from repro_torch.launch.train import train
 from repro_torch.models import registry
 from repro_torch.models import transformer as lm
@@ -348,8 +351,18 @@ def test_checkpoint_round_trip_with_bf16_and_gc(tmp_path):
     with np.load(os.path.join(d, "step-00000004", "arrays.npz")) as z:
         assert z["a"].dtype == np.dtype("V2") and z["b/c"].dtype == np.int64
     assert ckpt.latest_step(str(tmp_path / "none")) is None
-    with pytest.raises(NotImplementedError, match="sharding"):
-        ckpt.restore(d, 4, _blank(tree), shardings=object())
+    # restore(shardings=) cuts each leaf to this process's shard: on a
+    # one-process mesh that is the whole leaf; a sharding tree that lacks
+    # a leaf raises
+    mesh = Mesh(("data", "model"), (1, 1))
+    sh = {"a": NamedSharding(mesh, PartitionSpec("data", None)),
+          "b": {"c": NamedSharding(mesh, PartitionSpec("data"))},
+          "step": NamedSharding(mesh, PartitionSpec())}
+    got = ckpt.restore(d, 4, _blank(tree), shardings=sh)
+    for a, b in zip(tree_leaves(got), tree_leaves(tree)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    with pytest.raises(KeyError):
+        ckpt.restore(d, 4, _blank(tree), shardings={"a": sh["a"]})
 
 
 def test_async_checkpoint_snapshots_before_submit_returns(tmp_path, monkeypatch):
