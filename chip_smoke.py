@@ -147,7 +147,21 @@ Phases, in order; any failure raises:
     losses finite and falling; ms a step, collective ms a step, peak
     memory a rank.  (c) ``serve_lm(mesh=...)`` on 2 ranks, batch 4: the
     tokens equal to the one-process ``serve_lm``'s, K4 launched on every
-    rank;
+    rank.  (d) tensor and expert parallelism over the mesh's ``model``
+    axis, each rank drawing its cut of the params a leaf at a time:
+    SmolLM-135M at full width and depth trained through
+    ``train(mesh=...)`` over (data 2, model 2) on 4 ranks, 5 steps of 8 x
+    256 tokens, FSDP on (its 9 heads cut inside a head), each loss within
+    1e-5 of the one-process run's and the params after step 5 held as
+    (b) holds them against the full batch; then, over (data 1, model 2),
+    ``serve_lm(mesh=...)`` of Qwen3-4B at full width and depth and of
+    DeepSeek-V2 at full width on 1 dense-first and 1 MoE layer (80
+    experts a rank), batch 4, 16 + 16 tokens, eagerly: the tokens equal
+    to the one-process ``serve_lm``'s (run after the ranks exit), Qwen3's
+    logits of every call within 1e-4 of max|logit|, K4 launched on every
+    rank once a layer at 64 query heads (4 prompts x 16 local heads); ms
+    a step and a layer, collective calls, ms and bytes by axis, peak
+    memory a rank beside its reckoned shard bytes;
 14. the arch zoo, after the earlier phases' servers, graphs and weights
     are released, one arch at a time: each drawn on the card from a seeded
     CUDA generator (fp32, TF32 off) at full width, through ``serve_lm``
@@ -2801,6 +2815,19 @@ TOL_DIST_NORM, DIST_FLIP_FRACTION = 1e-5, 0.01
 # (c) serve_lm data-parallel on 2 ranks (data 2): the tokens equal
 DIST_SERVE = {"batch": 4, "prompt_len": 16, "gen": 16}
 DIST_TIMEOUT_S = 600
+# (d) tensor and expert parallelism over the mesh's model axis, ranks
+# sharing the card over gloo.  Served over (data 1, model 2): Qwen3-4B at
+# full width and depth and DeepSeek-V2 at full width on 1 dense-first and
+# 1 MoE layer (80 of its 160 experts a rank), DIST_SERVE's batch and
+# lengths, eagerly (the steps hold collectives), the tokens equal to one
+# process's from the same weights and every call's logits within
+# TOL_TP_LOGITS of max|logit| (36 layers of fp32 sums whose ranks' partial
+# products add in another order, and a decode step over the
+# sequence-cut cache merging the ranks' partial softmaxes by
+# log-sum-exp).  SmolLM-135M trained over (data 2, model 2) on 4 ranks,
+# FSDP on, as (b): its 9 heads cut at 288 of 576 columns, inside a head.
+TP_SERVE = (("qwen3-4b", None), ("deepseek-v2-236b", 2))
+TP_RANKS_SERVE, TP_RANKS_TRAIN, TOL_TP_LOGITS = 2, 4, 1e-4
 
 
 def _no_tf32() -> None:
@@ -2931,6 +2958,273 @@ def dist_lm_rank(rank: int, ckpt_dir: str, device: str, smoke: bool) -> dict:
     return out
 
 
+def _tp_spy():
+    """Record the query heads (``B x heads``) of every K4 call the
+    transformer makes in this process; returns the list."""
+    from repro_torch.models import transformer
+
+    seen, launch = [], transformer.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append(int(q.shape[0]))
+        return launch(q, k, v, **kw)
+
+    transformer.flash_attention = spy
+    return seen
+
+
+def _axis_stats(mesh) -> dict:
+    return {k: {"calls": v["calls"], "ms": v["s"] * 1e3, "bytes": v["bytes"]}
+            for k, v in mesh.stats["by_axis"].items()}
+
+
+def _shard_bytes(bundle, mesh, fsdp: bool = False) -> int:
+    """The fp32 bytes of this rank's cut of every leaf, reckoned from the
+    schema's shardings."""
+    from repro_torch.models.common import schema_shardings
+    from repro_torch.tree import tree_leaves
+
+    total = 0
+    for spec, sh in zip(tree_leaves(bundle.schema),
+                        tree_leaves(schema_shardings(bundle.schema, mesh, fsdp))):
+        n = math.prod(spec.shape)
+        for d, entry in enumerate(sh.spec):
+            for a in ((entry,) if isinstance(entry, str) else (entry or ())):
+                n //= mesh.shape[a]
+        total += n * 4
+    return total
+
+
+def dist_tp_serve_rank(rank: int, device: str, smoke: bool) -> dict:
+    """Rank ``rank`` of (data 1, model 2): each arch of ``TP_SERVE``
+    through ``serve_lm(mesh=...)``, eagerly, each rank drawing its cut of
+    the params a leaf at a time: the tokens, every call's logits (rank 0),
+    K4's launches and the query heads of each, ms a step, the collectives
+    by axis, peak memory beside the reckoned shard bytes."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels.flash_attn.kernel import launches as k4_launches
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models.registry import with_layers
+
+    _no_tf32()
+    mesh = make_process_mesh((1, TP_RANKS_SERVE), ("data", "model"),
+                             device=device)
+    dev = mesh.device
+    heads = _tp_spy()
+    out = {"backend": mesh.backend}
+    for arch, layers in TP_SERVE:
+        bundle = get_bundle(arch, smoke=smoke)
+        if layers is not None:
+            bundle = with_layers(bundle, layers)
+        rows, timings = [], {}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        mesh.stats["by_axis"].clear()
+        heads.clear()
+        k4_launches.reset()
+        t0 = time.perf_counter()
+        toks = serve_lm(arch, device=device, seed=SEED, smoke=smoke, mesh=mesh,
+                        layers=layers, graphs=False, timings=timings,
+                        on_logits=lambda lg, rows=rows: rows.append(
+                            lg.cpu() if rank == 0 else None), **DIST_SERVE)
+        wall = time.perf_counter() - t0
+        out[arch] = {
+            "tokens": toks, "logits": rows if rank == 0 else None,
+            "k4": k4_launches.count, "k4_heads": list(heads),
+            "layers": bundle.cfg.layers, "wall_s": wall,
+            "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
+            "init_s": timings["init_s"], "collectives": _axis_stats(mesh),
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None),
+            "shard_bytes": _shard_bytes(bundle, mesh)}
+        if bundle.cfg.moe is not None:
+            out[arch]["experts_per_rank"] = (bundle.cfg.moe.n_routed
+                                             // TP_RANKS_SERVE)
+        _empty_cache(dev)
+    return out
+
+
+def dist_tp_train_rank(rank: int, ckpt_dir: str, device: str, smoke: bool
+                       ) -> dict:
+    """Rank ``rank`` of (data 2, model 2): SmolLM-135M trained through
+    ``train(mesh=...)``, FSDP on, eagerly, its last checkpoint written by
+    rank 0: the losses and gradient norms, ms a step, the collectives a
+    step by axis, peak memory beside the reckoned shard bytes."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.train import train
+
+    _no_tf32()
+    mesh = make_process_mesh((2, TP_RANKS_TRAIN // 2), ("data", "model"),
+                             device=device)
+    dev = mesh.device
+    stamps, norms, coll = [], [], []
+
+    def on_step(step, metrics):
+        stamps.append(time.perf_counter())
+        norms.append(float(metrics["grad_norm"]))
+        coll.append(_axis_stats(mesh))
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    losses = train(TRAIN_ARCH, steps=DIST_TRAIN_STEPS, batch=TRAIN_BATCH,
+                   seq=TRAIN_SEQ, smoke=smoke, device=device, seed=SEED,
+                   lr=DIST_LR, graphs=False, mesh=mesh, on_step=on_step,
+                   ckpt_dir=ckpt_dir, ckpt_every=DIST_TRAIN_STEPS,
+                   log_every=DIST_TRAIN_STEPS)
+    return {"backend": mesh.backend, "losses": losses, "grad_norms": norms,
+            "ms_per_step": (np.diff([t0] + stamps) * 1e3).tolist(),
+            "collectives_per_step": coll,
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None),
+            "shard_bytes": _shard_bytes(get_bundle(TRAIN_ARCH, smoke=smoke),
+                                        mesh, fsdp=True)}
+
+
+def tensor_parallel_part(device, dev: str, smoke: bool, tmp: str,
+                         one_losses: list, one_norms: list, full: dict,
+                         init: dict) -> dict:
+    """Part (d): serving over (data 1, model 2) and training over (data 2,
+    model 2), each held against this process's one-process run, which
+    runs after the ranks exit."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.checkpoint import restore
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.optim import init_state
+
+    out = {}
+    t0 = time.perf_counter()
+    tr = run_ranks(dist_tp_train_rank, TP_RANKS_TRAIN, os.path.join(tmp, "tp"),
+                   dev, smoke, device=dev, timeout_s=DIST_TIMEOUT_S,
+                   store_path=os.path.join(tmp, "store-tp-train"))
+    train_s = time.perf_counter() - t0
+    loss_err = max(abs(a - b) / abs(b) for res in tr
+                   for a, b in zip(res["losses"], one_losses))
+    if not loss_err <= TOL_DIST_LOSS:
+        raise AssertionError(f"(data 2, model 2) losses vs one process: max "
+                             f"rel err {loss_err:.2e} > {TOL_DIST_LOSS}")
+    norm_err = max(abs(a - b) / abs(b) for res in tr
+                   for a, b in zip(res["grad_norms"], one_norms))
+    bundle = get_bundle(TRAIN_ARCH, smoke=smoke)
+    like = {"params": init, "opt": init_state(init)}
+    tp = restore(os.path.join(tmp, "tp"), DIST_TRAIN_STEPS, like)["params"]
+    out["train"] = {"ranks": TP_RANKS_TRAIN, "mesh": "(data 2, model 2)",
+                    "backend": tr[0]["backend"], "run_ranks_s": train_s,
+                    "losses": tr[0]["losses"], "loss_max_rel_err": loss_err,
+                    "grad_norm_max_rel_err": norm_err,
+                    "param_full_batch": hold_full_batch(tp, full, init),
+                    **{k: [res[k] for res in tr]
+                       for k in ("ms_per_step", "peak_bytes", "shard_bytes")},
+                    "collectives_per_step": tr[0]["collectives_per_step"]}
+    del tp, like, bundle
+
+    t0 = time.perf_counter()
+    sv = run_ranks(dist_tp_serve_rank, TP_RANKS_SERVE, dev, smoke, device=dev,
+                   timeout_s=DIST_TIMEOUT_S,
+                   store_path=os.path.join(tmp, "store-tp-serve"))
+    serve_s = time.perf_counter() - t0
+    out["serve"] = {"ranks": TP_RANKS_SERVE, "mesh": "(data 1, model 2)",
+                    "run_ranks_s": serve_s, "archs": []}
+    k4_total = 0
+    for arch, layers in TP_SERVE:
+        rows = []
+        want = serve_lm(arch, device=device, seed=SEED, smoke=smoke,
+                        layers=layers, graphs=False,
+                        on_logits=lambda lg: rows.append(lg.cpu()), **DIST_SERVE)
+        got = sv[0][arch]
+        for r, res in enumerate(sv):
+            if not torch.equal(torch.from_numpy(res[arch]["tokens"]), want.cpu()):
+                raise AssertionError(f"serve_lm {arch} over (data 1, model 2): "
+                                     f"rank {r}'s tokens differ from one "
+                                     f"process's")
+        err = max(_max_rel(a, b) for a, b in zip(got["logits"], rows))
+        if len(got["logits"]) != len(rows):
+            raise AssertionError(f"{arch}: {len(got['logits'])} logits calls "
+                                 f"over the mesh, {len(rows)} in one process")
+        if arch == "qwen3-4b" and not err <= TOL_TP_LOGITS:
+            raise AssertionError(f"serve_lm {arch} over (data 1, model 2): "
+                                 f"logits max rel err {err:.2e} > "
+                                 f"{TOL_TP_LOGITS}")
+        cfg = get_bundle(arch, smoke=smoke).cfg
+        # K4 takes GQA's prefill (MLA's v is narrower than its q: plain)
+        local_heads = (DIST_SERVE["batch"] * cfg.n_heads // TP_RANKS_SERVE
+                       if cfg.attn == "gqa" else None)
+        if dev != "cpu" and local_heads is not None:
+            for r, res in enumerate(sv):
+                if res[arch]["k4"] != res[arch]["layers"] or any(
+                        h != local_heads for h in res[arch]["k4_heads"]):
+                    raise AssertionError(
+                        f"{arch} rank {r}: K4 launched {res[arch]['k4']} times "
+                        f"at {sorted(set(res[arch]['k4_heads']))} query heads, "
+                        f"want {res[arch]['layers']} at {local_heads}")
+        k4_total += sum(res[arch]["k4"] for res in sv)
+        out["serve"]["archs"].append({
+            "arch": arch, "layers": got["layers"], "tokens_equal": True,
+            "logits_max_rel_err": err, "k4_heads": local_heads,
+            "experts_per_rank": got.get("experts_per_rank"),
+            **{k: [res[arch][k] for res in sv]
+               for k in ("k4", "init_s", "prefill_s", "decode_s", "wall_s",
+                         "peak_bytes", "shard_bytes", "collectives")}})
+        del rows, want
+        _empty_cache(device)
+    out["by_path"] = {"serve_lm_tp": {"flash_attention": k4_total}}
+    return out
+
+
+def print_tensor_parallel(tp: dict, card: str) -> None:
+    """Part (d)'s lines."""
+    t = tp["train"]
+    med = [float(np.median(ms[1:])) for ms in t["ms_per_step"]]
+    c = t["collectives_per_step"]
+    per_axis = {ax: {"calls": (c[-1][ax]["calls"] - c[0][ax]["calls"])
+                     / (len(c) - 1),
+                     "ms": (c[-1][ax]["ms"] - c[0][ax]["ms"]) / (len(c) - 1),
+                     "MB": (c[-1][ax]["bytes"] - c[0][ax]["bytes"])
+                     / (len(c) - 1) / 1e6} for ax in c[-1] if ax in c[0]}
+    print(f"  (d) train {TRAIN_ARCH} over {t['mesh']} on {t['ranks']} ranks "
+          f"({t['backend']}), FSDP on, {DIST_TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, eager, on {card}: losses "
+          f"{[round(x, 5) for x in t['losses']]}, max rel err vs one process "
+          f"{t['loss_max_rel_err']:.2e} <= {TOL_DIST_LOSS}, gradient norms "
+          f"{t['grad_norm_max_rel_err']:.2e}; params after step "
+          f"{DIST_TRAIN_STEPS} vs the full batch: furthest leaf "
+          f"{t['param_full_batch']['leaf']} {t['param_full_batch']['rel']:.2e} "
+          f"of max|p| ({t['param_full_batch']['beyond']} elements beyond "
+          f"{TOL_DIST_PARAM}); ms a step (median of steps 2-{DIST_TRAIN_STEPS}) "
+          f"per rank {[round(m, 1) for m in med]}; collectives a step by axis "
+          + "; ".join(f"{ax} {v['calls']:.0f} calls {v['ms']:.1f} ms "
+                      f"{v['MB']:.1f} MB" for ax, v in per_axis.items())
+          + f"; peak {[_gib(b) for b in t['peak_bytes']]} against shards of "
+          f"{[_gib(b) for b in t['shard_bytes']]} a rank")
+    for a in tp["serve"]["archs"]:
+        dec = [s / DIST_SERVE["gen"] * 1e3 for s in a["decode_s"]]
+        coll = a["collectives"][0]
+        print(f"  (d) serve_lm {a['arch']} at full width, {a['layers']} layers, "
+              f"over {tp['serve']['mesh']} ({tp['serve']['ranks']} ranks), batch "
+              f"{DIST_SERVE['batch']}, {DIST_SERVE['prompt_len']} + "
+              f"{DIST_SERVE['gen']} tokens, eager, on {card}: tokens equal to "
+              f"one process's, logits max rel err {a['logits_max_rel_err']:.2e}"
+              + (f" <= {TOL_TP_LOGITS}" if a["arch"] == "qwen3-4b" else "")
+              + (f"; K4 launches per rank {a['k4']} at {a['k4_heads']} query "
+                 f"heads (B x local heads)" if a["k4_heads"] else
+                 f"; K4 launches per rank {a['k4']} (MLA attends plain)")
+              + (f"; {a['experts_per_rank']} experts a rank"
+                 if a["experts_per_rank"] else "")
+              + f"; init s {[round(x, 2) for x in a['init_s']]}, prefill s "
+              f"{[round(x, 3) for x in a['prefill_s']]}, decode ms a step "
+              f"{[round(x, 1) for x in dec]} ({[round(x / a['layers'], 2) for x in dec]}"
+              f" a layer); rank 0's collectives "
+              + "; ".join(f"{ax} {v['calls']} calls {v['ms']:.1f} ms "
+                          f"{v['bytes'] / 1e6:.1f} MB" for ax, v in coll.items())
+              + f"; peak {[_gib(b) for b in a['peak_bytes']]} against shards of "
+              f"{[_gib(b) for b in a['shard_bytes']]} a rank")
+    print(f"  (d) run_ranks s: train {tp['train']['run_ranks_s']:.1f}, serve "
+          f"{tp['serve']['run_ranks_s']:.1f}")
+
+
 def _max_rel(got, want) -> float:
     got = torch.as_tensor(np.asarray(got)).double()
     want = torch.as_tensor(np.asarray(want)).double()
@@ -2940,8 +3234,10 @@ def _max_rel(got, want) -> float:
 def distributed_phase(device, card: str, smoke: bool = False) -> dict:
     """The process mesh on one card, as the module docstring's phase 13
     says: (a) VGG-16 through ``run_sharded`` on ``DIST_RANKS`` ranks, (b)
-    SmolLM-135M trained data-parallel, (c) served data-parallel, each
-    held against this process's one-process run.  Ranks are spawned by
+    SmolLM-135M trained data-parallel, (c) served data-parallel, (d)
+    tensor and expert parallelism over the model axis (Qwen3-4B and
+    DeepSeek-V2 served over (data 1, model 2), SmolLM-135M trained over
+    (data 2, model 2)), each held against this process's one-process run.  Ranks are spawned by
     ``run_ranks`` (the kernels are already built here, so each rank loads
     them), joined with a timeout; any failing or hung rank raises.
     ``smoke`` rehearses it on the CPU at the smoke sizes."""
@@ -3059,7 +3355,7 @@ def distributed_phase(device, card: str, smoke: bool = False) -> dict:
         full_gap = hold_full_batch(dp, full, init)
         micro_loss_err = max(abs(a - b) / abs(b) for res in lm
                              for a, b in zip(res["fsdp"]["losses"], micro_losses))
-        del one, dp, gathered, full, init
+        del one, dp, gathered
         for res in lm:
             l8 = res["int8_pod"]["losses"]
             if not (all(math.isfinite(v) for v in l8) and l8[-1] < l8[0]):
@@ -3093,6 +3389,15 @@ def distributed_phase(device, card: str, smoke: bool = False) -> dict:
                                           "peak_bytes")}
         out["lm"]["fsdp"]["shard_numel"] = [res["fsdp"]["shard_numel"]
                                             for res in lm]
+        del lm
+        _empty_cache(device)
+        # (d) tensor and expert parallelism over the model axis
+        t0 = time.perf_counter()
+        tp = tensor_parallel_part(device, dev, smoke, tmp, one_losses,
+                                  one_norms, full, init)
+        tp["seconds"] = time.perf_counter() - t0
+        out["by_path"].update(tp.pop("by_path"))
+        out["tensor_parallel"] = tp
     return out
 
 
@@ -3227,6 +3532,9 @@ def print_distributed(d: dict, card: str) -> None:
           f"{DIST_SERVE['gen']} tokens: tokens equal to one process's; K4 "
           f"launches per rank {s['k4']}; decode s per rank "
           f"{[round(x, 3) for x in s['decode_s']]}")
+    if "tensor_parallel" in d:
+        print(f"  (d) tensor parallelism: {d['tensor_parallel']['seconds']:.1f} s")
+        print_tensor_parallel(d["tensor_parallel"], card)
 
 
 def main() -> int:

@@ -18,6 +18,21 @@ group of one axis or of several.  ``use_mesh`` makes a mesh the active
 one for a block (``active_mesh``), as the reference's ``compat.set_mesh``
 does (both live in ``sharding``, whose ``shard_hint`` reads it).
 
+Tensor parallelism (Megatron-LM, Shoeybi et al., arXiv:1909.08053 §3)
+needs collectives that carry gradients.  ``copy_to`` is Megatron's *f*:
+the identity forward, an all-reduce of the gradient backward; it goes at
+the input of a column-cut product, whose gradient with respect to its
+input is each rank's partial sum.  ``reduce_from`` is its conjugate *g*:
+an all-reduce forward, the identity backward, after a row-cut product.
+``gather_from`` all-gathers forward and takes this rank's slice of the
+gradient backward (right where what follows computes the same on every
+rank; ``copy_to`` after it sums partial gradients first).  The plain
+collectives detach their operands.  ``stats`` counts calls, seconds and
+operand bytes, in total and by the axes a collective spans; ``trace``,
+where a list, records each collective's kind, axes, operand shape and the
+address of the operand's storage (which tells a parameter or a cache leaf
+sent as it is from an activation).
+
 The backend follows from where the ranks run:
 
 * ``nccl`` where each rank of a host has its own card;
@@ -47,7 +62,7 @@ import numpy as np
 import torch
 
 from ..devices import canonical_device, resolve_device
-from ..sharding import QUEUE_3C, active_mesh, use_mesh
+from ..sharding import active_mesh, use_mesh
 
 __all__ = ["Mesh", "ProcessMesh", "make_host_mesh", "make_worker_mesh",
            "make_production_mesh", "make_process_mesh", "backend_for",
@@ -151,10 +166,31 @@ class ProcessMesh:
         self.backend = backend
         self.coordinate = dict(zip(self.axis_names,
                                    device_mesh.get_coordinate()))
-        # seconds and calls spent in this mesh's collectives, host
+        # seconds, calls and operand bytes of this mesh's collectives, host
         # staging included (gloo's are synchronous; an nccl call returns
-        # at its enqueue)
-        self.stats = {"collectives": 0, "collective_s": 0.0}
+        # at its enqueue); "by_axis" splits them by the axes spanned, e.g.
+        # "model" against "data"
+        self.stats = {"collectives": 0, "collective_s": 0.0,
+                      "collective_bytes": 0, "by_axis": {}}
+        # a list to record (kind, axes, operand shape, storage address) of
+        # each collective
+        self.trace: list | None = None
+        self._groups = self._joint_groups()
+
+    def _joint_groups(self) -> dict:
+        """The process groups of every set of two or more axes of more than
+        one rank short of the whole job, made now: every rank must create
+        every group, in the same order."""
+        import torch.distributed as dist
+
+        out = {}
+        for axes, blocks in joint_group_ranks(self.axis_names,
+                                              self.axis_sizes).items():
+            for block in blocks:
+                group = dist.new_group(block)
+                if self.device_mesh.get_rank() in block:
+                    out[axes] = group
+        return out
 
     @property
     def shape(self) -> dict:
@@ -185,10 +221,9 @@ class ProcessMesh:
 
     def group(self, axes):
         """The process group spanning ``axes``: None where they hold one
-        rank, one axis' group, or the whole job where they cover every
-        axis of more than one rank.  Axes jointly short of the job (data
-        parallelism beside a model axis) need a group per model shard,
-        which comes with tensor parallelism."""
+        rank, one axis' group, the whole job where they cover every axis
+        of more than one rank, else the group made for them at
+        construction (pod and data beside a model axis)."""
         live = self._live(axes)
         if not live:
             return None
@@ -198,11 +233,9 @@ class ProcessMesh:
             import torch.distributed as dist
 
             return dist.group.WORLD
-        raise NotImplementedError(
-            f"a collective over {live} beside other axes of {self.shape}: "
-            f"{QUEUE_3C}")
+        return self._groups[live]
 
-    def _staged(self, t: torch.Tensor, run) -> torch.Tensor:
+    def _staged(self, t: torch.Tensor, run, kind: str, axes) -> torch.Tensor:
         """``run(operand)`` on ``t``: where gloo carries a CUDA tensor, the
         operand is an explicit host copy and the result goes back to the
         card.  Gloo stages CUDA tensors through host memory for the
@@ -212,8 +245,19 @@ class ProcessMesh:
         host = self.backend == "gloo" and t.device.type != "cpu"
         out = run(t.detach().to("cpu") if host else t.detach().contiguous())
         out = out.to(t.device) if host else out
+        dt, nbytes = time.perf_counter() - t0, t.numel() * t.element_size()
+        key = "+".join(self._live(axes))
         self.stats["collectives"] += 1
-        self.stats["collective_s"] += time.perf_counter() - t0
+        self.stats["collective_s"] += dt
+        self.stats["collective_bytes"] += nbytes
+        ax = self.stats["by_axis"].setdefault(key, {"calls": 0, "s": 0.0,
+                                                    "bytes": 0})
+        ax["calls"] += 1
+        ax["s"] += dt
+        ax["bytes"] += nbytes
+        if self.trace is not None:
+            self.trace.append((kind, key, tuple(t.shape),
+                               t.untyped_storage().data_ptr()))
         return out
 
     def all_gather(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
@@ -229,21 +273,45 @@ class ProcessMesh:
             dist.all_gather(parts, x, group=group)
             return torch.cat(parts, dim=dim)
 
-        return self._staged(t, run)
+        return self._staged(t, run, "all_gather", axes)
 
-    def all_reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
-        """The sum of the ranks' ``t`` over ``axes`` (a new tensor)."""
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
+        """The sum (``op="max"``: the maximum) of the ranks' ``t`` over
+        ``axes``, a new tensor."""
         group = self.group(axes)
         if group is None:
             return t
         import torch.distributed as dist
 
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+
         def run(x):
             x = x.clone()
-            dist.all_reduce(x, group=group)
+            dist.all_reduce(x, op=red, group=group)
             return x
 
-        return self._staged(t, run)
+        return self._staged(t, run, f"all_reduce_{op}", axes)
+
+    def copy_to(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Megatron's *f*: ``t`` forward; backward, the gradient summed
+        over ``axes``."""
+        if self.group(axes) is None:
+            return t
+        return _CopyTo.apply(t, self, axes)
+
+    def reduce_from(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Megatron's *g*: the sum over ``axes`` forward; backward, the
+        gradient as it is."""
+        if self.group(axes) is None:
+            return t
+        return _ReduceFrom.apply(t, self, axes)
+
+    def gather_from(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """``all_gather`` along ``dim`` forward; backward, this rank's slice
+        of the gradient along ``dim``."""
+        if self.group(axes) is None:
+            return t
+        return _GatherFrom.apply(t, self, axes, dim)
 
     def reduce_scatter(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """This rank's slice along ``dim`` of the sum over ``axes`` (the
@@ -256,6 +324,60 @@ class ProcessMesh:
         k, i = self.group_size(axes), self.group_rank(axes)
         n = t.shape[dim] // k
         return self.all_reduce(t, axes).narrow(dim, i * n, n).contiguous()
+
+
+def joint_group_ranks(axis_names, axis_sizes) -> dict:
+    """For every set of two or more axes of more than one rank short of
+    the whole mesh: the ranks of each of its groups, one group a
+    coordinate of the other axes, each in group order (row-major over the
+    set's axes, as rank ``r`` sits at the row-major coordinate of ``r``)."""
+    import itertools
+
+    names, sizes = tuple(axis_names), tuple(int(s) for s in axis_sizes)
+    live = [a for a, n in zip(names, sizes) if n > 1]
+    ranks = np.arange(math.prod(sizes)).reshape(sizes)
+    out = {}
+    for n in range(2, len(live)):
+        for axes in itertools.combinations(live, n):
+            keep = [names.index(a) for a in axes]
+            rest = [i for i in range(len(names)) if i not in keep]
+            blocks = np.transpose(ranks, rest + keep).reshape(
+                -1, math.prod(sizes[i] for i in keep))
+            out[axes] = [[int(r) for r in block] for block in blocks]
+    return out
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce(grad, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return mesh.all_reduce(t, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.n, ctx.i = t.shape[dim], mesh.group_rank(axes)
+        ctx.dim = dim
+        return mesh.all_gather(t, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.i * ctx.n, ctx.n), None, None, None
 
 
 def make_process_mesh(axis_sizes, axis_names, device: str | torch.device = "cuda",

@@ -16,8 +16,10 @@
     prefill each replay one CUDA graph (``launch.steps.compiled_decode``,
     ``compiled_prefill``: the reference's ``jax.jit`` of both);
     ``serve_lm(graphs=False)`` runs them eagerly.  ``serve_lm(mesh=...)``
-    serves data-parallel over a process mesh: each rank its rows of the
-    batch, with the params whole on every rank.
+    serves over a process mesh: each rank its rows of the batch over the
+    pod and data axes and, for the transformer family, its cut of the
+    params and caches over the ``model`` axis (tensor and expert
+    parallelism, eagerly).
 
 It runs on the card by default, through the hand-written kernels.
 
@@ -44,11 +46,13 @@ from ..core.graphs import GraphSet, graph_class
 from ..core.pipeline import build_cnn_pipeline
 from ..devices import resolve_device
 from ..models.cnn import CNN_SPECS, init_cnn, input_hw
+from ..models.common import schema_shardings
 from ..models.registry import with_layers
 from ..runtime import StragglerModel
 from ..serving import CodedServer, ServingFrontend
-from ..sharding import (BATCH, NamedSharding, check_data_parallel,
-                        resolve_pspec, shard_tree, use_mesh)
+from ..sharding import (BATCH, MODEL, QUEUE_3C, NamedSharding,
+                        check_data_parallel, resolve_pspec, shard_tree,
+                        use_mesh)
 from . import steps as steps_mod
 
 __all__ = ["build_cnn_server", "serve_cnn", "serve_lm", "serve", "main"]
@@ -90,7 +94,14 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
     above (a decode step holds no collective), and the tokens are
     all-gathered to every rank at the end.  ``decode_s`` is this rank's,
     ``tok_s`` every rank's tokens over the slowest rank's decode time.
-    Rank 0 prints."""
+    Rank 0 prints.  Over a ``model`` axis of more than one rank (the
+    transformer family only, ``steps.check_model_axis``) each rank draws
+    the params a leaf at a time and keeps its cut (``params``, where given,
+    are this rank's cut), its cache is its cut (``transformer.
+    cache_layout``), and the steps run eagerly: they hold collectives, so
+    ``graphs`` must resolve to no capture (``graphs=False`` on the card),
+    else ``NotImplementedError`` (the distributed step captured is ROADMAP
+    Queue A item 3(c))."""
     if arch not in ARCH_IDS:
         raise SystemExit(f"unknown LM arch {arch!r}; valid: {ARCH_IDS}")
     dev = resolve_device(device)
@@ -119,6 +130,14 @@ def _serve_lm(arch, dev, rows, *, batch, prompt_len, gen, smoke, seed,
     if layers is not None:
         bundle = with_layers(bundle, layers)
     max_len = prompt_len + gen
+    mesh = None if rows is None else rows.mesh
+    model = 1 if mesh is None else mesh.shape.get(MODEL, 1)
+    steps_mod.check_model_axis(bundle, mesh)
+    cls = graph_class(graphs, dev)
+    if model > 1 and cls is not None:
+        raise NotImplementedError(
+            f"serving over model = {model} runs eagerly (graphs=False): its "
+            f"steps hold collectives, which no graph captures; {QUEUE_3C}")
 
     def sync():
         if dev.type == "cuda":
@@ -128,7 +147,9 @@ def _serve_lm(arch, dev, rows, *, batch, prompt_len, gen, smoke, seed,
     if params is None:
         t0 = time.perf_counter()
         params = bundle.init(torch.Generator(device=dev).manual_seed(seed),
-                             param_dtype, dev)
+                             param_dtype, dev,
+                             schema_shardings(bundle.schema, mesh)
+                             if model > 1 else None)
         sync()
         drawn["init_s"] = time.perf_counter() - t0
     prompts = torch.randint(0, bundle.cfg.vocab, (batch, prompt_len),
@@ -138,7 +159,6 @@ def _serve_lm(arch, dev, rows, *, batch, prompt_len, gen, smoke, seed,
         prompts = shard_tree(prompts, rows)
         batch = prompts.shape[0]
     cache = bundle.make_cache(batch, max_len, param_dtype, dev)
-    cls = graph_class(graphs, dev)
     gs = None if cls is None else GraphSet("serve", dev, cls)
     decode = steps_mod.compiled_decode(bundle, gs, max_len, dev)
 

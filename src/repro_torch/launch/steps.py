@@ -8,12 +8,14 @@ apart: ``batch_pspecs``, ``cache_pspecs`` and ``opt_state_pspecs`` (with
 and ``make_opt_shapes``, the optimizer state as meta tensors.
 
 Under a process mesh of several ranks (``launch.mesh.ProcessMesh``)
-``build_train_step`` returns a ``DataParallelStep``: each rank takes its
-rows of the global batch, the gradients are averaged over the pod and
-data axes, and with ``fsdp`` the params and AdamW moments live as this
-rank's shards (gathered before the forward, the gradients cut back to
-them).  Tensor, expert and sequence parallelism are ROADMAP Queue A item
-3(c).
+``build_train_step`` returns a ``ParallelStep``: each rank takes its rows
+of the global batch, the gradients are averaged over the pod and data
+axes, and with ``fsdp`` the params and AdamW moments live as this rank's
+shards (gathered over the data axes before the forward, the gradients
+cut back to them).  Over a ``model`` axis of more than one rank the
+transformer family runs tensor and expert parallel (each rank its cut of
+every leaf, ``models.transformer``); the other families and sequence
+parallelism are ROADMAP Queue A item 3(c).
 
 The reference's launchers ``jax.jit`` three steps: the decode step and the
 cache-filling prefill (with the cache donated) and the train step (with
@@ -37,7 +39,7 @@ from ..core.pipeline import Program
 from ..models.common import checkpointed, schema_shardings
 from ..optim import AdamWConfig, apply_updates, compress_tree, init_state
 from ..optim.schedule import cosine_with_warmup
-from ..sharding import (BATCH, QUEUE_3C, NamedSharding, PartitionSpec,
+from ..sharding import (BATCH, MODEL, QUEUE_3C, NamedSharding, PartitionSpec,
                         check_data_parallel, gather_tree, resolve_pspec,
                         shard_tree, sharded_dim_over, use_mesh)
 from ..tree import tree_from_items, tree_items, tree_leaves, tree_map
@@ -45,7 +47,7 @@ from .mesh import ProcessMesh
 
 __all__ = ["TrainConfig", "value_and_grad", "accumulated_value_and_grad",
            "batch_pspecs", "cache_pspecs", "opt_state_pspecs",
-           "make_opt_shapes", "spans_ranks", "DataParallelStep",
+           "make_opt_shapes", "spans_ranks", "check_model_axis", "ParallelStep",
            "build_train_step", "build_prefill_step", "build_serve_step",
            "CompiledStep", "compiled_decode", "compiled_prefill",
            "compiled_train_step"]
@@ -162,6 +164,17 @@ def spans_ranks(mesh) -> bool:
     return isinstance(mesh, ProcessMesh) and mesh.size > 1
 
 
+def check_model_axis(bundle, mesh) -> None:
+    """Raise ``NotImplementedError`` where ``mesh`` has a ``model`` axis of
+    more than one rank and ``bundle`` is not of the transformer family,
+    the one whose model-axis placements execute here (3(c))."""
+    model = 1 if mesh is None else mesh.shape.get(MODEL, 1)
+    if model > 1 and bundle.family not in ("lm", "vlm"):
+        raise NotImplementedError(
+            f"{bundle.name} ({bundle.family}) over model = {model}: tensor "
+            f"parallelism executes for the transformer family only; {QUEUE_3C}")
+
+
 def build_train_step(bundle, tcfg: TrainConfig = TrainConfig(), mesh=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, the params and moments updated in place, the gradient that
@@ -171,7 +184,7 @@ def build_train_step(bundle, tcfg: TrainConfig = TrainConfig(), mesh=None):
 
     With no mesh, or a mesh of one process, the step runs here on the
     whole batch.  Under a process mesh of several ranks it is a
-    ``DataParallelStep``.  Gradient compression, as in the reference,
+    ``ParallelStep``.  Gradient compression, as in the reference,
     applies where the mesh has a ``"pod"`` axis: the averaged gradient
     goes through ``compress_tree(grads, None, mode)``.  Without one
     ``grad_compression`` is accepted, does not apply, and a warning says
@@ -185,7 +198,7 @@ def build_train_step(bundle, tcfg: TrainConfig = TrainConfig(), mesh=None):
             "compresses only across a 'pod' data-parallel axis, which this "
             "run's mesh does not have", stacklevel=2)
     if spans_ranks(mesh):
-        return DataParallelStep(bundle, tcfg, mesh, compress)
+        return ParallelStep(bundle, tcfg, mesh, compress)
 
     def train_step(params, opt_state, batch):
         loss, grads = accumulated_value_and_grad(
@@ -201,32 +214,32 @@ def build_train_step(bundle, tcfg: TrainConfig = TrainConfig(), mesh=None):
     return train_step
 
 
-class DataParallelStep:
-    """The train step on a process mesh whose ranks split the batch over
-    its pod and data axes (every other axis of one rank).
+class ParallelStep:
+    """The train step on a process mesh of (pod, data, model) ranks: the
+    batch split over the pod and data axes, each leaf cut over ``model``
+    as ``schema_shardings`` places it (the transformer family's tensor and
+    expert parallelism; ``check_model_axis``).
 
     ``param_shardings`` / ``opt_shardings`` place the params and the AdamW
-    state: with ``fsdp``, ``schema_shardings(..., fsdp=True)`` cuts the
-    stacked layer weights over the data axes and each rank holds its
-    shards (``sharding.shard_tree`` cuts full trees, ``gather_tree``
-    rebuilds them);
-    without, every rank holds them whole.  A call takes the global batch
-    and, on each rank: cuts its rows (``batch_pspecs``), all-gathers the
-    params, takes the loss and gradient of its rows, averages the loss and
-    the gradient over the data axes (a reduce-scatter onto the shards, an
-    all-reduce for a whole leaf), and runs AdamW on its shards with the
-    global gradient norm.  With ``compress`` the gradient is all-reduced
-    whole, compressed as the reference compresses it, then cut.  Every
-    rank returns the same loss and norm."""
+    state: with ``fsdp``, ``schema_shardings(..., fsdp=True)`` also cuts
+    the stacked layer weights over the data axes; ``sharding.shard_tree``
+    cuts full trees, ``gather_tree`` rebuilds them.  A call takes the
+    global batch and, on each rank: cuts its rows (``batch_pspecs``),
+    all-gathers the params over the data axes only (the ``model`` cuts
+    stay), takes the loss and gradient of its rows, averages the loss and
+    the gradient over the data axes (a reduce-scatter onto the FSDP
+    shards, an all-reduce for the rest), and runs AdamW on what it holds
+    with the global gradient norm.  The gradient of a ``model``-cut leaf
+    is this rank's block; a whole leaf's (the norms, MLA's ``wkv_a``) is
+    the same on every ``model`` rank, the model's *f* summing the ranks'
+    parts.  With ``compress`` the gradient is all-reduced over the data
+    axes and gathered over ``model``, compressed whole as the reference
+    compresses each leaf, then cut.  Every rank returns the same loss and
+    norm."""
 
     def __init__(self, bundle, tcfg: TrainConfig, mesh: ProcessMesh,
                  compress: bool):
-        other = {a: n for a, n in mesh.shape.items()
-                 if a not in BATCH and n > 1}
-        if other:
-            raise NotImplementedError(
-                f"training over {other}: only data parallelism over "
-                f"{BATCH} executes here; {QUEUE_3C}")
+        check_model_axis(bundle, mesh)
         self.bundle, self.tcfg, self.mesh = bundle, tcfg, mesh
         self.compress = compress
         self.data_axes = tuple(a for a in BATCH if a in mesh.shape)
@@ -235,7 +248,8 @@ class DataParallelStep:
                                                 fsdp=tcfg.fsdp)
         for path, sh in tree_items(self.param_shardings):
             check_data_parallel(sh.spec, sharded_dim_over(sh, self.data_axes),
-                                mesh.shape, True, f"param {'/'.join(path)}")
+                                mesh.shape, True, f"param {'/'.join(path)}",
+                                sharded_dim_over(sh, (MODEL,)))
         self.opt_shardings = {"m": self.param_shardings,
                               "v": self.param_shardings,
                               "step": NamedSharding(mesh, PartitionSpec())}
@@ -259,14 +273,16 @@ class DataParallelStep:
 
     def _grad_norm(self, grads: dict) -> torch.Tensor:
         """The global norm of a gradient held as shards and whole leaves:
-        the shards' sums of squares added over the data axes."""
-        cut, whole = [], []
+        each leaf's sum of squares added over the axes that cut it, a
+        whole leaf counted once."""
+        by_axes: dict = {}
         for g, sh in zip(tree_leaves(grads), tree_leaves(self.param_shardings)):
-            (whole if sharded_dim_over(sh, self.data_axes) is None
-             else cut).append(g.float().square().sum())
-        total = sum(whole)
-        if cut:
-            total = total + self.mesh.all_reduce(sum(cut), self.data_axes)
+            axes = tuple(a for a in self.mesh.axis_names
+                         if sharded_dim_over(sh, (a,)) is not None)
+            by_axes.setdefault(axes, []).append(g.float().square().sum())
+        total = 0.0
+        for axes, sums in sorted(by_axes.items()):
+            total = total + self.mesh.all_reduce(sum(sums), axes)
         return torch.sqrt(total)
 
     def __call__(self, params, opt_state, batch):
@@ -275,7 +291,7 @@ class DataParallelStep:
 
     def _step(self, params, opt_state, batch):
         tcfg, mesh = self.tcfg, self.mesh
-        full = gather_tree(params, self.param_shardings)
+        full = gather_tree(params, self.param_shardings, self.data_axes)
         loss, grads = accumulated_value_and_grad(
             self.bundle.loss_fn, full, self.local_batch(batch),
             tcfg.microbatches, tcfg.remat)
@@ -284,6 +300,7 @@ class DataParallelStep:
         if self.compress:
             grads = tree_map(lambda g: mesh.all_reduce(g, self.data_axes)
                              / self.ranks, grads)
+            grads = gather_tree(grads, self.param_shardings, (MODEL,))
             grads, _ = compress_tree(grads, None, tcfg.grad_compression)
             grads = shard_tree(grads, self.param_shardings)
         else:
@@ -425,12 +442,12 @@ def compiled_train_step(train_step, graphs: GraphSet | None):
     loss, its gradient, the schedule and the AdamW update: params and
     optimizer state resident and written in place (the reference's
     donation), the batch copied in, the loss and gradient norm cloned
-    out.  A ``DataParallelStep`` runs collectives between its local parts,
+    out.  A ``ParallelStep`` runs collectives between its local parts,
     which no graph holds: with ``graphs`` it raises ``NotImplementedError``
     (the captured split is ROADMAP Queue A item 3(c))."""
     if graphs is None:
         return train_step
-    if isinstance(train_step, DataParallelStep):
+    if isinstance(train_step, ParallelStep):
         raise NotImplementedError(
             "a train step over a process mesh runs eagerly (graphs=False): "
             "its collectives sit between the captured parts; " + QUEUE_3C)

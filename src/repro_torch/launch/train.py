@@ -6,9 +6,11 @@ It runs on the card unless asked for the CPU, with TF32 off for every
 product (the reference trains in true fp32).  On the card each step
 replays one CUDA graph (``launch.steps.compiled_train_step``: the
 reference's ``jax.jit`` of the step); ``train(graphs=False)`` runs it
-eagerly.  ``train(mesh=...)`` trains data-parallel (FSDP by default) over
-a process mesh (``launch.mesh.make_process_mesh``), eagerly: every rank
-calls it, e.g. under ``torchrun --nproc-per-node N``:
+eagerly.  ``train(mesh=...)`` trains over a process mesh
+(``launch.mesh.make_process_mesh``), eagerly: data-parallel (FSDP by
+default) over its pod and data axes and, for the transformer family,
+tensor and expert parallel over its ``model`` axis.  Every rank calls it,
+e.g. under ``torchrun --nproc-per-node N``:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 200 --batch 8 --seq 256
@@ -29,7 +31,7 @@ from ..core.graphs import GraphSet, graph_class
 from ..devices import fp32_products, resolve_device
 from ..data import DataConfig, SyntheticTokens
 from ..optim import AdamWConfig, init_state
-from ..sharding import gather_tree, shard_tree, use_mesh
+from ..sharding import gather_tree, use_mesh
 from . import steps as steps_mod
 
 __all__ = ["train", "main"]
@@ -59,12 +61,13 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
     eagerly; a graph class captures with that class on any device.
 
     ``mesh`` (a ``launch.mesh.ProcessMesh``; every rank calls ``train``)
-    trains data-parallel on the mesh's device: each rank draws the same
-    params from ``seed``, keeps its shards (FSDP, ``TrainConfig``'s
-    default, as the reference's), and takes its rows of each global batch
-    (``steps.DataParallelStep``); ``grad_compression`` applies where the
-    mesh has a ``"pod"`` axis.  Its steps run eagerly (with ``graphs`` a
-    graph class, or ``True`` on the card, it raises).  Checkpoints are
+    trains on the mesh's device: each rank draws the same params from
+    ``seed`` a leaf at a time and keeps its cut of each (over ``model`` as
+    ``schema_shardings`` places it, and over the data axes with FSDP,
+    ``TrainConfig``'s default, as the reference's), and takes its rows of
+    each global batch (``steps.ParallelStep``); ``grad_compression``
+    applies where the mesh has a ``"pod"`` axis.  Its steps run eagerly
+    (with ``graphs`` a graph class, or ``True`` on the card, it raises).  Checkpoints are
     gathered to full leaves and written by rank 0 alone, so they restore
     under any mesh or none; every rank restores its shards.  Rank 0 logs;
     every rank returns the same losses."""
@@ -83,15 +86,15 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
         train_step = steps_mod.build_train_step(bundle, tcfg, mesh)
         step_fn = steps_mod.compiled_train_step(
             train_step, None if cls is None else GraphSet("train", dev, cls))
-        dp = (train_step if isinstance(train_step, steps_mod.DataParallelStep)
+        dp = (train_step if isinstance(train_step, steps_mod.ParallelStep)
               else None)
         lead = dp is None or mesh.device_mesh.get_rank() == 0
 
-        params = bundle.init(torch.Generator().manual_seed(seed), param_dtype, dev)
         shardings = None
         if dp is not None:
             shardings = {"params": dp.param_shardings, "opt": dp.opt_shardings}
-            params = shard_tree(params, dp.param_shardings)
+        params = bundle.init(torch.Generator().manual_seed(seed), param_dtype,
+                             dev, None if dp is None else dp.param_shardings)
         opt_state = init_state(params)
 
         def full_state():

@@ -25,7 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
-from ..sharding import NamedSharding, PartitionSpec
+from ..sharding import NamedSharding, PartitionSpec, shard_tree
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["ParamSpec", "MODEL_AXIS", "stack_schema", "spec_to_pspec",
@@ -75,7 +75,8 @@ def spec_to_pspec(spec: ParamSpec, mesh, fsdp: bool = False) -> PartitionSpec:
     largest remaining dimension that divides the data (and pod) degree
     over those axes, for stacked (>= 3-D) layer weights only: the
     reference found a 2-D embedding sharded over data made GSPMD
-    replicate the whole table."""
+    replicate the whole table.  A mesh without those axes (``model``
+    alone) has no FSDP cut."""
     model_size = mesh.shape[MODEL_AXIS]
     out: list = []
     used_model = False
@@ -85,8 +86,8 @@ def spec_to_pspec(spec: ParamSpec, mesh, fsdp: bool = False) -> PartitionSpec:
             used_model = True
         else:
             out.append(None)
-    if fsdp and len(spec.shape) >= 3:
-        data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    if fsdp and data_axes and len(spec.shape) >= 3:
         dsize = math.prod(mesh.shape[a] for a in data_axes)
         cands = [(dim, i) for i, (dim, sp) in enumerate(zip(spec.shape, out))
                  if sp is None and dim % dsize == 0 and dim >= dsize]
@@ -98,33 +99,39 @@ def spec_to_pspec(spec: ParamSpec, mesh, fsdp: bool = False) -> PartitionSpec:
 
 def schema_init(schema: dict, generator: torch.Generator,
                 device: str | torch.device = "cuda",
-                dtype: torch.dtype = torch.float32) -> dict:
+                dtype: torch.dtype = torch.float32,
+                shardings: dict | None = None) -> dict:
     """Random params of a schema: fan-in-scaled normals (the fan-in is the
     second-last axis, else the last), the leaf's own scale where it has
     one, zeros where it is 0.0.  Leaf by leaf in sorted-key order, each
     leaf is drawn from ``generator`` on the generator's own device and
     moved to ``device`` before the next is drawn, so a CUDA generator draws
-    on the card and the host never holds the tree.  The reference draws
-    with a jax PRNG, which is not re-implemented: the same seed gives other
-    weights there."""
+    on the card and the host never holds the tree.  With ``shardings`` (a
+    tree of ``sharding.NamedSharding`` like the schema) each drawn leaf is
+    cut to this rank's shard at once, so a rank never holds more than one
+    full leaf.  The reference draws with a jax PRNG, which is not
+    re-implemented: the same seed gives other weights there."""
     dev = resolve_device(device)
 
-    def leaf(spec: ParamSpec):
+    def leaf(spec: ParamSpec, sh):
         shape, scale = spec.shape, spec.scale
         if scale == 0.0:
-            return torch.zeros(shape, dtype=dtype, device=dev)
-        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-        std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-        t = torch.randn(shape, generator=generator, dtype=dtype,
-                        device=generator.device)
-        return t.mul_(std).to(dev)
+            t = torch.zeros(shape, dtype=dtype, device=generator.device
+                            if sh is not None else dev)
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+            t = torch.randn(shape, generator=generator, dtype=dtype,
+                            device=generator.device).mul_(std)
+        return (t if sh is None else shard_tree(t, sh)).to(dev)
 
-    def draw(node):
+    def draw(node, sh):
         if isinstance(node, dict):
-            return {k: draw(node[k]) for k in sorted(node)}
-        return leaf(node)
+            return {k: draw(node[k], None if sh is None else sh[k])
+                    for k in sorted(node)}
+        return leaf(node, sh)
 
-    return draw(schema)
+    return draw(schema, shardings)
 
 
 def schema_shapes(schema: dict, dtype: torch.dtype = torch.float32) -> dict:

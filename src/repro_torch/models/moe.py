@@ -21,10 +21,17 @@ Under a process mesh whose ranks split the batch, the dispatch groups
 are the reference's groups of the global tokens: a rank dispatches the
 groups that its rows make up, with the reference's capacity, and a
 group that would span ranks (``dispatch_groups`` not a multiple of the
-ranks) raises ``NotImplementedError``.  Expert parallelism (the
-reference's ``experts`` axis over the mesh) and such cross-rank groups
-are ROADMAP Queue A item 3(c): the hints on the expert buffers raise
-where ``model`` has more than one rank.
+ranks) raises ``NotImplementedError`` (ROADMAP Queue A item 3(c)).
+
+Expert parallelism: where the mesh's ``model`` axis has more than one
+rank (``sharding.model_ranks``) each rank holds its block of ``E /
+model`` experts and of the router's columns (the reference's
+``experts`` axis).  The router's logits are gathered over ``model``
+before the top k, so every rank routes alike; each rank runs its experts
+on its block of the expert buffer, the combine sums its experts'
+contributions, and the shared experts (an FFN cut by columns and rows)
+add theirs, before one sum over ``model``.  Experts that do not divide
+over the ranks raise ``NotImplementedError`` (3(c)).
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..sharding import BATCH, MODEL, QUEUE_3C, batch_ranks, shard_hint
+from ..sharding import (BATCH, MODEL, QUEUE_3C, batch_ranks, model_ranks,
+                        shard_hint)
 from .common import ParamSpec
 
 __all__ = ["MoEConfig", "moe_schema", "moe_ffn", "moe_ffn_plain", "route",
@@ -101,13 +109,31 @@ class Routing(NamedTuple):
     cap: int
 
 
+def _experts_cut(tp, w: dict, cfg: MoEConfig) -> bool:
+    """Whether this rank holds a block of the experts (and of the router's
+    columns); raises where ``model`` cuts them otherwise."""
+    if tp is None:
+        return False
+    e = cfg.n_routed
+    if tp.cut(w["router"], 1, e) and tp.cut(w["w_gate"], 0, e):
+        return True
+    raise NotImplementedError(f"MoE with {e} experts over model = {tp.size}: "
+                              f"only the experts cut over it execute here; "
+                              f"{QUEUE_3C}")
+
+
 def route(w: dict, xg: torch.Tensor, cfg: MoEConfig) -> Routing:
     """Router, top-k and capacity of ``xg`` (G, T, d) (the reference's
-    ``_moe_ffn_grouped`` ``:93-113``)."""
+    ``_moe_ffn_grouped`` ``:93-113``).  Over model ranks each holds its
+    router columns: the logits are gathered, so every rank routes alike
+    (and, where ``xg`` is ``copy``'s, the router's gradient is summed)."""
     g, t, _ = xg.shape
     e, k = cfg.n_routed, cfg.top_k
     cap = capacity(cfg, t)
     logits = torch.einsum("gtd,de->gte", xg, w["router"].to(xg.dtype))
+    tp = model_ranks()
+    if _experts_cut(tp, w, cfg):
+        logits = tp.gather_partial(logits, -1)
     probs = torch.softmax(logits.float(), dim=-1)
     # a stable descending sort keeps tied experts in index order, the
     # lower index first, as jax.lax.top_k; torch.topk promises no order
@@ -175,36 +201,55 @@ def _gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _moe_ffn_grouped(w: dict, xg: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """Gather-based grouped dispatch (the reference's ``:83-150``): only an
     int32 slot -> token map is scattered; activations are gathered into
-    the expert buffer and each entry gathers its expert output back."""
+    the expert buffer and each entry gathers its expert output back.  Over
+    model ranks, this rank's block of ``E / model`` experts: its block of
+    the buffer, its experts' entries (and the shared experts' column
+    block) summed over ``model``."""
     g, t, d = xg.shape
     e, k = cfg.n_routed, cfg.top_k
-    r = route(w, xg, cfg)
+    tp = model_ranks()
+    cut = _experts_cut(tp, w, cfg)
+    # this rank's experts e0..e0+el-1 (on one device, all of them)
+    el = e // tp.size if cut else e
+    e0 = tp.rank * el if cut else 0
+    xf = tp.copy(xg) if cut else xg
+    r = route(w, xf, cfg)
     cap = r.cap
     gi = torch.arange(g, device=xg.device)[:, None].expand_as(r.dest_e)
     # slot -> token + 1 (0 = empty); duplicate indices land only in the
     # drop bin (column cap), which is sliced off
     slot_src = torch.zeros((g, e, cap + 1), dtype=torch.int32, device=xg.device)
     slot_src[gi, r.dest_e, r.dest_c] = (r.src_token + 1).to(torch.int32)
-    slot_src = slot_src[:, :, :cap]
+    slot_src = slot_src[:, e0:e0 + el, :cap]
     valid = slot_src > 0
 
-    flat_idx = (slot_src - 1).clamp_min(0).reshape(g, e * cap).long()
-    buf = _gather_rows(xg, flat_idx).reshape(g, e, cap, d)
+    flat_idx = (slot_src - 1).clamp_min(0).reshape(g, el * cap).long()
+    buf = _gather_rows(xf, flat_idx).reshape(g, el, cap, d)
     buf = buf * valid[..., None].to(xg.dtype)
-    buf = shard_hint(buf, BATCH, MODEL, None, None)
+    held = 1 if cut else None  # the experts' dimension, this rank's block
+    buf = shard_hint(buf, BATCH, MODEL, None, None, model_dim=held)
     out_buf = _expert_ffn_grouped(w, buf)
-    out_buf = shard_hint(out_buf, BATCH, MODEL, None, None)
+    out_buf = shard_hint(out_buf, BATCH, MODEL, None, None, model_dim=held)
 
-    # combine: each (token, k) entry gathers its expert-output row
+    # combine: each (token, k) entry of this rank's experts gathers its
+    # expert-output row
     inv = torch.argsort(r.order, dim=-1)  # entry -> sorted position
     entry_pos = torch.gather(r.pos, 1, inv)
     entry_keep = torch.gather(r.keep, 1, inv)
-    flat_e = r.gate_e.reshape(g, t * k)
-    entry_slot = flat_e * cap + entry_pos.clamp_max(cap - 1)
-    vals = _gather_rows(out_buf.reshape(g, e * cap, d), entry_slot)
-    vals = torch.where(entry_keep[..., None], vals, 0.0)
+    local_e = r.gate_e.reshape(g, t * k) - e0
+    mine = entry_keep & (local_e >= 0) & (local_e < el)
+    entry_slot = local_e.clamp(0, el - 1) * cap + entry_pos.clamp_max(cap - 1)
+    vals = _gather_rows(out_buf.reshape(g, el * cap, d), entry_slot)
+    vals = torch.where(mine[..., None], vals, 0.0)
     y = (vals.reshape(g, t, k, d) * r.gate_w[..., None].to(xg.dtype)).sum(dim=2)
-    if cfg.n_shared:
+    if not cut:
+        return y + _shared_ffn(w, xg) if cfg.n_shared else y
+    shared_cut = cfg.n_shared and tp.cut(w["shared"]["w_gate"], 1,
+                                         cfg.d_ff_expert * cfg.n_shared)
+    if shared_cut:  # its column block, in the same sum
+        y = y + _shared_ffn(w, xf)
+    y = tp.reduce(y)
+    if cfg.n_shared and not shared_cut:  # whole: the same on every rank
         y = y + _shared_ffn(w, xg)
     return y
 
@@ -221,6 +266,9 @@ def moe_ffn_plain(w: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     the (G, E, cap + 1, d) buffer, the experts run, each entry's output
     weighted and scatter-added back to its token."""
     t, d = x.shape
+    if _experts_cut(model_ranks(), w, cfg):
+        raise NotImplementedError("moe_ffn_plain runs on one device; over "
+                                  f"model ranks moe_ffn: {QUEUE_3C}")
     xg = _grouped(x, cfg)
     g, tg, _ = xg.shape
     e, k = cfg.n_routed, cfg.top_k

@@ -52,10 +52,12 @@ class ModelBundle:
 
     def init(self, generator: torch.Generator,
              dtype: torch.dtype = torch.float32,
-             device: str | torch.device = "cuda") -> dict:
+             device: str | torch.device = "cuda",
+             shardings: dict | None = None) -> dict:
         """Random params of ``schema`` drawn from ``generator`` leaf by leaf
-        on the generator's device, in ``dtype`` on ``device``."""
-        return schema_init(self.schema, generator, device, dtype)
+        on the generator's device, in ``dtype`` on ``device``; with
+        ``shardings`` each leaf cut to this rank's shard as it is drawn."""
+        return schema_init(self.schema, generator, device, dtype, shardings)
 
     def param_shapes(self, dtype: torch.dtype = torch.float32) -> dict:
         """The params as meta tensors: shapes and ``dtype``, no storage."""

@@ -29,12 +29,37 @@ new positions into the cache they are given and return it, where the
 reference returns a new tree (an in-place write saves one cache copy a
 step).  On one device an indexed write has the values of both of the
 reference's cache writes (``_ring_write``'s select and its
-dynamic-update-slice); which one it picks matters only for a cache
-sharded over a mesh, ROADMAP Queue A item 3(c).  The
+dynamic-update-slice).  The
 write is an ``index_copy_`` at the pass's positions, so ``decode_step``
 takes its position as a Python int or as a 0-d integer tensor on the
 cache's device (a captured step's copied-in position), with the same
 values either way.
+
+Tensor and expert parallelism.  Under a process mesh with a ``model``
+axis of more than one rank (``sharding.model_ranks``) each rank holds its
+cut of every leaf, as ``schema_shardings`` places it, and computes on it;
+the layers exchange activations, never parameters (Megatron-LM's tensor
+parallelism, arXiv:1909.08053 §3, with ``copy`` and ``reduce`` its *f*
+and *g*; the reference gets the same from GSPMD).  Column-cut products
+(``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``, the head) give this rank's
+column block; row-cut ones (``wo``, ``w_down``) take its row block of the
+input and are summed over the ranks.  Where a block is not whole heads
+(``resolve_pspec`` cuts the flattened ``heads x head_dim`` wherever it
+divides: SmolLM's 9 heads) the projection is gathered, every rank attends
+every head and keeps its row block for ``wo``; query heads whose KV heads
+another rank holds take them from the gathered K/V.  The embedding looks
+up this rank's vocab rows (zeros elsewhere) and sums; the logits are this
+rank's vocab block, gathered whole.  MLA cuts its heads (``wq``/``wq_b``,
+``wkv_b``, ``wo``); its latents and norms are whole on every rank.  The
+caches are cut as the reference's ``cache_axes`` place them: the KV heads
+over ``model`` where they divide the production degree 16 (each rank
+writes and reads its heads), else the sequence (each rank holds one block
+of positions and writes the new positions that fall in it; a decode step
+attends over its own positions and the ranks' partial softmaxes are
+merged by log-sum-exp; MLA's in the absorbed form, ``wkv_b``'s key half
+folded into the query, so only latent queries cross ranks).  A decode
+step moves no cache leaf between ranks.  A placement this does not
+execute raises ``NotImplementedError`` (ROADMAP Queue A item 3(c)).
 """
 from __future__ import annotations
 
@@ -48,7 +73,7 @@ import torch.nn.functional as F
 
 from ..devices import resolve_device
 from ..kernels.flash_attn import HEAD_DIMS, flash_attention
-from ..sharding import BATCH, shard_hint
+from ..sharding import BATCH, QUEUE_3C, model_ranks, shard_hint
 from ..tree import tree_leaves
 from ..tree import tree_map as map_params
 from .common import (NEG_INF, ParamSpec, apply_rope, attention, checkpointed,
@@ -59,7 +84,7 @@ from .moe import MoEConfig, moe_ffn, moe_schema
 __all__ = ["LMConfig", "MLAConfig", "MoEConfig", "lm_schema", "init_lm",
            "lm_params_from_numpy",
            "map_params", "forward", "lm_loss", "init_cache", "decode_step",
-           "prefill", "attend_route", "attend"]
+           "prefill", "attend_route", "attend", "cache_layout"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -382,6 +407,10 @@ def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
     v=...) is written in place at the positions ``q_pos``, or None.
     ``start`` (0 or None) is ``attend``'s.  ``autograd`` takes the
     training route (``attend``'s, never K4)."""
+    tp = model_ranks()
+    if tp is not None:
+        return _gqa_attn_tp(tp, w, x, cfg, rope, q_pos, k_pos, window, cache,
+                            start, autograd)
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ w["wq"]).reshape(b, s, h, hd)
@@ -405,6 +434,10 @@ def _mla_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
     compressed-latent cache ``dict(ckv=(B, S, kv_lora), krope=(B, S,
     rope_dim))``, written in place; keys and values are expanded from the
     latent over every cached position."""
+    tp = model_ranks()
+    if tp is not None:
+        return _mla_attn_tp(tp, w, x, cfg, rope, q_pos, k_pos, window, cache,
+                            start, autograd)
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -433,12 +466,224 @@ def _mla_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
     return out.reshape(b, s, h * m.v_dim) @ w["wo"]
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism over the mesh's model axis
+# ---------------------------------------------------------------------------
+
+# the production meshes' model degree, by which the reference lays a KV
+# cache out (its ``_use_ring_cache``): KV heads that divide it are cut over
+# model, otherwise the sequence is
+PRODUCTION_MODEL_DEGREE = 16
+
+
+def cache_layout(cfg: LMConfig) -> str:
+    """``"heads"`` where the cache's KV heads go over ``model`` (they divide
+    16), else ``"seq"``: the sequence over ``model`` (MLA's latents too);
+    ``registry._kv_cache_axes`` places the leaves so."""
+    if cfg.attn != "mla" and cfg.n_kv_heads % PRODUCTION_MODEL_DEGREE == 0:
+        return "heads"
+    return "seq"
+
+
+def _refusal(cfg: LMConfig, what: str, tp):
+    return NotImplementedError(f"{cfg.name}: {what} over model = {tp.size}; "
+                               f"{QUEUE_3C}")
+
+
+def _own(tp, n: int) -> tuple[int, int]:
+    """``(first, count)`` of this rank's block of ``n`` heads, or ``(0, n)``
+    where they do not divide over the ranks (every rank then has them
+    all)."""
+    if n % tp.size:
+        return 0, n
+    return tp.rank * (n // tp.size), n // tp.size
+
+
+def _kv_for(q_lo: int, nq: int, kv_lo: int, k, v, rep: int):
+    """The K/V heads that query heads ``q_lo..q_lo+nq-1`` read (GQA: head
+    ``h`` reads KV head ``h // rep``) out of ``k``/``v`` (B, S, n, D),
+    which hold KV heads from ``kv_lo``: a slice where the block is whole
+    groups, else one KV head a query head."""
+    if q_lo % rep == 0 and nq % rep == 0:
+        a = q_lo // rep - kv_lo
+        return k[:, :, a:a + nq // rep], v[:, :, a:a + nq // rep]
+    idx = torch.tensor([(q_lo + j) // rep - kv_lo for j in range(nq)],
+                       device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _write_block(leaf: torch.Tensor, new: torch.Tensor, lo: int,
+                 start: int) -> None:
+    """Write ``new`` (B, S, ...), positions ``start..start+S-1``, into
+    ``leaf``, this rank's block of positions ``lo..lo+Sl-1``: the ones
+    that fall in it (the others are other ranks')."""
+    a = max(start, lo)
+    e = min(start + new.shape[1], lo + leaf.shape[1])
+    if a < e:
+        leaf[:, a - lo:e - lo] = new[:, a - start:e - start].to(leaf.dtype)
+
+
+def _merged_decode(tp, q, kc, vc, q_pos, lo: int, scale: float, window,
+                   attn_softcap) -> torch.Tensor:
+    """One query position's attention over a sequence cut over ``model``:
+    ``q`` (B, 1, H, D) every head, ``kc``/``vc`` (B, Sl, Hkv, D[v]) this
+    rank's positions ``lo..lo+Sl-1``.  Each rank's partial softmax is
+    merged by log-sum-exp: the maximum, then the rescaled sums and outputs
+    all-reduced.  Returns (B, 1, H, Dv), the same on every rank."""
+    b, sq, hh, d = q.shape
+    sl, hkv = kc.shape[1], kc.shape[2]
+    rep = hh // hkv
+    k_pos = torch.arange(lo, lo + sl, device=q.device).expand(b, sl)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", q.reshape(b, sq, hkv, rep, d),
+                          kc).float() * scale
+    if attn_softcap is not None:
+        logits = softcap(logits, attn_softcap)
+    logits = logits + make_attn_mask(q_pos, k_pos, window)[:, :, None]
+    mx = tp.all_reduce(logits.amax(dim=-1), "max")
+    p = torch.exp(logits - mx[..., None])
+    acc = torch.einsum("bhrqk,bkhd->bqhrd", p.to(vc.dtype), vc).float()
+    tot = tp.all_reduce(torch.cat(
+        [acc, p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]], dim=-1))
+    out = tot[..., :-1] / tot[..., -1:]
+    return out.reshape(b, sq, hh, -1).to(q.dtype)
+
+
+def _gqa_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
+                 start, autograd):
+    """``_gqa_attn`` on this rank's cut of ``wq``/``wk``/``wv`` (columns)
+    and ``wo`` (rows): the attention output summed over ``model``."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if not (tp.cut(w["wq"], 1, h * hd) and tp.cut(w["wo"], 0, h * hd)):
+        raise _refusal(cfg, "attention with wq and wo whole", tp)
+    xf = tp.copy(x)
+    wk, wv = w["wk"], w["wv"]
+    kv_cut = tp.cut(wk, 1, hkv * hd)
+    if not kv_cut:  # whole, but each rank's heads take their part
+        wk, wv = tp.copy(wk), tp.copy(wv)
+    q, k, v = xf @ w["wq"], xf @ wk, xf @ wv
+    # whole heads: this rank's block; a cut inside a head: every head
+    q_lo, nq = _own(tp, h)
+    if nq == h:
+        q = tp.gather_partial(q, -1)
+    kv_lo, nkv = _own(tp, hkv) if kv_cut else (0, hkv)
+    if kv_cut and nkv == hkv:
+        k, v = tp.gather_partial(k, -1), tp.gather_partial(v, -1)
+    q = q.reshape(b, s, nq, hd)
+    k = k.reshape(b, s, nkv, hd)
+    v = v.reshape(b, s, nkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, tp.copy(w["q_ln"]))
+        k = rms_norm(k, tp.copy(w["k_ln"]))
+    q = apply_rope(q, rope, q_pos)
+    k = apply_rope(k, rope, q_pos)
+    c = h * hd // tp.size  # wo's rows a rank
+    if cache is not None and cache_layout(cfg) == "heads":
+        if nkv == hkv:
+            raise _refusal(cfg, f"a head-cut cache of {hkv} KV heads", tp)
+        k, v = _write(cache, "k", k, q_pos), _write(cache, "v", v, q_pos)
+    elif cache is not None:
+        if nkv < hkv:  # the new positions of every KV head
+            k, v = tp.gather(k, 2), tp.gather(v, 2)
+            kv_lo, nkv = 0, hkv
+        lo = tp.rank * cache["k"].shape[1]
+        _write_block(cache["k"], k, lo, start)
+        _write_block(cache["v"], v, lo, start)
+        if s == 1:  # decode: every head over this rank's positions
+            qa = q if nq == h else tp.gather(q, 2)
+            out = _merged_decode(tp, qa, cache["k"], cache["v"], q_pos, lo,
+                                 1.0 / math.sqrt(hd), window, cfg.attn_softcap)
+            out = out.reshape(b, 1, h * hd)[..., tp.rank * c:(tp.rank + 1) * c]
+            return tp.reduce(out @ w["wo"])
+        k_pos = q_pos  # a prefill from 0 reads its own new positions
+    kk, vv = _kv_for(q_lo, nq, kv_lo, k, v, h // hkv)
+    out = _attend(q, kk, vv, q_pos, k_pos, cfg, window, start=start,
+                  autograd=autograd).reshape(b, s, nq * hd)
+    if nq == h:
+        out = out[..., tp.rank * c:(tp.rank + 1) * c]
+    return tp.reduce(out @ w["wo"])
+
+
+def _mla_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
+                 start, autograd):
+    """``_mla_attn`` on this rank's heads of ``wq``/``wq_b``, ``wkv_b`` and
+    ``wo``, the latent projections and norms whole; the output summed over
+    ``model``.  A decode step over the sequence-cut latent cache takes the
+    absorbed form (``_mla_decode_tp``)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    qh, dkv = m.qk_nope_dim + m.qk_rope_dim, m.qk_nope_dim + m.v_dim
+    wq = w["wq_b"] if m.q_lora else w["wq"]
+    if h % tp.size or not (tp.cut(wq, 1, h * qh) and tp.cut(w["wkv_b"], 1, h * dkv)
+                           and tp.cut(w["wo"], 0, h * m.v_dim)):
+        raise _refusal(cfg, f"MLA's {h} heads", tp)
+    nh = h // tp.size
+    if m.q_lora:
+        q = tp.copy(rms_norm(x @ w["wq_a"], w["q_ln"])) @ wq
+    else:
+        q = tp.copy(x) @ wq
+    q_nope, q_rope = q.reshape(b, s, nh, qh).split([m.qk_nope_dim, m.qk_rope_dim],
+                                                   dim=-1)
+    q_rope = apply_rope(q_rope, rope, q_pos)
+    ckv, krope = (x @ w["wkv_a"]).split([m.kv_lora, m.qk_rope_dim], dim=-1)
+    ckv = rms_norm(ckv, w["kv_ln"])
+    krope = apply_rope(krope[:, :, None, :], rope, q_pos)[:, :, 0, :]
+    scale = 1.0 / math.sqrt(qh)
+    if cache is not None:
+        lo = tp.rank * cache["ckv"].shape[1]
+        _write_block(cache["ckv"], ckv, lo, start)
+        _write_block(cache["krope"], krope, lo, start)
+        if s == 1:
+            return _mla_decode_tp(tp, w, cfg, q_nope, q_rope, cache, q_pos, lo,
+                                  scale, window)
+        k_pos = q_pos  # a prefill from 0 reads its own new latents
+    ckv, krope = tp.copy(ckv), tp.copy(krope)
+    sk = ckv.shape[1]
+    kvx = (ckv @ w["wkv_b"]).reshape(b, sk, nh, dkv)
+    k_nope, v = kvx.split([m.qk_nope_dim, m.v_dim], dim=-1)
+    k_rope = krope[:, :, None, :].expand(b, sk, nh, m.qk_rope_dim)
+    out = _attend(torch.cat([q_nope, q_rope], dim=-1),
+                  torch.cat([k_nope, k_rope], dim=-1), v, q_pos, k_pos, cfg,
+                  window, scale=scale, start=start, autograd=autograd)
+    return tp.reduce(out.reshape(b, s, nh * m.v_dim) @ w["wo"])
+
+
+def _mla_decode_tp(tp, w, cfg: LMConfig, q_nope, q_rope, cache, q_pos, lo: int,
+                   scale: float, window):
+    """One MLA decode step over this rank's block of the latent cache, in
+    the absorbed form: each rank folds ``wkv_b``'s key half of its heads
+    into their queries (``q_nope @ W_uk^T``, a query over the latent), the
+    latent queries of every head are gathered, each rank attends them over
+    its positions (keys ``[ckv, krope]``, values ``ckv``), the partial
+    softmaxes are merged by log-sum-exp, and each rank maps its heads'
+    latent outputs through ``wkv_b``'s value half and ``wo``."""
+    m = cfg.mla
+    b, _, nh, _ = q_nope.shape
+    wkv_b = w["wkv_b"].reshape(m.kv_lora, nh, m.qk_nope_dim + m.v_dim)
+    w_uk, w_uv = wkv_b.split([m.qk_nope_dim, m.v_dim], dim=-1)
+    q_lat = torch.einsum("bshn,chn->bshc", q_nope, w_uk)
+    qa = tp.gather(torch.cat([q_lat, q_rope], dim=-1), 2)
+    keys = torch.cat([cache["ckv"], cache["krope"]], dim=-1)[:, :, None]
+    lat = _merged_decode(tp, qa, keys, cache["ckv"][:, :, None], q_pos, lo,
+                         scale, window, cfg.attn_softcap)
+    own = lat[:, :, tp.rank * nh:(tp.rank + 1) * nh]
+    out = torch.einsum("bshc,chv->bshv", own, w_uv)
+    return tp.reduce(out.reshape(b, 1, nh * m.v_dim) @ w["wo"])
+
+
 def _act(cfg: LMConfig):
     # jax.nn.gelu defaults to the tanh approximation
     return F.silu if cfg.act == "silu" else (lambda t: F.gelu(t, approximate="tanh"))
 
 
 def _ffn(w, x, cfg: LMConfig):
+    tp = model_ranks()
+    if tp is not None and tp.cut(w["w_gate"], 1, cfg.d_ff):
+        # column-cut gate and up, row-cut down, summed over model
+        xf = tp.copy(x)
+        g, u = xf @ w["w_gate"], xf @ w["w_up"]
+        return tp.reduce((_act(cfg)(g.float()).to(u.dtype) * u) @ w["w_down"])
     g = x @ w["w_gate"]
     u = x @ w["w_up"]
     return (_act(cfg)(g.float()).to(u.dtype) * u) @ w["w_down"]
@@ -499,7 +744,16 @@ def _run_stacks(params, cfg: LMConfig, x, q_pos, k_pos, cache, start,
 
 
 def _embed(params, cfg: LMConfig, tokens):
-    x = params["embed"][tokens]
+    table = params["embed"]
+    tp = model_ranks()
+    if tp is not None and tp.cut(table, 0, cfg.vocab):
+        # this rank's vocab rows, zeros for the others' tokens, summed
+        n = table.shape[0]
+        loc = tokens.long() - tp.rank * n
+        inside = ((loc >= 0) & (loc < n))[..., None]
+        x = tp.reduce(torch.where(inside, table[loc.clamp(0, n - 1)], 0.0))
+    else:
+        x = table[tokens]
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     # the batch over (pod, data); at batch 1 the sequence over data
@@ -509,10 +763,14 @@ def _embed(params, cfg: LMConfig, tokens):
 def _unembed(params, cfg: LMConfig, x):
     x = rms_norm(x, params["ln_f"])
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ head).float()
+    tp = model_ranks()
+    cut = tp is not None and tp.cut(head, 1, cfg.vocab)
+    logits = ((tp.copy(x) if cut else x) @ head).float()
     if cfg.logit_softcap is not None:
         logits = softcap(logits, cfg.logit_softcap)
-    return logits
+    # this rank's vocab block, gathered whole: the loss that follows is the
+    # same on every rank, so the gradient is this rank's slice
+    return tp.gather(logits, -1) if cut else logits
 
 
 def _positions(b: int, start, s: int, device,
@@ -560,8 +818,21 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda") -> dict:
     """Stacked (L-leading) zero caches for decode, one a stack (``"dense"``,
     ``"moe"``): K/V ``(L, B, S, hkv, hd)``, or MLA's latent ``ckv (L, B, S,
-    kv_lora)`` and ``krope (L, B, S, rope_dim)``."""
+    kv_lora)`` and ``krope (L, B, S, rope_dim)``.  Over model ranks, this
+    rank's cut (``cache_layout``): ``hkv`` or ``S`` over the ranks; a cut
+    that does not divide raises."""
     dev = resolve_device(device)
+    hkv = cfg.n_kv_heads
+    tp = model_ranks()
+    if tp is not None:  # this rank's cut (``cache_layout``)
+        if cache_layout(cfg) == "heads":
+            if hkv % tp.size:
+                raise _refusal(cfg, f"a cache of {hkv} KV heads", tp)
+            hkv //= tp.size
+        else:
+            if max_len % tp.size:
+                raise _refusal(cfg, f"a cache of {max_len} positions", tp)
+            max_len //= tp.size
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -573,7 +844,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
             out[cache_key] = {"ckv": zeros(n, batch, max_len, m.kv_lora),
                               "krope": zeros(n, batch, max_len, m.qk_rope_dim)}
         else:
-            shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            shape = (n, batch, max_len, hkv, cfg.head_dim)
             out[cache_key] = {"k": zeros(*shape), "v": zeros(*shape)}
     return out
 
@@ -583,6 +854,12 @@ def _cached_pass(params, cfg: LMConfig, cache, tokens, start):
     b, s, _ = x.shape
     max_len = tree_leaves(cache)[0].shape[2]
     tensor_start = isinstance(start, torch.Tensor)
+    tp = model_ranks()
+    if tp is not None:
+        if tensor_start:
+            raise _refusal(cfg, "a captured step (a tensor position)", tp)
+        if cache_layout(cfg) == "seq":
+            max_len *= tp.size
     if not tensor_start and start + s > max_len:
         raise ValueError(f"positions {start}..{start + s - 1} exceed the "
                          f"cache length {max_len}")

@@ -10,14 +10,18 @@ alike (SmolLM's 9 heads fall back to replication on ``model = 16``).
 
 ``use_mesh`` makes a mesh the active one for a block (``active_mesh``), as
 the reference's ``compat.set_mesh`` does.  ``shard_hint`` is the
-reference's ``with_sharding_constraint`` under the active mesh.  The port
-executes data parallelism only: under a process mesh each rank holds its
-rows of the batch, so a hint that places the batch dimension over the pod
-and data axes, and nothing else over an axis of more than one rank,
-states what already holds and returns ``x`` itself.  Any other placement
-(over ``model``, or a sequence over ``data``) would need the model code
-to run on sharded activations, and raises ``NotImplementedError``:
-ROADMAP Queue A item 3(c).
+reference's ``with_sharding_constraint`` under the active mesh.  Under a
+process mesh each rank holds its rows of the batch, split over the pod
+and data axes, and, with tensor parallelism, its block of one dimension
+over ``model`` where the model code holds it so (``model_dim``: the MoE
+buffer's experts, a head-cut activation).  A hint whose resolved
+placement is exactly that states what already holds and returns ``x``
+itself.  Any other placement over an axis of more than one rank (the
+sequence over ``data`` at batch 1, the reference's sequence-parallel
+residual stream over ``model``, a ``model`` placement the code does not
+hold) raises ``NotImplementedError``: ROADMAP Queue A item 3(c).
+``model_ranks`` gives the model code the ``model`` axis of the active
+process mesh (its size, this rank's index, the collectives over it).
 
 A ``NamedSharding`` is one leaf's placement on a mesh; ``shard_tree`` cuts
 a tree of full leaves to this rank's shards and ``gather_tree`` undoes
@@ -36,9 +40,9 @@ from .tree import tree_map
 
 __all__ = ["BATCH", "MODEL", "WORKERS", "QUEUE_3C", "PartitionSpec",
            "resolve_pspec", "worker_devices", "use_mesh", "active_mesh",
-           "batch_ranks", "hint_pspec", "shard_hint", "check_data_parallel",
-           "spec_axes", "NamedSharding", "sharded_dim_over", "shard_tree",
-           "gather_tree"]
+           "batch_ranks", "ModelRanks", "model_ranks", "hint_pspec",
+           "shard_hint", "check_data_parallel", "spec_axes", "NamedSharding",
+           "sharded_dim_over", "shard_tree", "gather_tree"]
 
 # canonical logical axes
 BATCH = ("pod", "data")  # batch (or sequence for long context) shards here
@@ -147,6 +151,61 @@ def batch_ranks() -> int:
     return math.prod(mesh.shape.get(a, 1) for a in BATCH)
 
 
+@dataclasses.dataclass(frozen=True)
+class ModelRanks:
+    """The ``model`` axis of the active process mesh, as the model code
+    uses it: ``size`` ranks, this one at ``rank``, and the collectives over
+    the axis (``copy``, ``reduce`` and ``gather`` carry gradients: the
+    mesh's ``copy_to``, ``reduce_from``, ``gather_from``)."""
+
+    mesh: object
+    size: int
+    rank: int
+
+    def copy(self, x):
+        """Megatron's *f*: ``x``; its gradient summed over the ranks."""
+        return self.mesh.copy_to(x, MODEL)
+
+    def reduce(self, x):
+        """Megatron's *g*: the sum over the ranks."""
+        return self.mesh.reduce_from(x, MODEL)
+
+    def gather(self, x, dim: int):
+        """The ranks' blocks concatenated along ``dim``; backward, this
+        rank's slice of the gradient (right where what follows computes
+        the same on every rank)."""
+        return self.mesh.gather_from(x, MODEL, dim)
+
+    def gather_partial(self, x, dim: int):
+        """``gather`` where what follows differs by rank: backward, the
+        ranks' gradients summed, then this rank's slice."""
+        return self.copy(self.gather(x, dim))
+
+    def all_reduce(self, x, op: str = "sum"):
+        """The sum (or maximum) over the ranks, no gradient."""
+        return self.mesh.all_reduce(x, MODEL, op)
+
+    def cut(self, leaf, dim: int, full: int) -> bool:
+        """Whether this rank holds ``leaf``'s dimension ``dim`` of ``full``
+        entries as its block (else whole)."""
+        n = leaf.shape[dim]
+        if n == full:
+            return False
+        if n * self.size != full:
+            raise ValueError(f"dimension {dim} of {tuple(leaf.shape)}: {n} of "
+                             f"{full} over model = {self.size}")
+        return True
+
+
+def model_ranks() -> ModelRanks | None:
+    """The active process mesh's ``model`` axis where it has more than one
+    rank, else None (one device, or data parallelism alone)."""
+    mesh = active_mesh()
+    if mesh is None or not _holds_ranks(mesh) or mesh.shape.get(MODEL, 1) == 1:
+        return None
+    return ModelRanks(mesh, mesh.shape[MODEL], mesh.coordinate[MODEL])
+
+
 def _batch_dim(axes) -> int | None:
     """The first dimension whose candidates name a data-parallel axis."""
     for i, cand in enumerate(axes):
@@ -156,19 +215,22 @@ def _batch_dim(axes) -> int | None:
     return None
 
 
-def hint_pspec(shape, axes, mesh_shape, split: bool = True):
+def hint_pspec(shape, axes, mesh_shape, split: bool = True,
+               model_dim: int | None = None):
     """``(global shape, PartitionSpec)`` of a ``shard_hint`` of a local
     tensor of ``shape`` on a mesh of ``mesh_shape``: with ``split`` (a
     process mesh, whose ranks each hold their rows of the batch) the first
     dimension whose candidates name ``pod`` or ``data`` is that many times
-    larger globally, the product of those axes' sizes; then the spec as
-    ``resolve_pspec`` gives it on the global shape."""
-    shape = tuple(int(d) for d in shape)
+    larger globally, the product of those axes' sizes, and dimension
+    ``model_dim`` (a block a rank holds) the model size larger; then the
+    spec as ``resolve_pspec`` gives it on the global shape."""
+    shape = list(int(d) for d in shape)
     i = _batch_dim(axes)
     if split and i is not None:
-        k = math.prod(mesh_shape.get(a, 1) for a in BATCH)
-        shape = shape[:i] + (shape[i] * k,) + shape[i + 1:]
-    return shape, resolve_pspec(shape, axes, mesh_shape)
+        shape[i] *= math.prod(mesh_shape.get(a, 1) for a in BATCH)
+    if split and model_dim is not None:
+        shape[model_dim] *= mesh_shape.get(MODEL, 1)
+    return tuple(shape), resolve_pspec(shape, axes, mesh_shape)
 
 
 def spec_axes(entry) -> tuple[str, ...]:
@@ -178,41 +240,51 @@ def spec_axes(entry) -> tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def shard_hint(x, *axes):
+def shard_hint(x, *axes, model_dim: int | None = None):
     """``x`` under the active mesh's placement of ``axes`` (one entry a
     dimension: None, an axis name, or a tuple of candidates used jointly,
     as ``BATCH``): the identity with no active mesh, and where the
     resolved spec shards nothing but the batch dimension that a process
-    mesh has already split over its pod and data axes.  Any other
-    placement over an axis of more than one rank raises
-    ``NotImplementedError`` (ROADMAP Queue A item 3(c))."""
+    mesh has already split over its pod and data axes and, where the
+    caller holds ``x``'s dimension ``model_dim`` as this rank's block over
+    ``model``, that dimension over ``model``.  Any other placement over an
+    axis of more than one rank raises ``NotImplementedError`` (ROADMAP
+    Queue A item 3(c))."""
     mesh = active_mesh()
     if mesh is None:
         return x
     if len(axes) != x.ndim:
         raise ValueError(f"{len(axes)} axes for a tensor of rank {x.ndim}")
     split = _holds_ranks(mesh)
-    _, spec = hint_pspec(x.shape, axes, mesh.shape, split)
+    _, spec = hint_pspec(x.shape, axes, mesh.shape, split, model_dim)
     check_data_parallel(spec, _batch_dim(axes), mesh.shape, split,
-                        f"shard_hint{tuple(axes)} on {tuple(x.shape)}")
+                        f"shard_hint{tuple(axes)} on {tuple(x.shape)}",
+                        model_dim if split else None)
     return x
 
 
 def check_data_parallel(spec, batch_dim: int | None, mesh_shape: dict,
-                        split: bool, what: str) -> None:
+                        split: bool, what: str,
+                        model_dim: int | None = None) -> None:
     """Raise ``NotImplementedError`` unless ``spec`` places nothing over a
     mesh axis of more than one rank but dimension ``batch_dim`` over all
     of the pod and data axes that have more than one (``split``: the ranks
-    of a process mesh hold their rows of the batch), the one placement
-    that data parallelism executes (ROADMAP Queue A item 3(c))."""
+    of a process mesh hold their rows of the batch) and dimension
+    ``model_dim``, where given, over ``model`` where it has more than one:
+    the placements that data and tensor parallelism execute (ROADMAP Queue
+    A item 3(c))."""
     held = tuple(a for a in BATCH if mesh_shape.get(a, 1) > 1) if split else ()
+    model = (MODEL,) if mesh_shape.get(MODEL, 1) > 1 else ()
     for d, entry in enumerate(spec):
         live = tuple(a for a in spec_axes(entry) if mesh_shape[a] > 1)
-        if live != (held if d == batch_dim else ()):
+        want = ((held if d == batch_dim else ())
+                + (model if d == model_dim else ()))
+        if live != want:
             raise NotImplementedError(
                 f"{what} places dimension {d} over {live or 'no axis'} on "
                 f"mesh {mesh_shape}: only the batch split over "
-                f"{held or 'no axis'} executes here; {QUEUE_3C}")
+                f"{held or 'no axis'} and a block the code holds over "
+                f"{model or 'no axis'} execute here; {QUEUE_3C}")
 
 
 # -- a leaf's placement, and cutting trees by it -----------------------------
@@ -263,14 +335,15 @@ def sharded_dim_over(sh: NamedSharding, axes) -> int | None:
     return None
 
 
-def _cuts(sh: NamedSharding):
+def _cuts(sh: NamedSharding, axes=None):
     """``(axis, dim, size, index)`` of each mesh axis of more than one rank
-    that cuts the leaf, in mesh order, with this rank's index on it."""
+    (of ``axes`` where given) that cuts the leaf, in mesh order, with this
+    rank's index on it."""
     mesh = sh.mesh
     out = []
     for axis, size in zip(mesh.axis_names, mesh.axis_sizes):
         d = sh.sharded_dim(axis)
-        if d is None or size == 1:
+        if d is None or size == 1 or (axes is not None and axis not in axes):
             continue
         if not _holds_ranks(mesh):
             raise ValueError(f"mesh {mesh.shape} holds no rank to cut a "
@@ -295,11 +368,12 @@ def shard_tree(tree, shardings):
     return tree_map(cut, tree, shardings)
 
 
-def gather_tree(tree, shardings):
+def gather_tree(tree, shardings, axes=None):
     """The full leaves of a tree of shards (``shard_tree``'s inverse):
-    all-gathered over each cutting axis, innermost first."""
+    all-gathered over each cutting axis, innermost first.  With ``axes``
+    only over those (FSDP's data axes), the cuts over the others kept."""
     def gather(t, sh):
-        for axis, d, _, _ in reversed(_cuts(sh)):
+        for axis, d, _, _ in reversed(_cuts(sh, axes)):
             t = sh.mesh.all_gather(t, axis, dim=d)
         return t
 

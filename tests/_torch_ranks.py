@@ -110,10 +110,12 @@ def real_axes(axes):
     return tuple(BATCH if a == "BATCH" else a for a in axes)
 
 
-def four_ranks(rank: int) -> dict:
+def four_ranks(rank: int, p_np: dict) -> dict:
     """``run_sharded`` on the workers axis; ``shard_hint`` at every site
     under three meshes; the FSDP shardings cut and gathered on (pod 2,
-    data 2); a train step refused over a model axis of 2."""
+    data 2); the train step over (data 2, model 2) from the reference's
+    weights, FSDP on, and with int8 compression over (pod 2, data 1,
+    model 2); RWKV6's refused over a model axis of 2."""
     out = {"sharded": {}}
     mesh = make_process_mesh((4,), ("workers",), device="cpu")
     for label, ids, batch in SHARDED_CASES:
@@ -135,12 +137,19 @@ def four_ranks(rank: int) -> dict:
                      in zip(tree_items(full), tree_items(back))),
         "local_shapes": {"/".join(p): tuple(t.shape) for p, t in tree_items(local)},
         "full_shapes": {"/".join(p): tuple(t.shape) for p, t in tree_items(full)}}
+    out["model_axis"], *_ = _run_step(meshes["data2-model2"], p_np,
+                                      steps.TrainConfig(fsdp=True, **TRAIN_KW))
+    pod_model = make_process_mesh((2, 1, 2), ("pod", "data", "model"),
+                                  device="cpu")
+    out["int8_model_axis"], *_ = _run_step(
+        pod_model, p_np, steps.TrainConfig(grad_compression="int8", **TRAIN_KW))
     try:
-        steps.build_train_step(bundle, steps.TrainConfig(**TRAIN_KW),
+        steps.build_train_step(get_bundle("rwkv6-1.6b", smoke=True),
+                               steps.TrainConfig(**TRAIN_KW),
                                meshes["data2-model2"])
-        out["model_axis"] = "built"
+        out["rwkv6_model_axis"] = "built"
     except NotImplementedError as e:
-        out["model_axis"] = str(e)
+        out["rwkv6_model_axis"] = str(e)
     return out
 
 

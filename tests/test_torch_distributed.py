@@ -25,8 +25,10 @@ over 2 ranks dispatches the reference's groups of the global tokens: one
 layer within 1e-5 of max|ref| of the reference's on all the tokens (fp32
 sums in another order; the capacity drops the same entries), and the
 first step's loss and gradient norm within 1e-5 relative; a group that
-would span the ranks is refused.  Checkpoints and tokens are held
-exactly.
+would span the ranks is refused.  The train step over (data 2, model 2)
+(tensor parallel, FSDP on) is held as the data-parallel one, and over
+(pod 2, data 1, model 2) with int8 as the int8 run; RWKV6 over a model
+axis is refused.  Checkpoints and tokens are held exactly.
 """
 import dataclasses
 import math
@@ -129,8 +131,9 @@ def ref_sharded(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def four(tmp_path_factory):
-    return spawn(ranks.four_ranks, 4, tmp_path_factory.mktemp("four"))
+def four(tmp_path_factory, ref_weights):
+    _, p = ref_weights
+    return spawn(ranks.four_ranks, 4, tmp_path_factory.mktemp("four"), p)
 
 
 CASES = [c[0] for c in ranks.SHARDED_CASES]
@@ -513,8 +516,40 @@ def test_data_parallel_step_refuses_capture(two):
     assert "3(c)" in two[0]["captured"]
 
 
-def test_train_step_refuses_a_model_axis(four):
-    assert "3(c)" in four[0]["model_axis"]
+def test_train_step_over_a_model_axis_matches_reference(four, ref_runs):
+    """SmolLM smoke over (data 2, model 2), FSDP on (3 query heads of 16
+    cut at 24 columns: inside a head): the losses and the gathered state
+    after 3 steps against the reference's one-device step."""
+    want_losses, want = ref_runs["fsdp"]
+    for r in four:
+        _close(r["model_axis"]["losses"], want_losses, REL_LOSS)
+    got = four[0]["model_axis"]["full"]
+    for tree, ref in ((got["params"], want["params"]),
+                      (got["opt"]["m"], want["opt"]["m"]),
+                      (got["opt"]["v"], want["opt"]["v"])):
+        ref_leaves = jax.tree.leaves(ref)
+        assert len(tree_leaves(tree)) == len(ref_leaves)
+        for g, w in zip(tree_leaves(tree), ref_leaves):
+            _close(g, w, REL_LEAF)
+
+
+def test_int8_step_over_pod_and_model_matches_reference(four, ref_runs):
+    """int8 compression across the pod beside a model axis of 2: each
+    leaf's gradient gathered over model and compressed whole, as the
+    reference compresses it; held as the (pod 2, data 1) run."""
+    want_losses, want = ref_runs["int8"]
+    for r in four:
+        _close(r["int8_model_axis"]["losses"], want_losses, REL_LOSS)
+    got = four[0]["int8_model_axis"]["full"]
+    for name, tree, ref in (("params", got["params"], want["params"]),
+                            ("m", got["opt"]["m"], want["opt"]["m"]),
+                            ("v", got["opt"]["v"], want["opt"]["v"])):
+        for g, w in zip(tree_leaves(tree), jax.tree.leaves(ref)):
+            _close_int8(name, g, w)
+
+
+def test_train_step_refuses_rwkv6_over_a_model_axis(four):
+    assert "3(c)" in four[0]["rwkv6_model_axis"], four[0]["rwkv6_model_axis"]
 
 
 def test_fsdp_checkpoint_restores_on_two_ranks(two):
