@@ -14,7 +14,9 @@ Phases, in order; any failure raises:
  3. training: SmolLM-135M at full width and depth (30 layers, d_model
     576, vocab 49,152, fp32, TF32 off) trained through ``train`` (the
     entry point of ``python -m repro_torch.launch.train``) for 30 steps of
-    8 x 256 synthetic tokens, checkpointing every 15 steps.  Step 1's loss
+    8 x 256 synthetic tokens, checkpointing every 15 steps, each layer
+    recomputed in the backward (the reference's per-layer remat).  Step
+    1's loss
     and gradients (the train step's own ``value_and_grad``) held against a
     plain float64 recompute on the card (``lm_loss_fp64``, written apart
     from the port's model code): the loss within 1e-5 relative, every
@@ -208,7 +210,26 @@ Phases, in order; any failure raises:
     Each arch's drawn params held against its schema with no new
     allocation: ``count_params`` equal to their numel, ``param_shapes``
     equal to their shapes and dtypes leaf for leaf;
-15. one JSON line with the training numbers (ms a step and tokens/s, the
+15. the dry run (``repro_torch.launch.dryrun``): (i) the CLI in
+    processes of its own (the fake process group is process-wide), started
+    first and read last: DeepSeek-V3-671B at full size, ``decode_32k`` and
+    ``train_4k`` on (pod 2, data 16, model 16), each record printed (per
+    rank arguments, outputs and temporary bytes, FLOPs, HBM bytes,
+    collective wire bytes by axis, K4 charges); (ii) meanwhile, on the
+    card with no process mesh, in bf16, SmolLM-135M ``train_4k`` and
+    Qwen3-4B ``prefill_32k`` at smoke scale 16, weights and tokens from
+    the seed, each step run under the dry run's cost counter after a
+    warm-up call and held against the dry run of the same cell on the 1 x
+    1 mesh: FLOPs and product FLOPs equal (K4's launches charged on the
+    card by the same ``flash_cost``), argument bytes equal, the peak above
+    the arguments (``max_memory_allocated`` after a reset) within 15 % of
+    the dry run's temporary bytes, K4 launched once a layer (36) where the
+    dry run charges it; each step's ms printed beside the dry run's
+    roofline bound, max(FLOPs / the bf16 dense peak, bytes / 3.35e12 B/s);
+    K4 at the prefill's shape (BH 64, S 2,048, D 128, rep 4, bf16) and at
+    Qwen3-4B's tensor-parallel prefill shape (BH 64, S 16, fp32) against
+    its plain version, timed beside SDPA;
+16. one JSON line with the training numbers (ms a step and tokens/s, the
     median over steps 5-30, captured and eager, peak device memory, the
     model FLOPs a step and their share of the fp32 peak, the card's name
     and power limit),
@@ -216,12 +237,14 @@ Phases, in order; any failure raises:
     compiled programs' counts by phase (the zoo's ``serve_lm`` graphs
     and the coded LM prefill's among them), one JSON line with the
     examples' and the specs' readings, one JSON line with the process
-    mesh's readings, one JSON line with the kernels' numbers (K1-K4; K2's top-level numbers
+    mesh's readings, one JSON line with the dry run's, one JSON line with
+    the kernels' numbers (K1-K4; K2's top-level numbers
     are its CNN pass, its LM numbers sit under ``paths.lm``; each kernel's
     ``launches`` is its count on the phase-5 or phase-7 main path, and
     ``launches_by_path`` its count in every phase that ran it, training's
-    0 and the zoo's among them; K2-K4 carry their zoo shapes under
-    ``zoo``; a replayed
+    0 and the zoo's and the dry run's among them; K2-K4 carry their zoo
+    shapes under ``zoo``, K4 the dry-run phase's under ``dryrun``; a
+    replayed
     graph launches no wrapper, so its launches count as the kernels the
     graph holds, once per replay), then the result line.
 
@@ -257,9 +280,11 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth.  The bound of a kernel is the larger of its
-# operations over the first and its bytes over the second.
+# cores, dense bf16 on the tensor cores, and HBM3 bandwidth.  The bound of
+# a kernel is the larger of its operations over the peak for its operands'
+# type and its bytes over the bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 ARCH, HW, N_WORKERS, KAB, BUCKET = "vgg16", 224, 8, (2, 4), 8
@@ -497,8 +522,9 @@ def check_repeatable(name: str, fn, got: torch.Tensor) -> None:
         raise AssertionError(f"{name}: two launches on the same inputs differ")
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float,
+             peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -856,14 +882,15 @@ def _gemm_entry(a_s, b_s, count, fn, plain, gen, device, tol, name,
 
 
 def flash_bound(bh: int, bhkv: int, sq: int, sk: int, d: int,
-                width: int = 4) -> tuple[float, str]:
-    """Causal attention's least work: each query row i scores and weighs
-    min(i + 1, sk) keys (2*d FLOPs each way, fp32 outside the tensor
-    cores); each input read once, the output written once, ``width``
-    bytes an element."""
-    keys = sum(min(i + 1, sk) for i in range(sq))
-    return bound_ms(4.0 * d * keys * bh,
-                    width * (2 * bh * sq * d + 2 * bhkv * sk * d))
+                dtype=torch.float32) -> tuple[float, str]:
+    """Causal attention's least work (``flash_cost``, the dry run's charge
+    for a launch) against the HBM rate and the peak for ``dtype``: fp32
+    outside the tensor cores, bf16 dense on them."""
+    from repro_torch.kernels.flash_attn.kernel import flash_cost
+
+    width = torch.finfo(dtype).bits // 8
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    return bound_ms(*flash_cost(bh, bhkv, sq, sk, d, width), peak)
 
 
 def _k3_plan(m: int, n: int, kk: int):
@@ -901,8 +928,7 @@ def flash_entry(bh: int, s: int, d: int, rep: int, count: int, dtype, gen,
         raise AssertionError(f"{name}: {mismatch:.2%} of the outputs differ "
                              f"from the plain version's bits > {K4_BF16_MISMATCH:.2%}")
     check_repeatable(name, run, got)
-    width = torch.finfo(dtype).bits // 8
-    bnd, by = flash_bound(bh, bh // rep, s, s, d, width)
+    bnd, by = flash_bound(bh, bh // rep, s, s, d, dtype)
     e = {"q": [bh, s, d], "kv": [bh // rep, s, d], "rep": rep,
          "dtype": str(dtype).removeprefix("torch."), "count": count,
          "plan": flash_plan(bh, s, s, d, rep)._asdict(),
@@ -2783,6 +2809,226 @@ def specs_phase() -> dict:
     return out
 
 
+# -- the dry run: the multi-pod cells traced on meta tensors ------------------
+
+# (i) the CLI over the multi-pod mesh (rank 0 of 512 fake ranks), DeepSeek-V3
+# at full size, each cell a process of its own (the fake process group is
+# process-wide), run while (ii) holds the card
+DRYRUN_CLI = (("deepseek-v3-671b", "decode_32k"), ("deepseek-v3-671b", "train_4k"))
+DRYRUN_CLI_TIMEOUT_S = 900
+# (ii) cells run on the card (bf16 params, no process mesh) under the dry
+# run's counter and held against the dry run of the same cell on the 1 x 1
+# mesh: FLOPs and argument bytes equal, the peak above the arguments within
+# TOL_DRYRUN_PEAK of the dry run's temporary bytes
+DRYRUN_CARD = (("smollm-135m", "train_4k"), ("qwen3-4b", "prefill_32k"))
+DRYRUN_SMOKE, TOL_DRYRUN_PEAK = 16, 0.15
+# K4 at Qwen3-4B's per-rank prefill over (data 1, model 2): 4 prompts x 16
+# local query heads, S 16 (phase 13 (d))
+K4_TP_SHAPE = (64, 16, 128, 4)
+
+
+def start_dryrun_cli(tmp: str) -> list:
+    """(i): one ``python -m repro_torch.launch.dryrun`` process a cell of
+    ``DRYRUN_CLI`` on the multi-pod mesh, writing its record under
+    ``tmp``; started, not waited for."""
+    src = str(Path(__file__).resolve().parent / "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    code = ("import sys; from repro_torch.launch import dryrun; "
+            "dryrun.RESULTS_DIR = sys.argv[1]; dryrun.main(sys.argv[2:])")
+    return [(arch, shape, subprocess.Popen(
+        [sys.executable, "-c", code, tmp, "--arch", arch, "--shape", shape,
+         "--multi-pod", "--force"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env))
+        for arch, shape in DRYRUN_CLI]
+
+
+def finish_dryrun_cli(procs: list, tmp: str) -> list:
+    """Wait for (i)'s processes; each must exit 0 and print its ``[ok``
+    line; returns their records."""
+    recs = []
+    for arch, shape, proc in procs:
+        out, _ = proc.communicate(timeout=DRYRUN_CLI_TIMEOUT_S)
+        if proc.returncode != 0 or "[ok" not in out:
+            raise AssertionError(f"dry run {arch} {shape}: exit "
+                                 f"{proc.returncode}\n{out[-3000:]}")
+        with open(os.path.join(tmp, f"{arch}__{shape}__2x16x16.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def dryrun_card_cell(arch: str, shape: str, device, k4_launches) -> dict:
+    """(ii) one cell: the dry run of ``arch`` x ``shape`` at smoke scale
+    ``DRYRUN_SMOKE`` on the 1 x 1 mesh (meta tensors, rank 0 of a fake
+    group of one), then the same step on the card from weights and tokens
+    drawn from the seed, after a warm-up call, under the same counter.  K4
+    launches on the card where the dry run charges it: the card's counts
+    add ``flash_cost`` at the launched shape for each launch.  Raises where
+    a count disagrees or the peak leaves the band."""
+    from repro_torch.configs.shapes import batch_structs
+    from repro_torch.kernels.flash_attn.kernel import flash_cost
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.cost_analysis import tree_bytes
+    from repro_torch.optim import init_state
+
+    with dryrun.fake_mesh((1, 1), ("data", "model")) as mesh:
+        counter, out, meta = dryrun.lower_cell(arch, shape, mesh,
+                                               smoke_scale=DRYRUN_SMOKE)
+        dry = {"cost": counter.cost.as_dict(), "memory": counter.memory(out),
+               "kernels": counter.kernels}
+    del out, counter
+    bundle, kind, tcfg = meta["bundle"], meta["kind"], meta["tcfg"]
+    cfg = bundle.cfg
+    gen = torch.Generator(device=device).manual_seed(SEED + 25)
+    params = bundle.init(gen, torch.bfloat16, device)
+    structs, _ = batch_structs(bundle, shape, smoke_scale=DRYRUN_SMOKE)
+    batch = {k: torch.randint(0, cfg.vocab, tuple(v.shape), generator=gen,
+                              device=device, dtype=v.dtype)
+             for k, v in structs.items()}
+    opt = init_state(params) if kind == "train" else None
+
+    def counted():
+        return dryrun.count_step(bundle, kind, params, batch, None, opt,
+                                 tcfg=tcfg)
+
+    on_card = device.type == "cuda"  # the CPU rehearsal holds the counts
+    counted()  # warm-up: cuBLAS handles and workspaces
+    if on_card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    k4_launches.reset()
+    counter, out = counted()
+    peak = None
+    if on_card:
+        torch.cuda.synchronize(device)
+        peak = torch.cuda.max_memory_allocated(device) - base
+    k4 = k4_launches.count
+    del out
+    b, s = structs["tokens"].shape
+    bh = b * cfg.n_heads
+    k4_flops, k4_bytes = flash_cost(bh, b * cfg.n_kv_heads, s, s, cfg.head_dim,
+                                    2) if k4 else (0.0, 0.0)
+    card = {"flops": counter.cost.flops + k4 * k4_flops,
+            "dot_flops": counter.cost.dot_flops + k4 * k4_flops,
+            "bytes": counter.cost.bytes + k4 * k4_bytes,
+            "argument_size_in_bytes": tree_bytes((params, opt, batch)),
+            "peak_above_arguments": peak, "k4_launches": k4}
+    want_k4 = dry["kernels"].get("flash_attention", {}).get("launches", 0)
+    temp = dry["memory"]["temp_size_in_bytes"]
+    name = f"dry run {arch} {shape} (smoke {DRYRUN_SMOKE}, bf16)"
+    if card["flops"] != dry["cost"]["flops"] or \
+            card["dot_flops"] != dry["cost"]["dot_flops"]:
+        raise AssertionError(f"{name}: FLOPs {card['flops']} / products "
+                             f"{card['dot_flops']} on the card against "
+                             f"{dry['cost']['flops']} / {dry['cost']['dot_flops']}")
+    if card["argument_size_in_bytes"] != dry["memory"]["argument_size_in_bytes"]:
+        raise AssertionError(f"{name}: argument bytes "
+                             f"{card['argument_size_in_bytes']} against "
+                             f"{dry['memory']['argument_size_in_bytes']}")
+    if k4 != want_k4 or (kind == "prefill" and k4 != cfg.layers):
+        raise AssertionError(f"{name}: K4 launched {k4} times, the dry run "
+                             f"charges {want_k4}, the layers {cfg.layers}")
+    if on_card and not abs(peak - temp) <= TOL_DRYRUN_PEAK * temp:
+        raise AssertionError(f"{name}: peak above the arguments {peak} bytes "
+                             f"against the dry run's temporary {temp} "
+                             f"(band {TOL_DRYRUN_PEAK:.0%})")
+    ms = None
+    if on_card and kind == "train":
+        step = steps.build_train_step(bundle, tcfg)
+        ms = cuda_ms(lambda: step(params, opt, batch), reps=3, warm=1)
+    elif on_card:
+        step = steps.build_prefill_step(bundle)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: step(params, batch), reps=3, warm=1)
+    bnd, by = bound_ms(dry["cost"]["flops"], dry["cost"]["bytes"],
+                       PEAK_BF16_FLOPS)
+    return {"arch": arch, "shape": shape, "smoke_scale": DRYRUN_SMOKE,
+            "kind": kind, "dry": dry, "card": card,
+            "peak_over_temp": None if peak is None else peak / temp,
+            "ms": ms, "bound_ms": bnd,
+            "bound_by": by}
+
+
+def dryrun_phase(device, k4_launches, card: str, tp_k4_launches: int) -> dict:
+    """(i) the DeepSeek-V3 records from the CLI on the multi-pod mesh,
+    (ii) ``DRYRUN_CARD`` held on the card against their dry runs, K4 at the
+    prefill's shape (bf16, S 2048) and at Qwen3-4B's tensor-parallel
+    prefill shape against its plain version, timed beside SDPA; that
+    shape's count is ``tp_k4_launches``, K4's launches in phase 13 (d)'s
+    ``serve_lm(mesh=)`` run of this process."""
+    import tempfile
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.configs.shapes import SHAPES
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_dryrun_cli(tmp)
+        try:
+            out["cells"] = [dryrun_card_cell(arch, shape, device, k4_launches)
+                            for arch, shape in DRYRUN_CARD]
+            _empty_cache(device)
+            gen = torch.Generator(device=device).manual_seed(SEED + 26)
+            pf = next(c for c in out["cells"] if c["kind"] == "prefill")
+            cfg = get_bundle(pf["arch"]).cfg
+            b = SHAPES[pf["shape"]]["global_batch"] // DRYRUN_SMOKE
+            s = SHAPES[pf["shape"]]["seq_len"] // DRYRUN_SMOKE
+            rep = cfg.n_heads // cfg.n_kv_heads
+            out["k4"] = [
+                {"path": f"dry-run check, {pf['arch']} prefill", **flash_entry(
+                    b * cfg.n_heads, s, cfg.head_dim, rep,
+                    pf["card"]["k4_launches"], torch.bfloat16, gen, device,
+                    TOL_K4_BF16, True)},
+                {"path": "tensor-parallel serve_lm prefill (phase 13 (d))",
+                 **flash_entry(*K4_TP_SHAPE, tp_k4_launches, torch.float32,
+                               gen, device, TOL_K4, True)}]
+            out["cli"] = finish_dryrun_cli(procs, tmp)
+        finally:
+            for _, _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    return out
+
+
+def print_dryrun(dr: dict, card: str) -> None:
+    """The dry-run phase's lines (``dryrun_phase``'s readings)."""
+    for r in dr["cli"]:
+        m, c = r["memory"], r["cost"]
+        print(f"  dry run {r['arch']} {r['shape']} on 2x16x16 (rank 0 of "
+              f"{r['devices']} fake ranks, meta tensors, traced in "
+              f"{r['trace_s']} s): per rank arguments "
+              f"{_gib(m['argument_size_in_bytes'])}, outputs "
+              f"{_gib(m['output_size_in_bytes'])}, temporary "
+              f"{_gib(m['temp_size_in_bytes'])}; FLOPs {c['flops']:.6e} "
+              f"(products {c['dot_flops']:.6e}), HBM bytes {c['bytes']:.6e}; "
+              f"collective wire bytes {c['collective_bytes']:.6e} by axis "
+              + ", ".join(f"{ax} {v['calls']} calls {v['wire_bytes']:.6e}"
+                          for ax, v in r["by_axis"].items())
+              + f"; K4 charges {r['kernels'] or 'none'}")
+    for e in dr["cells"]:
+        d, c = e["dry"], e["card"]
+        print(f"  dry run against the card, {e['arch']} {e['shape']} (smoke "
+              f"{e['smoke_scale']}, bf16, no mesh) on {card}: FLOPs "
+              f"{c['flops']:.6e} = {d['cost']['flops']:.6e}, products "
+              f"{c['dot_flops']:.6e} = {d['cost']['dot_flops']:.6e}; "
+              f"arguments {c['argument_size_in_bytes']} = "
+              f"{d['memory']['argument_size_in_bytes']} bytes; peak above "
+              f"them {_gib(c['peak_above_arguments'])} against the "
+              f"temporary {_gib(d['memory']['temp_size_in_bytes'])} (ratio "
+              f"{e['peak_over_temp']}, band {TOL_DRYRUN_PEAK:.0%}); K4 "
+              f"launched {c['k4_launches']}, charged "
+              f"{d['kernels'].get('flash_attention', {}).get('launches', 0)}; "
+              f"{_ms(e['ms'])} ms a step against the bound "
+              f"{e['bound_ms']:.4f} ms (by {e['bound_by']})")
+    for e in dr["k4"]:
+        print(f"  K4 at {e['q']} rep {e['rep']} {e['dtype']} ({e['path']}): "
+              f"{_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, plain "
+              f"{_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])} / device "
+              f"{_ms(e['library_device_ms'])}, bound {e['bound_ms']:.5f} by "
+              f"{e['bound_by']}; rel err {e['max_rel_err']:.2e} <= {e['tol']}")
+
+
 # -- the process mesh: SPMD over torch.distributed ----------------------------
 
 # (a) VGG-16 at 224, batch DIST_BATCH, every ConvL through run_sharded on
@@ -3895,6 +4141,19 @@ def main() -> int:
           f"depths: " + ", ".join(f"{z['arch']} {z['specs']['count_params']:,}"
                                   for z in zoo["archs"]))
 
+    # -- the dry run: DeepSeek-V3's multi-pod records, and two cells held on
+    # the card against their dry runs -------------------------------------
+    t0 = time.perf_counter()
+    dr = dryrun_phase(device, k4_launches, card,
+                      by_path["serve_lm_tp"]["flash_attention"])
+    dr["seconds"] = time.perf_counter() - t0
+    print(f"dry-run phase: {dr['seconds']:.1f} s")
+    print_dryrun(dr, card)
+    by_path["dryrun"] = {"coded_worker": 0, "matmul": 0, "coded_gemm": 0,
+                         "flash_attention": sum(c["card"]["k4_launches"]
+                                                for c in dr["cells"])}
+    _empty_cache(device)
+
     # -- the kernels line: K1-K4, launches from each path's serving run.
     # K2 runs on both paths, in two regimes: its top-level numbers stay
     # one pass of the CNN transition shapes; one LM decode step's worker
@@ -3935,6 +4194,7 @@ def main() -> int:
     k2e["zoo"] = zk["matmul"]
     k3e["zoo"] = zk["coded_gemm"] + zk["coded_gemm_encode"]
     k4e["zoo"] = zk["flash_attention"] + zk["flash_attention_bf16"]
+    k4e["dryrun"] = dr["k4"]
     for e in (k1e, k2e, k3e, k4e):
         e["launches_by_path"] = {path: counts[e["name"]]
                                  for path, counts in by_path.items()
@@ -3945,6 +4205,7 @@ def main() -> int:
     print(json.dumps({"graphs": graph_phases}))
     print(json.dumps({"examples": ex, "specs": specs}))
     print(json.dumps({"distributed": dist}))
+    print(json.dumps({"dryrun": dr}))
     print(json.dumps({"kernels": [k1e, k2e, k3e, k4e]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

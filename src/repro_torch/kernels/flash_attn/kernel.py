@@ -13,6 +13,10 @@ launches the CUDA kernel for CUDA tensors and runs
 ``flash_plan`` chooses the launch shape.  The kernel has no backward (nor
 has the TPU kernel): on the card it refuses an operand that requires grad
 while grad mode is on, where the output would silently cut the gradient.
+Meta operands (the dry run, ``launch.dryrun``) launch nothing: after the
+card's checks they give an empty meta output and charge the work of the
+launch, ``flash_cost``, to the active cost counter
+(``native.record_kernel``).
 """
 from __future__ import annotations
 
@@ -21,10 +25,11 @@ from typing import NamedTuple
 
 import torch
 
-from ..native import NUM_SMS, LaunchCounter, launch_on, load_library
+from ..native import (NUM_SMS, LaunchCounter, launch_on, load_library,
+                      record_kernel)
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_plan", "FlashPlan",
-           "launches", "HEAD_DIMS"]
+           "flash_cost", "launches", "HEAD_DIMS"]
 
 launches = LaunchCounter("flash_attention")
 
@@ -77,6 +82,18 @@ def flash_plan(bh: int, sq: int, sk: int, d: int, rep: int) -> FlashPlan:
     rows = next((r for r in fits if column * -(-sq // r) >= NUM_SMS), fits[-1])
     warps = min(MAX_WARPS, heads * rows)
     return FlashPlan(heads, rows, warps, groups, column * -(-sq // rows))
+
+
+def flash_cost(bh: int, bhkv: int, sq: int, sk: int, d: int,
+               width: int = 4, causal: bool = True) -> tuple[float, float]:
+    """``(flops, bytes)`` of one launch over ``q (bh, sq, d)`` and ``k/v
+    (bhkv, sk, d)``, the least work of the function: causal, query row i
+    scores and weighs ``min(i + 1, sk)`` keys (else all ``sk``), 2·d
+    FLOPs each way; each input read once and the output written once,
+    ``width`` bytes an element."""
+    m = min(sq, sk)
+    keys = m * (m + 1) // 2 + (sq - m) * sk if causal else sq * sk
+    return 4.0 * d * keys * bh, float(width * (2 * bh * sq * d + 2 * bhkv * sk * d))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rep: int) -> None:
@@ -132,15 +149,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     key ``j`` is masked for query ``i`` when ``causal`` and ``j > i``.
     fp32 or bf16 (all three alike), ``D`` in ``HEAD_DIMS``.  CUDA tensors
     launch K4 as ``flash_plan`` says; CPU tensors take
-    ``flash_attention_plain``.  On CUDA, an operand that requires grad
-    under grad mode raises: K4 has no backward."""
+    ``flash_attention_plain``; meta tensors launch nothing and charge
+    ``flash_cost`` to the active cost counter.  On CUDA and meta, an
+    operand that requires grad under grad mode raises: K4 has no
+    backward."""
     _check(q, k, v, rep)
     if not (q.device == k.device == v.device):
         raise ValueError(f"operands on {q.device}, {k.device}, {v.device}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, causal=causal, rep=rep)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, got "
+                         f"{q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(
@@ -159,6 +179,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     plan = flash_plan(bh, sq, sk, d, rep)
     if bh // rep * plan.groups > MAX_GRID_Y:
         raise ValueError(f"BH={bh} exceeds the kernel's grid")
+    if q.device.type == "meta":  # nothing to launch: charge its work
+        record_kernel("flash_attention", *flash_cost(
+            bh, bh // rep, sq, sk, d, q.element_size(), causal))
+        return torch.empty_like(q)
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
     if bh == 0 or sq == 0:

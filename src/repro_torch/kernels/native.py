@@ -11,6 +11,7 @@ process reuses it.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -23,7 +24,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["LaunchCounter", "build_library", "load_library", "check_launch",
-           "launch_on", "held_launches", "NUM_SMS"]
+           "launch_on", "held_launches", "NUM_SMS", "cost_counter",
+           "record_kernel"]
 
 NUM_SMS = 132  # streaming multiprocessors of an H100 SXM: the launch plans fill them
 
@@ -99,6 +101,23 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self._count = 0
+
+
+# the cost counter of the block being counted (``launch.cost_analysis``'s
+# ``CostCounter`` sets it for its block), None outside one
+cost_counter: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_cost", default=None)
+
+
+def record_kernel(name: str, flops: float, nbytes: float) -> None:
+    """Charge the active cost counter (if any) with one launch of the
+    hand-written kernel ``name`` that a wrapper stands in for (on meta
+    operands, where nothing launches): ``flops`` (counted as product
+    FLOPs) and ``nbytes`` of HBM traffic.  Its ``LaunchCounter`` does not
+    move."""
+    counter = cost_counter.get()
+    if counter is not None:
+        counter.charge(name, flops, nbytes)
 
 
 def _nvcc() -> str:

@@ -29,9 +29,11 @@ gradient backward (right where what follows computes the same on every
 rank; ``copy_to`` after it sums partial gradients first).  The plain
 collectives detach their operands.  ``stats`` counts calls, seconds and
 operand bytes, in total and by the axes a collective spans; ``trace``,
-where a list, records each collective's kind, axes, operand shape and the
-address of the operand's storage (which tells a parameter or a cache leaf
-sent as it is from an activation).
+where a list, records each collective as a ``Collective``: its kind, axes,
+operand shape, the address of the operand's storage (which tells a
+parameter or a cache leaf sent as it is from an activation), the operand's
+bytes and the ranks of its group (``launch.cost_analysis`` reads its wire
+bytes from them).
 
 The backend follows from where the ranks run:
 
@@ -57,6 +59,7 @@ import os
 import queue
 import time
 import traceback
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -64,7 +67,8 @@ import torch
 from ..devices import canonical_device, resolve_device
 from ..sharding import active_mesh, use_mesh
 
-__all__ = ["Mesh", "ProcessMesh", "make_host_mesh", "make_worker_mesh",
+__all__ = ["Mesh", "ProcessMesh", "Collective", "make_host_mesh",
+           "make_worker_mesh",
            "make_production_mesh", "make_process_mesh", "backend_for",
            "use_mesh", "active_mesh", "run_ranks"]
 
@@ -129,6 +133,19 @@ def make_worker_mesh(n: int, devices=None) -> Mesh:
 # -- the process mesh --------------------------------------------------------
 
 
+class Collective(NamedTuple):
+    """One collective of a ``ProcessMesh`` (its ``trace``): ``kind``
+    (``all_gather``, ``all_reduce_sum``, ``all_reduce_max``), the mesh
+    axes it spans joined by ``+``, the operand's shape, the address of its
+    storage, its bytes and the ranks of the group."""
+    kind: str
+    axes: str
+    shape: tuple
+    address: int
+    nbytes: int
+    group: int
+
+
 def backend_for(device: str | torch.device, ranks_per_host: int) -> str:
     """``nccl`` where each of a host's ``ranks_per_host`` ranks has a card
     of its own, ``gloo`` where ranks share a card (NCCL refuses two ranks
@@ -172,8 +189,7 @@ class ProcessMesh:
         # "model" against "data"
         self.stats = {"collectives": 0, "collective_s": 0.0,
                       "collective_bytes": 0, "by_axis": {}}
-        # a list to record (kind, axes, operand shape, storage address) of
-        # each collective
+        # a list to record each collective (a ``Collective``)
         self.trace: list | None = None
         self._groups = self._joint_groups()
 
@@ -256,8 +272,9 @@ class ProcessMesh:
         ax["s"] += dt
         ax["bytes"] += nbytes
         if self.trace is not None:
-            self.trace.append((kind, key, tuple(t.shape),
-                               t.untyped_storage().data_ptr()))
+            self.trace.append(Collective(kind, key, tuple(t.shape),
+                                         t.untyped_storage().data_ptr(),
+                                         nbytes, self.group_size(axes)))
         return out
 
     def all_gather(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:

@@ -41,7 +41,7 @@ from ..optim import AdamWConfig, apply_updates, compress_tree, init_state
 from ..optim.schedule import cosine_with_warmup
 from ..sharding import (BATCH, MODEL, QUEUE_3C, NamedSharding, PartitionSpec,
                         check_data_parallel, gather_tree, resolve_pspec,
-                        shard_tree, sharded_dim_over, use_mesh)
+                        shard_tree, sharded_dim_over, spec_axes, use_mesh)
 from ..tree import tree_from_items, tree_items, tree_leaves, tree_map
 from .mesh import ProcessMesh
 
@@ -255,11 +255,29 @@ class ParallelStep:
                               "step": NamedSharding(mesh, PartitionSpec())}
 
     def local_batch(self, batch: dict) -> dict:
-        """This rank's rows of every leaf of the global ``batch``."""
+        """This rank's rows of every leaf of the global ``batch``, cut over
+        the pod and data axes that divide them (``batch_pspecs``).  Where
+        one does not (fewer rows than ranks, as in a smoke-scaled dry-run
+        cell), its ranks hold the same rows: the loss and gradient averaged
+        over every data rank are still the batch's, each block of rows
+        being held by as many ranks.  A MoE refuses that, since its
+        dispatch groups are those of distinct rows (3(c))."""
         specs = batch_pspecs(self.bundle, batch, self.mesh)
         for key, spec in specs.items():
-            check_data_parallel(spec, 0, self.mesh.shape, True,
-                                f"batch leaf {key!r} {tuple(batch[key].shape)}")
+            what = f"batch leaf {key!r} {tuple(batch[key].shape)}"
+            rows = spec_axes(spec[0]) if len(spec) else ()
+            alike = [a for a in BATCH if self.mesh.shape.get(a, 1) > 1
+                     and a not in rows]
+            # dimension 0 over the data axes that cut it (the others held
+            # as if of one rank), and no other dimension over any axis
+            check_data_parallel(spec, 0, {**self.mesh.shape,
+                                          **dict.fromkeys(alike, 1)}, True, what)
+            check_data_parallel(PartitionSpec(None, *spec[1:]), None,
+                                self.mesh.shape, False, what)
+            if alike and getattr(self.bundle.cfg, "moe", None):
+                raise NotImplementedError(
+                    f"{what}: rows held alike over {alike}: a MoE's "
+                    f"dispatch groups need distinct rows a rank; {QUEUE_3C}")
         return shard_tree(batch, tree_map(lambda sp: NamedSharding(
             self.mesh, sp), specs))
 

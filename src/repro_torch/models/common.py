@@ -25,7 +25,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
-from ..sharding import NamedSharding, PartitionSpec, shard_tree
+from ..sharding import (NamedSharding, PartitionSpec, active_mesh, shard_tree,
+                        use_mesh)
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["ParamSpec", "MODEL_AXIS", "stack_schema", "spec_to_pspec",
@@ -178,8 +179,16 @@ def checkpointed(fn, *args):
     backward recomputes it, saving only its inputs (the reference's
     ``jax.checkpoint``).  No model draws random numbers, so no RNG state
     is saved; reading the card's would fail inside a CUDA-graph capture
-    of a train step."""
-    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    of a train step.  The recompute runs under the mesh that was active
+    for the forward: on the card the backward runs on autograd's device
+    thread, which does not see the caller's ``use_mesh``."""
+    mesh = active_mesh()
+
+    def run(*a):
+        with use_mesh(mesh):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def next_token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -720,14 +720,19 @@ def _run_stack(stack_w, x, cfg, rope, q_pos, k_pos, caches, start, autograd,
     ``offset`` of the model; ``caches`` the stack's (L, B, S, ...) cache
     leaves (written in place) or None.  Each stacked leaf is unbound once,
     so its gradient is one stack of the layers' (not a sum of L
-    zero-padded selects)."""
+    zero-padded selects).  On the training route each layer runs under
+    ``checkpointed`` (the reference's per-layer ``jax.checkpoint`` where
+    it has no cache): backward recomputes one layer at a time, so only
+    the layers' inputs persist."""
     windows = _layer_windows(cfg, n, offset)
     layers = map_params(lambda leaf: leaf.unbind(0), stack_w)
+    remat = caches is None and autograd and torch.is_grad_enabled()
     for l in range(n):
         w = map_params(lambda leaves: leaves[l], layers)
         cache = None if caches is None else {k: c[l] for k, c in caches.items()}
-        x = _layer(w, x, cfg, rope, q_pos, k_pos, windows[l], moe_layer, cache,
-                   start, autograd)
+        args = (w, x, cfg, rope, q_pos, k_pos, windows[l], moe_layer, cache,
+                start, autograd)
+        x = checkpointed(_layer, *args) if remat else _layer(*args)
     return x
 
 

@@ -77,8 +77,8 @@ def _model_trace(mesh, fn):
         out = fn()
     finally:
         trace, mesh.trace = mesh.trace, None
-    return out, [(kind, shape, ptr) for kind, axes, shape, ptr in trace
-                 if axes == MODEL]
+    return out, [(c.kind, c.shape, c.address) for c in trace
+                 if c.axes == MODEL]
 
 
 def _violations(trace, rows: int, leaves) -> list:
