@@ -187,16 +187,20 @@ Phases, in order; any failure raises:
     (the expert choices equal), no entry dropped.  Qwen3-4B at full width
     and depth: then served coded on the device pool on phase 7's plan and
     requests, held as phase 8 holds SmolLM's, with K2-K4 at its shapes
-    against their plain versions, timed.  CodeQwen1.5-7B, Gemma2-9B (one
+    against their plain versions, timed (K2's down projection, K 9,728 on
+    the split kernel, printed alone).  CodeQwen1.5-7B, Gemma2-9B (one
     local, one global layer) and PaliGemma-3B (its ``prefill_fn`` also
     over a 256 x 2048 stub prefix) at 2 layers.  RWKV6-1.6B, Hymba-1.5B
     and Whisper-medium at full width and depth: ``serve_lm`` steps
     ``decode_fn`` over their prompts (no cache-filling prefill, as in the
     reference), so K4's launches are also read around one ``prefill_fn``
     over the same prompts (Whisper's with 4 x 1500 random frames) and
-    equal the layers whose route is K4 (RWKV6 0, Hymba 32, Whisper's
-    decoder 24); RWKV6's and Hymba's ``decode_fn`` stepped over 141 tokens
-    against ``prefill_fn`` (two chunk carries and a padded tail): RWKV6 at
+    equal the layers whose route is K4 (RWKV6 0, Hymba 32, Whisper 72:
+    its encoder's, its decoder's self- and cross-attention 24 each);
+    Whisper's ``prefill_fn`` held within 1e-5 of max|logit| of the same
+    forward on the training route (``autograd=True`` under ``no_grad``,
+    plain attention), both timed; RWKV6's and Hymba's ``decode_fn``
+    stepped over 141 tokens against ``prefill_fn`` (two chunk carries and a padded tail): RWKV6 at
     full depth in float64, and in fp32 on a cut of 2 layers and layer by
     layer at full depth, Hymba at full
     depth with its window cut to 4, from position 96 on (its decode, as
@@ -206,7 +210,9 @@ Phases, in order; any failure raises:
     ``prefill_fn``; each within 1e-4 of max|logit|.  Last, SmolLM-135M
     at full width and depth, K4 in its captured prefill (at the LM kernel
     phase's shape).  K4 at Qwen3's, CodeQwen's, Hymba's (rep 5) and
-    Whisper's decoder's prefill shapes against its plain version, timed.
+    Whisper's prefill shapes (its encoder's 1,500 frames without a mask on
+    the tiled route, its decoder's self- and cross-attention) against its
+    plain version, timed beside SDPA.
     Each arch's drawn params held against its schema with no new
     allocation: ``count_params`` equal to their numel, ``param_shapes``
     equal to their shapes and dtypes leaf for leaf;
@@ -226,9 +232,11 @@ Phases, in order; any failure raises:
     the dry run's temporary bytes, K4 launched once a layer (36) where the
     dry run charges it; each step's ms printed beside the dry run's
     roofline bound, max(FLOPs / the bf16 dense peak, bytes / 3.35e12 B/s);
-    K4 at the prefill's shape (BH 64, S 2,048, D 128, rep 4, bf16) and at
-    Qwen3-4B's tensor-parallel prefill shape (BH 64, S 16, fp32) against
-    its plain version, timed beside SDPA;
+    K4 at the prefill's shape (BH 64, S 2,048, D 128, rep 4) on the tiled
+    route in bf16 (the step's) and fp32, and at Qwen3-4B's tensor-parallel
+    prefill shape (BH 64, S 16, fp32) against its plain version, timed
+    beside SDPA in the same type; the prefill step's K4 share (its 36
+    launches at that device time) printed beside the step;
 16. one JSON line with the training numbers (ms a step and tokens/s, the
     median over steps 5-30, captured and eager, peak device memory, the
     model FLOPs a step and their share of the fp32 peak, the card's name
@@ -306,20 +314,35 @@ LM_N, LM_KB, LM_BUCKETS, LM_MAX_LEN, LM_MAX_PROMPT = 4, 4, (1, 2, 4), 64, 16
 LM_REQUESTS, LM_PROMPT_LEN, LM_GEN = 8, (2, 16), (8, 16)
 # worker 2 straggles at +50 ms, worker 3 is dead: both within gamma = 2
 LM_DELAYS = (0.0, 0.0, STRAGGLER_DELAY_S, float("inf"))
-# K3 sums R_in <= 4 products in order; K4 sums 64-term dot products and an
-# online softmax over <= 16 keys (expf against the library's exp).  Both
-# relative to max|plain|.  K4 in bf16 rounds p and its output to bf16, as
-# its plain version does; an fp32 sum in another order may flip either
-# rounding, so it is held to one bf16 rounding of the output (2^-7 of
-# max|plain|).  Where one 32-key chunk holds every key (S <= 32, the
-# prefill), the kernel rounds p exactly where the plain version does, so
-# the two outputs are also bit-equal in all but K4_BF16_MISMATCH of their
-# elements: an fp32 score summed in another order flips p's rounding in
-# fewer, while a kernel that skipped rounding p (within 2^-7 all the same)
-# changes about a quarter of them (both held on random data by
-# tests/test_torch_lm_kernels.py).
+# K3 sums R_in <= 4 products in order; K4 sums 64- or 128-term dot
+# products and an online softmax over 16 keys on the rows route, up to
+# 2,048 on the tiled route (its P.V sums stay far inside 2e-5 at that
+# depth); expf against the library's exp.  Both relative to max|plain|.
+# K4 in bf16 rounds p and its output to bf16, as its plain version does;
+# an fp32 sum in another order may flip either rounding, so it is held to
+# one bf16 rounding of the output (2^-7 of max|plain|).  Where one 32-key
+# chunk holds every key (S <= 32, the prefill), the kernel rounds p
+# exactly where the plain version does, so the two outputs are also
+# bit-equal in all but K4_BF16_MISMATCH of their elements: an fp32 score
+# summed in another order flips p's rounding in fewer, while a kernel that
+# skipped rounding p (within 2^-7 all the same) changes about a quarter of
+# them (both held on random data by tests/test_torch_lm_kernels.py).
+# Over many keys 2^-7 of max|plain| is set by row 0 (one key, |v| ~ 3.5)
+# and is as large as a late row's whole output, so the tiled route in
+# bf16 is also held, row by row, to flash_attention_tiled_plain, which
+# rounds p against the running max of each 64-key tile as the kernel does:
+# each row within one bf16 rounding of its own largest element (2^-7 of
+# it), and the same bits in all but K4_BF16_TILED_MISMATCH of the
+# elements.  That walk with p left whole (a kernel that skipped p's
+# rounding) must differ in more than K4_BF16_WHOLE_P of them on the same
+# inputs, or the check could not see such a kernel.  On an H100 at the
+# phase-15 shape the kernel differs from the walk in 0.37 % of the bits,
+# each row by at most one rounding, and p left whole in 40 %
+# (tests/test_torch_lm_kernels.py holds the walk to the TPU kernel's).
 TOL_K3, TOL_K4, TOL_K4_BF16 = 1e-5, 2e-5, 2.0 ** -7
 K4_ONE_CHUNK, K4_BF16_MISMATCH = 32, 1e-3
+K4_BF16_TILED_MISMATCH, K4_BF16_WHOLE_P = 1e-2, 0.1
+K4_KERNELS = ("flash_attn_kernel", "flash_tiled_")  # K4's kernels by name
 # served (coded, cluster) logits against the undistributed transformer's, relative
 # to max|logit|: the reference's own coded-decoder tolerance is 3e-4 abs
 # at smoke size; 30 layers of fp32 sums through a decode whose recovery
@@ -387,6 +410,12 @@ ZOO_SCAN = 141
 # near 1e-6 of max|y|, inside 1e-4, where a wrong expert or gate weight
 # reads near 1.
 TOL_ZOO_CACHE, TOL_ZOO_DECODE = 1e-5, 1e-4
+# Whisper's prefill_fn (K4 for the encoder's 1,500-frame attention without
+# a mask and the decoder's self- and cross-attention) against the same
+# forward on the training route (plain masked attention): the same fp32
+# products summed in another order through 24 + 24 layers, relative to
+# max|logit|
+TOL_ZOO_ROUTE = 1e-5
 # RWKV6's random-weight stack amplifies rounding layer after layer: how
 # far a relative perturbation of ZOO_PERTURB in the embedding moves
 # prefill_fn's logits (chip_smoke.py prints it) grows from near 1e-5 of
@@ -481,11 +510,14 @@ def device_ms(fn, reps: int = 10, warm: int = 2) -> float:
                        "issue of the timed calls")
 
 
-def profiler_device_ms(fn, reps: int = 10) -> float | None:
-    """Mean device time of ``fn`` by ``torch.profiler``'s kernel records
-    (the sum of their self device time over ``reps`` calls): a cross-check
-    of ``device_ms`` by another clock.  None when the profiler recorded no
-    device time."""
+def profiler_device_ms(fn, names: tuple[str, ...] = (),
+                       reps: int = 10) -> tuple[float, float] | None:
+    """Mean device time of a call of ``fn`` by ``torch.profiler``'s kernel
+    records (the sum of their self device time over ``reps`` calls, after
+    one unrecorded call), and of it the kernels whose names hold one of
+    ``names``: a cross-check of ``device_ms`` by another clock, and a
+    kernel's share of a step read from a trace of the step.  None when the
+    profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -494,11 +526,16 @@ def profiler_device_ms(fn, reps: int = 10) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_us = part_us = 0.0
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
-        total_us += float(t if t is not None else ev.self_cuda_time_total)
-    return total_us / 1e3 / reps if total_us > 0 else None
+        t = float(t if t is not None else ev.self_cuda_time_total)
+        total_us += t
+        if any(n in ev.key for n in names):
+            part_us += t
+    if total_us <= 0:
+        return None
+    return total_us / 1e3 / reps, part_us / 1e3 / reps
 
 
 def timings(fn, plain, library) -> dict:
@@ -506,8 +543,9 @@ def timings(fn, plain, library) -> dict:
     of the kernel call ``fn``, ``plain_ms`` of its plain version and
     ``library_ms`` / ``library_device_ms`` of the library yardstick (None
     where there is none)."""
+    traced = profiler_device_ms(fn)
     out = {"ms": cuda_ms(fn), "device_ms": device_ms(fn),
-           "profiler_device_ms": profiler_device_ms(fn),
+           "profiler_device_ms": None if traced is None else traced[0],
            "plain_ms": cuda_ms(plain), "library_ms": None,
            "library_device_ms": None}
     if library is not None:
@@ -882,15 +920,15 @@ def _gemm_entry(a_s, b_s, count, fn, plain, gen, device, tol, name,
 
 
 def flash_bound(bh: int, bhkv: int, sq: int, sk: int, d: int,
-                dtype=torch.float32) -> tuple[float, str]:
-    """Causal attention's least work (``flash_cost``, the dry run's charge
-    for a launch) against the HBM rate and the peak for ``dtype``: fp32
-    outside the tensor cores, bf16 dense on them."""
+                dtype=torch.float32, causal: bool = True) -> tuple[float, str]:
+    """Attention's least work (``flash_cost``, the dry run's charge for a
+    launch) against the HBM rate and the peak for ``dtype``: fp32 outside
+    the tensor cores, bf16 dense on them."""
     from repro_torch.kernels.flash_attn.kernel import flash_cost
 
     width = torch.finfo(dtype).bits // 8
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    return bound_ms(*flash_cost(bh, bhkv, sq, sk, d, width), peak)
+    return bound_ms(*flash_cost(bh, bhkv, sq, sk, d, width, causal), peak)
 
 
 def _k3_plan(m: int, n: int, kk: int):
@@ -899,51 +937,98 @@ def _k3_plan(m: int, n: int, kk: int):
     return coded_gemm_plan(m, kk, n)
 
 
+def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error of an output row relative to that row's own
+    max|want| (rows along the last dimension)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(dim=-1)
+    return float((err / want.abs().amax(dim=-1).clamp_min(1e-30)).max())
+
+
+def check_tiled_bf16(name: str, q, k, v, got: torch.Tensor, causal: bool,
+                     rep: int) -> dict:
+    """K4's tiled bf16 output ``got`` against ``flash_attention_tiled_plain``
+    on the same inputs: every row within ``TOL_K4_BF16`` of its own
+    max|want| and all but ``K4_BF16_TILED_MISMATCH`` of the elements
+    bit-equal, while the same walk with p left whole differs in more than
+    ``K4_BF16_WHOLE_P`` of them.  Raises where one fails."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attention_tiled_plain
+
+    want = flash_attention_tiled_plain(q, k, v, causal=causal, rep=rep)
+    whole_p = flash_attention_tiled_plain(q.float(), k.float(), v.float(),
+                                          causal=causal, rep=rep).to(q.dtype)
+    out = {"tiled_row_err": row_err(got, want),
+           "tiled_mismatch_share": float((got != want).float().mean()),
+           "whole_p_mismatch_share": float((whole_p != want).float().mean())}
+    if not out["tiled_row_err"] <= TOL_K4_BF16:
+        raise AssertionError(f"{name}: a row is {out['tiled_row_err']:.2e} of its "
+                             f"own max from the tile-order walk > {TOL_K4_BF16}")
+    if not out["tiled_mismatch_share"] <= K4_BF16_TILED_MISMATCH:
+        raise AssertionError(f"{name}: {out['tiled_mismatch_share']:.2%} of the "
+                             f"outputs differ from the tile-order walk's bits > "
+                             f"{K4_BF16_TILED_MISMATCH:.2%}")
+    if not out["whole_p_mismatch_share"] > K4_BF16_WHOLE_P:
+        raise AssertionError(f"{name}: p left whole changes only "
+                             f"{out['whole_p_mismatch_share']:.2%} of the "
+                             f"outputs: the bit check cannot see it")
+    return out
+
+
 def flash_entry(bh: int, s: int, d: int, rep: int, count: int, dtype, gen,
-                device, tol: float, timed: bool) -> dict:
-    """K4 at one causal self-attention shape in ``dtype``, against its
-    plain version (and, timed, beside SDPA in the same type with K/V
-    repeated outside the timed call)."""
+                device, tol: float, timed: bool, sk: int | None = None,
+                causal: bool = True) -> dict:
+    """K4 at one self-attention shape (``sk`` keys, ``s`` by default;
+    causal or not) in ``dtype``, on the route ``flash_plan`` chooses,
+    against its plain version (the tiled route in bf16 also row by row
+    against the tile-order walk, ``check_tiled_bf16``) and a second launch
+    of itself (and, timed, beside SDPA in the same type with K/V repeated
+    outside the timed call)."""
     from repro_torch.kernels.flash_attn.kernel import (flash_attention,
                                                        flash_attention_plain,
                                                        flash_plan)
 
+    sk = s if sk is None else sk
     q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype)
-               for shape in ((bh, s, d), (bh // rep, s, d), (bh // rep, s, d)))
+               for shape in ((bh, s, d), (bh // rep, sk, d), (bh // rep, sk, d)))
 
     def run():
-        return flash_attention(q, k, v, causal=True, rep=rep)
+        return flash_attention(q, k, v, causal=causal, rep=rep)
 
     def plain():
-        return flash_attention_plain(q, k, v, causal=True, rep=rep)
+        return flash_attention_plain(q, k, v, causal=causal, rep=rep)
 
     got = run()
     want = plain()
     abs_err, rel_err = _err(got.float(), want.float())
-    name = f"K4 {tuple(q.shape)} {dtype}"
+    plan = flash_plan(bh, s, sk, d, rep, dtype == torch.bfloat16)
+    name = (f"K4 {tuple(q.shape)} over {sk} keys{'' if causal else ', no mask'} "
+            f"{dtype} ({plan.route} route)")
     if not rel_err <= tol:
         raise AssertionError(f"{name}: rel err {rel_err} > {tol}")
     mismatch = float((got != want).float().mean())
-    if dtype == torch.bfloat16 and s <= K4_ONE_CHUNK and not mismatch <= K4_BF16_MISMATCH:
+    if (dtype == torch.bfloat16 and sk <= K4_ONE_CHUNK
+            and not mismatch <= K4_BF16_MISMATCH):
         raise AssertionError(f"{name}: {mismatch:.2%} of the outputs differ "
                              f"from the plain version's bits > {K4_BF16_MISMATCH:.2%}")
+    tiled = (check_tiled_bf16(name, q, k, v, got, causal, rep)
+             if dtype == torch.bfloat16 and plan.route == "tiled" else {})
     check_repeatable(name, run, got)
-    bnd, by = flash_bound(bh, bh // rep, s, s, d, dtype)
-    e = {"q": [bh, s, d], "kv": [bh // rep, s, d], "rep": rep,
-         "dtype": str(dtype).removeprefix("torch."), "count": count,
-         "plan": flash_plan(bh, s, s, d, rep)._asdict(),
+    bnd, by = flash_bound(bh, bh // rep, s, sk, d, dtype, causal)
+    e = {"q": [bh, s, d], "kv": [bh // rep, sk, d], "rep": rep,
+         "causal": causal, "dtype": str(dtype).removeprefix("torch."),
+         "count": count, "plan": plan._asdict(),
          "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
-         "mismatch_share": mismatch,
+         "mismatch_share": mismatch, **tiled,
          "bound_ms": bnd, "bound_by": by, "ms": None, "device_ms": None,
          "plain_ms": None, "library_ms": None, "library_device_ms": None}
     if timed:
         b = bh // rep  # SDPA's (B, H, S, D) with one KV head a batch row
         q4 = q.view(b, rep, s, d)
-        k4r = k.view(b, 1, s, d).expand(b, rep, s, d).contiguous()
-        v4r = v.view(b, 1, s, d).expand(b, rep, s, d).contiguous()
+        k4r = k.view(b, 1, sk, d).expand(b, rep, sk, d).contiguous()
+        v4r = v.view(b, 1, sk, d).expand(b, rep, sk, d).contiguous()
 
         def library():
-            return F.scaled_dot_product_attention(q4, k4r, v4r, is_causal=True)
+            return F.scaled_dot_product_attention(q4, k4r, v4r, is_causal=causal)
 
         e.update(timings(run, plain, library))
         e["library_rel_err"] = _err(got.float(), library().reshape(got.shape).float())[1]
@@ -2238,26 +2323,52 @@ def rwkv_float64_witness(cfg, params, device) -> dict:
     return out
 
 
-def whisper_checks(bundle, params, prompts, frames, device) -> tuple[torch.Tensor, dict]:
-    """Whisper: ``prefill_fn`` over ``frames`` and ``prompts``, then
-    ``decode_fn`` teacher-forced over the prompts from a cache whose cross
-    K/V ``precompute_cross_kv(encode(frames))`` filled, within
-    ``TOL_ZOO_DECODE`` of max|logit|.  Returns the prefill's logits too."""
+def whisper_checks(bundle, params, prompts, frames, full, device) -> dict:
+    """Whisper, given ``full``, ``prefill_fn``'s logits over ``frames`` and
+    ``prompts`` (the serving route: K4 for the encoder's attention and the
+    decoder's self- and cross-attention): the same forward on the training
+    route (``autograd=True`` under ``torch.no_grad()``, plain attention)
+    within ``TOL_ZOO_ROUTE`` of max|logit|, both timed on a second call;
+    then ``decode_fn`` teacher-forced over the prompts from a cache whose
+    cross K/V ``precompute_cross_kv(encode(frames))`` filled, within
+    ``TOL_ZOO_DECODE`` of max|logit|."""
     from repro_torch.models import whisper
 
-    full = bundle.prefill_fn(params, {"frames": frames, "tokens": prompts})
+    cfg = bundle.cfg
+    shape = (*prompts.shape, cfg.vocab)
+    _check_logits(f"{bundle.name} prefill_fn", full, shape)
+
+    def seconds(fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        return time.perf_counter() - t0
+
+    with torch.no_grad():
+        trained = whisper.forward(params, cfg, frames, prompts, autograd=True)
+        train_s = seconds(lambda: whisper.forward(params, cfg, frames, prompts,
+                                                  autograd=True))
+    serve_s = seconds(lambda: bundle.prefill_fn(
+        params, {"frames": frames, "tokens": prompts}))
+    route_err = _err(full, trained)[1]
+    if not route_err <= TOL_ZOO_ROUTE:
+        raise AssertionError(f"{bundle.name}: prefill_fn (K4 route) vs the "
+                             f"training route's plain attention rel err "
+                             f"{route_err} > {TOL_ZOO_ROUTE}")
+    del trained
     cache = whisper.precompute_cross_kv(
-        params, bundle.cfg, whisper.encode(params, bundle.cfg, frames),
+        params, cfg, whisper.encode(params, cfg, frames),
         bundle.make_cache(prompts.shape[0], prompts.shape[1], torch.float32, device))
     stepped, _ = _stepped(bundle, params, cache, prompts)
-    shape = (*prompts.shape, bundle.cfg.vocab)
-    _check_logits(f"{bundle.name} prefill_fn", full, shape)
     _check_logits(f"{bundle.name} decode_fn", stepped, shape)
     err = _err(stepped, full)[1]
     if not err <= TOL_ZOO_DECODE:
         raise AssertionError(f"{bundle.name}: decode_fn over the encoder's cross "
                              f"K/V vs prefill_fn rel err {err} > {TOL_ZOO_DECODE}")
-    return full, {"frames": list(frames.shape), "decode_rel_err": err}
+    return {"frames": list(frames.shape), "decode_rel_err": err,
+            "training_route_rel_err": route_err, "prefill_fn_s": serve_s,
+            "training_route_s": train_s}
 
 
 def decode_profile(bundle, params, prompts, device, captured: bool,
@@ -2479,11 +2590,7 @@ def zoo_arch(arch: str, layers, device, counters, card: str,
         _sync(device)
         _reset(counters)
         t0 = time.perf_counter()
-        if bundle.family == "encdec":
-            logits, out["checks"] = whisper_checks(bundle, params, prompts,
-                                                   batch["frames"], device)
-        else:
-            logits = bundle.prefill_fn(params, batch)
+        logits = bundle.prefill_fn(params, batch)
         _sync(device)
         out["prefill_fn_s"] = time.perf_counter() - t0
         out["prefill_launches"] = _launches(counters)
@@ -2492,9 +2599,12 @@ def zoo_arch(arch: str, layers, device, counters, card: str,
             raise AssertionError(
                 f"{arch}: K4 launched {out['prefill_launches']['flash_attention']} "
                 f"times in prefill_fn, the routes say {routes}")
-        del logits, batch
-        if bundle.family != "encdec":
+        if bundle.family == "encdec":
+            out["checks"] = whisper_checks(bundle, params, prompts,
+                                           batch["frames"], logits, device)
+        else:
             out["checks"] = recurrent_checks(bundle, params, device)
+        del logits, batch
     if getattr(cfg, "moe", None) is not None:
         out["moe"] = moe_checks(bundle, params, prompts, device,
                                 expect_no_drops=not smoke)
@@ -2528,9 +2638,13 @@ def _zoo_line(z: dict) -> str:
                   f"<= {TOL_ZOO_DECODE}")
     elif "frames" in c:
         checks = (f"prefill_fn over {c['frames']} frames in {z['prefill_fn_s']:.3f} "
-                  f"s (launches {z['prefill_launches']}); decode_fn over "
-                  f"precompute_cross_kv(encode(frames)) vs prefill_fn "
-                  f"{c['decode_rel_err']:.2e} <= {TOL_ZOO_DECODE}")
+                  f"s (launches {z['prefill_launches']}); on a second call "
+                  f"{c['prefill_fn_s']:.3f} s against the training route's "
+                  f"plain attention (autograd=True under no_grad) "
+                  f"{c['training_route_s']:.3f} s, logits apart "
+                  f"{c['training_route_rel_err']:.2e} <= {TOL_ZOO_ROUTE}; "
+                  f"decode_fn over precompute_cross_kv(encode(frames)) vs "
+                  f"prefill_fn {c['decode_rel_err']:.2e} <= {TOL_ZOO_DECODE}")
     else:
         checks = (f"prefill_fn in {z['prefill_fn_s']:.3f} s (launches "
                   f"{z['prefill_launches']}); decode_fn over {c['tokens']} tokens "
@@ -2579,7 +2693,7 @@ def zoo_phase(device, counters, card: str, smoke: bool = False,
     Whisper-medium at full width and depth, their prompts stepped by
     ``decode_fn`` in ``serve_lm``, held by ``recurrent_checks`` /
     ``whisper_checks``; SmolLM-135M at full width and depth; K4 at
-    Qwen3's, CodeQwen's, Hymba's (rep 5) and Whisper's decoder's prefill
+    Qwen3's, CodeQwen's, Hymba's (rep 5) and Whisper's three prefill
     shapes.  ``smoke`` runs the smoke configs (a rehearsal on the CPU,
     untimed, with ``graphs`` a graph class that captures there)."""
     out: dict = {"archs": [], "graphs": {}, "kernels": {
@@ -2646,22 +2760,36 @@ def zoo_phase(device, counters, card: str, smoke: bool = False,
             out["qwen3_coded"] = zoo_qwen3_coded(params, cfg, device, counters,
                                                  card, out["kernels"], by_path)
         # SmolLM's prefill shape is the LM kernel phase's (BH 36, S 16,
-        # D 64, rep 3), held there
+        # D 64, rep 3), held there; Whisper's prefill_fn launches K4 at
+        # three shapes: its encoder's (1,500 frames, no mask), its decoder's
+        # self-attention and its cross-attention over the frames
         if arch in ("qwen3-4b", "codeqwen1.5-7b", "hymba-1.5b", "whisper-medium"):
             gen = torch.Generator(device=device).manual_seed(SEED + 7)
             h, d = cfg.n_heads, cfg.head_dim
             rep = h // getattr(cfg, "n_kv_heads", h)
-            e = flash_entry(ZOO_BATCH * h, ZOO_PROMPT, d, rep, z["routes"]["k4"],
-                            torch.float32, gen, device, TOL_K4, timed)
+            bh = ZOO_BATCH * h
+            if z["family"] == "encdec":
+                e_len, n_dec = cfg.enc_len, cfg.dec_layers
+                shapes = [("encoder", e_len, e_len, False, cfg.enc_layers),
+                          ("decoder self", ZOO_PROMPT, ZOO_PROMPT, True, n_dec),
+                          ("decoder cross", ZOO_PROMPT, e_len, False, n_dec)]
+            else:
+                shapes = [("", ZOO_PROMPT, ZOO_PROMPT, True, z["routes"]["k4"])]
             path = ("serve_lm captured prefill" if "prefill_launches" not in z
                     else "prefill_fn")
-            out["kernels"]["flash_attention"].append(
-                {"arch": arch, "path": path, **e})
-            print(f"  K4 at {arch}'s prefill {e['q']} rep {e['rep']}: "
-                  f"{_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, plain "
-                  f"{_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])} / device "
-                  f"{_ms(e['library_device_ms'])}, bound {e['bound_ms']:.5f} by "
-                  f"{e['bound_by']}; rel err {e['max_rel_err']:.2e} <= {TOL_K4}")
+            for what, sq, sk, causal, count in shapes:
+                e = flash_entry(bh, sq, d, rep, count, torch.float32, gen, device,
+                                TOL_K4, timed, sk=sk, causal=causal)
+                out["kernels"]["flash_attention"].append(
+                    {"arch": arch, "path": f"{path} {what}".strip(), **e})
+                print(f"  K4 at {arch}'s {what + ' ' if what else ''}prefill "
+                      f"{e['q']} over {sk} keys{'' if causal else ' (no mask)'} "
+                      f"rep {e['rep']}, {e['plan']['route']} route, {count} "
+                      f"launches: {_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, "
+                      f"plain {_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])} / "
+                      f"device {_ms(e['library_device_ms'])}, bound "
+                      f"{e['bound_ms']:.5f} by {e['bound_by']}; rel err "
+                      f"{e['max_rel_err']:.2e} <= {TOL_K4}")
         out["archs"].append(z)
         del params
         _empty_cache(device)
@@ -2692,6 +2820,15 @@ def zoo_qwen3_coded(params, cfg, device, counters, card, kernels, by_path) -> di
                   f"{sm['library_ms']:.4f} / device {sm['library_device_ms']:.4f}, "
                   f"bound {sm['bound_ms']:.5f} by {sm['bound_by']}), max rel err "
                   f"{sm['max_rel_err']:.2e}")
+        if card_run and name == "matmul":
+            e = next(e for e in entries if e["round"] == "down")
+            print(f"    its down projection {e['a']} x {e['b']} alone, "
+                  f"{e['plan']['kernel']} kernel ({e['plan']['splits']} slices "
+                  f"of {e['plan']['k_slice']} rows, {e['plan']['blocks']} "
+                  f"blocks), {e['count']} launches a step: {e['device_ms']:.4f} "
+                  f"device ms a launch, torch.matmul {e['library_device_ms']:.4f}"
+                  f", bound {e['bound_ms']:.5f} by {e['bound_by']}, rel err "
+                  f"{e['max_rel_err']:.2e} <= {TOL_K2}")
     requests = lm_requests(cfg.vocab)
     outs, rows, lat, server, wall, launches, graphs = lm_serving_phase(
         pipe, requests, counters, pool="device", graphs=card_run)
@@ -2932,7 +3069,7 @@ def dryrun_card_cell(arch: str, shape: str, device, k4_launches) -> dict:
         raise AssertionError(f"{name}: peak above the arguments {peak} bytes "
                              f"against the dry run's temporary {temp} "
                              f"(band {TOL_DRYRUN_PEAK:.0%})")
-    ms = None
+    ms, traced = None, None
     if on_card and kind == "train":
         step = steps.build_train_step(bundle, tcfg)
         ms = cuda_ms(lambda: step(params, opt, batch), reps=3, warm=1)
@@ -2940,19 +3077,23 @@ def dryrun_card_cell(arch: str, shape: str, device, k4_launches) -> dict:
         step = steps.build_prefill_step(bundle)
         with torch.no_grad():
             ms = cuda_ms(lambda: step(params, batch), reps=3, warm=1)
+            # K4's share of the step, read from a trace of the step itself
+            traced = profiler_device_ms(lambda: step(params, batch),
+                                        K4_KERNELS, reps=3)
     bnd, by = bound_ms(dry["cost"]["flops"], dry["cost"]["bytes"],
                        PEAK_BF16_FLOPS)
     return {"arch": arch, "shape": shape, "smoke_scale": DRYRUN_SMOKE,
             "kind": kind, "dry": dry, "card": card,
             "peak_over_temp": None if peak is None else peak / temp,
-            "ms": ms, "bound_ms": bnd,
-            "bound_by": by}
+            "ms": ms, "bound_ms": bnd, "bound_by": by,
+            "device_ms": None if traced is None else traced[0],
+            "k4_ms": None if traced is None else traced[1]}
 
 
 def dryrun_phase(device, k4_launches, card: str, tp_k4_launches: int) -> dict:
     """(i) the DeepSeek-V3 records from the CLI on the multi-pod mesh,
     (ii) ``DRYRUN_CARD`` held on the card against their dry runs, K4 at the
-    prefill's shape (bf16, S 2048) and at Qwen3-4B's tensor-parallel
+    prefill's shape (S 2048, bf16 and fp32) and at Qwen3-4B's tensor-parallel
     prefill shape against its plain version, timed beside SDPA; that
     shape's count is ``tp_k4_launches``, K4's launches in phase 13 (d)'s
     ``serve_lm(mesh=)`` run of this process."""
@@ -2979,6 +3120,10 @@ def dryrun_phase(device, k4_launches, card: str, tp_k4_launches: int) -> dict:
                     b * cfg.n_heads, s, cfg.head_dim, rep,
                     pf["card"]["k4_launches"], torch.bfloat16, gen, device,
                     TOL_K4_BF16, True)},
+                {"path": f"the same shape in fp32 (the zoo's type; no path "
+                         f"launches it here)", **flash_entry(
+                    b * cfg.n_heads, s, cfg.head_dim, rep, 0, torch.float32,
+                    gen, device, TOL_K4, True)},
                 {"path": "tensor-parallel serve_lm prefill (phase 13 (d))",
                  **flash_entry(*K4_TP_SHAPE, tp_k4_launches, torch.float32,
                                gen, device, TOL_K4, True)}]
@@ -3020,13 +3165,24 @@ def print_dryrun(dr: dict, card: str) -> None:
               f"launched {c['k4_launches']}, charged "
               f"{d['kernels'].get('flash_attention', {}).get('launches', 0)}; "
               f"{_ms(e['ms'])} ms a step against the bound "
-              f"{e['bound_ms']:.4f} ms (by {e['bound_by']})")
+              f"{e['bound_ms']:.4f} ms (by {e['bound_by']})"
+              + ("" if e["kind"] != "prefill" else
+                 f"; in a trace of the step (torch.profiler, 3 calls) "
+                 f"{_ms(e['device_ms'])} device ms a step, of which K4's "
+                 f"{c['k4_launches']} launches {_ms(e['k4_ms'])}"))
     for e in dr["k4"]:
-        print(f"  K4 at {e['q']} rep {e['rep']} {e['dtype']} ({e['path']}): "
+        print(f"  K4 at {e['q']} rep {e['rep']} {e['dtype']} ({e['path']}, "
+              f"{e['plan']['route']} route): "
               f"{_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, plain "
               f"{_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])} / device "
               f"{_ms(e['library_device_ms'])}, bound {e['bound_ms']:.5f} by "
-              f"{e['bound_by']}; rel err {e['max_rel_err']:.2e} <= {e['tol']}")
+              f"{e['bound_by']}; rel err {e['max_rel_err']:.2e} <= {e['tol']}"
+              + ("" if "tiled_row_err" not in e else
+                 f"; against the tile-order walk rows within "
+                 f"{e['tiled_row_err']:.2e} <= {TOL_K4_BF16} of their own max, "
+                 f"{e['tiled_mismatch_share']:.3%} of the bits differ <= "
+                 f"{K4_BF16_TILED_MISMATCH:.3%}, p left whole "
+                 f"{e['whole_p_mismatch_share']:.2%} > {K4_BF16_WHOLE_P:.0%}"))
 
 
 # -- the process mesh: SPMD over torch.distributed ----------------------------

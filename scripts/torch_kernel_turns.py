@@ -14,10 +14,12 @@ tree's ``csrc``; the shapes and timers come from this checkout's
 each as that tree takes it: K3's code matrix on the host where the tree
 has ``coded_gemm_plan`` (else on the card), and K4 in bf16 only where the
 tree has ``flash_plan``.  Shapes: K1 at VGG-16 224x224 bucket 8, K2 at its
-CNN transition shapes (bucket 8) and at the SmolLM-135M worker GEMMs
-(bucket 4), K3 at the SmolLM-135M decode (bucket 4) and build-time encode
-shapes, K4 at the prefill (36 query heads over 12 KV heads, S 16, D 64)
-and at S 256 with rep 1 and 3.  Each shape is checked against its plain
+CNN transition shapes (bucket 8), at the SmolLM-135M worker GEMMs (bucket
+4) and at the Qwen3-4B ones (batch 4), K3 at the SmolLM-135M decode
+(bucket 4) and build-time encode shapes, K4 at the prefill (36 query heads
+over 12 KV heads, S 16, D 64), at S 256 with rep 1 and 3, at the Qwen3-4B
+prefill of 2 x 2,048 tokens (64 query heads over 16, D 128) and at the
+Whisper-medium encoder (64 heads over 1,500 frames, D 64, no mask).  Each shape is checked against its plain
 version, then timed with host issue (``ms``) and device only
 (``device_ms``), beside the library call (``library_device_ms``), over 10
 back-to-back calls (K3 over 200).  Beside K3's decode stands the floor of
@@ -49,6 +51,14 @@ ROOT = Path(__file__).resolve().parents[1]
 # K3 calls timed back to back: its host issue (tens of us) is what a decode
 # step's 120 calls pay, and 10 calls leave that to chance
 K3_REPS = 200
+# Qwen3-4B's coded worker GEMMs at batch 4, (K, N) of qkv, wo, gate-up and
+# down, each launched once a layer of a decode step
+QWEN3_GEMMS = [(2560, 3072), (4096, 1280), (2560, 9728), (9728, 1280)]
+QWEN3_LAYERS = 36
+# K4 at long sequences, (BH, S, D, rep, causal, launches): the Qwen3-4B
+# prefill of 2 x 2,048 tokens (phase 15 of chip_smoke.py, one a layer) and
+# the Whisper-medium encoder over 4 x 1,500 frames (no mask)
+K4_LONG = ((64, 2048, 128, 4, True, 36), (64, 1500, 64, 1, False, 24))
 
 
 def main() -> int:
@@ -129,6 +139,8 @@ def main() -> int:
     lm_pipe, _ = cs.build_lm(device)
     rounds = cs.lm_round_shapes(lm_pipe, lm_pipe.max_batch)
     k2_lm = gemms([(*r["worker"], False, r["count"]) for r in rounds], cs.TOL_K2)
+    k2_qwen3 = gemms([((4, kk), (kk, n), False, QWEN3_LAYERS)
+                      for kk, n in QWEN3_GEMMS], cs.TOL_K2)
 
     host_code = hasattr(k3, "coded_gemm_plan")  # this tree takes host code
 
@@ -158,25 +170,27 @@ def main() -> int:
     cfg = lm_pipe.cfg
     dtypes = [torch.float32] + ([torch.bfloat16] if hasattr(k4, "flash_plan") else [])
     k4_shapes = []
-    for bh, s, rep, count in ((lm_pipe.max_batch * cfg.n_heads, cs.LM_MAX_PROMPT,
-                               cfg.n_heads // cfg.n_kv_heads, cfg.layers),
-                              (36, 256, 1, 1), (36, 256, 3, 1)):
+    for bh, s, d, rep, causal, count in (
+            (lm_pipe.max_batch * cfg.n_heads, cs.LM_MAX_PROMPT, cfg.head_dim,
+             cfg.n_heads // cfg.n_kv_heads, True, cfg.layers),
+            (36, 256, cfg.head_dim, 1, True, 1), (36, 256, cfg.head_dim, 3, True, 1),
+            *K4_LONG):
         for dtype in dtypes:
             q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype)
-                       for shape in ((bh, s, cfg.head_dim),
-                                     (bh // rep, s, cfg.head_dim),
-                                     (bh // rep, s, cfg.head_dim)))
+                       for shape in ((bh, s, d), (bh // rep, s, d), (bh // rep, s, d)))
             b = bh // rep
-            q4 = q.view(b, rep, s, cfg.head_dim)
-            k4r, v4r = (t.view(b, 1, s, cfg.head_dim).expand(q4.shape).contiguous()
+            q4 = q.view(b, rep, s, d)
+            k4r, v4r = (t.view(b, 1, s, d).expand(q4.shape).contiguous()
                         for t in (k, v))
             tol = cs.TOL_K4 if dtype == torch.float32 else cs.TOL_K4_BF16
             k4_shapes.append(entry(
-                lambda: k4.flash_attention(q, k, v, causal=True, rep=rep),
-                lambda: k4.flash_attention_plain(q, k, v, causal=True, rep=rep),
-                lambda: F.scaled_dot_product_attention(q4, k4r, v4r, is_causal=True),
-                tol, "K4", count, q=[bh, s, cfg.head_dim], rep=rep,
+                lambda: k4.flash_attention(q, k, v, causal=causal, rep=rep),
+                lambda: k4.flash_attention_plain(q, k, v, causal=causal, rep=rep),
+                lambda: F.scaled_dot_product_attention(q4, k4r, v4r,
+                                                       is_causal=causal),
+                tol, "K4", count, q=[bh, s, d], rep=rep, causal=causal,
                 dtype=str(dtype).removeprefix("torch.")))
+            del q, k, v, q4, k4r, v4r
 
     wrapper = k3_wrapper_costs(k3, native, rounds[0]["decode"], host_code, device)
 
@@ -188,6 +202,7 @@ def main() -> int:
               "k1": {"total": total(list(k1.values())), "shapes": list(k1.values())},
               "k2_cnn": {"total": total(k2_cnn), "shapes": k2_cnn},
               "k2_lm": {"total": total(k2_lm), "shapes": k2_lm},
+              "k2_qwen3": {"total": total(k2_qwen3), "shapes": k2_qwen3},
               "k3_decode": {"total": total(k3_dec), "shapes": k3_dec},
               "k3_encode": {"total": total(k3_enc), "shapes": k3_enc},
               "k4": {"shapes": k4_shapes},
@@ -197,11 +212,16 @@ def main() -> int:
         with open(args.out, "a") as f:
             f.write(line + "\n")
     print(f"{args.label}: K1 {result['k1']['total']}, K2 CNN "
-          f"{result['k2_cnn']['total']}, K2 LM {result['k2_lm']['total']}, K3 "
+          f"{result['k2_cnn']['total']}, K2 LM {result['k2_lm']['total']}, K2 "
+          f"Qwen3-4B {result['k2_qwen3']['total']}, K3 "
           f"decode {result['k3_decode']['total']}, K3 encode "
           f"{result['k3_encode']['total']} on {card}")
+    for e in k2_qwen3:
+        print(f"  K2 {e['a']} x {e['b']}: ms {e['ms']:.5f}, device_ms "
+              f"{e['device_ms']:.5f}, torch.matmul device {e['library_device_ms']:.5f}")
     for e in k4_shapes:
-        print(f"  K4 {e['q']} rep {e['rep']} {e['dtype']}: ms {e['ms']:.5f}, "
+        print(f"  K4 {e['q']} rep {e['rep']} {'causal' if e['causal'] else 'no mask'} "
+              f"{e['dtype']}: ms {e['ms']:.5f}, "
               f"device_ms {e['device_ms']:.5f}, SDPA device "
               f"{e['library_device_ms']:.5f}")
     print(f"  K3 wrapper, us a call: {wrapper}")

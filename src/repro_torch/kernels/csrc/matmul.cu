@@ -4,7 +4,8 @@
 // :111; bodies _matmul_kernel :34 and _matmul_stream_kernel :53).  Every
 // shape the port feeds it is skinny — M is a handful of rows — so the work
 // is ~1 FLOP per byte of b and the kernel is bound by device memory
-// (3.35 TB/s on an H100), never by arithmetic.  Two kernels cover the two
+// (3.35 TB/s on an H100), never by arithmetic: the design's aim is enough
+// 16-byte loads of b in flight on every SM.  Two kernels cover the two
 // regimes; the choice and the split count are the plan of
 // kernels/matmul/kernel.py::matmul_plan, passed in as `splits`:
 //
@@ -15,20 +16,26 @@
 //   accumulators in registers and the small A tile broadcast from shared
 //   memory, gives ceil(F/256) blocks — enough to fill the card — and reads
 //   each element of b once.
-// * split kernel (splits >= 1): the coded LM worker GEMM, x (B <= 16, d_in)
-//   @ W (d_in, N) with N = 288-1,536 and K = 576-1,536.  The column kernel
-//   would launch 2-6 blocks and walk K serially in each thread: latency
-//   bound, a few bytes in flight.  Here a block owns a strip of 16 columns
-//   (4 threads, a float4 each) and one slice of K; its 32 thread rows take
-//   every 32nd row of b in that slice, so each thread has several 16-byte
-//   loads in flight.  The `splits` slices of one strip form a thread-block
-//   cluster: each block sums its 32 row-partials in shared memory in a
-//   fixed order, then block rank r of the cluster sums its share of the
-//   strip's outputs over the cluster's blocks in rank order, reading their
-//   shared memory directly (distributed shared memory), and writes `out`
-//   with the ReLU.  No float atomics and no scratch: two launches on the
-//   same inputs give the same bits.  Where N % 4 != 0 or b is not 16-byte
-//   aligned, the loads fall back to scalars inside the kernel.
+// * split kernel (splits >= 1): the coded LM worker GEMMs, x (B <= 16,
+//   d_in) @ W (d_in, N): SmolLM-135M's N = 288-1,536 over K = 576-1,536,
+//   Qwen3-4B's N = 1,280-9,728 over K = 2,560-9,728.  The column kernel
+//   would launch 2-38 blocks and walk K serially in each thread: latency
+//   bound, a few bytes in flight (Qwen3-4B's down projection, K = 9,728
+//   over N = 1,280, would run as 5 blocks on 132 SMs).  Here a
+//   block owns a strip of 16 columns (4 threads, a float4 each) and one
+//   slice of K; its 32 thread rows take every 32nd row of b in that
+//   slice, so each thread has several 16-byte loads in flight.  The block
+//   stages its rows of a for the slice in shared memory in chunks of
+//   SK_CHUNK rows, the next chunk while the current round of b rows is in
+//   flight, so a slice may be any length and shared memory stays a few KB.
+//   The `splits` slices of one strip form a thread-block cluster: each
+//   block sums its 32 row-partials in shared memory in a fixed order,
+//   then block rank r of the cluster sums its share of the strip's outputs
+//   over the cluster's blocks in rank order, reading their shared memory
+//   directly (distributed shared memory), and writes `out` with the ReLU.
+//   No float atomics and no scratch: two launches on the same inputs give
+//   the same bits.  Where N % 4 != 0 or b is not 16-byte aligned, the
+//   loads fall back to scalars inside the kernel.
 //
 // Rows beyond M and rows of K beyond K are masked; any shape is accepted.
 // No TF32 anywhere: the CRME decode multiplies rounding error by the
@@ -104,10 +111,12 @@ constexpr int SK_THREADS = SK_COLS * SK_ROWS;
 constexpr int SK_STRIP = 4 * SK_COLS;       // columns a block owns
 constexpr int SK_UNROLL = 4;                // b rows in flight per thread
 constexpr int SK_MAX_M = 16;
-constexpr int SK_MAX_SLICE = 1024;          // rows of K a block stages of a
+constexpr int SK_CHUNK = 1024;  // rows of a a block stages at a time
+static_assert(SK_CHUNK % (SK_ROWS * SK_UNROLL) == 0,
+              "a chunk holds whole rounds of the b stream");
 
-__host__ __device__ constexpr int a_floats(int bm, int slice) {
-  return (bm * slice + 3) / 4 * 4;
+__host__ __device__ constexpr int a_floats(int bm, int span) {
+  return (bm * span + 3) / 4 * 4;
 }
 
 template <int BM>
@@ -115,11 +124,12 @@ __global__ void __launch_bounds__(SK_THREADS)
 matmul_split_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     float* __restrict__ out, int M, int N, int K, int slice,
                     int relu, int vec) {
-  // a's rows of this slice (padded to 16 bytes), then the 32 row-partials,
-  // then the block's sum
+  // a's rows of one chunk of this slice (padded to 16 bytes), then the 32
+  // row-partials, then the block's sum
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                                      // [BM][slice]
-  float* part = As + a_floats(BM, slice);                // [SK_ROWS][BM][16]
+  const int span = min(slice, SK_CHUNK);                 // a's columns staged
+  float* As = smem;                                      // [BM][span]
+  float* part = As + a_floats(BM, span);                 // [SK_ROWS][BM][16]
   float* sum = part + SK_ROWS * BM * SK_STRIP;           // [BM][16]
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -146,16 +156,20 @@ matmul_split_kernel(const float* __restrict__ a, const float* __restrict__ b,
     }
     return v;
   };
+  // a's columns c0 .. c0 + span - 1 of this slice (zeros past it)
+  auto stage = [&](int c0) {
+    for (int e = tid; e < BM * span; e += SK_THREADS) {
+      const int i = e / span;
+      const int k = c0 + (e - i * span);
+      As[e] = (i < M && k < k_hi) ? a[(int64_t)i * K + k] : 0.f;
+    }
+  };
 
   // this thread's first rows of b are in flight while a is staged
   float4 bv[SK_UNROLL];
 #pragma unroll
   for (int u = 0; u < SK_UNROLL; ++u) bv[u] = load(k_lo + tr + u * SK_ROWS);
-  for (int e = tid; e < BM * slice; e += SK_THREADS) {
-    const int i = e / slice;
-    const int k = k_lo + (e - i * slice);
-    As[e] = (i < M && k < k_hi) ? a[(int64_t)i * K + k] : 0.f;
-  }
+  stage(k_lo);
   __syncthreads();
 
   float acc[BM][4];
@@ -164,18 +178,27 @@ matmul_split_kernel(const float* __restrict__ a, const float* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k = k_lo + tr; k < k_hi; k += SK_ROWS * SK_UNROLL) {
+  // rounds of SK_ROWS * SK_UNROLL rows of b, the same for every thread; a
+  // new chunk of a is staged at every SK_CHUNK rows while the round's b
+  // rows are in flight
+  for (int r0 = 0; r0 < k_hi - k_lo; r0 += SK_ROWS * SK_UNROLL) {
+    if (r0 > 0 && r0 % SK_CHUNK == 0) {
+      __syncthreads();  // every thread is done with the previous chunk
+      stage(k_lo + r0);
+      __syncthreads();
+    }
+    const int k = k_lo + r0 + tr;
     float4 next[SK_UNROLL];
 #pragma unroll
     for (int u = 0; u < SK_UNROLL; ++u)
       next[u] = load(k + (SK_UNROLL + u) * SK_ROWS);
 #pragma unroll
     for (int u = 0; u < SK_UNROLL; ++u) {
-      const int kk = k + u * SK_ROWS - k_lo;
-      if (kk >= slice) break;  // rows past the slice hold zeros of b anyway
+      const int kk = r0 % SK_CHUNK + tr + u * SK_ROWS;
+      if (kk >= span) break;  // rows past the slice hold zeros of b anyway
 #pragma unroll
       for (int i = 0; i < BM; ++i) {
-        const float av = As[i * slice + kk];
+        const float av = As[i * span + kk];
         acc[i][0] = fmaf(av, bv[u].x, acc[i][0]);
         acc[i][1] = fmaf(av, bv[u].y, acc[i][1]);
         acc[i][2] = fmaf(av, bv[u].z, acc[i][2]);
@@ -219,11 +242,12 @@ int launch_split(const float* a, const float* b, float* out, long long M,
                  long long N, long long K, int relu, int splits,
                  cudaStream_t stream) {
   const int slice = (int)((K + splits - 1) / splits);
-  const size_t smem = sizeof(float) * ((size_t)a_floats(BM, slice) +
+  const int span = slice < SK_CHUNK ? slice : SK_CHUNK;
+  const size_t smem = sizeof(float) * ((size_t)a_floats(BM, span) +
                                        (size_t)(SK_ROWS + 1) * BM * SK_STRIP);
   static const cudaError_t attr = cudaFuncSetAttribute(
       matmul_split_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(sizeof(float) * ((size_t)BM * SK_MAX_SLICE +
+      (int)(sizeof(float) * ((size_t)a_floats(BM, SK_CHUNK) +
                              (size_t)(SK_ROWS + 1) * BM * SK_STRIP)));
   if (attr != cudaSuccess) return (int)attr;
   const int vec = (N % 4 == 0) && ((uintptr_t)b % 16 == 0);
@@ -249,8 +273,8 @@ int launch_split(const float* a, const float* b, float* out, long long M,
 
 // a: (M, K), b: (K, N), out: (M, N); fp32, row-major, contiguous.
 // splits == 0 launches the column kernel; splits in {1, 2, 4, 8} the split
-// kernel with that many K slices per cluster (M <= 16, the slice at most
-// 1,024 rows).  Returns the launch's cudaError_t.
+// kernel with that many K slices per cluster (M <= 16, a slice of any
+// length).  Returns the launch's cudaError_t.
 extern "C" int matmul_f32(const void* a, const void* b, void* out,
                           long long M, long long N, long long K,
                           long long relu, long long splits, void* stream) {
@@ -264,7 +288,7 @@ extern "C" int matmul_f32(const void* a, const void* b, void* out,
     return launch_column<16>(pa, pb, po, M, N, K, (int)relu, s);
   }
   if ((splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
-      M > SK_MAX_M || K < 1 || (K + splits - 1) / splits > SK_MAX_SLICE)
+      M > SK_MAX_M || K < 1 || K > 0x7fffffffLL || N > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int sp = (int)splits;
   if (M == 1) return launch_split<1>(pa, pb, po, M, N, K, (int)relu, sp, s);

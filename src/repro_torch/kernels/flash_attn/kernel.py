@@ -10,7 +10,11 @@ operands follow the TPU kernel: scores, softmax state and sums in fp32,
 ``p`` rounded to bf16 before P.V, a bf16 output.  ``flash_attention``
 launches the CUDA kernel for CUDA tensors and runs
 ``flash_attention_plain`` only for tensors that lie on the CPU;
-``flash_plan`` chooses the launch shape.  The kernel has no backward (nor
+``flash_plan`` chooses the route (the ``rows`` kernel for short prompts,
+the ``tiled`` kernel for long sequences; both in ``csrc/flash_attn.cu``)
+and its launch shape; ``flash_attention_tiled_plain`` computes the same
+function in the tiled kernel's order of rounding, for a bit-level check of
+that route in bf16.  The kernel has no backward (nor
 has the TPU kernel): on the card it refuses an operand that requires grad
 while grad mode is on, where the output would silently cut the gradient.
 Meta operands (the dry run, ``launch.dryrun``) launch nothing: after the
@@ -28,17 +32,25 @@ import torch
 from ..native import (NUM_SMS, LaunchCounter, launch_on, load_library,
                       record_kernel)
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_plan", "FlashPlan",
+__all__ = ["flash_attention", "flash_attention_plain",
+           "flash_attention_tiled_plain", "flash_plan", "FlashPlan",
            "flash_cost", "launches", "HEAD_DIMS"]
 
 launches = LaunchCounter("flash_attention")
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 128)  # the kernels' template instances
 DTYPES = (torch.float32, torch.bfloat16)
+# the rows route
 MAX_WARPS = 16  # warps a block
 PAIRS_A_WARP = 4  # (query head, query row) pairs one warp takes in turn
 ROW_CHOICES = (64, 32, 16, 8, 4, 2, 1)  # query rows a block, most first
 MAX_GRID_Y = 65535  # one row of blocks per (KV head, head group)
+# the tiled route: its kernels' launch shape (TQ and TILED_*_THREADS in
+# csrc/flash_attn.cu, which refuses any other)
+TILED_MIN_SQ = 48  # query rows from which flash_plan takes it
+TILED_ROWS = 64  # query rows a block (and keys a tile)
+TILED_WARPS = {False: 8, True: 4}  # warps a block: fp32, bf16
+MAX_TILED_BLOCKS = 2 ** 31 - 1  # a flat grid of (query head, row tile)
 
 
 def max_pairs(d: int) -> int:
@@ -49,9 +61,12 @@ def max_pairs(d: int) -> int:
 
 
 class FlashPlan(NamedTuple):
-    """How K4 launches: each block serves ``heads`` query heads of one KV
-    head and ``rows`` query rows of each, with ``warps`` warps; the grid
-    is ``(ceil(Sq / rows), BH / rep * groups)``, ``blocks`` in all."""
+    """How K4 launches: on ``route`` (``"rows"`` or ``"tiled"``), each
+    block serves ``heads`` query heads of one KV head and ``rows`` query
+    rows of each, with ``warps`` warps; ``groups`` blocks cover a KV head's
+    ``rep`` query heads, ``BH / rep * groups * ceil(Sq / rows)`` =
+    ``blocks`` in all."""
+    route: str
     heads: int
     rows: int
     warps: int
@@ -60,20 +75,44 @@ class FlashPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def flash_plan(bh: int, sq: int, sk: int, d: int, rep: int) -> FlashPlan:
+def flash_plan(bh: int, sq: int, sk: int, d: int, rep: int,
+               bf16: bool = False) -> FlashPlan:
     """The launch K4 uses for ``q (bh, sq, d)`` over ``k/v (bh / rep, sk,
-    d)``.
+    d)`` (``bf16`` operands, else fp32): ``tiled_plan`` from
+    ``TILED_MIN_SQ`` query rows on, else ``rows_plan``.  ``sk`` changes
+    nothing: every block walks its keys in chunks.
 
-    A block stages its KV head's keys once for every query head it serves,
-    so it takes all ``rep`` heads when ``max_pairs(d)`` allows (else groups
-    of as many as fit).  Its query rows are the largest power of two (no
-    larger than the sequence needs) that still gives every SM a block, else
-    1, the most blocks there can be: at the SmolLM-135M prefill (36 query
-    heads over 12 KV heads, S = 16) that is 192 blocks of 3 warps.  One
-    warp a (head, row) pair, up to 16 warps; each warp takes at most 4
-    pairs in turn.  ``sk`` changes nothing: every block walks its keys in
-    32-key chunks."""
+    The crossover, timed by ``scripts/torch_route_sweep.py`` on an H100
+    (700 W) at the zoo's prefill heads (SmolLM-135M, Qwen3-4B, Hymba-1.5B,
+    Whisper-medium's decoder; 4 prompts, causal): at 16 query rows the
+    rows route is the faster in all 8 (heads x type) cells (0.0043
+    against 0.0085 device ms at SmolLM's fp32 prefill); at 32 in 4 of 8
+    (3 of the 4 fp32 cells); at 48 the tiled route is the faster in all 8,
+    and from there on by more at each length (at 512, 3.2-4.4x in fp32,
+    12-17x in bf16)."""
     del sk
+    if sq >= TILED_MIN_SQ:
+        return tiled_plan(bh, sq, rep, bf16)
+    return rows_plan(bh, sq, d, rep)
+
+
+def tiled_plan(bh: int, sq: int, rep: int, bf16: bool = False) -> FlashPlan:
+    """The tiled route: one block per (query head, ``TILED_ROWS`` query
+    rows), ``TILED_WARPS`` warps, walking ``TILED_ROWS``-key tiles."""
+    return FlashPlan("tiled", 1, TILED_ROWS, TILED_WARPS[bool(bf16)], rep,
+                     bh * -(-sq // TILED_ROWS))
+
+
+def rows_plan(bh: int, sq: int, d: int, rep: int) -> FlashPlan:
+    """The rows route, built for the latency of short prompts.  A block
+    stages its KV head's keys once for every query head it serves, so it
+    takes all ``rep`` heads when ``max_pairs(d)`` allows (else groups of
+    as many as fit).  Its query rows are the largest power of two (no
+    larger than the sequence needs) that still gives every SM a block,
+    else 1, the most blocks there can be: at the SmolLM-135M prefill (36
+    query heads over 12 KV heads, S = 16) that is 192 blocks of 3 warps.
+    One warp a (head, row) pair, up to 16 warps; each warp takes at most 4
+    pairs in turn, over 32-key chunks."""
     cap = max_pairs(d)
     heads = min(rep, cap)
     groups = -(-rep // heads)
@@ -81,7 +120,7 @@ def flash_plan(bh: int, sq: int, sk: int, d: int, rep: int) -> FlashPlan:
     fits = [r for r in ROW_CHOICES if r * heads <= cap and (r == 1 or r < 2 * sq)]
     rows = next((r for r in fits if column * -(-sq // r) >= NUM_SMS), fits[-1])
     warps = min(MAX_WARPS, heads * rows)
-    return FlashPlan(heads, rows, warps, groups, column * -(-sq // rows))
+    return FlashPlan("rows", heads, rows, warps, groups, column * -(-sq // rows))
 
 
 def flash_cost(bh: int, bhkv: int, sq: int, sk: int, d: int,
@@ -142,13 +181,57 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bqk,bkd->bqd", p.to(v.dtype), v)
 
 
+def flash_attention_tiled_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, scale: float | None = None,
+                                causal: bool = True, rep: int = 1,
+                                tile: int = TILED_ROWS) -> torch.Tensor:
+    """The function of ``flash_attention_plain`` in the tiled bf16
+    kernel's order of rounding: the keys walked in tiles of ``tile`` with
+    the online softmax of ``flash_attention_pallas``, scores in units of
+    log2 (``scale * log2(e)`` in fp32), ``p = exp2(x - m)`` against the
+    running max ``m``, ``l`` and ``acc`` rescaled by ``exp2(m_old -
+    m_new)``, ``p`` rounded to ``v``'s type for P.V (bf16; fp32 operands
+    keep it whole), ``acc / max(l, 1e-30)`` rounded once.  Where the
+    kernel and this walk round ``p`` against the same ``m``, their outputs
+    differ only where an fp32 sum in another order flips a rounding: the
+    reference of the card's bit-level check of that route."""
+    _check(q, k, v, rep)
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=0)
+        v = v.repeat_interleave(rep, dim=0)
+    sc = float(torch.tensor(scale, dtype=torch.float32)
+               * torch.tensor(1.4426950408889634, dtype=torch.float32))
+    bh, sq, _ = q.shape
+    sk = k.shape[1]
+    rows = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((bh, sq, 1), float("-inf"), device=q.device)
+    l = torch.zeros((bh, sq, 1), device=q.device)
+    acc = torch.zeros((bh, sq, d), device=q.device)
+    for k0 in range(0, sk, tile):
+        kt, vt = k[:, k0:k0 + tile].float(), v[:, k0:k0 + tile]
+        x = torch.einsum("bqd,bkd->bqk", q.float(), kt) * sc
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[1], device=q.device)[None, :]
+            x = x.masked_fill((keys > rows)[None], float("-inf"))
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(),
+                                        vt.float())
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None, causal: bool = True,
                     rep: int = 1) -> torch.Tensor:
     """``q (BH, Sq, D)``, ``k/v (BH / rep, Sk, D)`` -> ``(BH, Sq, D)``;
     key ``j`` is masked for query ``i`` when ``causal`` and ``j > i``.
     fp32 or bf16 (all three alike), ``D`` in ``HEAD_DIMS``.  CUDA tensors
-    launch K4 as ``flash_plan`` says; CPU tensors take
+    launch K4 on the route and shape ``flash_plan`` says; CPU tensors take
     ``flash_attention_plain``; meta tensors launch nothing and charge
     ``flash_cost`` to the active cost counter.  On CUDA and meta, an
     operand that requires grad under grad mode raises: K4 has no
@@ -176,13 +259,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d}: K4 is built for {HEAD_DIMS}")
     sk = k.shape[1]
-    plan = flash_plan(bh, sq, sk, d, rep)
-    if bh // rep * plan.groups > MAX_GRID_Y:
-        raise ValueError(f"BH={bh} exceeds the kernel's grid")
+    bf16 = q.dtype == torch.bfloat16
+    plan = flash_plan(bh, sq, sk, d, rep, bf16)
+    if (plan.route == "rows" and bh // rep * plan.groups > MAX_GRID_Y
+            or plan.route == "tiled" and plan.blocks > MAX_TILED_BLOCKS):
+        raise ValueError(f"BH={bh}, Sq={sq} exceed the {plan.route} kernel's grid")
     if q.device.type == "meta":  # nothing to launch: charge its work
         record_kernel("flash_attention", *flash_cost(
             bh, bh // rep, sq, sk, d, q.element_size(), causal))
         return torch.empty_like(q)
+    out = launch_plan(plan, q, k, v, scale=scale, causal=causal, rep=rep)
+    launches.add()
+    return out
+
+
+def launch_plan(plan: FlashPlan, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, *, scale: float | None, causal: bool,
+                rep: int) -> torch.Tensor:
+    """Launch K4 on CUDA operands that ``flash_attention`` has checked, as
+    ``plan`` says (``flash_attention``'s plan, or either route's for a
+    comparison of the two: ``scripts/torch_route_sweep.py``).  Counts no
+    launch: the wrapper does."""
+    bh, sq, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
     if bh == 0 or sq == 0:
@@ -190,9 +288,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # the kernel loads 16 bytes at a time; a view that starts off a 16-byte
     # boundary is copied to fresh (aligned) storage
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
-    launch_on("flash_attn", q, load_library().flash_attn,
-              q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-              sk, d, rep, float(scale), int(causal),
-              int(q.dtype == torch.bfloat16), plan.heads, plan.rows, plan.warps)
-    launches.add()
+    lib = load_library()
+    name = "flash_attn_tiled" if plan.route == "tiled" else "flash_attn"
+    launch_on(name, q, getattr(lib, name), q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), out.data_ptr(), bh, sq, k.shape[1], d, rep,
+              float(scale), int(causal), int(q.dtype == torch.bfloat16),
+              plan.heads, plan.rows, plan.warps)
     return out

@@ -24,7 +24,7 @@ COLUMN_THREADS = 256  # column kernel: one thread per output column
 SPLIT_STRIP = 16  # split kernel: columns a block owns
 SPLIT_MAX_M = 16
 SPLIT_MIN_K = 64  # below this a K slice is too thin to be worth a cluster
-SPLIT_MAX_SLICE = 1024  # rows of K one block stages (shared memory)
+SPLIT_CHUNK = 1024  # rows of a K slice one block stages at a time
 SPLIT_CHOICES = (1, 2, 4, 8)  # K slices per strip: one thread-block cluster
 
 
@@ -47,17 +47,21 @@ def matmul_plan(m: int, n: int, k: int) -> MatmulPlan:
     ``ceil(n/256) * ceil(m/bm)`` reaches the SM count, and K is 2-16
     there.  When it would not fill the card, M is small and K is deep
     enough to split, the split kernel takes 16-column strips and cuts K
-    into the fewest slices (1, 2, 4 or 8) that give two blocks a SM, as
-    many as 8 allow, each slice at most ``SPLIT_MAX_SLICE`` rows."""
+    into the fewest slices (1, 2, 4 or 8) of at most ``SPLIT_CHUNK`` rows
+    (one staging chunk of ``a``) that give two blocks a SM, as many as 8
+    allow.  Past ``8 * SPLIT_CHUNK`` rows of K it takes 8 slices, each
+    staged chunk by chunk: at Qwen3-4B's down projection (K 9,728 over N
+    1,280) 80 strips of 8 slices of 1,216 rows, 640 blocks (on an H100,
+    0.0329 device ms against 0.0357 with 4 slices and 0.0442 for
+    ``torch.matmul``: ``scripts/torch_route_sweep.py``)."""
     bm = 8 if m <= 8 else 16
     column_blocks = -(-n // COLUMN_THREADS) * -(-m // bm)
     column = MatmulPlan("column", 0, k, column_blocks)
     if column_blocks >= NUM_SMS or m > SPLIT_MAX_M or k < SPLIT_MIN_K:
         return column
     strips = -(-n // SPLIT_STRIP)
-    fits = [s for s in SPLIT_CHOICES if -(-k // s) <= SPLIT_MAX_SLICE]
-    if not fits:
-        return column
+    fits = ([s for s in SPLIT_CHOICES if -(-k // s) <= SPLIT_CHUNK]
+            or [max(SPLIT_CHOICES)])
     splits = next((s for s in fits if strips * s >= 2 * NUM_SMS), fits[-1])
     return MatmulPlan("split", splits, -(-k // splits), strips * splits)
 
@@ -90,11 +94,22 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, relu: bool = False) -> torch.Ten
     plan = matmul_plan(m, n, k)
     if plan.kernel == "column" and -(-m // 16) > _MAX_ROW_BLOCKS:
         raise ValueError(f"M={m} exceeds the kernel's row-block grid")
+    out = launch_plan(plan, a, b, relu=relu)
+    launches.add()
+    return out
+
+
+def launch_plan(plan: MatmulPlan, a: torch.Tensor, b: torch.Tensor, *,
+                relu: bool = False) -> torch.Tensor:
+    """Launch K2 on CUDA operands that ``matmul`` has checked, as ``plan``
+    says (``matmul``'s plan, or another split count for a comparison:
+    ``scripts/torch_route_sweep.py``).  Counts no launch: the wrapper
+    does."""
+    (m, k), n = a.shape, b.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
     launch_on("matmul_f32", a, load_library().matmul_f32,
               a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(relu),
               plan.splits)
-    launches.add()
     return out

@@ -261,23 +261,29 @@ def _layer_windows(cfg: LMConfig, n_layers: int, offset: int = 0) -> list:
 
 def attend_route(sq: int, sk: int, d: int, dv: int, *, window=None,
                  attn_softcap=None, start: int | None = None,
-                 flash_chunk: int = 1024, causal: bool = True) -> str:
+                 flash_chunk: int = 1024, causal: bool = True,
+                 autograd: bool = False) -> str:
     """Which attention the serving route runs for queries ``(.., sq, .., d)``
     over keys ``(.., sk, .., d)`` and values of width ``dv``, decided from
     the shapes before any launch; every family's attention asks it.
 
-    ``"k4"`` where K4 has an instance for the shape: causal from ``start ==
-    0`` with several queries, no softcap, ``d`` in K4's ``HEAD_DIMS`` and
-    ``dv == d``, and no window or one of at least ``sq`` positions (with
-    positions equal to indices such a window masks no key the causal mask
-    keeps, so the function is the same).  No transformer arch of the
-    reference moves by the window clause: Gemma2's windows come with a
-    softcap.  Otherwise the training route's selection: ``"chunked"`` (the
+    ``"k4"`` where K4 has an instance for the shape and the call is not on
+    the training route (``autograd``: K4 has no backward): several
+    queries, no softcap, ``d`` in K4's ``HEAD_DIMS`` and ``dv == d``; and
+    either causal from ``start == 0`` with no window or one of at least
+    ``sq`` positions (with positions equal to indices such a window masks
+    no key the causal mask keeps, so the function is the same), or
+    without the causal mask and without a window (Whisper's encoder and
+    its decoder's cross-attention).  No transformer arch of the reference
+    moves by the window clause: Gemma2's windows come with a softcap.
+    Otherwise the training route's selection: ``"chunked"`` (the
     online-softmax scan: causal, both lengths multiples of ``flash_chunk``
     and the queries more than one chunk) or ``"plain"`` (masked
     attention; an all-zero mask where not ``causal``)."""
-    if (causal and start == 0 and sq > 1 and attn_softcap is None
-            and d in HEAD_DIMS and dv == d and (window is None or sq <= window)):
+    if (not autograd and sq > 1 and attn_softcap is None and d in HEAD_DIMS
+            and dv == d
+            and (causal and start == 0 and (window is None or sq <= window)
+                 or not causal and window is None)):
         return "k4"
     c = flash_chunk
     if causal and sq > c and sq % c == 0 and sk % c == 0:
@@ -298,21 +304,21 @@ def attend(q, k, v, q_pos, k_pos, *, scale: float, window=None,
     ``start=0`` promises that every row's query positions are ``0..Sq-1``
     and its key positions ``0..Sk-1`` — position equals index, so the
     causal mask is K4's index mask; K4 then runs over the first ``min(Sq,
-    Sk)`` keys (later keys are masked for every query)."""
+    Sk)`` keys (later keys are masked for every query).  Without the
+    causal mask K4 runs over all ``Sk`` keys."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    # without start, attend_route gives the training route's selection
     route = attend_route(sq, sk, d, v.shape[-1], window=window,
-                         attn_softcap=attn_softcap,
-                         start=None if autograd else start,
-                         flash_chunk=flash_chunk, causal=causal)
+                         attn_softcap=attn_softcap, start=start,
+                         flash_chunk=flash_chunk, causal=causal,
+                         autograd=autograd)
     if route == "k4":
-        kk = min(sq, sk)
+        kk = min(sq, sk) if causal else sk
         qf = q.permute(0, 2, 1, 3).reshape(b * h, sq, d)
         kf = k[:, :kk].permute(0, 2, 1, 3).reshape(b * hkv, kk, d)
         vf = v[:, :kk].permute(0, 2, 1, 3).reshape(b * hkv, kk, d)
         out = flash_attention(qf.contiguous(), kf.contiguous(), vf.contiguous(),
-                              scale=scale, causal=True, rep=h // hkv)
+                              scale=scale, causal=causal, rep=h // hkv)
         return out.reshape(b, h, sq, -1).permute(0, 2, 1, 3)
     if route == "chunked":
         return _flash_attention(

@@ -99,7 +99,8 @@ def _layers(stack: dict, n: int) -> list:
 def _mha(w, xq, xkv, cfg: WhisperConfig, pos=None, causal: bool = False,
          autograd: bool = False):
     """Multi-head attention of ``xq`` over ``xkv``: causal from position 0
-    (``pos`` the queries' and keys' positions) or unmasked."""
+    (``pos`` the queries' and keys' positions) or unmasked; on K4 where
+    ``attend_route`` says so, never under ``autograd``."""
     b, sq, d = xq.shape
     h, hd = cfg.n_heads, cfg.head_dim
     q = (xq @ w["wq"]).reshape(b, sq, h, hd)
@@ -120,9 +121,9 @@ def _ffn(w, x):
     return _gelu((x @ w["w_up"]).float()).to(x.dtype) @ w["w_down"]
 
 
-def _enc_layer(w, x, cfg):
+def _enc_layer(w, x, cfg, autograd):
     h = rms_norm(x, w["ln1"])
-    x = x + _mha(w["self"], h, h, cfg)
+    x = x + _mha(w["self"], h, h, cfg, autograd=autograd)
     return x + _ffn(w, rms_norm(x, w["ln2"]))
 
 
@@ -130,7 +131,7 @@ def _dec_layer(w, x, enc_out, cfg, pos, autograd):
     h = rms_norm(x, w["ln1"])
     x = x + _mha(w["self"], h, h, cfg, pos, causal=True, autograd=autograd)
     h = rms_norm(x, w["ln_cross"])
-    x = x + _mha(w["cross"], h, enc_out, cfg)
+    x = x + _mha(w["cross"], h, enc_out, cfg, autograd=autograd)
     return x + _ffn(w, rms_norm(x, w["ln2"]))
 
 
@@ -152,7 +153,7 @@ def encode(params, cfg: WhisperConfig, frames: torch.Tensor, *,
     x = frames + params["pos_enc"][None].to(frames.dtype)
     x = shard_hint(x, BATCH, None, None)
     x = _each_layer(_enc_layer, _layers(params["enc_layers"], cfg.enc_layers), x,
-                    cfg, autograd=autograd)
+                    cfg, autograd, autograd=autograd)
     return rms_norm(x, params["ln_enc"])
 
 
@@ -187,8 +188,9 @@ def decode(params, cfg: WhisperConfig, tokens: torch.Tensor,
 def forward(params, cfg: WhisperConfig, frames: torch.Tensor,
             tokens: torch.Tensor, *, autograd: bool = False) -> torch.Tensor:
     """``decode`` over ``encode(frames)``.  ``autograd=False`` is the
-    serving route (the decoder's self-attention on K4 where
-    ``attend_route`` says so); ``autograd=True`` the training route."""
+    serving route (the encoder's attention and the decoder's self- and
+    cross-attention on K4 where ``attend_route`` says so);
+    ``autograd=True`` the training route."""
     enc_out = encode(params, cfg, frames, autograd=autograd)
     return decode(params, cfg, tokens, enc_out, autograd=autograd)
 

@@ -259,14 +259,20 @@ def test_attend_routes_by_shape(k4_spy, label, d, dv, h, hkv, k4):
     assert len(k4_spy.calls) == int(k4)
     want = lm.attention(q, k, v, lm.make_attn_mask(pos, pos), scale=1 / math.sqrt(d))
     _close(got.numpy(), want.numpy(), 1e-5)
-    # a window shorter than the queries, a softcap, a single query or
-    # attention without the causal mask never reaches K4 either; a window
-    # of at least the queries masks nothing the causal mask keeps
+    # a window shorter than the queries, a softcap, a single query or the
+    # training route never reaches K4 either; a window of at least the
+    # queries masks nothing the causal mask keeps; attention without the
+    # causal mask reaches it without a window (Whisper's encoder), off the
+    # training route
     assert lm.attend_route(6, 6, d, dv, window=3, start=0) != "k4"
     assert lm.attend_route(6, 6, d, dv, window=6, start=0) == ("k4" if k4 else "plain")
     assert lm.attend_route(6, 6, d, dv, attn_softcap=50.0, start=0) != "k4"
     assert lm.attend_route(1, 6, d, dv, start=5) != "k4"
-    assert lm.attend_route(6, 6, d, dv, start=0, causal=False) == "plain"
+    assert lm.attend_route(6, 6, d, dv, start=0, autograd=True) == "plain"
+    assert lm.attend_route(6, 6, d, dv, start=0, causal=False) == ("k4" if k4 else "plain")
+    assert lm.attend_route(6, 9, d, dv, causal=False) == ("k4" if k4 else "plain")
+    assert lm.attend_route(6, 6, d, dv, causal=False, window=6) == "plain"
+    assert lm.attend_route(6, 6, d, dv, causal=False, autograd=True) == "plain"
     if k4:
         got = lm._attend(q, k, v, pos, pos, cfg, 6, start=0)
         assert len(k4_spy.calls) == 2
@@ -531,18 +537,25 @@ def test_chip_smoke_zoo_phase_rehearses_on_the_cpu(capsys):
     assert routes["qwen3-4b"] == {"k4": 2}
     assert routes["rwkv6-1.6b"] == {}
     assert routes["hymba-1.5b"] == {"k4": 2}
-    assert routes["whisper-medium"] == {"k4": 2, "plain": 4}
+    # Whisper: the encoder's and the cross-attention's unmasked attention
+    # reach K4 too, beside the decoder's causal self-attention
+    assert routes["whisper-medium"] == {"k4": 6}
     checks = {z["arch"]: z["checks"] for z in zoo["archs"]}
     assert checks["rwkv6-1.6b"]["tokens"] == checks["hymba-1.5b"]["tokens"] == 141
     assert checks["rwkv6-1.6b"]["layers_cut"] == 2
     assert checks["rwkv6-1.6b"]["float64"]["decode_rel_err"] <= 1e-12
     assert (checks["hymba-1.5b"]["window"], checks["hymba-1.5b"]["start"]) == (4, 96)
     assert checks["whisper-medium"]["frames"] == [4, 12, 64]
+    assert checks["whisper-medium"]["training_route_rel_err"] <= cs.TOL_ZOO_ROUTE
     moe_z = zoo["archs"][0]["moe"]
     assert moe_z["dropped"] == 0 and moe_z["groups"] == 16
     assert zoo["qwen3_coded"]["tokens"] == sum(g for _, g in cs.lm_requests(256))
     assert all(c == 0 for counts in zoo["by_path"].values() for c in counts.values())
     assert [(e["arch"], e.get("rep")) for e in zoo["kernels"]["flash_attention"]] == [
         ("qwen3-4b-smoke", None), ("qwen3-4b", 2), ("codeqwen1.5-7b", 1),
-        ("hymba-1.5b", 2), ("whisper-medium", 1)]
+        ("hymba-1.5b", 2)] + [("whisper-medium", 1)] * 3
+    whisper_k4 = [e for e in zoo["kernels"]["flash_attention"]
+                  if e["arch"] == "whisper-medium"]
+    assert [(e["q"][1], e["kv"][1], e["causal"], e["count"]) for e in whisper_k4] == [
+        (12, 12, False, 2), (16, 16, True, 2), (16, 12, False, 2)]
     assert "stub prefix" in capsys.readouterr().out

@@ -112,6 +112,30 @@ def test_cuda_matmul_split_kernel_matches_plain(cuda, m, k, n, offset, relu):
     _close(got, k2.matmul_plain(a, b, relu=relu))
 
 
+# K2's split kernel past one staging chunk of a slice: Qwen3-4B's coded
+# worker GEMMs (d_in, width) = (2560, 3072) qkv, (4096, 1280) wo, (2560,
+# 9728) gate-up and (9728, 1280) down (K > 8,192: slices of more than 1,024
+# rows), and ragged deep K, one with a ragged N: (K, N)
+DEEP_GEMMS = [(2560, 3072), (4096, 1280), (2560, 9728), (9728, 1280),
+              (9729, 1280), (20000, 290)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("k,n", DEEP_GEMMS)
+def test_cuda_matmul_split_kernel_deep_k_matches_plain(cuda, m, k, n):
+    plan = k2.matmul_plan(m, n, k)
+    assert plan.kernel == "split"
+    if k > 8 * k2.SPLIT_CHUNK:
+        assert plan.k_slice > k2.SPLIT_CHUNK
+    a = torch.as_tensor(RNG.standard_normal((m, k)).astype(np.float32), device=cuda)
+    b = torch.as_tensor(RNG.standard_normal((k, n)).astype(np.float32), device=cuda)
+    before = k2.launches.count
+    got = k2.matmul(a, b, relu=True)
+    torch.cuda.synchronize()
+    assert k2.launches.count == before + 1
+    _close(got, k2.matmul_plain(a, b, relu=True))
+
+
 # K1 at each VGG-16 layer's (C, N/k_b, KH, KW, stride) on ell_a = ell_b = 2
 # with a small M: (C, NB, h_hat, Wp) — the first at K = 27, those with
 # C >= 256 on the split-K path, the last with several row tiles and a split
@@ -133,16 +157,21 @@ def test_cuda_worker_kernel_vgg_layers_match_plain(cuda, c, nb, hh, wp):
     _close(got, k1.coded_worker_plain(xe, ke, 1), rel=1e-4)
 
 
-# (kernel, case): K1 without and with split-K; K2's column and split kernels;
-# K3 at a decode and a build-time width; K4 at the prefill shape in fp32 and
-# bf16 and over several key chunks
+# (kernel, case): K1 without and with split-K; K2's column and split kernels,
+# the split one also over slices of several staging chunks; K3 at a decode
+# and a build-time width; K4 at the prefill shape in fp32 and bf16 and over
+# several key chunks, and at the Qwen3-4B prefill of 2 x 2,048 tokens on
+# the tiled route in both types
 REPEAT_CASES = [("k1", (2, 2, 64, 20, 30, 2, 70, 3, 3, 1)),
                 ("k1", (2, 2, 512, 6, 6, 2, 128, 3, 3, 1)),
                 ("k2", (8, 8, 100000)), ("k2", (4, 1536, 288)),
+                ("k2", (4, 9728, 1280)),
                 ("k3", (4, 4, 960)), ("k3", (8, 4, 138240)),
                 ("k4", (36, 16, 64, 3, torch.float32)),
                 ("k4", (36, 16, 64, 3, torch.bfloat16)),
-                ("k4", (8, 256, 128, 2, torch.float32))]
+                ("k4", (8, 256, 128, 2, torch.float32)),
+                ("k4", (64, 2048, 128, 4, torch.float32)),
+                ("k4", (64, 2048, 128, 4, torch.bfloat16))]
 
 
 @pytest.mark.parametrize("kernel,case", REPEAT_CASES)
@@ -312,11 +341,21 @@ def test_cuda_coded_gemm_takes_host_code(cuda, r_out, r_in, f, as_numpy):
 
 # (BH, Sq, Sk, D, rep, causal): the prefill shape (4 prompts x 9 heads over
 # 3 KV heads, head_dim 64), the smoke head_dim 16, several query and key
-# tiles, cross lengths and D = 128
+# tiles, cross lengths and D = 128; then long and ragged sequences on the
+# tiled route: the Qwen3-4B prefill of 2 x 2,048 tokens (rep 4, D 128),
+# ragged row and key tiles, the Whisper-medium encoder (4 x 16 heads over
+# 1,500 frames, no mask) and its decoder's 16 queries over those frames
 FLASH_CASES = [(36, 16, 16, 64, 3, True), (12, 8, 8, 16, 3, True),
                (4, 200, 200, 64, 1, True), (4, 130, 130, 32, 2, True),
                (2, 384, 384, 128, 1, True), (4, 64, 200, 32, 1, False),
-               (8, 70, 70, 64, 4, False), (3, 1, 1, 16, 1, True)]
+               (8, 70, 70, 64, 4, False), (3, 1, 1, 16, 1, True),
+               (64, 2048, 2048, 128, 4, True), (4, 1000, 1000, 64, 1, True),
+               (8, 2047, 2047, 128, 2, True), (64, 1500, 1500, 64, 1, False),
+               (4, 16, 1500, 64, 1, False)]
+
+
+def _route(sq):
+    return "tiled" if sq >= k4.TILED_MIN_SQ else "rows"
 
 
 def _qkv(cuda, bh, sq, sk, d, rep, dtype=torch.float32):
@@ -327,6 +366,7 @@ def _qkv(cuda, bh, sq, sk, d, rep, dtype=torch.float32):
 
 @pytest.mark.parametrize("bh,sq,sk,d,rep,causal", FLASH_CASES)
 def test_cuda_flash_attention_matches_plain(cuda, bh, sq, sk, d, rep, causal):
+    assert k4.flash_plan(bh, sq, sk, d, rep).route == _route(sq)
     q, k, v = _qkv(cuda, bh, sq, sk, d, rep)
     before = k4.launches.count
     got = k4.flash_attention(q, k, v, causal=causal, rep=rep)
@@ -335,18 +375,40 @@ def test_cuda_flash_attention_matches_plain(cuda, bh, sq, sk, d, rep, causal):
     _close(got, k4.flash_attention_plain(q, k, v, causal=causal, rep=rep), rel=2e-5)
 
 
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
 @pytest.mark.parametrize("bh,sq,sk,d,rep,causal", FLASH_CASES)
 def test_cuda_flash_attention_bf16_matches_plain(cuda, bh, sq, sk, d, rep, causal):
     """bf16 operands against the bf16 plain version: within one bf16
     rounding of the output (2^-7 of max|out|) — both round p and the output
-    to bf16, and an fp32 sum in another order may flip either rounding."""
+    to bf16, and an fp32 sum in another order may flip either rounding.
+    Over many keys that bound is set by row 0 alone, so the tiled route is
+    also held row by row to the tile-order walk, as ``chip_smoke.py`` holds
+    it (``check_tiled_bf16``: each row within 2^-7 of its own max, nearly
+    every bit equal, and p left whole visibly different)."""
+    route = k4.flash_plan(bh, sq, sk, d, rep, bf16=True).route
+    assert route == _route(sq)
     q, k, v = _qkv(cuda, bh, sq, sk, d, rep, torch.bfloat16)
+    before = k4.launches.count
     got = k4.flash_attention(q, k, v, causal=causal, rep=rep)
     torch.cuda.synchronize()
+    assert k4.launches.count == before + 1
     assert got.dtype == torch.bfloat16
     want = k4.flash_attention_plain(q, k, v, causal=causal, rep=rep)
     err = float((got.float() - want.float()).abs().max())
     assert err <= 2.0 ** -7 * float(want.float().abs().max())
+    if route == "tiled":
+        _chip_smoke().check_tiled_bf16(f"K4 {(bh, sq, sk, d, rep, causal)}", q,
+                                       k, v, got, causal, rep)
 
 
 def test_cuda_lm_kernels_reject_what_they_do_not_take(cuda):
@@ -370,6 +432,20 @@ def test_cuda_lm_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         x = torch.zeros(6, 16, 4, device=cuda).transpose(1, 2)
         k4.flash_attention(x, x, x)
+    # a launch either entry point refuses raises: head dim 48 has no instance
+    q48 = torch.zeros(6, 64, 48, device=cuda)
+    for plan in (k4.rows_plan(6, 64, 48, 3), k4.tiled_plan(6, 64, 3)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            k4.launch_plan(plan, q48, q48[:2], q48[:2], scale=None, causal=True,
+                           rep=3)
+    # the tiled entry point takes only its kernel's own launch shape: the
+    # bf16 plan's 4 warps with fp32 operands, or rows other than 64, raise
+    q64 = torch.zeros(6, 64, 64, device=cuda)
+    bf16_plan = k4.tiled_plan(6, 64, 3, bf16=True)
+    for plan in (bf16_plan, bf16_plan._replace(rows=32, warps=8)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            k4.launch_plan(plan, q64, q64[:2], q64[:2], scale=None, causal=True,
+                           rep=3)
 
 
 def _smoke_lm(device):
@@ -1039,16 +1115,10 @@ def test_cuda_full_width_train_step_matches_fp64(cuda):
     card (the training route: no K4 launch) against chip_smoke.py's plain
     float64 recompute: every leaf finite, non-zero in every layer, within
     1e-4 of its max|g|."""
-    import importlib.util
-    from pathlib import Path
-
     from repro_torch.configs import get_bundle
     from repro_torch.data import DataConfig, SyntheticTokens
 
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
     bundle = get_bundle("smollm-135m")
     params = bundle.init(torch.Generator().manual_seed(0), torch.float32, cuda)
@@ -1205,9 +1275,9 @@ def _family_batch(bundle, b, s, gen, device):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_cuda_family_smoke_forward_matches_cpu(cuda, arch):
-    """Each family's smoke ``prefill_fn`` (Hymba's and Whisper's decoder
-    attention on K4) and 6 ``decode_fn`` steps on the card against the
-    same weights on the CPU, TF32 off."""
+    """Each family's smoke ``prefill_fn`` (Hymba's attention and Whisper's
+    encoder, decoder and cross-attention on K4) and 6 ``decode_fn`` steps
+    on the card against the same weights on the CPU, TF32 off."""
     from repro_torch.configs import get_bundle
     from repro_torch.tree import tree_map
 
@@ -1220,8 +1290,10 @@ def test_cuda_family_smoke_forward_matches_cpu(cuda, arch):
     before = k4.launches.count
     got = bundle.prefill_fn(on_card, {k: v.to(cuda) for k, v in batch.items()})
     torch.cuda.synchronize()
-    layers = {"rwkv6-1.6b": 0, "hymba-1.5b": 2, "whisper-medium": 2}[arch]
-    assert k4.launches.count - before == layers
+    # Whisper: 2 encoder layers, and 2 decoder layers of self- and
+    # cross-attention each
+    launches = {"rwkv6-1.6b": 0, "hymba-1.5b": 2, "whisper-medium": 6}[arch]
+    assert k4.launches.count - before == launches
     _close(got, bundle.prefill_fn(params, batch), 1e-4)
     caches = [bundle.make_cache(2, 8, torch.float32, dev) for dev in ("cpu", cuda)]
     for t in range(6):

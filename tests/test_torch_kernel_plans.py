@@ -13,7 +13,9 @@ built pipelines).
     build-time widths stream float4 columns over every SM;
   * K4 at the SmolLM-135M prefill runs as hundreds of warps on at least
     one block a SM, and stages each KV head's keys once for all its
-    query heads;
+    query heads; long sequences take the tiled route;
+  * Qwen3-4B's coded worker GEMMs take K2's split kernel, the down
+    projection (K 9,728) with slices past one staging chunk;
   * every plan covers M, N and K (F; Sq and the heads) exactly, ragged
     edges included, within the limits the C entry points check.
 """
@@ -27,12 +29,14 @@ from repro_torch.kernels.coded_gemm.kernel import (THREAD_CHOICES,
                                                   VEC4_MIN_COLUMNS,
                                                   coded_gemm_plan)
 from repro_torch.kernels.conv2d.kernel import TILE_K, TILE_M, worker_plan
-from repro_torch.kernels.flash_attn.kernel import (MAX_GRID_Y, MAX_WARPS,
-                                                   PAIRS_A_WARP, flash_plan,
-                                                   max_pairs)
-from repro_torch.kernels.matmul.kernel import (COLUMN_THREADS, SPLIT_MAX_M,
-                                               SPLIT_MAX_SLICE, SPLIT_STRIP,
-                                               matmul_plan)
+from repro_torch.kernels.flash_attn.kernel import (MAX_GRID_Y,
+                                                   MAX_TILED_BLOCKS, MAX_WARPS,
+                                                   PAIRS_A_WARP, TILED_MIN_SQ,
+                                                   TILED_ROWS, TILED_WARPS,
+                                                   flash_plan, max_pairs)
+from repro_torch.kernels.matmul.kernel import (COLUMN_THREADS, SPLIT_CHOICES,
+                                               SPLIT_CHUNK, SPLIT_MAX_M,
+                                               SPLIT_STRIP, matmul_plan)
 from repro_torch.kernels.native import NUM_SMS
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -78,9 +82,11 @@ def _covers_matmul(m, n, k):
         return plan
     strips = plan.blocks // plan.splits
     assert plan.kernel == "split" and m <= SPLIT_MAX_M
+    assert plan.splits in SPLIT_CHOICES
     assert strips * SPLIT_STRIP >= n > (strips - 1) * SPLIT_STRIP
     assert plan.splits * plan.k_slice >= k > (plan.splits - 1) * plan.k_slice
-    assert plan.k_slice <= SPLIT_MAX_SLICE
+    # a slice past one staging chunk only where no split count avoids it
+    assert plan.k_slice <= SPLIT_CHUNK or -(-k // max(SPLIT_CHOICES)) > SPLIT_CHUNK
     return plan
 
 
@@ -145,12 +151,36 @@ def test_vgg_worker_gemm_plans(smoke, vgg, layer):
 
 MATMUL_EDGES = [(1, 1, 64), (3, 7, 65), (4, 479, 577), (16, 290, 1000),
                 (17, 288, 576), (4, 300, 8), (2, 5, 8193), (16, 33793, 576),
-                (1, 1, 1), (8, 64, 1025), (5, 16, 4096), (16, 17, 63)]
+                (1, 1, 1), (8, 64, 1025), (5, 16, 4096), (16, 17, 63),
+                (4, 1280, 9728), (16, 290, 20000), (1, 9728, 2560)]
 
 
 @pytest.mark.parametrize("m,n,k", MATMUL_EDGES)
 def test_matmul_plan_covers_every_shape(m, n, k):
     _covers_matmul(m, n, k)
+
+
+# Qwen3-4B's coded worker GEMMs at batch 4: (K, N) of qkv, wo, gate-up and
+# down; the down projection's K (9,728) is past 8 slices of one chunk
+QWEN3_GEMMS = [(2560, 3072), (4096, 1280), (2560, 9728), (9728, 1280)]
+
+
+@pytest.mark.parametrize("k,n", QWEN3_GEMMS)
+def test_qwen3_worker_gemms_take_the_split_kernel(k, n):
+    plan = _covers_matmul(4, n, k)
+    assert plan.kernel == "split" and plan.blocks >= NUM_SMS
+
+
+@pytest.mark.parametrize("m,n,k,splits,blocks", [(4, 1280, 9728, 8, 640),
+                                                 (2, 5, 8193, 8, 8)])
+def test_matmul_plan_splits_past_one_chunk(m, n, k, splits, blocks):
+    """Past 8 chunks of K the split kernel still takes a small-M product
+    the column grid would leave the card idle for, in 8 slices (the down
+    projection: 80 strips of 8 slices of 1,216 rows; before, 5 column
+    blocks)."""
+    plan = _covers_matmul(m, n, k)
+    assert plan.kernel == "split" and plan.k_slice > SPLIT_CHUNK
+    assert (plan.splits, plan.blocks) == (splits, blocks)
 
 
 WORKER_EDGES = [(1, 1, 1), (127, 33, 17), (129, 65, 27), (2000, 130, 4608),
@@ -226,8 +256,16 @@ def test_coded_gemm_plan_covers_every_width(r_out, r_in, f, aligned):
     assert plan.blocks < 2 ** 31
 
 
-def _covers_flash(bh, sq, d, rep):
-    plan = flash_plan(bh, sq, sq, d, rep)
+def _covers_flash(bh, sq, d, rep, bf16=False):
+    plan = flash_plan(bh, sq, sq, d, rep, bf16)
+    assert plan.route == ("tiled" if sq >= TILED_MIN_SQ else "rows")
+    if plan.route == "tiled":
+        tiles = plan.blocks // bh
+        assert (plan.heads, plan.rows, plan.groups) == (1, TILED_ROWS, rep)
+        assert plan.warps == TILED_WARPS[bf16]
+        assert plan.blocks == bh * tiles <= MAX_TILED_BLOCKS
+        assert tiles * plan.rows >= sq > (tiles - 1) * plan.rows
+        return plan
     pairs = plan.heads * plan.rows
     assert 1 <= plan.heads <= rep and pairs <= max_pairs(d)
     assert plan.rows & (plan.rows - 1) == 0 and plan.rows <= 64
@@ -255,16 +293,33 @@ def test_lm_prefill_attention_plan(smoke, lm, bucket, sq):
 
 FLASH_EDGES = [(1, 1, 16, 1), (3, 1, 128, 3), (36, 256, 64, 1), (36, 256, 64, 3),
                (2, 384, 128, 1), (64, 200, 32, 64), (100, 5, 16, 100),
-               (40, 33, 128, 40), (8, 70, 64, 4), (4, 1000, 16, 1)]
+               (40, 33, 128, 40), (8, 70, 64, 4), (4, 1000, 16, 1),
+               (64, 2048, 128, 4), (8, 2047, 128, 2), (64, 1500, 64, 1),
+               (4, TILED_MIN_SQ - 1, 64, 1), (4, TILED_MIN_SQ, 64, 1),
+               (4, 1 << 24, 16, 1)]
 
 
+@pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("bh,sq,d,rep", FLASH_EDGES)
-def test_flash_plan_covers_every_shape(bh, sq, d, rep):
+def test_flash_plan_covers_every_shape(bh, sq, d, rep, bf16):
     """S = 1, D = 128 (16 pairs a block), long sequences, and rep past what
-    one block serves (head groups)."""
-    plan = _covers_flash(bh, sq, d, rep)
+    one block serves (head groups); each side of the routes' threshold."""
+    plan = _covers_flash(bh, sq, d, rep, bf16)
     if rep > max_pairs(d):
         assert plan.groups > 1
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_flash_plan_takes_the_tiled_route_for_long_prompts(bf16):
+    """The Qwen3-4B prefill of 2 x 2,048 tokens (32 query heads over 8 KV
+    heads, D 128): one block per (query head, 64 rows), 2,048 in all,
+    where the rows route served 16 (head, row) pairs a block; the prefill
+    of 16 tokens stays on the rows route."""
+    plan = flash_plan(64, 2048, 2048, 128, 4, bf16)
+    assert plan.route == "tiled" and plan.blocks == 64 * 32
+    assert flash_plan(128, 16, 16, 128, 4, bf16).route == "rows"
+    assert flash_plan(64, 16, 1500, 64, 1, bf16).route == "rows"
+    assert flash_plan(64, 1500, 1500, 64, 1, bf16).route == "tiled"
 
 
 def test_flash_plan_grid_limit():

@@ -217,10 +217,7 @@ def test_bf16_one_chunk_mismatch_bound_separates_p_rounding(seed):
     ``K4_BF16_MISMATCH`` of the elements.  Fp32 scores summed in another
     order stay inside that share; a kernel that skipped rounding p to
     bf16 changes about a quarter of them, though it stays within 2^-7."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _smoke()
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).bfloat16()
                for shape in ((36, 16, 64), (12, 16, 64), (12, 16, 64)))
@@ -233,6 +230,83 @@ def test_bf16_one_chunk_mismatch_bound_separates_p_rounding(seed):
     assert share(reordered) <= smoke.K4_BF16_MISMATCH
     assert share(unrounded) > 0.2
     _close(unrounded.float(), plain.float(), smoke.TOL_K4_BF16)
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tiled_walk_rounds_where_the_pallas_kernel_does(causal):
+    """``flash_attention_tiled_plain``, the reference of the card's bit
+    check of the tiled route, against ``flash_attention_pallas`` in
+    interpret mode with 64-row blocks, the same tiles: fp32 within 1e-5
+    (and the one-pass plain version within 1e-6); bf16 within one rounding
+    of each row's own max and all but ``K4_BF16_TILED_MISMATCH`` of the
+    bits equal, where the one-pass plain version (p rounded against the
+    row's final max) and the walk with p left whole each differ in more
+    than ``K4_BF16_WHOLE_P`` of them."""
+    smoke = _smoke()
+    rng = np.random.default_rng(5)
+    q, k, v = (_flat(rng.standard_normal((1, 256, 2, 64), dtype=np.float32))
+               for _ in range(3))
+    got = k4.flash_attention_tiled_plain(_t(q), _t(k), _t(v), causal=causal)
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    _close(got, flash_attention_pallas(*args, causal=causal, bq=64, bk=64), REL_K4)
+    _close(got, flash_attention_plain(_t(q), _t(k), _t(v), causal=causal), 1e-6)
+    (qj, qt), (kj, kt), (vj, vt) = (_bf16_pair(x) for x in (q, k, v))
+    want = torch.from_numpy(np.asarray(flash_attention_pallas(
+        qj, kj, vj, causal=causal, bq=64, bk=64).astype(jnp.float32)))
+    got = k4.flash_attention_tiled_plain(qt, kt, vt, causal=causal)
+    assert got.dtype == torch.bfloat16
+    share = lambda x: float((x.float() != want).float().mean())
+    assert smoke.row_err(got, want) <= smoke.TOL_K4_BF16
+    assert share(got) <= smoke.K4_BF16_TILED_MISMATCH
+    assert share(flash_attention_plain(qt, kt, vt, causal=causal)) > smoke.K4_BF16_WHOLE_P
+    whole_p = k4.flash_attention_tiled_plain(qt.float(), kt.float(), vt.float(),
+                                             causal=causal).bfloat16()
+    assert share(whole_p) > smoke.K4_BF16_WHOLE_P
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_tiled_bf16_check_separates_faults(seed):
+    """``chip_smoke.check_tiled_bf16`` at a long causal GQA shape: scores
+    summed in another order (the head dim permuted) pass it; p left whole,
+    the middle key tile dropped (without a mask, where dropping is
+    removing keys) and rows from 64 on scaled by 0.98 each fail it.  p
+    left whole and the scaled rows stay within 2^-7 of max|plain|, the one
+    check before it."""
+    smoke = _smoke()
+    rng = np.random.default_rng(seed)
+    bh, s, d, rep = 4, 512, 128, 2
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).bfloat16()
+               for shape in ((bh, s, d), (bh // rep, s, d), (bh // rep, s, d)))
+    perm = torch.from_numpy(rng.permutation(d))
+    walk = k4.flash_attention_tiled_plain
+    check = smoke.check_tiled_bf16
+    out = check("reordered", q, k, v, walk(q[..., perm].contiguous(),
+                                           k[..., perm].contiguous(), v, rep=rep),
+                True, rep)
+    assert out["whole_p_mismatch_share"] > smoke.K4_BF16_WHOLE_P
+    whole_p = walk(q.float(), k.float(), v.float(), rep=rep).bfloat16()
+    keep = torch.cat([torch.arange(0, 256), torch.arange(320, s)])
+    dropped = walk(q, k[:, keep].contiguous(), v[:, keep].contiguous(),
+                   causal=False, rep=rep)
+    scaled = (walk(q, k, v, rep=rep).float()
+              * torch.where(torch.arange(s) >= 64, 0.98, 1.0)[None, :, None]
+              ).bfloat16()
+    for fault, causal, match in ((whole_p, True, "bits"),
+                                 (dropped, False, "own max"),
+                                 (scaled, True, "own max")):
+        if causal:
+            plain = flash_attention_plain(q, k, v, causal=causal, rep=rep)
+            _close(fault.float(), plain.float(), smoke.TOL_K4_BF16)
+        with pytest.raises(AssertionError, match=match):
+            check("fault", q, k, v, fault, causal, rep)
 
 
 def test_flash_plain_cross_lengths():

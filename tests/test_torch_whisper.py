@@ -69,8 +69,9 @@ def test_config_and_shapes_are_the_references():
 
 def test_encode_decode_and_forward_match_reference(setup, monkeypatch):
     """``encode`` (bidirectional), ``decode`` over the encoder's states
-    (causal self-attention on K4's route, each decoder layer one launch;
-    on the CPU its plain version) and ``forward``."""
+    (causal self-attention and unmasked cross-attention on K4's route,
+    each decoder layer two launches; on the CPU its plain version) and
+    ``forward``."""
     rb, pb, p_np, toks, frames = setup
     pj, pt = both(p_np)
     enc = whisper.encode(pt, pb.cfg, t(frames))
@@ -79,14 +80,44 @@ def test_encode_decode_and_forward_match_reference(setup, monkeypatch):
     seen = []
     real = transformer.flash_attention
     monkeypatch.setattr(transformer, "flash_attention",
-                        lambda *a, **kw: seen.append(a[0].shape) or real(*a, **kw))
+                        lambda *a, **kw: seen.append((a[0].shape, a[1].shape[1],
+                                                      kw["causal"]))
+                        or real(*a, **kw))
     dec = whisper.decode(pt, pb.cfg, t(toks[:, :S]), enc)
-    assert seen == [(B * 4, S, 16)] * 2
+    enc_len = pb.cfg.enc_len
+    assert seen == [((B * 4, S, 16), S, True), ((B * 4, S, 16), enc_len, False)] * 2
     close(dec.numpy(), ref_whisper.decode(pj, rb.cfg, jnp.asarray(toks[:, :S]), enc_r),
           REL)
     close(whisper.forward(pt, pb.cfg, t(frames), t(toks[:, :S])).numpy(),
           ref_whisper.forward(pj, rb.cfg, jnp.asarray(frames), jnp.asarray(toks[:, :S])),
           REL)
+
+
+def test_serving_route_sends_unmasked_attention_to_k4(setup, monkeypatch):
+    """``forward`` on the serving route sends the encoder's bidirectional
+    attention (all ``enc_len`` keys) and the decoder's cross-attention to
+    K4, and equals the training route (``autograd=True``, plain masked
+    attention, no K4 launch) within 1e-6 of max|logit|."""
+    _, pb, p_np, toks, frames = setup
+    _, pt = both(p_np)
+    cfg = pb.cfg
+    seen = []
+    real = transformer.flash_attention
+    monkeypatch.setattr(transformer, "flash_attention",
+                        lambda *a, **kw: seen.append((a[0].shape, a[1].shape[1],
+                                                      kw["causal"]))
+                        or real(*a, **kw))
+    with torch.no_grad():
+        train_route = whisper.forward(pt, cfg, t(frames), t(toks[:, :S]),
+                                      autograd=True)
+        assert seen == []
+        serving = whisper.forward(pt, cfg, t(frames), t(toks[:, :S]))
+    enc_call = ((B * 4, cfg.enc_len, 16), cfg.enc_len, False)
+    dec_calls = [((B * 4, S, 16), S, True), ((B * 4, S, 16), cfg.enc_len, False)]
+    assert seen == [enc_call] * cfg.enc_layers + dec_calls * cfg.dec_layers
+    assert [transformer.attend_route(cfg.enc_len, cfg.enc_len, 16, 16, causal=False,
+                                     autograd=a) for a in (False, True)] == ["k4", "plain"]
+    assert rel_err(serving.numpy(), train_route.numpy()) <= 1e-6
 
 
 def test_precompute_cross_kv_matches_reference(setup):
