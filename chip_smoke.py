@@ -163,7 +163,23 @@ Phases, in order; any failure raises:
     logits of every call within 1e-4 of max|logit|, K4 launched on every
     rank once a layer at 64 query heads (4 prompts x 16 local heads); ms
     a step and a layer, collective calls, ms and bytes by axis, peak
-    memory a rank beside its reckoned shard bytes;
+    memory a rank beside its reckoned shard bytes.  (e) the recurrent and
+    encoder-decoder families over ``model``: RWKV6-1.6B, Hymba-1.5B and
+    Whisper-medium trained through ``train(mesh=...)`` over (data 2,
+    model 2) at full width on 2 layers (Whisper's encoder and decoder
+    alike; RWKV6 in float64), 3 steps of 8 x 256 tokens, each loss
+    within 1e-5 of the one-process run's; then served over (data 1,
+    model 2) at full width and depth, batch 4, 16 + 16 tokens, eagerly:
+    Hymba's and Whisper's tokens equal to the one-process ``serve_lm``'s
+    and every call's logits within 1e-4 of max|logit|, RWKV6's logits
+    held to a float64 one-process run teacher-forced on its tokens
+    within twice the fp32 one-process run's distance from it; then each
+    one's ``prefill_fn`` over the prompts (Whisper's over 4 x 1500 random
+    frames) within 1e-4 of one process's (not RWKV6's), K4 launched on
+    every rank once a Hymba layer at 100 query heads (every head) and
+    three times a Whisper layer at 32 (8 heads a rank); K4 at those
+    per-rank shapes against its plain version, timed beside SDPA; the
+    same readings as (d);
 14. the arch zoo, after the earlier phases' servers, graphs and weights
     are released, one arch at a time: each drawn on the card from a seeded
     CUDA generator (fp32, TF32 off) at full width, through ``serve_lm``
@@ -3230,6 +3246,35 @@ DIST_TIMEOUT_S = 600
 # FSDP on, as (b): its 9 heads cut at 288 of 576 columns, inside a head.
 TP_SERVE = (("qwen3-4b", None), ("deepseek-v2-236b", 2))
 TP_RANKS_SERVE, TP_RANKS_TRAIN, TOL_TP_LOGITS = 2, 4, 1e-4
+# (e) the recurrent and encoder-decoder families over the model axis.
+# Served over (data 1, model 2) at full width and depth, DIST_SERVE's batch
+# and lengths, eagerly, each rank drawing its cut of the params: the tokens
+# equal to the one-process serve_lm's and every call's logits within
+# TOL_TP_LOGITS of max|logit| (Hymba, Whisper); RWKV6's fp32 stack
+# amplifies rounding with depth (PERF.md), so its ranks' logits are held
+# to a float64 one-process run teacher-forced on the ranks' tokens, within
+# twice the one-process fp32 run's own distance from it, and each greedy
+# token where the float64 top-2 margin exceeds twice that bound.  Then
+# prefill_fn over the prompts (Whisper's over 4 x 1500 random frames),
+# whose K4 launches every rank makes: Hymba's every head (25 a layer,
+# wq cut inside a head), Whisper's 8 heads a rank for its encoder,
+# decoder self- and cross-attention; its logits within TOL_TP_LOGITS of one
+# process's.  Trained over (data 2, model 2) through train(mesh=...) at
+# full width on TP_FAMILY_LAYERS layers (Whisper's encoder and decoder
+# alike), TP_FAMILY_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens, FSDP
+# on, each loss within TOL_DIST_LOSS of the one-process train's (the
+# gradient norms printed beside).  RWKV6 trains in float64 there: in fp32
+# at full width its gradient norm at step 1, before any update, is
+# 6.1e-05 apart between the ranks' and one process's sums (2 layers;
+# 4.6e-06 at 1), and the loss after the first update 1.45e-05, while in
+# float64 the two agree to the norm's own fp32 rounding (on an H100,
+# PERF.md): the scan's cumulated log-decays amplify rounding, as its
+# served logits show.
+TP_FAMILY_F64 = ("rwkv6-1.6b",)
+TP_FAMILIES = ("rwkv6-1.6b", "hymba-1.5b", "whisper-medium")
+TP_FAMILY_LAYERS, TP_FAMILY_STEPS = 2, 3
+# a CPU rehearsal's sequence (Whisper's smoke decoder holds 64 positions)
+TP_FAMILY_SMOKE_SEQ = 32
 
 
 def _no_tf32() -> None:
@@ -3627,6 +3672,392 @@ def print_tensor_parallel(tp: dict, card: str) -> None:
           f"{tp['serve']['run_ranks_s']:.1f}")
 
 
+def _family_prompts(bundle, device) -> dict:
+    """The prompts ``serve_lm(seed=SEED)`` draws, as a ``prefill_fn`` batch
+    on ``device`` (Whisper's with random frames from the seed)."""
+    cfg = bundle.cfg
+    gen = torch.Generator().manual_seed(SEED + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (DIST_SERVE["batch"],
+                                                    DIST_SERVE["prompt_len"]),
+                                     generator=gen).to(device)}
+    if bundle.family == "encdec":
+        batch["frames"] = torch.randn(
+            (DIST_SERVE["batch"], cfg.enc_len, cfg.d_model),
+            generator=torch.Generator().manual_seed(SEED + 3)).to(device)
+    return batch
+
+
+def dist_tp_family_serve_rank(rank: int, device: str, smoke: bool) -> dict:
+    """Rank ``rank`` of (data 1, model 2): each arch of ``TP_FAMILIES``
+    through ``serve_lm(mesh=...)``, eagerly, from this rank's cut of the
+    params drawn a leaf at a time, then ``prefill_fn`` over the same
+    prompts: the tokens, every call's logits and the prefill's (rank 0),
+    K4's launches and the query heads of each in the prefill, ms a step,
+    the collectives by axis, peak memory beside the reckoned shard
+    bytes."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels.flash_attn.kernel import launches as k4_launches
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models.common import schema_shardings
+    from repro_torch.sharding import use_mesh
+
+    _no_tf32()
+    mesh = make_process_mesh((1, TP_RANKS_SERVE), ("data", "model"),
+                             device=device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    heads = _tp_spy()
+    out = {"backend": mesh.backend}
+    for arch in TP_FAMILIES:
+        bundle = get_bundle(arch, smoke=smoke)
+        rows, timings = [], {}
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        mesh.stats["by_axis"].clear()
+        params = bundle.init(torch.Generator(device=dev).manual_seed(SEED),
+                             torch.float32, dev,
+                             schema_shardings(bundle.schema, mesh))
+        t0 = time.perf_counter()
+        toks = serve_lm(arch, device=device, seed=SEED, smoke=smoke, mesh=mesh,
+                        params=params, graphs=False, timings=timings,
+                        on_logits=lambda lg, rows=rows: rows.append(
+                            lg.cpu() if rank == 0 else None), **DIST_SERVE)
+        wall = time.perf_counter() - t0
+        coll = _axis_stats(mesh)
+        heads.clear()
+        k4_launches.reset()
+        with use_mesh(mesh), torch.no_grad():
+            t0 = time.perf_counter()
+            pre = bundle.prefill_fn(params, _family_prompts(bundle, dev))
+            if cuda:
+                torch.cuda.synchronize(dev)
+            prefill_s = time.perf_counter() - t0
+        out[arch] = {
+            "tokens": toks, "logits": rows if rank == 0 else None,
+            "prefill": pre.cpu() if rank == 0 else None,
+            "k4": k4_launches.count, "k4_heads": list(heads),
+            "layers": getattr(bundle.cfg, "layers", None)
+            or bundle.cfg.dec_layers, "wall_s": wall,
+            "decode_s": timings["decode_s"], "prefill_fn_s": prefill_s,
+            "collectives": coll,
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev) if cuda
+                           else None),
+            "shard_bytes": _shard_bytes(bundle, mesh)}
+        del params, pre
+        _empty_cache(dev)
+    return out
+
+
+def _train_dtype(arch: str) -> torch.dtype:
+    return torch.float64 if arch in TP_FAMILY_F64 else torch.float32
+
+
+def dist_tp_family_train_rank(rank: int, device: str, smoke: bool) -> dict:
+    """Rank ``rank`` of (data 2, model 2): each arch of ``TP_FAMILIES``
+    trained through ``train(mesh=...)`` on ``TP_FAMILY_LAYERS`` layers,
+    FSDP on, eagerly: the losses, ms a step, the collectives a step by
+    axis, peak memory beside the reckoned shard bytes."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.registry import with_layers
+
+    _no_tf32()
+    mesh = make_process_mesh((2, TP_RANKS_TRAIN // 2), ("data", "model"),
+                             device=device)
+    dev = mesh.device
+    out = {"backend": mesh.backend}
+    for arch in TP_FAMILIES:
+        stamps, coll, norms = [], [], []
+
+        def on_step(step, metrics, stamps=stamps, coll=coll, norms=norms):
+            stamps.append(time.perf_counter())
+            coll.append(_axis_stats(mesh))
+            norms.append(float(metrics["grad_norm"]))
+
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        coll.append(_axis_stats(mesh))
+        t0 = time.perf_counter()
+        losses = train(arch, steps=TP_FAMILY_STEPS, batch=TRAIN_BATCH,
+                       seq=TP_FAMILY_SMOKE_SEQ if smoke else TRAIN_SEQ,
+                       smoke=smoke, device=device, seed=SEED,
+                       lr=DIST_LR, graphs=False, mesh=mesh, on_step=on_step,
+                       log_every=TP_FAMILY_STEPS, layers=TP_FAMILY_LAYERS,
+                       param_dtype=_train_dtype(arch))
+        bundle = with_layers(get_bundle(arch, smoke=smoke), TP_FAMILY_LAYERS)
+        out[arch] = {"losses": losses, "grad_norms": norms,
+                     "ms_per_step": (np.diff([t0] + stamps) * 1e3).tolist(),
+                     "collectives_per_step": coll,
+                     "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                                    if dev.type == "cuda" else None),
+                     "shard_bytes": _shard_bytes(bundle, mesh, fsdp=True)}
+        _empty_cache(dev)
+    return out
+
+
+def _teacher_forced(bundle, params, seq, device, dtype) -> list:
+    """``decode_fn`` stepped over ``seq`` (B, T), each step's logits on the
+    host: the calls ``serve_lm`` makes when it generates ``seq``'s tail."""
+    cache = bundle.make_cache(seq.shape[0], seq.shape[1], dtype, device)
+    out = []
+    with torch.no_grad():
+        for t in range(seq.shape[1]):
+            lg, cache = bundle.decode_fn(params, cache, {"tokens": seq[:, t:t + 1],
+                                                         "pos": t})
+            out.append(lg.cpu())
+    return out
+
+
+def rwkv_tp_witness(bundle, toks, rows, device) -> dict:
+    """RWKV6's ranks' logits ``rows`` (every ``serve_lm`` call's) against a
+    float64 one-process run teacher-forced on the ranks' tokens, within
+    twice the one-process fp32 run's distance from it; the ranks' greedy
+    token an argmax of the float64 logits wherever their top-2 margin
+    exceeds twice that bound."""
+    seq = torch.cat([_family_prompts(bundle, device)["tokens"],
+                     torch.as_tensor(toks).to(device)], dim=1)
+    from repro_torch.tree import tree_map
+
+    params = bundle.init(torch.Generator(device=device).manual_seed(SEED),
+                         torch.float32, device)
+    fp32 = _teacher_forced(bundle, params, seq, device, torch.float32)
+    params = tree_map(lambda t: t.double(), params)
+    _empty_cache(device)
+    fp64 = _teacher_forced(bundle, params, seq, device, torch.float64)
+    del params
+    want = torch.cat(fp64, dim=1)
+    got = torch.cat([r.double() for r in rows], dim=1)
+    d32 = _max_rel(torch.cat(fp32, dim=1), want)
+    err = _max_rel(got, want)
+    if not err <= 2 * d32:
+        raise AssertionError(f"RWKV6 over (data 1, model 2): logits {err:.2e} of "
+                             f"max|logit| from float64 > 2 x the one-process "
+                             f"fp32 run's {d32:.2e}")
+    bound = 2 * 2 * d32 * float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > bound
+    agree = got.argmax(dim=-1) == want.argmax(dim=-1)
+    if not bool(agree[sure].all()):
+        raise AssertionError("RWKV6 over (data 1, model 2): a greedy token where "
+                             "the float64 margin exceeds the bound differs")
+    return {"fp32_vs_fp64": d32, "tp_vs_fp64": err,
+            "sure_tokens": int(sure.sum()), "argmax_equal": int(agree.sum()),
+            "calls": int(agree.numel())}
+
+
+def tp_family_part(device, dev: str, smoke: bool, tmp: str) -> dict:
+    """Part (e): the recurrent and encoder-decoder families served over
+    (data 1, model 2) and trained over (data 2, model 2), each held
+    against this process's one-process run, which runs after the ranks
+    exit; then K4 at the per-rank prefill shapes against its plain
+    version, timed."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.train import train
+
+    out = {}
+    t0 = time.perf_counter()
+    tr = run_ranks(dist_tp_family_train_rank, TP_RANKS_TRAIN, dev, smoke,
+                   device=dev, timeout_s=DIST_TIMEOUT_S,
+                   store_path=os.path.join(tmp, "store-tpf-train"))
+    out["train"] = {"ranks": TP_RANKS_TRAIN, "mesh": "(data 2, model 2)",
+                    "backend": tr[0]["backend"],
+                    "run_ranks_s": time.perf_counter() - t0, "archs": []}
+    for arch in TP_FAMILIES:
+        one_norms = []
+        one = train(arch, steps=TP_FAMILY_STEPS, batch=TRAIN_BATCH,
+                    seq=TP_FAMILY_SMOKE_SEQ if smoke else TRAIN_SEQ,
+                    smoke=smoke, device=device, seed=SEED,
+                    lr=DIST_LR, graphs=False, log_every=TP_FAMILY_STEPS,
+                    layers=TP_FAMILY_LAYERS, param_dtype=_train_dtype(arch),
+                    on_step=lambda s, m: one_norms.append(float(m["grad_norm"])))
+        errs = [max(abs(res[arch]["losses"][i] - b) / abs(b) for res in tr)
+                for i, b in enumerate(one)]
+        norm_errs = [max(abs(res[arch]["grad_norms"][i] - b) / abs(b)
+                         for res in tr) for i, b in enumerate(one_norms)]
+        err = max(errs)
+        out["train"]["archs"].append({
+            "arch": arch, "dtype": str(_train_dtype(arch)).removeprefix("torch."),
+            "losses": tr[0][arch]["losses"],
+            "one_process_losses": one, "loss_max_rel_err": err,
+            "loss_rel_err_by_step": errs, "grad_norm_rel_err_by_step": norm_errs,
+            "collectives_per_step": tr[0][arch]["collectives_per_step"],
+            **{k: [res[arch][k] for res in tr]
+               for k in ("ms_per_step", "peak_bytes", "shard_bytes")}})
+        _empty_cache(device)
+    for a in out["train"]["archs"]:
+        if not a["loss_max_rel_err"] <= TOL_DIST_LOSS:
+            raise AssertionError(
+                f"{a['arch']} over (data 2, model 2): losses vs one process "
+                f"rel err by step {a['loss_rel_err_by_step']} > "
+                f"{TOL_DIST_LOSS} (gradient norms "
+                f"{a['grad_norm_rel_err_by_step']})")
+
+    t0 = time.perf_counter()
+    sv = run_ranks(dist_tp_family_serve_rank, TP_RANKS_SERVE, dev, smoke,
+                   device=dev, timeout_s=DIST_TIMEOUT_S,
+                   store_path=os.path.join(tmp, "store-tpf-serve"))
+    out["serve"] = {"ranks": TP_RANKS_SERVE, "mesh": "(data 1, model 2)",
+                    "run_ranks_s": time.perf_counter() - t0, "archs": []}
+    k4_total = 0
+    for arch in TP_FAMILIES:
+        bundle = get_bundle(arch, smoke=smoke)
+        cfg = bundle.cfg
+        got = sv[0][arch]
+        rows = []
+        want = serve_lm(arch, device=device, seed=SEED, smoke=smoke,
+                        graphs=False,
+                        on_logits=lambda lg: rows.append(lg.cpu()), **DIST_SERVE)
+        if len(got["logits"]) != len(rows):
+            raise AssertionError(f"{arch}: {len(got['logits'])} logits calls "
+                                 f"over the mesh, {len(rows)} in one process")
+        a = {"arch": arch, "layers": got["layers"],
+             "logits_max_rel_err": max(_max_rel(x, y) for x, y in
+                                       zip(got["logits"], rows))}
+        same = [bool(torch.equal(torch.from_numpy(res[arch]["tokens"]),
+                                 want.cpu())) for res in sv]
+        a["tokens_equal_one_process"] = int(
+            (torch.from_numpy(got["tokens"]) == want.cpu()).sum())
+        if bundle.family == "ssm":
+            a["float64"] = rwkv_tp_witness(bundle, got["tokens"],
+                                           [torch.as_tensor(np.asarray(x))
+                                            for x in got["logits"]], device)
+        else:
+            if not all(same):
+                raise AssertionError(f"serve_lm {arch} over (data 1, model 2): "
+                                     f"tokens differ from one process's")
+            if not a["logits_max_rel_err"] <= TOL_TP_LOGITS:
+                raise AssertionError(
+                    f"serve_lm {arch} over (data 1, model 2): logits max rel "
+                    f"err {a['logits_max_rel_err']:.2e} > {TOL_TP_LOGITS}")
+        params = bundle.init(torch.Generator(device=device).manual_seed(SEED),
+                             torch.float32, device)
+        with torch.no_grad():
+            pre = bundle.prefill_fn(params, _family_prompts(bundle, device))
+        a["prefill_max_rel_err"] = _max_rel(got["prefill"], pre.cpu())
+        if bundle.family != "ssm" and not a["prefill_max_rel_err"] <= TOL_TP_LOGITS:
+            raise AssertionError(f"prefill_fn {arch} over (data 1, model 2): "
+                                 f"max rel err {a['prefill_max_rel_err']:.2e} > "
+                                 f"{TOL_TP_LOGITS}")
+        del params, pre
+        # K4 on every rank: Hymba once a layer at every head (B x 25),
+        # Whisper three times a layer at its 8 heads a rank (B x 8)
+        n, local = 0, None
+        if bundle.family == "hybrid":
+            n, local = cfg.layers, DIST_SERVE["batch"] * cfg.n_heads
+        elif bundle.family == "encdec":
+            n = cfg.enc_layers + 2 * cfg.dec_layers
+            local = DIST_SERVE["batch"] * cfg.n_heads // TP_RANKS_SERVE
+        if dev != "cpu":
+            for r, res in enumerate(sv):
+                if res[arch]["k4"] != n or any(
+                        h != local for h in res[arch]["k4_heads"]):
+                    raise AssertionError(
+                        f"{arch} rank {r}: K4 launched {res[arch]['k4']} times "
+                        f"at {sorted(set(res[arch]['k4_heads']))} query heads, "
+                        f"want {n} at {local}")
+        k4_total += sum(res[arch]["k4"] for res in sv)
+        a.update(tokens_equal=all(same), k4_heads=local,
+                 **{k: [res[arch][k] for res in sv]
+                    for k in ("k4", "wall_s", "decode_s", "prefill_fn_s",
+                              "peak_bytes", "shard_bytes", "collectives")})
+        out["serve"]["archs"].append(a)
+        del rows, want
+        _empty_cache(device)
+    out["by_path"] = {"prefill_fn_tp_families": {"flash_attention": k4_total}}
+    # K4 at the ranks' prefill shapes
+    gen = torch.Generator(device=device).manual_seed(SEED + 27)
+    hy = get_bundle("hymba-1.5b", smoke=smoke).cfg
+    wh = get_bundle("whisper-medium", smoke=smoke).cfg
+    b, p = DIST_SERVE["batch"], DIST_SERVE["prompt_len"]
+    wbh = b * wh.n_heads // TP_RANKS_SERVE
+    shapes = [("hymba-1.5b prefill", b * hy.n_heads, p, p, hy.head_dim,
+               hy.n_heads // hy.n_kv_heads, True, hy.layers),
+              ("whisper-medium encoder", wbh, wh.enc_len, wh.enc_len,
+               wh.head_dim, 1, False, wh.enc_layers),
+              ("whisper-medium decoder self", wbh, p, p, wh.head_dim, 1, True,
+               wh.dec_layers),
+              ("whisper-medium decoder cross", wbh, p, wh.enc_len, wh.head_dim,
+               1, False, wh.dec_layers)]
+    out["k4"] = [{"path": f"prefill_fn over (data 1, model 2), {what} (phase "
+                          f"13 (e)), per rank", **flash_entry(
+                      bh, sq, d, rep, count, torch.float32,
+                      gen, device, TOL_K4, dev != "cpu", sk=sk, causal=causal)}
+                 for what, bh, sq, sk, d, rep, causal, count in shapes]
+    return out
+
+
+def print_tp_families(tf: dict, card: str) -> None:
+    """Part (e)'s lines."""
+    for a in tf["train"]["archs"]:
+        med = [float(np.median(ms[1:])) for ms in a["ms_per_step"]]
+        c = a["collectives_per_step"]
+        per_axis = {ax: {"calls": (c[-1][ax]["calls"] - c[0].get(ax, {"calls": 0})["calls"])
+                         / (len(c) - 1),
+                         "ms": (c[-1][ax]["ms"] - c[0].get(ax, {"ms": 0.0})["ms"])
+                         / (len(c) - 1),
+                         "MB": (c[-1][ax]["bytes"] - c[0].get(ax, {"bytes": 0})["bytes"])
+                         / (len(c) - 1) / 1e6} for ax in c[-1]}
+        print(f"  (e) train {a['arch']} at full width on {TP_FAMILY_LAYERS} "
+              f"layers in {a['dtype']} over {tf['train']['mesh']} on "
+              f"{tf['train']['ranks']} ranks ({tf['train']['backend']}), FSDP "
+              f"on, {TP_FAMILY_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"tokens, eager, on {card}: losses "
+              f"{[round(x, 5) for x in a['losses']]}, max rel err vs one "
+              f"process {a['loss_max_rel_err']:.2e} <= {TOL_DIST_LOSS}, gradient "
+              f"norms {max(a['grad_norm_rel_err_by_step']):.2e}; ms a step "
+              f"(median of steps 2-{TP_FAMILY_STEPS}) per rank "
+              f"{[round(m, 1) for m in med]}; collectives a step by axis "
+              + "; ".join(f"{ax} {v['calls']:.0f} calls {v['ms']:.1f} ms "
+                          f"{v['MB']:.1f} MB" for ax, v in per_axis.items())
+              + f"; peak {[_gib(x) for x in a['peak_bytes']]} against shards "
+              f"of {[_gib(x) for x in a['shard_bytes']]} a rank")
+    for a in tf["serve"]["archs"]:
+        dec = [s / DIST_SERVE["gen"] * 1e3 for s in a["decode_s"]]
+        coll = a["collectives"][0]
+        if "float64" in a:
+            f = a["float64"]
+            held = (f"logits {f['tp_vs_fp64']:.2e} of max|logit| from a float64 "
+                    f"run teacher-forced on its tokens <= 2 x the one-process "
+                    f"fp32 run's {f['fp32_vs_fp64']:.2e}; greedy tokens the "
+                    f"float64 argmax at {f['argmax_equal']} of {f['calls']} "
+                    f"calls (held at the {f['sure_tokens']} past the margin); "
+                    f"{a['tokens_equal_one_process']} of "
+                    f"{DIST_SERVE['batch'] * DIST_SERVE['gen']} tokens equal to "
+                    f"the one-process fp32 run's (logits max rel err "
+                    f"{a['logits_max_rel_err']:.2e})")
+        else:
+            held = (f"tokens equal to one process's, logits max rel err "
+                    f"{a['logits_max_rel_err']:.2e} <= {TOL_TP_LOGITS}")
+        print(f"  (e) serve_lm {a['arch']} at full width, {a['layers']} layers, "
+              f"over {tf['serve']['mesh']} ({tf['serve']['ranks']} ranks), "
+              f"batch {DIST_SERVE['batch']}, {DIST_SERVE['prompt_len']} + "
+              f"{DIST_SERVE['gen']} tokens, eager, on {card}: {held}; "
+              f"prefill_fn max rel err {a['prefill_max_rel_err']:.2e}"
+              + (f", K4 launches per rank {a['k4']} at {a['k4_heads']} query "
+                 f"heads" if a["k4_heads"] else ", no K4 (attention-free)")
+              + f"; decode ms a step {[round(x, 1) for x in dec]} "
+              f"({[round(x / a['layers'], 2) for x in dec]} a layer), "
+              f"prefill_fn s {[round(x, 3) for x in a['prefill_fn_s']]}; rank "
+              f"0's collectives "
+              + "; ".join(f"{ax} {v['calls']} calls {v['ms']:.1f} ms "
+                          f"{v['bytes'] / 1e6:.1f} MB" for ax, v in coll.items())
+              + f"; peak {[_gib(x) for x in a['peak_bytes']]} against shards "
+              f"of {[_gib(x) for x in a['shard_bytes']]} a rank")
+    for e in tf["k4"]:
+        print(f"  (e) K4 {e['path']}: q {e['q']} over {e['kv'][1]} keys, "
+              f"{e['plan']['route']} route, {e['count']} launches: "
+              f"{_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, plain "
+              f"{_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])}, bound "
+              f"{e['bound_ms']:.5f} by {e['bound_by']}; rel err "
+              f"{e['max_rel_err']:.2e} <= {TOL_K4}")
+    print(f"  (e) run_ranks s: train {tf['train']['run_ranks_s']:.1f}, serve "
+          f"{tf['serve']['run_ranks_s']:.1f}")
+
+
 def _max_rel(got, want) -> float:
     got = torch.as_tensor(np.asarray(got)).double()
     want = torch.as_tensor(np.asarray(want)).double()
@@ -3800,6 +4231,14 @@ def distributed_phase(device, card: str, smoke: bool = False) -> dict:
         tp["seconds"] = time.perf_counter() - t0
         out["by_path"].update(tp.pop("by_path"))
         out["tensor_parallel"] = tp
+        del full, init
+        _empty_cache(device)
+        # (e) the recurrent and encoder-decoder families over the model axis
+        t0 = time.perf_counter()
+        tf = tp_family_part(device, dev, smoke, tmp)
+        tf["seconds"] = time.perf_counter() - t0
+        out["by_path"].update(tf.pop("by_path"))
+        out["tp_families"] = tf
     return out
 
 
@@ -3937,6 +4376,10 @@ def print_distributed(d: dict, card: str) -> None:
     if "tensor_parallel" in d:
         print(f"  (d) tensor parallelism: {d['tensor_parallel']['seconds']:.1f} s")
         print_tensor_parallel(d["tensor_parallel"], card)
+    if "tp_families" in d:
+        print(f"  (e) the recurrent and encoder-decoder families: "
+              f"{d['tp_families']['seconds']:.1f} s")
+        print_tp_families(d["tp_families"], card)
 
 
 def main() -> int:
@@ -4351,6 +4794,7 @@ def main() -> int:
     k3e["zoo"] = zk["coded_gemm"] + zk["coded_gemm_encode"]
     k4e["zoo"] = zk["flash_attention"] + zk["flash_attention_bf16"]
     k4e["dryrun"] = dr["k4"]
+    k4e["tp_families"] = dist["tp_families"]["k4"]
     for e in (k1e, k2e, k3e, k4e):
         e["launches_by_path"] = {path: counts[e["name"]]
                                  for path, counts in by_path.items()

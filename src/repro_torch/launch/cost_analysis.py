@@ -9,13 +9,17 @@ that sees each of them (the backward's too) and counts, as the reference
 counts an HLO instruction:
 
   * ``dot_flops``: the products (mm, bmm, addmm, baddbmm, convolution,
-    the attention ops) by ``torch.utils.flop_counter``'s formulas;
+    the attention ops) by ``torch.utils.flop_counter``'s formulas, but an
+    ``mm``/``bmm`` over a contraction of one element, an outer product
+    that XLA rewrites as a multiply, counted as elementwise;
   * ``flops``: those, plus one FLOP per result element of every other op
     that computes (``hlo_analysis.py``'s elementwise rule);
   * ``bytes``: each op's operands read once and its results written once.
     Views, ``detach`` and ``empty`` move nothing (the reference's
     ``_NO_TRAFFIC``); an in-place write (``copy_``, ``index_copy_``,
     ``index_put_``) costs twice its update, as a dynamic-update-slice;
+  * the argument bytes: the step's inputs that an op reads (``jax.jit``
+    drops an unused argument, so the reference's count has only those);
   * the live bytes of the storages the step makes, whose peak is the
     step's temporary memory: each storage is followed by a weak reference
     and leaves the count when it is freed;
@@ -161,6 +165,16 @@ def tree_bytes(tree) -> int:
     return sum(seen.values())
 
 
+def _outer(packet, args) -> bool:
+    """Whether ``mm``/``bmm`` contract over one element: an outer product,
+    which XLA's algebraic simplifier turns into a multiply, an elementwise
+    op to ``hlo_analysis.py`` (a product's backward where its result has a
+    dimension of one, as a 3-operand ``einsum``'s per-element contraction
+    has)."""
+    return (packet in (_aten.mm, _aten.bmm)
+            and args[0].shape[-1] == 1)
+
+
 _OP_INFO: dict = {}
 
 
@@ -191,11 +205,13 @@ class CostCounter:
     ``c.by_axis`` (collective calls, wire and operand bytes by the mesh
     axes they span) and, with ``c.memory(out)``, the reference's three
     memory sizes.  ``arguments`` is the step's inputs (any tree of
-    tensors): their storages are its argument bytes and never counted as
-    made by the step.  ``mesh`` is the ``ProcessMesh`` whose collectives
-    are read from its ``trace`` (set for the block, restored after)."""
+    tensors): the storages of them that its ops read are its argument
+    bytes, and none is counted as made by the step; ``read`` names inputs
+    to count as read (a position the step takes as a host int).  ``mesh``
+    is the ``ProcessMesh`` whose collectives are read from its ``trace``
+    (set for the block, restored after)."""
 
-    def __init__(self, arguments=(), mesh=None):
+    def __init__(self, arguments=(), mesh=None, read=()):
         from torch.utils.flop_counter import flop_registry
 
         self._formulas = flop_registry
@@ -203,8 +219,9 @@ class CostCounter:
         self.cost = Cost()
         self.kernels: dict = {}
         self.by_axis: dict = {}
-        self.argument_bytes = tree_bytes(arguments)
-        self._arguments = {t.untyped_storage()._cdata for t in _tensors(arguments)}
+        self._arguments = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+                           for t in _tensors(arguments)}
+        self._read = {t.untyped_storage()._cdata for t in _tensors(read)}
         self._live: dict = {}  # storage id -> (bytes, weak reference)
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -232,11 +249,22 @@ class CostCounter:
 
     # -- counting ----------------------------------------------------------
 
+    @property
+    def argument_bytes(self) -> int:
+        """The bytes of the argument storages that an op of the step read
+        (or the caller named in ``read``): an argument the step never reads
+        is none of the program's, as ``jax.jit`` drops an unused argument
+        from the executable the reference measures."""
+        return sum(n for key, n in self._arguments.items() if key in self._read)
+
     def _dispatch(self, func, args, kwargs):
         info = _OP_INFO.get(func)
         if info is None:
             info = _OP_INFO[func] = _op_info(func)
         passed, fresh, pure = info
+        if not (func.is_view or func in _NO_TRAFFIC):
+            self._read.update(t.untyped_storage()._cdata
+                              for t in _operands(args, kwargs))
         if passed:
             return func(*args, **kwargs)
         key = None
@@ -286,7 +314,7 @@ class CostCounter:
         nbytes = sum(map(_nbytes, _operands(args, kwargs))) \
             + sum(map(_nbytes, results))
         packet = func.overloadpacket
-        if packet in self._formulas:
+        if packet in self._formulas and not _outer(packet, args):
             f = float(self._formulas[packet](*args, **kwargs, out_val=out))
             return f, f, nbytes
         return float(results[0].numel() if results else 0), 0.0, nbytes

@@ -22,8 +22,9 @@ device, so it traces the step itself.  For each cell it:
      resumable cache) and tears the process group down.
 
 A cell that raises is recorded with ``status: "error"`` and counts as a
-failure, as a sharding bug does in the reference: the recurrent families
-over ``model`` (ROADMAP Queue A item 3(c)) so.  Nothing here touches CUDA.
+failure, as a sharding bug does in the reference (a placement the port
+does not execute, ROADMAP Queue A item 3(c)).  Nothing here touches
+CUDA.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
@@ -129,7 +130,9 @@ def count_step(bundle, kind: str, params, batch, cache=None, opt_state=None, *,
     Prefill and decode run under ``use_mesh(mesh)`` and ``no_grad``; the
     decode step takes its position as the host int 0 (a tensor position
     refuses model ranks), the batch's position scalar still counted among
-    its arguments."""
+    its arguments (as read, as the reference's step reads it); an
+    argument the step never reads is not counted (Whisper's decode reads
+    no encoder weight), as ``jax.jit`` drops it from the reference's."""
     if kind == "train":
         step = steps_mod.build_train_step(bundle, tcfg, mesh)
         if isinstance(step, steps_mod.ParallelStep):
@@ -138,7 +141,9 @@ def count_step(bundle, kind: str, params, batch, cache=None, opt_state=None, *,
             args = (params, opt_state, step.local_batch(batch))
         else:
             args = (params, opt_state, batch)
-        with CostCounter(args, mesh) as counter:
+        # a ParallelStep cuts its rows from the global batch itself: the
+        # rows it reads are those
+        with CostCounter(args, mesh, read=args[2]) as counter:
             out = step(params, opt_state, batch)
         return counter, out
     steps_mod.check_model_axis(bundle, mesh)
@@ -154,7 +159,8 @@ def count_step(bundle, kind: str, params, batch, cache=None, opt_state=None, *,
                 out = step(params, batch)
         else:
             step = steps_mod.build_serve_step(bundle)
-            with CostCounter((params, cache, batch), mesh) as counter:
+            with CostCounter((params, cache, batch), mesh,
+                             read=batch["pos"]) as counter:
                 out = step(params, cache, {**batch, "pos": 0})
     return counter, out
 

@@ -17,9 +17,9 @@
     ``compiled_prefill``: the reference's ``jax.jit`` of both);
     ``serve_lm(graphs=False)`` runs them eagerly.  ``serve_lm(mesh=...)``
     serves over a process mesh: each rank its rows of the batch over the
-    pod and data axes and, for the transformer family, its cut of the
-    params and caches over the ``model`` axis (tensor and expert
-    parallelism, eagerly).
+    pod and data axes and its cut of the params and caches over the
+    ``model`` axis (tensor parallelism for every family, expert
+    parallelism for the MoE, eagerly).
 
 It runs on the card by default, through the hand-written kernels.
 
@@ -94,11 +94,14 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
     above (a decode step holds no collective), and the tokens are
     all-gathered to every rank at the end.  ``decode_s`` is this rank's,
     ``tok_s`` every rank's tokens over the slowest rank's decode time.
-    Rank 0 prints.  Over a ``model`` axis of more than one rank (the
-    transformer family only, ``steps.check_model_axis``) each rank draws
-    the params a leaf at a time and keeps its cut (``params``, where given,
-    are this rank's cut), its cache is its cut (``transformer.
-    cache_layout``), and the steps run eagerly: they hold collectives, so
+    Rank 0 prints.  Over a ``model`` axis of more than one rank (every
+    family: the transformer, RWKV6, Hymba and Whisper;
+    ``steps.check_model_axis``) each rank draws the params a leaf at a
+    time and keeps its cut (``params``, where given, are this rank's cut),
+    its cache is its cut (``bundle.make_cache`` under the mesh: the
+    transformer's ``cache_layout``, the other families' ``cache_axes``
+    through ``registry.rank_cache``), and the steps run eagerly: they hold
+    collectives, so
     ``graphs`` must resolve to no capture (``graphs=False`` on the card),
     else ``NotImplementedError`` (the distributed step captured is ROADMAP
     Queue A item 3(c))."""

@@ -12,10 +12,11 @@ Under a process mesh of several ranks (``launch.mesh.ProcessMesh``)
 of the global batch, the gradients are averaged over the pod and data
 axes, and with ``fsdp`` the params and AdamW moments live as this rank's
 shards (gathered over the data axes before the forward, the gradients
-cut back to them).  Over a ``model`` axis of more than one rank the
-transformer family runs tensor and expert parallel (each rank its cut of
-every leaf, ``models.transformer``); the other families and sequence
-parallelism are ROADMAP Queue A item 3(c).
+cut back to them).  Over a ``model`` axis of more than one rank every
+family runs tensor parallel, and the transformer's MoE expert parallel
+(each rank its cut of every leaf: ``models.transformer``, ``rwkv6``,
+``hymba``, ``whisper``); sequence parallelism is ROADMAP Queue A item
+3(c).
 
 The reference's launchers ``jax.jit`` three steps: the decode step and the
 cache-filling prefill (with the cache donated) and the train step (with
@@ -30,6 +31,7 @@ With ``graphs=None`` each runs eagerly.
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 
 import torch
@@ -166,13 +168,23 @@ def spans_ranks(mesh) -> bool:
 
 def check_model_axis(bundle, mesh) -> None:
     """Raise ``NotImplementedError`` where ``mesh`` has a ``model`` axis of
-    more than one rank and ``bundle`` is not of the transformer family,
-    the one whose model-axis placements execute here (3(c))."""
+    more than one rank and the run asks for what does not execute over it,
+    as far as that is known before a step runs: the reference's
+    sequence-parallel residual stream (``REPRO_SEQ_PARALLEL=1``, the
+    transformer family).  Every family runs tensor parallel over
+    ``model``, each leaf and cache cut as the reference places it: the
+    transformer's heads, FFN columns, experts and vocab; RWKV6's heads,
+    FFN columns and vocab; Hymba's heads (or head_dim), SSM channels and
+    FFN columns; Whisper's heads and FFN columns.  What a model cannot cut
+    (a head count that does not divide the ranks, a MoE dispatch group
+    that spans them) raises in the model's code (3(c))."""
     model = 1 if mesh is None else mesh.shape.get(MODEL, 1)
-    if model > 1 and bundle.family not in ("lm", "vlm"):
+    if (model > 1 and bundle.family in ("lm", "vlm")
+            and os.environ.get("REPRO_SEQ_PARALLEL") == "1"):
         raise NotImplementedError(
-            f"{bundle.name} ({bundle.family}) over model = {model}: tensor "
-            f"parallelism executes for the transformer family only; {QUEUE_3C}")
+            f"{bundle.name} over model = {model} with REPRO_SEQ_PARALLEL=1: "
+            f"the sequence-parallel residual stream does not execute here; "
+            f"{QUEUE_3C}")
 
 
 def build_train_step(bundle, tcfg: TrainConfig = TrainConfig(), mesh=None):
@@ -217,8 +229,8 @@ def build_train_step(bundle, tcfg: TrainConfig = TrainConfig(), mesh=None):
 class ParallelStep:
     """The train step on a process mesh of (pod, data, model) ranks: the
     batch split over the pod and data axes, each leaf cut over ``model``
-    as ``schema_shardings`` places it (the transformer family's tensor and
-    expert parallelism; ``check_model_axis``).
+    as ``schema_shardings`` places it (every family's tensor parallelism,
+    the MoE's expert parallelism; ``check_model_axis``).
 
     ``param_shardings`` / ``opt_shardings`` place the params and the AdamW
     state: with ``fsdp``, ``schema_shardings(..., fsdp=True)`` also cuts

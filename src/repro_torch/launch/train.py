@@ -8,8 +8,8 @@ replays one CUDA graph (``launch.steps.compiled_train_step``: the
 reference's ``jax.jit`` of the step); ``train(graphs=False)`` runs it
 eagerly.  ``train(mesh=...)`` trains over a process mesh
 (``launch.mesh.make_process_mesh``), eagerly: data-parallel (FSDP by
-default) over its pod and data axes and, for the transformer family,
-tensor and expert parallel over its ``model`` axis.  Every rank calls it,
+default) over its pod and data axes and tensor parallel (every family;
+the MoE expert parallel too) over its ``model`` axis.  Every rank calls it,
 e.g. under ``torchrun --nproc-per-node N``:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
@@ -30,6 +30,7 @@ from ..configs import ARCH_IDS, get_bundle
 from ..core.graphs import GraphSet, graph_class
 from ..devices import fp32_products, resolve_device
 from ..data import DataConfig, SyntheticTokens
+from ..models.registry import with_layers
 from ..optim import AdamWConfig, init_state
 from ..sharding import gather_tree, use_mesh
 from . import steps as steps_mod
@@ -43,12 +44,14 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
           log_every: int = 10, param_dtype: torch.dtype = torch.float32,
           device: str | torch.device = "cuda", seed: int = 0,
           on_step: Callable[[int, dict], None] | None = None,
-          graphs=True, mesh=None) -> list[float]:
+          graphs=True, mesh=None, layers: int | None = None) -> list[float]:
     """Train ``arch`` for steps ``start..steps-1`` (``start`` the latest
     checkpoint in ``ckpt_dir``, else 0) on synthetic tokens; returns the
     losses of the steps it ran.
 
-    Params are drawn from a ``torch.Generator`` seeded with ``seed``; stub
+    ``layers`` cuts the model to its first ``layers`` layers (full width,
+    less depth; Whisper's encoder and decoder alike).  Params are drawn
+    from a ``torch.Generator`` seeded with ``seed``; stub
     frontend inputs (an ``"encdec"`` bundle's frames (batch, enc_len,
     d_model), a ``"vlm"`` bundle's prefix embeddings) from a CPU one
     seeded with ``seed + 1 + step``, in the param dtype.  A checkpoint
@@ -78,6 +81,8 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
         dev = mesh.device
     with fp32_products(), use_mesh(mesh):
         bundle = get_bundle(arch, smoke=smoke)
+        if layers is not None:
+            bundle = with_layers(bundle, layers)
         tcfg = steps_mod.TrainConfig(
             opt=AdamWConfig(lr=lr), warmup=min(20, steps // 10 + 1),
             total_steps=steps, grad_compression=grad_compression,

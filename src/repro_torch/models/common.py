@@ -25,14 +25,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
-from ..sharding import (NamedSharding, PartitionSpec, active_mesh, shard_tree,
-                        use_mesh)
+from ..sharding import (NamedSharding, PartitionSpec, active_mesh, model_ranks,
+                        shard_tree, use_mesh)
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["ParamSpec", "MODEL_AXIS", "stack_schema", "spec_to_pspec",
            "schema_init", "schema_shapes", "schema_pspecs", "count_params",
            "schema_shardings",
-           "params_from_numpy", "at_least_fp32",
+           "params_from_numpy", "at_least_fp32", "embed_rows", "vocab_logits",
            "rms_norm",
            "softcap", "rope_inv_freq", "apply_rope", "make_attn_mask",
            "attention", "next_token_nll", "position_index", "checkpointed", "NEG_INF"]
@@ -203,6 +203,32 @@ def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
     gates and the scan compute in, so that a float64 model stays float64
     throughout."""
     return x if x.dtype == torch.float64 else x.float()
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor,
+               vocab: int) -> torch.Tensor:
+    """``table[tokens]``.  Over model ranks that hold ``table`` (V, d) as
+    their block of the vocab rows, each looks up its rows (zeros for the
+    other ranks' tokens) and the lookups are summed over ``model``."""
+    tp = model_ranks()
+    if tp is None or not tp.cut(table, 0, vocab):
+        return table[tokens]
+    n = table.shape[0]
+    loc = tokens.long() - tp.rank * n
+    inside = ((loc >= 0) & (loc < n))[..., None]
+    return tp.reduce(torch.where(inside, table[loc.clamp(0, n - 1)], 0.0))
+
+
+def vocab_logits(x: torch.Tensor, head: torch.Tensor, vocab: int,
+                 finish=at_least_fp32) -> torch.Tensor:
+    """``finish(x @ head)`` for a head (d, V).  Over model ranks that hold
+    its block of vocab columns, each computes that block and the blocks
+    are gathered whole: the loss that follows is the same on every rank,
+    so the gradient is this rank's slice."""
+    tp = model_ranks()
+    if tp is None or not tp.cut(head, 1, vocab):
+        return finish(x @ head)
+    return tp.gather(finish(tp.copy(x) @ head), -1)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

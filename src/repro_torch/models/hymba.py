@@ -22,6 +22,32 @@ feed the next layer's keys, so decode agrees with ``forward`` only where
 the ring holds ``window`` slots and every layer's ring holds keys written
 after that: from step ``layers * (window - 1)`` on (the SSM states still
 carry what the earlier steps left, decaying).
+
+Tensor parallelism.  Under a process mesh with a ``model`` axis of more
+than one rank each rank holds its cut of every leaf (``schema_shardings``)
+and exchanges activations, never parameters.  At full width none of the
+head counts divides 2 or 16 (25 heads and 5 KV heads of 64, 50 SSM
+heads).  Attention takes ``transformer.heads_tp``: whole heads where the
+cut is (smoke), else the projections gathered, every rank attending
+every head on K4 and keeping its row block for ``wo_attn``.  The KV ring
+is cut as the reference's ``cache_axes`` place it, by KV head where they
+divide the ranks, else on head_dim; a decode step over a head_dim-cut
+ring sums the ranks' partial ``q . k`` logits over ``model`` before its
+softmax, each rank's ``p . v`` is its head_dim block, gathered.  The SSM
+branch runs on the rank's block of the ``d_inner`` channels (its cut of
+``conv``, its row blocks of ``w_bc``, ``w_dt`` and ``wo_ssm``).  ``w_in``
+is the column-cut concatenation [u | z]: at model 2 rank 0 holds all of
+``u``, so the local products are gathered and each rank takes its block
+of both halves (trap 3).  ``B``, ``C`` and ``dt`` are row-cut products
+summed over ``model``.  The SSM state keeps the reference's cut: by head
+where the SSM heads divide the ranks (block r is whole heads), else on
+head_dim, where a rank holds channels ``h * hd + j`` for ``j`` in its
+slice of every head, not its contiguous block (trap 4): ``u`` is gathered
+and sliced so for the scan, whose output is gathered back to the block.
+The conv tail is whole on every rank (every channel's input is gathered
+anyway); where it holds the rows of every data rank (the reference
+replicates it) a decode step reads its rows and all-gathers the new rows
+over the data axes.
 """
 from __future__ import annotations
 
@@ -32,13 +58,14 @@ import torch
 import torch.nn.functional as F
 
 from ..devices import resolve_device
-from ..sharding import BATCH, shard_hint
+from ..sharding import (BATCH, QUEUE_3C, active_mesh, model_ranks,
+                        resolve_pspec, shard_hint, spec_axes)
 from ..tree import tree_map
-from .common import (ParamSpec, apply_rope, attention, make_attn_mask,
-                     next_token_nll, position_index, rms_norm, rope_inv_freq,
-                     stack_schema)
+from .common import (ParamSpec, apply_rope, attention, embed_rows,
+                     make_attn_mask, next_token_nll, position_index, rms_norm,
+                     rope_inv_freq, stack_schema, vocab_logits)
 from .linear_scan import chunked_linear_attention, linear_step
-from .transformer import attend
+from .transformer import attend, glu_ffn, heads_tp, kv_for, row_out
 
 __all__ = ["HymbaConfig", "hymba_schema", "init_state", "forward",
            "decode_step", "lm_loss", "ring_key_positions"]
@@ -140,40 +167,50 @@ def _softplus(x):
 def _ssm_branch(w, x, cfg: HymbaConfig, conv_tail, s, decode: bool,
                 remat: bool = False):
     """The SSM branch: ``(out, conv tail', s')``."""
+    tp = model_ranks()
+    if tp is not None:
+        return _ssm_branch_tp(tp, w, x, cfg, conv_tail, s, decode, remat)
     b, t, _ = x.shape
-    di, ns, hm, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.head_dim
+    di = cfg.d_inner
     u, z = (x @ w["w_in"]).chunk(2, dim=-1)
     u, conv_tail = _causal_conv(u, w["conv"], conv_tail)
     u = F.silu(u.float()).to(x.dtype)
     b_in, c_out = (u @ w["w_bc"]).chunk(2, dim=-1)  # (B, T, ns) each
     dt = _softplus((u @ w["w_dt"]).float())  # (B, T, hm)
-    a = -torch.exp(w["a_log"].float())  # (hm,) < 0
-    log_decay = dt * a
-    # linear attention with k = B, r = C, v = dt * u per head; each head's
-    # dt repeats over its hd channels in place (jnp.repeat, not a tiling)
-    kh = b_in[:, :, None, :].expand(b, t, hm, ns)
-    rh = c_out[:, :, None, :].expand(b, t, hm, ns)
-    vh = (u * dt.repeat_interleave(hd, dim=-1).to(u.dtype)).reshape(b, t, hm, hd)
-    lw = log_decay[..., None].expand(b, t, hm, ns)
-    if decode:
-        y, s = linear_step(rh[:, 0], kh[:, 0], vh[:, 0], lw[:, 0], s)
-        y = y[:, None]
-    else:
-        y, s = chunked_linear_attention(rh, kh, vh, lw, chunk=cfg.chunk,
-                                        state=s, remat=remat)
-    y = y.reshape(b, t, di) + u * w["d_skip"].repeat_interleave(hd).to(u.dtype)
+    y, s = _scan(cfg, u.reshape(b, t, cfg.ssm_heads, cfg.head_dim), b_in,
+                 c_out, dt, w["a_log"], s, decode, remat)
+    y = y.reshape(b, t, di) + u * w["d_skip"].repeat_interleave(
+        cfg.head_dim).to(u.dtype)
     y = y * F.silu(z.float()).to(y.dtype)
     return y @ w["wo_ssm"], conv_tail, s
 
 
-def _fuse_and_ffn(w, x, attn_out, ssm_out):
+def _scan(cfg: HymbaConfig, u, b_in, c_out, dt, a_log, s, decode: bool,
+          remat: bool):
+    """The selective scan as linear attention with ``k = B``, ``r = C``
+    and ``v = dt * u`` per head: ``u`` (B, T, n, dv) the channels of ``n``
+    heads (``dv`` of each), ``dt`` (B, T, n) and ``a_log`` (n,) theirs.
+    Returns ``(y (B, T, n, dv), s')``."""
+    b, t, n, _ = u.shape
+    ns = cfg.ssm_state
+    a = -torch.exp(a_log.float())  # (n,) < 0
+    # each head's dt scales its dv channels (jnp.repeat, not a tiling)
+    kh = b_in[:, :, None, :].expand(b, t, n, ns)
+    rh = c_out[:, :, None, :].expand(b, t, n, ns)
+    vh = u * dt[..., None].to(u.dtype)
+    lw = (dt * a)[..., None].expand(b, t, n, ns)
+    if decode:
+        y, s = linear_step(rh[:, 0], kh[:, 0], vh[:, 0], lw[:, 0], s)
+        return y[:, None], s
+    return chunked_linear_attention(rh, kh, vh, lw, chunk=cfg.chunk, state=s,
+                                    remat=remat)
+
+
+def _fuse_and_ffn(w, x, attn_out, ssm_out, cfg: HymbaConfig):
     fused = 0.5 * (rms_norm(attn_out, w["ln_attn_out"])
                    + rms_norm(ssm_out, w["ln_ssm_out"]))
     x = x + fused
-    h2 = rms_norm(x, w["ln_ffn"])
-    g = h2 @ w["w_gate"]
-    up = h2 @ w["w_up"]
-    return x + (F.silu(g.float()).to(up.dtype) * up) @ w["w_down"]
+    return x + glu_ffn(w, rms_norm(x, w["ln_ffn"]), cfg.d_ff, F.silu)
 
 
 def _layers(params, cfg: HymbaConfig):
@@ -182,9 +219,29 @@ def _layers(params, cfg: HymbaConfig):
     return [tree_map(lambda leaves: leaves[l], layers) for l in range(cfg.layers)]
 
 
-def _unembed(params, x):
+def _unembed(params, cfg: HymbaConfig, x):
     x = rms_norm(x, params["ln_f"])
-    return (x @ params["embed"].t()).float()
+    return vocab_logits(x, params["embed"].t(), cfg.vocab, lambda t: t.float())
+
+
+def _attn_branch(w, x, cfg: HymbaConfig, rope, pos, autograd: bool):
+    """The attention branch over the prompt (positions ``pos`` from 0)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    tp = model_ranks()
+    if tp is not None:  # this rank's heads, or every head
+        q, k, v, q_lo, kv_lo = heads_tp(tp, x, w["wq"], w["wk"], w["wv"],
+                                        cfg.n_heads, cfg.n_kv_heads, hd,
+                                        cfg.name)
+        q, k = apply_rope(q, rope, pos), apply_rope(k, rope, pos)
+        k, v = kv_for(q_lo, q.shape[2], kv_lo, k, v,
+                      cfg.n_heads // cfg.n_kv_heads)
+    else:
+        q, k, v = _qkv(w, x, cfg, rope, pos)
+    attn = attend(q, k, v, pos, pos, scale=1.0 / math.sqrt(hd),
+                  window=cfg.window, start=0, flash_chunk=cfg.flash_chunk,
+                  autograd=autograd).reshape(b, s, -1)
+    return attn @ w["wo_attn"] if tp is None else row_out(tp, attn, w["wo_attn"])
 
 
 def forward(params, cfg: HymbaConfig, tokens: torch.Tensor, *,
@@ -195,25 +252,159 @@ def forward(params, cfg: HymbaConfig, tokens: torch.Tensor, *,
     ``autograd=True`` the training route, which backward differentiates
     (each scan chunk recomputed in backward, as the reference's)."""
     b, s = tokens.shape
-    x = params["embed"][tokens]
+    x = embed_rows(params["embed"], tokens, cfg.vocab)
     x = shard_hint(x, BATCH, "data" if b == 1 else None, None)
     pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     rope = rope_inv_freq(cfg.head_dim, cfg.rope_base, x.device)
-    hd = cfg.head_dim
     tail = torch.zeros((b, cfg.conv_width - 1, cfg.d_inner), dtype=torch.bfloat16,
                        device=x.device)
-    s0 = torch.zeros((b, cfg.ssm_heads, cfg.ssm_state, hd), dtype=torch.float32,
-                     device=x.device)
+    s0 = torch.zeros((b, cfg.ssm_heads, cfg.ssm_state, cfg.head_dim),
+                     dtype=torch.float32, device=x.device)
     for w in _layers(params, cfg):
         h_in = rms_norm(x, w["ln"])
-        q, k, v = _qkv(w, h_in, cfg, rope, pos)
-        attn = attend(q, k, v, pos, pos, scale=1.0 / math.sqrt(hd),
-                      window=cfg.window, start=0, flash_chunk=cfg.flash_chunk,
-                      autograd=autograd)
-        attn_out = attn.reshape(b, s, cfg.n_heads * hd) @ w["wo_attn"]
+        attn_out = _attn_branch(w, h_in, cfg, rope, pos, autograd)
         ssm_out, _, _ = _ssm_branch(w, h_in, cfg, tail, s0, False, autograd)
-        x = _fuse_and_ffn(w, x, attn_out, ssm_out)
-    return _unembed(params, x)
+        x = _fuse_and_ffn(w, x, attn_out, ssm_out, cfg)
+    return _unembed(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the mesh's model axis
+# ---------------------------------------------------------------------------
+
+
+def _uz_blocks(tp, x, w_in, di: int):
+    """``x @ w_in`` = ``[u | z]`` from this rank's column block of
+    ``w_in``: the local products gathered (the backward summed), then
+    ``(u whole, this rank's channel block of u, its block of z)``."""
+    uz = tp.gather_partial(tp.copy(x) @ w_in, -1)
+    blk = tp.block(di)
+    return uz[..., :di], uz[..., :di][..., blk], uz[..., di:][..., blk]
+
+
+def _ssm_branch_tp(tp, w, x, cfg: HymbaConfig, conv_tail, s, decode: bool,
+                   remat: bool):
+    """``_ssm_branch`` on this rank's block of the ``d_inner`` channels,
+    the block its cut of ``conv`` and its row blocks of ``w_bc``, ``w_dt``
+    and ``wo_ssm`` hold.  ``w_in`` is the column-cut concatenation ``[u |
+    z]``: the local products are gathered and each rank takes its block of
+    both halves (trap 3; at model 2 rank 0 holds all of ``u``).  ``B``,
+    ``C`` and ``dt`` are the row-cut products summed over ``model``, every
+    head's.  The scan runs on the cut the state has (``cache_axes``):
+    where the SSM heads divide the ranks, block r is whole heads and the
+    state is cut by head; else the state is cut on head_dim, a rank holding
+    a slice of the channels of every head, so ``u`` goes in gathered and
+    sliced so, and the scan's output is gathered back to the block (trap
+    4).  The conv tail is whole on every rank (each has every channel's
+    input).  ``s`` is the state's cut, or every head's (a forward's
+    zeros)."""
+    b, t, _ = x.shape
+    di, hm, hd = cfg.d_inner, cfg.ssm_heads, cfg.head_dim
+    if di % tp.size or not all(tp.cut(w[k], dim, n) for k, dim, n in (
+            ("w_in", 1, 2 * di), ("conv", 1, di), ("w_bc", 0, di),
+            ("w_dt", 0, di), ("wo_ssm", 0, di))):
+        raise NotImplementedError(f"{cfg.name}: d_inner {di} over model = "
+                                  f"{tp.size}; {QUEUE_3C}")
+    blk = tp.block(di)
+    u_in, u, z = _uz_blocks(tp, x, w["w_in"], di)
+    u, _ = _causal_conv(u, w["conv"], conv_tail[..., blk])
+    # the next call's tail, every channel
+    tail = torch.cat([conv_tail.to(u_in.dtype), u_in], dim=1)[:, -(
+        cfg.conv_width - 1):]
+    u = F.silu(u.float()).to(x.dtype)  # (B, T, di / ranks)
+    b_in, c_out = tp.copy(tp.reduce(u @ w["w_bc"])).chunk(2, dim=-1)
+    dt = _softplus(tp.copy(tp.reduce(u @ w["w_dt"])).float())  # (B, T, hm)
+    if hm % tp.size == 0:  # block r is whole heads; so is the state's cut
+        heads = tp.block(hm)
+        if s.shape[1] == hm:
+            s = s[:, heads]
+        y, s = _scan(cfg, u.reshape(b, t, -1, hd), b_in, c_out, dt[..., heads],
+                     w["a_log"], s, decode, remat)
+        y = y.reshape(b, t, -1)
+        d_skip = w["d_skip"]
+    elif hd % tp.size == 0:  # the state's head_dim over model
+        sl = tp.block(hd)
+        if s.shape[-1] == hd:
+            s = s[..., sl]
+        uh = tp.gather_partial(u, -1).reshape(b, t, hm, hd)[..., sl]
+        y, s = _scan(cfg, uh, b_in, c_out, dt, tp.copy(w["a_log"]), s,
+                     decode, remat)
+        y = tp.gather_partial(y, -1).reshape(b, t, di)[..., blk]
+        d_skip = tp.copy(w["d_skip"])
+    else:
+        raise NotImplementedError(f"{cfg.name}: an SSM state of {hm} heads of "
+                                  f"{hd} over model = {tp.size}; {QUEUE_3C}")
+    skip = d_skip.repeat_interleave(hd)
+    y = y + u * (skip if skip.shape[0] == u.shape[-1] else skip[blk]).to(u.dtype)
+    y = y * F.silu(z.float()).to(y.dtype)
+    return tp.reduce(y @ w["wo_ssm"]), tail, s
+
+
+def _ring_attn_tp(tp, w, x, cfg: HymbaConfig, rope, q_pos, mask, ck, cv,
+                  slot) -> torch.Tensor:
+    """A decode step's attention over this rank's cut of the KV ring
+    (``cache_axes``: its KV heads where they divide the ranks, else its
+    slice of head_dim; whole where neither does), the new K/V written at
+    ``slot``.  Over a head_dim slice every rank attends every head: its
+    partial ``q . k`` logits are summed over ``model`` before the softmax,
+    and each ``p . v`` is its head_dim block, gathered."""
+    b = x.shape[0]
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v, q_lo, kv_lo = heads_tp(tp, x, w["wq"], w["wk"], w["wv"], h, hkv,
+                                    hd, cfg.name)
+    q, k = apply_rope(q, rope, q_pos), apply_rope(k, rope, q_pos)
+    scale = 1.0 / math.sqrt(hd)
+    if ck.shape[-2] < hkv:  # this rank's KV heads
+        ck.index_copy_(1, slot, k.to(ck.dtype))
+        cv.index_copy_(1, slot, v.to(cv.dtype))
+        kk, vv = kv_for(q_lo, q.shape[2], kv_lo, ck, cv, h // hkv)
+        out = attention(q, kk, vv, mask, scale=scale)
+        return row_out(tp, out.reshape(b, 1, -1), w["wo_attn"])
+    if k.shape[2] < hkv:
+        k, v = tp.gather(k, 2), tp.gather(v, 2)
+    if q.shape[2] < h:
+        q = tp.gather(q, 2)
+    if ck.shape[-1] == hd:  # the ring whole on every rank
+        ck.index_copy_(1, slot, k.to(ck.dtype))
+        cv.index_copy_(1, slot, v.to(cv.dtype))
+        out = attention(q, ck, cv, mask, scale=scale)
+    else:
+        sl = tp.block(hd)
+        ck.index_copy_(1, slot, k[..., sl].to(ck.dtype))
+        cv.index_copy_(1, slot, v[..., sl].to(cv.dtype))
+        qs = q[..., sl].reshape(b, 1, hkv, h // hkv, -1)
+        logits = tp.all_reduce(torch.einsum("bqhrd,bkhd->bhrqk", qs, ck).float())
+        probs = torch.softmax(logits * scale + mask[:, :, None], dim=-1)
+        out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(cv.dtype), cv)
+        out = tp.gather(out.reshape(b, 1, h, -1), -1)
+    return row_out(tp, out.reshape(b, 1, h * hd), w["wo_attn"])
+
+
+def _row_axes(rows: int) -> tuple:
+    """The data axes over which a batch of ``rows`` global rows is cut
+    (``resolve_pspec`` of the token batch's ``BATCH`` candidates)."""
+    mesh = active_mesh()
+    return spec_axes(resolve_pspec((rows,), (BATCH,), mesh.shape)[0])
+
+
+def _tail_rows(tail: torch.Tensor, b: int) -> torch.Tensor:
+    """This pass's ``b`` rows of a conv-tail leaf: the leaf, or, where it
+    holds the rows of every data rank (the reference's ``cache_axes``
+    replicate it, as the dry run and a model-axis cache lay it out), this
+    rank's block of them."""
+    if tail.shape[0] == b:
+        return tail
+    i = active_mesh().group_rank(_row_axes(tail.shape[0]))
+    return tail[i * b:(i + 1) * b]
+
+
+def _keep_tail(leaf: torch.Tensor, new: torch.Tensor) -> None:
+    """Write ``new`` into the conv-tail ``leaf``; a leaf of every data
+    rank's rows takes every rank's new rows (all-gathered over the data
+    axes that cut the batch), so it stays the same on every rank."""
+    if leaf.shape[0] != new.shape[0]:
+        new = active_mesh().all_gather(new, _row_axes(leaf.shape[0]), 0)
+    leaf.copy_(new)
 
 
 def init_state(cfg: HymbaConfig, batch: int, max_len: int,
@@ -253,7 +444,7 @@ def decode_step(params, cfg: HymbaConfig, state: dict, tokens: torch.Tensor,
     ring slot ``pos % kv_len``.  Returns ``(logits (B, 1, V), state)``,
     the state written in place in its own dtypes."""
     b = tokens.shape[0]
-    x = params["embed"][tokens]
+    x = embed_rows(params["embed"], tokens, cfg.vocab)
     dev = x.device
     h, hd = cfg.n_heads, cfg.head_dim
     kv_len = state["kv"]["k"].shape[2]
@@ -263,20 +454,26 @@ def decode_step(params, cfg: HymbaConfig, state: dict, tokens: torch.Tensor,
     k_pos = ring_key_positions(at, kv_len, dev).expand(b, kv_len)
     mask = make_attn_mask(q_pos, k_pos, cfg.window)
     rope = rope_inv_freq(hd, cfg.rope_base, dev)
+    tp = model_ranks()
     for l, w in enumerate(_layers(params, cfg)):
         h_in = rms_norm(x, w["ln"])
-        q, k, v = _qkv(w, h_in, cfg, rope, q_pos)
         ck, cv = state["kv"]["k"][l], state["kv"]["v"][l]
-        ck.index_copy_(1, slot, k.to(ck.dtype))
-        cv.index_copy_(1, slot, v.to(cv.dtype))
-        attn = attention(q, ck, cv, mask, scale=1.0 / math.sqrt(hd))
-        attn_out = attn.reshape(b, 1, h * hd) @ w["wo_attn"]
-        ssm_out, tail, s = _ssm_branch(w, h_in, cfg, state["conv"][l],
+        if tp is not None:
+            attn_out = _ring_attn_tp(tp, w, h_in, cfg, rope, q_pos, mask, ck,
+                                     cv, slot)
+        else:
+            q, k, v = _qkv(w, h_in, cfg, rope, q_pos)
+            ck.index_copy_(1, slot, k.to(ck.dtype))
+            cv.index_copy_(1, slot, v.to(cv.dtype))
+            attn = attention(q, ck, cv, mask, scale=1.0 / math.sqrt(hd))
+            attn_out = attn.reshape(b, 1, h * hd) @ w["wo_attn"]
+        ssm_out, tail, s = _ssm_branch(w, h_in, cfg,
+                                       _tail_rows(state["conv"][l], b),
                                        state["s"][l], True)
-        state["conv"][l] = tail
+        _keep_tail(state["conv"][l], tail)
         state["s"][l] = s
-        x = _fuse_and_ffn(w, x, attn_out, ssm_out)
-    return _unembed(params, x), state
+        x = _fuse_and_ffn(w, x, attn_out, ssm_out, cfg)
+    return _unembed(params, cfg, x), state
 
 
 def lm_loss(params, cfg: HymbaConfig, tokens: torch.Tensor,

@@ -51,7 +51,9 @@ def _chunk_step(s, rb, kb, vb, lpb, mask, bonus_u, out_dtype):
     a = torch.einsum("bthk,bshk,btshk->bths", rf, kf, pair)
     y_intra = torch.einsum("bths,bshv->bthv", a, vf)
     if bonus_u is not None:
-        diag = torch.einsum("bthk,hk,bthk->bth", rf, bonus_u, kf)
+        # r . u . k as a product over k with u, a head a batch, as the
+        # reference's einsum contracts it (its u-gradient a product too)
+        diag = torch.einsum("bthk,hk->bth", rf * kf, bonus_u)
         y_intra = y_intra + diag[..., None] * vf
     # S' = S * P_last + sum_tau exp(lp_last - lp_tau) k_tau v_tau
     k_dec = kf * torch.exp(lp[:, -1][:, None] - lp)

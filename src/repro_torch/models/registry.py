@@ -15,6 +15,7 @@ cache's leaves (``cache_axes`` / ``batch_axes``, resolved on a mesh by
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -23,12 +24,15 @@ from . import hymba as hymba_mod
 from . import rwkv6 as rwkv_mod
 from . import transformer as lm
 from . import whisper as whisper_mod
-from ..sharding import BATCH
+from ..devices import resolve_device
+from ..sharding import (BATCH, QUEUE_3C, batch_ranks, model_ranks,
+                        resolve_pspec, spec_axes)
 from ..tree import tree_map
 from .common import schema_init, schema_shapes
 
 __all__ = ["ModelBundle", "make_lm_bundle", "make_rwkv_bundle",
-           "make_hymba_bundle", "make_whisper_bundle", "with_layers"]
+           "make_hymba_bundle", "make_whisper_bundle", "with_layers",
+           "rank_cache"]
 
 
 @dataclasses.dataclass
@@ -103,6 +107,32 @@ def _kv_cache_axes(tree: dict) -> dict:
     return tree_map(one, tree)
 
 
+def rank_cache(make: Callable, cache_axes: Callable) -> Callable:
+    """A bundle's ``make_cache`` from its family's ``make(b, s, dtype,
+    device)`` (the whole cache of ``b`` rows) and ``cache_axes``: as
+    ``make`` with no model ranks; over model ranks, this rank's cut of the
+    cache of every data rank's rows (``b`` this rank's), each leaf cut as
+    ``cache_axes`` places it on the mesh (``steps.cache_pspecs``): zeros
+    of the cut's shape, a leaf the reference replicates whole."""
+    def make_cache(b, s, dtype=torch.float32, device="cuda"):
+        tp = model_ranks()
+        if tp is None:
+            return make(b, s, dtype, device)
+        full = make(b * batch_ranks(), s, dtype, "meta")
+        dev = resolve_device(device)
+        sizes = tp.mesh.shape
+
+        def cut(leaf, axes):
+            spec = resolve_pspec(leaf.shape, axes, sizes)
+            shape = [n // math.prod(sizes[a] for a in spec_axes(e))
+                     for n, e in zip(leaf.shape, spec)]
+            return torch.zeros(shape, dtype=leaf.dtype, device=dev)
+
+        return tree_map(cut, full, cache_axes(full))
+
+    return make_cache
+
+
 def make_lm_bundle(cfg: lm.LMConfig, family: str = "lm") -> ModelBundle:
     """The transformer (dense GQA, MLA, MoE) as a bundle.  A ``"vlm"`` batch may carry
     ``"prefix"`` (B, P, d_model) embeddings ahead of its tokens (the
@@ -139,9 +169,13 @@ def make_lm_bundle(cfg: lm.LMConfig, family: str = "lm") -> ModelBundle:
 
 def make_rwkv_bundle(cfg: rwkv_mod.RwkvConfig) -> ModelBundle:
     """RWKV6: an O(1) recurrent state for its cache."""
-    def make_cache(b, s, dtype=torch.float32, device="cuda"):
+    def make(b, s, dtype=torch.float32, device="cuda"):
         del s  # the state does not grow with the sequence
         return rwkv_mod.init_state(cfg, b, dtype, device)
+
+    def cache_axes(tree):
+        return tree_map(lambda x: (None, BATCH if x.shape[1] > 1 else None,
+                                   "model") + (None,) * (x.ndim - 3), tree)
 
     return ModelBundle(
         name=cfg.name, family="ssm", cfg=cfg, schema=rwkv_mod.rwkv_schema(cfg),
@@ -150,17 +184,14 @@ def make_rwkv_bundle(cfg: rwkv_mod.RwkvConfig) -> ModelBundle:
         prefill_fn=lambda p, b: rwkv_mod.forward(p, cfg, b["tokens"]),
         decode_fn=lambda p, c, b: rwkv_mod.decode_step(p, cfg, c, b["tokens"],
                                                        b["pos"]),
-        make_cache=make_cache,
-        cache_axes=lambda tree: tree_map(
-            lambda x: (None, BATCH if x.shape[1] > 1 else None, "model")
-            + (None,) * (x.ndim - 3), tree),
+        make_cache=rank_cache(make, cache_axes), cache_axes=cache_axes,
         batch_axes=_token_batch_axes,
     )
 
 
 def make_hymba_bundle(cfg: hymba_mod.HymbaConfig) -> ModelBundle:
     """Hymba: a windowed KV ring plus the SSM state for its cache."""
-    def make_cache(b, s, dtype=torch.float32, device="cuda"):
+    def make(b, s, dtype=torch.float32, device="cuda"):
         return hymba_mod.init_state(cfg, b, s, dtype, device)
 
     def cache_axes(tree):
@@ -182,7 +213,7 @@ def make_hymba_bundle(cfg: hymba_mod.HymbaConfig) -> ModelBundle:
         prefill_fn=lambda p, b: hymba_mod.forward(p, cfg, b["tokens"]),
         decode_fn=lambda p, c, b: hymba_mod.decode_step(p, cfg, c, b["tokens"],
                                                         b["pos"]),
-        make_cache=make_cache, cache_axes=cache_axes,
+        make_cache=rank_cache(make, cache_axes), cache_axes=cache_axes,
         batch_axes=_token_batch_axes,
     )
 
@@ -202,17 +233,26 @@ def make_whisper_bundle(cfg: whisper_mod.WhisperConfig) -> ModelBundle:
         return whisper_mod.decode_step(params, cfg, cache, batch["tokens"],
                                        batch["pos"])
 
+    def cache_axes(tree):
+        return tree_map(lambda x: (None, BATCH if x.shape[1] > 1 else None,
+                                   "model", None, None), tree)
+
+    cut = rank_cache(lambda b, s, dtype, device: whisper_mod.init_cache(
+        cfg, b, s, dtype, device), cache_axes)
+
     def make_cache(b, s, dtype=torch.float32, device="cuda"):
-        return whisper_mod.init_cache(cfg, b, s, dtype, device)
+        tp = model_ranks()
+        if tp is not None and s % tp.size:  # decode_step reads it as cut
+            raise NotImplementedError(f"{cfg.name}: a self cache of {s} "
+                                      f"positions over model = {tp.size}; "
+                                      f"{QUEUE_3C}")
+        return cut(b, s, dtype, device)
 
     return ModelBundle(
         name=cfg.name, family="encdec", cfg=cfg,
         schema=whisper_mod.whisper_schema(cfg), sub_quadratic=False,
         has_decoder=True, loss_fn=loss_fn, prefill_fn=prefill_fn,
-        decode_fn=decode_fn, make_cache=make_cache,
-        cache_axes=lambda tree: tree_map(
-            lambda x: (None, BATCH if x.shape[1] > 1 else None, "model", None,
-                       None), tree),
+        decode_fn=decode_fn, make_cache=make_cache, cache_axes=cache_axes,
         batch_axes=_token_batch_axes,
     )
 

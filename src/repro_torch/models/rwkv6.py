@@ -12,6 +12,32 @@ tied.
 path: the reference computes it with ``jnp`` einsums, not in Pallas.
 Layers are a Python loop over the stacked ``layers`` leaves, so the
 reference's params carry across unchanged.
+
+Tensor parallelism.  Under a process mesh with a ``model`` axis of more
+than one rank (``sharding.model_ranks``) each rank holds its cut of every
+leaf, as ``schema_shardings`` places it, and computes on it; the layers
+exchange activations, never parameters (``copy`` and ``reduce`` are
+Megatron-LM's *f* and *g*, as in ``models.transformer``).  The heads must
+divide the ranks (32 at full width over 2 or 16; else
+``NotImplementedError``, ROADMAP Queue A item 3(c)).  The time mix: ``wr``,
+``wk``, ``wv``, ``wg`` are column cuts in whole heads, ``u`` and
+``ln_head`` cut by head, the scan runs on the rank's heads and the row-cut
+``wo`` is summed.  The ranks' work diverges at each column-cut product,
+so each mixed input goes through ``copy`` there (a ``copy`` on ``x``
+before the mix would leave the whole ``mix_*`` gradients one rank's
+columns); the decay's LoRA, ``w_lora_b`` and ``w0`` are whole and each
+rank slices its heads' columns of them, so its hidden and those two
+leaves go through ``copy`` before the slice (trap 2).  The channel mix:
+``wk_ffn`` column-cut, ``wv_ffn`` row-cut, and ``wr_ffn`` column-cut
+too, so the sigmoid gate ``r`` is this rank's column block while ``k @
+wv_ffn`` is a partial sum over ``ff``: the partial sum is reduced first,
+its block times the rank's ``r``, and the blocks gathered (trap 1).  The
+vocab is cut (65,536 rows): a lookup of this rank's rows summed, the tied
+head's logits gathered.  The state keeps the reference's ``cache_axes``:
+the scan state ``s`` (L, B, H, hd, hd) cut by head, the shift carries
+``xa``/``xf`` (L, B, d) along d, so a decode step gathers each layer's
+(B, d) carries (the one cache content that crosses ``model``) and keeps
+its block of the new ones.
 """
 from __future__ import annotations
 
@@ -21,10 +47,10 @@ import torch
 import torch.nn.functional as F
 
 from ..devices import resolve_device
-from ..sharding import BATCH, shard_hint
+from ..sharding import BATCH, QUEUE_3C, model_ranks, shard_hint
 from ..tree import tree_map
-from .common import (ParamSpec, at_least_fp32, checkpointed, next_token_nll,
-                     rms_norm, stack_schema)
+from .common import (ParamSpec, at_least_fp32, checkpointed, embed_rows,
+                     next_token_nll, rms_norm, stack_schema, vocab_logits)
 from .linear_scan import chunked_linear_attention, linear_step
 
 __all__ = ["RwkvConfig", "rwkv_schema", "init_state", "forward", "decode_step",
@@ -103,6 +129,9 @@ def _time_mix(w, x, cfg: RwkvConfig, x_prev, state, decode: bool,
               remat: bool):
     """The time mix of the normed input ``x``: ``(out, the shift carry
     x[:, -1], the scan state)``."""
+    tp = model_ranks()
+    if tp is not None:
+        return _time_mix_tp(tp, w, x, cfg, x_prev, state, decode, remat)
     b, t = x.shape[:2]
     h, hd = cfg.n_heads, cfg.head_dim
     xs = x_prev[:, None] if decode else _shift(x, x_prev)
@@ -112,10 +141,27 @@ def _time_mix(w, x, cfg: RwkvConfig, x_prev, state, decode: bool,
     g = _mix(x, xs, w["mix_g"]) @ w["wg"]
     xw = _mix(x, xs, w["mix_w"])
     dd = torch.tanh(xw @ w["w_lora_a"]) @ w["w_lora_b"]
-    log_w = -torch.exp(torch.clamp(at_least_fp32(w["w0"]) + at_least_fp32(dd),
-                                   -8.0, 4.0))
-    rh, kh, vh, lw = (a.reshape(b, t, h, hd) for a in (r, k, v, log_w))
-    u = at_least_fp32(w["u"])
+    y, state = _heads_scan(w, cfg, r, k, v, _log_decay(w["w0"], dd), state,
+                           w["u"], w["ln_head"], decode, remat)
+    y = y * F.silu(at_least_fp32(g)).to(y.dtype)
+    return y @ w["wo"], x[:, -1], state
+
+
+def _log_decay(w0, dd):
+    return -torch.exp(torch.clamp(at_least_fp32(w0) + at_least_fp32(dd),
+                                  -8.0, 4.0))
+
+
+def _heads_scan(w, cfg: RwkvConfig, r, k, v, log_w, state, u, ln_head,
+                decode: bool, remat: bool):
+    """The scan over the heads of ``r``/``k``/``v``/``log_w`` (B, T, n *
+    hd), their bonus ``u`` and norm gain ``ln_head`` (n, hd): ``(y (B, T,
+    n * hd) normed per head, the scan state)``."""
+    b, t = r.shape[:2]
+    hd = cfg.head_dim
+    n = r.shape[-1] // hd
+    rh, kh, vh, lw = (a.reshape(b, t, n, hd) for a in (r, k, v, log_w))
+    u = at_least_fp32(u)
     if decode:
         y, state = linear_step(rh[:, 0], kh[:, 0], vh[:, 0], lw[:, 0], state,
                                bonus_u=u)
@@ -124,12 +170,14 @@ def _time_mix(w, x, cfg: RwkvConfig, x_prev, state, decode: bool,
         y, state = chunked_linear_attention(rh, kh, vh, lw, bonus_u=u,
                                             chunk=cfg.chunk, state=state,
                                             remat=remat)
-    y = rms_norm(y, w["ln_head"])  # per head, with the (h, hd) gain
-    y = y.reshape(b, t, h * hd) * F.silu(at_least_fp32(g)).to(y.dtype)
-    return y @ w["wo"], x[:, -1], state
+    y = rms_norm(y, ln_head)  # per head, with the (n, hd) gain
+    return y.reshape(b, t, n * hd), state
 
 
 def _channel_mix(w, x, x_prev, decode: bool):
+    tp = model_ranks()
+    if tp is not None:
+        return _channel_mix_tp(tp, w, x, x_prev, decode)
     xs = x_prev[:, None] if decode else _shift(x, x_prev)
     k = _mix(x, xs, w["mix_fk"]) @ w["wk_ffn"]
     k = torch.square(torch.relu(at_least_fp32(k))).to(x.dtype)
@@ -146,6 +194,81 @@ def _layer(w, x, cfg: RwkvConfig, xa, xf, s, decode: bool, remat: bool):
     h2 = rms_norm(x, w["ln_ffn"])
     ffn, xf = _channel_mix(w, h2, xf, decode)
     return x + ffn, xa, xf, s
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the mesh's model axis
+# ---------------------------------------------------------------------------
+
+
+def _carry_tp(tp, x_prev, d: int):
+    """The whole shift carry (B, d): gathered where this rank holds its
+    block of the columns (a decode step's state), else as it is."""
+    return tp.gather(x_prev, -1) if x_prev.shape[-1] != d else x_prev
+
+
+def _carry_out(tp, x, x_prev, d: int):
+    """The carry to keep: ``x[:, -1]``, this rank's block of it where the
+    state holds blocks."""
+    last = x[:, -1]
+    return last[:, tp.block(d)] if x_prev.shape[-1] != d else last
+
+
+def _check_heads(tp, w, cfg: RwkvConfig):
+    h = cfg.n_heads
+    if h % tp.size or not (tp.cut(w["wr"], 1, cfg.d_model)
+                           and tp.cut(w["u"], 0, h)):
+        raise NotImplementedError(f"{cfg.name}: {h} heads over model = "
+                                  f"{tp.size}; {QUEUE_3C}")
+
+
+def _time_mix_tp(tp, w, x, cfg: RwkvConfig, x_prev, state, decode: bool,
+                 remat: bool):
+    """``_time_mix`` on this rank's heads: column-cut ``wr``/``wk``/``wv``/
+    ``wg`` (each mixed input through ``copy`` first, so that the whole
+    ``mix_*`` gradients sum the ranks' columns), its block of the decay
+    (the LoRA's hidden, ``w_lora_b`` and ``w0`` through ``copy``, then
+    sliced), ``u`` and ``ln_head`` cut by head, the scan on its heads, and
+    the row-cut ``wo`` summed over ``model``.  ``state`` is this rank's
+    heads, or every head (a forward's zeros)."""
+    _check_heads(tp, w, cfg)
+    d = cfg.d_model
+    cols = tp.block(d)
+    xs = (_carry_tp(tp, x_prev, d)[:, None] if decode
+          else _shift(x, _carry_tp(tp, x_prev, d)))
+    r, k, v, g = (tp.copy(_mix(x, xs, w[m])) @ w[p] for m, p in (
+        ("mix_r", "wr"), ("mix_k", "wk"), ("mix_v", "wv"), ("mix_g", "wg")))
+    hid = tp.copy(torch.tanh(_mix(x, xs, w["mix_w"]) @ w["w_lora_a"]))
+    dd = hid @ tp.copy(w["w_lora_b"])[:, cols]
+    log_w = _log_decay(tp.copy(w["w0"])[cols], dd)
+    if state.shape[1] == cfg.n_heads:  # every head: this rank's
+        state = state[:, tp.block(cfg.n_heads)]
+    y, state = _heads_scan(w, cfg, r, k, v, log_w, state, w["u"],
+                           w["ln_head"], decode, remat)
+    y = y * F.silu(at_least_fp32(g)).to(y.dtype)
+    return tp.reduce(y @ w["wo"]), _carry_out(tp, x, x_prev, d), state
+
+
+def _channel_mix_tp(tp, w, x, x_prev, decode: bool):
+    """``_channel_mix`` on this rank's columns: ``wk_ffn`` column-cut,
+    ``wv_ffn`` row-cut (its product a partial sum over ``ff``, summed over
+    ``model`` first), and the sigmoid gate from the column-cut ``wr_ffn``,
+    this rank's block of ``r``: the summed product's same block times it,
+    the blocks gathered (trap 1: never the partial sum times ``r``)."""
+    d = x.shape[-1]
+    if not tp.cut(w["wr_ffn"], 1, d):
+        raise NotImplementedError(f"wr_ffn whole over model = {tp.size}; "
+                                  f"{QUEUE_3C}")
+    cols = tp.block(d)
+    prev = _carry_tp(tp, x_prev, d)
+    xs = prev[:, None] if decode else _shift(x, prev)
+    k = tp.copy(_mix(x, xs, w["mix_fk"])) @ w["wk_ffn"]
+    k = torch.square(torch.relu(at_least_fp32(k))).to(x.dtype)
+    r = torch.sigmoid(at_least_fp32(tp.copy(_mix(x, xs, w["mix_fr"]))
+                                    @ w["wr_ffn"]))
+    kv = tp.copy(tp.reduce(k @ w["wv_ffn"]))
+    out = tp.gather(kv[..., cols] * r.to(x.dtype), -1)
+    return out, _carry_out(tp, x, x_prev, d)
 
 
 def init_state(cfg: RwkvConfig, batch: int, dtype: torch.dtype = torch.bfloat16,
@@ -170,7 +293,7 @@ def _run(params, cfg: RwkvConfig, tokens, state, decode: bool,
     each layer, and each chunk of its scan, under
     ``torch.utils.checkpoint`` (the reference's per-layer and per-chunk
     remat)."""
-    x = params["embed"][tokens]
+    x = embed_rows(params["embed"], tokens, cfg.vocab)
     x = shard_hint(x, BATCH, "data" if x.shape[0] == 1 else None, None)
     layers = tree_map(lambda leaf: leaf.unbind(0), params["layers"])
     new = []
@@ -184,7 +307,7 @@ def _run(params, cfg: RwkvConfig, tokens, state, decode: bool,
             x, *st = _layer(*args)
         new.append(st)
     x = rms_norm(x, params["ln_f"])
-    return at_least_fp32(x @ params["embed"].t()), new
+    return vocab_logits(x, params["embed"].t(), cfg.vocab), new
 
 
 def forward(params, cfg: RwkvConfig, tokens: torch.Tensor, *,

@@ -77,14 +77,16 @@ from ..sharding import BATCH, QUEUE_3C, model_ranks, shard_hint
 from ..tree import tree_leaves
 from ..tree import tree_map as map_params
 from .common import (NEG_INF, ParamSpec, apply_rope, attention, checkpointed,
-                     make_attn_mask, next_token_nll, params_from_numpy, rms_norm,
-                     rope_inv_freq, schema_init, softcap, stack_schema)
+                     embed_rows, make_attn_mask, next_token_nll,
+                     params_from_numpy, rms_norm, rope_inv_freq, schema_init,
+                     softcap, stack_schema, vocab_logits)
 from .moe import MoEConfig, moe_ffn, moe_schema
 
 __all__ = ["LMConfig", "MLAConfig", "MoEConfig", "lm_schema", "init_lm",
            "lm_params_from_numpy",
            "map_params", "forward", "lm_loss", "init_cache", "decode_step",
-           "prefill", "attend_route", "attend", "cache_layout"]
+           "prefill", "attend_route", "attend", "cache_layout", "heads_tp",
+           "row_out", "glu_ffn", "kv_for", "write_block", "merged_decode"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -505,7 +507,7 @@ def _own(tp, n: int) -> tuple[int, int]:
     return tp.rank * (n // tp.size), n // tp.size
 
 
-def _kv_for(q_lo: int, nq: int, kv_lo: int, k, v, rep: int):
+def kv_for(q_lo: int, nq: int, kv_lo: int, k, v, rep: int):
     """The K/V heads that query heads ``q_lo..q_lo+nq-1`` read (GQA: head
     ``h`` reads KV head ``h // rep``) out of ``k``/``v`` (B, S, n, D),
     which hold KV heads from ``kv_lo``: a slice where the block is whole
@@ -518,8 +520,8 @@ def _kv_for(q_lo: int, nq: int, kv_lo: int, k, v, rep: int):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
-def _write_block(leaf: torch.Tensor, new: torch.Tensor, lo: int,
-                 start: int) -> None:
+def write_block(leaf: torch.Tensor, new: torch.Tensor, lo: int,
+                start: int) -> None:
     """Write ``new`` (B, S, ...), positions ``start..start+S-1``, into
     ``leaf``, this rank's block of positions ``lo..lo+Sl-1``: the ones
     that fall in it (the others are other ranks')."""
@@ -529,22 +531,25 @@ def _write_block(leaf: torch.Tensor, new: torch.Tensor, lo: int,
         leaf[:, a - lo:e - lo] = new[:, a - start:e - start].to(leaf.dtype)
 
 
-def _merged_decode(tp, q, kc, vc, q_pos, lo: int, scale: float, window,
-                   attn_softcap) -> torch.Tensor:
+def merged_decode(tp, q, kc, vc, q_pos, lo: int, scale: float, window,
+                  attn_softcap, causal: bool = True) -> torch.Tensor:
     """One query position's attention over a sequence cut over ``model``:
     ``q`` (B, 1, H, D) every head, ``kc``/``vc`` (B, Sl, Hkv, D[v]) this
-    rank's positions ``lo..lo+Sl-1``.  Each rank's partial softmax is
-    merged by log-sum-exp: the maximum, then the rescaled sums and outputs
-    all-reduced.  Returns (B, 1, H, Dv), the same on every rank."""
+    rank's positions ``lo..lo+Sl-1`` (causal at ``q_pos``, or, without
+    ``causal``, every position: Whisper's cross-attention).  Each rank's
+    partial softmax is merged by log-sum-exp: the maximum, then the
+    rescaled sums and outputs all-reduced.  Returns (B, 1, H, Dv), the
+    same on every rank."""
     b, sq, hh, d = q.shape
     sl, hkv = kc.shape[1], kc.shape[2]
     rep = hh // hkv
-    k_pos = torch.arange(lo, lo + sl, device=q.device).expand(b, sl)
     logits = torch.einsum("bqhrd,bkhd->bhrqk", q.reshape(b, sq, hkv, rep, d),
                           kc).float() * scale
     if attn_softcap is not None:
         logits = softcap(logits, attn_softcap)
-    logits = logits + make_attn_mask(q_pos, k_pos, window)[:, :, None]
+    if causal:
+        k_pos = torch.arange(lo, lo + sl, device=q.device).expand(b, sl)
+        logits = logits + make_attn_mask(q_pos, k_pos, window)[:, :, None]
     mx = tp.all_reduce(logits.amax(dim=-1), "max")
     p = torch.exp(logits - mx[..., None])
     acc = torch.einsum("bhrqk,bkhd->bqhrd", p.to(vc.dtype), vc).float()
@@ -554,20 +559,21 @@ def _merged_decode(tp, q, kc, vc, q_pos, lo: int, scale: float, window,
     return out.reshape(b, sq, hh, -1).to(q.dtype)
 
 
-def _gqa_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
-                 start, autograd):
-    """``_gqa_attn`` on this rank's cut of ``wq``/``wk``/``wv`` (columns)
-    and ``wo`` (rows): the attention output summed over ``model``."""
+def heads_tp(tp, x, wq, wk, wv, h: int, hkv: int, hd: int, what: str):
+    """The query and KV heads this rank computes from a column-cut ``wq``
+    (and ``wk``/``wv``, cut or whole): ``(q (B, S, nq, hd), k, v (B, S,
+    nkv, hd), q_lo, kv_lo)``, its own block of whole heads, or every head
+    (the projection gathered, the backward summed) where a block is not
+    whole heads.  ``what`` names the model in a refusal."""
     b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if not (tp.cut(w["wq"], 1, h * hd) and tp.cut(w["wo"], 0, h * hd)):
-        raise _refusal(cfg, "attention with wq and wo whole", tp)
+    if not tp.cut(wq, 1, h * hd):
+        raise NotImplementedError(f"{what}: attention with wq whole over "
+                                  f"model = {tp.size}; {QUEUE_3C}")
     xf = tp.copy(x)
-    wk, wv = w["wk"], w["wv"]
     kv_cut = tp.cut(wk, 1, hkv * hd)
     if not kv_cut:  # whole, but each rank's heads take their part
         wk, wv = tp.copy(wk), tp.copy(wv)
-    q, k, v = xf @ w["wq"], xf @ wk, xf @ wv
+    q, k, v = xf @ wq, xf @ wk, xf @ wv
     # whole heads: this rank's block; a cut inside a head: every head
     q_lo, nq = _own(tp, h)
     if nq == h:
@@ -575,15 +581,36 @@ def _gqa_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
     kv_lo, nkv = _own(tp, hkv) if kv_cut else (0, hkv)
     if kv_cut and nkv == hkv:
         k, v = tp.gather_partial(k, -1), tp.gather_partial(v, -1)
-    q = q.reshape(b, s, nq, hd)
-    k = k.reshape(b, s, nkv, hd)
-    v = v.reshape(b, s, nkv, hd)
+    return (q.reshape(b, s, nq, hd), k.reshape(b, s, nkv, hd),
+            v.reshape(b, s, nkv, hd), q_lo, kv_lo)
+
+
+def row_out(tp, out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``out`` (B, S, n) through a row-cut ``wo`` summed over ``model``:
+    where ``out`` holds every head (``n`` all of ``wo``'s rows), this
+    rank's row block of it first."""
+    c = wo.shape[0]  # this rank's rows
+    if out.shape[-1] != c:
+        out = out[..., tp.rank * c:(tp.rank + 1) * c]
+    return tp.reduce(out @ wo)
+
+
+def _gqa_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
+                 start, autograd):
+    """``_gqa_attn`` on this rank's cut of ``wq``/``wk``/``wv`` (columns)
+    and ``wo`` (rows): the attention output summed over ``model``."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if not tp.cut(w["wo"], 0, h * hd):
+        raise _refusal(cfg, "attention with wo whole", tp)
+    q, k, v, q_lo, kv_lo = heads_tp(tp, x, w["wq"], w["wk"], w["wv"], h, hkv,
+                                    hd, cfg.name)
+    nq, nkv = q.shape[2], k.shape[2]
     if cfg.qk_norm:
         q = rms_norm(q, tp.copy(w["q_ln"]))
         k = rms_norm(k, tp.copy(w["k_ln"]))
     q = apply_rope(q, rope, q_pos)
     k = apply_rope(k, rope, q_pos)
-    c = h * hd // tp.size  # wo's rows a rank
     if cache is not None and cache_layout(cfg) == "heads":
         if nkv == hkv:
             raise _refusal(cfg, f"a head-cut cache of {hkv} KV heads", tp)
@@ -593,21 +620,18 @@ def _gqa_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
             k, v = tp.gather(k, 2), tp.gather(v, 2)
             kv_lo, nkv = 0, hkv
         lo = tp.rank * cache["k"].shape[1]
-        _write_block(cache["k"], k, lo, start)
-        _write_block(cache["v"], v, lo, start)
+        write_block(cache["k"], k, lo, start)
+        write_block(cache["v"], v, lo, start)
         if s == 1:  # decode: every head over this rank's positions
             qa = q if nq == h else tp.gather(q, 2)
-            out = _merged_decode(tp, qa, cache["k"], cache["v"], q_pos, lo,
-                                 1.0 / math.sqrt(hd), window, cfg.attn_softcap)
-            out = out.reshape(b, 1, h * hd)[..., tp.rank * c:(tp.rank + 1) * c]
-            return tp.reduce(out @ w["wo"])
+            out = merged_decode(tp, qa, cache["k"], cache["v"], q_pos, lo,
+                                1.0 / math.sqrt(hd), window, cfg.attn_softcap)
+            return row_out(tp, out.reshape(b, 1, h * hd), w["wo"])
         k_pos = q_pos  # a prefill from 0 reads its own new positions
-    kk, vv = _kv_for(q_lo, nq, kv_lo, k, v, h // hkv)
+    kk, vv = kv_for(q_lo, nq, kv_lo, k, v, h // hkv)
     out = _attend(q, kk, vv, q_pos, k_pos, cfg, window, start=start,
-                  autograd=autograd).reshape(b, s, nq * hd)
-    if nq == h:
-        out = out[..., tp.rank * c:(tp.rank + 1) * c]
-    return tp.reduce(out @ w["wo"])
+                  autograd=autograd)
+    return row_out(tp, out.reshape(b, s, nq * hd), w["wo"])
 
 
 def _mla_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
@@ -638,8 +662,8 @@ def _mla_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
     scale = 1.0 / math.sqrt(qh)
     if cache is not None:
         lo = tp.rank * cache["ckv"].shape[1]
-        _write_block(cache["ckv"], ckv, lo, start)
-        _write_block(cache["krope"], krope, lo, start)
+        write_block(cache["ckv"], ckv, lo, start)
+        write_block(cache["krope"], krope, lo, start)
         if s == 1:
             return _mla_decode_tp(tp, w, cfg, q_nope, q_rope, cache, q_pos, lo,
                                   scale, window)
@@ -671,8 +695,8 @@ def _mla_decode_tp(tp, w, cfg: LMConfig, q_nope, q_rope, cache, q_pos, lo: int,
     q_lat = torch.einsum("bshn,chn->bshc", q_nope, w_uk)
     qa = tp.gather(torch.cat([q_lat, q_rope], dim=-1), 2)
     keys = torch.cat([cache["ckv"], cache["krope"]], dim=-1)[:, :, None]
-    lat = _merged_decode(tp, qa, keys, cache["ckv"][:, :, None], q_pos, lo,
-                         scale, window, cfg.attn_softcap)
+    lat = merged_decode(tp, qa, keys, cache["ckv"][:, :, None], q_pos, lo,
+                        scale, window, cfg.attn_softcap)
     own = lat[:, :, tp.rank * nh:(tp.rank + 1) * nh]
     out = torch.einsum("bshc,chv->bshv", own, w_uv)
     return tp.reduce(out.reshape(b, 1, nh * m.v_dim) @ w["wo"])
@@ -683,16 +707,22 @@ def _act(cfg: LMConfig):
     return F.silu if cfg.act == "silu" else (lambda t: F.gelu(t, approximate="tanh"))
 
 
-def _ffn(w, x, cfg: LMConfig):
+def glu_ffn(w, x, d_ff: int, act) -> torch.Tensor:
+    """The gated FFN ``(act(x @ w_gate) * (x @ w_up)) @ w_down``; over model
+    ranks holding column-cut gate and up and a row-cut down, this rank's
+    columns, summed over ``model``."""
     tp = model_ranks()
-    if tp is not None and tp.cut(w["w_gate"], 1, cfg.d_ff):
-        # column-cut gate and up, row-cut down, summed over model
+    if tp is not None and tp.cut(w["w_gate"], 1, d_ff):
         xf = tp.copy(x)
         g, u = xf @ w["w_gate"], xf @ w["w_up"]
-        return tp.reduce((_act(cfg)(g.float()).to(u.dtype) * u) @ w["w_down"])
+        return tp.reduce((act(g.float()).to(u.dtype) * u) @ w["w_down"])
     g = x @ w["w_gate"]
     u = x @ w["w_up"]
-    return (_act(cfg)(g.float()).to(u.dtype) * u) @ w["w_down"]
+    return (act(g.float()).to(u.dtype) * u) @ w["w_down"]
+
+
+def _ffn(w, x, cfg: LMConfig):
+    return glu_ffn(w, x, cfg.d_ff, _act(cfg))
 
 
 def _layer(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, moe_layer, cache,
@@ -755,16 +785,7 @@ def _run_stacks(params, cfg: LMConfig, x, q_pos, k_pos, cache, start,
 
 
 def _embed(params, cfg: LMConfig, tokens):
-    table = params["embed"]
-    tp = model_ranks()
-    if tp is not None and tp.cut(table, 0, cfg.vocab):
-        # this rank's vocab rows, zeros for the others' tokens, summed
-        n = table.shape[0]
-        loc = tokens.long() - tp.rank * n
-        inside = ((loc >= 0) & (loc < n))[..., None]
-        x = tp.reduce(torch.where(inside, table[loc.clamp(0, n - 1)], 0.0))
-    else:
-        x = table[tokens]
+    x = embed_rows(params["embed"], tokens, cfg.vocab)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     # the batch over (pod, data); at batch 1 the sequence over data
@@ -774,14 +795,14 @@ def _embed(params, cfg: LMConfig, tokens):
 def _unembed(params, cfg: LMConfig, x):
     x = rms_norm(x, params["ln_f"])
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    tp = model_ranks()
-    cut = tp is not None and tp.cut(head, 1, cfg.vocab)
-    logits = ((tp.copy(x) if cut else x) @ head).float()
-    if cfg.logit_softcap is not None:
-        logits = softcap(logits, cfg.logit_softcap)
-    # this rank's vocab block, gathered whole: the loss that follows is the
-    # same on every rank, so the gradient is this rank's slice
-    return tp.gather(logits, -1) if cut else logits
+
+    def finish(logits):
+        logits = logits.float()
+        if cfg.logit_softcap is not None:
+            logits = softcap(logits, cfg.logit_softcap)
+        return logits
+
+    return vocab_logits(x, head, cfg.vocab, finish)
 
 
 def _positions(b: int, start, s: int, device,

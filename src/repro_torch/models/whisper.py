@@ -14,6 +14,22 @@ cross-attention (an all-zero mask) and every decode step take the plain
 masked ``attention``.  The decoder's positional embedding is rounded to
 bf16 before it is added, in ``decode`` and ``decode_step`` alike, as the
 reference rounds it, whatever the params' dtype.
+
+Tensor parallelism.  Under a process mesh with a ``model`` axis of more
+than one rank each rank holds its cut of every leaf (``schema_shardings``)
+and exchanges activations, never parameters: the self- and cross-
+attention's ``wq``/``wk``/``wv`` are column cuts in whole heads (16 divide
+2 and 16; else ``NotImplementedError``, ROADMAP Queue A item 3(c)),
+``wo`` a row cut summed over ``model``, ``w_up``/``w_down`` as an FFN's;
+each rank attends its heads (on K4 where the route says so).  The vocab
+(51,865) is odd and stays whole at full width; where it divides (smoke)
+it is cut, as the transformer's.  The caches keep the reference's
+``cache_axes``: the self cache on the sequence (its length must divide
+the ranks), written by ``transformer.write_block`` and read by
+``merged_decode``; the cross cache on the sequence where the ranks divide
+``enc_len`` (1,500 over 2: merged without a mask), else whole (over 16:
+each rank reads its heads of it).  ``precompute_cross_kv`` fills either
+with the reference's values.
 """
 from __future__ import annotations
 
@@ -24,11 +40,12 @@ import torch
 import torch.nn.functional as F
 
 from ..devices import resolve_device
-from ..sharding import BATCH, shard_hint
+from ..sharding import BATCH, QUEUE_3C, model_ranks, shard_hint
 from ..tree import tree_map
-from .common import (ParamSpec, attention, checkpointed, make_attn_mask,
-                     next_token_nll, position_index, rms_norm, stack_schema)
-from .transformer import attend
+from .common import (ParamSpec, attention, checkpointed, embed_rows,
+                     make_attn_mask, next_token_nll, position_index, rms_norm,
+                     stack_schema, vocab_logits)
+from .transformer import attend, merged_decode, row_out, write_block
 
 __all__ = ["WhisperConfig", "whisper_schema", "encode", "decode", "forward",
            "init_cache", "precompute_cross_kv", "decode_step", "lm_loss"]
@@ -96,20 +113,38 @@ def _layers(stack: dict, n: int) -> list:
     return [tree_map(lambda leaves: leaves[l], layers) for l in range(n)]
 
 
+def _own_heads(tp, w, cfg: WhisperConfig) -> int:
+    """The heads this rank holds of an attention block: its column block of
+    ``wq``/``wk``/``wv`` and row block of ``wo``, whole heads."""
+    d, h = cfg.d_model, cfg.n_heads
+    if h % tp.size or not (all(tp.cut(w[k], 1, d) for k in ("wq", "wk", "wv"))
+                           and tp.cut(w["wo"], 0, d)):
+        raise NotImplementedError(f"{cfg.name}: {h} heads over model = "
+                                  f"{tp.size}; {QUEUE_3C}")
+    return h // tp.size
+
+
 def _mha(w, xq, xkv, cfg: WhisperConfig, pos=None, causal: bool = False,
          autograd: bool = False):
     """Multi-head attention of ``xq`` over ``xkv``: causal from position 0
     (``pos`` the queries' and keys' positions) or unmasked; on K4 where
-    ``attend_route`` says so, never under ``autograd``."""
+    ``attend_route`` says so, never under ``autograd``.  Over model ranks,
+    this rank's heads (each input through ``copy``), the output summed."""
     b, sq, d = xq.shape
     h, hd = cfg.n_heads, cfg.head_dim
+    tp = model_ranks()
+    if tp is not None:
+        h = _own_heads(tp, w, cfg)
+        xq, xkv = (tp.copy(xq),) * 2 if xkv is xq else (tp.copy(xq),
+                                                          tp.copy(xkv))
     q = (xq @ w["wq"]).reshape(b, sq, h, hd)
     k = (xkv @ w["wk"]).reshape(b, -1, h, hd)
     v = (xkv @ w["wv"]).reshape(b, -1, h, hd)
     out = attend(q, k, v, pos, pos, scale=1.0 / math.sqrt(hd),
                  start=0 if causal else None, flash_chunk=cfg.flash_chunk,
                  causal=causal, autograd=autograd)
-    return out.reshape(b, sq, d) @ w["wo"]
+    out = out.reshape(b, sq, h * hd) @ w["wo"]
+    return out if tp is None else tp.reduce(out)
 
 
 def _gelu(x):
@@ -117,14 +152,19 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _ffn(w, x):
+def _ffn(w, x, cfg: WhisperConfig):
+    tp = model_ranks()
+    if tp is not None and tp.cut(w["w_up"], 1, cfg.d_ff):
+        # column-cut up, row-cut down, summed over model
+        h = _gelu((tp.copy(x) @ w["w_up"]).float()).to(x.dtype)
+        return tp.reduce(h @ w["w_down"])
     return _gelu((x @ w["w_up"]).float()).to(x.dtype) @ w["w_down"]
 
 
 def _enc_layer(w, x, cfg, autograd):
     h = rms_norm(x, w["ln1"])
     x = x + _mha(w["self"], h, h, cfg, autograd=autograd)
-    return x + _ffn(w, rms_norm(x, w["ln2"]))
+    return x + _ffn(w, rms_norm(x, w["ln2"]), cfg)
 
 
 def _dec_layer(w, x, enc_out, cfg, pos, autograd):
@@ -132,7 +172,7 @@ def _dec_layer(w, x, enc_out, cfg, pos, autograd):
     x = x + _mha(w["self"], h, h, cfg, pos, causal=True, autograd=autograd)
     h = rms_norm(x, w["ln_cross"])
     x = x + _mha(w["cross"], h, enc_out, cfg, autograd=autograd)
-    return x + _ffn(w, rms_norm(x, w["ln2"]))
+    return x + _ffn(w, rms_norm(x, w["ln2"]), cfg)
 
 
 def _each_layer(fn, ws, x, *args, autograd: bool):
@@ -167,9 +207,9 @@ def _pos_dec(params, start, s: int) -> torch.Tensor:
     return rows[None].to(torch.bfloat16)
 
 
-def _logits(params, x):
+def _logits(params, cfg: WhisperConfig, x):
     x = rms_norm(x, params["ln_dec"])
-    return (x @ params["embed"].t()).float()
+    return vocab_logits(x, params["embed"].t(), cfg.vocab, lambda t: t.float())
 
 
 def decode(params, cfg: WhisperConfig, tokens: torch.Tensor,
@@ -177,12 +217,12 @@ def decode(params, cfg: WhisperConfig, tokens: torch.Tensor,
     """The teacher-forced decoder pass: ``tokens`` (B, S) over ``enc_out``
     -> logits (B, S, V)."""
     b, s = tokens.shape
-    x = params["embed"][tokens] + _pos_dec(params, 0, s)
+    x = embed_rows(params["embed"], tokens, cfg.vocab) + _pos_dec(params, 0, s)
     x = shard_hint(x, BATCH, None, None)
     pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     x = _each_layer(_dec_layer, _layers(params["dec_layers"], cfg.dec_layers), x,
                     enc_out, cfg, pos, autograd, autograd=autograd)
-    return _logits(params, x)
+    return _logits(params, cfg, x)
 
 
 def forward(params, cfg: WhisperConfig, frames: torch.Tensor,
@@ -215,14 +255,24 @@ def precompute_cross_kv(params, cfg: WhisperConfig, enc_out: torch.Tensor,
                         cache: dict) -> dict:
     """The cache with its cross K/V computed from ``enc_out`` (B, enc_len,
     d) for every decoder layer, in the cache's dtype (a new tree; the
-    self K/V leaves are shared)."""
-    h, hd, n = cfg.n_heads, cfg.head_dim, cfg.dec_layers
+    self K/V leaves are shared).  Over model ranks each computes its heads,
+    gathered to every head, and keeps its block of the encoder positions
+    where the leaf is cut on them: the cut of the reference's leaf."""
+    hd, n = cfg.head_dim, cfg.dec_layers
     b = enc_out.shape[0]
     cross = params["dec_layers"]["cross"]
-    ck = torch.einsum("bsd,ldh->lbsh", enc_out, cross["wk"]).reshape(
-        n, b, cfg.enc_len, h, hd)
-    cv = torch.einsum("bsd,ldh->lbsh", enc_out, cross["wv"]).reshape(
-        n, b, cfg.enc_len, h, hd)
+    tp = model_ranks()
+
+    def kv(wkv):
+        out = torch.einsum("bsd,ldh->lbsh", enc_out, wkv).reshape(
+            n, b, cfg.enc_len, -1, hd)
+        if tp is None:
+            return out
+        out = tp.gather(out, 3)
+        cut = cache["ck"].shape[2] != cfg.enc_len
+        return out[:, :, tp.block(cfg.enc_len)] if cut else out
+
+    ck, cv = kv(cross["wk"]), kv(cross["wv"])
     return {**cache, "ck": ck.to(cache["ck"].dtype), "cv": cv.to(cache["cv"].dtype)}
 
 
@@ -234,6 +284,9 @@ def decode_step(params, cfg: WhisperConfig, cache: dict, tokens: torch.Tensor,
     integer tensor on the cache's device, which its caller checks (a
     captured step's copied-in position).  Returns ``(logits (B, 1, V),
     cache)``."""
+    tp = model_ranks()
+    if tp is not None:
+        return _decode_step_tp(tp, params, cfg, cache, tokens, pos)
     b = tokens.shape[0]
     h, hd = cfg.n_heads, cfg.head_dim
     max_len = cache["k"].shape[2]
@@ -262,8 +315,64 @@ def decode_step(params, cfg: WhisperConfig, cache: dict, tokens: torch.Tensor,
         outc = attention(qc, cache["ck"][l], cache["cv"][l], cross_mask,
                          scale=scale)
         x = x + outc.reshape(b, 1, -1) @ w["cross"]["wo"]
-        x = x + _ffn(w, rms_norm(x, w["ln2"]))
-    return _logits(params, x), cache
+        x = x + _ffn(w, rms_norm(x, w["ln2"]), cfg)
+    return _logits(params, cfg, x), cache
+
+
+def _decode_step_tp(tp, params, cfg: WhisperConfig, cache: dict,
+                    tokens: torch.Tensor, pos):
+    """``decode_step`` over this rank's heads and its cut of the caches
+    (``cache_axes``).  The self cache is cut on the sequence: the new
+    position's K/V of every head are gathered and written where this
+    rank's block holds them, and every head's query attends over the
+    rank's positions, the partial softmaxes merged by log-sum-exp.  The
+    cross cache is cut so too where the ranks divide ``enc_len`` (merged
+    without a mask), else whole, each rank reading its heads of it."""
+    if isinstance(pos, torch.Tensor):
+        raise NotImplementedError(f"{cfg.name}: a captured step (a tensor "
+                                  f"position) over model = {tp.size}; "
+                                  f"{QUEUE_3C}")
+    b = tokens.shape[0]
+    d, hd = cfg.d_model, cfg.head_dim
+    sl = cache["k"].shape[2]
+    lo = tp.rank * sl
+    if not 0 <= pos < sl * tp.size:
+        raise ValueError(f"position {pos} is outside the cache length "
+                         f"{sl * tp.size}")
+    dev = tokens.device
+    x = embed_rows(params["embed"], tokens, cfg.vocab) + _pos_dec(
+        params, position_index(pos, dev), 1)
+    q_pos = torch.full((b, 1), pos, dtype=torch.long, device=dev)
+    scale = 1.0 / math.sqrt(hd)
+    cross_mask = torch.zeros((b, 1, 1, cfg.enc_len), dtype=torch.float32,
+                             device=dev)
+    for l, w in enumerate(_layers(params["dec_layers"], cfg.dec_layers)):
+        ws, wc = w["self"], w["cross"]
+        nh = _own_heads(tp, ws, cfg)
+        hn = rms_norm(x, w["ln1"])
+        q, k, v = ((hn @ ws[key]).reshape(b, 1, nh, hd) for key in ("wq", "wk", "wv"))
+        kc, vc = cache["k"][l], cache["v"][l]
+        write_block(kc, tp.gather(k, 2), lo, pos)
+        write_block(vc, tp.gather(v, 2), lo, pos)
+        out = merged_decode(tp, tp.gather(q, 2), kc, vc, q_pos, lo, scale, None,
+                            None)
+        x = x + row_out(tp, out.reshape(b, 1, d), ws["wo"])
+        hn = rms_norm(x, w["ln_cross"])
+        nh = _own_heads(tp, wc, cfg)
+        qc = (hn @ wc["wq"]).reshape(b, 1, nh, hd)
+        ck, cv = cache["ck"][l], cache["cv"][l]
+        if tp.cut(ck, 1, cfg.enc_len):
+            out = merged_decode(tp, tp.gather(qc, 2), ck, cv, q_pos,
+                                tp.rank * ck.shape[1], scale, None, None,
+                                causal=False)
+            x = x + row_out(tp, out.reshape(b, 1, d), wc["wo"])
+        else:  # whole: this rank's heads of it
+            heads = tp.block(cfg.n_heads)
+            out = attention(qc, ck[:, :, heads], cv[:, :, heads], cross_mask,
+                            scale=scale)
+            x = x + row_out(tp, out.reshape(b, 1, nh * hd), wc["wo"])
+        x = x + _ffn(w, rms_norm(x, w["ln2"]), cfg)
+    return _logits(params, cfg, x), cache
 
 
 def lm_loss(params, cfg: WhisperConfig, frames: torch.Tensor,

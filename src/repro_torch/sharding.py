@@ -185,6 +185,11 @@ class ModelRanks:
         """The sum (or maximum) over the ranks, no gradient."""
         return self.mesh.all_reduce(x, MODEL, op)
 
+    def block(self, n: int) -> slice:
+        """This rank's block of ``n`` entries cut evenly over the ranks."""
+        c = n // self.size
+        return slice(self.rank * c, (self.rank + 1) * c)
+
     def cut(self, leaf, dim: int, full: int) -> bool:
         """Whether this rank holds ``leaf``'s dimension ``dim`` of ``full``
         entries as its block (else whole)."""

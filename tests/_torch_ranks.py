@@ -21,7 +21,7 @@ from repro_torch.launch.serve import serve_lm
 from repro_torch.launch.train import train
 from repro_torch.models.common import params_from_numpy, schema_shardings
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.registry import make_lm_bundle
+from repro_torch.models.registry import make_lm_bundle, make_rwkv_bundle
 from repro_torch.optim import init_state
 from repro_torch.sharding import gather_tree, shard_hint, shard_tree
 from repro_torch.tree import tree_items
@@ -115,7 +115,7 @@ def four_ranks(rank: int, p_np: dict) -> dict:
     under three meshes; the FSDP shardings cut and gathered on (pod 2,
     data 2); the train step over (data 2, model 2) from the reference's
     weights, FSDP on, and with int8 compression over (pod 2, data 1,
-    model 2); RWKV6's refused over a model axis of 2."""
+    model 2); RWKV6 of 3 heads refused over a model axis of 2."""
     out = {"sharded": {}}
     mesh = make_process_mesh((4,), ("workers",), device="cpu")
     for label, ids, batch in SHARDED_CASES:
@@ -143,11 +143,18 @@ def four_ranks(rank: int, p_np: dict) -> dict:
                                   device="cpu")
     out["int8_model_axis"], *_ = _run_step(
         pod_model, p_np, steps.TrainConfig(grad_compression="int8", **TRAIN_KW))
+    # RWKV6 runs tensor parallel over model where its heads divide the
+    # ranks; 3 heads of 16 over model 2 do not
+    rwkv = make_rwkv_bundle(dataclasses.replace(
+        get_bundle("rwkv6-1.6b", smoke=True).cfg, d_model=48))
     try:
-        steps.build_train_step(get_bundle("rwkv6-1.6b", smoke=True),
-                               steps.TrainConfig(**TRAIN_KW),
-                               meshes["data2-model2"])
-        out["rwkv6_model_axis"] = "built"
+        step = steps.build_train_step(rwkv, steps.TrainConfig(**TRAIN_KW),
+                                      meshes["data2-model2"])
+        params = rwkv.init(torch.Generator().manual_seed(0), device="cpu",
+                           shardings=step.param_shardings)
+        toks = torch.zeros((4, 8), dtype=torch.long)
+        step(params, init_state(params), {"tokens": toks, "labels": toks})
+        out["rwkv6_model_axis"] = "ran"
     except NotImplementedError as e:
         out["rwkv6_model_axis"] = str(e)
     return out

@@ -164,15 +164,6 @@ def refusals(mesh) -> dict:
         except NotImplementedError as e:
             out[name] = str(e)
 
-    rwkv = get_bundle("rwkv6-1.6b", smoke=True)
-    attempt("rwkv6_train", lambda: steps.build_train_step(
-        rwkv, steps.TrainConfig(**TRAIN_KW), mesh))
-    attempt("rwkv6_serve", lambda: serve_lm("rwkv6-1.6b", smoke=True,
-                                            device="cpu", mesh=mesh, **SERVE))
-    attempt("hymba_train", lambda: steps.build_train_step(
-        get_bundle("hymba-1.5b", smoke=True), steps.TrainConfig(), mesh))
-    attempt("whisper_serve", lambda: serve_lm("whisper-medium", smoke=True,
-                                              device="cpu", mesh=mesh, **SERVE))
     bundle = get_bundle("smollm-135m", smoke=True)
     params = bundle.init(torch.Generator().manual_seed(0), device="cpu",
                          shardings=schema_shardings(bundle.schema, mesh))

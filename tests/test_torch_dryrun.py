@@ -384,11 +384,13 @@ def test_cli_writes_an_ok_record(tmp_path):
 
 def test_records_error_and_skipped_and_leave_no_group(tmp_path, monkeypatch):
     monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
-    rec = dryrun.run_cell("rwkv6-1.6b", "train_4k", multi_pod=False,
+    # every arch runs over model; the sequence-parallel residual does not
+    monkeypatch.setenv("REPRO_SEQ_PARALLEL", "1")
+    rec = dryrun.run_cell("smollm-135m", "train_4k", multi_pod=False,
                           smoke_scale=16)
     assert rec["status"] == "error" and "3(c)" in rec["error"], rec
     assert not dist.is_initialized()
-    rec = dryrun.run_cell("rwkv6-1.6b", "decode_32k", multi_pod=True,
+    rec = dryrun.run_cell("qwen3-4b", "prefill_32k", multi_pod=True,
                           smoke_scale=16)
     assert rec["status"] == "error" and "3(c)" in rec["error"], rec
     assert not dist.is_initialized()
