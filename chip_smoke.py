@@ -179,7 +179,21 @@ Phases, in order; any failure raises:
     every rank once a Hymba layer at 100 query heads (every head) and
     three times a Whisper layer at 32 (8 heads a rank); K4 at those
     per-rank shapes against its plain version, timed beside SDPA; the
-    same readings as (d);
+    same readings as (d).  (f) the sequence over the mesh: SmolLM-135M at
+    full width and depth trained through ``train(mesh=...)`` at a global
+    batch of 1 x 2,048 tokens, its sequence cut over data (each rank a
+    block of 1,024), over (data 2, model 1) and (data 2, model 2), 3
+    steps, each loss within 1e-5 of the one-process run's on the same
+    batch; the same over (data 1, model 2) with ``REPRO_SEQ_PARALLEL=1``
+    and without, the flag's losses within 1e-5 of the flag off's;
+    RWKV6-1.6B (float64) and Hymba-1.5B at full width on 2 layers trained
+    at 1 x 1,024 over (data 2, model 1), held as (e) holds them; then
+    ``serve_lm(mesh=..., batch=1)`` of Qwen3-4B at full width and depth
+    over (data 2, model 1), a 512-token prompt cut over the data ranks and
+    16 new tokens over the cut cache: the tokens equal to the one-process
+    ``serve_lm``'s and every call's logits within 1e-4 of max|logit|; ms a
+    step, collective calls, ms and bytes by axis, and peak memory a rank
+    printed (gloo through the host on one card, not scaling figures);
 14. the arch zoo, after the earlier phases' servers, graphs and weights
     are released, one arch at a time: each drawn on the card from a seeded
     CUDA generator (fp32, TF32 off) at full width, through ``serve_lm``
@@ -4058,6 +4072,238 @@ def print_tp_families(tf: dict, card: str) -> None:
           f"{tf['serve']['run_ranks_s']:.1f}")
 
 
+# (f) the sequence over the mesh.  A global batch of one row, its
+# sequence cut over the data ranks (sharding.hold_sequence): SmolLM-135M
+# trained over (data 2, model 1) and (data 2, model 2) at full width and
+# depth, SEQ_STEPS steps of 1 x SEQ_LEN tokens, and over (data 1, model 2)
+# with REPRO_SEQ_PARALLEL=1 and without; RWKV6-1.6B (float64, as (e)) and
+# Hymba-1.5B on TP_FAMILY_LAYERS layers at 1 x SEQ_FAMILY_LEN over (data
+# 2, model 1); each loss within TOL_DIST_LOSS of the one-process run's
+# (the flag's of the flag off's).  Qwen3-4B served at batch 1 over (data
+# 2, model 1), SEQ_SERVE's lengths: the tokens equal to one process's and
+# every call's logits within TOL_TP_LOGITS of max|logit|.  Eagerly: every
+# step holds collectives.  The three meshes' jobs and the one-process runs
+# go at once (8 ranks and this process on the card), so their ms a step
+# are read under each other's load.
+SEQ_STEPS, SEQ_LEN, SEQ_FAMILY_LEN = 3, 2048, 1024
+SEQ_SERVE_ARCH = "qwen3-4b"
+SEQ_SERVE = {"batch": 1, "prompt_len": 512, "gen": 16}
+SEQ_FAMILIES = ("rwkv6-1.6b", "hymba-1.5b")
+# a CPU rehearsal's lengths
+SEQ_SMOKE_LEN, SEQ_SMOKE_SERVE = 32, {"batch": 1, "prompt_len": 16, "gen": 8}
+
+
+def _seq_cases(sizes: tuple) -> list:
+    """Part (f)'s runs on a mesh of ``sizes``: ``(kind, arch, flag)``."""
+    if sizes == (2, 1):
+        return ([("train", TRAIN_ARCH, "0")]
+                + [("train", a, "0") for a in SEQ_FAMILIES]
+                + [("serve", SEQ_SERVE_ARCH, "0")])
+    if sizes == (2, 2):
+        return [("train", TRAIN_ARCH, "0")]
+    return [("train", TRAIN_ARCH, "0"), ("train", TRAIN_ARCH, "1")]
+
+
+def _seq_train(arch: str, smoke: bool, device: str, mesh=None, on_step=None):
+    """``train`` at a global batch of one row, as part (f) runs it."""
+    from repro_torch.launch.train import train
+
+    family = arch in SEQ_FAMILIES
+    return train(arch, steps=SEQ_STEPS, batch=1,
+                 seq=SEQ_SMOKE_LEN if smoke else (SEQ_FAMILY_LEN if family
+                                                  else SEQ_LEN),
+                 smoke=smoke, device=device, seed=SEED, lr=DIST_LR,
+                 graphs=False, mesh=mesh, on_step=on_step,
+                 log_every=SEQ_STEPS, layers=TP_FAMILY_LAYERS if family else None,
+                 param_dtype=_train_dtype(arch))
+
+
+def dist_seq_rank(rank: int, device: str, smoke: bool, sizes: tuple) -> dict:
+    """Rank ``rank`` of (data, model) = ``sizes``: part (f)'s runs
+    (``_seq_cases``), each with ``REPRO_SEQ_PARALLEL`` set as the case
+    says: a train's losses, gradient norms, ms a step, collectives by axis
+    a step and peak memory; a serve's tokens, every call's logits (rank
+    0), decode ms a step, collectives by axis and peak memory."""
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.serve import serve_lm
+
+    _no_tf32()
+    mesh = make_process_mesh(sizes, ("data", "model"), device=device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    out = {"backend": mesh.backend}
+    for kind, arch, flag in _seq_cases(sizes):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        mesh.stats["by_axis"].clear()
+        os.environ["REPRO_SEQ_PARALLEL"] = flag
+        try:
+            if kind == "train":
+                stamps, coll, norms = [], [_axis_stats(mesh)], []
+
+                def on_step(step, metrics, stamps=stamps, coll=coll,
+                            norms=norms):
+                    stamps.append(time.perf_counter())
+                    coll.append(_axis_stats(mesh))
+                    norms.append(float(metrics["grad_norm"]))
+
+                t0 = time.perf_counter()
+                res = {"losses": _seq_train(arch, smoke, device, mesh, on_step),
+                       "grad_norms": norms,
+                       "ms_per_step": (np.diff([t0] + stamps) * 1e3).tolist(),
+                       "collectives_per_step": coll}
+            else:
+                rows, timings = [], {}
+                toks = serve_lm(arch, device=device, seed=SEED, smoke=smoke,
+                                mesh=mesh, graphs=False, timings=timings,
+                                on_logits=lambda lg, rows=rows: rows.append(
+                                    lg[:, -1].cpu() if rank == 0 else None),
+                                **(SEQ_SMOKE_SERVE if smoke else SEQ_SERVE))
+                res = {"tokens": toks, "logits": rows if rank == 0 else None,
+                       "decode_s": timings["decode_s"],
+                       "prefill_s": timings["prefill_s"],
+                       "collectives": _axis_stats(mesh)}
+        finally:
+            del os.environ["REPRO_SEQ_PARALLEL"]
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else None
+        out[f"{kind} {arch} flag {flag}"] = res
+        _empty_cache(dev)
+    return out
+
+
+def seq_part(device, dev: str, smoke: bool, tmp: str) -> dict:
+    """Part (f): the runs of ``_seq_cases`` on each mesh and this
+    process's one-process runs, all at once, each rank's held against
+    them."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.serve import serve_lm
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one_process() -> tuple:
+        one = {}
+        for arch in (TRAIN_ARCH,) + SEQ_FAMILIES:
+            norms = []
+            one[arch] = (_seq_train(arch, smoke, device, on_step=lambda s, m,
+                                    norms=norms: norms.append(
+                                        float(m["grad_norm"]))), norms)
+        rows = []
+        tokens = serve_lm(SEQ_SERVE_ARCH, device=device, seed=SEED,
+                          smoke=smoke, graphs=False,
+                          on_logits=lambda lg: rows.append(lg[:, -1].cpu()),
+                          **(SEQ_SMOKE_SERVE if smoke else SEQ_SERVE))
+        return one, rows, tokens
+
+    meshes = ((2, 1), (2, 2), (1, 2))
+    t0 = time.perf_counter()
+    # the three jobs (8 ranks on the card) and this process's one-process
+    # runs at once: each job is bound by its collectives' trips through
+    # the host, not by the card
+    with ThreadPoolExecutor(len(meshes) + 1) as pool:
+        jobs = {sizes: pool.submit(
+            run_ranks, dist_seq_rank, math.prod(sizes), dev, smoke, sizes,
+            device=dev, timeout_s=DIST_TIMEOUT_S,
+            store_path=os.path.join(tmp, f"store-seq-{sizes[0]}x{sizes[1]}"))
+            for sizes in meshes}
+        mine = pool.submit(one_process)
+        got = {sizes: job.result() for sizes, job in jobs.items()}
+        one, rows, tokens = mine.result()
+    out = {"run_ranks_s": time.perf_counter() - t0, "backend":
+           got[meshes[0]][0]["backend"], "train": [], "serve": []}
+    for sizes in meshes:
+        for kind, arch, flag in _seq_cases(sizes):
+            key = f"{kind} {arch} flag {flag}"
+            res = [r[key] for r in got[sizes]]
+            if kind == "serve":
+                continue
+            want, want_norms = one[arch]
+            if flag == "1":  # held to the flag-off run on the same mesh
+                off = [r[f"train {arch} flag 0"] for r in got[sizes]]
+                want, want_norms = off[0]["losses"], off[0]["grad_norms"]
+            errs = [max(abs(r["losses"][i] - b) / abs(b) for r in res)
+                    for i, b in enumerate(want)]
+            norm_errs = [max(abs(r["grad_norms"][i] - b) / abs(b) for r in res)
+                         for i, b in enumerate(want_norms)]
+            a = {"arch": arch, "mesh": f"(data {sizes[0]}, model {sizes[1]})",
+                 "seq_parallel": flag == "1",
+                 "against": "flag off" if flag == "1" else "one process",
+                 "dtype": str(_train_dtype(arch)).removeprefix("torch."),
+                 "losses": res[0]["losses"], "loss_rel_err_by_step": errs,
+                 "grad_norm_rel_err_by_step": norm_errs,
+                 "collectives_per_step": res[0]["collectives_per_step"],
+                 "ms_per_step": [r["ms_per_step"] for r in res],
+                 "peak_bytes": [r["peak_bytes"] for r in res]}
+            if not max(errs) <= TOL_DIST_LOSS:
+                raise AssertionError(
+                    f"{arch} at batch 1 over {a['mesh']} (REPRO_SEQ_PARALLEL="
+                    f"{flag}): losses vs {a['against']} rel err by step {errs} "
+                    f"> {TOL_DIST_LOSS} (gradient norms {norm_errs})")
+            out["train"].append(a)
+    res = [r[f"serve {SEQ_SERVE_ARCH} flag 0"] for r in got[(2, 1)]]
+    if len(res[0]["logits"]) != len(rows):
+        raise AssertionError(f"{len(res[0]['logits'])} logits calls over the "
+                             f"mesh, {len(rows)} in one process")
+    err = max(_max_rel(x, y) for x, y in zip(res[0]["logits"], rows))
+    same = [bool(torch.equal(torch.from_numpy(r["tokens"]), tokens.cpu()))
+            for r in res]
+    if not all(same):
+        raise AssertionError(f"serve_lm {SEQ_SERVE_ARCH} at batch 1 over (data "
+                             f"2, model 1): tokens differ from one process's")
+    if not err <= TOL_TP_LOGITS:
+        raise AssertionError(f"serve_lm {SEQ_SERVE_ARCH} at batch 1 over (data "
+                             f"2, model 1): logits max rel err {err:.2e} > "
+                             f"{TOL_TP_LOGITS}")
+    out["serve"].append({
+        "arch": SEQ_SERVE_ARCH, "mesh": "(data 2, model 1)",
+        "tokens_equal": all(same), "logits_max_rel_err": err,
+        "calls": len(rows), **{k: [r[k] for r in res] for k in (
+            "decode_s", "prefill_s", "peak_bytes", "collectives")}})
+    _empty_cache(device)
+    return out
+
+
+def print_seq_part(sq: dict, card: str, smoke: bool = False) -> None:
+    """Part (f)'s lines."""
+    for a in sq["train"]:
+        c = a["collectives_per_step"]
+        n = len(c) - 1
+        per_axis = {ax: {k: (c[-1][ax][k] - c[0].get(ax, {k: 0})[k]) / n
+                         for k in ("calls", "ms", "bytes")} for ax in c[-1]}
+        med = [float(np.median(ms[1:])) for ms in a["ms_per_step"]]
+        seq = SEQ_SMOKE_LEN if smoke else (
+            SEQ_FAMILY_LEN if a["arch"] in SEQ_FAMILIES else SEQ_LEN)
+        print(f"  (f) train {a['arch']} at batch 1 x {seq} tokens "
+              f"({a['dtype']}) over {a['mesh']} ({sq['backend']}), "
+              f"REPRO_SEQ_PARALLEL={int(a['seq_parallel'])}, {SEQ_STEPS} "
+              f"steps, eager, on {card}: losses "
+              f"{[round(x, 5) for x in a['losses']]}, rel err vs "
+              f"{a['against']} {max(a['loss_rel_err_by_step']):.2e} <= "
+              f"{TOL_DIST_LOSS}, gradient norms "
+              f"{max(a['grad_norm_rel_err_by_step']):.2e}; ms a step (median "
+              f"of steps 2-{SEQ_STEPS}) per rank {[round(m, 1) for m in med]}; "
+              f"collectives a step by axis "
+              + "; ".join(f"{ax} {v['calls']:.0f} calls {v['ms']:.1f} ms "
+                          f"{v['bytes'] / 1e6:.1f} MB"
+                          for ax, v in per_axis.items())
+              + f"; peak {[_gib(x) for x in a['peak_bytes']]} a rank")
+    for a in sq["serve"]:
+        lens = SEQ_SMOKE_SERVE if smoke else SEQ_SERVE
+        dec = [s / lens["gen"] * 1e3 for s in a["decode_s"]]
+        coll = a["collectives"][0]
+        print(f"  (f) serve_lm {a['arch']} at full width and depth, batch 1, "
+              f"{lens['prompt_len']} + {lens['gen']} tokens, over {a['mesh']} "
+              f"(the prompt and cache cut over data), eager, on {card}: tokens "
+              f"equal to one process's, {a['calls']} calls' logits max rel "
+              f"err {a['logits_max_rel_err']:.2e} <= {TOL_TP_LOGITS}; prefill "
+              f"s {[round(x, 3) for x in a['prefill_s']]}, decode ms a step "
+              f"{[round(x, 1) for x in dec]}; rank 0's collectives "
+              + "; ".join(f"{ax} {v['calls']} calls {v['ms']:.1f} ms "
+                          f"{v['bytes'] / 1e6:.1f} MB" for ax, v in coll.items())
+              + f"; peak {[_gib(x) for x in a['peak_bytes']]} a rank")
+    print(f"  (f) run_ranks s (the three jobs and the one-process runs at "
+          f"once): {sq['run_ranks_s']:.1f}")
+
+
 def _max_rel(got, want) -> float:
     got = torch.as_tensor(np.asarray(got)).double()
     want = torch.as_tensor(np.asarray(want)).double()
@@ -4239,6 +4485,12 @@ def distributed_phase(device, card: str, smoke: bool = False) -> dict:
         tf["seconds"] = time.perf_counter() - t0
         out["by_path"].update(tf.pop("by_path"))
         out["tp_families"] = tf
+        _empty_cache(device)
+        # (f) the sequence over the mesh
+        t0 = time.perf_counter()
+        sq = seq_part(device, dev, smoke, tmp)
+        sq["seconds"] = time.perf_counter() - t0
+        out["seq"] = sq
     return out
 
 
@@ -4380,6 +4632,9 @@ def print_distributed(d: dict, card: str) -> None:
         print(f"  (e) the recurrent and encoder-decoder families: "
               f"{d['tp_families']['seconds']:.1f} s")
         print_tp_families(d["tp_families"], card)
+    if "seq" in d:
+        print(f"  (f) the sequence over the mesh: {d['seq']['seconds']:.1f} s")
+        print_seq_part(d["seq"], card)
 
 
 def main() -> int:

@@ -211,7 +211,7 @@ class CostCounter:
     is the ``ProcessMesh`` whose collectives are read from its ``trace``
     (set for the block, restored after)."""
 
-    def __init__(self, arguments=(), mesh=None, read=()):
+    def __init__(self, arguments=(), mesh=None, read=(), by_op=False):
         from torch.utils.flop_counter import flop_registry
 
         self._formulas = flop_registry
@@ -225,6 +225,10 @@ class CostCounter:
         self._live: dict = {}  # storage id -> (bytes, weak reference)
         self.live_bytes = 0
         self.peak_bytes = 0
+        # with ``by_op``: at the peak, the live bytes by the op that made
+        # each storage (``peak_by_op``, the breakdown of the temporaries)
+        self._by_op = by_op
+        self.peak_by_op: dict = {}
         # meta ops by signature: their results' (shape, stride, dtype) and
         # cost.  Torch computes many meta kernels in Python; a layer stack
         # repeats the same signatures, so each is computed once
@@ -301,7 +305,7 @@ class CostCounter:
         c.bytes += nbytes
         if fresh:
             for t in _operands((out,), {}):
-                self._made(t)
+                self._made(t, func)
         return out
 
     def _cost(self, func, args, kwargs, out) -> tuple:
@@ -319,8 +323,9 @@ class CostCounter:
             return f, f, nbytes
         return float(results[0].numel() if results else 0), 0.0, nbytes
 
-    def _made(self, t: torch.Tensor) -> None:
-        """Follow a storage the step made until it is freed."""
+    def _made(self, t: torch.Tensor, func=None) -> None:
+        """Follow a storage the step made (by op ``func``) until it is
+        freed."""
         st = t.untyped_storage()
         key = st._cdata
         if key in self._live or key in self._arguments:
@@ -330,9 +335,15 @@ class CostCounter:
         def freed(_, key=key):
             self.live_bytes -= self._live.pop(key)[0]
 
-        self._live[key] = (n, weakref.ref(st, freed))
+        self._live[key] = (n, weakref.ref(st, freed), func)
         self.live_bytes += n
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes = self.live_bytes
+            if self._by_op:
+                by: dict = defaultdict(int)
+                for nb, _, f in self._live.values():
+                    by[str(f)] += nb
+                self.peak_by_op = dict(by)
 
     def charge(self, name: str, flops: float, nbytes: float) -> None:
         """One launch of kernel ``name`` (``kernels.native.record_kernel``)."""

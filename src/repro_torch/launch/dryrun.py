@@ -146,7 +146,6 @@ def count_step(bundle, kind: str, params, batch, cache=None, opt_state=None, *,
         with CostCounter(args, mesh, read=args[2]) as counter:
             out = step(params, opt_state, batch)
         return counter, out
-    steps_mod.check_model_axis(bundle, mesh)
     if mesh is not None:
         params = shard_tree(params, schema_shardings(bundle.schema, mesh))
         batch = _cut(batch, steps_mod.batch_pspecs(bundle, batch, mesh), mesh)

@@ -26,7 +26,14 @@ input is each rank's partial sum.  ``reduce_from`` is its conjugate *g*:
 an all-reduce forward, the identity backward, after a row-cut product.
 ``gather_from`` all-gathers forward and takes this rank's slice of the
 gradient backward (right where what follows computes the same on every
-rank; ``copy_to`` after it sums partial gradients first).  The plain
+rank; ``copy_to`` after it sums partial gradients first).  The sequence
+pair (Megatron's sequence parallelism, Korthikanti et al.,
+arXiv:2205.05198 §4.2): ``scatter_to`` takes this rank's block forward and
+gathers the gradient backward; ``reduce_scatter_from`` reduce-scatters
+forward and gathers backward, the *g* of a sequence-parallel stream.
+``gather_to`` all-gathers forward and reduce-scatters the gradient
+backward: a sequence's blocks gathered where what follows differs by
+rank (K/V over the ranks that cut the sequence).  The plain
 collectives detach their operands.  ``stats`` counts calls, seconds and
 operand bytes, in total and by the axes a collective spans; ``trace``,
 where a list, records each collective as a ``Collective``: its kind, axes,
@@ -330,6 +337,29 @@ class ProcessMesh:
             return t
         return _GatherFrom.apply(t, self, axes, dim)
 
+    def scatter_to(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """This rank's block of ``t`` along ``dim`` (cut evenly in group
+        order) forward; backward, the gradient all-gathered along
+        ``dim``."""
+        if self.group(axes) is None:
+            return t
+        return _ScatterTo.apply(t, self, axes, dim)
+
+    def reduce_scatter_from(self, t: torch.Tensor, axes,
+                            dim: int) -> torch.Tensor:
+        """``reduce_scatter`` forward; backward, the gradient all-gathered
+        along ``dim``."""
+        if self.group(axes) is None:
+            return t
+        return _ReduceScatterFrom.apply(t, self, axes, dim)
+
+    def gather_to(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """``all_gather`` along ``dim`` forward; backward, the
+        ``reduce_scatter`` of the gradient along ``dim``."""
+        if self.group(axes) is None:
+            return t
+        return _GatherTo.apply(t, self, axes, dim)
+
     def reduce_scatter(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """This rank's slice along ``dim`` of the sum over ``axes`` (the
         slices cut in group order, ``dim`` divisible by the group): an
@@ -395,6 +425,51 @@ class _GatherFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad.narrow(ctx.dim, ctx.i * ctx.n, ctx.n), None, None, None
+
+
+def _block(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    k, i = mesh.group_size(axes), mesh.group_rank(axes)
+    if t.shape[dim] % k:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not cut "
+                         f"over {k} ranks")
+    n = t.shape[dim] // k
+    return t.narrow(dim, i * n, n)
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _block(t, mesh, axes, dim).clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (ctx.mesh.all_gather(grad.contiguous(), ctx.axes, ctx.dim),
+                None, None, None)
+
+
+class _ReduceScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.reduce_scatter(t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (ctx.mesh.all_gather(grad.contiguous(), ctx.axes, ctx.dim),
+                None, None, None)
+
+
+class _GatherTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.all_gather(t, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (ctx.mesh.reduce_scatter(grad.contiguous(), ctx.axes, ctx.dim),
+                None, None, None)
 
 
 def make_process_mesh(axis_sizes, axis_names, device: str | torch.device = "cuda",

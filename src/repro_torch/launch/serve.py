@@ -17,9 +17,11 @@
     ``compiled_prefill``: the reference's ``jax.jit`` of both);
     ``serve_lm(graphs=False)`` runs them eagerly.  ``serve_lm(mesh=...)``
     serves over a process mesh: each rank its rows of the batch over the
-    pod and data axes and its cut of the params and caches over the
-    ``model`` axis (tensor parallelism for every family, expert
-    parallelism for the MoE, eagerly).
+    pod and data axes (a batch of one: the transformer's prompt and cache
+    cut along the sequence over ``data``) and its cut of the params and
+    caches over the ``model`` axis (tensor parallelism for every family,
+    expert parallelism for the MoE, eagerly; the logits kept as each
+    rank's vocab block, the greedy token picked across them).
 
 It runs on the card by default, through the hand-written kernels.
 
@@ -46,13 +48,13 @@ from ..core.graphs import GraphSet, graph_class
 from ..core.pipeline import build_cnn_pipeline
 from ..devices import resolve_device
 from ..models.cnn import CNN_SPECS, init_cnn, input_hw
-from ..models.common import schema_shardings
+from ..models.common import greedy, schema_shardings, whole_vocab
 from ..models.registry import with_layers
 from ..runtime import StragglerModel
 from ..serving import CodedServer, ServingFrontend
-from ..sharding import (BATCH, MODEL, QUEUE_3C, NamedSharding,
-                        check_data_parallel, resolve_pspec, shard_tree,
-                        use_mesh)
+from ..sharding import (BATCH, MODEL, QUEUE_3C, NamedSharding, PartitionSpec,
+                        check_data_parallel, hold_sequence, keep_vocab_cut,
+                        resolve_pspec, sequence_ranks, shard_tree, use_mesh)
 from . import steps as steps_mod
 
 __all__ = ["build_cnn_server", "serve_cnn", "serve_lm", "serve", "main"]
@@ -94,30 +96,48 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
     above (a decode step holds no collective), and the tokens are
     all-gathered to every rank at the end.  ``decode_s`` is this rank's,
     ``tok_s`` every rank's tokens over the slowest rank's decode time.
-    Rank 0 prints.  Over a ``model`` axis of more than one rank (every
-    family: the transformer, RWKV6, Hymba and Whisper;
-    ``steps.check_model_axis``) each rank draws the params a leaf at a
-    time and keeps its cut (``params``, where given, are this rank's cut),
-    its cache is its cut (``bundle.make_cache`` under the mesh: the
+    Rank 0 prints.  A ``batch`` of 1 over data ranks holds its sequence
+    (``sharding.hold_sequence``): the transformer family prefills each
+    rank's block of the prompt (equal blocks of at least two positions)
+    into its block of the cache, and each decode step attends over the
+    ranks' blocks merged by log-sum-exp; the other families step
+    ``decode_fn`` over the whole prompt on every rank.  Over a ``model``
+    axis of more than one rank (every family: the transformer, RWKV6,
+    Hymba and Whisper) each rank draws the params a leaf at a time and
+    keeps its cut (``params``, where given, are this rank's cut), its
+    cache is its cut (``bundle.make_cache`` under the mesh: the
     transformer's ``cache_layout``, the other families' ``cache_axes``
-    through ``registry.rank_cache``), and the steps run eagerly: they hold
-    collectives, so
-    ``graphs`` must resolve to no capture (``graphs=False`` on the card),
-    else ``NotImplementedError`` (the distributed step captured is ROADMAP
-    Queue A item 3(c))."""
+    through ``registry.rank_cache``), its logits its vocab block (the
+    greedy token picked across the blocks, ``models.common.greedy``; the
+    blocks gathered for ``on_logits`` only), and the steps run eagerly:
+    they hold collectives, so ``graphs`` must resolve to no capture
+    (``graphs=False`` on the card), else ``NotImplementedError`` (the
+    distributed step captured is ROADMAP Queue A item 3(c)).  Any step
+    over a cut sequence runs eagerly too."""
     if arch not in ARCH_IDS:
         raise SystemExit(f"unknown LM arch {arch!r}; valid: {ARCH_IDS}")
     dev = resolve_device(device)
-    rows = None
+    rows, held = None, ()
     if steps_mod.spans_ranks(mesh):
         if mesh.device.type != dev.type:
             raise ValueError(f"device {dev} for a mesh on {mesh.device}")
         dev = mesh.device
-        spec = resolve_pspec((batch, prompt_len), (BATCH, None), mesh.shape)
-        check_data_parallel(spec, 0, mesh.shape, True,
-                            f"serving a batch of {batch}")
+        if batch == 1 and mesh.shape.get("data", 1) > 1:
+            held = ("data",)
+            cut = get_bundle(arch, smoke=smoke).prefill_cache_fn is not None
+            if cut and (prompt_len % mesh.shape["data"]
+                        or prompt_len < 2 * mesh.shape["data"]):
+                raise ValueError(f"a prompt of {prompt_len} over "
+                                 f"{mesh.shape['data']} data ranks needs "
+                                 f"equal blocks of at least 2 positions")
+            spec = PartitionSpec(None, "data" if cut else None)
+        else:
+            spec = resolve_pspec((batch, prompt_len), (BATCH, None),
+                                 mesh.shape)
+            check_data_parallel(spec, 0, mesh.shape, True,
+                                f"serving a batch of {batch}")
         rows = NamedSharding(mesh, spec)
-    with use_mesh(mesh):
+    with use_mesh(mesh), hold_sequence(held):
         return _serve_lm(arch, dev, rows, batch=batch, prompt_len=prompt_len,
                          gen=gen, smoke=smoke, seed=seed,
                          param_dtype=param_dtype, layers=layers,
@@ -135,12 +155,14 @@ def _serve_lm(arch, dev, rows, *, batch, prompt_len, gen, smoke, seed,
     max_len = prompt_len + gen
     mesh = None if rows is None else rows.mesh
     model = 1 if mesh is None else mesh.shape.get(MODEL, 1)
-    steps_mod.check_model_axis(bundle, mesh)
+    seq = sequence_ranks()  # a held sequence (batch 1 over data)
     cls = graph_class(graphs, dev)
-    if model > 1 and cls is not None:
+    if (model > 1 or seq is not None) and cls is not None:
         raise NotImplementedError(
-            f"serving over model = {model} runs eagerly (graphs=False): its "
-            f"steps hold collectives, which no graph captures; {QUEUE_3C}")
+            f"serving over model = {model} or a sequence cut over data runs "
+            f"eagerly (graphs=False): its steps hold collectives, which no "
+            f"graph captures; {QUEUE_3C}")
+    vocab = bundle.cfg.vocab
 
     def sync():
         if dev.type == "cuda":
@@ -165,51 +187,60 @@ def _serve_lm(arch, dev, rows, *, batch, prompt_len, gen, smoke, seed,
     gs = None if cls is None else GraphSet("serve", dev, cls)
     decode = steps_mod.compiled_decode(bundle, gs, max_len, dev)
 
-    def seen(logits):
+    def seen(logits, block: bool = False):
+        """The next token from a call's logits (this rank's vocab block;
+        with ``block``, this rank's block of the prompt's positions), the
+        whole logits handed to ``on_logits`` first."""
         if on_logits is not None:
-            on_logits(logits)
-        return logits
+            whole = whole_vocab(logits, vocab)
+            if block:
+                whole = mesh.all_gather(whole, seq.axes, dim=1)
+            on_logits(whole)
+        last = logits[:, -1]
+        if block:  # the prompt's last position: the last rank's
+            last = mesh.all_gather(last[:, None], seq.axes, dim=1)[:, -1]
+        return greedy(last, vocab)[:, None]
 
     t0 = time.perf_counter()
-    if prompt_len > 0:
-        if bundle.prefill_cache_fn is not None:
-            prefill = steps_mod.compiled_prefill(bundle, gs)
-            logits = seen(prefill(params, cache, prompts))
-        else:
-            for t in range(prompt_len):
-                logits = seen(decode(params, cache, prompts[:, t:t + 1], t))
-        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
-    else:  # empty prompt: no logits yet, start from token 0
-        tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
-    sync()
-    prefill_s = time.perf_counter() - t0
+    with keep_vocab_cut():
+        if prompt_len > 0:
+            if bundle.prefill_cache_fn is not None:
+                prefill = steps_mod.compiled_prefill(bundle, gs)
+                tok = seen(prefill(params, cache, prompts), seq is not None)
+            else:
+                for t in range(prompt_len):
+                    tok = seen(decode(params, cache, prompts[:, t:t + 1], t))
+        else:  # empty prompt: no logits yet, start from token 0
+            tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        sync()
+        prefill_s = time.perf_counter() - t0
 
-    out_tokens = []
-    t0 = time.perf_counter()
-    for t in range(prompt_len, max_len):
-        out_tokens.append(tok)
-        logits = seen(decode(params, cache, tok, t))
-        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
-    sync()
-    decode_s = time.perf_counter() - t0
-    seq = torch.cat(out_tokens, dim=1)
+        out_tokens = []
+        t0 = time.perf_counter()
+        for t in range(prompt_len, max_len):
+            out_tokens.append(tok)
+            tok = seen(decode(params, cache, tok, t))
+        sync()
+        decode_s = time.perf_counter() - t0
+    seq_tokens = torch.cat(out_tokens, dim=1)
     span_s = decode_s
     if rows is not None:
-        seq = rows.mesh.all_gather(seq, BATCH, dim=0)
+        if seq is None:  # every rank's rows; a held sequence's are alike
+            seq_tokens = rows.mesh.all_gather(seq_tokens, BATCH, dim=0)
         # every rank's tokens over the slowest rank's decode time
         span_s = float(rows.mesh.all_gather(torch.tensor(
             [decode_s], dtype=torch.float64, device=dev), BATCH).max())
-    tok_s = seq.shape[0] * gen / span_s
+    tok_s = seq_tokens.shape[0] * gen / span_s
     if rows is None or rows.mesh.device_mesh.get_rank() == 0:
         print(f"{arch}: prefill {prompt_len} toks in {prefill_s:.2f}s; "
-              f"generated {gen} x {seq.shape[0]} in {span_s:.2f}s "
+              f"generated {gen} x {seq_tokens.shape[0]} in {span_s:.2f}s "
               f"({tok_s:.1f} tok/s)")
     if timings is not None:
         timings.update(drawn, prefill_s=prefill_s, decode_s=decode_s,
                        tok_s=tok_s)
         if gs is not None:
             timings["graphs"] = gs.stats()
-    return seq
+    return seq_tokens
 
 
 def _check_cnn_archs(archs) -> None:

@@ -9,14 +9,17 @@ and ``make_opt_shapes``, the optimizer state as meta tensors.
 
 Under a process mesh of several ranks (``launch.mesh.ProcessMesh``)
 ``build_train_step`` returns a ``ParallelStep``: each rank takes its rows
-of the global batch, the gradients are averaged over the pod and data
-axes, and with ``fsdp`` the params and AdamW moments live as this rank's
-shards (gathered over the data axes before the forward, the gradients
-cut back to them).  Over a ``model`` axis of more than one rank every
-family runs tensor parallel, and the transformer's MoE expert parallel
-(each rank its cut of every leaf: ``models.transformer``, ``rwkv6``,
-``hymba``, ``whisper``); sequence parallelism is ROADMAP Queue A item
-3(c).
+of the global batch (at batch 1, its block of the sequence over the data
+axes: ``sharding.hold_sequence``), the gradients are averaged over the pod
+and data axes, and with ``fsdp`` the params and AdamW moments live as this
+rank's shards (gathered over the data axes before the forward, the
+gradients cut back to them).  Over a ``model`` axis of more than one rank
+every family runs tensor parallel, and the transformer's MoE expert
+parallel (each rank its cut of every leaf: ``models.transformer``,
+``rwkv6``, ``hymba``, ``whisper``), the transformer's residual stream
+sequence parallel under ``REPRO_SEQ_PARALLEL=1``.  The prefill step keeps
+the logits as each rank's vocab block (``sharding.keep_vocab_cut``) and
+the serve step picks the greedy token across the blocks.
 
 The reference's launchers ``jax.jit`` three steps: the decode step and the
 cache-filling prefill (with the cache donated) and the train step (with
@@ -31,25 +34,25 @@ With ``graphs=None`` each runs eagerly.
 from __future__ import annotations
 
 import dataclasses
-import os
 import warnings
 
 import torch
 
 from ..core.graphs import GraphSet
 from ..core.pipeline import Program
-from ..models.common import checkpointed, schema_shardings
+from ..models.common import checkpointed, greedy, schema_shardings
 from ..optim import AdamWConfig, apply_updates, compress_tree, init_state
 from ..optim.schedule import cosine_with_warmup
 from ..sharding import (BATCH, MODEL, QUEUE_3C, NamedSharding, PartitionSpec,
-                        check_data_parallel, gather_tree, resolve_pspec,
-                        shard_tree, sharded_dim_over, spec_axes, use_mesh)
+                        check_data_parallel, gather_tree, hold_sequence,
+                        keep_vocab_cut, resolve_pspec, shard_tree,
+                        sharded_dim_over, spec_axes, use_mesh)
 from ..tree import tree_from_items, tree_items, tree_leaves, tree_map
 from .mesh import ProcessMesh
 
 __all__ = ["TrainConfig", "value_and_grad", "accumulated_value_and_grad",
            "batch_pspecs", "cache_pspecs", "opt_state_pspecs",
-           "make_opt_shapes", "spans_ranks", "check_model_axis", "ParallelStep",
+           "make_opt_shapes", "spans_ranks", "ParallelStep",
            "build_train_step", "build_prefill_step", "build_serve_step",
            "CompiledStep", "compiled_decode", "compiled_prefill",
            "compiled_train_step"]
@@ -166,27 +169,6 @@ def spans_ranks(mesh) -> bool:
     return isinstance(mesh, ProcessMesh) and mesh.size > 1
 
 
-def check_model_axis(bundle, mesh) -> None:
-    """Raise ``NotImplementedError`` where ``mesh`` has a ``model`` axis of
-    more than one rank and the run asks for what does not execute over it,
-    as far as that is known before a step runs: the reference's
-    sequence-parallel residual stream (``REPRO_SEQ_PARALLEL=1``, the
-    transformer family).  Every family runs tensor parallel over
-    ``model``, each leaf and cache cut as the reference places it: the
-    transformer's heads, FFN columns, experts and vocab; RWKV6's heads,
-    FFN columns and vocab; Hymba's heads (or head_dim), SSM channels and
-    FFN columns; Whisper's heads and FFN columns.  What a model cannot cut
-    (a head count that does not divide the ranks, a MoE dispatch group
-    that spans them) raises in the model's code (3(c))."""
-    model = 1 if mesh is None else mesh.shape.get(MODEL, 1)
-    if (model > 1 and bundle.family in ("lm", "vlm")
-            and os.environ.get("REPRO_SEQ_PARALLEL") == "1"):
-        raise NotImplementedError(
-            f"{bundle.name} over model = {model} with REPRO_SEQ_PARALLEL=1: "
-            f"the sequence-parallel residual stream does not execute here; "
-            f"{QUEUE_3C}")
-
-
 def build_train_step(bundle, tcfg: TrainConfig = TrainConfig(), mesh=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, the params and moments updated in place, the gradient that
@@ -229,8 +211,12 @@ def build_train_step(bundle, tcfg: TrainConfig = TrainConfig(), mesh=None):
 class ParallelStep:
     """The train step on a process mesh of (pod, data, model) ranks: the
     batch split over the pod and data axes, each leaf cut over ``model``
-    as ``schema_shardings`` places it (every family's tensor parallelism,
-    the MoE's expert parallelism; ``check_model_axis``).
+    as ``schema_shardings`` places it (every family's tensor parallelism:
+    the transformer's heads, FFN columns, experts and vocab, and under
+    ``REPRO_SEQ_PARALLEL=1`` its residual stream's sequence; RWKV6's
+    heads, FFN columns and vocab; Hymba's heads or head_dim, SSM channels
+    and FFN columns; Whisper's heads and FFN columns; what a model cannot
+    cut raises in the model's code, 3(c)).
 
     ``param_shardings`` / ``opt_shardings`` place the params and the AdamW
     state: with ``fsdp``, ``schema_shardings(..., fsdp=True)`` also cuts
@@ -251,7 +237,6 @@ class ParallelStep:
 
     def __init__(self, bundle, tcfg: TrainConfig, mesh: ProcessMesh,
                  compress: bool):
-        check_model_axis(bundle, mesh)
         self.bundle, self.tcfg, self.mesh = bundle, tcfg, mesh
         self.compress = compress
         self.data_axes = tuple(a for a in BATCH if a in mesh.shape)
@@ -266,6 +251,16 @@ class ParallelStep:
                               "v": self.param_shardings,
                               "step": NamedSharding(mesh, PartitionSpec())}
 
+    def held_sequence(self, batch: dict) -> tuple:
+        """The data axes that cut a batch of one row along its sequence
+        (the bundle's ``batch_axes`` place a batch-1 sequence over
+        ``data``), else ``()``: the axes ``hold_sequence`` names around the
+        loss."""
+        tokens = batch["tokens"]
+        if tokens.shape[0] != 1 or self.mesh.shape.get("data", 1) == 1:
+            return ()
+        return ("data",)
+
     def local_batch(self, batch: dict) -> dict:
         """This rank's rows of every leaf of the global ``batch``, cut over
         the pod and data axes that divide them (``batch_pspecs``).  Where
@@ -273,10 +268,25 @@ class ParallelStep:
         cell), its ranks hold the same rows: the loss and gradient averaged
         over every data rank are still the batch's, each block of rows
         being held by as many ranks.  A MoE refuses that, since its
-        dispatch groups are those of distinct rows (3(c))."""
+        dispatch groups are those of distinct rows (3(c)).  A batch of one
+        row is cut along its sequence over ``data`` instead (tokens,
+        labels and a prefix alike, equal blocks of at least two
+        positions): each rank's loss is the mean over its block, so the
+        average over the data ranks is the sequence's mean."""
         specs = batch_pspecs(self.bundle, batch, self.mesh)
+        seq = self.held_sequence(batch)
         for key, spec in specs.items():
             what = f"batch leaf {key!r} {tuple(batch[key].shape)}"
+            if seq:
+                k = self.mesh.group_size(seq)
+                n = batch[key].shape[1]
+                if n % k or n // k < 2:
+                    raise ValueError(f"{what}: a sequence of {n} over {k} "
+                                     f"data ranks needs equal blocks of at "
+                                     f"least 2 positions")
+                check_data_parallel(spec, None, self.mesh.shape, True, what,
+                                    seq_dim=1, seq_axes=seq)
+                continue
             rows = spec_axes(spec[0]) if len(spec) else ()
             alike = [a for a in BATCH if self.mesh.shape.get(a, 1) > 1
                      and a not in rows]
@@ -322,9 +332,10 @@ class ParallelStep:
     def _step(self, params, opt_state, batch):
         tcfg, mesh = self.tcfg, self.mesh
         full = gather_tree(params, self.param_shardings, self.data_axes)
-        loss, grads = accumulated_value_and_grad(
-            self.bundle.loss_fn, full, self.local_batch(batch),
-            tcfg.microbatches, tcfg.remat)
+        with hold_sequence(self.held_sequence(batch)):
+            loss, grads = accumulated_value_and_grad(
+                self.bundle.loss_fn, full, self.local_batch(batch),
+                tcfg.microbatches, tcfg.remat)
         del full
         loss = mesh.all_reduce(loss, self.data_axes) / self.ranks
         if self.compress:
@@ -333,8 +344,16 @@ class ParallelStep:
             grads = gather_tree(grads, self.param_shardings, (MODEL,))
             grads, _ = compress_tree(grads, None, tcfg.grad_compression)
             grads = shard_tree(grads, self.param_shardings)
-        else:
-            grads = tree_map(self._mean, grads, self.param_shardings)
+        else:  # each leaf's local gradient released as its mean is taken
+            items = tree_items(grads)
+            del grads
+            means = []
+            for i, sh in enumerate(tree_leaves(self.param_shardings)):
+                path, g = items[i]
+                items[i] = None
+                means.append((path, self._mean(g, sh)))
+            del g
+            grads = tree_from_items(means)
         lr_scale = cosine_with_warmup(opt_state["step"], warmup=tcfg.warmup,
                                       total=tcfg.total_steps)
         params, opt_state, metrics = apply_updates(
@@ -344,17 +363,25 @@ class ParallelStep:
 
 
 def build_prefill_step(bundle):
+    """``prefill(params, batch) -> logits``: over model ranks each rank's
+    vocab block of them, as the reference's output is held cut
+    (``bundle.prefill_fn`` outside the step gathers them whole)."""
     def prefill(params, batch):
-        return bundle.prefill_fn(params, batch)
+        with keep_vocab_cut():
+            return bundle.prefill_fn(params, batch)
 
     return prefill
 
 
 def build_serve_step(bundle):
+    """``serve(params, cache, batch) -> (next token (B,) int32, cache)``:
+    the greedy token of one decode step, picked across the ranks' vocab
+    blocks over model ranks (``models.common.greedy``)."""
     def serve(params, cache, batch):
-        logits, cache = bundle.decode_fn(params, cache, batch)
+        with keep_vocab_cut():
+            logits, cache = bundle.decode_fn(params, cache, batch)
         # greedy next token (the serving loop feeds it back)
-        next_tok = logits[:, -1, :].argmax(dim=-1).to(torch.int32)
+        next_tok = greedy(logits[:, -1, :], bundle.cfg.vocab).to(torch.int32)
         return next_tok, cache
 
     return serve

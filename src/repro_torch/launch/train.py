@@ -68,7 +68,8 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool = False,
     ``seed`` a leaf at a time and keeps its cut of each (over ``model`` as
     ``schema_shardings`` places it, and over the data axes with FSDP,
     ``TrainConfig``'s default, as the reference's), and takes its rows of
-    each global batch (``steps.ParallelStep``); ``grad_compression``
+    each global batch (``steps.ParallelStep``; a global batch of 1, its
+    block of the sequence over the data ranks); ``grad_compression``
     applies where the mesh has a ``"pod"`` axis.  Its steps run eagerly
     (with ``graphs`` a graph class, or ``True`` on the card, it raises).  Checkpoints are
     gathered to full leaves and written by rank 0 alone, so they restore

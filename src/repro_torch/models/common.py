@@ -25,15 +25,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
-from ..sharding import (NamedSharding, PartitionSpec, active_mesh, model_ranks,
-                        shard_tree, use_mesh)
+from ..sharding import (NamedSharding, PartitionSpec, model_ranks, placement,
+                        sequence_ranks, shard_tree, use_placement,
+                        vocab_cut_kept)
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["ParamSpec", "MODEL_AXIS", "stack_schema", "spec_to_pspec",
            "schema_init", "schema_shapes", "schema_pspecs", "count_params",
            "schema_shardings",
            "params_from_numpy", "at_least_fp32", "embed_rows", "vocab_logits",
-           "rms_norm",
+           "whole_vocab", "greedy", "held_block", "prev_rows", "rms_norm",
            "softcap", "rope_inv_freq", "apply_rope", "make_attn_mask",
            "attention", "next_token_nll", "position_index", "checkpointed", "NEG_INF"]
 
@@ -179,23 +180,65 @@ def checkpointed(fn, *args):
     backward recomputes it, saving only its inputs (the reference's
     ``jax.checkpoint``).  No model draws random numbers, so no RNG state
     is saved; reading the card's would fail inside a CUDA-graph capture
-    of a train step.  The recompute runs under the mesh that was active
-    for the forward: on the card the backward runs on autograd's device
-    thread, which does not see the caller's ``use_mesh``."""
-    mesh = active_mesh()
+    of a train step.  The recompute runs under the placement that was
+    active for the forward (the mesh, a held sequence, a kept vocab cut:
+    ``sharding.placement``): on the card the backward runs on autograd's
+    device thread, which does not see the caller's ``use_mesh``."""
+    state = placement()
 
     def run(*a):
-        with use_mesh(mesh):
+        with use_placement(state):
             return fn(*a)
 
     return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
-def next_token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def next_token_nll(logits: torch.Tensor, targets: torch.Tensor,
+                   vocab: int | None = None) -> torch.Tensor:
     """Mean negative log-likelihood of ``targets`` (B, S) under ``logits``
-    (B, S, V): the reference's ``lm_loss`` tail."""
+    (B, S, V): the reference's ``lm_loss`` tail.  Over model ranks whose
+    ``logits`` are their block of the ``vocab`` columns (``vocab_logits``
+    with the cut kept) it is the vocab-parallel cross-entropy: no rank
+    holds the whole vocabulary."""
+    tp = model_ranks()
+    if vocab is not None and tp is not None and logits.shape[-1] != vocab:
+        lo = tp.rank * logits.shape[-1]
+        return _VocabParallelNLL.apply(logits, targets, lo, tp).mean()
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, targets.long()[..., None])[..., 0].mean()
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Megatron's vocab-parallel cross-entropy (arXiv:1909.08053 §3): per
+    position ``log(sum_v exp(l_v - m)) - (l_t - m)`` from this rank's block
+    of the logits, with ``m`` the all-reduced maximum and the sum of
+    exponentials and the target's shifted logit (from the rank that holds
+    it, zero elsewhere) all-reduced together.  Backward, this rank's block
+    of ``softmax - onehot(target)``, the only tensor saved."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo, tp):
+        n = logits.shape[-1]
+        mx = tp.all_reduce(logits.amax(dim=-1), "max")
+        z = logits - mx[..., None]
+        loc = targets.long() - lo
+        inside = (loc >= 0) & (loc < n)
+        loc = loc.clamp(0, n - 1)
+        zt = torch.where(inside, torch.gather(z, -1, loc[..., None])[..., 0],
+                         0.0)
+        e = z.exp_()
+        tot = tp.all_reduce(torch.stack([e.sum(dim=-1), zt]))
+        e.div_(tot[0][..., None])  # this rank's block of the softmax
+        ctx.save_for_backward(e, loc, inside)
+        return torch.log(tot[0]) - tot[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        p, loc, inside = ctx.saved_tensors
+        g = p * grad[..., None]
+        g.scatter_add_(-1, loc[..., None],
+                       torch.where(inside, -grad, 0.0)[..., None].to(g.dtype))
+        return g, None, None, None
 
 
 def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
@@ -222,13 +265,70 @@ def embed_rows(table: torch.Tensor, tokens: torch.Tensor,
 def vocab_logits(x: torch.Tensor, head: torch.Tensor, vocab: int,
                  finish=at_least_fp32) -> torch.Tensor:
     """``finish(x @ head)`` for a head (d, V).  Over model ranks that hold
-    its block of vocab columns, each computes that block and the blocks
-    are gathered whole: the loss that follows is the same on every rank,
-    so the gradient is this rank's slice."""
+    its block of vocab columns, each computes that block (``finish``, a
+    softcap, applied to it); under ``sharding.keep_vocab_cut`` the block is
+    returned as it is, for the vocab-parallel loss (``next_token_nll``) or
+    the greedy pick (``greedy``), else the blocks are gathered whole: what
+    follows is then the same on every rank, so the gradient is this rank's
+    slice."""
     tp = model_ranks()
     if tp is None or not tp.cut(head, 1, vocab):
         return finish(x @ head)
-    return tp.gather(finish(tp.copy(x) @ head), -1)
+    block = finish(tp.copy(x) @ head)
+    if vocab_cut_kept():
+        return block
+    return tp.gather(block, -1)
+
+
+def whole_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``logits`` (.., V) whole: where they are this rank's block of the
+    ``vocab`` columns (``vocab_logits`` with the cut kept), the blocks
+    all-gathered, no gradient; else as they are."""
+    tp = model_ranks()
+    if tp is None or logits.shape[-1] == vocab:
+        return logits
+    return tp.mesh.all_gather(logits, "model", dim=-1)
+
+
+def greedy(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``logits.argmax(-1)`` over the whole vocabulary, int64.  Where the
+    logits are this rank's block of the ``vocab`` columns, each rank takes
+    its block's maximum and first index at it, and the winner is reduced
+    over ``model``: the largest value, then among the ranks holding it the
+    lowest index (the whole vocabulary's first maximum, as ``argmax``)."""
+    tp = model_ranks()
+    if tp is None or logits.shape[-1] == vocab:
+        return logits.argmax(dim=-1)
+    n = logits.shape[-1]
+    idx = logits.argmax(dim=-1)
+    val = torch.gather(logits, -1, idx[..., None])[..., 0]
+    top = tp.all_reduce(val, "max")
+    cand = torch.where(val == top, -(idx + tp.rank * n),
+                       torch.full_like(idx, -vocab))
+    return -tp.all_reduce(cand, "max")
+
+
+def held_block(x: torch.Tensor):
+    """The ranks that cut a held sequence (``sharding.sequence_ranks``)
+    where ``x`` (B, T, ...) is a pass over several positions, so this
+    rank's block of them; else None (no held sequence, or a one-position
+    pass, which is whole on every rank)."""
+    return sequence_ranks() if x.shape[1] > 1 else None
+
+
+def prev_rows(seq, x: torch.Tensor, n: int, first: torch.Tensor) -> torch.Tensor:
+    """The last ``n`` rows (dimension 1) of the previous rank's block of
+    ``x`` (B, T, ...) over the ranks ``seq`` (a halo: a token shift's or a
+    causal conv's carry across a block boundary); ``first`` (B, n, ...)
+    for rank 0.  The blocks' last rows are gathered (backward, summed to
+    the rank that holds each), and every rank reads the gather, so every
+    rank's backward runs its collective."""
+    if x.shape[1] < n:
+        raise ValueError(f"a block of {x.shape[1]} positions carries {n} rows")
+    rows = seq.gather(x[:, -n:], 1)
+    if seq.rank == 0:
+        return first.to(x.dtype) + rows[:, :n] * 0.0
+    return rows[:, (seq.rank - 1) * n:seq.rank * n]
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

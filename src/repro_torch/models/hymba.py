@@ -58,13 +58,13 @@ import torch
 import torch.nn.functional as F
 
 from ..devices import resolve_device
-from ..sharding import (BATCH, QUEUE_3C, active_mesh, model_ranks,
-                        resolve_pspec, shard_hint, spec_axes)
+from ..sharding import (BATCH, QUEUE_3C, active_mesh, keep_vocab_cut,
+                        model_ranks, resolve_pspec, shard_hint, spec_axes)
 from ..tree import tree_map
-from .common import (ParamSpec, apply_rope, attention, embed_rows,
-                     make_attn_mask, next_token_nll, position_index, rms_norm,
-                     rope_inv_freq, stack_schema, vocab_logits)
-from .linear_scan import chunked_linear_attention, linear_step
+from .common import (ParamSpec, apply_rope, attention, embed_rows, held_block,
+                     make_attn_mask, next_token_nll, position_index, prev_rows,
+                     rms_norm, rope_inv_freq, stack_schema, vocab_logits)
+from .linear_scan import chunked_linear_attention, linear_step, scan_over_ranks
 from .transformer import attend, glu_ffn, heads_tp, kv_for, row_out
 
 __all__ = ["HymbaConfig", "hymba_schema", "init_state", "forward",
@@ -173,6 +173,9 @@ def _ssm_branch(w, x, cfg: HymbaConfig, conv_tail, s, decode: bool,
     b, t, _ = x.shape
     di = cfg.d_inner
     u, z = (x @ w["w_in"]).chunk(2, dim=-1)
+    seq = None if decode else held_block(x)
+    if seq is not None:  # the previous block's last rows
+        conv_tail = prev_rows(seq, u, cfg.conv_width - 1, conv_tail)
     u, conv_tail = _causal_conv(u, w["conv"], conv_tail)
     u = F.silu(u.float()).to(x.dtype)
     b_in, c_out = (u @ w["w_bc"]).chunk(2, dim=-1)  # (B, T, ns) each
@@ -202,6 +205,10 @@ def _scan(cfg: HymbaConfig, u, b_in, c_out, dt, a_log, s, decode: bool,
     if decode:
         y, s = linear_step(rh[:, 0], kh[:, 0], vh[:, 0], lw[:, 0], s)
         return y[:, None], s
+    seq = held_block(u)
+    if seq is not None:  # this rank's block, from the ranks before it
+        return scan_over_ranks(seq, rh, kh, vh, lw, chunk=cfg.chunk,
+                               remat=remat), s
     return chunked_linear_attention(rh, kh, vh, lw, chunk=cfg.chunk, state=s,
                                     remat=remat)
 
@@ -224,8 +231,12 @@ def _unembed(params, cfg: HymbaConfig, x):
     return vocab_logits(x, params["embed"].t(), cfg.vocab, lambda t: t.float())
 
 
-def _attn_branch(w, x, cfg: HymbaConfig, rope, pos, autograd: bool):
-    """The attention branch over the prompt (positions ``pos`` from 0)."""
+def _attn_branch(w, x, cfg: HymbaConfig, rope, pos, autograd: bool,
+                 k_pos=None):
+    """The attention branch over the prompt (positions ``pos`` from 0).
+    Under a held sequence ``x`` is this rank's block at positions ``pos``:
+    every block's K/V are gathered (keys at ``k_pos``) and masked by
+    position under the window."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     tp = model_ranks()
@@ -238,8 +249,13 @@ def _attn_branch(w, x, cfg: HymbaConfig, rope, pos, autograd: bool):
                       cfg.n_heads // cfg.n_kv_heads)
     else:
         q, k, v = _qkv(w, x, cfg, rope, pos)
-    attn = attend(q, k, v, pos, pos, scale=1.0 / math.sqrt(hd),
-                  window=cfg.window, start=0, flash_chunk=cfg.flash_chunk,
+    seq = held_block(x)
+    if seq is not None:
+        k, v = seq.gather(k, 1), seq.gather(v, 1)
+    attn = attend(q, k, v, pos, pos if seq is None else k_pos,
+                  scale=1.0 / math.sqrt(hd), window=cfg.window,
+                  start=0 if seq is None else None,
+                  flash_chunk=cfg.flash_chunk,
                   autograd=autograd).reshape(b, s, -1)
     return attn @ w["wo_attn"] if tp is None else row_out(tp, attn, w["wo_attn"])
 
@@ -250,11 +266,21 @@ def forward(params, cfg: HymbaConfig, tokens: torch.Tensor, *,
     tail bf16 zeros, as the reference's).  ``autograd=False`` is the
     serving route (attention on K4 where ``attend_route`` says so);
     ``autograd=True`` the training route, which backward differentiates
-    (each scan chunk recomputed in backward, as the reference's)."""
+    (each scan chunk recomputed in backward, as the reference's).  Under a
+    held sequence (batch 1) ``tokens`` is this rank's block: the attention
+    gathers every block's K/V, the causal conv takes the previous block's
+    last rows, and the scan composes its state across the blocks."""
     b, s = tokens.shape
     x = embed_rows(params["embed"], tokens, cfg.vocab)
-    x = shard_hint(x, BATCH, "data" if b == 1 else None, None)
-    pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    seq = held_block(x)
+    # at batch 1 the sequence over data: a held sequence's block
+    x = shard_hint(x, BATCH, "data" if b == 1 else None, None,
+                   seq_dim=1 if seq is not None else None)
+    if seq is None:
+        pos = k_pos = torch.arange(s, dtype=torch.int32,
+                                   device=x.device).expand(b, s)
+    else:
+        pos, k_pos = (p.expand(b, -1) for p in seq.positions([s], x.device))
     rope = rope_inv_freq(cfg.head_dim, cfg.rope_base, x.device)
     tail = torch.zeros((b, cfg.conv_width - 1, cfg.d_inner), dtype=torch.bfloat16,
                        device=x.device)
@@ -262,7 +288,7 @@ def forward(params, cfg: HymbaConfig, tokens: torch.Tensor, *,
                      dtype=torch.float32, device=x.device)
     for w in _layers(params, cfg):
         h_in = rms_norm(x, w["ln"])
-        attn_out = _attn_branch(w, h_in, cfg, rope, pos, autograd)
+        attn_out = _attn_branch(w, h_in, cfg, rope, pos, autograd, k_pos)
         ssm_out, _, _ = _ssm_branch(w, h_in, cfg, tail, s0, False, autograd)
         x = _fuse_and_ffn(w, x, attn_out, ssm_out, cfg)
     return _unembed(params, cfg, x)
@@ -307,6 +333,9 @@ def _ssm_branch_tp(tp, w, x, cfg: HymbaConfig, conv_tail, s, decode: bool,
                                   f"{tp.size}; {QUEUE_3C}")
     blk = tp.block(di)
     u_in, u, z = _uz_blocks(tp, x, w["w_in"], di)
+    seq = None if decode else held_block(x)
+    if seq is not None:  # the previous block's last rows, every channel
+        conv_tail = prev_rows(seq, u_in, cfg.conv_width - 1, conv_tail)
     u, _ = _causal_conv(u, w["conv"], conv_tail[..., blk])
     # the next call's tail, every channel
     tail = torch.cat([conv_tail.to(u_in.dtype), u_in], dim=1)[:, -(
@@ -480,4 +509,6 @@ def lm_loss(params, cfg: HymbaConfig, tokens: torch.Tensor,
             targets: torch.Tensor) -> torch.Tensor:
     """Mean next-token negative log-likelihood of ``targets`` (B, T),
     through the training route."""
-    return next_token_nll(forward(params, cfg, tokens, autograd=True), targets)
+    with keep_vocab_cut():  # the vocab-parallel loss over model ranks
+        logits = forward(params, cfg, tokens, autograd=True)
+    return next_token_nll(logits, targets, cfg.vocab)

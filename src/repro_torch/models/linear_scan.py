@@ -17,6 +17,15 @@ and the carried state ``exp(lp[last] - lp[tau])``.  A Python loop carries
 the state across chunks (the reference's ``lax.scan``), so the pair
 tensors are ``(B, C, C, H, dk)`` a chunk, not ``O(T^2)``.  These are plain
 PyTorch, as the reference's are plain ``jnp``: no kernel takes them.
+
+Over ranks that each hold a block of the sequence (a batch of one cut
+over ``data``), ``scan_over_ranks`` composes the scan across them: the
+recurrence is linear in the state, so each rank scans its block from a
+zero state, and the state its block would have started from is the
+earlier blocks' final states carried through the later blocks' total
+decays; its outputs gain ``r_t . (decay to t (x) state in)``.  The bonus
+touches only the current token, never the carried state, so it needs no
+correction.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ import torch.nn.functional as F
 
 from .common import at_least_fp32, checkpointed
 
-__all__ = ["chunked_linear_attention", "linear_step"]
+__all__ = ["chunked_linear_attention", "linear_step", "scan_over_ranks"]
 
 
 def _pad_steps(a: torch.Tensor, pad: int) -> torch.Tensor:
@@ -118,3 +127,38 @@ def linear_step(r, k, v, log_decay, state, *, bonus_u=None):
         state = state * w + kv
         y = torch.einsum("bhk,bhkv->bhv", at_least_fp32(r), state)
     return y.to(r.dtype), state
+
+
+def scan_over_ranks(seq, r, k, v, log_decay, *, bonus_u=None, chunk: int = 64,
+                    remat: bool = False) -> torch.Tensor:
+    """``chunked_linear_attention`` of a sequence whose blocks lie on the
+    ranks ``seq`` (``sharding.SequenceRanks``, group order = sequence
+    order), each rank holding ``r``/``k``/``v``/``log_decay`` of its block
+    and every block starting from the zero state: returns this rank's
+    block of ``y``, the whole scan's function (its sums reordered).
+
+    Each rank scans its block from zero, keeping its final state and its
+    block's summed log-decay; both are gathered over ``seq`` (backward,
+    the ranks' gradients summed: ``SequenceRanks.gather``), rank ``i``
+    composes ``state_in = sum_{j<i} S_j * prod_{j<l<i} exp(L_l)``, and its
+    outputs gain ``r_t * exp(lp_t)`` contracted with it, ``lp_t`` the
+    cumulative log-decay to ``t`` (to ``t - 1`` in RWKV mode, whose query
+    sees the state before its own step)."""
+    y, state = chunked_linear_attention(r, k, v, log_decay, bonus_u=bonus_u,
+                                        chunk=chunk, remat=remat)
+    lw = at_least_fp32(log_decay)
+    total = lw.sum(dim=1)  # (B, H, dk) the block's log-decay
+    # one gather of both: (R, B, H, dk, dv + 1)
+    packed = seq.gather(torch.cat([state, total[..., None]], dim=-1)[None], 0)
+    states, totals = packed[..., :-1], packed[..., -1]
+    # every rank reads the gather (rank 0 as zeros), so every rank's
+    # backward runs its collective
+    s_in = states[0] * (1.0 if seq.rank > 0 else 0.0)
+    for j in range(1, seq.rank):
+        s_in = s_in * torch.exp(totals[j])[..., None] + states[j]
+    lp = torch.cumsum(lw, dim=1)
+    if bonus_u is not None:
+        lp = F.pad(lp, (0, 0, 0, 0, 1, 0))[:, :-1]
+    corr = torch.einsum("bthk,bhkv->bthv", at_least_fp32(r) * torch.exp(lp),
+                        s_in)
+    return (y.to(corr.dtype) + corr).to(y.dtype)

@@ -19,9 +19,14 @@ dispatches of those entries compute the same function:
 
 Under a process mesh whose ranks split the batch, the dispatch groups
 are the reference's groups of the global tokens: a rank dispatches the
-groups that its rows make up, with the reference's capacity, and a
-group that would span ranks (``dispatch_groups`` not a multiple of the
-ranks) raises ``NotImplementedError`` (ROADMAP Queue A item 3(c)).
+groups that its rows make up (at a batch of one held over the data
+ranks, its block of the sequence: the same contiguous tokens), with the
+reference's capacity, and a group that would span ranks
+(``dispatch_groups`` not a multiple of the ranks) raises
+``NotImplementedError`` (ROADMAP Queue A item 3(c)).  Under the
+sequence-parallel stream the layer gathers the MoE's input over
+``model`` and cuts its summed output back to the rank's block
+(``models.transformer._layer``): the dispatch is the whole sequence's.
 
 Expert parallelism: where the mesh's ``model`` axis has more than one
 rank (``sharding.model_ranks``) each rank holds its block of ``E /

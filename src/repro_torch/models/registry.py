@@ -25,8 +25,8 @@ from . import rwkv6 as rwkv_mod
 from . import transformer as lm
 from . import whisper as whisper_mod
 from ..devices import resolve_device
-from ..sharding import (BATCH, QUEUE_3C, batch_ranks, model_ranks,
-                        resolve_pspec, spec_axes)
+from ..sharding import (BATCH, QUEUE_3C, batch_ranks, held_sequence,
+                        model_ranks, resolve_pspec, spec_axes)
 from ..tree import tree_map
 from .common import schema_init, schema_shapes
 
@@ -111,14 +111,18 @@ def rank_cache(make: Callable, cache_axes: Callable) -> Callable:
     """A bundle's ``make_cache`` from its family's ``make(b, s, dtype,
     device)`` (the whole cache of ``b`` rows) and ``cache_axes``: as
     ``make`` with no model ranks; over model ranks, this rank's cut of the
-    cache of every data rank's rows (``b`` this rank's), each leaf cut as
+    cache of every data rank's rows (``b`` this rank's; under a held
+    sequence the one row every rank holds), each leaf cut as
     ``cache_axes`` places it on the mesh (``steps.cache_pspecs``): zeros
-    of the cut's shape, a leaf the reference replicates whole."""
+    of the cut's shape, a leaf the reference replicates whole.  A leaf
+    whose sequence ``cache_axes`` places over ``data`` at batch 1 is cut
+    over it as over ``model`` (the reference's ``_kv_cache_axes``)."""
     def make_cache(b, s, dtype=torch.float32, device="cuda"):
         tp = model_ranks()
         if tp is None:
             return make(b, s, dtype, device)
-        full = make(b * batch_ranks(), s, dtype, "meta")
+        rows = 1 if held_sequence() else batch_ranks()
+        full = make(b * rows, s, dtype, "meta")
         dev = resolve_device(device)
         sizes = tp.mesh.shape
 

@@ -47,11 +47,12 @@ import torch
 import torch.nn.functional as F
 
 from ..devices import resolve_device
-from ..sharding import BATCH, QUEUE_3C, model_ranks, shard_hint
+from ..sharding import BATCH, QUEUE_3C, keep_vocab_cut, model_ranks, shard_hint
 from ..tree import tree_map
 from .common import (ParamSpec, at_least_fp32, checkpointed, embed_rows,
-                     next_token_nll, rms_norm, stack_schema, vocab_logits)
-from .linear_scan import chunked_linear_attention, linear_step
+                     held_block, next_token_nll, prev_rows, rms_norm,
+                     stack_schema, vocab_logits)
+from .linear_scan import chunked_linear_attention, linear_step, scan_over_ranks
 
 __all__ = ["RwkvConfig", "rwkv_schema", "init_state", "forward", "decode_step",
            "lm_loss"]
@@ -162,10 +163,14 @@ def _heads_scan(w, cfg: RwkvConfig, r, k, v, log_w, state, u, ln_head,
     n = r.shape[-1] // hd
     rh, kh, vh, lw = (a.reshape(b, t, n, hd) for a in (r, k, v, log_w))
     u = at_least_fp32(u)
+    seq = None if decode else held_block(r)
     if decode:
         y, state = linear_step(rh[:, 0], kh[:, 0], vh[:, 0], lw[:, 0], state,
                                bonus_u=u)
         y = y[:, None]
+    elif seq is not None:  # this rank's block, from the ranks before it
+        y = scan_over_ranks(seq, rh, kh, vh, lw, bonus_u=u, chunk=cfg.chunk,
+                            remat=remat)
     else:
         y, state = chunked_linear_attention(rh, kh, vh, lw, bonus_u=u,
                                             chunk=cfg.chunk, state=state,
@@ -187,11 +192,18 @@ def _channel_mix(w, x, x_prev, decode: bool):
 
 def _layer(w, x, cfg: RwkvConfig, xa, xf, s, decode: bool, remat: bool):
     """One layer: ``(x', xa', xf', s')``.  The shift carries are the
-    normed inputs of the two mixes, not the residual stream."""
+    normed inputs of the two mixes, not the residual stream.  Under a held
+    sequence each mix's carry into this rank's block is the previous
+    rank's last row (``prev_rows``; rank 0's the zero state's)."""
+    seq = None if decode else held_block(x)
     h_in = rms_norm(x, w["ln_att"])
+    if seq is not None:
+        xa = prev_rows(seq, h_in, 1, xa[:, None])[:, 0]
     att, xa, s = _time_mix(w, h_in, cfg, xa, s, decode, remat)
     x = x + att
     h2 = rms_norm(x, w["ln_ffn"])
+    if seq is not None:
+        xf = prev_rows(seq, h2, 1, xf[:, None])[:, 0]
     ffn, xf = _channel_mix(w, h2, xf, decode)
     return x + ffn, xa, xf, s
 
@@ -294,7 +306,9 @@ def _run(params, cfg: RwkvConfig, tokens, state, decode: bool,
     ``torch.utils.checkpoint`` (the reference's per-layer and per-chunk
     remat)."""
     x = embed_rows(params["embed"], tokens, cfg.vocab)
-    x = shard_hint(x, BATCH, "data" if x.shape[0] == 1 else None, None)
+    # at batch 1 the sequence over data: a held sequence's block
+    x = shard_hint(x, BATCH, "data" if x.shape[0] == 1 else None, None,
+                   seq_dim=1 if held_block(x) is not None else None)
     layers = tree_map(lambda leaf: leaf.unbind(0), params["layers"])
     new = []
     for l in range(cfg.layers):
@@ -315,9 +329,12 @@ def forward(params, cfg: RwkvConfig, tokens: torch.Tensor, *,
     """``tokens`` (B, T) -> logits (B, T, V), from a zero state built in
     bf16 as the reference's (its zeros are exact in any dtype).
     ``autograd`` is the training route (remat per layer and per chunk);
-    the values are the same."""
+    the values are the same.  Under a held sequence (batch 1) ``tokens`` is
+    this rank's block: the token shifts take the previous block's last
+    rows and the scan composes its state across the blocks."""
     state = init_state(cfg, tokens.shape[0], torch.bfloat16, tokens.device)
-    logits, _ = _run(params, cfg, tokens, state, decode=False, autograd=autograd)
+    logits, _ = _run(params, cfg, tokens, state, decode=False,
+                     autograd=autograd)
     return logits
 
 
@@ -338,4 +355,6 @@ def lm_loss(params, cfg: RwkvConfig, tokens: torch.Tensor,
             targets: torch.Tensor) -> torch.Tensor:
     """Mean next-token negative log-likelihood of ``targets`` (B, T),
     through the training route."""
-    return next_token_nll(forward(params, cfg, tokens, autograd=True), targets)
+    with keep_vocab_cut():  # the vocab-parallel loss over model ranks
+        logits = forward(params, cfg, tokens, autograd=True)
+    return next_token_nll(logits, targets, cfg.vocab)

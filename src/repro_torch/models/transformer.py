@@ -49,7 +49,9 @@ divides: SmolLM's 9 heads) the projection is gathered, every rank attends
 every head and keeps its row block for ``wo``; query heads whose KV heads
 another rank holds take them from the gathered K/V.  The embedding looks
 up this rank's vocab rows (zeros elsewhere) and sums; the logits are this
-rank's vocab block, gathered whole.  MLA cuts its heads (``wq``/``wq_b``,
+rank's vocab block, kept so by the loss (``common.next_token_nll``'s
+vocab-parallel cross-entropy) and under ``sharding.keep_vocab_cut`` (the
+prefill and serve steps), else gathered whole.  MLA cuts its heads (``wq``/``wq_b``,
 ``wkv_b``, ``wo``); its latents and norms are whole on every rank.  The
 caches are cut as the reference's ``cache_axes`` place them: the KV heads
 over ``model`` where they divide the production degree 16 (each rank
@@ -58,8 +60,26 @@ of positions and writes the new positions that fall in it; a decode step
 attends over its own positions and the ranks' partial softmaxes are
 merged by log-sum-exp; MLA's in the absorbed form, ``wkv_b``'s key half
 folded into the query, so only latent queries cross ranks).  A decode
-step moves no cache leaf between ranks.  A placement this does not
-execute raises ``NotImplementedError`` (ROADMAP Queue A item 3(c)).
+step moves no cache leaf between ranks.
+
+The sequence over the mesh.  At a batch of one under
+``sharding.hold_sequence`` (the reference's fallback to the sequence over
+``data``) a pass over several positions holds this rank's block of them,
+at its own positions (PaliGemma's prefix and tokens each cut so): the
+attention gathers every block's K/V (MLA's latents) over the data ranks,
+the gradient reduce-scattered back, and masks by position, so it takes
+the chunked or plain route, never K4, whose mask is by index.  The cache
+holds this rank's block of positions, over data and ``model`` jointly
+where the layout is ``"seq"`` and over data beside heads over ``model``
+otherwise (``_cache_ranks``): a prefill writes the gathered prompt's
+positions that fall in the block, a decode step's one token lands on the
+rank that owns its slot, and the step attends over the rank's block,
+merged by log-sum-exp over the ranks that cut it (``merged_decode``).
+Under ``REPRO_SEQ_PARALLEL=1`` over model ranks a pass with no cache
+holds the residual stream cut on its sequence over ``model`` between the
+stacks' entry and exit (``_layer``: Megatron's sequence parallelism).  A
+placement this does not execute raises ``NotImplementedError`` (ROADMAP
+Queue A item 3(c)).
 """
 from __future__ import annotations
 
@@ -73,7 +93,8 @@ import torch.nn.functional as F
 
 from ..devices import resolve_device
 from ..kernels.flash_attn import HEAD_DIMS, flash_attention
-from ..sharding import BATCH, QUEUE_3C, model_ranks, shard_hint
+from ..sharding import (BATCH, MODEL, QUEUE_3C, held_sequence, keep_vocab_cut,
+                        model_ranks, sequence_ranks, shard_hint)
 from ..tree import tree_leaves
 from ..tree import tree_map as map_params
 from .common import (NEG_INF, ParamSpec, apply_rope, attention, checkpointed,
@@ -410,15 +431,21 @@ def _write(cache: dict, name: str, new: torch.Tensor,
 
 
 def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
-              start: int | None = None, autograd: bool = False):
+              start: int | None = None, autograd: bool = False,
+              sp: bool = False):
     """The attention block's output.  ``cache`` = dict(k=(B, S, hkv, hd),
     v=...) is written in place at the positions ``q_pos``, or None.
     ``start`` (0 or None) is ``attend``'s.  ``autograd`` takes the
-    training route (``attend``'s, never K4)."""
+    training route (``attend``'s, never K4).  Under a held sequence
+    (``sharding.sequence_ranks``) ``x`` is this rank's block of positions
+    ``q_pos`` and the K/V of every block are gathered (masked by position,
+    ``k_pos`` every rank's); a cache is this rank's block of positions
+    (``_seq_cache_write``).  ``sp``: the output reduce-scattered over the
+    sequence (``REPRO_SEQ_PARALLEL``, ``_layer``)."""
     tp = model_ranks()
     if tp is not None:
         return _gqa_attn_tp(tp, w, x, cfg, rope, q_pos, k_pos, window, cache,
-                            start, autograd)
+                            start, autograd, sp)
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ w["wq"]).reshape(b, s, h, hd)
@@ -429,23 +456,37 @@ def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
         k = rms_norm(k, w["k_ln"])
     q = apply_rope(q, rope, q_pos)
     k = apply_rope(k, rope, q_pos)
-    if cache is not None:
+    seq = sequence_ranks()
+    if cache is not None and seq is not None:  # the cache's block of positions
+        k, v, k_pos = _seq_cache_write(seq, cache, ("k", "v"), (k, v), start,
+                                       held=seq)
+        if s == 1:
+            out = merged_decode(seq, q, cache["k"], cache["v"], q_pos,
+                                seq.lo(cache["k"].shape[1]), 1.0 / math.sqrt(hd),
+                                window, cfg.attn_softcap)
+            return out.reshape(b, 1, h * hd) @ w["wo"]
+    elif cache is not None:
         k, v = _write(cache, "k", k, q_pos), _write(cache, "v", v, q_pos)
-    out = _attend(q, k, v, q_pos, k_pos, cfg, window, start=start,
-                  autograd=autograd)
+    elif seq is not None and s > 1:  # every rank's K/V of the sequence
+        k, v = seq.gather(k, 1), seq.gather(v, 1)
+    out = _attend(q, k, v, q_pos, k_pos, cfg, window,
+                  start=start if seq is None else None, autograd=autograd)
     return out.reshape(b, s, h * hd) @ w["wo"]
 
 
 def _mla_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
-              start: int | None = None, autograd: bool = False):
+              start: int | None = None, autograd: bool = False,
+              sp: bool = False):
     """MLA (the reference's ``_mla_attn``, ``:386-421``) with the
     compressed-latent cache ``dict(ckv=(B, S, kv_lora), krope=(B, S,
     rope_dim))``, written in place; keys and values are expanded from the
-    latent over every cached position."""
+    latent over every cached position.  Under a held sequence the latents
+    of every block are gathered (a decode step attends over this rank's
+    block of the cache, merged by log-sum-exp), as ``_gqa_attn``'s K/V."""
     tp = model_ranks()
     if tp is not None:
         return _mla_attn_tp(tp, w, x, cfg, rope, q_pos, k_pos, window, cache,
-                            start, autograd)
+                            start, autograd, sp)
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -460,17 +501,32 @@ def _mla_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
     ckv, krope = (x @ w["wkv_a"]).split([m.kv_lora, m.qk_rope_dim], dim=-1)
     ckv = rms_norm(ckv, w["kv_ln"])
     krope = apply_rope(krope[:, :, None, :], rope, q_pos)[:, :, 0, :]
-    if cache is not None:
+    seq = sequence_ranks()
+    lo = None
+    if cache is not None and seq is not None:  # the cache's block
+        ckv, krope, k_pos = _seq_cache_write(seq, cache, ("ckv", "krope"),
+                                             (ckv, krope), start, held=seq)
+        if s == 1:  # this rank's block of the latents, merged below
+            ckv, krope = cache["ckv"], cache["krope"]
+            lo = seq.lo(ckv.shape[1])
+    elif cache is not None:
         ckv = _write(cache, "ckv", ckv, q_pos)
         krope = _write(cache, "krope", krope, q_pos)
+    elif seq is not None and s > 1:  # every rank's latents
+        ckv, krope = seq.gather(ckv, 1), seq.gather(krope, 1)
     sk = ckv.shape[1]
     kvx = (ckv @ w["wkv_b"]).reshape(b, sk, h, m.qk_nope_dim + m.v_dim)
     k_nope, v = kvx.split([m.qk_nope_dim, m.v_dim], dim=-1)
     k_rope = krope[:, :, None, :].expand(b, sk, h, m.qk_rope_dim)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope], dim=-1)
-    out = _attend(q_full, k_full, v, q_pos, k_pos, cfg, window,
-                  scale=1.0 / math.sqrt(qh), start=start, autograd=autograd)
+    if lo is not None:
+        out = merged_decode(seq, q_full, k_full, v, q_pos, lo,
+                            1.0 / math.sqrt(qh), window, cfg.attn_softcap)
+    else:
+        out = _attend(q_full, k_full, v, q_pos, k_pos, cfg, window,
+                      scale=1.0 / math.sqrt(qh),
+                      start=start if seq is None else None, autograd=autograd)
     return out.reshape(b, s, h * m.v_dim) @ w["wo"]
 
 
@@ -531,15 +587,36 @@ def write_block(leaf: torch.Tensor, new: torch.Tensor, lo: int,
         leaf[:, a - lo:e - lo] = new[:, a - start:e - start].to(leaf.dtype)
 
 
+def _seq_cache_write(grp, cache: dict, names, news, start, held=None):
+    """Write new entries ``news`` (B, S, ...) at positions ``start..`` into
+    ``cache[names]``, this rank's block of positions over the ranks ``grp``
+    that cut the cache's sequence (``sharding.SequenceRanks``): those that
+    fall in it.  Where a pass over several positions (a prefill) holds
+    this rank's block of them over ``held`` (a held sequence), the blocks
+    are gathered first.  Returns ``(*news whole, their positions (B,
+    S))``."""
+    if not isinstance(start, int):
+        raise NotImplementedError(f"a cache cut over {grp.axes} at a tensor "
+                                  f"position (a captured step); {QUEUE_3C}")
+    if held is not None and news[0].shape[1] > 1:
+        news = tuple(held.gather(t, 1) for t in news)
+    for name, new in zip(names, news):
+        write_block(cache[name], new, grp.lo(cache[name].shape[1]), start)
+    b, s = news[0].shape[:2]
+    return (*news, _positions(b, start, s, news[0].device))
+
+
 def merged_decode(tp, q, kc, vc, q_pos, lo: int, scale: float, window,
                   attn_softcap, causal: bool = True) -> torch.Tensor:
-    """One query position's attention over a sequence cut over ``model``:
-    ``q`` (B, 1, H, D) every head, ``kc``/``vc`` (B, Sl, Hkv, D[v]) this
-    rank's positions ``lo..lo+Sl-1`` (causal at ``q_pos``, or, without
-    ``causal``, every position: Whisper's cross-attention).  Each rank's
-    partial softmax is merged by log-sum-exp: the maximum, then the
-    rescaled sums and outputs all-reduced.  Returns (B, 1, H, Dv), the
-    same on every rank."""
+    """One query position's attention over a sequence cut over ranks:
+    ``tp`` the ranks that cut it (``sharding.ModelRanks`` over ``model``,
+    or ``SequenceRanks`` over ``data`` and ``model`` at batch 1: anything
+    with ``all_reduce``); ``q`` (B, 1, H, D) every head, ``kc``/``vc`` (B,
+    Sl, Hkv, D[v]) this rank's positions ``lo..lo+Sl-1`` (causal at
+    ``q_pos``, or, without ``causal``, every position: Whisper's
+    cross-attention).  Each rank's partial softmax is merged by
+    log-sum-exp: the maximum, then the rescaled sums and outputs
+    all-reduced.  Returns (B, 1, H, Dv), the same on every rank."""
     b, sq, hh, d = q.shape
     sl, hkv = kc.shape[1], kc.shape[2]
     rep = hh // hkv
@@ -585,20 +662,37 @@ def heads_tp(tp, x, wq, wk, wv, h: int, hkv: int, hd: int, what: str):
             v.reshape(b, s, nkv, hd), q_lo, kv_lo)
 
 
-def row_out(tp, out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+def row_out(tp, out: torch.Tensor, wo: torch.Tensor,
+            sp: bool = False) -> torch.Tensor:
     """``out`` (B, S, n) through a row-cut ``wo`` summed over ``model``:
     where ``out`` holds every head (``n`` all of ``wo``'s rows), this
-    rank's row block of it first."""
+    rank's row block of it first.  With ``sp`` (the sequence-parallel
+    stream) the sum is reduce-scattered: this rank's block of the
+    sequence."""
     c = wo.shape[0]  # this rank's rows
     if out.shape[-1] != c:
         out = out[..., tp.rank * c:(tp.rank + 1) * c]
-    return tp.reduce(out @ wo)
+    return tp.reduce_scatter(out @ wo, 1) if sp else tp.reduce(out @ wo)
+
+
+def _cache_ranks(cfg: LMConfig, tp):
+    """The ranks that cut a cache's sequence (``sharding.SequenceRanks``),
+    as ``registry._kv_cache_axes`` places it: ``model`` where the layout is
+    ``"seq"``, and a held sequence's axes (``data`` at batch 1) beside it;
+    None where no axis of more than one rank does."""
+    held = held_sequence()
+    if tp is not None and cache_layout(cfg) == "seq":
+        return sequence_ranks(held + (MODEL,))
+    return sequence_ranks(held) if held else None
 
 
 def _gqa_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
-                 start, autograd):
+                 start, autograd, sp=False):
     """``_gqa_attn`` on this rank's cut of ``wq``/``wk``/``wv`` (columns)
-    and ``wo`` (rows): the attention output summed over ``model``."""
+    and ``wo`` (rows): the attention output summed over ``model`` (with
+    ``sp``, reduce-scattered over the sequence).  Under a held sequence
+    the K/V of every block of positions are gathered over its axes, and a
+    cache is cut over them beside its own cut (``_cache_ranks``)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if not tp.cut(w["wo"], 0, h * hd):
@@ -611,35 +705,53 @@ def _gqa_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
         k = rms_norm(k, tp.copy(w["k_ln"]))
     q = apply_rope(q, rope, q_pos)
     k = apply_rope(k, rope, q_pos)
+    seq = sequence_ranks()
+    scale = 1.0 / math.sqrt(hd)
     if cache is not None and cache_layout(cfg) == "heads":
         if nkv == hkv:
             raise _refusal(cfg, f"a head-cut cache of {hkv} KV heads", tp)
-        k, v = _write(cache, "k", k, q_pos), _write(cache, "v", v, q_pos)
+        if seq is None:
+            k, v = _write(cache, "k", k, q_pos), _write(cache, "v", v, q_pos)
+        else:  # this rank's heads of its block of positions
+            k, v, k_pos = _seq_cache_write(seq, cache, ("k", "v"), (k, v),
+                                           start, held=seq)
+            if s == 1:
+                kk, vv = kv_for(q_lo, nq, kv_lo, cache["k"], cache["v"],
+                                h // hkv)
+                out = merged_decode(seq, q, kk, vv, q_pos,
+                                    seq.lo(cache["k"].shape[1]), scale, window,
+                                    cfg.attn_softcap)
+                return row_out(tp, out.reshape(b, 1, nq * hd), w["wo"])
     elif cache is not None:
         if nkv < hkv:  # the new positions of every KV head
             k, v = tp.gather(k, 2), tp.gather(v, 2)
             kv_lo, nkv = 0, hkv
-        lo = tp.rank * cache["k"].shape[1]
-        write_block(cache["k"], k, lo, start)
-        write_block(cache["v"], v, lo, start)
+        grp = _cache_ranks(cfg, tp)
+        k, v, k_pos = _seq_cache_write(grp, cache, ("k", "v"), (k, v), start,
+                                       held=seq)
         if s == 1:  # decode: every head over this rank's positions
             qa = q if nq == h else tp.gather(q, 2)
-            out = merged_decode(tp, qa, cache["k"], cache["v"], q_pos, lo,
-                                1.0 / math.sqrt(hd), window, cfg.attn_softcap)
+            out = merged_decode(grp, qa, cache["k"], cache["v"], q_pos,
+                                grp.lo(cache["k"].shape[1]), scale, window,
+                                cfg.attn_softcap)
             return row_out(tp, out.reshape(b, 1, h * hd), w["wo"])
-        k_pos = q_pos  # a prefill from 0 reads its own new positions
+    elif seq is not None and s > 1:  # every rank's block of positions
+        k, v = seq.gather(k, 1), seq.gather(v, 1)
     kk, vv = kv_for(q_lo, nq, kv_lo, k, v, h // hkv)
-    out = _attend(q, kk, vv, q_pos, k_pos, cfg, window, start=start,
-                  autograd=autograd)
-    return row_out(tp, out.reshape(b, s, nq * hd), w["wo"])
+    out = _attend(q, kk, vv, q_pos, k_pos, cfg, window,
+                  start=start if seq is None else None, autograd=autograd)
+    return row_out(tp, out.reshape(b, s, nq * hd), w["wo"], sp)
 
 
 def _mla_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
-                 start, autograd):
+                 start, autograd, sp=False):
     """``_mla_attn`` on this rank's heads of ``wq``/``wq_b``, ``wkv_b`` and
     ``wo``, the latent projections and norms whole; the output summed over
-    ``model``.  A decode step over the sequence-cut latent cache takes the
-    absorbed form (``_mla_decode_tp``)."""
+    ``model`` (with ``sp``, reduce-scattered over the sequence).  A decode
+    step over the sequence-cut latent cache takes the absorbed form
+    (``_mla_decode_tp``).  Under a held sequence the latents of every
+    block are gathered over its axes, and the cache is cut over them and
+    ``model`` jointly."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -660,14 +772,17 @@ def _mla_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
     ckv = rms_norm(ckv, w["kv_ln"])
     krope = apply_rope(krope[:, :, None, :], rope, q_pos)[:, :, 0, :]
     scale = 1.0 / math.sqrt(qh)
-    if cache is not None:
-        lo = tp.rank * cache["ckv"].shape[1]
-        write_block(cache["ckv"], ckv, lo, start)
-        write_block(cache["krope"], krope, lo, start)
+    seq = sequence_ranks()
+    if cache is not None:  # the latents' sequence over model (and data)
+        grp = _cache_ranks(cfg, tp)
+        ckv, krope, k_pos = _seq_cache_write(grp, cache, ("ckv", "krope"),
+                                             (ckv, krope), start, held=seq)
         if s == 1:
-            return _mla_decode_tp(tp, w, cfg, q_nope, q_rope, cache, q_pos, lo,
-                                  scale, window)
-        k_pos = q_pos  # a prefill from 0 reads its own new latents
+            return _mla_decode_tp(tp, grp, w, cfg, q_nope, q_rope, cache,
+                                  q_pos, grp.lo(cache["ckv"].shape[1]), scale,
+                                  window)
+    elif seq is not None and s > 1:  # every rank's block of positions
+        ckv, krope = seq.gather(ckv, 1), seq.gather(krope, 1)
     ckv, krope = tp.copy(ckv), tp.copy(krope)
     sk = ckv.shape[1]
     kvx = (ckv @ w["wkv_b"]).reshape(b, sk, nh, dkv)
@@ -675,19 +790,22 @@ def _mla_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
     k_rope = krope[:, :, None, :].expand(b, sk, nh, m.qk_rope_dim)
     out = _attend(torch.cat([q_nope, q_rope], dim=-1),
                   torch.cat([k_nope, k_rope], dim=-1), v, q_pos, k_pos, cfg,
-                  window, scale=scale, start=start, autograd=autograd)
-    return tp.reduce(out.reshape(b, s, nh * m.v_dim) @ w["wo"])
+                  window, scale=scale, start=start if seq is None else None,
+                  autograd=autograd)
+    y = out.reshape(b, s, nh * m.v_dim) @ w["wo"]
+    return tp.reduce_scatter(y, 1) if sp else tp.reduce(y)
 
 
-def _mla_decode_tp(tp, w, cfg: LMConfig, q_nope, q_rope, cache, q_pos, lo: int,
-                   scale: float, window):
+def _mla_decode_tp(tp, grp, w, cfg: LMConfig, q_nope, q_rope, cache, q_pos,
+                   lo: int, scale: float, window):
     """One MLA decode step over this rank's block of the latent cache, in
     the absorbed form: each rank folds ``wkv_b``'s key half of its heads
     into their queries (``q_nope @ W_uk^T``, a query over the latent), the
     latent queries of every head are gathered, each rank attends them over
     its positions (keys ``[ckv, krope]``, values ``ckv``), the partial
-    softmaxes are merged by log-sum-exp, and each rank maps its heads'
-    latent outputs through ``wkv_b``'s value half and ``wo``."""
+    softmaxes are merged by log-sum-exp over ``grp``, the ranks that cut
+    the cache's sequence, and each rank maps its heads' latent outputs
+    through ``wkv_b``'s value half and ``wo``."""
     m = cfg.mla
     b, _, nh, _ = q_nope.shape
     wkv_b = w["wkv_b"].reshape(m.kv_lora, nh, m.qk_nope_dim + m.v_dim)
@@ -695,7 +813,7 @@ def _mla_decode_tp(tp, w, cfg: LMConfig, q_nope, q_rope, cache, q_pos, lo: int,
     q_lat = torch.einsum("bshn,chn->bshc", q_nope, w_uk)
     qa = tp.gather(torch.cat([q_lat, q_rope], dim=-1), 2)
     keys = torch.cat([cache["ckv"], cache["krope"]], dim=-1)[:, :, None]
-    lat = merged_decode(tp, qa, keys, cache["ckv"][:, :, None], q_pos, lo,
+    lat = merged_decode(grp, qa, keys, cache["ckv"][:, :, None], q_pos, lo,
                         scale, window, cfg.attn_softcap)
     own = lat[:, :, tp.rank * nh:(tp.rank + 1) * nh]
     out = torch.einsum("bshc,chv->bshv", own, w_uv)
@@ -707,51 +825,78 @@ def _act(cfg: LMConfig):
     return F.silu if cfg.act == "silu" else (lambda t: F.gelu(t, approximate="tanh"))
 
 
-def glu_ffn(w, x, d_ff: int, act) -> torch.Tensor:
+def glu_ffn(w, x, d_ff: int, act, sp: bool = False) -> torch.Tensor:
     """The gated FFN ``(act(x @ w_gate) * (x @ w_up)) @ w_down``; over model
     ranks holding column-cut gate and up and a row-cut down, this rank's
-    columns, summed over ``model``."""
+    columns, summed over ``model`` (with ``sp``, reduce-scattered over the
+    sequence)."""
     tp = model_ranks()
     if tp is not None and tp.cut(w["w_gate"], 1, d_ff):
         xf = tp.copy(x)
         g, u = xf @ w["w_gate"], xf @ w["w_up"]
-        return tp.reduce((act(g.float()).to(u.dtype) * u) @ w["w_down"])
+        return row_out(tp, act(g.float()).to(u.dtype) * u, w["w_down"], sp)
     g = x @ w["w_gate"]
     u = x @ w["w_up"]
-    return (act(g.float()).to(u.dtype) * u) @ w["w_down"]
+    out = (act(g.float()).to(u.dtype) * u) @ w["w_down"]
+    return tp.scatter(out, 1) if sp and tp is not None else out
 
 
-def _ffn(w, x, cfg: LMConfig):
-    return glu_ffn(w, x, cfg.d_ff, _act(cfg))
+def _ffn(w, x, cfg: LMConfig, sp: bool = False):
+    return glu_ffn(w, x, cfg.d_ff, _act(cfg), sp)
+
+
+def seq_parallel() -> bool:
+    """Whether ``REPRO_SEQ_PARALLEL=1`` asks for the sequence-parallel
+    residual stream (the reference's flag, ``transformer.py:438``)."""
+    return os.environ.get("REPRO_SEQ_PARALLEL") == "1"
 
 
 def _layer(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, moe_layer, cache,
-           start, autograd):
-    if (cache is None and x.shape[1] > 1
-            and os.environ.get("REPRO_SEQ_PARALLEL") == "1"):
-        # the reference's sequence-parallel residual stream, kept behind
-        # its flag: under a mesh with a model axis it raises (3(c))
-        x = shard_hint(x, BATCH, "model", None)
-    h_in = rms_norm(x, w["ln_attn"])
+           start, autograd, sp=False):
+    """One layer.  ``sp``: the sequence-parallel residual stream over
+    ``model`` (Megatron's sequence parallelism, arXiv:2205.05198 §4.2;
+    ``_run_stacks`` decides it): ``x`` is this rank's block of the
+    sequence, the norms run on it (their gains through ``copy``: each
+    rank's gradient is its block's part), each sublayer's normed input is
+    gathered over ``model`` before its column-cut products (backward, this
+    rank's block of the summed gradient), and its row-cut output
+    reduce-scattered back to the block.  The MoE's output, summed as on
+    the whole stream (a whole shared expert added after the sum), is cut
+    to the block (``scatter``: backward, gathered)."""
+    tp = model_ranks() if sp else None
+    if cache is None and x.shape[1] > 1 and seq_parallel():
+        # the reference's sequence-parallel residual stream
+        x = shard_hint(x, BATCH, "model", None, seq_dim=1 if sp else None,
+                       seq_axes=(MODEL,))
+
+    def gain(name):
+        return tp.copy(w[name]) if sp else w[name]
+
+    def whole(t):
+        return tp.gather(t, 1) if sp else t
+
+    h_in = whole(rms_norm(x, gain("ln_attn")))
     attn_fn = _mla_attn if cfg.attn == "mla" else _gqa_attn
     attn_out = attn_fn(w, h_in, cfg, rope, q_pos, k_pos, window, cache, start,
-                       autograd)
+                       autograd, sp)
     if cfg.sandwich_norms:
-        attn_out = rms_norm(attn_out, w["ln_attn_post"])
+        attn_out = rms_norm(attn_out, gain("ln_attn_post"))
     x = x + attn_out
-    h2 = rms_norm(x, w["ln_ffn"])
+    h2 = whole(rms_norm(x, gain("ln_ffn")))
     if moe_layer:
         b, s, d = h2.shape
         ffn_out = moe_ffn(w["moe"], h2.reshape(b * s, d), cfg.moe).reshape(b, s, d)
+        if sp:
+            ffn_out = tp.scatter(ffn_out, 1)
     else:
-        ffn_out = _ffn(w, h2, cfg)
+        ffn_out = _ffn(w, h2, cfg, sp)
     if cfg.sandwich_norms:
-        ffn_out = rms_norm(ffn_out, w["ln_ffn_post"])
+        ffn_out = rms_norm(ffn_out, gain("ln_ffn_post"))
     return x + ffn_out
 
 
 def _run_stack(stack_w, x, cfg, rope, q_pos, k_pos, caches, start, autograd,
-               n, moe_layer, offset):
+               n, moe_layer, offset, sp=False):
     """The loop over one stack's ``n`` layers, the first of them layer
     ``offset`` of the model; ``caches`` the stack's (L, B, S, ...) cache
     leaves (written in place) or None.  Each stacked leaf is unbound once,
@@ -767,7 +912,7 @@ def _run_stack(stack_w, x, cfg, rope, q_pos, k_pos, caches, start, autograd,
         w = map_params(lambda leaves: leaves[l], layers)
         cache = None if caches is None else {k: c[l] for k, c in caches.items()}
         args = (w, x, cfg, rope, q_pos, k_pos, windows[l], moe_layer, cache,
-                start, autograd)
+                start, autograd, sp)
         x = checkpointed(_layer, *args) if remat else _layer(*args)
     return x
 
@@ -775,21 +920,39 @@ def _run_stack(stack_w, x, cfg, rope, q_pos, k_pos, caches, start, autograd,
 def _run_stacks(params, cfg: LMConfig, x, q_pos, k_pos, cache, start,
                 autograd=False):
     """Every stack in order (dense-first, then MoE), with the stacks'
-    caches ``cache["dense"]`` / ``cache["moe"]`` or None."""
+    caches ``cache["dense"]`` / ``cache["moe"]`` or None.  Under
+    ``REPRO_SEQ_PARALLEL=1`` over model ranks, a pass with no cache over
+    several positions holds the residual stream as this rank's block of
+    the sequence between the stacks' entry and exit (``_layer``)."""
     rope = rope_inv_freq(cfg.rope_dim, cfg.rope_base, x.device)
+    tp = model_ranks()
+    sp = (tp is not None and cache is None and x.shape[1] > 1
+          and seq_parallel())
+    if sp:
+        if held_sequence():
+            raise NotImplementedError(
+                f"{cfg.name}: REPRO_SEQ_PARALLEL=1 on a sequence already cut "
+                f"over {held_sequence()}; {QUEUE_3C}")
+        if x.shape[1] % tp.size:
+            raise _refusal(cfg, f"a sequence-parallel stream of {x.shape[1]} "
+                           f"positions", tp)
+        x = tp.scatter(x, 1)
     for key, cache_key, n, moe_layer, offset in _stacks(cfg):
         x = _run_stack(params[key], x, cfg, rope, q_pos, k_pos,
                        None if cache is None else cache[cache_key], start,
-                       autograd, n, moe_layer, offset)
-    return x
+                       autograd, n, moe_layer, offset, sp)
+    return tp.gather(x, 1) if sp else x
 
 
 def _embed(params, cfg: LMConfig, tokens):
     x = embed_rows(params["embed"], tokens, cfg.vocab)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
-    # the batch over (pod, data); at batch 1 the sequence over data
-    return shard_hint(x, BATCH, "data" if x.shape[0] == 1 else None, None)
+    # the batch over (pod, data); at batch 1 the sequence over data, which a
+    # pass over several positions of a held sequence holds as its block
+    cut = tokens.shape[1] > 1 and bool(held_sequence())
+    return shard_hint(x, BATCH, "data" if x.shape[0] == 1 else None, None,
+                      seq_dim=1 if cut else None)
 
 
 def _unembed(params, cfg: LMConfig, x):
@@ -816,6 +979,19 @@ def _positions(b: int, start, s: int, device,
     return pos.expand(b, s)
 
 
+def _pass_positions(b: int, lens, device):
+    """``(q_pos, k_pos)`` (B, S) int32 of a pass from position 0 over
+    segments of ``lens`` positions: ``0..S-1`` for both, or, under a held
+    sequence, this rank's block of each segment and every rank's
+    (``sharding.SequenceRanks.positions``)."""
+    seq = sequence_ranks() if sum(lens) > 1 else None
+    if seq is None:
+        pos = _positions(b, 0, sum(lens), device)
+        return pos, pos
+    q_pos, k_pos = seq.positions(lens, device)
+    return q_pos.expand(b, -1), k_pos.expand(b, -1)
+
+
 def forward(params, cfg: LMConfig, tokens: torch.Tensor,
             prefix_embeds: torch.Tensor | None = None, *,
             autograd: bool = False) -> torch.Tensor:
@@ -824,13 +1000,17 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor,
     as PaliGemma's image patches) ahead of the token embeddings.
     ``autograd=False`` is the serving route (causal attention on K4 where
     ``attend_route`` says so); ``autograd=True`` the training route
-    (``attend``'s, never K4), which backward differentiates."""
+    (``attend``'s, never K4), which backward differentiates.  Under a held
+    sequence (batch 1) ``tokens`` and ``prefix_embeds`` are
+    this rank's blocks, and so are the logits' positions."""
     x = _embed(params, cfg, tokens)
+    lens = [tokens.shape[1]]
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    b, s, _ = x.shape
-    pos = _positions(b, 0, s, x.device)
-    x = _run_stacks(params, cfg, x, pos, pos, None, 0, autograd)
+        lens = [prefix_embeds.shape[1]] + lens
+    q_pos, k_pos = _pass_positions(x.shape[0], lens, x.device)
+    start = 0 if q_pos is k_pos else None  # a block from lo is no index mask
+    x = _run_stacks(params, cfg, x, q_pos, k_pos, None, start, autograd)
     return _unembed(params, cfg, x)
 
 
@@ -838,11 +1018,14 @@ def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor, targets: torch.Tensor,
             prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token negative log-likelihood of ``targets`` (B, S) over
     the token positions (the prefix's are dropped), through the training
-    route's attention."""
-    logits = forward(params, cfg, tokens, prefix_embeds, autograd=True)
+    route's attention; over model ranks from the vocab-cut logits
+    (``common.next_token_nll``).  Under a held sequence, the mean over
+    this rank's block of the tokens."""
+    with keep_vocab_cut():
+        logits = forward(params, cfg, tokens, prefix_embeds, autograd=True)
     if prefix_embeds is not None:
         logits = logits[:, prefix_embeds.shape[1]:]
-    return next_token_nll(logits, targets)
+    return next_token_nll(logits, targets, cfg.vocab)
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
@@ -851,20 +1034,23 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
     """Stacked (L-leading) zero caches for decode, one a stack (``"dense"``,
     ``"moe"``): K/V ``(L, B, S, hkv, hd)``, or MLA's latent ``ckv (L, B, S,
     kv_lora)`` and ``krope (L, B, S, rope_dim)``.  Over model ranks, this
-    rank's cut (``cache_layout``): ``hkv`` or ``S`` over the ranks; a cut
-    that does not divide raises."""
+    rank's cut (``cache_layout``): ``hkv`` or ``S`` over the ranks; under a
+    held sequence (batch 1), ``S`` also over its axes (``_cache_ranks``:
+    over data and model jointly, or over data beside heads over model).  A
+    cut that does not divide raises."""
     dev = resolve_device(device)
     hkv = cfg.n_kv_heads
     tp = model_ranks()
-    if tp is not None:  # this rank's cut (``cache_layout``)
-        if cache_layout(cfg) == "heads":
-            if hkv % tp.size:
-                raise _refusal(cfg, f"a cache of {hkv} KV heads", tp)
-            hkv //= tp.size
-        else:
-            if max_len % tp.size:
-                raise _refusal(cfg, f"a cache of {max_len} positions", tp)
-            max_len //= tp.size
+    if tp is not None and cache_layout(cfg) == "heads":
+        if hkv % tp.size:
+            raise _refusal(cfg, f"a cache of {hkv} KV heads", tp)
+        hkv //= tp.size
+    grp = _cache_ranks(cfg, tp)
+    if grp is not None:  # this rank's block of the positions
+        if max_len % grp.size:
+            raise NotImplementedError(f"{cfg.name}: a cache of {max_len} "
+                                      f"positions over {grp.axes}; {QUEUE_3C}")
+        max_len //= grp.size
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -886,21 +1072,31 @@ def _cached_pass(params, cfg: LMConfig, cache, tokens, start):
     b, s, _ = x.shape
     max_len = tree_leaves(cache)[0].shape[2]
     tensor_start = isinstance(start, torch.Tensor)
-    tp = model_ranks()
-    if tp is not None:
+    grp = _cache_ranks(cfg, model_ranks())
+    if grp is not None:
         if tensor_start:
-            raise _refusal(cfg, "a captured step (a tensor position)", tp)
-        if cache_layout(cfg) == "seq":
-            max_len *= tp.size
-    if not tensor_start and start + s > max_len:
-        raise ValueError(f"positions {start}..{start + s - 1} exceed the "
+            raise NotImplementedError(
+                f"{cfg.name}: a captured step (a tensor position) over a "
+                f"cache cut over {grp.axes}; {QUEUE_3C}")
+        max_len *= grp.size
+    seq = sequence_ranks() if s > 1 else None
+    if seq is not None and start != 0:
+        raise NotImplementedError(f"{cfg.name}: a held sequence's pass over "
+                                  f"several positions from {start}; {QUEUE_3C}")
+    n = s * (seq.size if seq is not None else 1)  # the pass's positions
+    if not tensor_start and start + n > max_len:
+        raise ValueError(f"positions {start}..{start + n - 1} exceed the "
                          f"cache length {max_len}")
     # int64: the first row is also the cache writes' index
-    q_pos = _positions(b, start, s, x.device, torch.long)
+    if seq is None:
+        q_pos = _positions(b, start, s, x.device, torch.long)
+    else:  # this rank's block of the prompt
+        q_pos = _positions(b, seq.lo(s), s, x.device, torch.long)
     # k_pos <= q_pos hides the not-yet-written cache slots
     k_pos = _positions(b, 0, max_len, x.device)
     # attend_route's start == 0 is a host-side fact: a tensor start says
-    # nothing there (and a decode step, Sq = 1, never takes K4)
+    # nothing there (and a decode step, Sq = 1, never takes K4); a block
+    # of the prompt from lo is no index mask either (the attention asks)
     x = _run_stacks(params, cfg, x, q_pos, k_pos, cache,
                     None if tensor_start else start)
     return _unembed(params, cfg, x), cache

@@ -8,7 +8,11 @@ same keys in either package.  The arithmetic is the reference's, op for
 op, in float32.  ``apply_updates`` writes the new params, moments and step
 count into the tensors it is given (the reference returns new trees): a
 training step then allocates no second copy of either, and a captured
-train step (``launch.steps``) replays on the same state.
+train step (``launch.steps``) replays on the same state.  It updates a
+leaf in slices along its first axis of at most ``UPDATE_SLICE`` elements,
+the clip scale applied there too: the arithmetic is elementwise, so the
+values are the same, and the update's fp32 temporaries are a slice's,
+not a leaf's (the reference's XLA fuses them into one loop).
 """
 from __future__ import annotations
 
@@ -18,7 +22,11 @@ import torch
 
 from ..tree import tree_leaves, tree_map
 
-__all__ = ["AdamWConfig", "init_state", "global_norm", "apply_updates"]
+__all__ = ["AdamWConfig", "init_state", "global_norm", "apply_updates",
+           "UPDATE_SLICE"]
+
+# the most elements of a leaf that one slice of the update takes
+UPDATE_SLICE = 1 << 22
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,10 +64,9 @@ def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
     rank's shards of it (FSDP); by default ``global_norm(grads)``."""
     step = state["step"].add_(1)
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
-    flat_g = tree_leaves(grads)
+    scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-        flat_g = [g * scale.to(g.dtype) for g in flat_g]
 
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.to(torch.float32)
@@ -67,15 +74,28 @@ def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
     bc2 = 1.0 - torch.pow(b2, stepf)
     lr = cfg.lr * lr_scale
 
-    for p, g, m, v in zip(tree_leaves(params), flat_g, tree_leaves(state["m"]),
-                          tree_leaves(state["v"])):
-        g32 = g.float()
-        m_new = b1 * m + (1 - b1) * g32
-        v_new = b2 * v + (1 - b2) * g32 * g32
-        mhat = m_new / bc1
-        vhat = v_new / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        m.copy_(m_new)
-        v.copy_(v_new)
+    for leaves in zip(tree_leaves(params), tree_leaves(grads),
+                      tree_leaves(state["m"]), tree_leaves(state["v"])):
+        for p, g, m, v in zip(*map(_slices, leaves)):
+            if scale is not None:
+                g = g * scale.to(g.dtype)
+            g32 = g.float()
+            m_new = b1 * m + (1 - b1) * g32
+            v_new = b2 * v + (1 - b2) * g32 * g32
+            mhat = m_new / bc1
+            vhat = v_new / bc2
+            delta = (mhat / (torch.sqrt(vhat) + cfg.eps)
+                     + cfg.weight_decay * p.float())
+            p.copy_(p.float() - lr * delta)
+            m.copy_(m_new)
+            v.copy_(v_new)
     return params, state, {"grad_norm": gnorm}
+
+
+def _slices(t: torch.Tensor) -> list:
+    """``t`` as views of whole rows of its first axis, each of at most
+    ``UPDATE_SLICE`` elements (one row where a row holds more)."""
+    if t.ndim == 0 or t.numel() <= UPDATE_SLICE:
+        return [t]
+    rows = max(UPDATE_SLICE // (t.numel() // t.shape[0]), 1)
+    return list(t.split(rows, dim=0))

@@ -40,7 +40,10 @@ from .tree import tree_map
 
 __all__ = ["BATCH", "MODEL", "WORKERS", "QUEUE_3C", "PartitionSpec",
            "resolve_pspec", "worker_devices", "use_mesh", "active_mesh",
-           "batch_ranks", "ModelRanks", "model_ranks", "hint_pspec",
+           "batch_ranks", "ModelRanks", "model_ranks", "hold_sequence",
+           "held_sequence", "SequenceRanks", "sequence_ranks",
+           "keep_vocab_cut", "vocab_cut_kept", "placement", "use_placement",
+           "hint_pspec",
            "shard_hint", "check_data_parallel", "spec_axes", "NamedSharding",
            "sharded_dim_over", "shard_tree", "gather_tree"]
 
@@ -136,6 +139,72 @@ def active_mesh():
     return _ACTIVE.get()
 
 
+_SEQUENCE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_sequence", default=())
+_VOCAB_CUT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_vocab_cut", default=False)
+
+
+@contextlib.contextmanager
+def hold_sequence(axes=("data",)):
+    """Inside the block the batch is one row whose sequence is cut over
+    ``axes`` of the active process mesh (the reference's batch-1 fallback,
+    ``shard_hint(x, BATCH, "data", None)``): a pass over several positions
+    takes this rank's block of them, equal blocks in group order; a pass
+    over one position (a decode step) is whole on every rank; a cache
+    holds this rank's block of its positions."""
+    token = _SEQUENCE.set(tuple((axes,) if isinstance(axes, str) else axes))
+    try:
+        yield
+    finally:
+        _SEQUENCE.reset(token)
+
+
+def held_sequence() -> tuple[str, ...]:
+    """The mesh axes of more than one rank that cut a held sequence under
+    the active process mesh (``hold_sequence``), else ``()``."""
+    mesh = active_mesh()
+    if mesh is None or not _holds_ranks(mesh):
+        return ()
+    return tuple(a for a in mesh.axis_names
+                 if a in _SEQUENCE.get() and mesh.shape[a] > 1)
+
+
+@contextlib.contextmanager
+def keep_vocab_cut():
+    """Inside the block a model's logits over model ranks stay this rank's
+    block of the vocabulary (``models.common.vocab_logits``), as the
+    reference's output is held cut: the prefill step and the greedy loop
+    read them so (``models.common.greedy``)."""
+    token = _VOCAB_CUT.set(True)
+    try:
+        yield
+    finally:
+        _VOCAB_CUT.reset(token)
+
+
+def vocab_cut_kept() -> bool:
+    return _VOCAB_CUT.get()
+
+
+def placement() -> tuple:
+    """The active mesh, held sequence and vocab cut: what a recompute
+    (``models.common.checkpointed``) runs under again."""
+    return _ACTIVE.get(), _SEQUENCE.get(), _VOCAB_CUT.get()
+
+
+@contextlib.contextmanager
+def use_placement(state: tuple):
+    """``placement()``'s ``state`` active inside the block."""
+    mesh, seq, cut = state
+    tokens = _ACTIVE.set(mesh), _SEQUENCE.set(seq), _VOCAB_CUT.set(cut)
+    try:
+        yield
+    finally:
+        for var, token in zip((_ACTIVE, _SEQUENCE, _VOCAB_CUT), tokens):
+            var.reset(token)
+
+
 def _holds_ranks(mesh) -> bool:
     """Whether ``mesh``'s points are the processes of a job (a
     ``launch.mesh.ProcessMesh``: it knows this rank's coordinate)."""
@@ -202,6 +271,17 @@ class ModelRanks:
         return True
 
 
+    def scatter(self, x, dim: int):
+        """This rank's block of ``x`` along ``dim``; backward, the blocks'
+        gradients gathered (the sequence-parallel stream's entry)."""
+        return self.mesh.scatter_to(x, MODEL, dim)
+
+    def reduce_scatter(self, x, dim: int):
+        """This rank's block along ``dim`` of the sum over the ranks;
+        backward, the gradient gathered (the sequence-parallel *g*)."""
+        return self.mesh.reduce_scatter_from(x, MODEL, dim)
+
+
 def model_ranks() -> ModelRanks | None:
     """The active process mesh's ``model`` axis where it has more than one
     rank, else None (one device, or data parallelism alone)."""
@@ -209,6 +289,74 @@ def model_ranks() -> ModelRanks | None:
     if mesh is None or not _holds_ranks(mesh) or mesh.shape.get(MODEL, 1) == 1:
         return None
     return ModelRanks(mesh, mesh.shape[MODEL], mesh.coordinate[MODEL])
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceRanks:
+    """The mesh axes that cut a sequence (``axes``, of ``size`` ranks
+    jointly, this one at ``rank`` in group order), as the model code uses
+    them: this rank's block of positions, the gather of every rank's block
+    and the merges over them."""
+
+    mesh: object
+    axes: tuple
+    size: int
+    rank: int
+
+    def lo(self, n: int) -> int:
+        """The first position of this rank's block of ``n``."""
+        return self.rank * n
+
+    def gather(self, x, dim: int):
+        """The ranks' blocks of ``x`` concatenated along ``dim`` in group
+        order; backward, the ranks' gradients summed and this rank's block
+        kept (the reduce-scatter): what follows differs by rank."""
+        return self.mesh.gather_to(x, self.axes, dim)
+
+    def all_reduce(self, x, op: str = "sum"):
+        """The sum (or maximum) over the ranks, no gradient (the
+        log-sum-exp merge of ``models.transformer.merged_decode``)."""
+        return self.mesh.all_reduce(x, self.axes, op)
+
+    def positions(self, lens, device):
+        """``(this rank's positions, every rank's in group order)`` of a
+        sequence of segments each cut evenly over the ranks (PaliGemma's
+        prefix, then its tokens): ``lens`` this rank's length of each; as
+        int32 (1, n) tensors."""
+        import torch
+
+        def of(r):
+            parts, off = [], 0
+            for n in lens:
+                parts.append(torch.arange(off + r * n, off + (r + 1) * n,
+                                          dtype=torch.int32, device=device))
+                off += n * self.size
+            return torch.cat(parts)
+
+        return (of(self.rank)[None],
+                torch.cat([of(r) for r in range(self.size)])[None])
+
+
+def _axis_group(mesh, axes) -> SequenceRanks | None:
+    live = mesh._live(axes)
+    if not live:
+        return None
+    return SequenceRanks(mesh, live, mesh.group_size(live),
+                         mesh.group_rank(live))
+
+
+def sequence_ranks(axes=None) -> SequenceRanks | None:
+    """The axes that cut a held sequence (``hold_sequence``; ``axes`` where
+    given, those of them with more than one rank) under the active process
+    mesh, else None."""
+    mesh = active_mesh()
+    if mesh is None or not _holds_ranks(mesh):
+        return None
+    if axes is None:
+        axes = held_sequence()
+        if not axes:
+            return None
+    return _axis_group(mesh, axes)
 
 
 def _batch_dim(axes) -> int | None:
@@ -221,20 +369,26 @@ def _batch_dim(axes) -> int | None:
 
 
 def hint_pspec(shape, axes, mesh_shape, split: bool = True,
-               model_dim: int | None = None):
+               model_dim: int | None = None, seq_dim: int | None = None,
+               seq_axes: tuple = ()):
     """``(global shape, PartitionSpec)`` of a ``shard_hint`` of a local
     tensor of ``shape`` on a mesh of ``mesh_shape``: with ``split`` (a
     process mesh, whose ranks each hold their rows of the batch) the first
     dimension whose candidates name ``pod`` or ``data`` is that many times
-    larger globally, the product of those axes' sizes, and dimension
-    ``model_dim`` (a block a rank holds) the model size larger; then the
-    spec as ``resolve_pspec`` gives it on the global shape."""
+    larger globally, the product of those of the axes that do not cut the
+    sequence, dimension ``model_dim`` (a block a rank holds) the model
+    size larger, and dimension ``seq_dim`` (a block of the sequence) the
+    product of ``seq_axes``' sizes; then the spec as ``resolve_pspec``
+    gives it on the global shape."""
     shape = list(int(d) for d in shape)
     i = _batch_dim(axes)
     if split and i is not None:
-        shape[i] *= math.prod(mesh_shape.get(a, 1) for a in BATCH)
+        shape[i] *= math.prod(mesh_shape.get(a, 1) for a in BATCH
+                              if a not in seq_axes)
     if split and model_dim is not None:
         shape[model_dim] *= mesh_shape.get(MODEL, 1)
+    if split and seq_dim is not None:
+        shape[seq_dim] *= math.prod(mesh_shape.get(a, 1) for a in seq_axes)
     return tuple(shape), resolve_pspec(shape, axes, mesh_shape)
 
 
@@ -245,51 +399,72 @@ def spec_axes(entry) -> tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def shard_hint(x, *axes, model_dim: int | None = None):
+def shard_hint(x, *axes, model_dim: int | None = None,
+               seq_dim: int | None = None, seq_axes=None):
     """``x`` under the active mesh's placement of ``axes`` (one entry a
     dimension: None, an axis name, or a tuple of candidates used jointly,
     as ``BATCH``): the identity with no active mesh, and where the
     resolved spec shards nothing but the batch dimension that a process
     mesh has already split over its pod and data axes and, where the
     caller holds ``x``'s dimension ``model_dim`` as this rank's block over
-    ``model``, that dimension over ``model``.  Any other placement over an
-    axis of more than one rank raises ``NotImplementedError`` (ROADMAP
-    Queue A item 3(c))."""
+    ``model``, that dimension over ``model``, and, where it holds
+    dimension ``seq_dim`` as this rank's block of the sequence, that
+    dimension over the axes that cut it (``seq_axes``, by default the held
+    sequence's: ``hold_sequence``).  Any other placement over an axis of
+    more than one rank raises ``NotImplementedError`` (ROADMAP Queue A
+    item 3(c))."""
     mesh = active_mesh()
     if mesh is None:
         return x
     if len(axes) != x.ndim:
         raise ValueError(f"{len(axes)} axes for a tensor of rank {x.ndim}")
     split = _holds_ranks(mesh)
-    _, spec = hint_pspec(x.shape, axes, mesh.shape, split, model_dim)
+    if seq_dim is None or not split:
+        seq_axes = ()
+    elif seq_axes is None:
+        seq_axes = held_sequence()
+    else:
+        seq_axes = tuple(a for a in mesh.axis_names if a in seq_axes
+                         and mesh.shape[a] > 1)
+    _, spec = hint_pspec(x.shape, axes, mesh.shape, split, model_dim,
+                         seq_dim, seq_axes)
     check_data_parallel(spec, _batch_dim(axes), mesh.shape, split,
                         f"shard_hint{tuple(axes)} on {tuple(x.shape)}",
-                        model_dim if split else None)
+                        model_dim if split else None,
+                        seq_dim if seq_axes else None, seq_axes)
     return x
 
 
 def check_data_parallel(spec, batch_dim: int | None, mesh_shape: dict,
                         split: bool, what: str,
-                        model_dim: int | None = None) -> None:
+                        model_dim: int | None = None,
+                        seq_dim: int | None = None,
+                        seq_axes: tuple = ()) -> None:
     """Raise ``NotImplementedError`` unless ``spec`` places nothing over a
     mesh axis of more than one rank but dimension ``batch_dim`` over all
-    of the pod and data axes that have more than one (``split``: the ranks
-    of a process mesh hold their rows of the batch) and dimension
-    ``model_dim``, where given, over ``model`` where it has more than one:
-    the placements that data and tensor parallelism execute (ROADMAP Queue
-    A item 3(c))."""
-    held = tuple(a for a in BATCH if mesh_shape.get(a, 1) > 1) if split else ()
+    of the pod and data axes that have more than one and do not cut the
+    sequence (``split``: the ranks of a process mesh hold their rows of
+    the batch), dimension ``model_dim``, where given, over ``model`` where
+    it has more than one, and dimension ``seq_dim``, where given, over
+    ``seq_axes`` (the block of a sequence a rank holds): the placements
+    that data, tensor and sequence parallelism execute (ROADMAP Queue A
+    item 3(c))."""
+    held = tuple(a for a in BATCH if mesh_shape.get(a, 1) > 1
+                 and a not in seq_axes) if split else ()
     model = (MODEL,) if mesh_shape.get(MODEL, 1) > 1 else ()
+    seq = tuple(a for a in seq_axes if mesh_shape.get(a, 1) > 1)
     for d, entry in enumerate(spec):
         live = tuple(a for a in spec_axes(entry) if mesh_shape[a] > 1)
         want = ((held if d == batch_dim else ())
-                + (model if d == model_dim else ()))
+                + (model if d == model_dim else ())
+                + (seq if d == seq_dim else ()))
         if live != want:
             raise NotImplementedError(
                 f"{what} places dimension {d} over {live or 'no axis'} on "
                 f"mesh {mesh_shape}: only the batch split over "
-                f"{held or 'no axis'} and a block the code holds over "
-                f"{model or 'no axis'} execute here; {QUEUE_3C}")
+                f"{held or 'no axis'}, a block the code holds over "
+                f"{model or 'no axis'} and a held sequence over "
+                f"{seq or 'no axis'} execute here; {QUEUE_3C}")
 
 
 # -- a leaf's placement, and cutting trees by it -----------------------------

@@ -16,6 +16,12 @@ values; a tensor position and an int give the same integers), and the
 logits within 1e-4 of max|logit| of the reference's ``decode_fn``, as
 ``tests/test_torch_archs.py`` holds the eager step (fp32 sums in another
 order); greedy tokens equal the reference's.
+
+The cases themselves, shared by the files that run them, one an arch
+family so that ``--dist loadfile`` spreads them over workers:
+``test_torch_compiled_dense.py``, ``test_torch_compiled_moe.py``,
+``test_torch_compiled_recurrent.py`` and ``test_torch_compiled_chip.py``
+(``chip_smoke.py``'s captured phases rehearsed).
 """
 import importlib.util
 import os
@@ -78,8 +84,7 @@ def _equal_trees(a, b):
 
 
 # -- the decode step --------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCH_IDS)
-def test_captured_decode_equals_eager_and_reference(arch):
+def captured_decode_equals_eager_and_reference(arch):
     """One graph replayed at STEPS positions: each step's logits
     ``torch.equal`` to the eager step's and within REL of the reference's,
     the cache (or recurrent state) ``torch.equal`` after every step."""
@@ -100,8 +105,7 @@ def test_captured_decode_equals_eager_and_reference(arch):
     assert gs.captures == {"decode": 1} and gs.replays == {"decode": STEPS}
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
-def test_tensor_position_hits_no_host_sync(arch):
+def tensor_position_hits_no_host_sync(arch):
     """``decode_fn`` with the position as a 0-d tensor runs under the
     emulator's recorder (which raises on ``_local_scalar_dense``) and
     gives the int position's logits and cache, bit for bit."""
@@ -116,8 +120,7 @@ def test_tensor_position_hits_no_host_sync(arch):
         assert torch.equal(got, want) and _equal_trees(ct, ci), (arch, t)
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
-def test_position_past_the_cache_raises_before_any_replay(arch):
+def position_past_the_cache_raises_before_any_replay(arch):
     _, _, pb, pp, toks = _setup(arch)
     gs = _graphs()
     decode = steps.compiled_decode(pb, gs, MAX_LEN, CPU)
@@ -131,8 +134,7 @@ def test_position_past_the_cache_raises_before_any_replay(arch):
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(cache), before))
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
-def test_first_captured_step_advances_the_state_once(arch):
+def first_captured_step_advances_the_state_once(arch):
     """The recurrent state is written in place and read again: the first
     call (warm-up, capture, replay) leaves it as one eager step does."""
     _, _, pb, pp, toks = _setup(arch)
@@ -145,8 +147,7 @@ def test_first_captured_step_advances_the_state_once(arch):
 
 
 # -- the prefill --------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCH_IDS)
-def test_captured_prefill_equals_eager(arch):
+def captured_prefill_equals_eager(arch):
     """The prompt pass ``serve_lm`` runs, captured against eager, on two
     prompts in turn (the second a replay on tokens copied in, over a
     zeroed cache): ``prefill_cache_fn`` for the transformer family, the
@@ -200,8 +201,7 @@ def _reference_tokens(rb, pr, prompts: np.ndarray) -> np.ndarray:
     return np.asarray(jnp.concatenate(out, axis=1))
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
-def test_serve_lm_captured_equals_eager_and_reference(arch):
+def serve_lm_captured_equals_eager_and_reference(arch):
     """``serve_lm(graphs=EmulatedGraph)`` twice and ``graphs=False`` once
     from the same weights: every call's logits ``torch.equal``, its tokens
     the reference's greedy tokens; each captured call holds at most two
@@ -242,8 +242,7 @@ def _train_batches(pb, n, seq=16):
             for i in range(n)]
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v2-236b"])
-def test_captured_train_steps_equal_eager(arch):
+def captured_train_steps_equal_eager(arch):
     """Three steps captured (params, moments and step count resident and
     written in place) against three eager steps from the same state:
     the losses and, from step 2 on (step 0's learning rate is 0),
@@ -271,7 +270,7 @@ def test_captured_train_steps_equal_eager(arch):
     assert gs.captures == {"train_step": 1} and gs.replays == {"train_step": 3}
 
 
-def test_captured_restart_is_bit_equal(tmp_path):
+def captured_restart_is_bit_equal(tmp_path):
     """A captured ``train`` resumed from its checkpoint at step 3 gives the
     uninterrupted captured run's losses and final params bit for bit."""
     kw = dict(steps=6, batch=B, seq=16, smoke=True, ckpt_dir=str(tmp_path),
@@ -293,7 +292,7 @@ def test_captured_restart_is_bit_equal(tmp_path):
 
 
 # -- no fallback ------------------------------------------------------------
-def test_failed_capture_raises_from_serve_lm(monkeypatch):
+def failed_capture_raises_from_serve_lm(monkeypatch):
     """A decode step that reads its position on the host cannot be
     captured: ``serve_lm`` raises ``GraphCaptureError`` and serves
     nothing eagerly instead."""
@@ -311,7 +310,7 @@ def test_failed_capture_raises_from_serve_lm(monkeypatch):
     assert len(served) == 1  # the prefill's, captured; no decode step ran
 
 
-def test_failed_capture_raises_from_train(monkeypatch):
+def failed_capture_raises_from_train(monkeypatch):
     """A schedule that reads the step count on the host cannot be
     captured: ``train`` raises ``GraphCaptureError`` and takes no step."""
     real = steps.cosine_with_warmup
@@ -341,7 +340,7 @@ def _chip_smoke():
     return cs, (k1, k2, k3, k4)
 
 
-def test_chip_smoke_training_phase_rehearses_captured_on_the_cpu(capsys):
+def chip_smoke_training_phase_rehearses_captured_on_the_cpu(capsys):
     """``chip_smoke.py``'s training phase at the smoke config, captured
     with the emulator and eagerly, cut to 10 steps of 2 x 32 tokens (the
     card runs 30 of 8 x 256): the captured run within its limits of the
@@ -355,7 +354,7 @@ def test_chip_smoke_training_phase_rehearses_captured_on_the_cpu(capsys):
     assert "captured against eager: losses of steps 1-10" in capsys.readouterr().out
 
 
-def test_chip_smoke_zoo_phase_rehearses_captured_on_the_cpu(capsys):
+def chip_smoke_zoo_phase_rehearses_captured_on_the_cpu(capsys):
     """``chip_smoke.py``'s arch-zoo phase at the smoke configs, each arch
     served captured (the emulator) and eagerly: logits equal, the
     transformer family's prefill and decode captured, the others'

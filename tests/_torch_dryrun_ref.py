@@ -5,8 +5,9 @@ host devices before jax is imported, which is why the tests that hold the
 port's dry run against it run this file as a subprocess.
 
 Each cell is ``{"arch", "shape", "mesh": "1x1" | "16x16" | "2x16x16",
-"smoke"}``; its result holds the reference's ``analyze_hlo`` dot FLOPs and
-``memory_analysis().argument_size_in_bytes``."""
+"smoke"}``; its result holds the reference's ``analyze_hlo`` dot FLOPs,
+collective wire bytes (in all and by opcode) and
+``memory_analysis()``'s argument and temporary bytes."""
 import json
 import sys
 import time
@@ -33,6 +34,9 @@ def main(cells: list) -> list:
         cost = analyze_hlo(compiled.as_text(), mesh.size)
         out.append({**cell, "dot_flops": cost.dot_flops,
                     "argument_size_in_bytes": int(mem.argument_size_in_bytes),
+                    "temp_size_in_bytes": int(mem.temp_size_in_bytes),
+                    "collective_bytes": cost.collective_bytes,
+                    "collectives": dict(cost.collectives),
                     "seconds": round(time.time() - t0, 1),
                     "jax": jax.__version__})
     return out

@@ -1,0 +1,51 @@
+"""The compiled steps of ``serve_lm`` and ``train`` for the dense
+transformer archs (CodeQwen, SmolLM, Gemma2, Qwen3, PaliGemma): the cases
+of ``tests/_torch_compiled_cases.py``, which says what each holds and
+with which tolerance."""
+import pytest
+
+import _torch_compiled_cases as cases
+
+ARCHS = ["codeqwen1.5-7b", "smollm-135m", "gemma2-9b", "qwen3-4b", "paligemma-3b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_captured_decode_equals_eager_and_reference(arch):
+    cases.captured_decode_equals_eager_and_reference(arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tensor_position_hits_no_host_sync(arch):
+    cases.tensor_position_hits_no_host_sync(arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_position_past_the_cache_raises_before_any_replay(arch):
+    cases.position_past_the_cache_raises_before_any_replay(arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_captured_prefill_equals_eager(arch):
+    cases.captured_prefill_equals_eager(arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_lm_captured_equals_eager_and_reference(arch):
+    cases.serve_lm_captured_equals_eager_and_reference(arch)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m"])
+def test_captured_train_steps_equal_eager(arch):
+    cases.captured_train_steps_equal_eager(arch)
+
+
+def test_captured_restart_is_bit_equal(tmp_path):
+    cases.captured_restart_is_bit_equal(tmp_path)
+
+
+def test_failed_capture_raises_from_serve_lm(monkeypatch):
+    cases.failed_capture_raises_from_serve_lm(monkeypatch)
+
+
+def test_failed_capture_raises_from_train(monkeypatch):
+    cases.failed_capture_raises_from_train(monkeypatch)

@@ -393,22 +393,26 @@ def test_checkpoint_restores_across_mesh_shapes(data2_model2, ckpt_dir):
         assert torch.equal(a, b)
 
 
-REFUSED = ("seq_parallel", "serve_captured", "train_captured", "uneven_cache",
+REFUSED = ("serve_captured", "train_captured", "uneven_cache",
            "bare_model_hint", "moe_plain")
 
 
 @pytest.mark.parametrize("mesh_name", MESH_NAMES)
 def test_unexecuted_placements_still_raise(request, mesh_name):
     """The placements this slice does not execute raise naming ROADMAP
-    Queue A item 3(c); a held model placement is the identity."""
+    Queue A item 3(c); a held model placement is the identity, and the
+    sequence-parallel stream (``REPRO_SEQ_PARALLEL=1``) and a batch of one
+    over the data ranks now run (``tests/test_torch_seq_parallel.py`` and
+    ``tests/test_torch_seq_data.py`` hold their values)."""
     runs = _runs(request, mesh_name)
-    names = REFUSED + (("batch1_over_data",) if mesh_name == "data2-model2"
-                       else ())
+    ran = ("held_model_hint", "seq_parallel") + (
+        ("batch1_over_data",) if mesh_name == "data2-model2" else ())
     for r in runs:
         got = r["refusals"]
-        for name in names:
+        for name in REFUSED:
             assert "3(c)" in got[name], (name, got[name])
-        assert got["held_model_hint"] == "ran"
+        for name in ran:
+            assert got[name] == "ran", (name, got[name])
 
 
 @pytest.mark.parametrize("mesh_name", MESH_NAMES)
