@@ -267,7 +267,17 @@ Phases, in order; any failure raises:
     prefill shape (BH 64, S 16, fp32) against its plain version, timed
     beside SDPA in the same type; the prefill step's K4 share (its 36
     launches at that device time) printed beside the step;
-16. one JSON line with the training numbers (ms a step and tokens/s, the
+16. the autotune ledger (``repro_torch.kernels.autotune``): a VGG-16
+    224 pipeline (n=8, (2, 4), fused transitions, bucket 8) sweeps every
+    K1 worker cell and K2 transition cell through
+    ``CodedPipeline.autotune_kernels`` into a temporary ledger
+    (``REPRO_AUTOTUNE_CACHE``, set for the whole run, so no earlier phase
+    reads a ledger); a line a cell with the heuristic's plan and device us
+    beside the winner's; the K1 pass of bucket 8 timed untuned (before the
+    sweep) and tuned; a bucket-8 pass with the tuned plans held to the
+    uncoded stack within 1e-4 of max|uncoded|, K1 and K2 launched; a
+    second ``autotune_kernels`` call sweeps 0 cells;
+17. one JSON line with the training numbers (ms a step and tokens/s, the
     median over steps 5-30, captured and eager, peak device memory, the
     model FLOPs a step and their share of the fp32 peak, the card's name
     and power limit),
@@ -276,7 +286,7 @@ Phases, in order; any failure raises:
     and the coded LM prefill's among them), one JSON line with the
     examples' and the specs' readings, one JSON line with the process
     mesh's readings, one JSON line with the dry run's, one JSON line with
-    the kernels' numbers (K1-K4; K2's top-level numbers
+    the autotune phase's, one JSON line with the kernels' numbers (K1-K4; K2's top-level numbers
     are its CNN pass, its LM numbers sit under ``paths.lm``; each kernel's
     ``launches`` is its count on the phase-5 or phase-7 main path, and
     ``launches_by_path`` its count in every phase that ran it, training's
@@ -3215,6 +3225,92 @@ def print_dryrun(dr: dict, card: str) -> None:
                  f"{e['whole_p_mismatch_share']:.2%} > {K4_BF16_WHOLE_P:.0%}"))
 
 
+# -- the autotune ledger: K1/K2 launch plans swept per cell -----------------
+def k1_pass_ms(inputs) -> float:
+    """Device ms of one K1 launch at each of ``inputs`` (``(xe, ke,
+    stride)``, one per layer), as the wrapper launches it now."""
+    from repro_torch.kernels.conv2d.kernel import coded_worker
+
+    return sum(device_ms(lambda a=a: coded_worker(*a)) for a in inputs)
+
+
+def autotune_phase(device, counters, card: str) -> dict:
+    """Phase 16: ``autotune_kernels`` on the VGG-16 pipeline at bucket 8
+    into the run's temporary ledger, the K1 pass timed before and after,
+    a tuned pass held to the uncoded stack, and a second call that must
+    sweep nothing.  Raises where a check fails."""
+    from repro_torch.core.pipeline import build_cnn_pipeline
+    from repro_torch.kernels import autotune
+    from repro_torch.models.cnn import init_cnn
+
+    t0 = time.perf_counter()
+    params = init_cnn(ARCH, torch.Generator().manual_seed(SEED), device)
+    pipe = build_cnn_pipeline(ARCH, params, N_WORKERS, default_kab=KAB,
+                              input_hw=HW, backend="kernel",
+                              bucket_sizes=(BUCKET,), fuse_transitions=True,
+                              device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    inputs = [(torch.randn(xs, generator=gen, device=device),
+               torch.randn(ks, generator=gen, device=device), stride)
+              for xs, ks, stride in worker_shapes(pipe, BUCKET)]
+    if autotune.load_cache():
+        raise AssertionError(f"the run's ledger {autotune.cache_path()} is "
+                             f"not empty before the sweep")
+    untuned = k1_pass_ms(inputs)
+    swept0, ts = autotune.sweep_count(), time.perf_counter()
+    tuned = pipe.autotune_kernels((BUCKET,), repeat=3)
+    sweep_s = time.perf_counter() - ts
+    swept = autotune.sweep_count() - swept0
+    if swept != len(tuned) or not tuned:
+        raise AssertionError(f"{swept} sweeps for {len(tuned)} cells")
+    ledger = autotune.load_cache()
+    cells = []
+    for key, win in tuned.items():
+        e = ledger[key]
+        heur = e["swept"][0]  # the heuristic's plan leads every candidate set
+        if e["us"] > heur["us"]:
+            raise AssertionError(f"{key}: winner {e['us']} us slower than the "
+                                 f"heuristic's {heur['us']} us")
+        cells.append({"key": key, "heuristic": heur["params"],
+                      "heuristic_us": heur["us"], "winner": win,
+                      "winner_us": e["us"], "candidates": len(e["swept"])})
+    tuned_ms = k1_pass_ms(inputs)
+    xs = np.random.default_rng(SEED).standard_normal(
+        (BUCKET,) + pipe.input_shape).astype(np.float32)
+    _reset(counters)
+    y = pipe.run(torch.as_tensor(xs, device=device))
+    torch.cuda.synchronize()
+    launches = _launches(counters)
+    if not all(launches.values()):
+        raise AssertionError(f"the tuned pass launched {launches}")
+    worst = check_served(list(y.cpu()), xs, params, device)
+    again = autotune.sweep_count()
+    if pipe.autotune_kernels((BUCKET,)) != tuned or autotune.sweep_count() != again:
+        raise AssertionError("a second autotune_kernels call swept again")
+    return {"card": card, "ledger": autotune.cache_path(), "cells": cells,
+            "swept": swept, "second_call_swept": autotune.sweep_count() - again,
+            "sweep_s": sweep_s, "k1_pass_device_ms": {"untuned": untuned,
+                                                      "tuned": tuned_ms},
+            "max_rel_err": worst, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def print_autotune(at: dict, card: str) -> None:
+    print(f"autotune phase on {card}: {at['swept']} cells swept in "
+          f"{at['sweep_s']:.1f} s into {at['ledger']}; heuristic vs winner, "
+          f"device us:")
+    for c in at["cells"]:
+        print(f"  {c['key']}: {json.dumps(c['heuristic'])} {c['heuristic_us']}"
+              f" -> {json.dumps(c['winner'])} {c['winner_us']} "
+              f"({c['candidates']} candidates)")
+    k = at["k1_pass_device_ms"]
+    print(f"K1 pass at bucket {BUCKET}: {k['untuned']:.4f} device ms untuned, "
+          f"{k['tuned']:.4f} tuned; tuned pass vs uncoded max rel err "
+          f"{at['max_rel_err']:.2e} <= {TOL_SERVE}; launches {at['launches']}; "
+          f"second call swept {at['second_call_swept']} cells "
+          f"({at['seconds']:.1f} s)")
+
+
 # -- the process mesh: SPMD over torch.distributed ----------------------------
 
 # (a) VGG-16 at 224, batch DIST_BATCH, every ConvL through run_sharded on
@@ -4653,6 +4749,12 @@ def main() -> int:
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
     device = torch.device("cuda")
+    # the run's own autotune ledger: the wrappers find no plan in it before
+    # phase 16 sweeps, whatever ledger the checkout holds
+    import tempfile
+    ledger_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(
+        ledger_dir.name, "autotune_cache_torch.json")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -5008,6 +5110,12 @@ def main() -> int:
                                                 for c in dr["cells"])}
     _empty_cache(device)
 
+    # -- the autotune ledger: VGG-16's K1/K2 cells swept, then served tuned
+    at = autotune_phase(device, (k1_launches, k2_launches), card)
+    print_autotune(at, card)
+    by_path["autotune"] = at["launches"]
+    _empty_cache(device)
+
     # -- the kernels line: K1-K4, launches from each path's serving run.
     # K2 runs on both paths, in two regimes: its top-level numbers stay
     # one pass of the CNN transition shapes; one LM decode step's worker
@@ -5061,7 +5169,9 @@ def main() -> int:
     print(json.dumps({"examples": ex, "specs": specs}))
     print(json.dumps({"distributed": dist}))
     print(json.dumps({"dryrun": dr}))
+    print(json.dumps({"autotune": at}))
     print(json.dumps({"kernels": [k1e, k2e, k3e, k4e]}))
+    ledger_dir.cleanup()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

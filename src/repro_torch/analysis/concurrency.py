@@ -1,7 +1,8 @@
 """Concurrency lint: an AST pass over the threaded layers.
 
 Scope (default): ``src/repro_torch/serving``, ``src/repro_torch/runtime``,
-and ``src/repro_torch/kernels/native.py`` — everything that takes locks.
+``src/repro_torch/kernels/native.py`` and ``src/repro_torch/kernels/autotune.py``
+— everything that takes locks.
 The port's copy of the reference's lint (``repro.analysis.concurrency``):
 the same rules, suppression syntax and stats, so the two packages' reports
 compare finding for finding.
@@ -756,6 +757,7 @@ DEFAULT_SCOPE = (
     "src/repro_torch/serving",
     "src/repro_torch/runtime",
     "src/repro_torch/kernels/native.py",
+    "src/repro_torch/kernels/autotune.py",
 )
 
 # the checkout root: DEFAULT_SCOPE is relative to it, wherever the caller's

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..devices import resolve_device
-from ..kernels.conv2d.ops import coded_transition
+from ..kernels.conv2d.ops import coded_transition, transition_gemms
 from .cost import CostWeights, optimal_partition
 from .crme import recovery_matrix
 from .fcdcc import CodedConv2d, FcdccPlan, check_backend
@@ -594,16 +594,9 @@ class CodedPipeline:
         key = self._transition_key(self.specs[idx], self.specs[idx + 1])
         fn = self._transitions.get(key)
         if fn is None:
-            spec, nxt = self.specs[idx], self.specs[idx + 1]
-            q = spec.plan.k_a * spec.plan.k_b
-            ell_next = nxt.plan.ell_a
-            geo, pool, geo_next = spec.geo, spec.pool, nxt.geo
-
-            def assemble(blocks):
-                # relu already applied by the decode epilogue
-                return partition_transition(blocks, geo, pool, geo_next,
-                                            relu=False)
-
+            q = self.specs[idx].plan.k_a * self.specs[idx].plan.k_b
+            ell_next = self.specs[idx + 1].plan.ell_a
+            assemble = self._assemble(idx)
             if self.backend == "kernel":
                 def trans(outs, d, m_next):
                     coded = coded_transition(outs, d, m_next, assemble)
@@ -620,6 +613,94 @@ class CodedPipeline:
                 trans, name="transition", resident=(2,),
                 graphs=self.master_graphs)
         return fn
+
+    def _assemble(self, idx: int):
+        """The transition after layer ``idx``'s partition-space step: the
+        decoded grid (ReLU already applied by the decode epilogue) to the
+        next layer's APCP parts."""
+        geo, pool = self.specs[idx].geo, self.specs[idx].pool
+        geo_next = self.specs[idx + 1].geo
+
+        def assemble(blocks):
+            return partition_transition(blocks, geo, pool, geo_next,
+                                        relu=False)
+
+        return assemble
+
+    # -- kernel autotuning ---------------------------------------------------
+    def _tune_cells(self, bucket_sizes: Sequence[int] | None = None):
+        """The cells ``autotune_kernels`` sweeps, in the reference's order:
+        per bucket and layer, K1's worker cell ``("worker", share shape,
+        filter-group shape, stride)``, then, under ``fuse_transitions``,
+        the transition's K2 GEMMs ``("matmul", m, k, n, relu)``: the
+        decode with its ReLU and the re-encode at both widths (the
+        fastest-delta subset and the all-n round the cluster re-encodes
+        for), as ``coded_transition`` launches them
+        (``transition_gemms``)."""
+        buckets = (self.normalize_buckets(bucket_sizes) if bucket_sizes
+                   else (self.bucket_sizes or (1,)))
+        last = len(self.specs) - 1
+        for bucket in buckets:
+            for idx, spec in enumerate(self.specs):
+                geo, plan = spec.geo, spec.plan
+                yield ("worker", (plan.ell_a, bucket, geo.in_channels,
+                                  geo.h_hat, geo.padded_w),
+                       tuple(self.coded_filters[idx].shape[1:]), geo.stride)
+                if not (self.fuse_transitions and idx < last):
+                    continue
+                outs = (self.layer_delta(idx), plan.ell_a * plan.ell_b,
+                        bucket, geo.out_c_block, geo.out_h_block, geo.out_w)
+                widths = sorted({
+                    self.encode_columns(
+                        idx + 1, self.layer_worker_ids(idx + 1)).shape[1],
+                    self.encode_columns_all(idx + 1).shape[1]})
+                for gemm in transition_gemms(outs, plan.k_a * plan.k_b,
+                                             widths, self._assemble(idx)):
+                    yield ("matmul",) + gemm
+
+    def autotune_kernels(self, bucket_sizes: Sequence[int] | None = None, *,
+                         repeat: int = 3, force: bool = False,
+                         path: str | None = None) -> dict:
+        """Time every K1/K2 cell this pipeline launches on the card and
+        record the winning launch plans in the autotune ledger
+        (``repro_torch.kernels.autotune``), then drop the worker and
+        transition programs and the master's graph captures, so they are
+        rebuilt with the tuned plans at their next call.
+
+        The cells come from ``_tune_cells``, one per (layer geometry,
+        bucket): the worker's implicit-GEMM convolution and, under
+        ``fuse_transitions``, the transition's decode GEMM and both
+        re-encode GEMM widths.  Recorded cells return at once (``force``
+        sweeps again), so calling this at server start-up costs sweeps
+        only on a cold ledger.  Returns ``{ledger key: winning params}``
+        for the cells visited; ``{}`` off the card or off the kernel
+        backend."""
+        if self.backend != "kernel" or self.device.type != "cuda":
+            return {}
+        from ..kernels import autotune
+
+        tuned: dict[str, dict] = {}
+        for kind, *cell in self._tune_cells(bucket_sizes):
+            if kind == "worker":
+                xe, ke, stride = cell
+                key = autotune.worker_key(xe, ke, stride, device=self.device)
+                tuned[key] = autotune.tune_worker(
+                    xe, ke, stride, device=self.device, repeat=repeat,
+                    force=force, path=path)
+            else:
+                m, k, n, relu = cell
+                key = autotune.matmul_key(m, k, n, relu=relu,
+                                          device=self.device)
+                tuned[key] = autotune.tune_matmul(
+                    m, k, n, relu=relu, device=self.device, repeat=repeat,
+                    force=force, path=path)
+        # rebuilt programs and fresh captures launch the winners
+        self._batch_programs.clear()
+        self._cluster_programs.clear()
+        self._transitions.clear()
+        for graphs in self._graph_sets.values():
+            graphs.clear()
+        return tuned
 
     # -- shape-space enumeration -------------------------------------------
     def program_space(self, bucket_sizes: Sequence[int] | None = None, *,

@@ -1,13 +1,16 @@
 """Public conv ops used by ``CodedConv2d``'s ``backend="kernel"`` path."""
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from ..matmul.kernel import matmul
 from .kernel import coded_worker
 
-__all__ = ["conv2d_im2col", "coded_worker", "coded_transition"]
+__all__ = ["conv2d_im2col", "coded_worker", "coded_transition",
+           "transition_gemms"]
 
 
 def conv2d_im2col(x: torch.Tensor, k: torch.Tensor, stride: int = 1,
@@ -32,7 +35,8 @@ def coded_transition(outs: torch.Tensor, d: torch.Tensor, m_next: torch.Tensor,
     ``d``: the ``(Q, Q)`` decode inverse; ``m_next``: the next layer's
     A-code encode columns ``(k_a', L)``; ``assemble``: the
     geometry-specialised ``partition_transition`` (torch slicing and max).
-    Returns the coded next-layer input shares ``(L, *part)``."""
+    Returns the coded next-layer input shares ``(L, *part)``.  The two K2
+    launches' shapes are ``transition_gemms``'."""
     q = d.shape[0]
     rows = outs.reshape(outs.shape[0] * outs.shape[1], -1)
     decoded = matmul(d.to(rows.dtype).contiguous(), rows, relu=True)
@@ -41,3 +45,16 @@ def coded_transition(outs: torch.Tensor, d: torch.Tensor, m_next: torch.Tensor,
     cols_t = m_next.to(parts.dtype).t().contiguous()  # (L, k_a')
     coded = matmul(cols_t, parts.reshape(k2, -1))
     return coded.reshape((cols_t.shape[0],) + tuple(parts.shape[1:]))
+
+
+def transition_gemms(outs_shape, q: int, widths, assemble) -> list[tuple]:
+    """``(m, k, n, relu)`` of each K2 launch of ``coded_transition`` for
+    worker outputs of ``outs_shape`` and a ``(q, q)`` decode inverse: the
+    decode GEMM, then the re-encode GEMM at each of ``widths`` encode
+    columns.  The parts' shape is ``assemble``'s on a meta tensor, so
+    nothing runs."""
+    rows = outs_shape[0] * outs_shape[1]
+    parts = assemble(torch.empty((q,) + tuple(outs_shape[2:]), device="meta"))
+    k2, fp = parts.shape[0], math.prod(parts.shape[1:])
+    return ([(q, rows, math.prod(outs_shape[2:]), True)]
+            + [(w, k2, fp, False) for w in widths])

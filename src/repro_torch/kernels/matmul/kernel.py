@@ -5,7 +5,8 @@ Counterpart of the TPU kernel ``matmul_pallas``
 (``src/repro/kernels/matmul/kernel.py:111``).  ``matmul`` launches the
 CUDA kernel for CUDA tensors and runs ``matmul_plain`` only for tensors
 that lie on the CPU; there is no fallback from one to the other.
-``matmul_plan`` chooses between the kernel's two launch shapes.
+``matmul_plan`` chooses between the kernel's two launch shapes, unless the
+autotune ledger holds a plan for the cell (``choose_matmul_plan``).
 """
 from __future__ import annotations
 
@@ -13,9 +14,12 @@ from typing import NamedTuple
 
 import torch
 
+from .. import autotune
 from ..native import NUM_SMS, LaunchCounter, launch_on, load_library
 
-__all__ = ["matmul", "matmul_plain", "matmul_plan", "MatmulPlan", "launches"]
+__all__ = ["matmul", "matmul_plain", "matmul_plan", "MatmulPlan",
+           "plan_params", "matmul_plan_of", "choose_matmul_plan",
+           "launch_plan", "launches"]
 
 launches = LaunchCounter("matmul")
 
@@ -66,6 +70,47 @@ def matmul_plan(m: int, n: int, k: int) -> MatmulPlan:
     return MatmulPlan("split", splits, -(-k // splits), strips * splits)
 
 
+def plan_params(plan: MatmulPlan) -> dict:
+    """A plan as the autotune ledger records it."""
+    if plan.kernel == "column":
+        return {"kernel": "column"}
+    return {"kernel": "split", "splits": plan.splits}
+
+
+def matmul_plan_of(params: dict, m: int, n: int, k: int) -> MatmulPlan:
+    """The plan a ledger entry (``plan_params``'s form) names for an
+    ``(m, k) @ (k, n)`` product.  Raises ``ValueError`` where K2 cannot
+    launch it: the split kernel past ``SPLIT_MAX_M`` rows or with a split
+    count it lacks, the column kernel past its row-block grid."""
+    kind = params.get("kernel") if isinstance(params, dict) else None
+    if kind == "column" and set(params) == {"kernel"}:
+        if -(-m // 16) > _MAX_ROW_BLOCKS:
+            raise ValueError(f"M={m} exceeds the column kernel's row-block "
+                             f"grid")
+        bm = 8 if m <= 8 else 16
+        return MatmulPlan("column", 0, k,
+                          -(-n // COLUMN_THREADS) * -(-m // bm))
+    if kind == "split" and set(params) == {"kernel", "splits"}:
+        s = params["splits"]
+        if type(s) is not int or s not in SPLIT_CHOICES or m > SPLIT_MAX_M:
+            raise ValueError(f"K2 plan {params!r} does not launch for M = "
+                             f"{m}: splits in {SPLIT_CHOICES}, M at most "
+                             f"{SPLIT_MAX_M}")
+        return MatmulPlan("split", s, -(-k // s), -(-n // SPLIT_STRIP) * s)
+    raise ValueError(f"K2 plan {params!r}: want {{'kernel': 'column'}} or "
+                     f"{{'kernel': 'split', 'splits': s}}")
+
+
+def choose_matmul_plan(m: int, n: int, k: int, *, relu: bool = False,
+                       device=None) -> MatmulPlan:
+    """The plan K2 launches for an ``(m, k) @ (k, n)`` cell on ``device``:
+    the autotune ledger's where it records one (``autotune.matmul_params``;
+    never a sweep), else ``matmul_plan``'s."""
+    params = autotune.matmul_params(m, k, n, relu=relu, device=device)
+    return (matmul_plan(m, n, k) if params is None
+            else matmul_plan_of(params, m, n, k))
+
+
 def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
                  relu: bool = False) -> torch.Tensor:
     """``a @ b`` then ``clamp_min(0)`` when ``relu`` — what K2 computes."""
@@ -75,8 +120,8 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, relu: bool = False) -> torch.Tensor:
     """``a (M, K) @ b (K, N)`` in IEEE fp32, ReLU fused into the store when
-    ``relu``.  CUDA tensors launch K2 as ``matmul_plan`` says; CPU tensors
-    take ``matmul_plain``."""
+    ``relu``.  CUDA tensors launch K2 as ``choose_matmul_plan`` says; CPU
+    tensors take ``matmul_plain``."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.device != b.device:
@@ -91,7 +136,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, relu: bool = False) -> torch.Ten
         raise ValueError("K2 takes contiguous row-major operands")
     m, k = a.shape
     n = b.shape[1]
-    plan = matmul_plan(m, n, k)
+    plan = choose_matmul_plan(m, n, k, relu=relu, device=a.device)
     if plan.kernel == "column" and -(-m // 16) > _MAX_ROW_BLOCKS:
         raise ValueError(f"M={m} exceeds the kernel's row-block grid")
     out = launch_plan(plan, a, b, relu=relu)

@@ -365,12 +365,14 @@ class ProcessMesh:
         slices cut in group order, ``dim`` divisible by the group): an
         all-reduce, then the cut (gloo has no reduce-scatter for CUDA
         tensors; NCCL's ``reduce_scatter_tensor`` waits for a run on
-        several cards, ROADMAP Queue A item 3(c))."""
+        several cards, ROADMAP Queue A item 3(c)).  The slice is a copy, so
+        the summed buffer is freed at once."""
         if self.group(axes) is None:
             return t
         k, i = self.group_size(axes), self.group_rank(axes)
         n = t.shape[dim] // k
-        return self.all_reduce(t, axes).narrow(dim, i * n, n).contiguous()
+        return self.all_reduce(t, axes).narrow(dim, i * n, n).clone(
+            memory_format=torch.contiguous_format)
 
 
 def joint_group_ranks(axis_names, axis_sizes) -> dict:

@@ -12,9 +12,10 @@ Under a process mesh of several ranks (``launch.mesh.ProcessMesh``)
 of the global batch (at batch 1, its block of the sequence over the data
 axes: ``sharding.hold_sequence``), the gradients are averaged over the pod
 and data axes, and with ``fsdp`` the params and AdamW moments live as this
-rank's shards (gathered over the data axes before the forward, the
-gradients cut back to them).  Over a ``model`` axis of more than one rank
-every family runs tensor parallel, and the transformer's MoE expert
+rank's shards (each layer's gathered over the data axes as the model runs
+it, its gradient reduce-scattered back onto them).  Over a ``model`` axis
+of more than one rank every family runs tensor parallel, and the
+transformer's MoE expert
 parallel (each rank its cut of every leaf: ``models.transformer``,
 ``rwkv6``, ``hymba``, ``whisper``), the transformer's residual stream
 sequence parallel under ``REPRO_SEQ_PARALLEL=1``.  The prefill step keeps
@@ -44,9 +45,10 @@ from ..models.common import checkpointed, greedy, schema_shardings
 from ..optim import AdamWConfig, apply_updates, compress_tree, init_state
 from ..optim.schedule import cosine_with_warmup
 from ..sharding import (BATCH, MODEL, QUEUE_3C, NamedSharding, PartitionSpec,
-                        check_data_parallel, gather_tree, hold_sequence,
-                        keep_vocab_cut, resolve_pspec, shard_tree,
-                        sharded_dim_over, spec_axes, use_mesh)
+                        check_data_parallel, gather_layers, gather_shard,
+                        gather_tree, hold_sequence, keep_vocab_cut,
+                        resolve_pspec, shard_tree, sharded_dim_over,
+                        spec_axes, use_mesh)
 from ..tree import tree_from_items, tree_items, tree_leaves, tree_map
 from .mesh import ProcessMesh
 
@@ -223,17 +225,21 @@ class ParallelStep:
     the stacked layer weights over the data axes; ``sharding.shard_tree``
     cuts full trees, ``gather_tree`` rebuilds them.  A call takes the
     global batch and, on each rank: cuts its rows (``batch_pspecs``),
-    all-gathers the params over the data axes only (the ``model`` cuts
-    stay), takes the loss and gradient of its rows, averages the loss and
-    the gradient over the data axes (a reduce-scatter onto the FSDP
-    shards, an all-reduce for the rest), and runs AdamW on what it holds
-    with the global gradient norm.  The gradient of a ``model``-cut leaf
-    is this rank's block; a whole leaf's (the norms, MLA's ``wkv_a``) is
-    the same on every ``model`` rank, the model's *f* summing the ranks'
-    parts.  With ``compress`` the gradient is all-reduced over the data
-    axes and gathered over ``model``, compressed whole as the reference
-    compresses each leaf, then cut.  Every rank returns the same loss and
-    norm."""
+    takes the loss and gradient of its rows with each layer's FSDP shards
+    all-gathered over the data axes only as the model runs that layer
+    (``sharding.gather_layers``: the ``model`` cuts stay, the gradient
+    comes back reduce-scattered onto the shards, and a rematerialised
+    layer gathers again in backward, as the reference's scan does), a leaf
+    cut along its stack's layer dimension gathered whole before the
+    forward; averages the loss and the gradient over the data axes (the
+    layers' shards divided by the ranks, a reduce-scatter onto the other
+    FSDP shards, an all-reduce for the rest), and runs AdamW on what it
+    holds with the global gradient norm.  The gradient of a ``model``-cut
+    leaf is this rank's block; a whole leaf's (the norms, MLA's ``wkv_a``)
+    is the same on every ``model`` rank, the model's *f* summing the
+    ranks' parts.  With ``compress`` the averaged gradient is gathered whole,
+    compressed as the reference compresses each leaf, then cut.  Every
+    rank returns the same loss and norm."""
 
     def __init__(self, bundle, tcfg: TrainConfig, mesh: ProcessMesh,
                  compress: bool):
@@ -250,6 +256,28 @@ class ParallelStep:
         self.opt_shardings = {"m": self.param_shardings,
                               "v": self.param_shardings,
                               "step": NamedSharding(mesh, PartitionSpec())}
+        self.layer_dims, self.per_layer = self._layer_cuts()
+
+    def _layer_cuts(self) -> tuple[dict, set]:
+        """``(dims, paths)``: for ``gather_layers``, each layer stack's
+        (a top-level key ending in ``layers``, with a leaf the data axes
+        cut) tree of the dimension of a layer's leaf that they cut, or
+        None; and the key paths of the leaves gathered so, a layer at a
+        time.  A leaf cut along its stack's layer dimension (Hymba's
+        ``conv``) is not among them."""
+        dims, paths = {}, set()
+        for path, sh in tree_items(self.param_shardings):
+            if not path[0].endswith("layers"):
+                continue
+            d = sharded_dim_over(sh, self.data_axes)
+            node = dims.setdefault(path[0], {})
+            for k in path[1:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = d - 1 if d else None
+            if d:
+                paths.add(path)
+        return {k: v for k, v in dims.items()
+                if any(p[0] == k for p in paths)}, paths
 
     def held_sequence(self, batch: dict) -> tuple:
         """The data axes that cut a batch of one row along its sequence
@@ -303,12 +331,14 @@ class ParallelStep:
         return shard_tree(batch, tree_map(lambda sp: NamedSharding(
             self.mesh, sp), specs))
 
-    def _mean(self, g, sh: NamedSharding):
-        d = sharded_dim_over(sh, self.data_axes)
-        if d is None:
-            g = self.mesh.all_reduce(g, self.data_axes)
-        else:
-            g = self.mesh.reduce_scatter(g, self.data_axes, d)
+    def _mean(self, g, sh: NamedSharding, summed: bool):
+        """The mean over the data ranks of one leaf's gradient, as the
+        leaf is held: ``summed`` where it arrived as this rank's shard of
+        the sum (a layer gathered by ``gather_layer``)."""
+        if not summed:
+            d = sharded_dim_over(sh, self.data_axes)
+            g = (self.mesh.all_reduce(g, self.data_axes) if d is None else
+                 self.mesh.reduce_scatter(g, self.data_axes, d))
         return g / self.ranks
 
     def _grad_norm(self, grads: dict) -> torch.Tensor:
@@ -331,29 +361,32 @@ class ParallelStep:
 
     def _step(self, params, opt_state, batch):
         tcfg, mesh = self.tcfg, self.mesh
-        full = gather_tree(params, self.param_shardings, self.data_axes)
-        with hold_sequence(self.held_sequence(batch)):
+        held = tree_from_items(
+            (path, p if path in self.per_layer
+             else gather_shard(p, sh, self.data_axes))
+            for (path, p), sh in zip(tree_items(params),
+                                     tree_leaves(self.param_shardings)))
+        with hold_sequence(self.held_sequence(batch)), gather_layers(
+                mesh, self.data_axes, self.layer_dims):
             loss, grads = accumulated_value_and_grad(
-                self.bundle.loss_fn, full, self.local_batch(batch),
+                self.bundle.loss_fn, held, self.local_batch(batch),
                 tcfg.microbatches, tcfg.remat)
-        del full
+        del held
         loss = mesh.all_reduce(loss, self.data_axes) / self.ranks
-        if self.compress:
-            grads = tree_map(lambda g: mesh.all_reduce(g, self.data_axes)
-                             / self.ranks, grads)
-            grads = gather_tree(grads, self.param_shardings, (MODEL,))
+        # each leaf's local gradient released as its mean is taken
+        items = tree_items(grads)
+        del grads
+        means = []
+        for i, sh in enumerate(tree_leaves(self.param_shardings)):
+            path, g = items[i]
+            items[i] = None
+            means.append((path, self._mean(g, sh, path in self.per_layer)))
+        del g
+        grads = tree_from_items(means)
+        if self.compress:  # compressed whole, as the reference does
+            grads = gather_tree(grads, self.param_shardings)
             grads, _ = compress_tree(grads, None, tcfg.grad_compression)
             grads = shard_tree(grads, self.param_shardings)
-        else:  # each leaf's local gradient released as its mean is taken
-            items = tree_items(grads)
-            del grads
-            means = []
-            for i, sh in enumerate(tree_leaves(self.param_shardings)):
-                path, g = items[i]
-                items[i] = None
-                means.append((path, self._mean(g, sh)))
-            del g
-            grads = tree_from_items(means)
         lr_scale = cosine_with_warmup(opt_state["step"], warmup=tcfg.warmup,
                                       total=tcfg.total_steps)
         params, opt_state, metrics = apply_updates(

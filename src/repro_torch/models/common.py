@@ -25,9 +25,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
-from ..sharding import (NamedSharding, PartitionSpec, model_ranks, placement,
-                        sequence_ranks, shard_tree, use_placement,
-                        vocab_cut_kept)
+from ..sharding import (NamedSharding, PartitionSpec, gather_layer,
+                        model_ranks, placement, sequence_ranks, shard_tree,
+                        use_placement, vocab_cut_kept)
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["ParamSpec", "MODEL_AXIS", "stack_schema", "spec_to_pspec",
@@ -36,7 +36,8 @@ __all__ = ["ParamSpec", "MODEL_AXIS", "stack_schema", "spec_to_pspec",
            "params_from_numpy", "at_least_fp32", "embed_rows", "vocab_logits",
            "whole_vocab", "greedy", "held_block", "prev_rows", "rms_norm",
            "softcap", "rope_inv_freq", "apply_rope", "make_attn_mask",
-           "attention", "next_token_nll", "position_index", "checkpointed", "NEG_INF"]
+           "attention", "next_token_nll", "position_index", "checkpointed",
+           "run_layer", "NEG_INF"]
 
 NEG_INF = -1e30  # additive mask value (finite, as in the reference)
 
@@ -191,6 +192,21 @@ def checkpointed(fn, *args):
             return fn(*a)
 
     return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _gathered(fn, stack: str, w, *args):
+    return fn(gather_layer(w, stack), *args)
+
+
+def run_layer(fn, stack: str, w, *args, remat: bool = False):
+    """``fn(w, *args)`` for one layer's weights ``w`` of ``params[stack]``,
+    its FSDP shards gathered over the data axes first
+    (``sharding.gather_layer``, the identity outside an FSDP train step).
+    With ``remat`` under ``checkpointed``: backward gathers the layer
+    again instead of keeping it."""
+    if remat:
+        return checkpointed(_gathered, fn, stack, w, *args)
+    return _gathered(fn, stack, w, *args)
 
 
 def next_token_nll(logits: torch.Tensor, targets: torch.Tensor,
@@ -391,16 +407,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor, *, scale: float | None = None,
               attn_softcap: float | None = None) -> torch.Tensor:
     """``q`` (B, Sq, H, D), ``k``/``v`` (B, Sk, Hkv, D[v]); GQA by head
-    repetition.  Softmax in fp32; returns (B, Sq, H, Dv)."""
+    repetition.  Softmax in fp32; returns (B, Sq, H, Dv).  Where no
+    gradient is taken the scale, the mask and the softmax run in place on
+    the one (B, Hkv, rep, Sq, Sk) fp32 score tensor; the training route
+    keeps them out of place, as autograd needs."""
     b, sq, h, d = q.shape
     hkv = k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     rep = h // hkv
     qg = q.reshape(b, sq, hkv, rep, d)
-    logits = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).float() * scale
-    if attn_softcap is not None:
-        logits = softcap(logits, attn_softcap)
-    logits = logits + mask[:, :, None, :, :]  # (B,1,Sq,Sk) -> (B,1,1,Sq,Sk)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        logits = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).float() * scale
+        if attn_softcap is not None:
+            logits = softcap(logits, attn_softcap)
+        logits = logits + mask[:, :, None, :, :]  # (B,1,Sq,Sk) -> (B,1,1,Sq,Sk)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    else:  # one name, so each superseded tensor is freed at once
+        probs = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).float()
+        probs.mul_(scale)
+        if attn_softcap is not None:
+            probs = softcap(probs, attn_softcap)
+        probs.add_(mask[:, :, None, :, :])
+        probs.sub_(probs.amax(dim=-1, keepdim=True)).exp_()
+        probs = probs.div_(probs.sum(dim=-1, keepdim=True)).to(v.dtype)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v)
     return out.reshape(b, sq, h, v.shape[-1])

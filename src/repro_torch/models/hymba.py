@@ -63,7 +63,8 @@ from ..sharding import (BATCH, QUEUE_3C, active_mesh, keep_vocab_cut,
 from ..tree import tree_map
 from .common import (ParamSpec, apply_rope, attention, embed_rows, held_block,
                      make_attn_mask, next_token_nll, position_index, prev_rows,
-                     rms_norm, rope_inv_freq, stack_schema, vocab_logits)
+                     rms_norm, rope_inv_freq, run_layer, stack_schema,
+                     vocab_logits)
 from .linear_scan import chunked_linear_attention, linear_step, scan_over_ranks
 from .transformer import attend, glu_ffn, heads_tp, kv_for, row_out
 
@@ -287,11 +288,17 @@ def forward(params, cfg: HymbaConfig, tokens: torch.Tensor, *,
     s0 = torch.zeros((b, cfg.ssm_heads, cfg.ssm_state, cfg.head_dim),
                      dtype=torch.float32, device=x.device)
     for w in _layers(params, cfg):
-        h_in = rms_norm(x, w["ln"])
-        attn_out = _attn_branch(w, h_in, cfg, rope, pos, autograd, k_pos)
-        ssm_out, _, _ = _ssm_branch(w, h_in, cfg, tail, s0, False, autograd)
-        x = _fuse_and_ffn(w, x, attn_out, ssm_out, cfg)
+        x = run_layer(_layer, "layers", w, x, cfg, rope, pos, k_pos, tail, s0,
+                      autograd)
     return _unembed(params, cfg, x)
+
+
+def _layer(w, x, cfg: HymbaConfig, rope, pos, k_pos, tail, s0, autograd):
+    """One layer of the pass over the prompt from a zero SSM state."""
+    h_in = rms_norm(x, w["ln"])
+    attn_out = _attn_branch(w, h_in, cfg, rope, pos, autograd, k_pos)
+    ssm_out, _, _ = _ssm_branch(w, h_in, cfg, tail, s0, False, autograd)
+    return _fuse_and_ffn(w, x, attn_out, ssm_out, cfg)
 
 
 # ---------------------------------------------------------------------------

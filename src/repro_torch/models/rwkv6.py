@@ -49,8 +49,8 @@ import torch.nn.functional as F
 from ..devices import resolve_device
 from ..sharding import BATCH, QUEUE_3C, keep_vocab_cut, model_ranks, shard_hint
 from ..tree import tree_map
-from .common import (ParamSpec, at_least_fp32, checkpointed, embed_rows,
-                     held_block, next_token_nll, prev_rows, rms_norm,
+from .common import (ParamSpec, at_least_fp32, embed_rows, held_block,
+                     next_token_nll, prev_rows, rms_norm, run_layer,
                      stack_schema, vocab_logits)
 from .linear_scan import chunked_linear_attention, linear_step, scan_over_ranks
 
@@ -313,12 +313,9 @@ def _run(params, cfg: RwkvConfig, tokens, state, decode: bool,
     new = []
     for l in range(cfg.layers):
         w = tree_map(lambda leaves: leaves[l], layers)
-        args = (w, x, cfg, state["xa"][l], state["xf"][l], state["s"][l],
-                decode, autograd)
-        if autograd:
-            x, *st = checkpointed(_layer, *args)
-        else:
-            x, *st = _layer(*args)
+        x, *st = run_layer(_layer, "layers", w, x, cfg, state["xa"][l],
+                           state["xf"][l], state["s"][l], decode, autograd,
+                           remat=autograd)
         new.append(st)
     x = rms_norm(x, params["ln_f"])
     return vocab_logits(x, params["embed"].t(), cfg.vocab), new

@@ -99,8 +99,8 @@ from ..tree import tree_leaves
 from ..tree import tree_map as map_params
 from .common import (NEG_INF, ParamSpec, apply_rope, attention, checkpointed,
                      embed_rows, make_attn_mask, next_token_nll,
-                     params_from_numpy, rms_norm, rope_inv_freq, schema_init,
-                     softcap, stack_schema, vocab_logits)
+                     params_from_numpy, rms_norm, rope_inv_freq, run_layer,
+                     schema_init, softcap, stack_schema, vocab_logits)
 from .moe import MoEConfig, moe_ffn, moe_schema
 
 __all__ = ["LMConfig", "MLAConfig", "MoEConfig", "lm_schema", "init_lm",
@@ -895,25 +895,25 @@ def _layer(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, moe_layer, cache,
     return x + ffn_out
 
 
-def _run_stack(stack_w, x, cfg, rope, q_pos, k_pos, caches, start, autograd,
-               n, moe_layer, offset, sp=False):
-    """The loop over one stack's ``n`` layers, the first of them layer
-    ``offset`` of the model; ``caches`` the stack's (L, B, S, ...) cache
-    leaves (written in place) or None.  Each stacked leaf is unbound once,
-    so its gradient is one stack of the layers' (not a sum of L
-    zero-padded selects).  On the training route each layer runs under
-    ``checkpointed`` (the reference's per-layer ``jax.checkpoint`` where
-    it has no cache): backward recomputes one layer at a time, so only
-    the layers' inputs persist."""
+def _run_stack(key, stack_w, x, cfg, rope, q_pos, k_pos, caches, start,
+               autograd, n, moe_layer, offset, sp=False):
+    """The loop over the ``n`` layers of the stack ``params[key]``, the
+    first of them layer ``offset`` of the model; ``caches`` the stack's
+    (L, B, S, ...) cache leaves (written in place) or None.  Each stacked
+    leaf is unbound once, so its gradient is one stack of the layers' (not
+    a sum of L zero-padded selects).  Each layer gathers its FSDP shards
+    as it runs (``run_layer``).  On the training route each layer runs
+    under ``checkpointed`` (the reference's per-layer ``jax.checkpoint``
+    where it has no cache): backward recomputes, and gathers, one layer at
+    a time, so only the layers' inputs persist."""
     windows = _layer_windows(cfg, n, offset)
     layers = map_params(lambda leaf: leaf.unbind(0), stack_w)
     remat = caches is None and autograd and torch.is_grad_enabled()
     for l in range(n):
         w = map_params(lambda leaves: leaves[l], layers)
         cache = None if caches is None else {k: c[l] for k, c in caches.items()}
-        args = (w, x, cfg, rope, q_pos, k_pos, windows[l], moe_layer, cache,
-                start, autograd, sp)
-        x = checkpointed(_layer, *args) if remat else _layer(*args)
+        x = run_layer(_layer, key, w, x, cfg, rope, q_pos, k_pos, windows[l],
+                      moe_layer, cache, start, autograd, sp, remat=remat)
     return x
 
 
@@ -938,7 +938,7 @@ def _run_stacks(params, cfg: LMConfig, x, q_pos, k_pos, cache, start,
                            f"positions", tp)
         x = tp.scatter(x, 1)
     for key, cache_key, n, moe_layer, offset in _stacks(cfg):
-        x = _run_stack(params[key], x, cfg, rope, q_pos, k_pos,
+        x = _run_stack(key, params[key], x, cfg, rope, q_pos, k_pos,
                        None if cache is None else cache[cache_key], start,
                        autograd, n, moe_layer, offset, sp)
     return tp.gather(x, 1) if sp else x

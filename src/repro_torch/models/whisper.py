@@ -42,8 +42,8 @@ import torch.nn.functional as F
 from ..devices import resolve_device
 from ..sharding import BATCH, QUEUE_3C, model_ranks, shard_hint
 from ..tree import tree_map
-from .common import (ParamSpec, attention, checkpointed, embed_rows,
-                     make_attn_mask, next_token_nll, position_index, rms_norm,
+from .common import (ParamSpec, attention, embed_rows, make_attn_mask,
+                     next_token_nll, position_index, rms_norm, run_layer,
                      stack_schema, vocab_logits)
 from .transformer import attend, merged_decode, row_out, write_block
 
@@ -175,15 +175,13 @@ def _dec_layer(w, x, enc_out, cfg, pos, autograd):
     return x + _ffn(w, rms_norm(x, w["ln2"]), cfg)
 
 
-def _each_layer(fn, ws, x, *args, autograd: bool):
-    """``x`` through ``fn(w, x, *args)`` for each layer's ``w``; under
-    ``autograd`` each layer under ``torch.utils.checkpoint`` (the
+def _each_layer(fn, stack: str, ws, x, *args, autograd: bool):
+    """``x`` through ``fn(w, x, *args)`` for each layer's ``w`` of
+    ``params[stack]``, its FSDP shards gathered first (``run_layer``);
+    under ``autograd`` each layer under ``torch.utils.checkpoint`` (the
     reference's per-layer ``jax.checkpoint``)."""
     for w in ws:
-        if autograd:
-            x = checkpointed(fn, w, x, *args)
-        else:
-            x = fn(w, x, *args)
+        x = run_layer(fn, stack, w, x, *args, remat=autograd)
     return x
 
 
@@ -192,8 +190,9 @@ def encode(params, cfg: WhisperConfig, frames: torch.Tensor, *,
     """``frames`` (B, enc_len, d) stub embeddings -> the encoder's states."""
     x = frames + params["pos_enc"][None].to(frames.dtype)
     x = shard_hint(x, BATCH, None, None)
-    x = _each_layer(_enc_layer, _layers(params["enc_layers"], cfg.enc_layers), x,
-                    cfg, autograd, autograd=autograd)
+    x = _each_layer(_enc_layer, "enc_layers",
+                    _layers(params["enc_layers"], cfg.enc_layers), x, cfg,
+                    autograd, autograd=autograd)
     return rms_norm(x, params["ln_enc"])
 
 
@@ -220,8 +219,9 @@ def decode(params, cfg: WhisperConfig, tokens: torch.Tensor,
     x = embed_rows(params["embed"], tokens, cfg.vocab) + _pos_dec(params, 0, s)
     x = shard_hint(x, BATCH, None, None)
     pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    x = _each_layer(_dec_layer, _layers(params["dec_layers"], cfg.dec_layers), x,
-                    enc_out, cfg, pos, autograd, autograd=autograd)
+    x = _each_layer(_dec_layer, "dec_layers",
+                    _layers(params["dec_layers"], cfg.dec_layers), x, enc_out,
+                    cfg, pos, autograd, autograd=autograd)
     return _logits(params, cfg, x)
 
 

@@ -25,9 +25,12 @@ process mesh (its size, this rank's index, the collectives over it).
 
 A ``NamedSharding`` is one leaf's placement on a mesh; ``shard_tree`` cuts
 a tree of full leaves to this rank's shards and ``gather_tree`` undoes
-it, by slicing and all-gather alone.  A mesh whose ranks are processes
-(``launch.mesh.ProcessMesh``) is known here by its ``coordinate``, this
-rank's index on each axis, so this module imports nothing above it.
+it, by slicing and all-gather alone.  Inside an FSDP train step
+(``gather_layers``) the model gathers each layer's shards as it runs
+that layer (``gather_layer``), so no rank holds the whole tree.  A mesh
+whose ranks are processes (``launch.mesh.ProcessMesh``) is known here by
+its ``coordinate``, this rank's index on each axis, so this module
+imports nothing above it.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import contextvars
 import dataclasses
 import math
 
-from .tree import tree_map
+from .tree import tree_from_items, tree_items, tree_map
 
 __all__ = ["BATCH", "MODEL", "WORKERS", "QUEUE_3C", "PartitionSpec",
            "resolve_pspec", "worker_devices", "use_mesh", "active_mesh",
@@ -45,7 +48,8 @@ __all__ = ["BATCH", "MODEL", "WORKERS", "QUEUE_3C", "PartitionSpec",
            "keep_vocab_cut", "vocab_cut_kept", "placement", "use_placement",
            "hint_pspec",
            "shard_hint", "check_data_parallel", "spec_axes", "NamedSharding",
-           "sharded_dim_over", "shard_tree", "gather_tree"]
+           "sharded_dim_over", "shard_tree", "gather_shard", "gather_tree",
+           "gather_layers", "gather_layer"]
 
 # canonical logical axes
 BATCH = ("pod", "data")  # batch (or sequence for long context) shards here
@@ -143,6 +147,8 @@ _SEQUENCE: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_sequence", default=())
 _VOCAB_CUT: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_vocab_cut", default=False)
+_LAYERS: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_fsdp_layers", default=None)
 
 
 @contextlib.contextmanager
@@ -187,21 +193,23 @@ def vocab_cut_kept() -> bool:
     return _VOCAB_CUT.get()
 
 
+_PLACEMENT = (_ACTIVE, _SEQUENCE, _VOCAB_CUT, _LAYERS)
+
+
 def placement() -> tuple:
-    """The active mesh, held sequence and vocab cut: what a recompute
-    (``models.common.checkpointed``) runs under again."""
-    return _ACTIVE.get(), _SEQUENCE.get(), _VOCAB_CUT.get()
+    """The active mesh, held sequence, vocab cut and per-layer gathers:
+    what a recompute (``models.common.checkpointed``) runs under again."""
+    return tuple(var.get() for var in _PLACEMENT)
 
 
 @contextlib.contextmanager
 def use_placement(state: tuple):
     """``placement()``'s ``state`` active inside the block."""
-    mesh, seq, cut = state
-    tokens = _ACTIVE.set(mesh), _SEQUENCE.set(seq), _VOCAB_CUT.set(cut)
+    tokens = [var.set(v) for var, v in zip(_PLACEMENT, state)]
     try:
         yield
     finally:
-        for var, token in zip((_ACTIVE, _SEQUENCE, _VOCAB_CUT), tokens):
+        for var, token in zip(_PLACEMENT, tokens):
             var.reset(token)
 
 
@@ -548,13 +556,65 @@ def shard_tree(tree, shardings):
     return tree_map(cut, tree, shardings)
 
 
+def gather_shard(t, sh: NamedSharding, axes=None):
+    """The full leaf of the shard ``t`` placed by ``sh``: all-gathered over
+    each cutting axis, innermost first.  With ``axes`` only over those
+    (FSDP's data axes), the cuts over the others kept."""
+    for axis, d, _, _ in reversed(_cuts(sh, axes)):
+        t = sh.mesh.all_gather(t, axis, dim=d)
+    return t
+
+
 def gather_tree(tree, shardings, axes=None):
     """The full leaves of a tree of shards (``shard_tree``'s inverse):
-    all-gathered over each cutting axis, innermost first.  With ``axes``
-    only over those (FSDP's data axes), the cuts over the others kept."""
-    def gather(t, sh):
-        for axis, d, _, _ in reversed(_cuts(sh, axes)):
-            t = sh.mesh.all_gather(t, axis, dim=d)
-        return t
+    ``gather_shard`` of each leaf."""
+    return tree_map(lambda t, sh: gather_shard(t, sh, axes), tree, shardings)
 
-    return tree_map(gather, tree, shardings)
+
+@contextlib.contextmanager
+def gather_layers(mesh, axes, dims: dict):
+    """Inside the block (an FSDP train step) the model's layer stacks hold
+    this rank's shards over the data ``axes`` of ``mesh``, and each layer
+    gathers its own as it runs (``gather_layer``).  ``dims`` maps a stack's
+    params key (``"dense_layers"``, ``"layers"``, ...) to a tree like one
+    layer's weights: the dimension of the layer's leaf that ``axes`` cut,
+    or None where the leaf is whole."""
+    token = _LAYERS.set((mesh, tuple(axes), dims))
+    try:
+        yield
+    finally:
+        _LAYERS.reset(token)
+
+
+def gather_layer(w, stack: str):
+    """One layer's weights ``w`` of the stack ``params[stack]`` with each
+    leaf that the data axes cut all-gathered over them; the cuts over
+    ``model`` stay.  The layer's shards go as one flat buffer a dtype, so
+    a layer costs one all-gather through the mesh's ``gather_to`` (and,
+    backward, one reduce-scatter of the gradient back onto the shards), as
+    FSDP's flat parameters do.  Outside ``gather_layers``, or for a stack
+    it does not name, ``w`` itself."""
+    import torch
+
+    state = _LAYERS.get()
+    dims = None if state is None else state[2].get(stack)
+    if dims is None:
+        return w
+    mesh, axes, _ = state
+    k = mesh.group_size(axes)
+    out = dict(tree_items(w))
+    groups: dict = {}
+    for (path, t), (_, d) in zip(tree_items(w), tree_items(dims)):
+        if d is not None:
+            groups.setdefault(t.dtype, []).append((path, t, d))
+    for group in groups.values():
+        flat = torch.cat([t.reshape(-1) for _, t, _ in group])
+        full = mesh.gather_to(flat, axes, 0).view(k, -1)
+        off = 0
+        for path, t, d in group:
+            part = full[:, off:off + t.numel()].reshape((k,) + tuple(t.shape))
+            shape = list(t.shape)
+            shape[d] *= k
+            out[path] = part.movedim(0, d).reshape(shape)
+            off += t.numel()
+    return tree_from_items(out.items())

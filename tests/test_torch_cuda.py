@@ -1390,3 +1390,86 @@ def test_cuda_train_captured_matches_eager(cuda, tmp_path, arch):
             d.rename(tmp_path / ("dropped-" + d.name))
     rest = train(arch, ckpt_dir=str(tmp_path), ckpt_every=3, **kw)
     np.testing.assert_allclose(rest, captured[3:], rtol=1e-5, atol=0)
+
+
+# -- the autotune ledger: one K1 and one K2 cell swept on the card ----------
+@pytest.fixture
+def ledger(tmp_path, monkeypatch):
+    """An isolated, empty autotune ledger for the test."""
+    from repro_torch.kernels import autotune
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "ledger.json"))
+    autotune.clear_cache(memory_only=True)
+    yield autotune
+    autotune.clear_cache(memory_only=True)
+
+
+def _swept_us(entry: dict, params: dict) -> float:
+    return next(s["us"] for s in entry["swept"] if s["params"] == params)
+
+
+def test_cuda_autotune_k1_cell(cuda, ledger):
+    """A K1 cell with every split allowed (K 2,304): each candidate plan
+    held to the plain version, the winner recorded no slower than the
+    heuristic's plan, then launched by ``coded_worker`` from the ledger;
+    a malformed entry raises."""
+    xs, ks = (1, 8, 256, 16, 30), (4, 64, 256, 3, 3)
+    xe = torch.as_tensor(RNG.standard_normal(xs).astype(np.float32), device=cuda)
+    ke = torch.as_tensor(RNG.standard_normal(ks).astype(np.float32), device=cuda)
+    want = k1.coded_worker_plain(xe, ke, 1)
+    m, n, k = k1.gemm_shape(xs, ks, 1)
+    cands = ledger.worker_candidates(xs, ks, 1)
+    assert len(cands) == 12
+    for c in cands:
+        _close(k1.launch_worker(k1.worker_plan_of(c, m, n, k), xe, ke, 1),
+               want, rel=1e-4)
+    win = ledger.tune_worker(xs, ks, 1, repeat=3)
+    assert ledger.sweep_count() == 1
+    assert ledger.tune_worker(xs, ks, 1) == win
+    assert ledger.sweep_count() == 1  # a recorded cell is not swept again
+    entry = ledger.load_cache()[ledger.worker_key(xs, ks, 1, device=cuda)]
+    assert [s["params"] for s in entry["swept"]] == cands
+    assert entry["us"] <= _swept_us(entry, cands[0])
+    assert k1.choose_worker_plan(xs, ks, 1, cuda) == k1.worker_plan_of(
+        win, m, n, k)
+    before = k1.launches.count
+    got = coded_worker(xe, ke, 1)
+    torch.cuda.synchronize()
+    assert k1.launches.count == before + 1
+    _close(got, want, rel=1e-4)
+    ledger.load_cache()[ledger.worker_key(xs, ks, 1, device=cuda)] = {
+        "params": {"bn": 48, "splits": 1}}
+    with pytest.raises(ValueError):
+        coded_worker(xe, ke, 1)
+
+
+def test_cuda_autotune_k2_cell(cuda, ledger):
+    """A K2 cell of the split kernel's regime (M 4, K 2,048): the column
+    plan and every split held to the plain version, the winner no slower
+    than the heuristic's plan, launched by ``matmul`` from the ledger; a
+    malformed entry raises."""
+    m, k, n = 4, 2048, 2048
+    a = torch.as_tensor(RNG.standard_normal((m, k)).astype(np.float32), device=cuda)
+    b = torch.as_tensor(RNG.standard_normal((k, n)).astype(np.float32), device=cuda)
+    want = k2.matmul_plain(a, b, relu=True)
+    cands = ledger.matmul_candidates(m, k, n)
+    assert len(cands) == 5
+    for c in cands:
+        _close(k2.launch_plan(k2.matmul_plan_of(c, m, n, k), a, b, relu=True),
+               want)
+    win = ledger.tune_matmul(m, k, n, relu=True, repeat=3)
+    assert ledger.sweep_count() == 1
+    entry = ledger.load_cache()[ledger.matmul_key(m, k, n, relu=True,
+                                                   device=cuda)]
+    assert entry["us"] <= _swept_us(entry, cands[0])
+    before = k2.launches.count
+    got = k2.matmul(a, b, relu=True)
+    torch.cuda.synchronize()
+    assert k2.launches.count == before + 1
+    assert k2.choose_matmul_plan(m, n, k, relu=True, device=cuda) == \
+        k2.matmul_plan_of(win, m, n, k)
+    _close(got, want)
+    ledger.load_cache()[ledger.matmul_key(m, k, n, relu=True, device=cuda)] = {
+        "params": {"kernel": "split", "splits": 3}}
+    with pytest.raises(ValueError):
+        k2.matmul(a, b, relu=True)
