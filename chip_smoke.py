@@ -155,8 +155,8 @@ Phases, in order; any failure raises:
     ``train(mesh=...)`` over (data 2, model 2) on 4 ranks, 5 steps of 8 x
     256 tokens, FSDP on (its 9 heads cut inside a head), each loss within
     1e-5 of the one-process run's and the params after step 5 held as
-    (b) holds them against the full batch; then, over (data 1, model 2),
-    ``serve_lm(mesh=...)`` of Qwen3-4B at full width and depth and of
+    (b) holds them against the full batch; at once with that job, over
+    (data 1, model 2), ``serve_lm(mesh=...)`` of Qwen3-4B at full width and depth and of
     DeepSeek-V2 at full width on 1 dense-first and 1 MoE layer (80
     experts a rank), batch 4, 16 + 16 tokens, eagerly: the tokens equal
     to the one-process ``serve_lm``'s (run after the ranks exit), Qwen3's
@@ -168,8 +168,8 @@ Phases, in order; any failure raises:
     Whisper-medium trained through ``train(mesh=...)`` over (data 2,
     model 2) at full width on 2 layers (Whisper's encoder and decoder
     alike; RWKV6 in float64), 3 steps of 8 x 256 tokens, each loss
-    within 1e-5 of the one-process run's; then served over (data 1,
-    model 2) at full width and depth, batch 4, 16 + 16 tokens, eagerly:
+    within 1e-5 of the one-process run's; at once with that job, served
+    over (data 1, model 2) at full width and depth, batch 4, 16 + 16 tokens, eagerly:
     Hymba's and Whisper's tokens equal to the one-process ``serve_lm``'s
     and every call's logits within 1e-4 of max|logit|, RWKV6's logits
     held to a float64 one-process run teacher-forced on its tokens
@@ -193,7 +193,22 @@ Phases, in order; any failure raises:
     16 new tokens over the cut cache: the tokens equal to the one-process
     ``serve_lm``'s and every call's logits within 1e-4 of max|logit|; ms a
     step, collective calls, ms and bytes by axis, and peak memory a rank
-    printed (gloo through the host on one card, not scaling figures);
+    printed (gloo through the host on one card, not scaling figures).
+    (g) uneven placements, each job's bytes reckoned before it starts and
+    the jobs run at once as far as they fit in 70 GB: DeepSeek-V2-236B at
+    full width on 1 dense-first and 1 MoE layer, its own 16 dispatch
+    groups, through ``serve_lm(mesh=...)`` at batch 4, 16 + 16 tokens,
+    over (data 2, model 2), where each decode step's 4 tokens are one
+    dispatch group over both data ranks (gathered over data), and over
+    (data 1, model 3), where its 160 experts do not divide (each
+    expert's ``ff`` cut to 512 a rank, the router and the 102,400-row
+    vocab whole); Qwen3-4B at full width on 4 layers over (data 1, model
+    3), its 32 heads, 9,728 ``ff``, 151,936 vocab and 32-position cache
+    all whole, K4 launched on every rank once a layer at BH 128, S 16, D
+    128, rep 4: each job's tokens equal to the one-process ``serve_lm``'s
+    (run after the ranks exit) and every call's logits within 1e-4 of
+    max|logit|; ms a step, collective calls, ms and bytes by axis, and
+    peak memory a rank beside its reckoned bytes printed;
 14. the arch zoo, after the earlier phases' servers, graphs and weights
     are released, one arch at a time: each drawn on the card from a seeded
     CUDA generator (fp32, TF32 off) at full width, through ``serve_lm``
@@ -2119,7 +2134,7 @@ def moe_checks(bundle, params, prompts, device, expect_no_drops: bool) -> dict:
     w, x = seen[0]
     y = moe.moe_ffn(w, x, cfg)
     plain = moe.moe_ffn_plain(w, x, cfg)
-    xg = moe._grouped(x, cfg)
+    xg, _ = moe._groups(x, cfg)
     r = moe.route(w, xg, cfg)
     err_plain = _err(y, plain)[1]
     if not err_plain <= TOL_MOE_PLAIN:
@@ -3516,14 +3531,15 @@ def dist_lm_rank(rank: int, ckpt_dir: str, device: str, smoke: bool) -> dict:
 
 
 def _tp_spy():
-    """Record the query heads (``B x heads``) of every K4 call the
-    transformer makes in this process; returns the list."""
+    """Record ``(BH, S, D, rep)`` of every K4 call the transformer makes in
+    this process (BH: ``B x`` query heads); returns the list."""
     from repro_torch.models import transformer
 
     seen, launch = [], transformer.flash_attention
 
     def spy(q, k, v, **kw):
-        seen.append(int(q.shape[0]))
+        seen.append((int(q.shape[0]), int(q.shape[1]), int(q.shape[2]),
+                     int(q.shape[0]) // int(k.shape[0])))
         return launch(q, k, v, **kw)
 
     transformer.flash_attention = spy
@@ -3588,7 +3604,7 @@ def dist_tp_serve_rank(rank: int, device: str, smoke: bool) -> dict:
         wall = time.perf_counter() - t0
         out[arch] = {
             "tokens": toks, "logits": rows if rank == 0 else None,
-            "k4": k4_launches.count, "k4_heads": list(heads),
+            "k4": k4_launches.count, "k4_heads": [s[0] for s in heads],
             "layers": bundle.cfg.layers, "wall_s": wall,
             "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
             "init_s": timings["init_s"], "collectives": _axis_stats(mesh),
@@ -3640,24 +3656,47 @@ def dist_tp_train_rank(rank: int, ckpt_dir: str, device: str, smoke: bool
                                         mesh, fsdp=True)}
 
 
+def _timed(fn, *args, **kw):
+    """``(fn(*args, **kw), its seconds)``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, time.perf_counter() - t0
+
+
+def _ranks_at_once(dev: str, *jobs) -> list:
+    """Each ``(fn, world, args, store)`` through ``run_ranks`` on ``dev``,
+    all at once (the jobs are bound by their collectives' trips through
+    the host, not by the card): ``(results, seconds)`` of each, in
+    order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.mesh import run_ranks
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = [pool.submit(_timed, run_ranks, fn, world, *args, device=dev,
+                            timeout_s=DIST_TIMEOUT_S, store_path=store)
+                for fn, world, args, store in jobs]
+        return [f.result() for f in futs]
+
+
 def tensor_parallel_part(device, dev: str, smoke: bool, tmp: str,
                          one_losses: list, one_norms: list, full: dict,
                          init: dict) -> dict:
     """Part (d): serving over (data 1, model 2) and training over (data 2,
-    model 2), each held against this process's one-process run, which
-    runs after the ranks exit."""
+    model 2), the two jobs at once, each held against this process's
+    one-process run, which runs after the ranks exit."""
     from repro_torch.configs import get_bundle
     from repro_torch.checkpoint import restore
-    from repro_torch.launch.mesh import run_ranks
     from repro_torch.launch.serve import serve_lm
     from repro_torch.optim import init_state
 
     out = {}
-    t0 = time.perf_counter()
-    tr = run_ranks(dist_tp_train_rank, TP_RANKS_TRAIN, os.path.join(tmp, "tp"),
-                   dev, smoke, device=dev, timeout_s=DIST_TIMEOUT_S,
-                   store_path=os.path.join(tmp, "store-tp-train"))
-    train_s = time.perf_counter() - t0
+    (tr, train_s), (sv, serve_s) = _ranks_at_once(
+        dev, (dist_tp_train_rank, TP_RANKS_TRAIN,
+              (os.path.join(tmp, "tp"), dev, smoke),
+              os.path.join(tmp, "store-tp-train")),
+        (dist_tp_serve_rank, TP_RANKS_SERVE, (dev, smoke),
+         os.path.join(tmp, "store-tp-serve")))
     loss_err = max(abs(a - b) / abs(b) for res in tr
                    for a, b in zip(res["losses"], one_losses))
     if not loss_err <= TOL_DIST_LOSS:
@@ -3678,11 +3717,6 @@ def tensor_parallel_part(device, dev: str, smoke: bool, tmp: str,
                     "collectives_per_step": tr[0]["collectives_per_step"]}
     del tp, like, bundle
 
-    t0 = time.perf_counter()
-    sv = run_ranks(dist_tp_serve_rank, TP_RANKS_SERVE, dev, smoke, device=dev,
-                   timeout_s=DIST_TIMEOUT_S,
-                   store_path=os.path.join(tmp, "store-tp-serve"))
-    serve_s = time.perf_counter() - t0
     out["serve"] = {"ranks": TP_RANKS_SERVE, "mesh": "(data 1, model 2)",
                     "run_ranks_s": serve_s, "archs": []}
     k4_total = 0
@@ -3778,7 +3812,8 @@ def print_tensor_parallel(tp: dict, card: str) -> None:
                           f"{v['bytes'] / 1e6:.1f} MB" for ax, v in coll.items())
               + f"; peak {[_gib(b) for b in a['peak_bytes']]} against shards of "
               f"{[_gib(b) for b in a['shard_bytes']]} a rank")
-    print(f"  (d) run_ranks s: train {tp['train']['run_ranks_s']:.1f}, serve "
+    print(f"  (d) run_ranks s (the two jobs at once): train "
+          f"{tp['train']['run_ranks_s']:.1f}, serve "
           f"{tp['serve']['run_ranks_s']:.1f}")
 
 
@@ -3846,7 +3881,7 @@ def dist_tp_family_serve_rank(rank: int, device: str, smoke: bool) -> dict:
         out[arch] = {
             "tokens": toks, "logits": rows if rank == 0 else None,
             "prefill": pre.cpu() if rank == 0 else None,
-            "k4": k4_launches.count, "k4_heads": list(heads),
+            "k4": k4_launches.count, "k4_heads": [s[0] for s in heads],
             "layers": getattr(bundle.cfg, "layers", None)
             or bundle.cfg.dec_layers, "wall_s": wall,
             "decode_s": timings["decode_s"], "prefill_fn_s": prefill_s,
@@ -3959,23 +3994,23 @@ def rwkv_tp_witness(bundle, toks, rows, device) -> dict:
 
 def tp_family_part(device, dev: str, smoke: bool, tmp: str) -> dict:
     """Part (e): the recurrent and encoder-decoder families served over
-    (data 1, model 2) and trained over (data 2, model 2), each held
-    against this process's one-process run, which runs after the ranks
-    exit; then K4 at the per-rank prefill shapes against its plain
-    version, timed."""
+    (data 1, model 2) and trained over (data 2, model 2), the two jobs at
+    once, each held against this process's one-process run, which runs
+    after the ranks exit; then K4 at the per-rank prefill shapes against
+    its plain version, timed."""
     from repro_torch.configs import get_bundle
-    from repro_torch.launch.mesh import run_ranks
     from repro_torch.launch.serve import serve_lm
     from repro_torch.launch.train import train
 
     out = {}
-    t0 = time.perf_counter()
-    tr = run_ranks(dist_tp_family_train_rank, TP_RANKS_TRAIN, dev, smoke,
-                   device=dev, timeout_s=DIST_TIMEOUT_S,
-                   store_path=os.path.join(tmp, "store-tpf-train"))
+    (tr, train_s), (sv, serve_s) = _ranks_at_once(
+        dev, (dist_tp_family_train_rank, TP_RANKS_TRAIN, (dev, smoke),
+              os.path.join(tmp, "store-tpf-train")),
+        (dist_tp_family_serve_rank, TP_RANKS_SERVE, (dev, smoke),
+         os.path.join(tmp, "store-tpf-serve")))
     out["train"] = {"ranks": TP_RANKS_TRAIN, "mesh": "(data 2, model 2)",
-                    "backend": tr[0]["backend"],
-                    "run_ranks_s": time.perf_counter() - t0, "archs": []}
+                    "backend": tr[0]["backend"], "run_ranks_s": train_s,
+                    "archs": []}
     for arch in TP_FAMILIES:
         one_norms = []
         one = train(arch, steps=TP_FAMILY_STEPS, batch=TRAIN_BATCH,
@@ -4006,12 +4041,8 @@ def tp_family_part(device, dev: str, smoke: bool, tmp: str) -> dict:
                 f"{TOL_DIST_LOSS} (gradient norms "
                 f"{a['grad_norm_rel_err_by_step']})")
 
-    t0 = time.perf_counter()
-    sv = run_ranks(dist_tp_family_serve_rank, TP_RANKS_SERVE, dev, smoke,
-                   device=dev, timeout_s=DIST_TIMEOUT_S,
-                   store_path=os.path.join(tmp, "store-tpf-serve"))
     out["serve"] = {"ranks": TP_RANKS_SERVE, "mesh": "(data 1, model 2)",
-                    "run_ranks_s": time.perf_counter() - t0, "archs": []}
+                    "run_ranks_s": serve_s, "archs": []}
     k4_total = 0
     for arch in TP_FAMILIES:
         bundle = get_bundle(arch, smoke=smoke)
@@ -4164,7 +4195,8 @@ def print_tp_families(tf: dict, card: str) -> None:
               f"{_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])}, bound "
               f"{e['bound_ms']:.5f} by {e['bound_by']}; rel err "
               f"{e['max_rel_err']:.2e} <= {TOL_K4}")
-    print(f"  (e) run_ranks s: train {tf['train']['run_ranks_s']:.1f}, serve "
+    print(f"  (e) run_ranks s (the two jobs at once): train "
+          f"{tf['train']['run_ranks_s']:.1f}, serve "
           f"{tf['serve']['run_ranks_s']:.1f}")
 
 
@@ -4400,6 +4432,206 @@ def print_seq_part(sq: dict, card: str, smoke: bool = False) -> None:
           f"once): {sq['run_ranks_s']:.1f}")
 
 
+# (g) uneven placements (ROADMAP Queue A item 3(c)4): served through
+# serve_lm(mesh=...) at DIST_SERVE's batch and lengths, eagerly, each rank
+# drawing its cut of the params: (arch, layers, (data, model)).  A job's
+# bytes are reckoned before it starts (each rank's fp32 shards plus
+# UNEVEN_RANK_SLACK for its context and activations) and the jobs start
+# in order as far as their sum stays within UNEVEN_BUDGET.
+UNEVEN_JOBS = (("deepseek-v2-236b", 2, (2, 2)), ("deepseek-v2-236b", 2, (1, 3)),
+               ("qwen3-4b", 4, (1, 3)))
+UNEVEN_SMOKE_JOBS = (("deepseek-v2-236b", None, (2, 2)),
+                     ("deepseek-v2-236b", None, (1, 3)),
+                     ("qwen3-4b", None, (1, 3)))
+UNEVEN_BUDGET, UNEVEN_RANK_SLACK = 70e9, 2**30
+
+
+def dist_uneven_rank(rank: int, device: str, smoke: bool, arch: str, layers,
+                     sizes: tuple) -> dict:
+    """Rank ``rank`` of (data, model) = ``sizes``: ``arch`` (its first
+    ``layers`` layers) through ``serve_lm(mesh=...)``, eagerly: the
+    tokens, every call's logits (of this rank's rows, on the ranks of
+    model coordinate 0), K4's launches and their shapes,
+    ms, the collectives by axis, peak memory, and the local shapes of the
+    leaves the placement turns on."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels.flash_attn.kernel import launches as k4_launches
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models.common import schema_shardings
+    from repro_torch.models.registry import with_layers
+    from repro_torch.sharding import shard_tree
+
+    _no_tf32()
+    mesh = make_process_mesh(sizes, ("data", "model"), device=device)
+    dev = mesh.device
+    shapes = _tp_spy()
+    k4_launches.reset()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    bundle = get_bundle(arch, smoke=smoke)
+    if layers is not None:
+        bundle = with_layers(bundle, layers)
+    rows, timings = [], {}
+    keep = mesh.coordinate["model"] == 0
+    t0 = time.perf_counter()
+    toks = serve_lm(arch, device=device, seed=SEED, smoke=smoke, mesh=mesh,
+                    layers=layers, graphs=False, timings=timings,
+                    on_logits=lambda lg: rows.append(
+                        lg.cpu() if keep else None), **DIST_SERVE)
+    wall = time.perf_counter() - t0
+    metas = shard_tree(bundle.param_shapes(), schema_shardings(bundle.schema,
+                                                               mesh))
+    local = {"embed": tuple(metas["embed"].shape)}
+    if bundle.cfg.moe is not None:
+        w = metas["moe_layers"]["moe"]
+        local.update(router=tuple(w["router"].shape),
+                     w_gate=tuple(w["w_gate"].shape))
+    return {"backend": mesh.backend, "tokens": toks,
+            "logits": rows if keep else None, "k4": k4_launches.count,
+            "k4_shapes": list(shapes), "layers": bundle.cfg.layers,
+            "wall_s": wall, "prefill_s": timings["prefill_s"],
+            "decode_s": timings["decode_s"], "init_s": timings["init_s"],
+            "collectives": _axis_stats(mesh), "local": local,
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None),
+            "shard_bytes": _shard_bytes(bundle, mesh)}
+
+
+def _uneven_bytes(arch: str, layers, sizes: tuple, smoke: bool) -> float:
+    """A job's reckoned bytes: every rank's fp32 shards plus
+    ``UNEVEN_RANK_SLACK`` a rank."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import with_layers
+
+    bundle = get_bundle(arch, smoke=smoke)
+    if layers is not None:
+        bundle = with_layers(bundle, layers)
+    mesh = Mesh(("data", "model"), sizes)
+    return math.prod(sizes) * (_shard_bytes(bundle, mesh) + UNEVEN_RANK_SLACK)
+
+
+def uneven_part(device, dev: str, smoke: bool, tmp: str) -> dict:
+    """Part (g): the jobs of ``UNEVEN_JOBS``, started in order as far as
+    their reckoned bytes fit in ``UNEVEN_BUDGET`` (the rest as jobs end),
+    then this process's one-process ``serve_lm`` of each arch, each job's
+    ranks held against it."""
+    from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.serve import serve_lm
+
+    jobs = UNEVEN_SMOKE_JOBS if smoke else UNEVEN_JOBS
+    reckoned = [_uneven_bytes(a, l, z, smoke) for a, l, z in jobs]
+    t0 = time.perf_counter()
+    got, started, pending, running = {}, {}, list(range(len(jobs))), {}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        while pending or running:
+            held = sum(reckoned[i] for i in running.values())
+            while pending and (not running
+                               or held + reckoned[pending[0]] <= UNEVEN_BUDGET):
+                i = pending.pop(0)
+                arch, layers, sizes = jobs[i]
+                started[i] = time.perf_counter() - t0
+                running[pool.submit(
+                    run_ranks, dist_uneven_rank, math.prod(sizes), dev, smoke,
+                    arch, layers, sizes, device=dev, timeout_s=DIST_TIMEOUT_S,
+                    store_path=os.path.join(tmp, f"store-uneven-{i}"))] = i
+                held += reckoned[i]
+            done, _ = wait(running, return_when=FIRST_COMPLETED)
+            for fut in done:
+                got[running.pop(fut)] = fut.result()
+    out = {"run_ranks_s": time.perf_counter() - t0, "budget": UNEVEN_BUDGET,
+           "jobs": []}
+    one = {}
+    k4_total = 0
+    for i, (arch, layers, sizes) in enumerate(jobs):
+        if (arch, layers) not in one:
+            rows = []
+            toks = serve_lm(arch, device=device, seed=SEED, smoke=smoke,
+                            layers=layers, graphs=False,
+                            on_logits=lambda lg, rows=rows: rows.append(
+                                lg.cpu()), **DIST_SERVE)
+            one[(arch, layers)] = (toks.cpu(), rows)
+            _empty_cache(device)
+        want, rows = one[(arch, layers)]
+        res = got[i]
+        mesh = f"(data {sizes[0]}, model {sizes[1]})"
+        for r, rr in enumerate(res):
+            if not torch.equal(torch.from_numpy(rr["tokens"]), want):
+                raise AssertionError(f"serve_lm {arch} over {mesh}: rank {r}'s "
+                                     f"tokens differ from one process's")
+        if len(res[0]["logits"]) != len(rows):
+            raise AssertionError(f"{arch} over {mesh}: {len(res[0]['logits'])} "
+                                 f"logits calls, {len(rows)} in one process")
+        # each call's rows from the data ranks, in data order
+        calls = [np.concatenate([rr["logits"][c] for rr in res[::sizes[1]]])
+                 for c in range(len(rows))]
+        err = max(_max_rel(a, b) for a, b in zip(calls, rows))
+        if not err <= TOL_TP_LOGITS:
+            raise AssertionError(f"serve_lm {arch} over {mesh}: logits max rel "
+                                 f"err {err:.2e} > {TOL_TP_LOGITS}")
+        cfg = get_bundle(arch, smoke=smoke).cfg
+        if cfg.attn == "gqa" and dev != "cpu":  # every rank's whole heads
+            want_shape = (DIST_SERVE["batch"] * cfg.n_heads,
+                          DIST_SERVE["prompt_len"], cfg.head_dim,
+                          cfg.n_heads // cfg.n_kv_heads)
+            for r, rr in enumerate(res):
+                if rr["k4"] != rr["layers"] or any(
+                        sh != want_shape for sh in rr["k4_shapes"]):
+                    raise AssertionError(
+                        f"{arch} over {mesh} rank {r}: K4 launched {rr['k4']} "
+                        f"times at {sorted(set(rr['k4_shapes']))}, want "
+                        f"{rr['layers']} at {want_shape}")
+        if sizes[0] > 1 and not all(rr["collectives"].get("data", {}).get(
+                "calls", 0) >= DIST_SERVE["gen"] for rr in res):
+            raise AssertionError(f"{arch} over {mesh}: fewer data-axis "
+                                 f"collectives than decode steps (each step's "
+                                 f"dispatch group is gathered over data)")
+        k4_total += sum(rr["k4"] for rr in res)
+        out["jobs"].append({
+            "arch": arch, "layers": res[0]["layers"], "mesh": mesh,
+            "backend": res[0]["backend"], "tokens_equal": True,
+            "logits_max_rel_err": err, "calls": len(rows),
+            "started_s": started[i], "reckoned_bytes": reckoned[i],
+            "local": res[0]["local"],
+            "k4_shapes": sorted(set(res[0]["k4_shapes"])),
+            **{k: [rr[k] for rr in res]
+               for k in ("k4", "init_s", "prefill_s", "decode_s", "wall_s",
+                         "peak_bytes", "shard_bytes", "collectives")}})
+    del one
+    _empty_cache(device)
+    out["by_path"] = {"serve_lm_uneven": {"flash_attention": k4_total}}
+    return out
+
+
+def print_uneven_part(ug: dict, card: str) -> None:
+    """Part (g)'s lines."""
+    for a in ug["jobs"]:
+        dec = [s / DIST_SERVE["gen"] * 1e3 for s in a["decode_s"]]
+        coll = a["collectives"][0]
+        print(f"  (g) serve_lm {a['arch']} at full width, {a['layers']} layers, "
+              f"over {a['mesh']} ({a['backend']}), batch {DIST_SERVE['batch']}, "
+              f"{DIST_SERVE['prompt_len']} + {DIST_SERVE['gen']} tokens, eager, "
+              f"on {card}: tokens equal to one process's, {a['calls']} calls' "
+              f"logits max rel err {a['logits_max_rel_err']:.2e} <= "
+              f"{TOL_TP_LOGITS}; local leaves {a['local']}; K4 launches per "
+              f"rank {a['k4']} at (BH, S, D, rep) {a['k4_shapes']}; started "
+              f"at {a['started_s']:.1f} s; init s "
+              f"{[round(x, 2) for x in a['init_s']]}, prefill s "
+              f"{[round(x, 3) for x in a['prefill_s']]}, decode ms a step "
+              f"{[round(x, 1) for x in dec]}; rank 0's collectives "
+              + "; ".join(f"{ax} {v['calls']} calls {v['ms']:.1f} ms "
+                          f"{v['bytes'] / 1e6:.1f} MB" for ax, v in coll.items())
+              + f"; peak {[_gib(b) for b in a['peak_bytes']]} a rank against "
+              f"shards of {[_gib(b) for b in a['shard_bytes']]} (reckoned "
+              f"{_gib(a['reckoned_bytes'])} for the job)")
+    print(f"  (g) run_ranks s (the jobs, at once within "
+          f"{ug['budget'] / 1e9:.0f} GB): {ug['run_ranks_s']:.1f}")
+
+
 def _max_rel(got, want) -> float:
     got = torch.as_tensor(np.asarray(got)).double()
     want = torch.as_tensor(np.asarray(want)).double()
@@ -4587,6 +4819,13 @@ def distributed_phase(device, card: str, smoke: bool = False) -> dict:
         sq = seq_part(device, dev, smoke, tmp)
         sq["seconds"] = time.perf_counter() - t0
         out["seq"] = sq
+        _empty_cache(device)
+        # (g) uneven placements
+        t0 = time.perf_counter()
+        ug = uneven_part(device, dev, smoke, tmp)
+        ug["seconds"] = time.perf_counter() - t0
+        out["by_path"].update(ug.pop("by_path"))
+        out["uneven"] = ug
     return out
 
 
@@ -4731,6 +4970,9 @@ def print_distributed(d: dict, card: str) -> None:
     if "seq" in d:
         print(f"  (f) the sequence over the mesh: {d['seq']['seconds']:.1f} s")
         print_seq_part(d["seq"], card)
+    if "uneven" in d:
+        print(f"  (g) uneven placements: {d['uneven']['seconds']:.1f} s")
+        print_uneven_part(d["uneven"], card)
 
 
 def main() -> int:

@@ -47,8 +47,8 @@ from ..optim.schedule import cosine_with_warmup
 from ..sharding import (BATCH, MODEL, QUEUE_3C, NamedSharding, PartitionSpec,
                         check_data_parallel, gather_layers, gather_shard,
                         gather_tree, hold_sequence, keep_vocab_cut,
-                        resolve_pspec, shard_tree, sharded_dim_over,
-                        spec_axes, use_mesh)
+                        resolve_pspec, rows_alike, shard_tree,
+                        sharded_dim_over, spec_axes, use_mesh)
 from ..tree import tree_from_items, tree_items, tree_leaves, tree_map
 from .mesh import ProcessMesh
 
@@ -295,8 +295,8 @@ class ParallelStep:
         one does not (fewer rows than ranks, as in a smoke-scaled dry-run
         cell), its ranks hold the same rows: the loss and gradient averaged
         over every data rank are still the batch's, each block of rows
-        being held by as many ranks.  A MoE refuses that, since its
-        dispatch groups are those of distinct rows (3(c)).  A batch of one
+        being held by as many ranks (a MoE counts each row once:
+        ``alike_axes``).  A batch of one
         row is cut along its sequence over ``data`` instead (tokens,
         labels and a prefix alike, equal blocks of at least two
         positions): each rank's loss is the mean over its block, so the
@@ -324,12 +324,41 @@ class ParallelStep:
                                           **dict.fromkeys(alike, 1)}, True, what)
             check_data_parallel(PartitionSpec(None, *spec[1:]), None,
                                 self.mesh.shape, False, what)
-            if alike and getattr(self.bundle.cfg, "moe", None):
-                raise NotImplementedError(
-                    f"{what}: rows held alike over {alike}: a MoE's "
-                    f"dispatch groups need distinct rows a rank; {QUEUE_3C}")
         return shard_tree(batch, tree_map(lambda sp: NamedSharding(
             self.mesh, sp), specs))
+
+    def alike_axes(self, batch: dict) -> tuple:
+        """The pod and data axes of more than one rank whose ranks hold
+        the same rows of ``batch`` (its rows fewer than the ranks), which
+        ``sharding.rows_alike`` names around the loss: a MoE's dispatch
+        groups are those of the distinct rows."""
+        if self.held_sequence(batch):
+            return ()
+        spec = batch_pspecs(self.bundle, batch, self.mesh)["tokens"]
+        rows = spec_axes(spec[0]) if len(spec) else ()
+        return tuple(a for a in BATCH if self.mesh.shape.get(a, 1) > 1
+                     and a not in rows)
+
+    def _share(self, batch: dict, alike: tuple, m: int):
+        """``(rows, microbatches)`` this rank runs of its rows ``batch``
+        cut into ``m`` microbatch slices.  Where ``k`` ranks along
+        ``alike`` hold the same rows and ``k`` and ``m`` divide one
+        another, they share the slices instead of each running all of
+        them: ``m / k`` slices a rank, or one slice for ``k / m`` ranks.
+        Each rank's gradient is then the mean over its slices, and the
+        mean over every data rank is still the batch's (the slices are
+        equal).  Each layer's FSDP gathers are made once a slice, so this
+        also divides them by ``min(k, m)``."""
+        k = self.mesh.group_size(alike) if alike else 1
+        rows = batch["tokens"].shape[0]
+        if k == 1 or m == 1 or rows % m:
+            return batch, m
+        i = self.mesh.group_rank(alike)
+        if m % k == 0:
+            return _slices(batch, k)[i], m // k
+        if k % m == 0:
+            return _slices(batch, m)[i % m], 1
+        return batch, m
 
     def _mean(self, g, sh: NamedSharding, summed: bool):
         """The mean over the data ranks of one leaf's gradient, as the
@@ -366,11 +395,13 @@ class ParallelStep:
              else gather_shard(p, sh, self.data_axes))
             for (path, p), sh in zip(tree_items(params),
                                      tree_leaves(self.param_shardings)))
-        with hold_sequence(self.held_sequence(batch)), gather_layers(
-                mesh, self.data_axes, self.layer_dims):
+        alike = self.alike_axes(batch)
+        local, micro = self._share(self.local_batch(batch), alike,
+                                   tcfg.microbatches)
+        with hold_sequence(self.held_sequence(batch)), rows_alike(
+                alike), gather_layers(mesh, self.data_axes, self.layer_dims):
             loss, grads = accumulated_value_and_grad(
-                self.bundle.loss_fn, held, self.local_batch(batch),
-                tcfg.microbatches, tcfg.remat)
+                self.bundle.loss_fn, held, local, micro, tcfg.remat)
         del held
         loss = mesh.all_reduce(loss, self.data_axes) / self.ranks
         # each leaf's local gradient released as its mean is taken

@@ -44,10 +44,15 @@ where the SSM heads divide the ranks (block r is whole heads), else on
 head_dim, where a rank holds channels ``h * hd + j`` for ``j`` in its
 slice of every head, not its contiguous block (trap 4): ``u`` is gathered
 and sliced so for the scan, whose output is gathered back to the block.
-The conv tail is whole on every rank (every channel's input is gathered
+Where the SSM heads and head_dim both do not divide, the state is whole
+and every rank scans every head, keeping its block of the output.  The
+conv tail is whole on every rank (every channel's input is gathered
 anyway); where it holds the rows of every data rank (the reference
 replicates it) a decode step reads its rows and all-gathers the new rows
-over the data axes.
+over the data axes.  A branch whose widths do not divide at all (the
+smoke's 64 over model 3: ``wq`` and ``d_inner`` whole) is whole on every
+rank, as the reference replicates it, and computed as on one device
+(``[u | z]`` gathered where only ``w_in``'s doubled width divides).
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from ..devices import resolve_device
-from ..sharding import (BATCH, QUEUE_3C, active_mesh, keep_vocab_cut,
+from ..sharding import (BATCH, active_mesh, keep_vocab_cut,
                         model_ranks, resolve_pspec, shard_hint, spec_axes)
 from ..tree import tree_map
 from .common import (ParamSpec, apply_rope, attention, embed_rows, held_block,
@@ -169,11 +174,15 @@ def _ssm_branch(w, x, cfg: HymbaConfig, conv_tail, s, decode: bool,
                 remat: bool = False):
     """The SSM branch: ``(out, conv tail', s')``."""
     tp = model_ranks()
-    if tp is not None:
+    di = cfg.d_inner
+    if tp is not None and di % tp.size == 0:
         return _ssm_branch_tp(tp, w, x, cfg, conv_tail, s, decode, remat)
     b, t, _ = x.shape
-    di = cfg.d_inner
-    u, z = (x @ w["w_in"]).chunk(2, dim=-1)
+    if tp is not None and tp.cut(w["w_in"], 1, 2 * di):  # the rest whole
+        uz = tp.gather(tp.copy(x) @ w["w_in"], -1)
+    else:
+        uz = x @ w["w_in"]
+    u, z = uz.chunk(2, dim=-1)
     seq = None if decode else held_block(x)
     if seq is not None:  # the previous block's last rows
         conv_tail = prev_rows(seq, u, cfg.conv_width - 1, conv_tail)
@@ -241,6 +250,8 @@ def _attn_branch(w, x, cfg: HymbaConfig, rope, pos, autograd: bool,
     b, s, _ = x.shape
     hd = cfg.head_dim
     tp = model_ranks()
+    if tp is not None and not tp.cut(w["wq"], 1, cfg.n_heads * hd):
+        tp = None  # whole on every rank: as on one device
     if tp is not None:  # this rank's heads, or every head
         q, k, v, q_lo, kv_lo = heads_tp(tp, x, w["wq"], w["wk"], w["wv"],
                                         cfg.n_heads, cfg.n_kv_heads, hd,
@@ -328,16 +339,12 @@ def _ssm_branch_tp(tp, w, x, cfg: HymbaConfig, conv_tail, s, decode: bool,
     state is cut by head; else the state is cut on head_dim, a rank holding
     a slice of the channels of every head, so ``u`` goes in gathered and
     sliced so, and the scan's output is gathered back to the block (trap
-    4).  The conv tail is whole on every rank (each has every channel's
-    input).  ``s`` is the state's cut, or every head's (a forward's
+    4); where neither divides the state is whole and every rank scans
+    every head.  The conv tail is whole on every rank (each has every
+    channel's input).  ``s`` is the state's cut, or every head's (a forward's
     zeros)."""
     b, t, _ = x.shape
     di, hm, hd = cfg.d_inner, cfg.ssm_heads, cfg.head_dim
-    if di % tp.size or not all(tp.cut(w[k], dim, n) for k, dim, n in (
-            ("w_in", 1, 2 * di), ("conv", 1, di), ("w_bc", 0, di),
-            ("w_dt", 0, di), ("wo_ssm", 0, di))):
-        raise NotImplementedError(f"{cfg.name}: d_inner {di} over model = "
-                                  f"{tp.size}; {QUEUE_3C}")
     blk = tp.block(di)
     u_in, u, z = _uz_blocks(tp, x, w["w_in"], di)
     seq = None if decode else held_block(x)
@@ -367,9 +374,12 @@ def _ssm_branch_tp(tp, w, x, cfg: HymbaConfig, conv_tail, s, decode: bool,
                      decode, remat)
         y = tp.gather_partial(y, -1).reshape(b, t, di)[..., blk]
         d_skip = tp.copy(w["d_skip"])
-    else:
-        raise NotImplementedError(f"{cfg.name}: an SSM state of {hm} heads of "
-                                  f"{hd} over model = {tp.size}; {QUEUE_3C}")
+    else:  # the state whole: every rank scans every head
+        uh = tp.gather_partial(u, -1).reshape(b, t, hm, hd)
+        y, s = _scan(cfg, uh, b_in, c_out, dt, tp.copy(w["a_log"]), s,
+                     decode, remat)
+        y = y.reshape(b, t, di)[..., blk]
+        d_skip = tp.copy(w["d_skip"])
     skip = d_skip.repeat_interleave(hd)
     y = y + u * (skip if skip.shape[0] == u.shape[-1] else skip[blk]).to(u.dtype)
     y = y * F.silu(z.float()).to(y.dtype)
@@ -494,7 +504,7 @@ def decode_step(params, cfg: HymbaConfig, state: dict, tokens: torch.Tensor,
     for l, w in enumerate(_layers(params, cfg)):
         h_in = rms_norm(x, w["ln"])
         ck, cv = state["kv"]["k"][l], state["kv"]["v"][l]
-        if tp is not None:
+        if tp is not None and tp.cut(w["wq"], 1, h * hd):
             attn_out = _ring_attn_tp(tp, w, h_in, cfg, rope, q_pos, mask, ck,
                                      cv, slot)
         else:

@@ -15,39 +15,54 @@ dispatches of those entries compute the same function:
 * ``moe_ffn_plain``, the reference's float-scatter formulation
   (``_moe_baseline_scatter``): the entries scattered into the buffer and
   their weighted outputs scatter-added back to their tokens.  Tests and
-  the card check hold the first against it; no served path runs it.
+  the card check hold the first against it; a served path runs it only
+  under ``REPRO_BASELINE=1``.
 
 Under a process mesh whose ranks split the batch, the dispatch groups
-are the reference's groups of the global tokens: a rank dispatches the
-groups that its rows make up (at a batch of one held over the data
-ranks, its block of the sequence: the same contiguous tokens), with the
-reference's capacity, and a group that would span ranks
-(``dispatch_groups`` not a multiple of the ranks) raises
-``NotImplementedError`` (ROADMAP Queue A item 3(c)).  Under the
-sequence-parallel stream the layer gathers the MoE's input over
-``model`` and cuts its summed output back to the rank's block
+are the reference's groups of the global tokens, with the reference's
+capacity: a rank dispatches the groups that its rows make up (at a batch
+of one held over the data ranks, its block of the sequence: the same
+contiguous tokens).  Where a group covers rows of several ranks
+(``dispatch_groups`` not a multiple of the ranks: DeepSeek's 16 groups
+fall to 1 at a decode step under 16 tokens) the rows are all-gathered
+over the data axes whose ranks hold distinct rows (``sharding.row_axes``),
+each rank dispatches every group that holds one of its rows as one device
+does, so the drops follow the global token-major order, and keeps its own
+rows of the output; backward, the gather's gradient is this rank's slice
+(another rank's rows reach none of this rank's outputs).  Under the
+sequence-parallel stream the layer gathers the MoE's input over ``model``
+and cuts its summed output back to the rank's block
 (``models.transformer._layer``): the dispatch is the whole sequence's.
 
 Expert parallelism: where the mesh's ``model`` axis has more than one
-rank (``sharding.model_ranks``) each rank holds its block of ``E /
-model`` experts and of the router's columns (the reference's
-``experts`` axis).  The router's logits are gathered over ``model``
-before the top k, so every rank routes alike; each rank runs its experts
-on its block of the expert buffer, the combine sums its experts'
-contributions, and the shared experts (an FFN cut by columns and rows)
-add theirs, before one sum over ``model``.  Experts that do not divide
-over the ranks raise ``NotImplementedError`` (3(c)).
+rank (``sharding.model_ranks``) the experts are held as the reference's
+``spec_to_pspec`` places them (``_expert_cut``).  Where the experts
+divide, each rank holds its block of ``E / model`` experts and of the
+router's columns: the router's logits are gathered over ``model`` before
+the top k, so every rank routes alike, and each rank runs its experts on
+its block of the expert buffer.  Where they do not, the router is whole
+(routing is local and alike) and each expert's ``ff`` is cut where it
+divides (``w_gate`` / ``w_up`` by columns, ``w_down`` by rows): every
+rank runs every expert on its ``ff`` block.  Either way the routed
+output is a partial sum, and so is the shared experts' where their ``ff``
+is cut; the partial sums go through one sum over ``model``.  Where
+nothing divides (the smoke configs over model 3) the layer is whole on
+every rank: no collective, computed as on one device.
+
+``REPRO_BASELINE=1`` selects the float-scatter dispatch inside
+``moe_ffn``, as the reference's ``_moe_ffn_grouped`` does.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from ..sharding import (BATCH, MODEL, QUEUE_3C, batch_ranks, model_ranks,
-                        shard_hint)
+from ..sharding import (BATCH, MODEL, active_mesh, batch_ranks, model_ranks,
+                        row_axes, shard_hint)
 from .common import ParamSpec
 
 __all__ = ["MoEConfig", "moe_schema", "moe_ffn", "moe_ffn_plain", "route",
@@ -114,30 +129,32 @@ class Routing(NamedTuple):
     cap: int
 
 
-def _experts_cut(tp, w: dict, cfg: MoEConfig) -> bool:
-    """Whether this rank holds a block of the experts (and of the router's
-    columns); raises where ``model`` cuts them otherwise."""
+def _expert_cut(tp, w: dict, cfg: MoEConfig) -> str | None:
+    """How this rank holds the routed experts over the model ranks ``tp``,
+    as ``spec_to_pspec`` places them: ``"experts"`` (its block of the
+    experts and of the router's columns), ``"ff"`` (every expert's block
+    of ``ff``, the router whole) or None (whole, or no model ranks)."""
     if tp is None:
-        return False
-    e = cfg.n_routed
-    if tp.cut(w["router"], 1, e) and tp.cut(w["w_gate"], 0, e):
-        return True
-    raise NotImplementedError(f"MoE with {e} experts over model = {tp.size}: "
-                              f"only the experts cut over it execute here; "
-                              f"{QUEUE_3C}")
+        return None
+    if tp.cut(w["w_gate"], 0, cfg.n_routed):
+        return "experts"
+    if tp.cut(w["w_gate"], 2, cfg.d_ff_expert):
+        return "ff"
+    return None
 
 
 def route(w: dict, xg: torch.Tensor, cfg: MoEConfig) -> Routing:
     """Router, top-k and capacity of ``xg`` (G, T, d) (the reference's
-    ``_moe_ffn_grouped`` ``:93-113``).  Over model ranks each holds its
-    router columns: the logits are gathered, so every rank routes alike
-    (and, where ``xg`` is ``copy``'s, the router's gradient is summed)."""
+    ``_moe_ffn_grouped`` ``:93-113``).  Over model ranks that hold blocks
+    of the router's columns the logits are gathered, so every rank routes
+    alike (and, where ``xg`` is ``copy``'s, the router's gradient is
+    summed); a whole router routes alike as it is."""
     g, t, _ = xg.shape
     e, k = cfg.n_routed, cfg.top_k
     cap = capacity(cfg, t)
     logits = torch.einsum("gtd,de->gte", xg, w["router"].to(xg.dtype))
     tp = model_ranks()
-    if _experts_cut(tp, w, cfg):
+    if _expert_cut(tp, w, cfg) == "experts":
         logits = tp.gather_partial(logits, -1)
     probs = torch.softmax(logits.float(), dim=-1)
     # a stable descending sort keeps tied experts in index order, the
@@ -180,22 +197,28 @@ def _shared_ffn(w: dict, xg: torch.Tensor) -> torch.Tensor:
     return torch.einsum("gtf,fd->gtd", _silu_gate(gg, u), s["w_down"])
 
 
-def _grouped(x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """``x`` (T, d) as its dispatch groups (G, T/G, d).  Where ``k`` ranks
-    each hold T of the batch's tokens, the groups are those of the k*T
-    global tokens, k dividing their count so that each rank holds whole
-    ones."""
+def _groups(x: torch.Tensor, cfg: MoEConfig):
+    """``(groups (G, T/G, d), offset)``: the dispatch groups that this
+    rank dispatches.  Where ``k`` ranks each hold T of the batch's tokens
+    (``sharding.batch_ranks``), the groups are those of the k*T global
+    tokens.  Where ``k`` divides their count each rank holds whole ones,
+    its own, and ``offset`` is None; else the ranks' rows are all-gathered
+    over ``sharding.row_axes`` and the groups are those holding one of
+    this rank's rows, which start ``offset`` rows into them."""
     t, d = x.shape
     k = batch_ranks()
     g = dispatch_groups(cfg, t * k)
-    if g % k:
-        raise NotImplementedError(
-            f"MoE dispatch in {g} group(s) of {t * k} tokens over {k} ranks' "
-            f"rows: a group spanning ranks needs a dispatch across them; "
-            f"{QUEUE_3C}")
-    xg = x.reshape(g // k, t * k // g, d)
-    # the dispatch groups align with the batch's shards
-    return shard_hint(xg, BATCH, None, None) if g > 1 else xg
+    if g % k == 0:
+        xg = x.reshape(g // k, t * k // g, d)
+        # the dispatch groups align with the batch's shards
+        return (shard_hint(xg, BATCH, None, None) if g > 1 else xg), None
+    axes = row_axes()
+    tg = t * k // g
+    lo = active_mesh().group_rank(axes) * t
+    first, last = lo // tg, (lo + t - 1) // tg
+    rows = active_mesh().gather_from(x, axes, 0)
+    return (rows[first * tg:(last + 1) * tg].reshape(last + 1 - first, tg, d),
+            lo - first * tg)
 
 
 def _gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -203,40 +226,37 @@ def _gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(src, 1, idx[..., None].expand(-1, -1, src.shape[-1]))
 
 
-def _moe_ffn_grouped(w: dict, xg: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """Gather-based grouped dispatch (the reference's ``:83-150``): only an
-    int32 slot -> token map is scattered; activations are gathered into
-    the expert buffer and each entry gathers its expert output back.  Over
-    model ranks, this rank's block of ``E / model`` experts: its block of
-    the buffer, its experts' entries (and the shared experts' column
-    block) summed over ``model``."""
-    g, t, d = xg.shape
+def _gather_dispatch(w: dict, xf: torch.Tensor, r: Routing,
+                     gate_w: torch.Tensor, cfg: MoEConfig, e0: int, el: int,
+                     held, hint: bool) -> torch.Tensor:
+    """Gather-based grouped dispatch (the reference's ``:83-150``) over
+    experts ``e0..e0+el-1``: only an int32 slot -> token map is scattered;
+    activations are gathered into the expert buffer and each entry of
+    those experts gathers its expert output row back, weighted by
+    ``gate_w``.  ``held``: the buffer's dimension this rank holds as its
+    block over ``model``; ``hint``: whether the groups are this rank's
+    block over the data axes (their hints then hold)."""
+    g, t, d = xf.shape
     e, k = cfg.n_routed, cfg.top_k
-    tp = model_ranks()
-    cut = _experts_cut(tp, w, cfg)
-    # this rank's experts e0..e0+el-1 (on one device, all of them)
-    el = e // tp.size if cut else e
-    e0 = tp.rank * el if cut else 0
-    xf = tp.copy(xg) if cut else xg
-    r = route(w, xf, cfg)
     cap = r.cap
-    gi = torch.arange(g, device=xg.device)[:, None].expand_as(r.dest_e)
+    gi = torch.arange(g, device=xf.device)[:, None].expand_as(r.dest_e)
     # slot -> token + 1 (0 = empty); duplicate indices land only in the
     # drop bin (column cap), which is sliced off
-    slot_src = torch.zeros((g, e, cap + 1), dtype=torch.int32, device=xg.device)
+    slot_src = torch.zeros((g, e, cap + 1), dtype=torch.int32, device=xf.device)
     slot_src[gi, r.dest_e, r.dest_c] = (r.src_token + 1).to(torch.int32)
     slot_src = slot_src[:, e0:e0 + el, :cap]
     valid = slot_src > 0
 
     flat_idx = (slot_src - 1).clamp_min(0).reshape(g, el * cap).long()
     buf = _gather_rows(xf, flat_idx).reshape(g, el, cap, d)
-    buf = buf * valid[..., None].to(xg.dtype)
-    held = 1 if cut else None  # the experts' dimension, this rank's block
-    buf = shard_hint(buf, BATCH, MODEL, None, None, model_dim=held)
+    buf = buf * valid[..., None].to(xf.dtype)
+    if hint:
+        buf = shard_hint(buf, BATCH, MODEL, None, None, model_dim=held)
     out_buf = _expert_ffn_grouped(w, buf)
-    out_buf = shard_hint(out_buf, BATCH, MODEL, None, None, model_dim=held)
+    if hint:
+        out_buf = shard_hint(out_buf, BATCH, MODEL, None, None, model_dim=held)
 
-    # combine: each (token, k) entry of this rank's experts gathers its
+    # combine: each (token, k) entry of these experts gathers its
     # expert-output row
     inv = torch.argsort(r.order, dim=-1)  # entry -> sorted position
     entry_pos = torch.gather(r.pos, 1, inv)
@@ -246,48 +266,88 @@ def _moe_ffn_grouped(w: dict, xg: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     entry_slot = local_e.clamp(0, el - 1) * cap + entry_pos.clamp_max(cap - 1)
     vals = _gather_rows(out_buf.reshape(g, el * cap, d), entry_slot)
     vals = torch.where(mine[..., None], vals, 0.0)
-    y = (vals.reshape(g, t, k, d) * r.gate_w[..., None].to(xg.dtype)).sum(dim=2)
-    if not cut:
-        return y + _shared_ffn(w, xg) if cfg.n_shared else y
-    shared_cut = cfg.n_shared and tp.cut(w["shared"]["w_gate"], 1,
-                                         cfg.d_ff_expert * cfg.n_shared)
-    if shared_cut:  # its column block, in the same sum
-        y = y + _shared_ffn(w, xf)
-    y = tp.reduce(y)
+    return (vals.reshape(g, t, k, d) * gate_w[..., None].to(xf.dtype)).sum(dim=2)
+
+
+def _scatter_dispatch(w: dict, xf: torch.Tensor, r: Routing,
+                      gate_w: torch.Tensor, cfg: MoEConfig, e0: int,
+                      el: int) -> torch.Tensor:
+    """The same by float scatters (the reference's
+    ``_moe_baseline_scatter``, ``:169-192``): the kept entries of experts
+    ``e0..e0+el-1`` written into the (G, el, cap + 1, d) buffer, the
+    experts run, each entry's output weighted and scatter-added back to
+    its token."""
+    g, tg, d = xf.shape
+    k, cap = cfg.top_k, r.cap
+    gi = torch.arange(g, device=xf.device)[:, None].expand_as(r.dest_e)
+    local_e = r.dest_e - e0
+    mine = r.keep & (local_e >= 0) & (local_e < el)
+    dest_e = torch.where(mine, local_e, 0)
+    dest_c = torch.where(mine, r.dest_c, cap)  # cap column = drop bin
+    x_entries = _gather_rows(xf, r.src_token)
+    buf0 = torch.zeros((g, el, cap + 1, d), dtype=xf.dtype, device=xf.device)
+    buf0[gi, dest_e, dest_c] = x_entries
+    out_buf0 = F.pad(_expert_ffn_grouped(w, buf0[:, :, :cap]), (0, 0, 0, 1))
+    sw = torch.gather(gate_w.reshape(g, tg * k), 1, r.order)
+    contrib = out_buf0[gi, dest_e, dest_c] * sw[..., None].to(xf.dtype)
+    contrib = torch.where(mine[..., None], contrib, 0.0)
+    y = torch.zeros((g, tg, d), dtype=xf.dtype, device=xf.device)
+    return y.index_put((gi, r.src_token), contrib, accumulate=True)
+
+
+def _moe_groups(w: dict, xg: torch.Tensor, cfg: MoEConfig, plain: bool,
+                hint: bool = True) -> torch.Tensor:
+    """The MoE's output on the groups ``xg`` (G, T, d): the gather-based
+    dispatch, or with ``plain`` the float-scatter one.  Over model ranks
+    the routed experts (and the shared ones) held cut give partial sums,
+    which a block's input ``copy`` feeds and one sum over ``model``
+    totals; what is held whole is computed as on one device and added
+    after the sum."""
+    e = cfg.n_routed
+    tp = model_ranks()
+    cut = _expert_cut(tp, w, cfg)
+    # this rank's experts e0..e0+el-1 (all of them unless cut by experts)
+    el = e // tp.size if cut == "experts" else e
+    e0 = tp.rank * el if cut == "experts" else 0
+    xf = tp.copy(xg) if cut else xg
+    r = route(w, xf if cut == "experts" else xg, cfg)
+    # a whole router's gates weigh partial sums under an ff cut: their
+    # gradient is summed over the ranks
+    gate_w = tp.copy(r.gate_w) if cut == "ff" else r.gate_w
+    if plain:
+        y = _scatter_dispatch(w, xf, r, gate_w, cfg, e0, el)
+    else:
+        y = _gather_dispatch(w, xf, r, gate_w, cfg, e0, el,
+                             1 if cut == "experts" else None, hint)
+    shared_cut = bool(cfg.n_shared) and tp is not None and tp.cut(
+        w["shared"]["w_gate"], 1, cfg.d_ff_expert * cfg.n_shared)
+    if cut:
+        if shared_cut:  # its column block, in the same sum
+            y = y + _shared_ffn(w, xf)
+        y = tp.reduce(y)
+    elif shared_cut:
+        y = y + tp.reduce(_shared_ffn(w, tp.copy(xg)))
     if cfg.n_shared and not shared_cut:  # whole: the same on every rank
         y = y + _shared_ffn(w, xg)
     return y
 
 
-def moe_ffn(w: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """x: (T, d) -> (T, d), dispatched per group (``dispatch_groups``)."""
+def _moe(w: dict, x: torch.Tensor, cfg: MoEConfig, plain: bool) -> torch.Tensor:
     t, d = x.shape
-    return _moe_ffn_grouped(w, _grouped(x, cfg), cfg).reshape(t, d)
+    xg, offset = _groups(x, cfg)
+    y = _moe_groups(w, xg, cfg, plain, hint=offset is None)
+    if offset is None:
+        return y.reshape(t, d)
+    return y.reshape(-1, d)[offset:offset + t]  # this rank's rows
+
+
+def moe_ffn(w: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """x: (T, d) -> (T, d), dispatched per group (``dispatch_groups``);
+    under ``REPRO_BASELINE=1`` by float scatters, as the reference."""
+    return _moe(w, x, cfg, os.environ.get("REPRO_BASELINE") == "1")
 
 
 def moe_ffn_plain(w: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """The same function by float scatters (the reference's
-    ``_moe_baseline_scatter``, ``:169-192``): the kept entries written into
-    the (G, E, cap + 1, d) buffer, the experts run, each entry's output
-    weighted and scatter-added back to its token."""
-    t, d = x.shape
-    if _experts_cut(model_ranks(), w, cfg):
-        raise NotImplementedError("moe_ffn_plain runs on one device; over "
-                                  f"model ranks moe_ffn: {QUEUE_3C}")
-    xg = _grouped(x, cfg)
-    g, tg, _ = xg.shape
-    e, k = cfg.n_routed, cfg.top_k
-    r = route(w, xg, cfg)
-    gi = torch.arange(g, device=x.device)[:, None].expand_as(r.dest_e)
-    x_entries = _gather_rows(xg, r.src_token)
-    buf0 = torch.zeros((g, e, r.cap + 1, d), dtype=xg.dtype, device=x.device)
-    buf0[gi, r.dest_e, r.dest_c] = x_entries
-    out_buf0 = F.pad(_expert_ffn_grouped(w, buf0[:, :, :r.cap]), (0, 0, 0, 1))
-    sw = torch.gather(r.gate_w.reshape(g, tg * k), 1, r.order)
-    contrib = out_buf0[gi, r.dest_e, r.dest_c] * sw[..., None].to(xg.dtype)
-    contrib = torch.where(r.keep[..., None], contrib, 0.0)
-    y = torch.zeros((g, tg, d), dtype=xg.dtype, device=x.device)
-    y = y.index_put((gi, r.src_token), contrib, accumulate=True)
-    if cfg.n_shared:
-        y = y + _shared_ffn(w, xg)
-    return y.reshape(t, d)
+    ``_moe_baseline_scatter``), on one device or over ranks alike."""
+    return _moe(w, x, cfg, True)

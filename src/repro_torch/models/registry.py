@@ -25,7 +25,7 @@ from . import rwkv6 as rwkv_mod
 from . import transformer as lm
 from . import whisper as whisper_mod
 from ..devices import resolve_device
-from ..sharding import (BATCH, QUEUE_3C, batch_ranks, held_sequence,
+from ..sharding import (BATCH, batch_ranks, held_sequence,
                         model_ranks, resolve_pspec, spec_axes)
 from ..tree import tree_map
 from .common import schema_init, schema_shapes
@@ -245,12 +245,12 @@ def make_whisper_bundle(cfg: whisper_mod.WhisperConfig) -> ModelBundle:
         cfg, b, s, dtype, device), cache_axes)
 
     def make_cache(b, s, dtype=torch.float32, device="cuda"):
+        cache = cut(b, s, dtype, device)
         tp = model_ranks()
-        if tp is not None and s % tp.size:  # decode_step reads it as cut
-            raise NotImplementedError(f"{cfg.name}: a self cache of {s} "
-                                      f"positions over model = {tp.size}; "
-                                      f"{QUEUE_3C}")
-        return cut(b, s, dtype, device)
+        if tp is not None:  # decode_step reads the self cache as they say
+            for key in ("k", "v"):
+                cache[key].seq_axes = () if s % tp.size else ("model",)
+        return cache
 
     return ModelBundle(
         name=cfg.name, family="encdec", cfg=cfg,

@@ -17,12 +17,14 @@ Tensor parallelism.  Under a process mesh with a ``model`` axis of more
 than one rank (``sharding.model_ranks``) each rank holds its cut of every
 leaf, as ``schema_shardings`` places it, and computes on it; the layers
 exchange activations, never parameters (``copy`` and ``reduce`` are
-Megatron-LM's *f* and *g*, as in ``models.transformer``).  The heads must
-divide the ranks (32 at full width over 2 or 16; else
-``NotImplementedError``, ROADMAP Queue A item 3(c)).  The time mix: ``wr``,
+Megatron-LM's *f* and *g*, as in ``models.transformer``).  A block whose
+leaves do not divide over the ranks is whole, as the reference replicates
+them, and computed as on one device (the smoke's 64 widths over model 3):
+its input taken as it is and its output not summed.  The time mix: ``wr``,
 ``wk``, ``wv``, ``wg`` are column cuts in whole heads, ``u`` and
 ``ln_head`` cut by head, the scan runs on the rank's heads and the row-cut
-``wo`` is summed.  The ranks' work diverges at each column-cut product,
+``wo`` is summed; where the columns divide but the heads do not, the
+products are gathered and every rank scans every head.  The ranks' work diverges at each column-cut product,
 so each mixed input goes through ``copy`` there (a ``copy`` on ``x``
 before the mix would leave the whole ``mix_*`` gradients one rank's
 columns); the decay's LoRA, ``w_lora_b`` and ``w0`` are whole and each
@@ -31,7 +33,8 @@ leaves go through ``copy`` before the slice (trap 2).  The channel mix:
 ``wk_ffn`` column-cut, ``wv_ffn`` row-cut, and ``wr_ffn`` column-cut
 too, so the sigmoid gate ``r`` is this rank's column block while ``k @
 wv_ffn`` is a partial sum over ``ff``: the partial sum is reduced first,
-its block times the rank's ``r``, and the blocks gathered (trap 1).  The
+its block times the rank's ``r``, and the blocks gathered (trap 1); a
+whole ``wr_ffn`` gates the summed product whole.  The
 vocab is cut (65,536 rows): a lookup of this rank's rows summed, the tied
 head's logits gathered.  The state keeps the reference's ``cache_axes``:
 the scan state ``s`` (L, B, H, hd, hd) cut by head, the shift carries
@@ -47,12 +50,13 @@ import torch
 import torch.nn.functional as F
 
 from ..devices import resolve_device
-from ..sharding import BATCH, QUEUE_3C, keep_vocab_cut, model_ranks, shard_hint
+from ..sharding import BATCH, keep_vocab_cut, model_ranks, shard_hint
 from ..tree import tree_map
 from .common import (ParamSpec, at_least_fp32, embed_rows, held_block,
                      next_token_nll, prev_rows, rms_norm, run_layer,
                      stack_schema, vocab_logits)
 from .linear_scan import chunked_linear_attention, linear_step, scan_over_ranks
+from .transformer import row_out
 
 __all__ = ["RwkvConfig", "rwkv_schema", "init_state", "forward", "decode_step",
            "lm_loss"]
@@ -131,7 +135,7 @@ def _time_mix(w, x, cfg: RwkvConfig, x_prev, state, decode: bool,
     """The time mix of the normed input ``x``: ``(out, the shift carry
     x[:, -1], the scan state)``."""
     tp = model_ranks()
-    if tp is not None:
+    if tp is not None and tp.cut(w["wr"], 1, cfg.d_model):
         return _time_mix_tp(tp, w, x, cfg, x_prev, state, decode, remat)
     b, t = x.shape[:2]
     h, hd = cfg.n_heads, cfg.head_dim
@@ -179,10 +183,10 @@ def _heads_scan(w, cfg: RwkvConfig, r, k, v, log_w, state, u, ln_head,
     return y.reshape(b, t, n * hd), state
 
 
-def _channel_mix(w, x, x_prev, decode: bool):
+def _channel_mix(w, x, cfg: RwkvConfig, x_prev, decode: bool):
     tp = model_ranks()
     if tp is not None:
-        return _channel_mix_tp(tp, w, x, x_prev, decode)
+        return _channel_mix_tp(tp, w, x, cfg, x_prev, decode)
     xs = x_prev[:, None] if decode else _shift(x, x_prev)
     k = _mix(x, xs, w["mix_fk"]) @ w["wk_ffn"]
     k = torch.square(torch.relu(at_least_fp32(k))).to(x.dtype)
@@ -204,7 +208,7 @@ def _layer(w, x, cfg: RwkvConfig, xa, xf, s, decode: bool, remat: bool):
     h2 = rms_norm(x, w["ln_ffn"])
     if seq is not None:
         xf = prev_rows(seq, h2, 1, xf[:, None])[:, 0]
-    ffn, xf = _channel_mix(w, h2, xf, decode)
+    ffn, xf = _channel_mix(w, h2, cfg, xf, decode)
     return x + ffn, xa, xf, s
 
 
@@ -226,14 +230,6 @@ def _carry_out(tp, x, x_prev, d: int):
     return last[:, tp.block(d)] if x_prev.shape[-1] != d else last
 
 
-def _check_heads(tp, w, cfg: RwkvConfig):
-    h = cfg.n_heads
-    if h % tp.size or not (tp.cut(w["wr"], 1, cfg.d_model)
-                           and tp.cut(w["u"], 0, h)):
-        raise NotImplementedError(f"{cfg.name}: {h} heads over model = "
-                                  f"{tp.size}; {QUEUE_3C}")
-
-
 def _time_mix_tp(tp, w, x, cfg: RwkvConfig, x_prev, state, decode: bool,
                  remat: bool):
     """``_time_mix`` on this rank's heads: column-cut ``wr``/``wk``/``wv``/
@@ -242,44 +238,55 @@ def _time_mix_tp(tp, w, x, cfg: RwkvConfig, x_prev, state, decode: bool,
     (the LoRA's hidden, ``w_lora_b`` and ``w0`` through ``copy``, then
     sliced), ``u`` and ``ln_head`` cut by head, the scan on its heads, and
     the row-cut ``wo`` summed over ``model``.  ``state`` is this rank's
-    heads, or every head (a forward's zeros)."""
-    _check_heads(tp, w, cfg)
+    heads, or every head (a forward's zeros).  Where the columns are cut
+    inside heads (``u`` whole), the products are gathered and every rank
+    scans every head, the whole leaves through ``copy``, and keeps its
+    row block for ``wo``."""
     d = cfg.d_model
-    cols = tp.block(d)
+    own = tp.cut(w["u"], 0, cfg.n_heads)  # a block of whole heads
+    cols = tp.block(d) if own else slice(None)
     xs = (_carry_tp(tp, x_prev, d)[:, None] if decode
           else _shift(x, _carry_tp(tp, x_prev, d)))
     r, k, v, g = (tp.copy(_mix(x, xs, w[m])) @ w[p] for m, p in (
         ("mix_r", "wr"), ("mix_k", "wk"), ("mix_v", "wv"), ("mix_g", "wg")))
+    if not own:  # every head on every rank
+        r, k, v, g = (tp.gather_partial(t, -1) for t in (r, k, v, g))
     hid = tp.copy(torch.tanh(_mix(x, xs, w["mix_w"]) @ w["w_lora_a"]))
     dd = hid @ tp.copy(w["w_lora_b"])[:, cols]
     log_w = _log_decay(tp.copy(w["w0"])[cols], dd)
-    if state.shape[1] == cfg.n_heads:  # every head: this rank's
+    if own and state.shape[1] == cfg.n_heads:  # every head: this rank's
         state = state[:, tp.block(cfg.n_heads)]
-    y, state = _heads_scan(w, cfg, r, k, v, log_w, state, w["u"],
-                           w["ln_head"], decode, remat)
+    u, ln = ((w["u"], w["ln_head"]) if own
+             else (tp.copy(w["u"]), tp.copy(w["ln_head"])))
+    y, state = _heads_scan(w, cfg, r, k, v, log_w, state, u, ln, decode,
+                           remat)
     y = y * F.silu(at_least_fp32(g)).to(y.dtype)
-    return tp.reduce(y @ w["wo"]), _carry_out(tp, x, x_prev, d), state
+    return row_out(tp, y, w["wo"]), _carry_out(tp, x, x_prev, d), state
 
 
-def _channel_mix_tp(tp, w, x, x_prev, decode: bool):
-    """``_channel_mix`` on this rank's columns: ``wk_ffn`` column-cut,
-    ``wv_ffn`` row-cut (its product a partial sum over ``ff``, summed over
-    ``model`` first), and the sigmoid gate from the column-cut ``wr_ffn``,
-    this rank's block of ``r``: the summed product's same block times it,
-    the blocks gathered (trap 1: never the partial sum times ``r``)."""
+def _channel_mix_tp(tp, w, x, cfg: RwkvConfig, x_prev, decode: bool):
+    """``_channel_mix`` over model ranks: ``wk_ffn`` column-cut and
+    ``wv_ffn`` row-cut where ``ff`` divides (its product a partial sum,
+    summed over ``model`` first), else whole; the sigmoid gate from a
+    column-cut ``wr_ffn`` is this rank's block of ``r``, the summed
+    product's same block times it and the blocks gathered (trap 1: never
+    the partial sum times ``r``); a whole ``wr_ffn`` gates it whole."""
     d = x.shape[-1]
-    if not tp.cut(w["wr_ffn"], 1, d):
-        raise NotImplementedError(f"wr_ffn whole over model = {tp.size}; "
-                                  f"{QUEUE_3C}")
-    cols = tp.block(d)
     prev = _carry_tp(tp, x_prev, d)
     xs = prev[:, None] if decode else _shift(x, prev)
-    k = tp.copy(_mix(x, xs, w["mix_fk"])) @ w["wk_ffn"]
+    xk = _mix(x, xs, w["mix_fk"])
+    ff_cut = tp.cut(w["wk_ffn"], 1, cfg.d_ff)
+    k = (tp.copy(xk) if ff_cut else xk) @ w["wk_ffn"]
     k = torch.square(torch.relu(at_least_fp32(k))).to(x.dtype)
-    r = torch.sigmoid(at_least_fp32(tp.copy(_mix(x, xs, w["mix_fr"]))
-                                    @ w["wr_ffn"]))
-    kv = tp.copy(tp.reduce(k @ w["wv_ffn"]))
-    out = tp.gather(kv[..., cols] * r.to(x.dtype), -1)
+    kv = k @ w["wv_ffn"]
+    if ff_cut:
+        kv = tp.reduce(kv)
+    xr = _mix(x, xs, w["mix_fr"])
+    if not tp.cut(w["wr_ffn"], 1, d):  # the gate whole
+        r = torch.sigmoid(at_least_fp32(xr @ w["wr_ffn"]))
+        return kv * r.to(x.dtype), _carry_out(tp, x, x_prev, d)
+    r = torch.sigmoid(at_least_fp32(tp.copy(xr) @ w["wr_ffn"]))
+    out = tp.gather(tp.copy(kv)[..., tp.block(d)] * r.to(x.dtype), -1)
     return out, _carry_out(tp, x, x_prev, d)
 
 

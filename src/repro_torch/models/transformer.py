@@ -62,6 +62,16 @@ merged by log-sum-exp; MLA's in the absorbed form, ``wkv_b``'s key half
 folded into the query, so only latent queries cross ranks).  A decode
 step moves no cache leaf between ranks.
 
+What does not divide is whole, as the reference replicates it.  Where
+``wq``'s heads do not divide at all, every rank computes the attention
+block as one device does: its input taken as it is (no ``copy``) and its
+output whole (no sum), so neither the forward nor the gradient is counted
+``model`` times.  MLA whose heads do not divide computes every head on
+every rank (``_mla_attn``: a cut projection gathered, a whole one used as
+it is, a cut ``wo`` summed).  A cache whose KV heads or positions do not
+divide is held whole on every rank and written and read as on one device
+(each leaf carries the axes that cut its positions, ``seq_axes``).
+
 The sequence over the mesh.  At a batch of one under
 ``sharding.hold_sequence`` (the reference's fallback to the sequence over
 ``data``) a pass over several positions holds this rank's block of them,
@@ -71,18 +81,19 @@ the gradient reduce-scattered back, and masks by position, so it takes
 the chunked or plain route, never K4, whose mask is by index.  The cache
 holds this rank's block of positions, over data and ``model`` jointly
 where the layout is ``"seq"`` and over data beside heads over ``model``
-otherwise (``_cache_ranks``): a prefill writes the gathered prompt's
+otherwise (``_cache_seq_axes``): a prefill writes the gathered prompt's
 positions that fall in the block, a decode step's one token lands on the
 rank that owns its slot, and the step attends over the rank's block,
 merged by log-sum-exp over the ranks that cut it (``merged_decode``).
 Under ``REPRO_SEQ_PARALLEL=1`` over model ranks a pass with no cache
 holds the residual stream cut on its sequence over ``model`` between the
 stacks' entry and exit (``_layer``: Megatron's sequence parallelism).  A
-placement this does not execute raises ``NotImplementedError`` (ROADMAP
-Queue A item 3(c)).
+captured step over a cut cache and a held sequence's pass from a position
+other than 0 raise ``NotImplementedError`` (ROADMAP Queue A item 3(c)).
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import math
 import os
@@ -93,8 +104,9 @@ import torch.nn.functional as F
 
 from ..devices import resolve_device
 from ..kernels.flash_attn import HEAD_DIMS, flash_attention
-from ..sharding import (BATCH, MODEL, QUEUE_3C, held_sequence, keep_vocab_cut,
-                        model_ranks, sequence_ranks, shard_hint)
+from ..sharding import (BATCH, MODEL, QUEUE_3C, active_mesh, held_sequence,
+                        keep_vocab_cut, model_ranks, resolve_pspec,
+                        sequence_ranks, shard_hint, spec_axes)
 from ..tree import tree_leaves
 from ..tree import tree_map as map_params
 from .common import (NEG_INF, ParamSpec, apply_rope, attention, checkpointed,
@@ -439,15 +451,18 @@ def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
     training route (``attend``'s, never K4).  Under a held sequence
     (``sharding.sequence_ranks``) ``x`` is this rank's block of positions
     ``q_pos`` and the K/V of every block are gathered (masked by position,
-    ``k_pos`` every rank's); a cache is this rank's block of positions
-    (``_seq_cache_write``).  ``sp``: the output reduce-scattered over the
-    sequence (``REPRO_SEQ_PARALLEL``, ``_layer``)."""
+    ``k_pos`` every rank's); a cache cut over ranks is this rank's block
+    of positions (``_cache_pass``).  Over model ranks whose ``wq`` is cut
+    the block runs cut (``_gqa_attn_tp``); where it is whole (the heads do
+    not divide) every rank computes it as one device does, with no
+    collective but those of a cut cache, its output whole (with ``sp``,
+    cut to this rank's block of the sequence)."""
     tp = model_ranks()
-    if tp is not None:
-        return _gqa_attn_tp(tp, w, x, cfg, rope, q_pos, k_pos, window, cache,
-                            start, autograd, sp)
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if tp is not None and tp.cut(w["wq"], 1, h * hd):
+        return _gqa_attn_tp(tp, w, x, cfg, rope, q_pos, k_pos, window, cache,
+                            start, autograd, sp)
     q = (x @ w["wq"]).reshape(b, s, h, hd)
     k = (x @ w["wk"]).reshape(b, s, hkv, hd)
     v = (x @ w["wv"]).reshape(b, s, hkv, hd)
@@ -457,21 +472,20 @@ def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
     q = apply_rope(q, rope, q_pos)
     k = apply_rope(k, rope, q_pos)
     seq = sequence_ranks()
-    if cache is not None and seq is not None:  # the cache's block of positions
-        k, v, k_pos = _seq_cache_write(seq, cache, ("k", "v"), (k, v), start,
-                                       held=seq)
-        if s == 1:
-            out = merged_decode(seq, q, cache["k"], cache["v"], q_pos,
-                                seq.lo(cache["k"].shape[1]), 1.0 / math.sqrt(hd),
+    if cache is not None:
+        grp = _cache_ranks()
+        (k, v), k_pos, lo = _cache_pass(grp, seq, cache, ("k", "v"), (k, v),
+                                        start, q_pos, k_pos)
+        if lo is not None:  # this rank's block of positions, merged
+            out = merged_decode(grp, q, k, v, q_pos, lo, 1.0 / math.sqrt(hd),
                                 window, cfg.attn_softcap)
             return out.reshape(b, 1, h * hd) @ w["wo"]
-    elif cache is not None:
-        k, v = _write(cache, "k", k, q_pos), _write(cache, "v", v, q_pos)
     elif seq is not None and s > 1:  # every rank's K/V of the sequence
         k, v = seq.gather(k, 1), seq.gather(v, 1)
     out = _attend(q, k, v, q_pos, k_pos, cfg, window,
                   start=start if seq is None else None, autograd=autograd)
-    return out.reshape(b, s, h * hd) @ w["wo"]
+    out = out.reshape(b, s, h * hd) @ w["wo"]
+    return tp.scatter(out, 1) if sp else out
 
 
 def _mla_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
@@ -482,52 +496,124 @@ def _mla_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
     rope_dim))``, written in place; keys and values are expanded from the
     latent over every cached position.  Under a held sequence the latents
     of every block are gathered (a decode step attends over this rank's
-    block of the cache, merged by log-sum-exp), as ``_gqa_attn``'s K/V."""
-    tp = model_ranks()
-    if tp is not None:
-        return _mla_attn_tp(tp, w, x, cfg, rope, q_pos, k_pos, window, cache,
-                            start, autograd, sp)
+    block of the cache, merged by log-sum-exp), as ``_gqa_attn``'s K/V.
+
+    Over model ranks that hold every one of ``wq``/``wq_b``, ``wkv_b`` and
+    ``wo`` as blocks of whole heads the block runs on this rank's heads
+    (``_mla_attn_tp``).  Otherwise (heads that do not divide: DeepSeek-V2's
+    128 over model 3 cut ``wq_b``'s 24,576 columns inside heads and hold
+    ``wkv_b`` and ``wo`` whole) every rank computes every head: a cut
+    projection is gathered over ``model``, a whole one used as it is, and
+    a cut ``wo`` takes this rank's row block and is summed.  Where ``wo``
+    is cut each rank's backward carries its rows' part of the gradient,
+    so the block's inputs and whole weights go through ``copy`` (their
+    gradients summed); where it is whole the output is too, and no sum
+    is taken."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
-    qh = m.qk_nope_dim + m.qk_rope_dim
-    if m.q_lora:
-        q = rms_norm(x @ w["wq_a"], w["q_ln"]) @ w["wq_b"]
-    else:
-        q = x @ w["wq"]
+    qh, dkv = m.qk_nope_dim + m.qk_rope_dim, m.qk_nope_dim + m.v_dim
+    wq = w["wq_b"] if m.q_lora else w["wq"]
+    tp = model_ranks()
+    q_cut = kv_cut = o_cut = False
+    if tp is not None:
+        q_cut, kv_cut, o_cut = (tp.cut(wq, 1, h * qh),
+                                tp.cut(w["wkv_b"], 1, h * dkv),
+                                tp.cut(w["wo"], 0, h * m.v_dim))
+        if h % tp.size == 0 and q_cut and kv_cut and o_cut:
+            return _mla_attn_tp(tp, w, x, cfg, rope, q_pos, k_pos, window,
+                                cache, start, autograd, sp)
+
+    def entry(t):  # an input of a block whose backward is each rank's part
+        return tp.copy(t) if o_cut else t
+
+    def cols(a, wt, cut):  # a @ wt, every column on every rank
+        if not cut:
+            return a @ entry(wt)
+        if o_cut:
+            return tp.gather_partial(a @ wt, -1)
+        return tp.gather(tp.copy(a) @ wt, -1)
+
+    xq = rms_norm(x @ w["wq_a"], w["q_ln"]) if m.q_lora else x
+    q = cols(entry(xq), wq, q_cut)
     q_nope, q_rope = q.reshape(b, s, h, qh).split([m.qk_nope_dim, m.qk_rope_dim],
                                                   dim=-1)
     q_rope = apply_rope(q_rope, rope, q_pos)
     ckv, krope = (x @ w["wkv_a"]).split([m.kv_lora, m.qk_rope_dim], dim=-1)
     ckv = rms_norm(ckv, w["kv_ln"])
     krope = apply_rope(krope[:, :, None, :], rope, q_pos)[:, :, 0, :]
+    scale = 1.0 / math.sqrt(qh)
     seq = sequence_ranks()
-    lo = None
-    if cache is not None and seq is not None:  # the cache's block
-        ckv, krope, k_pos = _seq_cache_write(seq, cache, ("ckv", "krope"),
-                                             (ckv, krope), start, held=seq)
-        if s == 1:  # this rank's block of the latents, merged below
-            ckv, krope = cache["ckv"], cache["krope"]
-            lo = seq.lo(ckv.shape[1])
-    elif cache is not None:
-        ckv = _write(cache, "ckv", ckv, q_pos)
-        krope = _write(cache, "krope", krope, q_pos)
+    grp = lo = None
+    if cache is not None:
+        grp = _cache_ranks()
+        (ckv, krope), k_pos, lo = _cache_pass(grp, seq, cache, ("ckv", "krope"),
+                                              (ckv, krope), start, q_pos, k_pos)
+        if lo is not None and kv_cut:  # wkv_b's columns and the positions cut
+            out = _mla_decode_cut_columns(tp, grp, w, cfg, q_nope, q_rope,
+                                          cache, q_pos, lo, scale, window)
+            return _mla_out(tp, out, w["wo"], o_cut, sp)
     elif seq is not None and s > 1:  # every rank's latents
         ckv, krope = seq.gather(ckv, 1), seq.gather(krope, 1)
     sk = ckv.shape[1]
-    kvx = (ckv @ w["wkv_b"]).reshape(b, sk, h, m.qk_nope_dim + m.v_dim)
+    kvx = cols(entry(ckv), w["wkv_b"], kv_cut).reshape(b, sk, h, dkv)
     k_nope, v = kvx.split([m.qk_nope_dim, m.v_dim], dim=-1)
-    k_rope = krope[:, :, None, :].expand(b, sk, h, m.qk_rope_dim)
+    k_rope = entry(krope)[:, :, None, :].expand(b, sk, h, m.qk_rope_dim)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope], dim=-1)
     if lo is not None:
-        out = merged_decode(seq, q_full, k_full, v, q_pos, lo,
-                            1.0 / math.sqrt(qh), window, cfg.attn_softcap)
+        out = merged_decode(grp, q_full, k_full, v, q_pos, lo, scale, window,
+                            cfg.attn_softcap)
     else:
         out = _attend(q_full, k_full, v, q_pos, k_pos, cfg, window,
-                      scale=1.0 / math.sqrt(qh),
-                      start=start if seq is None else None, autograd=autograd)
-    return out.reshape(b, s, h * m.v_dim) @ w["wo"]
+                      scale=scale, start=start if seq is None else None,
+                      autograd=autograd)
+    return _mla_out(tp, out.reshape(b, s, h * m.v_dim), w["wo"], o_cut, sp)
+
+
+def _mla_out(tp, out: torch.Tensor, wo: torch.Tensor, o_cut: bool,
+             sp: bool) -> torch.Tensor:
+    """Every head's output (B, S, h * v_dim) through ``wo``: row-cut, this
+    rank's rows summed over ``model``; whole, as it is (with ``sp`` cut to
+    this rank's block of the sequence)."""
+    if o_cut:
+        return row_out(tp, out, wo, sp)
+    y = out @ wo
+    return tp.scatter(y, 1) if sp else y
+
+
+def _mla_decode_cut_columns(tp, grp, w, cfg: LMConfig, q_nope, q_rope, cache,
+                            q_pos, lo: int, scale: float,
+                            window) -> torch.Tensor:
+    """One MLA decode step of every head over this rank's block of the
+    latent cache (cut over ``grp``) where ``wkv_b``'s columns are cut over
+    ``model`` inside heads: the absorbed form (``_mla_decode_tp``), each
+    rank folding its columns' part of ``wkv_b``'s key half into the
+    latent queries and mapping the latent outputs through its part of the
+    value half, each part summed over ``model``.  Returns (B, 1, h *
+    v_dim), the same on every rank.  No gradient is taken here."""
+    m = cfg.mla
+    b, _, h, _ = q_nope.shape
+    dkv = m.qk_nope_dim + m.v_dim
+    wkv_b = w["wkv_b"]
+    nc = wkv_b.shape[1]
+    c0 = tp.rank * nc
+    h0, h1 = c0 // dkv, -(-(c0 + nc) // dkv)  # the heads these columns touch
+    part = wkv_b.new_zeros(m.kv_lora, (h1 - h0) * dkv)
+    part[:, c0 - h0 * dkv:c0 - h0 * dkv + nc] = wkv_b
+    w_uk, w_uv = part.reshape(m.kv_lora, h1 - h0, dkv).split(
+        [m.qk_nope_dim, m.v_dim], dim=-1)
+    q_lat = q_nope.new_zeros(b, 1, h, m.kv_lora)
+    q_lat[:, :, h0:h1] = torch.einsum("bshn,chn->bshc", q_nope[:, :, h0:h1],
+                                      w_uk)
+    q_lat = tp.all_reduce(q_lat)
+    keys = torch.cat([cache["ckv"], cache["krope"]], dim=-1)[:, :, None]
+    lat = merged_decode(grp, torch.cat([q_lat, q_rope], dim=-1), keys,
+                        cache["ckv"][:, :, None], q_pos, lo, scale, window,
+                        cfg.attn_softcap)
+    out = q_nope.new_zeros(b, 1, h, m.v_dim)
+    out[:, :, h0:h1] = torch.einsum("bshc,chv->bshv", lat[:, :, h0:h1], w_uv)
+    return tp.all_reduce(out).reshape(b, 1, h * m.v_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -547,11 +633,6 @@ def cache_layout(cfg: LMConfig) -> str:
     if cfg.attn != "mla" and cfg.n_kv_heads % PRODUCTION_MODEL_DEGREE == 0:
         return "heads"
     return "seq"
-
-
-def _refusal(cfg: LMConfig, what: str, tp):
-    return NotImplementedError(f"{cfg.name}: {what} over model = {tp.size}; "
-                               f"{QUEUE_3C}")
 
 
 def _own(tp, n: int) -> tuple[int, int]:
@@ -590,20 +671,42 @@ def write_block(leaf: torch.Tensor, new: torch.Tensor, lo: int,
 def _seq_cache_write(grp, cache: dict, names, news, start, held=None):
     """Write new entries ``news`` (B, S, ...) at positions ``start..`` into
     ``cache[names]``, this rank's block of positions over the ranks ``grp``
-    that cut the cache's sequence (``sharding.SequenceRanks``): those that
-    fall in it.  Where a pass over several positions (a prefill) holds
-    this rank's block of them over ``held`` (a held sequence), the blocks
-    are gathered first.  Returns ``(*news whole, their positions (B,
-    S))``."""
+    that cut the cache's sequence (``sharding.SequenceRanks``; None: the
+    cache is whole): those that fall in it.  Where a pass over several
+    positions (a prefill) holds this rank's block of them over ``held`` (a
+    held sequence), the blocks are gathered first.  Returns ``(*news
+    whole, their positions (B, S))``."""
     if not isinstance(start, int):
         raise NotImplementedError(f"a cache cut over {grp.axes} at a tensor "
                                   f"position (a captured step); {QUEUE_3C}")
     if held is not None and news[0].shape[1] > 1:
         news = tuple(held.gather(t, 1) for t in news)
     for name, new in zip(names, news):
-        write_block(cache[name], new, grp.lo(cache[name].shape[1]), start)
+        lo = 0 if grp is None else grp.lo(cache[name].shape[1])
+        write_block(cache[name], new, lo, start)
     b, s = news[0].shape[:2]
     return (*news, _positions(b, start, s, news[0].device))
+
+
+def _cache_pass(grp, seq, cache: dict, names, news, start, q_pos, k_pos):
+    """Write a pass's new entries ``news`` into ``cache[names]`` and return
+    what it attends over: ``(entries, their positions, lo)``.  A whole
+    cache (``grp`` None) outside a held sequence's block (``seq``) is
+    written at ``q_pos`` and read whole at ``k_pos``.  Otherwise the new
+    entries are written where this rank holds them (``_seq_cache_write``,
+    gathered first over a held block): a pass over several positions
+    attends over the new entries whole; a decode step over a cache cut
+    over ``grp`` attends over this rank's block of it, from position
+    ``lo`` (merged by log-sum-exp over ``grp``; ``lo`` None elsewhere)."""
+    one = news[0].shape[1] == 1
+    if grp is None and (seq is None or one):
+        return (tuple(_write(cache, n, t, q_pos) for n, t in zip(names, news)),
+                k_pos, None)
+    *news, pos = _seq_cache_write(grp, cache, names, news, start, held=seq)
+    if grp is not None and one:
+        return (tuple(cache[n] for n in names), None,
+                grp.lo(cache[names[0]].shape[1]))
+    return tuple(news), pos, None
 
 
 def merged_decode(tp, q, kc, vc, q_pos, lo: int, scale: float, window,
@@ -641,11 +744,13 @@ def heads_tp(tp, x, wq, wk, wv, h: int, hkv: int, hd: int, what: str):
     (and ``wk``/``wv``, cut or whole): ``(q (B, S, nq, hd), k, v (B, S,
     nkv, hd), q_lo, kv_lo)``, its own block of whole heads, or every head
     (the projection gathered, the backward summed) where a block is not
-    whole heads.  ``what`` names the model in a refusal."""
+    whole heads.  ``what`` names the model in an error: a whole ``wq``
+    (heads that do not divide at all) is the caller's to compute as on
+    one device."""
     b, s, _ = x.shape
     if not tp.cut(wq, 1, h * hd):
-        raise NotImplementedError(f"{what}: attention with wq whole over "
-                                  f"model = {tp.size}; {QUEUE_3C}")
+        raise ValueError(f"{what}: heads_tp takes a column-cut wq; a whole "
+                         f"one is computed as on one device")
     xf = tp.copy(x)
     kv_cut = tp.cut(wk, 1, hkv * hd)
     if not kv_cut:  # whole, but each rank's heads take their part
@@ -675,15 +780,31 @@ def row_out(tp, out: torch.Tensor, wo: torch.Tensor,
     return tp.reduce_scatter(out @ wo, 1) if sp else tp.reduce(out @ wo)
 
 
-def _cache_ranks(cfg: LMConfig, tp):
-    """The ranks that cut a cache's sequence (``sharding.SequenceRanks``),
-    as ``registry._kv_cache_axes`` places it: ``model`` where the layout is
-    ``"seq"``, and a held sequence's axes (``data`` at batch 1) beside it;
-    None where no axis of more than one rank does."""
-    held = held_sequence()
-    if tp is not None and cache_layout(cfg) == "seq":
-        return sequence_ranks(held + (MODEL,))
-    return sequence_ranks(held) if held else None
+def _cache_seq_axes(cfg: LMConfig, tp, max_len: int) -> tuple[str, ...]:
+    """The mesh axes of more than one rank that cut the positions of a
+    cache of ``max_len`` positions, as ``registry._kv_cache_axes`` places
+    them (``resolve_pspec``): of a held sequence's axes (``data`` at batch
+    1) and, where the layout is ``"seq"``, ``model``, all where their
+    product divides, else the first that divides alone, else none (the
+    cache is whole on every rank)."""
+    cand = held_sequence() + ((MODEL,) if tp is not None
+                              and cache_layout(cfg) == "seq" else ())
+    if not cand:
+        return ()
+    return spec_axes(resolve_pspec((max_len,), (cand,), active_mesh().shape)[0])
+
+
+# the axes that cut the positions of the cache a pass writes (a cache's
+# leaves carry them as ``seq_axes``, set by ``init_cache``)
+_CACHE_AXES: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_cache_axes", default=())
+
+
+def _cache_ranks():
+    """The ranks that cut the positions of the cache the pass writes
+    (``sharding.SequenceRanks``), None where it is whole."""
+    axes = _CACHE_AXES.get()
+    return sequence_ranks(axes) if axes else None
 
 
 def _gqa_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
@@ -691,12 +812,12 @@ def _gqa_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
     """``_gqa_attn`` on this rank's cut of ``wq``/``wk``/``wv`` (columns)
     and ``wo`` (rows): the attention output summed over ``model`` (with
     ``sp``, reduce-scattered over the sequence).  Under a held sequence
-    the K/V of every block of positions are gathered over its axes, and a
-    cache is cut over them beside its own cut (``_cache_ranks``)."""
+    the K/V of every block of positions are gathered over its axes.  A
+    cache whose KV heads are cut holds this rank's heads; else it holds
+    every KV head, the positions cut where they divide
+    (``_cache_seq_axes``)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if not tp.cut(w["wo"], 0, h * hd):
-        raise _refusal(cfg, "attention with wo whole", tp)
     q, k, v, q_lo, kv_lo = heads_tp(tp, x, w["wq"], w["wk"], w["wv"], h, hkv,
                                     hd, cfg.name)
     nq, nkv = q.shape[2], k.shape[2]
@@ -707,32 +828,22 @@ def _gqa_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
     k = apply_rope(k, rope, q_pos)
     seq = sequence_ranks()
     scale = 1.0 / math.sqrt(hd)
-    if cache is not None and cache_layout(cfg) == "heads":
-        if nkv == hkv:
-            raise _refusal(cfg, f"a head-cut cache of {hkv} KV heads", tp)
-        if seq is None:
-            k, v = _write(cache, "k", k, q_pos), _write(cache, "v", v, q_pos)
-        else:  # this rank's heads of its block of positions
-            k, v, k_pos = _seq_cache_write(seq, cache, ("k", "v"), (k, v),
-                                           start, held=seq)
-            if s == 1:
-                kk, vv = kv_for(q_lo, nq, kv_lo, cache["k"], cache["v"],
-                                h // hkv)
-                out = merged_decode(seq, q, kk, vv, q_pos,
-                                    seq.lo(cache["k"].shape[1]), scale, window,
-                                    cfg.attn_softcap)
-                return row_out(tp, out.reshape(b, 1, nq * hd), w["wo"])
-    elif cache is not None:
-        if nkv < hkv:  # the new positions of every KV head
+    if cache is not None:
+        heads = cache["k"].shape[2] < hkv  # this rank's KV heads
+        if not heads and nkv < hkv:  # the new positions of every KV head
             k, v = tp.gather(k, 2), tp.gather(v, 2)
             kv_lo, nkv = 0, hkv
-        grp = _cache_ranks(cfg, tp)
-        k, v, k_pos = _seq_cache_write(grp, cache, ("k", "v"), (k, v), start,
-                                       held=seq)
-        if s == 1:  # decode: every head over this rank's positions
+        grp = _cache_ranks()
+        (k, v), k_pos, lo = _cache_pass(grp, seq, cache, ("k", "v"), (k, v),
+                                        start, q_pos, k_pos)
+        if lo is not None and heads:  # this rank's heads of its positions
+            kk, vv = kv_for(q_lo, nq, kv_lo, k, v, h // hkv)
+            out = merged_decode(grp, q, kk, vv, q_pos, lo, scale, window,
+                                cfg.attn_softcap)
+            return row_out(tp, out.reshape(b, 1, nq * hd), w["wo"])
+        if lo is not None:  # decode: every head over this rank's positions
             qa = q if nq == h else tp.gather(q, 2)
-            out = merged_decode(grp, qa, cache["k"], cache["v"], q_pos,
-                                grp.lo(cache["k"].shape[1]), scale, window,
+            out = merged_decode(grp, qa, k, v, q_pos, lo, scale, window,
                                 cfg.attn_softcap)
             return row_out(tp, out.reshape(b, 1, h * hd), w["wo"])
     elif seq is not None and s > 1:  # every rank's block of positions
@@ -746,20 +857,18 @@ def _gqa_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
 def _mla_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
                  start, autograd, sp=False):
     """``_mla_attn`` on this rank's heads of ``wq``/``wq_b``, ``wkv_b`` and
-    ``wo``, the latent projections and norms whole; the output summed over
-    ``model`` (with ``sp``, reduce-scattered over the sequence).  A decode
-    step over the sequence-cut latent cache takes the absorbed form
+    ``wo`` (each a block of whole heads), the latent projections and
+    norms whole; the output summed over ``model`` (with ``sp``,
+    reduce-scattered over the sequence).  A decode step over a
+    sequence-cut latent cache takes the absorbed form
     (``_mla_decode_tp``).  Under a held sequence the latents of every
     block are gathered over its axes, and the cache is cut over them and
-    ``model`` jointly."""
+    ``model`` jointly where its positions divide."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
     qh, dkv = m.qk_nope_dim + m.qk_rope_dim, m.qk_nope_dim + m.v_dim
     wq = w["wq_b"] if m.q_lora else w["wq"]
-    if h % tp.size or not (tp.cut(wq, 1, h * qh) and tp.cut(w["wkv_b"], 1, h * dkv)
-                           and tp.cut(w["wo"], 0, h * m.v_dim)):
-        raise _refusal(cfg, f"MLA's {h} heads", tp)
     nh = h // tp.size
     if m.q_lora:
         q = tp.copy(rms_norm(x @ w["wq_a"], w["q_ln"])) @ wq
@@ -773,14 +882,13 @@ def _mla_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
     krope = apply_rope(krope[:, :, None, :], rope, q_pos)[:, :, 0, :]
     scale = 1.0 / math.sqrt(qh)
     seq = sequence_ranks()
-    if cache is not None:  # the latents' sequence over model (and data)
-        grp = _cache_ranks(cfg, tp)
-        ckv, krope, k_pos = _seq_cache_write(grp, cache, ("ckv", "krope"),
-                                             (ckv, krope), start, held=seq)
-        if s == 1:
+    if cache is not None:
+        grp = _cache_ranks()
+        (ckv, krope), k_pos, lo = _cache_pass(grp, seq, cache, ("ckv", "krope"),
+                                              (ckv, krope), start, q_pos, k_pos)
+        if lo is not None:
             return _mla_decode_tp(tp, grp, w, cfg, q_nope, q_rope, cache,
-                                  q_pos, grp.lo(cache["ckv"].shape[1]), scale,
-                                  window)
+                                  q_pos, lo, scale, window)
     elif seq is not None and s > 1:  # every rank's block of positions
         ckv, krope = seq.gather(ckv, 1), seq.gather(krope, 1)
     ckv, krope = tp.copy(ckv), tp.copy(krope)
@@ -923,19 +1031,19 @@ def _run_stacks(params, cfg: LMConfig, x, q_pos, k_pos, cache, start,
     caches ``cache["dense"]`` / ``cache["moe"]`` or None.  Under
     ``REPRO_SEQ_PARALLEL=1`` over model ranks, a pass with no cache over
     several positions holds the residual stream as this rank's block of
-    the sequence between the stacks' entry and exit (``_layer``)."""
+    the sequence between the stacks' entry and exit (``_layer``) where
+    the positions divide over ``model``."""
     rope = rope_inv_freq(cfg.rope_dim, cfg.rope_base, x.device)
     tp = model_ranks()
+    # a sequence that does not divide over model stays whole, as the
+    # reference's hint then replicates it
     sp = (tp is not None and cache is None and x.shape[1] > 1
-          and seq_parallel())
+          and seq_parallel() and x.shape[1] % tp.size == 0)
     if sp:
         if held_sequence():
             raise NotImplementedError(
                 f"{cfg.name}: REPRO_SEQ_PARALLEL=1 on a sequence already cut "
                 f"over {held_sequence()}; {QUEUE_3C}")
-        if x.shape[1] % tp.size:
-            raise _refusal(cfg, f"a sequence-parallel stream of {x.shape[1]} "
-                           f"positions", tp)
         x = tp.scatter(x, 1)
     for key, cache_key, n, moe_layer, offset in _stacks(cfg):
         x = _run_stack(key, params[key], x, cfg, rope, q_pos, k_pos,
@@ -1034,23 +1142,20 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
     """Stacked (L-leading) zero caches for decode, one a stack (``"dense"``,
     ``"moe"``): K/V ``(L, B, S, hkv, hd)``, or MLA's latent ``ckv (L, B, S,
     kv_lora)`` and ``krope (L, B, S, rope_dim)``.  Over model ranks, this
-    rank's cut (``cache_layout``): ``hkv`` or ``S`` over the ranks; under a
-    held sequence (batch 1), ``S`` also over its axes (``_cache_ranks``:
-    over data and model jointly, or over data beside heads over model).  A
-    cut that does not divide raises."""
+    rank's cut (``cache_layout``): ``hkv`` over the ranks where they
+    divide, ``S`` where it divides; under a held sequence (batch 1), ``S``
+    also over its axes (over data and model jointly, or over data beside
+    heads over model: ``_cache_seq_axes``).  What does not divide is held
+    whole, as the reference replicates it.  Each leaf carries the axes
+    that cut its positions as ``seq_axes``: a pass reads the cache so."""
     dev = resolve_device(device)
     hkv = cfg.n_kv_heads
     tp = model_ranks()
-    if tp is not None and cache_layout(cfg) == "heads":
-        if hkv % tp.size:
-            raise _refusal(cfg, f"a cache of {hkv} KV heads", tp)
+    if tp is not None and cache_layout(cfg) == "heads" and hkv % tp.size == 0:
         hkv //= tp.size
-    grp = _cache_ranks(cfg, tp)
-    if grp is not None:  # this rank's block of the positions
-        if max_len % grp.size:
-            raise NotImplementedError(f"{cfg.name}: a cache of {max_len} "
-                                      f"positions over {grp.axes}; {QUEUE_3C}")
-        max_len //= grp.size
+    axes = _cache_seq_axes(cfg, tp, max_len)
+    if axes:  # this rank's block of the positions
+        max_len //= active_mesh().group_size(axes)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -1064,15 +1169,24 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
         else:
             shape = (n, batch, max_len, hkv, cfg.head_dim)
             out[cache_key] = {"k": zeros(*shape), "v": zeros(*shape)}
+    for leaf in tree_leaves(out):
+        leaf.seq_axes = axes
     return out
 
 
 def _cached_pass(params, cfg: LMConfig, cache, tokens, start):
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape
-    max_len = tree_leaves(cache)[0].shape[2]
+    leaf = tree_leaves(cache)[0]
+    max_len = leaf.shape[2]
     tensor_start = isinstance(start, torch.Tensor)
-    grp = _cache_ranks(cfg, model_ranks())
+    # a cache made elsewhere than init_cache is read as its layout cuts it
+    axes = getattr(leaf, "seq_axes", None)
+    if axes is None:
+        tp = model_ranks()
+        axes = held_sequence() + ((MODEL,) if tp is not None and
+                                  cache_layout(cfg) == "seq" else ())
+    grp = sequence_ranks(axes) if axes else None
     if grp is not None:
         if tensor_start:
             raise NotImplementedError(
@@ -1097,8 +1211,12 @@ def _cached_pass(params, cfg: LMConfig, cache, tokens, start):
     # attend_route's start == 0 is a host-side fact: a tensor start says
     # nothing there (and a decode step, Sq = 1, never takes K4); a block
     # of the prompt from lo is no index mask either (the attention asks)
-    x = _run_stacks(params, cfg, x, q_pos, k_pos, cache,
-                    None if tensor_start else start)
+    token = _CACHE_AXES.set(() if grp is None else grp.axes)
+    try:
+        x = _run_stacks(params, cfg, x, q_pos, k_pos, cache,
+                        None if tensor_start else start)
+    finally:
+        _CACHE_AXES.reset(token)
     return _unembed(params, cfg, x), cache
 
 

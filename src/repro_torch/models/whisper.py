@@ -18,18 +18,23 @@ reference rounds it, whatever the params' dtype.
 Tensor parallelism.  Under a process mesh with a ``model`` axis of more
 than one rank each rank holds its cut of every leaf (``schema_shardings``)
 and exchanges activations, never parameters: the self- and cross-
-attention's ``wq``/``wk``/``wv`` are column cuts in whole heads (16 divide
-2 and 16; else ``NotImplementedError``, ROADMAP Queue A item 3(c)),
-``wo`` a row cut summed over ``model``, ``w_up``/``w_down`` as an FFN's;
-each rank attends its heads (on K4 where the route says so).  The vocab
-(51,865) is odd and stays whole at full width; where it divides (smoke)
-it is cut, as the transformer's.  The caches keep the reference's
-``cache_axes``: the self cache on the sequence (its length must divide
-the ranks), written by ``transformer.write_block`` and read by
-``merged_decode``; the cross cache on the sequence where the ranks divide
-``enc_len`` (1,500 over 2: merged without a mask), else whole (over 16:
-each rank reads its heads of it).  ``precompute_cross_kv`` fills either
-with the reference's values.
+attention's ``wq``/``wk``/``wv`` are column cuts (16 heads divide 2 and
+16; where the columns cut inside heads the projections are gathered and
+every rank attends every head), ``wo`` a row cut summed over ``model``,
+``w_up``/``w_down`` as an FFN's; each rank attends its heads (on K4 where
+the route says so).  Where the width does not divide (the smoke's 64 over
+model 3) a block is whole, as the reference replicates it, and computed
+as on one device, its input as it is and its output not summed.  The
+vocab (51,865) is odd and stays whole at full width; where it divides
+(smoke) it is cut, as the transformer's.  The caches keep the reference's
+``cache_axes``: the self cache on the sequence where its length divides
+the ranks, else whole (its leaves carry the axes that cut them as
+``seq_axes``), written by ``transformer.write_block`` and read by
+``merged_decode`` or, whole, as on one device; the cross cache on the
+sequence where the ranks divide ``enc_len`` (1,500 over 2: merged without
+a mask), else whole.  A decode step over model ranks computes every
+head's query, key and value on every rank (the column blocks gathered).
+``precompute_cross_kv`` fills either cache with the reference's values.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..devices import resolve_device
-from ..sharding import BATCH, QUEUE_3C, model_ranks, shard_hint
+from ..sharding import BATCH, MODEL, QUEUE_3C, model_ranks, shard_hint
 from ..tree import tree_map
 from .common import (ParamSpec, attention, embed_rows, make_attn_mask,
                      next_token_nll, position_index, rms_norm, run_layer,
@@ -113,38 +118,34 @@ def _layers(stack: dict, n: int) -> list:
     return [tree_map(lambda leaves: leaves[l], layers) for l in range(n)]
 
 
-def _own_heads(tp, w, cfg: WhisperConfig) -> int:
-    """The heads this rank holds of an attention block: its column block of
-    ``wq``/``wk``/``wv`` and row block of ``wo``, whole heads."""
-    d, h = cfg.d_model, cfg.n_heads
-    if h % tp.size or not (all(tp.cut(w[k], 1, d) for k in ("wq", "wk", "wv"))
-                           and tp.cut(w["wo"], 0, d)):
-        raise NotImplementedError(f"{cfg.name}: {h} heads over model = "
-                                  f"{tp.size}; {QUEUE_3C}")
-    return h // tp.size
-
-
 def _mha(w, xq, xkv, cfg: WhisperConfig, pos=None, causal: bool = False,
          autograd: bool = False):
     """Multi-head attention of ``xq`` over ``xkv``: causal from position 0
     (``pos`` the queries' and keys' positions) or unmasked; on K4 where
-    ``attend_route`` says so, never under ``autograd``.  Over model ranks,
-    this rank's heads (each input through ``copy``), the output summed."""
+    ``attend_route`` says so, never under ``autograd``.  Over model ranks
+    holding column blocks of ``wq``/``wk``/``wv``, this rank's heads (each
+    input through ``copy``; every head from the gathered projections where
+    a block is not whole heads) and the row-cut ``wo`` summed; over model
+    ranks holding them whole, as on one device."""
     b, sq, d = xq.shape
     h, hd = cfg.n_heads, cfg.head_dim
     tp = model_ranks()
+    if tp is not None and not tp.cut(w["wq"], 1, d):
+        tp = None  # whole on every rank
     if tp is not None:
-        h = _own_heads(tp, w, cfg)
         xq, xkv = (tp.copy(xq),) * 2 if xkv is xq else (tp.copy(xq),
                                                           tp.copy(xkv))
-    q = (xq @ w["wq"]).reshape(b, sq, h, hd)
-    k = (xkv @ w["wk"]).reshape(b, -1, h, hd)
-    v = (xkv @ w["wv"]).reshape(b, -1, h, hd)
+    q, k, v = xq @ w["wq"], xkv @ w["wk"], xkv @ w["wv"]
+    if tp is not None and h % tp.size:  # a cut inside a head: every head
+        q, k, v = (tp.gather_partial(t, -1) for t in (q, k, v))
+    elif tp is not None:
+        h //= tp.size
+    q, k, v = (t.reshape(b, -1, h, hd) for t in (q, k, v))
     out = attend(q, k, v, pos, pos, scale=1.0 / math.sqrt(hd),
                  start=0 if causal else None, flash_chunk=cfg.flash_chunk,
                  causal=causal, autograd=autograd)
-    out = out.reshape(b, sq, h * hd) @ w["wo"]
-    return out if tp is None else tp.reduce(out)
+    out = out.reshape(b, sq, h * hd)
+    return out @ w["wo"] if tp is None else row_out(tp, out, w["wo"])
 
 
 def _gelu(x):
@@ -268,7 +269,8 @@ def precompute_cross_kv(params, cfg: WhisperConfig, enc_out: torch.Tensor,
             n, b, cfg.enc_len, -1, hd)
         if tp is None:
             return out
-        out = tp.gather(out, 3)
+        if tp.cut(wkv, 2, cfg.d_model):  # this rank's columns: every head's
+            out = tp.gather(out, 3)
         cut = cache["ck"].shape[2] != cfg.enc_len
         return out[:, :, tp.block(cfg.enc_len)] if cut else out
 
@@ -319,58 +321,77 @@ def decode_step(params, cfg: WhisperConfig, cache: dict, tokens: torch.Tensor,
     return _logits(params, cfg, x), cache
 
 
+def _all_heads(tp, w, x, d: int, keys=("wq", "wk", "wv")):
+    """Every head of ``x`` through the projections ``w[keys]`` on every
+    rank (a decode step's): the column blocks gathered over ``model``, or
+    whole; and whether they (and ``wo``, in row blocks) are cut."""
+    cut = tp.cut(w["wq"], 1, d)
+    out = tuple(x @ w[key] for key in keys)
+    return (tuple(tp.gather(t, -1) for t in out) if cut else out), cut
+
+
 def _decode_step_tp(tp, params, cfg: WhisperConfig, cache: dict,
                     tokens: torch.Tensor, pos):
-    """``decode_step`` over this rank's heads and its cut of the caches
-    (``cache_axes``).  The self cache is cut on the sequence: the new
-    position's K/V of every head are gathered and written where this
-    rank's block holds them, and every head's query attends over the
-    rank's positions, the partial softmaxes merged by log-sum-exp.  The
-    cross cache is cut so too where the ranks divide ``enc_len`` (merged
-    without a mask), else whole, each rank reading its heads of it."""
+    """``decode_step`` over model ranks and this rank's cut of the caches
+    (``cache_axes``).  Each rank computes every head's query, key and
+    value (``_all_heads``).  The self cache, where cut on the sequence,
+    takes the new position where this rank's block holds it and the
+    query attends over the rank's positions, the partial softmaxes merged
+    by log-sum-exp; where whole (its length does not divide the ranks) it
+    is written and read as on one device.  The cross cache is cut on the
+    sequence where the ranks divide ``enc_len`` (merged without a mask),
+    else whole.  A row-cut ``wo`` takes this rank's rows and is summed;
+    a whole one is used as it is."""
     if isinstance(pos, torch.Tensor):
         raise NotImplementedError(f"{cfg.name}: a captured step (a tensor "
                                   f"position) over model = {tp.size}; "
                                   f"{QUEUE_3C}")
     b = tokens.shape[0]
-    d, hd = cfg.d_model, cfg.head_dim
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
     sl = cache["k"].shape[2]
-    lo = tp.rank * sl
-    if not 0 <= pos < sl * tp.size:
+    cut_self = getattr(cache["k"], "seq_axes", (MODEL,)) != ()
+    lo = tp.rank * sl if cut_self else 0
+    max_len = sl * tp.size if cut_self else sl
+    if not 0 <= pos < max_len:
         raise ValueError(f"position {pos} is outside the cache length "
-                         f"{sl * tp.size}")
+                         f"{max_len}")
     dev = tokens.device
     x = embed_rows(params["embed"], tokens, cfg.vocab) + _pos_dec(
         params, position_index(pos, dev), 1)
     q_pos = torch.full((b, 1), pos, dtype=torch.long, device=dev)
     scale = 1.0 / math.sqrt(hd)
+    self_mask = make_attn_mask(q_pos, torch.arange(
+        max_len, dtype=torch.int32, device=dev).expand(b, max_len))
     cross_mask = torch.zeros((b, 1, 1, cfg.enc_len), dtype=torch.float32,
                              device=dev)
+
+    def out_proj(out, wo, cut):
+        out = out.reshape(b, 1, d)
+        return row_out(tp, out, wo) if cut else out @ wo
+
     for l, w in enumerate(_layers(params["dec_layers"], cfg.dec_layers)):
         ws, wc = w["self"], w["cross"]
-        nh = _own_heads(tp, ws, cfg)
         hn = rms_norm(x, w["ln1"])
-        q, k, v = ((hn @ ws[key]).reshape(b, 1, nh, hd) for key in ("wq", "wk", "wv"))
+        (q, k, v), cut = _all_heads(tp, ws, hn, d)
+        q, k, v = (t.reshape(b, 1, h, hd) for t in (q, k, v))
         kc, vc = cache["k"][l], cache["v"][l]
-        write_block(kc, tp.gather(k, 2), lo, pos)
-        write_block(vc, tp.gather(v, 2), lo, pos)
-        out = merged_decode(tp, tp.gather(q, 2), kc, vc, q_pos, lo, scale, None,
-                            None)
-        x = x + row_out(tp, out.reshape(b, 1, d), ws["wo"])
+        write_block(kc, k, lo, pos)
+        write_block(vc, v, lo, pos)
+        if cut_self:
+            out = merged_decode(tp, q, kc, vc, q_pos, lo, scale, None, None)
+        else:
+            out = attention(q, kc, vc, self_mask, scale=scale)
+        x = x + out_proj(out, ws["wo"], cut)
         hn = rms_norm(x, w["ln_cross"])
-        nh = _own_heads(tp, wc, cfg)
-        qc = (hn @ wc["wq"]).reshape(b, 1, nh, hd)
+        (qc,), cut = _all_heads(tp, wc, hn, d, ("wq",))
+        qc = qc.reshape(b, 1, h, hd)
         ck, cv = cache["ck"][l], cache["cv"][l]
         if tp.cut(ck, 1, cfg.enc_len):
-            out = merged_decode(tp, tp.gather(qc, 2), ck, cv, q_pos,
-                                tp.rank * ck.shape[1], scale, None, None,
-                                causal=False)
-            x = x + row_out(tp, out.reshape(b, 1, d), wc["wo"])
-        else:  # whole: this rank's heads of it
-            heads = tp.block(cfg.n_heads)
-            out = attention(qc, ck[:, :, heads], cv[:, :, heads], cross_mask,
-                            scale=scale)
-            x = x + row_out(tp, out.reshape(b, 1, nh * hd), wc["wo"])
+            out = merged_decode(tp, qc, ck, cv, q_pos, tp.rank * ck.shape[1],
+                                scale, None, None, causal=False)
+        else:
+            out = attention(qc, ck, cv, cross_mask, scale=scale)
+        x = x + out_proj(out, wc["wo"], cut)
         x = x + _ffn(w, rms_norm(x, w["ln2"]), cfg)
     return _logits(params, cfg, x), cache
 

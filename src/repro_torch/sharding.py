@@ -19,7 +19,11 @@ placement is exactly that states what already holds and returns ``x``
 itself.  Any other placement over an axis of more than one rank (the
 sequence over ``data`` at batch 1, the reference's sequence-parallel
 residual stream over ``model``, a ``model`` placement the code does not
-hold) raises ``NotImplementedError``: ROADMAP Queue A item 3(c).
+hold) raises ``NotImplementedError``.  Where a dimension does not divide
+its mesh axes the reference replicates it and the model code holds it
+whole on every rank; a MoE dispatch group that covers rows of several
+data ranks gathers them (``row_axes``: the axes whose ranks hold distinct
+rows, not those holding rows alike, ``rows_alike``).
 ``model_ranks`` gives the model code the ``model`` axis of the active
 process mesh (its size, this rank's index, the collectives over it).
 
@@ -43,7 +47,8 @@ from .tree import tree_from_items, tree_items, tree_map
 
 __all__ = ["BATCH", "MODEL", "WORKERS", "QUEUE_3C", "PartitionSpec",
            "resolve_pspec", "worker_devices", "use_mesh", "active_mesh",
-           "batch_ranks", "ModelRanks", "model_ranks", "hold_sequence",
+           "batch_ranks", "row_axes", "rows_alike", "ModelRanks",
+           "model_ranks", "hold_sequence",
            "held_sequence", "SequenceRanks", "sequence_ranks",
            "keep_vocab_cut", "vocab_cut_kept", "placement", "use_placement",
            "hint_pspec",
@@ -56,7 +61,7 @@ BATCH = ("pod", "data")  # batch (or sequence for long context) shards here
 MODEL = "model"
 WORKERS = "workers"  # the coded cluster's n-worker axis (1-D worker mesh)
 
-# where the placements this slice does not execute are queued
+# where the placements the port does not execute yet are queued
 QUEUE_3C = "ROADMAP Queue A item 3(c)"
 
 
@@ -149,6 +154,8 @@ _VOCAB_CUT: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_vocab_cut", default=False)
 _LAYERS: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_fsdp_layers", default=None)
+_ALIKE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_rows_alike", default=())
 
 
 @contextlib.contextmanager
@@ -193,12 +200,26 @@ def vocab_cut_kept() -> bool:
     return _VOCAB_CUT.get()
 
 
-_PLACEMENT = (_ACTIVE, _SEQUENCE, _VOCAB_CUT, _LAYERS)
+@contextlib.contextmanager
+def rows_alike(axes=()):
+    """Inside the block the ranks along the pod and data ``axes`` hold the
+    same rows of the batch (fewer rows than ranks: ``launch.steps.
+    ParallelStep.local_batch``), so only the other batch axes hold
+    distinct rows (``row_axes``)."""
+    token = _ALIKE.set(tuple(axes))
+    try:
+        yield
+    finally:
+        _ALIKE.reset(token)
+
+
+_PLACEMENT = (_ACTIVE, _SEQUENCE, _VOCAB_CUT, _LAYERS, _ALIKE)
 
 
 def placement() -> tuple:
-    """The active mesh, held sequence, vocab cut and per-layer gathers:
-    what a recompute (``models.common.checkpointed``) runs under again."""
+    """The active mesh, held sequence, vocab cut, per-layer gathers and
+    rows held alike: what a recompute (``models.common.checkpointed``)
+    runs under again."""
     return tuple(var.get() for var in _PLACEMENT)
 
 
@@ -219,13 +240,23 @@ def _holds_ranks(mesh) -> bool:
     return getattr(mesh, "coordinate", None) is not None
 
 
-def batch_ranks() -> int:
-    """The ranks the batch is split over under the active mesh: the
-    product of a process mesh's pod and data sizes, else 1."""
+def row_axes() -> tuple[str, ...]:
+    """The pod and data axes of more than one rank whose ranks hold
+    distinct rows of the batch (or blocks of a held sequence) under the
+    active process mesh: all of them but those holding rows alike
+    (``rows_alike``); ``()`` without a process mesh."""
     mesh = active_mesh()
     if mesh is None or not _holds_ranks(mesh):
-        return 1
-    return math.prod(mesh.shape.get(a, 1) for a in BATCH)
+        return ()
+    return tuple(a for a in mesh.axis_names if a in BATCH
+                 and mesh.shape[a] > 1 and a not in _ALIKE.get())
+
+
+def batch_ranks() -> int:
+    """The ranks holding distinct rows of the batch under the active mesh:
+    the product of the sizes of ``row_axes``, 1 without a process mesh."""
+    mesh = active_mesh()
+    return 1 if mesh is None else math.prod(mesh.shape[a] for a in row_axes())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,8 +19,9 @@ TRAIN_KW = dict(warmup=2, total_steps=5)
 def replicated_rows(rank: int, p_np: dict, batches: list) -> dict:
     """Train steps of SmolLM's smoke config over (data 2, model 1), FSDP
     on, each global batch of 3 rows held whole by both ranks: the losses,
-    gradient norms and gathered params; and DeepSeek-V2's smoke MoE
-    refusing such a batch."""
+    gradient norms and gathered params; and a step of DeepSeek-V2's smoke
+    MoE on such a batch (its dispatch group counts each row once): its
+    loss and gradient norm."""
     torch.set_num_threads(1)
     mesh = make_process_mesh((2, 1), ("data", "model"), device="cpu")
     bundle = get_bundle("smollm-135m", smoke=True)
@@ -36,9 +37,14 @@ def replicated_rows(rank: int, p_np: dict, batches: list) -> dict:
     out["params"] = gather_tree(params, step.param_shardings)
     moe = get_bundle("deepseek-v2-236b", smoke=True)
     step = steps.build_train_step(moe, steps.TrainConfig(**TRAIN_KW), mesh)
+    params = shard_tree(moe.init(torch.Generator().manual_seed(0),
+                                 device="cpu"), step.param_shardings)
     try:
-        step.local_batch({k: torch.from_numpy(v) for k, v in batches[0].items()})
-        out["moe"] = "cut"
+        _, _, met = step(params, init_state(params),
+                         {k: torch.from_numpy(v) for k, v in batches[0].items()})
+        out["moe"] = "ran"
+        out["moe_loss"], out["moe_norm"] = (float(met["loss"]),
+                                            float(met["grad_norm"]))
     except NotImplementedError as e:
         out["moe"] = str(e)
     return out

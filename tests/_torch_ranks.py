@@ -39,7 +39,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 32, 3
 TRAIN_KW = dict(warmup=2, total_steps=5)
 SERVE = dict(batch=4, prompt_len=8, gen=8)
 # the MoE under data parallelism: DeepSeek-V2's smoke config, its
-# dispatch groups set to MOE_GROUPS (the smoke's own 1 spans the ranks);
+# dispatch groups set to MOE_GROUPS (each rank's rows whole groups; the
+# smoke's own 1 spans the ranks, held by moe_ranks' one-group step);
 # MOE_TOKENS tokens into one MoE layer, a MOE_BATCH x MOE_SEQ train step
 MOE_ARCH, MOE_GROUPS, MOE_TOKENS = "deepseek-v2-236b", (2, 4), 256
 MOE_BATCH, MOE_SEQ = 4, 16
@@ -143,21 +144,29 @@ def four_ranks(rank: int, p_np: dict) -> dict:
                                   device="cpu")
     out["int8_model_axis"], *_ = _run_step(
         pod_model, p_np, steps.TrainConfig(grad_compression="int8", **TRAIN_KW))
-    # RWKV6 runs tensor parallel over model where its heads divide the
-    # ranks; 3 heads of 16 over model 2 do not
-    rwkv = make_rwkv_bundle(dataclasses.replace(
-        get_bundle("rwkv6-1.6b", smoke=True).cfg, d_model=48))
+    # RWKV6 over model 2 with 3 heads of 16: its 48 columns are cut inside
+    # a head, so every rank scans every head
+    rwkv = make_rwkv_bundle(rwkv48_config())
     try:
         step = steps.build_train_step(rwkv, steps.TrainConfig(**TRAIN_KW),
                                       meshes["data2-model2"])
         params = rwkv.init(torch.Generator().manual_seed(0), device="cpu",
                            shardings=step.param_shardings)
         toks = torch.zeros((4, 8), dtype=torch.long)
-        step(params, init_state(params), {"tokens": toks, "labels": toks})
+        _, _, met = step(params, init_state(params),
+                         {"tokens": toks, "labels": toks})
         out["rwkv6_model_axis"] = "ran"
+        out["rwkv6_model_axis_loss"] = float(met["loss"])
+        out["rwkv6_model_axis_norm"] = float(met["grad_norm"])
     except NotImplementedError as e:
         out["rwkv6_model_axis"] = str(e)
     return out
+
+
+def rwkv48_config():
+    """RWKV6's smoke config at d_model 48: 3 heads of 16."""
+    return dataclasses.replace(get_bundle("rwkv6-1.6b", smoke=True).cfg,
+                               d_model=48)
 
 
 def _global_batches():
@@ -190,7 +199,8 @@ def moe_ranks(mesh, rank: int, moe_np: dict) -> dict:
     """DeepSeek-V2's MoE on this rank's half of the tokens: one layer's
     output for each of ``MOE_GROUPS``; the first step's loss and gradient
     norm of the data-parallel train step with 2 groups; and that step with
-    the smoke's single group, which spans both ranks, refused."""
+    the smoke's single group, which spans both ranks (each gathers the
+    group's rows): its loss and gradient norm."""
     out = {}
     x = torch.from_numpy(moe_np["x"]).chunk(2)[rank]
     with use_mesh(mesh):
@@ -208,8 +218,10 @@ def moe_ranks(mesh, rank: int, moe_np: dict) -> dict:
     params = shard_tree(bundle.init(torch.Generator().manual_seed(0),
                                     device="cpu"), step.param_shardings)
     try:
-        step(params, init_state(params), moe_batch())
+        _, _, met = step(params, init_state(params), moe_batch())
         out["one_group"] = "ran"
+        out["one_group_loss"] = float(met["loss"])
+        out["one_group_norm"] = float(met["grad_norm"])
     except NotImplementedError as e:
         out["one_group"] = str(e)
     return out

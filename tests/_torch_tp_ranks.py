@@ -136,7 +136,7 @@ def forward_cases(mesh, inputs: dict) -> dict:
 def serve_cases(mesh, inputs: dict) -> dict:
     """``serve_lm`` over the mesh from the cases' weights, each rank its
     cut; DeepSeek-V2 serves its smoke config (one dispatch group), which
-    spans the data ranks where there are two: refused there."""
+    spans the data ranks where there are two."""
     out = {}
     for arch, a in inputs.items():
         if arch == "heads16":  # no arch id: prefill and decode hold it

@@ -549,7 +549,22 @@ def test_int8_step_over_pod_and_model_matches_reference(four, ref_runs):
 
 
 def test_train_step_refuses_rwkv6_over_a_model_axis(four):
-    assert "3(c)" in four[0]["rwkv6_model_axis"], four[0]["rwkv6_model_axis"]
+    """RWKV6 of 3 heads over (data 2, model 2): no longer refused, its
+    columns cut inside a head and every head scanned on every rank.  The
+    step's loss and gradient norm equal one process's step on the whole
+    batch (the same seeded params) within ``REL_LOSS``."""
+    from repro_torch.models.registry import make_rwkv_bundle
+
+    rwkv = make_rwkv_bundle(ranks.rwkv48_config())
+    step = steps.build_train_step(rwkv, steps.TrainConfig(**ranks.TRAIN_KW))
+    params = rwkv.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.zeros((4, 8), dtype=torch.long)
+    _, _, met = step(params, init_state(params),
+                     {"tokens": toks, "labels": toks})
+    for r in four:
+        assert r["rwkv6_model_axis"] == "ran", r["rwkv6_model_axis"]
+        _close(r["rwkv6_model_axis_loss"], float(met["loss"]), REL_LOSS)
+        _close(r["rwkv6_model_axis_norm"], float(met["grad_norm"]), REL_LOSS)
 
 
 def test_fsdp_checkpoint_restores_on_two_ranks(two):
@@ -628,8 +643,19 @@ def test_moe_data_parallel_step_matches_reference(two, moe_case):
 
 
 def test_moe_group_spanning_ranks_is_refused(two):
+    """The smoke's one dispatch group spans both data ranks: no longer
+    refused, each rank gathers the group's rows and dispatches it as one
+    device does.  The step's loss and gradient norm equal one process's
+    step on the whole batch (the same seeded params) within
+    ``REL_LOSS``."""
+    bundle = get_bundle(ranks.MOE_ARCH, smoke=True)
+    step = steps.build_train_step(bundle, steps.TrainConfig(**ranks.TRAIN_KW))
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    _, _, met = step(params, init_state(params), ranks.moe_batch())
     for r in two:
-        assert "3(c)" in r["moe"]["one_group"], r["moe"]["one_group"]
+        assert r["moe"]["one_group"] == "ran", r["moe"]["one_group"]
+        _close(r["moe"]["one_group_loss"], float(met["loss"]), REL_LOSS)
+        _close(r["moe"]["one_group_norm"], float(met["grad_norm"]), REL_LOSS)
 
 
 def test_serve_refuses_a_mesh_for_a_cnn():

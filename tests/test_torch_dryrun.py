@@ -48,7 +48,7 @@ from repro.launch.hlo_analysis import analyze_hlo
 from repro.launch.mesh import make_host_mesh as ref_host_mesh
 from repro.optim import init_state as ref_init_state
 from repro_torch.configs import get_bundle
-from repro_torch.configs.shapes import batch_structs
+from repro_torch.configs.shapes import SHAPES, batch_structs
 from repro_torch.data.synthetic import DataConfig, SyntheticTokens
 from repro_torch.kernels.flash_attn.kernel import flash_cost
 from repro_torch.launch import dryrun, steps
@@ -385,9 +385,9 @@ def test_cli_writes_an_ok_record(tmp_path):
 def test_records_error_and_skipped_and_leave_no_group(tmp_path, monkeypatch):
     monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
     # every arch runs over model, and so does the sequence-parallel
-    # residual stream; a MoE whose dispatch group would span the data
-    # ranks does not (2 x 16 x 16 at smoke scale 16: 16 rows over 32
-    # ranks, one group; ROADMAP Queue A item 3(c)4)
+    # residual stream; so does a MoE whose dispatch group spans the data
+    # ranks (2 x 16 x 16 at smoke scale 16: 16 rows cut over pod, held
+    # alike over data, one group over the pod ranks)
     monkeypatch.setenv("REPRO_SEQ_PARALLEL", "1")
     rec = dryrun.run_cell("smollm-135m", "train_4k", multi_pod=False,
                           smoke_scale=16)
@@ -395,6 +395,15 @@ def test_records_error_and_skipped_and_leave_no_group(tmp_path, monkeypatch):
     assert not dist.is_initialized()
     rec = dryrun.run_cell("deepseek-v2-236b", "train_4k", multi_pod=True,
                           smoke_scale=16)
+    assert rec["status"] == "ok", rec
+    assert not dist.is_initialized()
+    # a placement the port leaves refused (ROADMAP Queue A item 3(c)): the
+    # sequence-parallel stream over a batch of one, whose sequence is
+    # already held over data
+    monkeypatch.setitem(SHAPES, "train_1row", dict(kind="train",
+                                                   seq_len=4096,
+                                                   global_batch=1))
+    rec = dryrun.run_cell("smollm-135m", "train_1row", multi_pod=False)
     assert rec["status"] == "error" and "3(c)" in rec["error"], rec
     assert not dist.is_initialized()
     rec = dryrun.run_cell("qwen3-4b", "long_500k", multi_pod=False)
@@ -430,7 +439,8 @@ def test_rows_held_alike_over_the_data_ranks_train_as_one_process(tmp_path):
     params against the reference's train step on its one-device host mesh
     (which holds rows that do not divide whole, as these ranks do), from
     the same numpy weights and batches; and bit-near the port's own step
-    in one process."""
+    in one process.  DeepSeek-V2's smoke MoE over the same rows: its loss
+    and gradient norm those of one process."""
     ref_bundle = ref_smollm.smoke()
     p_np = jax.tree.map(np.asarray, ref_bundle.init(jax.random.PRNGKey(0),
                                                     jnp.float32))
@@ -466,7 +476,19 @@ def test_rows_held_alike_over_the_data_ranks_train_as_one_process(tmp_path):
         _close_tree(r["params"], ref_params, REL_LEAF)
         np.testing.assert_allclose(r["losses"], losses, rtol=1e-6)
         _close_tree(r["params"], _numpy(params), 1e-5)
-        assert "3(c)" in r["moe"], r["moe"]
+    # DeepSeek-V2's smoke MoE over the same rows held alike: its one
+    # dispatch group counts each row once, so the step is one process's
+    moe = get_bundle("deepseek-v2-236b", smoke=True)
+    step = steps.build_train_step(moe, steps.TrainConfig(**ranks.TRAIN_KW))
+    params = moe.init(torch.Generator().manual_seed(0), device="cpu")
+    _, _, met = step(params, init_state(params),
+                     {k: torch.from_numpy(v) for k, v in batches[0].items()})
+    for r in got:
+        assert r["moe"] == "ran", r["moe"]
+        np.testing.assert_allclose(r["moe_loss"], float(met["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(r["moe_norm"], float(met["grad_norm"]),
+                                   rtol=1e-5)
 
 
 def _numpy(tree):

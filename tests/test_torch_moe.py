@@ -90,7 +90,7 @@ def _ref_routing(w, x, cfg):
 
 
 def _port_routing(w, x, cfg):
-    xg = moe._grouped(torch.as_tensor(x), cfg)
+    xg, _ = moe._groups(torch.as_tensor(x), cfg)
     r = moe.route(_t(w), xg, cfg)
     inv = torch.argsort(r.order, dim=-1)
     return r.gate_e.numpy(), torch.gather(r.keep, 1, inv).numpy(), r.cap

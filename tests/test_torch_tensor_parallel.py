@@ -308,13 +308,11 @@ def test_the_no_gather_check_catches_a_parameter(model2):
 @pytest.mark.parametrize("mesh_name", MESH_NAMES)
 @pytest.mark.parametrize("arch", [a for a in ranks.ARCHS if a != "heads16"])
 def test_serve_lm_tokens_equal_reference(request, cases, mesh_name, arch):
+    """Every arch's greedy tokens over the mesh equal the reference's;
+    over (data 2, model 2) DeepSeek-V2's smoke config (one dispatch group)
+    has each group span both data ranks, which gather its rows."""
     runs = _runs(request, mesh_name)
     _, ref = cases
-    if arch == ranks.MOE_ARCH and mesh_name == "data2-model2":
-        # the smoke config's one dispatch group spans the data ranks
-        for r in runs:
-            assert "3(c)" in r["serve"][arch], r["serve"][arch]
-        return
     for r in runs:
         assert np.array_equal(r["serve"][arch], ref[arch]["serve"]), arch
 
@@ -393,19 +391,21 @@ def test_checkpoint_restores_across_mesh_shapes(data2_model2, ckpt_dir):
         assert torch.equal(a, b)
 
 
-REFUSED = ("serve_captured", "train_captured", "uneven_cache",
-           "bare_model_hint", "moe_plain")
+REFUSED = ("serve_captured", "train_captured", "bare_model_hint")
 
 
 @pytest.mark.parametrize("mesh_name", MESH_NAMES)
 def test_unexecuted_placements_still_raise(request, mesh_name):
-    """The placements this slice does not execute raise naming ROADMAP
+    """The placements the port does not execute raise naming ROADMAP
     Queue A item 3(c); a held model placement is the identity, and the
-    sequence-parallel stream (``REPRO_SEQ_PARALLEL=1``) and a batch of one
-    over the data ranks now run (``tests/test_torch_seq_parallel.py`` and
-    ``tests/test_torch_seq_data.py`` hold their values)."""
+    sequence-parallel stream (``REPRO_SEQ_PARALLEL=1``), a batch of one
+    over the data ranks, a cache whose 15 positions do not divide over
+    model 2 and ``moe_ffn_plain`` over model ranks now run
+    (``tests/test_torch_seq_parallel.py``, ``tests/test_torch_seq_data.py``,
+    ``tests/test_torch_uneven.py`` and ``tests/test_torch_moe_ranks.py``
+    hold their values)."""
     runs = _runs(request, mesh_name)
-    ran = ("held_model_hint", "seq_parallel") + (
+    ran = ("held_model_hint", "seq_parallel", "uneven_cache", "moe_plain") + (
         ("batch1_over_data",) if mesh_name == "data2-model2" else ())
     for r in runs:
         got = r["refusals"]
