@@ -184,8 +184,10 @@ Phases, in order; any failure raises:
     batch of 1 x 2,048 tokens, its sequence cut over data (each rank a
     block of 1,024), over (data 2, model 1) and (data 2, model 2), 3
     steps, each loss within 1e-5 of the one-process run's on the same
-    batch; the same over (data 1, model 2) with ``REPRO_SEQ_PARALLEL=1``
-    and without, the flag's losses within 1e-5 of the flag off's;
+    batch; the same over (data 1, model 2) and (data 2, model 2) with
+    ``REPRO_SEQ_PARALLEL=1`` and without (over data 2, each data rank's
+    block cut further over model), the flag's losses within 1e-5 of the
+    flag off's;
     RWKV6-1.6B (float64) and Hymba-1.5B at full width on 2 layers trained
     at 1 x 1,024 over (data 2, model 1), held as (e) holds them; then
     ``serve_lm(mesh=..., batch=1)`` of Qwen3-4B at full width and depth
@@ -208,7 +210,28 @@ Phases, in order; any failure raises:
     128, rep 4: each job's tokens equal to the one-process ``serve_lm``'s
     (run after the ranks exit) and every call's logits within 1e-4 of
     max|logit|; ms a step, collective calls, ms and bytes by axis, and
-    peak memory a rank beside its reckoned bytes printed;
+    peak memory a rank beside its reckoned bytes printed.  (h) a held
+    sequence's edges and ``REPRO_BASELINE=1``, the jobs and the
+    one-process runs at once as far as their reckoned bytes fit in 70 GB:
+    (i) SmolLM-135M at full width and depth trained over (data 2, model
+    1) at 1 x 2,047 tokens, which do not divide over the data ranks, so
+    both hold the row whole, 3 steps; (iii) Hymba-1.5B at full width on 2
+    layers trained over (data 4, model 1) at 1 x 4 tokens, blocks of one
+    position whose conv tail comes from up to 3 ranks back; each loss
+    within 1e-5 of the one-process run's; (iv) Qwen3-4B at full width and
+    depth served over (data 2, model 1) at batch 1, a 511-token prompt
+    whole on each rank written into a cache of 528 cut over the data
+    ranks, 17 new tokens, K4 launched on every rank once a layer at BH
+    32, S 511, D 128, rep 4; (v) Qwen3-4B at full width on 4 layers
+    served over (data 1, model 2) at batch 4, 16 + 16 tokens, with
+    ``REPRO_BASELINE=1`` (its 8 KV heads cut 4 a rank, the full cache
+    written in place) and without, K4 at BH 64, S 16, D 128, rep 4; each
+    served job's tokens equal to the one-process ``serve_lm``'s and every
+    call's logits within 1e-4 of max|logit|; K4 at (32, 511, 128, 4)
+    against its plain version, timed beside SDPA with its bound; ms a
+    step, collective calls, ms and bytes by axis and peak memory a rank
+    beside its reckoned bytes printed (gloo through the host on one card,
+    not scaling figures);
 14. the arch zoo, after the earlier phases' servers, graphs and weights
     are released, one arch at a time: each drawn on the card from a seeded
     CUDA generator (fp32, TF32 off) at full width, through ``serve_lm``
@@ -263,11 +286,13 @@ Phases, in order; any failure raises:
     equal to their shapes and dtypes leaf for leaf;
 15. the dry run (``repro_torch.launch.dryrun``): (i) the CLI in
     processes of its own (the fake process group is process-wide), started
-    first and read last: DeepSeek-V3-671B at full size, ``decode_32k`` and
+    before phase 13 (g) (they trace on the host beside (g) and (h), whose
+    jobs share it already) and read before the arch zoo, whose timed
+    serves keep the host to themselves: DeepSeek-V3-671B at full size, ``decode_32k`` and
     ``train_4k`` on (pod 2, data 16, model 16), each record printed (per
     rank arguments, outputs and temporary bytes, FLOPs, HBM bytes,
-    collective wire bytes by axis, K4 charges); (ii) meanwhile, on the
-    card with no process mesh, in bf16, SmolLM-135M ``train_4k`` and
+    collective wire bytes by axis, K4 charges); (ii) on the card with
+    no process mesh, in bf16, SmolLM-135M ``train_4k`` and
     Qwen3-4B ``prefill_32k`` at smoke scale 16, weights and tokens from
     the seed, each step run under the dry run's cost counter after a
     warm-up call and held against the dry run of the same cell on the 1 x
@@ -3005,7 +3030,7 @@ def specs_phase() -> dict:
 
 # (i) the CLI over the multi-pod mesh (rank 0 of 512 fake ranks), DeepSeek-V3
 # at full size, each cell a process of its own (the fake process group is
-# process-wide), run while (ii) holds the card
+# process-wide), run beside phase 13 (g) and (h)
 DRYRUN_CLI = (("deepseek-v3-671b", "decode_32k"), ("deepseek-v3-671b", "train_4k"))
 DRYRUN_CLI_TIMEOUT_S = 900
 # (ii) cells run on the card (bf16 params, no process mesh) under the dry
@@ -3032,6 +3057,14 @@ def start_dryrun_cli(tmp: str) -> list:
          "--multi-pod", "--force"], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, env=env))
         for arch, shape in DRYRUN_CLI]
+
+
+def stop_dryrun_cli(procs: list) -> None:
+    """Kill (i)'s processes that are still running."""
+    for _, _, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def finish_dryrun_cli(procs: list, tmp: str) -> list:
@@ -3145,49 +3178,41 @@ def dryrun_card_cell(arch: str, shape: str, device, k4_launches) -> dict:
             "k4_ms": None if traced is None else traced[1]}
 
 
-def dryrun_phase(device, k4_launches, card: str, tp_k4_launches: int) -> dict:
-    """(i) the DeepSeek-V3 records from the CLI on the multi-pod mesh,
-    (ii) ``DRYRUN_CARD`` held on the card against their dry runs, K4 at the
-    prefill's shape (S 2048, bf16 and fp32) and at Qwen3-4B's tensor-parallel
-    prefill shape against its plain version, timed beside SDPA; that
-    shape's count is ``tp_k4_launches``, K4's launches in phase 13 (d)'s
-    ``serve_lm(mesh=)`` run of this process."""
-    import tempfile
-
+def dryrun_phase(device, k4_launches, card: str, tp_k4_launches: int,
+                 cli: list) -> dict:
+    """(i) the DeepSeek-V3 records ``cli`` from the CLI on the multi-pod
+    mesh (``start_dryrun_cli``, read by ``finish_dryrun_cli`` before the
+    arch zoo), (ii) ``DRYRUN_CARD`` held on the card against
+    their dry runs, K4 at the prefill's shape (S 2048, bf16 and fp32) and
+    at Qwen3-4B's tensor-parallel prefill shape against its plain version,
+    timed beside SDPA; that shape's count is ``tp_k4_launches``, K4's
+    launches in phase 13 (d)'s ``serve_lm(mesh=)`` run of this process."""
     from repro_torch.configs import get_bundle
     from repro_torch.configs.shapes import SHAPES
 
     out: dict = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = start_dryrun_cli(tmp)
-        try:
-            out["cells"] = [dryrun_card_cell(arch, shape, device, k4_launches)
-                            for arch, shape in DRYRUN_CARD]
-            _empty_cache(device)
-            gen = torch.Generator(device=device).manual_seed(SEED + 26)
-            pf = next(c for c in out["cells"] if c["kind"] == "prefill")
-            cfg = get_bundle(pf["arch"]).cfg
-            b = SHAPES[pf["shape"]]["global_batch"] // DRYRUN_SMOKE
-            s = SHAPES[pf["shape"]]["seq_len"] // DRYRUN_SMOKE
-            rep = cfg.n_heads // cfg.n_kv_heads
-            out["k4"] = [
-                {"path": f"dry-run check, {pf['arch']} prefill", **flash_entry(
-                    b * cfg.n_heads, s, cfg.head_dim, rep,
-                    pf["card"]["k4_launches"], torch.bfloat16, gen, device,
-                    TOL_K4_BF16, True)},
-                {"path": f"the same shape in fp32 (the zoo's type; no path "
-                         f"launches it here)", **flash_entry(
-                    b * cfg.n_heads, s, cfg.head_dim, rep, 0, torch.float32,
-                    gen, device, TOL_K4, True)},
-                {"path": "tensor-parallel serve_lm prefill (phase 13 (d))",
-                 **flash_entry(*K4_TP_SHAPE, tp_k4_launches, torch.float32,
-                               gen, device, TOL_K4, True)}]
-            out["cli"] = finish_dryrun_cli(procs, tmp)
-        finally:
-            for _, _, proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.communicate()
+    out["cells"] = [dryrun_card_cell(arch, shape, device, k4_launches)
+                    for arch, shape in DRYRUN_CARD]
+    _empty_cache(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 26)
+    pf = next(c for c in out["cells"] if c["kind"] == "prefill")
+    cfg = get_bundle(pf["arch"]).cfg
+    b = SHAPES[pf["shape"]]["global_batch"] // DRYRUN_SMOKE
+    s = SHAPES[pf["shape"]]["seq_len"] // DRYRUN_SMOKE
+    rep = cfg.n_heads // cfg.n_kv_heads
+    out["k4"] = [
+        {"path": f"dry-run check, {pf['arch']} prefill", **flash_entry(
+            b * cfg.n_heads, s, cfg.head_dim, rep,
+            pf["card"]["k4_launches"], torch.bfloat16, gen, device,
+            TOL_K4_BF16, True)},
+        {"path": f"the same shape in fp32 (the zoo's type; no path "
+                 f"launches it here)", **flash_entry(
+            b * cfg.n_heads, s, cfg.head_dim, rep, 0, torch.float32,
+            gen, device, TOL_K4, True)},
+        {"path": "tensor-parallel serve_lm prefill (phase 13 (d))",
+         **flash_entry(*K4_TP_SHAPE, tp_k4_launches, torch.float32,
+                       gen, device, TOL_K4, True)}]
+    out["cli"] = cli
     return out
 
 
@@ -4204,7 +4229,8 @@ def print_tp_families(tf: dict, card: str) -> None:
 # sequence cut over the data ranks (sharding.hold_sequence): SmolLM-135M
 # trained over (data 2, model 1) and (data 2, model 2) at full width and
 # depth, SEQ_STEPS steps of 1 x SEQ_LEN tokens, and over (data 1, model 2)
-# with REPRO_SEQ_PARALLEL=1 and without; RWKV6-1.6B (float64, as (e)) and
+# and (data 2, model 2) with REPRO_SEQ_PARALLEL=1 and without (over data
+# 2, each data rank's block cut further over model); RWKV6-1.6B (float64, as (e)) and
 # Hymba-1.5B on TP_FAMILY_LAYERS layers at 1 x SEQ_FAMILY_LEN over (data
 # 2, model 1); each loss within TOL_DIST_LOSS of the one-process run's
 # (the flag's of the flag off's).  Qwen3-4B served at batch 1 over (data
@@ -4221,15 +4247,19 @@ SEQ_FAMILIES = ("rwkv6-1.6b", "hymba-1.5b")
 SEQ_SMOKE_LEN, SEQ_SMOKE_SERVE = 32, {"batch": 1, "prompt_len": 16, "gen": 8}
 
 
-def _seq_cases(sizes: tuple) -> list:
-    """Part (f)'s runs on a mesh of ``sizes``: ``(kind, arch, flag)``."""
-    if sizes == (2, 1):
-        return ([("train", TRAIN_ARCH, "0")]
-                + [("train", a, "0") for a in SEQ_FAMILIES]
-                + [("serve", SEQ_SERVE_ARCH, "0")])
-    if sizes == (2, 2):
-        return [("train", TRAIN_ARCH, "0")]
-    return [("train", TRAIN_ARCH, "0"), ("train", TRAIN_ARCH, "1")]
+def _seq_jobs() -> tuple:
+    """Part (f)'s rank jobs, ``(sizes, runs)``: a (data, model) mesh and
+    the ``(kind, arch, flag)`` runs its ranks make in turn.  SmolLM-135M
+    runs apart from the families on (data 2, model 1), so that no job
+    holds the others back; the serve (Qwen3-4B whole on each rank) comes
+    last, when this process's own Qwen3-4B run, its first, has ended.
+    Over (data 2, model 2) the flag cuts each data rank's block further
+    over model."""
+    both = [("train", TRAIN_ARCH, "0"), ("train", TRAIN_ARCH, "1")]
+    return (((2, 1), [("train", TRAIN_ARCH, "0")]),
+            ((2, 1), [("train", a, "0") for a in SEQ_FAMILIES]
+             + [("serve", SEQ_SERVE_ARCH, "0")]),
+            ((2, 2), both), ((1, 2), both))
 
 
 def _seq_train(arch: str, smoke: bool, device: str, mesh=None, on_step=None):
@@ -4246,21 +4276,21 @@ def _seq_train(arch: str, smoke: bool, device: str, mesh=None, on_step=None):
                  param_dtype=_train_dtype(arch))
 
 
-def dist_seq_rank(rank: int, device: str, smoke: bool, sizes: tuple) -> dict:
-    """Rank ``rank`` of (data, model) = ``sizes``: part (f)'s runs
-    (``_seq_cases``), each with ``REPRO_SEQ_PARALLEL`` set as the case
-    says: a train's losses, gradient norms, ms a step, collectives by axis
+def dist_seq_rank(rank: int, device: str, smoke: bool, job: int) -> dict:
+    """Rank ``rank`` of part (f)'s job ``job`` (``_seq_jobs``): its runs on
+    its mesh, each with ``REPRO_SEQ_PARALLEL`` set as the run says: a train's losses, gradient norms, ms a step, collectives by axis
     a step and peak memory; a serve's tokens, every call's logits (rank
     0), decode ms a step, collectives by axis and peak memory."""
     from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.launch.serve import serve_lm
 
     _no_tf32()
+    sizes, runs = _seq_jobs()[job]
     mesh = make_process_mesh(sizes, ("data", "model"), device=device)
     dev = mesh.device
     cuda = dev.type == "cuda"
     out = {"backend": mesh.backend}
-    for kind, arch, flag in _seq_cases(sizes):
+    for kind, arch, flag in runs:
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
         mesh.stats["by_axis"].clear()
@@ -4300,7 +4330,7 @@ def dist_seq_rank(rank: int, device: str, smoke: bool, sizes: tuple) -> dict:
 
 
 def seq_part(device, dev: str, smoke: bool, tmp: str) -> dict:
-    """Part (f): the runs of ``_seq_cases`` on each mesh and this
+    """Part (f): the jobs of ``_seq_jobs`` and this
     process's one-process runs, all at once, each rank's held against
     them."""
     from repro_torch.launch.mesh import run_ranks
@@ -4309,44 +4339,46 @@ def seq_part(device, dev: str, smoke: bool, tmp: str) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     def one_process() -> tuple:
+        # the serve first: its weights leave the card before the ranks'
+        rows = []
+        tokens = serve_lm(SEQ_SERVE_ARCH, device=device, seed=SEED,
+                          smoke=smoke, graphs=False,
+                          on_logits=lambda lg: rows.append(lg[:, -1].cpu()),
+                          **(SEQ_SMOKE_SERVE if smoke else SEQ_SERVE))
+        _empty_cache(device)
         one = {}
         for arch in (TRAIN_ARCH,) + SEQ_FAMILIES:
             norms = []
             one[arch] = (_seq_train(arch, smoke, device, on_step=lambda s, m,
                                     norms=norms: norms.append(
                                         float(m["grad_norm"]))), norms)
-        rows = []
-        tokens = serve_lm(SEQ_SERVE_ARCH, device=device, seed=SEED,
-                          smoke=smoke, graphs=False,
-                          on_logits=lambda lg: rows.append(lg[:, -1].cpu()),
-                          **(SEQ_SMOKE_SERVE if smoke else SEQ_SERVE))
         return one, rows, tokens
 
-    meshes = ((2, 1), (2, 2), (1, 2))
+    jobs = _seq_jobs()
     t0 = time.perf_counter()
-    # the three jobs (8 ranks on the card) and this process's one-process
-    # runs at once: each job is bound by its collectives' trips through
-    # the host, not by the card
-    with ThreadPoolExecutor(len(meshes) + 1) as pool:
-        jobs = {sizes: pool.submit(
-            run_ranks, dist_seq_rank, math.prod(sizes), dev, smoke, sizes,
+    # the jobs (10 ranks on the card) and this process's one-process runs
+    # at once: each job is bound by its collectives' trips through the
+    # host, not by the card
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:
+        futs = [pool.submit(
+            run_ranks, dist_seq_rank, math.prod(sizes), dev, smoke, i,
             device=dev, timeout_s=DIST_TIMEOUT_S,
-            store_path=os.path.join(tmp, f"store-seq-{sizes[0]}x{sizes[1]}"))
-            for sizes in meshes}
+            store_path=os.path.join(tmp, f"store-seq-{i}"))
+            for i, (sizes, _) in enumerate(jobs)]
         mine = pool.submit(one_process)
-        got = {sizes: job.result() for sizes, job in jobs.items()}
+        got = [f.result() for f in futs]
         one, rows, tokens = mine.result()
     out = {"run_ranks_s": time.perf_counter() - t0, "backend":
-           got[meshes[0]][0]["backend"], "train": [], "serve": []}
-    for sizes in meshes:
-        for kind, arch, flag in _seq_cases(sizes):
+           got[0][0]["backend"], "train": [], "serve": []}
+    for (sizes, runs), ranks in zip(jobs, got):
+        for kind, arch, flag in runs:
             key = f"{kind} {arch} flag {flag}"
-            res = [r[key] for r in got[sizes]]
+            res = [r[key] for r in ranks]
             if kind == "serve":
                 continue
             want, want_norms = one[arch]
             if flag == "1":  # held to the flag-off run on the same mesh
-                off = [r[f"train {arch} flag 0"] for r in got[sizes]]
+                off = [r[f"train {arch} flag 0"] for r in ranks]
                 want, want_norms = off[0]["losses"], off[0]["grad_norms"]
             errs = [max(abs(r["losses"][i] - b) / abs(b) for r in res)
                     for i, b in enumerate(want)]
@@ -4367,7 +4399,7 @@ def seq_part(device, dev: str, smoke: bool, tmp: str) -> dict:
                     f"{flag}): losses vs {a['against']} rel err by step {errs} "
                     f"> {TOL_DIST_LOSS} (gradient norms {norm_errs})")
             out["train"].append(a)
-    res = [r[f"serve {SEQ_SERVE_ARCH} flag 0"] for r in got[(2, 1)]]
+    res = [r[f"serve {SEQ_SERVE_ARCH} flag 0"] for r in got[1]]
     if len(res[0]["logits"]) != len(rows):
         raise AssertionError(f"{len(res[0]['logits'])} logits calls over the "
                              f"mesh, {len(rows)} in one process")
@@ -4428,8 +4460,8 @@ def print_seq_part(sq: dict, card: str, smoke: bool = False) -> None:
               + "; ".join(f"{ax} {v['calls']} calls {v['ms']:.1f} ms "
                           f"{v['bytes'] / 1e6:.1f} MB" for ax, v in coll.items())
               + f"; peak {[_gib(x) for x in a['peak_bytes']]} a rank")
-    print(f"  (f) run_ranks s (the three jobs and the one-process runs at "
-          f"once): {sq['run_ranks_s']:.1f}")
+    print(f"  (f) run_ranks s (the jobs and the one-process runs at once): "
+          f"{sq['run_ranks_s']:.1f}")
 
 
 # (g) uneven placements (ROADMAP Queue A item 3(c)4): served through
@@ -4512,13 +4544,36 @@ def _uneven_bytes(arch: str, layers, sizes: tuple, smoke: bool) -> float:
     return math.prod(sizes) * (_shard_bytes(bundle, mesh) + UNEVEN_RANK_SLACK)
 
 
+def _within(budget: float, items: list) -> tuple:
+    """Run each ``(reckoned bytes, fn)`` of ``items`` on a thread, started
+    in order as far as the running ones' bytes stay within ``budget`` (the
+    rest as others end); ``(results in order, each one's start in s)``.
+    A failure raises once the others have ended."""
+    from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
+
+    t0 = time.perf_counter()
+    got, started, pending, running = {}, {}, list(range(len(items))), {}
+    with ThreadPoolExecutor(len(items)) as pool:
+        while pending or running:
+            held = sum(items[i][0] for i in running.values())
+            while pending and (not running
+                               or held + items[pending[0]][0] <= budget):
+                i = pending.pop(0)
+                started[i] = time.perf_counter() - t0
+                running[pool.submit(items[i][1])] = i
+                held += items[i][0]
+            done, _ = wait(running, return_when=FIRST_COMPLETED)
+            for fut in done:
+                got[running.pop(fut)] = fut.result()
+    return [got[i] for i in range(len(items))], [started[i]
+                                                 for i in range(len(items))]
+
+
 def uneven_part(device, dev: str, smoke: bool, tmp: str) -> dict:
     """Part (g): the jobs of ``UNEVEN_JOBS``, started in order as far as
     their reckoned bytes fit in ``UNEVEN_BUDGET`` (the rest as jobs end),
     then this process's one-process ``serve_lm`` of each arch, each job's
     ranks held against it."""
-    from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
-
     from repro_torch.configs import get_bundle
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.launch.serve import serve_lm
@@ -4526,23 +4581,11 @@ def uneven_part(device, dev: str, smoke: bool, tmp: str) -> dict:
     jobs = UNEVEN_SMOKE_JOBS if smoke else UNEVEN_JOBS
     reckoned = [_uneven_bytes(a, l, z, smoke) for a, l, z in jobs]
     t0 = time.perf_counter()
-    got, started, pending, running = {}, {}, list(range(len(jobs))), {}
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        while pending or running:
-            held = sum(reckoned[i] for i in running.values())
-            while pending and (not running
-                               or held + reckoned[pending[0]] <= UNEVEN_BUDGET):
-                i = pending.pop(0)
-                arch, layers, sizes = jobs[i]
-                started[i] = time.perf_counter() - t0
-                running[pool.submit(
-                    run_ranks, dist_uneven_rank, math.prod(sizes), dev, smoke,
-                    arch, layers, sizes, device=dev, timeout_s=DIST_TIMEOUT_S,
-                    store_path=os.path.join(tmp, f"store-uneven-{i}"))] = i
-                held += reckoned[i]
-            done, _ = wait(running, return_when=FIRST_COMPLETED)
-            for fut in done:
-                got[running.pop(fut)] = fut.result()
+    got, started = _within(UNEVEN_BUDGET, [(reckoned[i], lambda i=i: run_ranks(
+        dist_uneven_rank, math.prod(jobs[i][2]), dev, smoke, *jobs[i],
+        device=dev, timeout_s=DIST_TIMEOUT_S,
+        store_path=os.path.join(tmp, f"store-uneven-{i}")))
+        for i in range(len(jobs))])
     out = {"run_ranks_s": time.perf_counter() - t0, "budget": UNEVEN_BUDGET,
            "jobs": []}
     one = {}
@@ -4632,13 +4675,333 @@ def print_uneven_part(ug: dict, card: str) -> None:
           f"{ug['budget'] / 1e9:.0f} GB): {ug['run_ranks_s']:.1f}")
 
 
+# (h) a held sequence's edges and REPRO_BASELINE=1's cache (ROADMAP Queue
+# A 3(c)1-2): (job, arch, layers, (data, model)).  (i) SmolLM-135M trained
+# at 1 x EDGE_WHOLE_LEN tokens, which do not divide over data 2, so the row
+# is held whole on both ranks; (iii) Hymba-1.5B on TP_FAMILY_LAYERS layers
+# at 1 x EDGE_ONE_LEN over data 4, blocks of one position whose conv tail
+# comes from up to 3 ranks back; (iv) Qwen3-4B served at batch 1, a
+# prompt of 511 whole on both data ranks written into a cache of 528 cut
+# over them; (v) Qwen3-4B on EDGE_BASE_LAYERS layers over (data 1, model
+# 2) at DIST_SERVE's batch and lengths with REPRO_BASELINE=1 (its 8 KV
+# heads cut 4 a rank) and without.  (ii), REPRO_SEQ_PARALLEL=1 on a held
+# sequence, is part (f)'s (data 2, model 2) case.  Eagerly, TF32 off; the
+# jobs and the one-process runs start at once as far as their reckoned
+# bytes fit in EDGE_BUDGET.
+EDGE_JOBS = (("i", "smollm-135m", None, (2, 1)),
+             ("iii", "hymba-1.5b", TP_FAMILY_LAYERS, (4, 1)),
+             ("iv", "qwen3-4b", None, (2, 1)),
+             ("v", "qwen3-4b", 4, (1, 2)))
+EDGE_STEPS, EDGE_WHOLE_LEN, EDGE_ONE_LEN = 3, 2047, 4
+EDGE_SERVE = {"batch": 1, "prompt_len": 511, "gen": 17}
+EDGE_BUDGET = 70e9
+# a CPU rehearsal's lengths: 31 over data 2; a prompt of 15 into a cache
+# of 24
+EDGE_SMOKE_WHOLE_LEN = 31
+EDGE_SMOKE_SERVE = {"batch": 1, "prompt_len": 15, "gen": 9}
+
+
+def _edge_train(job: str, arch: str, layers, smoke: bool, device: str,
+                mesh=None, on_step=None) -> list:
+    """``train`` at a global batch of one row, as part (h) runs it."""
+    from repro_torch.launch.train import train
+
+    seq = EDGE_ONE_LEN if job == "iii" else (
+        EDGE_SMOKE_WHOLE_LEN if smoke else EDGE_WHOLE_LEN)
+    return train(arch, steps=EDGE_STEPS, batch=1, seq=seq, smoke=smoke,
+                 device=device, seed=SEED, lr=DIST_LR, graphs=False,
+                 mesh=mesh, on_step=on_step, log_every=EDGE_STEPS,
+                 layers=layers, param_dtype=_train_dtype(arch))
+
+
+def _edge_jobs(smoke: bool) -> tuple:
+    """``EDGE_JOBS``; a CPU rehearsal's at the smoke configs' depths."""
+    return tuple((n, a, None if smoke else l, z) for n, a, l, z in EDGE_JOBS)
+
+
+def _edge_serve(job: str, smoke: bool) -> dict:
+    if job == "v":
+        return DIST_SERVE
+    return EDGE_SMOKE_SERVE if smoke else EDGE_SERVE
+
+
+def dist_edge_rank(rank: int, device: str, smoke: bool, job: tuple) -> dict:
+    """Rank ``rank`` of part (h)'s ``job``: a train's losses, gradient
+    norms, ms a step and collectives by axis a step; a serve's tokens,
+    every call's last logits (the ranks of model coordinate 0), decode ms,
+    collectives by axis and K4's launches and shapes, for job (v) with
+    ``REPRO_BASELINE=1`` and without; peak memory and the shard bytes."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels.flash_attn.kernel import launches as k4_launches
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models.registry import with_layers
+
+    _no_tf32()
+    name, arch, layers, sizes = job
+    mesh = make_process_mesh(sizes, ("data", "model"), device=device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    shapes = _tp_spy()
+    keep = mesh.coordinate["model"] == 0
+    out = {"backend": mesh.backend, "runs": {}}
+    for flag in (("1", "0") if name == "v" else ("0",)):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        mesh.stats["by_axis"].clear()
+        k4_launches.reset()
+        shapes.clear()
+        os.environ["REPRO_BASELINE"] = flag
+        try:
+            if name in ("i", "iii"):
+                stamps, coll, norms = [], [_axis_stats(mesh)], []
+
+                def on_step(step, metrics, stamps=stamps, coll=coll,
+                            norms=norms):
+                    stamps.append(time.perf_counter())
+                    coll.append(_axis_stats(mesh))
+                    norms.append(float(metrics["grad_norm"]))
+
+                t0 = time.perf_counter()
+                res = {"losses": _edge_train(name, arch, layers, smoke,
+                                             device, mesh, on_step),
+                       "grad_norms": norms,
+                       "ms_per_step": (np.diff([t0] + stamps) * 1e3).tolist(),
+                       "collectives_per_step": coll}
+            else:
+                rows, timings = [], {}
+                toks = serve_lm(arch, device=device, seed=SEED, smoke=smoke,
+                                mesh=mesh, layers=layers, graphs=False,
+                                timings=timings,
+                                on_logits=lambda lg, rows=rows: rows.append(
+                                    lg[:, -1].cpu() if keep else None),
+                                **_edge_serve(name, smoke))
+                res = {"tokens": toks, "logits": rows if keep else None,
+                       "decode_s": timings["decode_s"],
+                       "prefill_s": timings["prefill_s"],
+                       "collectives": _axis_stats(mesh)}
+        finally:
+            del os.environ["REPRO_BASELINE"]
+        res.update(k4=k4_launches.count, k4_shapes=list(shapes),
+                   peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                               if cuda else None))
+        out["runs"][flag] = res
+        _empty_cache(dev)
+    bundle = get_bundle(arch, smoke=smoke)
+    if layers is not None:
+        bundle = with_layers(bundle, layers)
+    out.update(layers=bundle.cfg.layers, shard_bytes=_shard_bytes(bundle, mesh))
+    return out
+
+
+def _rel_by_step(got: list, want: list) -> list:
+    return [abs(g - w) / abs(w) for g, w in zip(got, want)]
+
+
+def edge_part(device, dev: str, smoke: bool, tmp: str) -> dict:
+    """Part (h): the jobs of ``EDGE_JOBS`` and this process's one-process
+    runs of each, at once within ``EDGE_BUDGET``, each job held against
+    its one-process run; K4 at job (iv)'s per-rank shape against its plain
+    version, timed beside SDPA."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.serve import serve_lm
+
+    def one_process(job) -> dict:
+        name, arch, layers, _ = job
+        if name in ("i", "iii"):
+            norms = []
+            return {"losses": _edge_train(
+                name, arch, layers, smoke, device,
+                on_step=lambda s, m: norms.append(float(m["grad_norm"]))),
+                "grad_norms": norms}
+        rows = []
+        toks = serve_lm(arch, device=device, seed=SEED, smoke=smoke,
+                        layers=layers, graphs=False,
+                        on_logits=lambda lg: rows.append(lg[:, -1].cpu()),
+                        **_edge_serve(name, smoke))
+        return {"tokens": toks.cpu(), "logits": rows}
+
+    def ones():
+        out = {job[0]: one_process(job) for job in jobs}
+        _empty_cache(device)
+        return out
+
+    jobs = _edge_jobs(smoke)
+    reckoned = [_uneven_bytes(a, l, z, smoke) for _, a, l, z in jobs]
+    # the largest job first, then this process's runs (Qwen3-4B whole)
+    order = sorted(range(len(jobs)), key=lambda i: -reckoned[i])
+    items = [(reckoned[i], lambda i=i: run_ranks(
+        dist_edge_rank, math.prod(jobs[i][3]), dev, smoke, jobs[i],
+        device=dev, timeout_s=DIST_TIMEOUT_S,
+        store_path=os.path.join(tmp, f"store-edge-{jobs[i][0]}")))
+        for i in order]
+    items.insert(1, (_uneven_bytes("qwen3-4b", None, (1, 1), smoke), ones))
+    t0 = time.perf_counter()
+    res, starts = _within(EDGE_BUDGET, items)
+    one = res.pop(1)
+    start_one = starts.pop(1)
+    got = dict(zip(order, res))
+    started = dict(zip(order, starts))
+    out = {"run_ranks_s": time.perf_counter() - t0, "budget": EDGE_BUDGET,
+           "one_process_started_s": start_one, "jobs": []}
+    k4_total = 0
+    for i, (name, arch, layers, sizes) in enumerate(jobs):
+        ranks_ = got[i]
+        mesh = f"(data {sizes[0]}, model {sizes[1]})"
+        want = one[name]
+        a = {"job": name, "arch": arch, "layers": ranks_[0]["layers"],
+             "mesh": mesh, "backend": ranks_[0]["backend"],
+             "started_s": started[i], "reckoned_bytes": reckoned[i],
+             "shard_bytes": [r["shard_bytes"] for r in ranks_], "runs": {}}
+        for flag in ranks_[0]["runs"]:
+            rs = [r["runs"][flag] for r in ranks_]
+            run = {"peak_bytes": [r["peak_bytes"] for r in rs],
+                   "k4": [r["k4"] for r in rs],
+                   "k4_shapes": sorted(set(s for r in rs
+                                           for s in map(tuple, r["k4_shapes"])))}
+            what = f"{arch} job ({name}) over {mesh}" + (
+                f", REPRO_BASELINE={flag}" if name == "v" else "")
+            if name in ("i", "iii"):
+                errs = [max(e) for e in zip(*(_rel_by_step(
+                    r["losses"], want["losses"]) for r in rs))]
+                norm_errs = [max(e) for e in zip(*(_rel_by_step(
+                    r["grad_norms"], want["grad_norms"]) for r in rs))]
+                if not max(errs) <= TOL_DIST_LOSS:
+                    raise AssertionError(
+                        f"{what}: losses vs one process rel err by step "
+                        f"{errs} > {TOL_DIST_LOSS} (gradient norms "
+                        f"{norm_errs})")
+                run.update(losses=rs[0]["losses"], loss_rel_err_by_step=errs,
+                           grad_norm_rel_err_by_step=norm_errs,
+                           ms_per_step=[r["ms_per_step"] for r in rs],
+                           collectives_per_step=rs[0]["collectives_per_step"])
+            else:
+                for r, rr in enumerate(rs):
+                    if not torch.equal(torch.from_numpy(rr["tokens"]),
+                                       want["tokens"]):
+                        raise AssertionError(f"serve_lm {what}: rank {r}'s "
+                                             f"tokens differ from one "
+                                             f"process's")
+                if len(rs[0]["logits"]) != len(want["logits"]):
+                    raise AssertionError(
+                        f"{what}: {len(rs[0]['logits'])} logits calls, "
+                        f"{len(want['logits'])} in one process")
+                err = max(_max_rel(x, y) for x, y in zip(rs[0]["logits"],
+                                                         want["logits"]))
+                if not err <= TOL_TP_LOGITS:
+                    raise AssertionError(f"serve_lm {what}: logits max rel err "
+                                         f"{err:.2e} > {TOL_TP_LOGITS}")
+                lens = _edge_serve(name, smoke)
+                nh = get_bundle_cfg(arch, smoke).n_heads // sizes[1]
+                cfg = get_bundle_cfg(arch, smoke)
+                want_shape = (lens["batch"] * nh, lens["prompt_len"],
+                              cfg.head_dim, cfg.n_heads // cfg.n_kv_heads)
+                if dev != "cpu":
+                    for r, rr in enumerate(rs):
+                        if rr["k4"] != ranks_[0]["layers"] or any(
+                                tuple(sh) != want_shape
+                                for sh in rr["k4_shapes"]):
+                            raise AssertionError(
+                                f"{what} rank {r}: K4 launched {rr['k4']} "
+                                f"times at {run['k4_shapes']}, want "
+                                f"{ranks_[0]['layers']} at {want_shape}")
+                k4_total += sum(rr["k4"] for rr in rs)
+                run.update(tokens_equal=True, logits_max_rel_err=err,
+                           calls=len(want["logits"]),
+                           decode_s=[r["decode_s"] for r in rs],
+                           prefill_s=[r["prefill_s"] for r in rs],
+                           collectives=rs[0]["collectives"])
+            a["runs"][flag] = run
+        out["jobs"].append(a)
+    del one
+    _empty_cache(device)
+    out["by_path"] = {"serve_lm_edges": {"flash_attention": k4_total}}
+    # K4 at job (iv)'s per-rank shape: the whole prompt on each data rank
+    cfg = get_bundle_cfg("qwen3-4b", smoke)
+    lens = _edge_serve("iv", smoke)
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    out["k4"] = [{"path": "serve_lm at batch 1 over (data 2, model 1), the "
+                          "whole prompt on each rank (phase 13 (h) (iv)), per "
+                          "rank", **flash_entry(
+                      lens["batch"] * cfg.n_heads, lens["prompt_len"],
+                      cfg.head_dim, cfg.n_heads // cfg.n_kv_heads, cfg.layers,
+                      torch.float32, gen, device, TOL_K4, dev != "cpu")}]
+    return out
+
+
+def get_bundle_cfg(arch: str, smoke: bool):
+    from repro_torch.configs import get_bundle
+
+    return get_bundle(arch, smoke=smoke).cfg
+
+
+def print_edge_part(hh: dict, card: str) -> None:
+    """Part (h)'s lines: gloo through the host on one card, not scaling
+    figures."""
+    for a in hh["jobs"]:
+        for flag, run in a["runs"].items():
+            head = (f"  (h) ({a['job']}) {a['arch']} at full width, "
+                    f"{a['layers']} layers, over {a['mesh']} ({a['backend']} "
+                    f"through the host on one card: not a scaling figure)"
+                    + (f", REPRO_BASELINE={flag}"
+                                  if a["job"] == "v" else "")
+                    + f", eager, on {card}: ")
+            if "losses" in run:
+                c = run["collectives_per_step"]
+                n = len(c) - 1
+                per_axis = {ax: {k: (c[-1][ax][k] - c[0].get(ax, {k: 0})[k])
+                                 / n for k in ("calls", "ms", "bytes")}
+                            for ax in c[-1]}
+                med = [float(np.median(ms[1:])) for ms in run["ms_per_step"]]
+                body = (f"{EDGE_STEPS} steps, losses "
+                        f"{[round(x, 5) for x in run['losses']]}, rel err vs "
+                        f"one process {max(run['loss_rel_err_by_step']):.2e} "
+                        f"<= {TOL_DIST_LOSS}, gradient norms "
+                        f"{max(run['grad_norm_rel_err_by_step']):.2e}; ms a "
+                        f"step (median of steps 2-{EDGE_STEPS}) per rank "
+                        f"{[round(m, 1) for m in med]}; collectives a step "
+                        + "; ".join(f"{ax} {v['calls']:.0f} calls "
+                                    f"{v['ms']:.1f} ms "
+                                    f"{v['bytes'] / 1e6:.1f} MB"
+                                    for ax, v in per_axis.items()))
+            else:
+                gen = (DIST_SERVE if a["job"] == "v" else EDGE_SERVE)["gen"]
+                dec = [s / gen * 1e3 for s in run["decode_s"]]
+                coll = run["collectives"]
+                body = (f"tokens equal to one process's, {run['calls']} calls' "
+                        f"logits max rel err {run['logits_max_rel_err']:.2e} "
+                        f"<= {TOL_TP_LOGITS}; K4 launches per rank "
+                        f"{run['k4']} at (BH, S, D, rep) {run['k4_shapes']}; "
+                        f"prefill s {[round(x, 3) for x in run['prefill_s']]}"
+                        f", decode ms a step {[round(x, 1) for x in dec]}; "
+                        f"rank 0's collectives "
+                        + "; ".join(f"{ax} {v['calls']} calls {v['ms']:.1f} "
+                                    f"ms {v['bytes'] / 1e6:.1f} MB"
+                                    for ax, v in coll.items()))
+            print(head + body + f"; peak {[_gib(x) for x in run['peak_bytes']]}"
+                  f" a rank against shards of "
+                  f"{[_gib(x) for x in a['shard_bytes']]} (reckoned "
+                  f"{_gib(a['reckoned_bytes'])} for the job, started at "
+                  f"{a['started_s']:.1f} s)")
+    for e in hh["k4"]:
+        print(f"  (h) K4 {e['path']}: q {e['q']} over {e['kv'][1]} keys, "
+              f"{e['plan']['route']} route, {e['count']} launches: "
+              f"{_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, plain "
+              f"{_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])}, bound "
+              f"{e['bound_ms']:.5f} by {e['bound_by']}; rel err "
+              f"{e['max_rel_err']:.2e} <= {TOL_K4}")
+    print(f"  (h) run_ranks s (the jobs and the one-process runs at once "
+          f"within {hh['budget'] / 1e9:.0f} GB): {hh['run_ranks_s']:.1f}")
+
+
 def _max_rel(got, want) -> float:
     got = torch.as_tensor(np.asarray(got)).double()
     want = torch.as_tensor(np.asarray(want)).double()
     return float((got - want).abs().max() / want.abs().max())
 
 
-def distributed_phase(device, card: str, smoke: bool = False) -> dict:
+def distributed_phase(device, card: str, smoke: bool = False,
+                      beside=None) -> dict:
     """The process mesh on one card, as the module docstring's phase 13
     says: (a) VGG-16 through ``run_sharded`` on ``DIST_RANKS`` ranks, (b)
     SmolLM-135M trained data-parallel, (c) served data-parallel, (d)
@@ -4647,7 +5010,9 @@ def distributed_phase(device, card: str, smoke: bool = False) -> dict:
     (data 2, model 2)), each held against this process's one-process run.  Ranks are spawned by
     ``run_ranks`` (the kernels are already built here, so each rank loads
     them), joined with a timeout; any failing or hung rank raises.
-    ``smoke`` rehearses it on the CPU at the smoke sizes."""
+    ``beside``, where given, is called before part (g), to start work that
+    runs beside (g) and (h).  ``smoke`` rehearses it on the CPU at the
+    smoke sizes."""
     import tempfile
 
     from repro_torch.checkpoint import restore
@@ -4821,11 +5186,20 @@ def distributed_phase(device, card: str, smoke: bool = False) -> dict:
         out["seq"] = sq
         _empty_cache(device)
         # (g) uneven placements
+        if beside is not None:
+            beside()
         t0 = time.perf_counter()
         ug = uneven_part(device, dev, smoke, tmp)
         ug["seconds"] = time.perf_counter() - t0
         out["by_path"].update(ug.pop("by_path"))
         out["uneven"] = ug
+        _empty_cache(device)
+        # (h) a held sequence's edges and REPRO_BASELINE=1
+        t0 = time.perf_counter()
+        hh = edge_part(device, dev, smoke, tmp)
+        hh["seconds"] = time.perf_counter() - t0
+        out["by_path"].update(hh.pop("by_path"))
+        out["edges"] = hh
     return out
 
 
@@ -4973,6 +5347,10 @@ def print_distributed(d: dict, card: str) -> None:
     if "uneven" in d:
         print(f"  (g) uneven placements: {d['uneven']['seconds']:.1f} s")
         print_uneven_part(d["uneven"], card)
+    if "edges" in d:
+        print(f"  (h) a held sequence's edges and REPRO_BASELINE=1: "
+              f"{d['edges']['seconds']:.1f} s")
+        print_edge_part(d["edges"], card)
 
 
 def main() -> int:
@@ -5312,11 +5690,23 @@ def main() -> int:
               f"{sp['fsdp_data_sharded_2x16x16']} over data with FSDP")
 
     # -- the process mesh: run_sharded, data-parallel training and serving
-    # on ranks sharing this card --------------------------------------------
+    # on ranks sharing this card; the dry run's CLI traces on the host
+    # beside parts (g) and (h), whose jobs share it already, and is read
+    # before the arch zoo, whose timed serves keep the host to themselves
     t0 = time.perf_counter()
-    dist = distributed_phase(device, card)
-    dist["seconds"] = time.perf_counter() - t0
-    print(f"process-mesh phase: {dist['seconds']:.1f} s")
+    cli_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+    cli: list = []
+    try:
+        dist = distributed_phase(device, card, beside=lambda: cli.extend(
+            start_dryrun_cli(cli_dir.name)))
+        dist["seconds"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        cli_records = finish_dryrun_cli(cli, cli_dir.name)
+    finally:
+        stop_dryrun_cli(cli)
+        cli_dir.cleanup()
+    print(f"process-mesh phase: {dist['seconds']:.1f} s; the dry run's CLI "
+          f"read {time.perf_counter() - t1:.1f} s after it")
     print_distributed(dist, card)
     by_path.update(dist.pop("by_path"))
     _empty_cache(device)
@@ -5343,7 +5733,7 @@ def main() -> int:
     # the card against their dry runs -------------------------------------
     t0 = time.perf_counter()
     dr = dryrun_phase(device, k4_launches, card,
-                      by_path["serve_lm_tp"]["flash_attention"])
+                      by_path["serve_lm_tp"]["flash_attention"], cli_records)
     dr["seconds"] = time.perf_counter() - t0
     print(f"dry-run phase: {dr['seconds']:.1f} s")
     print_dryrun(dr, card)
@@ -5400,6 +5790,7 @@ def main() -> int:
     k4e["zoo"] = zk["flash_attention"] + zk["flash_attention_bf16"]
     k4e["dryrun"] = dr["k4"]
     k4e["tp_families"] = dist["tp_families"]["k4"]
+    k4e["edges"] = dist["edges"]["k4"]
     for e in (k1e, k2e, k3e, k4e):
         e["launches_by_path"] = {path: counts[e["name"]]
                                  for path, counts in by_path.items()

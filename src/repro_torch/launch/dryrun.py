@@ -45,7 +45,7 @@ import torch
 from ..configs import ARCH_IDS, get_bundle
 from ..configs.shapes import SHAPES, batch_structs
 from ..models.common import count_params, schema_shardings
-from ..sharding import NamedSharding, shard_tree, use_mesh
+from ..sharding import NamedSharding, baseline, shard_tree, use_mesh
 from ..tree import tree_map
 from . import steps as steps_mod
 from .cost_analysis import CostCounter
@@ -107,12 +107,12 @@ def train_config(bundle) -> steps_mod.TrainConfig:
     above 1e11 params, 4 above 5e9; FSDP above 5e9 (on smaller models the
     weight all-gathers cost more than they save); ``REPRO_BASELINE=1``
     turns both off."""
-    baseline = os.environ.get("REPRO_BASELINE") == "1"
+    base = baseline()
     n_params = count_params(bundle.schema)
-    micro = 1 if baseline else (8 if n_params > 1e11 else
-                                4 if n_params > 5e9 else 1)
+    micro = 1 if base else (8 if n_params > 1e11 else
+                            4 if n_params > 5e9 else 1)
     return steps_mod.TrainConfig(microbatches=micro,
-                                 fsdp=(not baseline) and n_params > 5e9)
+                                 fsdp=(not base) and n_params > 5e9)
 
 
 def _cut(tree, specs, mesh):

@@ -37,6 +37,7 @@ It runs on the card by default, through the hand-written kernels.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Callable
 
@@ -54,7 +55,8 @@ from ..runtime import StragglerModel
 from ..serving import CodedServer, ServingFrontend
 from ..sharding import (BATCH, MODEL, QUEUE_3C, NamedSharding, PartitionSpec,
                         check_data_parallel, hold_sequence, keep_vocab_cut,
-                        resolve_pspec, sequence_ranks, shard_tree, use_mesh)
+                        resolve_pspec, sequence_ranks, shard_tree, use_mesh,
+                        whole_sequence)
 from . import steps as steps_mod
 
 __all__ = ["build_cnn_server", "serve_cnn", "serve_lm", "serve", "main"]
@@ -98,10 +100,12 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
     ``tok_s`` every rank's tokens over the slowest rank's decode time.
     Rank 0 prints.  A ``batch`` of 1 over data ranks holds its sequence
     (``sharding.hold_sequence``): the transformer family prefills each
-    rank's block of the prompt (equal blocks of at least two positions)
-    into its block of the cache, and each decode step attends over the
-    ranks' blocks merged by log-sum-exp; the other families step
-    ``decode_fn`` over the whole prompt on every rank.  Over a ``model``
+    rank's block of the prompt (equal blocks of one position or more; a
+    prompt that does not divide over the ranks whole on every rank,
+    ``sharding.whole_sequence``) into its block of the cache (where the
+    cache's length divides, else the whole cache), and each decode step
+    attends over the ranks' blocks merged by log-sum-exp; the other
+    families step ``decode_fn`` over the whole prompt on every rank.  Over a ``model``
     axis of more than one rank (every family: the transformer, RWKV6,
     Hymba and Whisper) each rank draws the params a leaf at a time and
     keeps its cut (``params``, where given, are this rank's cut), its
@@ -124,12 +128,10 @@ def serve_lm(arch: str, *, batch: int, prompt_len: int, gen: int,
         dev = mesh.device
         if batch == 1 and mesh.shape.get("data", 1) > 1:
             held = ("data",)
-            cut = get_bundle(arch, smoke=smoke).prefill_cache_fn is not None
-            if cut and (prompt_len % mesh.shape["data"]
-                        or prompt_len < 2 * mesh.shape["data"]):
-                raise ValueError(f"a prompt of {prompt_len} over "
-                                 f"{mesh.shape['data']} data ranks needs "
-                                 f"equal blocks of at least 2 positions")
+            # a prompt that does not divide is whole on every rank, as the
+            # reference replicates it (the cache is cut by its own length)
+            cut = (get_bundle(arch, smoke=smoke).prefill_cache_fn is not None
+                   and prompt_len % mesh.shape["data"] == 0)
             spec = PartitionSpec(None, "data" if cut else None)
         else:
             spec = resolve_pspec((batch, prompt_len), (BATCH, None),
@@ -156,6 +158,8 @@ def _serve_lm(arch, dev, rows, *, batch, prompt_len, gen, smoke, seed,
     mesh = None if rows is None else rows.mesh
     model = 1 if mesh is None else mesh.shape.get(MODEL, 1)
     seq = sequence_ranks()  # a held sequence (batch 1 over data)
+    # the prompt cut over it, or whole on every rank
+    block = seq is not None and rows.spec[1] is not None
     cls = graph_class(graphs, dev)
     if (model > 1 or seq is not None) and cls is not None:
         raise NotImplementedError(
@@ -206,7 +210,10 @@ def _serve_lm(arch, dev, rows, *, batch, prompt_len, gen, smoke, seed,
         if prompt_len > 0:
             if bundle.prefill_cache_fn is not None:
                 prefill = steps_mod.compiled_prefill(bundle, gs)
-                tok = seen(prefill(params, cache, prompts), seq is not None)
+                with (contextlib.nullcontext() if block or seq is None
+                      else whole_sequence()):
+                    logits = prefill(params, cache, prompts)
+                tok = seen(logits, block)
             else:
                 for t in range(prompt_len):
                     tok = seen(decode(params, cache, prompts[:, t:t + 1], t))

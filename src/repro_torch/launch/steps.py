@@ -283,9 +283,13 @@ class ParallelStep:
         """The data axes that cut a batch of one row along its sequence
         (the bundle's ``batch_axes`` place a batch-1 sequence over
         ``data``), else ``()``: the axes ``hold_sequence`` names around the
-        loss."""
-        tokens = batch["tokens"]
-        if tokens.shape[0] != 1 or self.mesh.shape.get("data", 1) == 1:
+        loss.  A sequence that does not divide over them (the tokens' or a
+        prefix's positions) is held whole on every data rank, as the
+        reference's ``resolve_pspec`` replicates it."""
+        k = self.mesh.shape.get("data", 1)
+        if batch["tokens"].shape[0] != 1 or k == 1:
+            return ()
+        if any(x.ndim >= 2 and x.shape[1] % k for x in batch.values()):
             return ()
         return ("data",)
 
@@ -296,22 +300,30 @@ class ParallelStep:
         cell), its ranks hold the same rows: the loss and gradient averaged
         over every data rank are still the batch's, each block of rows
         being held by as many ranks (a MoE counts each row once:
-        ``alike_axes``).  A batch of one
-        row is cut along its sequence over ``data`` instead (tokens,
-        labels and a prefix alike, equal blocks of at least two
-        positions): each rank's loss is the mean over its block, so the
-        average over the data ranks is the sequence's mean."""
+        ``alike_axes``).  A batch of one row is cut along its sequence over
+        ``data`` instead (tokens, labels and a prefix alike, equal blocks
+        of one position or more): each rank's loss is the mean over its
+        block, so the average over the data ranks is the sequence's mean.
+        A sequence that does not divide is held whole on every data rank,
+        a row held alike.
+
+        With ``microbatches = m > 1`` the rows are the reference's
+        microbatch slices, m slices of consecutive global rows: each rank
+        takes its block of every slice, in slice order
+        (``_reference_rows``), so its i-th local slice is its block of the
+        reference's slice i.  Where a slice's rows do not cut over the
+        ranks that would cut the batch (``_whole_slices``), every rank
+        holds the batch whole, its rows alike, and the ranks share the
+        slices (``_share``)."""
         specs = batch_pspecs(self.bundle, batch, self.mesh)
         seq = self.held_sequence(batch)
+        if (batch["tokens"].shape[0] == 1 and not seq) or \
+                self._whole_slices(batch):  # the rows whole
+            specs = {k: PartitionSpec(*(None,) * batch[k].ndim)
+                     for k in specs}
         for key, spec in specs.items():
             what = f"batch leaf {key!r} {tuple(batch[key].shape)}"
             if seq:
-                k = self.mesh.group_size(seq)
-                n = batch[key].shape[1]
-                if n % k or n // k < 2:
-                    raise ValueError(f"{what}: a sequence of {n} over {k} "
-                                     f"data ranks needs equal blocks of at "
-                                     f"least 2 positions")
                 check_data_parallel(spec, None, self.mesh.shape, True, what,
                                     seq_dim=1, seq_axes=seq)
                 continue
@@ -324,8 +336,52 @@ class ParallelStep:
                                           **dict.fromkeys(alike, 1)}, True, what)
             check_data_parallel(PartitionSpec(None, *spec[1:]), None,
                                 self.mesh.shape, False, what)
+        local = self._reference_rows(batch, specs)
+        if local is not None:
+            return local
         return shard_tree(batch, tree_map(lambda sp: NamedSharding(
             self.mesh, sp), specs))
+
+    def _row_axes(self, batch: dict) -> tuple:
+        """The pod and data axes that cut the rows of ``batch`` as
+        ``batch_pspecs`` places them."""
+        spec = batch_pspecs(self.bundle, batch, self.mesh)["tokens"]
+        return spec_axes(spec[0]) if len(spec) else ()
+
+    def _whole_slices(self, batch: dict) -> bool:
+        """Whether the reference's m > 1 microbatch slices of ``batch``
+        (B / m consecutive rows each) do not cut over the ranks that cut
+        its B rows: each slice is then held whole on those ranks, as
+        ``resolve_pspec`` replicates a dimension that does not divide."""
+        m, b = self.tcfg.microbatches, batch["tokens"].shape[0]
+        if m == 1 or b % m:
+            return False
+        k = self.mesh.group_size(self._row_axes(batch))
+        return k > 1 and (b // m) % k != 0
+
+    def _reference_rows(self, batch: dict, specs: dict) -> dict | None:
+        """This rank's rows of ``batch`` as the reference's microbatch
+        slices hold them, or None where the plain cut is the same: one
+        slice, rows held whole, or rows that do not cut into m slices
+        (the reference then gives every microbatch the whole batch, and
+        ``_slices`` every one this rank's rows).  The rows viewed as (m
+        slices, k ranks, rows) give rank r ``[:, r]``: one copy of its
+        rows, as the plain cut makes."""
+        m = self.tcfg.microbatches
+        spec = specs["tokens"]
+        rows = spec_axes(spec[0]) if len(spec) else ()
+        k = self.mesh.group_size(rows)
+        if m == 1 or k == 1 or batch["tokens"].shape[0] % m:
+            return None
+        r = self.mesh.group_rank(rows)
+
+        def take(x, sp):
+            if len(sp) and sp[0] is not None:
+                return x.unflatten(0, (m, k, -1))[:, r].clone(
+                    memory_format=torch.contiguous_format).flatten(0, 1)
+            return x.clone()
+
+        return tree_map(take, batch, specs)
 
     def alike_axes(self, batch: dict) -> tuple:
         """The pod and data axes of more than one rank whose ranks hold
@@ -334,8 +390,7 @@ class ParallelStep:
         groups are those of the distinct rows."""
         if self.held_sequence(batch):
             return ()
-        spec = batch_pspecs(self.bundle, batch, self.mesh)["tokens"]
-        rows = spec_axes(spec[0]) if len(spec) else ()
+        rows = () if self._whole_slices(batch) else self._row_axes(batch)
         return tuple(a for a in BATCH if self.mesh.shape.get(a, 1) > 1
                      and a not in rows)
 

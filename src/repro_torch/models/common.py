@@ -26,15 +26,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
 from ..sharding import (NamedSharding, PartitionSpec, gather_layer,
-                        model_ranks, placement, sequence_ranks, shard_tree,
-                        use_placement, vocab_cut_kept)
+                        model_ranks, placement, shard_tree, use_placement,
+                        vocab_cut_kept)
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["ParamSpec", "MODEL_AXIS", "stack_schema", "spec_to_pspec",
            "schema_init", "schema_shapes", "schema_pspecs", "count_params",
            "schema_shardings",
            "params_from_numpy", "at_least_fp32", "embed_rows", "vocab_logits",
-           "whole_vocab", "greedy", "held_block", "prev_rows", "rms_norm",
+           "whole_vocab", "greedy", "prev_rows", "rms_norm",
            "softcap", "rope_inv_freq", "apply_rope", "make_attn_mask",
            "attention", "next_token_nll", "position_index", "checkpointed",
            "run_layer", "NEG_INF"]
@@ -324,24 +324,20 @@ def greedy(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     return -tp.all_reduce(cand, "max")
 
 
-def held_block(x: torch.Tensor):
-    """The ranks that cut a held sequence (``sharding.sequence_ranks``)
-    where ``x`` (B, T, ...) is a pass over several positions, so this
-    rank's block of them; else None (no held sequence, or a one-position
-    pass, which is whole on every rank)."""
-    return sequence_ranks() if x.shape[1] > 1 else None
-
-
 def prev_rows(seq, x: torch.Tensor, n: int, first: torch.Tensor) -> torch.Tensor:
-    """The last ``n`` rows (dimension 1) of the previous rank's block of
-    ``x`` (B, T, ...) over the ranks ``seq`` (a halo: a token shift's or a
-    causal conv's carry across a block boundary); ``first`` (B, n, ...)
-    for rank 0.  The blocks' last rows are gathered (backward, summed to
-    the rank that holds each), and every rank reads the gather, so every
-    rank's backward runs its collective."""
-    if x.shape[1] < n:
-        raise ValueError(f"a block of {x.shape[1]} positions carries {n} rows")
-    rows = seq.gather(x[:, -n:], 1)
+    """The ``n`` rows (dimension 1) before this rank's block of ``x`` (B,
+    T, ...) over the ranks ``seq`` (a halo: a token shift's or a causal
+    conv's carry across a block boundary), taken from as many earlier
+    ranks as hold them; ``first`` (B, n, ...) stands before the first
+    block.  Each block's last ``min(n, T)`` rows are gathered (backward,
+    summed to the rank that holds each), and every rank reads the gather,
+    so every rank's backward runs its collective."""
+    t = x.shape[1]
+    m = min(n, t)
+    rows = seq.gather(x[:, -m:], 1)  # block j's last m rows at j*m
+    if m == t:  # blocks no longer than the carry: the whole sequence
+        lead = torch.cat([first.to(x.dtype), rows], dim=1)
+        return lead[:, seq.rank * t:seq.rank * t + n]
     if seq.rank == 0:
         return first.to(x.dtype) + rows[:, :n] * 0.0
     return rows[:, (seq.rank - 1) * n:seq.rank * n]

@@ -64,9 +64,10 @@ import torch.nn.functional as F
 
 from ..devices import resolve_device
 from ..sharding import (BATCH, active_mesh, keep_vocab_cut,
-                        model_ranks, resolve_pspec, shard_hint, spec_axes)
+                        model_ranks, resolve_pspec, sequence_ranks, shard_hint,
+                        spec_axes)
 from ..tree import tree_map
-from .common import (ParamSpec, apply_rope, attention, embed_rows, held_block,
+from .common import (ParamSpec, apply_rope, attention, embed_rows,
                      make_attn_mask, next_token_nll, position_index, prev_rows,
                      rms_norm, rope_inv_freq, run_layer, stack_schema,
                      vocab_logits)
@@ -183,7 +184,7 @@ def _ssm_branch(w, x, cfg: HymbaConfig, conv_tail, s, decode: bool,
     else:
         uz = x @ w["w_in"]
     u, z = uz.chunk(2, dim=-1)
-    seq = None if decode else held_block(x)
+    seq = None if decode else sequence_ranks()
     if seq is not None:  # the previous block's last rows
         conv_tail = prev_rows(seq, u, cfg.conv_width - 1, conv_tail)
     u, conv_tail = _causal_conv(u, w["conv"], conv_tail)
@@ -215,7 +216,7 @@ def _scan(cfg: HymbaConfig, u, b_in, c_out, dt, a_log, s, decode: bool,
     if decode:
         y, s = linear_step(rh[:, 0], kh[:, 0], vh[:, 0], lw[:, 0], s)
         return y[:, None], s
-    seq = held_block(u)
+    seq = sequence_ranks()
     if seq is not None:  # this rank's block, from the ranks before it
         return scan_over_ranks(seq, rh, kh, vh, lw, chunk=cfg.chunk,
                                remat=remat), s
@@ -261,7 +262,7 @@ def _attn_branch(w, x, cfg: HymbaConfig, rope, pos, autograd: bool,
                       cfg.n_heads // cfg.n_kv_heads)
     else:
         q, k, v = _qkv(w, x, cfg, rope, pos)
-    seq = held_block(x)
+    seq = sequence_ranks()
     if seq is not None:
         k, v = seq.gather(k, 1), seq.gather(v, 1)
     attn = attend(q, k, v, pos, pos if seq is None else k_pos,
@@ -284,7 +285,7 @@ def forward(params, cfg: HymbaConfig, tokens: torch.Tensor, *,
     last rows, and the scan composes its state across the blocks."""
     b, s = tokens.shape
     x = embed_rows(params["embed"], tokens, cfg.vocab)
-    seq = held_block(x)
+    seq = sequence_ranks()
     # at batch 1 the sequence over data: a held sequence's block
     x = shard_hint(x, BATCH, "data" if b == 1 else None, None,
                    seq_dim=1 if seq is not None else None)
@@ -347,7 +348,7 @@ def _ssm_branch_tp(tp, w, x, cfg: HymbaConfig, conv_tail, s, decode: bool,
     di, hm, hd = cfg.d_inner, cfg.ssm_heads, cfg.head_dim
     blk = tp.block(di)
     u_in, u, z = _uz_blocks(tp, x, w["w_in"], di)
-    seq = None if decode else held_block(x)
+    seq = None if decode else sequence_ranks()
     if seq is not None:  # the previous block's last rows, every channel
         conv_tail = prev_rows(seq, u_in, cfg.conv_width - 1, conv_tail)
     u, _ = _causal_conv(u, w["conv"], conv_tail[..., blk])

@@ -55,14 +55,13 @@ every rank: no collective, computed as on one device.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from ..sharding import (BATCH, MODEL, active_mesh, batch_ranks, model_ranks,
-                        row_axes, shard_hint)
+from ..sharding import (BATCH, MODEL, active_mesh, baseline, batch_ranks,
+                        model_ranks, row_axes, shard_hint)
 from .common import ParamSpec
 
 __all__ = ["MoEConfig", "moe_schema", "moe_ffn", "moe_ffn_plain", "route",
@@ -344,7 +343,7 @@ def _moe(w: dict, x: torch.Tensor, cfg: MoEConfig, plain: bool) -> torch.Tensor:
 def moe_ffn(w: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """x: (T, d) -> (T, d), dispatched per group (``dispatch_groups``);
     under ``REPRO_BASELINE=1`` by float scatters, as the reference."""
-    return _moe(w, x, cfg, os.environ.get("REPRO_BASELINE") == "1")
+    return _moe(w, x, cfg, baseline())
 
 
 def moe_ffn_plain(w: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:

@@ -25,7 +25,7 @@ from . import rwkv6 as rwkv_mod
 from . import transformer as lm
 from . import whisper as whisper_mod
 from ..devices import resolve_device
-from ..sharding import (BATCH, batch_ranks, held_sequence,
+from ..sharding import (BATCH, baseline, batch_ranks, held_sequence,
                         model_ranks, resolve_pspec, spec_axes)
 from ..tree import tree_map
 from .common import schema_init, schema_shapes
@@ -87,18 +87,24 @@ def _kv_cache_axes(tree: dict) -> dict:
     """(L, B, S, H, hd) K/V leaves: the batch over (pod, data); heads and
     head dim over model where the KV heads divide the production model
     degree (16), else the sequence over model (over data and model at
-    batch 1).  MLA's (L, B, S, dim) latents: the sequence so.  The
-    reference's ``REPRO_BASELINE`` switch back to a head-sharded cache
-    everywhere is not ported."""
+    batch 1).  MLA's (L, B, S, dim) latents: the sequence so.  Under the
+    reference's ``REPRO_BASELINE=1`` every K/V leaf takes heads and head
+    dim over model (``resolve_pspec``: the heads where they divide, else
+    the head dim) and every latent its width, the sequence over data at
+    batch 1 (``transformer.cache_layout``)."""
+    base = baseline()
+
     def one(x):
         bat = BATCH if x.shape[1] > 1 else None
         seq = ("data", "model") if x.shape[1] == 1 else "model"
+        held = "data" if x.shape[1] == 1 else None
         if x.ndim == 5:
-            if x.shape[3] % 16 == 0:
-                return (None, bat, "data" if x.shape[1] == 1 else None,
-                        "model", "model")
+            if base or x.shape[3] % 16 == 0:
+                return (None, bat, held, "model", "model")
             return (None, bat, seq, None, None)
         if x.ndim == 4:
+            if base:
+                return (None, bat, held, "model")
             return (None, bat, seq, None)
         if x.ndim == 3:
             return (None, bat, "model")

@@ -50,11 +50,12 @@ import torch
 import torch.nn.functional as F
 
 from ..devices import resolve_device
-from ..sharding import BATCH, keep_vocab_cut, model_ranks, shard_hint
+from ..sharding import (BATCH, keep_vocab_cut, model_ranks, sequence_ranks,
+                        shard_hint)
 from ..tree import tree_map
-from .common import (ParamSpec, at_least_fp32, embed_rows, held_block,
-                     next_token_nll, prev_rows, rms_norm, run_layer,
-                     stack_schema, vocab_logits)
+from .common import (ParamSpec, at_least_fp32, embed_rows, next_token_nll,
+                     prev_rows, rms_norm, run_layer, stack_schema,
+                     vocab_logits)
 from .linear_scan import chunked_linear_attention, linear_step, scan_over_ranks
 from .transformer import row_out
 
@@ -167,7 +168,7 @@ def _heads_scan(w, cfg: RwkvConfig, r, k, v, log_w, state, u, ln_head,
     n = r.shape[-1] // hd
     rh, kh, vh, lw = (a.reshape(b, t, n, hd) for a in (r, k, v, log_w))
     u = at_least_fp32(u)
-    seq = None if decode else held_block(r)
+    seq = None if decode else sequence_ranks()
     if decode:
         y, state = linear_step(rh[:, 0], kh[:, 0], vh[:, 0], lw[:, 0], state,
                                bonus_u=u)
@@ -199,7 +200,7 @@ def _layer(w, x, cfg: RwkvConfig, xa, xf, s, decode: bool, remat: bool):
     normed inputs of the two mixes, not the residual stream.  Under a held
     sequence each mix's carry into this rank's block is the previous
     rank's last row (``prev_rows``; rank 0's the zero state's)."""
-    seq = None if decode else held_block(x)
+    seq = None if decode else sequence_ranks()
     h_in = rms_norm(x, w["ln_att"])
     if seq is not None:
         xa = prev_rows(seq, h_in, 1, xa[:, None])[:, 0]
@@ -314,8 +315,9 @@ def _run(params, cfg: RwkvConfig, tokens, state, decode: bool,
     remat)."""
     x = embed_rows(params["embed"], tokens, cfg.vocab)
     # at batch 1 the sequence over data: a held sequence's block
+    held = not decode and sequence_ranks() is not None
     x = shard_hint(x, BATCH, "data" if x.shape[0] == 1 else None, None,
-                   seq_dim=1 if held_block(x) is not None else None)
+                   seq_dim=1 if held else None)
     layers = tree_map(lambda leaf: leaf.unbind(0), params["layers"])
     new = []
     for l in range(cfg.layers):

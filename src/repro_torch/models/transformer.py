@@ -74,8 +74,9 @@ divide is held whole on every rank and written and read as on one device
 
 The sequence over the mesh.  At a batch of one under
 ``sharding.hold_sequence`` (the reference's fallback to the sequence over
-``data``) a pass over several positions holds this rank's block of them,
-at its own positions (PaliGemma's prefix and tokens each cut so): the
+``data``) a pass over the sequence holds this rank's block of it (of one
+position or more), at its own positions (PaliGemma's prefix and tokens
+each cut so): the
 attention gathers every block's K/V (MLA's latents) over the data ranks,
 the gradient reduce-scattered back, and masks by position, so it takes
 the chunked or plain route, never K4, whose mask is by index.  The cache
@@ -84,15 +85,25 @@ where the layout is ``"seq"`` and over data beside heads over ``model``
 otherwise (``_cache_seq_axes``): a prefill writes the gathered prompt's
 positions that fall in the block, a decode step's one token lands on the
 rank that owns its slot, and the step attends over the rank's block,
-merged by log-sum-exp over the ranks that cut it (``merged_decode``).
-Under ``REPRO_SEQ_PARALLEL=1`` over model ranks a pass with no cache
-holds the residual stream cut on its sequence over ``model`` between the
-stacks' entry and exit (``_layer``: Megatron's sequence parallelism).  A
-captured step over a cut cache and a held sequence's pass from a position
-other than 0 raise ``NotImplementedError`` (ROADMAP Queue A item 3(c)).
+merged by log-sum-exp over the ranks that cut it (``merged_decode``).  A
+decode step's one position is whole on every rank
+(``sharding.whole_sequence``), and so is a prompt that does not divide
+over the data ranks, which the prefill writes into the cache as its own
+length cuts it.  Under ``REPRO_SEQ_PARALLEL=1`` over model ranks a pass
+with no cache holds the residual stream cut on its sequence over
+``model`` between the stacks' entry and exit (``_layer``: Megatron's
+sequence parallelism; under a held sequence, its block of this data
+rank's block).  Under ``REPRO_BASELINE=1`` the caches are the reference's
+baseline (``cache_layout``): K/V heads over ``model``, or the head dim,
+which a decode step contracts in blocks whose partial scores are summed
+over ``model``; MLA's latent widths, gathered whole before the attention.
+A captured step over a cut cache raises ``NotImplementedError`` (ROADMAP
+Queue A item 3(c)); so does a held sequence's pass from a position other
+than 0, which no entry point of the reference runs.
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
 import math
@@ -104,9 +115,10 @@ import torch.nn.functional as F
 
 from ..devices import resolve_device
 from ..kernels.flash_attn import HEAD_DIMS, flash_attention
-from ..sharding import (BATCH, MODEL, QUEUE_3C, active_mesh, held_sequence,
-                        keep_vocab_cut, model_ranks, resolve_pspec,
-                        sequence_ranks, shard_hint, spec_axes)
+from ..sharding import (BATCH, MODEL, QUEUE_3C, active_mesh, baseline,
+                        held_sequence, keep_vocab_cut, model_ranks,
+                        resolve_pspec, sequence_ranks, shard_hint, spec_axes,
+                        whole_sequence)
 from ..tree import tree_leaves
 from ..tree import tree_map as map_params
 from .common import (NEG_INF, ParamSpec, apply_rope, attention, checkpointed,
@@ -160,9 +172,12 @@ class LMConfig:
     max_seq: int = 4096
     # the training route's attention: plain masked attention up to
     # flash_chunk positions, the chunked online-softmax scan above; with
-    # flash_block_skip the scan skips the blocks above the diagonal
+    # flash_block_skip the scan skips the blocks above the diagonal, and
+    # without it (the default under REPRO_BASELINE=1, read when the config
+    # is built, as the reference's) it visits the full rectangle, masked
     flash_chunk: int = 1024
-    flash_block_skip: bool = True
+    flash_block_skip: bool = dataclasses.field(
+        default_factory=lambda: not baseline())
     sub_quadratic: bool = False  # True only for SSM/hybrid families
 
     def __post_init__(self):
@@ -439,7 +454,18 @@ def _write(cache: dict, name: str, new: torch.Tensor,
     positions ``q_pos`` (B, S) int64 (the same in every row); returns the
     whole cache leaf."""
     leaf = cache[name]
-    return leaf.index_copy_(1, q_pos[0], new.to(leaf.dtype))
+    return leaf.index_copy_(1, q_pos[0], _fit(leaf, new).to(leaf.dtype))
+
+
+def _fit(leaf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``new``'s block of its last dimension where ``leaf`` holds this
+    rank's block of it over ``model`` (``cache_layout``'s head dim or
+    latent width), else ``new``."""
+    w = leaf.shape[-1]
+    if new.shape[-1] == w:
+        return new
+    r = model_ranks().rank
+    return new[..., r * w:(r + 1) * w]
 
 
 def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
@@ -477,10 +503,12 @@ def _gqa_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
         (k, v), k_pos, lo = _cache_pass(grp, seq, cache, ("k", "v"), (k, v),
                                         start, q_pos, k_pos)
         if lo is not None:  # this rank's block of positions, merged
-            out = merged_decode(grp, q, k, v, q_pos, lo, 1.0 / math.sqrt(hd),
-                                window, cfg.attn_softcap)
+            cut = k.shape[-1] < hd  # and this rank's block of the head dim
+            out = merged_decode(grp, q[..., tp.block(hd)] if cut else q, k, v,
+                                q_pos, lo, 1.0 / math.sqrt(hd), window,
+                                cfg.attn_softcap, width=tp if cut else None)
             return out.reshape(b, 1, h * hd) @ w["wo"]
-    elif seq is not None and s > 1:  # every rank's K/V of the sequence
+    elif seq is not None:  # every rank's K/V of the sequence
         k, v = seq.gather(k, 1), seq.gather(v, 1)
     out = _attend(q, k, v, q_pos, k_pos, cfg, window,
                   start=start if seq is None else None, autograd=autograd)
@@ -547,13 +575,14 @@ def _mla_attn(w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache=None,
     grp = lo = None
     if cache is not None:
         grp = _cache_ranks()
-        (ckv, krope), k_pos, lo = _cache_pass(grp, seq, cache, ("ckv", "krope"),
-                                              (ckv, krope), start, q_pos, k_pos)
+        (ckv, krope), k_pos, lo = _latent_pass(grp, seq, cache, (ckv, krope),
+                                               start, q_pos, k_pos)
         if lo is not None and kv_cut:  # wkv_b's columns and the positions cut
             out = _mla_decode_cut_columns(tp, grp, w, cfg, q_nope, q_rope,
-                                          cache, q_pos, lo, scale, window)
+                                          {"ckv": ckv, "krope": krope}, q_pos,
+                                          lo, scale, window)
             return _mla_out(tp, out, w["wo"], o_cut, sp)
-    elif seq is not None and s > 1:  # every rank's latents
+    elif seq is not None:  # every rank's latents
         ckv, krope = seq.gather(ckv, 1), seq.gather(krope, 1)
     sk = ckv.shape[1]
     kvx = cols(entry(ckv), w["wkv_b"], kv_cut).reshape(b, sk, h, dkv)
@@ -627,10 +656,18 @@ PRODUCTION_MODEL_DEGREE = 16
 
 
 def cache_layout(cfg: LMConfig) -> str:
-    """``"heads"`` where the cache's KV heads go over ``model`` (they divide
-    16), else ``"seq"``: the sequence over ``model`` (MLA's latents too);
-    ``registry._kv_cache_axes`` places the leaves so."""
-    if cfg.attn != "mla" and cfg.n_kv_heads % PRODUCTION_MODEL_DEGREE == 0:
+    """How ``registry._kv_cache_axes`` places the cache over ``model``:
+    ``"heads"`` where the KV heads divide 16 (the KV heads over ``model``
+    where they divide it, else the head dim where it does), else
+    ``"seq"``, the sequence over ``model`` (MLA's latents too).  Under
+    ``REPRO_BASELINE=1`` every K/V cache is ``"heads"`` and MLA's is
+    ``"width"``, each latent's width over ``model`` where it divides (the
+    reference's ``_use_ring_cache`` then False): a decode step contracts
+    a cut head dim in blocks (``merged_decode``'s ``width``) and gathers a
+    cut latent width whole (``_latent_pass``)."""
+    if cfg.attn == "mla":
+        return "width" if baseline() else "seq"
+    if baseline() or cfg.n_kv_heads % PRODUCTION_MODEL_DEGREE == 0:
         return "heads"
     return "seq"
 
@@ -665,7 +702,8 @@ def write_block(leaf: torch.Tensor, new: torch.Tensor, lo: int,
     a = max(start, lo)
     e = min(start + new.shape[1], lo + leaf.shape[1])
     if a < e:
-        leaf[:, a - lo:e - lo] = new[:, a - start:e - start].to(leaf.dtype)
+        leaf[:, a - lo:e - lo] = _fit(leaf, new[:, a - start:e - start]).to(
+            leaf.dtype)
 
 
 def _seq_cache_write(grp, cache: dict, names, news, start, held=None):
@@ -679,7 +717,7 @@ def _seq_cache_write(grp, cache: dict, names, news, start, held=None):
     if not isinstance(start, int):
         raise NotImplementedError(f"a cache cut over {grp.axes} at a tensor "
                                   f"position (a captured step); {QUEUE_3C}")
-    if held is not None and news[0].shape[1] > 1:
+    if held is not None:
         news = tuple(held.gather(t, 1) for t in news)
     for name, new in zip(names, news):
         lo = 0 if grp is None else grp.lo(cache[name].shape[1])
@@ -694,49 +732,95 @@ def _cache_pass(grp, seq, cache: dict, names, news, start, q_pos, k_pos):
     cache (``grp`` None) outside a held sequence's block (``seq``) is
     written at ``q_pos`` and read whole at ``k_pos``.  Otherwise the new
     entries are written where this rank holds them (``_seq_cache_write``,
-    gathered first over a held block): a pass over several positions
-    attends over the new entries whole; a decode step over a cache cut
-    over ``grp`` attends over this rank's block of it, from position
-    ``lo`` (merged by log-sum-exp over ``grp``; ``lo`` None elsewhere)."""
-    one = news[0].shape[1] == 1
-    if grp is None and (seq is None or one):
-        return (tuple(_write(cache, n, t, q_pos) for n, t in zip(names, news)),
-                k_pos, None)
-    *news, pos = _seq_cache_write(grp, cache, names, news, start, held=seq)
-    if grp is not None and one:
-        return (tuple(cache[n] for n in names), None,
-                grp.lo(cache[names[0]].shape[1]))
-    return tuple(news), pos, None
+    gathered first over a held block): a pass over several positions, or
+    a held block, attends over the new entries whole; a one-position pass
+    over a cache cut over ``grp`` attends over this rank's block of it,
+    from position ``lo`` (merged by log-sum-exp over ``grp``; ``lo`` None
+    elsewhere).
+
+    A leaf that holds this rank's block of its last dimension over
+    ``model`` (``cache_layout``'s head dim or latent width) is written with
+    that block of the new entries (``_fit``).  A pass from position 0 then
+    attends over the new entries whole; a one-position pass over it reads
+    this rank's block from ``lo`` (0 where the positions are whole), which
+    its caller contracts over the head dim's blocks (``merged_decode``'s
+    ``width``) or gathers (``_latent_pass``)."""
+    one = seq is None and news[0].shape[1] == 1
+    cut = any(cache[n].shape[-1] < t.shape[-1] for n, t in zip(names, news))
+    if grp is None and seq is None:
+        leaves = tuple(_write(cache, n, t, q_pos) for n, t in zip(names, news))
+        if not cut:
+            return leaves, k_pos, None
+        if not one and isinstance(start, int) and start == 0:
+            return tuple(news), q_pos, None
+        lo = 0
+    else:
+        *got, pos = _seq_cache_write(grp, cache, names, news, start, held=seq)
+        if grp is None or not one:
+            return tuple(got), pos, None
+        leaves, lo = tuple(cache[n] for n in names), grp.lo(
+            cache[names[0]].shape[1])
+    return leaves, None, lo
+
+
+def _latent_pass(grp, seq, cache: dict, news, start, q_pos, k_pos):
+    """``_cache_pass`` over MLA's latents ``("ckv", "krope")``, the leaves
+    that hold this rank's block of their width over ``model`` read whole,
+    gathered over it (the reference all-gathers them)."""
+    leaves, pos, lo = _cache_pass(grp, seq, cache, ("ckv", "krope"), news,
+                                  start, q_pos, k_pos)
+    if lo is None or all(t.shape[-1] == n.shape[-1]
+                         for t, n in zip(leaves, news)):
+        return leaves, pos, lo
+    leaves = tuple(model_ranks().mesh.all_gather(t, MODEL, dim=t.ndim - 1)
+                   if t.shape[-1] < n.shape[-1] else t
+                   for t, n in zip(leaves, news))
+    return (leaves, k_pos, None) if grp is None else (leaves, None, lo)
 
 
 def merged_decode(tp, q, kc, vc, q_pos, lo: int, scale: float, window,
-                  attn_softcap, causal: bool = True) -> torch.Tensor:
+                  attn_softcap, causal: bool = True,
+                  width=None) -> torch.Tensor:
     """One query position's attention over a sequence cut over ranks:
     ``tp`` the ranks that cut it (``sharding.ModelRanks`` over ``model``,
     or ``SequenceRanks`` over ``data`` and ``model`` at batch 1: anything
-    with ``all_reduce``); ``q`` (B, 1, H, D) every head, ``kc``/``vc`` (B,
-    Sl, Hkv, D[v]) this rank's positions ``lo..lo+Sl-1`` (causal at
-    ``q_pos``, or, without ``causal``, every position: Whisper's
-    cross-attention).  Each rank's partial softmax is merged by
-    log-sum-exp: the maximum, then the rescaled sums and outputs
-    all-reduced.  Returns (B, 1, H, Dv), the same on every rank."""
+    with ``all_reduce``; None where the positions are whole); ``q`` (B, 1,
+    H, D) every head, ``kc``/``vc`` (B, Sl, Hkv, D[v]) this rank's
+    positions ``lo..lo+Sl-1`` (causal at ``q_pos``, or, without
+    ``causal``, every position: Whisper's cross-attention).  Each rank's
+    partial softmax is merged by log-sum-exp: the maximum, then the
+    rescaled sums and outputs all-reduced.  With ``width`` (the model
+    ranks), ``q``, ``kc`` and ``vc`` are each rank's block of the head dim
+    (``cache_layout``'s baseline): the partial scores are summed over
+    them first, and the output blocks gathered, as the reference's
+    compiled decode does.  Returns (B, 1, H, Dv), the same on every
+    rank."""
     b, sq, hh, d = q.shape
     sl, hkv = kc.shape[1], kc.shape[2]
     rep = hh // hkv
     logits = torch.einsum("bqhrd,bkhd->bhrqk", q.reshape(b, sq, hkv, rep, d),
-                          kc).float() * scale
+                          kc).float()
+    if width is not None:
+        logits = width.all_reduce(logits)
+    logits = logits * scale
     if attn_softcap is not None:
         logits = softcap(logits, attn_softcap)
     if causal:
         k_pos = torch.arange(lo, lo + sl, device=q.device).expand(b, sl)
         logits = logits + make_attn_mask(q_pos, k_pos, window)[:, :, None]
-    mx = tp.all_reduce(logits.amax(dim=-1), "max")
+    mx = logits.amax(dim=-1)
+    if tp is not None:
+        mx = tp.all_reduce(mx, "max")
     p = torch.exp(logits - mx[..., None])
     acc = torch.einsum("bhrqk,bkhd->bqhrd", p.to(vc.dtype), vc).float()
-    tot = tp.all_reduce(torch.cat(
-        [acc, p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]], dim=-1))
-    out = tot[..., :-1] / tot[..., -1:]
-    return out.reshape(b, sq, hh, -1).to(q.dtype)
+    tot = torch.cat([acc, p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]],
+                    dim=-1)
+    if tp is not None:
+        tot = tp.all_reduce(tot)
+    out = (tot[..., :-1] / tot[..., -1:]).reshape(b, sq, hh, -1).to(q.dtype)
+    if width is not None:
+        out = width.mesh.all_gather(out.contiguous(), MODEL, dim=3)
+    return out
 
 
 def heads_tp(tp, x, wq, wk, wv, h: int, hkv: int, hd: int, what: str):
@@ -843,10 +927,12 @@ def _gqa_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
             return row_out(tp, out.reshape(b, 1, nq * hd), w["wo"])
         if lo is not None:  # decode: every head over this rank's positions
             qa = q if nq == h else tp.gather(q, 2)
-            out = merged_decode(grp, qa, k, v, q_pos, lo, scale, window,
-                                cfg.attn_softcap)
+            cut = k.shape[-1] < hd  # and this rank's block of the head dim
+            out = merged_decode(grp, qa[..., tp.block(hd)] if cut else qa, k,
+                                v, q_pos, lo, scale, window, cfg.attn_softcap,
+                                width=tp if cut else None)
             return row_out(tp, out.reshape(b, 1, h * hd), w["wo"])
-    elif seq is not None and s > 1:  # every rank's block of positions
+    elif seq is not None:  # every rank's block of positions
         k, v = seq.gather(k, 1), seq.gather(v, 1)
     kk, vv = kv_for(q_lo, nq, kv_lo, k, v, h // hkv)
     out = _attend(q, kk, vv, q_pos, k_pos, cfg, window,
@@ -884,12 +970,13 @@ def _mla_attn_tp(tp, w, x, cfg: LMConfig, rope, q_pos, k_pos, window, cache,
     seq = sequence_ranks()
     if cache is not None:
         grp = _cache_ranks()
-        (ckv, krope), k_pos, lo = _cache_pass(grp, seq, cache, ("ckv", "krope"),
-                                              (ckv, krope), start, q_pos, k_pos)
-        if lo is not None:
-            return _mla_decode_tp(tp, grp, w, cfg, q_nope, q_rope, cache,
-                                  q_pos, lo, scale, window)
-    elif seq is not None and s > 1:  # every rank's block of positions
+        (ckv, krope), k_pos, lo = _latent_pass(grp, seq, cache, (ckv, krope),
+                                               start, q_pos, k_pos)
+        if lo is not None:  # the leaves as the pass reads them
+            return _mla_decode_tp(tp, grp, w, cfg, q_nope, q_rope,
+                                  {"ckv": ckv, "krope": krope}, q_pos, lo,
+                                  scale, window)
+    elif seq is not None:  # every rank's block of positions
         ckv, krope = seq.gather(ckv, 1), seq.gather(krope, 1)
     ckv, krope = tp.copy(ckv), tp.copy(krope)
     sk = ckv.shape[1]
@@ -1032,18 +1119,15 @@ def _run_stacks(params, cfg: LMConfig, x, q_pos, k_pos, cache, start,
     ``REPRO_SEQ_PARALLEL=1`` over model ranks, a pass with no cache over
     several positions holds the residual stream as this rank's block of
     the sequence between the stacks' entry and exit (``_layer``) where
-    the positions divide over ``model``."""
+    the positions divide over ``model`` (under a held sequence, its block
+    of this data rank's block)."""
     rope = rope_inv_freq(cfg.rope_dim, cfg.rope_base, x.device)
     tp = model_ranks()
     # a sequence that does not divide over model stays whole, as the
     # reference's hint then replicates it
     sp = (tp is not None and cache is None and x.shape[1] > 1
           and seq_parallel() and x.shape[1] % tp.size == 0)
-    if sp:
-        if held_sequence():
-            raise NotImplementedError(
-                f"{cfg.name}: REPRO_SEQ_PARALLEL=1 on a sequence already cut "
-                f"over {held_sequence()}; {QUEUE_3C}")
+    if sp:  # under a held sequence, this rank's block of the data block
         x = tp.scatter(x, 1)
     for key, cache_key, n, moe_layer, offset in _stacks(cfg):
         x = _run_stack(key, params[key], x, cfg, rope, q_pos, k_pos,
@@ -1057,8 +1141,8 @@ def _embed(params, cfg: LMConfig, tokens):
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     # the batch over (pod, data); at batch 1 the sequence over data, which a
-    # pass over several positions of a held sequence holds as its block
-    cut = tokens.shape[1] > 1 and bool(held_sequence())
+    # pass over a held sequence holds as its block
+    cut = bool(held_sequence())
     return shard_hint(x, BATCH, "data" if x.shape[0] == 1 else None, None,
                       seq_dim=1 if cut else None)
 
@@ -1092,7 +1176,7 @@ def _pass_positions(b: int, lens, device):
     segments of ``lens`` positions: ``0..S-1`` for both, or, under a held
     sequence, this rank's block of each segment and every rank's
     (``sharding.SequenceRanks.positions``)."""
-    seq = sequence_ranks() if sum(lens) > 1 else None
+    seq = sequence_ranks()
     if seq is None:
         pos = _positions(b, 0, sum(lens), device)
         return pos, pos
@@ -1142,17 +1226,26 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
     """Stacked (L-leading) zero caches for decode, one a stack (``"dense"``,
     ``"moe"``): K/V ``(L, B, S, hkv, hd)``, or MLA's latent ``ckv (L, B, S,
     kv_lora)`` and ``krope (L, B, S, rope_dim)``.  Over model ranks, this
-    rank's cut (``cache_layout``): ``hkv`` over the ranks where they
-    divide, ``S`` where it divides; under a held sequence (batch 1), ``S``
+    rank's cut (``cache_layout``): ``"heads"``, ``hkv`` over the ranks
+    where they divide, else ``hd`` where it does; ``"width"``, each
+    latent's width where it divides; ``"seq"``, ``S`` where it divides;
+    under a held sequence (batch 1), ``S``
     also over its axes (over data and model jointly, or over data beside
     heads over model: ``_cache_seq_axes``).  What does not divide is held
     whole, as the reference replicates it.  Each leaf carries the axes
     that cut its positions as ``seq_axes``: a pass reads the cache so."""
     dev = resolve_device(device)
-    hkv = cfg.n_kv_heads
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    widths = (cfg.mla.kv_lora, cfg.mla.qk_rope_dim) if cfg.mla else ()
     tp = model_ranks()
-    if tp is not None and cache_layout(cfg) == "heads" and hkv % tp.size == 0:
-        hkv //= tp.size
+    layout = cache_layout(cfg)
+    if tp is not None and layout == "heads":
+        if hkv % tp.size == 0:
+            hkv //= tp.size
+        elif hd % tp.size == 0:
+            hd //= tp.size
+    if tp is not None and layout == "width":
+        widths = tuple(n // tp.size if n % tp.size == 0 else n for n in widths)
     axes = _cache_seq_axes(cfg, tp, max_len)
     if axes:  # this rank's block of the positions
         max_len //= active_mesh().group_size(axes)
@@ -1163,20 +1256,22 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
     out = {}
     for _, cache_key, n, _, _ in _stacks(cfg):
         if cfg.attn == "mla":
-            m = cfg.mla
-            out[cache_key] = {"ckv": zeros(n, batch, max_len, m.kv_lora),
-                              "krope": zeros(n, batch, max_len, m.qk_rope_dim)}
+            out[cache_key] = {"ckv": zeros(n, batch, max_len, widths[0]),
+                              "krope": zeros(n, batch, max_len, widths[1])}
         else:
-            shape = (n, batch, max_len, hkv, cfg.head_dim)
+            shape = (n, batch, max_len, hkv, hd)
             out[cache_key] = {"k": zeros(*shape), "v": zeros(*shape)}
     for leaf in tree_leaves(out):
         leaf.seq_axes = axes
     return out
 
 
-def _cached_pass(params, cfg: LMConfig, cache, tokens, start):
-    x = _embed(params, cfg, tokens)
-    b, s, _ = x.shape
+def _cached_pass(params, cfg: LMConfig, cache, tokens, start,
+                 decode: bool = False):
+    """A pass over ``tokens`` from ``start`` that writes ``cache``: a
+    decode step (``decode``: one position, whole on every rank of a held
+    sequence, which holds that row alike: ``sharding.whole_sequence``) or
+    a prefill (under a held sequence, this rank's block of the prompt)."""
     leaf = tree_leaves(cache)[0]
     max_len = leaf.shape[2]
     tensor_start = isinstance(start, torch.Tensor)
@@ -1193,31 +1288,36 @@ def _cached_pass(params, cfg: LMConfig, cache, tokens, start):
                 f"{cfg.name}: a captured step (a tensor position) over a "
                 f"cache cut over {grp.axes}; {QUEUE_3C}")
         max_len *= grp.size
-    seq = sequence_ranks() if s > 1 else None
-    if seq is not None and start != 0:
-        raise NotImplementedError(f"{cfg.name}: a held sequence's pass over "
-                                  f"several positions from {start}; {QUEUE_3C}")
-    n = s * (seq.size if seq is not None else 1)  # the pass's positions
-    if not tensor_start and start + n > max_len:
-        raise ValueError(f"positions {start}..{start + n - 1} exceed the "
-                         f"cache length {max_len}")
-    # int64: the first row is also the cache writes' index
-    if seq is None:
-        q_pos = _positions(b, start, s, x.device, torch.long)
-    else:  # this rank's block of the prompt
-        q_pos = _positions(b, seq.lo(s), s, x.device, torch.long)
-    # k_pos <= q_pos hides the not-yet-written cache slots
-    k_pos = _positions(b, 0, max_len, x.device)
-    # attend_route's start == 0 is a host-side fact: a tensor start says
-    # nothing there (and a decode step, Sq = 1, never takes K4); a block
-    # of the prompt from lo is no index mask either (the attention asks)
-    token = _CACHE_AXES.set(() if grp is None else grp.axes)
-    try:
-        x = _run_stacks(params, cfg, x, q_pos, k_pos, cache,
-                        None if tensor_start else start)
-    finally:
-        _CACHE_AXES.reset(token)
-    return _unembed(params, cfg, x), cache
+    with whole_sequence() if decode else contextlib.nullcontext():
+        x = _embed(params, cfg, tokens)
+        b, s, _ = x.shape
+        seq = sequence_ranks()
+        if seq is not None and start != 0:
+            raise NotImplementedError(
+                f"{cfg.name}: a held sequence's pass over several positions "
+                f"from {start}: no entry point of the reference runs one (its "
+                f"prefill starts at 0, its decode step takes one position)")
+        n = s * (seq.size if seq is not None else 1)  # the pass's positions
+        if not tensor_start and start + n > max_len:
+            raise ValueError(f"positions {start}..{start + n - 1} exceed the "
+                             f"cache length {max_len}")
+        # int64: the first row is also the cache writes' index
+        if seq is None:
+            q_pos = _positions(b, start, s, x.device, torch.long)
+        else:  # this rank's block of the prompt
+            q_pos = _positions(b, seq.lo(s), s, x.device, torch.long)
+        # k_pos <= q_pos hides the not-yet-written cache slots
+        k_pos = _positions(b, 0, max_len, x.device)
+        # attend_route's start == 0 is a host-side fact: a tensor start says
+        # nothing there (and a decode step, Sq = 1, never takes K4); a block
+        # of the prompt from lo is no index mask either (the attention asks)
+        token = _CACHE_AXES.set(() if grp is None else grp.axes)
+        try:
+            x = _run_stacks(params, cfg, x, q_pos, k_pos, cache,
+                            None if tensor_start else start)
+        finally:
+            _CACHE_AXES.reset(token)
+        return _unembed(params, cfg, x), cache
 
 
 def decode_step(params, cfg: LMConfig, cache, tokens: torch.Tensor, pos):
@@ -1227,7 +1327,8 @@ def decode_step(params, cfg: LMConfig, cache, tokens: torch.Tensor, pos):
     captured step's copied-in position).  Returns ``(logits (B, 1, V),
     cache)``, the cache written in place at ``pos``."""
     return _cached_pass(params, cfg, cache, tokens,
-                        pos if isinstance(pos, torch.Tensor) else int(pos))
+                        pos if isinstance(pos, torch.Tensor) else int(pos),
+                        decode=True)
 
 
 def prefill(params, cfg: LMConfig, cache, tokens: torch.Tensor):

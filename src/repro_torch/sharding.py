@@ -16,10 +16,11 @@ and data axes, and, with tensor parallelism, its block of one dimension
 over ``model`` where the model code holds it so (``model_dim``: the MoE
 buffer's experts, a head-cut activation).  A hint whose resolved
 placement is exactly that states what already holds and returns ``x``
-itself.  Any other placement over an axis of more than one rank (the
-sequence over ``data`` at batch 1, the reference's sequence-parallel
-residual stream over ``model``, a ``model`` placement the code does not
-hold) raises ``NotImplementedError``.  Where a dimension does not divide
+itself; so does one of a held sequence's block (``seq_dim``: the sequence
+over ``data`` at batch 1, the sequence-parallel residual stream over
+``model``).  Any other placement over an axis of more than one rank (a
+``model`` placement the code does not hold) raises
+``NotImplementedError``.  Where a dimension does not divide
 its mesh axes the reference replicates it and the model code holds it
 whole on every rank; a MoE dispatch group that covers rows of several
 data ranks gathers them (``row_axes``: the axes whose ranks hold distinct
@@ -42,13 +43,14 @@ import contextlib
 import contextvars
 import dataclasses
 import math
+import os
 
 from .tree import tree_from_items, tree_items, tree_map
 
-__all__ = ["BATCH", "MODEL", "WORKERS", "QUEUE_3C", "PartitionSpec",
+__all__ = ["BATCH", "MODEL", "WORKERS", "QUEUE_3C", "baseline", "PartitionSpec",
            "resolve_pspec", "worker_devices", "use_mesh", "active_mesh",
            "batch_ranks", "row_axes", "rows_alike", "ModelRanks",
-           "model_ranks", "hold_sequence",
+           "model_ranks", "hold_sequence", "whole_sequence",
            "held_sequence", "SequenceRanks", "sequence_ranks",
            "keep_vocab_cut", "vocab_cut_kept", "placement", "use_placement",
            "hint_pspec",
@@ -63,6 +65,15 @@ WORKERS = "workers"  # the coded cluster's n-worker axis (1-D worker mesh)
 
 # where the placements the port does not execute yet are queued
 QUEUE_3C = "ROADMAP Queue A item 3(c)"
+
+
+def baseline() -> bool:
+    """Whether ``REPRO_BASELINE=1`` asks for the reference's paper-faithful
+    baseline: head-cut caches written in place (``transformer.cache_layout``),
+    the full attention rectangle (``LMConfig.flash_block_skip``), the MoE's
+    float-scatter dispatch, and train cells without microbatches or FSDP
+    (``launch.dryrun.train_config``)."""
+    return os.environ.get("REPRO_BASELINE") == "1"
 
 
 class PartitionSpec(tuple):
@@ -162,15 +173,34 @@ _ALIKE: contextvars.ContextVar = contextvars.ContextVar(
 def hold_sequence(axes=("data",)):
     """Inside the block the batch is one row whose sequence is cut over
     ``axes`` of the active process mesh (the reference's batch-1 fallback,
-    ``shard_hint(x, BATCH, "data", None)``): a pass over several positions
-    takes this rank's block of them, equal blocks in group order; a pass
-    over one position (a decode step) is whole on every rank; a cache
-    holds this rank's block of its positions."""
+    ``shard_hint(x, BATCH, "data", None)``): a pass over the sequence
+    takes this rank's block of it, equal blocks of one position or more in
+    group order; a decode step's one position is whole on every rank
+    (``whole_sequence``); a cache holds this rank's block of its positions
+    where they divide."""
     token = _SEQUENCE.set(tuple((axes,) if isinstance(axes, str) else axes))
     try:
         yield
     finally:
         _SEQUENCE.reset(token)
+
+
+@contextlib.contextmanager
+def whole_sequence():
+    """Inside the block a pass is whole on every rank of a held sequence's
+    axes (a decode step's one position, or a prompt that does not divide
+    over them, as the reference's ``resolve_pspec`` replicates it): no
+    sequence is held, and those axes' ranks hold the same row
+    (``rows_alike``).  A cache keeps the cut it was made with."""
+    held = _SEQUENCE.get()
+    alike = _ALIKE.get()
+    tokens = (_SEQUENCE.set(()),
+              _ALIKE.set(alike + tuple(a for a in held if a not in alike)))
+    try:
+        yield
+    finally:
+        _ALIKE.reset(tokens[1])
+        _SEQUENCE.reset(tokens[0])
 
 
 def held_sequence() -> tuple[str, ...]:

@@ -197,3 +197,65 @@ def vocab_cases(rank: int, sizes: tuple, logits: np.ndarray,
         t = torch.from_numpy(ties)
         out["greedy"] = greedy(t[:, blk], vocab)
     return out
+
+
+# the held sequence's edge cases (tests/test_torch_seq_edges.py): each
+# case's arch, sequence length, meshes and runs, over 4 ranks
+EDGE_MESHES = {"data4": (4, 1), "data2-model2": (2, 2)}
+EDGE_CASES = {
+    # 15 positions divide neither 2 nor 4: the row is held whole
+    "whole": ("qwen3-4b", 15, ("data4", "data2-model2"), ("train", "serve")),
+    # 4 positions over data 4: blocks of one position
+    "one": ("qwen3-4b", 4, ("data4",), ("train", "prefill", "serve")),
+    "hymba-one": ("hymba-1.5b", 4, ("data4",), ("train", "prefill")),
+    "rwkv6-one": ("rwkv6-1.6b", 4, ("data4",), ("train", "prefill")),
+    # REPRO_SEQ_PARALLEL=1 on a sequence held over data
+    "sp": ("qwen3-4b", 16, ("data2-model2",), ("train", "train_sp")),
+}
+# served at batch 1: a prompt of 15 whole on every rank into a cache of 24
+# cut over data; a prompt of 4 in blocks of one into a cache of 8
+EDGE_SERVE = {"whole": dict(batch=1, prompt_len=15, gen=9),
+              "one": dict(batch=1, prompt_len=4, gen=4)}
+
+
+def seq_edges(rank: int, inputs: dict) -> dict:
+    """Each case of ``EDGE_CASES`` on each of its meshes: its train steps
+    through ``ParallelStep`` at a global batch of one row, ``prefill_fn``'s
+    logits of the rank's block (the blocks gathered), ``serve_lm(batch=1)``'s
+    tokens and every call's logits, and with ``REPRO_SEQ_PARALLEL=1`` its
+    train steps again."""
+    out = {}
+    for name, sizes in EDGE_MESHES.items():
+        mesh = _mesh(sizes)
+        for case, (arch, _, meshes, runs) in EDGE_CASES.items():
+            if name not in meshes:
+                continue
+            a = inputs[case]
+            bundle, dt = bundle_of(arch), dtype_of(arch)
+            batch = batch_of(a, dt)
+            res = {}
+            if "train" in runs:
+                res["train"] = train(bundle, mesh, a["params"], batch, dt)
+            if "train_sp" in runs:
+                os.environ["REPRO_SEQ_PARALLEL"] = "1"
+                try:
+                    res["train_sp"] = train(bundle, mesh, a["params"], batch,
+                                            dt)
+                finally:
+                    del os.environ["REPRO_SEQ_PARALLEL"]
+            params = shard_tree(tree_map(lambda t: t.to(dt), params_from_numpy(
+                a["params"], "cpu")), schema_shardings(bundle.schema, mesh))
+            if "prefill" in runs:
+                with use_mesh(mesh), hold_sequence("data"), torch.no_grad():
+                    logits = bundle.prefill_fn(
+                        params, {"tokens": _block(mesh, batch["tokens"])})
+                res["logits"] = mesh.all_gather(logits, "data", dim=1)
+            if "serve" in runs:
+                calls = []
+                res["served"] = serve_lm(arch, smoke=True, device="cpu",
+                                         mesh=mesh, params=params,
+                                         graphs=False, on_logits=calls.append,
+                                         **EDGE_SERVE[case])
+                res["serve_logits"] = torch.cat([c[:, -1] for c in calls])
+            out[f"{case} {name}"] = res
+    return out

@@ -13,6 +13,7 @@ it."""
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 
 import torch
@@ -234,3 +235,92 @@ def uneven_ranks(rank: int, inputs: dict, whisper_len: int) -> dict:
 def param_dtype(a: dict) -> torch.dtype:
     """A case's param dtype (and its cache's): float32 unless it says."""
     return getattr(torch, a.get("param_dtype", "float32"))
+
+
+# the microbatch cases: DeepSeek-V2's smoke MoE with one dispatch group
+# and a capacity factor that drops entries, trained MICRO_STEPS steps at
+# MICRO_BATCH x MICRO_SEQ over each mesh of MICRO_MESHES with its number
+# of microbatches (over data 4, slices of 2 rows: held whole on each rank)
+MICRO_MESHES = {"data2": ((2, 1), ("data", "model"), 2),
+                "pod2-data2": ((2, 2, 1), ("pod", "data", "model"), 2),
+                "data4-whole": ((4, 1), ("data", "model"), 4)}
+MICRO_BATCH, MICRO_SEQ, MICRO_STEPS = 8, 8, 2
+MICRO_KW = dict(warmup=1, total_steps=4)
+
+
+def micro_bundle():
+    """DeepSeek-V2's smoke config, one dispatch group, capacity factor 0.5:
+    which entries drop depends on every token of a microbatch."""
+    import dataclasses
+
+    cfg = get_bundle("deepseek-v2-236b", smoke=True).cfg
+    return make_lm_bundle(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch_groups=1, capacity_factor=0.5)))
+
+
+def microbatch_ranks(rank: int, params: dict, batches: list) -> dict:
+    """``micro_bundle`` trained ``len(batches)`` steps over each mesh of
+    ``MICRO_MESHES`` with this world size, with its microbatches, FSDP
+    on: the losses, gradient norms and the whole params after."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import init_state
+    from repro_torch.sharding import gather_tree
+
+    torch.set_num_threads(1)
+    world = torch.distributed.get_world_size()
+    bundle = micro_bundle()
+    out = {}
+    for name, (sizes, names, micro) in MICRO_MESHES.items():
+        if math.prod(sizes) != world:
+            continue
+        mesh = make_process_mesh(sizes, names, device="cpu")
+        step = steps.build_train_step(bundle, steps.TrainConfig(
+            microbatches=micro, **MICRO_KW), mesh)
+        p = shard_tree(params_from_numpy(params, "cpu"), step.param_shardings)
+        opt = init_state(p)
+        losses, norms = [], []
+        for b in batches:
+            p, opt, met = step(p, opt, {k: torch.from_numpy(v)
+                                        for k, v in b.items()})
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+        out[name] = {"losses": losses, "norms": norms,
+                     "params": gather_tree(p, step.param_shardings)}
+    return out
+
+
+# REPRO_BASELINE=1's caches over (data 1, model 2): a head dim cut
+# (SmolLM's one KV head of 16), heads cut (Qwen3-4B's 2 KV heads) and MLA's
+# latent widths cut (DeepSeek-V2's 32 and 8), served at BASELINE_SERVE
+BASELINE_ARCHS = ("smollm-135m", "qwen3-4b", "deepseek-v2-236b")
+BASELINE_SERVE = dict(batch=2, prompt_len=8, gen=8)
+
+
+def baseline_ranks(rank: int, inputs: dict) -> dict:
+    """Each arch of ``BASELINE_ARCHS`` served over (data 1, model 2) under
+    ``REPRO_BASELINE=1`` from its numpy weights: the tokens, every call's
+    logits, the local shapes of its cache's leaves and the collective
+    bytes by axis."""
+    torch.set_num_threads(1)
+    mesh = make_process_mesh((1, 2), ("data", "model"), device="cpu")
+    out = {}
+    with _env("REPRO_BASELINE", "1"):
+        for arch in BASELINE_ARCHS:
+            bundle = get_bundle(arch, smoke=True)
+            p = shard_tree(params_from_numpy(inputs[arch], "cpu"),
+                           schema_shardings(bundle.schema, mesh))
+            mesh.stats["by_axis"].clear()
+            calls = []
+            toks = serve_lm(arch, smoke=True, device="cpu", mesh=mesh,
+                            params=p, graphs=False, on_logits=calls.append,
+                            **BASELINE_SERVE)
+            with use_mesh(mesh):
+                cache = bundle.make_cache(BASELINE_SERVE["batch"], 16,
+                                          device="meta")
+            out[arch] = {"tokens": toks,
+                         "logits": torch.cat([c[:, -1] for c in calls]),
+                         "cache": {"/".join(k): tuple(t.shape)
+                                   for k, t in tree_items(cache)},
+                         "by_axis": {k: dict(v) for k, v in
+                                     mesh.stats["by_axis"].items()}}
+    return out

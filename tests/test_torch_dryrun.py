@@ -48,7 +48,7 @@ from repro.launch.hlo_analysis import analyze_hlo
 from repro.launch.mesh import make_host_mesh as ref_host_mesh
 from repro.optim import init_state as ref_init_state
 from repro_torch.configs import get_bundle
-from repro_torch.configs.shapes import SHAPES, batch_structs
+from repro_torch.configs.shapes import batch_structs
 from repro_torch.data.synthetic import DataConfig, SyntheticTokens
 from repro_torch.kernels.flash_attn.kernel import flash_cost
 from repro_torch.launch import dryrun, steps
@@ -397,15 +397,27 @@ def test_records_error_and_skipped_and_leave_no_group(tmp_path, monkeypatch):
                           smoke_scale=16)
     assert rec["status"] == "ok", rec
     assert not dist.is_initialized()
-    # a placement the port leaves refused (ROADMAP Queue A item 3(c)): the
-    # sequence-parallel stream over a batch of one, whose sequence is
-    # already held over data
-    monkeypatch.setitem(SHAPES, "train_1row", dict(kind="train",
-                                                   seq_len=4096,
-                                                   global_batch=1))
-    rec = dryrun.run_cell("smollm-135m", "train_1row", multi_pod=False)
+    # a placement the port leaves refused (ROADMAP Queue A item 3(c)): a
+    # captured decode step, whose position is a tensor, over a cache cut
+    # over model (Qwen3-4B's 8 KV heads: the sequence over model)
+    serve = steps.build_serve_step
+
+    def captured(bundle):
+        step = serve(bundle)
+
+        def run(params, cache, batch):
+            at = torch.zeros((), dtype=torch.long, device="meta")
+            return step(params, cache, {**batch, "pos": at})
+
+        return run
+
+    monkeypatch.setattr(steps, "build_serve_step", captured)
+    rec = dryrun.run_cell("qwen3-4b", "decode_32k", multi_pod=False,
+                          smoke_scale=16)
     assert rec["status"] == "error" and "3(c)" in rec["error"], rec
+    assert "captured step" in rec["error"], rec
     assert not dist.is_initialized()
+    monkeypatch.setattr(steps, "build_serve_step", serve)
     rec = dryrun.run_cell("qwen3-4b", "long_500k", multi_pod=False)
     assert rec["status"] == "skipped"
     assert rec["reason"] == _ref_skip("qwen3-4b", "long_500k")
