@@ -42,11 +42,18 @@ Phases, in order; any failure raises:
     (VGG-16 at 224x224, bucket 8), held against its plain PyTorch version
     on the same inputs and against a second launch of itself (same bits),
     timed beside its plain version, a library call and its bound, with
-    the launch plan (tile, split) K1 and K2 took at each shape;
+    the launch plan (route, tile, split) K1 and K2 took at each shape.
+    K1 is also held, against its plain version in float64, to at most
+    ``K1_FP64_RATIO`` times the error of the fp32 plain version (its
+    tensor-core route computes fp32 products as three TF32 ones), is timed
+    on its other route's design plan too, and carries both bounds (fp32
+    FMA at 67 TFLOP/s, 3xTF32 at 495/3); ``nvidia-smi``'s SM clock and
+    power are sampled while K1 is timed, and printed;
  5. serving phase: ``CodedServer`` serving 16 VGG-16 224x224 requests on
     n=8 coded workers (2 stragglers at +50 ms, 1 dead worker, fused
     transitions, pipeline depth 2), every result held against the uncoded
-    stack; the kernels' launch counts are read around this phase only;
+    stack; the kernels' launch counts are read around this phase only
+    (K1's also by route, each of which must launch);
  6. LM kernel phase: SmolLM-135M at full width and depth (random weights
     from the seed) compiled into a ``CodedDecoderPipeline`` on n=4 workers
     (k_a=1, k_b=4: delta=2, gamma=2); K2 at the worker GEMM shapes, K3 at
@@ -351,6 +358,7 @@ fit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -373,6 +381,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 # type and its bytes over the bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 ARCH, HW, N_WORKERS, KAB, BUCKET = "vgg16", 224, 8, (2, 4), 8
@@ -382,6 +391,11 @@ N_REQUESTS, STRAGGLER_DELAY_S, SEED = 16, 0.05, 0
 # max|kernel - plain| relative to max|plain|, far above fp32 rounding at
 # those depths and far below any indexing or masking fault.
 TOL_K1, TOL_K2 = 1e-4, 1e-5
+# K1's tensor-core route computes fp32 products as three TF32 ones
+# (3xTF32); its error against the same function in float64 is held to at
+# most this many times the fp32 plain version's (cuBLAS, TF32 off), so it
+# keeps the fp32 path's precision and not only TOL_K1.
+K1_FP64_RATIO = 4.0
 # Served outputs against the uncoded stack, relative to max|uncoded|: the
 # reference's own tests use 1e-4 for two small layers.  At 224 the 13
 # layers of fp32 sums (K up to 4608), each decode multiplying rounding
@@ -520,6 +534,67 @@ ZOO_PERTURB, ZOO_RWKV_CUT = 1e-6, 2
 # had 96 steps to decay; the earlier positions' gap is printed, not held.
 ZOO_HYMBA_WINDOW, ZOO_HYMBA_FROM = 4, 96
 TOL_MOE_PLAIN, TOL_MOE_FP64, MOE_SAMPLED = 1e-5, 1e-4, 16
+
+
+class ClockSampler:
+    """``nvidia-smi``'s SM clock, its maximum, the power draw and the
+    power limit, sampled in a thread every ``period_s`` while the ``with``
+    block runs (the card the timings beside it ran on)."""
+
+    QUERY = "clocks.sm,clocks.max.sm,power.draw,power.limit"
+
+    def __init__(self, period_s: float = 0.25):
+        import threading
+
+        self.period_s = period_s
+        self.rows: list[tuple[float, ...]] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self) -> None:
+        try:
+            out = subprocess.run(
+                ["nvidia-smi", f"--query-gpu={self.QUERY}",
+                 "--format=csv,noheader,nounits", "--id=0"],
+                capture_output=True, text=True, timeout=10).stdout
+            self.rows.append(tuple(float(v) for v in out.split(",")))
+        except (OSError, ValueError, subprocess.SubprocessError):
+            pass  # a failed read is a missing sample, counted in summary()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self._sample()
+            self._stop.wait(self.period_s)
+
+    def __enter__(self) -> "ClockSampler":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+
+    def summary(self) -> dict:
+        """Min, median and max of each quantity over the samples."""
+        def stats(col):
+            vals = sorted(r[col] for r in self.rows)
+            return {"min": vals[0], "median": float(np.median(vals)),
+                    "max": vals[-1]} if vals else None
+
+        return {"samples": len(self.rows), "sm_mhz": stats(0),
+                "max_sm_mhz": stats(1), "power_w": stats(2),
+                "power_limit_w": stats(3)}
+
+
+def clock_line(name: str, clk: dict) -> str:
+    if not clk["samples"]:
+        return f"SM clock during {name}: no nvidia-smi sample"
+    sm, mx, pw = clk["sm_mhz"], clk["max_sm_mhz"], clk["power_w"]
+    return (f"SM clock during {name}: {clk['samples']} samples, "
+            f"{sm['min']:.0f} / {sm['median']:.0f} / {sm['max']:.0f} MHz "
+            f"(min / median / max; max SM clock {mx['max']:.0f} MHz), power "
+            f"{pw['min']:.1f} / {pw['median']:.1f} / {pw['max']:.1f} W of "
+            f"{clk['power_limit_w']['max']:.2f} W")
 
 
 def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
@@ -705,56 +780,93 @@ def _summarise(entries: list[dict]) -> dict:
     }
 
 
+def k1_bounds(m: int, n: int, kk: int, nbytes: float) -> dict:
+    """K1's two bounds: fp32 FMA outside the tensor cores, and three TF32
+    products a multiply-add on them (the tensor-core route's arithmetic)."""
+    ffma, ffma_by = bound_ms(2.0 * m * n * kk, nbytes)
+    tf32, tf32_by = bound_ms(3 * 2.0 * m * n * kk, nbytes, PEAK_TF32_FLOPS)
+    return {"ffma_ms": ffma, "ffma_by": ffma_by, "tf32x3_ms": tf32,
+            "tf32x3_by": tf32_by}
+
+
+def k1_entry(xs, ks, stride, gen, device, timed: bool) -> dict:
+    """K1 at one worker shape: within ``TOL_K1`` of its plain version, its
+    error against the float64 plain version at most ``K1_FP64_RATIO``
+    times the fp32 plain version's, the same bits from a second launch;
+    timed (the plan's route, the other route's design plan, the plain
+    version and cuDNN) where ``timed``."""
+    from repro_torch.kernels.conv2d.kernel import (choose_worker_plan,
+                                                   coded_worker,
+                                                   coded_worker_plain,
+                                                   launch_worker, route_plan)
+
+    xe = torch.randn(xs, generator=gen, device=device)
+    ke = torch.randn(ks, generator=gen, device=device) / np.sqrt(np.prod(ks[2:]))
+
+    def run():
+        return coded_worker(xe, ke, stride)
+
+    got, ref = run(), coded_worker_plain(xe, ke, stride)
+    abs_err, rel_err = _err(got, ref)
+    if not rel_err <= TOL_K1:
+        raise AssertionError(f"K1 {xs} x {ks}: rel err {rel_err} > {TOL_K1}")
+    ref64 = coded_worker_plain(xe.double(), ke.double(), stride)
+    err64 = _err(got.double(), ref64)[1]
+    plain_err64 = _err(ref.double(), ref64)[1]
+    del ref64
+    if not err64 <= K1_FP64_RATIO * plain_err64:
+        raise AssertionError(
+            f"K1 {xs} x {ks}: rel err {err64:.3e} against float64 > "
+            f"{K1_FP64_RATIO} x the fp32 plain version's {plain_err64:.3e}")
+    check_repeatable(f"K1 {xs} x {ks}", run, got)
+    ea, b, c, hh, wp = xs
+    eb, nb, _, kh, kw = ks
+    m = ea * b * got.shape[-2] * got.shape[-1]
+    kk, n = c * kh * kw, eb * nb
+    bounds = k1_bounds(m, n, kk, 4.0 * (xe.numel() + ke.numel() + got.numel()))
+    plan = choose_worker_plan(xs, ks, stride, device)
+    e = {"xe": list(xs), "ke": list(ks), "stride": stride, "count": 1,
+         "gemm_mnk": [m, n, kk], "route": plan.route, "plan": plan._asdict(),
+         "max_abs_err": abs_err, "max_rel_err": rel_err,
+         "rel_err_fp64": err64, "plain_rel_err_fp64": plain_err64,
+         "bound_ms": bounds["tf32x3_ms"], "bound_by": bounds["tf32x3_by"],
+         "bounds": bounds, "ms": None, "device_ms": None, "plain_ms": None,
+         "library_ms": None, "library_device_ms": None}
+    if timed:
+        xin = xe.reshape(ea * b, c, hh, wp)
+        wcat = ke.reshape(eb * nb, c, kh, kw)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            e.update(timings(run, lambda: coded_worker_plain(xe, ke, stride),
+                             lambda: F.conv2d(xin, wcat, stride=stride)))
+            lib = F.conv2d(xin, wcat, stride=stride)
+        # the library call sums in its own order: a second, independent
+        # check of the kernel (same layout after the reference permute)
+        lib = lib.reshape(ea, b, eb, nb, *lib.shape[-2:]).transpose(1, 2)
+        e["library_rel_err"] = _err(got, lib.reshape(got.shape))[1]
+        other = route_plan("ffma" if plan.route == "tc" else "tc", m, n, kk)
+        e["other_route"] = {"plan": other._asdict(), "device_ms": device_ms(
+            lambda: launch_worker(other, xe, ke, stride))}
+    return e
+
+
 def kernel_phase(pipe, bucket: int, device, timed: bool = True) -> list[dict]:
     """Each kernel at each of its serving shapes against its plain version
     (and, timed, beside one library call that computes the same
     function).  Raises when a kernel disagrees beyond its tolerance."""
-    from repro_torch.kernels.conv2d.kernel import (coded_worker,
-                                                   coded_worker_plain,
-                                                   worker_plan)
     from repro_torch.kernels.matmul.kernel import matmul, matmul_plain, matmul_plan
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     k1, k2 = [], []
     seen: dict = {}
-    for xs, ks, stride in worker_shapes(pipe, bucket):
-        if (xs, ks, stride) in seen:
-            seen[(xs, ks, stride)]["count"] += 1
-            continue
-        xe = torch.randn(xs, generator=gen, device=device)
-        ke = torch.randn(ks, generator=gen, device=device) / np.sqrt(np.prod(ks[2:]))
-        def run():
-            return coded_worker(xe, ke, stride)
-
-        got, ref = run(), coded_worker_plain(xe, ke, stride)
-        abs_err, rel_err = _err(got, ref)
-        if not rel_err <= TOL_K1:
-            raise AssertionError(f"K1 {xs} x {ks}: rel err {rel_err} > {TOL_K1}")
-        check_repeatable(f"K1 {xs} x {ks}", run, got)
-        ea, b, c, hh, wp = xs
-        eb, nb, _, kh, kw = ks
-        m = ea * b * got.shape[-2] * got.shape[-1]
-        kk, n = c * kh * kw, eb * nb
-        bnd, by = bound_ms(2.0 * m * n * kk, 4.0 * (xe.numel() + ke.numel() + got.numel()))
-        e = {"xe": list(xs), "ke": list(ks), "stride": stride, "count": 1,
-             "gemm_mnk": [m, n, kk], "plan": worker_plan(m, n, kk)._asdict(),
-             "max_abs_err": abs_err, "max_rel_err": rel_err, "bound_ms": bnd,
-             "bound_by": by, "ms": None, "device_ms": None, "plain_ms": None,
-             "library_ms": None, "library_device_ms": None}
-        if timed:
-            xin = xe.reshape(ea * b, c, hh, wp)
-            wcat = ke.reshape(eb * nb, c, kh, kw)
-            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-                e.update(timings(run, lambda: coded_worker_plain(xe, ke, stride),
-                                 lambda: F.conv2d(xin, wcat, stride=stride)))
-                lib = F.conv2d(xin, wcat, stride=stride)
-            # the library call sums in its own order: a second, independent
-            # check of the kernel (same layout after the reference permute)
-            lib = lib.reshape(ea, b, eb, nb, *lib.shape[-2:]).transpose(1, 2)
-            e["library_rel_err"] = _err(got, lib.reshape(got.shape))[1]
-        seen[(xs, ks, stride)] = e
-        k1.append(e)
-        del xe, ke, got, ref
+    clock = ClockSampler()
+    with clock if timed else contextlib.nullcontext():
+        for xs, ks, stride in worker_shapes(pipe, bucket):
+            if (xs, ks, stride) in seen:
+                seen[(xs, ks, stride)]["count"] += 1
+                continue
+            e = k1_entry(xs, ks, stride, gen, device, timed)
+            seen[(xs, ks, stride)] = e
+            k1.append(e)
     seen = {}
     for a_s, b_s, relu in transition_shapes(pipe, bucket):
         if (a_s, b_s, relu) in seen:
@@ -785,6 +897,19 @@ def kernel_phase(pipe, bucket: int, device, timed: bool = True) -> list[dict]:
         seen[(a_s, b_s, relu)] = e
         k2.append(e)
         del a, b, got, ref
+    k1_extra = {
+        "routes": {r: sum(e["count"] for e in k1 if e["route"] == r)
+                   for r in sorted({e["route"] for e in k1})},
+        "bounds": {key: sum(e["bounds"][key] * e["count"] for e in k1)
+                   for key in ("ffma_ms", "tf32x3_ms")},
+        "rel_err_fp64": max(e["rel_err_fp64"] for e in k1),
+        "fp64_ratio": max(e["rel_err_fp64"] / max(e["plain_rel_err_fp64"], 1e-30)
+                          for e in k1),
+        "fp64_ratio_limit": K1_FP64_RATIO}
+    if timed:
+        k1_extra["other_route_device_ms"] = sum(
+            e["other_route"]["device_ms"] * e["count"] for e in k1)
+        k1_extra["sm_clock"] = clock.summary()
     return [
         {"name": "coded_worker", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/coded_worker.cu",
@@ -792,7 +917,7 @@ def kernel_phase(pipe, bucket: int, device, timed: bool = True) -> list[dict]:
          "tpu_kernel": "coded_worker_pallas / _fused_worker_gemm "
                        "(src/repro/kernels/conv2d/kernel.py:190)",
          "tol": TOL_K1, "library": "F.conv2d (cuDNN, TF32 off)",
-         "shapes": k1, **(_summarise(k1) if timed else {})},
+         "shapes": k1, **k1_extra, **(_summarise(k1) if timed else {})},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul/kernel.py:111",
@@ -5360,6 +5485,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels.coded_gemm.kernel import launches as k3_launches
     from repro_torch.kernels.conv2d.kernel import launches as k1_launches
+    from repro_torch.kernels.conv2d.kernel import route_launches as k1_routes
     from repro_torch.kernels.flash_attn.kernel import launches as k4_launches
     from repro_torch.kernels.matmul.kernel import launches as k2_launches
     from repro_torch.kernels.native import build_library, load_library
@@ -5412,12 +5538,22 @@ def main() -> int:
               f"{k['tol']} vs plain, {k['library_rel_err']:.2e} vs library")
         for e in k["shapes"]:
             print(f"    {json.dumps(e)}")
+    k1k = kernels[0]
+    print(f"  coded_worker routes {k1k['routes']}; bounds a pass: FFMA "
+          f"{k1k['bounds']['ffma_ms']:.4f} ms, 3xTF32 "
+          f"{k1k['bounds']['tf32x3_ms']:.4f} ms; the other route's design "
+          f"plans {k1k['other_route_device_ms']:.4f} device ms; against "
+          f"float64 max rel err {k1k['rel_err_fp64']:.3e}, at most "
+          f"{k1k['fp64_ratio']:.3f} x the fp32 plain version's (limit "
+          f"{K1_FP64_RATIO})")
+    print("  " + clock_line("K1's timing", k1k["sm_clock"]))
 
     xs = np.random.default_rng(SEED).standard_normal(
         (N_REQUESTS,) + pipe.input_shape).astype(np.float32)
     t0 = time.perf_counter()
     outs, stats, launches, graphs_t = serving_phase(server, xs,
-                                                    (k1_launches, k2_launches))
+                                                    (k1_launches, k2_launches,
+                                                     *k1_routes.values()))
     print(f"serving phase: {time.perf_counter() - t0:.1f} s (warmup included)")
     check_launched_shapes(pipe, BUCKET)
     for name, count in launches.items():
@@ -5449,7 +5585,7 @@ def main() -> int:
     server_d, _ = build_server(device, HW, pool="device")
     t0 = time.perf_counter()
     outs_d, stats_d, launches_d, graphs_d = serving_phase(
-        server_d, xs, (k1_launches, k2_launches))
+        server_d, xs, (k1_launches, k2_launches, *k1_routes.values()))
     print(f"device-pool serving phase: {time.perf_counter() - t0:.1f} s "
           f"(warmup included)")
     for name, count in launches_d.items():

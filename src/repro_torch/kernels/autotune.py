@@ -3,7 +3,8 @@
 
 The coded hot path runs two kernels whose best launch depends on the
 (geometry, batch-bucket) cell: K1, the worker's implicit-GEMM convolution
-(``conv2d.coded_worker``: its N-tile and K split, a ``WorkerPlan``), and
+(``conv2d.coded_worker``: its route, tensor-core or FFMA kernel, N-tile
+and K split, a ``WorkerPlan``), and
 K2, the transition GEMMs (``matmul.matmul``: the column kernel or the
 split kernel with 1-8 K slices, a ``MatmulPlan``).  Their heuristics
 (``worker_plan``, ``matmul_plan``) pick from the shape alone.  This module
@@ -174,8 +175,11 @@ def matmul_params(m: int, k: int, n: int, *, relu: bool = False,
 
 def worker_params(xe_shape: tuple, ke_shape: tuple, stride: int, *,
                   device=None) -> dict | None:
-    """The recorded K1 plan (``{"bn": ..., "splits": ...}``) for this
-    worker cell, or None."""
+    """The recorded K1 plan (``{"route": ..., "bn": ..., "splits": ...}``)
+    for this worker cell, or None.  An entry recorded before K1 had
+    routes (``{"bn", "splits"}``) is handed on, and ``worker_plan_of``
+    refuses it: a cell is swept again, never launched on a plan made for
+    the other kernel."""
     return _lookup(worker_key(xe_shape, ke_shape, stride, device=device))
 
 
@@ -191,17 +195,20 @@ def _unique(plans: list[dict]) -> list[dict]:
 def worker_candidates(xe_shape: tuple, ke_shape: tuple,
                       stride: int) -> list[dict]:
     """K1's candidates for a worker cell: the heuristic's plan first, then
-    every N-tile (32, 64, 128) with every K split of ``SPLIT_CHOICES`` that
-    leaves each slice at least ``MIN_SPLIT_CHUNKS`` 16-deep stages."""
+    on each route every N-tile (32, 64, 128) with every K split of
+    ``SPLIT_CHOICES`` that leaves each slice at least the route's
+    ``MIN_SPLIT_CHUNKS`` stages (``{"route", "bn", "splits"}``)."""
     from .conv2d import kernel as k1
 
     m, n, k = k1.gemm_shape(xe_shape, ke_shape, stride)
-    chunks = -(-k // k1.TILE_K)
-    h = k1.worker_plan(m, n, k)
-    cands = [{"bn": h.bn, "splits": h.splits}]
-    cands += [{"bn": bn, "splits": s} for bn in k1.BN_CHOICES
-              for s in k1.SPLIT_CHOICES
-              if s == 1 or chunks >= s * k1.MIN_SPLIT_CHUNKS]
+    cands = [k1.plan_params(k1.worker_plan(m, n, k))]
+    for route in k1.ROUTES:
+        if route == "ffma" and k > k1.MAX_K:
+            continue
+        chunks = -(-k // k1.TILE_K[route])
+        cands += [{"route": route, "bn": bn, "splits": s}
+                  for bn in k1.BN_CHOICES for s in k1.SPLIT_CHOICES
+                  if s == 1 or chunks >= s * k1.MIN_SPLIT_CHUNKS[route]]
     return _unique(cands)
 
 
@@ -293,20 +300,26 @@ def tune_worker(xe_shape: tuple, ke_shape: tuple, stride: int, *,
 
     ``xe_shape``: one worker's coded input shares ``(ell_a, [B,] C, h_hat,
     Wp)``; ``ke_shape``: its filter groups ``(ell_b, N/k_b, C, KH, KW)``.
-    Raises without a card.
+    A recorded cell returns at once unless ``force``, or unless its entry
+    names a plan K1 refuses (``worker_plan_of``: one recorded before K1
+    had routes), which is swept again.  Raises without a card.
     """
     dev = _card(device)
     key = worker_key(xe_shape, ke_shape, stride, device=dev)
+    from .conv2d import kernel as k1
+
+    m, n, k = k1.gemm_shape(xe_shape, ke_shape, stride)
     if not force:
         hit = _lookup(key, path)
         if hit is not None:
-            return hit
-    from .conv2d import kernel as k1
-
+            try:
+                k1.worker_plan_of(hit, m, n, k)
+                return hit
+            except ValueError:
+                pass  # a plan K1 no longer takes (one without a route): sweep
     gen = torch.Generator(device=dev).manual_seed(0)
     xe = torch.randn(tuple(xe_shape), generator=gen, device=dev)
     ke = torch.randn(tuple(ke_shape), generator=gen, device=dev)
-    m, n, k = k1.gemm_shape(xe_shape, ke_shape, stride)
     return _sweep(
         key, list(candidates or worker_candidates(xe_shape, ke_shape, stride)),
         lambda c: k1.launch_worker(k1.worker_plan_of(c, m, n, k), xe, ke,

@@ -6,10 +6,16 @@ Counterpart of the TPU kernel ``coded_worker_pallas``
 shares (times the request batch) ride the GEMM's M dimension and the
 ``ell_b`` coded filter groups its N dimension, so one launch computes the
 paper's ``ell_a * ell_b`` pairwise convolutions of one worker.
-``coded_worker`` launches the CUDA kernel for CUDA tensors and runs
-``coded_worker_plain`` only for tensors that lie on the CPU.
-``worker_plan`` chooses the kernel's N-tile and K split per layer, unless
+``coded_worker`` launches a CUDA kernel for CUDA tensors and runs
+``coded_worker_plain`` only for tensors that lie on the CPU.  The source
+holds two kernels: the tensor-core kernel (route ``"tc"``: 3xTF32 on
+``wgmma``, each fp32 operand split into a TF32 high and low part) and the
+FFMA kernel (route ``"ffma"``: IEEE fp32 outside the tensor cores).
+``worker_plan`` chooses the route, N-tile and K split per layer, unless
 the autotune ledger holds a plan for the cell (``choose_worker_plan``).
+``split_tf32`` and ``coded_worker_3xtf32_plain`` are the tensor-core
+kernel's arithmetic in torch ops, for holding its precision on the CPU;
+no path of the port runs them.
 """
 from __future__ import annotations
 
@@ -23,25 +29,38 @@ from ..native import NUM_SMS, LaunchCounter, launch_on, load_library
 
 __all__ = ["coded_worker", "coded_worker_plain", "worker_plan", "WorkerPlan",
            "gemm_shape", "worker_plan_of", "choose_worker_plan",
-           "launch_worker", "launches"]
+           "launch_worker", "launches", "split_tf32",
+           "coded_worker_3xtf32_plain", "ROUTES", "plan_params",
+           "route_plan", "route_launches"]
 
 launches = LaunchCounter("coded_worker")
 
-TILE_M = 128  # output rows (pixels) a block owns
-TILE_K = 16  # depth of one copy stage
-MAX_K = 16384  # the kernel's k -> offset table
-MIN_SPLIT_CHUNKS = 8  # stages a K slice keeps at least
+TILE_M = 128  # output rows (pixels) a block owns, both routes
+ROUTES = ("tc", "ffma")  # the tensor-core kernel, the FFMA kernel
+# each route's kernel launches; together they are ``launches``
+route_launches = {r: LaunchCounter(f"coded_worker.{r}") for r in ROUTES}
+# depth of one copy stage; the fewest stages a K slice keeps
+TILE_K = {"tc": 32, "ffma": 16}
+MIN_SPLIT_CHUNKS = {"tc": 4, "ffma": 8}
+MAX_K = 16384  # the FFMA kernel's k -> offset table
 SPLIT_CHOICES = (1, 2, 4, 8)  # K slices per tile: one thread-block cluster
-BN_CHOICES = (32, 64, 128)  # the kernel's N-tiles
+BN_CHOICES = (32, 64, 128)  # the N-tiles, both routes
+# blocks of the tensor-core kernel an SM holds, by N-tile (its shared
+# memory: four stages of patches and filter halves)
+TC_BLOCKS_PER_SM = {32: 2, 64: 1, 128: 1}
 _MAX_COL_BLOCKS = 65535  # grid.y limit
+_TF32_DROP = 0x1FFF  # the 13 low mantissa bits TF32 does not keep
+_TF32_MAX_BITS = 0x7F7FE000  # the largest finite TF32 value
 
 
 class WorkerPlan(NamedTuple):
     """How K1 launches one worker GEMM of ``M`` pixels x ``N`` filters x
-    ``K`` taps: ``128 x bn`` output tiles, K cut into ``splits`` slices of
-    ``k_slice`` taps (a whole number of 16-deep stages; one thread-block
-    cluster per tile; the kernel computes the same slices), ``blocks``
-    blocks in all."""
+    ``K`` taps: on ``route`` (``"tc"``, the tensor-core kernel, or
+    ``"ffma"``), ``128 x bn`` output tiles, K cut into ``splits`` slices
+    of ``k_slice`` taps (a whole number of the route's ``TILE_K``-deep
+    stages; one thread-block cluster per tile; the kernel computes the
+    same slices), ``blocks`` blocks in all."""
+    route: str
     bn: int
     splits: int
     k_slice: int
@@ -50,53 +69,105 @@ class WorkerPlan(NamedTuple):
 
 
 def worker_plan(m: int, n: int, k: int) -> WorkerPlan:
-    """The launch K1 uses for a worker GEMM of shape ``(m, n, k)``.
+    """The launch K1 uses for a worker GEMM of shape ``(m, n, k)``, at
+    ``route_plan``'s tiles.  The tensor-core kernel, except where K fits
+    in one of its 32-deep stages: there its pipeline has nothing to
+    overlap, and the FFMA kernel was faster on an H100 (VGG-16's first
+    layer, K 27: 0.0672 against 0.0952 device ms, ``scripts/
+    torch_k1_sweep.py``)."""
+    return route_plan("ffma" if k <= TILE_K["tc"] else "tc", m, n, k)
+
+
+def route_plan(route: str, m: int, n: int, k: int) -> WorkerPlan:
+    """The design's launch of ``route``'s kernel for a worker GEMM of shape
+    ``(m, n, k)``.
 
     The N-tile follows the layer's N: 32 up to N = 32 (VGG-16's first
-    layers would leave half of a wider tile idle), 64 up to N = 128 (two
-    64-column tiles double the blocks of a 128-column layer, with the
-    same 8x8 micro-tile a thread), else 128 (enough blocks, and a wider
-    tile reads each patch element for twice the columns).  Where the
-    ``ceil(m/128) * ceil(n/bn)`` tiles are fewer than the SMs, K is cut
-    into the fewest slices (2, 4 or 8) that give at least one block a SM,
-    keeping every slice at least ``MIN_SPLIT_CHUNKS`` stages deep."""
-    bn = 32 if n <= 32 else 64 if n <= 128 else 128
+    layers would leave half of a wider tile idle), then on the tensor-core
+    route 64 up to N = 64, else 128 (a 256-wide tile with its filters'
+    high and low blocks leaves room for two stages only); on the FFMA
+    route 64 up to N = 128 (two 64-column tiles double the blocks of a
+    128-column layer, with the same 8x8 micro-tile a thread), else 128.
+
+    K splits keep every slice at least ``MIN_SPLIT_CHUNKS[route]``
+    stages deep.  On the tensor-core route K is cut into the fewest
+    slices (1, 2, 4 or 8) whose last wave of blocks fills at least half
+    of the ``slots`` the card holds at once (the ``ceil(m/128) *
+    ceil(n/bn)`` tiles times the slices); where none does, into the
+    slices that fill it most.  Measured on an H100 at VGG-16's shapes,
+    the kernel runs as fast on 98 of 132 SMs as on all of them (its
+    patch gather shares the L2 among the SMs), so a wave half full costs
+    little and a split costs its cluster reduction.  On the FFMA route,
+    where the tiles are fewer than the SMs, K is cut into the fewest
+    slices that give at least one block a SM."""
+    if route not in ROUTES:
+        raise ValueError(f"K1 route {route!r}: one of {ROUTES}")
+    wide = 64 if route == "tc" else 128
+    bn = 32 if n <= 32 else 64 if n <= wide else 128
     tiles = -(-m // TILE_M) * -(-n // bn)
-    chunks = -(-k // TILE_K)
+    chunks = -(-k // TILE_K[route])
+    least = MIN_SPLIT_CHUNKS[route]
     splits = 1
-    if tiles < NUM_SMS:
+    if route == "tc":
+        slots = NUM_SMS * TC_BLOCKS_PER_SM[bn]
+        cands = [s for s in SPLIT_CHOICES if s == 1 or chunks >= s * least]
+
+        def last(s):  # blocks in the last wave
+            return (tiles * s - 1) % slots + 1
+
+        half = [s for s in cands if 2 * last(s) >= slots]
+        splits = half[0] if half else max(cands, key=last)
+    elif tiles < NUM_SMS:
         for s in SPLIT_CHOICES[1:]:
-            if chunks < s * MIN_SPLIT_CHUNKS:
+            if chunks < s * least:
                 break
             splits = s
             if tiles * s >= NUM_SMS:
                 break
-    return _plan(bn, splits, m, n, k)
+    return _plan(route, bn, splits, m, n, k)
 
 
-def _plan(bn: int, splits: int, m: int, n: int, k: int) -> WorkerPlan:
+def _plan(route: str, bn: int, splits: int, m: int, n: int,
+          k: int) -> WorkerPlan:
     tiles = -(-m // TILE_M) * -(-n // bn)
-    chunks = -(-k // TILE_K)
-    return WorkerPlan(bn, splits, -(-chunks // splits) * TILE_K, tiles,
+    chunks = -(-k // TILE_K[route])
+    return WorkerPlan(route, bn, splits,
+                      -(-chunks // splits) * TILE_K[route], tiles,
                       tiles * splits)
 
 
+def plan_params(plan: WorkerPlan) -> dict:
+    """The ledger's record of ``plan``: ``{"route", "bn", "splits"}``."""
+    return {"route": plan.route, "bn": plan.bn, "splits": plan.splits}
+
+
 def worker_plan_of(params: dict, m: int, n: int, k: int) -> WorkerPlan:
-    """The plan a ledger entry's ``{"bn", "splits"}`` names for a worker
-    GEMM of shape ``(m, n, k)``.  Raises ``ValueError`` where K1 cannot
-    launch it: an N-tile or split it lacks, or a K slice shallower than
-    ``MIN_SPLIT_CHUNKS`` stages."""
-    if not isinstance(params, dict) or set(params) != {"bn", "splits"}:
-        raise ValueError(f"K1 plan {params!r}: want {{'bn', 'splits'}}")
-    bn, splits = params["bn"], params["splits"]
-    chunks = -(-k // TILE_K)
+    """The plan a ledger entry's ``{"route", "bn", "splits"}`` names for a
+    worker GEMM of shape ``(m, n, k)``.  Raises ``ValueError`` where K1
+    cannot launch it: a route, N-tile or split it lacks, a K slice
+    shallower than the route's ``MIN_SPLIT_CHUNKS`` stages, or an entry
+    without a route (recorded before the tensor-core kernel, for the FFMA
+    kernel alone: it is never applied to either kernel)."""
+    if not isinstance(params, dict) or set(params) != {"route", "bn",
+                                                       "splits"}:
+        raise ValueError(f"K1 plan {params!r}: want {{'route', 'bn', "
+                         f"'splits'}} (an entry without a route predates "
+                         f"the tensor-core kernel: sweep the cell again)")
+    route, bn, splits = params["route"], params["bn"], params["splits"]
+    if route not in ROUTES:
+        raise ValueError(f"K1 plan {params!r}: route in {ROUTES}")
+    chunks = -(-k // TILE_K[route])
+    least = MIN_SPLIT_CHUNKS[route]
     if (type(bn) is not int or type(splits) is not int
             or bn not in BN_CHOICES or splits not in SPLIT_CHOICES
-            or (splits > 1 and chunks < splits * MIN_SPLIT_CHUNKS)):
+            or (splits > 1 and chunks < splits * least)):
         raise ValueError(f"K1 plan {params!r} does not launch for K = {k}: "
                          f"bn in {BN_CHOICES}, splits in {SPLIT_CHOICES} with "
-                         f"at least {MIN_SPLIT_CHUNKS} stages a slice")
-    return _plan(bn, splits, m, n, k)
+                         f"at least {least} stages a slice")
+    if route == "ffma" and k > MAX_K:
+        raise ValueError(f"K1 plan {params!r}: the FFMA kernel takes K up "
+                         f"to {MAX_K}, not {k}")
+    return _plan(route, bn, splits, m, n, k)
 
 
 def choose_worker_plan(xe_shape, ke_shape, stride: int,
@@ -151,6 +222,51 @@ def coded_worker_plain(xe: torch.Tensor, ke: torch.Tensor,
     return y if batched else y[:, 0]
 
 
+def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``t = hi + lo`` as the tensor-core kernel splits its fp32 operands:
+    ``hi`` is ``t`` rounded to TF32 (10 mantissa bits, nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``; a finite value that would
+    round past the largest TF32 number saturates there), ``lo`` is ``t -
+    hi`` (exact in fp32) rounded the same way.  NaN and inf pass through
+    into ``hi`` with ``lo = 0``.  ``hi + lo`` is within 2^-22 of ``|t|``
+    (plus half the TF32 subnormal spacing, 2^-137)."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"split_tf32 takes float32, got {t.dtype}")
+    hi = _round_tf32(t)
+    finite = torch.isfinite(hi)
+    lo = torch.where(finite, _round_tf32(torch.where(finite, t - hi, 0.0)),
+                     0.0)
+    return hi, lo
+
+
+def _round_tf32(t: torch.Tensor) -> torch.Tensor:
+    bits = t.contiguous().view(torch.int32)
+    mag = bits & 0x7FFFFFFF
+    sign = bits & ~0x7FFFFFFF
+    finite = mag < 0x7F800000
+    # round the magnitude half away from zero at bit 13, then drop 13 bits
+    rounded = ((mag + 0x1000) & ~_TF32_DROP).clamp_max(_TF32_MAX_BITS)
+    return torch.where(finite, sign | rounded, bits).view(torch.float32)
+
+
+def coded_worker_3xtf32_plain(xe: torch.Tensor, ke: torch.Tensor,
+                              stride: int = 1) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic in torch ops: patches and
+    filters split by ``split_tf32``, then ``lo*hi + hi*lo + hi*hi``, each
+    product of two TF32 values exact in fp32 and summed in fp32.  The same
+    function and layout as ``coded_worker_plain``; float32 only."""
+    batched, ea, b, c, hh, wp, eb, nb, kh, kw, ho, wo = _geometry(
+        xe.shape, ke.shape, stride)
+    cols = F.unfold(xe.reshape(ea * b, c, hh, wp), (kh, kw), stride=stride)
+    w_hi, w_lo = split_tf32(ke.reshape(eb * nb, c * kh * kw))
+    c_hi, c_lo = split_tf32(cols)
+    y = (torch.matmul(w_hi, c_lo) + torch.matmul(w_lo, c_hi)) + torch.matmul(
+        w_hi, c_hi)
+    y = y.reshape(ea, b, eb, nb, ho, wo).permute(0, 2, 1, 3, 4, 5)
+    y = y.reshape(ea * eb, b, nb, ho, wo)
+    return y if batched else y[:, 0]
+
+
 def coded_worker(xe: torch.Tensor, ke: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """One worker's fused coded subtask.
 
@@ -173,6 +289,7 @@ def coded_worker(xe: torch.Tensor, ke: torch.Tensor, stride: int = 1) -> torch.T
     plan = choose_worker_plan(xe.shape, ke.shape, stride, xe.device)
     out = launch_worker(plan, xe, ke, stride)
     launches.add()
+    route_launches[plan.route].add()
     return out if batched else out[:, 0]
 
 
@@ -183,14 +300,26 @@ def launch_worker(plan: WorkerPlan, xe: torch.Tensor, ke: torch.Tensor,
     no launch: the wrapper does (an autotune sweep launches here too)."""
     _, ea, b, c, hh, wp, eb, nb, kh, kw, ho, wo = _geometry(xe.shape, ke.shape,
                                                            stride)
-    if -(-(eb * nb) // plan.bn) > _MAX_COL_BLOCKS:
-        raise ValueError(f"N={eb * nb} exceeds the kernel's column-block grid")
-    if c * kh * kw > MAX_K or c * hh * wp >= 2 ** 31:
-        raise ValueError(f"K={c * kh * kw} or C*H*W={c * hh * wp} exceeds "
-                         f"the kernel's offset table")
+    n, k = eb * nb, c * kh * kw
+    if -(-n // plan.bn) > _MAX_COL_BLOCKS:
+        raise ValueError(f"N={n} exceeds the kernel's column-block grid")
+    if c * hh * wp >= 2 ** 31 or (plan.route == "ffma" and k > MAX_K):
+        raise ValueError(f"K={k} or C*H*W={c * hh * wp} exceeds the "
+                         f"{plan.route} kernel's offsets")
     out = torch.empty((ea * eb, b, nb, ho, wo), dtype=torch.float32,
                       device=xe.device)
-    launch_on("coded_worker_f32", xe, load_library().coded_worker_f32,
-              xe.data_ptr(), ke.data_ptr(), out.data_ptr(), c, hh, wp, kh, kw,
-              stride, ea * b, b, eb, nb, plan.bn, plan.splits)
+    lib = load_library()
+    if plan.route == "tc":
+        # the filters' hi and lo blocks in the kernel's tile order
+        tk = TILE_K["tc"]
+        ws = torch.empty(-(-n // plan.bn) * -(-k // tk) * 2 * plan.bn * tk,
+                         dtype=torch.float32, device=xe.device)
+        launch_on("coded_worker_tc_f32", xe, lib.coded_worker_tc_f32,
+                  xe.data_ptr(), ke.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                  c, hh, wp, kh, kw, stride, ea * b, b, eb, nb, plan.bn,
+                  plan.splits)
+    else:
+        launch_on("coded_worker_f32", xe, lib.coded_worker_f32,
+                  xe.data_ptr(), ke.data_ptr(), out.data_ptr(), c, hh, wp, kh,
+                  kw, stride, ea * b, b, eb, nb, plan.bn, plan.splits)
     return out

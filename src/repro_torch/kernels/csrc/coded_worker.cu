@@ -1,7 +1,7 @@
 // K1: one FCDCC worker's coded subtask as one implicit-GEMM convolution.
 //
 // Replaces the TPU kernel coded_worker_pallas / _fused_worker_gemm
-// (src/repro/kernels/conv2d/kernel.py:190, :291; bodies
+// (src/repro/kernels/conv2d/kernel.py:291, :190; bodies
 // _worker_im2col_kernel :72 and _worker_im2col_stream_kernel :129).  The
 // reference splits the work into a VMEM-resident, a K-streamed and a
 // two-step variant only because of the TPU's VMEM limit; here one kernel
@@ -12,45 +12,73 @@
 // row-major), the strided VALID convolution as a GEMM with
 //   rows    m = (g, oh, ow)   M = G*HO*WO
 //   columns n = (b2, o)       N = EB*NB
-//   depth   k = (c, dh, dw)   in the (C, KH, KW) order of the filters.
+//   depth   k = (c, dh, dw)   in the (C, KH, KW) order of the filters,
+// written straight into the reference's layout out[(slot, b, o, oh, ow)],
+// slot = EB*a + b2, where g = a*B + b.  All offsets into x and out are
+// 64-bit (VGG-16 at 224 and bucket 8 gives M = 401,408).
 //
-// Bound on an H100: at the serving shapes the work is 2*M*N*K fp32 FLOPs
-// against a few hundred MB, far above the card's fp32 ridge point, so the
-// kernel is bound by fp32 FMA throughput (67 TFLOP/s outside the tensor
-// cores).  The design keeps the FMA pipes fed:
+// Two kernels compute it; kernels/conv2d/kernel.py::worker_plan picks one
+// a shape (its `route`).
 //
-// * Tiles.  A block owns a 128 x BN output tile, BN = 32, 64 or 128 to
-//   match the layer's N (the plan of kernels/conv2d/kernel.py::
-//   worker_plan).  Each thread holds an 8 x TN register micro-tile (TN = 8
-//   at BN >= 64, else 4; 128 threads, 256 at BN = 128) and reads its A and
-//   B fragments from shared memory as float4: 2 + TN/4 loads of 16 bytes
-//   for 8*TN FMAs.  A warp's threads
-//   form a 4 x 8 grid, so each of those loads is one shared-memory
-//   wavefront and the FMA pipes, not shared memory, set the pace.
-// * Copies.  A ring of STAGES tiles of depth BK in dynamic shared memory is
-//   filled with 4-byte cp.async (the patch gather has no 16-byte
-//   alignment), zero-filled where a row, column or k is out of range, with
-//   one barrier per stage: the copy of chunk c+STAGES-1 is issued right
-//   after the barrier that ends chunk c-1's reads of its slot.
-// * Loader.  Each block builds, once, a table of k -> c*H*W + dh*W + dw in
-//   shared memory; a thread owns one output pixel row of the A tile, so a
-//   patch element is its pixel's base offset plus one table entry — no
-//   integer division in the loop.
-// * Epilogue and split-K.  The finished tile is staged in shared memory
-//   so the stores run along the output's pixels.  Where the tiles are
-//   fewer than the SMs (VGG-16's last six layers at bucket 8), the plan
-//   cuts K into 2, 4 or 8 slices, one per block of a thread-block cluster;
-//   each block stages its partial tile, and block r of the cluster sums its
-//   share of the tile's columns over the cluster's blocks in rank order,
-//   reading their shared memory directly, and writes the output.  No float
-//   atomics and no scratch: two launches give the same bits.
+// The tensor-core kernel (route "tc", coded_worker_tc_f32).  Bound on an
+// H100 by three TF32 products a multiply-add on the tensor cores: 2*M*N*K
+// FLOPs at 495/3 TFLOP/s, or, at K = 27 (VGG-16's first layer), by the
+// bytes of its output; the plan sends K <= 32 to the FFMA kernel.
 //
-// Accumulation is IEEE fp32 FFMA (no TF32: the CRME decode multiplies
-// rounding error by the recovery matrix's condition number).  The epilogue
-// writes the reference's layout directly, with no permute:
-// out[(slot, b, o, oh, ow)], slot = EB*a + b2, where g = a*B + b.  All
-// offsets into x and out are 64-bit (VGG-16 at 224 and bucket 8 gives
-// M = 401,408).
+// * Precision.  Plain TF32 keeps 10 mantissa bits, about 2^-11 relative a
+//   product, which the CRME decode multiplies by the recovery matrix's
+//   condition number (1.2-5.7 over the 28 survivor pairs of n = 8,
+//   (k_a, k_b) = (2, 4)).  So each fp32 operand is split, a = hi + lo,
+//   hi = cvt.rna.tf32(a), lo = cvt.rna.tf32(a - hi) (a - hi is exact in
+//   fp32), and each k8 step runs lo*hi, hi*lo and hi*hi: the dropped lo*lo
+//   and lo's rounding cost about 2^-22 relative (3xTF32).  No operand
+//   reaches the tensor cores as raw fp32 bits.  The tensor cores' own
+//   fp32 accumulation loses more than IEEE rounding: a chain of wgmmas
+//   over all of K = 4,608 drifted to 10x the fp32 path's error against
+//   float64 on an H100.  So a chain runs over two stages (64 taps) into a
+//   partial accumulator, which is then added to the tile's in fp32
+//   (promotion); the error is then below cuBLAS fp32's.
+// * Filters.  split_filters, launched before the kernel on the same stream,
+//   writes the filters' hi and lo parts in the kernel's tile order: one
+//   [BN][32] block each a (N-tile, K stage), K-major with the 128-byte
+//   swizzle, zero past N and K.  So a stage's B is one contiguous bulk copy
+//   (cp.async.bulk on an mbarrier's transaction count) and the wgmma
+//   descriptors read it as it lies.  It is redone every launch: a layer's
+//   filters are read once and written twice (a few MB at VGG-16's deepest
+//   layers, against a convolution of billions of FLOPs), and the public
+//   coded_worker(xe, ke, stride) keeps no state between calls.
+// * Patches.  A producer warpgroup gathers the im2col tile, one output
+//   pixel a thread, with 4-byte cp.async (zero-filled past M and K; the
+//   patch rows have no 16-byte alignment in general); lane l of each warp
+//   decodes tap k0 + l once a stage and the warp shares the offsets by
+//   shuffle.  Each thread's copies arrive on the stage's full barrier
+//   (cp.async.mbarrier.arrive.noinc).  A stage is [32][BM + 8], with rows
+//   m and m + 8 side by side (apos), so a consumer thread loads both rows
+//   of its fragment with one 8-byte load, conflict-free.
+// * Consumers.  Two warpgroups own 64 rows each: a thread splits its A
+//   fragment in registers (the saturation and inf cases only where a warp
+//   holds a value at the top of the float range) and issues
+//   wgmma.mma_async m64nBNk8 .tf32 with A from registers and B from the
+//   swizzled stage.  A ring of 4 stages of 32 k each; the consumers
+//   release a stage on its empty barrier once their wgmmas on it are done.
+// * Tiles.  128 x BN, BN = 32, 64 or 128: the layer's N up to 128 (a
+//   256-wide tile with its hi and lo blocks leaves room for two stages
+//   only).  The accumulators are 2 x BN/2 fp32 registers a thread.
+// * Split-K and epilogue as the FFMA kernel's below: the tile is staged in
+//   shared memory and stored along the output's pixels; where the last
+//   wave of tiles would leave most SMs idle the plan cuts K into 2, 4 or
+//   8 slices, one per block of a thread-block cluster, and block r sums
+//   its share of the tile's columns over the cluster's blocks in rank
+//   order through distributed shared memory.  No float atomics: two
+//   launches give the same bits.
+//
+// The FFMA kernel (route "ffma", coded_worker_f32).  Bound by fp32 FMA
+// throughput outside the tensor cores (67 TFLOP/s).  A block owns a
+// 128 x BN output tile (BN = 32, 64 or 128), each thread an 8 x TN
+// register micro-tile (TN = 8 at BN >= 64, else 4) read from shared memory
+// as float4; a ring of 3 stages of depth 16 filled with 4-byte cp.async
+// through a per-block k -> offset table; IEEE fp32 FFMA accumulation; the
+// same epilogue and split-K.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,12 +86,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int BM = 128;
-constexpr int BK = 16;
-constexpr int STAGES = 3;
-constexpr int TM = 8;  // two runs of 4 rows, BM/2 apart
-constexpr int MAX_K = 16384;  // offset table entries (64 KB)
 
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
                                           bool pred) {
@@ -79,6 +101,19 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+
+// ---------------------------------------------------------------------------
+// The FFMA kernel
+// ---------------------------------------------------------------------------
+namespace ffma {
+
+
+constexpr int BM = 128;
+constexpr int BK = 16;
+constexpr int STAGES = 3;
+constexpr int TM = 8;  // two runs of 4 rows, BM/2 apart
+constexpr int MAX_K = 16384;  // offset table entries (64 KB)
 
 template <int BN>
 struct Cfg {
@@ -312,6 +347,533 @@ int launch(const float* x, const float* w, float* out, int C, int H, int W,
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+}  // namespace ffma
+
+// ---------------------------------------------------------------------------
+// The tensor-core kernel (3xTF32 on wgmma)
+// ---------------------------------------------------------------------------
+namespace tc {
+
+// Stage timing, compiled only with -DK1_TRACE (scripts/torch_k1_trace.py):
+// thread 0 of each warpgroup of one block writes clock64() stamps of each
+// stage's steps to trace[(role * 1024 + stage) * 8 + step], role 0-1 the
+// consumers, 2 the producer, 3 the block's start and end a warpgroup.
+#ifdef K1_TRACE
+__device__ long long* trace_buf = nullptr;
+__device__ int trace_block = -1;
+#define K1_STAMP(role, i, j)                                              \
+  do {                                                                    \
+    if (trace && (i) < 1024) trace[((role) * 1024 + (i)) * 8 + (j)] = clock64(); \
+  } while (0)
+#else
+#define K1_STAMP(role, i, j) \
+  do {                       \
+  } while (0)
+#endif
+
+constexpr int BM = 128;      // two consumer warpgroups of 64 rows
+constexpr int BK = 32;       // one 128-byte swizzle row of tf32 a stage
+constexpr int STAGES = 4;
+constexpr int PROMOTE = 2;   // stages a tensor-core accumulation chain runs
+constexpr int LDA = BM + 8;  // A stage [BK][LDA]: a half-warp's loads hit 32 banks
+constexpr int THREADS = 384; // warpgroups 0-1 consume, warpgroup 2 copies
+constexpr int LDR = BM + 4;  // padded rows of the staged output tile
+constexpr float TF32_MAX = 3.38953139e38f;  // 0x7f7fe000
+// the smallest float that rounds (ties away) past TF32_MAX
+constexpr uint32_t TF32_OVERFLOW = 0x7f7ff000u;
+
+template <int BN>
+struct Cfg {
+  static constexpr int B_STAGE = 2 * BN * BK;  // floats: hi block, lo block
+  static constexpr int A_STAGE = BK * LDA;
+  static constexpr uint32_t B_BYTES = sizeof(float) * B_STAGE;
+  static constexpr size_t RING =
+      sizeof(float) * (size_t)STAGES * (B_STAGE + A_STAGE);
+  static constexpr size_t RED = sizeof(float) * (size_t)BN * LDR;
+  static constexpr size_t BODY = RING > RED ? RING : RED;
+  // 1024 bytes of slack to align the ring to the swizzle's 1024-byte
+  // period, then the full and empty barriers
+  static constexpr size_t BYTES = 1024 + BODY + 2 * STAGES * sizeof(uint64_t);
+  static_assert(B_BYTES % 1024 == 0, "B stages keep the 1024-byte alignment");
+};
+
+// x rounded to TF32: nearest, ties away from zero
+__device__ __forceinline__ uint32_t cvt_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to about 2^-22 relative: hi = tf32(x), lo = tf32(x - hi)
+// (x - hi is exact in fp32), as kernels/conv2d/kernel.py::split_tf32: a
+// finite x that rounds past the largest TF32 value saturates there, an
+// infinite x gives lo = 0, a NaN gives NaN
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = cvt_tf32(x);
+  lo = cvt_tf32(x - __uint_as_float(hi));
+  if (fabsf(x) >= __uint_as_float(TF32_OVERFLOW)) {
+    const float h = isinf(x) ? x : copysignf(TF32_MAX, x);
+    hi = __float_as_uint(h);
+    lo = isinf(x) ? 0u : cvt_tf32(x - h);
+  }
+}
+
+// where pixel m of the tile sits in an A stage's row: m and m + 8 side by
+// side, so a consumer thread loads its two rows with one 8-byte load
+__device__ __forceinline__ int apos(int m) {
+  return (m & ~15) | ((m & 7) << 1) | ((m >> 3) & 1);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// wait for the completion of the barrier's phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// the barrier counts one arrival once this thread's earlier cp.asyncs land
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// one bulk copy of `bytes` contiguous bytes, counted on the barrier's tx
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile with the 128-byte swizzle: rows of
+// 128 bytes (32 tf32), 8-row groups 1024 bytes apart (the stride byte
+// offset; the leading byte offset is unused in this mode)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving a register an in-flight wgmma reads or
+// writes across this point
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D (64 x N, fp32, in registers) = A (64 x 8 tf32, in registers) *
+// B (8 x N tf32, K-major in shared memory) + (scale_d ? D : 0), one
+// warpgroup
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// The filters' hi and lo parts in the tensor-core kernel's tile order:
+// ws[t][s][part][nn][k] for N-tile t, K stage s, part 0 = hi, 1 = lo, each
+// [BN][BK] block with the 128-byte swizzle (16-byte chunk q of row nn at
+// chunk q ^ (nn % 8)), zero past N and K.  One thread a 16-byte chunk.
+__global__ void split_filters(const float* __restrict__ w, float* __restrict__ ws,
+                              int N, int K, int bn, int kstages,
+                              int64_t chunks) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= chunks) return;
+  const int q = (int)(i % (BK / 4));
+  const int nn = (int)((i / (BK / 4)) % bn);
+  const int64_t ts = i / ((BK / 4) * bn);  // t * kstages + s
+  const int s = (int)(ts % kstages);
+  const int n = (int)(ts / kstages) * bn + nn;
+  const int k0 = s * BK + q * 4;
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float v = (n < N && k0 + j < K) ? w[(int64_t)n * K + k0 + j] : 0.f;
+    split(v, hi[j], lo[j]);
+  }
+  float* blk = ws + ts * (2 * (int64_t)bn * BK);
+  const int off = nn * BK + ((q ^ (nn & 7)) * 4);
+  *reinterpret_cast<uint4*>(blk + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(blk + (int64_t)bn * BK + off) =
+      make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, BN == 32 ? 2 : 1)
+coded_worker_tc_kernel(const float* __restrict__ x, const float* __restrict__ ws,
+                       float* __restrict__ out, int C, int H, int W, int KH,
+                       int KW, int stride, int HO, int WO, int64_t M, int N,
+                       int K, int B, int EB, int NB, int stages_per_split) {
+  using Cf = Cfg<BN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the ring from the first 1024-byte boundary: B stages (hi, lo), then
+  // A stages, then the barriers past the larger of ring and output tile
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  float* Bs = reinterpret_cast<float*>(base);
+  float* As = Bs + STAGES * Cf::B_STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Cf::BODY);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+#ifdef K1_TRACE
+  long long* trace = (blockIdx.x == trace_block && blockIdx.y == 0 &&
+                      blockIdx.z == 0 && tid % 128 == 0)
+                         ? trace_buf
+                         : nullptr;
+#endif
+  K1_STAMP(3, wg, 0);
+  const int64_t m0 = (int64_t)blockIdx.x * BM;
+  const int nsplit = gridDim.z;
+  const int kstages = (K + BK - 1) / BK;
+  const int s_lo = blockIdx.z * stages_per_split;
+  const int s_hi = min(kstages, s_lo + stages_per_split);
+  const int nst = s_hi - s_lo;
+  const int64_t hw_out = (int64_t)HO * WO;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 128 + 1);  // 128 copying threads + the B bulk copy
+      mbar_init(&empty[s], 256);     // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  if (wg == 2) {
+    // -- producer: thread p gathers row p of the A tile (one output pixel)
+    // with 4-byte cp.async (the patch gather has no 16-byte alignment);
+    // thread 0 also brings the stage's hi and lo filter block in one bulk
+    // copy
+    const int p = tid - 256;
+    const int lane = tid % 32;
+    const int64_t gm = m0 + p;
+    const bool row_ok = gm < M;
+    const float* a_src = x;
+    if (row_ok) {
+      const int64_t g = gm / hw_out;
+      const int pix = (int)(gm - g * hw_out);
+      const int oh = pix / WO;
+      const int ow = pix - oh * WO;
+      a_src = x + g * C * (int64_t)H * W + (int64_t)(oh * stride) * W +
+              ow * stride;
+    }
+    const int khw = KH * KW;
+    const float* b_src = ws + ((int64_t)blockIdx.y * kstages) * Cf::B_STAGE;
+    for (int i = 0; i < nst; ++i) {
+      const int slot = i % STAGES;
+      K1_STAMP(2, i, 0);
+      if (i >= STAGES) mbar_wait(&empty[slot], ((i / STAGES) - 1) & 1);
+      K1_STAMP(2, i, 1);
+      const int st = s_lo + i;
+      if (p == 0) {
+        mbar_expect_tx(&full[slot], Cf::B_BYTES);
+        bulk_copy(Bs + slot * Cf::B_STAGE, b_src + (int64_t)st * Cf::B_STAGE,
+                  Cf::B_BYTES, &full[slot]);
+      }
+      // lane l finds the input offset of tap k0 + l (-1 past K); the warp
+      // shares them
+      const int k = st * BK + lane;
+      const int ci = k / khw;
+      const int r = k - ci * khw;
+      const int dh = r / KW;
+      const int off_l = k < K ? ci * H * W + dh * W + (r - dh * KW) : -1;
+      float* as = As + slot * Cf::A_STAGE + apos(p);
+#pragma unroll 8
+      for (int kk = 0; kk < BK; ++kk) {
+        const int off = __shfl_sync(0xffffffffu, off_l, kk);
+        const bool ok = row_ok && off >= 0;
+        cp_async4(as + kk * LDA, a_src + (ok ? off : 0), ok);
+      }
+      cp_async_arrive(&full[slot]);
+      K1_STAMP(2, i, 2);
+    }
+  } else {
+    // -- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the
+    // tile.  The products of PROMOTE stages go into `part` (the first
+    // wgmma of the run overwrites it), which is then added to `acc` in
+    // fp32: the tensor cores' own accumulation loses more than fp32
+    // rounding over a long K, so no chain of them is longer than 64 taps.
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int r0 = wg * 64 + ((tid % 128) / 32) * 16 + g;  // rows r0, r0 + 8
+    const int c0 = apos(r0);  // r0 at c0, r0 + 8 at c0 + 1
+    float part[BN / 2];
+    for (int i = 0; i < nst; ++i) {
+      const int slot = i % STAGES;
+      K1_STAMP(wg, i, 0);
+      mbar_wait(&full[slot], (i / STAGES) & 1);
+      __syncwarp();  // converged for the .aligned wgmma instructions
+      K1_STAMP(wg, i, 1);
+      const float* as = As + slot * Cf::A_STAGE + c0;
+      // A fragments of the stage's four k8 steps, split in registers:
+      // a[0] (r0, t), a[1] (r0 + 8, t), a[2] (r0, t + 4), a[3] (r0 + 8, t + 4)
+      float a[BK / 8][4];
+      float big = 0.f;
+#pragma unroll
+      for (int s = 0; s < BK / 8; ++s) {
+        const float2 u = *reinterpret_cast<const float2*>(as + (s * 8 + t) * LDA);
+        const float2 v =
+            *reinterpret_cast<const float2*>(as + (s * 8 + t + 4) * LDA);
+        a[s][0] = u.x;
+        a[s][1] = u.y;
+        a[s][2] = v.x;
+        a[s][3] = v.y;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) big = fmaxf(big, fabsf(a[s][j]));
+      }
+      // the saturation and inf cases of split() only where a value of
+      // the warp's fragments needs them (|x| at the top of the float
+      // range), so the common path is two conversions and a subtraction
+      uint32_t ah[BK / 8][4], al[BK / 8][4];
+      if (__any_sync(0xffffffffu, big >= __uint_as_float(TF32_OVERFLOW))) {
+#pragma unroll
+        for (int s = 0; s < BK / 8; ++s)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) split(a[s][j], ah[s][j], al[s][j]);
+      } else {
+#pragma unroll
+        for (int s = 0; s < BK / 8; ++s)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            ah[s][j] = cvt_tf32(a[s][j]);
+            al[s][j] = cvt_tf32(a[s][j] - __uint_as_float(ah[s][j]));
+          }
+      }
+      K1_STAMP(wg, i, 2);
+      const uint32_t bh = smem_u32(Bs + slot * Cf::B_STAGE);
+      const uint32_t bl = bh + Cf::B_BYTES / 2;
+      fence_regs(part);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < BK / 8; ++s) {
+        // the two small products first, then hi * hi; k8 step s starts 32
+        // bytes into the swizzled rows
+        wgmma_tf32(part, al[s], desc_sw128(bh + 32 * s),
+                   (s == 0 && i % PROMOTE == 0) ? 0 : 1);
+        wgmma_tf32(part, ah[s], desc_sw128(bl + 32 * s), 1);
+        wgmma_tf32(part, ah[s], desc_sw128(bh + 32 * s), 1);
+      }
+      wgmma_commit();
+      K1_STAMP(wg, i, 3);
+      wgmma_wait_all();
+      fence_regs(part);
+      K1_STAMP(wg, i, 4);
+#pragma unroll
+      for (int s = 0; s < BK / 8; ++s) {
+        fence_regs(ah[s]);
+        fence_regs(al[s]);
+      }
+      mbar_arrive(&empty[slot]);
+      if (i % PROMOTE == PROMOTE - 1 || i == nst - 1) {
+#pragma unroll
+        for (int q = 0; q < BN / 2; ++q) acc[q] += part[q];
+      }
+      K1_STAMP(wg, i, 5);
+    }
+  }
+
+  // Epilogue, as the FFMA kernel's: the tile goes to shared memory
+  // column-major ([BN][LDR], over the ring, which nothing reads any more),
+  // then block r of the cluster sums its share of the columns over the
+  // cluster's blocks in rank order and stores along the output's pixels.
+  __syncthreads();
+  float* red = Bs;
+  if (wg < 2) {
+    const int lane = tid % 32;
+    const int r0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      red[col * LDR + r0] = acc[4 * j];
+      red[(col + 1) * LDR + r0] = acc[4 * j + 1];
+      red[col * LDR + r0 + 8] = acc[4 * j + 2];
+      red[(col + 1) * LDR + r0 + 8] = acc[4 * j + 3];
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // a plain barrier when nsplit == 1
+  const int row = (tid % (BM / 4)) * 4;
+  int64_t rb[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t m = m0 + row + i;
+    const int64_t g = m / hw_out;
+    const int64_t a = g / B;
+    rb[i] = m < M ? (a * EB * B * NB + (g - a * B) * NB) * hw_out + (m - g * hw_out)
+                  : -1;
+  }
+  const int rank = blockIdx.z;  // == cluster.block_rank(): cluster (1, 1, nsplit)
+  const int ncols = BN / nsplit;
+  const int n0 = blockIdx.y * BN;
+  for (int cc = tid / (BM / 4); cc < ncols; cc += THREADS / (BM / 4)) {
+    const int col = rank * ncols + cc;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < nsplit; ++q) {
+      const float4 u = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(red, q) + col * LDR + row);
+      v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+    }
+    const int n = n0 + col;
+    if (n >= N) continue;
+    const int b2 = n / NB;
+    const int64_t cb = ((int64_t)b2 * B * NB + (n - b2 * NB)) * hw_out;
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (rb[i] >= 0) out[rb[i] + cb] = vs[i];
+  }
+  cluster.sync();  // no block leaves while another still reads its tile
+  K1_STAMP(3, wg, 1);
+}
+
+template <int BN>
+int launch(const float* x, const float* w, float* ws, float* out, int C, int H,
+           int W, int KH, int KW, int stride, int HO, int WO, int64_t M, int N,
+           int K, int B, int EB, int NB, int splits, cudaStream_t stream) {
+  using Cf = Cfg<BN>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      coded_worker_tc_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Cf::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const int kstages = (K + BK - 1) / BK;
+  const int ntiles = (N + BN - 1) / BN;
+  const int64_t chunks = (int64_t)ntiles * kstages * BN * (BK / 4);
+  split_filters<<<(unsigned)((chunks + 255) / 256), 256, 0, stream>>>(
+      w, ws, N, K, BN, kstages, chunks);
+  const cudaError_t e0 = cudaGetLastError();
+  if (e0 != cudaSuccess) return (int)e0;
+  const int per = (kstages + splits - 1) / splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((M + BM - 1) / BM), (unsigned)ntiles,
+                     (unsigned)splits);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = Cf::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = 1;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = (unsigned)splits;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, coded_worker_tc_kernel<BN>, x, (const float*)ws, out, C, H, W, KH,
+      KW, stride, HO, WO, M, N, K, B, EB, NB, per);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // x: (G, C, H, W) fp32, w: (EB*NB, C*KH*KW) fp32, out: (G/B*EB, B, NB, HO, WO)
@@ -330,7 +892,7 @@ extern "C" int coded_worker_f32(const void* x, const void* w, void* out,
   const long long N = EB * NB;
   const long long K = C * KH * KW;
   if (M <= 0 || N <= 0) return (int)cudaSuccess;
-  if (K < 1 || K > MAX_K || C * H * W >= (1LL << 31) ||
+  if (K < 1 || K > ffma::MAX_K || C * H * W >= (1LL << 31) ||
       (splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
       (bn != 32 && bn != 64 && bn != 128))
     return (int)cudaErrorInvalidValue;
@@ -341,8 +903,53 @@ extern "C" int coded_worker_f32(const void* x, const void* w, void* out,
 #define K1_ARGS px, pw, po, (int)C, (int)H, (int)W, (int)KH, (int)KW, \
     (int)stride, (int)HO, (int)WO, (int64_t)M, (int)N, (int)K, (int)B, \
     (int)EB, (int)NB, (int)splits, s
-  if (bn == 32) return launch<32>(K1_ARGS);
-  if (bn == 64) return launch<64>(K1_ARGS);
-  return launch<128>(K1_ARGS);
+  if (bn == 32) return ffma::launch<32>(K1_ARGS);
+  if (bn == 64) return ffma::launch<64>(K1_ARGS);
+  return ffma::launch<128>(K1_ARGS);
 #undef K1_ARGS
 }
+
+// The tensor-core kernel on the same operands; ws: the filters' split
+// scratch, ceil(N/bn) * ceil(K/32) * 2 * bn * 32 fp32, 16-byte aligned.
+// Launches split_filters, then the kernel.  C*H*W below 2^31.
+extern "C" int coded_worker_tc_f32(const void* x, const void* w, void* ws,
+                                   void* out, long long C, long long H,
+                                   long long W, long long KH, long long KW,
+                                   long long stride, long long G, long long B,
+                                   long long EB, long long NB, long long bn,
+                                   long long splits, void* stream) {
+  const long long HO = (H - KH) / stride + 1;
+  const long long WO = (W - KW) / stride + 1;
+  const long long M = G * HO * WO;
+  const long long N = EB * NB;
+  const long long K = C * KH * KW;
+  if (M <= 0 || N <= 0) return (int)cudaSuccess;
+  if (K < 1 || C * H * W >= (1LL << 31) || N * K >= (1LL << 40) ||
+      (splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
+      (bn != 32 && bn != 64 && bn != 128) || ((uintptr_t)ws & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const float* px = (const float*)x;
+  const float* pw = (const float*)w;
+  float* pws = (float*)ws;
+  float* po = (float*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+#define K1_ARGS px, pw, pws, po, (int)C, (int)H, (int)W, (int)KH, (int)KW, \
+    (int)stride, (int)HO, (int)WO, (int64_t)M, (int)N, (int)K, (int)B, \
+    (int)EB, (int)NB, (int)splits, s
+  if (bn == 32) return tc::launch<32>(K1_ARGS);
+  if (bn == 64) return tc::launch<64>(K1_ARGS);
+  return tc::launch<128>(K1_ARGS);
+#undef K1_ARGS
+}
+
+#ifdef K1_TRACE
+// where the traced kernel writes its stamps (a device buffer of 4 * 1024
+// * 8 int64) and which block along M it traces; a null buffer stops it
+extern "C" int coded_worker_tc_trace(void* buf, long long block) {
+  long long* p = (long long*)buf;
+  const int b = (int)block;
+  cudaMemcpyToSymbol(tc::trace_buf, &p, sizeof(p));
+  cudaMemcpyToSymbol(tc::trace_block, &b, sizeof(b));
+  return (int)cudaGetLastError();
+}
+#endif

@@ -41,6 +41,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     # x, w, out, C, H, W, KH, KW, stride, G, B, EB, NB, bn, splits, stream
     "coded_worker_f32": [_P, _P, _P] + [_I] * 12 + [_P],
+    # x, w, filter split scratch, out, then as coded_worker_f32
+    "coded_worker_tc_f32": [_P] * 4 + [_I] * 12 + [_P],
     # a, b, out, M, N, K, relu, splits, stream
     "matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # code (host), feats, out, R_out, R_in, F, vec, threads, stream

@@ -68,27 +68,27 @@ def test_keys_carry_the_device_tag_and_the_reference_shapes():
 def test_ledger_roundtrip_and_persistence(ledger):
     wkey = autotune.worker_key(XE, KE, 1, device="cpu")
     mkey = autotune.matmul_key(16, 16, 512, relu=True, device="cpu")
-    swept = [{"params": {"bn": 32, "splits": 1}, "us": 3.5},
-             {"params": {"bn": 64, "splits": 1}, "us": 4.25}]
-    autotune._record(wkey, {"bn": 32, "splits": 1}, 3.5, swept)
+    swept = [{"params": {"route": "tc", "bn": 32, "splits": 1}, "us": 3.5},
+             {"params": {"route": "ffma", "bn": 64, "splits": 1}, "us": 4.25}]
+    autotune._record(wkey, {"route": "tc", "bn": 32, "splits": 1}, 3.5, swept)
     autotune._record(mkey, {"kernel": "column"}, 2.0,
                      [{"params": {"kernel": "column"}, "us": 2.0}])
     assert autotune.sweep_count() == 2
     assert autotune.worker_params(XE, KE, 1, device="cpu") == \
-        {"bn": 32, "splits": 1}
+        {"route": "tc", "bn": 32, "splits": 1}
     assert autotune.matmul_params(16, 16, 512, relu=True, device="cpu") == \
         {"kernel": "column"}
     # other cells miss
     assert autotune.matmul_params(16, 16, 512, relu=False, device="cpu") is None
     assert autotune.worker_params(XE, KE, 2, device="cpu") is None
     on_disk = json.loads(ledger.read_text())
-    assert on_disk[wkey] == {"params": {"bn": 32, "splits": 1}, "us": 3.5,
-                             "swept": swept}
+    assert on_disk[wkey] == {"params": {"route": "tc", "bn": 32, "splits": 1},
+                             "us": 3.5, "swept": swept}
     # a fresh process (simulated: drop memory, reload the file) sees them
     autotune.clear_cache(memory_only=True)
     assert autotune.sweep_count() == 0
     assert autotune.worker_params(XE, KE, 1, device="cpu") == \
-        {"bn": 32, "splits": 1}
+        {"route": "tc", "bn": 32, "splits": 1}
     assert autotune.sweep_count() == 0  # a reload is not a sweep
 
 
@@ -144,9 +144,9 @@ def test_worker_plan_choice(ledger):
     xe, ke = (1, 8, 512, 16, 16), (4, 128, 512, 3, 3)
     assert k1.choose_worker_plan(xe, ke, 1, "cpu") == k1.worker_plan(m, n, k)
     autotune._record(autotune.worker_key(xe, ke, 1, device="cpu"),
-                     {"bn": 32, "splits": 8}, 1.0, [])
+                     {"route": "tc", "bn": 32, "splits": 8}, 1.0, [])
     plan = k1.choose_worker_plan(xe, ke, 1, "cpu")
-    assert (plan.bn, plan.splits) == (32, 8)
+    assert (plan.route, plan.bn, plan.splits) == ("tc", 32, 8)
     assert plan.k_slice * 8 >= k and plan.blocks == plan.tiles * 8
     assert plan != k1.worker_plan(m, n, k)
     # another cell, or another stride, still takes the heuristic
@@ -171,8 +171,11 @@ def test_matmul_plan_choice(ledger):
 
 
 @pytest.mark.parametrize("params", [
-    {"bn": 48, "splits": 1}, {"bn": 64, "splits": 3}, {"bn": 64},
-    {"bn": 64, "splits": 1, "bo": 8}, {"bn": 64.0, "splits": 1}, [64, 1]])
+    {"route": "tc", "bn": 48, "splits": 1},
+    {"route": "ffma", "bn": 64, "splits": 3}, {"route": "tc", "bn": 64},
+    {"route": "tc", "bn": 64, "splits": 1, "bo": 8},
+    {"route": "tc", "bn": 64.0, "splits": 1}, [64, 1],
+    {"route": "wgmma", "bn": 64, "splits": 1}])
 def test_malformed_worker_entry_raises(ledger, params):
     xe, ke = (2, 1, 2, 12, 16), (2, 3, 2, 3, 3)  # K = 18: 2 stages
     autotune._record(autotune.worker_key(xe, ke, 1, device="cpu"), params,
@@ -181,12 +184,30 @@ def test_malformed_worker_entry_raises(ledger, params):
         k1.choose_worker_plan(xe, ke, 1, "cpu")
 
 
-def test_worker_entry_too_shallow_to_split_raises(ledger):
-    xe, ke = (2, 1, 2, 12, 16), (2, 3, 2, 3, 3)  # K = 18: 2 stages
+@pytest.mark.parametrize("route", ["tc", "ffma"])
+def test_worker_entry_too_shallow_to_split_raises(ledger, route):
+    xe, ke = (2, 1, 2, 12, 16), (2, 3, 2, 3, 3)  # K = 18: 1 or 2 stages
     autotune._record(autotune.worker_key(xe, ke, 1, device="cpu"),
-                     {"bn": 32, "splits": 2}, 1.0, [])
+                     {"route": route, "bn": 32, "splits": 2}, 1.0, [])
     with pytest.raises(ValueError, match="stages"):
         k1.choose_worker_plan(xe, ke, 1, "cpu")
+
+
+@pytest.mark.parametrize("params", [{"bn": 32, "splits": 1},
+                                    {"bn": 128, "splits": 8}])
+def test_entry_of_the_ffma_only_ledger_is_refused(ledger, params):
+    """An entry recorded before K1 had routes names a plan of the FFMA
+    kernel alone: it is refused (the cell is swept again), never launched
+    on either kernel; a sweep's own entry for the cell replaces it."""
+    xe, ke = (1, 8, 512, 16, 16), (4, 128, 512, 3, 3)  # K = 4,608
+    key = autotune.worker_key(xe, ke, 1, device="cpu")
+    autotune._record(key, params, 1.0, [])
+    with pytest.raises(ValueError, match="route"):
+        k1.choose_worker_plan(xe, ke, 1, "cpu")
+    fresh = {"route": "ffma", **params}
+    autotune._record(key, fresh, 1.0, [])
+    plan = k1.choose_worker_plan(xe, ke, 1, "cpu")
+    assert k1.plan_params(plan) == fresh
 
 
 @pytest.mark.parametrize("params,m", [
@@ -205,7 +226,9 @@ def test_candidates_hold_the_heuristic_first():
     m, n, k = k1.gemm_shape(xe, ke, 1)
     h = k1.worker_plan(m, n, k)
     cands = autotune.worker_candidates(xe, ke, 1)
-    assert cands[0] == {"bn": h.bn, "splits": h.splits}
+    assert cands[0] == k1.plan_params(h) == {"route": h.route, "bn": h.bn,
+                                             "splits": h.splits}
+    assert {c["route"] for c in cands} == set(k1.ROUTES)
     assert len(cands) == len({json.dumps(c, sort_keys=True) for c in cands})
     assert all(k1.worker_plan_of(c, m, n, k) for c in cands)
     # K = 18 (2 stages): no split keeps 8 stages a slice

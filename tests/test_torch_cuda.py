@@ -8,7 +8,10 @@ so it runs on a machine without JAX:
 
 Tolerance: 1e-5 relative to max|plain|; the kernels and their plain
 versions may sum fp32 products in different orders.  K1 at VGG-16's
-depths (K up to 4,608) is held to 1e-4, as ``chip_smoke.py`` holds it;
+depths (K up to 4,608) is held to 1e-4, as ``chip_smoke.py`` holds it,
+and, on both of its routes (the tensor-core kernel's 3xTF32 and the FFMA
+kernel), its error against the plain version in float64 to at most
+``K1_FP64_RATIO`` times the fp32 plain version's (cuBLAS, TF32 off);
 K4 in bf16 to one bf16 rounding of its output.
 """
 import numpy as np
@@ -24,6 +27,7 @@ from repro_torch.kernels.matmul import kernel as k2
 
 RNG = np.random.default_rng(11)
 REL = 1e-5
+K1_FP64_RATIO = 4.0  # chip_smoke.py's criterion for K1 against float64
 
 
 def _close(got: torch.Tensor, want: torch.Tensor, rel=REL):
@@ -56,10 +60,32 @@ WORKER_CASES = [
     (1, None, 2, 9, 9, 3, 5, 2, 2, 1),
     (2, 3, 5, 37, 70, 2, 33, 3, 3, 1),   # ragged M, N and K edges
     (2, 2, 64, 20, 30, 2, 70, 3, 3, 2),  # K > one chunk, N > one tile
+    (2, 8, 3, 20, 30, 2, 16, 3, 3, 1),   # K 27, N 32: the FFMA route
+    (2, 2, 64, 13, 17, 2, 32, 3, 3, 1),  # N 64, M 660: a ragged last tile
+    (2, 2, 128, 9, 12, 2, 128, 3, 3, 1),  # N 256, K 1,152
+    (2, 2, 512, 6, 6, 2, 128, 3, 3, 1),  # K 4,608, M 64
 ]
 MATMUL_SHAPES = [(7, 5, 9), (128, 128, 128), (130, 257, 64), (1, 300, 1),
                  (200, 64, 384), (8, 8, 8), (129, 1, 129), (16, 16, 3600),
                  (8, 8, 5000), (16, 2, 4099), (16, 40, 70000), (33, 2, 9)]
+
+
+def _fp64_ratio(got, xe, ke, stride, want=None):
+    """K1's error against the plain version in float64 over the fp32 plain
+    version's (cuBLAS, TF32 off), both relative to max|float64|; the fp32
+    one at least half an fp32 ulp of it."""
+    ref = k1.coded_worker_plain(xe.double(), ke.double(), stride)
+    want = k1.coded_worker_plain(xe, ke, stride) if want is None else want
+    scale = float(ref.abs().max())
+    err = float((got.double() - ref).abs().max()) / scale
+    plain = float((want.double() - ref).abs().max()) / scale
+    return err / max(plain, 2.0 ** -24)
+
+
+def _k1_route(m, n, k):
+    """The route ``worker_plan`` takes: FFMA where K fits one 32-deep
+    stage of the tensor-core kernel."""
+    return "ffma" if k <= k1.TILE_K["tc"] else "tc"
 
 
 @pytest.mark.parametrize("case", WORKER_CASES)
@@ -69,11 +95,46 @@ def test_cuda_worker_kernel_matches_plain(cuda, case):
     xe = torch.as_tensor(RNG.standard_normal(xshape).astype(np.float32), device=cuda)
     ke = torch.as_tensor(RNG.standard_normal((eb, nb, c, kh, kw)).astype(np.float32),
                          device=cuda)
+    plan = k1.choose_worker_plan(xe.shape, ke.shape, stride, cuda)
+    assert plan.route == _k1_route(*k1.gemm_shape(xe.shape, ke.shape, stride))
     before = k1.launches.count
+    by_route = {r: c.count for r, c in k1.route_launches.items()}
     got = coded_worker(xe, ke, stride)
     torch.cuda.synchronize()
     assert k1.launches.count == before + 1
-    _close(got, k1.coded_worker_plain(xe, ke, stride))
+    assert {r: c.count - by_route[r] for r, c in k1.route_launches.items()} == \
+        {r: int(r == plan.route) for r in k1.ROUTES}
+    want = k1.coded_worker_plain(xe, ke, stride)
+    _close(got, want, rel=1e-4)
+    assert _fp64_ratio(got, xe, ke, stride, want) <= K1_FP64_RATIO
+    assert torch.equal(coded_worker(xe, ke, stride), got)
+
+
+@pytest.mark.parametrize("route", ["tc", "ffma"])
+@pytest.mark.parametrize("case", WORKER_CASES[-6:])
+def test_cuda_worker_routes_and_splits(cuda, case, route):
+    """Each route at every split its slice depth allows (every cluster
+    size where K is deep enough), on the edge cases: within 1e-4 of the
+    plain version, within ``K1_FP64_RATIO`` of its float64 error, and the
+    same bits from a second launch."""
+    ea, b, c, hh, wp, eb, nb, kh, kw, stride = case
+    xe = torch.as_tensor(RNG.standard_normal((ea, b, c, hh, wp)).astype(np.float32),
+                         device=cuda)
+    ke = torch.as_tensor(RNG.standard_normal((eb, nb, c, kh, kw)).astype(np.float32),
+                         device=cuda)
+    m, n, k = k1.gemm_shape(xe.shape, ke.shape, stride)
+    want = k1.coded_worker_plain(xe, ke, stride)
+    bn = k1.route_plan(route, m, n, k).bn
+    chunks = -(-k // k1.TILE_K[route])
+    for s in k1.SPLIT_CHOICES:
+        if s > 1 and chunks < s * k1.MIN_SPLIT_CHUNKS[route]:
+            continue
+        plan = k1.worker_plan_of({"route": route, "bn": bn, "splits": s}, m, n, k)
+        got = k1.launch_worker(plan, xe, ke, stride)
+        torch.cuda.synchronize()
+        _close(got, want, rel=1e-4)
+        assert _fp64_ratio(got, xe, ke, stride, want) <= K1_FP64_RATIO, plan
+        assert torch.equal(k1.launch_worker(plan, xe, ke, stride), got), plan
 
 
 @pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
@@ -137,11 +198,14 @@ def test_cuda_matmul_split_kernel_deep_k_matches_plain(cuda, m, k, n):
 
 
 # K1 at each VGG-16 layer's (C, N/k_b, KH, KW, stride) on ell_a = ell_b = 2
-# with a small M: (C, NB, h_hat, Wp) — the first at K = 27, those with
-# C >= 256 on the split-K path, the last with several row tiles and a split
+# with a small M: (C, NB, h_hat, Wp) — the first at K = 27 (the FFMA
+# route), those with C >= 256 on the split-K path; the last three with
+# many row tiles and a ragged last one (M 13,920 at K 27, 10,336 at N 32,
+# 4,256 at N 256 and K 4,608)
 VGG_WORKER_CASES = [(3, 16, 8, 8), (64, 16, 8, 8), (64, 32, 6, 10),
                     (128, 32, 6, 10), (128, 64, 5, 9), (256, 64, 5, 9),
-                    (256, 128, 6, 6), (512, 128, 6, 6), (512, 128, 20, 21)]
+                    (256, 128, 6, 6), (512, 128, 6, 6), (512, 128, 20, 21),
+                    (3, 16, 60, 62), (64, 16, 40, 70), (512, 128, 30, 40)]
 
 
 @pytest.mark.parametrize("c,nb,hh,wp", VGG_WORKER_CASES)
@@ -150,11 +214,16 @@ def test_cuda_worker_kernel_vgg_layers_match_plain(cuda, c, nb, hh, wp):
                          device=cuda)
     ke = torch.as_tensor(RNG.standard_normal((2, nb, c, 3, 3)).astype(np.float32),
                          device=cuda)
+    plan = k1.choose_worker_plan(xe.shape, ke.shape, 1, cuda)
+    assert plan.route == _k1_route(*k1.gemm_shape(xe.shape, ke.shape, 1))
     before = k1.launches.count
     got = coded_worker(xe, ke, 1)
     torch.cuda.synchronize()
     assert k1.launches.count == before + 1
-    _close(got, k1.coded_worker_plain(xe, ke, 1), rel=1e-4)
+    want = k1.coded_worker_plain(xe, ke, 1)
+    _close(got, want, rel=1e-4)
+    assert _fp64_ratio(got, xe, ke, 1, want) <= K1_FP64_RATIO
+    assert torch.equal(coded_worker(xe, ke, 1), got)
 
 
 # (kernel, case): K1 without and with split-K; K2's column and split kernels,
@@ -1419,7 +1488,8 @@ def test_cuda_autotune_k1_cell(cuda, ledger):
     want = k1.coded_worker_plain(xe, ke, 1)
     m, n, k = k1.gemm_shape(xs, ks, 1)
     cands = ledger.worker_candidates(xs, ks, 1)
-    assert len(cands) == 12
+    assert len(cands) == 24  # both routes, 3 N-tiles, 4 splits each
+    assert {c["route"] for c in cands} == {"tc", "ffma"}
     for c in cands:
         _close(k1.launch_worker(k1.worker_plan_of(c, m, n, k), xe, ke, 1),
                want, rel=1e-4)
@@ -1438,9 +1508,18 @@ def test_cuda_autotune_k1_cell(cuda, ledger):
     assert k1.launches.count == before + 1
     _close(got, want, rel=1e-4)
     ledger.load_cache()[ledger.worker_key(xs, ks, 1, device=cuda)] = {
-        "params": {"bn": 48, "splits": 1}}
+        "params": {"route": "tc", "bn": 48, "splits": 1}}
     with pytest.raises(ValueError):
         coded_worker(xe, ke, 1)
+    # an entry of the FFMA-only ledger (no route) is refused at launch and
+    # swept again by the tuner, which records a routed plan
+    ledger.load_cache()[ledger.worker_key(xs, ks, 1, device=cuda)] = {
+        "params": {"bn": 64, "splits": 1}, "us": 1.0, "swept": []}
+    with pytest.raises(ValueError, match="route"):
+        coded_worker(xe, ke, 1)
+    again = ledger.tune_worker(xs, ks, 1, repeat=1)
+    assert ledger.sweep_count() == 2 and set(again) == {"route", "bn", "splits"}
+    _close(coded_worker(xe, ke, 1), want, rel=1e-4)
 
 
 def test_cuda_autotune_k2_cell(cuda, ledger):

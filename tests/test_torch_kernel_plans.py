@@ -7,8 +7,8 @@ built pipelines).
   * the CNN transition GEMMs keep K2's column kernel;
   * the LM worker GEMMs at buckets 1, 2 and 4 take K2's split kernel with
     at least one block a SM;
-  * each VGG-16 layer at bucket 8 gets the N-tile and K split of K1's
-    design (the table in ``PERF.md``);
+  * each VGG-16 layer at bucket 8 gets the route, N-tile and K split of
+    K1's design (the table in ``PERF.md``);
   * K3's decode widths spread over tens of one-warp blocks, its
     build-time widths stream float4 columns over every SM;
   * K4 at the SmolLM-135M prefill runs as hundreds of warps on at least
@@ -28,7 +28,9 @@ import torch
 from repro_torch.kernels.coded_gemm.kernel import (THREAD_CHOICES,
                                                   VEC4_MIN_COLUMNS,
                                                   coded_gemm_plan)
-from repro_torch.kernels.conv2d.kernel import TILE_K, TILE_M, worker_plan
+from repro_torch.kernels.conv2d.kernel import (ROUTES, TC_BLOCKS_PER_SM,
+                                               TILE_K, TILE_M, route_plan,
+                                               worker_plan)
 from repro_torch.kernels.flash_attn.kernel import (MAX_GRID_Y,
                                                    MAX_TILED_BLOCKS, MAX_WARPS,
                                                    PAIRS_A_WARP, TILED_MIN_SQ,
@@ -90,14 +92,14 @@ def _covers_matmul(m, n, k):
     return plan
 
 
-def _covers_worker(m, n, k):
-    plan = worker_plan(m, n, k)
-    assert plan.bn in (32, 64, 128)
+def _covers_worker(m, n, k, route=None):
+    plan = worker_plan(m, n, k) if route is None else route_plan(route, m, n, k)
+    assert plan.route in ROUTES and plan.bn in (32, 64, 128)
     m_tiles, n_tiles = -(-m // TILE_M), -(-n // plan.bn)
     assert plan.tiles == m_tiles * n_tiles
     assert m_tiles * TILE_M >= m > (m_tiles - 1) * TILE_M
     assert n_tiles * plan.bn >= n > (n_tiles - 1) * plan.bn
-    assert plan.k_slice % TILE_K == 0
+    assert plan.k_slice % TILE_K[plan.route] == 0
     assert plan.splits * plan.k_slice >= k > (plan.splits - 1) * plan.k_slice
     assert plan.blocks == plan.tiles * plan.splits
     return plan
@@ -124,16 +126,16 @@ def test_lm_worker_gemms_take_the_split_kernel(smoke, lm, bucket, gemm):
 
 
 # VGG-16 224x224 at bucket 8 on n = 8, (k_a, k_b) = (2, 4): per layer the
-# worker GEMM (M, N, K) and the design's N-tile and K split.
+# worker GEMM (M, N, K) and the design's route, N-tile and K split.
 VGG_PLANS = [
-    ((401408, 32, 27), 32, 1), ((401408, 32, 576), 32, 1),
-    ((100352, 64, 576), 64, 1), ((100352, 64, 1152), 64, 1),
-    ((25088, 128, 1152), 64, 1), ((25088, 128, 2304), 64, 1),
-    ((25088, 128, 2304), 64, 1),
-    ((6272, 256, 2304), 128, 2), ((6272, 256, 4608), 128, 2),
-    ((6272, 256, 4608), 128, 2),
-    ((1568, 256, 4608), 128, 8), ((1568, 256, 4608), 128, 8),
-    ((1568, 256, 4608), 128, 8),
+    ((401408, 32, 27), "ffma", 32, 1), ((401408, 32, 576), "tc", 32, 1),
+    ((100352, 64, 576), "tc", 64, 1), ((100352, 64, 1152), "tc", 64, 1),
+    ((25088, 128, 1152), "tc", 128, 2), ((25088, 128, 2304), "tc", 128, 2),
+    ((25088, 128, 2304), "tc", 128, 2),
+    ((6272, 256, 2304), "tc", 128, 1), ((6272, 256, 4608), "tc", 128, 1),
+    ((6272, 256, 4608), "tc", 128, 1),
+    ((1568, 256, 4608), "tc", 128, 4), ((1568, 256, 4608), "tc", 128, 4),
+    ((1568, 256, 4608), "tc", 128, 4),
 ]
 
 
@@ -141,12 +143,15 @@ VGG_PLANS = [
 def test_vgg_worker_gemm_plans(smoke, vgg, layer):
     shapes = smoke.worker_shapes(vgg, smoke.BUCKET)
     assert len(shapes) == len(VGG_PLANS)
-    mnk, bn, splits = VGG_PLANS[layer]
+    mnk, route, bn, splits = VGG_PLANS[layer]
     assert _gemm_mnk(*shapes[layer]) == mnk
     plan = _covers_worker(*mnk)
-    assert (plan.bn, plan.splits) == (bn, splits)
-    if splits > 1:  # split only where the tiles alone leave SMs idle
-        assert plan.tiles < NUM_SMS <= plan.blocks
+    assert (plan.route, plan.bn, plan.splits) == (route, bn, splits)
+    if route == "tc":  # split only where the last wave would be under half
+        slots = NUM_SMS * TC_BLOCKS_PER_SM[bn]
+        assert 2 * ((plan.blocks - 1) % slots + 1) >= slots
+        if splits > 1:
+            assert 2 * ((plan.tiles - 1) % slots + 1) < slots
 
 
 MATMUL_EDGES = [(1, 1, 64), (3, 7, 65), (4, 479, 577), (16, 290, 1000),
@@ -191,21 +196,32 @@ WORKER_EDGES = [(1, 1, 1), (127, 33, 17), (129, 65, 27), (2000, 130, 4608),
 @pytest.mark.parametrize("m,n,k", WORKER_EDGES)
 def test_worker_plan_covers_every_shape(m, n, k):
     _covers_worker(m, n, k)
+    for route in ROUTES:
+        _covers_worker(m, n, k, route)
 
 
 def test_worker_plan_keeps_every_slice_deep():
-    """A split never leaves a K slice shallower than the design's minimum,
-    and never splits where the tiles already fill the card."""
+    """On each route a split never leaves a K slice shallower than the
+    design's minimum, and never splits where the card is already busy:
+    on the FFMA route where the tiles fill the SMs, on the tensor-core
+    route where the last wave of tiles fills half of the card's slots."""
     from repro_torch.kernels.conv2d.kernel import MIN_SPLIT_CHUNKS
 
-    for m in (72, 1568, 6272, 25088):
-        for k in (27, 144, 576, 1152, 4608):
-            plan = worker_plan(m, 256, k)
-            if plan.splits > 1:
-                assert plan.k_slice >= MIN_SPLIT_CHUNKS * TILE_K
-                assert plan.tiles < NUM_SMS
-            elif plan.tiles < NUM_SMS:
-                assert -(-k // TILE_K) < 2 * MIN_SPLIT_CHUNKS
+    for route in ROUTES:
+        least, tk = MIN_SPLIT_CHUNKS[route], TILE_K[route]
+        for m in (72, 1568, 6272, 25088):
+            for k in (27, 144, 576, 1152, 4608):
+                plan = route_plan(route, m, 256, k)
+                if route == "tc":
+                    slots = NUM_SMS * TC_BLOCKS_PER_SM[plan.bn]
+                    busy = 2 * ((plan.tiles - 1) % slots + 1) >= slots
+                else:
+                    busy = plan.tiles >= NUM_SMS
+                if plan.splits > 1:
+                    assert plan.k_slice >= least * tk
+                    assert not busy
+                elif not busy:
+                    assert -(-k // tk) < 2 * least
 
 
 def _covers_coded_gemm(r_out, r_in, f, aligned=True):
