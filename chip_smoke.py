@@ -424,14 +424,17 @@ LM_DELAYS = (0.0, 0.0, STRAGGLER_DELAY_S, float("inf"))
 # Over many keys 2^-7 of max|plain| is set by row 0 (one key, |v| ~ 3.5)
 # and is as large as a late row's whole output, so the tiled route in
 # bf16 is also held, row by row, to flash_attention_tiled_plain, which
-# rounds p against the running max of each 64-key tile as the kernel does:
+# rounds p against the running max of each key tile as the kernel does (128
+# keys on the wgmma kernel, 64 on the mma.sync one; the walk takes the
+# kernel's tile):
 # each row within one bf16 rounding of its own largest element (2^-7 of
 # it), and the same bits in all but K4_BF16_TILED_MISMATCH of the
 # elements.  That walk with p left whole (a kernel that skipped p's
 # rounding) must differ in more than K4_BF16_WHOLE_P of them on the same
 # inputs, or the check could not see such a kernel.  On an H100 at the
-# phase-15 shape the kernel differs from the walk in 0.37 % of the bits,
-# each row by at most one rounding, and p left whole in 40 %
+# phase-15 shape the mma.sync kernel differs from its walk in 0.37 % of
+# the bits and the wgmma kernel from its own in 0.37 %, each row by at most
+# one rounding, and p left whole in 40 %
 # (tests/test_torch_lm_kernels.py holds the walk to the TPU kernel's).
 TOL_K3, TOL_K4, TOL_K4_BF16 = 1e-5, 2e-5, 2.0 ** -7
 K4_ONE_CHUNK, K4_BF16_MISMATCH = 32, 1e-3
@@ -1151,18 +1154,21 @@ def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def check_tiled_bf16(name: str, q, k, v, got: torch.Tensor, causal: bool,
-                     rep: int) -> dict:
+                     rep: int, tile: int | None = None) -> dict:
     """K4's tiled bf16 output ``got`` against ``flash_attention_tiled_plain``
-    on the same inputs: every row within ``TOL_K4_BF16`` of its own
-    max|want| and all but ``K4_BF16_TILED_MISMATCH`` of the elements
-    bit-equal, while the same walk with p left whole differs in more than
-    ``K4_BF16_WHOLE_P`` of them.  Raises where one fails."""
+    on the same inputs, walked at the kernel's key tile ``tile`` (by
+    default the walk's: that of the kernel ``flash_plan`` picks at this
+    head dim): every row within ``TOL_K4_BF16`` of its own max|want| and
+    all but ``K4_BF16_TILED_MISMATCH`` of the elements bit-equal, while the
+    same walk with p left whole differs in more than ``K4_BF16_WHOLE_P`` of
+    them.  Raises where one fails."""
     from repro_torch.kernels.flash_attn.kernel import flash_attention_tiled_plain
 
-    want = flash_attention_tiled_plain(q, k, v, causal=causal, rep=rep)
+    want = flash_attention_tiled_plain(q, k, v, causal=causal, rep=rep, tile=tile)
     whole_p = flash_attention_tiled_plain(q.float(), k.float(), v.float(),
-                                          causal=causal, rep=rep).to(q.dtype)
-    out = {"tiled_row_err": row_err(got, want),
+                                          causal=causal, rep=rep,
+                                          tile=tile).to(q.dtype)
+    out = {"key_tile": tile, "tiled_row_err": row_err(got, want),
            "tiled_mismatch_share": float((got != want).float().mean()),
            "whole_p_mismatch_share": float((whole_p != want).float().mean())}
     if not out["tiled_row_err"] <= TOL_K4_BF16:
@@ -1181,16 +1187,20 @@ def check_tiled_bf16(name: str, q, k, v, got: torch.Tensor, causal: bool,
 
 def flash_entry(bh: int, s: int, d: int, rep: int, count: int, dtype, gen,
                 device, tol: float, timed: bool, sk: int | None = None,
-                causal: bool = True) -> dict:
+                causal: bool = True, other: str | None = None) -> dict:
     """K4 at one self-attention shape (``sk`` keys, ``s`` by default;
     causal or not) in ``dtype``, on the route ``flash_plan`` chooses,
     against its plain version (the tiled route in bf16 also row by row
     against the tile-order walk, ``check_tiled_bf16``) and a second launch
     of itself (and, timed, beside SDPA in the same type with K/V repeated
-    outside the timed call)."""
+    outside the timed call).  ``other`` names another tiled kernel
+    (``TILED_KERNELS``) held to the same checks on the same inputs and,
+    timed, timed beside it in the same call, the SM clock sampled while
+    both are timed (``other_kernel``, ``sm_clock``)."""
     from repro_torch.kernels.flash_attn.kernel import (flash_attention,
                                                        flash_attention_plain,
-                                                       flash_plan)
+                                                       flash_plan, launch_plan,
+                                                       tiled_plan)
 
     sk = s if sk is None else sk
     q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype)
@@ -1215,8 +1225,9 @@ def flash_entry(bh: int, s: int, d: int, rep: int, count: int, dtype, gen,
             and not mismatch <= K4_BF16_MISMATCH):
         raise AssertionError(f"{name}: {mismatch:.2%} of the outputs differ "
                              f"from the plain version's bits > {K4_BF16_MISMATCH:.2%}")
-    tiled = (check_tiled_bf16(name, q, k, v, got, causal, rep)
-             if dtype == torch.bfloat16 and plan.route == "tiled" else {})
+    bf16_tiled = dtype == torch.bfloat16 and plan.route == "tiled"
+    tiled = (check_tiled_bf16(name, q, k, v, got, causal, rep, plan.keys)
+             if bf16_tiled else {})
     check_repeatable(name, run, got)
     bnd, by = flash_bound(bh, bh // rep, s, sk, d, dtype, causal)
     e = {"q": [bh, s, d], "kv": [bh // rep, sk, d], "rep": rep,
@@ -1226,6 +1237,24 @@ def flash_entry(bh: int, s: int, d: int, rep: int, count: int, dtype, gen,
          "mismatch_share": mismatch, **tiled,
          "bound_ms": bnd, "bound_by": by, "ms": None, "device_ms": None,
          "plain_ms": None, "library_ms": None, "library_device_ms": None}
+    o_run = None
+    if other is not None:
+        o_plan = tiled_plan(bh, s, d, rep, dtype == torch.bfloat16, kernel=other)
+        o_name = f"{name[:-1]}, the {other} kernel)"
+
+        def o_run():
+            return launch_plan(o_plan, q, k, v, scale=None, causal=causal, rep=rep)
+
+        o_got = o_run()
+        o_abs, o_rel = _err(o_got.float(), want.float())
+        if not o_rel <= tol:
+            raise AssertionError(f"{o_name}: rel err {o_rel} > {tol}")
+        check_repeatable(o_name, o_run, o_got)
+        e["other_kernel"] = {
+            "plan": o_plan._asdict(), "max_abs_err": o_abs, "max_rel_err": o_rel,
+            **(check_tiled_bf16(o_name, q, k, v, o_got, causal, rep, o_plan.keys)
+               if bf16_tiled else {}), "ms": None, "device_ms": None}
+        del o_got
     if timed:
         b = bh // rep  # SDPA's (B, H, S, D) with one KV head a batch row
         q4 = q.view(b, rep, s, d)
@@ -1235,7 +1264,14 @@ def flash_entry(bh: int, s: int, d: int, rep: int, count: int, dtype, gen,
         def library():
             return F.scaled_dot_product_attention(q4, k4r, v4r, is_causal=causal)
 
-        e.update(timings(run, plain, library))
+        clock = ClockSampler()
+        with clock if o_run is not None else contextlib.nullcontext():
+            e.update(timings(run, plain, library))
+            if o_run is not None:
+                e["other_kernel"].update(ms=cuda_ms(o_run),
+                                         device_ms=device_ms(o_run))
+        if o_run is not None:
+            e["sm_clock"] = clock.summary()
         e["library_rel_err"] = _err(got.float(), library().reshape(got.shape).float())[1]
     return e
 
@@ -3215,7 +3251,7 @@ def dryrun_card_cell(arch: str, shape: str, device, k4_launches) -> dict:
     add ``flash_cost`` at the launched shape for each launch.  Raises where
     a count disagrees or the peak leaves the band."""
     from repro_torch.configs.shapes import batch_structs
-    from repro_torch.kernels.flash_attn.kernel import flash_cost
+    from repro_torch.kernels.flash_attn.kernel import flash_cost, kernel_launches
     from repro_torch.launch import dryrun, steps
     from repro_torch.launch.cost_analysis import tree_bytes
     from repro_torch.optim import init_state
@@ -3246,13 +3282,14 @@ def dryrun_card_cell(arch: str, shape: str, device, k4_launches) -> dict:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
-    k4_launches.reset()
+    k4_launches.reset()  # and each kernel's count (kernel_launches)
     counter, out = counted()
     peak = None
     if on_card:
         torch.cuda.synchronize(device)
         peak = torch.cuda.max_memory_allocated(device) - base
     k4 = k4_launches.count
+    k4_by_kernel = {name: c.count for name, c in kernel_launches.items() if c.count}
     del out
     b, s = structs["tokens"].shape
     bh = b * cfg.n_heads
@@ -3262,8 +3299,10 @@ def dryrun_card_cell(arch: str, shape: str, device, k4_launches) -> dict:
             "dot_flops": counter.cost.dot_flops + k4 * k4_flops,
             "bytes": counter.cost.bytes + k4 * k4_bytes,
             "argument_size_in_bytes": tree_bytes((params, opt, batch)),
-            "peak_above_arguments": peak, "k4_launches": k4}
+            "peak_above_arguments": peak, "k4_launches": k4,
+            "k4_by_kernel": k4_by_kernel}
     want_k4 = dry["kernels"].get("flash_attention", {}).get("launches", 0)
+    b_s = tuple(structs["tokens"].shape)
     temp = dry["memory"]["temp_size_in_bytes"]
     name = f"dry run {arch} {shape} (smoke {DRYRUN_SMOKE}, bf16)"
     if card["flops"] != dry["cost"]["flops"] or \
@@ -3278,6 +3317,9 @@ def dryrun_card_cell(arch: str, shape: str, device, k4_launches) -> dict:
     if k4 != want_k4 or (kind == "prefill" and k4 != cfg.layers):
         raise AssertionError(f"{name}: K4 launched {k4} times, the dry run "
                              f"charges {want_k4}, the layers {cfg.layers}")
+    if on_card and k4 and k4_by_kernel != {flash_plan_of(cfg, b_s)[0]: k4}:
+        raise AssertionError(f"{name}: K4's launches by kernel {k4_by_kernel}, "
+                             f"want all {k4} on {flash_plan_of(cfg, b_s)[0]}")
     if on_card and not abs(peak - temp) <= TOL_DRYRUN_PEAK * temp:
         raise AssertionError(f"{name}: peak above the arguments {peak} bytes "
                              f"against the dry run's temporary {temp} "
@@ -3301,6 +3343,17 @@ def dryrun_card_cell(arch: str, shape: str, device, k4_launches) -> dict:
             "ms": ms, "bound_ms": bnd, "bound_by": by,
             "device_ms": None if traced is None else traced[0],
             "k4_ms": None if traced is None else traced[1]}
+
+
+def flash_plan_of(cfg, b_s: tuple) -> tuple[str, int]:
+    """The K4 kernel (``FlashPlan.kernel``) and key tile a bf16 prefill of
+    ``b_s = (batch, tokens)`` launches in each layer of ``cfg``."""
+    from repro_torch.kernels.flash_attn.kernel import flash_plan
+
+    b, s = b_s
+    plan = flash_plan(b * cfg.n_heads, s, s, cfg.head_dim,
+                      cfg.n_heads // cfg.n_kv_heads, True)
+    return plan.kernel, plan.keys
 
 
 def dryrun_phase(device, k4_launches, card: str, tp_k4_launches: int,
@@ -3329,7 +3382,7 @@ def dryrun_phase(device, k4_launches, card: str, tp_k4_launches: int,
         {"path": f"dry-run check, {pf['arch']} prefill", **flash_entry(
             b * cfg.n_heads, s, cfg.head_dim, rep,
             pf["card"]["k4_launches"], torch.bfloat16, gen, device,
-            TOL_K4_BF16, True)},
+            TOL_K4_BF16, True, other="mma")},
         {"path": f"the same shape in fp32 (the zoo's type; no path "
                  f"launches it here)", **flash_entry(
             b * cfg.n_heads, s, cfg.head_dim, rep, 0, torch.float32,
@@ -3338,6 +3391,33 @@ def dryrun_phase(device, k4_launches, card: str, tp_k4_launches: int,
          **flash_entry(*K4_TP_SHAPE, tp_k4_launches, torch.float32,
                        gen, device, TOL_K4, True)}]
     out["cli"] = cli
+    return out
+
+
+def tiled_bf16_kernels(dr: dict) -> list[dict]:
+    """The kernels line's entries for K4's two bf16 tiled kernels at the
+    dry-run check's shape (phase 15's bf16 K4 entry, the other kernel timed
+    in the same call): launches are each kernel's in the prefill step
+    phase 15 counted."""
+    e = next(x for x in dr["k4"] if "other_kernel" in x)
+    by_kernel = next(c["card"]["k4_by_kernel"] for c in dr["cells"]
+                     if c["kind"] == "prefill")
+    common = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+              "replaces": "src/repro/kernels/flash_attn/kernel.py:69",
+              "q": e["q"], "kv": e["kv"], "rep": e["rep"], "causal": e["causal"],
+              "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+              "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+              "library_device_ms": e["library_device_ms"],
+              "sm_clock": e["sm_clock"]}
+    names = {"wgmma": "flash_tiled_bf16_kernel", "mma": "flash_tiled_bf16_mma_kernel"}
+    out = []
+    for x in (e, e["other_kernel"]):
+        kernel = x["plan"]["kernel"]
+        out.append({"name": names[kernel], **common, "plan": x["plan"],
+                    "launches": by_kernel.get(kernel, 0),
+                    "max_abs_err": x["max_abs_err"], "max_rel_err": x["max_rel_err"],
+                    "tiled_mismatch_share": x["tiled_mismatch_share"],
+                    "ms": x["ms"], "device_ms": x["device_ms"]})
     return out
 
 
@@ -3367,7 +3447,7 @@ def print_dryrun(dr: dict, card: str) -> None:
               f"them {_gib(c['peak_above_arguments'])} against the "
               f"temporary {_gib(d['memory']['temp_size_in_bytes'])} (ratio "
               f"{e['peak_over_temp']}, band {TOL_DRYRUN_PEAK:.0%}); K4 "
-              f"launched {c['k4_launches']}, charged "
+              f"launched {c['k4_launches']} {c.get('k4_by_kernel') or ''}, charged "
               f"{d['kernels'].get('flash_attention', {}).get('launches', 0)}; "
               f"{_ms(e['ms'])} ms a step against the bound "
               f"{e['bound_ms']:.4f} ms (by {e['bound_by']})"
@@ -3375,19 +3455,29 @@ def print_dryrun(dr: dict, card: str) -> None:
                  f"; in a trace of the step (torch.profiler, 3 calls) "
                  f"{_ms(e['device_ms'])} device ms a step, of which K4's "
                  f"{c['k4_launches']} launches {_ms(e['k4_ms'])}"))
+    def walk(e):
+        return ("" if "tiled_row_err" not in e else
+                f"; against the {e['key_tile']}-key tile-order walk rows "
+                f"within {e['tiled_row_err']:.2e} <= {TOL_K4_BF16} of their "
+                f"own max, {e['tiled_mismatch_share']:.3%} of the bits differ "
+                f"<= {K4_BF16_TILED_MISMATCH:.3%}, p left whole "
+                f"{e['whole_p_mismatch_share']:.2%} > {K4_BF16_WHOLE_P:.0%}")
+
     for e in dr["k4"]:
         print(f"  K4 at {e['q']} rep {e['rep']} {e['dtype']} ({e['path']}, "
-              f"{e['plan']['route']} route): "
+              f"{e['plan']['route']} route, {e['plan']['kernel']} kernel): "
               f"{_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, plain "
               f"{_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])} / device "
               f"{_ms(e['library_device_ms'])}, bound {e['bound_ms']:.5f} by "
               f"{e['bound_by']}; rel err {e['max_rel_err']:.2e} <= {e['tol']}"
-              + ("" if "tiled_row_err" not in e else
-                 f"; against the tile-order walk rows within "
-                 f"{e['tiled_row_err']:.2e} <= {TOL_K4_BF16} of their own max, "
-                 f"{e['tiled_mismatch_share']:.3%} of the bits differ <= "
-                 f"{K4_BF16_TILED_MISMATCH:.3%}, p left whole "
-                 f"{e['whole_p_mismatch_share']:.2%} > {K4_BF16_WHOLE_P:.0%}"))
+              + walk(e))
+        o = e.get("other_kernel")
+        if o is not None:
+            print(f"    the {o['plan']['kernel']} kernel on the same inputs in "
+                  f"the same call: {_ms(o['ms'])} ms, device "
+                  f"{_ms(o['device_ms'])}; rel err "
+                  f"{o['max_rel_err']:.2e}" + walk(o))
+            print("    " + clock_line("both kernels' timing", e["sm_clock"]))
 
 
 # -- the autotune ledger: K1/K2 launch plans swept per cell -----------------
@@ -5925,6 +6015,7 @@ def main() -> int:
     k3e["zoo"] = zk["coded_gemm"] + zk["coded_gemm_encode"]
     k4e["zoo"] = zk["flash_attention"] + zk["flash_attention_bf16"]
     k4e["dryrun"] = dr["k4"]
+    k4e["tiled_bf16"] = tiled_bf16_kernels(dr)
     k4e["tp_families"] = dist["tp_families"]["k4"]
     k4e["edges"] = dist["edges"]["k4"]
     for e in (k1e, k2e, k3e, k4e):

@@ -5,15 +5,17 @@ shapes where the plans choose between them:
     python3 scripts/torch_route_sweep.py [--out FILE]
 
 K4 (``flash_attention``): for each ``(BH, Sq, Sk, D, rep, causal)`` of
-``K4_SHAPES`` in fp32 and bf16, the rows route (``rows_plan``) and the
-tiled route (``tiled_plan``) are launched on the same inputs
-(``launch_plan``), each checked against ``flash_attention_plain`` (fp32
-within 2e-5 of max|plain|, bf16 within 2^-7) and against a second launch
-of itself (bit for bit), then timed in device ms (``chip_smoke.device_ms``,
-10 calls) beside SDPA in the same type (K/V repeated outside the timed
-call).  The prompt lengths of ``CROSSOVER_S`` at the zoo's prefill heads
-give the row at which ``flash_plan`` should leave the rows route
-(``TILED_MIN_SQ``).
+``K4_SHAPES`` in fp32 and bf16, the rows route (``rows_plan``) and each
+tiled kernel of the type (``tiled_plan(kernel=)``: fp32 ``ffma``; bf16
+``wgmma`` at D 64 and 128 and the ``mma`` one at every D) are launched on
+the same inputs (``launch_plan``), each checked against
+``flash_attention_plain`` (fp32 within 2e-5 of max|plain|, bf16 within
+2^-7) and against a second launch of itself (bit for bit), then timed in
+device ms (``chip_smoke.device_ms``, 10 calls) beside SDPA in the same
+type (K/V repeated outside the timed call).  The prompt lengths of
+``CROSSOVER_S`` at the zoo's prefill heads give the row at which
+``flash_plan`` should leave the rows route (``TILED_MIN_SQ``), and where
+each bf16 tiled kernel is the faster.
 
 K2 (``matmul``): for each Qwen3-4B coded worker GEMM (batch 4) and the
 SmolLM-135M ones, the column kernel and the split kernel at 1, 2, 4 and 8
@@ -88,10 +90,14 @@ def k4_sweep(cs, device) -> list[dict]:
                         for t in (k, v))
             row = {"bh": bh, "sq": sq, "sk": sk, "d": d, "rep": rep,
                    "causal": causal, "dtype": str(dtype).removeprefix("torch."),
-                   "plan": k4.flash_plan(bh, sq, sk, d, rep, bf16).route,
                    "sdpa_ms": cs.device_ms(lambda: F.scaled_dot_product_attention(
                        q4, k4r, v4r, is_causal=causal))}
-            for plan in (k4.rows_plan(bh, sq, d, rep), k4.tiled_plan(bh, sq, rep, bf16)):
+            kernels = (["wgmma", "mma"] if d in k4.WGMMA_HEAD_DIMS else ["mma"]
+                       ) if bf16 else ["ffma"]
+            plans = [k4.rows_plan(bh, sq, d, rep)] + [
+                k4.tiled_plan(bh, sq, d, rep, bf16, kernel=kern) for kern in kernels]
+            row["plan"] = k4.flash_plan(bh, sq, sk, d, rep, bf16).kernel
+            for plan in plans:
                 def run(plan=plan):
                     return k4.launch_plan(plan, q, k, v, scale=None,
                                           causal=causal, rep=rep)
@@ -99,18 +105,19 @@ def k4_sweep(cs, device) -> list[dict]:
                 got = run()
                 rel = _rel(got, want)
                 if not rel <= TOL[dtype]:
-                    raise AssertionError(f"K4 {plan.route} {row}: rel err {rel}")
+                    raise AssertionError(f"K4 {plan.kernel} {row}: rel err {rel}")
                 if not torch.equal(run(), got):
-                    raise AssertionError(f"K4 {plan.route} {row}: two launches differ")
-                row[f"{plan.route}_ms"] = cs.device_ms(run)
-                row[f"{plan.route}_rel_err"] = rel
+                    raise AssertionError(f"K4 {plan.kernel} {row}: two launches differ")
+                row[f"{plan.kernel}_ms"] = cs.device_ms(run)
+                row[f"{plan.kernel}_rel_err"] = rel
             row["bound_ms"], row["bound_by"] = cs.flash_bound(
                 bh, bh // rep, sq, sk, d, dtype, causal)
             print(f"K4 {bh} x {sq} x {sk} D {d} rep {rep} "
-                  f"{'causal' if causal else 'full'} {row['dtype']}: rows "
-                  f"{row['rows_ms']:.5f} ms, tiled {row['tiled_ms']:.5f} ms, SDPA "
-                  f"{row['sdpa_ms']:.5f}, bound {row['bound_ms']:.5f} "
-                  f"({row['bound_by']}); plan {row['plan']}", flush=True)
+                  f"{'causal' if causal else 'full'} {row['dtype']}: "
+                  + ", ".join(f"{'*' if p.kernel == row['plan'] else ''}{p.kernel} "
+                              f"{row[p.kernel + '_ms']:.5f}" for p in plans)
+                  + f" ms, SDPA {row['sdpa_ms']:.5f}, bound {row['bound_ms']:.5f} "
+                  f"({row['bound_by']})", flush=True)
             out.append(row)
             del q, k, v, want, q4, k4r, v4r
     return out

@@ -37,33 +37,52 @@
 // heads, D = 128) the work is 6.9e10 FLOP over 84 MB: 0.07 ms at the bf16
 // tensor-core peak against 0.025 ms of HBM traffic, so the launch is bound
 // by operations, and the rows route (every block re-reading every key for
-// 16 (head, row) pairs, bf16 widened to FFMA) took 115x its bound.  So:
+// 16 (head, row) pairs, bf16 widened to FFMA) took 115x its bound.  Three
+// kernels; the launch shape names one (flash_plan's tiled plans).
 //
-//   * one block per (query head, tile of 64 query rows), 64-key tiles
-//     walked in a loop; K and V tiles are double-buffered in (dynamic)
-//     shared memory with cp.async, the next tile loading while this one
-//     is multiplied; rows are padded by 16 bytes so no load conflicts;
-//   * bf16: four warps of 16 query rows each; q stays in registers as
-//     mma A fragments (ldmatrix), Q.K^T and P.V run on the tensor cores
-//     (mma.sync m16n8k16, fp32 accumulators), K fragments by ldmatrix and
-//     V fragments by ldmatrix.trans; the score accumulators are reused in
-//     place as P.V's A fragments; row max and sum need only the 4 lanes
-//     of a quad;
-//   * fp32: eight warps, each thread a 4 x 4 block of scores (4 rows, 4
-//     keys 16 apart) and a 4 x D/16 block of the output, IEEE FFMA over
-//     float4 reads of shared memory; p goes through shared memory to the
-//     threads that own its rows' outputs;
-//   * causal: key tiles above a block's last row are never loaded, only
-//     tiles that cross a warp's rows are masked, and the grid issues the
-//     longest query tiles (the bottom of the triangle) first so the
-//     triangle balances over the SMs;
-//   * the output is written with 16-byte stores (bf16 through the warp's
-//     own q rows in shared memory).
+//   * bf16 at D 64 and 128, the wgmma kernel (flash_tiled_bf16_kernel):
+//     query tiles of (query head, 128 rows), walked longest first by a
+//     persistent grid of one 384-thread block an SM.  Warpgroup 2 gives up
+//     its registers (setmaxnreg) and two of its threads issue the TMA
+//     copies: a tile's Q once and 128-key K tiles, and V tiles, each into
+//     its own ring on full / empty mbarriers; tiles lie in shared memory as
+//     TMA's 128-byte swizzle writes them (3-D tensor maps over (heads, S,
+//     D), zero past S).  Warpgroups 0 and 1 own 64 rows each and take up
+//     to 240 registers: S = Q.K^T by wgmma m64n128k16 with Q and K from
+//     shared memory; the S accumulators, packed pairwise to bf16, are
+//     P.V's register A operand, and V is read MN-major (the descriptor's
+//     transpose), never transposed in memory.  Each loop step issues Q.K^T
+//     of tile t and P.V of tile t - 1, then runs the softmax of tile t
+//     while P.V(t - 1) runs; named barriers make the two warpgroups take
+//     turns issuing, so one's softmax also runs under the other's GEMMs.
+//     The output goes through a staging tile to a TMA store, while the
+//     producer already loads the block's next tile.
+//   * bf16, the mma.sync kernel (flash_tiled_bf16_mma_kernel; every D,
+//     the route at D 16 and 32): one block per (query head, 64 query
+//     rows), 64-key tiles double-buffered with cp.async, four warps of 16
+//     query rows each; q stays in registers as mma A fragments (ldmatrix),
+//     Q.K^T and P.V on mma.sync m16n8k16 with fp32 accumulators, K by
+//     ldmatrix and V by ldmatrix.trans; the score accumulators are reused
+//     in place as P.V's A fragments;
+//   * fp32 (flash_tiled_f32_kernel): one block per (query head, 64 query
+//     rows), 64-key tiles double-buffered with cp.async, eight warps, each
+//     thread a 4 x 4 block of scores (4 rows, 4 keys 16 apart) and a 4 x
+//     D/16 block of the output, IEEE FFMA over float4 reads of shared
+//     memory; p goes through shared memory to the threads that own its
+//     rows' outputs;
+//   * in all three, row max and sum need only the lanes that share a row;
+//     causal: key tiles above a block's last row are never loaded, only
+//     tiles that cross a warpgroup's (warp's) rows are masked, and the
+//     grid issues the longest query tiles (the bottom of the triangle)
+//     first so the triangle balances over the SMs.
 //
 // Precision, both routes: scores, m, l and acc in fp32 (fmaf; no TF32, no
-// fast math).  p = expf(s - m), except in the tiled bf16 kernel: exp2f(x -
-// m) of scores x with log2(e) folded into the scale, one rounding more and
-// far inside p's bf16 rounding.  bf16 products are exact in fp32, so a
+// fast math).  p = expf(s - m), except in the tiled bf16 kernels: 2^(x -
+// m) of scores x with log2(e) folded into the scale, one rounding more
+// and far inside p's bf16 rounding, m the running max after each key tile
+// (128 keys in the wgmma kernel, 64 in the mma.sync one; the wgmma kernel
+// takes 2^x from ex2.approx.ftz, exp2f's result but flushed to 0 below
+// 2^-126, the mma.sync one from exp2f).  bf16 products are exact in fp32, so a
 // score is the fp32 sum of exact products, as the TPU kernel's
 // preferred_element_type=f32 dot (the tensor cores add them with fp32
 // accumulators); p is rounded to bf16 before P.V (the TPU kernel's
@@ -78,6 +97,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers, TMA, wgmma descriptors and fences
 
 namespace {
 
@@ -315,13 +336,9 @@ constexpr int TK = 64;  // keys a tile
 constexpr int TILED_BF16_THREADS = 128;  // four warps of 16 query rows
 constexpr int TILED_F32_THREADS = 256;   // 16 x 16 threads of 4 x 4 scores
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 // 16 bytes global -> shared, asynchronously; zero-filled where !full
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(full ? 16 : 0)
                : "memory");
 }
@@ -338,7 +355,7 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
+               : "r"(smem_u32(p))
                : "memory");
 }
 
@@ -346,7 +363,7 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
+      : "r"(smem_u32(p))
       : "memory");
 }
 
@@ -399,11 +416,11 @@ __device__ __forceinline__ void stage_tile(T* dst, const T* src, int r0, int row
 // rows g and g + 8 and, of each 8-column n-tile, columns 2t and 2t + 1.
 template <int D>
 __global__ void __launch_bounds__(TILED_BF16_THREADS)
-flash_tiled_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        __nv_bfloat16* __restrict__ out, int BH, int Sq, int Sk,
-                        int rep, float scale, int causal) {
+flash_tiled_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ out, int BH, int Sq,
+                            int Sk, int rep, float scale, int causal) {
   constexpr int LD = D + 8;  // padded row (bf16): rows 16 bytes apart mod 128
   constexpr int CH = D / 8;  // 16-byte chunks a row
   extern __shared__ float4 smem4[];
@@ -743,17 +760,610 @@ flash_tiled_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// -- tiled route, bf16 on Hopper's wgmma ------------------------------------
+// Query tiles of (query head, 128 rows), walked by a persistent grid of one
+// block an SM: warpgroups 0 and 1 own 64 rows each and run the GEMMs and
+// the softmax; in warpgroup 2 one thread issues the TMA copies of Q and K,
+// another those of V.  A tile's Q is loaded once; 128-key K and V tiles
+// stream through two rings on full / empty mbarriers, on across the
+// block's tiles.  Every tile is held in shared memory as 64-column blocks
+// of [rows][64 bf16] with the 128-byte swizzle, as TMA writes it and wgmma
+// reads it.  K4_TRACE adds clock64 stamps (scripts/torch_k4_trace.py).
+namespace wg {
+
+constexpr int TQ = 128;          // query rows a block
+constexpr int TK = 128;          // keys a tile (the TPU kernel's bk)
+constexpr int THREADS = 384;     // warpgroups 0-1 consume, 2 loads
+constexpr int BLOCK = 128 * 128;  // bytes of a [128 rows][64 bf16] block
+constexpr int HALF = 64 * 128;   // a consumer's 64 rows of a Q block
+// setmaxnreg: 24 * 128 + 240 * 256 <= 65,536 registers an SM
+constexpr int LOAD_REGS = 24, MMA_REGS = 240;
+// named barriers (0 is __syncthreads): TURN + w orders warpgroup w's GEMM
+// issues against the other's; OWN + w is warpgroup w's own 128 threads
+constexpr int TURN = 1, OWN = 3;
+
 template <int D>
-int launch_tiled_bf16(const void* q, const void* k, const void* v, void* out,
-                      long long BH, long long Sq, long long Sk, long long rep,
-                      float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(__nv_bfloat16) * (size_t)(TQ + 4 * TK) * (D + 8);
+struct Cfg {
+  static constexpr int CB = D / 64;                   // 64-column blocks a row
+  static constexpr uint32_t TILE = CB * BLOCK;        // Q (128 rows) or a K/V tile
+  // Q, the output tile, then the K and V rings
+  static constexpr int KST = 2;            // K tiles in flight
+  static constexpr int VST = 2;            // V tiles in flight
+  static constexpr size_t BODY = (size_t)TILE * (2 + KST + VST);
+  // 1024 bytes of slack to align the tiles to the swizzle's period, then
+  // the barriers: Q's full and empty, and full and empty for each K and V
+  // stage
+  static constexpr size_t BYTES =
+      1024 + BODY + (2 + 2 * KST + 2 * VST) * sizeof(uint64_t);
+  static_assert(BYTES <= 232448, "a block's shared memory on an H100");
+};
+
+// wgmma descriptor of an MN-major B operand with the 128-byte swizzle (V
+// as it lies, [keys][D]): 8-key groups 1024 bytes apart (stride byte
+// offset), 64-column blocks BLOCK bytes apart (leading byte offset)
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(BLOCK >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// 2^x by MUFU.EX2 alone: exp2f's result for every normal one (2 ulp), and
+// 0 for results below 2^-126, which no bf16 output can tell from p's
+// rounding (l >= 1 from the row's max)
+__device__ __forceinline__ float exp2_(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void turn_wait(int me) { bar_sync(me, 256); }
+__device__ __forceinline__ void turn_pass(int other) { bar_arrive(other, 256); }
+
+// Step timing, compiled only with -DK4_TRACE: thread 0 of each consumer
+// warpgroup of block 0 writes clock64() stamps of each step of each key
+// tile of the block's first query tile to trace[(w * 256 + t) * 8 + step].
+#ifdef K4_TRACE
+__device__ long long* trace_buf = nullptr;
+#define K4_STAMP(t, step)                                                  \
+  do {                                                                     \
+    if (trace && (t) < 256) trace[(w * 256 + (t)) * 8 + (step)] = clock64(); \
+  } while (0)
+#else
+#define K4_STAMP(t, step) \
+  do {                    \
+  } while (0)
+#endif
+
+// D (64 x 128, fp32, registers) = A (64 x 16 bf16, K-major in shared memory)
+// * B (128 x 16 bf16, K-major in shared memory)^T + (scale_d ? D : 0)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 128, fp32, registers) = A (64 x 16 bf16, registers) * B (16 x 128
+// bf16, MN-major in shared memory: the descriptor's transpose) + (scale_d ?
+// D : 0)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64, fp32, registers) = A (64 x 16 bf16, registers) * B (16 x 64
+// bf16, MN-major in shared memory: the descriptor's transpose) + (scale_d ?
+// D : 0)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// S = Q K^T of the tile at `ka`: D / 16 k-steps of 16 columns, 32 bytes
+// apart in a swizzled row, 64-column blocks BLOCK bytes apart
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[TK / 2], uint32_t qa,
+                                         uint32_t ka) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * BLOCK + (kk & 3) * 32;
+    wgmma_ss(s, desc_sw128(qa + off), desc_sw128(ka + off), kk > 0);
+  }
+}
+
+// O += P V of the tile at `va` (O: D / 2 registers a thread): k-step kk
+// takes keys 16kk .. 16kk + 15, two 8-key groups of 1024 bytes
+template <int R>
+__device__ __forceinline__ void issue_pv(float (&o)[R], const uint32_t (&p)[TK / 16][4],
+                                         uint32_t va) {
+#pragma unroll
+  for (int kk = 0; kk < TK / 16; ++kk) wgmma_rs(o, p[kk], desc_sw128_mn(va + kk * 2048), 1);
+}
+
+// The online softmax over one tile's scores.  In wgmma's accumulator
+// layout s[4j + e] is row row0 + 8 (e >> 1), key k0 + 8j + 2 t4 + (e & 1):
+// a row's 128 scores lie in the 4 lanes of a quad.  Scores are scaled into
+// units of log2, masked (an instance of its own, for the tiles that cross
+// the diagonal or Sk), then replaced by p = 2^(x - m) against the new
+// running max; l and corr as the mma.sync kernel's.  The fences at the end
+// keep the compiler from sinking the work past the caller's next wgmma
+// wait, which would take it out from under P.V.
+template <bool EDGE>
+__device__ __forceinline__ void online_softmax(float (&s)[TK / 2], float (&m)[2],
+                                               float (&l)[2], float (&corr)[2],
+                                               float sc, int k0, int t4, int row0,
+                                               int Sk, int causal) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < TK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * sc;
+      if constexpr (EDGE) {
+        const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        if (key >= Sk || (causal && key > row)) x = -INFINITY;
+      }
+      s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+    corr[r] = exp2_(m[r] - mx[r]);  // 0 on the first tile (a key is live)
+    m[r] = mx[r];
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int j = 0; j < TK / 8; ++j) {
+    const float p0 = exp2_(s[4 * j] - m[0]), p1 = exp2_(s[4 * j + 1] - m[0]);
+    const float p2 = exp2_(s[4 * j + 2] - m[1]), p3 = exp2_(s[4 * j + 3] - m[1]);
+    l[0] += p0 + p1;
+    l[1] += p2 + p3;
+    s[4 * j] = p0;
+    s[4 * j + 1] = p1;
+    s[4 * j + 2] = p2;
+    s[4 * j + 3] = p3;
+  }
+  fence_regs(s);
+  fence_regs(l);
+}
+
+__device__ __forceinline__ void online_softmax(float (&s)[TK / 2], float (&m)[2],
+                                               float (&l)[2], float (&corr)[2],
+                                               float sc, bool edge, int k0,
+                                               int t4, int row0, int Sk,
+                                               int causal) {
+  if (edge)
+    online_softmax<true>(s, m, l, corr, sc, k0, t4, row0, Sk, causal);
+  else
+    online_softmax<false>(s, m, l, corr, sc, k0, t4, row0, Sk, causal);
+}
+
+// p rounded to bf16 as P.V's A fragments: wgmma's accumulator layout is
+// its A layout, so k-step kk is n8 blocks 2kk (keys 2 t4, 2 t4 + 1) and
+// 2kk + 1 (keys 8 + 2 t4, 9 + 2 t4), rows row0 and row0 + 8
+__device__ __forceinline__ void pack_p(uint32_t (&p)[TK / 16][4],
+                                       const float (&s)[TK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < TK / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// O *= corr, done before the caller's next fence (not moved in among its
+// wgmma issues)
+template <int R>
+__device__ __forceinline__ void rescale(float (&o)[R], const float (&corr)[2]) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    o[4 * j] *= corr[0];
+    o[4 * j + 1] *= corr[0];
+    o[4 * j + 2] *= corr[1];
+    o[4 * j + 3] *= corr[1];
+  }
+  fence_regs(o);
+}
+
+// The query tile a block takes: tiles are numbered heads fastest, and
+// causal, the last (longest) query tiles first
+struct Tile {
+  int bh, q0, ntiles;
+};
+
+__device__ __forceinline__ Tile tile_at(int i, int BH, int Sq, int Sk, int causal) {
+  const int nq = (Sq + TQ - 1) / TQ;
+  int qt = i / BH;
+  if (causal) qt = nq - 1 - qt;
+  const int q0 = qt * TQ;
+  // causal: no key after the tile's last row is unmasked for any row
+  const int k_end = causal ? min(Sk, min(Sq, q0 + TQ)) : Sk;
+  return {i % BH, q0, (k_end + TK - 1) / TK};
+}
+
+// grid: one block an SM (at most BH * ceil(Sq / TQ)); block b takes query
+// tiles b, b + gridDim.x, ..., so the longest go first, and loads the next
+// tile's Q and K while it finishes the last one
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_tiled_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap omap, int BH, int Sq,
+                        int Sk, int rep, float scale, int causal) {
+  using Cf = Cfg<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* qs = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  unsigned char* os = qs + Cf::TILE;  // the output tile, staged for its TMA store
+  unsigned char* ks = os + Cf::TILE;
+  unsigned char* vs = ks + Cf::KST * Cf::TILE;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(qs + Cf::BODY);
+  uint64_t* qempty = qfull + 1;
+  uint64_t* kfull = qempty + 1;
+  uint64_t* kempty = kfull + Cf::KST;
+  uint64_t* vfull = kempty + Cf::KST;
+  uint64_t* vempty = vfull + Cf::VST;
+  const int tiles = BH * ((Sq + TQ - 1) / TQ);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(qfull, 1);  // the producer's expect_tx, then the bytes
+    mbar_init(qempty, 256);  // every consumer thread, past its last Q K^T
+    for (int st = 0; st < Cf::KST; ++st) {
+      mbar_init(&kfull[st], 1);
+      mbar_init(&kempty[st], 256);
+    }
+    for (int st = 0; st < Cf::VST; ++st) {
+      mbar_init(&vfull[st], 1);
+      mbar_init(&vempty[st], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // -- producer: gives up registers; one thread issues Q and K copies,
+    // another V copies, each waiting only on its own ring's releases.  The
+    // rings run on across the block's query tiles (kv counts their tiles)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(LOAD_REGS));
+    if (tid == 256 || tid == 288) {
+      const bool is_k = tid == 256;
+      const int nst = is_k ? Cf::KST : Cf::VST;
+      uint64_t* fulls = is_k ? kfull : vfull;
+      uint64_t* empties = is_k ? kempty : vempty;
+      unsigned char* ring = is_k ? ks : vs;
+      const CUtensorMap* map = is_k ? &kmap : &vmap;
+      int kv = 0, n = 0;
+      for (int i = blockIdx.x; i < tiles; i += gridDim.x, ++n) {
+        const Tile tl = tile_at(i, BH, Sq, Sk, causal);
+        const int kvh = tl.bh / rep;
+        if (is_k) {
+          if (n > 0) mbar_wait(qempty, (n - 1) & 1);
+          mbar_expect_tx(qfull, Cf::TILE);
+          for (int c = 0; c < Cf::CB; ++c)
+            for (int h = 0; h < 2; ++h)
+              tma_load_3d(qs + c * BLOCK + h * HALF, &qmap, 64 * c, tl.q0 + 64 * h,
+                          tl.bh, qfull);
+        }
+        for (int t = 0; t < tl.ntiles; ++t, ++kv) {
+          // the ring's stage, once the tile it held before is released
+          const int st = kv % nst;
+          if (kv >= nst) mbar_wait(&empties[st], (kv / nst - 1) & 1);
+          mbar_expect_tx(&fulls[st], Cf::TILE);
+          for (int c = 0; c < Cf::CB; ++c)
+            tma_load_3d(ring + st * Cf::TILE + c * BLOCK, map, 64 * c, t * TK, kvh,
+                        &fulls[st]);
+        }
+      }
+    }
+  } else {
+    // -- consumers: warpgroup w owns rows q0 + 64w .. q0 + 64w + 63 of each
+    // query tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(MMA_REGS));
+    const int w = tid >> 7;
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int me = TURN + w, other = TURN + (w ^ 1);
+#ifdef K4_TRACE
+    long long* trace = blockIdx.x == 0 && (tid & 127) == 0 ? trace_buf : nullptr;
+#endif
+    // scores in units of log2: log2(e) folded into the scale, p = 2^(x - m)
+    const float sc = scale * 1.4426950408889634f;
+    const uint32_t qa = smem_u32(qs) + w * HALF;
+    const uint32_t ka = smem_u32(ks), va = smem_u32(vs);
+
+    float s[TK / 2];           // a tile's scores, then its p in fp32
+    float o[D / 2];
+    uint32_t p[TK / 16][4];    // p in bf16: P.V's A fragments
+    float m[2], l[2], corr[2];
+
+    // The GEMM issues of the two warpgroups alternate (TURN barriers):
+    // while one runs its softmax the tensor cores run the other's GEMMs.
+    // Warpgroup 0 issues first; each issue slot ends by handing the turn
+    // over, except warpgroup 1's last, which nobody waits for.
+    if (w == 1) turn_pass(TURN);
+    int kv = 0, n = 0;
+    for (int i = blockIdx.x; i < tiles; i += gridDim.x, ++n) {
+      const Tile tl = tile_at(i, BH, Sq, Sk, causal);
+      const int ntiles = tl.ntiles;
+      const int row0 = tl.q0 + 64 * w + 16 * warp + g;  // and row0 + 8
+      const int rmin = tl.q0 + 64 * w;  // this warpgroup's first row
+      const bool last_tile = i + (int)gridDim.x >= tiles;
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+      mbar_wait(qfull, n & 1);
+
+      // slot 0: S = Q K^T of key tile 0, then its softmax
+      mbar_wait(&kfull[kv % Cf::KST], (kv / Cf::KST) & 1);
+      __syncwarp();
+      turn_wait(me);
+      wgmma_fence();
+      issue_qk<D>(s, qa, ka + (kv % Cf::KST) * Cf::TILE);
+      wgmma_commit();
+      turn_pass(other);  // slot 0 is never the last
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(&kempty[kv % Cf::KST]);
+      if (ntiles == 1) mbar_arrive(qempty);
+      online_softmax(s, m, l, corr, sc, (causal && TK - 1 > rmin) || TK > Sk, 0,
+                     t4, row0, Sk, causal);
+      pack_p(p, s);
+#ifdef K4_TRACE
+      if (n > 0) trace = nullptr;  // the block's first query tile only
+#endif
+
+      // slot t: issue Q K^T of key tile t and P V of tile t - 1; the
+      // softmax of tile t runs while P V(t - 1) (and the other
+      // warpgroup's GEMMs) are on the tensor cores
+      for (int t = 1; t < ntiles; ++t) {
+        const int kst = (kv + t) % Cf::KST, vst = (kv + t - 1) % Cf::VST;
+        K4_STAMP(t, 0);
+        mbar_wait(&kfull[kst], ((kv + t) / Cf::KST) & 1);
+        mbar_wait(&vfull[vst], ((kv + t - 1) / Cf::VST) & 1);
+        K4_STAMP(t, 1);
+        rescale(o, corr);  // corr of tile t - 1: O's last P V is done
+        __syncwarp();
+        turn_wait(me);
+        K4_STAMP(t, 2);
+        wgmma_fence();
+        issue_qk<D>(s, qa, ka + kst * Cf::TILE);
+        wgmma_commit();
+        issue_pv(o, p, va + vst * Cf::TILE);
+        wgmma_commit();
+        turn_pass(other);
+        K4_STAMP(t, 3);
+        wgmma_wait<1>();  // Q K^T(t) is done; P V(t - 1) may still run
+        fence_regs(s);
+        K4_STAMP(t, 4);
+        mbar_arrive(&kempty[kst]);
+        if (t == ntiles - 1) mbar_arrive(qempty);  // Q is free for the next tile
+        const int k0 = t * TK;
+        online_softmax(s, m, l, corr, sc,
+                       (causal && k0 + TK - 1 > rmin) || k0 + TK > Sk, k0, t4,
+                       row0, Sk, causal);
+        K4_STAMP(t, 5);
+        wgmma_wait<0>();
+        fence_regs(o);
+#pragma unroll
+        for (int kk = 0; kk < TK / 16; ++kk) fence_regs(p[kk]);
+        K4_STAMP(t, 6);
+        mbar_arrive(&vempty[vst]);
+        pack_p(p, s);
+        K4_STAMP(t, 7);
+      }
+
+      // the last slot: P V of the last key tile
+      const int vl = (kv + ntiles - 1) % Cf::VST;
+      mbar_wait(&vfull[vl], ((kv + ntiles - 1) / Cf::VST) & 1);
+      rescale(o, corr);
+      __syncwarp();
+      turn_wait(me);
+      wgmma_fence();
+      issue_pv(o, p, va + vl * Cf::TILE);
+      wgmma_commit();
+      if (w == 0 || !last_tile) turn_pass(other);
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) fence_regs(p[kk]);
+      mbar_arrive(&vempty[vl]);
+      kv += ntiles;
+
+      // l over the quad, then acc / max(l, 1e-30) rounded to bf16 once into
+      // this warpgroup's rows of the output tile, swizzled as the TMA store
+      // reads it; rows past Sq are not stored.  The first barrier waits for
+      // the thread that stored the block's previous tile, which waited
+      // until its store had read the buffer.
+      float den[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(FULL, l[r], 1);
+        l[r] += __shfl_xor_sync(FULL, l[r], 2);
+        den[r] = fmaxf(l[r], 1e-30f);
+      }
+      unsigned char* ow = os + w * HALF;
+      const int r0 = 16 * warp + g;  // rows r0 and r0 + 8, both at swizzle phase g
+      bar_sync(OWN + w, 128);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        unsigned char* row = ow + (j >> 3) * BLOCK + r0 * 128 + ((j & 7) ^ g) * 16 + 4 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(row) =
+            __floats2bfloat162_rn(o[4 * j] / den[0], o[4 * j + 1] / den[0]);
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * 128) =
+            __floats2bfloat162_rn(o[4 * j + 2] / den[1], o[4 * j + 3] / den[1]);
+      }
+      fence_proxy_async();
+      bar_sync(OWN + w, 128);
+      if ((tid & 127) == 0) {
+        for (int c = 0; c < Cf::CB; ++c)
+          tma_store_3d(&omap, ow + c * BLOCK, 64 * c, tl.q0 + 64 * w, tl.bh);
+        tma_store_wait();
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, looked up once through the
+// runtime (no link against libcuda)
+typedef CUresult (*TensorMapEncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+    CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+TensorMapEncodeTiled tensor_map_encoder() {
+  static const TensorMapEncodeTiled fn = []() -> TensorMapEncodeTiled {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                                  cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? (TensorMapEncodeTiled)f
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (heads, S, D) bf16 operand as a 3-D tensor map of boxes of 64 columns
+// x `rows` rows with the 128-byte swizzle: rows past S read as zeros and
+// are not written
+bool bf16_map(CUtensorMap* map, const void* base, long long D, long long S,
+              long long heads, int rows) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)(S * D * 2)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, long long BH,
+           long long Sq, long long Sk, long long rep, float scale, int causal,
+           cudaStream_t stream) {
+  using Cf = Cfg<D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_tiled_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Cf::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap qm, km, vm, om;
+  if (!bf16_map(&qm, q, D, Sq, BH, 64) || !bf16_map(&km, k, D, Sk, BH / rep, TK) ||
+      !bf16_map(&vm, v, D, Sk, BH / rep, TK) || !bf16_map(&om, out, D, Sq, BH, 64))
+    return (int)cudaErrorInvalidValue;
+  long long blocks = BH * ((Sq + TQ - 1) / TQ);
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  if (blocks > sms) blocks = sms;
+  flash_tiled_bf16_kernel<D><<<(unsigned)blocks, THREADS, Cf::BYTES, stream>>>(
+      qm, km, vm, om, (int)BH, (int)Sq, (int)Sk, (int)rep, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
+template <int D>
+int launch_tiled_bf16_mma(const void* q, const void* k, const void* v, void* out,
+                          long long BH, long long Sq, long long Sk, long long rep,
+                          float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(__nv_bfloat16) * (size_t)(TQ + 4 * TK) * (D + 8);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_tiled_bf16_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const unsigned blocks = (unsigned)(BH * ((Sq + TQ - 1) / TQ));
-  flash_tiled_bf16_kernel<D><<<blocks, TILED_BF16_THREADS, smem, stream>>>(
+  flash_tiled_bf16_mma_kernel<D><<<blocks, TILED_BF16_THREADS, smem, stream>>>(
           (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
           (const __nv_bfloat16*)v, (__nv_bfloat16*)out, (int)BH, (int)Sq,
           (int)Sk, (int)rep, scale, causal);
@@ -777,13 +1387,20 @@ int launch_tiled_f32(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// kernel: 0 the fp32 FFMA kernel, 1 the bf16 mma.sync kernel, 2 the bf16
+// wgmma kernel (D 64 and 128 only)
 template <int D>
 int launch_tiled(const void* q, const void* k, const void* v, void* out,
                  long long BH, long long Sq, long long Sk, long long rep,
-                 float scale, int causal, int bf16, cudaStream_t stream) {
-  if (bf16)
-    return launch_tiled_bf16<D>(q, k, v, out, BH, Sq, Sk, rep, scale, causal,
-                                stream);
+                 float scale, int causal, int kernel, cudaStream_t stream) {
+  if (kernel == 2) {
+    if constexpr (D == 64 || D == 128)
+      return wg::launch<D>(q, k, v, out, BH, Sq, Sk, rep, scale, causal, stream);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kernel == 1)
+    return launch_tiled_bf16_mma<D>(q, k, v, out, BH, Sq, Sk, rep, scale, causal,
+                                    stream);
   return launch_tiled_f32<D>(q, k, v, out, BH, Sq, Sk, rep, scale, causal, stream);
 }
 
@@ -827,10 +1444,12 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v,
 }
 
 // The tiled route: the rows route's arguments, of which the launch shape
-// is the kernel's own: one block per (query head, 64 query rows), so heads
-// = 1 and rows = 64, with warps = 4 for bf16 and 8 for fp32 (flash_plan's
-// tiled plan, checked here so that the plan is what launches);
-// BH * ceil(Sq / 64) blocks, at most 2^31 - 1.
+// names the kernel and must be its own (flash_plan's tiled plans, checked
+// here so that the plan is what launches): heads = 1 and
+//   fp32: rows 64, warps 8 (the FFMA kernel);
+//   bf16: rows 128, warps 12 (the wgmma kernel; D 64 and 128 only),
+//         or rows 64, warps 4 (the mma.sync kernel, every D);
+// BH * ceil(Sq / rows) blocks, at most 2^31 - 1.
 extern "C" int flash_attn_tiled(const void* q, const void* k, const void* v,
                                 void* out, long long BH, long long Sq,
                                 long long Sk, long long D, long long rep,
@@ -840,21 +1459,41 @@ extern "C" int flash_attn_tiled(const void* q, const void* k, const void* v,
   if (BH < 0 || Sq < 0 || Sk < 1 || rep < 1 || BH % rep != 0 ||
       Sq > (1LL << 24) || Sk > (1LL << 24) || BH > (1LL << 31) - 1)
     return (int)cudaErrorInvalidValue;
-  if (heads != 1 || rows != TQ ||
-      warps * 32 != (bf16 ? TILED_BF16_THREADS : TILED_F32_THREADS))
+  int kernel;
+  if (heads != 1) {
     return (int)cudaErrorInvalidValue;
-  if (BH * ((Sq + TQ - 1) / TQ) > (1LL << 31) - 1)  // grid.x
+  } else if (!bf16 && rows == TQ && warps * 32 == TILED_F32_THREADS) {
+    kernel = 0;
+  } else if (bf16 && rows == TQ && warps * 32 == TILED_BF16_THREADS) {
+    kernel = 1;
+  } else if (bf16 && rows == wg::TQ && warps * 32 == wg::THREADS &&
+             (D == 64 || D == 128)) {
+    kernel = 2;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (BH * ((Sq + rows - 1) / rows) > (1LL << 31) - 1)  // grid.x
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (BH == 0 || Sq == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  const int c = causal ? 1 : 0, b = bf16 ? 1 : 0;
+  const int c = causal ? 1 : 0;
   switch (D) {
-    case 16: return launch_tiled<16>(q, k, v, out, BH, Sq, Sk, rep, scale, c, b, s);
-    case 32: return launch_tiled<32>(q, k, v, out, BH, Sq, Sk, rep, scale, c, b, s);
-    case 64: return launch_tiled<64>(q, k, v, out, BH, Sq, Sk, rep, scale, c, b, s);
-    case 128: return launch_tiled<128>(q, k, v, out, BH, Sq, Sk, rep, scale, c, b, s);
+    case 16: return launch_tiled<16>(q, k, v, out, BH, Sq, Sk, rep, scale, c, kernel, s);
+    case 32: return launch_tiled<32>(q, k, v, out, BH, Sq, Sk, rep, scale, c, kernel, s);
+    case 64: return launch_tiled<64>(q, k, v, out, BH, Sq, Sk, rep, scale, c, kernel, s);
+    case 128: return launch_tiled<128>(q, k, v, out, BH, Sq, Sk, rep, scale, c, kernel, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+#ifdef K4_TRACE
+// where the traced wgmma kernel writes its stamps (a device buffer of 2 *
+// 256 * 8 int64); a null buffer stops it
+extern "C" int flash_attn_tiled_trace(void* buf) {
+  long long* p = (long long*)buf;
+  cudaMemcpyToSymbol(wg::trace_buf, &p, sizeof(p));
+  return (int)cudaGetLastError();
+}
+#endif

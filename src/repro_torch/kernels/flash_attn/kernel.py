@@ -11,10 +11,10 @@ operands follow the TPU kernel: scores, softmax state and sums in fp32,
 launches the CUDA kernel for CUDA tensors and runs
 ``flash_attention_plain`` only for tensors that lie on the CPU;
 ``flash_plan`` chooses the route (the ``rows`` kernel for short prompts,
-the ``tiled`` kernel for long sequences; both in ``csrc/flash_attn.cu``)
+the ``tiled`` kernels for long sequences; all in ``csrc/flash_attn.cu``)
 and its launch shape; ``flash_attention_tiled_plain`` computes the same
-function in the tiled kernel's order of rounding, for a bit-level check of
-that route in bf16.  The kernel has no backward (nor
+function in a tiled bf16 kernel's order of rounding, for a bit-level
+check of that route in bf16.  The kernel has no backward (nor
 has the TPU kernel): on the card it refuses an operand that requires grad
 while grad mode is on, where the output would silently cut the gradient.
 Meta operands (the dry run, ``launch.dryrun``) launch nothing: after the
@@ -29,14 +29,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..native import (NUM_SMS, LaunchCounter, launch_on, load_library,
-                      record_kernel)
+from ..native import (NUM_SMS, LaunchCounter, LaunchTotal, launch_on,
+                      load_library, record_kernel)
 
 __all__ = ["flash_attention", "flash_attention_plain",
            "flash_attention_tiled_plain", "flash_plan", "FlashPlan",
-           "flash_cost", "launches", "HEAD_DIMS"]
-
-launches = LaunchCounter("flash_attention")
+           "flash_cost", "launches", "kernel_launches", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 128)  # the kernels' template instances
 DTYPES = (torch.float32, torch.bfloat16)
@@ -45,12 +43,21 @@ MAX_WARPS = 16  # warps a block
 PAIRS_A_WARP = 4  # (query head, query row) pairs one warp takes in turn
 ROW_CHOICES = (64, 32, 16, 8, 4, 2, 1)  # query rows a block, most first
 MAX_GRID_Y = 65535  # one row of blocks per (KV head, head group)
-# the tiled route: its kernels' launch shape (TQ and TILED_*_THREADS in
-# csrc/flash_attn.cu, which refuses any other)
-TILED_MIN_SQ = 48  # query rows from which flash_plan takes it
-TILED_ROWS = 64  # query rows a block (and keys a tile)
-TILED_WARPS = {False: 8, True: 4}  # warps a block: fp32, bf16
+# the tiled route: each kernel's launch shape, (query rows a block, keys a
+# tile, warps a block); csrc/flash_attn.cu's flash_attn_tiled takes these
+# and no other
+TILED_MIN_SQ = {False: 48, True: 32}  # query rows from which flash_plan takes it
+TILED_KERNELS = {"ffma": (64, 64, 8),      # fp32, FFMA
+                 "mma": (64, 64, 4),       # bf16 on mma.sync, every head dim
+                 "wgmma": (128, 128, 12)}  # bf16 on wgmma: 2 + 1 warpgroups
+WGMMA_HEAD_DIMS = (64, 128)  # the wgmma kernel's instances
+WGMMA_MIN_ROWS = 9216  # query rows over all heads from which bf16 takes it
 MAX_TILED_BLOCKS = 2 ** 31 - 1  # a flat grid of (query head, row tile)
+# launches of each kernel (rows, and the three tiled ones), and of them all;
+# each is named after K4, so a CUDA graph's tally counts them as K4's
+kernel_launches = {k: LaunchCounter("flash_attention")
+                   for k in ("rows", *TILED_KERNELS)}
+launches = LaunchTotal("flash_attention", kernel_launches.values())
 
 
 def max_pairs(d: int) -> int:
@@ -61,17 +68,27 @@ def max_pairs(d: int) -> int:
 
 
 class FlashPlan(NamedTuple):
-    """How K4 launches: on ``route`` (``"rows"`` or ``"tiled"``), each
-    block serves ``heads`` query heads of one KV head and ``rows`` query
-    rows of each, with ``warps`` warps; ``groups`` blocks cover a KV head's
-    ``rep`` query heads, ``BH / rep * groups * ceil(Sq / rows)`` =
-    ``blocks`` in all."""
+    """How K4 launches: on ``route`` (``"rows"`` or ``"tiled"``) by
+    ``kernel`` (``"rows"``, or a key of ``TILED_KERNELS``), each block
+    serves ``heads`` query heads of one KV head and ``rows`` query rows of
+    each, with ``warps`` warps (a tiled kernel walking ``keys`` keys at a
+    time); ``groups``
+    blocks cover a KV head's ``rep`` query heads, ``BH / rep * groups *
+    ceil(Sq / rows)`` = ``blocks`` in all (for the ``wgmma`` kernel, query
+    tiles: a persistent grid of one block an SM walks them)."""
     route: str
     heads: int
     rows: int
     warps: int
     groups: int
     blocks: int
+    kernel: str
+
+    @property
+    def keys(self) -> int | None:
+        """Keys a tile of the tiled kernel (``TILED_KERNELS``), which the
+        bit check walks at; None on the rows route."""
+        return TILED_KERNELS[self.kernel][1] if self.route == "tiled" else None
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,25 +99,47 @@ def flash_plan(bh: int, sq: int, sk: int, d: int, rep: int,
     ``TILED_MIN_SQ`` query rows on, else ``rows_plan``.  ``sk`` changes
     nothing: every block walks its keys in chunks.
 
-    The crossover, timed by ``scripts/torch_route_sweep.py`` on an H100
-    (700 W) at the zoo's prefill heads (SmolLM-135M, Qwen3-4B, Hymba-1.5B,
-    Whisper-medium's decoder; 4 prompts, causal): at 16 query rows the
-    rows route is the faster in all 8 (heads x type) cells (0.0043
-    against 0.0085 device ms at SmolLM's fp32 prefill); at 32 in 4 of 8
-    (3 of the 4 fp32 cells); at 48 the tiled route is the faster in all 8,
-    and from there on by more at each length (at 512, 3.2-4.4x in fp32,
-    12-17x in bf16)."""
+    The crossovers, timed by ``scripts/torch_route_sweep.py`` on an NVIDIA
+    H100 80GB HBM3 at 700 W at the zoo's prefill heads (SmolLM-135M,
+    Qwen3-4B, Hymba-1.5B, Whisper-medium's decoder; 4 prompts, causal),
+    device ms.  fp32: at 16 query rows the rows route is the faster in all
+    4 cells, at 32 in 3 of 4, from 48 the FFMA tiled kernel in all 4
+    (3.2-4.4x at 512).  bf16: at 16 rows the rows route in all 4 (0.0061
+    against the mma.sync kernel's 0.0071 at Qwen3-4B's heads), from 32 the
+    tiled route in all 4 (0.0072 against 0.0117 at Qwen3-4B's; a tie at
+    SmolLM's, 0.00504 against 0.00506).  Of the two bf16 tiled kernels
+    (``tiled_kernel``) the mma.sync one is the faster up to 8,192 query
+    rows over all heads in all 4 cells (at Qwen3-4B's 128 heads x 64 rows
+    0.0079 against the wgmma kernel's 0.0094), the wgmma one from 9,216 in
+    all 4 (128 x 96: 0.0096 against 0.0114; at 512 rows 1.1-1.8x, at the
+    Qwen3-4B prefill of 64 heads x 2,048 rows 2.1x)."""
     del sk
-    if sq >= TILED_MIN_SQ:
-        return tiled_plan(bh, sq, rep, bf16)
+    if sq >= TILED_MIN_SQ[bool(bf16)]:
+        return tiled_plan(bh, sq, d, rep, bf16)
     return rows_plan(bh, sq, d, rep)
 
 
-def tiled_plan(bh: int, sq: int, rep: int, bf16: bool = False) -> FlashPlan:
-    """The tiled route: one block per (query head, ``TILED_ROWS`` query
-    rows), ``TILED_WARPS`` warps, walking ``TILED_ROWS``-key tiles."""
-    return FlashPlan("tiled", 1, TILED_ROWS, TILED_WARPS[bool(bf16)], rep,
-                     bh * -(-sq // TILED_ROWS))
+def tiled_kernel(bh: int, sq: int, d: int, bf16: bool) -> str:
+    """The tiled route's kernel for ``q (bh, sq, d)``: fp32 on FFMA; bf16
+    on wgmma where it has an instance (``WGMMA_HEAD_DIMS``) and from
+    ``WGMMA_MIN_ROWS`` query rows over all heads on, else on mma.sync (its
+    64-row blocks fill the card sooner)."""
+    if not bf16:
+        return "ffma"
+    if d in WGMMA_HEAD_DIMS and bh * sq >= WGMMA_MIN_ROWS:
+        return "wgmma"
+    return "mma"
+
+
+def tiled_plan(bh: int, sq: int, d: int, rep: int, bf16: bool = False,
+               kernel: str | None = None) -> FlashPlan:
+    """The tiled route on ``kernel`` (``tiled_kernel``'s by default; a
+    bf16 kernel can be named to time the two side by side): one block per
+    (query head, its rows), walking its key tiles, as ``TILED_KERNELS``
+    says."""
+    kernel = kernel or tiled_kernel(bh, sq, d, bf16)
+    rows, _, warps = TILED_KERNELS[kernel]
+    return FlashPlan("tiled", 1, rows, warps, rep, bh * -(-sq // rows), kernel)
 
 
 def rows_plan(bh: int, sq: int, d: int, rep: int) -> FlashPlan:
@@ -120,7 +159,8 @@ def rows_plan(bh: int, sq: int, d: int, rep: int) -> FlashPlan:
     fits = [r for r in ROW_CHOICES if r * heads <= cap and (r == 1 or r < 2 * sq)]
     rows = next((r for r in fits if column * -(-sq // r) >= NUM_SMS), fits[-1])
     warps = min(MAX_WARPS, heads * rows)
-    return FlashPlan("rows", heads, rows, warps, groups, column * -(-sq // rows))
+    return FlashPlan("rows", heads, rows, warps, groups, column * -(-sq // rows),
+                     "rows")
 
 
 def flash_cost(bh: int, bhkv: int, sq: int, sk: int, d: int,
@@ -184,9 +224,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_tiled_plain(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, *, scale: float | None = None,
                                 causal: bool = True, rep: int = 1,
-                                tile: int = TILED_ROWS) -> torch.Tensor:
-    """The function of ``flash_attention_plain`` in the tiled bf16
-    kernel's order of rounding: the keys walked in tiles of ``tile`` with
+                                tile: int | None = None) -> torch.Tensor:
+    """The function of ``flash_attention_plain`` in a tiled bf16 kernel's
+    order of rounding: the keys walked in tiles of ``tile`` (by default
+    the key tile of the kernel ``tiled_plan`` picks for bf16 operands of
+    this shape) with
     the online softmax of ``flash_attention_pallas``, scores in units of
     log2 (``scale * log2(e)`` in fp32), ``p = exp2(x - m)`` against the
     running max ``m``, ``l`` and ``acc`` rescaled by ``exp2(m_old -
@@ -198,6 +240,8 @@ def flash_attention_tiled_plain(q: torch.Tensor, k: torch.Tensor,
     _check(q, k, v, rep)
     d = q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
+    if tile is None:
+        tile = TILED_KERNELS[tiled_kernel(q.shape[0], q.shape[1], d, True)][1]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=0)
         v = v.repeat_interleave(rep, dim=0)
@@ -269,7 +313,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             bh, bh // rep, sq, sk, d, q.element_size(), causal))
         return torch.empty_like(q)
     out = launch_plan(plan, q, k, v, scale=scale, causal=causal, rep=rep)
-    launches.add()
+    kernel_launches[plan.kernel].add()
     return out
 
 

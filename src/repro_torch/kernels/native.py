@@ -23,9 +23,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LaunchCounter", "build_library", "load_library", "check_launch",
-           "launch_on", "held_launches", "NUM_SMS", "cost_counter",
-           "record_kernel"]
+__all__ = ["LaunchCounter", "LaunchTotal", "build_library", "load_library",
+           "check_launch", "launch_on", "held_launches", "NUM_SMS",
+           "cost_counter", "record_kernel"]
 
 NUM_SMS = 132  # streaming multiprocessors of an H100 SXM: the launch plans fill them
 
@@ -105,6 +105,24 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self._count = 0
+
+
+class LaunchTotal:
+    """One wrapper's launches over the several kernels it may launch, read
+    and reset as one ``LaunchCounter``: the sum of the kernels' own
+    counters, which the wrapper adds to."""
+
+    def __init__(self, name: str, parts):
+        self.name = name
+        self.parts = tuple(parts)
+
+    @property
+    def count(self) -> int:
+        return sum(c.count for c in self.parts)
+
+    def reset(self) -> None:
+        for c in self.parts:
+            c.reset()
 
 
 # the cost counter of the block being counted (``launch.cost_analysis``'s

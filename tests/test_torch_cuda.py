@@ -423,8 +423,8 @@ FLASH_CASES = [(36, 16, 16, 64, 3, True), (12, 8, 8, 16, 3, True),
                (4, 16, 1500, 64, 1, False)]
 
 
-def _route(sq):
-    return "tiled" if sq >= k4.TILED_MIN_SQ else "rows"
+def _route(sq, bf16=False):
+    return "tiled" if sq >= k4.TILED_MIN_SQ[bf16] else "rows"
 
 
 def _qkv(cuda, bh, sq, sk, d, rep, dtype=torch.float32):
@@ -464,8 +464,9 @@ def test_cuda_flash_attention_bf16_matches_plain(cuda, bh, sq, sk, d, rep, causa
     also held row by row to the tile-order walk, as ``chip_smoke.py`` holds
     it (``check_tiled_bf16``: each row within 2^-7 of its own max, nearly
     every bit equal, and p left whole visibly different)."""
-    route = k4.flash_plan(bh, sq, sk, d, rep, bf16=True).route
-    assert route == _route(sq)
+    plan = k4.flash_plan(bh, sq, sk, d, rep, bf16=True)
+    route = plan.route
+    assert route == _route(sq, bf16=True)
     q, k, v = _qkv(cuda, bh, sq, sk, d, rep, torch.bfloat16)
     before = k4.launches.count
     got = k4.flash_attention(q, k, v, causal=causal, rep=rep)
@@ -477,7 +478,50 @@ def test_cuda_flash_attention_bf16_matches_plain(cuda, bh, sq, sk, d, rep, causa
     assert err <= 2.0 ** -7 * float(want.float().abs().max())
     if route == "tiled":
         _chip_smoke().check_tiled_bf16(f"K4 {(bh, sq, sk, d, rep, causal)}", q,
-                                       k, v, got, causal, rep)
+                                       k, v, got, causal, rep, plan.keys)
+
+
+# (BH, Sq, Sk, D, rep, causal): every tiled FLASH_CASES shape at D 64 and
+# 128, then ragged query and key tiles, GQA and cross lengths at both D
+TILED_BF16_CASES = ([c for c in FLASH_CASES if c[1] >= 32 and c[3] >= 64]
+                    + [(bh, sq, sk, d, rep, causal) for d in (64, 128)
+                       for bh, sq, sk, rep, causal in
+                       ((8, 1000, 1000, 2, True), (4, 300, 700, 1, False),
+                        (6, 129, 129, 3, True))])
+
+
+@pytest.mark.parametrize("kernel", ["wgmma", "mma"])
+@pytest.mark.parametrize("bh,sq,sk,d,rep,causal", TILED_BF16_CASES)
+def test_cuda_flash_tiled_bf16_kernels_match_walk(cuda, kernel, bh, sq, sk, d,
+                                                  rep, causal):
+    """Each bf16 tiled kernel, the wgmma one and the kept mma.sync one,
+    forced at D 64 and 128 (``tiled_plan(kernel=)``, whichever the plan
+    picks at the shape): within one bf16 rounding of the plain version,
+    and row by row and bit by bit against the tile-order walk at the
+    kernel's own key tile (128 and 64)."""
+    plan = k4.tiled_plan(bh, sq, d, rep, True, kernel=kernel)
+    assert plan.keys == (128 if kernel == "wgmma" else 64)
+    q, k, v = _qkv(cuda, bh, sq, sk, d, rep, torch.bfloat16)
+    got = k4.launch_plan(plan, q, k, v, scale=None, causal=causal, rep=rep)
+    torch.cuda.synchronize()
+    want = k4.flash_attention_plain(q, k, v, causal=causal, rep=rep)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0 ** -7 * float(want.float().abs().max())
+    _chip_smoke().check_tiled_bf16(f"K4 {kernel} {(bh, sq, sk, d, rep, causal)}",
+                                   q, k, v, got, causal, rep, plan.keys)
+
+
+@pytest.mark.parametrize("kernel", ["wgmma", "mma"])
+def test_cuda_flash_tiled_bf16_launches_repeat(cuda, kernel):
+    """Two launches of a bf16 tiled kernel on the same inputs give the same
+    bits (no atomics; every sum in a fixed order), at phase 15's shape."""
+    bh, s, d, rep = 64, 2048, 128, 4
+    plan = k4.tiled_plan(bh, s, d, rep, True, kernel=kernel)
+    q, k, v = _qkv(cuda, bh, s, s, d, rep, torch.bfloat16)
+    first = k4.launch_plan(plan, q, k, v, scale=None, causal=True, rep=rep)
+    second = k4.launch_plan(plan, q, k, v, scale=None, causal=True, rep=rep)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_cuda_lm_kernels_reject_what_they_do_not_take(cuda):
@@ -503,18 +547,31 @@ def test_cuda_lm_kernels_reject_what_they_do_not_take(cuda):
         k4.flash_attention(x, x, x)
     # a launch either entry point refuses raises: head dim 48 has no instance
     q48 = torch.zeros(6, 64, 48, device=cuda)
-    for plan in (k4.rows_plan(6, 64, 48, 3), k4.tiled_plan(6, 64, 3)):
+    for plan in (k4.rows_plan(6, 64, 48, 3), k4.tiled_plan(6, 64, 48, 3)):
         with pytest.raises(RuntimeError, match="failed to launch"):
             k4.launch_plan(plan, q48, q48[:2], q48[:2], scale=None, causal=True,
                            rep=3)
-    # the tiled entry point takes only its kernel's own launch shape: the
-    # bf16 plan's 4 warps with fp32 operands, or rows other than 64, raise
+    # the tiled entry point takes only its kernels' own launch shapes: a
+    # bf16 plan with fp32 operands, or rows other than 64, raise
     q64 = torch.zeros(6, 64, 64, device=cuda)
-    bf16_plan = k4.tiled_plan(6, 64, 3, bf16=True)
-    for plan in (bf16_plan, bf16_plan._replace(rows=32, warps=8)):
+    mma_plan = k4.tiled_plan(6, 64, 64, 3, bf16=True, kernel="mma")
+    wgmma_plan = k4.tiled_plan(6, 64, 64, 3, bf16=True, kernel="wgmma")
+    for plan in (mma_plan, wgmma_plan, mma_plan._replace(rows=32, warps=8)):
         with pytest.raises(RuntimeError, match="failed to launch"):
             k4.launch_plan(plan, q64, q64[:2], q64[:2], scale=None, causal=True,
                            rep=3)
+    # ... and the wgmma kernel takes its own shape only: the mma.sync
+    # kernel's 64 rows or 4 warps with its others, or a head dim it has no
+    # instance for (32), raise
+    b64 = q64.bfloat16()
+    for plan in (wgmma_plan._replace(rows=64), wgmma_plan._replace(warps=4)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            k4.launch_plan(plan, b64, b64[:2], b64[:2], scale=None, causal=True,
+                           rep=3)
+    b32 = torch.zeros(6, 64, 32, device=cuda).bfloat16()
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        k4.launch_plan(k4.tiled_plan(6, 64, 32, 3, bf16=True, kernel="wgmma"),
+                       b32, b32[:2], b32[:2], scale=None, causal=True, rep=3)
 
 
 def _smoke_lm(device):

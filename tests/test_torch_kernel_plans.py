@@ -33,9 +33,11 @@ from repro_torch.kernels.conv2d.kernel import (ROUTES, TC_BLOCKS_PER_SM,
                                                worker_plan)
 from repro_torch.kernels.flash_attn.kernel import (MAX_GRID_Y,
                                                    MAX_TILED_BLOCKS, MAX_WARPS,
-                                                   PAIRS_A_WARP, TILED_MIN_SQ,
-                                                   TILED_ROWS, TILED_WARPS,
-                                                   flash_plan, max_pairs)
+                                                   PAIRS_A_WARP,
+                                                   TILED_KERNELS, TILED_MIN_SQ,
+                                                   WGMMA_HEAD_DIMS, WGMMA_MIN_ROWS,
+                                                   flash_plan, max_pairs,
+                                                   tiled_plan)
 from repro_torch.kernels.matmul.kernel import (COLUMN_THREADS, SPLIT_CHOICES,
                                                SPLIT_CHUNK, SPLIT_MAX_M,
                                                SPLIT_STRIP, matmul_plan)
@@ -274,14 +276,18 @@ def test_coded_gemm_plan_covers_every_width(r_out, r_in, f, aligned):
 
 def _covers_flash(bh, sq, d, rep, bf16=False):
     plan = flash_plan(bh, sq, sq, d, rep, bf16)
-    assert plan.route == ("tiled" if sq >= TILED_MIN_SQ else "rows")
+    assert plan.route == ("tiled" if sq >= TILED_MIN_SQ[bf16] else "rows")
     if plan.route == "tiled":
         tiles = plan.blocks // bh
-        assert (plan.heads, plan.rows, plan.groups) == (1, TILED_ROWS, rep)
-        assert plan.warps == TILED_WARPS[bf16]
+        wgmma = d in WGMMA_HEAD_DIMS and bh * sq >= WGMMA_MIN_ROWS
+        kernel = ("wgmma" if wgmma else "mma") if bf16 else "ffma"
+        assert plan.kernel == kernel
+        assert (plan.rows, plan.keys, plan.warps) == TILED_KERNELS[kernel]
+        assert (plan.heads, plan.groups) == (1, rep)
         assert plan.blocks == bh * tiles <= MAX_TILED_BLOCKS
         assert tiles * plan.rows >= sq > (tiles - 1) * plan.rows
         return plan
+    assert (plan.kernel, plan.keys) == ("rows", None)
     pairs = plan.heads * plan.rows
     assert 1 <= plan.heads <= rep and pairs <= max_pairs(d)
     assert plan.rows & (plan.rows - 1) == 0 and plan.rows <= 64
@@ -311,7 +317,9 @@ FLASH_EDGES = [(1, 1, 16, 1), (3, 1, 128, 3), (36, 256, 64, 1), (36, 256, 64, 3)
                (2, 384, 128, 1), (64, 200, 32, 64), (100, 5, 16, 100),
                (40, 33, 128, 40), (8, 70, 64, 4), (4, 1000, 16, 1),
                (64, 2048, 128, 4), (8, 2047, 128, 2), (64, 1500, 64, 1),
-               (4, TILED_MIN_SQ - 1, 64, 1), (4, TILED_MIN_SQ, 64, 1),
+               (4, 31, 64, 1), (4, 32, 64, 1), (4, 47, 64, 1), (4, 48, 64, 1),
+               (72, 127, 128, 4), (72, 128, 128, 4), (64, 143, 64, 1),
+               (64, 144, 64, 1),
                (4, 1 << 24, 16, 1)]
 
 
@@ -328,14 +336,38 @@ def test_flash_plan_covers_every_shape(bh, sq, d, rep, bf16):
 @pytest.mark.parametrize("bf16", [False, True])
 def test_flash_plan_takes_the_tiled_route_for_long_prompts(bf16):
     """The Qwen3-4B prefill of 2 x 2,048 tokens (32 query heads over 8 KV
-    heads, D 128): one block per (query head, 64 rows), 2,048 in all,
-    where the rows route served 16 (head, row) pairs a block; the prefill
-    of 16 tokens stays on the rows route."""
+    heads, D 128): fp32, one block per (query head, 64 rows), 2,048 in
+    all; bf16, the wgmma kernel's one block per (query head, 128 rows),
+    1,024 of 12 warps walking 128-key tiles, where the rows route served
+    16 (head, row) pairs a block; the prefill of 16 tokens stays on the
+    rows route."""
     plan = flash_plan(64, 2048, 2048, 128, 4, bf16)
-    assert plan.route == "tiled" and plan.blocks == 64 * 32
+    assert plan.route == "tiled"
+    assert plan.blocks == (64 * 16 if bf16 else 64 * 32)
+    assert (plan.kernel, plan.warps, plan.keys) == (("wgmma", 12, 128) if bf16
+                                                    else ("ffma", 8, 64))
     assert flash_plan(128, 16, 16, 128, 4, bf16).route == "rows"
     assert flash_plan(64, 16, 1500, 64, 1, bf16).route == "rows"
     assert flash_plan(64, 1500, 1500, 64, 1, bf16).route == "tiled"
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_tiled_plan_kernels_by_head_dim(d):
+    """bf16 takes the wgmma kernel at D 64 and 128 from ``WGMMA_MIN_ROWS``
+    query rows over all heads (the route sweep's crossover) and keeps the
+    mma.sync kernel below them and at D 16 and 32; fp32 keeps the FFMA
+    kernel at every D; the mma.sync kernel can be named at any D, to time
+    it beside the wgmma one (``bh * ceil(sq / rows)`` blocks either
+    way)."""
+    bf16 = flash_plan(8, 2047, 2047, d, 2, True)
+    assert bf16.kernel == ("wgmma" if d >= 64 else "mma")
+    assert bf16.blocks == 8 * -(-2047 // bf16.rows)
+    assert flash_plan(128, 64, 64, d, 4, True).kernel == "mma"  # 8,192 rows
+    assert flash_plan(128, 96, 96, d, 4, True).kernel == ("wgmma" if d >= 64
+                                                          else "mma")
+    assert flash_plan(8, 2047, 2047, d, 2, False).kernel == "ffma"
+    kept = tiled_plan(8, 2047, d, 2, True, kernel="mma")
+    assert (kept.rows, kept.keys, kept.warps, kept.blocks) == (64, 64, 4, 8 * 32)
 
 
 def test_flash_plan_grid_limit():

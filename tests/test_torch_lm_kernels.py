@@ -10,6 +10,7 @@ bf16 attention, one bf16 rounding of the output, 2^-7 of max|reference|
 (both round p and the output to bf16, and a sum in another order may flip
 either rounding).
 """
+import functools
 import importlib.util
 import itertools
 from pathlib import Path
@@ -240,35 +241,38 @@ def _smoke():
     return smoke
 
 
+@pytest.mark.parametrize("tile", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_tiled_walk_rounds_where_the_pallas_kernel_does(causal):
+def test_flash_tiled_walk_rounds_where_the_pallas_kernel_does(causal, tile):
     """``flash_attention_tiled_plain``, the reference of the card's bit
     check of the tiled route, against ``flash_attention_pallas`` in
-    interpret mode with 64-row blocks, the same tiles: fp32 within 1e-5
-    (and the one-pass plain version within 1e-6); bf16 within one rounding
-    of each row's own max and all but ``K4_BF16_TILED_MISMATCH`` of the
-    bits equal, where the one-pass plain version (p rounded against the
-    row's final max) and the walk with p left whole each differ in more
-    than ``K4_BF16_WHOLE_P`` of them."""
+    interpret mode with ``tile``-row blocks, the same tiles (64: the
+    mma.sync kernel's key tile; 128: the wgmma kernel's and the TPU
+    kernel's own ``bk``), over four tiles of keys: fp32 within 1e-5 (and
+    the one-pass plain version within 1e-6); bf16 within one rounding of
+    each row's own max and all but ``K4_BF16_TILED_MISMATCH`` of the bits
+    equal, where the one-pass plain version (p rounded against the row's
+    final max) and the walk with p left whole each differ in more than
+    ``K4_BF16_WHOLE_P`` of them."""
     smoke = _smoke()
     rng = np.random.default_rng(5)
-    q, k, v = (_flat(rng.standard_normal((1, 256, 2, 64), dtype=np.float32))
+    q, k, v = (_flat(rng.standard_normal((1, 4 * tile, 2, 64), dtype=np.float32))
                for _ in range(3))
-    got = k4.flash_attention_tiled_plain(_t(q), _t(k), _t(v), causal=causal)
+    walk = functools.partial(k4.flash_attention_tiled_plain, causal=causal, tile=tile)
+    got = walk(_t(q), _t(k), _t(v))
     args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    _close(got, flash_attention_pallas(*args, causal=causal, bq=64, bk=64), REL_K4)
+    _close(got, flash_attention_pallas(*args, causal=causal, bq=tile, bk=tile), REL_K4)
     _close(got, flash_attention_plain(_t(q), _t(k), _t(v), causal=causal), 1e-6)
     (qj, qt), (kj, kt), (vj, vt) = (_bf16_pair(x) for x in (q, k, v))
     want = torch.from_numpy(np.asarray(flash_attention_pallas(
-        qj, kj, vj, causal=causal, bq=64, bk=64).astype(jnp.float32)))
-    got = k4.flash_attention_tiled_plain(qt, kt, vt, causal=causal)
+        qj, kj, vj, causal=causal, bq=tile, bk=tile).astype(jnp.float32)))
+    got = walk(qt, kt, vt)
     assert got.dtype == torch.bfloat16
     share = lambda x: float((x.float() != want).float().mean())
     assert smoke.row_err(got, want) <= smoke.TOL_K4_BF16
     assert share(got) <= smoke.K4_BF16_TILED_MISMATCH
     assert share(flash_attention_plain(qt, kt, vt, causal=causal)) > smoke.K4_BF16_WHOLE_P
-    whole_p = k4.flash_attention_tiled_plain(qt.float(), kt.float(), vt.float(),
-                                             causal=causal).bfloat16()
+    whole_p = walk(qt.float(), kt.float(), vt.float()).bfloat16()
     assert share(whole_p) > smoke.K4_BF16_WHOLE_P
 
 
