@@ -440,6 +440,12 @@ TOL_K3, TOL_K4, TOL_K4_BF16 = 1e-5, 2e-5, 2.0 ** -7
 K4_ONE_CHUNK, K4_BF16_MISMATCH = 32, 1e-3
 K4_BF16_TILED_MISMATCH, K4_BF16_WHOLE_P = 1e-2, 0.1
 K4_KERNELS = ("flash_attn_kernel", "flash_tiled_")  # K4's kernels by name
+# K4's fp32 tiled kernel on wgmma computes fp32 products as three TF32
+# ones (3xTF32), as K1's tensor-core route; its error against the same
+# function in float64 is held to at most this many times the fp32 plain
+# version's (TF32 off), so it keeps the fp32 path's precision and not only
+# TOL_K4.
+K4_FP64_RATIO = 4.0
 # served (coded, cluster) logits against the undistributed transformer's, relative
 # to max|logit|: the reference's own coded-decoder tolerance is 3e-4 abs
 # at smoke size; 30 layers of fp32 sums through a decode whose recovery
@@ -1128,15 +1134,49 @@ def _gemm_entry(a_s, b_s, count, fn, plain, gen, device, tol, name,
 
 
 def flash_bound(bh: int, bhkv: int, sq: int, sk: int, d: int,
-                dtype=torch.float32, causal: bool = True) -> tuple[float, str]:
+                dtype=torch.float32, causal: bool = True,
+                tf32x3: bool = False) -> tuple[float, str]:
     """Attention's least work (``flash_cost``, the dry run's charge for a
     launch) against the HBM rate and the peak for ``dtype``: fp32 outside
-    the tensor cores, bf16 dense on them."""
+    the tensor cores, bf16 dense on them; with ``tf32x3`` (fp32 operands),
+    three TF32 products a multiply-add on them (the 3xTF32 kernel's
+    arithmetic, ``PEAK_TF32_FLOPS / 3``)."""
     from repro_torch.kernels.flash_attn.kernel import flash_cost
 
     width = torch.finfo(dtype).bits // 8
+    flops, nbytes = flash_cost(bh, bhkv, sq, sk, d, width, causal)
+    if tf32x3:
+        return bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    return bound_ms(*flash_cost(bh, bhkv, sq, sk, d, width, causal), peak)
+    return bound_ms(flops, nbytes, peak)
+
+
+def flash_bounds(bh: int, bhkv: int, sq: int, sk: int, d: int,
+                 causal: bool = True) -> dict:
+    """K4's two fp32 bounds, as ``k1_bounds``: fp32 FMA outside the tensor
+    cores, and three TF32 products a multiply-add on them (the 3xTF32
+    kernel's arithmetic)."""
+    ffma, ffma_by = flash_bound(bh, bhkv, sq, sk, d, torch.float32, causal)
+    tf32, tf32_by = flash_bound(bh, bhkv, sq, sk, d, torch.float32, causal,
+                                tf32x3=True)
+    return {"ffma_ms": ffma, "ffma_by": ffma_by, "tf32x3_ms": tf32,
+            "tf32x3_by": tf32_by}
+
+
+def k4_fp64(name: str, got: torch.Tensor, want64: torch.Tensor,
+            plain_err64: float, held: bool) -> dict:
+    """K4's fp32 output ``got`` against the float64 plain version
+    ``want64``: its largest error beside the fp32 plain version's, and
+    where ``held`` (the 3xTF32 kernel) at most ``K4_FP64_RATIO`` times it.
+    Raises where that fails."""
+    err64 = float((got.double() - want64).abs().max())
+    ratio = err64 / max(plain_err64, 1e-300)
+    if held and not ratio <= K4_FP64_RATIO:
+        raise AssertionError(f"{name}: error {err64:.3e} against float64 is "
+                             f"{ratio:.2f} x the fp32 plain version's "
+                             f"{plain_err64:.3e} > {K4_FP64_RATIO}")
+    return {"err_fp64": err64, "plain_err_fp64": plain_err64,
+            "fp64_ratio": ratio, "fp64_ratio_limit": K4_FP64_RATIO if held else None}
 
 
 def _k3_plan(m: int, n: int, kk: int):
@@ -1191,12 +1231,15 @@ def flash_entry(bh: int, s: int, d: int, rep: int, count: int, dtype, gen,
     """K4 at one self-attention shape (``sk`` keys, ``s`` by default;
     causal or not) in ``dtype``, on the route ``flash_plan`` chooses,
     against its plain version (the tiled route in bf16 also row by row
-    against the tile-order walk, ``check_tiled_bf16``) and a second launch
-    of itself (and, timed, beside SDPA in the same type with K/V repeated
-    outside the timed call).  ``other`` names another tiled kernel
-    (``TILED_KERNELS``) held to the same checks on the same inputs and,
-    timed, timed beside it in the same call, the SM clock sampled while
-    both are timed (``other_kernel``, ``sm_clock``)."""
+    against the tile-order walk, ``check_tiled_bf16``; fp32 also against
+    the plain version in float64, ``k4_fp64``, held on the 3xTF32 kernel)
+    and a second launch of itself (and, timed, beside SDPA in the same
+    type with K/V repeated outside the timed call).  fp32 carries both
+    bounds (``flash_bounds``; ``bound_ms`` the 3xTF32 one, the lesser).
+    ``other`` names another tiled kernel of the type (``TILED_KERNELS``)
+    held to the same checks on the same inputs and, timed, timed beside it
+    in the same call, the SM clock sampled while both are timed
+    (``other_kernel``, ``sm_clock``)."""
     from repro_torch.kernels.flash_attn.kernel import (flash_attention,
                                                        flash_attention_plain,
                                                        flash_plan, launch_plan,
@@ -1215,7 +1258,7 @@ def flash_entry(bh: int, s: int, d: int, rep: int, count: int, dtype, gen,
     got = run()
     want = plain()
     abs_err, rel_err = _err(got.float(), want.float())
-    plan = flash_plan(bh, s, sk, d, rep, dtype == torch.bfloat16)
+    plan = flash_plan(bh, s, sk, d, rep, dtype == torch.bfloat16, causal)
     name = (f"K4 {tuple(q.shape)} over {sk} keys{'' if causal else ', no mask'} "
             f"{dtype} ({plan.route} route)")
     if not rel_err <= tol:
@@ -1228,15 +1271,27 @@ def flash_entry(bh: int, s: int, d: int, rep: int, count: int, dtype, gen,
     bf16_tiled = dtype == torch.bfloat16 and plan.route == "tiled"
     tiled = (check_tiled_bf16(name, q, k, v, got, causal, rep, plan.keys)
              if bf16_tiled else {})
+    fp64, want64, plain_err64 = {}, None, 0.0
+    if dtype == torch.float32:
+        want64 = flash_attention_plain(q.double(), k.double(), v.double(),
+                                       causal=causal, rep=rep)
+        plain_err64 = float((want.double() - want64).abs().max())
+        fp64 = k4_fp64(name, got, want64, plain_err64, plan.kernel == "tf32x3")
     check_repeatable(name, run, got)
-    bnd, by = flash_bound(bh, bh // rep, s, sk, d, dtype, causal)
+    if dtype == torch.float32:
+        bounds = flash_bounds(bh, bh // rep, s, sk, d, causal)
+        bnd, by = bounds["tf32x3_ms"], bounds["tf32x3_by"]
+    else:
+        bounds = None
+        bnd, by = flash_bound(bh, bh // rep, s, sk, d, dtype, causal)
     e = {"q": [bh, s, d], "kv": [bh // rep, sk, d], "rep": rep,
          "causal": causal, "dtype": str(dtype).removeprefix("torch."),
          "count": count, "plan": plan._asdict(),
          "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
-         "mismatch_share": mismatch, **tiled,
-         "bound_ms": bnd, "bound_by": by, "ms": None, "device_ms": None,
-         "plain_ms": None, "library_ms": None, "library_device_ms": None}
+         "mismatch_share": mismatch, **tiled, **fp64,
+         "bound_ms": bnd, "bound_by": by, "bounds": bounds, "ms": None,
+         "device_ms": None, "plain_ms": None, "library_ms": None,
+         "library_device_ms": None}
     o_run = None
     if other is not None:
         o_plan = tiled_plan(bh, s, d, rep, dtype == torch.bfloat16, kernel=other)
@@ -1253,8 +1308,11 @@ def flash_entry(bh: int, s: int, d: int, rep: int, count: int, dtype, gen,
         e["other_kernel"] = {
             "plan": o_plan._asdict(), "max_abs_err": o_abs, "max_rel_err": o_rel,
             **(check_tiled_bf16(o_name, q, k, v, o_got, causal, rep, o_plan.keys)
-               if bf16_tiled else {}), "ms": None, "device_ms": None}
+               if bf16_tiled else {}),
+            **(k4_fp64(o_name, o_got, want64, plain_err64, other == "tf32x3")
+               if want64 is not None else {}), "ms": None, "device_ms": None}
         del o_got
+    del want64
     if timed:
         b = bh // rep  # SDPA's (B, H, S, D) with one KV head a batch row
         q4 = q.view(b, rep, s, d)
@@ -2710,6 +2768,23 @@ def _reset(counters) -> None:
         c.reset()
 
 
+def k4_by_kernel() -> dict:
+    """K4's launches by kernel (``kernel_launches``) since their last
+    reset, the kernels that launched."""
+    from repro_torch.kernels.flash_attn.kernel import kernel_launches
+
+    return {name: c.count for name, c in kernel_launches.items() if c.count}
+
+
+def _add_counts(total: dict, *parts: dict) -> dict:
+    """Counts by name summed over ``parts``, onto ``total``."""
+    out = dict(total)
+    for part in parts:
+        for name, n in part.items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
 def zoo_arch(arch: str, layers, device, counters, card: str,
              smoke: bool = False, graphs=True) -> dict:
     """One arch of the zoo: weights drawn on the card from a seeded CUDA
@@ -2770,8 +2845,9 @@ def zoo_arch(arch: str, layers, device, counters, card: str,
                         gen=ZOO_GEN, smoke=smoke, layers=layers, seed=SEED,
                         device=device, params=params, timings=timings,
                         graphs=run_graphs, on_logits=rows.append)
-        served.append((toks, rows, timings, _launches(counters)))
-    (toks, rows, timings, launches), (toks_e, rows_e, timings_e, launches_e) = served
+        served.append((toks, rows, timings, _launches(counters), k4_by_kernel()))
+    ((toks, rows, timings, launches, k4_kernels),
+     (toks_e, rows_e, timings_e, launches_e, k4_kernels_e)) = served
     if toks.shape != (ZOO_BATCH, ZOO_GEN):
         raise AssertionError(f"{arch}: served tokens {tuple(toks.shape)}")
     if not torch.equal(toks, toks_e):
@@ -2815,6 +2891,7 @@ def zoo_arch(arch: str, layers, device, counters, card: str,
            **timings, "graphs": graph_stats, "eager": timings_e,
            "logits_calls_equal": len(rows), "routes": routes,
            "launches": launches, "launches_eager": launches_e,
+           "k4_kernels": {"captured": k4_kernels, "eager": k4_kernels_e},
            "decode_profile": decode_profile(bundle, params, prompts, device, False)
            if card_run else None,
            "decode_profile_captured": decode_profile(bundle, params, prompts,
@@ -2835,6 +2912,7 @@ def zoo_arch(arch: str, layers, device, counters, card: str,
         _sync(device)
         out["prefill_fn_s"] = time.perf_counter() - t0
         out["prefill_launches"] = _launches(counters)
+        out["k4_kernels"]["prefill_fn"] = k4_by_kernel()
         _check_logits(f"{arch} prefill_fn", logits, (ZOO_BATCH, ZOO_PROMPT, cfg.vocab))
         if out["prefill_launches"]["flash_attention"] != k4_routes:
             raise AssertionError(
@@ -2941,6 +3019,7 @@ def zoo_phase(device, counters, card: str, smoke: bool = False,
         name: [] for name in ("matmul", "coded_gemm", "coded_gemm_encode",
                               "flash_attention", "flash_attention_bf16")}}
     by_path: dict = {}
+    k4_paths: dict = {}  # path -> K4's launches by kernel
     timed = device.type == "cuda"
     for arch, layers in ZOO:
         z, params, cfg = zoo_arch(arch, layers, device, counters, card, smoke,
@@ -2994,6 +3073,8 @@ def zoo_phase(device, counters, card: str, smoke: bool = False,
                   f"{z['prefix']['prefill_s']:.3f} s, logits finite")
         by_path[f"zoo_{arch}"] = z["launches"]
         by_path[f"zoo_{arch}_eager"] = z["launches_eager"]
+        for run, counts in z["k4_kernels"].items():
+            k4_paths[f"zoo_{arch}" + ("" if run == "captured" else f"_{run}")] = counts
         out["graphs"][arch] = z["graphs"]
         if "prefill_launches" in z:
             by_path[f"zoo_{arch}_prefill_fn"] = z["prefill_launches"]
@@ -3025,16 +3106,18 @@ def zoo_phase(device, counters, card: str, smoke: bool = False,
                     {"arch": arch, "path": f"{path} {what}".strip(), **e})
                 print(f"  K4 at {arch}'s {what + ' ' if what else ''}prefill "
                       f"{e['q']} over {sk} keys{'' if causal else ' (no mask)'} "
-                      f"rep {e['rep']}, {e['plan']['route']} route, {count} "
+                      f"rep {e['rep']}, {e['plan']['route']} route "
+                      f"({e['plan']['kernel']}), {count} "
                       f"launches: {_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, "
                       f"plain {_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])} / "
                       f"device {_ms(e['library_device_ms'])}, bound "
                       f"{e['bound_ms']:.5f} by {e['bound_by']}; rel err "
-                      f"{e['max_rel_err']:.2e} <= {TOL_K4}")
+                      f"{e['max_rel_err']:.2e} <= {TOL_K4}" + fp64_text(e))
         out["archs"].append(z)
         del params
         _empty_cache(device)
     out["by_path"] = by_path
+    out["k4_by_path"] = k4_paths
     return out
 
 
@@ -3364,7 +3447,10 @@ def dryrun_phase(device, k4_launches, card: str, tp_k4_launches: int,
     their dry runs, K4 at the prefill's shape (S 2048, bf16 and fp32) and
     at Qwen3-4B's tensor-parallel prefill shape against its plain version,
     timed beside SDPA; that shape's count is ``tp_k4_launches``, K4's
-    launches in phase 13 (d)'s ``serve_lm(mesh=)`` run of this process."""
+    launches in phase 13 (d)'s ``serve_lm(mesh=)`` run of this process.
+    At the prefill's shape each type's wgmma kernel is timed beside its
+    kept kernel in the same call (bf16 the mma.sync one, fp32 the FFMA
+    one)."""
     from repro_torch.configs import get_bundle
     from repro_torch.configs.shapes import SHAPES
 
@@ -3386,11 +3472,34 @@ def dryrun_phase(device, k4_launches, card: str, tp_k4_launches: int,
         {"path": f"the same shape in fp32 (the zoo's type; no path "
                  f"launches it here)", **flash_entry(
             b * cfg.n_heads, s, cfg.head_dim, rep, 0, torch.float32,
-            gen, device, TOL_K4, True)},
+            gen, device, TOL_K4, True, other="ffma")},
         {"path": "tensor-parallel serve_lm prefill (phase 13 (d))",
          **flash_entry(*K4_TP_SHAPE, tp_k4_launches, torch.float32,
                        gen, device, TOL_K4, True)}]
     out["cli"] = cli
+    return out
+
+
+def _tiled_entries(e: dict, names: dict, launches, keys: tuple) -> list[dict]:
+    """The kernels line's entries for the two tiled kernels of one type
+    that phase 15 timed side by side (``e`` and its ``other_kernel``):
+    ``names`` maps a plan's kernel to its CUDA name, ``launches(kernel)``
+    gives its launch fields, ``keys`` the type's own checks to carry."""
+    common = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+              "replaces": "src/repro/kernels/flash_attn/kernel.py:69",
+              "q": e["q"], "kv": e["kv"], "rep": e["rep"], "causal": e["causal"],
+              "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+              "bound_by": e["bound_by"], "bounds": e["bounds"],
+              "library_ms": e["library_ms"],
+              "library_device_ms": e["library_device_ms"],
+              "sm_clock": e["sm_clock"]}
+    out = []
+    for x in (e, e["other_kernel"]):
+        kernel = x["plan"]["kernel"]
+        out.append({"name": names[kernel], **common, "plan": x["plan"],
+                    **launches(kernel), "max_abs_err": x["max_abs_err"],
+                    "max_rel_err": x["max_rel_err"], **{k: x[k] for k in keys},
+                    "ms": x["ms"], "device_ms": x["device_ms"]})
     return out
 
 
@@ -3399,26 +3508,37 @@ def tiled_bf16_kernels(dr: dict) -> list[dict]:
     dry-run check's shape (phase 15's bf16 K4 entry, the other kernel timed
     in the same call): launches are each kernel's in the prefill step
     phase 15 counted."""
-    e = next(x for x in dr["k4"] if "other_kernel" in x)
+    e = next(x for x in dr["k4"] if x["dtype"] == "bfloat16" and "other_kernel" in x)
     by_kernel = next(c["card"]["k4_by_kernel"] for c in dr["cells"]
                      if c["kind"] == "prefill")
-    common = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
-              "replaces": "src/repro/kernels/flash_attn/kernel.py:69",
-              "q": e["q"], "kv": e["kv"], "rep": e["rep"], "causal": e["causal"],
-              "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-              "bound_by": e["bound_by"], "library_ms": e["library_ms"],
-              "library_device_ms": e["library_device_ms"],
-              "sm_clock": e["sm_clock"]}
-    names = {"wgmma": "flash_tiled_bf16_kernel", "mma": "flash_tiled_bf16_mma_kernel"}
-    out = []
-    for x in (e, e["other_kernel"]):
-        kernel = x["plan"]["kernel"]
-        out.append({"name": names[kernel], **common, "plan": x["plan"],
-                    "launches": by_kernel.get(kernel, 0),
-                    "max_abs_err": x["max_abs_err"], "max_rel_err": x["max_rel_err"],
-                    "tiled_mismatch_share": x["tiled_mismatch_share"],
-                    "ms": x["ms"], "device_ms": x["device_ms"]})
-    return out
+    return _tiled_entries(
+        e, {"wgmma": "flash_tiled_bf16_kernel", "mma": "flash_tiled_bf16_mma_kernel"},
+        lambda kernel: {"launches": by_kernel.get(kernel, 0)},
+        ("tiled_mismatch_share",))
+
+
+def tiled_fp32_kernels(dr: dict, by_path: dict) -> list[dict]:
+    """The kernels line's entries for K4's two fp32 tiled kernels at
+    phase 15's fp32 shape (the 3xTF32 kernel and the FFMA one timed in the
+    same call): launches are each kernel's over every path that ran
+    (``by_path``, path -> launches by kernel), with both bounds and each
+    kernel's error against float64."""
+    e = next(x for x in dr["k4"] if x["dtype"] == "float32" and "other_kernel" in x)
+    return _tiled_entries(
+        e, {"tf32x3": "flash_tiled_tf32x3_kernel", "ffma": "flash_tiled_f32_kernel"},
+        lambda kernel: {"launches": sum(c.get(kernel, 0) for c in by_path.values()),
+                        "launches_by_path": {path: c[kernel] for path, c in
+                                             by_path.items() if c.get(kernel)}},
+        ("err_fp64", "plain_err_fp64", "fp64_ratio", "fp64_ratio_limit"))
+
+
+def fp64_text(e: dict) -> str:
+    """A K4 fp32 entry's error against float64, for its printed line."""
+    if "fp64_ratio" not in e:
+        return ""
+    limit = e["fp64_ratio_limit"]
+    return (f"; against float64 {e['err_fp64']:.2e}, {e['fp64_ratio']:.2f} x the "
+            f"fp32 plain version's{'' if limit is None else f' (<= {limit})'}")
 
 
 def print_dryrun(dr: dict, card: str) -> None:
@@ -3469,14 +3589,17 @@ def print_dryrun(dr: dict, card: str) -> None:
               f"{_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, plain "
               f"{_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])} / device "
               f"{_ms(e['library_device_ms'])}, bound {e['bound_ms']:.5f} by "
-              f"{e['bound_by']}; rel err {e['max_rel_err']:.2e} <= {e['tol']}"
-              + walk(e))
+              f"{e['bound_by']}"
+              + ("" if e["bounds"] is None else
+                 f" (FFMA bound {e['bounds']['ffma_ms']:.5f})")
+              + f"; rel err {e['max_rel_err']:.2e} <= {e['tol']}"
+              + walk(e) + fp64_text(e))
         o = e.get("other_kernel")
         if o is not None:
             print(f"    the {o['plan']['kernel']} kernel on the same inputs in "
                   f"the same call: {_ms(o['ms'])} ms, device "
                   f"{_ms(o['device_ms'])}; rel err "
-                  f"{o['max_rel_err']:.2e}" + walk(o))
+                  f"{o['max_rel_err']:.2e}" + walk(o) + fp64_text(o))
             print("    " + clock_line("both kernels' timing", e["sm_clock"]))
 
 
@@ -3764,7 +3887,8 @@ def dist_lm_rank(rank: int, ckpt_dir: str, device: str, smoke: bool) -> dict:
     out["serve"] = {"tokens": serve_lm(TRAIN_ARCH, device=device, seed=SEED,
                                        smoke=smoke, mesh=data, timings=timings,
                                        **DIST_SERVE),
-                    "k4": k4_launches.count, "wall_s": time.perf_counter() - t0,
+                    "k4": k4_launches.count, "k4_kernels": k4_by_kernel(),
+                    "wall_s": time.perf_counter() - t0,
                     "decode_s": timings["decode_s"],
                     "prefill_s": timings["prefill_s"]}
     return out
@@ -3844,7 +3968,8 @@ def dist_tp_serve_rank(rank: int, device: str, smoke: bool) -> dict:
         wall = time.perf_counter() - t0
         out[arch] = {
             "tokens": toks, "logits": rows if rank == 0 else None,
-            "k4": k4_launches.count, "k4_heads": [s[0] for s in heads],
+            "k4": k4_launches.count, "k4_kernels": k4_by_kernel(),
+            "k4_heads": [s[0] for s in heads],
             "layers": bundle.cfg.layers, "wall_s": wall,
             "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
             "init_s": timings["init_s"], "collectives": _axis_stats(mesh),
@@ -3959,7 +4084,7 @@ def tensor_parallel_part(device, dev: str, smoke: bool, tmp: str,
 
     out["serve"] = {"ranks": TP_RANKS_SERVE, "mesh": "(data 1, model 2)",
                     "run_ranks_s": serve_s, "archs": []}
-    k4_total = 0
+    k4_total, k4_kernels = 0, {}
     for arch, layers in TP_SERVE:
         rows = []
         want = serve_lm(arch, device=device, seed=SEED, smoke=smoke,
@@ -3992,6 +4117,7 @@ def tensor_parallel_part(device, dev: str, smoke: bool, tmp: str,
                         f"at {sorted(set(res[arch]['k4_heads']))} query heads, "
                         f"want {res[arch]['layers']} at {local_heads}")
         k4_total += sum(res[arch]["k4"] for res in sv)
+        k4_kernels = _add_counts(k4_kernels, *(res[arch]["k4_kernels"] for res in sv))
         out["serve"]["archs"].append({
             "arch": arch, "layers": got["layers"], "tokens_equal": True,
             "logits_max_rel_err": err, "k4_heads": local_heads,
@@ -4002,6 +4128,7 @@ def tensor_parallel_part(device, dev: str, smoke: bool, tmp: str,
         del rows, want
         _empty_cache(device)
     out["by_path"] = {"serve_lm_tp": {"flash_attention": k4_total}}
+    out["k4_by_path"] = {"serve_lm_tp": k4_kernels}
     return out
 
 
@@ -4121,7 +4248,8 @@ def dist_tp_family_serve_rank(rank: int, device: str, smoke: bool) -> dict:
         out[arch] = {
             "tokens": toks, "logits": rows if rank == 0 else None,
             "prefill": pre.cpu() if rank == 0 else None,
-            "k4": k4_launches.count, "k4_heads": [s[0] for s in heads],
+            "k4": k4_launches.count, "k4_kernels": k4_by_kernel(),
+            "k4_heads": [s[0] for s in heads],
             "layers": getattr(bundle.cfg, "layers", None)
             or bundle.cfg.dec_layers, "wall_s": wall,
             "decode_s": timings["decode_s"], "prefill_fn_s": prefill_s,
@@ -4283,7 +4411,7 @@ def tp_family_part(device, dev: str, smoke: bool, tmp: str) -> dict:
 
     out["serve"] = {"ranks": TP_RANKS_SERVE, "mesh": "(data 1, model 2)",
                     "run_ranks_s": serve_s, "archs": []}
-    k4_total = 0
+    k4_total, k4_kernels = 0, {}
     for arch in TP_FAMILIES:
         bundle = get_bundle(arch, smoke=smoke)
         cfg = bundle.cfg
@@ -4341,6 +4469,7 @@ def tp_family_part(device, dev: str, smoke: bool, tmp: str) -> dict:
                         f"at {sorted(set(res[arch]['k4_heads']))} query heads, "
                         f"want {n} at {local}")
         k4_total += sum(res[arch]["k4"] for res in sv)
+        k4_kernels = _add_counts(k4_kernels, *(res[arch]["k4_kernels"] for res in sv))
         a.update(tokens_equal=all(same), k4_heads=local,
                  **{k: [res[arch][k] for res in sv]
                     for k in ("k4", "wall_s", "decode_s", "prefill_fn_s",
@@ -4349,6 +4478,7 @@ def tp_family_part(device, dev: str, smoke: bool, tmp: str) -> dict:
         del rows, want
         _empty_cache(device)
     out["by_path"] = {"prefill_fn_tp_families": {"flash_attention": k4_total}}
+    out["k4_by_path"] = {"prefill_fn_tp_families": k4_kernels}
     # K4 at the ranks' prefill shapes
     gen = torch.Generator(device=device).manual_seed(SEED + 27)
     hy = get_bundle("hymba-1.5b", smoke=smoke).cfg
@@ -4430,11 +4560,11 @@ def print_tp_families(tf: dict, card: str) -> None:
               f"of {[_gib(x) for x in a['shard_bytes']]} a rank")
     for e in tf["k4"]:
         print(f"  (e) K4 {e['path']}: q {e['q']} over {e['kv'][1]} keys, "
-              f"{e['plan']['route']} route, {e['count']} launches: "
-              f"{_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, plain "
+              f"{e['plan']['route']} route ({e['plan']['kernel']}), {e['count']} "
+              f"launches: {_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, plain "
               f"{_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])}, bound "
               f"{e['bound_ms']:.5f} by {e['bound_by']}; rel err "
-              f"{e['max_rel_err']:.2e} <= {TOL_K4}")
+              f"{e['max_rel_err']:.2e} <= {TOL_K4}" + fp64_text(e))
     print(f"  (e) run_ranks s (the two jobs at once): train "
           f"{tf['train']['run_ranks_s']:.1f}, serve "
           f"{tf['serve']['run_ranks_s']:.1f}")
@@ -4736,6 +4866,7 @@ def dist_uneven_rank(rank: int, device: str, smoke: bool, arch: str, layers,
                      w_gate=tuple(w["w_gate"].shape))
     return {"backend": mesh.backend, "tokens": toks,
             "logits": rows if keep else None, "k4": k4_launches.count,
+            "k4_kernels": k4_by_kernel(),
             "k4_shapes": list(shapes), "layers": bundle.cfg.layers,
             "wall_s": wall, "prefill_s": timings["prefill_s"],
             "decode_s": timings["decode_s"], "init_s": timings["init_s"],
@@ -4804,7 +4935,7 @@ def uneven_part(device, dev: str, smoke: bool, tmp: str) -> dict:
     out = {"run_ranks_s": time.perf_counter() - t0, "budget": UNEVEN_BUDGET,
            "jobs": []}
     one = {}
-    k4_total = 0
+    k4_total, k4_kernels = 0, {}
     for i, (arch, layers, sizes) in enumerate(jobs):
         if (arch, layers) not in one:
             rows = []
@@ -4849,6 +4980,7 @@ def uneven_part(device, dev: str, smoke: bool, tmp: str) -> dict:
                                  f"collectives than decode steps (each step's "
                                  f"dispatch group is gathered over data)")
         k4_total += sum(rr["k4"] for rr in res)
+        k4_kernels = _add_counts(k4_kernels, *(rr["k4_kernels"] for rr in res))
         out["jobs"].append({
             "arch": arch, "layers": res[0]["layers"], "mesh": mesh,
             "backend": res[0]["backend"], "tokens_equal": True,
@@ -4862,6 +4994,7 @@ def uneven_part(device, dev: str, smoke: bool, tmp: str) -> dict:
     del one
     _empty_cache(device)
     out["by_path"] = {"serve_lm_uneven": {"flash_attention": k4_total}}
+    out["k4_by_path"] = {"serve_lm_uneven": k4_kernels}
     return out
 
 
@@ -4997,7 +5130,8 @@ def dist_edge_rank(rank: int, device: str, smoke: bool, job: tuple) -> dict:
                        "collectives": _axis_stats(mesh)}
         finally:
             del os.environ["REPRO_BASELINE"]
-        res.update(k4=k4_launches.count, k4_shapes=list(shapes),
+        res.update(k4=k4_launches.count, k4_kernels=k4_by_kernel(),
+                   k4_shapes=list(shapes),
                    peak_bytes=(torch.cuda.max_memory_allocated(dev)
                                if cuda else None))
         out["runs"][flag] = res
@@ -5059,7 +5193,7 @@ def edge_part(device, dev: str, smoke: bool, tmp: str) -> dict:
     started = dict(zip(order, starts))
     out = {"run_ranks_s": time.perf_counter() - t0, "budget": EDGE_BUDGET,
            "one_process_started_s": start_one, "jobs": []}
-    k4_total = 0
+    k4_total, k4_kernels = 0, {}
     for i, (name, arch, layers, sizes) in enumerate(jobs):
         ranks_ = got[i]
         mesh = f"(data {sizes[0]}, model {sizes[1]})"
@@ -5121,6 +5255,7 @@ def edge_part(device, dev: str, smoke: bool, tmp: str) -> dict:
                                 f"times at {run['k4_shapes']}, want "
                                 f"{ranks_[0]['layers']} at {want_shape}")
                 k4_total += sum(rr["k4"] for rr in rs)
+                k4_kernels = _add_counts(k4_kernels, *(rr["k4_kernels"] for rr in rs))
                 run.update(tokens_equal=True, logits_max_rel_err=err,
                            calls=len(want["logits"]),
                            decode_s=[r["decode_s"] for r in rs],
@@ -5131,6 +5266,7 @@ def edge_part(device, dev: str, smoke: bool, tmp: str) -> dict:
     del one
     _empty_cache(device)
     out["by_path"] = {"serve_lm_edges": {"flash_attention": k4_total}}
+    out["k4_by_path"] = {"serve_lm_edges": k4_kernels}
     # K4 at job (iv)'s per-rank shape: the whole prompt on each data rank
     cfg = get_bundle_cfg("qwen3-4b", smoke)
     lens = _edge_serve("iv", smoke)
@@ -5200,11 +5336,11 @@ def print_edge_part(hh: dict, card: str) -> None:
                   f"{a['started_s']:.1f} s)")
     for e in hh["k4"]:
         print(f"  (h) K4 {e['path']}: q {e['q']} over {e['kv'][1]} keys, "
-              f"{e['plan']['route']} route, {e['count']} launches: "
-              f"{_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, plain "
+              f"{e['plan']['route']} route ({e['plan']['kernel']}), {e['count']} "
+              f"launches: {_ms(e['ms'])} ms, device {_ms(e['device_ms'])}, plain "
               f"{_ms(e['plain_ms'])}, SDPA {_ms(e['library_ms'])}, bound "
               f"{e['bound_ms']:.5f} by {e['bound_by']}; rel err "
-              f"{e['max_rel_err']:.2e} <= {TOL_K4}")
+              f"{e['max_rel_err']:.2e} <= {TOL_K4}" + fp64_text(e))
     print(f"  (h) run_ranks s (the jobs and the one-process runs at once "
           f"within {hh['budget'] / 1e9:.0f} GB): {hh['run_ranks_s']:.1f}")
 
@@ -5290,6 +5426,7 @@ def distributed_phase(device, card: str, smoke: bool = False,
                         "collectives_per_rank": vgg[0]["collectives"]}
         out["by_path"] = {"sharded_vgg16": {"coded_worker": sum(
             p["k1"] for res in vgg for p in res["passes"])}}
+        out["k4_by_path"] = {}  # path -> K4's launches by kernel
         del vgg, x
 
         # (b) and (c): training and serving over two ranks
@@ -5384,6 +5521,7 @@ def distributed_phase(device, card: str, smoke: bool = False,
                                   one_norms, full, init)
         tp["seconds"] = time.perf_counter() - t0
         out["by_path"].update(tp.pop("by_path"))
+        out["k4_by_path"].update(tp.pop("k4_by_path"))
         out["tensor_parallel"] = tp
         del full, init
         _empty_cache(device)
@@ -5392,6 +5530,7 @@ def distributed_phase(device, card: str, smoke: bool = False,
         tf = tp_family_part(device, dev, smoke, tmp)
         tf["seconds"] = time.perf_counter() - t0
         out["by_path"].update(tf.pop("by_path"))
+        out["k4_by_path"].update(tf.pop("k4_by_path"))
         out["tp_families"] = tf
         _empty_cache(device)
         # (f) the sequence over the mesh
@@ -5407,6 +5546,7 @@ def distributed_phase(device, card: str, smoke: bool = False,
         ug = uneven_part(device, dev, smoke, tmp)
         ug["seconds"] = time.perf_counter() - t0
         out["by_path"].update(ug.pop("by_path"))
+        out["k4_by_path"].update(ug.pop("k4_by_path"))
         out["uneven"] = ug
         _empty_cache(device)
         # (h) a held sequence's edges and REPRO_BASELINE=1
@@ -5414,6 +5554,7 @@ def distributed_phase(device, card: str, smoke: bool = False,
         hh = edge_part(device, dev, smoke, tmp)
         hh["seconds"] = time.perf_counter() - t0
         out["by_path"].update(hh.pop("by_path"))
+        out["k4_by_path"].update(hh.pop("k4_by_path"))
         out["edges"] = hh
     return out
 
@@ -5935,6 +6076,7 @@ def main() -> int:
           f"read {time.perf_counter() - t1:.1f} s after it")
     print_distributed(dist, card)
     by_path.update(dist.pop("by_path"))
+    k4_paths = dist.pop("k4_by_path")
     _empty_cache(device)
 
     # -- the arch zoo, after the earlier phases' servers, graphs and weights
@@ -5946,6 +6088,7 @@ def main() -> int:
                              k4_launches), card)
     print(f"arch zoo: {time.perf_counter() - t0:.1f} s")
     by_path.update(zoo["by_path"])
+    k4_paths.update(zoo["k4_by_path"])
     graph_phases["zoo"] = zoo["graphs"]
     for z in zoo["archs"]:
         specs[z["arch"]]["drawn_on_card"] = {"layers": z["layers"], **z["specs"]}
@@ -6016,6 +6159,16 @@ def main() -> int:
     k4e["zoo"] = zk["flash_attention"] + zk["flash_attention_bf16"]
     k4e["dryrun"] = dr["k4"]
     k4e["tiled_bf16"] = tiled_bf16_kernels(dr)
+    # K4's launches by kernel on the zoo's and the process mesh's paths;
+    # the 3xTF32 kernel must have served those whose fp32 shapes its plan
+    # takes
+    for path in ("zoo_whisper-medium_prefill_fn", "prefill_fn_tp_families",
+                 "serve_lm_edges"):
+        if not k4_paths.get(path, {}).get("tf32x3"):
+            raise AssertionError(f"K4's 3xTF32 kernel launched no time on {path}: "
+                                 f"{k4_paths.get(path)}")
+    k4e["launches_by_kernel_by_path"] = k4_paths
+    k4e["tiled_fp32"] = tiled_fp32_kernels(dr, k4_paths)
     k4e["tp_families"] = dist["tp_families"]["k4"]
     k4e["edges"] = dist["edges"]["k4"]
     for e in (k1e, k2e, k3e, k4e):

@@ -85,7 +85,7 @@ def trace_shape(dll, k4, bh, s, d, rep, causal, device) -> dict:
         raise RuntimeError("flash_attn_tiled_trace failed")
     for _ in range(3):  # the last launch's stamps stay
         rc = dll.flash_attn_tiled(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  out.data_ptr(), bh, s, s, d, rep, d ** -0.5,
+                                  out.data_ptr(), None, bh, s, s, d, rep, d ** -0.5,
                                   int(causal), 1, plan.heads, plan.rows, plan.warps,
                                   torch.cuda.current_stream().cuda_stream)
         if rc != 0:

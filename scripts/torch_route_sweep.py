@@ -6,16 +6,21 @@ shapes where the plans choose between them:
 
 K4 (``flash_attention``): for each ``(BH, Sq, Sk, D, rep, causal)`` of
 ``K4_SHAPES`` in fp32 and bf16, the rows route (``rows_plan``) and each
-tiled kernel of the type (``tiled_plan(kernel=)``: fp32 ``ffma``; bf16
-``wgmma`` at D 64 and 128 and the ``mma`` one at every D) are launched on
-the same inputs (``launch_plan``), each checked against
+tiled kernel of the type (``tiled_plan(kernel=)``: fp32 ``tf32x3`` at D 64
+and 128 and the ``ffma`` one at every D; bf16 ``wgmma`` at D 64 and 128
+and the ``mma`` one at every D) are launched on the same inputs
+(``launch_plan``), each checked against
 ``flash_attention_plain`` (fp32 within 2e-5 of max|plain|, bf16 within
 2^-7) and against a second launch of itself (bit for bit), then timed in
 device ms (``chip_smoke.device_ms``, 10 calls) beside SDPA in the same
 type (K/V repeated outside the timed call).  The prompt lengths of
 ``CROSSOVER_S`` at the zoo's prefill heads give the row at which
-``flash_plan`` should leave the rows route (``TILED_MIN_SQ``), and where
-each bf16 tiled kernel is the faster.
+``flash_plan`` should leave the rows route (``tiled_route``), and where
+each tiled kernel of a type is the faster (``WGMMA_MIN_ROWS``,
+``TF32X3_MIN_ROWS``); ``CROSS_SHAPES`` (few queries over many unmasked keys) where
+it should leave it whatever the query rows.  Each line
+names the fastest kernel and whether ``flash_plan`` picked it; the JSON's
+``k4_missed`` lists the cells where it did not.
 
 K2 (``matmul``): for each Qwen3-4B coded worker GEMM (batch 4) and the
 SmolLM-135M ones, the column kernel and the split kernel at 1, 2, 4 and 8
@@ -46,13 +51,16 @@ sys.path.insert(0, str(ROOT / "src"))
 # over 8), Hymba-1.5B (4 x 25 over 5) and Whisper-medium's decoder (4 x 16)
 CROSSOVER_S = (16, 32, 48, 64, 96, 128, 256, 512)
 CROSSOVER_HEADS = ((36, 64, 3), (128, 128, 4), (100, 64, 5), (64, 64, 1))
-# (BH, Sq, Sk, D, rep, causal): the phase-15 Qwen3-4B prefill (2 x 32 heads
-# over 8 x 2, S 2,048), the Whisper-medium encoder (4 x 16 heads over 1,500
-# frames) and its decoder's cross-attention over them
+# cross-attention, no mask: 16 and 32 queries over 256-4,096 keys at
+# Whisper-medium's decoder heads (4 x 16, D 64), the one model of the zoo
+# that attends without the mask
+CROSS_SHAPES = [(64, sq, sk, 64, 1, False) for sq in (16, 32)
+                for sk in (256, 512, 1500, 4096)]
 K4_SHAPES = ([(bh, s, s, d, rep, True) for bh, d, rep in CROSSOVER_HEADS
               for s in CROSSOVER_S]
              + [(64, 2048, 2048, 128, 4, True), (64, 1500, 1500, 64, 1, False),
-                (64, 16, 1500, 64, 1, False)])
+                (32, 1500, 1500, 64, 1, False), (32, 511, 511, 128, 4, True)]
+             + CROSS_SHAPES)
 # (M, K, N): Qwen3-4B's coded worker GEMMs at batch 4 (qkv, wo, gate-up,
 # down) and SmolLM-135M's
 K2_SHAPES = [(4, 2560, 3072), (4, 4096, 1280), (4, 2560, 9728), (4, 9728, 1280),
@@ -92,11 +100,12 @@ def k4_sweep(cs, device) -> list[dict]:
                    "causal": causal, "dtype": str(dtype).removeprefix("torch."),
                    "sdpa_ms": cs.device_ms(lambda: F.scaled_dot_product_attention(
                        q4, k4r, v4r, is_causal=causal))}
-            kernels = (["wgmma", "mma"] if d in k4.WGMMA_HEAD_DIMS else ["mma"]
-                       ) if bf16 else ["ffma"]
+            wide = d in k4.WGMMA_HEAD_DIMS
+            kernels = (["wgmma", "mma"] if wide else ["mma"]) if bf16 else (
+                ["tf32x3", "ffma"] if wide else ["ffma"])
             plans = [k4.rows_plan(bh, sq, d, rep)] + [
                 k4.tiled_plan(bh, sq, d, rep, bf16, kernel=kern) for kern in kernels]
-            row["plan"] = k4.flash_plan(bh, sq, sk, d, rep, bf16).kernel
+            row["plan"] = k4.flash_plan(bh, sq, sk, d, rep, bf16, causal).kernel
             for plan in plans:
                 def run(plan=plan):
                     return k4.launch_plan(plan, q, k, v, scale=None,
@@ -112,12 +121,22 @@ def k4_sweep(cs, device) -> list[dict]:
                 row[f"{plan.kernel}_rel_err"] = rel
             row["bound_ms"], row["bound_by"] = cs.flash_bound(
                 bh, bh // rep, sq, sk, d, dtype, causal)
+            if not bf16:
+                row["bound_tf32x3_ms"] = cs.flash_bound(
+                    bh, bh // rep, sq, sk, d, dtype, causal, tf32x3=True)[0]
+            row["fastest"] = min((p.kernel for p in plans),
+                                 key=lambda kern: row[kern + "_ms"])
+            row["plan_over_fastest"] = (row[row["plan"] + "_ms"]
+                                        / row[row["fastest"] + "_ms"])
             print(f"K4 {bh} x {sq} x {sk} D {d} rep {rep} "
                   f"{'causal' if causal else 'full'} {row['dtype']}: "
                   + ", ".join(f"{'*' if p.kernel == row['plan'] else ''}{p.kernel} "
                               f"{row[p.kernel + '_ms']:.5f}" for p in plans)
                   + f" ms, SDPA {row['sdpa_ms']:.5f}, bound {row['bound_ms']:.5f} "
-                  f"({row['bound_by']})", flush=True)
+                  f"({row['bound_by']}); fastest {row['fastest']}"
+                  + ("" if row["fastest"] == row["plan"] else
+                     f" (plan MISSED by {row['plan_over_fastest'] - 1:.1%})"),
+                  flush=True)
             out.append(row)
             del q, k, v, want, q4, k4r, v4r
     return out
@@ -185,7 +204,15 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
-    result = {"card": card, "k4": k4_sweep(cs, device), "k2": k2_sweep(cs, device)}
+    k4_rows = k4_sweep(cs, device)
+    missed = [{key: r[key] for key in ("bh", "sq", "sk", "d", "rep", "causal",
+                                         "dtype", "plan", "fastest",
+                                         "plan_over_fastest")}
+              for r in k4_rows if r["plan"] != r["fastest"]]
+    print(f"K4: flash_plan picked the fastest kernel in "
+          f"{len(k4_rows) - len(missed)} of {len(k4_rows)} cells", flush=True)
+    result = {"card": card, "k4": k4_rows, "k4_missed": missed,
+              "k2": k2_sweep(cs, device)}
     line = json.dumps(result)
     if args.out:
         with open(args.out, "a") as f:

@@ -13,9 +13,10 @@ holds two kernels: the tensor-core kernel (route ``"tc"``: 3xTF32 on
 FFMA kernel (route ``"ffma"``: IEEE fp32 outside the tensor cores).
 ``worker_plan`` chooses the route, N-tile and K split per layer, unless
 the autotune ledger holds a plan for the cell (``choose_worker_plan``).
-``split_tf32`` and ``coded_worker_3xtf32_plain`` are the tensor-core
-kernel's arithmetic in torch ops, for holding its precision on the CPU;
-no path of the port runs them.
+``split_tf32`` (``kernels/tf32.py``, shared with K4) and
+``coded_worker_3xtf32_plain`` are the tensor-core kernel's arithmetic in
+torch ops, for holding its precision on the CPU; no path of the port runs
+them.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import NamedTuple
 
 from .. import autotune
 from ..native import NUM_SMS, LaunchCounter, launch_on, load_library
+from ..tf32 import split_tf32
 
 __all__ = ["coded_worker", "coded_worker_plain", "worker_plan", "WorkerPlan",
            "gemm_shape", "worker_plan_of", "choose_worker_plan",
@@ -49,8 +51,6 @@ BN_CHOICES = (32, 64, 128)  # the N-tiles, both routes
 # memory: four stages of patches and filter halves)
 TC_BLOCKS_PER_SM = {32: 2, 64: 1, 128: 1}
 _MAX_COL_BLOCKS = 65535  # grid.y limit
-_TF32_DROP = 0x1FFF  # the 13 low mantissa bits TF32 does not keep
-_TF32_MAX_BITS = 0x7F7FE000  # the largest finite TF32 value
 
 
 class WorkerPlan(NamedTuple):
@@ -220,33 +220,6 @@ def coded_worker_plain(xe: torch.Tensor, ke: torch.Tensor,
     y = y.reshape(ea, b, eb, nb, ho, wo).permute(0, 2, 1, 3, 4, 5)
     y = y.reshape(ea * eb, b, nb, ho, wo)
     return y if batched else y[:, 0]
-
-
-def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``t = hi + lo`` as the tensor-core kernel splits its fp32 operands:
-    ``hi`` is ``t`` rounded to TF32 (10 mantissa bits, nearest with ties
-    away from zero, as ``cvt.rna.tf32.f32``; a finite value that would
-    round past the largest TF32 number saturates there), ``lo`` is ``t -
-    hi`` (exact in fp32) rounded the same way.  NaN and inf pass through
-    into ``hi`` with ``lo = 0``.  ``hi + lo`` is within 2^-22 of ``|t|``
-    (plus half the TF32 subnormal spacing, 2^-137)."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"split_tf32 takes float32, got {t.dtype}")
-    hi = _round_tf32(t)
-    finite = torch.isfinite(hi)
-    lo = torch.where(finite, _round_tf32(torch.where(finite, t - hi, 0.0)),
-                     0.0)
-    return hi, lo
-
-
-def _round_tf32(t: torch.Tensor) -> torch.Tensor:
-    bits = t.contiguous().view(torch.int32)
-    mag = bits & 0x7FFFFFFF
-    sign = bits & ~0x7FFFFFFF
-    finite = mag < 0x7F800000
-    # round the magnitude half away from zero at bit 13, then drop 13 bits
-    rounded = ((mag + 0x1000) & ~_TF32_DROP).clamp_max(_TF32_MAX_BITS)
-    return torch.where(finite, sign | rounded, bits).view(torch.float32)
 
 
 def coded_worker_3xtf32_plain(xe: torch.Tensor, ke: torch.Tensor,

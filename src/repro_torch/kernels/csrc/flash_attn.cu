@@ -8,7 +8,7 @@
 // next.  Blocks of a CUDA grid run in no order, so here the kv walk is a
 // loop inside the block and the state lives in registers.  Two routes
 // compute the same function; `flash_plan` (kernels/flash_attn/kernel.py)
-// picks one from the number of query rows.
+// picks one from the query rows, the keys and the query heads a KV head.
 //
 // The rows route (entry point flash_attn), for short prompts.  At the LM
 // prefill (36 query heads over 12 KV heads, S = 16, D = 64) the work is
@@ -37,8 +37,9 @@
 // heads, D = 128) the work is 6.9e10 FLOP over 84 MB: 0.07 ms at the bf16
 // tensor-core peak against 0.025 ms of HBM traffic, so the launch is bound
 // by operations, and the rows route (every block re-reading every key for
-// 16 (head, row) pairs, bf16 widened to FFMA) took 115x its bound.  Three
-// kernels; the launch shape names one (flash_plan's tiled plans).
+// 16 (head, row) pairs, bf16 widened to FFMA) took 115x its bound.  Four
+// kernels; the launch shape and the operands' type name one (flash_plan's
+// tiled plans).
 //
 //   * bf16 at D 64 and 128, the wgmma kernel (flash_tiled_bf16_kernel):
 //     query tiles of (query head, 128 rows), walked longest first by a
@@ -57,6 +58,21 @@
 //     turns issuing, so one's softmax also runs under the other's GEMMs.
 //     The output goes through a staging tile to a TMA store, while the
 //     producer already loads the block's next tile.
+//   * fp32 at D 64 and 128, the 3xTF32 wgmma kernel
+//     (flash_tiled_tf32x3_kernel): bound by three TF32 products a
+//     multiply-add on the tensor cores (495 / 3 TFLOP/s; 0.417 ms at the
+//     Qwen3-4B prefill in fp32, against 1.026 ms at the FFMA peak).  The
+//     same persistent grid of 128-row query tiles and three warpgroups,
+//     64-key tiles.  A tf32 operand has no transpose bit, so both operands
+//     of each GEMM are K-major: a pre-pass (flash_tiled_split_kv, once a
+//     launch) writes K's and V^T's TF32 hi and lo parts into a scratch in
+//     the swizzled layout the descriptors read, V^T's keys permuted within
+//     each 8-key group so that the score accumulators are P.V's tf32 A
+//     fragments as they lie; a K or V stage is one bulk copy (one stage of
+//     each at D 128, 192 KB with Q, two at D 64).  Q arrives raw by TMA
+//     and each k8 fragment is split in registers just before its wgmmas;
+//     each warpgroup runs Q.K^T, the softmax and P.V of a key tile in turn
+//     while the other's GEMMs keep the tensor cores busy.
 //   * bf16, the mma.sync kernel (flash_tiled_bf16_mma_kernel; every D,
 //     the route at D 16 and 32): one block per (query head, 64 query
 //     rows), 64-key tiles double-buffered with cp.async, four warps of 16
@@ -64,20 +80,22 @@
 //     Q.K^T and P.V on mma.sync m16n8k16 with fp32 accumulators, K by
 //     ldmatrix and V by ldmatrix.trans; the score accumulators are reused
 //     in place as P.V's A fragments;
-//   * fp32 (flash_tiled_f32_kernel): one block per (query head, 64 query
-//     rows), 64-key tiles double-buffered with cp.async, eight warps, each
-//     thread a 4 x 4 block of scores (4 rows, 4 keys 16 apart) and a 4 x
-//     D/16 block of the output, IEEE FFMA over float4 reads of shared
-//     memory; p goes through shared memory to the threads that own its
-//     rows' outputs;
-//   * in all three, row max and sum need only the lanes that share a row;
-//     causal: key tiles above a block's last row are never loaded, only
-//     tiles that cross a warpgroup's (warp's) rows are masked, and the
+//   * fp32, the FFMA kernel (flash_tiled_f32_kernel; every D, the route at
+//     D 16 and 32 and below the 3xTF32 kernel's row threshold): one block
+//     per (query head, 64 query rows), 64-key tiles double-buffered with
+//     cp.async, eight warps, each thread a 4 x 4 block of scores (4 rows, 4
+//     keys 16 apart) and a 4 x D/16 block of the output, IEEE FFMA over
+//     float4 reads of shared memory; p goes through shared memory to the
+//     threads that own its rows' outputs;
+//   * in all four, row max and sum need only the lanes that share a row;
+//     causal: key tiles above a block's last row are never loaded (the
+//     3xTF32 kernel also skips a warpgroup's tiles above its last row),
+//     only tiles that cross a warpgroup's (warp's) rows are masked, and the
 //     grid issues the longest query tiles (the bottom of the triangle)
 //     first so the triangle balances over the SMs.
 //
-// Precision, both routes: scores, m, l and acc in fp32 (fmaf; no TF32, no
-// fast math).  p = expf(s - m), except in the tiled bf16 kernels: 2^(x -
+// Precision, both routes: scores, m, l and acc in fp32 (fmaf; no fast
+// math).  p = expf(s - m), except in the tiled bf16 kernels: 2^(x -
 // m) of scores x with log2(e) folded into the scale, one rounding more
 // and far inside p's bf16 rounding, m the running max after each key tile
 // (128 keys in the wgmma kernel, 64 in the mma.sync one; the wgmma kernel
@@ -87,9 +105,19 @@
 // preferred_element_type=f32 dot (the tensor cores add them with fp32
 // accumulators); p is rounded to bf16 before P.V (the TPU kernel's
 // p.astype(v.dtype)) while l sums the fp32 p; the output is rounded to bf16
-// once.  Every sum runs in a fixed order (xor-butterfly shuffles give every
-// lane the same bits; no atomics, no split over keys across blocks), so a
-// launch repeats bit for bit.
+// once.  The 3xTF32 kernel keeps the fp32 path's error: every fp32 operand
+// (q, k, v, p) is split as a = hi + lo, hi = cvt.rna.tf32(a), lo =
+// cvt.rna.tf32(a - hi) (kernels/tf32.py::split_tf32; hopper.cuh),
+// and a product is lo.hi + hi.lo + hi.hi, about 2^-22 relative.  The
+// tensor cores' own fp32 accumulation rounds against the running sum, so
+// the small products of a chain go first, no chain of large products runs
+// over more than 64 taps (Q.K^T at D 128 sums two chains in fp32), and each
+// key tile's P.V sums into its own partial, then O = O * corr + partial in
+// fp32.  Its error against float64 is held to 4x the fp32 plain version's
+// (chip_smoke.K4_FP64_RATIO; PERF.md has the readings).  Every sum runs in
+// a fixed order (xor-butterfly shuffles give every lane the same bits; no
+// atomics, no split over keys across blocks), so a launch repeats bit for
+// bit.
 //
 // GQA: query head bh reads KV head bh / rep (heads ordered h = g*rep + r
 // as in the reference), so the caller never materialises repeated K/V.
@@ -760,6 +788,78 @@ flash_tiled_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// -- the persistent tiled kernels' shared pieces ------------------------------
+// The query tile a persistent block takes: tiles of TQ_ rows are numbered
+// heads fastest, and causal, the last (longest) query tiles first; ntiles
+// counts the TK_-key tiles the query tile walks
+struct Tile {
+  int bh, q0, ntiles;
+};
+
+template <int TQ_, int TK_>
+__device__ __forceinline__ Tile tile_at(int i, int BH, int Sq, int Sk, int causal) {
+  const int nq = (Sq + TQ_ - 1) / TQ_;
+  int qt = i / BH;
+  if (causal) qt = nq - 1 - qt;
+  const int q0 = qt * TQ_;
+  // causal: no key after the tile's last row is unmasked for any row
+  const int k_end = causal ? min(Sk, min(Sq, q0 + TQ_)) : Sk;
+  return {i % BH, q0, (k_end + TK_ - 1) / TK_};
+}
+
+// cuTensorMapEncodeTiled from the driver, looked up once through the
+// runtime (no link against libcuda)
+typedef CUresult (*TensorMapEncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+    CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+TensorMapEncodeTiled tensor_map_encoder() {
+  static const TensorMapEncodeTiled fn = []() -> TensorMapEncodeTiled {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                                  cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? (TensorMapEncodeTiled)f
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (heads, S, D) operand of `width`-byte elements as a 3-D tensor map of
+// boxes of 128 bytes of a row x `rows` rows with the 128-byte swizzle:
+// rows past S read as zeros and are not written
+bool tile_map(CUtensorMap* map, CUtensorMapDataType type, int width,
+              const void* base, long long D, long long S, long long heads, int rows) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)(D * width), (cuuint64_t)(S * D * width)};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / width), (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the card's SMs: a persistent grid's blocks
+int num_sms() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
+}
+
 // -- tiled route, bf16 on Hopper's wgmma ------------------------------------
 // Query tiles of (query head, 128 rows), walked by a persistent grid of one
 // block an SM: warpgroups 0 and 1 own 64 rows each and run the GEMMs and
@@ -1042,22 +1142,6 @@ __device__ __forceinline__ void rescale(float (&o)[R], const float (&corr)[2]) {
   fence_regs(o);
 }
 
-// The query tile a block takes: tiles are numbered heads fastest, and
-// causal, the last (longest) query tiles first
-struct Tile {
-  int bh, q0, ntiles;
-};
-
-__device__ __forceinline__ Tile tile_at(int i, int BH, int Sq, int Sk, int causal) {
-  const int nq = (Sq + TQ - 1) / TQ;
-  int qt = i / BH;
-  if (causal) qt = nq - 1 - qt;
-  const int q0 = qt * TQ;
-  // causal: no key after the tile's last row is unmasked for any row
-  const int k_end = causal ? min(Sk, min(Sq, q0 + TQ)) : Sk;
-  return {i % BH, q0, (k_end + TK - 1) / TK};
-}
-
 // grid: one block an SM (at most BH * ceil(Sq / TQ)); block b takes query
 // tiles b, b + gridDim.x, ..., so the longest go first, and loads the next
 // tile's Q and K while it finishes the last one
@@ -1113,7 +1197,7 @@ flash_tiled_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
       const CUtensorMap* map = is_k ? &kmap : &vmap;
       int kv = 0, n = 0;
       for (int i = blockIdx.x; i < tiles; i += gridDim.x, ++n) {
-        const Tile tl = tile_at(i, BH, Sq, Sk, causal);
+        const Tile tl = tile_at<TQ, TK>(i, BH, Sq, Sk, causal);
         const int kvh = tl.bh / rep;
         if (is_k) {
           if (n > 0) mbar_wait(qempty, (n - 1) & 1);
@@ -1162,7 +1246,7 @@ flash_tiled_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     if (w == 1) turn_pass(TURN);
     int kv = 0, n = 0;
     for (int i = blockIdx.x; i < tiles; i += gridDim.x, ++n) {
-      const Tile tl = tile_at(i, BH, Sq, Sk, causal);
+      const Tile tl = tile_at<TQ, TK>(i, BH, Sq, Sk, causal);
       const int ntiles = tl.ntiles;
       const int row0 = tl.q0 + 64 * w + 16 * warp + g;  // and row0 + 8
       const int rmin = tl.q0 + 64 * w;  // this warpgroup's first row
@@ -1283,48 +1367,6 @@ flash_tiled_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, looked up once through the
-// runtime (no link against libcuda)
-typedef CUresult (*TensorMapEncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-    CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-TensorMapEncodeTiled tensor_map_encoder() {
-  static const TensorMapEncodeTiled fn = []() -> TensorMapEncodeTiled {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                                  cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? (TensorMapEncodeTiled)f
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a (heads, S, D) bf16 operand as a 3-D tensor map of boxes of 64 columns
-// x `rows` rows with the 128-byte swizzle: rows past S read as zeros and
-// are not written
-bool bf16_map(CUtensorMap* map, const void* base, long long D, long long S,
-              long long heads, int rows) {
-  const TensorMapEncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)(S * D * 2)};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, long long BH,
            long long Sq, long long Sk, long long rep, float scale, int causal,
@@ -1334,24 +1376,467 @@ int launch(const void* q, const void* k, const void* v, void* out, long long BH,
       flash_tiled_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Cf::BYTES);
   if (attr != cudaSuccess) return (int)attr;
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap qm, km, vm, om;
-  if (!bf16_map(&qm, q, D, Sq, BH, 64) || !bf16_map(&km, k, D, Sk, BH / rep, TK) ||
-      !bf16_map(&vm, v, D, Sk, BH / rep, TK) || !bf16_map(&om, out, D, Sq, BH, 64))
+  if (!tile_map(&qm, BF16, 2, q, D, Sq, BH, 64) ||
+      !tile_map(&km, BF16, 2, k, D, Sk, BH / rep, TK) ||
+      !tile_map(&vm, BF16, 2, v, D, Sk, BH / rep, TK) ||
+      !tile_map(&om, BF16, 2, out, D, Sq, BH, 64))
     return (int)cudaErrorInvalidValue;
   long long blocks = BH * ((Sq + TQ - 1) / TQ);
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  }();
-  if (blocks > sms) blocks = sms;
+  if (blocks > num_sms()) blocks = num_sms();
   flash_tiled_bf16_kernel<D><<<(unsigned)blocks, THREADS, Cf::BYTES, stream>>>(
       qm, km, vm, om, (int)BH, (int)Sq, (int)Sk, (int)rep, scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace wg
+
+// -- tiled route, fp32 as 3xTF32 on Hopper's wgmma ---------------------------
+// Query tiles of (query head, 128 rows), walked by a persistent grid of one
+// block an SM, as the bf16 wgmma kernel's: warpgroups 0 and 1 own 64 rows
+// each and run the GEMMs and the softmax; warpgroup 2 gives up its
+// registers (setmaxnreg) and one of its threads issues the copies of Q, K
+// and V in the order they are used.  The consumers take 240 registers:
+// at D 128 O, P V's partial sums and p's hi and lo parts alone take 192.
+// Every fp32 operand reaches
+// the tensor cores split into TF32 parts, x = hi + lo, and each k8 step
+// runs lo.hi, hi.lo and hi.hi.  K and V are split once a launch by
+// flash_tiled_split_kv, before the main kernel on the same stream, into a
+// scratch laid out as the wgmma descriptors read it (see there), so a K or
+// V stage is one bulk copy; Q is loaded raw by TMA (a tf32 operand has no
+// transpose bit: both operands of each GEMM are K-major) and each k8
+// fragment is split in registers just before its three wgmmas.
+namespace tf {
+
+constexpr int TQ = 128;         // query rows a block
+constexpr int TK = 64;          // keys a tile
+constexpr int THREADS = 384;    // warpgroups 0-1 consume, 2 loads
+constexpr int QBLK = 64 * 128;  // bytes of a [64 rows][32 floats] block
+// k8 steps (64 taps) of a Q K^T chain: its Q fragments (8 registers a
+// step) are held until its wgmmas are done
+constexpr int QCHAIN = 8;
+
+// setmaxnreg: 24 * 128 + 240 * 256 <= 65,536 registers an SM
+constexpr int LOAD_REGS = 24, MMA_REGS = 240;
+
+template <int D>
+struct Cfg {
+  static constexpr int CB = D / 32;                 // 32-float column blocks a row
+  static constexpr uint32_t PART = TK * D * 4;      // bytes of K hi (lo) or V^T hi (lo)
+  static constexpr uint32_t QTILE = TQ * D * 4;     // bytes of a query tile
+  // K and V stages in flight: one each at D 128 (192 KB with Q), two at D 64
+  static constexpr int KST = D == 64 ? 2 : 1;
+  static constexpr int VST = KST;
+  static constexpr size_t BODY = QTILE + (size_t)2 * PART * (KST + VST);
+  // 1024 bytes of slack to align the tiles to the swizzle's period, then
+  // Q's full and empty barriers and full and empty for each K and V stage
+  static constexpr size_t BYTES =
+      1024 + BODY + (2 + 2 * KST + 2 * VST) * sizeof(uint64_t);
+  static_assert(BYTES <= 232448, "a block's shared memory on an H100");
+};
+
+// The pre-pass: K and V of key tile t of KV head h split into TF32 hi and
+// lo parts, written to kv[h][t] as four parts of TK * D floats, K hi, K lo,
+// V^T hi, V^T lo, zero past Sk.  A K part is D / 32 blocks of [TK keys][32
+// floats] (Q K^T's B, K-major); a V^T part is TK / 32 blocks of [D][32
+// keys] (P V's B, K-major: tf32 has no transposed operand).  Every row of
+// 128 bytes holds its 16-byte chunk q at q ^ (row % 8), the 128-byte
+// swizzle.  Within each 8-key group V^T's slot s holds key 2s (s < 4) or
+// key 2(s - 4) + 1: a thread's score accumulators hold keys 2t and 2t + 1
+// of each group, and the tf32 A fragment wants k-slots t and t + 4, so
+// with the keys so placed the split scores are P V's A fragments as they
+// lie.  Block b takes tile (b / 2) % nt of head b / 2 / nt, K if b is even;
+// V goes through shared memory to be transposed.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_tiled_split_kv(const float* __restrict__ k, const float* __restrict__ v,
+                     float* __restrict__ kv, int Sk, int nt) {
+  constexpr int PART = TK * D;  // floats
+  __shared__ float tile[TK][D + 1];
+  const int b = (int)(blockIdx.x >> 1);
+  const bool is_v = blockIdx.x & 1;
+  const int t = b % nt, h = b / nt;
+  const int k0 = t * TK, rows = min(TK, Sk - k0);
+  const float* src = (is_v ? v : k) + ((int64_t)h * Sk + k0) * D;
+  float* dst = kv + ((int64_t)b * 4 + (is_v ? 2 : 0)) * PART;
+  if (!is_v) {
+    for (int i = threadIdx.x; i < TK * D / 4; i += 256) {
+      const int r = i / (D / 4), q = i - r * (D / 4);
+      const float4 x = r < rows
+                           ? *reinterpret_cast<const float4*>(src + (int64_t)r * D + 4 * q)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      uint32_t hi[4], lo[4];
+      split(x.x, hi[0], lo[0]);
+      split(x.y, hi[1], lo[1]);
+      split(x.z, hi[2], lo[2]);
+      split(x.w, hi[3], lo[3]);
+      const int off = (q >> 3) * (TK * 32) + r * 32 + (((q & 7) ^ (r & 7)) * 4);
+      *reinterpret_cast<uint4*>(dst + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(dst + PART + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < TK * D; i += 256) {
+    const int r = i / D, d = i - r * D;
+    tile[r][d] = r < rows ? src[(int64_t)r * D + d] : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < TK * D / 4; i += 256) {
+    // chunk q of row d of key block c: slots 4 (q & 1) .. 4 (q & 1) + 3 of
+    // 8-key group q >> 1, keys j0, j0 + 2, j0 + 4, j0 + 6
+    const int c = i / (D * 8), e = i - c * (D * 8);
+    const int d = e >> 3, q = e & 7;
+    const int j0 = 32 * c + 8 * (q >> 1) + (q & 1);
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split(tile[j0 + 2 * j][d], hi[j], lo[j]);
+    const int off = c * (D * 32) + d * 32 + ((q ^ (d & 7)) * 4);
+    *reinterpret_cast<uint4*>(dst + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(dst + PART + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// S = Q K^T of the K stage at `kb` (hi part, then lo PART bytes on), in
+// chains of QCHAIN k8 steps (64 taps), each into accumulators of its own
+// (the first wgmma of a chain overwrites them), added in fp32 at the end;
+// within a chain the small products (lo.hi, hi.lo) go first, then the
+// hi.hi ones.  The tensor cores' accumulation rounds against the running
+// sum: so the small products add while it is still small, and no chain of
+// large products runs over more than 64 taps (at D 128 one chain over all
+// 128 taps doubled the worst error against float64 on an H100).  A chain's
+// Q fragments are held until its wgmmas are done.  `qw` points at this
+// thread's first element in its warpgroup's Q rows: rows r and r + 8 (r %
+// 8 = g), column t4 of every 32-float block, whose 16-byte chunk q lies at
+// q ^ g (q_at).  The saturation and inf cases of split() run only where
+// `top`: a value of the warp's Q rows needs them (q_top).
+__device__ __forceinline__ const float* q_at(const unsigned char* qw, int g, int kk,
+                                             int half, int row8) {
+  return reinterpret_cast<const float*>(qw + (kk >> 2) * QBLK + row8 * 8 * 128 +
+                                        ((2 * (kk & 3) + half) ^ g) * 16);
+}
+
+template <int D>
+__device__ __forceinline__ bool q_top(const unsigned char* qw, int g) {
+  float big = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) big = fmaxf(big, fabsf(*q_at(qw, g, kk, e >> 1, e & 1)));
+  return __any_sync(FULL, big >= __uint_as_float(TF32_OVERFLOW));
+}
+
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[TK / 2], const unsigned char* qw,
+                                         int g, bool top, uint32_t kb) {
+  using Cf = Cfg<D>;
+  constexpr int CHAINS = D / 8 / QCHAIN;
+  float more[CHAINS > 1 ? CHAINS - 1 : 1][TK / 2];
+#pragma unroll
+  for (int c = 0; c < CHAINS; ++c) {
+    float(&acc)[TK / 2] = c == 0 ? s : more[c - 1];
+#pragma unroll
+    for (int j = 0; j < TK / 2; ++j) acc[j] = 0.f;  // dead until the chain
+    // the A fragment of k8 step kk: (r, t4), (r + 8, t4), (r, t4 + 4),
+    // (r + 8, t4 + 4) of its 8 columns
+    uint32_t qh[QCHAIN][4], ql[QCHAIN][4];
+    if (top) {
+#pragma unroll
+      for (int j = 0; j < QCHAIN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split(*q_at(qw, g, c * QCHAIN + j, e >> 1, e & 1), qh[j][e], ql[j][e]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < QCHAIN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = *q_at(qw, g, c * QCHAIN + j, e >> 1, e & 1);
+          qh[j][e] = cvt_tf32(x);
+          ql[j][e] = cvt_tf32(x - __uint_as_float(qh[j][e]));
+        }
+    }
+    fence_regs(acc);
+    wgmma_fence();
+    // k8 step kk: key block kk / 4, 32 bytes a step into its rows
+#pragma unroll
+    for (int j = 0; j < QCHAIN; ++j) {
+      const int kk = c * QCHAIN + j;
+      const uint32_t off = (kk >> 2) * (TK * 128) + (kk & 3) * 32;
+      wgmma_tf32(acc, ql[j], desc_sw128(kb + off), j > 0);
+      wgmma_tf32(acc, qh[j], desc_sw128(kb + Cf::PART + off), 1);
+    }
+#pragma unroll
+    for (int j = 0; j < QCHAIN; ++j) {
+      const int kk = c * QCHAIN + j;
+      wgmma_tf32(acc, qh[j], desc_sw128(kb + (kk >> 2) * (TK * 128) + (kk & 3) * 32), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < QCHAIN; ++j) {
+      fence_regs(qh[j]);
+      fence_regs(ql[j]);
+    }
+  }
+#pragma unroll
+  for (int c = 1; c < CHAINS; ++c)
+#pragma unroll
+    for (int j = 0; j < TK / 2; ++j) s[j] += more[c - 1][j];
+}
+
+// part = P V of the V stage at `vb` (V^T hi, then lo PART bytes on), P
+// split into ph + pl.  k8 step kk covers keys 8kk .. 8kk + 7, the score
+// accumulators 4kk .. 4kk + 3 (keys 2t4, 2t4 + 1 of rows g and g + 8),
+// which the permuted V^T takes as k-slots t4 and t4 + 4
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&part)[D / 2],
+                                         const uint32_t (&ph)[TK / 2],
+                                         const uint32_t (&pl)[TK / 2], uint32_t vb) {
+  using Cf = Cfg<D>;
+  fence_regs(part);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < TK / 8; ++kk) {  // the small products first, as issue_qk
+    const uint32_t ah[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1], ph[4 * kk + 3]};
+    const uint32_t al[4] = {pl[4 * kk], pl[4 * kk + 2], pl[4 * kk + 1], pl[4 * kk + 3]};
+    const uint32_t off = (kk >> 2) * (D * 128) + (kk & 3) * 32;
+    wgmma_tf32(part, al, desc_sw128(vb + off), kk > 0);
+    wgmma_tf32(part, ah, desc_sw128(vb + Cf::PART + off), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < TK / 8; ++kk) {
+    const uint32_t ah[4] = {ph[4 * kk], ph[4 * kk + 2], ph[4 * kk + 1], ph[4 * kk + 3]};
+    wgmma_tf32(part, ah, desc_sw128(vb + (kk >> 2) * (D * 128) + (kk & 3) * 32), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(part);
+}
+
+// The online softmax over one tile's scores, in fp32 as the FFMA kernel's:
+// s[4j + e] is row row0 + 8 (e >> 1), key k0 + 8j + 2 t4 + (e & 1); scaled,
+// masked (an instance of its own for the tiles that cross the diagonal or
+// Sk), then replaced by p = expf(x - m) against the new running max, l
+// rescaled by corr = expf(m_old - m) and summed in this lane's order
+template <bool EDGE>
+__device__ __forceinline__ void online_softmax(float (&s)[TK / 2], float (&m)[2],
+                                               float (&l)[2], float (&corr)[2],
+                                               float scale, int k0, int t4, int row0,
+                                               int Sk, int causal) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < TK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * scale;
+      if constexpr (EDGE) {
+        const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        if (key >= Sk || (causal && key > row)) x = -INFINITY;
+      }
+      s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+    corr[r] = expf(m[r] - mx[r]);  // 0 on the first tile (key 0 is live)
+    m[r] = mx[r];
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int j = 0; j < TK / 2; ++j) {
+    s[j] = expf(s[j] - m[(j >> 1) & 1]);
+    l[(j >> 1) & 1] += s[j];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_tiled_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const float* __restrict__ kv, float* __restrict__ out,
+                          int BH, int Sq, int Sk, int rep, float scale, int causal) {
+  using Cf = Cfg<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* qs = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  unsigned char* ks = qs + Cf::QTILE;
+  unsigned char* vs = ks + 2 * Cf::KST * Cf::PART;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(qs + Cf::BODY);
+  uint64_t* qempty = qfull + 1;
+  uint64_t* kfull = qempty + 1;
+  uint64_t* kempty = kfull + Cf::KST;
+  uint64_t* vfull = kempty + Cf::KST;
+  uint64_t* vempty = vfull + Cf::VST;
+  const int tiles = BH * ((Sq + TQ - 1) / TQ);
+  const int nt = (Sk + TK - 1) / TK;  // key tiles of a KV head in the scratch
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(qfull, 1);     // the producer's expect_tx, then the bytes
+    mbar_init(qempty, 256);  // every consumer thread, past its last Q K^T
+    for (int st = 0; st < Cf::KST; ++st) {
+      mbar_init(&kfull[st], 1);
+      mbar_init(&kempty[st], 256);
+    }
+    for (int st = 0; st < Cf::VST; ++st) {
+      mbar_init(&vfull[st], 1);
+      mbar_init(&vempty[st], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // -- producer: one thread issues a query tile's Q (TMA), then each key
+    // tile's K and V stage (one bulk copy each), in the order the
+    // consumers use them; the rings run on across the block's query tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(LOAD_REGS));
+    if (tid == 256) {
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(kv);
+      int n = 0, kvn = 0;
+      for (int i = blockIdx.x; i < tiles; i += gridDim.x, ++n) {
+        const Tile tl = tile_at<TQ, TK>(i, BH, Sq, Sk, causal);
+        const int kvh = tl.bh / rep;
+        if (n > 0) mbar_wait(qempty, (n - 1) & 1);
+        mbar_expect_tx(qfull, Cf::QTILE);
+        for (int h = 0; h < 2; ++h)
+          for (int c = 0; c < Cf::CB; ++c)
+            tma_load_3d(qs + (h * Cf::CB + c) * QBLK, &qmap, 32 * c, tl.q0 + 64 * h,
+                        tl.bh, qfull);
+        for (int t = 0; t < tl.ntiles; ++t, ++kvn) {
+          const unsigned char* tile = src + ((size_t)kvh * nt + t) * 4 * Cf::PART;
+          const int kst = kvn % Cf::KST, vst = kvn % Cf::VST;
+          if (kvn >= Cf::KST) mbar_wait(&kempty[kst], (kvn / Cf::KST - 1) & 1);
+          mbar_expect_tx(&kfull[kst], 2 * Cf::PART);
+          bulk_copy(ks + kst * 2 * Cf::PART, tile, 2 * Cf::PART, &kfull[kst]);
+          if (kvn >= Cf::VST) mbar_wait(&vempty[vst], (kvn / Cf::VST - 1) & 1);
+          mbar_expect_tx(&vfull[vst], 2 * Cf::PART);
+          bulk_copy(vs + vst * 2 * Cf::PART, tile + 2 * Cf::PART, 2 * Cf::PART,
+                    &vfull[vst]);
+        }
+      }
+    }
+  } else {
+    // -- consumers: warpgroup w owns rows q0 + 64w .. q0 + 64w + 63 of each
+    // query tile; each key tile runs Q K^T, the softmax and P V in turn,
+    // while the other warpgroup's GEMMs keep the tensor cores busy.  P V
+    // goes into a partial accumulator (the first wgmma overwrites it), then
+    // O = O * corr + part in fp32: no tensor-core accumulation chain spans
+    // more than one key tile.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(MMA_REGS));
+    const int w = tid >> 7;
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const unsigned char* qw = qs + w * Cf::CB * QBLK + (16 * warp + g) * 128 + 4 * t4;
+    const uint32_t ka = smem_u32(ks), va = smem_u32(vs);
+    float s[TK / 2];
+    float o[D / 2];
+    float m[2], l[2], corr[2];
+    int kvn = 0, n = 0;
+    for (int i = blockIdx.x; i < tiles; i += gridDim.x, ++n) {
+      const Tile tl = tile_at<TQ, TK>(i, BH, Sq, Sk, causal);
+      const int rmin = tl.q0 + 64 * w;  // this warpgroup's first row
+      const int row0 = rmin + 16 * warp + g;  // and row0 + 8
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+      mbar_wait(qfull, n & 1);
+      const bool top = q_top<D>(qw, g);
+      for (int t = 0; t < tl.ntiles; ++t, ++kvn) {
+        const int kst = kvn % Cf::KST, vst = kvn % Cf::VST;
+        const int k0 = t * TK;
+        // causal: a key tile past this warpgroup's last row is all masked
+        const bool live = !causal || k0 <= rmin + 63;
+        mbar_wait(&kfull[kst], (kvn / Cf::KST) & 1);
+        if (live) {
+          __syncwarp();
+          issue_qk<D>(s, qw, g, top, ka + kst * 2 * Cf::PART);
+        }
+        mbar_arrive(&kempty[kst]);
+        if (t == tl.ntiles - 1) mbar_arrive(qempty);  // Q is free for the next tile
+        uint32_t ph[TK / 2], pl[TK / 2];
+        if (live) {
+          if ((causal && k0 + TK - 1 > rmin) || k0 + TK > Sk)
+            online_softmax<true>(s, m, l, corr, scale, k0, t4, row0, Sk, causal);
+          else
+            online_softmax<false>(s, m, l, corr, scale, k0, t4, row0, Sk, causal);
+#pragma unroll
+          for (int j = 0; j < TK / 2; ++j) {  // p in [0, 1]: no saturation
+            ph[j] = cvt_tf32(s[j]);
+            pl[j] = cvt_tf32(s[j] - __uint_as_float(ph[j]));
+          }
+        }
+        mbar_wait(&vfull[vst], (kvn / Cf::VST) & 1);
+        if (live) {
+          float part[D / 2];
+#pragma unroll
+          for (int j = 0; j < D / 2; ++j) part[j] = 0.f;  // dead until here
+          __syncwarp();
+          issue_pv<D>(part, ph, pl, va + vst * 2 * Cf::PART);
+          fence_regs(ph);
+          fence_regs(pl);
+#pragma unroll
+          for (int j = 0; j < D / 2; ++j) o[j] = fmaf(o[j], corr[(j >> 1) & 1], part[j]);
+        }
+        mbar_arrive(&vempty[vst]);
+      }
+
+      // l over the quad, then O / max(l, 1e-30), rows past Sq not stored
+      float den[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(FULL, l[r], 1);
+        l[r] += __shfl_xor_sync(FULL, l[r], 2);
+        den[r] = fmaxf(l[r], 1e-30f);
+      }
+      float* og = out + ((int64_t)tl.bh * Sq + row0) * D + 2 * t4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (row0 + 8 * r >= Sq) continue;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(og + 8 * r * D + 8 * j) =
+              make_float2(o[4 * j + 2 * r] / den[r], o[4 * j + 2 * r + 1] / den[r]);
+      }
+    }
+  }
+}
+
+// K and V split into the scratch `kv` (BH / rep * ceil(Sk / TK) * 4 * TK *
+// D floats), then the main kernel over it
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, void* kv,
+           long long BH, long long Sq, long long Sk, long long rep, float scale,
+           int causal, cudaStream_t stream) {
+  using Cf = Cfg<D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_tiled_tf32x3_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Cf::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long nt = (Sk + TK - 1) / TK;
+  if (2 * nt * (BH / rep) > (1LL << 31) - 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap qm;
+  if (!tile_map(&qm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, q, D, Sq, BH, 64))
+    return (int)cudaErrorInvalidValue;
+  flash_tiled_split_kv<D><<<(unsigned)(2 * nt * (BH / rep)), 256, 0, stream>>>(
+      (const float*)k, (const float*)v, (float*)kv, (int)Sk, (int)nt);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  long long blocks = BH * ((Sq + TQ - 1) / TQ);
+  if (blocks > num_sms()) blocks = num_sms();
+  flash_tiled_tf32x3_kernel<D><<<(unsigned)blocks, THREADS, Cf::BYTES, stream>>>(
+      qm, (const float*)kv, (float*)out, (int)BH, (int)Sq, (int)Sk, (int)rep, scale,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf
 
 template <int D>
 int launch_tiled_bf16_mma(const void* q, const void* k, const void* v, void* out,
@@ -1388,14 +1873,18 @@ int launch_tiled_f32(const void* q, const void* k, const void* v, void* out,
 }
 
 // kernel: 0 the fp32 FFMA kernel, 1 the bf16 mma.sync kernel, 2 the bf16
-// wgmma kernel (D 64 and 128 only)
+// wgmma kernel, 3 the fp32 3xTF32 wgmma kernel (2 and 3 at D 64 and 128
+// only; 3 splits K and V into `kv` first)
 template <int D>
-int launch_tiled(const void* q, const void* k, const void* v, void* out,
+int launch_tiled(const void* q, const void* k, const void* v, void* out, void* kv,
                  long long BH, long long Sq, long long Sk, long long rep,
                  float scale, int causal, int kernel, cudaStream_t stream) {
-  if (kernel == 2) {
+  if (kernel >= 2) {
     if constexpr (D == 64 || D == 128)
-      return wg::launch<D>(q, k, v, out, BH, Sq, Sk, rep, scale, causal, stream);
+      return kernel == 2 ? wg::launch<D>(q, k, v, out, BH, Sq, Sk, rep, scale, causal,
+                                         stream)
+                         : tf::launch<D>(q, k, v, out, kv, BH, Sq, Sk, rep, scale,
+                                         causal, stream);
     return (int)cudaErrorInvalidValue;
   }
   if (kernel == 1)
@@ -1443,15 +1932,20 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v,
                          (int)heads, rows_log2, (int)warps, s);
 }
 
-// The tiled route: the rows route's arguments, of which the launch shape
-// names the kernel and must be its own (flash_plan's tiled plans, checked
-// here so that the plan is what launches): heads = 1 and
-//   fp32: rows 64, warps 8 (the FFMA kernel);
+// The tiled route: the rows route's arguments and a scratch `kv`, of which
+// the launch shape names the kernel and must be its own (flash_plan's
+// tiled plans, checked here so that the plan is what launches): heads = 1
+// and
+//   fp32: rows 64, warps 8 (the FFMA kernel),
+//         or rows 128, warps 12 (the 3xTF32 wgmma kernel; D 64 and 128
+//         only; kv holds BH / rep * ceil(Sk / 64) * 4 * 64 * D floats,
+//         16-byte aligned);
 //   bf16: rows 128, warps 12 (the wgmma kernel; D 64 and 128 only),
 //         or rows 64, warps 4 (the mma.sync kernel, every D);
-// BH * ceil(Sq / rows) blocks, at most 2^31 - 1.
+// BH * ceil(Sq / rows) blocks, at most 2^31 - 1.  The other kernels do not
+// read kv.
 extern "C" int flash_attn_tiled(const void* q, const void* k, const void* v,
-                                void* out, long long BH, long long Sq,
+                                void* out, void* kv, long long BH, long long Sq,
                                 long long Sk, long long D, long long rep,
                                 float scale, long long causal, long long bf16,
                                 long long heads, long long rows, long long warps,
@@ -1459,6 +1953,7 @@ extern "C" int flash_attn_tiled(const void* q, const void* k, const void* v,
   if (BH < 0 || Sq < 0 || Sk < 1 || rep < 1 || BH % rep != 0 ||
       Sq > (1LL << 24) || Sk > (1LL << 24) || BH > (1LL << 31) - 1)
     return (int)cudaErrorInvalidValue;
+  const bool wide = D == 64 || D == 128;  // the wgmma kernels' instances
   int kernel;
   if (heads != 1) {
     return (int)cudaErrorInvalidValue;
@@ -1466,9 +1961,11 @@ extern "C" int flash_attn_tiled(const void* q, const void* k, const void* v,
     kernel = 0;
   } else if (bf16 && rows == TQ && warps * 32 == TILED_BF16_THREADS) {
     kernel = 1;
-  } else if (bf16 && rows == wg::TQ && warps * 32 == wg::THREADS &&
-             (D == 64 || D == 128)) {
+  } else if (bf16 && rows == wg::TQ && warps * 32 == wg::THREADS && wide) {
     kernel = 2;
+  } else if (!bf16 && rows == tf::TQ && warps * 32 == tf::THREADS && wide &&
+             kv != nullptr && (uintptr_t)kv % 16 == 0) {
+    kernel = 3;
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -1480,10 +1977,10 @@ extern "C" int flash_attn_tiled(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   const int c = causal ? 1 : 0;
   switch (D) {
-    case 16: return launch_tiled<16>(q, k, v, out, BH, Sq, Sk, rep, scale, c, kernel, s);
-    case 32: return launch_tiled<32>(q, k, v, out, BH, Sq, Sk, rep, scale, c, kernel, s);
-    case 64: return launch_tiled<64>(q, k, v, out, BH, Sq, Sk, rep, scale, c, kernel, s);
-    case 128: return launch_tiled<128>(q, k, v, out, BH, Sq, Sk, rep, scale, c, kernel, s);
+    case 16: return launch_tiled<16>(q, k, v, out, kv, BH, Sq, Sk, rep, scale, c, kernel, s);
+    case 32: return launch_tiled<32>(q, k, v, out, kv, BH, Sq, Sk, rep, scale, c, kernel, s);
+    case 64: return launch_tiled<64>(q, k, v, out, kv, BH, Sq, Sk, rep, scale, c, kernel, s);
+    case 128: return launch_tiled<128>(q, k, v, out, kv, BH, Sq, Sk, rep, scale, c, kernel, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,10 +11,13 @@ operands follow the TPU kernel: scores, softmax state and sums in fp32,
 launches the CUDA kernel for CUDA tensors and runs
 ``flash_attention_plain`` only for tensors that lie on the CPU;
 ``flash_plan`` chooses the route (the ``rows`` kernel for short prompts,
-the ``tiled`` kernels for long sequences; all in ``csrc/flash_attn.cu``)
-and its launch shape; ``flash_attention_tiled_plain`` computes the same
-function in a tiled bf16 kernel's order of rounding, for a bit-level
-check of that route in bf16.  The kernel has no backward (nor
+the ``tiled`` kernels for long sequences or many keys; all in
+``csrc/flash_attn.cu``) and its launch shape; ``flash_attention_tiled_plain``
+computes the same function in a tiled bf16 kernel's order of rounding, for
+a bit-level check of that route in bf16; ``flash_attention_3xtf32_plain``
+is the fp32 wgmma kernel's arithmetic (three TF32 products a multiply-add)
+and ``split_kv_plain`` the layout its pre-pass writes K and V in, for the
+precision argument on the CPU.  The kernel has no backward (nor
 has the TPU kernel): on the card it refuses an operand that requires grad
 while grad mode is on, where the output would silently cut the gradient.
 Meta operands (the dry run, ``launch.dryrun``) launch nothing: after the
@@ -31,10 +34,12 @@ import torch
 
 from ..native import (NUM_SMS, LaunchCounter, LaunchTotal, launch_on,
                       load_library, record_kernel)
+from ..tf32 import split_tf32
 
 __all__ = ["flash_attention", "flash_attention_plain",
-           "flash_attention_tiled_plain", "flash_plan", "FlashPlan",
-           "flash_cost", "launches", "kernel_launches", "HEAD_DIMS"]
+           "flash_attention_tiled_plain", "flash_attention_3xtf32_plain",
+           "split_kv_plain", "flash_plan", "FlashPlan", "flash_cost",
+           "launches", "kernel_launches", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 128)  # the kernels' template instances
 DTYPES = (torch.float32, torch.bfloat16)
@@ -46,12 +51,15 @@ MAX_GRID_Y = 65535  # one row of blocks per (KV head, head group)
 # the tiled route: each kernel's launch shape, (query rows a block, keys a
 # tile, warps a block); csrc/flash_attn.cu's flash_attn_tiled takes these
 # and no other
-TILED_MIN_SQ = {False: 48, True: 32}  # query rows from which flash_plan takes it
 TILED_KERNELS = {"ffma": (64, 64, 8),      # fp32, FFMA
                  "mma": (64, 64, 4),       # bf16 on mma.sync, every head dim
-                 "wgmma": (128, 128, 12)}  # bf16 on wgmma: 2 + 1 warpgroups
-WGMMA_HEAD_DIMS = (64, 128)  # the wgmma kernel's instances
+                 "wgmma": (128, 128, 12),  # bf16 on wgmma: 2 + 1 warpgroups
+                 "tf32x3": (128, 64, 12)}  # fp32 as 3xTF32 on wgmma: 2 + 1
+WGMMA_HEAD_DIMS = (64, 128)  # the wgmma kernels' instances (bf16 and fp32)
 WGMMA_MIN_ROWS = 9216  # query rows over all heads from which bf16 takes it
+WGMMA_MIN_SK = 256  # unmasked keys from which bf16 takes it whatever the rows
+TF32X3_MIN_ROWS = 9216  # query rows over all heads from which fp32 takes it
+SPLIT_KEYS = TILED_KERNELS["tf32x3"][1]  # keys a tile of the split K/V scratch
 MAX_TILED_BLOCKS = 2 ** 31 - 1  # a flat grid of (query head, row tile)
 # launches of each kernel (rows, and the three tiled ones), and of them all;
 # each is named after K4, so a CUDA graph's tally counts them as K4's
@@ -93,51 +101,83 @@ class FlashPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def flash_plan(bh: int, sq: int, sk: int, d: int, rep: int,
-               bf16: bool = False) -> FlashPlan:
+               bf16: bool = False, causal: bool = True) -> FlashPlan:
     """The launch K4 uses for ``q (bh, sq, d)`` over ``k/v (bh / rep, sk,
-    d)`` (``bf16`` operands, else fp32): ``tiled_plan`` from
-    ``TILED_MIN_SQ`` query rows on, else ``rows_plan``.  ``sk`` changes
-    nothing: every block walks its keys in chunks.
-
-    The crossovers, timed by ``scripts/torch_route_sweep.py`` on an NVIDIA
-    H100 80GB HBM3 at 700 W at the zoo's prefill heads (SmolLM-135M,
-    Qwen3-4B, Hymba-1.5B, Whisper-medium's decoder; 4 prompts, causal),
-    device ms.  fp32: at 16 query rows the rows route is the faster in all
-    4 cells, at 32 in 3 of 4, from 48 the FFMA tiled kernel in all 4
-    (3.2-4.4x at 512).  bf16: at 16 rows the rows route in all 4 (0.0061
-    against the mma.sync kernel's 0.0071 at Qwen3-4B's heads), from 32 the
-    tiled route in all 4 (0.0072 against 0.0117 at Qwen3-4B's; a tie at
-    SmolLM's, 0.00504 against 0.00506).  Of the two bf16 tiled kernels
-    (``tiled_kernel``) the mma.sync one is the faster up to 8,192 query
-    rows over all heads in all 4 cells (at Qwen3-4B's 128 heads x 64 rows
-    0.0079 against the wgmma kernel's 0.0094), the wgmma one from 9,216 in
-    all 4 (128 x 96: 0.0096 against 0.0114; at 512 rows 1.1-1.8x, at the
-    Qwen3-4B prefill of 64 heads x 2,048 rows 2.1x)."""
-    del sk
-    if sq >= TILED_MIN_SQ[bool(bf16)]:
-        return tiled_plan(bh, sq, d, rep, bf16)
+    d)`` (``bf16`` operands, else fp32; ``causal`` or no mask):
+    ``tiled_plan`` where ``tiled_route`` says, else ``rows_plan``.  Only
+    unmasked calls read ``sk``: the route sweep's cross-attention cells
+    are Whisper's, unmasked, and a causal query row reads at most ``sq``
+    keys."""
+    cross = 0 if causal else sk
+    if tiled_route(sq, cross, rep, bf16):
+        return tiled_plan(bh, sq, d, rep, bf16, cross=cross)
     return rows_plan(bh, sq, d, rep)
 
 
-def tiled_kernel(bh: int, sq: int, d: int, bf16: bool) -> str:
-    """The tiled route's kernel for ``q (bh, sq, d)``: fp32 on FFMA; bf16
-    on wgmma where it has an instance (``WGMMA_HEAD_DIMS``) and from
-    ``WGMMA_MIN_ROWS`` query rows over all heads on, else on mma.sync (its
-    64-row blocks fill the card sooner)."""
+def tiled_route(sq: int, cross: int, rep: int, bf16: bool) -> bool:
+    """Whether K4 takes the tiled route for ``sq`` query rows a head,
+    ``rep`` query heads a KV head, over ``cross`` keys without the mask (0
+    for a causal call).  The rows route serves short prompts; a rows-route
+    block re-reads its KV head's keys for every 16 (head, row) pairs it
+    serves, so many pairs (``sq * rep``) or many unmasked keys
+    (cross-attention) go to the tiled route.
+
+    The crossovers, timed by ``scripts/torch_route_sweep.py`` on an NVIDIA
+    H100 80GB HBM3 at 700 W (device ms): at the zoo's prefill heads
+    (SmolLM-135M, Qwen3-4B, Hymba-1.5B, Whisper-medium's decoder; 4
+    prompts, causal, Sk = Sq) and, without a mask, 16 and 32 queries over
+    256-4,096 keys at Whisper-medium's decoder heads (its
+    cross-attention).  bf16: the rows route is the faster at 16 rows over
+    16 keys in all 4 prefill cells (0.0060 against the mma.sync kernel's
+    0.0070 at Qwen3-4B's heads), a tiled kernel from 32 rows in all 4
+    (0.0073 against 0.0117) and from 256 keys in all 8 cross cells (0.0081
+    against 0.0180 at 16 x 256).  fp32: the rows route at 16 rows in all 4
+    prefill cells and at 32 in 3 of 4; Hymba's 25 heads over 5 (160
+    pairs) take the FFMA kernel from 32 rows (0.0087 against 0.0097); over
+    cross keys the rows route up to 512 (0.0423 against 0.0453 at 32 x
+    512), the FFMA kernel from 1,500 (0.1302 against 0.1419 at 32 x
+    1,500)."""
+    if bf16:
+        return sq >= 32 or cross >= WGMMA_MIN_SK
+    return sq >= 48 or sq * rep >= 160 or cross >= 1024
+
+
+def tiled_kernel(bh: int, sq: int, d: int, bf16: bool, cross: int = 0) -> str:
+    """The tiled route's kernel for ``q (bh, sq, d)`` over ``cross`` keys
+    without the mask (0 for a causal call): at D 64 and 128
+    (``WGMMA_HEAD_DIMS``) from ``WGMMA_MIN_ROWS`` (bf16) or
+    ``TF32X3_MIN_ROWS`` (fp32) query rows over all heads on, a wgmma
+    kernel (bf16, or fp32 as 3xTF32), and in bf16 also from
+    ``WGMMA_MIN_SK`` cross keys whatever the rows; else the mma.sync
+    kernel (bf16) or the FFMA one (fp32), whose 64-row blocks fill the
+    card sooner.
+
+    Timed by ``scripts/torch_route_sweep.py`` (H100 80GB HBM3, 700 W,
+    device ms; the cells of ``tiled_route``).  bf16: the mma.sync kernel
+    is the faster up to 8,192 query rows over all heads in all 4 prefill
+    cells (at Qwen3-4B's 128 heads x 64 rows 0.0078 against the wgmma
+    kernel's 0.0093), the wgmma one from 9,216 in all 4 (128 x 96: 0.0094
+    against 0.0113; at the Qwen3-4B prefill of 64 heads x 2,048 rows
+    0.1573 against 0.3394) and over cross keys in all 8 cells (0.0081
+    against 0.0082 at 16 x 256, 0.0223 against 0.0297 at 16 x 1,500).
+    fp32: the FFMA kernel up to 8,192 rows over all heads (at 64 heads x
+    128 rows 0.0145 against the 3xTF32 kernel's 0.0157) and over cross
+    keys (0.1301 against 0.1410 at 16 x 1,500), the 3xTF32 one from 9,216
+    (36 x 256: 0.0219 against 0.0290)."""
+    wide = d in WGMMA_HEAD_DIMS
     if not bf16:
-        return "ffma"
-    if d in WGMMA_HEAD_DIMS and bh * sq >= WGMMA_MIN_ROWS:
-        return "wgmma"
-    return "mma"
+        return "tf32x3" if wide and bh * sq >= TF32X3_MIN_ROWS else "ffma"
+    return ("wgmma" if wide and (bh * sq >= WGMMA_MIN_ROWS
+                                 or cross >= WGMMA_MIN_SK) else "mma")
 
 
 def tiled_plan(bh: int, sq: int, d: int, rep: int, bf16: bool = False,
-               kernel: str | None = None) -> FlashPlan:
+               kernel: str | None = None, cross: int = 0) -> FlashPlan:
     """The tiled route on ``kernel`` (``tiled_kernel``'s by default; a
-    bf16 kernel can be named to time the two side by side): one block per
-    (query head, its rows), walking its key tiles, as ``TILED_KERNELS``
+    kernel of the type can be named to time two side by side): one block
+    per (query head, its rows), walking its key tiles, as ``TILED_KERNELS``
     says."""
-    kernel = kernel or tiled_kernel(bh, sq, d, bf16)
+    kernel = kernel or tiled_kernel(bh, sq, d, bf16, cross)
     rows, _, warps = TILED_KERNELS[kernel]
     return FlashPlan("tiled", 1, rows, warps, rep, bh * -(-sq // rows), kernel)
 
@@ -196,7 +236,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     operands take the TPU kernel's arithmetic: fp32 scores (the products of
     bf16 values are exact in fp32), ``e = exp(s - max)`` and its fp32 sum
     ``l``, ``e`` rounded to bf16 for P.V with an fp32 sum, then
-    ``acc / max(l, 1e-30)`` rounded to bf16."""
+    ``acc / max(l, 1e-30)`` rounded to bf16.  float64 operands compute in
+    float64 throughout."""
     _check(q, k, v, rep)
     d = q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
@@ -206,8 +247,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
-    else:
-        s = torch.einsum("bqd,bkd->bqk", q, k).float() * scale
+    else:  # fp32, or float64 kept whole (the precision checks' reference)
+        s = torch.einsum("bqd,bkd->bqk", q, k) * scale
     if causal:
         sq, sk = q.shape[1], k.shape[1]
         ok = (torch.arange(sk, device=q.device)[None, :]
@@ -241,7 +282,9 @@ def flash_attention_tiled_plain(q: torch.Tensor, k: torch.Tensor,
     d = q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
     if tile is None:
-        tile = TILED_KERNELS[tiled_kernel(q.shape[0], q.shape[1], d, True)][1]
+        cross = 0 if causal else k.shape[1]
+        tile = TILED_KERNELS[tiled_kernel(q.shape[0], q.shape[1], d, True,
+                                          cross)][1]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=0)
         v = v.repeat_interleave(rep, dim=0)
@@ -267,6 +310,101 @@ def flash_attention_tiled_plain(q: torch.Tensor, k: torch.Tensor,
                                         vt.float())
         m = m_new
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def split_kv_numel(bhkv: int, sk: int, d: int) -> int:
+    """Floats of the 3xTF32 kernel's split K/V scratch (``split_kv_plain``)."""
+    return bhkv * -(-sk // SPLIT_KEYS) * 4 * SPLIT_KEYS * d
+
+
+def _swizzled(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Offset of element (row, col) of a [rows][32 floats] block with the
+    128-byte swizzle: 16-byte chunk q of a row lies at q ^ (row % 8)."""
+    return rows * 32 + (((cols // 4) ^ (rows % 8)) * 4) + cols % 4
+
+
+@functools.lru_cache(maxsize=None)
+def _split_kv_offsets(d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where each element of a key tile lands in its part of the scratch:
+    ``(k_off, v_off)``, each (SPLIT_KEYS, d) int64 offsets into ``SPLIT_KEYS
+    * d`` floats.  K's part is ``d / 32`` blocks of [keys][32 floats], key
+    j at row j; V^T's part is ``SPLIT_KEYS / 32`` blocks of [d][32 keys],
+    with the keys of each 8-key group placed so that slot s holds key 2s
+    (s < 4) or 2(s - 4) + 1: the layout of P.V's B in which a thread's
+    score accumulators (keys 2t and 2t + 1 of each group) are P's tf32 A
+    fragments (k-slots t and t + 4) as they lie."""
+    keys = torch.arange(SPLIT_KEYS)[:, None]
+    cols = torch.arange(d)[None, :]
+    k_off = (cols // 32) * (SPLIT_KEYS * 32) + _swizzled(keys, cols % 32)
+    w = keys % 8
+    slot = (keys % 32 // 8) * 8 + (w >> 1) + 4 * (w & 1)
+    v_off = (keys // 32) * (d * 32) + _swizzled(cols, slot)
+    return k_off, v_off
+
+
+def split_kv_plain(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The 3xTF32 kernel's pre-pass (``flash_tiled_split_kv``) in torch
+    ops: ``k/v (BHkv, Sk, D)`` fp32 split by ``split_tf32``, written key
+    tile by key tile (``SPLIT_KEYS`` keys, zero past Sk) as four parts, K
+    hi, K lo, V^T hi, V^T lo, each laid out as ``_split_kv_offsets`` says.
+    Returns the scratch as ``(BHkv, tiles, 4, SPLIT_KEYS * D)``."""
+    bhkv, sk, d = k.shape
+    nt = -(-sk // SPLIT_KEYS)
+    pad = nt * SPLIT_KEYS - sk
+    out = torch.empty((bhkv, nt, 4, SPLIT_KEYS * d), dtype=torch.float32,
+                      device=k.device)
+    for part, (t, off) in enumerate(zip((k, v), _split_kv_offsets(d))):
+        t = torch.nn.functional.pad(t, (0, 0, 0, pad)).reshape(
+            bhkv, nt, SPLIT_KEYS * d)
+        off = off.to(k.device).reshape(-1).expand(bhkv, nt, -1)
+        for half, x in enumerate(split_tf32(t)):
+            out[:, :, 2 * part + half].scatter_(-1, off, x)
+    return out
+
+
+def flash_attention_3xtf32_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, *, scale: float | None = None,
+                                 causal: bool = True, rep: int = 1,
+                                 tile: int = SPLIT_KEYS) -> torch.Tensor:
+    """The 3xTF32 kernel's arithmetic in torch ops, fp32 only: q, k, v and
+    each tile's p split by ``split_tf32``, every product as ``lo*hi +
+    hi*lo + hi*hi`` (products of TF32 values are exact in fp32) summed in
+    fp32, the keys walked in tiles of ``tile`` with the fp32 online softmax
+    of the FFMA kernel (``p = exp(s * scale - m)``), and each tile's P.V
+    summed on its own before ``acc = acc * corr + part`` (the kernel's
+    promotion: no tensor-core accumulation chain spans two tiles)."""
+    _check(q, k, v, rep)
+    if q.dtype != torch.float32 or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"3xTF32 takes float32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=0)
+        v = v.repeat_interleave(rep, dim=0)
+
+    def mm3(a, b):  # a (.., m, n) . b (.., n, p) as three TF32 products
+        (ah, al), (bh_, bl) = split_tf32(a), split_tf32(b)
+        return (al @ bh_ + ah @ bl) + ah @ bh_
+
+    bh, sq, _ = q.shape
+    sk = k.shape[1]
+    rows = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((bh, sq, 1), float("-inf"), device=q.device)
+    l = torch.zeros((bh, sq, 1), device=q.device)
+    acc = torch.zeros((bh, sq, d), device=q.device)
+    for k0 in range(0, sk, tile):
+        kt, vt = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
+        x = mm3(q, kt.transpose(1, 2)) * scale
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[1], device=q.device)[None, :]
+            x = x.masked_fill((keys > rows)[None], float("-inf"))
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(x - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + mm3(p, vt)
+        m = m_new
+    return acc / l.clamp_min(1e-30)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -304,7 +442,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head_dim {d}: K4 is built for {HEAD_DIMS}")
     sk = k.shape[1]
     bf16 = q.dtype == torch.bfloat16
-    plan = flash_plan(bh, sq, sk, d, rep, bf16)
+    plan = flash_plan(bh, sq, sk, d, rep, bf16, causal)
     if (plan.route == "rows" and bh // rep * plan.groups > MAX_GRID_Y
             or plan.route == "tiled" and plan.blocks > MAX_TILED_BLOCKS):
         raise ValueError(f"BH={bh}, Sq={sq} exceed the {plan.route} kernel's grid")
@@ -333,9 +471,18 @@ def launch_plan(plan: FlashPlan, q: torch.Tensor, k: torch.Tensor,
     # boundary is copied to fresh (aligned) storage
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     lib = load_library()
-    name = "flash_attn_tiled" if plan.route == "tiled" else "flash_attn"
-    launch_on(name, q, getattr(lib, name), q.data_ptr(), k.data_ptr(),
-              v.data_ptr(), out.data_ptr(), bh, sq, k.shape[1], d, rep,
-              float(scale), int(causal), int(q.dtype == torch.bfloat16),
-              plan.heads, plan.rows, plan.warps)
+    args = (bh, sq, k.shape[1], d, rep, float(scale), int(causal),
+            int(q.dtype == torch.bfloat16), plan.heads, plan.rows, plan.warps)
+    if plan.route == "rows":
+        launch_on("flash_attn", q, lib.flash_attn, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), *args)
+        return out
+    # the 3xTF32 kernel's K and V, split once a launch (split_kv_plain's
+    # layout); the other tiled kernels read none
+    kv = (torch.empty(split_kv_numel(k.shape[0], k.shape[1], d),
+                      dtype=torch.float32, device=q.device)
+          if plan.kernel == "tf32x3" else None)
+    launch_on("flash_attn_tiled", q, lib.flash_attn_tiled, q.data_ptr(),
+              k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              None if kv is None else kv.data_ptr(), *args)
     return out

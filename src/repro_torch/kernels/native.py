@@ -50,8 +50,8 @@ SIGNATURES = {
     # q, k, v, out, BH, Sq, Sk, D, rep, scale, causal, bf16, heads, rows,
     # warps, stream
     "flash_attn": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
-    # the same arguments
-    "flash_attn_tiled": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    # the same arguments, with the 3xTF32 kernel's K/V scratch after out
+    "flash_attn_tiled": [_P] * 5 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
 }
 
 

@@ -423,8 +423,8 @@ FLASH_CASES = [(36, 16, 16, 64, 3, True), (12, 8, 8, 16, 3, True),
                (4, 16, 1500, 64, 1, False)]
 
 
-def _route(sq, bf16=False):
-    return "tiled" if sq >= k4.TILED_MIN_SQ[bf16] else "rows"
+def _route(sq, sk, rep, causal, bf16=False):
+    return "tiled" if k4.tiled_route(sq, 0 if causal else sk, rep, bf16) else "rows"
 
 
 def _qkv(cuda, bh, sq, sk, d, rep, dtype=torch.float32):
@@ -435,7 +435,8 @@ def _qkv(cuda, bh, sq, sk, d, rep, dtype=torch.float32):
 
 @pytest.mark.parametrize("bh,sq,sk,d,rep,causal", FLASH_CASES)
 def test_cuda_flash_attention_matches_plain(cuda, bh, sq, sk, d, rep, causal):
-    assert k4.flash_plan(bh, sq, sk, d, rep).route == _route(sq)
+    assert k4.flash_plan(bh, sq, sk, d, rep, causal=causal).route == _route(
+        sq, sk, rep, causal)
     q, k, v = _qkv(cuda, bh, sq, sk, d, rep)
     before = k4.launches.count
     got = k4.flash_attention(q, k, v, causal=causal, rep=rep)
@@ -464,9 +465,9 @@ def test_cuda_flash_attention_bf16_matches_plain(cuda, bh, sq, sk, d, rep, causa
     also held row by row to the tile-order walk, as ``chip_smoke.py`` holds
     it (``check_tiled_bf16``: each row within 2^-7 of its own max, nearly
     every bit equal, and p left whole visibly different)."""
-    plan = k4.flash_plan(bh, sq, sk, d, rep, bf16=True)
+    plan = k4.flash_plan(bh, sq, sk, d, rep, bf16=True, causal=causal)
     route = plan.route
-    assert route == _route(sq, bf16=True)
+    assert route == _route(sq, sk, rep, causal, bf16=True)
     q, k, v = _qkv(cuda, bh, sq, sk, d, rep, torch.bfloat16)
     before = k4.launches.count
     got = k4.flash_attention(q, k, v, causal=causal, rep=rep)
@@ -524,6 +525,41 @@ def test_cuda_flash_tiled_bf16_launches_repeat(cuda, kernel):
     assert torch.equal(first, second)
 
 
+# (BH, Sq, Sk, D, rep, causal) for the fp32 3xTF32 kernel: D 64 and 128,
+# causal and not, Sq != Sk, query and key tiles cut short (Sq off 128, Sk
+# off 64, fewer keys than a tile), GQA rep 1, 4 and 5, and query rows over
+# all heads on both sides of TF32X3_MIN_ROWS (8,192 and 9,216 at 64 heads)
+TF32X3_CASES = [(2, 128, 128, 64, 1, True), (2, 128, 128, 128, 1, False),
+                (4, 200, 200, 64, 4, False), (4, 130, 300, 128, 4, False),
+                (5, 257, 257, 64, 5, True), (10, 300, 300, 128, 5, True),
+                (8, 1000, 1000, 128, 4, True), (3, 77, 45, 128, 1, False),
+                (4, 16, 1500, 64, 1, False), (6, 333, 1000, 64, 3, True),
+                (64, 128, 128, 64, 1, True), (64, 144, 144, 128, 4, True),
+                (64, 1500, 1500, 64, 1, False), (32, 511, 511, 128, 4, True)]
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,rep,causal", TF32X3_CASES)
+def test_cuda_flash_tiled_tf32x3_kernel_holds_fp32(cuda, bh, sq, sk, d, rep, causal):
+    """The fp32 tiled kernel on wgmma (3xTF32), forced at each shape: within
+    2e-5 of the fp32 plain version, its error against the plain version in
+    float64 at most ``chip_smoke.K4_FP64_RATIO`` times the fp32 plain
+    version's, and a second launch repeats it bit for bit."""
+    plan = k4.tiled_plan(bh, sq, d, rep, False, kernel="tf32x3")
+    assert (plan.rows, plan.keys, plan.warps) == (128, 64, 12)
+    q, k, v = _qkv(cuda, bh, sq, sk, d, rep)
+    got = k4.launch_plan(plan, q, k, v, scale=None, causal=causal, rep=rep)
+    again = k4.launch_plan(plan, q, k, v, scale=None, causal=causal, rep=rep)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = k4.flash_attention_plain(q, k, v, causal=causal, rep=rep)
+    _close(got, want, rel=2e-5)
+    want64 = k4.flash_attention_plain(q.double(), k.double(), v.double(),
+                                      causal=causal, rep=rep)
+    err = float((got.double() - want64).abs().max())
+    plain_err = float((want.double() - want64).abs().max())
+    assert err <= _chip_smoke().K4_FP64_RATIO * plain_err, (err, plain_err)
+
+
 def test_cuda_lm_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="float32"):
         k3.coded_gemm(torch.zeros(4, 4).double(),
@@ -572,6 +608,13 @@ def test_cuda_lm_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(RuntimeError, match="failed to launch"):
         k4.launch_plan(k4.tiled_plan(6, 64, 32, 3, bf16=True, kernel="wgmma"),
                        b32, b32[:2], b32[:2], scale=None, causal=True, rep=3)
+    # ... and so does the 3xTF32 kernel: the FFMA kernel's warps with its
+    # rows, or head dim 32
+    tf_plan = k4.tiled_plan(6, 64, 64, 3, kernel="tf32x3")
+    for plan, x in ((tf_plan._replace(warps=8), q64),
+                    (k4.tiled_plan(6, 64, 32, 3, kernel="tf32x3"), b32.float())):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            k4.launch_plan(plan, x, x[:2], x[:2], scale=None, causal=True, rep=3)
 
 
 def _smoke_lm(device):

@@ -34,10 +34,10 @@ from repro_torch.kernels.conv2d.kernel import (ROUTES, TC_BLOCKS_PER_SM,
 from repro_torch.kernels.flash_attn.kernel import (MAX_GRID_Y,
                                                    MAX_TILED_BLOCKS, MAX_WARPS,
                                                    PAIRS_A_WARP,
-                                                   TILED_KERNELS, TILED_MIN_SQ,
+                                                   TF32X3_MIN_ROWS, TILED_KERNELS,
                                                    WGMMA_HEAD_DIMS, WGMMA_MIN_ROWS,
                                                    flash_plan, max_pairs,
-                                                   tiled_plan)
+                                                   tiled_plan, tiled_route)
 from repro_torch.kernels.matmul.kernel import (COLUMN_THREADS, SPLIT_CHOICES,
                                                SPLIT_CHUNK, SPLIT_MAX_M,
                                                SPLIT_STRIP, matmul_plan)
@@ -276,11 +276,14 @@ def test_coded_gemm_plan_covers_every_width(r_out, r_in, f, aligned):
 
 def _covers_flash(bh, sq, d, rep, bf16=False):
     plan = flash_plan(bh, sq, sq, d, rep, bf16)
-    assert plan.route == ("tiled" if sq >= TILED_MIN_SQ[bf16] else "rows")
+    assert plan.route == ("tiled" if tiled_route(sq, 0, rep, bf16) else "rows")
     if plan.route == "tiled":
         tiles = plan.blocks // bh
-        wgmma = d in WGMMA_HEAD_DIMS and bh * sq >= WGMMA_MIN_ROWS
-        kernel = ("wgmma" if wgmma else "mma") if bf16 else "ffma"
+        wide = d in WGMMA_HEAD_DIMS
+        wgmma = wide and bh * sq >= WGMMA_MIN_ROWS  # causal: Sk not read
+        tf32x3 = wide and bh * sq >= TF32X3_MIN_ROWS
+        kernel = (("wgmma" if wgmma else "mma") if bf16 else
+                  "tf32x3" if tf32x3 else "ffma")
         assert plan.kernel == kernel
         assert (plan.rows, plan.keys, plan.warps) == TILED_KERNELS[kernel]
         assert (plan.heads, plan.groups) == (1, rep)
@@ -336,38 +339,72 @@ def test_flash_plan_covers_every_shape(bh, sq, d, rep, bf16):
 @pytest.mark.parametrize("bf16", [False, True])
 def test_flash_plan_takes_the_tiled_route_for_long_prompts(bf16):
     """The Qwen3-4B prefill of 2 x 2,048 tokens (32 query heads over 8 KV
-    heads, D 128): fp32, one block per (query head, 64 rows), 2,048 in
-    all; bf16, the wgmma kernel's one block per (query head, 128 rows),
-    1,024 of 12 warps walking 128-key tiles, where the rows route served
-    16 (head, row) pairs a block; the prefill of 16 tokens stays on the
-    rows route."""
+    heads, D 128): one block per (query head, 128 rows), 1,024 of 12 warps
+    (two wgmma warpgroups and a loader), walking 128-key tiles in bf16 and
+    64-key tiles of split K/V in fp32 (3xTF32), where the rows route
+    served 16 (head, row) pairs a block; the prefill of 16 tokens stays on
+    the rows route.  Whisper-medium's decoder cross-attention (16 queries
+    over 1,500 frames) takes the tiled route too: the FFMA kernel's 64-row
+    blocks at D 64 in fp32, the wgmma kernel in bf16."""
     plan = flash_plan(64, 2048, 2048, 128, 4, bf16)
     assert plan.route == "tiled"
-    assert plan.blocks == (64 * 16 if bf16 else 64 * 32)
+    assert plan.blocks == 64 * 16
     assert (plan.kernel, plan.warps, plan.keys) == (("wgmma", 12, 128) if bf16
-                                                    else ("ffma", 8, 64))
+                                                    else ("tf32x3", 12, 64))
     assert flash_plan(128, 16, 16, 128, 4, bf16).route == "rows"
-    assert flash_plan(64, 16, 1500, 64, 1, bf16).route == "rows"
-    assert flash_plan(64, 1500, 1500, 64, 1, bf16).route == "tiled"
+    cross = flash_plan(64, 16, 1500, 64, 1, bf16, causal=False)
+    assert (cross.route, cross.kernel) == ("tiled", "wgmma" if bf16 else "ffma")
+    assert flash_plan(64, 1500, 1500, 64, 1, bf16, causal=False).route == "tiled"
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_tiled_plan_kernels_by_head_dim(d):
-    """bf16 takes the wgmma kernel at D 64 and 128 from ``WGMMA_MIN_ROWS``
-    query rows over all heads (the route sweep's crossover) and keeps the
-    mma.sync kernel below them and at D 16 and 32; fp32 keeps the FFMA
-    kernel at every D; the mma.sync kernel can be named at any D, to time
-    it beside the wgmma one (``bh * ceil(sq / rows)`` blocks either
-    way)."""
-    bf16 = flash_plan(8, 2047, 2047, d, 2, True)
-    assert bf16.kernel == ("wgmma" if d >= 64 else "mma")
-    assert bf16.blocks == 8 * -(-2047 // bf16.rows)
-    assert flash_plan(128, 64, 64, d, 4, True).kernel == "mma"  # 8,192 rows
-    assert flash_plan(128, 96, 96, d, 4, True).kernel == ("wgmma" if d >= 64
-                                                          else "mma")
-    assert flash_plan(8, 2047, 2047, d, 2, False).kernel == "ffma"
-    kept = tiled_plan(8, 2047, d, 2, True, kernel="mma")
-    assert (kept.rows, kept.keys, kept.warps, kept.blocks) == (64, 64, 4, 8 * 32)
+    """Each type takes its wgmma kernel at D 64 and 128 from its row
+    threshold over all heads (``WGMMA_MIN_ROWS`` bf16, ``TF32X3_MIN_ROWS``
+    fp32; the route sweep's crossovers) and keeps the mma.sync (bf16) or
+    FFMA (fp32) kernel below it and at D 16 and 32; the kept kernels can
+    be named at any D, to time them beside the wgmma ones (``bh *
+    ceil(sq / rows)`` blocks either way)."""
+    for bf16, wgmma, kept in ((True, "wgmma", "mma"), (False, "tf32x3", "ffma")):
+        plan = flash_plan(8, 2047, 2047, d, 2, bf16)
+        assert plan.kernel == (wgmma if d >= 64 else kept)
+        assert plan.blocks == 8 * -(-2047 // plan.rows)
+        assert flash_plan(128, 64, 64, d, 4, bf16).kernel == kept  # 8,192 rows
+        assert flash_plan(128, 96, 96, d, 4, bf16).kernel == (wgmma if d >= 64
+                                                              else kept)
+    mma = tiled_plan(8, 2047, d, 2, True, kernel="mma")
+    assert (mma.rows, mma.keys, mma.warps, mma.blocks) == (64, 64, 4, 8 * 32)
+    ffma = tiled_plan(8, 2047, d, 2, False, kernel="ffma")
+    assert (ffma.rows, ffma.keys, ffma.warps, ffma.blocks) == (64, 64, 8, 8 * 32)
+
+
+# (BH, Sq, Sk, D, rep, causal, bf16, route, kernel): the route sweep's
+# cells on each side of the routes' crossovers, Whisper-medium's unmasked
+# cross-attention among them; and causal shapes with Sk past the cross
+# thresholds, whose plan reads the query rows alone
+ROUTE_CELLS = [(100, 32, 32, 64, 5, True, False, "tiled", "ffma"),
+               (100, 16, 16, 64, 5, True, False, "rows", "rows"),
+               (128, 32, 32, 128, 4, True, False, "rows", "rows"),
+               (64, 16, 512, 64, 1, False, False, "rows", "rows"),
+               (64, 32, 512, 64, 1, False, False, "rows", "rows"),
+               (64, 32, 1500, 64, 1, False, False, "tiled", "ffma"),
+               (64, 16, 4096, 64, 1, False, False, "tiled", "ffma"),
+               (64, 16, 256, 64, 1, False, True, "tiled", "wgmma"),
+               (64, 32, 4096, 64, 1, False, True, "tiled", "wgmma"),
+               (128, 64, 64, 128, 4, True, True, "tiled", "mma"),
+               (64, 16, 16, 64, 1, True, True, "rows", "rows"),
+               (8, 1024, 1024, 128, 4, True, False, "tiled", "ffma"),
+               (32, 256, 256, 64, 1, True, True, "tiled", "mma")]
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,rep,causal,bf16,route,kernel", ROUTE_CELLS)
+def test_flash_plan_reads_sk_and_rep(bh, sq, sk, d, rep, causal, bf16, route,
+                                     kernel):
+    """The route and kernel ``flash_plan`` takes where the sweep crossed:
+    many (head, row) pairs a KV head or many unmasked keys leave the rows
+    route; a causal call's plan does not read Sk."""
+    plan = flash_plan(bh, sq, sk, d, rep, bf16, causal)
+    assert (plan.route, plan.kernel) == (route, kernel)
 
 
 def test_flash_plan_grid_limit():
